@@ -1,0 +1,367 @@
+// The per-token layer stack of the causal linear-attention transformer,
+// shared by decode_step.cu (one token per call) and decode_chunk.cu (T
+// tokens per call).  Plain C interface; no PyTorch headers.
+//
+// Per layer, one host function (stack_step) launches:
+//   gemm_kernel       qkv = h @ Wqkv (+ b, phi on the q and k columns)
+//   [reduce_act]      only when the product was split along K
+//   attn_state_kernel one block per (song, head): S += phi(k) v^T,
+//                     z += phi(k), att = phi(q)^T S / (phi(q).z + eps);
+//                     reads S once and writes it once, in its stored type
+//   gemm_kernel       att @ Wo, K-split partial sums
+//   res_ln_kernel     h1 = LN1(h + sum(partials) + bo)
+//   gemm_kernel       y1 = gelu_exact(h1 @ W1 + b1)   (erff, no polynomial)
+//   [reduce_act]
+//   gemm_kernel       y1 @ W2, K-split partial sums
+//   res_ln_kernel     h = LN2(h1 + sum(partials) + b2)
+// Everything accumulates in f32; weights are read in their stored type
+// (float or bf16), the state (S, z) in its own (float or bf16).
+//
+// The products are 32x32-tiled shared-memory GEMMs.  Decode batches are
+// skinny (M = songs), so a plain tiling gives a few dozen blocks per
+// product and leaves most of the card idle; each product is therefore
+// split along K into enough blocks to fill the card (about 8 per SM), the
+// partial sums land in an f32 scratch buffer and a second pass adds them
+// in a fixed order.  No atomics, so every result is bit-reproducible: the
+// chunked decode relies on that for its chunk invariance.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <math.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rlmg {
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ float phi(float x) { return x > 0.f ? x + 1.f : expf(fminf(x, 0.f)); }
+__device__ __forceinline__ float gelu_exact(float x) {
+  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+}
+
+enum { ACT_NONE = 0, ACT_GELU = 1, ACT_PHI = 2 };
+
+__device__ __forceinline__ float activate(float v, int act, int n, int phi_cols) {
+  if (act == ACT_GELU) return gelu_exact(v);
+  if (act == ACT_PHI && n < phi_cols) return phi(v);
+  return v;
+}
+
+constexpr int TM = 32, TN = 32, TK = 32, LIN_THREADS = 256;
+constexpr int TARGET_BLOCKS = 1024;   // ~8 resident blocks on each of 132 SMs
+
+// y (M,N) = act(x (M,K) @ w (K,N) + bias (N)), all row-major; x, y f32.
+// Block (bx, by, bz): a 32x32 tile of y over the K range
+// [bz*kchunk, (bz+1)*kchunk).  With part != nullptr the block writes its
+// raw partial sum to part[bz] (M,N) and the caller reduces; otherwise it
+// applies bias and activation and writes y.  Thread (tx, ty) owns column
+// tx, rows ty+8i.
+template <typename TW>
+__global__ void __launch_bounds__(LIN_THREADS)
+gemm_kernel(const float* __restrict__ x, const TW* __restrict__ w,
+            const TW* __restrict__ bias, float* __restrict__ y,
+            float* __restrict__ part, int M, int K, int N, int kchunk,
+            int act, int phi_cols) {
+  __shared__ float xs[TK][TM + 1];   // x tile, transposed: xs[k][m]
+  __shared__ float ws[TK][TN];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int m0 = blockIdx.y * TM, n = blockIdx.x * TN + tx;
+  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = kb; k0 < ke; k0 += TK) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 8 * i;
+      const int m = m0 + r, k = k0 + tx, kw = k0 + r;
+      xs[tx][r] = (m < M && k < ke) ? x[(size_t)m * K + k] : 0.f;
+      ws[r][tx] = (kw < ke && n < N) ? ld(w + (size_t)kw * N + n) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      const float wv = ws[kk][tx];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = fmaf(xs[kk][ty + 8 * i], wv, acc[i]);
+    }
+    __syncthreads();
+  }
+  if (n >= N) return;
+  if (part != nullptr) {
+    float* p = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + ty + 8 * i;
+      if (m < M) p[(size_t)m * N + n] = acc[i];
+    }
+    return;
+  }
+  const float b = ld(bias + n);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 8 * i;
+    if (m < M) y[(size_t)m * N + n] = activate(acc[i] + b, act, n, phi_cols);
+  }
+}
+
+// y (M,N) = act(sum_z part[z] + bias), summed in z order.
+template <typename TW>
+__global__ void reduce_act_kernel(const float* __restrict__ part,
+                                  const TW* __restrict__ bias,
+                                  float* __restrict__ y, int M, int N, int S,
+                                  int act, int phi_cols) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t MN = (size_t)M * N;
+  if (i >= MN) return;
+  const int n = (int)(i % N);
+  float v = 0.f;
+  for (int zi = 0; zi < S; ++zi) v += part[zi * MN + i];
+  y[i] = activate(v + ld(bias + n), act, n, phi_cols);
+}
+
+constexpr int ATT_THREADS = 256, MAX_E = 128;
+
+// One block per (song b, head h).  qkv (B, 3D) holds [phi(q) | phi(k) | v].
+// s, z point at this layer's (B,H,E,E) / (B,H,E) state; updated in place.
+// The read uses the f32 sums before they are rounded to the stored type.
+template <typename TS>
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_state_kernel(const float* __restrict__ qkv, TS* __restrict__ s,
+                  TS* __restrict__ z, float* __restrict__ att, int H, int E,
+                  float eps) {
+  __shared__ float qs[MAX_E], ks[MAX_E], vs[MAX_E], dq[MAX_E];
+  __shared__ float part[ATT_THREADS];
+  __shared__ float den_s;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, D = H * E;
+  const int tid = threadIdx.x;
+  const float* row = qkv + (size_t)b * 3 * D + h * E;
+  if (tid < E) {
+    qs[tid] = row[tid];
+    ks[tid] = row[D + tid];
+    vs[tid] = row[2 * D + tid];
+  }
+  __syncthreads();
+  // thread (jg, u): column u of S, rows jg, jg+G, ... (G = 256/E groups)
+  const int G = ATT_THREADS / E, u = tid % E, jg = tid / E;
+  TS* sp = s + (size_t)bh * E * E;
+  float num = 0.f;
+  for (int j = jg; j < E; j += G) {
+    TS* p = sp + (size_t)j * E + u;
+    const float sv = ld(p) + ks[j] * vs[u];
+    st(p, sv);
+    num = fmaf(qs[j], sv, num);
+  }
+  part[tid] = num;
+  if (tid < E) {
+    TS* p = z + (size_t)bh * E + tid;
+    const float zv = ld(p) + ks[tid];
+    st(p, zv);
+    dq[tid] = qs[tid] * zv;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    float d = 0.f;
+    for (int i = tid; i < E; i += 32) d += dq[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    if (tid == 0) den_s = d + eps;
+  }
+  __syncthreads();
+  if (tid < E) {
+    float n = 0.f;
+    for (int g = 0; g < G; ++g) n += part[g * E + tid];
+    att[(size_t)b * D + h * E + tid] = n / den_s;
+  }
+}
+
+// Sum over the block, returned to every thread.  red: 32 floats of shared.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  v = red[0];
+  __syncthreads();
+  return v;
+}
+
+constexpr int LN_THREADS = 256, MAX_D = 2048;
+
+// Row-wise layernorm of x (D values in shared memory, f32), in place.
+__device__ __forceinline__ void ln_row(float* xr, int D, float eps, float* red) {
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) sum += xr[i];
+  const float mu = block_sum(sum, red) / D;
+  float sq = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float d = xr[i] - mu;
+    sq += d * d;
+  }
+  const float inv = rsqrtf(block_sum(sq, red) / D + eps);
+  for (int i = threadIdx.x; i < D; i += blockDim.x) xr[i] = (xr[i] - mu) * inv;
+  __syncthreads();
+}
+
+// out[row] = LN(resid[row] + sum_z part[z][row] + bias) * scale + shift,
+// one block per row.  out may alias resid.
+template <typename TW>
+__global__ void __launch_bounds__(LN_THREADS)
+res_ln_kernel(const float* __restrict__ part, int S, const TW* __restrict__ bias,
+              const float* resid, const TW* __restrict__ scale,
+              const TW* __restrict__ shift, float* out, int M, int D, float eps) {
+  __shared__ float xr[MAX_D];
+  __shared__ float red[32];
+  const size_t base = (size_t)blockIdx.x * D, MD = (size_t)M * D;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    float v = 0.f;
+    for (int zi = 0; zi < S; ++zi) v += part[zi * MD + base + i];
+    xr[i] = resid[base + i] + (v + ld(bias + i));
+  }
+  __syncthreads();
+  ln_row(xr, D, eps, red);
+  for (int i = threadIdx.x; i < D; i += blockDim.x)
+    out[base + i] = xr[i] * ld(scale + i) + ld(shift + i);
+}
+
+#define RLMG_CHECK()                           \
+  do {                                         \
+    const cudaError_t e_ = cudaGetLastError(); \
+    if (e_ != cudaSuccess) return (int)e_;     \
+  } while (0)
+
+// K split of one (M,K)x(K,N) product: number of K slices and their length.
+struct Split {
+  int s, kchunk;
+};
+
+inline Split split_k(int M, int K, int N) {
+  const int tiles = ((N + TN - 1) / TN) * ((M + TM - 1) / TM);
+  const int ktiles = (K + TK - 1) / TK;
+  int s = (TARGET_BLOCKS + tiles - 1) / tiles;
+  if (s > ktiles) s = ktiles;
+  if (s < 1) s = 1;
+  const int kchunk = ((ktiles + s - 1) / s) * TK;
+  return {(K + kchunk - 1) / kchunk, kchunk};
+}
+
+// f32 scratch the layer stack needs at batch B: qkv (B,3D), att (B,D),
+// h1 (B,D), y1 (B,DI), then the K-split partial sums of the largest product.
+inline size_t stack_scratch_floats(int B, int D, int DI) {
+  size_t part = 0;
+  const int shapes[4][2] = {{D, 3 * D}, {D, D}, {D, DI}, {DI, D}};
+  for (auto& kn : shapes) {
+    const Split sp = split_k(B, kn[0], kn[1]);
+    const size_t n = (size_t)sp.s * B * kn[1];
+    if (n > part) part = n;
+  }
+  return (size_t)B * (3 * D + D + D + DI) + part;
+}
+
+// Layer weights, per-layer slices of (L, ...) stacks, all in one type TW:
+// qkv_w (D,3D), qkv_b (3D), wo_w (D,D), wo_b, ln1_s, ln1_b (D),
+// f1_w (D,DI), f1_b (DI), f2_w (DI,D), f2_b, ln2_s, ln2_b (D).
+enum { W_QKV, B_QKV, W_O, B_O, LN1_S, LN1_B, W_F1, B_F1, W_F2, B_F2, LN2_S, LN2_B, N_WEIGHTS };
+
+template <typename TW>
+int linear(const float* x, const TW* w, const TW* bias, float* y, float* part,
+           int M, int K, int N, int act, int phi_cols, cudaStream_t st) {
+  const Split sp = split_k(M, K, N);
+  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, sp.s);
+  gemm_kernel<TW><<<grid, LIN_THREADS, 0, st>>>(
+      x, w, bias, y, sp.s > 1 ? part : nullptr, M, K, N, sp.kchunk, act, phi_cols);
+  RLMG_CHECK();
+  if (sp.s > 1) {
+    const size_t mn = (size_t)M * N;
+    reduce_act_kernel<TW><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+        part, bias, y, M, N, sp.s, act, phi_cols);
+    RLMG_CHECK();
+  }
+  return 0;
+}
+
+// out = LN(resid + x @ w + bias): K-split partials, then one fused pass.
+template <typename TW>
+int linear_res_ln(const float* x, const TW* w, const TW* bias, const float* resid,
+                  const TW* scale, const TW* shift, float* out, float* part, int M,
+                  int K, int N, cudaStream_t st) {
+  const Split sp = split_k(M, K, N);
+  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, sp.s);
+  gemm_kernel<TW><<<grid, LIN_THREADS, 0, st>>>(x, w, bias, nullptr, part, M, K, N,
+                                                sp.kchunk, ACT_NONE, 0);
+  RLMG_CHECK();
+  res_ln_kernel<TW><<<M, LN_THREADS, 0, st>>>(part, sp.s, bias, resid, scale, shift,
+                                              out, M, N, 1e-5f);
+  RLMG_CHECK();
+  return 0;
+}
+
+// One token through all L layers.  h (B,D) f32 is read as the input and
+// overwritten with the output; s (L,B,H,E,E), z (L,B,H,E) are updated in
+// place.  w: the N_WEIGHTS stacked weight pointers.  scratch: at least
+// stack_scratch_floats(B, D, DI) floats.
+template <typename TW, typename TS>
+int stack_step(float* h, const void* const* w, TS* s, TS* z, float* scratch, int L,
+               int B, int D, int H, int DI, float eps, cudaStream_t st) {
+  const int E = D / H;
+  const size_t sl = (size_t)B * H * E * E, zl = (size_t)B * H * E;
+  float* qkv = scratch;
+  float* att = qkv + (size_t)B * 3 * D;
+  float* h1 = att + (size_t)B * D;
+  float* y1 = h1 + (size_t)B * D;
+  float* part = y1 + (size_t)B * DI;
+  auto W = [&](int i) { return (const TW*)w[i]; };
+  for (int l = 0; l < L; ++l) {
+    const size_t dd = (size_t)l * D * D, d = (size_t)l * D;
+    int rc = linear<TW>(h, W(W_QKV) + 3 * dd, W(B_QKV) + 3 * d, qkv, part, B, D,
+                        3 * D, ACT_PHI, 2 * D, st);
+    if (rc) return rc;
+    attn_state_kernel<TS><<<B * H, ATT_THREADS, 0, st>>>(qkv, s + l * sl, z + l * zl,
+                                                         att, H, E, eps);
+    RLMG_CHECK();
+    rc = linear_res_ln<TW>(att, W(W_O) + dd, W(B_O) + d, h, W(LN1_S) + d, W(LN1_B) + d,
+                           h1, part, B, D, D, st);
+    if (rc) return rc;
+    rc = linear<TW>(h1, W(W_F1) + (size_t)l * D * DI, W(B_F1) + (size_t)l * DI, y1,
+                    part, B, D, DI, ACT_GELU, 0, st);
+    if (rc) return rc;
+    rc = linear_res_ln<TW>(y1, W(W_F2) + (size_t)l * DI * D, W(B_F2) + d, h1,
+                           W(LN2_S) + d, W(LN2_B) + d, h, part, B, DI, D, st);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+inline bool stack_shape_ok(int D, int H) {
+  const int E = H > 0 ? D / H : 0;
+  return E * H == D && E <= MAX_E && ATT_THREADS % E == 0 && D <= MAX_D;
+}
+
+// stack_step with the weight type (w_bf16) and state type (s_bf16) chosen
+// at run time.
+inline int stack_step_any(float* h, const void* const* w, void* s, void* z,
+                          float* scratch, int L, int B, int D, int H, int DI, float eps,
+                          int w_bf16, int s_bf16, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  if (w_bf16) {
+    return s_bf16 ? stack_step<bf, bf>(h, w, (bf*)s, (bf*)z, scratch, L, B, D, H, DI, eps, st)
+                  : stack_step<bf, float>(h, w, (float*)s, (float*)z, scratch, L, B, D, H,
+                                          DI, eps, st);
+  }
+  return s_bf16 ? stack_step<float, bf>(h, w, (bf*)s, (bf*)z, scratch, L, B, D, H, DI, eps, st)
+                : stack_step<float, float>(h, w, (float*)s, (float*)z, scratch, L, B, D, H,
+                                           DI, eps, st);
+}
+
+}  // namespace rlmg
