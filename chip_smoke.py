@@ -5,8 +5,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
-  1. builds every kernel of the generation path from ``csrc/`` (one nvcc
-     per source, in parallel) and prints the card's name and power limit;
+  1. builds every kernel of the generation and training paths from
+     ``csrc/`` (one nvcc per source, in parallel), prints each library's
+     ptxas registers and spills, and the card's name and power limit;
   2. at the full width of ``config.agent_config`` (12 layers, d_model 512,
      8 heads, FFN 2048) with random weights from a seed, holds each kernel
      against its plain PyTorch version on the same inputs:
@@ -25,7 +26,23 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
   3. runs ``apps/cli.py generate`` end to end twice, 5 songs (the per-step
      v4 path) and 128 songs (the chunked v6 path), checks the MIDI files
      and fails if a kernel of the path was launched no time;
-  4. times each kernel and its plain version at the main path's shapes
+  4. holds the two training kernels against their plain versions at the
+     pretrain slice's shapes (B=32 x S=512 rows, flagship width, f32,
+     TF32 off): qkv_attention_block (kernel C) forward within 1e-4 of the
+     output's magnitude and (dh, dWqkv, dbqkv) within 1e-3 of each
+     gradient's; attn_tail_block (kernel D) the same, at dropout 0 and 0.1
+     (the plain version draws the same Philox bits);
+  5. takes one full-width train step (dropout 0, same weights and batch)
+     on the kernel route and on the plain route: losses within 1e-4
+     relative, every gradient within 1e-3 of its leaf's magnitude, every
+     parameter after the Adam update within 1e-4 of its magnitude, and the
+     Adam updates themselves within 1e-3 of the leaf's largest update
+     wherever the plain gradient's sign is settled (|g| above the gradient
+     check's limit); then times two more steps of each;
+  6. runs ``apps/cli.py pretrain`` for 4 steps at B=32, S=512 on each route
+     and fails unless each training-kernel counter reads 12 x steps on the
+     kernel route (0 on the plain one) and every logged loss is finite;
+  7. times each kernel and its plain version at the main path's shapes
      (CUDA events) beside the least time the card could take.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -34,6 +51,7 @@ It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -78,6 +96,69 @@ def bound(nbytes: float, flops: float):
 
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def magnitude(t) -> float:
+    return max(1.0, t.float().abs().max().item())
+
+
+def named_leaves(tree, prefix=""):
+    """{"/layers/wq/w": detached copy, ...} of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(named_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree.detach().clone()}
+
+
+def fwd_bwd(fn, inputs, g):
+    """fn's output and the gradients of <output, g> w.r.t. every input."""
+    ts = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ts)
+    return out.detach(), torch.autograd.grad(out, ts, g)
+
+
+def time_fwd_bwd(fn, inputs, g, reps: int):
+    """(forward ms, backward ms): the forward without autograd, the
+    backward of one retained graph."""
+    with torch.no_grad():
+        f_ms = time_ms(lambda: fn(*inputs), reps)
+    ts = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ts)
+    b_ms = time_ms(lambda: torch.autograd.grad(out, ts, g, retain_graph=True), reps)
+    return f_ms, b_ms
+
+
+def qkv_attention_work(n, d, h, n_seq, tile=64):
+    """(forward, backward) operations and bytes of qkv_attention_block at
+    this shape, the attention counted at the kernel's 64-row tile: a score
+    product (q k^T, A v and their backward counterparts) counts only its
+    causal half, tile (tile + 1) e operations, and a state product
+    (q S, S += k^T v, ...) 2 tile e^2.  Forward: 2 score and 2 state
+    products a tile; backward: 2 + 2 in the prefix pass, 4 + 3 in the
+    suffix pass, plus the dh / dW / db products."""
+    e, s = d // h, n // n_seq
+    tiles = n_seq * h * -(-s // tile)
+    tri, state = tile * (tile + 1) * e, 2 * tile * e * e
+    f_ops = 2 * n * d * 3 * d + tiles * (2 * tri + 2 * state)
+    b_ops = tiles * (6 * tri + 5 * state) + 4 * n * d * 3 * d + n * 3 * d
+    f_bytes = 4 * (n * d + 3 * d * d + 3 * d + n * d + 3 * n * d + n * h)
+    b_bytes = 4 * (3 * n * d + n * d + n * d + n * h + n * d + 3 * d * d + n * d + 3 * d * d
+                   + 3 * d)
+    return (f_ops, f_bytes), (b_ops, b_bytes)
+
+
+def attn_tail_work(n, d, di):
+    """(forward, backward) operations and bytes of attn_tail_block: the
+    backward recomputes the forward and takes two products per weight."""
+    w = 4 * (d * d + 2 * d * di + 7 * d + di)
+    f_ops = 2 * n * (d * d + 2 * d * di)
+    return (f_ops, 4 * 3 * n * d + w), (3 * f_ops, 4 * 5 * n * d + 2 * w)
 
 
 def main() -> None:
@@ -263,7 +344,190 @@ def main() -> None:
                 check(head == b"MThd", f"generate {songs} songs: get_{i}.mid is not a MIDI")
             check(res["songs"] == songs and res["tokens"] >= songs, "generate: no tokens")
 
-    # -- 4. times at the main path's shapes --------------------------------
+    # -- 4. the training kernels against their plain versions -------------
+    from reinforcement_learning_in_music_generation_torch.data import dataset
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        attention_block as tab, ffn_block as tfb)
+    from reinforcement_learning_in_music_generation_torch.train import (
+        optim as topt, pretrain as tpre)
+    BT, ST, CHUNK = 32, 512, cfg.attn_chunk
+    NT = BT * ST
+    lp0 = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in params["layers"].items()}
+    wqkv = torch.cat([lp0["wq"]["w"], lp0["wk"]["w"], lp0["wv"]["w"]], -1).contiguous()
+    bqkv = torch.cat([lp0["wq"]["b"], lp0["wk"]["b"], lp0["wv"]["b"]]).contiguous()
+    h_tr = torch.randn((NT, D), generator=gen, device=dev)
+    g_tr = torch.randn((NT, D), generator=gen, device=dev)
+    c_in = (h_tr, wqkv, bqkv)
+    c_kernel = lambda h_, w_, b_: tab.qkv_attention_block(h_, w_, b_, BT, H, chunk=CHUNK)
+    c_plain = lambda h_, w_, b_: tab.qkv_attention_block_plain(h_, w_, b_, BT, H, chunk=CHUNK)
+    ok, gk = fwd_bwd(c_kernel, c_in, g_tr)
+    op, gp = fwd_bwd(c_plain, c_in, g_tr)
+    c_err = max_err(ok, op)
+    print(f"[qkv_attention] B={BT} S={ST} D={D} H={H} chunk {CHUNK}: max|d att| {c_err:.3e} "
+          f"(max|att| {magnitude(op):.3e})", flush=True)
+    check(c_err <= 1e-4 * magnitude(op), f"qkv_attention forward: max|d att| {c_err}")
+    for name, x, y in zip(("dh", "dWqkv", "dbqkv"), gk, gp):
+        e = max_err(x, y)
+        print(f"[qkv_attention] {name}: max|diff| {e:.3e} of magnitude {magnitude(y):.3e}",
+              flush=True)
+        check(e <= 1e-3 * magnitude(y), f"qkv_attention {name}: max|diff| {e}")
+
+    tail_ws = [lp0["wo"]["w"], lp0["wo"]["b"], lp0["ln1"]["scale"], lp0["ln1"]["bias"],
+               lp0["ffn1"]["w"], lp0["ffn1"]["b"], lp0["ffn2"]["w"], lp0["ffn2"]["b"],
+               lp0["ln2"]["scale"], lp0["ln2"]["bias"]]
+    tail_ws = [t.contiguous() for t in tail_ws]
+    d_in = (h_tr, op.contiguous(), *tail_ws)
+    seed_t = torch.tensor(20260, dtype=torch.int32, device=dev)
+    d_err = 0.0
+    tail_names = ("dh_in", "da_pre", "dWo", "dbo", "dln1_s", "dln1_b", "dW1", "db1", "dW2",
+                  "db2", "dln2_s", "dln2_b")
+    for p_drop in (0.0, 0.1):
+        ok, gk = fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed_t, p_drop), d_in, g_tr)
+        op_, gp = fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed_t, p_drop), d_in, g_tr)
+        e = max_err(ok, op_)
+        d_err = max(d_err, e)
+        print(f"[attn_tail] N={NT} D={D} DI={DI} p={p_drop}: max|d out| {e:.3e} "
+              f"(max|out| {magnitude(op_):.3e})", flush=True)
+        check(e <= 1e-4 * magnitude(op_), f"attn_tail p={p_drop} forward: max|diff| {e}")
+        worst = 0.0
+        for name, x, y in zip(tail_names, gk, gp):
+            e = max_err(x, y) / magnitude(y)
+            worst = max(worst, e)
+            check(e <= 1e-3, f"attn_tail p={p_drop} {name}: max|diff| {e} of its magnitude")
+        print(f"[attn_tail] p={p_drop}: 12 gradients, worst max|diff| / magnitude "
+              f"{worst:.3e}", flush=True)
+    del gk, gp
+
+    # -- 5. one full-width train step, kernel route against plain route ----
+    tcfg = C.agent_config(cfg.vocab_sizes, dropout=0.0)
+    p0 = lt.init_params(tcfg, seed=0, device=dev)
+    xs, ys, ms = (torch.from_numpy(a).to(dev) for a in
+                  dataset.synthetic_cp_dataset(BT, ST, n_class=cfg.vocab_sizes, seed=0))
+    xs, ys = xs.long(), ys.long()
+    routes = {"kernel": {}, "plain": {"RLMG_FFN_BACKEND": "xla", "RLMG_ATTN_BACKEND": "xla"}}
+    knobs = ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_FFN_MIN_ROWS")
+    saved_env = {k: os.environ.get(k) for k in knobs}
+
+    def set_route(name):
+        for k in knobs:
+            os.environ.pop(k, None)
+        os.environ.update(routes[name])
+
+    def restore_env():
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+    counters = ((tab.qkv_attention_block, "launches_fwd"), (tab.qkv_attention_block, "launches_bwd"),
+                (tfb.attn_tail_block, "launches_fwd"), (tfb.attn_tail_block, "launches_bwd"))
+
+    def zero_counts():
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return [getattr(fn, attr) for fn, attr in counters]
+
+    step_out, step_ms = {}, {}
+    for name in ("kernel", "plain"):
+        set_route(name)
+        prm = topt.tree_map(torch.clone, p0)
+        tx = topt.adam(1e-4, grad_clip=3.0)
+        state = tx.init(prm)
+        zero_counts()
+        grads, (loss, losses) = tpre.agent_grad_step(prm, tcfg, xs, ys, ms, None)
+        updates, _ = tx.update(grads, state, prm)     # pure: what apply_grads adds
+        prm, state = tpre.apply_grads(prm, state, tx, grads)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        step_out[name] = (float(loss), losses.cpu(), named_leaves(prm), named_leaves(grads),
+                          named_leaves(updates))
+        del grads, updates
+        t = time.perf_counter()
+        for _ in range(2):
+            prm, state, (loss, _) = tpre.agent_train_step(prm, state, tcfg, tx, xs, ys, ms, None)
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t) / 2 * 1e3
+        print(f"[train_step] {name} route: loss {step_out[name][0]:.6f}, kernel launches "
+              f"(C fwd, C bwd, D fwd, D bwd) {counts}, {step_ms[name]:.1f} ms/step, "
+              f"{NT / step_ms[name] * 1e3:.1f} tokens/s", flush=True)
+        want = [tcfg.n_layer] * 4 if name == "kernel" else [0] * 4
+        check(counts == want, f"train step, {name} route: launches {counts}, expected {want}")
+        del prm, state
+    restore_env()
+    lk, lsk, pk, gk, uk = step_out["kernel"]
+    lp_, lsp, pp, gp, up = step_out["plain"]
+    rel = abs(lk - lp_) / abs(lp_)
+    print(f"[train_step] loss kernel {lk:.7f} plain {lp_:.7f} (relative {rel:.2e}); "
+          f"per field max relative {((lsk - lsp).abs() / lsp.abs()).max().item():.2e}",
+          flush=True)
+    check(rel <= 1e-4, f"train step: losses differ by {rel} relative")
+    # gradients: each leaf within 1e-3 of its own magnitude.  Parameters
+    # after Adam: within 1e-4 of magnitude(p) = max(1, max|p|), the
+    # convention of every check here.  Per leaf without the floor, Adam's
+    # g / (|g| + eps) magnifies gradient rounding near g = 0 by up to 1/eps,
+    # which shows on the zero-initialised LayerNorm biases; printed too.
+    # One step at lr 1e-4 moves a parameter by at most about 1e-4, so the
+    # parameter check alone cannot see a wrong update: the updates are
+    # compared on their own scale, wherever |g_plain| exceeds the gradient
+    # check's limit (1e-3 of the leaf's largest), so no sign is left to
+    # rounding; there g / (|g| + eps) moves by at most eps |dg| / g^2.
+    g_worst = max((max_err(gk[k], gp[k]) / max(gp[k].abs().max().item(), 1e-30), k)
+                  for k in gp)
+    u_worst, u_seen = (0.0, ""), 0
+    for k in up:
+        settled = gp[k].abs() > 1e-3 * gp[k].abs().max()
+        u_seen += int(settled.sum().item())
+        if settled.any():
+            e = (uk[k] - up[k])[settled].abs().max().item() / up[k].abs().max().item()
+            u_worst = max(u_worst, (e, k))
+    p_worst = max((max_err(pk[k], pp[k]) / magnitude(pp[k]), k) for k in pp)
+    p_leaf = max((max_err(pk[k], pp[k]) / max(pp[k].abs().max().item(), 1e-30), k)
+                 for k in pp)
+    print(f"[train_step] gradients: worst max|diff| / leaf magnitude {g_worst[0]:.3e} "
+          f"({g_worst[1]})", flush=True)
+    print(f"[train_step] params after one Adam step: worst max|diff| / magnitude "
+          f"{p_worst[0]:.3e} ({p_worst[1]}); without the floor of 1: {p_leaf[0]:.3e} "
+          f"({p_leaf[1]})", flush=True)
+    n_prm = sum(t.numel() for t in up.values())
+    print(f"[train_step] Adam updates: worst max|diff| / leaf's largest update "
+          f"{u_worst[0]:.3e} ({u_worst[1]}) over the {u_seen} of {n_prm} elements whose "
+          f"gradient sign is settled", flush=True)
+    check(g_worst[0] <= 1e-3, f"train step: gradient {g_worst[1]} differs by {g_worst[0]}")
+    check(p_worst[0] <= 1e-4, f"train step: param {p_worst[1]} differs by {p_worst[0]}")
+    check(u_worst[0] <= 1e-3, f"train step: update of {u_worst[1]} differs by {u_worst[0]}")
+    del step_out, pk, pp, gk, gp, uk, up, p0
+
+    # -- 6. the training main path: cli pretrain, 4 steps at B=32 x S=512 ---
+    cli_res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("kernel", "plain"):
+            set_route(name)
+            zero_counts()
+            res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64",
+                            "--batch-size", str(BT), "--seq-len", str(ST), "--max-steps", "4",
+                            "--exp-dir", os.path.join(tmp, name, "exp"),
+                            "--ckpt-dir", os.path.join(tmp, name, "ckpt")])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            cli_res[name] = (res, counts)
+            ms_step = res["seconds"] / res["steps"] * 1e3
+            print(f"[pretrain] {name} route: {res['steps']} steps in {res['seconds']:.3f}s "
+                  f"= {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s (with one "
+                  f"epoch-end checkpoint); logged losses {res['batch_losses']}; launches "
+                  f"(C fwd, C bwd, D fwd, D bwd) {counts}", flush=True)
+            check(res["steps"] == 4, f"pretrain {name}: {res['steps']} steps, expected 4")
+            check(len(res["batch_losses"]) > 0 and all(
+                math.isfinite(v) for v in res["batch_losses"] + res["history"]),
+                f"pretrain {name}: a logged loss is not finite")
+            want = [12 * 4] * 4 if name == "kernel" else [0] * 4
+            check(counts == want, f"pretrain {name}: launches {counts}, expected {want}")
+    restore_env()
+    launches["C"] = cli_res["kernel"][1][:2]
+    launches["D"] = cli_res["kernel"][1][2:]
+
+    # -- 7. times at the main path's shapes --------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
     sdt = st.s.dtype
     h5 = lt.embed_input(params, cfg, rand_tokens(1, 5)[0], 0, None).float()
@@ -293,6 +557,31 @@ def main() -> None:
     print(f"[time] decode_chunk B={b6} T={T6}: {b_ms:.3f} ms, plain {b_plain:.3f} ms, "
           f"bound {b_bound:.4f} ms ({b_by})")
 
+    c_fwd, c_bwd = time_fwd_bwd(c_kernel, c_in, g_tr, 20)
+    c_pf, c_pb = time_fwd_bwd(c_plain, c_in, g_tr, 5)
+    att_k, pqkv_k, den_k = tab.forward_kernel(h_tr, wqkv, bqkv, BT, H, cfg.attn_eps)
+    c_pass = time_ms(lambda: tab.backward_kernel(pqkv_k, g_tr, att_k, den_k, BT, H,
+                                                 cfg.attn_eps), 20)
+    (cf_ops, cf_b), (cb_ops, cb_b) = qkv_attention_work(NT, D, H, BT)
+    c_bf, c_bfby = bound(cf_b, cf_ops)
+    c_bb, c_bbby = bound(cb_b, cb_ops)
+    d_tr = (h_tr, att_k.contiguous(), *tail_ws)
+    d_fwd, d_bwd = time_fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed_t, 0.1), d_tr, g_tr, 10)
+    d_pf, d_pb = time_fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed_t, 0.1), d_tr,
+                              g_tr, 3)
+    (df_ops, df_b), (db_ops, db_b) = attn_tail_work(NT, D, DI)
+    d_bf, d_bfby = bound(df_b, df_ops)
+    d_bb, d_bbby = bound(db_b, db_ops)
+    print(f"[time] qkv_attention N={NT}: forward {c_fwd:.3f} ms (plain {c_pf:.3f}, bound "
+          f"{c_bf:.4f} {c_bfby}, {cf_ops / 1e9:.2f} GFLOP), backward {c_bwd:.3f} ms (plain "
+          f"{c_pb:.3f}, bound {c_bb:.4f} {c_bbby}, {cb_ops / 1e9:.2f} GFLOP; the two kernel "
+          f"passes alone {c_pass:.3f} ms)")
+    print(f"[time] attn_tail N={NT} p=0.1: forward {d_fwd:.3f} ms (plain {d_pf:.3f}, bound "
+          f"{d_bf:.4f} {d_bfby}, {df_ops / 1e9:.2f} GFLOP), backward {d_bwd:.3f} ms (plain "
+          f"{d_pb:.3f}, bound {d_bb:.4f} {d_bbby}, {db_ops / 1e9:.2f} GFLOP)")
+    print(f"[time] train step B={BT} S={ST}: kernel route {step_ms['kernel']:.1f} ms, plain "
+          f"route {step_ms['plain']:.1f} ms")
+
     pkg = "reinforcement_learning_in_music_generation_torch"
     tpu = "reinforcement_learning_in_music_generation_tpu/ops"
     kernels = [
@@ -304,6 +593,21 @@ def main() -> None:
          "replaces": f"{tpu}/decode_kernel_v6.py:364", "launches": launches["v6"],
          "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
          "bound_by": b_by, "library_ms": None},
+        {"name": "qkv_attention_block", "route": "cuda",
+         "source": f"{pkg}/csrc/attention_block.cu",
+         "replaces": f"{tpu}/attention_block.py:346", "launches": sum(launches["C"]),
+         "launches_fwd": launches["C"][0], "launches_bwd": launches["C"][1],
+         "max_abs_err": c_err, "ms": c_fwd + c_bwd, "ms_fwd": c_fwd, "ms_bwd": c_bwd,
+         "plain_ms": c_pf + c_pb, "bound_ms": c_bf + c_bb, "bound_ms_fwd": c_bf,
+         "bound_ms_bwd": c_bb, "bound_by": c_bfby if c_bfby == c_bbby else "operations",
+         "library_ms": None},
+        {"name": "attn_tail_block", "route": "cuda", "source": f"{pkg}/csrc/attn_tail.cu",
+         "replaces": f"{tpu}/ffn_block.py:419", "launches": sum(launches["D"]),
+         "launches_fwd": launches["D"][0], "launches_bwd": launches["D"][1],
+         "max_abs_err": d_err, "ms": d_fwd + d_bwd, "ms_fwd": d_fwd, "ms_bwd": d_bwd,
+         "plain_ms": d_pf + d_pb, "bound_ms": d_bf + d_bb, "bound_ms_fwd": d_bf,
+         "bound_ms_bwd": d_bb, "bound_by": d_bfby if d_bfby == d_bbby else "operations",
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

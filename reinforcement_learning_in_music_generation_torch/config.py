@@ -1,10 +1,10 @@
 """Configuration dataclasses (own copy of the JAX package's ``config.py``).
 
 Only what the ported paths use: the causal linear-attention transformer's
-config, the generation config and the flagship ``agent_config`` preset.
-Field names and defaults match the JAX package; the training-only fields
-(dropout, attention chunk and backend, remat, scan unroll) come with the
-training slice.
+config, the generation and pretrain configs and the flagship
+``agent_config`` preset.  Field names and defaults match the JAX package.
+Left out: ``scan_unroll`` (the port runs its layer loop eagerly, there is
+no scan to unroll) and ``PretrainConfig.prng_impl`` (a JAX PRNG choice).
 """
 
 from __future__ import annotations
@@ -24,8 +24,13 @@ class LinearTransformerConfig:
     n_head: int = 8
     d_inner: int = 2048
     max_len: int = 20000           # sinusoidal table size
+    dropout: float = 0.1
     attn_eps: float = 1e-6         # linear-attention denominator epsilon
+    attn_chunk: int = 128          # linear-attention chunk length
+    attn_backend: Optional[str] = None  # 'xla' / 'pallas-qkv' / 'pallas'; None = auto/env
+    remat: bool = False            # per-layer recompute (not ported: raises)
     with_value_head: bool = False  # PPO actor adds one
+    dtype: str = "float32"         # compute dtype ("bfloat16": f32 master weights)
 
     @property
     def d_head(self) -> int:
@@ -53,3 +58,25 @@ class GenerateConfig:
     batch_size: int = 1             # songs generated simultaneously
     out_dir: str = "gen_midis"
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainConfig:
+    """Agent pretrain loop (dqn_policy/agent_pretrain.py:38-54,516)."""
+
+    n_epoch: int = 4000
+    batch_size: int = 4
+    lr: float = 1e-4
+    grad_clip: float = 3.0
+    early_stop_loss: float = 0.05   # agent_pretrain.py:629-632
+    ckpt_dir: str = "./ckpt"
+    exp_dir: str = "./exp"
+    seed: int = 0
+    log_every: int = 10             # batches between host-side loss fetches
+    lr_milestones: Tuple[int, ...] = ()   # MultiStepLR milestones, in epochs
+    lr_gamma: float = 0.1
+    zero1: bool = False             # not ported (raises)
+    prefetch_depth: int = 2         # host->device input look-ahead
+    grad_accum: int = 1             # micro-batches per optimizer step
+    ckpt_backend: str = "pickle"    # "orbax" is not ported (raises)
+    save_on_interrupt: bool = False  # SIGTERM/SIGINT: checkpoint and return

@@ -43,33 +43,12 @@ namespace rlmg {
 
 constexpr int VF_PAD = 256, MAX_NF = 8, NUCLEUS_ITERS = 24;
 constexpr float NEG = -1e30f;
-constexpr uint32_t PHILOX_KEY1 = 0x5DEECE66u;
 
 struct FieldArgs {
   int off[MAX_NF];      // first row of field f in the folded embedding M
   float tinv[MAX_NF];   // 1 / temperature
   float topp[MAX_NF];   // nucleus mass (inf: keep every token)
 };
-
-__device__ __forceinline__ uint32_t philox_first(uint32_t seed, uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3) {
-  uint32_t k0 = seed, k1 = PHILOX_KEY1;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return c0;
-}
 
 // Standard Gumbel noise from 32 random bits: u in (0,1) from the top 24.
 __device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {

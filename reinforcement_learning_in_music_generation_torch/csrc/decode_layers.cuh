@@ -44,6 +44,30 @@ __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
 }
 
+// First output word of Philox4x32-10 at counter (c0..c3), key (seed,
+// PHILOX_KEY1).  ops/decode_common.py philox_bits draws the same bits.
+constexpr uint32_t PHILOX_KEY1 = 0x5DEECE66u;
+
+__device__ __forceinline__ uint32_t philox_first(uint32_t seed, uint32_t c0, uint32_t c1,
+                                                 uint32_t c2, uint32_t c3) {
+  uint32_t k0 = seed, k1 = PHILOX_KEY1;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return c0;
+}
+
 enum { ACT_NONE = 0, ACT_GELU = 1, ACT_PHI = 2 };
 
 __device__ __forceinline__ float activate(float v, int act, int n, int phi_cols) {

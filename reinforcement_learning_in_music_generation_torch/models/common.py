@@ -57,8 +57,11 @@ def init_embedding(vocab: int, dim: int, *, generator, device,
 
 
 def scaled_embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """nn.Embedding * sqrt(d) (dqn_policy/model.py:67-74)."""
-    return table[ids] * math.sqrt(table.shape[-1])
+    """nn.Embedding * sqrt(d) (dqn_policy/model.py:67-74).  An embedding
+    lookup, not ``table[ids]``: on a card the backward of advanced indexing
+    walks each run of repeated ids serially, and with vocabularies of 18-135
+    ids over 16384 rows that took 5.5 ms per field per step."""
+    return torch.nn.functional.embedding(ids, table) * math.sqrt(table.shape[-1])
 
 
 def init_layernorm(dim: int, *, device, dtype=torch.float32,
@@ -84,6 +87,18 @@ def sinusoidal_table(max_len: int, d_model: int, dtype=torch.float32,
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe.to(dtype)
+
+
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout, keep probability 1 - rate (JAX ``cm.dropout``).  No
+    generator means no dropout.  The mask is drawn from ``generator`` (on
+    x's device), so it differs from the JAX package's draw for the same
+    seed."""
+    if deterministic or rate <= 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def init_field_embeddings(vocab_sizes: Sequence[int], emb_sizes: Sequence[int],

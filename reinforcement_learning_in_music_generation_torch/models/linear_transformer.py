@@ -1,25 +1,35 @@
-"""Causal linear-attention CP transformer: init and recurrent decode.
+"""Causal linear-attention CP transformer: init, the parallel (training)
+forward and the recurrent decode.
 
-Counterpart of the JAX package's ``models/linear_transformer.py`` (decode
-half).  Post-norm architecture (fast_transformers' TransformerEncoderLayer):
+Counterpart of the JAX package's ``models/linear_transformer.py``.
+Post-norm architecture (fast_transformers' TransformerEncoderLayer):
 
     x -> 6 scaled embeddings -> concat(1216) -> in_linear(512) -> +sinusoidal
       -> 12x [ attn -> +res -> LN1 -> gelu FFN(2048) -> +res -> LN2 ] -> LN
       -> 6 independent heads
 
 Parameters are the JAX tree as dicts of tensors: same key paths, ``w``
-stored (in, out), per-layer leaves stacked (L, ...).  The parallel
-(training) forward is not ported yet.
+stored (in, out), per-layer leaves stacked (L, ...).  The training forward
+picks its route per layer as the JAX package does (``_ffn_backend``): on a
+CUDA device at ``RLMG_FFN_MIN_ROWS`` (8192) rows or more, kernel C
+(``ops/attention_block.py``) and kernel D (``ops/ffn_block.py``); otherwise
+the plain PyTorch composition.  Not ported yet (ROADMAP): ``value_head``,
+``forward_prefill``, ``remat``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import LinearTransformerConfig
-from ..ops.linear_attention import linear_attention_step
+from ..ops.attention_block import qkv_attention_block
+from ..ops.ffn_block import attn_tail_block
+from ..ops.linear_attention import (causal_linear_attention,
+                                    causal_linear_attention_bshe, linear_attention_step)
+from ..ops.losses import fields_cross_entropy
 from . import common as cm
 
 
@@ -52,6 +62,13 @@ def init_params(cfg: LinearTransformerConfig, *, seed: int = 0,
     return params
 
 
+def n_params(params: dict) -> int:
+    """Trainable parameter count (dqn_policy/model.py:61-65 network_paras)."""
+    if isinstance(params, dict):
+        return sum(n_params(v) for v in params.values())
+    return params.numel()
+
+
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
     """Every floating leaf cast to ``dtype``."""
     if isinstance(params, dict):
@@ -59,10 +76,162 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
     return params.to(dtype) if params.is_floating_point() else params
 
 
+# -- parallel (training) mode ---------------------------------------------------
+
+_FFN_BACKENDS = ("xla", "pallas-tail", "pallas")
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    b, s, d = x.shape
+    return x.reshape(b, s, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def _ffn_min_rows() -> int:
+    """Rows below which the fused route falls back to the composition
+    (RLMG_FFN_MIN_ROWS, default 8192, as in the JAX package)."""
+    return int(os.environ.get("RLMG_FFN_MIN_ROWS", "8192"))
+
+
+def _ffn_backend(n_rows: int, device: torch.device) -> str:
+    """FFN-tail route of the training forward: "pallas-tail" runs kernel D
+    (Wo + dropout + residual + LN1 + FFN + LN2, ``ops/ffn_block.py``),
+    "xla" the plain PyTorch composition, "pallas" the post-LN1 kernel (not
+    ported yet: raises).  RLMG_FFN_BACKEND overrides.
+
+    Default: the JAX rule with "the tensors are on a CUDA device" in place
+    of "the default backend is a TPU": "pallas-tail" at ``_ffn_min_rows()``
+    rows or more on a CUDA device, else "xla".  The JAX rule's device-count
+    and tensor-parallel guards have no counterpart: the port runs on one
+    card and shards nothing."""
+    v = os.environ.get("RLMG_FFN_BACKEND")
+    if v:
+        if v not in _FFN_BACKENDS:
+            raise ValueError(f"RLMG_FFN_BACKEND={v!r}: expected one of {_FFN_BACKENDS}")
+        return v
+    if device.type == "cuda" and n_rows >= _ffn_min_rows():
+        return "pallas-tail"
+    return "xla"
+
+
+def _qkv_attention_call(cfg: LinearTransformerConfig, lp: dict,
+                        h: torch.Tensor) -> Optional[torch.Tensor]:
+    """Kernel C (``ops/attention_block.py``) for (b, s, d) ``h``, or None
+    where it does not serve the configuration and the caller takes the
+    composition: the JAX rule (2-D h, odd head count, sequence length not
+    a multiple of the chunk).  A head layout the kernel does not take
+    raises there."""
+    if h.ndim != 3 or cfg.n_head % 2 != 0:
+        return None
+    b, s, d = h.shape
+    chunk = min(cfg.attn_chunk, s)
+    if s % chunk != 0:
+        return None
+    wqkv = torch.cat([lp["wq"]["w"], lp["wk"]["w"], lp["wv"]["w"]], dim=-1)
+    bqkv = torch.cat([lp["wq"]["b"], lp["wk"]["b"], lp["wv"]["b"]])
+    att = qkv_attention_block(h.reshape(b * s, d), wqkv, bqkv, b, cfg.n_head, chunk=chunk,
+                              eps=cfg.attn_eps)
+    return att.reshape(b, s, d)
+
+
+def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
+                   generator: Optional[torch.Generator], deterministic: bool,
+                   attn_backend: Optional[str]) -> torch.Tensor:
+    # an explicitly requested attention backend (argument, config or env)
+    # is not dropped by the fused route, whose attention is the head-minor
+    # composition or kernel C; "xla" and None are compatible with it
+    explicit_attn = attn_backend or cfg.attn_backend or os.environ.get("RLMG_ATTN_BACKEND")
+    fused_ok = explicit_attn in (None, "", "xla", "pallas-qkv")
+    if h.ndim == 3 and fused_ok and _ffn_backend(h.shape[0] * h.shape[1],
+                                                 h.device) == "pallas-tail":
+        b, s, d = h.shape
+        att = None
+        if explicit_attn in ("pallas-qkv", None, ""):
+            att = _qkv_attention_call(cfg, lp, h)
+        if att is None:
+            bshe = lambda x: x.reshape(b, s, cfg.n_head, cfg.d_head)
+            att = causal_linear_attention_bshe(
+                bshe(cm.linear(lp["wq"], h)), bshe(cm.linear(lp["wk"], h)),
+                bshe(cm.linear(lp["wv"], h)), eps=cfg.attn_eps, chunk=cfg.attn_chunk)
+        # no generator means no dropout (cm.dropout semantics), not dropout
+        # with a fixed seed
+        p = 0.0 if (deterministic or generator is None) else cfg.dropout
+        if p > 0.0:
+            seed = torch.randint(0, 2 ** 30, (), generator=generator, device=generator.device,
+                                 dtype=torch.int32).to(h.device, non_blocking=True)
+        else:
+            seed = 0
+        out = attn_tail_block(h.reshape(b * s, d), att.reshape(b * s, d).contiguous(),
+                              lp["wo"]["w"], lp["wo"]["b"], lp["ln1"]["scale"],
+                              lp["ln1"]["bias"], lp["ffn1"]["w"], lp["ffn1"]["b"],
+                              lp["ffn2"]["w"], lp["ffn2"]["b"], lp["ln2"]["scale"],
+                              lp["ln2"]["bias"], seed, p)
+        return out.reshape(b, s, d)
+    att = None
+    if explicit_attn == "pallas-qkv":
+        att = _qkv_attention_call(cfg, lp, h)
+    if att is None:
+        q = _split_heads(cm.linear(lp["wq"], h), cfg.n_head)
+        k = _split_heads(cm.linear(lp["wk"], h), cfg.n_head)
+        v = _split_heads(cm.linear(lp["wv"], h), cfg.n_head)
+        ca_backend = attn_backend or cfg.attn_backend
+        if ca_backend == "pallas-qkv":      # odd heads / 2-D h: the composition
+            ca_backend = "xla"
+        att = _merge_heads(causal_linear_attention(q, k, v, eps=cfg.attn_eps,
+                                                   backend=ca_backend, chunk=cfg.attn_chunk))
+    att = cm.linear(lp["wo"], att)
+    h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic))
+    if h.ndim == 3 and _ffn_backend(h.shape[0] * h.shape[1], h.device) == "pallas":
+        raise NotImplementedError("RLMG_FFN_BACKEND=pallas (the JAX package's ffn_block "
+                                  "kernel, ops/ffn_block.py:187) is not ported yet: "
+                                  "ROADMAP Queue 2")
+    y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], h), approximate="none")
+    y = cm.dropout(generator, y, cfg.dropout, deterministic)
+    y = cm.linear(lp["ffn2"], y)
+    y = cm.dropout(generator, y, cfg.dropout, deterministic)
+    return cm.layernorm(lp["ln2"], h + y)
+
+
+def forward_hidden(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, *,
+                   deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                   attn_backend: Optional[str] = None) -> torch.Tensor:
+    """x (B, S, n_fields) int -> h (B, S, D) (dqn_policy/model.py:200-233:
+    embeddings -> in_linear -> positional encoding -> causal-linear
+    encoder).  ``generator`` (on the tensors' device) draws the dropout
+    masks and the kernels' dropout seeds; None means no dropout."""
+    if cfg.remat:
+        raise NotImplementedError("LinearTransformerConfig.remat is not ported yet: ROADMAP")
+    deterministic = deterministic or generator is None
+    s = x.shape[1]
+    h = cm.linear(params["in_linear"], cm.embed_fields(params["emb"], x))
+    h = h + cm.sinusoidal_table(s, cfg.d_model, h.dtype, h.device)[None]
+    h = cm.dropout(generator, h, cfg.dropout, deterministic)
+    layers = params["layers"]
+    for l in range(cfg.n_layer):
+        lp = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in layers.items()}
+        h = _layer_forward(cfg, h, lp, generator, deterministic, attn_backend)
+    return cm.layernorm(params["final_ln"], h)
+
+
 def forward_output(params: dict, cfg: LinearTransformerConfig,
                    h: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """h -> tuple of per-field logits (dqn_policy/model.py:241-249)."""
     return cm.apply_field_heads(params["heads"], h, cfg.n_fields)
+
+
+def train_losses(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor,
+                 target: torch.Tensor, mask: torch.Tensor, *, deterministic: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 attn_backend: Optional[str] = None) -> torch.Tensor:
+    """Per-field masked CE (n_fields,), as LinearTransformer.train_step
+    (dqn_policy/model.py:170-197)."""
+    h = forward_hidden(params, cfg, x, deterministic=deterministic, generator=generator,
+                       attn_backend=attn_backend)
+    return fields_cross_entropy(forward_output(params, cfg, h), target, mask)
 
 
 def make_decode_params(params: dict, cfg: LinearTransformerConfig,

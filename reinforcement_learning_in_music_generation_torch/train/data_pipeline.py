@@ -1,0 +1,46 @@
+"""Host-to-device input pipeline: depth-k prefetch of training batches (the
+counterpart of the JAX package's ``train/data_pipeline.py``).
+
+Batch i is sliced from the numpy arrays and its copy to the device is
+issued ``depth`` batches before the step that consumes it.  On a CUDA
+device the slices are staged in pinned host memory and copied with
+``non_blocking=True``, so the copies overlap the running steps.  No
+threads, the same order as slicing inline, nothing to shut down.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Iterator, Tuple
+
+import numpy as np
+import torch
+
+
+def prefetch_batches(train_x, train_y, train_mask, batch_size: int, device="cuda",
+                     depth: int = 2) -> Iterator[Tuple[int, tuple]]:
+    """Yield (batch_index, (x, y, mask)) on ``device``: x, y int64, mask
+    float32.  Partial last batches are dropped, as in the JAX package."""
+    device = torch.device(device)
+    num_batch = len(train_x) // batch_size
+    depth = max(1, depth)
+    pin = device.type == "cuda"
+
+    def dispatch(i: int):
+        lo, hi = i * batch_size, (i + 1) * batch_size
+        out = []
+        for arr, dt in ((train_x, np.int64), (train_y, np.int64), (train_mask, np.float32)):
+            t = torch.from_numpy(np.ascontiguousarray(arr[lo:hi], dtype=dt))
+            if pin:
+                t = t.pin_memory()
+            out.append(t.to(device, non_blocking=True))
+        return tuple(out)
+
+    window: deque = deque()
+    for i in range(min(depth, num_batch)):
+        window.append(dispatch(i))
+    for i in range(num_batch):
+        batch = window.popleft()
+        if i + depth < num_batch:
+            window.append(dispatch(i + depth))
+        yield i, batch

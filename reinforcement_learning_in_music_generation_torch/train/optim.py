@@ -1,0 +1,120 @@
+"""Adam with global-norm clipping and the learning-rate schedules: the
+counterpart of the JAX package's ``train/optim.py``.
+
+It follows optax's semantics (``optax.chain(clip_by_global_norm(c),
+inject_hyperparams(adam)(lr, b1, b2, eps))``), not ``torch.optim``'s:
+
+  * clipping scales every gradient by max_norm / g_norm only when
+    g_norm >= max_norm, as ``(g / g_norm) * max_norm``, with no epsilon
+    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6);
+  * Adam corrects both moments for bias, 1 - b^t computed in float32 as
+    optax does, and adds eps outside the square root;
+  * a schedule is evaluated at the optimizer step count before the update.
+
+Parameters, gradients and moments are nested dicts of tensors (the JAX
+parameter tree).  ``apply_updates`` adds the updates in place.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+Schedule = Callable[[int], float]
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of nested dicts with the same keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves: Sequence):
+    """The leaves (in ``tree_leaves`` order) put back into template's shape."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def multistep_lr(init_lr: float, milestones: Sequence[int], gamma: float = 0.1) -> Schedule:
+    """torch MultiStepLR: init_lr * gamma per milestone reached
+    (optax.piecewise_constant_schedule: a step equal to a milestone is
+    already decayed)."""
+    bounds = sorted({int(m) for m in milestones})
+
+    def schedule(count: int) -> float:
+        v = init_lr
+        for m in bounds:
+            if count >= m:
+                v *= gamma
+        return v
+    return schedule
+
+
+def step_lr(init_lr: float, step_size: int, gamma: float = 0.1) -> Schedule:
+    """torch StepLR: decay every ``step_size`` steps."""
+    def schedule(count: int) -> float:
+        return init_lr * (gamma ** (count // step_size))
+    return schedule
+
+
+class AdamState(NamedTuple):
+    mu: dict            # first moments, the params' tree
+    nu: dict            # second moments
+    count: int          # optimizer steps taken
+
+
+class Adam:
+    """Global-norm clipping (optional) followed by Adam."""
+
+    def __init__(self, lr: Union[float, Schedule], grad_clip: Optional[float] = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.grad_clip = lr, grad_clip
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: dict) -> AdamState:
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        return AdamState(tree_map(zeros, params), tree_map(zeros, params), 0)
+
+    def learning_rate(self, count: int) -> float:
+        return self.lr(count) if callable(self.lr) else self.lr
+
+    def update(self, grads: dict, state: AdamState, params: Optional[dict] = None):
+        """-> (updates, state'); no host synchronisation."""
+        if self.grad_clip is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
+                                    for g in tree_leaves(grads)))
+            keep = g_norm < self.grad_clip
+            grads = tree_map(lambda g: torch.where(keep, g, (g / g_norm) * self.grad_clip),
+                             grads)
+        b1, b2 = self.b1, self.b2
+        count = state.count + 1
+        # 1 - b^t in float32, as optax's bias_correction
+        c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
+        c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+        lr = self.learning_rate(state.count)
+        mu = tree_map(lambda g, m: (1.0 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1.0 - b2) * (g * g) + b2 * v, grads, state.nu)
+        updates = tree_map(lambda m, v: (m / c1) / (torch.sqrt(v / c2) + self.eps) * (-lr),
+                           mu, nu)
+        return updates, AdamState(mu, nu, count)
+
+
+def adam(lr: Union[float, Schedule], *, grad_clip: Optional[float] = None, b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8) -> Adam:
+    return Adam(lr, grad_clip=grad_clip, b1=b1, b2=b2, eps=eps)
+
+
+@torch.no_grad()
+def apply_updates(params: dict, updates: dict) -> dict:
+    """params += updates, in place; returns params."""
+    tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
+    return params

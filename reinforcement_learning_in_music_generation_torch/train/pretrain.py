@@ -1,0 +1,209 @@
+"""Agent pretraining: the counterpart of the JAX package's
+``train/pretrain.py`` (``agent_train_step``, ``agent_grad_step``,
+``apply_grads``, ``pretrain``).
+
+One step: loss = mean of the six masked field CEs, Adam lr 1e-4 with
+global-norm clipping at 3 (dqn_policy/agent_pretrain.py:516,557-565).
+With ``cfg.dtype == "bfloat16"`` the step is mixed precision: float32
+master weights in the optimizer, compute in bfloat16 (the CE reduces in
+float32).  The loop keeps the JAX loop's behaviour: epochs, ``log_every``,
+``max_steps``, gradient accumulation, loss-bucketed checkpoints and early
+stop at loss <= 0.05 (agent_pretrain.py:594-632), ``save_on_interrupt``
+and ``resume_from`` (in the port's checkpoint format).
+
+Runs on one device.  Not ported yet (ROADMAP Queue 1 item 9, raise
+``NotImplementedError``): a ``mesh`` (dp / tp / pp), ZeRO-1 and the orbax
+checkpoint backend.  The steps update ``params`` and the optimizer state in
+place and return them.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import LinearTransformerConfig, PretrainConfig
+from ..models import linear_transformer as lt
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.saver import MetricsBus, Saver, loss_bucket_filename
+from . import optim
+from .data_pipeline import prefetch_batches
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _grads(params: dict, cfg: LinearTransformerConfig, x, y, mask,
+           generator: Optional[torch.Generator]):
+    """(grads tree, loss, per-field losses) of the mean field CE."""
+    leaves = [t.detach().requires_grad_(True) for t in optim.tree_leaves(params)]
+    p = optim.tree_unflatten(params, leaves)
+    if cfg.dtype != "float32":
+        p = lt.cast_params(p, _DTYPES[cfg.dtype])
+    losses = lt.train_losses(p, cfg, x, y, mask, deterministic=False, generator=generator)
+    loss = losses.mean()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g.to(t.dtype)
+             for g, t in zip(grads, leaves)]
+    return optim.tree_unflatten(params, grads), loss.detach(), losses.detach()
+
+
+def agent_train_step(params: dict, opt_state: optim.AdamState, cfg: LinearTransformerConfig,
+                     tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator]):
+    """One CE pretrain step -> (params', opt_state', (loss, per-field))."""
+    grads, loss, losses = _grads(params, cfg, x, y, mask, generator)
+    updates, opt_state = tx.update(grads, opt_state, params)
+    return optim.apply_updates(params, updates), opt_state, (loss, losses)
+
+
+def agent_grad_step(params: dict, cfg: LinearTransformerConfig, x, y, mask,
+                    generator: Optional[torch.Generator], scale: float = 1.0):
+    """Gradients and loss only, the micro-batch unit of gradient
+    accumulation; ``scale`` pre-divides by the accumulation count, so the
+    summed micro-gradients are the mean gradient."""
+    grads, loss, losses = _grads(params, cfg, x, y, mask, generator)
+    if scale != 1.0:
+        grads = optim.tree_map(lambda g: g * scale, grads)
+    return grads, (loss, losses)
+
+
+def apply_grads(params: dict, opt_state: optim.AdamState, tx: optim.Adam, grads: dict):
+    updates, opt_state = tx.update(grads, opt_state, params)
+    return optim.apply_updates(params, updates), opt_state
+
+
+# Set by the SIGTERM/SIGINT handler (pcfg.save_on_interrupt) or by an
+# embedding application: the loop checkpoints and returns at the next batch.
+INTERRUPT = threading.Event()
+
+
+def _install_interrupt_handler() -> None:
+    import signal
+
+    def handler(signum, frame):
+        INTERRUPT.set()
+    try:
+        signal.signal(signal.SIGTERM, handler)
+        signal.signal(signal.SIGINT, handler)
+    except ValueError:
+        pass        # not the main thread; the caller sets INTERRUPT directly
+
+
+def pretrain(params: dict, cfg: LinearTransformerConfig, train_x, train_y, train_mask,
+             pcfg: PretrainConfig = PretrainConfig(), *, mesh=None,
+             metrics: Optional[MetricsBus] = None, max_steps: Optional[int] = None,
+             resume_from: Optional[str] = None):
+    """The pretrain loop (agent_pretrain.py:485-632) on the device that
+    holds ``params``.  Returns (params, opt_state, history of epoch losses).
+
+    ``max_steps`` bounds the batches (for tests and measurements).  A
+    ``metrics`` bus that carries a ``Saver`` logs to that saver's
+    ``log.txt``; otherwise the loop opens ``pcfg.exp_dir/log.txt``."""
+    if mesh is not None:
+        raise NotImplementedError("pretrain(mesh=...): data/tensor/pipeline parallelism is "
+                                  "not ported yet (ROADMAP Queue 1 item 9)")
+    if pcfg.zero1:
+        raise NotImplementedError("PretrainConfig.zero1 is not ported yet "
+                                  "(ROADMAP Queue 1 item 9)")
+    if pcfg.ckpt_backend != "pickle":
+        raise NotImplementedError(f"ckpt_backend={pcfg.ckpt_backend!r}: only the pickle "
+                                  "format is ported (ROADMAP Queue 1 item 9)")
+    accum = max(1, pcfg.grad_accum)
+    device = optim.tree_leaves(params)[0].device
+    # schedules count OPTIMIZER steps; milestones are epochs
+    num_batch_sched = max(1, len(train_x) // pcfg.batch_size // accum)
+    lr = (optim.multistep_lr(pcfg.lr, tuple(int(m) * num_batch_sched
+                                            for m in pcfg.lr_milestones), pcfg.lr_gamma)
+          if pcfg.lr_milestones else pcfg.lr)
+    tx = optim.adam(lr, grad_clip=pcfg.grad_clip)
+    opt_state = tx.init(params)
+    start_epoch = 0
+    if resume_from is not None:
+        if os.path.isdir(resume_from):
+            raise NotImplementedError(f"{resume_from} is a directory (an orbax checkpoint): "
+                                      "only the pickle format is ported")
+        ck = load_checkpoint(resume_from, params_template=params, opt_state_template=opt_state,
+                             device=device)
+        params = ck["params"]
+        if ck["opt_state"] is not None:
+            opt_state = ck["opt_state"]
+        start_epoch = int(ck["extra"].get("epoch", -1)) + 1
+    saver = metrics.saver if metrics is not None and metrics.saver is not None \
+        else Saver(pcfg.exp_dir)
+    bus = metrics or MetricsBus(saver)
+    saver.add_summary_msg(f" > params amount: {lt.n_params(params):,d}")
+
+    def save(name: str, extra: dict) -> str:
+        path = f"{pcfg.ckpt_dir}/{name}.ckpt"
+        return save_checkpoint(path, params, opt_state, step=saver.global_step, extra=extra)
+
+    if pcfg.save_on_interrupt:
+        _install_interrupt_handler()
+        INTERRUPT.clear()
+    num_batch = len(train_x) // pcfg.batch_size
+    generator = torch.Generator(device=device)
+    generator.manual_seed(pcfg.seed)
+    grads_acc, micro = None, 0
+    steps_done = 0
+    history = []
+    for epoch in range(start_epoch, pcfg.n_epoch):
+        # losses accumulate on the device; fetching every batch would
+        # synchronise the host with each step
+        acc_loss = torch.zeros((), device=device)
+        acc_losses = torch.zeros(len(cfg.vocab_sizes), device=device)
+        for bidx, (bx, by, bm) in prefetch_batches(train_x, train_y, train_mask,
+                                                   pcfg.batch_size, device,
+                                                   depth=pcfg.prefetch_depth):
+            saver.global_step_increment()
+            if accum == 1:
+                params, opt_state, (loss, losses) = agent_train_step(params, opt_state, cfg, tx,
+                                                                     bx, by, bm, generator)
+            else:
+                # K micro-gradients pre-scaled by 1/K sum to the mean
+                # gradient; one optimizer step per K.  The window carries
+                # across epoch boundaries.
+                grads, (loss, losses) = agent_grad_step(params, cfg, bx, by, bm, generator,
+                                                        scale=1.0 / accum)
+                grads_acc = grads if grads_acc is None else optim.tree_map(
+                    torch.add, grads_acc, grads)
+                micro += 1
+                if micro == accum:
+                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+                    grads_acc, micro = None, 0
+            acc_loss = acc_loss + loss
+            acc_losses = acc_losses + losses
+            if (bidx + 1) % max(1, pcfg.log_every) == 0 or bidx == num_batch - 1:
+                bus.log({"batch loss": float(loss)})
+            steps_done += 1
+            if pcfg.save_on_interrupt and INTERRUPT.is_set():
+                if grads_acc is not None:
+                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+                path = save("interrupt", {"epoch": epoch - 1, "interrupted": True})
+                saver.add_summary_msg(f" > interrupted: checkpoint saved to {path}")
+                return params, opt_state, history
+            if max_steps is not None and steps_done >= max_steps:
+                # a pending partial window still applies (1/K-scaled)
+                if grads_acc is not None:
+                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+                return params, opt_state, history
+
+        epoch_loss = float(acc_loss) / max(num_batch, 1)
+        history.append(epoch_loss)
+        bus.log({"epoch loss": epoch_loss})
+        saver.add_summary("epoch each loss", ", ".join(
+            f"{v / max(num_batch, 1):04f}" for v in np.asarray(acc_losses.cpu())))
+        # loss-bucketed checkpointing + early stop (agent_pretrain.py:594-632)
+        bucket = loss_bucket_filename(epoch_loss)
+        if bucket is None:
+            if grads_acc is not None:           # pending partial accumulation window
+                params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+                grads_acc = None
+            save("trainloss_final", {"epoch": epoch, "loss": epoch_loss})
+            return params, opt_state, history
+        save(bucket, {"epoch": epoch, "loss": epoch_loss})
+    if grads_acc is not None:
+        params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+    return params, opt_state, history

@@ -1,0 +1,67 @@
+"""Checkpoint save/load with resume: the counterpart of the JAX package's
+``utils/checkpoint.py`` (the pickle format; orbax is not ported).
+
+A checkpoint is a pickle of ``{"params", "opt_state", "step", "extra"}``:
+
+  * ``params`` is the JAX parameter tree as numpy arrays (same key paths,
+    ``w`` stored (in, out), per-layer leaves stacked), so the JAX
+    package's ``load_checkpoint(path, params_template=...)`` and this
+    package's ``weights.load_jax_checkpoint`` both read it;
+  * ``opt_state`` is this port's own Adam state, ``{"mu", "nu", "count"}``
+    (trees of numpy arrays and an int).  The JAX package's optimizer state
+    is an optax object, which the port cannot reproduce, so a JAX run
+    cannot resume from a port checkpoint's optimizer state nor the other
+    way round; the params cross both ways.
+
+Reading goes through ``weights``' restricted unpickler: numpy arrays and
+plain containers only.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Any, Optional
+
+from ..train.optim import AdamState
+from ..weights import _check_against, _ParamsUnpickler, from_jax_params, to_numpy
+
+
+def save_checkpoint(path: str, params: Any, opt_state: Optional[AdamState] = None,
+                    step: int = 0, extra: Optional[dict] = None) -> str:
+    """Write the checkpoint atomically (temporary file, then rename)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    state = None
+    if opt_state is not None:
+        state = {"mu": to_numpy(opt_state.mu), "nu": to_numpy(opt_state.nu),
+                 "count": int(opt_state.count)}
+    payload = {"params": to_numpy(params), "opt_state": state, "step": int(step),
+               "extra": extra or {}}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, params_template: Any = None, opt_state_template: Any = None,
+                    device="cuda") -> dict:
+    """Returns {'params', 'opt_state', 'step', 'extra'} with tensors on
+    ``device``.  With templates (a params tree; an AdamState) every leaf is
+    checked by key path and shape, and a mismatch raises."""
+    with open(path, "rb") as f:
+        payload = _ParamsUnpickler(f).load()
+    params = payload["params"]
+    if params_template is not None:
+        _check_against(params, params_template)
+    out = {"params": from_jax_params(params, device), "opt_state": None,
+           "step": int(payload.get("step", 0)), "extra": payload.get("extra", {})}
+    state = payload.get("opt_state")
+    if isinstance(state, dict) and {"mu", "nu", "count"} <= set(state):
+        if opt_state_template is not None:
+            _check_against(state["mu"], opt_state_template.mu)
+            _check_against(state["nu"], opt_state_template.nu)
+        out["opt_state"] = AdamState(from_jax_params(state["mu"], device),
+                                     from_jax_params(state["nu"], device),
+                                     int(state["count"]))
+    return out

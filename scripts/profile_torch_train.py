@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's pretrain step, on one GPU.
+
+    python3 scripts/profile_torch_train.py [--out build/profile] [--route kernel|plain|both]
+
+At the flagship width (config.agent_config, random weights from a seed,
+dropout 0.1 as the CLI trains) and B=32 x S=512 synthetic CP rows, it
+traces with torch.profiler two ``train.pretrain.agent_train_step`` calls
+per route: ``kernel`` is the default route on a card (kernels C and D in
+every layer), ``plain`` the PyTorch composition (RLMG_FFN_BACKEND=xla,
+RLMG_ATTN_BACKEND=xla).  Each window runs once untraced first (kernels
+built, allocator warm).  For each it prints the wall time, the summed
+device time of all kernels, the device busy share (device time over wall
+time) and the kernels that took most of it, then one JSON line with the
+same numbers.  Chrome traces go to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+from reinforcement_learning_in_music_generation_torch import config as C  # noqa: E402
+from reinforcement_learning_in_music_generation_torch.data import dataset  # noqa: E402
+from reinforcement_learning_in_music_generation_torch.models import (  # noqa: E402
+    linear_transformer as lt)
+from reinforcement_learning_in_music_generation_torch.ops import _build  # noqa: E402
+from reinforcement_learning_in_music_generation_torch.train import (  # noqa: E402
+    optim, pretrain)
+
+ROUTES = {"kernel": {}, "plain": {"RLMG_FFN_BACKEND": "xla", "RLMG_ATTN_BACKEND": "xla"}}
+B, S, STEPS = 32, 512, 2
+
+
+def profile(name, fn, out_dir, top=12):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
+    kernels = {ev.key: (ev.count, ev.self_device_time_total / 1e3)   # us -> ms
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA}
+    dev_ms = sum(v[1] for v in kernels.values())
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    launches = sum(v[0] for v in kernels.values())
+    print(f"[{name}] wall {wall * 1e3:.3f} ms for {STEPS} steps, device {dev_ms:.3f} ms, "
+          f"busy {dev_ms / (wall * 1e3):.1%}, {launches} launches")
+    for kname, (n, ms) in rows:
+        print(f"    {ms:10.3f} ms {ms / dev_ms:6.1%} {n:6d}x  {kname[:100]}")
+    return {"window": name, "steps": STEPS, "wall_ms": wall * 1e3, "device_ms": dev_ms,
+            "busy": dev_ms / (wall * 1e3) if wall else None, "launches": launches,
+            "tokens_per_s": STEPS * B * S / wall,
+            "top": [{"kernel": k[:100], "n": n, "ms": ms, "share": ms / dev_ms}
+                    for k, (n, ms) in rows]}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--route", default="both", choices=("kernel", "plain", "both"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_train: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(args.out, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    print(f"card: {card}")
+    _build.build_all()
+    cfg = C.agent_config()
+    dev = torch.device("cuda")
+    x, y, m = (torch.from_numpy(a).to(dev) for a in
+               dataset.synthetic_cp_dataset(B, S, n_class=cfg.vocab_sizes, seed=0))
+    res = []
+    for route in (("kernel", "plain") if args.route == "both" else (args.route,)):
+        for k in ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND"):
+            os.environ.pop(k, None)
+        os.environ.update(ROUTES[route])
+        params = lt.init_params(cfg, seed=0, device=dev)
+        tx = optim.adam(1e-4, grad_clip=3.0)
+        state = [tx.init(params)]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+
+        def steps():
+            p, st = params, state[0]
+            for _ in range(STEPS):
+                p, st, _ = pretrain.agent_train_step(p, st, cfg, tx, x, y, m, gen)
+            state[0] = st
+
+        res.append(profile(f"train_{route}_B{B}_S{S}", steps, args.out))
+    print(json.dumps({"card": card, "windows": res}))
+
+
+if __name__ == "__main__":
+    main()

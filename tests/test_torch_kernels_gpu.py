@@ -12,8 +12,10 @@ import torch
 
 from reinforcement_learning_in_music_generation_torch import config as TC
 from reinforcement_learning_in_music_generation_torch.models import linear_transformer as tlt
+from reinforcement_learning_in_music_generation_torch.ops import attention_block as tab
 from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v4 as tdk4
 from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v6 as tdk6
+from reinforcement_learning_in_music_generation_torch.ops import ffn_block as tfb
 from reinforcement_learning_in_music_generation_torch.ops import sampling as tsmp
 
 VOCAB = (56, 135, 18, 87, 18, 25)
@@ -108,3 +110,109 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="tok0"):
         tdk6.fused_decode_v6(v6p, _tokens(gen, dev, 2).long(), st.s, st.z, 0, 0, n_head=2,
                              max_tokens=1, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
+
+
+def _close(a, b, tol, what):
+    """max |a - b| <= tol * max(1, max |b|)."""
+    err = (a.float() - b.float()).abs().max().item()
+    mag = max(1.0, b.float().abs().max().item())
+    assert err <= tol * mag, f"{what}: max |diff| {err} vs {tol} x {mag}"
+
+
+def _fwd_bwd(fn, inputs, g):
+    ts = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ts)
+    grads = torch.autograd.grad(out, ts, g)
+    return out.detach(), grads
+
+
+# (sequences, rows each, heads, d_model, chunk, dtype): row counts that are
+# not multiples of the kernel's 64-row tile, and bfloat16
+QKV_CASES = [(3, 40, 2, 32, 8, torch.float32), (2, 200, 4, 64, 40, torch.float32),
+             (2, 72, 2, 32, 8, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_seq,s,n_head,d,chunk,dtype", QKV_CASES)
+def test_qkv_attention_kernel_matches_plain(dev, n_seq, s, n_head, d, chunk, dtype):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rnd = lambda *shape, sc=1.0: (torch.randn(shape, generator=gen, device=dev) * sc).to(dtype)
+    h, w, b = rnd(n_seq * s, d), rnd(d, 3 * d, sc=0.2), rnd(3 * d, sc=0.1)
+    g = rnd(n_seq * s, d)
+    before = (tab.qkv_attention_block.launches_fwd, tab.qkv_attention_block.launches_bwd)
+    ok, gk = _fwd_bwd(lambda *a: tab.qkv_attention_block(*a, n_seq, n_head, chunk=chunk),
+                      (h, w, b), g)
+    op, gp = _fwd_bwd(lambda *a: tab.qkv_attention_block_plain(*a, n_seq, n_head, chunk=chunk),
+                      (h, w, b), g)
+    # f32: both sides sum in f32 in another order; bf16: the plain version
+    # rounds every einsum's output to bf16, the kernel only its stores
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    _close(ok, op, tol, "att")
+    for name, x, y in zip(("dh", "dw", "db"), gk, gp):
+        _close(x, y, 10 * tol, name)
+    assert (tab.qkv_attention_block.launches_fwd, tab.qkv_attention_block.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,di", [(100, 32, 64), (300, 64, 256)])
+@pytest.mark.parametrize("p,mid_drop", [(0.0, True), (0.1, True), (0.1, False)])
+def test_attn_tail_kernel_matches_plain(dev, n, d, di, p, mid_drop):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rnd = lambda *shape, sc=1.0: torch.randn(shape, generator=gen, device=dev) * sc
+    inputs = (rnd(n, d), rnd(n, d), rnd(d, d, sc=0.2), rnd(d, sc=0.1), 1 + rnd(d, sc=0.1),
+              rnd(d, sc=0.1), rnd(d, di, sc=0.2), rnd(di, sc=0.1), rnd(di, d, sc=0.1),
+              rnd(d, sc=0.1), 1 + rnd(d, sc=0.1), rnd(d, sc=0.1))
+    g = rnd(n, d)
+    seed = torch.tensor(123457, dtype=torch.int32, device=dev)
+    before = (tfb.attn_tail_block.launches_fwd, tfb.attn_tail_block.launches_bwd)
+    ok, gk = _fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed, p, mid_drop), inputs, g)
+    op, gp = _fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed, p, mid_drop), inputs, g)
+    _close(ok, op, 1e-4, "out")
+    names = ("dh_in", "da_pre", "dwo_w", "dwo_b", "dln1_s", "dln1_b", "dw1", "db1", "dw2",
+             "db2", "dln2_s", "dln2_b")
+    for name, x, y in zip(names, gk, gp):
+        _close(x, y, 1e-3, name)
+    assert (tfb.attn_tail_block.launches_fwd, tfb.attn_tail_block.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_attn_tail_kernel_is_deterministic(dev):
+    """No atomics: two backward launches give bit-equal gradients."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n, d, di = 1000, 64, 128
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev) * 0.2
+    ws = [rnd(d, d), rnd(d), 1 + rnd(d), rnd(d), rnd(d, di), rnd(di), rnd(di, d), rnd(d),
+          1 + rnd(d), rnd(d)]
+    h, a, dout = rnd(n, d), rnd(n, d), rnd(n, d)
+    seed = torch.tensor(9, dtype=torch.int32, device=dev)
+    g1 = tfb.backward_kernel(h, a, ws, dout, seed, 0.1, True)
+    g2 = tfb.backward_kernel(h, a, ws, dout, seed, 0.1, True)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+@pytest.mark.gpu
+def test_training_wrappers_reject_what_the_kernels_do_not_take(dev):
+    h = torch.zeros((2 * 24, 32), device=dev)
+    w, b = torch.zeros((32, 96), device=dev), torch.zeros(96, device=dev)
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        tab.qkv_attention_block(h, w, b, 2, 2, chunk=16)
+    with pytest.raises(TypeError):
+        tab.qkv_attention_block(h.double(), w.double(), b.double(), 2, 2, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tab.qkv_attention_block(h, w.T.contiguous().T, b, 2, 2, chunk=8)
+    # heads of 72: wider than the kernel's 64, an error and not the plain version
+    h144 = torch.zeros((2 * 24, 144), device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        tab.qkv_attention_block(h144, torch.zeros((144, 432), device=dev),
+                                torch.zeros(432, device=dev), 2, 2, chunk=8)
+    ws = [torch.zeros(s, device=dev) for s in ((32, 32), (32,), (32,), (32,), (32, 64), (64,),
+                                               (64, 32), (32,), (32,), (32,))]
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tfb.attn_tail_block(h.bfloat16(), h.bfloat16(), *[x.bfloat16() for x in ws], 0, 0.0)
+    with pytest.raises(ValueError, match="shape"):
+        tfb.attn_tail_block(h, h[:, :16].contiguous(), *ws, 0, 0.0)
