@@ -5,8 +5,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
-  1. builds every kernel of the generation and training paths from
-     ``csrc/`` (one nvcc per source, in parallel), prints each library's
+  1. builds every kernel of the generation, training and discriminator
+     paths from ``csrc/`` (one nvcc per source, in parallel), prints each library's
      ptxas registers and spills, and the card's name and power limit;
   2. at the full width of ``config.agent_config`` (12 layers, d_model 512,
      8 heads, FFN 2048) with random weights from a seed, holds each kernel
@@ -42,8 +42,32 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
   6. runs ``apps/cli.py pretrain`` for 4 steps at B=32, S=512 on each route
      and fails unless each training-kernel counter reads 12 x steps on the
      kernel route (0 on the plain one) and every logged loss is finite;
-  7. times each kernel and its plain version at the main path's shapes
-     (CUDA events) beside the least time the card could take.
+  7. holds kernel E (window_attention_band, the counterpart of
+     window_attention_pallas) against its plain twin at the discriminator
+     LM's shape (B=4, H=8, S=3584, D=64, window 512, f32) with the padding
+     of synthetic_cp_dataset(4, 3584) (seed 0) and with a padding tail
+     longer than w on every song: out and LSE within 1e-5 of their
+     magnitude, dq / dk / dv (dO zero on padded rows, as the LM's masked
+     loss gives) within 1e-4 of theirs, every value finite; the library
+     yardstick (scaled_dot_product_attention with the additive band mask)
+     within 1e-4 on the rows that see a kept key;
+  8. holds kernel D at the Longformer's shape (14336 rows, d_model 512,
+     d_inner 1024, mid_drop=False) against its plain version at dropout 0
+     and 0.1, forward and the 12 gradients, as in 4;
+  9. takes one discriminator-LM step (discrim_lm_config at full width,
+     B=4 x S=3584, dropout 0, same weights and batch) on three routes:
+     default (kernel D + the plain band attention), RLMG_WINDOW_BACKEND=
+     pallas (kernel E + the plain tail) and all plain (RLMG_FFN_BACKEND=
+     xla); each kernel route against the plain one with the checks of 5,
+     counters 12 + 12 for its kernel and 0 for the other; then times two
+     more steps of each;
+ 10. runs ``apps/cli.py discrim-pretrain`` for 4 steps at B=4, S=3584 on
+     the default route and under RLMG_WINDOW_BACKEND=pallas and fails
+     unless the route's kernel counters read 12 x 4 and every logged loss
+     is finite;
+ 11. times each kernel and its plain version at the main paths' shapes
+     (CUDA events) beside the least time the card could take, and kernel E
+     beside the library call.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -159,6 +183,112 @@ def attn_tail_work(n, d, di):
     w = 4 * (d * d + 2 * d * di + 7 * d + di)
     f_ops = 2 * n * (d * d + 2 * d * di)
     return (f_ops, 4 * 3 * n * d + w), (3 * f_ops, 4 * 5 * n * d + 2 * w)
+
+
+TAIL_GRADS = ("dh_in", "da_pre", "dWo", "dbo", "dln1_s", "dln1_b", "dW1", "db1", "dW2", "db2",
+              "dln2_s", "dln2_b")
+
+
+def window_work(b, h, s, d, w, mask):
+    """(forward, backward) (operations, bytes) of band attention at this
+    shape, the (query, key) pairs they count, and the pairs whose query and
+    key are both kept.  The count takes every query with the keys of
+    [q - w, q + w] within [0, S): the function's padded rows are outputs
+    too.  Forward: 2 products (2 operations a pair and a column each);
+    backward: 5 (S recomputed, dP, dV, dQ, dK).  Bytes: each input read
+    once, each output written once."""
+    q = torch.arange(s, dtype=torch.int64)
+    lo, hi = torch.clamp(q - w, min=0), torch.clamp(q + w, max=s - 1)
+    pairs = b * h * int((hi - lo + 1).sum())
+    keep = (mask.detach().cpu() > 0).to(torch.int64)
+    cs = torch.nn.functional.pad(keep.cumsum(1), (1, 0))
+    kept_pairs = h * int(((cs[:, hi + 1] - cs[:, lo]) * keep).sum())
+    n, rows = b * h * s * d, b * h * s
+    f_bytes = 4 * (3 * n + b * s + n + rows)
+    b_bytes = 4 * (5 * n + rows + b * s + 3 * n)
+    return (4 * pairs * d, f_bytes), (10 * pairs * d, b_bytes), pairs, kept_pairs
+
+
+def check_tail(tag, tfb, d_in, g, seed_t, mid_drop) -> float:
+    """Kernel D against its plain version at dropout 0 and 0.1: the output
+    within 1e-4 of its magnitude, each of the 12 gradients within 1e-3 of
+    its own.  Returns the largest output difference."""
+    d_err = 0.0
+    for p_drop in (0.0, 0.1):
+        ok, gk = fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed_t, p_drop, mid_drop), d_in, g)
+        op_, gp = fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed_t, p_drop, mid_drop),
+                          d_in, g)
+        e = max_err(ok, op_)
+        d_err = max(d_err, e)
+        print(f"[{tag}] p={p_drop}: max|d out| {e:.3e} (max|out| {magnitude(op_):.3e})",
+              flush=True)
+        check(e <= 1e-4 * magnitude(op_), f"{tag} p={p_drop} forward: max|diff| {e}")
+        worst = 0.0
+        for name, x, y in zip(TAIL_GRADS, gk, gp):
+            e = max_err(x, y) / magnitude(y)
+            worst = max(worst, e)
+            check(e <= 1e-3, f"{tag} p={p_drop} {name}: max|diff| {e} of its magnitude")
+        print(f"[{tag}] p={p_drop}: 12 gradients, worst max|diff| / magnitude {worst:.3e}",
+              flush=True)
+    return d_err
+
+
+def check_step(tag, out_k, out_p, zero_grads=()) -> None:
+    """One step on a kernel route against the same step on the plain route.
+    ``zero_grads``: leaves whose gradient is 0 in exact arithmetic (the key
+    bias of softmax attention adds q.b to every score of a row, which the
+    softmax removes), so both routes hold rounding noise there: each must be
+    below 1e-6 of the largest gradient of the step, and they are left out
+    of the relative checks.
+    Losses within 1e-4 relative; gradients within 1e-3 of their leaf's
+    magnitude; parameters after Adam within 1e-4 of magnitude(p) = max(1,
+    max|p|), the convention of every check here (per leaf without the
+    floor, Adam's g / (|g| + eps) magnifies gradient rounding near g = 0 by
+    up to 1/eps, which shows on the zero-initialised LayerNorm biases;
+    printed too).  One step at lr 1e-4 moves a parameter by at most about
+    1e-4, so the parameter check alone cannot see a wrong update: the
+    updates are compared on their own scale, within 1e-3 of the leaf's
+    largest, wherever |g_plain| exceeds the gradient check's limit (1e-3
+    of the leaf's largest), so no sign is left to rounding; there
+    g / (|g| + eps) moves by at most eps |dg| / g^2."""
+    lk, lsk, pk, gk, uk = out_k
+    lp_, lsp, pp, gp, up = out_p
+    rel = abs(lk - lp_) / abs(lp_)
+    print(f"[{tag}] loss kernel {lk:.7f} plain {lp_:.7f} (relative {rel:.2e}); "
+          f"per field max relative {((lsk - lsp).abs() / lsp.abs()).max().item():.2e}",
+          flush=True)
+    check(rel <= 1e-4, f"{tag}: losses differ by {rel} relative")
+    g_top = max(g.abs().max().item() for g in gp.values())
+    for k in zero_grads:
+        noise = max(gk[k].abs().max().item(), gp[k].abs().max().item())
+        print(f"[{tag}] {k}: gradient 0 in exact arithmetic; largest |g| of the two routes "
+              f"{noise:.3e} (largest gradient of the step {g_top:.3e})", flush=True)
+        check(noise <= 1e-6 * g_top, f"{tag}: gradient {k} is {noise}, not rounding noise")
+    rest = [k for k in gp if k not in zero_grads]
+    g_worst = max((max_err(gk[k], gp[k]) / max(gp[k].abs().max().item(), 1e-30), k)
+                  for k in rest)
+    u_worst, u_seen = (0.0, ""), 0
+    for k in rest:
+        settled = gp[k].abs() > 1e-3 * gp[k].abs().max()
+        u_seen += int(settled.sum().item())
+        if settled.any():
+            e = (uk[k] - up[k])[settled].abs().max().item() / up[k].abs().max().item()
+            u_worst = max(u_worst, (e, k))
+    p_worst = max((max_err(pk[k], pp[k]) / magnitude(pp[k]), k) for k in pp)
+    p_leaf = max((max_err(pk[k], pp[k]) / max(pp[k].abs().max().item(), 1e-30), k)
+                 for k in pp)
+    print(f"[{tag}] gradients: worst max|diff| / leaf magnitude {g_worst[0]:.3e} "
+          f"({g_worst[1]})", flush=True)
+    print(f"[{tag}] params after one Adam step: worst max|diff| / magnitude "
+          f"{p_worst[0]:.3e} ({p_worst[1]}); without the floor of 1: {p_leaf[0]:.3e} "
+          f"({p_leaf[1]})", flush=True)
+    n_prm = sum(t.numel() for t in up.values())
+    print(f"[{tag}] Adam updates: worst max|diff| / leaf's largest update "
+          f"{u_worst[0]:.3e} ({u_worst[1]}) over the {u_seen} of {n_prm} elements whose "
+          f"gradient sign is settled", flush=True)
+    check(g_worst[0] <= 1e-3, f"{tag}: gradient {g_worst[1]} differs by {g_worst[0]}")
+    check(p_worst[0] <= 1e-4, f"{tag}: param {p_worst[1]} differs by {p_worst[0]}")
+    check(u_worst[0] <= 1e-3, f"{tag}: update of {u_worst[1]} differs by {u_worst[0]}")
 
 
 def main() -> None:
@@ -346,8 +476,9 @@ def main() -> None:
 
     # -- 4. the training kernels against their plain versions -------------
     from reinforcement_learning_in_music_generation_torch.data import dataset
+    from reinforcement_learning_in_music_generation_torch.models import longformer as lf
     from reinforcement_learning_in_music_generation_torch.ops import (
-        attention_block as tab, ffn_block as tfb)
+        attention_block as tab, ffn_block as tfb, window_attention_kernel as twk)
     from reinforcement_learning_in_music_generation_torch.train import (
         optim as topt, pretrain as tpre)
     BT, ST, CHUNK = 32, 512, cfg.attn_chunk
@@ -372,46 +503,26 @@ def main() -> None:
               flush=True)
         check(e <= 1e-3 * magnitude(y), f"qkv_attention {name}: max|diff| {e}")
 
-    tail_ws = [lp0["wo"]["w"], lp0["wo"]["b"], lp0["ln1"]["scale"], lp0["ln1"]["bias"],
-               lp0["ffn1"]["w"], lp0["ffn1"]["b"], lp0["ffn2"]["w"], lp0["ffn2"]["b"],
-               lp0["ln2"]["scale"], lp0["ln2"]["bias"]]
-    tail_ws = [t.contiguous() for t in tail_ws]
-    d_in = (h_tr, op.contiguous(), *tail_ws)
+    def tail_weights(lp):
+        return [t.contiguous() for t in (
+            lp["wo"]["w"], lp["wo"]["b"], lp["ln1"]["scale"], lp["ln1"]["bias"], lp["ffn1"]["w"],
+            lp["ffn1"]["b"], lp["ffn2"]["w"], lp["ffn2"]["b"], lp["ln2"]["scale"],
+            lp["ln2"]["bias"])]
+
+    tail_ws = tail_weights(lp0)
     seed_t = torch.tensor(20260, dtype=torch.int32, device=dev)
-    d_err = 0.0
-    tail_names = ("dh_in", "da_pre", "dWo", "dbo", "dln1_s", "dln1_b", "dW1", "db1", "dW2",
-                  "db2", "dln2_s", "dln2_b")
-    for p_drop in (0.0, 0.1):
-        ok, gk = fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed_t, p_drop), d_in, g_tr)
-        op_, gp = fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed_t, p_drop), d_in, g_tr)
-        e = max_err(ok, op_)
-        d_err = max(d_err, e)
-        print(f"[attn_tail] N={NT} D={D} DI={DI} p={p_drop}: max|d out| {e:.3e} "
-              f"(max|out| {magnitude(op_):.3e})", flush=True)
-        check(e <= 1e-4 * magnitude(op_), f"attn_tail p={p_drop} forward: max|diff| {e}")
-        worst = 0.0
-        for name, x, y in zip(tail_names, gk, gp):
-            e = max_err(x, y) / magnitude(y)
-            worst = max(worst, e)
-            check(e <= 1e-3, f"attn_tail p={p_drop} {name}: max|diff| {e} of its magnitude")
-        print(f"[attn_tail] p={p_drop}: 12 gradients, worst max|diff| / magnitude "
-              f"{worst:.3e}", flush=True)
+    d_err = check_tail(f"attn_tail N={NT} D={D} DI={DI}", tfb, (h_tr, op.contiguous(), *tail_ws),
+                       g_tr, seed_t, True)
     del gk, gp
 
     # -- 5. one full-width train step, kernel route against plain route ----
-    tcfg = C.agent_config(cfg.vocab_sizes, dropout=0.0)
-    p0 = lt.init_params(tcfg, seed=0, device=dev)
-    xs, ys, ms = (torch.from_numpy(a).to(dev) for a in
-                  dataset.synthetic_cp_dataset(BT, ST, n_class=cfg.vocab_sizes, seed=0))
-    xs, ys = xs.long(), ys.long()
-    routes = {"kernel": {}, "plain": {"RLMG_FFN_BACKEND": "xla", "RLMG_ATTN_BACKEND": "xla"}}
-    knobs = ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_FFN_MIN_ROWS")
+    knobs = ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_FFN_MIN_ROWS", "RLMG_WINDOW_BACKEND")
     saved_env = {k: os.environ.get(k) for k in knobs}
 
-    def set_route(name):
+    def set_env(env):
         for k in knobs:
             os.environ.pop(k, None)
-        os.environ.update(routes[name])
+        os.environ.update(env)
 
     def restore_env():
         for k, v in saved_env.items():
@@ -419,8 +530,11 @@ def main() -> None:
             if v is not None:
                 os.environ[k] = v
 
+    # (C fwd, C bwd, D fwd, D bwd, E fwd, E bwd)
     counters = ((tab.qkv_attention_block, "launches_fwd"), (tab.qkv_attention_block, "launches_bwd"),
-                (tfb.attn_tail_block, "launches_fwd"), (tfb.attn_tail_block, "launches_bwd"))
+                (tfb.attn_tail_block, "launches_fwd"), (tfb.attn_tail_block, "launches_bwd"),
+                (twk.window_attention_band, "launches_fwd"),
+                (twk.window_attention_band, "launches_bwd"))
 
     def zero_counts():
         for fn, attr in counters:
@@ -429,81 +543,53 @@ def main() -> None:
     def read_counts():
         return [getattr(fn, attr) for fn, attr in counters]
 
-    step_out, step_ms = {}, {}
-    for name in ("kernel", "plain"):
-        set_route(name)
+    def route_step(env, p0, mcfg, batch, grad_step, train_step):
+        """One step from p0 on a route -> ((loss, per-field losses, params
+        after Adam, grads, Adam updates), that step's kernel counts, ms per
+        step of two more)."""
+        set_env(env)
         prm = topt.tree_map(torch.clone, p0)
         tx = topt.adam(1e-4, grad_clip=3.0)
         state = tx.init(prm)
         zero_counts()
-        grads, (loss, losses) = tpre.agent_grad_step(prm, tcfg, xs, ys, ms, None)
+        grads, (loss, losses) = grad_step(prm, mcfg, *batch, None)
         updates, _ = tx.update(grads, state, prm)     # pure: what apply_grads adds
         prm, state = tpre.apply_grads(prm, state, tx, grads)
         torch.cuda.synchronize()
         counts = read_counts()
-        step_out[name] = (float(loss), losses.cpu(), named_leaves(prm), named_leaves(grads),
-                          named_leaves(updates))
+        out = (float(loss), losses.cpu(), named_leaves(prm), named_leaves(grads),
+               named_leaves(updates))
         del grads, updates
         t = time.perf_counter()
         for _ in range(2):
-            prm, state, (loss, _) = tpre.agent_train_step(prm, state, tcfg, tx, xs, ys, ms, None)
+            prm, state, _ = train_step(prm, state, mcfg, tx, *batch, None)
         torch.cuda.synchronize()
-        step_ms[name] = (time.perf_counter() - t) / 2 * 1e3
+        return out, counts, (time.perf_counter() - t) / 2 * 1e3
+
+    tcfg = C.agent_config(cfg.vocab_sizes, dropout=0.0)
+    p0 = lt.init_params(tcfg, seed=0, device=dev)
+    xs, ys, ms = (torch.from_numpy(a).to(dev) for a in
+                  dataset.synthetic_cp_dataset(BT, ST, n_class=cfg.vocab_sizes, seed=0))
+    routes = {"kernel": {}, "plain": {"RLMG_FFN_BACKEND": "xla", "RLMG_ATTN_BACKEND": "xla"}}
+    step_out, step_ms = {}, {}
+    for name in ("kernel", "plain"):
+        step_out[name], counts, step_ms[name] = route_step(
+            routes[name], p0, tcfg, (xs.long(), ys.long(), ms), tpre.agent_grad_step,
+            tpre.agent_train_step)
         print(f"[train_step] {name} route: loss {step_out[name][0]:.6f}, kernel launches "
-              f"(C fwd, C bwd, D fwd, D bwd) {counts}, {step_ms[name]:.1f} ms/step, "
+              f"(C, D, E fwd/bwd) {counts}, {step_ms[name]:.1f} ms/step, "
               f"{NT / step_ms[name] * 1e3:.1f} tokens/s", flush=True)
-        want = [tcfg.n_layer] * 4 if name == "kernel" else [0] * 4
+        want = [tcfg.n_layer] * 4 + [0, 0] if name == "kernel" else [0] * 6
         check(counts == want, f"train step, {name} route: launches {counts}, expected {want}")
-        del prm, state
     restore_env()
-    lk, lsk, pk, gk, uk = step_out["kernel"]
-    lp_, lsp, pp, gp, up = step_out["plain"]
-    rel = abs(lk - lp_) / abs(lp_)
-    print(f"[train_step] loss kernel {lk:.7f} plain {lp_:.7f} (relative {rel:.2e}); "
-          f"per field max relative {((lsk - lsp).abs() / lsp.abs()).max().item():.2e}",
-          flush=True)
-    check(rel <= 1e-4, f"train step: losses differ by {rel} relative")
-    # gradients: each leaf within 1e-3 of its own magnitude.  Parameters
-    # after Adam: within 1e-4 of magnitude(p) = max(1, max|p|), the
-    # convention of every check here.  Per leaf without the floor, Adam's
-    # g / (|g| + eps) magnifies gradient rounding near g = 0 by up to 1/eps,
-    # which shows on the zero-initialised LayerNorm biases; printed too.
-    # One step at lr 1e-4 moves a parameter by at most about 1e-4, so the
-    # parameter check alone cannot see a wrong update: the updates are
-    # compared on their own scale, wherever |g_plain| exceeds the gradient
-    # check's limit (1e-3 of the leaf's largest), so no sign is left to
-    # rounding; there g / (|g| + eps) moves by at most eps |dg| / g^2.
-    g_worst = max((max_err(gk[k], gp[k]) / max(gp[k].abs().max().item(), 1e-30), k)
-                  for k in gp)
-    u_worst, u_seen = (0.0, ""), 0
-    for k in up:
-        settled = gp[k].abs() > 1e-3 * gp[k].abs().max()
-        u_seen += int(settled.sum().item())
-        if settled.any():
-            e = (uk[k] - up[k])[settled].abs().max().item() / up[k].abs().max().item()
-            u_worst = max(u_worst, (e, k))
-    p_worst = max((max_err(pk[k], pp[k]) / magnitude(pp[k]), k) for k in pp)
-    p_leaf = max((max_err(pk[k], pp[k]) / max(pp[k].abs().max().item(), 1e-30), k)
-                 for k in pp)
-    print(f"[train_step] gradients: worst max|diff| / leaf magnitude {g_worst[0]:.3e} "
-          f"({g_worst[1]})", flush=True)
-    print(f"[train_step] params after one Adam step: worst max|diff| / magnitude "
-          f"{p_worst[0]:.3e} ({p_worst[1]}); without the floor of 1: {p_leaf[0]:.3e} "
-          f"({p_leaf[1]})", flush=True)
-    n_prm = sum(t.numel() for t in up.values())
-    print(f"[train_step] Adam updates: worst max|diff| / leaf's largest update "
-          f"{u_worst[0]:.3e} ({u_worst[1]}) over the {u_seen} of {n_prm} elements whose "
-          f"gradient sign is settled", flush=True)
-    check(g_worst[0] <= 1e-3, f"train step: gradient {g_worst[1]} differs by {g_worst[0]}")
-    check(p_worst[0] <= 1e-4, f"train step: param {p_worst[1]} differs by {p_worst[0]}")
-    check(u_worst[0] <= 1e-3, f"train step: update of {u_worst[1]} differs by {u_worst[0]}")
-    del step_out, pk, pp, gk, gp, uk, up, p0
+    check_step("train_step", step_out["kernel"], step_out["plain"])
+    del step_out, p0
 
     # -- 6. the training main path: cli pretrain, 4 steps at B=32 x S=512 ---
     cli_res = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("kernel", "plain"):
-            set_route(name)
+            set_env(routes[name])
             zero_counts()
             res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64",
                             "--batch-size", str(BT), "--seq-len", str(ST), "--max-steps", "4",
@@ -516,18 +602,143 @@ def main() -> None:
             print(f"[pretrain] {name} route: {res['steps']} steps in {res['seconds']:.3f}s "
                   f"= {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s (with one "
                   f"epoch-end checkpoint); logged losses {res['batch_losses']}; launches "
-                  f"(C fwd, C bwd, D fwd, D bwd) {counts}", flush=True)
+                  f"(C, D, E fwd/bwd) {counts}", flush=True)
             check(res["steps"] == 4, f"pretrain {name}: {res['steps']} steps, expected 4")
             check(len(res["batch_losses"]) > 0 and all(
                 math.isfinite(v) for v in res["batch_losses"] + res["history"]),
                 f"pretrain {name}: a logged loss is not finite")
-            want = [12 * 4] * 4 if name == "kernel" else [0] * 4
+            want = [12 * 4] * 4 + [0, 0] if name == "kernel" else [0] * 6
             check(counts == want, f"pretrain {name}: launches {counts}, expected {want}")
     restore_env()
-    launches["C"] = cli_res["kernel"][1][:2]
-    launches["D"] = cli_res["kernel"][1][2:]
+    launches["C"] = cli_res["kernel"][1][0:2]
+    launches["D"] = cli_res["kernel"][1][2:4]
 
-    # -- 7. times at the main path's shapes --------------------------------
+    # -- 7. kernel E against its plain twin at the discriminator LM's shape --
+    dvocab = (56, 135, 18, 87, 18, 25)          # discrim-pretrain without --with-type
+    dcfg = C.discrim_lm_config(dvocab, emb_sizes=(128, 256, 64, 512, 256, 128), dropout=0.0)
+    BD, SD, WIN = 4, 3584, dcfg.attention_window
+    ND, HD, ED, WD = BD * SD, dcfg.n_head, dcfg.d_head, WIN // 2
+    dxs, dys, dms = (torch.from_numpy(a).to(dev) for a in
+                     dataset.synthetic_cp_dataset(BD, SD, n_class=dvocab, seed=0))
+    m_long = torch.ones((BD, SD), device=dev)
+    m_long[:, SD - 1000:] = 0.0                 # every song: 1000 padded rows > w = 256
+    print(f"[window_attn] synthetic padding per song: "
+          f"{(SD - dms.sum(1)).int().tolist()} rows (w = {WD})", flush=True)
+    pos = torch.arange(SD, device=dev)
+    band = (pos[:, None] - pos[None, :]).abs() <= WD
+
+    def band_inputs():
+        """q, k, v, dO in the layout the Longformer passes: (B, H, S, D)
+        views of (B, S, H, D) tensors."""
+        return [torch.randn((BD, SD, HD, ED), generator=gen, device=dev).transpose(1, 2)
+                for _ in range(4)]
+
+    e_kernel = lambda mask: (lambda *a: twk.window_attention_band(*a, mask, WIN))
+    e_plain = lambda mask: (lambda *a: twk.window_attention_band_plain(*a, mask, WIN)[0])
+    e_err = 0.0
+    for tag, mask in (("synthetic padding", dms), ("padding tail 1000 > w", m_long)):
+        q_e, k_e, v_e, g_e = band_inputs()
+        g_e = g_e * mask[:, None, :, None]          # the LM's masked loss: dO = 0 on padding
+        valid = mask[:, None, :, None] > 0
+        ok, gk = fwd_bwd(e_kernel(mask), (q_e, k_e, v_e), g_e)
+        op, gp = fwd_bwd(e_plain(mask), (q_e, k_e, v_e), g_e)
+        with torch.no_grad():
+            lse_k = twk.forward_kernel(q_e, k_e, v_e, mask, WIN)[1].sum(0)
+            _, lse_p = twk.window_attention_band_plain(q_e, k_e, v_e, mask, WIN)
+        finite = all(bool(torch.isfinite(t).all()) for t in (ok, lse_k, *gk))
+        e_valid, e_all = max_err(ok * valid, op * valid), max_err(ok, op)
+        l_valid = max_err(lse_k * valid[..., 0], lse_p * valid[..., 0])
+        if tag == "synthetic padding":
+            e_err = e_valid
+        print(f"[window_attn] B={BD} H={HD} S={SD} D={ED} window {WIN}, {tag}: max|d out| "
+              f"{e_valid:.3e} on kept rows, {e_all:.3e} on all rows (max|out| "
+              f"{magnitude(op):.3e}); max|d lse| {l_valid:.3e} on kept rows; all finite: "
+              f"{finite}", flush=True)
+        check(finite, f"window_attn {tag}: a value or gradient of the kernel is not finite")
+        check(e_all <= 1e-5 * magnitude(op), f"window_attn {tag} forward: max|diff| {e_all}")
+        check(l_valid <= 1e-5 * magnitude(lse_p), f"window_attn {tag} lse: max|diff| {l_valid}")
+        for name, x, y in zip(("dq", "dk", "dv"), gk, gp):
+            e = max_err(x, y)
+            print(f"[window_attn] {tag} {name}: max|diff| {e:.3e} of magnitude "
+                  f"{magnitude(y):.3e}", flush=True)
+            check(e <= 1e-4 * magnitude(y), f"window_attn {tag} {name}: max|diff| {e}")
+        del ok, gk, op, gp
+    # the library yardstick: one PyTorch call with the (B, 1, S, S) additive mask
+    q_e, k_e, v_e, g_e = band_inputs()
+    g_e = g_e * dms[:, None, :, None]
+    lib_mask = torch.where(band[None, None] & (dms[:, None, None, :] > 0), 0.0, -1e9)
+    e_lib = lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=lib_mask)
+    valid = dms[:, None, :, None] > 0
+    with torch.no_grad():
+        o_lib, o_pl = e_lib(q_e, k_e, v_e), e_plain(dms)(q_e, k_e, v_e)
+    lib_err = max_err(o_lib * valid, o_pl * valid)
+    print(f"[window_attn] scaled_dot_product_attention with the additive band mask "
+          f"({lib_mask.numel() * 4 / 1e6:.0f} MB): max|diff| {lib_err:.3e} from the plain twin "
+          f"on kept rows", flush=True)
+    check(lib_err <= 1e-4 * magnitude(o_pl), f"library window attention: max|diff| {lib_err}")
+    del o_lib, o_pl
+
+    # -- 8. kernel D at the Longformer's shape (mid_drop=False) -------------
+    dp0 = lf.init_params(dcfg, seed=0, device=dev)
+    lf_ws = tail_weights({k: {kk: vv[0] for kk, vv in v.items()}
+                          for k, v in dp0["layers"].items()})
+    h_lf, a_lf, g_lf = (torch.randn((ND, dcfg.d_model), generator=gen, device=dev)
+                        for _ in range(3))
+    d_lf_in = (h_lf, a_lf, *lf_ws)
+    d_lf_err = check_tail(f"attn_tail N={ND} D={dcfg.d_model} DI={dcfg.d_inner} mid_drop=False",
+                          tfb, d_lf_in, g_lf, seed_t, False)
+
+    # -- 9. one discriminator-LM step on three routes ------------------------
+    droutes = {"default": {}, "window": {"RLMG_WINDOW_BACKEND": "pallas"},
+               "plain": {"RLMG_FFN_BACKEND": "xla"}}
+    dwant = {"default": [0, 0, 12, 12, 0, 0], "window": [0, 0, 0, 0, 12, 12], "plain": [0] * 6}
+    dstep_out, dstep_ms = {}, {}
+    for name in ("default", "window", "plain"):
+        dstep_out[name], counts, dstep_ms[name] = route_step(
+            droutes[name], dp0, dcfg, (dxs.long(), dys.long(), dms), tpre.longformer_grad_step,
+            tpre.longformer_lm_step)
+        print(f"[discrim_step] {name} route: loss {dstep_out[name][0]:.6f}, kernel launches "
+              f"(C, D, E fwd/bwd) {counts}, {dstep_ms[name]:.1f} ms/step, "
+              f"{ND / dstep_ms[name] * 1e3:.1f} tokens/s", flush=True)
+        check(counts == dwant[name],
+              f"discrim step, {name} route: launches {counts}, expected {dwant[name]}")
+        torch.cuda.empty_cache()
+    restore_env()
+    for name in ("default", "window"):
+        check_step(f"discrim_step {name}", dstep_out[name], dstep_out["plain"],
+                   zero_grads=("/layers/wk/b",))
+    del dstep_out, dp0
+
+    # -- 10. the discriminator main path: cli discrim-pretrain, 4 steps -----
+    dcli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("default", "window"):
+            set_env(droutes[name])
+            zero_counts()
+            res = cli.main(["discrim-pretrain", "--seq-len", str(SD), "--batch-size", str(BD),
+                            "--synthetic-songs", "8", "--max-steps", "4",
+                            "--exp-dir", os.path.join(tmp, name, "exp"),
+                            "--ckpt-dir", os.path.join(tmp, name, "ckpt")])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            dcli[name] = (res, counts)
+            ms_step = res["seconds"] / res["steps"] * 1e3
+            print(f"[discrim-pretrain] {name} route: {res['steps']} steps in "
+                  f"{res['seconds']:.3f}s = {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} "
+                  f"tokens/s (with one epoch-end checkpoint); logged losses "
+                  f"{res['batch_losses']}; launches (C, D, E fwd/bwd) {counts}", flush=True)
+            check(res["steps"] == 4, f"discrim-pretrain {name}: {res['steps']} steps")
+            check(len(res["batch_losses"]) > 0 and all(
+                math.isfinite(v) for v in res["batch_losses"] + res["history"]),
+                f"discrim-pretrain {name}: a logged loss is not finite")
+            want = [4 * c for c in dwant[name]]
+            check(counts == want, f"discrim-pretrain {name}: launches {counts}, expected {want}")
+    restore_env()
+    launches["E"] = dcli["window"][1][4:6]
+    launches["D_discrim"] = dcli["default"][1][2:4]
+
+    # -- 11. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
     sdt = st.s.dtype
     h5 = lt.embed_input(params, cfg, rand_tokens(1, 5)[0], 0, None).float()
@@ -582,6 +793,38 @@ def main() -> None:
     print(f"[time] train step B={BT} S={ST}: kernel route {step_ms['kernel']:.1f} ms, plain "
           f"route {step_ms['plain']:.1f} ms")
 
+    d_lf = (h_lf, a_lf, *lf_ws)
+    dl_fwd, dl_bwd = time_fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed_t, 0.1, False), d_lf,
+                                  g_lf, 10)
+    dl_pf, dl_pb = time_fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed_t, 0.1, False),
+                                d_lf, g_lf, 3)
+    (dlf_ops, dlf_b), (dlb_ops, dlb_b) = attn_tail_work(ND, dcfg.d_model, dcfg.d_inner)
+    dl_bf, _ = bound(dlf_b, dlf_ops)
+    dl_bb, _ = bound(dlb_b, dlb_ops)
+    print(f"[time] attn_tail N={ND} D={dcfg.d_model} DI={dcfg.d_inner} p=0.1 mid_drop=False: "
+          f"forward {dl_fwd:.3f} ms (plain {dl_pf:.3f}, bound {dl_bf:.4f}, "
+          f"{dlf_ops / 1e9:.2f} GFLOP), backward {dl_bwd:.3f} ms (plain {dl_pb:.3f}, bound "
+          f"{dl_bb:.4f}, {dlb_ops / 1e9:.2f} GFLOP)")
+
+    e_in = (q_e, k_e, v_e)
+    e_fwd, e_bwd = time_fwd_bwd(e_kernel(dms), e_in, g_e, 20)
+    e_pf, e_pb = time_fwd_bwd(e_plain(dms), e_in, g_e, 5)
+    e_lf, e_lb = time_fwd_bwd(e_lib, e_in, g_e, 10)
+    (ef_ops, ef_b), (eb_ops, eb_b), pairs, kept_pairs = window_work(BD, HD, SD, ED, WD, dms)
+    e_bf, e_bfby = bound(ef_b, ef_ops)
+    e_bb, e_bbby = bound(eb_b, eb_ops)
+    ek_bf, _ = bound(ef_b, ef_ops * kept_pairs / pairs)
+    ek_bb, _ = bound(eb_b, eb_ops * kept_pairs / pairs)
+    print(f"[time] window_attention B={BD} H={HD} S={SD} D={ED} w={WD}: forward {e_fwd:.3f} ms "
+          f"(plain {e_pf:.3f}, library {e_lf:.3f}, bound {e_bf:.4f} {e_bfby}, "
+          f"{ef_ops / 1e9:.2f} GFLOP), backward {e_bwd:.3f} ms (plain {e_pb:.3f}, library "
+          f"{e_lb:.3f}, bound {e_bb:.4f} {e_bbby}, {eb_ops / 1e9:.2f} GFLOP); bounds count "
+          f"{pairs} (query, key) pairs of the band; the {kept_pairs} with both kept would give "
+          f"{ek_bf:.4f} / {ek_bb:.4f} ms")
+    print(f"[time] discriminator-LM step B={BD} S={SD}: default route (kernel D) "
+          f"{dstep_ms['default']:.1f} ms, window route (kernel E) {dstep_ms['window']:.1f} ms, "
+          f"plain route {dstep_ms['plain']:.1f} ms")
+
     pkg = "reinforcement_learning_in_music_generation_torch"
     tpu = "reinforcement_learning_in_music_generation_tpu/ops"
     kernels = [
@@ -607,7 +850,19 @@ def main() -> None:
          "max_abs_err": d_err, "ms": d_fwd + d_bwd, "ms_fwd": d_fwd, "ms_bwd": d_bwd,
          "plain_ms": d_pf + d_pb, "bound_ms": d_bf + d_bb, "bound_ms_fwd": d_bf,
          "bound_ms_bwd": d_bb, "bound_by": d_bfby if d_bfby == d_bbby else "operations",
-         "library_ms": None},
+         "library_ms": None, "launches_discrim": sum(launches["D_discrim"]),
+         "longformer_shape": {"rows": ND, "d_inner": dcfg.d_inner, "ms_fwd": dl_fwd,
+                              "ms_bwd": dl_bwd, "plain_ms": dl_pf + dl_pb,
+                              "bound_ms_fwd": dl_bf, "bound_ms_bwd": dl_bb,
+                              "max_abs_err": d_lf_err}},
+        {"name": "window_attention_band", "route": "cuda",
+         "source": f"{pkg}/csrc/window_attention.cu",
+         "replaces": f"{tpu}/window_attention_kernel.py:203", "launches": sum(launches["E"]),
+         "launches_fwd": launches["E"][0], "launches_bwd": launches["E"][1],
+         "max_abs_err": e_err, "ms": e_fwd + e_bwd, "ms_fwd": e_fwd, "ms_bwd": e_bwd,
+         "plain_ms": e_pf + e_pb, "bound_ms": e_bf + e_bb, "bound_ms_fwd": e_bf,
+         "bound_ms_bwd": e_bb, "bound_by": e_bfby if e_bfby == e_bbby else "operations",
+         "library_ms": e_lf + e_lb, "library_ms_fwd": e_lf, "library_ms_bwd": e_lb},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

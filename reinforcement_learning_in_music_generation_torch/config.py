@@ -1,10 +1,12 @@
 """Configuration dataclasses (own copy of the JAX package's ``config.py``).
 
 Only what the ported paths use: the causal linear-attention transformer's
-config, the generation and pretrain configs and the flagship
-``agent_config`` preset.  Field names and defaults match the JAX package.
-Left out: ``scan_unroll`` (the port runs its layer loop eagerly, there is
-no scan to unroll) and ``PretrainConfig.prng_impl`` (a JAX PRNG choice).
+config and its ``agent_config`` / ``actor_config`` presets, the
+sliding-window (Longformer) encoder's config and its three presets, and
+the generation and pretrain configs.  Field names and defaults match the
+JAX package.  Left out: ``scan_unroll`` (the port runs its layer loops
+eagerly, there is no scan to unroll), ``PretrainConfig.prng_impl`` (a JAX
+PRNG choice) and ``critic_config`` (it comes with the critic).
 """
 
 from __future__ import annotations
@@ -44,6 +46,85 @@ class LinearTransformerConfig:
 def agent_config(vocab_sizes=(56, 135, 18, 87, 18, 25), **kw) -> LinearTransformerConfig:
     """dqn_policy/config.py:11-15 AgentConfig (D_MODEL 512, 12L, 8H)."""
     return LinearTransformerConfig(vocab_sizes=tuple(vocab_sizes), **kw)
+
+
+def actor_config(vocab_sizes=(49, 19, 19, 89, 67, 25), **kw) -> LinearTransformerConfig:
+    """ppo_policy/config.py:39-43 ActorConfig + value head (model.py:154-158)."""
+    kw.setdefault("with_value_head", True)
+    return LinearTransformerConfig(vocab_sizes=tuple(vocab_sizes), **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowTransformerConfig:
+    """Longformer-style sliding-window encoder.
+
+    Three reference variants:
+      * AIRL discriminator: 10 layers, window 50, max_pos 2048, score head
+        (dqn_policy/AIRL_model.py:78-99)
+      * PPO reward model: 12 layers, window 512, max_pos 2048, eval heads
+        (ppo_policy/model.py:400-451, ppo_policy/config.py:53-58)
+      * discrim-pretrain LM: 12 layers, window 512, max_pos 4096, absolute
+        positions, 7 fields (dqn_policy/discrim-pretrain.py:239-249)
+    """
+
+    vocab_sizes: Tuple[int, ...] = (56, 135, 18, 87, 18, 25)
+    emb_sizes: Tuple[int, ...] = (128, 256, 64, 512, 256, 256)
+    d_model: int = 512
+    n_layer: int = 10
+    n_head: int = 8
+    d_inner: int = 1024
+    dropout: float = 0.1
+    max_pos: int = 2048
+    attention_window: int = 50      # full window (w/2 on each side)
+    position_embedding_type: str = "absolute"  # or "relative_key"
+    with_score_head: bool = True    # score_classifier MLP (AIRL_model.py:91-99)
+    with_eval_heads: bool = False   # per-field scalar eval heads (IRL_model.py)
+    dtype: str = "float32"
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_head
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.vocab_sizes)
+
+
+def airl_discriminator_config(vocab_sizes=(56, 135, 18, 87, 18, 25),
+                              **kw) -> WindowTransformerConfig:
+    """dqn_policy/AIRL_model.py:78-90 (10L, window 50).  Absolute positions:
+    the reference requests ``relative_key``, which HF's
+    LongformerSelfAttention never reads (see ``models/longformer.py``)."""
+    kw.setdefault("n_layer", 10)
+    kw.setdefault("attention_window", 50)
+    kw.setdefault("max_pos", 2048)
+    kw.setdefault("position_embedding_type", "absolute")
+    kw.setdefault("with_score_head", True)
+    return WindowTransformerConfig(vocab_sizes=tuple(vocab_sizes), **kw)
+
+
+def ppo_reward_config(vocab_sizes=(49, 19, 19, 89, 67, 25), **kw) -> WindowTransformerConfig:
+    """ppo_policy/model.py:400-451 reward model (12L, window 512), absolute
+    positions for the same reason as ``airl_discriminator_config``."""
+    kw.setdefault("n_layer", 12)
+    kw.setdefault("attention_window", 512)
+    kw.setdefault("max_pos", 2048)
+    kw.setdefault("position_embedding_type", "absolute")
+    kw.setdefault("with_score_head", False)
+    kw.setdefault("with_eval_heads", True)
+    return WindowTransformerConfig(vocab_sizes=tuple(vocab_sizes), **kw)
+
+
+def discrim_lm_config(vocab_sizes=(56, 135, 18, 3, 87, 18, 25),
+                      **kw) -> WindowTransformerConfig:
+    """dqn_policy/discrim-pretrain.py:239-249 LM variant (7 fields incl type)."""
+    kw.setdefault("n_layer", 12)
+    kw.setdefault("attention_window", 512)
+    kw.setdefault("max_pos", 4096)
+    kw.setdefault("position_embedding_type", "absolute")
+    kw.setdefault("with_score_head", False)
+    kw.setdefault("emb_sizes", (128, 256, 64, 32, 512, 256, 128))
+    return WindowTransformerConfig(vocab_sizes=tuple(vocab_sizes), **kw)
 
 
 @dataclasses.dataclass(frozen=True)

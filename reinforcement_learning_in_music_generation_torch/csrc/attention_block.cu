@@ -39,27 +39,6 @@ namespace rlmg {
 
 constexpr int AT_T = 64, AT_THREADS = 256, AT_MAX_E = 64;
 
-// acc[i][j] += sum_{k < K} X[k * ldx + r0 + i] * Y[k * ldy + c0 + j]
-__device__ __forceinline__ void outer4(float (&acc)[4][4], const float* X, int ldx, int r0,
-                                       const float* Y, int ldy, int c0, int K) {
-  for (int k = 0; k < K; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(X + k * ldx + r0);
-    const float4 b = *reinterpret_cast<const float4*>(Y + k * ldy + c0);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero4(float (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-}
-
 inline size_t fwd_smem_floats(int E) {
   return 4 * (size_t)E * AT_T + AT_T * AT_T + E * E + E + AT_T;
 }

@@ -1,7 +1,8 @@
-// Building blocks of the training kernels (attention_block.cu, attn_tail.cu):
-// a register-blocked tiled GEMM with fused epilogues, row-wise LayerNorm
-// forward and backward, and deterministic column sums.  Plain C interface
-// through the two sources; no PyTorch headers.
+// Building blocks of the training kernels (attention_block.cu, attn_tail.cu,
+// window_attention.cu): a register-blocked tiled GEMM with fused epilogues,
+// 4x4 outer products from shared memory, row-wise LayerNorm forward and
+// backward, and deterministic column sums.  Plain C interface
+// through the sources; no PyTorch headers.
 //
 // GEMM.  C (M,N) = op(A) @ op(B), f32 accumulation, inputs read as float or
 // bf16.  A block of 256 threads owns a 128x128 tile of C; each thread keeps
@@ -282,6 +283,28 @@ inline int colsum(const float* x, float* out, int M, int N, float* part, cudaStr
 
 constexpr int LN_WARPS = 8, LN_ROWS_PER_WARP = 16, LN_MAX_D = 1024;
 constexpr float LN_EPS = 1e-5f;
+
+// Register-blocked outer products from shared memory (the attention kernels):
+// acc[i][j] += sum_{k < K} X[k * ldx + r0 + i] * Y[k * ldy + c0 + j]
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float* X, int ldx, int r0,
+                                       const float* Y, int ldy, int c0, int K) {
+  for (int k = 0; k < K; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(X + k * ldx + r0);
+    const float4 b = *reinterpret_cast<const float4*>(Y + k * ldy + c0);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero4(float (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -51,6 +51,12 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
+def linear_scalar(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Linear(d -> 1) as multiply and sum, returning (..., ): the JAX
+    package's form, kept so the sums run in the same order."""
+    return torch.sum(x * p["w"][..., 0], dim=-1) + p["b"][0]
+
+
 def init_embedding(vocab: int, dim: int, *, generator, device,
                    dtype=torch.float32) -> torch.Tensor:
     return torch.randn((vocab, dim), generator=generator, device=device, dtype=dtype)

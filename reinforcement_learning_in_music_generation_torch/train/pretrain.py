@@ -1,15 +1,18 @@
-"""Agent pretraining: the counterpart of the JAX package's
-``train/pretrain.py`` (``agent_train_step``, ``agent_grad_step``,
-``apply_grads``, ``pretrain``).
+"""Pretraining: the counterpart of the JAX package's ``train/pretrain.py``
+(``agent_train_step``, ``agent_grad_step``, ``longformer_lm_step``,
+``longformer_grad_step``, ``apply_grads``, ``pretrain``).
 
-One step: loss = mean of the six masked field CEs, Adam lr 1e-4 with
+Agent step: loss = mean of the six masked field CEs, Adam lr 1e-4 with
 global-norm clipping at 3 (dqn_policy/agent_pretrain.py:516,557-565).
 With ``cfg.dtype == "bfloat16"`` the step is mixed precision: float32
 master weights in the optimizer, compute in bfloat16 (the CE reduces in
-float32).  The loop keeps the JAX loop's behaviour: epochs, ``log_every``,
-``max_steps``, gradient accumulation, loss-bucketed checkpoints and early
-stop at loss <= 0.05 (agent_pretrain.py:594-632), ``save_on_interrupt``
-and ``resume_from`` (in the port's checkpoint format).
+float32).  Discriminator-LM step: the per-field masked CE of the
+window transformer's token logits (dqn_policy/discrim-pretrain.py:342-490).
+The loop keeps the JAX loop's behaviour for either step: epochs,
+``log_every``, ``max_steps``, gradient accumulation, loss-bucketed
+checkpoints and early stop at loss <= 0.05 (agent_pretrain.py:594-632),
+``save_on_interrupt`` and ``resume_from`` (in the port's checkpoint
+format).
 
 Runs on one device.  Not ported yet (ROADMAP Queue 1 item 9, raise
 ``NotImplementedError``): a ``mesh`` (dp / tp / pp), ZeRO-1 and the orbax
@@ -21,13 +24,15 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..config import LinearTransformerConfig, PretrainConfig
+from ..config import LinearTransformerConfig, PretrainConfig, WindowTransformerConfig
 from ..models import linear_transformer as lt
+from ..models import longformer as lf
+from ..ops.losses import fields_cross_entropy
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.saver import MetricsBus, Saver, loss_bucket_filename
 from . import optim
@@ -36,14 +41,11 @@ from .data_pipeline import prefetch_batches
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _grads(params: dict, cfg: LinearTransformerConfig, x, y, mask,
-           generator: Optional[torch.Generator]):
-    """(grads tree, loss, per-field losses) of the mean field CE."""
+def _grads(params: dict, losses_fn: Callable):
+    """(grads tree, loss, per-field losses) of the mean of
+    ``losses_fn(params)``; leaves the loss does not reach get zeros."""
     leaves = [t.detach().requires_grad_(True) for t in optim.tree_leaves(params)]
-    p = optim.tree_unflatten(params, leaves)
-    if cfg.dtype != "float32":
-        p = lt.cast_params(p, _DTYPES[cfg.dtype])
-    losses = lt.train_losses(p, cfg, x, y, mask, deterministic=False, generator=generator)
+    losses = losses_fn(optim.tree_unflatten(params, leaves))
     loss = losses.mean()
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g.to(t.dtype)
@@ -51,10 +53,31 @@ def _grads(params: dict, cfg: LinearTransformerConfig, x, y, mask,
     return optim.tree_unflatten(params, grads), loss.detach(), losses.detach()
 
 
+def _scaled(grads: dict, scale: float) -> dict:
+    return grads if scale == 1.0 else optim.tree_map(lambda g: g * scale, grads)
+
+
+def _agent_losses(cfg: LinearTransformerConfig, x, y, mask,
+                  generator: Optional[torch.Generator]) -> Callable:
+    def losses_fn(p):
+        if cfg.dtype != "float32":
+            p = lt.cast_params(p, _DTYPES[cfg.dtype])
+        return lt.train_losses(p, cfg, x, y, mask, deterministic=False, generator=generator)
+    return losses_fn
+
+
+def _longformer_losses(cfg: WindowTransformerConfig, x, y, mask,
+                       generator: Optional[torch.Generator]) -> Callable:
+    def losses_fn(p):
+        logits = lf.token_logits(p, cfg, x, mask, deterministic=False, generator=generator)
+        return fields_cross_entropy(logits, y, mask)
+    return losses_fn
+
+
 def agent_train_step(params: dict, opt_state: optim.AdamState, cfg: LinearTransformerConfig,
                      tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator]):
     """One CE pretrain step -> (params', opt_state', (loss, per-field))."""
-    grads, loss, losses = _grads(params, cfg, x, y, mask, generator)
+    grads, loss, losses = _grads(params, _agent_losses(cfg, x, y, mask, generator))
     updates, opt_state = tx.update(grads, opt_state, params)
     return optim.apply_updates(params, updates), opt_state, (loss, losses)
 
@@ -64,10 +87,29 @@ def agent_grad_step(params: dict, cfg: LinearTransformerConfig, x, y, mask,
     """Gradients and loss only, the micro-batch unit of gradient
     accumulation; ``scale`` pre-divides by the accumulation count, so the
     summed micro-gradients are the mean gradient."""
-    grads, loss, losses = _grads(params, cfg, x, y, mask, generator)
-    if scale != 1.0:
-        grads = optim.tree_map(lambda g: g * scale, grads)
-    return grads, (loss, losses)
+    grads, loss, losses = _grads(params, _agent_losses(cfg, x, y, mask, generator))
+    return _scaled(grads, scale), (loss, losses)
+
+
+def longformer_lm_step(params: dict, opt_state: optim.AdamState, cfg: WindowTransformerConfig,
+                       tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator]):
+    """Discriminator-LM pretrain step (dqn_policy/discrim-pretrain.py:342-490):
+    per-field masked CE through the window transformer -> (params',
+    opt_state', (loss, per-field))."""
+    grads, loss, losses = _grads(params, _longformer_losses(cfg, x, y, mask, generator))
+    updates, opt_state = tx.update(grads, opt_state, params)
+    return optim.apply_updates(params, updates), opt_state, (loss, losses)
+
+
+def longformer_grad_step(params: dict, cfg: WindowTransformerConfig, x, y, mask,
+                         generator: Optional[torch.Generator], scale: float = 1.0):
+    """``longformer_lm_step`` without the optimizer: the accumulation unit."""
+    grads, loss, losses = _grads(params, _longformer_losses(cfg, x, y, mask, generator))
+    return _scaled(grads, scale), (loss, losses)
+
+
+# the micro-gradient step that gradient accumulation pairs with each step
+_GRAD_STEPS = {agent_train_step: agent_grad_step, longformer_lm_step: longformer_grad_step}
 
 
 def apply_grads(params: dict, opt_state: optim.AdamState, tx: optim.Adam, grads: dict):
@@ -92,16 +134,20 @@ def _install_interrupt_handler() -> None:
         pass        # not the main thread; the caller sets INTERRUPT directly
 
 
-def pretrain(params: dict, cfg: LinearTransformerConfig, train_x, train_y, train_mask,
-             pcfg: PretrainConfig = PretrainConfig(), *, mesh=None,
+def pretrain(params: dict, cfg, train_x, train_y, train_mask,
+             pcfg: PretrainConfig = PretrainConfig(), *,
+             step_fn: Callable = agent_train_step, mesh=None,
              metrics: Optional[MetricsBus] = None, max_steps: Optional[int] = None,
              resume_from: Optional[str] = None):
     """The pretrain loop (agent_pretrain.py:485-632) on the device that
     holds ``params``.  Returns (params, opt_state, history of epoch losses).
 
-    ``max_steps`` bounds the batches (for tests and measurements).  A
-    ``metrics`` bus that carries a ``Saver`` logs to that saver's
-    ``log.txt``; otherwise the loop opens ``pcfg.exp_dir/log.txt``."""
+    ``step_fn`` is ``agent_train_step`` (a ``LinearTransformerConfig``) or
+    ``longformer_lm_step`` (a ``WindowTransformerConfig``); gradient
+    accumulation takes the matching grad step and raises ``ValueError`` for
+    any other ``step_fn``.  ``max_steps`` bounds the batches (for tests and
+    measurements).  A ``metrics`` bus that carries a ``Saver`` logs to that
+    saver's ``log.txt``; otherwise the loop opens ``pcfg.exp_dir/log.txt``."""
     if mesh is not None:
         raise NotImplementedError("pretrain(mesh=...): data/tensor/pipeline parallelism is "
                                   "not ported yet (ROADMAP Queue 1 item 9)")
@@ -112,6 +158,11 @@ def pretrain(params: dict, cfg: LinearTransformerConfig, train_x, train_y, train
         raise NotImplementedError(f"ckpt_backend={pcfg.ckpt_backend!r}: only the pickle "
                                   "format is ported (ROADMAP Queue 1 item 9)")
     accum = max(1, pcfg.grad_accum)
+    grad_step = _GRAD_STEPS.get(step_fn)
+    if accum > 1 and grad_step is None:
+        raise ValueError("grad_accum needs a known step_fn (agent_train_step / "
+                         "longformer_lm_step); custom step_fns must apply their own "
+                         "accumulation")
     device = optim.tree_leaves(params)[0].device
     # schedules count OPTIMIZER steps; milestones are epochs
     num_batch_sched = max(1, len(train_x) // pcfg.batch_size // accum)
@@ -159,14 +210,14 @@ def pretrain(params: dict, cfg: LinearTransformerConfig, train_x, train_y, train
                                                    depth=pcfg.prefetch_depth):
             saver.global_step_increment()
             if accum == 1:
-                params, opt_state, (loss, losses) = agent_train_step(params, opt_state, cfg, tx,
-                                                                     bx, by, bm, generator)
+                params, opt_state, (loss, losses) = step_fn(params, opt_state, cfg, tx, bx, by,
+                                                            bm, generator)
             else:
                 # K micro-gradients pre-scaled by 1/K sum to the mean
                 # gradient; one optimizer step per K.  The window carries
                 # across epoch boundaries.
-                grads, (loss, losses) = agent_grad_step(params, cfg, bx, by, bm, generator,
-                                                        scale=1.0 / accum)
+                grads, (loss, losses) = grad_step(params, cfg, bx, by, bm, generator,
+                                                  scale=1.0 / accum)
                 grads_acc = grads if grads_acc is None else optim.tree_map(
                     torch.add, grads_acc, grads)
                 micro += 1

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's pretrain step, on one GPU.
+"""Where the time goes in the PyTorch port's training steps, on one GPU.
 
-    python3 scripts/profile_torch_train.py [--out build/profile] [--route kernel|plain|both]
+    python3 scripts/profile_torch_train.py [--model agent|discrim] [--route NAME|all]
+                                           [--out build/profile]
 
-At the flagship width (config.agent_config, random weights from a seed,
-dropout 0.1 as the CLI trains) and B=32 x S=512 synthetic CP rows, it
-traces with torch.profiler two ``train.pretrain.agent_train_step`` calls
-per route: ``kernel`` is the default route on a card (kernels C and D in
-every layer), ``plain`` the PyTorch composition (RLMG_FFN_BACKEND=xla,
-RLMG_ATTN_BACKEND=xla).  Each window runs once untraced first (kernels
-built, allocator warm).  For each it prints the wall time, the summed
-device time of all kernels, the device busy share (device time over wall
-time) and the kernels that took most of it, then one JSON line with the
-same numbers.  Chrome traces go to ``--out``.
+``--model agent`` (the default): the flagship ``config.agent_config``, B=32 x
+S=512, two ``train.pretrain.agent_train_step`` calls per route: ``kernel``
+is the default route on a card (kernels C and D in every layer), ``plain``
+the PyTorch composition (RLMG_FFN_BACKEND=xla, RLMG_ATTN_BACKEND=xla).
+``--model discrim``: the discriminator LM (``config.discrim_lm_config``
+with the six fields of ``cli discrim-pretrain``), B=4 x S=3584, two
+``train.pretrain.longformer_lm_step`` calls per route: ``kernel`` is the
+default route (kernel D in every layer, the plain band attention),
+``window`` RLMG_WINDOW_BACKEND=pallas (kernel E in every layer, the plain
+tail), ``plain`` RLMG_FFN_BACKEND=xla.  Random weights from a seed,
+synthetic CP rows (seed 0), dropout 0.1 as the CLIs train.
+
+Each window runs once untraced first (kernels built, allocator warm), then
+under torch.profiler.  For each it prints the wall time, the summed device
+time of all kernels, the device busy share (device time over wall time)
+and the kernels that took most of it, then one JSON line with the same
+numbers.  Chrome traces go to ``--out``.
 """
 
 from __future__ import annotations
@@ -31,16 +39,29 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 from reinforcement_learning_in_music_generation_torch import config as C  # noqa: E402
 from reinforcement_learning_in_music_generation_torch.data import dataset  # noqa: E402
 from reinforcement_learning_in_music_generation_torch.models import (  # noqa: E402
-    linear_transformer as lt)
+    linear_transformer as lt, longformer as lf)
 from reinforcement_learning_in_music_generation_torch.ops import _build  # noqa: E402
 from reinforcement_learning_in_music_generation_torch.train import (  # noqa: E402
     optim, pretrain)
 
-ROUTES = {"kernel": {}, "plain": {"RLMG_FFN_BACKEND": "xla", "RLMG_ATTN_BACKEND": "xla"}}
-B, S, STEPS = 32, 512, 2
+KNOBS = ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_WINDOW_BACKEND")
+DISCRIM_VOCAB = (56, 135, 18, 87, 18, 25)
+MODELS = {
+    "agent": dict(batch=32, seq=512, cfg=C.agent_config, init=lt.init_params,
+                  step=pretrain.agent_train_step,
+                  routes={"kernel": {},
+                          "plain": {"RLMG_FFN_BACKEND": "xla", "RLMG_ATTN_BACKEND": "xla"}}),
+    "discrim": dict(batch=4, seq=3584,
+                    cfg=lambda: C.discrim_lm_config(DISCRIM_VOCAB,
+                                                    emb_sizes=(128, 256, 64, 512, 256, 128)),
+                    init=lf.init_params, step=pretrain.longformer_lm_step,
+                    routes={"kernel": {}, "window": {"RLMG_WINDOW_BACKEND": "pallas"},
+                            "plain": {"RLMG_FFN_BACKEND": "xla"}}),
+}
+STEPS = 2
 
 
-def profile(name, fn, out_dir, top=12):
+def profile(name, fn, out_dir, tokens, top=12):
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -62,16 +83,23 @@ def profile(name, fn, out_dir, top=12):
         print(f"    {ms:10.3f} ms {ms / dev_ms:6.1%} {n:6d}x  {kname[:100]}")
     return {"window": name, "steps": STEPS, "wall_ms": wall * 1e3, "device_ms": dev_ms,
             "busy": dev_ms / (wall * 1e3) if wall else None, "launches": launches,
-            "tokens_per_s": STEPS * B * S / wall,
+            "tokens_per_s": STEPS * tokens / wall,
             "top": [{"kernel": k[:100], "n": n, "ms": ms, "share": ms / dev_ms}
                     for k, (n, ms) in rows]}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="agent", choices=tuple(MODELS))
+    ap.add_argument("--route", default="all",
+                    help="a route of the model (agent: kernel, plain; discrim: kernel, "
+                         "window, plain) or all")
     ap.add_argument("--out", default="build/profile")
-    ap.add_argument("--route", default="both", choices=("kernel", "plain", "both"))
     args = ap.parse_args()
+    model = MODELS[args.model]
+    routes = tuple(model["routes"]) if args.route == "all" else (args.route,)
+    if any(r not in model["routes"] for r in routes):
+        ap.error(f"--route {args.route}: {args.model} has {sorted(model['routes'])}")
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -81,16 +109,17 @@ def main():
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     print(f"card: {card}")
     _build.build_all()
-    cfg = C.agent_config()
+    cfg = model["cfg"]()
+    b, s = model["batch"], model["seq"]
     dev = torch.device("cuda")
     x, y, m = (torch.from_numpy(a).to(dev) for a in
-               dataset.synthetic_cp_dataset(B, S, n_class=cfg.vocab_sizes, seed=0))
+               dataset.synthetic_cp_dataset(b, s, n_class=cfg.vocab_sizes, seed=0))
     res = []
-    for route in (("kernel", "plain") if args.route == "both" else (args.route,)):
-        for k in ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND"):
+    for route in routes:
+        for k in KNOBS:
             os.environ.pop(k, None)
-        os.environ.update(ROUTES[route])
-        params = lt.init_params(cfg, seed=0, device=dev)
+        os.environ.update(model["routes"][route])
+        params = model["init"](cfg, seed=0, device=dev)
         tx = optim.adam(1e-4, grad_clip=3.0)
         state = [tx.init(params)]
         gen = torch.Generator(device=dev)
@@ -99,11 +128,13 @@ def main():
         def steps():
             p, st = params, state[0]
             for _ in range(STEPS):
-                p, st, _ = pretrain.agent_train_step(p, st, cfg, tx, x, y, m, gen)
+                p, st, _ = model["step"](p, st, cfg, tx, x, y, m, gen)
             state[0] = st
 
-        res.append(profile(f"train_{route}_B{B}_S{S}", steps, args.out))
-    print(json.dumps({"card": card, "windows": res}))
+        res.append(profile(f"{args.model}_{route}_B{b}_S{s}", steps, args.out, b * s))
+        del params, state
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "model": args.model, "windows": res}))
 
 
 if __name__ == "__main__":

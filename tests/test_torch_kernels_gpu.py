@@ -195,6 +195,77 @@ def test_attn_tail_kernel_is_deterministic(dev):
     assert all(torch.equal(x, y) for x, y in zip(g1, g2))
 
 
+def _band_inputs(dev, b, h, s, d, tail, layout, seed=6):
+    """q, k, v (B, H, S, D) in the layout the Longformer passes ("bshd":
+    transposed views of (B, S, H, D) tensors) or contiguous; mask with the
+    last ``tail`` rows of song 0 padded; dO zero on padded rows."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    if layout == "bshd":
+        q, k, v, g = (t.transpose(1, 2) for t in (q, k, v, g))
+    mask = torch.ones((b, s), device=dev)
+    mask[0, s - tail:] = 0.0
+    return q, k, v, mask, g * mask[:, None, :, None]
+
+
+# (B, H, S, D, window, padding tail, layout): a ragged last tile, a window
+# wider than a tile, a padding tail longer than w (rows that see no kept
+# key), narrow heads
+BAND_CASES = [(2, 2, 200, 64, 50, 17, "bhsd"), (1, 3, 300, 64, 300, 40, "bshd"),
+              (2, 2, 256, 32, 64, 100, "bshd"), (1, 2, 130, 8, 16, 0, "bhsd")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d,window,tail,layout", BAND_CASES)
+def test_window_attention_kernel_matches_plain(dev, b, h, s, d, window, tail, layout):
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        window_attention_kernel as twk)
+    q, k, v, mask, g = _band_inputs(dev, b, h, s, d, tail, layout)
+    before = (twk.window_attention_band.launches_fwd, twk.window_attention_band.launches_bwd)
+    ok, gk = _fwd_bwd(lambda *a: twk.window_attention_band(*a, mask, window), (q, k, v), g)
+    op, gp = _fwd_bwd(lambda *a: twk.window_attention_band_plain(*a, mask, window)[0],
+                      (q, k, v), g)
+    assert (twk.window_attention_band.launches_fwd, twk.window_attention_band.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    _close(ok, op, 1e-5, "out")
+    for name, x, y in zip(("dq", "dk", "dv"), gk, gp):
+        assert torch.isfinite(x).all(), name
+        _close(x, y, 1e-4, name)
+    lse = twk.forward_kernel(q, k, v, mask, window)[1].sum(0)
+    _close(lse, twk.window_attention_band_plain(q, k, v, mask, window)[1], 1e-5, "lse")
+
+
+@pytest.mark.gpu
+def test_window_attention_kernel_is_deterministic(dev):
+    """No atomics: two backward launches give bit-equal gradients."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        window_attention_kernel as twk)
+    q, k, v, mask, g = _band_inputs(dev, 2, 4, 640, 64, 300, "bshd")
+    out, stats = twk.forward_kernel(q, k, v, mask, 512)
+    g1 = twk.backward_kernel(q, k, v, mask, out, stats, g, 512)
+    g2 = twk.backward_kernel(q, k, v, mask, out, stats, g, 512)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+@pytest.mark.gpu
+def test_window_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        window_attention_kernel as twk)
+    x = torch.zeros((1, 2, 64, 16), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        twk.window_attention_band(x.bfloat16(), x.bfloat16(), x.bfloat16(), None, 16)
+    wide = torch.zeros((1, 2, 64, 72), device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        twk.window_attention_band(wide, wide, wide, None, 16)
+    with pytest.raises(ValueError, match="strides"):
+        y = torch.zeros((1, 2, 64, 20), device=dev)[..., 1:17]
+        twk.window_attention_band(y, y, y, None, 16)
+    with pytest.raises(ValueError, match="mask"):
+        twk.window_attention_band(x, x, x, torch.ones((1, 63), device=dev), 16)
+
+
 @pytest.mark.gpu
 def test_training_wrappers_reject_what_the_kernels_do_not_take(dev):
     h = torch.zeros((2 * 24, 32), device=dev)
