@@ -5,7 +5,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
-  1. builds every kernel of the generation, training and discriminator
+  1. builds every kernel of the generation, training, discriminator and DQN
      paths from ``csrc/`` (one nvcc per source, in parallel), prints each library's
      ptxas registers and spills, and the card's name and power limit;
   2. at the full width of ``config.agent_config`` (12 layers, d_model 512,
@@ -65,7 +65,34 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      the default route and under RLMG_WINDOW_BACKEND=pallas and fails
      unless the route's kernel counters read 12 x 4 and every logged loss
      is finite;
- 11. times each kernel and its plain version at the main paths' shapes
+ 11. holds kernel F (causal_product, the counterpart of the Pallas causal
+     linear-attention product _fwd_pallas / _bwd_pallas) against its plain
+     twin at (1, 8, 50, 64) (a rollout episode), (30, 8, 50, 64) (a DQN
+     update), (32, 8, 512, 64) (pretrain) and a ragged (4, 8, 300, 64), f32,
+     in the model's layout (views of (B, S, H, E) tensors): out and den
+     within 1e-4 of their magnitude, dq / dk / dv within 1e-3 of theirs; two
+     backward runs bit-equal; bfloat16 inputs and heads of 72 refused;
+ 12. takes one full-width DQN update (agent_config, dropout 0, lr 1e-4,
+     B=30 x S=50, the same weights and batches) on the default route (the
+     plain composition) and under RLMG_ATTN_BACKEND=pallas (kernel F): mse
+     and ce within 1e-4 relative, gradients, parameters and Adam updates as
+     in 5; F's counters 3 x 12 forward and 2 x 12 backward (eval, target,
+     CE; no backward through the target) and 0 on the default route;
+     choose_action on 50 states equal in >= 99% of the action fields across
+     routes; then times two more updates of each;
+ 13. takes one AIRL disc_step and scores 500 states at full width (10
+     layers, window 50, B=100 x S=50): finite losses and scores; times the
+     step and the scoring pass;
+ 14. runs ``apps/cli.py dqn-train`` (batch 30, buffer 500, 12 songs, 2
+     updates) on both routes: 2 updates, the checkpoints and
+     agent_info.pickle written, every printed loss and score finite, F's
+     counters 12 x (50 x 12 + 3 x 2) = 7272 forward and 12 x 2 x 2 = 48
+     backward under RLMG_ATTN_BACKEND=pallas and 0 on the default route;
+     prints ms per rollout song, per DQN update and per AIRL pass;
+ 15. runs ``apps/cli.py pretrain`` 4 steps at B=32 x S=512 under
+     RLMG_ATTN_BACKEND=pallas: F's counters 48 + 48, C's and D's 0, every
+     loss finite;
+ 16. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
      beside the library call.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -185,6 +212,26 @@ def attn_tail_work(n, d, di):
     return (f_ops, 4 * 3 * n * d + w), (3 * f_ops, 4 * 5 * n * d + 2 * w)
 
 
+def causal_product_work(b, h, s, e, chunk=128):
+    """(forward, backward) (operations, bytes) of the causal product at this
+    shape, counted as kernel C's attention: per chunk of c rows (the JAX
+    kernel's 128, the last one ragged: only the rows the data has) a score
+    product counts its causal half, c (c + 1) e operations, and a state
+    product (q S, S += k^T v, ...) 2 c e^2; forward 2 + 2 of them, backward
+    6 + 5.  Bytes: each input read once, each output written once (forward
+    phi(q), phi(k), v in, out and den out; backward those, out, den and dO
+    in, three gradients out)."""
+    tri = state = 0
+    for t0 in range(0, s, chunk):
+        c = min(chunk, s - t0)
+        tri += c * (c + 1) * e
+        state += 2 * c * e * e
+    tri, state = b * h * tri, b * h * state
+    n, rows = b * h * s * e, b * h * s
+    return ((2 * tri + 2 * state, 4 * (4 * n + rows)),
+            (6 * tri + 5 * state, 4 * (8 * n + rows)))
+
+
 TAIL_GRADS = ("dh_in", "da_pre", "dWo", "dbo", "dln1_s", "dln1_b", "dW1", "db1", "dW2", "db2",
               "dln2_s", "dln2_b")
 
@@ -302,7 +349,8 @@ def main() -> None:
         from reinforcement_learning_in_music_generation_torch.models import (
             common as cm, linear_transformer as lt)
         from reinforcement_learning_in_music_generation_torch.ops import (
-            _build, decode_kernel_v4 as dk4, decode_kernel_v6 as dk6, sampling as smp)
+            _build, decode_kernel_v4 as dk4, decode_kernel_v6 as dk6,
+            linear_attention as tla, sampling as smp)
     except ImportError as e:
         fail(f"the port's package is not importable ({e}); run from the repo root")
 
@@ -478,7 +526,8 @@ def main() -> None:
     from reinforcement_learning_in_music_generation_torch.data import dataset
     from reinforcement_learning_in_music_generation_torch.models import longformer as lf
     from reinforcement_learning_in_music_generation_torch.ops import (
-        attention_block as tab, ffn_block as tfb, window_attention_kernel as twk)
+        attention_block as tab, ffn_block as tfb, linear_attention_kernel as tlk,
+        window_attention_kernel as twk)
     from reinforcement_learning_in_music_generation_torch.train import (
         optim as topt, pretrain as tpre)
     BT, ST, CHUNK = 32, 512, cfg.attn_chunk
@@ -530,11 +579,12 @@ def main() -> None:
             if v is not None:
                 os.environ[k] = v
 
-    # (C fwd, C bwd, D fwd, D bwd, E fwd, E bwd)
+    # (C fwd, C bwd, D fwd, D bwd, E fwd, E bwd, F fwd, F bwd)
     counters = ((tab.qkv_attention_block, "launches_fwd"), (tab.qkv_attention_block, "launches_bwd"),
                 (tfb.attn_tail_block, "launches_fwd"), (tfb.attn_tail_block, "launches_bwd"),
                 (twk.window_attention_band, "launches_fwd"),
-                (twk.window_attention_band, "launches_bwd"))
+                (twk.window_attention_band, "launches_bwd"),
+                (tlk.causal_product, "launches_fwd"), (tlk.causal_product, "launches_bwd"))
 
     def zero_counts():
         for fn, attr in counters:
@@ -577,9 +627,9 @@ def main() -> None:
             routes[name], p0, tcfg, (xs.long(), ys.long(), ms), tpre.agent_grad_step,
             tpre.agent_train_step)
         print(f"[train_step] {name} route: loss {step_out[name][0]:.6f}, kernel launches "
-              f"(C, D, E fwd/bwd) {counts}, {step_ms[name]:.1f} ms/step, "
+              f"(C, D, E, F fwd/bwd) {counts}, {step_ms[name]:.1f} ms/step, "
               f"{NT / step_ms[name] * 1e3:.1f} tokens/s", flush=True)
-        want = [tcfg.n_layer] * 4 + [0, 0] if name == "kernel" else [0] * 6
+        want = [tcfg.n_layer] * 4 + [0] * 4 if name == "kernel" else [0] * 8
         check(counts == want, f"train step, {name} route: launches {counts}, expected {want}")
     restore_env()
     check_step("train_step", step_out["kernel"], step_out["plain"])
@@ -602,12 +652,12 @@ def main() -> None:
             print(f"[pretrain] {name} route: {res['steps']} steps in {res['seconds']:.3f}s "
                   f"= {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s (with one "
                   f"epoch-end checkpoint); logged losses {res['batch_losses']}; launches "
-                  f"(C, D, E fwd/bwd) {counts}", flush=True)
+                  f"(C, D, E, F fwd/bwd) {counts}", flush=True)
             check(res["steps"] == 4, f"pretrain {name}: {res['steps']} steps, expected 4")
             check(len(res["batch_losses"]) > 0 and all(
                 math.isfinite(v) for v in res["batch_losses"] + res["history"]),
                 f"pretrain {name}: a logged loss is not finite")
-            want = [12 * 4] * 4 + [0, 0] if name == "kernel" else [0] * 6
+            want = [12 * 4] * 4 + [0] * 4 if name == "kernel" else [0] * 8
             check(counts == want, f"pretrain {name}: launches {counts}, expected {want}")
     restore_env()
     launches["C"] = cli_res["kernel"][1][0:2]
@@ -692,14 +742,15 @@ def main() -> None:
     # -- 9. one discriminator-LM step on three routes ------------------------
     droutes = {"default": {}, "window": {"RLMG_WINDOW_BACKEND": "pallas"},
                "plain": {"RLMG_FFN_BACKEND": "xla"}}
-    dwant = {"default": [0, 0, 12, 12, 0, 0], "window": [0, 0, 0, 0, 12, 12], "plain": [0] * 6}
+    dwant = {"default": [0, 0, 12, 12, 0, 0, 0, 0], "window": [0, 0, 0, 0, 12, 12, 0, 0],
+             "plain": [0] * 8}
     dstep_out, dstep_ms = {}, {}
     for name in ("default", "window", "plain"):
         dstep_out[name], counts, dstep_ms[name] = route_step(
             droutes[name], dp0, dcfg, (dxs.long(), dys.long(), dms), tpre.longformer_grad_step,
             tpre.longformer_lm_step)
         print(f"[discrim_step] {name} route: loss {dstep_out[name][0]:.6f}, kernel launches "
-              f"(C, D, E fwd/bwd) {counts}, {dstep_ms[name]:.1f} ms/step, "
+              f"(C, D, E, F fwd/bwd) {counts}, {dstep_ms[name]:.1f} ms/step, "
               f"{ND / dstep_ms[name] * 1e3:.1f} tokens/s", flush=True)
         check(counts == dwant[name],
               f"discrim step, {name} route: launches {counts}, expected {dwant[name]}")
@@ -727,7 +778,7 @@ def main() -> None:
             print(f"[discrim-pretrain] {name} route: {res['steps']} steps in "
                   f"{res['seconds']:.3f}s = {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} "
                   f"tokens/s (with one epoch-end checkpoint); logged losses "
-                  f"{res['batch_losses']}; launches (C, D, E fwd/bwd) {counts}", flush=True)
+                  f"{res['batch_losses']}; launches (C, D, E, F fwd/bwd) {counts}", flush=True)
             check(res["steps"] == 4, f"discrim-pretrain {name}: {res['steps']} steps")
             check(len(res["batch_losses"]) > 0 and all(
                 math.isfinite(v) for v in res["batch_losses"] + res["history"]),
@@ -738,7 +789,213 @@ def main() -> None:
     launches["E"] = dcli["window"][1][4:6]
     launches["D_discrim"] = dcli["default"][1][2:4]
 
-    # -- 11. times at the main paths' shapes -------------------------------
+    # -- 11. kernel F against its plain twin -------------------------------
+    def product_inputs(b, h, s_, e):
+        """phi(q), phi(k) (elu+1 of normals), v and dO (B, H, S, E), as the
+        model passes them: (B, H, S, E) views of (B, S, H, E) tensors."""
+        t = [torch.randn((b, s_, h, e), generator=gen, device=dev).transpose(1, 2)
+             for _ in range(4)]
+        return tla.feature_map(t[0]), tla.feature_map(t[1]), t[2], t[3]
+
+    f_kernel = lambda *a: tlk.causal_product(*a, cfg.attn_eps)[0]
+    f_plain = lambda *a: tlk.causal_product_plain(*a, cfg.attn_eps)[0]
+    BQ, SQ = 30, 50                               # a DQN update's (B, S)
+    f_shapes = {"rollout": (1, H, SQ, E), "dqn": (BQ, H, SQ, E), "pretrain": (BT, H, ST, E),
+                "ragged": (4, H, 300, E)}
+    f_in, f_err = {}, {}
+    for tag, shape in f_shapes.items():
+        pq, pk, v_f, g_f = f_in[tag] = product_inputs(*shape)
+        ok, gk = fwd_bwd(f_kernel, (pq, pk, v_f), g_f)
+        op, gp = fwd_bwd(f_plain, (pq, pk, v_f), g_f)
+        with torch.no_grad():
+            den_k = tlk.causal_product(pq, pk, v_f, cfg.attn_eps)[1]
+            den_p = tlk.causal_product_plain(pq, pk, v_f, cfg.attn_eps)[1]
+        f_err[tag] = e_out = max_err(ok, op)
+        e_den = max_err(den_k, den_p)
+        print(f"[causal_product] {tag} {tuple(shape)}: max|d out| {e_out:.3e} (max|out| "
+              f"{magnitude(op):.3e}), max|d den| {e_den:.3e} (max|den| {magnitude(den_p):.3e})",
+              flush=True)
+        check(e_out <= 1e-4 * magnitude(op), f"causal_product {tag} out: max|diff| {e_out}")
+        check(e_den <= 1e-4 * magnitude(den_p), f"causal_product {tag} den: max|diff| {e_den}")
+        for name, x_, y_ in zip(("dq", "dk", "dv"), gk, gp):
+            e_ = max_err(x_, y_)
+            print(f"[causal_product] {tag} {name}: max|diff| {e_:.3e} of magnitude "
+                  f"{magnitude(y_):.3e}", flush=True)
+            check(bool(torch.isfinite(x_).all()), f"causal_product {tag} {name}: not finite")
+            check(e_ <= 1e-3 * magnitude(y_), f"causal_product {tag} {name}: max|diff| {e_}")
+        del ok, gk, op, gp
+    pq, pk, v_f, g_f = f_in["ragged"]
+    out_f, den_f = tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps)
+    g1 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
+    g2 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
+    same = all(torch.equal(a_, b_) for a_, b_ in zip(g1, g2))
+    print(f"[causal_product] two backward runs: {'bit-equal' if same else 'DIFFERENT'}",
+          flush=True)
+    check(same, "causal_product: two backward runs differ")
+    for what, bad in (("bfloat16", (pq.bfloat16(), pk.bfloat16(), v_f.bfloat16())),
+                      ("head width 72", (torch.ones((1, H, SQ, 72), device=dev),) * 3)):
+        try:
+            tlk.causal_product(*bad)
+        except (TypeError, ValueError) as e:
+            print(f"[causal_product] {what}: refused ({e})", flush=True)
+        else:
+            fail(f"causal_product took {what}")
+
+    # -- 12. one full-width DQN update on the default and the kernel-F route -
+    from reinforcement_learning_in_music_generation_torch.rl import airl, buffers, dqn, env
+    vocab = (56, 135, 18, 87, 18, 25)             # dqn-train's six fields
+    qcfg = C.agent_config(vocab, dropout=0.0)
+    # lr 1e-4, as phase 5 steps, so the parameter check can see an update
+    # (DQNConfig's 0.01 would move every parameter by 0.01 on a gradient's sign)
+    dqcfg = C.DQNConfig(lr=1e-4)
+    qxs, qys, qms = (torch.from_numpy(a).to(dev) for a in
+                     dataset.synthetic_cp_dataset(BQ, 512, n_class=vocab, seed=0))
+    qp0 = lt.init_params(qcfg, seed=0, device=dev)
+    rollout_states = qxs[:, 100:100 + SQ].contiguous()
+    qbatch = {"state": rollout_states.int(),
+              "action": qys[:, 200:200 + dqcfg.n_actions].int(),
+              "reward": torch.rand((BQ, 1), generator=gen, device=dev),
+              "next_state": torch.cat([rollout_states[:, :dqcfg.n_actions],
+                                       qys[:, 200:200 + dqcfg.n_actions]], 1).int(),
+              "done": torch.zeros((BQ, 1), dtype=torch.int32, device=dev)}
+    qebatch = {"state": qys[:, :SQ].int(), "next_state": qys[:, SQ:2 * SQ].int(),
+               "mask_next_state": qms[:, 1:SQ + 1].float()}
+    act_states = torch.from_numpy(dataset.synthetic_cp_dataset(SQ, SQ, n_class=vocab,
+                                                               seed=3)[0]).to(dev)
+    qroutes = {"default": {}, "kernel": {"RLMG_ATTN_BACKEND": "pallas"}}
+    q_out, q_ms, q_act = {}, {}, {}
+    for name, envv in qroutes.items():
+        set_env(envv)
+        qs = dqn.init_state(qcfg, dqcfg, topt.tree_map(torch.clone, qp0))
+        qtx = dqn.make_optimizer(dqcfg)
+        zero_counts()
+        qs, qm = dqn.update(qs, qcfg, dqcfg, qtx, qbatch, qebatch, None)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        after = named_leaves(qs.eval_params)
+        # the step's gradient from Adam's first moment ((1 - b1) g after one
+        # step), and its update recomputed from it (a first step from zeros)
+        g_tree = topt.tree_map(lambda m_: m_ / (1.0 - qtx.b1), qs.opt_state.mu)
+        u_tree, _ = qtx.update(g_tree, qtx.init(g_tree))
+        q_out[name] = (float(qm["total"]), torch.stack([qm["mse"], qm["ce"]]).cpu(), after,
+                       named_leaves(g_tree), named_leaves(u_tree))
+        del g_tree, u_tree
+        print(f"[dqn_update] {name} route: mse {float(qm['mse']):.7f}, ce {float(qm['ce']):.7f}"
+              f", total {float(qm['total']):.7f}; launches (C, D, E, F fwd/bwd) {counts}",
+              flush=True)
+        want = [0] * 6 + ([3 * L, 2 * L] if name == "kernel" else [0, 0])
+        check(counts == want, f"dqn update, {name} route: launches {counts}, expected {want}")
+        t = time.perf_counter()
+        for _ in range(2):
+            qs, _ = dqn.update(qs, qcfg, dqcfg, qtx, qbatch, qebatch, None)
+        torch.cuda.synchronize()
+        q_ms[name] = (time.perf_counter() - t) / 2 * 1e3
+        q_act[name] = dqn.choose_action(qp0, qcfg, act_states)
+        del qs, qtx
+    restore_env()
+    rel = (q_out["kernel"][1] - q_out["default"][1]).abs() / q_out["default"][1].abs()
+    print(f"[dqn_update] mse / ce relative differences {rel.tolist()}; {q_ms['default']:.1f} ms "
+          f"per update (default), {q_ms['kernel']:.1f} ms (kernel F)", flush=True)
+    check(bool((rel <= 1e-4).all()), f"dqn update: mse / ce differ by {rel.tolist()}")
+    check_step("dqn_update", q_out["kernel"], q_out["default"])
+    agree = (q_act["kernel"] == q_act["default"]).float().mean().item()
+    print(f"[dqn_update] choose_action on {SQ} states: {agree:.4%} of action fields equal "
+          f"across routes", flush=True)
+    check(agree >= 0.99, f"choose_action: {agree} < 99% equal across routes")
+    del q_out, qp0
+
+    # -- 13. one AIRL discriminator step and a scoring pass at full width ------
+    wcfg = C.airl_discriminator_config(vocab, n_layer=10)
+    acfg = C.AIRLConfig()
+    NA = acfg.batch_size                          # 100 states of S = 50
+    rst = airl.init_state(wcfg, acfg, seed=1, device=dev)
+    rtx = airl.make_optimizer(acfg)
+    a_states = torch.from_numpy(dataset.synthetic_cp_dataset(500, SQ, n_class=vocab,
+                                                             seed=1)[0]).to(dev).int()
+    e_states = torch.from_numpy(dataset.synthetic_cp_dataset(500, SQ, n_class=vocab,
+                                                             seed=2)[0]).to(dev).int()
+    e_masks = (torch.rand((500, SQ), generator=gen, device=dev) > 0.05).float()
+    zero_counts()
+    rst, rm = airl.disc_step(rst, wcfg, rtx, e_states[:NA], e_masks[:NA], a_states[:NA], gen)
+    scores = airl.calculate_reward(rst, wcfg, a_states, e_masks, acfg.score_batch_size)
+    torch.cuda.synchronize()
+    check(read_counts() == [0] * 8, f"AIRL step: launches {read_counts()}, expected none "
+          "(5000 rows take the plain route)")
+    rvals = {k: float(v) for k, v in rm.items()}
+    print(f"[airl] disc_step B={NA} S={SQ}, 10 layers: {rvals}; scores of 500 states in "
+          f"[{scores.min().item():.4f}, {scores.max().item():.4f}]", flush=True)
+    check(all(math.isfinite(v) for v in rvals.values()), "AIRL disc_step: a loss is not finite")
+    check(scores.shape == (500, 1) and bool(torch.isfinite(scores).all()),
+          "AIRL calculate_reward: scores not finite or of the wrong shape")
+    t = time.perf_counter()
+    for i in range(3):
+        rst, _ = airl.disc_step(rst, wcfg, rtx, e_states[NA * i:NA * (i + 1)],
+                                e_masks[NA * i:NA * (i + 1)], a_states[NA * i:NA * (i + 1)], gen)
+    torch.cuda.synchronize()
+    airl_step_ms = (time.perf_counter() - t) / 3 * 1e3
+    t = time.perf_counter()
+    airl.calculate_reward(rst, wcfg, a_states, e_masks, acfg.score_batch_size)
+    torch.cuda.synchronize()
+    airl_score_ms = (time.perf_counter() - t) * 1e3
+    print(f"[time] AIRL disc_step B={NA} x S={SQ}: {airl_step_ms:.1f} ms; scoring 500 states: "
+          f"{airl_score_ms:.1f} ms", flush=True)
+    del rst, rtx
+
+    # -- 14. the slice's main path: cli dqn-train on both routes ---------------
+    qcli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, envv in qroutes.items():
+            set_env(envv)
+            ck = os.path.join(tmp, name, "ckpt")
+            zero_counts()
+            res = cli.main(["dqn-train", "--synthetic", "--synthetic-songs", "16",
+                            "--seq-len", "512", "--batch-size", str(BQ), "--buffer-size", "500",
+                            "--songs", "12", "--max-updates", "2", "--ckpt-epoch-gate", "0",
+                            "--exp-dir", os.path.join(tmp, name, "exp"), "--ckpt-dir", ck])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            qcli[name] = (res, counts)
+            med = lambda v: sorted(v)[len(v) // 2]
+            print(f"[dqn-train] {name} route: {res['updates']} updates; ms per rollout song "
+                  f"(50 episodes) median {med(res['rollout_ms']):.1f} (first "
+                  f"{res['rollout_ms'][0]:.1f}); ms per DQN update {res['update_ms']}; ms per "
+                  f"AIRL pass {res['airl_ms']} (the first trains, the second scores); launches "
+                  f"(C, D, E, F fwd/bwd) {counts}", flush=True)
+            check(res["updates"] == 2, f"dqn-train {name}: {res['updates']} updates, expected 2")
+            for f_ in ("dqn_last.ckpt", "dqn_best.ckpt", "agent_info.pickle"):
+                check(os.path.exists(os.path.join(ck, f_)), f"dqn-train {name}: no {f_}")
+            check(all(math.isfinite(v) for m_ in res["metrics"] for v in m_.values()),
+                  f"dqn-train {name}: a printed loss or score is not finite")
+            want = [0] * 6 + ([12 * (50 * 12 + 3 * 2), 12 * 2 * 2] if name == "kernel"
+                              else [0, 0])
+            check(counts == want, f"dqn-train {name}: launches {counts}, expected {want}")
+    restore_env()
+    launches["F"] = qcli["kernel"][1][6:8]
+
+    # -- 15. cli pretrain on kernel F's route (RLMG_ATTN_BACKEND=pallas) -----
+    with tempfile.TemporaryDirectory() as tmp:
+        set_env({"RLMG_ATTN_BACKEND": "pallas"})
+        zero_counts()
+        res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64", "--batch-size",
+                        str(BT), "--seq-len", str(ST), "--max-steps", "4",
+                        "--exp-dir", os.path.join(tmp, "exp"), "--ckpt-dir",
+                        os.path.join(tmp, "ckpt")])
+        torch.cuda.synchronize()
+        counts = read_counts()
+    restore_env()
+    ms_step = res["seconds"] / res["steps"] * 1e3
+    print(f"[pretrain] kernel-F route: {res['steps']} steps in {res['seconds']:.3f}s = "
+          f"{ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s; logged losses "
+          f"{res['batch_losses']}; launches (C, D, E, F fwd/bwd) {counts}", flush=True)
+    check(res["steps"] == 4, f"pretrain on kernel F's route: {res['steps']} steps")
+    check(len(res["batch_losses"]) > 0 and all(
+        math.isfinite(v) for v in res["batch_losses"] + res["history"]),
+        "pretrain on kernel F's route: a logged loss is not finite")
+    want = [0] * 6 + [12 * 4, 12 * 4]
+    check(counts == want, f"pretrain on kernel F's route: launches {counts}, expected {want}")
+    launches["F_pretrain"] = counts[6:8]
+
+    # -- 16. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
     sdt = st.s.dtype
     h5 = lt.embed_input(params, cfg, rand_tokens(1, 5)[0], 0, None).float()
@@ -825,6 +1082,26 @@ def main() -> None:
           f"{dstep_ms['default']:.1f} ms, window route (kernel E) {dstep_ms['window']:.1f} ms, "
           f"plain route {dstep_ms['plain']:.1f} ms")
 
+    f_t = {}
+    for tag in ("rollout", "dqn", "pretrain"):
+        pq, pk, v_f, g_f = f_in[tag]
+        reps = 50 if tag != "pretrain" else 20
+        fk, bk = time_fwd_bwd(f_kernel, (pq, pk, v_f), g_f, reps)
+        fp, bp = time_fwd_bwd(f_plain, (pq, pk, v_f), g_f, 10)
+        (ff_ops, ff_b), (fb_ops, fb_b) = causal_product_work(*f_shapes[tag])
+        (bf, bfby), (bb, bbby) = bound(ff_b, ff_ops), bound(fb_b, fb_ops)
+        f_t[tag] = dict(ms_fwd=fk, ms_bwd=bk, plain_ms_fwd=fp, plain_ms_bwd=bp, bound_ms_fwd=bf,
+                        bound_ms_bwd=bb, bound_by_fwd=bfby, bound_by_bwd=bbby,
+                        bound_by=bound(ff_b + fb_b, ff_ops + fb_ops)[1],
+                        gflop_fwd=ff_ops / 1e9, gflop_bwd=fb_ops / 1e9, mb_fwd=ff_b / 1e6,
+                        mb_bwd=fb_b / 1e6, max_abs_err=f_err[tag])
+        print(f"[time] causal_product {tag} {f_shapes[tag]}: forward {fk:.4f} ms (plain "
+              f"{fp:.4f}, bound {bf:.4f} {bfby}, {ff_ops / 1e9:.3f} GFLOP, {ff_b / 1e6:.1f} MB), "
+              f"backward {bk:.4f} ms (plain {bp:.4f}, bound {bb:.4f} {bbby}, "
+              f"{fb_ops / 1e9:.3f} GFLOP, {fb_b / 1e6:.1f} MB)")
+    print(f"[time] DQN update B={BQ} x S={SQ}: default route {q_ms['default']:.1f} ms, kernel-F "
+          f"route {q_ms['kernel']:.1f} ms")
+
     pkg = "reinforcement_learning_in_music_generation_torch"
     tpu = "reinforcement_learning_in_music_generation_tpu/ops"
     kernels = [
@@ -863,6 +1140,17 @@ def main() -> None:
          "plain_ms": e_pf + e_pb, "bound_ms": e_bf + e_bb, "bound_ms_fwd": e_bf,
          "bound_ms_bwd": e_bb, "bound_by": e_bfby if e_bfby == e_bbby else "operations",
          "library_ms": e_lf + e_lb, "library_ms_fwd": e_lf, "library_ms_bwd": e_lb},
+        # F at a DQN update's shape; no single PyTorch call computes causal
+        # linear attention (scaled_dot_product_attention is softmax attention)
+        {"name": "causal_product", "route": "cuda", "source": f"{pkg}/csrc/causal_product.cu",
+         "replaces": f"{tpu}/linear_attention.py:225", "launches": sum(launches["F"]),
+         "launches_fwd": launches["F"][0], "launches_bwd": launches["F"][1],
+         "max_abs_err": f_err["dqn"], "ms": f_t["dqn"]["ms_fwd"] + f_t["dqn"]["ms_bwd"],
+         "plain_ms": f_t["dqn"]["plain_ms_fwd"] + f_t["dqn"]["plain_ms_bwd"],
+         "bound_ms": f_t["dqn"]["bound_ms_fwd"] + f_t["dqn"]["bound_ms_bwd"],
+         "bound_by": f_t["dqn"]["bound_by"],
+         "library_ms": None, "dqn_shape": f_t["dqn"], "rollout_shape": f_t["rollout"],
+         "pretrain_shape": f_t["pretrain"], "launches_pretrain": sum(launches["F_pretrain"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -11,7 +11,10 @@ under ``csrc/``, built at first use (``ops/_build.py``), with a plain
 PyTorch version of the same function beside its wrapper.  Wrappers launch
 the kernel for CUDA tensors and take the plain version for CPU tensors.
 
-Ported so far: CP song generation (``apps/cli.py generate``).
+Ported so far (``apps/cli.py``): CP song generation (``generate``), agent
+pretraining (``pretrain``), the Longformer LM pretraining
+(``discrim-pretrain``, ``my-pretrain``) and DQN + AIRL fine-tuning
+(``dqn-train``).
 """
 
 __version__ = "0.1.0"

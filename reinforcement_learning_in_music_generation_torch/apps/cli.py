@@ -7,7 +7,8 @@ Ported so far:
   * ``discrim-pretrain`` (JAX cmd_discrim_pretrain, cli.py:238), the
     Longformer discriminator LM's CE pretraining on synthetic songs;
   * ``my-pretrain`` (JAX cmd_my_pretrain, cli.py:166), the PPO actor's or,
-    with ``--reward-pretrain``, the reward model's pretraining.
+    with ``--reward-pretrain``, the reward model's pretraining;
+  * ``dqn-train`` (JAX cmd_dqn_train, cli.py:262), DQN + AIRL fine-tuning.
 Run them as
 
     python -m reinforcement_learning_in_music_generation_torch.apps.cli generate --songs 5
@@ -15,11 +16,15 @@ Run them as
         --batch-size 32 --seq-len 512 --max-steps 10
     python -m reinforcement_learning_in_music_generation_torch.apps.cli discrim-pretrain \
         --seq-len 3584 --batch-size 4 --synthetic-songs 8 --max-steps 4
+    python -m reinforcement_learning_in_music_generation_torch.apps.cli dqn-train --synthetic \
+        --batch-size 30 --buffer-size 500 --songs 12 --max-updates 2
 
 They run on the GPU unless ``--device cpu`` is given.  Without ``--ckpt``
 the generation weights are random, drawn from ``--seed``; ``--ckpt`` reads
 a checkpoint written by the JAX package's ``save_checkpoint`` or by the
-port's ``pretrain``.
+port's ``pretrain``.  ``RLMG_ATTN_BACKEND=pallas`` sends the agent's
+attention to kernel F (``ops/linear_attention_kernel.py``), as it sends the
+JAX package's to its Pallas causal product.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import argparse
 import datetime
 import os
 import sys
+import pickle
 import time
 from typing import List, Optional
 
@@ -38,7 +44,10 @@ from ..data import dataset, tokenizer
 from ..generate import sampler
 from ..models import linear_transformer as lt
 from ..models import longformer as lf
+from ..rl import airl, buffers, dqn, env
 from ..train import pretrain as pretrain_lib
+from ..utils import plotting
+from ..utils.checkpoint import save_checkpoint
 from ..utils.saver import MetricsBus, Saver
 from ..weights import _ParamsUnpickler, load_jax_checkpoint
 
@@ -191,6 +200,142 @@ def cmd_my_pretrain(args) -> dict:
     return {**res, "exp_root": exp_root}
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _plot_dqn(exp_dir: str, mse_hist, ce_hist, total_hist, agent_scores, expert_scores):
+    plotting.bi_loss_plot(mse_hist, ce_hist, total_hist, ["MSE", "CE", "Global"],
+                          os.path.join(exp_dir, "agent_loss.png"))
+    plotting.score_plotting(agent_scores, expert_scores, os.path.join(exp_dir, "disc_scores.png"))
+    plotting.curve_plot({"D(agent)": agent_scores, "D(expert)": expert_scores},
+                        os.path.join(exp_dir, "disc_separation.png"), xlabel="Update",
+                        ylabel="Mean discriminator score")
+
+
+def cmd_dqn_train(args) -> dict:
+    """DQN + AIRL fine-tune (dqn_policy/IRL_dqn_train.py:386-498): per song,
+    a 50-episode rollout into the agent and expert buffers; once the agent
+    buffer has wrapped, an AIRL pass (discriminator training on the first
+    one, or every one with --retrain-disc, then both buffers re-scored as
+    rewards) and one DQN update.  Writes ``dqn_last.ckpt`` and, from epoch
+    ``--ckpt-epoch-gate`` on, ``dqn_best.ckpt`` and ``agent_info.pickle``.
+    Returns {"updates", "metrics" (one dict of floats per update),
+    "rollout_ms" (per song), "update_ms" and "airl_ms" (per update), each
+    timed to a device synchronisation}."""
+    for flag in ("dp", "tp"):
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(f"--{flag} > 1: parallelism is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+    vocab = (56, 135, 18, 87, 18, 25)
+    mcfg = C.agent_config(vocab, n_layer=args.layers)
+    wcfg = C.airl_discriminator_config(vocab, n_layer=max(1, args.layers - 2))
+    cfg = C.DQNConfig(num_songs=args.songs, episodes=args.episodes, buffer_size=args.buffer_size,
+                      batch_size=args.batch_size, n_states=args.n_states,
+                      n_actions=args.n_actions, ckpt_epoch_gate=args.ckpt_epoch_gate)
+    acfg = C.AIRLConfig(batch_size=min(100, args.buffer_size), epochs=args.disc_epochs,
+                        lr_step=args.disc_lr_step, lr=args.disc_lr,
+                        score_batch_size=min(args.score_batch_size, args.buffer_size))
+    device = torch.device(args.device)
+    x, y, mask = (torch.from_numpy(a).to(device) for a in _load_pretrain_data(args, vocab))
+
+    pretrain_params = None
+    if args.pretrain_ckpt:
+        template = lt.init_params(mcfg, seed=0, device="cpu")
+        pretrain_params = load_jax_checkpoint(args.pretrain_ckpt, template, device=device)
+    state = dqn.init_state(mcfg, cfg, pretrain_params, seed=cfg.seed, device=device)
+    tx = dqn.make_optimizer(cfg)
+    rstate = airl.init_state(wcfg, acfg, seed=cfg.seed + 1, device=device)
+    rtx = airl.make_optimizer(acfg)
+    agent_buf = buffers.buffer_init(cfg.buffer_size, buffers.agent_field_specs(
+        cfg.n_states, cfg.n_actions, cfg.n_features), device)
+    expert_buf = buffers.buffer_init(cfg.buffer_size, buffers.expert_field_specs(
+        cfg.n_states, cfg.n_actions, cfg.n_features), device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+
+    bus = MetricsBus(Saver(args.exp_dir), use_wandb=args.wandb)
+    mse_hist, ce_hist, total_hist = [], [], []
+    agent_score_hist, expert_score_hist = [], []
+    times = {"rollout_ms": [], "update_ms": [], "airl_ms": []}
+    updates = 0
+    for epoch in range(cfg.num_songs):
+        song = epoch % x.shape[0]
+        _sync(device)
+        t0 = time.perf_counter()
+        agent_ts, expert_ts = env.dqn_rollout_song(
+            state.eval_params, mcfg, x[song], y[song], mask[song], episodes=cfg.episodes,
+            n_states=cfg.n_states, n_actions=cfg.n_actions)
+        agent_buf = buffers.buffer_store_batch(agent_buf, agent_ts)
+        expert_buf = buffers.buffer_store_batch(expert_buf, expert_ts)
+        _sync(device)
+        t1 = time.perf_counter()
+        times["rollout_ms"].append((t1 - t0) * 1e3)
+
+        if agent_buf.counter > cfg.buffer_size:
+            rstate, agent_r, expert_r, _ = airl.update_disc(
+                rstate, wcfg, acfg, rtx, buffers.buffer_get(agent_buf),
+                buffers.buffer_get(expert_buf), gen, train=(updates == 0 or args.retrain_disc))
+            # the discriminator's mean expert and agent buffer scores
+            # (the learning-effect curves of AIRL.py:194-226)
+            agent_score_hist.append(float(agent_r.mean()))
+            expert_score_hist.append(float(expert_r.mean()))
+            t2 = time.perf_counter()
+            times["airl_ms"].append((t2 - t1) * 1e3)
+            agent_buf = agent_buf._replace(data={**agent_buf.data, "reward": agent_r})
+            batch = buffers.buffer_sample(agent_buf, gen, cfg.batch_size)
+            ebatch = buffers.buffer_sample(expert_buf, gen, cfg.batch_size)
+            state, metrics = dqn.update(
+                state, mcfg, cfg, tx, batch,
+                {"state": ebatch["state"], "next_state": ebatch["next_state"],
+                 "mask_next_state": ebatch["mask_next_state"]}, gen)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            times["update_ms"].append((time.perf_counter() - t2) * 1e3)
+            updates += 1
+            bus.log({**metrics, "agent_score": agent_score_hist[-1],
+                     "expert_score": expert_score_hist[-1]})
+            mse_hist.append(metrics["mse"])
+            ce_hist.append(metrics["ce"])
+            total_hist.append(metrics["total"])
+            print(f"Epoch {epoch}/{cfg.num_songs} | MSE {metrics['mse']:.4f} "
+                  f"| CE {metrics['ce']:.4f} | total {metrics['total']:.4f} "
+                  f"| D(agent) {agent_score_hist[-1]:.3f} "
+                  f"| D(expert) {expert_score_hist[-1]:.3f}")
+            if epoch >= cfg.ckpt_epoch_gate:
+                ckpt_path = os.path.join(args.ckpt_dir, "dqn_best.ckpt")
+                save_checkpoint(ckpt_path, state.eval_params, state.opt_state, epoch)
+                bus.save_file(ckpt_path)          # IRL_dqn_train.py:370 wandb.save
+                # the training record (IRL_dqn_train.py:380-383): 'Agent' = the
+                # last update batch's rewards, and the three loss histories under
+                # the reference's keys (with its literal ' global_loss')
+                record = {"Agent": batch["reward"].cpu().numpy(), "first_loss": mse_hist,
+                          "sec_loss": ce_hist, " global_loss": total_hist}
+                with open(os.path.join(args.ckpt_dir, "agent_info.pickle"), "wb") as f:
+                    pickle.dump(record, f)
+                _plot_dqn(args.exp_dir, mse_hist, ce_hist, total_hist, agent_score_hist,
+                          expert_score_hist)
+        else:
+            print(f"Epoch {epoch}/{cfg.num_songs} | buffer "
+                  f"{agent_buf.counter}/{cfg.buffer_size}")
+        if args.max_updates and updates >= args.max_updates:
+            break
+    save_checkpoint(os.path.join(args.ckpt_dir, "dqn_last.ckpt"), state.eval_params,
+                    state.opt_state, cfg.num_songs)
+    if updates:
+        _plot_dqn(args.exp_dir, mse_hist, ce_hist, total_hist, agent_score_hist,
+                  expert_score_hist)
+    bus.saver.close()
+    mean = lambda v: sum(v) / len(v) if v else float("nan")
+    print(f"done: {updates} updates on {device}; {mean(times['rollout_ms']):.1f} ms per "
+          f"rollout song ({cfg.episodes} episodes), {mean(times['update_ms']):.1f} ms per DQN "
+          f"update, {mean(times['airl_ms']):.1f} ms per AIRL pass")
+    history = [{**{"mse": a, "ce": b, "total": c}, "agent_score": d, "expert_score": e}
+               for a, b, c, d, e in zip(mse_hist, ce_hist, total_hist, agent_score_hist,
+                                        expert_score_hist)]
+    return {"updates": updates, "metrics": history, **times}
+
+
 def _train_common(d: argparse.ArgumentParser, layers_help: Optional[str] = None) -> None:
     """The JAX CLI's shared training flags (cli.py:727-744) without
     --scan-unroll (the port runs its layers in an eager loop), plus --device."""
@@ -284,6 +429,38 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--reward-pretrain", action="store_true")
     d.add_argument("--reward-layers", type=int, default=12, help="reward-model depth")
     d.set_defaults(fn=cmd_my_pretrain)
+
+    d = sub.add_parser(
+        "dqn-train", help="DQN + AIRL fine-tune",
+        description="DQN + AIRL fine-tuning with the flags of the JAX package's dqn-train "
+                    "(--scan-unroll left out; --lr, --epochs, --max-steps and --seed are read "
+                    "and not used, as there: DQNConfig sets the DQN's lr and seed).")
+    _train_common(d)
+    d.add_argument("--songs", type=int, default=1500)
+    d.add_argument("--episodes", type=int, default=50)
+    d.add_argument("--buffer-size", type=int, default=20000)
+    d.add_argument("--n-states", type=int, default=50)
+    d.add_argument("--n-actions", type=int, default=25)
+    d.add_argument("--pretrain-ckpt", default=None,
+                   help="agent params of a JAX or port checkpoint")
+    d.add_argument("--retrain-disc", action="store_true",
+                   help="train the discriminator before every update, not only the first")
+    d.add_argument("--max-updates", type=int, default=None)
+    d.add_argument("--disc-epochs", type=int, default=5,
+                   help="AIRL discriminator epochs per training pass")
+    d.add_argument("--disc-lr", type=float, default=0.001,
+                   help="discriminator Adam lr (the reference's 1e-3, AIRL.py:170)")
+    d.add_argument("--disc-lr-step", type=int, default=10,
+                   help="discriminator StepLR period in minibatches (AIRL.py:176)")
+    d.add_argument("--ckpt-epoch-gate", type=int, default=410,
+                   help="first epoch eligible for dqn_best.ckpt and agent_info.pickle "
+                        "(IRL_dqn_train.py:362)")
+    d.add_argument("--score-batch-size", type=int, default=100,
+                   help="buffer re-scoring batch; it sets the reward values, not only the "
+                        "speed (train-mode BatchNorm with per-batch statistics)")
+    d.add_argument("--dp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.set_defaults(fn=cmd_dqn_train)
     return ap
 
 

@@ -3,7 +3,7 @@
 Only what the ported paths use: the causal linear-attention transformer's
 config and its ``agent_config`` / ``actor_config`` presets, the
 sliding-window (Longformer) encoder's config and its three presets, and
-the generation and pretrain configs.  Field names and defaults match the
+the generation, pretrain, DQN and AIRL configs.  Field names and defaults match the
 JAX package.  Left out: ``scan_unroll`` (the port runs its layer loops
 eagerly, there is no scan to unroll), ``PretrainConfig.prng_impl`` (a JAX
 PRNG choice) and ``critic_config`` (it comes with the critic).
@@ -161,3 +161,37 @@ class PretrainConfig:
     grad_accum: int = 1             # micro-batches per optimizer step
     ckpt_backend: str = "pickle"    # "orbax" is not ported (raises)
     save_on_interrupt: bool = False  # SIGTERM/SIGINT: checkpoint and return
+
+
+@dataclasses.dataclass(frozen=True)
+class DQNConfig:
+    """DQN + AIRL fine-tune (dqn_policy/IRL_dqn_train.py:42-65)."""
+
+    num_songs: int = 1500
+    episodes: int = 50
+    seq_len: int = 1000
+    n_states: int = 50              # window / state size
+    n_actions: int = 25
+    n_features: int = 6
+    buffer_size: int = 20000
+    batch_size: int = 30
+    lr: float = 0.01
+    lr_milestones: Tuple[int, ...] = (20, 40)
+    lr_gamma: float = 0.1
+    gamma: float = 0.95             # reward discount
+    target_update: int = 50
+    alpha: float = 0.3              # 0.3*MSE + 0.7*CE (IRL_dqn_train.py:332-336)
+    ckpt_epoch_gate: int = 410      # checkpoint gate (IRL_dqn_train.py:362)
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AIRLConfig:
+    """AIRL discriminator trainer (dqn_policy/AIRL.py:51-58)."""
+
+    lr: float = 0.001
+    epochs: int = 5
+    batch_size: int = 100
+    lr_step: int = 10               # StepLR period, in minibatches
+    lr_gamma: float = 0.1
+    score_batch_size: int = 100     # buffer re-scoring batch (train-mode BN: sets the values)

@@ -13,7 +13,10 @@ stored (in, out), per-layer leaves stacked (L, ...).  The training forward
 picks its route per layer as the JAX package does (``_ffn_backend``): on a
 CUDA device at ``RLMG_FFN_MIN_ROWS`` (8192) rows or more, kernel C
 (``ops/attention_block.py``) and kernel D (``ops/ffn_block.py``); otherwise
-the plain PyTorch composition.  Not ported yet (ROADMAP): ``value_head``,
+the plain PyTorch composition.  An explicit ``RLMG_ATTN_BACKEND=pallas`` (or
+``cfg.attn_backend``) takes the unfused layer at any row count, with kernel
+F (``ops/linear_attention_kernel.py``) as its attention and the plain FFN
+tail.  Not ported yet (ROADMAP): ``value_head``,
 ``forward_prefill``, ``remat``.
 """
 

@@ -12,12 +12,14 @@ Counterpart of the JAX package's ``ops/linear_attention.py``:
 ``_bwd_xla_bshe``) runs the chunked recurrence in PyTorch ops, as a
 ``torch.autograd.Function`` with the analytic backward (a forward pass with
 prefix (S, z) for d phi(q), a reverse pass with suffix (G, gz) for d phi(k)
-and dv).  ``causal_linear_attention`` ((B, H, S, E) layout, ``_fwd_xla`` /
-``_bwd_xla``) runs the same core on transposed views.  They are the plain
-version behind kernel C (``ops/attention_block.py``) and the route below
-the fused-kernel row threshold.  ``backend="pallas"`` (the JAX package's Pallas causal product)
-is not ported yet (ROADMAP Queue 2) and raises; the sequence-parallel form
-waits for the parallelism item of ROADMAP Queue 1.
+and dv).  ``causal_linear_attention`` ((B, H, S, E) layout) dispatches as
+the JAX function does, on ``backend or default_backend()``: "pallas" (the
+JAX package's Pallas causal product, ``_fwd_pallas`` / ``_bwd_pallas``)
+runs kernel F (``ops/linear_attention_kernel.py causal_product``, its plain
+twin on CPU tensors); anything else the chunked core on transposed views
+(``_fwd_xla`` / ``_bwd_xla``).  The chunked core is also the plain version
+behind kernels C (``ops/attention_block.py``) and F.  The sequence-parallel
+form waits for the parallelism item of ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -128,17 +130,19 @@ def _bwd_bshe(q, k, v, out, den, g, eps: float, chunk: int):
 
 class _ChunkedCore(torch.autograd.Function):
     """The causal product of feature-mapped q, k and v in (B, S, H, *)
-    layout, with the analytic backward."""
+    layout, with the analytic backward -> (out, den); den is not
+    differentiable."""
 
     @staticmethod
     def forward(ctx, phi_q, phi_k, v, eps: float, chunk: int):
         out, den = _fwd_bshe(phi_q, phi_k, v, eps, chunk)
         ctx.save_for_backward(phi_q, phi_k, v, out, den)
         ctx.cfg = (eps, chunk)
-        return out
+        ctx.mark_non_differentiable(den)
+        return out, den
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_den):
         dq, dk, dv = _bwd_bshe(*ctx.saved_tensors, g, *ctx.cfg)
         return dq, dk, dv, None, None
 
@@ -147,12 +151,12 @@ def causal_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
                             eps: float = DEFAULT_EPS, chunk: int = _DEF_CHUNK,
                             backend: Optional[str] = None) -> torch.Tensor:
     """Causal linear attention over (B, H, S, E) -> (B, H, S, F).  Applies
-    the elu+1 feature map to q and k (differentiable), then the chunked
+    the elu+1 feature map to q and k (differentiable), then the core:
+    kernel F for ``backend="pallas"`` (which takes F == E), else the chunked
     core (the (B, S, H, E) one, on transposed views)."""
     if (backend or default_backend()) == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' (the JAX package's Pallas causal product, "
-            "ops/linear_attention.py:_fwd_pallas) is not ported yet: ROADMAP Queue 2")
+        from .linear_attention_kernel import causal_product    # imports this module
+        return causal_product(feature_map(q), feature_map(k), v, eps, chunk)[0]
     t = lambda x: x.transpose(1, 2)
     return t(causal_linear_attention_bshe(t(q), t(k), t(v), eps=eps, chunk=chunk))
 
@@ -163,7 +167,7 @@ def causal_linear_attention_bshe(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     """Causal linear attention over (B, S, H, E) -> (B, S, H, F): the same
     math in the head-minor layout, so (N, D)-shaped activations need no
     head transposes."""
-    return _ChunkedCore.apply(feature_map(q), feature_map(k), v, eps, chunk)
+    return _ChunkedCore.apply(feature_map(q), feature_map(k), v, eps, chunk)[0]
 
 
 # -- recurrent single-token form (decode) -------------------------------------

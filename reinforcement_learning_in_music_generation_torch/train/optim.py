@@ -12,7 +12,8 @@ inject_hyperparams(adam)(lr, b1, b2, eps))``), not ``torch.optim``'s:
   * a schedule is evaluated at the optimizer step count before the update.
 
 Parameters, gradients and moments are nested dicts of tensors (the JAX
-parameter tree).  ``apply_updates`` adds the updates in place.
+parameter tree).  ``value_and_grad`` is ``jax.value_and_grad(has_aux=True)``
+on such a tree; ``apply_updates`` adds the updates in place.
 """
 
 from __future__ import annotations
@@ -42,6 +43,18 @@ def tree_unflatten(template, leaves: Sequence):
     """The leaves (in ``tree_leaves`` order) put back into template's shape."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), template)
+
+
+def value_and_grad(loss_fn: Callable, params: dict):
+    """(loss, aux, grads) of ``loss_fn(params) -> (loss, aux)``: grads is a
+    tree like ``params``, each leaf in its parameter's dtype; leaves the
+    loss does not reach get zeros.  The loss is taken on detached copies of
+    the leaves, so ``params`` may be updated in place afterwards."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss, aux = loss_fn(tree_unflatten(params, leaves))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g.to(t.dtype) for g, t in zip(grads, leaves)]
+    return loss, aux, tree_unflatten(params, grads)
 
 
 def multistep_lr(init_lr: float, milestones: Sequence[int], gamma: float = 0.1) -> Schedule:

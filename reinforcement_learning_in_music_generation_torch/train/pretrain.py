@@ -44,13 +44,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _grads(params: dict, losses_fn: Callable):
     """(grads tree, loss, per-field losses) of the mean of
     ``losses_fn(params)``; leaves the loss does not reach get zeros."""
-    leaves = [t.detach().requires_grad_(True) for t in optim.tree_leaves(params)]
-    losses = losses_fn(optim.tree_unflatten(params, leaves))
-    loss = losses.mean()
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g.to(t.dtype)
-             for g, t in zip(grads, leaves)]
-    return optim.tree_unflatten(params, grads), loss.detach(), losses.detach()
+    def loss_fn(p):
+        losses = losses_fn(p)
+        return losses.mean(), losses
+    loss, losses, grads = optim.value_and_grad(loss_fn, params)
+    return grads, loss.detach(), losses.detach()
 
 
 def _scaled(grads: dict, scale: float) -> dict:

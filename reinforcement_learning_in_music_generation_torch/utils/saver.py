@@ -79,6 +79,13 @@ class MetricsBus:
         if self._wandb is not None:
             self._wandb.log(metrics, step=step)
 
+    def save_file(self, path: str) -> None:
+        """Upload an artifact (a checkpoint) to the live wandb run, as the
+        reference wandb.save()s its best DQN checkpoint
+        (dqn_policy/IRL_dqn_train.py:370); without wandb, nothing."""
+        if self._wandb is not None:
+            self._wandb.save(path)
+
 
 def loss_bucket_filename(loss: float) -> Optional[str]:
     """Loss-bucketed checkpoint names (agent_pretrain.py:594-632):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's training steps, on one GPU.
 
-    python3 scripts/profile_torch_train.py [--model agent|discrim] [--route NAME|all]
+    python3 scripts/profile_torch_train.py [--model agent|discrim|dqn] [--route NAME|all]
                                            [--out build/profile]
 
 ``--model agent`` (the default): the flagship ``config.agent_config``, B=32 x
@@ -13,8 +13,13 @@ with the six fields of ``cli discrim-pretrain``), B=4 x S=3584, two
 ``train.pretrain.longformer_lm_step`` calls per route: ``kernel`` is the
 default route (kernel D in every layer, the plain band attention),
 ``window`` RLMG_WINDOW_BACKEND=pallas (kernel E in every layer, the plain
-tail), ``plain`` RLMG_FFN_BACKEND=xla.  Random weights from a seed,
-synthetic CP rows (seed 0), dropout 0.1 as the CLIs train.
+tail), ``plain`` RLMG_FFN_BACKEND=xla.  ``--model dqn``: the DQN agent at
+``agent_config``'s width, two windows per route: one rollout song (50
+episodes, each a (1, 50)-row forward, ``rl.env.dqn_rollout_song``) and one
+``rl.dqn.update`` at B=30 x S=50 (``DQNConfig``'s batch); ``default`` is the
+plain composition (the JAX rule at 1500 rows), ``kernel``
+RLMG_ATTN_BACKEND=pallas (kernel F in every layer).  Random weights from a
+seed, synthetic CP rows (seed 0), dropout 0.1 as the CLIs train.
 
 Each window runs once untraced first (kernels built, allocator warm), then
 under torch.profiler.  For each it prints the wall time, the summed device
@@ -41,6 +46,7 @@ from reinforcement_learning_in_music_generation_torch.data import dataset  # noq
 from reinforcement_learning_in_music_generation_torch.models import (  # noqa: E402
     linear_transformer as lt, longformer as lf)
 from reinforcement_learning_in_music_generation_torch.ops import _build  # noqa: E402
+from reinforcement_learning_in_music_generation_torch.rl import dqn, env  # noqa: E402
 from reinforcement_learning_in_music_generation_torch.train import (  # noqa: E402
     optim, pretrain)
 
@@ -57,11 +63,13 @@ MODELS = {
                     init=lf.init_params, step=pretrain.longformer_lm_step,
                     routes={"kernel": {}, "window": {"RLMG_WINDOW_BACKEND": "pallas"},
                             "plain": {"RLMG_FFN_BACKEND": "xla"}}),
+    "dqn": dict(batch=30, seq=50, cfg=lambda: C.agent_config(DISCRIM_VOCAB),
+                routes={"default": {}, "kernel": {"RLMG_ATTN_BACKEND": "pallas"}}),
 }
 STEPS = 2
 
 
-def profile(name, fn, out_dir, tokens, top=12):
+def profile(name, fn, out_dir, tokens, top=12, steps=STEPS):
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -77,13 +85,13 @@ def profile(name, fn, out_dir, tokens, top=12):
     dev_ms = sum(v[1] for v in kernels.values())
     rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
     launches = sum(v[0] for v in kernels.values())
-    print(f"[{name}] wall {wall * 1e3:.3f} ms for {STEPS} steps, device {dev_ms:.3f} ms, "
+    print(f"[{name}] wall {wall * 1e3:.3f} ms for {steps} steps, device {dev_ms:.3f} ms, "
           f"busy {dev_ms / (wall * 1e3):.1%}, {launches} launches")
     for kname, (n, ms) in rows:
         print(f"    {ms:10.3f} ms {ms / dev_ms:6.1%} {n:6d}x  {kname[:100]}")
-    return {"window": name, "steps": STEPS, "wall_ms": wall * 1e3, "device_ms": dev_ms,
+    return {"window": name, "steps": steps, "wall_ms": wall * 1e3, "device_ms": dev_ms,
             "busy": dev_ms / (wall * 1e3) if wall else None, "launches": launches,
-            "tokens_per_s": STEPS * tokens / wall,
+            "tokens_per_s": steps * tokens / wall,
             "top": [{"kernel": k[:100], "n": n, "ms": ms, "share": ms / dev_ms}
                     for k, (n, ms) in rows]}
 
@@ -93,7 +101,7 @@ def main():
     ap.add_argument("--model", default="agent", choices=tuple(MODELS))
     ap.add_argument("--route", default="all",
                     help="a route of the model (agent: kernel, plain; discrim: kernel, "
-                         "window, plain) or all")
+                         "window, plain; dqn: default, kernel) or all")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
     model = MODELS[args.model]
@@ -112,13 +120,17 @@ def main():
     cfg = model["cfg"]()
     b, s = model["batch"], model["seq"]
     dev = torch.device("cuda")
+    song_len = 512 if args.model == "dqn" else s     # a rollout slides over a whole song
     x, y, m = (torch.from_numpy(a).to(dev) for a in
-               dataset.synthetic_cp_dataset(b, s, n_class=cfg.vocab_sizes, seed=0))
+               dataset.synthetic_cp_dataset(b, song_len, n_class=cfg.vocab_sizes, seed=0))
     res = []
     for route in routes:
         for k in KNOBS:
             os.environ.pop(k, None)
         os.environ.update(model["routes"][route])
+        if args.model == "dqn":
+            res += profile_dqn(route, cfg, x, y, m, b, s, args.out)
+            continue
         params = model["init"](cfg, seed=0, device=dev)
         tx = optim.adam(1e-4, grad_clip=3.0)
         state = [tx.init(params)]
@@ -135,6 +147,32 @@ def main():
         del params, state
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "model": args.model, "windows": res}))
+
+
+def profile_dqn(route, cfg, x, y, m, b, s, out_dir):
+    """One rollout song and one DQN update on the current route."""
+    dcfg = C.DQNConfig()
+    state = [dqn.init_state(cfg, dcfg, seed=0, device=x.device)]
+    tx = dqn.make_optimizer(dcfg)
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(0)
+
+    def rollout():
+        return env.dqn_rollout_song(state[0].eval_params, cfg, x[0], y[0], m[0],
+                                    episodes=dcfg.episodes, n_states=s, n_actions=dcfg.n_actions)
+
+    out = [profile(f"dqn_{route}_rollout_song", rollout, out_dir, dcfg.episodes * s, steps=1)]
+    agent_t, expert_t = rollout()
+    batch = {k: v[:b] for k, v in agent_t.items()}
+    ebatch = {k: expert_t[k][:b] for k in ("state", "next_state", "mask_next_state")}
+
+    def update():
+        state[0], _ = dqn.update(state[0], cfg, dcfg, tx, batch, ebatch, gen)
+
+    out.append(profile(f"dqn_{route}_update_B{b}_S{s}", update, out_dir, b * s, steps=1))
+    del state[0]
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

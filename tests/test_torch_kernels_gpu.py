@@ -287,3 +287,72 @@ def test_training_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfb.attn_tail_block(h.bfloat16(), h.bfloat16(), *[x.bfloat16() for x in ws], 0, 0.0)
     with pytest.raises(ValueError, match="shape"):
         tfb.attn_tail_block(h, h[:, :16].contiguous(), *ws, 0, 0.0)
+
+
+def _product_inputs(dev, b, h, s, e, layout, seed=7):
+    """phi(q), phi(k) (elu+1 of normals), v and dO (B, H, S, E) in the layout
+    the model passes ("bshe": transposed views of (B, S, H, E) tensors) or
+    contiguous."""
+    from reinforcement_learning_in_music_generation_torch.ops import linear_attention as tla
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shape = (b, s, h, e) if layout == "bshe" else (b, h, s, e)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    if layout == "bshe":
+        q, k, v, g = (t.transpose(1, 2) for t in (q, k, v, g))
+    return tla.feature_map(q), tla.feature_map(k), v, g
+
+
+# (B, H, S, E, layout): one row, DQN's one ragged tile, a ragged second tile,
+# several tiles with a ragged last one, narrow heads
+PRODUCT_CASES = [(2, 2, 1, 64, "bhse"), (3, 8, 50, 64, "bshe"), (2, 4, 67, 64, "bhse"),
+                 (2, 8, 300, 64, "bshe"), (1, 2, 130, 8, "bhse")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,e,layout", PRODUCT_CASES)
+def test_causal_product_kernel_matches_plain(dev, b, h, s, e, layout):
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        linear_attention_kernel as tlk)
+    pq, pk, v, g = _product_inputs(dev, b, h, s, e, layout)
+    before = (tlk.causal_product.launches_fwd, tlk.causal_product.launches_bwd)
+    ok, gk = _fwd_bwd(lambda *a: tlk.causal_product(*a)[0], (pq, pk, v), g)
+    op, gp = _fwd_bwd(lambda *a: tlk.causal_product_plain(*a)[0], (pq, pk, v), g)
+    assert (tlk.causal_product.launches_fwd, tlk.causal_product.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    assert ok.stride() == pq.stride()
+    _close(ok, op, 1e-4, "out")
+    den_k = tlk.causal_product(pq, pk, v)[1]
+    _close(den_k, tlk.causal_product_plain(pq, pk, v)[1], 1e-4, "den")
+    for name, x, y in zip(("dq", "dk", "dv"), gk, gp):
+        assert torch.isfinite(x).all(), name
+        _close(x, y, 1e-3, name)
+
+
+@pytest.mark.gpu
+def test_causal_product_kernel_is_deterministic(dev):
+    """No atomics: two backward launches give bit-equal gradients."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        linear_attention_kernel as tlk)
+    pq, pk, v, g = _product_inputs(dev, 4, 8, 300, 64, "bshe")
+    out, den = tlk.forward_kernel(pq, pk, v, 1e-6)
+    g1 = tlk.backward_kernel(pq, pk, v, out, den, g, 1e-6)
+    g2 = tlk.backward_kernel(pq, pk, v, out, den, g, 1e-6)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+@pytest.mark.gpu
+def test_causal_product_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        linear_attention_kernel as tlk)
+    x = torch.ones((1, 2, 50, 64), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        tlk.causal_product(x.bfloat16(), x.bfloat16(), x.bfloat16())
+    wide = torch.ones((1, 2, 50, 72), device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        tlk.causal_product(wide, wide, wide)
+    with pytest.raises(ValueError, match="unit stride"):
+        y = torch.ones((1, 2, 64, 50), device=dev).transpose(2, 3)
+        tlk.causal_product(y, y, y)
+    with pytest.raises(ValueError, match="as wide"):
+        tlk.causal_product(x, x, x[..., :32])

@@ -83,6 +83,12 @@ def test_layouts_agree_and_match_the_recurrent_step():
 
 
 def test_pallas_backend_is_not_ported():
-    x = torch.zeros((1, 1, 8, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tla.causal_linear_attention(x, x, x, backend="pallas")
+    """The name predates the port of this route: backend="pallas" (the JAX
+    package's Pallas causal product) now runs kernel F's wrapper, which on
+    CPU tensors is the same chunked core as backend="xla"
+    (tests/test_torch_causal_product.py holds it against the JAX kernels)."""
+    q, k, v, _ = _inputs((1, 2, 29, 8), (1, 2, 29, 8), seed=9)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    torch.testing.assert_close(tla.causal_linear_attention(tq, tk, tv, chunk=8, backend="pallas"),
+                               tla.causal_linear_attention(tq, tk, tv, chunk=8, backend="xla"),
+                               rtol=0, atol=0)

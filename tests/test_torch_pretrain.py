@@ -135,10 +135,12 @@ def test_unported_options_raise(monkeypatch, jparams, batch):
     monkeypatch.setenv("RLMG_ATTN_BACKEND", "xla")
     with pytest.raises(NotImplementedError, match="ffn_block"):
         tlt.forward_hidden(tp, TCFG, _t(x))
+    # RLMG_ATTN_BACKEND=pallas is ported (kernel F; its plain twin on CPU
+    # tensors, the same chunked core as xla)
     monkeypatch.setenv("RLMG_FFN_BACKEND", "xla")
+    plain = tlt.forward_hidden(tp, TCFG, _t(x))
     monkeypatch.setenv("RLMG_ATTN_BACKEND", "pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlt.forward_hidden(tp, TCFG, _t(x))
+    torch.testing.assert_close(tlt.forward_hidden(tp, TCFG, _t(x)), plain, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="remat"):
         tlt.forward_hidden(tp, TC.LinearTransformerConfig(**KW, remat=True), _t(x))
     for pcfg, kw in ((TC.PretrainConfig(zero1=True), {}),
