@@ -5,8 +5,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
-  1. builds every kernel of the generation, training, discriminator and DQN
-     paths from ``csrc/`` (one nvcc per source, in parallel), prints each library's
+  1. builds every kernel of the generation, training, discriminator, DQN and
+     PPO paths from ``csrc/`` (one nvcc per source, in parallel), prints each library's
      ptxas registers and spills, and the card's name and power limit;
   2. at the full width of ``config.agent_config`` (12 layers, d_model 512,
      8 heads, FFN 2048) with random weights from a seed, holds each kernel
@@ -92,7 +92,32 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
  15. runs ``apps/cli.py pretrain`` 4 steps at B=32 x S=512 under
      RLMG_ATTN_BACKEND=pallas: F's counters 48 + 48, C's and D's 0, every
      loss finite;
- 16. times each kernel and its plain version at the main paths' shapes
+ 16. holds kernel G (ffn_block, the counterpart of the Pallas ffn_block)
+     against its plain twin at 50 rows (a rollout state), 100 (ragged),
+     1500 (a PPO update) and 16384 (pretrain), d_model 512, FFN 2048, f32,
+     dropout 0 and 0.1: out within 1e-4 of its magnitude, the seven
+     gradients within 1e-3 of theirs; two backward runs bit-equal; bfloat16
+     and d_model 1028 refused;
+ 17. one full-width PPO rollout song and update step (actor_config and
+     critic_config at 12 layers, the reward ppo_reward_config at 10, dropout
+     0, lr 1e-4, 30 episodes of 50-state windows) on the default route and
+     under RLMG_FFN_BACKEND=pallas (kernel G): G's counters 30 x 24 forward
+     in the rollout and 36 + 36 in the update (0 on the default route);
+     choose_action on 50 states equal in >= 99% of the action fields; the
+     rollout's values and rewards within 1e-4; the losses within 1e-4
+     relative, gradients, parameters and Adam updates of both trees as in
+     5; then times two more steps of each;
+ 18. runs ``apps/cli.py ppo-train`` (2 songs, 30 episodes, 50 states, 25
+     actions, 10 PPO steps) on both routes: ppo_best.ckpt written, every
+     printed loss and reward finite, G's counters 2 x 1080 forward and
+     2 x 360 backward under the knob and 0 on the default route; prints ms
+     per rollout song and per update_policy;
+ 19. runs ``apps/cli.py pretrain`` 4 steps at B=32 x S=512 under
+     RLMG_FFN_BACKEND=pallas (dropout 0.1): G's counters 48 + 48, C's, D's
+     and F's 0, every loss finite;
+ 20. runs ``apps/cli.py inference`` (the actor at full width, 150 tokens)
+     and checks the MIDI file holds 150 notes;
+ 21. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
      beside the library call.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -234,6 +259,20 @@ def causal_product_work(b, h, s, e, chunk=128):
 
 TAIL_GRADS = ("dh_in", "da_pre", "dWo", "dbo", "dln1_s", "dln1_b", "dW1", "db1", "dW2", "db2",
               "dln2_s", "dln2_b")
+FFN_GRADS = ("dh", "dW1", "db1", "dW2", "db2", "dln2_s", "dln2_b")
+
+
+def ffn_work(n, d, di):
+    """(forward, backward) (operations, bytes) of ffn_block: forward 4 N D DI
+    (two products), backward 8 N D DI (two products per weight: the
+    gradients need no more; kernel G's recomputed forward, 4 N D DI more,
+    is its design's extra cost, printed beside the bound); bytes each input
+    read once, each output written once (forward h in, out out, the
+    parameters; backward h and dO in, dh out, the parameters in and their
+    gradients out)."""
+    w = 4 * (2 * d * di + di + 3 * d)
+    f_ops = 4 * n * d * di
+    return (f_ops, 4 * 2 * n * d + w), (2 * f_ops, 4 * 3 * n * d + 2 * w)
 
 
 def window_work(b, h, s, d, w, mask):
@@ -256,28 +295,37 @@ def window_work(b, h, s, d, w, mask):
     return (4 * pairs * d, f_bytes), (10 * pairs * d, b_bytes), pairs, kept_pairs
 
 
-def check_tail(tag, tfb, d_in, g, seed_t, mid_drop) -> float:
-    """Kernel D against its plain version at dropout 0 and 0.1: the output
-    within 1e-4 of its magnitude, each of the 12 gradients within 1e-3 of
-    its own.  Returns the largest output difference."""
+def check_fused(tag, kernel, plain, inputs, g, names) -> float:
+    """A fused kernel against its plain version at dropout 0 and 0.1
+    (``kernel(p)``, ``plain(p)``: functions of ``inputs``): the output within
+    1e-4 of its magnitude, each gradient (``names``) within 1e-3 of its own.
+    Returns the largest output difference."""
     d_err = 0.0
     for p_drop in (0.0, 0.1):
-        ok, gk = fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed_t, p_drop, mid_drop), d_in, g)
-        op_, gp = fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed_t, p_drop, mid_drop),
-                          d_in, g)
+        ok, gk = fwd_bwd(kernel(p_drop), inputs, g)
+        op_, gp = fwd_bwd(plain(p_drop), inputs, g)
         e = max_err(ok, op_)
         d_err = max(d_err, e)
         print(f"[{tag}] p={p_drop}: max|d out| {e:.3e} (max|out| {magnitude(op_):.3e})",
               flush=True)
         check(e <= 1e-4 * magnitude(op_), f"{tag} p={p_drop} forward: max|diff| {e}")
         worst = 0.0
-        for name, x, y in zip(TAIL_GRADS, gk, gp):
+        for name, x, y in zip(names, gk, gp):
             e = max_err(x, y) / magnitude(y)
             worst = max(worst, e)
+            check(bool(torch.isfinite(x).all()), f"{tag} p={p_drop} {name}: not finite")
             check(e <= 1e-3, f"{tag} p={p_drop} {name}: max|diff| {e} of its magnitude")
-        print(f"[{tag}] p={p_drop}: 12 gradients, worst max|diff| / magnitude {worst:.3e}",
-              flush=True)
+        print(f"[{tag}] p={p_drop}: {len(names)} gradients, worst max|diff| / magnitude "
+              f"{worst:.3e}", flush=True)
     return d_err
+
+
+def check_tail(tag, tfb, d_in, g, seed_t, mid_drop) -> float:
+    """Kernel D against its plain version (check_fused), the 12 gradients."""
+    return check_fused(
+        tag, lambda p: (lambda *a: tfb.attn_tail_block(*a, seed_t, p, mid_drop)),
+        lambda p: (lambda *a: tfb.attn_tail_block_plain(*a, seed_t, p, mid_drop)), d_in, g,
+        TAIL_GRADS)
 
 
 def check_step(tag, out_k, out_p, zero_grads=()) -> None:
@@ -579,12 +627,13 @@ def main() -> None:
             if v is not None:
                 os.environ[k] = v
 
-    # (C fwd, C bwd, D fwd, D bwd, E fwd, E bwd, F fwd, F bwd)
+    # (C fwd, C bwd, D fwd, D bwd, E fwd, E bwd, F fwd, F bwd, G fwd, G bwd)
     counters = ((tab.qkv_attention_block, "launches_fwd"), (tab.qkv_attention_block, "launches_bwd"),
                 (tfb.attn_tail_block, "launches_fwd"), (tfb.attn_tail_block, "launches_bwd"),
                 (twk.window_attention_band, "launches_fwd"),
                 (twk.window_attention_band, "launches_bwd"),
-                (tlk.causal_product, "launches_fwd"), (tlk.causal_product, "launches_bwd"))
+                (tlk.causal_product, "launches_fwd"), (tlk.causal_product, "launches_bwd"),
+                (tfb.ffn_block, "launches_fwd"), (tfb.ffn_block, "launches_bwd"))
 
     def zero_counts():
         for fn, attr in counters:
@@ -627,9 +676,9 @@ def main() -> None:
             routes[name], p0, tcfg, (xs.long(), ys.long(), ms), tpre.agent_grad_step,
             tpre.agent_train_step)
         print(f"[train_step] {name} route: loss {step_out[name][0]:.6f}, kernel launches "
-              f"(C, D, E, F fwd/bwd) {counts}, {step_ms[name]:.1f} ms/step, "
+              f"(C, D, E, F, G fwd/bwd) {counts}, {step_ms[name]:.1f} ms/step, "
               f"{NT / step_ms[name] * 1e3:.1f} tokens/s", flush=True)
-        want = [tcfg.n_layer] * 4 + [0] * 4 if name == "kernel" else [0] * 8
+        want = [tcfg.n_layer] * 4 + [0] * 6 if name == "kernel" else [0] * 10
         check(counts == want, f"train step, {name} route: launches {counts}, expected {want}")
     restore_env()
     check_step("train_step", step_out["kernel"], step_out["plain"])
@@ -652,12 +701,12 @@ def main() -> None:
             print(f"[pretrain] {name} route: {res['steps']} steps in {res['seconds']:.3f}s "
                   f"= {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s (with one "
                   f"epoch-end checkpoint); logged losses {res['batch_losses']}; launches "
-                  f"(C, D, E, F fwd/bwd) {counts}", flush=True)
+                  f"(C, D, E, F, G fwd/bwd) {counts}", flush=True)
             check(res["steps"] == 4, f"pretrain {name}: {res['steps']} steps, expected 4")
             check(len(res["batch_losses"]) > 0 and all(
                 math.isfinite(v) for v in res["batch_losses"] + res["history"]),
                 f"pretrain {name}: a logged loss is not finite")
-            want = [12 * 4] * 4 + [0] * 4 if name == "kernel" else [0] * 8
+            want = [12 * 4] * 4 + [0] * 6 if name == "kernel" else [0] * 10
             check(counts == want, f"pretrain {name}: launches {counts}, expected {want}")
     restore_env()
     launches["C"] = cli_res["kernel"][1][0:2]
@@ -742,15 +791,15 @@ def main() -> None:
     # -- 9. one discriminator-LM step on three routes ------------------------
     droutes = {"default": {}, "window": {"RLMG_WINDOW_BACKEND": "pallas"},
                "plain": {"RLMG_FFN_BACKEND": "xla"}}
-    dwant = {"default": [0, 0, 12, 12, 0, 0, 0, 0], "window": [0, 0, 0, 0, 12, 12, 0, 0],
-             "plain": [0] * 8}
+    dwant = {"default": [0, 0, 12, 12] + [0] * 6, "window": [0] * 4 + [12, 12] + [0] * 4,
+             "plain": [0] * 10}
     dstep_out, dstep_ms = {}, {}
     for name in ("default", "window", "plain"):
         dstep_out[name], counts, dstep_ms[name] = route_step(
             droutes[name], dp0, dcfg, (dxs.long(), dys.long(), dms), tpre.longformer_grad_step,
             tpre.longformer_lm_step)
         print(f"[discrim_step] {name} route: loss {dstep_out[name][0]:.6f}, kernel launches "
-              f"(C, D, E, F fwd/bwd) {counts}, {dstep_ms[name]:.1f} ms/step, "
+              f"(C, D, E, F, G fwd/bwd) {counts}, {dstep_ms[name]:.1f} ms/step, "
               f"{ND / dstep_ms[name] * 1e3:.1f} tokens/s", flush=True)
         check(counts == dwant[name],
               f"discrim step, {name} route: launches {counts}, expected {dwant[name]}")
@@ -778,7 +827,7 @@ def main() -> None:
             print(f"[discrim-pretrain] {name} route: {res['steps']} steps in "
                   f"{res['seconds']:.3f}s = {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} "
                   f"tokens/s (with one epoch-end checkpoint); logged losses "
-                  f"{res['batch_losses']}; launches (C, D, E, F fwd/bwd) {counts}", flush=True)
+                  f"{res['batch_losses']}; launches (C, D, E, F, G fwd/bwd) {counts}", flush=True)
             check(res["steps"] == 4, f"discrim-pretrain {name}: {res['steps']} steps")
             check(len(res["batch_losses"]) > 0 and all(
                 math.isfinite(v) for v in res["batch_losses"] + res["history"]),
@@ -881,9 +930,9 @@ def main() -> None:
                        named_leaves(g_tree), named_leaves(u_tree))
         del g_tree, u_tree
         print(f"[dqn_update] {name} route: mse {float(qm['mse']):.7f}, ce {float(qm['ce']):.7f}"
-              f", total {float(qm['total']):.7f}; launches (C, D, E, F fwd/bwd) {counts}",
+              f", total {float(qm['total']):.7f}; launches (C, D, E, F, G fwd/bwd) {counts}",
               flush=True)
-        want = [0] * 6 + ([3 * L, 2 * L] if name == "kernel" else [0, 0])
+        want = [0] * 6 + ([3 * L, 2 * L] if name == "kernel" else [0, 0]) + [0, 0]
         check(counts == want, f"dqn update, {name} route: launches {counts}, expected {want}")
         t = time.perf_counter()
         for _ in range(2):
@@ -919,7 +968,7 @@ def main() -> None:
     rst, rm = airl.disc_step(rst, wcfg, rtx, e_states[:NA], e_masks[:NA], a_states[:NA], gen)
     scores = airl.calculate_reward(rst, wcfg, a_states, e_masks, acfg.score_batch_size)
     torch.cuda.synchronize()
-    check(read_counts() == [0] * 8, f"AIRL step: launches {read_counts()}, expected none "
+    check(read_counts() == [0] * 10, f"AIRL step: launches {read_counts()}, expected none "
           "(5000 rows take the plain route)")
     rvals = {k: float(v) for k, v in rm.items()}
     print(f"[airl] disc_step B={NA} S={SQ}, 10 layers: {rvals}; scores of 500 states in "
@@ -960,14 +1009,14 @@ def main() -> None:
                   f"(50 episodes) median {med(res['rollout_ms']):.1f} (first "
                   f"{res['rollout_ms'][0]:.1f}); ms per DQN update {res['update_ms']}; ms per "
                   f"AIRL pass {res['airl_ms']} (the first trains, the second scores); launches "
-                  f"(C, D, E, F fwd/bwd) {counts}", flush=True)
+                  f"(C, D, E, F, G fwd/bwd) {counts}", flush=True)
             check(res["updates"] == 2, f"dqn-train {name}: {res['updates']} updates, expected 2")
             for f_ in ("dqn_last.ckpt", "dqn_best.ckpt", "agent_info.pickle"):
                 check(os.path.exists(os.path.join(ck, f_)), f"dqn-train {name}: no {f_}")
             check(all(math.isfinite(v) for m_ in res["metrics"] for v in m_.values()),
                   f"dqn-train {name}: a printed loss or score is not finite")
             want = [0] * 6 + ([12 * (50 * 12 + 3 * 2), 12 * 2 * 2] if name == "kernel"
-                              else [0, 0])
+                              else [0, 0]) + [0, 0]
             check(counts == want, f"dqn-train {name}: launches {counts}, expected {want}")
     restore_env()
     launches["F"] = qcli["kernel"][1][6:8]
@@ -986,16 +1035,233 @@ def main() -> None:
     ms_step = res["seconds"] / res["steps"] * 1e3
     print(f"[pretrain] kernel-F route: {res['steps']} steps in {res['seconds']:.3f}s = "
           f"{ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s; logged losses "
-          f"{res['batch_losses']}; launches (C, D, E, F fwd/bwd) {counts}", flush=True)
+          f"{res['batch_losses']}; launches (C, D, E, F, G fwd/bwd) {counts}", flush=True)
     check(res["steps"] == 4, f"pretrain on kernel F's route: {res['steps']} steps")
     check(len(res["batch_losses"]) > 0 and all(
         math.isfinite(v) for v in res["batch_losses"] + res["history"]),
         "pretrain on kernel F's route: a logged loss is not finite")
-    want = [0] * 6 + [12 * 4, 12 * 4]
+    want = [0] * 6 + [12 * 4, 12 * 4, 0, 0]
     check(counts == want, f"pretrain on kernel F's route: launches {counts}, expected {want}")
     launches["F_pretrain"] = counts[6:8]
 
-    # -- 16. times at the main paths' shapes -------------------------------
+    # -- 16. kernel G against its plain twin ----------------------------------
+    ffn_ws = [t.contiguous() for t in (lp0["ffn1"]["w"], lp0["ffn1"]["b"], lp0["ffn2"]["w"],
+                                       lp0["ffn2"]["b"], lp0["ln2"]["scale"],
+                                       lp0["ln2"]["bias"])]
+    SE, NE, NS, NA_ = 30, 50, 25, 6                # PPO: episodes, states, actions, fields
+    g_rows = {"rollout": NE, "ragged": 2 * NE, "update": SE * NE, "pretrain": NT}
+    g_in, g_err = {}, {}
+    for tag, n in g_rows.items():
+        g_in[tag] = ((h_tr, g_tr) if n == NT else
+                     (torch.randn((n, D), generator=gen, device=dev),
+                      torch.randn((n, D), generator=gen, device=dev)))
+        h_g, gg = g_in[tag]
+        g_err[tag] = check_fused(
+            f"ffn_block {tag} N={n} D={D} DI={DI}",
+            lambda p: (lambda *a: tfb.ffn_block(*a, seed_t, p)),
+            lambda p: (lambda *a: tfb.ffn_block_plain(*a, seed_t, p)), (h_g, *ffn_ws), gg,
+            FFN_GRADS)
+    for tag in ("ragged", "update"):
+        h_g, gg = g_in[tag]
+        g1 = tfb.ffn_backward_kernel(h_g, ffn_ws, gg, seed_t, 0.1)
+        g2 = tfb.ffn_backward_kernel(h_g, ffn_ws, gg, seed_t, 0.1)
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(g1, g2))
+        print(f"[ffn_block] {tag}: two backward runs {'bit-equal' if same else 'DIFFERENT'}",
+              flush=True)
+        check(same, f"ffn_block {tag}: two backward runs differ")
+    h_g = g_in["ragged"][0]
+    wide = [torch.ones(s_, device=dev) for s_ in ((1028, 64), (64,), (64, 1028), (1028,),
+                                                  (1028,), (1028,))]
+    for what, bad in (("bfloat16", (h_g.bfloat16(), *[w.bfloat16() for w in ffn_ws])),
+                      ("d_model 1028", (torch.ones((8, 1028), device=dev), *wide))):
+        try:
+            tfb.ffn_block(*bad, 0, 0.0)
+        except (NotImplementedError, TypeError, ValueError) as e:
+            print(f"[ffn_block] {what}: refused ({e})", flush=True)
+        else:
+            fail(f"ffn_block took {what}")
+
+    # -- 17. one full-width PPO update on the default and the kernel-G route --
+    from reinforcement_learning_in_music_generation_torch.models import critic as critic_lib
+    from reinforcement_learning_in_music_generation_torch.rl import ppo
+    avocab = (49, 19, 19, 89, 67, 25)             # ppo-train's tuple-event fields
+    pacfg, pccfg = C.actor_config(avocab, dropout=0.0), C.critic_config(avocab, dropout=0.0)
+    prcfg = C.ppo_reward_config(avocab, n_layer=10, dropout=0.0)
+    pcfgs = (pacfg, pccfg, prcfg)
+    # lr 1e-4 as phases 5 and 12 (PPOConfig's 0.01 moves a parameter by
+    # 0.01 on a gradient's sign, which the parameter check cannot see past)
+    ppcfg = C.PPOConfig(lr=1e-4)
+    pst0 = ppo.init_state(pacfg, pccfg, prcfg, ppcfg, seed=0, device=dev)
+    px, py, pm = (torch.from_numpy(a).to(dev) for a in
+                  dataset.synthetic_cp_dataset(1, 512, n_class=avocab, seed=5))
+    p_states = torch.from_numpy(dataset.synthetic_cp_dataset(NE, NE, n_class=avocab,
+                                                             seed=3)[0]).to(dev)
+    proutes = {"default": {}, "kernel": {"RLMG_FFN_BACKEND": "pallas"}}
+
+    def ppo_fresh():
+        """A PPOState with copies of pst0's actor and critic (the optimizer
+        adds in place) and new Adam states."""
+        a_ = topt.tree_map(torch.clone, pst0.actor_params)
+        c_ = topt.tree_map(torch.clone, pst0.critic_params)
+        txs_ = ppo.make_optimizers(ppcfg)
+        return ppo.PPOState(a_, c_, pst0.reward_params, txs_[0].init(a_), txs_[1].init(c_)), txs_
+
+    p_roll, p_act = {}, {}
+    for name, envv in proutes.items():
+        set_env(envv)
+        pst, _ = ppo_fresh()
+        zero_counts()
+        p_roll[name] = ppo.rollout_song(pst, pcfgs, px[0], py[0], pm[0], episodes=SE,
+                                        n_states=NE, n_actions=NS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = [0] * 8 + ([SE * (pacfg.n_layer + pccfg.n_layer), 0] if name == "kernel"
+                          else [0, 0])
+        print(f"[ppo_rollout] {name} route: launches (C, D, E, F, G fwd/bwd) {counts}",
+              flush=True)
+        check(counts == want, f"ppo rollout, {name} route: launches {counts}, expected {want}")
+        p_act[name] = ppo.choose_action(pst0.actor_params, pacfg, p_states, n_actions=NS)[0]
+    restore_env()
+    agree = (p_act["kernel"] == p_act["default"]).float().mean().item()
+    r_agree = (p_roll["kernel"][0]["action"] == p_roll["default"][0]["action"]).float().mean()
+    print(f"[ppo_update] choose_action on {NE} states: {agree:.4%} of action fields equal "
+          f"across routes; the rollouts' actions {r_agree.item():.4%}", flush=True)
+    check(agree >= 0.99, f"ppo choose_action: {agree} < 99% equal across routes")
+    agent_d, expert_d = p_roll["default"]
+    agent_k = p_roll["kernel"][0]
+    # the kernel route's critic on the default route's states (a near-tie
+    # may part the two rollouts); the reward Longformer takes no knob, so
+    # the rewards compare on the rows whose states both rollouts share
+    set_env(proutes["kernel"])
+    with torch.no_grad():
+        v_k = critic_lib.value_produce(pst0.critic_params, pccfg, agent_d["state"])[:, None]
+    restore_env()
+    shared = (agent_k["state"] == agent_d["state"]).flatten(1).all(1, keepdim=True)
+    e = max_err(v_k, agent_d["value"])
+    print(f"[ppo_rollout] values across routes: max|diff| {e:.3e} (max "
+          f"{magnitude(agent_d['value']):.3e})", flush=True)
+    check(e <= 1e-4 * magnitude(agent_d["value"]), f"ppo rollout values: max|diff| {e}")
+    e = ((agent_k["reward"] - agent_d["reward"]).abs() * shared).max().item()
+    print(f"[ppo_rollout] rewards across routes on the {int(shared.sum())} of {SE} states both "
+          f"rollouts share: max|diff| {e:.3e} (max {magnitude(agent_d['reward']):.3e})",
+          flush=True)
+    check(e <= 1e-4 * magnitude(agent_d["reward"]), f"ppo rollout rewards: max|diff| {e}")
+    p_ret = ppo.calculate_returns(agent_d["reward"][:, 0], ppcfg.discount)
+    p_adv = ppo.calculate_advantages(p_ret, agent_d["value"])
+    p_out, p_ms = {}, {}
+    for name, envv in proutes.items():
+        set_env(envv)
+        pst, (atx, ctx) = ppo_fresh()
+        zero_counts()
+        pst, pmet = ppo.update_policy_step(pst, pcfgs, ppcfg, (atx, ctx), agent_d, expert_d,
+                                           p_adv, p_ret)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        outs = []
+        for tx_, prm, mu, losses in ((atx, pst.actor_params, pst.actor_opt.mu,
+                                      [pmet["actor_loss"], pmet["policy_loss"]]),
+                                     (ctx, pst.critic_params, pst.critic_opt.mu,
+                                      [pmet["value_loss"]])):
+            # the step's gradient from Adam's first moment, its update
+            # recomputed from it (a first step from zeros), as phase 12
+            g_tree = topt.tree_map(lambda m_: m_ / (1.0 - tx_.b1), mu)
+            u_tree, _ = tx_.update(g_tree, tx_.init(g_tree))
+            outs.append((float(losses[0]), torch.stack(losses).cpu(), named_leaves(prm),
+                         named_leaves(g_tree), named_leaves(u_tree)))
+            del g_tree, u_tree
+        p_out[name] = outs
+        vals = {k: float(v) for k, v in pmet.items()}
+        print(f"[ppo_update] {name} route: {vals}; launches (C, D, E, F, G fwd/bwd) {counts}",
+              flush=True)
+        n_fwd = 2 * pacfg.n_layer + pccfg.n_layer        # policy and CE forwards, the critic's
+        want = [0] * 8 + ([n_fwd, n_fwd] if name == "kernel" else [0, 0])
+        check(counts == want, f"ppo update, {name} route: launches {counts}, expected {want}")
+        t = time.perf_counter()
+        for _ in range(2):
+            pst, _ = ppo.update_policy_step(pst, pcfgs, ppcfg, (atx, ctx), agent_d, expert_d,
+                                            p_adv, p_ret)
+        torch.cuda.synchronize()
+        p_ms[name] = (time.perf_counter() - t) / 2 * 1e3
+        del pst, atx, ctx
+    restore_env()
+    # the policy loss is a mean of terms of size |advantage| (normalised: mean
+    # 0, std 1) that largely cancel, so its difference is held against that
+    # scale, not against the small mean
+    pol_k, pol_d = p_out["kernel"][0][1][1].item(), p_out["default"][0][1][1].item()
+    pol_scale = max(abs(pol_d), p_adv.abs().mean().item())
+    print(f"[ppo_update] policy loss kernel {pol_k:.7f} default {pol_d:.7f}: difference "
+          f"{abs(pol_k - pol_d):.3e} against a scale of {pol_scale:.3e}; {p_ms['default']:.1f} "
+          f"ms per step (default), {p_ms['kernel']:.1f} ms (kernel G)", flush=True)
+    check(abs(pol_k - pol_d) <= 1e-4 * pol_scale, f"ppo update: policy losses {pol_k}, {pol_d}")
+    check_step("ppo_update actor", p_out["kernel"][0], p_out["default"][0])
+    check_step("ppo_update critic", p_out["kernel"][1], p_out["default"][1])
+    del p_out, p_roll
+
+    # -- 18. the slice's main path: cli ppo-train on both routes ----------------
+    pcli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, envv in proutes.items():
+            set_env(envv)
+            ck = os.path.join(tmp, name, "ckpt")
+            zero_counts()
+            res = cli.main(["ppo-train", "--synthetic", "--synthetic-songs", "4", "--seq-len",
+                            "512", "--songs", "2", "--episodes", str(SE), "--n-states",
+                            str(NE), "--n-actions", str(NS), "--ppo-steps", "10",
+                            "--exp-dir", os.path.join(tmp, name, "exp"), "--ckpt-dir", ck])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            pcli[name] = (res, counts)
+            print(f"[ppo-train] {name} route: ms per rollout song ({SE} episodes) "
+                  f"{res['rollout_ms']}; ms per update_policy (10 steps) {res['update_ms']}; "
+                  f"metrics {res['metrics']}; launches (C, D, E, F, G fwd/bwd) {counts}",
+                  flush=True)
+            check(res["songs"] == 2 and len(res["metrics"]) == 2, f"ppo-train {name}: 2 songs")
+            check(os.path.exists(os.path.join(ck, "ppo_best.ckpt")),
+                  f"ppo-train {name}: no ppo_best.ckpt")
+            check(all(math.isfinite(v) for m_ in res["metrics"] for v in m_.values()),
+                  f"ppo-train {name}: a printed loss or reward is not finite")
+            per_song = (SE * (pacfg.n_layer + pccfg.n_layer) + 10 * n_fwd, 10 * n_fwd)
+            want = [0] * 8 + ([2 * per_song[0], 2 * per_song[1]] if name == "kernel"
+                              else [0, 0])
+            check(counts == want, f"ppo-train {name}: launches {counts}, expected {want}")
+    restore_env()
+    launches["G"] = pcli["kernel"][1][8:10]
+
+    # -- 19. cli pretrain on kernel G's route (RLMG_FFN_BACKEND=pallas) -------
+    with tempfile.TemporaryDirectory() as tmp:
+        set_env({"RLMG_FFN_BACKEND": "pallas"})
+        zero_counts()
+        res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64", "--batch-size",
+                        str(BT), "--seq-len", str(ST), "--max-steps", "4",
+                        "--exp-dir", os.path.join(tmp, "exp"), "--ckpt-dir",
+                        os.path.join(tmp, "ckpt")])
+        torch.cuda.synchronize()
+        counts = read_counts()
+    restore_env()
+    ms_step = res["seconds"] / res["steps"] * 1e3
+    print(f"[pretrain] kernel-G route: {res['steps']} steps in {res['seconds']:.3f}s = "
+          f"{ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s; logged losses "
+          f"{res['batch_losses']}; launches (C, D, E, F, G fwd/bwd) {counts}", flush=True)
+    check(res["steps"] == 4, f"pretrain on kernel G's route: {res['steps']} steps")
+    check(len(res["batch_losses"]) > 0 and all(
+        math.isfinite(v) for v in res["batch_losses"] + res["history"]),
+        "pretrain on kernel G's route: a logged loss is not finite")
+    want = [0] * 8 + [12 * 4, 12 * 4]
+    check(counts == want, f"pretrain on kernel G's route: launches {counts}, expected {want}")
+    launches["G_pretrain"] = counts[8:10]
+
+    # -- 20. cli inference: the PPO actor's 150 tokens to a tuple-event MIDI --
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gen_midi", "actor.mid")
+        res = cli.main(["inference", "--tokens", "150", "--out", out])
+        with open(out, "rb") as f:
+            head = f.read(4)
+    print(f"[inference] {res['tokens']} tokens, {res['notes']} notes in {res['seconds']:.3f}s "
+          f"({res['tokens'] / res['seconds']:.1f} tokens/s)", flush=True)
+    check(head == b"MThd", "inference: the output is not a MIDI file")
+    check(res["tokens"] == res["notes"] == 150, f"inference: {res['notes']} notes, expected 150")
+
+    # -- 21. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
     sdt = st.s.dtype
     h5 = lt.embed_input(params, cfg, rand_tokens(1, 5)[0], 0, None).float()
@@ -1102,6 +1368,35 @@ def main() -> None:
     print(f"[time] DQN update B={BQ} x S={SQ}: default route {q_ms['default']:.1f} ms, kernel-F "
           f"route {q_ms['kernel']:.1f} ms")
 
+    # G at the rollout's and the update's rows (dropout 0, as PPO runs them)
+    # and pretrain's (dropout 0.1)
+    g_t = {}
+    for tag, p_drop, reps in (("rollout", 0.0, 50), ("update", 0.0, 20), ("pretrain", 0.1, 10)):
+        h_g, gg = g_in[tag]
+        gin = (h_g, *ffn_ws)
+        gk_f, gk_b = time_fwd_bwd(lambda *a: tfb.ffn_block(*a, seed_t, p_drop), gin, gg, reps)
+        gp_f, gp_b = time_fwd_bwd(lambda *a: tfb.ffn_block_plain(*a, seed_t, p_drop), gin, gg,
+                                  max(3, reps // 5))
+        (gf_ops, gf_b), (gb_ops, gb_b) = ffn_work(g_rows[tag], D, DI)
+        (bf, bfby), (bb, bbby) = bound(gf_b, gf_ops), bound(gb_b, gb_ops)
+        recompute = bound(0, gf_ops)[0]         # the backward's recomputed forward, at peak
+        g_t[tag] = dict(rows=g_rows[tag], dropout=p_drop, ms_fwd=gk_f, ms_bwd=gk_b,
+                        plain_ms_fwd=gp_f, plain_ms_bwd=gp_b, bound_ms_fwd=bf, bound_ms_bwd=bb,
+                        bound_by_fwd=bfby, bound_by_bwd=bbby,
+                        bound_by=bound(gf_b + gb_b, gf_ops + gb_ops)[1],
+                        gflop_fwd=gf_ops / 1e9, gflop_bwd=gb_ops / 1e9, mb_fwd=gf_b / 1e6,
+                        mb_bwd=gb_b / 1e6, recompute_ms_bwd=recompute, max_abs_err=g_err[tag])
+        print(f"[time] ffn_block {tag} N={g_rows[tag]} p={p_drop}: forward {gk_f:.4f} ms (plain "
+              f"{gp_f:.4f}, bound {bf:.4f} {bfby}, {gf_ops / 1e9:.3f} GFLOP, {gf_b / 1e6:.1f} MB), "
+              f"backward {gk_b:.4f} ms (plain {gp_b:.4f}, bound {bb:.4f} {bbby}, "
+              f"{gb_ops / 1e9:.3f} GFLOP, {gb_b / 1e6:.1f} MB; the recomputed forward adds "
+              f"{gf_ops / 1e9:.3f} GFLOP, {recompute:.4f} ms at peak)")
+    p_def, p_ker = pcli["default"][0], pcli["kernel"][0]
+    print(f"[time] PPO update step B={SE} x S={NE}: default route {p_ms['default']:.1f} ms, "
+          f"kernel-G route {p_ms['kernel']:.1f} ms; ppo-train per rollout song "
+          f"{p_def['rollout_ms']} / {p_ker['rollout_ms']} ms, per update_policy "
+          f"{p_def['update_ms']} / {p_ker['update_ms']} ms (default / kernel G)")
+
     pkg = "reinforcement_learning_in_music_generation_torch"
     tpu = "reinforcement_learning_in_music_generation_tpu/ops"
     kernels = [
@@ -1151,6 +1446,18 @@ def main() -> None:
          "bound_by": f_t["dqn"]["bound_by"],
          "library_ms": None, "dqn_shape": f_t["dqn"], "rollout_shape": f_t["rollout"],
          "pretrain_shape": f_t["pretrain"], "launches_pretrain": sum(launches["F_pretrain"])},
+        # G at a PPO update's 1500 rows; no single PyTorch call computes
+        # LN(h + FFN(h))
+        {"name": "ffn_block", "route": "cuda", "source": f"{pkg}/csrc/ffn_block.cu",
+         "replaces": f"{tpu}/ffn_block.py:187", "launches": sum(launches["G"]),
+         "launches_fwd": launches["G"][0], "launches_bwd": launches["G"][1],
+         "max_abs_err": g_err["update"],
+         "ms": g_t["update"]["ms_fwd"] + g_t["update"]["ms_bwd"],
+         "plain_ms": g_t["update"]["plain_ms_fwd"] + g_t["update"]["plain_ms_bwd"],
+         "bound_ms": g_t["update"]["bound_ms_fwd"] + g_t["update"]["bound_ms_bwd"],
+         "bound_by": g_t["update"]["bound_by"], "library_ms": None,
+         "update_shape": g_t["update"], "rollout_shape": g_t["rollout"],
+         "pretrain_shape": g_t["pretrain"], "launches_pretrain": sum(launches["G_pretrain"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -8,7 +8,11 @@ Ported so far:
     Longformer discriminator LM's CE pretraining on synthetic songs;
   * ``my-pretrain`` (JAX cmd_my_pretrain, cli.py:166), the PPO actor's or,
     with ``--reward-pretrain``, the reward model's pretraining;
-  * ``dqn-train`` (JAX cmd_dqn_train, cli.py:262), DQN + AIRL fine-tuning.
+  * ``dqn-train`` (JAX cmd_dqn_train, cli.py:262), DQN + AIRL fine-tuning;
+  * ``ppo-train`` (JAX cmd_ppo_train, cli.py:414), PPO fine-tuning with a
+    learned reward;
+  * ``inference`` (JAX cmd_inference, cli.py:666), the PPO actor's fixed-
+    token generation written out as a tuple-event MIDI file.
 Run them as
 
     python -m reinforcement_learning_in_music_generation_torch.apps.cli generate --songs 5
@@ -18,13 +22,18 @@ Run them as
         --seq-len 3584 --batch-size 4 --synthetic-songs 8 --max-steps 4
     python -m reinforcement_learning_in_music_generation_torch.apps.cli dqn-train --synthetic \
         --batch-size 30 --buffer-size 500 --songs 12 --max-updates 2
+    python -m reinforcement_learning_in_music_generation_torch.apps.cli ppo-train --synthetic \
+        --seq-len 130 --songs 2
+    python -m reinforcement_learning_in_music_generation_torch.apps.cli inference --tokens 150
 
 They run on the GPU unless ``--device cpu`` is given.  Without ``--ckpt``
 the generation weights are random, drawn from ``--seed``; ``--ckpt`` reads
 a checkpoint written by the JAX package's ``save_checkpoint`` or by the
 port's ``pretrain``.  ``RLMG_ATTN_BACKEND=pallas`` sends the agent's
 attention to kernel F (``ops/linear_attention_kernel.py``), as it sends the
-JAX package's to its Pallas causal product.
+JAX package's to its Pallas causal product; ``RLMG_FFN_BACKEND=pallas``
+sends the post-LN1 half of every linear-transformer layer to kernel G
+(``ops/ffn_block.py ffn_block``).
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ from ..data import dataset, tokenizer
 from ..generate import sampler
 from ..models import linear_transformer as lt
 from ..models import longformer as lf
-from ..rl import airl, buffers, dqn, env
+from ..ops import sampling as smp
+from ..rl import airl, buffers, dqn, env, ppo
 from ..train import pretrain as pretrain_lib
 from ..utils import plotting
 from ..utils.checkpoint import save_checkpoint
@@ -336,6 +346,128 @@ def cmd_dqn_train(args) -> dict:
     return {"updates": updates, "metrics": history, **times}
 
 
+def _depth(params: Optional[dict]) -> Optional[int]:
+    """Layers of a checkpoint's trunk (its stacked leaves' leading size)."""
+    return None if params is None else int(params["layers"]["wq"]["w"].shape[0])
+
+
+def cmd_ppo_train(args) -> dict:
+    """PPO fine-tune (ppo_policy/ppo_train.py:419-528): per song, a rollout
+    of ``--episodes`` episodes (actor action, critic value, learned reward),
+    returns and advantages, then ``--ppo-steps`` clipped-surrogate updates of
+    the actor and the critic.  Writes ``ppo_best.ckpt`` (the actor) and the
+    reward curve every 5 songs.  ``--pretrain-actor`` / ``--pretrain-reward``
+    read checkpoints of ``my-pretrain`` (the port's or the JAX package's);
+    a model read from one keeps the checkpoint's depth, as the JAX package's
+    layer scan does.  Returns {"songs", "metrics" (one dict of floats per
+    song, with "mean_reward"), "rollout_ms" and "update_ms" (per song, each
+    timed to a device synchronisation)}."""
+    for flag in ("dp", "tp"):
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(f"--{flag} > 1: parallelism is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+    vocab = (49, 19, 19, 89, 67, 25)
+    device = torch.device(args.device)
+    actor_params = reward_params = None
+    if args.pretrain_actor:
+        actor_params = load_jax_checkpoint(args.pretrain_actor, device=device)
+    if args.pretrain_reward:
+        # the reward model of `my-pretrain --reward-pretrain`; a random one
+        # scores a flat ~0.5 and the reward curve has nothing to climb
+        reward_params = load_jax_checkpoint(args.pretrain_reward, device=device)
+    acfg = C.actor_config(vocab, n_layer=_depth(actor_params) or args.layers)
+    ccfg = C.critic_config(vocab, n_layer=args.layers)
+    rcfg = C.ppo_reward_config(vocab, n_layer=_depth(reward_params) or max(1, args.layers - 2))
+    cfg = C.PPOConfig(num_songs=args.songs, episodes=args.episodes, n_states=args.n_states,
+                      n_actions=args.n_actions, ppo_steps=args.ppo_steps,
+                      compat_forward_returns=args.compat_forward_returns)
+    x, y, mask = (torch.from_numpy(a).to(device) for a in _load_pretrain_data(args, vocab))
+    state = ppo.init_state(acfg, ccfg, rcfg, cfg, actor_params=actor_params,
+                           reward_params=reward_params, seed=cfg.seed, device=device)
+    txs = ppo.make_optimizers(cfg)
+    cfgs = (acfg, ccfg, rcfg)
+
+    bus = MetricsBus(Saver(args.exp_dir), use_wandb=args.wandb)
+    history, reward_hist = [], []
+    times = {"rollout_ms": [], "update_ms": []}
+    reward_png = os.path.join(args.exp_dir, "ppo_reward.png")
+    for epoch in range(cfg.num_songs):
+        song = epoch % x.shape[0]
+        _sync(device)
+        t0 = time.perf_counter()
+        agent_ts, expert_ts = ppo.rollout_song(state, cfgs, x[song], y[song], mask[song],
+                                               episodes=cfg.episodes, n_states=cfg.n_states,
+                                               n_actions=cfg.n_actions)
+        returns = ppo.calculate_returns(agent_ts["reward"][:, 0], cfg.discount,
+                                        compat_forward=cfg.compat_forward_returns)
+        adv = ppo.calculate_advantages(returns, agent_ts["value"])
+        # the learned reward model's mean score of the rollout: the learning
+        # curve (ppo_train.py:516-527)
+        mean_reward = agent_ts["reward"].mean()
+        _sync(device)
+        t1 = time.perf_counter()
+        state, metrics = ppo.update_policy(state, cfgs, cfg, txs, agent_ts, expert_ts, adv,
+                                           returns)
+        # one host read per song: the metrics and the mean reward together
+        vals = torch.stack([*metrics.values(), mean_reward]).tolist()
+        times["rollout_ms"].append((t1 - t0) * 1e3)
+        times["update_ms"].append((time.perf_counter() - t1) * 1e3)
+        metrics = {**dict(zip(metrics, vals)), "mean_reward": vals[-1]}
+        reward_hist.append(vals[-1])
+        history.append(metrics)
+        bus.log(metrics)
+        print(f"Epoch {epoch}/{cfg.num_songs} | actor {metrics['actor_loss']:.4f} | critic "
+              f"{metrics['value_loss']:.4f} | reward {metrics['mean_reward']:.4f}")
+        if epoch % 5 == 0:
+            save_checkpoint(os.path.join(args.ckpt_dir, "ppo_best.ckpt"), state.actor_params,
+                            None, epoch)
+            plotting.curve_plot({"mean reward": reward_hist}, reward_png,
+                                ylabel="Learned reward (rollout mean)")
+    if reward_hist:
+        plotting.curve_plot({"mean reward": reward_hist}, reward_png,
+                            ylabel="Learned reward (rollout mean)")
+    bus.saver.close()
+    mean = lambda v: sum(v) / len(v) if v else float("nan")
+    print(f"done: {cfg.num_songs} songs on {device}; {mean(times['rollout_ms']):.1f} ms per "
+          f"rollout song ({cfg.episodes} episodes), {mean(times['update_ms']):.1f} ms per "
+          f"update_policy ({cfg.ppo_steps} steps)")
+    return {"songs": cfg.num_songs, "metrics": history, **times}
+
+
+def cmd_inference(args) -> dict:
+    """PPO-style fixed-token generation (ppo_policy/inference.py:78-161):
+    the actor samples ``--tokens`` tokens from a zero seed token, plain
+    categorical over all six fields, through the plain per-step decode (as
+    the JAX command, which leaves ``fused`` off), decoded to a tuple-event
+    MIDI file.  Returns {"tokens", "notes", "path", "seconds"}."""
+    e2w, w2e = tokenizer.construct_tuple_dict()
+    vocab = tuple(tokenizer.n_classes(e2w))
+    mcfg = C.actor_config(vocab, n_layer=args.layers)
+    device = torch.device(args.device)
+    if args.ckpt:
+        template = lt.init_params(mcfg, seed=0, device="cpu")
+        params = load_jax_checkpoint(args.ckpt, template, device=device)
+    else:
+        params = lt.init_params(mcfg, seed=args.seed, device=device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(args.seed)
+    settings = tuple(smp.FieldSampling(1.0, None) for _ in range(mcfg.n_fields))
+    _sync(device)
+    t0 = time.perf_counter()
+    res = sampler.generate_tokens(params, mcfg,
+                                  torch.zeros((1, 1, mcfg.n_fields), dtype=torch.int32,
+                                              device=device),
+                                  generator=generator, max_tokens=args.tokens,
+                                  token_count=args.tokens, settings=settings)
+    toks = res.tokens[0][res.valid[0]][1:].cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    midi = tokenizer.tuple_events_to_midi(tokenizer.words_to_tuple_events(toks, w2e), args.out)
+    print(f"{len(toks)} tokens -> {args.out} ({elapsed:.2f}s on {device})")
+    return {"tokens": len(toks), "notes": sum(len(i.notes) for i in midi.instruments),
+            "path": args.out, "seconds": elapsed}
+
+
 def _train_common(d: argparse.ArgumentParser, layers_help: Optional[str] = None) -> None:
     """The JAX CLI's shared training flags (cli.py:727-744) without
     --scan-unroll (the port runs its layers in an eager loop), plus --device."""
@@ -461,6 +593,39 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--dp", type=int, default=1, help="not ported yet (> 1 raises)")
     d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
     d.set_defaults(fn=cmd_dqn_train)
+
+    d = sub.add_parser(
+        "ppo-train", help="PPO fine-tune",
+        description="PPO fine-tuning with the flags of the JAX package's ppo-train "
+                    "(--scan-unroll left out; --lr, --epochs, --max-steps, --batch-size and "
+                    "--seed are read and not used, as there: PPOConfig sets the lr and seed).")
+    _train_common(d)
+    d.add_argument("--songs", type=int, default=1000)
+    d.add_argument("--episodes", type=int, default=30)
+    d.add_argument("--n-states", type=int, default=50)
+    d.add_argument("--n-actions", type=int, default=25)
+    d.add_argument("--ppo-steps", type=int, default=10)
+    d.add_argument("--pretrain-actor", default=None,
+                   help="actor params of a my-pretrain checkpoint (JAX or port)")
+    d.add_argument("--pretrain-reward", default=None,
+                   help="reward-model params of a my-pretrain --reward-pretrain checkpoint")
+    d.add_argument("--dp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--compat-forward-returns", action="store_true",
+                   help="the reference's forward-order reward discounting "
+                        "(ppo_train.py:348-357)")
+    d.set_defaults(fn=cmd_ppo_train)
+
+    d = sub.add_parser("inference", help="PPO-style fixed-token generation")
+    d.add_argument("--tokens", type=int, default=150)
+    d.add_argument("--layers", type=int, default=12)
+    d.add_argument("--ckpt", default=None,
+                   help="actor params of a JAX or port checkpoint")
+    d.add_argument("--out", default="gen_midi/pretrain_actor.mid")
+    d.add_argument("--seed", type=int, default=0)
+    d.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain versions of the kernels")
+    d.set_defaults(fn=cmd_inference)
     return ap
 
 

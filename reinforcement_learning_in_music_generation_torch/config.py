@@ -1,12 +1,12 @@
 """Configuration dataclasses (own copy of the JAX package's ``config.py``).
 
 Only what the ported paths use: the causal linear-attention transformer's
-config and its ``agent_config`` / ``actor_config`` presets, the
-sliding-window (Longformer) encoder's config and its three presets, and
-the generation, pretrain, DQN and AIRL configs.  Field names and defaults match the
-JAX package.  Left out: ``scan_unroll`` (the port runs its layer loops
-eagerly, there is no scan to unroll), ``PretrainConfig.prng_impl`` (a JAX
-PRNG choice) and ``critic_config`` (it comes with the critic).
+config and its ``agent_config`` / ``actor_config`` / ``critic_config``
+presets, the sliding-window (Longformer) encoder's config and its three
+presets, and the generation, pretrain, DQN, AIRL and PPO configs.  Field
+names and defaults match the JAX package.  Left out: ``scan_unroll`` (the
+port runs its layer loops eagerly, there is no scan to unroll) and
+``PretrainConfig.prng_impl`` (a JAX PRNG choice).
 """
 
 from __future__ import annotations
@@ -51,6 +51,11 @@ def agent_config(vocab_sizes=(56, 135, 18, 87, 18, 25), **kw) -> LinearTransform
 def actor_config(vocab_sizes=(49, 19, 19, 89, 67, 25), **kw) -> LinearTransformerConfig:
     """ppo_policy/config.py:39-43 ActorConfig + value head (model.py:154-158)."""
     kw.setdefault("with_value_head", True)
+    return LinearTransformerConfig(vocab_sizes=tuple(vocab_sizes), **kw)
+
+
+def critic_config(vocab_sizes=(49, 19, 19, 89, 67, 25), **kw) -> LinearTransformerConfig:
+    """ppo_policy/config.py:45-49 CriticConfig (critic adds field value heads)."""
     return LinearTransformerConfig(vocab_sizes=tuple(vocab_sizes), **kw)
 
 
@@ -195,3 +200,22 @@ class AIRLConfig:
     lr_step: int = 10               # StepLR period, in minibatches
     lr_gamma: float = 0.1
     score_batch_size: int = 100     # buffer re-scoring batch (train-mode BN: sets the values)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    """PPO fine-tune (ppo_policy/ppo_train.py:34-57)."""
+
+    num_songs: int = 1000
+    episodes: int = 30
+    n_states: int = 50
+    n_actions: int = 25
+    n_features: int = 6
+    ppo_steps: int = 10
+    ppo_clip: float = 0.2
+    discount: float = 0.99
+    lr: float = 0.01
+    seed: int = 0
+    # The reference discounts rewards in forward order (ppo_train.py:348-357);
+    # the default fixes it, True reproduces it.
+    compat_forward_returns: bool = False

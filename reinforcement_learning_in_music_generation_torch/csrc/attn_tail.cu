@@ -6,7 +6,8 @@
 //   h1  = LN1(h_in + drop1(a_pre @ Wo + bo))
 //   out = LN2(h1 + drop3(drop2(gelu(h1 @ W1 + b1)) @ W2 + b2))
 //
-// Forward, one stream, in order (the GEMMs and row kernels of train_gemm.cuh):
+// Forward, one stream, in order (the GEMMs and row kernels of train_gemm.cuh;
+// everything after LN1 is ffn_tail.cuh, shared with ffn_block.cu):
 //   gemm  r1 = h_in + drop1(a_pre @ Wo + bo)          bias, mask, residual in the epilogue
 //   ln    h1 = LN1(r1)
 //   gemm  d2 = drop2(gelu(h1 @ W1 + b1))              (x1 = h1 @ W1 + b1 kept for the backward)
@@ -36,7 +37,7 @@
 // later product reads them; the products are f32 FMA tiles, without tensor
 // cores yet.
 
-#include "train_gemm.cuh"
+#include "ffn_tail.cuh"
 
 namespace rlmg {
 
@@ -47,12 +48,8 @@ enum { G_DH, G_DAP, G_DWO, G_DBO, G_DL1S, G_DL1B, G_DW1, G_DB1, G_DW2, G_DB2, G_
        N_TAIL_G };
 
 inline size_t tail_part_floats(int N, int D, int DI) {
-  size_t p = 0;
-  const size_t c[5] = {tn_part_floats(D, D, N), tn_part_floats(D, DI, N),
-                       tn_part_floats(DI, D, N), colsum_part_floats(N, DI),
-                       ln_bwd_part_floats(N, D)};
-  for (size_t v : c) p = v > p ? v : p;
-  return p;
+  const size_t a = tn_part_floats(D, D, N), b = ffn_part_floats(N, D, DI);
+  return a > b ? a : b;
 }
 
 // Forward: r1, h1, d2, r2 (N x D, N x D, N x DI, N x D).
@@ -63,8 +60,8 @@ inline size_t tail_scratch_floats(int N, int D, int DI, int backward) {
   return 7 * nd + 3 * ndi + tail_part_floats(N, D, DI);
 }
 
-inline Drop site(const int* seed, int s, float p, float inv) {
-  return p > 0.f ? Drop{seed, s, p, inv} : Drop{seed, 0, 0.f, 1.f};
+inline FfnW ffn_weights(const float* const* w) {
+  return {w[T_W1], w[T_B1], w[T_W2], w[T_B2], w[T_L2S], w[T_L2B]};
 }
 
 struct TailFwd {
@@ -83,20 +80,8 @@ inline int tail_forward(const float* h_in, const float* a_pre, const float* cons
   if (rc) return rc;
   rc = ln_fwd(b.r1, w[T_L1S], w[T_L1B], b.h1, N, D, st);
   if (rc) return rc;
-  Epi<float, float> e2;
-  e2.out = b.d2;
-  e2.bias = w[T_B1];
-  e2.pre = b.x1;
-  e2.act = ACT_GELU;
-  e2.drop = site(seed, mid_drop ? 2 : 0, mid_drop ? p : 0.f, inv);
-  rc = gemm<false, false>(b.h1, w[T_W1], N, DI, D, e2, st);
-  if (rc) return rc;
-  Epi<float, float> e3;
-  e3.out = b.r2;
-  e3.bias = w[T_B2];
-  e3.drop = site(seed, 3, p, inv);
-  e3.resid = b.h1;
-  return gemm<false, false>(b.d2, w[T_W2], N, D, DI, e3, st);
+  return ffn_forward(b.h1, ffn_weights(w), b.x1, b.d2, b.r2, seed, p, inv, mid_drop, N, D, DI,
+                     st);
 }
 
 }  // namespace rlmg
@@ -155,24 +140,11 @@ int rlmg_attn_tail_bwd(const float* h_in, const float* a_pre, const float* const
   if (rc) return rc;
   float* const* g = grads;
 
-  // LN2, dropout 3, FFN2
-  rc = ln_bwd(b.r2, dout, w[T_L2S], dr2, dx2, site(seed, 3, p, inv), g[G_DL2S], g[G_DL2B], N, D,
-              part, st);
+  // LN2 and the FFN (ffn_tail.cuh), back to h1
+  const FfnG fg = {dh1, g[G_DW1], g[G_DB1], g[G_DW2], g[G_DB2], g[G_DL2S], g[G_DL2B]};
+  rc = ffn_backward(b.h1, ffn_weights(w), b.x1, b.d2, b.r2, dout, fg, dr2, dx2, dx1, part, seed,
+                    p, inv, mid_drop, N, D, DI, st);
   if (rc) return rc;
-  if ((rc = colsum(dx2, g[G_DB2], N, D, part, st))) return rc;
-  if ((rc = gemm_tn(b.d2, dx2, g[G_DW2], DI, D, N, part, st))) return rc;
-  // dropout 2, gelu, FFN1
-  Epi<float, float> e;
-  e.out = dx1;
-  e.drop = site(seed, mid_drop ? 2 : 0, mid_drop ? p : 0.f, inv);
-  e.dgelu_x = b.x1;
-  if ((rc = gemm<false, true>(dx2, w[T_W2], N, DI, D, e, st))) return rc;
-  if ((rc = colsum(dx1, g[G_DB1], N, DI, part, st))) return rc;
-  if ((rc = gemm_tn(b.h1, dx1, g[G_DW1], D, DI, N, part, st))) return rc;
-  Epi<float, float> e2;
-  e2.out = dh1;
-  e2.resid = dr2;
-  if ((rc = gemm<false, true>(dx1, w[T_W1], N, D, DI, e2, st))) return rc;
   // LN1, dropout 1, Wo
   rc = ln_bwd(b.r1, dh1, w[T_L1S], g[G_DH], da, site(seed, 1, p, inv), g[G_DL1S], g[G_DL1B], N, D,
               part, st);

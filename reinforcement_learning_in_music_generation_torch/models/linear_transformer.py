@@ -15,9 +15,10 @@ CUDA device at ``RLMG_FFN_MIN_ROWS`` (8192) rows or more, kernel C
 (``ops/attention_block.py``) and kernel D (``ops/ffn_block.py``); otherwise
 the plain PyTorch composition.  An explicit ``RLMG_ATTN_BACKEND=pallas`` (or
 ``cfg.attn_backend``) takes the unfused layer at any row count, with kernel
-F (``ops/linear_attention_kernel.py``) as its attention and the plain FFN
-tail.  Not ported yet (ROADMAP): ``value_head``,
-``forward_prefill``, ``remat``.
+F (``ops/linear_attention_kernel.py``) as its attention; an explicit
+``RLMG_FFN_BACKEND=pallas`` runs the unfused layer's post-LN1 half through
+kernel G (``ops/ffn_block.py ffn_block``) at any row count.  Not ported yet
+(ROADMAP): ``forward_prefill``, ``remat``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from ..config import LinearTransformerConfig
 from ..ops.attention_block import qkv_attention_block
-from ..ops.ffn_block import attn_tail_block
+from ..ops.ffn_block import attn_tail_block, ffn_block
 from ..ops.linear_attention import (causal_linear_attention,
                                     causal_linear_attention_bshe, linear_attention_step)
 from ..ops.losses import fields_cross_entropy
@@ -103,8 +104,8 @@ def _ffn_min_rows() -> int:
 def _ffn_backend(n_rows: int, device: torch.device) -> str:
     """FFN-tail route of the training forward: "pallas-tail" runs kernel D
     (Wo + dropout + residual + LN1 + FFN + LN2, ``ops/ffn_block.py``),
-    "xla" the plain PyTorch composition, "pallas" the post-LN1 kernel (not
-    ported yet: raises).  RLMG_FFN_BACKEND overrides.
+    "xla" the plain PyTorch composition, "pallas" kernel G (the post-LN1
+    FFN + LN2, ``ops/ffn_block.py ffn_block``).  RLMG_FFN_BACKEND overrides.
 
     Default: the JAX rule with "the tensors are on a CUDA device" in place
     of "the default backend is a TPU": "pallas-tail" at ``_ffn_min_rows()``
@@ -141,6 +142,15 @@ def _qkv_attention_call(cfg: LinearTransformerConfig, lp: dict,
     return att.reshape(b, s, d)
 
 
+def _dropout_seed(generator: Optional[torch.Generator], p: float, device):
+    """A fused kernel's dropout seed: drawn from ``generator`` when p > 0,
+    else 0 (no generator means no dropout, not dropout with a fixed seed)."""
+    if p <= 0.0:
+        return 0
+    return torch.randint(0, 2 ** 30, (), generator=generator, device=generator.device,
+                         dtype=torch.int32).to(device, non_blocking=True)
+
+
 def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                    generator: Optional[torch.Generator], deterministic: bool,
                    attn_backend: Optional[str]) -> torch.Tensor:
@@ -160,14 +170,8 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
             att = causal_linear_attention_bshe(
                 bshe(cm.linear(lp["wq"], h)), bshe(cm.linear(lp["wk"], h)),
                 bshe(cm.linear(lp["wv"], h)), eps=cfg.attn_eps, chunk=cfg.attn_chunk)
-        # no generator means no dropout (cm.dropout semantics), not dropout
-        # with a fixed seed
         p = 0.0 if (deterministic or generator is None) else cfg.dropout
-        if p > 0.0:
-            seed = torch.randint(0, 2 ** 30, (), generator=generator, device=generator.device,
-                                 dtype=torch.int32).to(h.device, non_blocking=True)
-        else:
-            seed = 0
+        seed = _dropout_seed(generator, p, h.device)
         out = attn_tail_block(h.reshape(b * s, d), att.reshape(b * s, d).contiguous(),
                               lp["wo"]["w"], lp["wo"]["b"], lp["ln1"]["scale"],
                               lp["ln1"]["bias"], lp["ffn1"]["w"], lp["ffn1"]["b"],
@@ -189,9 +193,12 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
     att = cm.linear(lp["wo"], att)
     h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic))
     if h.ndim == 3 and _ffn_backend(h.shape[0] * h.shape[1], h.device) == "pallas":
-        raise NotImplementedError("RLMG_FFN_BACKEND=pallas (the JAX package's ffn_block "
-                                  "kernel, ops/ffn_block.py:187) is not ported yet: "
-                                  "ROADMAP Queue 2")
+        b, s, d = h.shape
+        p = 0.0 if (deterministic or generator is None) else cfg.dropout
+        out = ffn_block(h.reshape(b * s, d), lp["ffn1"]["w"], lp["ffn1"]["b"], lp["ffn2"]["w"],
+                        lp["ffn2"]["b"], lp["ln2"]["scale"], lp["ln2"]["bias"],
+                        _dropout_seed(generator, p, h.device), p)
+        return out.reshape(b, s, d)
     y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], h), approximate="none")
     y = cm.dropout(generator, y, cfg.dropout, deterministic)
     y = cm.linear(lp["ffn2"], y)
@@ -224,6 +231,13 @@ def forward_output(params: dict, cfg: LinearTransformerConfig,
                    h: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """h -> tuple of per-field logits (dqn_policy/model.py:241-249)."""
     return cm.apply_field_heads(params["heads"], h, cfg.n_fields)
+
+
+def value_head(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """PPO actor value head (ppo_policy/model.py:154-158): D -> 128 -> relu
+    -> 1, returning (...,)."""
+    y = torch.relu(cm.linear(params["value_head"]["l1"], h))
+    return cm.linear_scalar(params["value_head"]["l2"], y)
 
 
 def train_losses(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor,

@@ -1,18 +1,22 @@
-"""The post-attention half of a training layer, fused: the counterpart of
+"""The post-attention half of a training layer, fused: the counterparts of
 the JAX package's ``ops/ffn_block.py`` ``attn_tail_block`` (Pallas bodies
-``_tail_fwd_kernel`` and ``_tail_bwd_kernel``).
+``_tail_fwd_kernel`` and ``_tail_bwd_kernel``) and ``ffn_block`` (``_fwd_kernel``
+and ``_bwd_kernel``).
 
-    out = LN2(h1 + drop3(W2 @ drop2(gelu(W1 @ h1 + b1)) + b2))
-    h1  = LN1(h_in + drop1(Wo @ a_pre + bo))
+    attn_tail_block:  out = LN2(h1 + FFN(h1)),  h1 = LN1(h_in + drop1(Wo @ a_pre + bo))
+    ffn_block:        out = LN2(h + FFN(h))
+    FFN(x) = drop3(W2 @ drop2(gelu(W1 @ x + b1)) + b2)
 
-Kernel D: ``csrc/attn_tail.cu`` (GEMM tiles and LayerNorm row kernels from
-``csrc/train_gemm.cuh``), hand-written CUDA for ``sm_90a``, built at first
+Kernel D: ``csrc/attn_tail.cu``; kernel G: ``csrc/ffn_block.cu``, which is
+kernel D without the Wo + LN1 head (the FFN half of both is
+``csrc/ffn_tail.cuh``; GEMM tiles and LayerNorm row kernels from
+``csrc/train_gemm.cuh``).  Hand-written CUDA for ``sm_90a``, built at first
 use (``_build.py``) and called through ctypes.  Every product, the
-elementwise steps (bias, exact-erf gelu, dropout, residual) and both
-LayerNorms run in the kernel's own code, forward and backward.  The
-backward saves only (h_in, a_pre) and the seed and recomputes the rest, as
-the TPU kernel does; weight gradients are row-split products added in a
-fixed order, so they are bit-reproducible.
+elementwise steps (bias, exact-erf gelu, dropout, residual) and the
+LayerNorms run in the kernels' own code, forward and backward.  The
+backward saves only the inputs ((h_in, a_pre) for D, h for G) and the seed
+and recomputes the rest, as the TPU kernels do; weight gradients are
+row-split products added in a fixed order, so they are bit-reproducible.
 
 Dropout.  The TPU kernel drew its masks from the on-core PRNG seeded per row
 tile, which the card cannot reproduce.  Here site s in {1, 2, 3} of element
@@ -27,12 +31,13 @@ gelu is the exact erf form (``erff`` in the kernel, ``torch.erf`` in the
 plain version); the JAX kernels use the A&S 7.1.26 erf polynomial, about
 1e-7 away.
 
-``attn_tail_block`` launches the kernel for CUDA tensors (counting forward
-and backward launches apart) and runs ``attn_tail_block_plain`` for CPU
-tensors; any other device raises.  The kernel takes contiguous float32
-(bfloat16 is not ported yet: ROADMAP) with widths that are multiples of 4
-and d_model <= 1024.  ``ffn_block`` (the post-LN1 half alone) is not
-ported yet (ROADMAP Queue 2).
+``attn_tail_block`` and ``ffn_block`` launch their kernel for CUDA tensors
+(counting forward and backward launches apart) and run their plain version
+(``attn_tail_block_plain``, ``ffn_block_plain``) for CPU tensors; any other
+device raises.  The kernels take contiguous float32 (bfloat16 is not
+ported yet: ROADMAP) with widths that are multiples of 4 and d_model <=
+1024, at any row count: the TPU kernels' row block (and its zero padding)
+has no counterpart.
 """
 
 from __future__ import annotations
@@ -64,44 +69,64 @@ def dropout_scale(seed: int, site: int, row0: int, n_rows: int, n_cols: int, p: 
     return (u >= p).to(torch.float32) * (1.0 / (1.0 - p))
 
 
+def _ffn_plain(h, w1, b1, w2, b2, ln_s, ln_b, seed: Seed, p: float,
+               mid_drop: bool) -> torch.Tensor:
+    """LN2(h + FFN(h)) in PyTorch ops, with the kernels' masks of sites 2
+    and 3 (site 2 only with ``mid_drop``)."""
+    n, d = h.shape
+    g = gelu_exact(h @ w1 + b1)
+    if p > 0.0 and mid_drop:
+        g = g * dropout_scale(seed, 2, 0, n, w1.shape[1], p, h.device)
+    x2 = g @ w2 + b2
+    if p > 0.0:
+        x2 = x2 * dropout_scale(seed, 3, 0, n, d, p, h.device)
+    return ln(h + x2, ln_s, ln_b)
+
+
 def attn_tail_block_plain(h_in, a_pre, wow, wob, ln1s, ln1b, w1, b1, w2, b2, ln2s, ln2b,
                           seed: Seed, p: float, mid_drop: bool = True) -> torch.Tensor:
     """The same function in PyTorch ops (autograd gives the backward), over
     all rows at once, with the kernel's dropout masks."""
     n, d = h_in.shape
-    di = w1.shape[1]
     p = float(p or 0.0)
-    mask = lambda site, cols: dropout_scale(seed, site, 0, n, cols, p, h_in.device)
     a = a_pre @ wow + wob
     if p > 0.0:
-        a = a * mask(1, d)
+        a = a * dropout_scale(seed, 1, 0, n, d, p, h_in.device)
     h1 = ln(h_in + a, ln1s, ln1b)
-    g = gelu_exact(h1 @ w1 + b1)
-    if p > 0.0 and mid_drop:
-        g = g * mask(2, di)
-    x2 = g @ w2 + b2
-    if p > 0.0:
-        x2 = x2 * mask(3, d)
-    return ln(h1 + x2, ln2s, ln2b)
+    return _ffn_plain(h1, w1, b1, w2, b2, ln2s, ln2b, seed, p, mid_drop)
 
 
-def _check(h_in, a_pre, ws) -> None:
-    n, d = h_in.shape
-    di = ws[4].shape[1]
-    if h_in.dtype == torch.bfloat16:
-        raise NotImplementedError("attn_tail_block: the bfloat16 kernel is not ported yet "
+def ffn_block_plain(h, w1, b1, w2, b2, ln_s, ln_b, seed: Seed, p: float) -> torch.Tensor:
+    """``ffn_block`` in PyTorch ops (autograd gives the backward), over all
+    rows at once, with kernel G's dropout masks (sites 2 and 3)."""
+    return _ffn_plain(h, w1, b1, w2, b2, ln_s, ln_b, seed, float(p or 0.0), True)
+
+
+def _ffn_shapes(d: int, di: int) -> list:
+    """The shapes of the FFN's six parameters (w1, b1, w2, b2, ln_scale,
+    ln_bias) at widths (d, di)."""
+    return [(d, di), (di,), (di, d), (d,), (d,), (d,)]
+
+
+def _check(kernel: str, inputs, ws, names, shapes) -> None:
+    """Raise unless ``inputs`` (name, tensor) are (N, D) and ``ws`` (named
+    ``names``) have ``shapes``, all contiguous float32 on one device, with
+    widths the kernel takes."""
+    h = inputs[0][1]
+    n, d = h.shape
+    di = shapes[-6][1]
+    if h.dtype == torch.bfloat16:
+        raise NotImplementedError(f"{kernel}: the bfloat16 kernel is not ported yet "
                                   "(ROADMAP Queue 2); the CUDA kernel takes float32")
-    expect = [(d, d), (d,), (d,), (d,), (d, di), (di,), (di, d), (d,), (d,), (d,)]
-    names = ("wo_w", "wo_b", "ln1_scale", "ln1_bias", "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b",
-             "ln2_scale", "ln2_bias")
-    for name, t in (("h_in", h_in), ("a_pre", a_pre)) + tuple(zip(names, ws)):
+    for name, t in tuple(inputs) + tuple(zip(names, ws)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {t.dtype} (the kernel takes float32)")
-        if t.device != h_in.device or not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous and on {h_in.device}")
-    if tuple(a_pre.shape) != (n, d):
-        raise ValueError(f"a_pre: shape {tuple(a_pre.shape)}, expected {(n, d)}")
-    for name, t, shape in zip(names, ws, expect):
+        if t.device != h.device or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous and on {h.device}")
+    for name, t in inputs[1:]:
+        if tuple(t.shape) != (n, d):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {(n, d)}")
+    for name, t, shape in zip(names, ws, shapes):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if d % 4 or di % 4 or d > MAX_D:
@@ -109,33 +134,57 @@ def _check(h_in, a_pre, ws) -> None:
                          f"and d_model <= {MAX_D}")
 
 
-_LIB: Optional[ctypes.CDLL] = None
+def _dropout_rate(p) -> float:
+    p = float(p or 0.0)
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout rate {p} outside [0, 1)")
+    return p
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("attn_tail")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rlmg_tail_scratch_floats.argtypes = [i, i, i, i]
-        lib.rlmg_tail_scratch_floats.restype = ctypes.c_longlong
-        lib.rlmg_attn_tail_fwd.argtypes = [p, p, p, p, p, p, f, f, i, i, i, i, p]
-        lib.rlmg_attn_tail_fwd.restype = i
-        lib.rlmg_attn_tail_bwd.argtypes = [p, p, p, p, p, p, p, f, f, i, i, i, i, p]
-        lib.rlmg_attn_tail_bwd.restype = i
-        lib.rlmg_error_string.argtypes = [i]
-        lib.rlmg_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def _seed_tensor(seed: Seed, device) -> torch.Tensor:
+    """The 0-d int32 seed on ``device`` that the kernel reads; an int seed is
+    a fill on the card, with no host-to-device copy per call."""
+    if torch.is_tensor(seed):
+        return seed.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(seed), dtype=torch.int32, device=device)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each library's C interface: symbol -> (argtypes, restype)
+_BINDINGS = {
+    "attn_tail": {                                              # kernel D
+        "rlmg_tail_scratch_floats": ([_I] * 4, ctypes.c_longlong),
+        "rlmg_attn_tail_fwd": ([_P] * 6 + [_F, _F] + [_I] * 4 + [_P], _I),
+        "rlmg_attn_tail_bwd": ([_P] * 7 + [_F, _F] + [_I] * 4 + [_P], _I),
+        "rlmg_error_string": ([_I], ctypes.c_char_p)},
+    "ffn_block": {                                              # kernel G
+        "rlmg_ffn_scratch_floats": ([_I] * 4, ctypes.c_longlong),
+        "rlmg_ffn_fwd": ([_P] * 5 + [_F, _F] + [_I] * 3 + [_P], _I),
+        "rlmg_ffn_bwd": ([_P] * 6 + [_F, _F] + [_I] * 3 + [_P], _I),
+        "rlmg_error_string": ([_I], ctypes.c_char_p)},
+}
+_LIBS: dict = {}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    """The library ``name`` of ``_BINDINGS``, built and bound at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        for sym, (args, res) in _BINDINGS[name].items():
+            fn = getattr(lib, sym)
+            fn.argtypes, fn.restype = args, res
+        lib = _LIBS.setdefault(name, lib)
+    return lib
 
 
 def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _raise_on(rc: int, what: str) -> None:
+def _raise_on(rc: int, what: str, name: str) -> None:
     if rc:
-        raise RuntimeError(f"attn_tail {what} kernel: {_lib().rlmg_error_string(rc).decode()}")
+        raise RuntimeError(f"{name} {what} kernel: {_lib(name).rlmg_error_string(rc).decode()}")
 
 
 def forward_kernel(h_in, a_pre, ws, seed: torch.Tensor, p: float,
@@ -145,7 +194,7 @@ def forward_kernel(h_in, a_pre, ws, seed: torch.Tensor, p: float,
     Not counted in ``launches_fwd`` (the wrapper counts)."""
     n, d = h_in.shape
     di = ws[4].shape[1]
-    lib = _lib()
+    lib = _lib("attn_tail")
     out = torch.empty_like(h_in)
     scratch = torch.empty(lib.rlmg_tail_scratch_floats(n, d, di, 0), dtype=torch.float32,
                           device=h_in.device)
@@ -154,7 +203,7 @@ def forward_kernel(h_in, a_pre, ws, seed: torch.Tensor, p: float,
                                     out.data_ptr(), scratch.data_ptr(), seed.data_ptr(), p,
                                     1.0 / (1.0 - p), int(mid_drop), n, d, di,
                                     torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "forward")
+    _raise_on(rc, "forward", "attn_tail")
     return out
 
 
@@ -165,7 +214,7 @@ def backward_kernel(h_in, a_pre, ws, dout, seed: torch.Tensor, p: float,
     counted in ``launches_bwd``."""
     n, d = h_in.shape
     di = ws[4].shape[1]
-    lib = _lib()
+    lib = _lib("attn_tail")
     grads = [torch.empty_like(h_in), torch.empty_like(a_pre)] + [torch.empty_like(w)
                                                                   for w in ws]
     scratch = torch.empty(lib.rlmg_tail_scratch_floats(n, d, di, 1), dtype=torch.float32,
@@ -175,7 +224,7 @@ def backward_kernel(h_in, a_pre, ws, dout, seed: torch.Tensor, p: float,
                                     dout.data_ptr(), _ptrs(grads), scratch.data_ptr(),
                                     seed.data_ptr(), p, 1.0 / (1.0 - p), int(mid_drop), n, d,
                                     di, torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "backward")
+    _raise_on(rc, "backward", "attn_tail")
     return grads
 
 
@@ -199,6 +248,10 @@ class _AttnTail(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+_TAIL_NAMES = ("wo_w", "wo_b", "ln1_scale", "ln1_bias", "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b",
+               "ln2_scale", "ln2_bias")
+
+
 def attn_tail_block(h_in, a_pre, wow, wob, ln1s, ln1b, w1, b1, w2, b2, ln2s, ln2b,
                     seed: Seed, p: float, mid_drop: bool = True) -> torch.Tensor:
     """(h_in, a_pre) (N, D) -> LN2(h1 + FFN-tail(h1)), h1 = LN1(h_in +
@@ -213,13 +266,95 @@ def attn_tail_block(h_in, a_pre, wow, wob, ln1s, ln1b, w1, b1, w2, b2, ln2s, ln2
     if h_in.device.type != "cuda":
         raise ValueError(f"attn_tail_block: no kernel for device {h_in.device}")
     ws = [wow, wob, ln1s, ln1b, w1, b1, w2, b2, ln2s, ln2b]
-    _check(h_in, a_pre, ws)
-    p = float(p or 0.0)
-    if not 0.0 <= p < 1.0:
-        raise ValueError(f"dropout rate {p} outside [0, 1)")
-    seed = torch.as_tensor(seed, dtype=torch.int32).to(h_in.device).reshape(())
-    return _AttnTail.apply(h_in, a_pre, *ws, seed, p, bool(mid_drop))
+    d = h_in.shape[-1]
+    _check("attn_tail_block", (("h_in", h_in), ("a_pre", a_pre)), ws, _TAIL_NAMES,
+           [(d, d), (d,), (d,), (d,)] + _ffn_shapes(d, w1.shape[-1]))
+    return _AttnTail.apply(h_in, a_pre, *ws, _seed_tensor(seed, h_in.device), _dropout_rate(p),
+                           bool(mid_drop))
 
 
 attn_tail_block.launches_fwd = 0
 attn_tail_block.launches_bwd = 0
+
+
+# -- kernel G: ffn_block -------------------------------------------------------
+
+def ffn_forward_kernel(h, ws, seed: torch.Tensor, p: float) -> torch.Tensor:
+    """One forward launch of kernel G on checked inputs (``ws``: w1, b1, w2,
+    b2, ln_scale, ln_bias; ``seed``: an int32 tensor on the card) -> out
+    (N, D).  Not counted in ``ffn_block.launches_fwd`` (the wrapper counts)."""
+    n, d = h.shape
+    di = ws[0].shape[1]
+    lib = _lib("ffn_block")
+    out = torch.empty_like(h)
+    scratch = torch.empty(lib.rlmg_ffn_scratch_floats(n, d, di, 0), dtype=torch.float32,
+                          device=h.device)
+    with torch.cuda.device(h.device):
+        rc = lib.rlmg_ffn_fwd(h.data_ptr(), _ptrs(ws), out.data_ptr(), scratch.data_ptr(),
+                              seed.data_ptr(), p, 1.0 / (1.0 - p), n, d, di,
+                              torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "forward", "ffn_block")
+    return out
+
+
+def ffn_backward_kernel(h, ws, dout, seed: torch.Tensor, p: float) -> list:
+    """One backward launch of kernel G (recomputing the forward from h and
+    the seed) -> the seven gradients [dh, dw1, db1, dw2, db2, dln_scale,
+    dln_bias].  Not counted in ``ffn_block.launches_bwd``."""
+    n, d = h.shape
+    di = ws[0].shape[1]
+    lib = _lib("ffn_block")
+    grads = [torch.empty_like(h)] + [torch.empty_like(w) for w in ws]
+    scratch = torch.empty(lib.rlmg_ffn_scratch_floats(n, d, di, 1), dtype=torch.float32,
+                          device=h.device)
+    with torch.cuda.device(h.device):
+        rc = lib.rlmg_ffn_bwd(h.data_ptr(), _ptrs(ws), dout.data_ptr(), _ptrs(grads),
+                              scratch.data_ptr(), seed.data_ptr(), p, 1.0 / (1.0 - p), n, d, di,
+                              torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "backward", "ffn_block")
+    return grads
+
+
+class _Ffn(torch.autograd.Function):
+    """Kernel G forward and backward; saves h, the parameters and the seed
+    (nothing of the forward's intermediates: the backward recomputes them,
+    as the TPU kernel's ``_ffn_bwd`` does)."""
+
+    @staticmethod
+    def forward(ctx, h, w1, b1, w2, b2, ln_s, ln_b, seed, p: float):
+        ws = [w1, b1, w2, b2, ln_s, ln_b]
+        out = ffn_forward_kernel(h, ws, seed, p)
+        ffn_block.launches_fwd += 1
+        ctx.save_for_backward(h, *ws, seed)
+        ctx.p = p
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        h, *ws, seed = ctx.saved_tensors
+        grads = ffn_backward_kernel(h, ws, dout.contiguous(), seed, ctx.p)
+        ffn_block.launches_bwd += 1
+        return (*grads, None, None)
+
+
+_FFN_NAMES = ("ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b", "ln2_scale", "ln2_bias")
+
+
+def ffn_block(h, w1, b1, w2, b2, ln_s, ln_b, seed: Seed, p: float) -> torch.Tensor:
+    """h (N, D) -> LN(h + drop3(W2 @ drop2(gelu(W1 @ h + b1)) + b2)), fully
+    fused (kernel G).  ``seed``: an int or an int32 tensor (read by the
+    kernel on the card, no host sync); ``p`` the dropout rate (0: none).
+    Any N: the TPU kernel's ``block`` (row padding) has no counterpart.
+    Differentiable in h and the six parameters."""
+    if h.device.type == "cpu":
+        return ffn_block_plain(h, w1, b1, w2, b2, ln_s, ln_b, seed, p)
+    if h.device.type != "cuda":
+        raise ValueError(f"ffn_block: no kernel for device {h.device}")
+    ws = [w1, b1, w2, b2, ln_s, ln_b]
+    d = h.shape[-1]
+    _check("ffn_block", (("h", h),), ws, _FFN_NAMES, _ffn_shapes(d, w1.shape[-1]))
+    return _Ffn.apply(h, *ws, _seed_tensor(seed, h.device), _dropout_rate(p))
+
+
+ffn_block.launches_fwd = 0
+ffn_block.launches_bwd = 0

@@ -47,6 +47,14 @@ def expert_field_specs(n_states=50, n_actions=25, n_features=6) -> Dict[str, Tup
     return specs
 
 
+def ppo_field_specs(n_states=50, n_actions=25, n_features=6) -> Dict[str, Tuple]:
+    """PPO adds the value and the per-action log-probs (ppo_train.py:71-79)."""
+    specs = agent_field_specs(n_states, n_actions, n_features)
+    specs["value"] = ((1,), torch.float32)
+    specs["log_action"] = ((n_actions, n_features), torch.float32)
+    return specs
+
+
 def buffer_init(capacity: int, specs: Dict[str, Tuple], device="cuda") -> ReplayBuffer:
     data = {k: torch.zeros((capacity,) + tuple(shape), dtype=dtype, device=device)
             for k, (shape, dtype) in specs.items()}

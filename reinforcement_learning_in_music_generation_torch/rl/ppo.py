@@ -1,0 +1,206 @@
+"""PPO with a learned reward: the counterpart of the JAX package's
+``rl/ppo.py`` (reference: ppo_policy/ppo_train.py:217-528).
+
+The actor is a linear transformer with a value head, the critic a trunk
+with per-field value heads (``models/critic.py``), the reward a window-
+transformer eval model (``models/longformer.py eval_score``).  A song's
+rollout is 30 episodes of choose_action / critic value / learned reward;
+then discounted returns, advantages = returns - values, and 10 clipped-
+surrogate steps with a CE-vs-expert auxiliary loss and a critic MSE.
+
+As in the JAX package, returns accumulate in reverse order by default;
+``PPOConfig.compat_forward_returns`` restores the reference's forward order.
+Returns and advantages are normalised with the population std (ddof 0,
+``jnp.std``'s).  The rollout stores the post-step state as ``state``, as
+the reference does (ppo_train.py:487, 494).
+
+The optimizer adds its updates in place: ``update_policy_step`` updates the
+actor's and the critic's trees (two separate trees, never sharing storage)
+and returns the state with them.  The rollout's transitions are new tensors
+and the losses read them detached, so an update never changes them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import LinearTransformerConfig, PPOConfig, WindowTransformerConfig
+from ..models import critic as critic_lib
+from ..models import linear_transformer as lt
+from ..models import longformer as lf
+from ..train import optim
+from .env import _windows
+
+
+class PPOState(NamedTuple):
+    actor_params: dict
+    critic_params: dict
+    reward_params: dict
+    actor_opt: optim.AdamState
+    critic_opt: optim.AdamState
+
+
+def make_optimizers(cfg: PPOConfig) -> Tuple[optim.Adam, optim.Adam]:
+    return optim.adam(cfg.lr), optim.adam(cfg.lr)
+
+
+def init_state(actor_cfg: LinearTransformerConfig, critic_cfg: LinearTransformerConfig,
+               reward_cfg: WindowTransformerConfig, cfg: PPOConfig, *,
+               actor_params: Optional[dict] = None, reward_params: Optional[dict] = None,
+               seed: int = 0, device="cuda") -> PPOState:
+    """Actor and reward params as given or random; the critic random.  The
+    three draws use seeds seed, seed + 1 and seed + 2."""
+    actor_params = actor_params or lt.init_params(actor_cfg, seed=seed, device=device)
+    critic_params = critic_lib.init_params(critic_cfg, seed=seed + 1, device=device)
+    reward_params = reward_params or lf.init_params(reward_cfg, seed=seed + 2, device=device)
+    atx, ctx = make_optimizers(cfg)
+    return PPOState(actor_params, critic_params, reward_params, atx.init(actor_params),
+                    ctx.init(critic_params))
+
+
+def _policy_logprobs(logits, n_actions: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-field argmax actions over the last n_actions positions and their
+    log-probs (ppo_train.py:251-290 choose_action, fixed indexing) ->
+    (actions (B, n_actions, F) int32, logp (B, n_actions, F))."""
+    actions, logps = [], []
+    for lg in logits:
+        window = torch.log_softmax(lg[:, -n_actions:, :], dim=-1)
+        act = window.argmax(dim=-1)
+        actions.append(act)
+        logps.append(torch.gather(window, -1, act[..., None])[..., 0])
+    return torch.stack(actions, dim=-1).to(torch.int32), torch.stack(logps, dim=-1)
+
+
+@torch.no_grad()
+def choose_action(actor_params: dict, acfg: LinearTransformerConfig, state: torch.Tensor,
+                  n_actions: int = 25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """state (B, S, F) -> (actions, log-probs), each (B, n_actions, F)."""
+    h = lt.forward_hidden(actor_params, acfg, state, deterministic=True)
+    return _policy_logprobs(lt.forward_output(actor_params, acfg, h), n_actions)
+
+
+@torch.no_grad()
+def rollout_song(state: PPOState, state_cfgs, song_x: torch.Tensor, expert_y: torch.Tensor,
+                 song_mask: torch.Tensor, *, episodes: int = 30, n_states: int = 50,
+                 n_actions: int = 25) -> Tuple[Dict, Dict]:
+    """One song's rollout (ppo_train.py:460-497) -> (agent, expert)
+    transitions, each stacked (episodes, ...).  A loop of episodes on the
+    device: nothing waits for the host.  Expert and mask windows start at
+    the episode number (clamped into the song, as ``lax.dynamic_slice_in_dim``
+    clamps); the next state's mask starts one later, the reference's
+    offset."""
+    acfg, ccfg, rcfg = state_cfgs
+    dev = song_x.device
+    num = torch.arange(episodes, device=dev)
+    mask_state = _windows(song_mask, num, n_states).to(torch.float32)
+    cur = song_x[:n_states].to(torch.int32)
+    nexts, actions, logps, values, rewards = [], [], [], [], []
+    for i in range(episodes):
+        action, logp = choose_action(state.actor_params, acfg, cur[None], n_actions=n_actions)
+        next_state = torch.cat([cur[:n_actions], action[0]], dim=0)
+        values.append(critic_lib.value_produce(state.critic_params, ccfg, next_state[None]))
+        rewards.append(lf.eval_score(state.reward_params, rcfg, next_state[None],
+                                     mask_state[i][None])[0])
+        nexts.append(next_state)
+        actions.append(action[0])
+        logps.append(logp[0])
+        cur = next_state
+    next_states, action = torch.stack(nexts), torch.stack(actions)
+    col = lambda v, dt: torch.full((episodes, 1), v, dtype=dt, device=dev)
+    agent_t = {"state": next_states, "action": action, "log_action": torch.stack(logps),
+               "value": torch.stack(values), "reward": torch.stack(rewards),
+               "next_state": next_states, "done": col(0, torch.int32)}
+    expert_t = {"state": _windows(expert_y, num, n_states).to(torch.int32), "action": action,
+                "reward": col(1.0, torch.float32),
+                "next_state": _windows(expert_y, num + n_states, n_states).to(torch.int32),
+                "done": col(0, torch.int32), "mask_state": mask_state,
+                "mask_next_state": _windows(song_mask, num + 1, n_states).to(torch.float32)}
+    return agent_t, expert_t
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / (std + 1e-8), the population std (``jnp.std``, ddof 0)."""
+    return (x - x.mean()) / (x.std(correction=0) + 1e-8)
+
+
+def calculate_returns(rewards: torch.Tensor, discount: float, *, normalize: bool = True,
+                      compat_forward: bool = False) -> torch.Tensor:
+    """Discounted returns (ppo_train.py:348-357) -> (T, 1).
+
+    Standard: R_t = r_t + discount R_{t+1} (reverse accumulation).  The
+    reference accumulates in forward order and inserts each sum at the
+    front: ``compat_forward=True`` reproduces it.  The sums run in the JAX
+    scan's order, on the device."""
+    r = rewards.reshape(-1)
+    n = r.shape[0]
+    acc = torch.zeros((), dtype=r.dtype, device=r.device)
+    out = []
+    for i in (range(n) if compat_forward else range(n - 1, -1, -1)):
+        acc = r[i] + acc * discount
+        out.append(acc)
+    # reverse order: out[j] is R_{n-1-j}; forward order: the reference's
+    # insert(0, .) reverses the sums
+    returns = torch.stack(out).flip(0).reshape(-1, 1)
+    return _normalize(returns) if normalize else returns
+
+
+def calculate_advantages(returns: torch.Tensor, values: torch.Tensor, *,
+                         normalize: bool = True) -> torch.Tensor:
+    adv = returns - values
+    return _normalize(adv) if normalize else adv
+
+
+def update_policy_step(state: PPOState, state_cfgs, cfg: PPOConfig, txs, agent_all: dict,
+                       expert_all: dict, advantages: torch.Tensor,
+                       returns: torch.Tensor) -> Tuple[PPOState, dict]:
+    """One clipped-surrogate actor update and one critic MSE update
+    (ppo_train.py:380-412) -> (state', {"actor_loss", "policy_loss",
+    "value_loss"} as 0-d device tensors).  Updates both trees in place."""
+    acfg, ccfg, _ = state_cfgs
+    atx, ctx = txs
+    old_logp = agent_all["log_action"].detach()                 # (N, n_act, F)
+    adv = advantages.detach()[:, :, None]                        # (N, 1, 1)
+    returns = returns.detach()
+    states = agent_all["state"]
+
+    def actor_loss_fn(ap):
+        h = lt.forward_hidden(ap, acfg, states, deterministic=True)
+        _, new_logp = _policy_logprobs(lt.forward_output(ap, acfg, h), cfg.n_actions)
+        ratio = torch.exp(new_logp - old_logp)
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1.0 - cfg.ppo_clip, 1.0 + cfg.ppo_clip) * adv
+        policy_loss = -torch.mean(torch.minimum(surr1, surr2))
+        ce = lt.train_losses(ap, acfg, states, expert_all["state"], expert_all["mask_state"],
+                             deterministic=True)
+        return policy_loss + torch.mean(ce), policy_loss
+
+    def critic_loss_fn(cp):
+        values = critic_lib.value_produce(cp, ccfg, states)[:, None]
+        return torch.mean((returns - values) ** 2), None
+
+    a_loss, p_loss, a_grads = optim.value_and_grad(actor_loss_fn, state.actor_params)
+    v_loss, _, c_grads = optim.value_and_grad(critic_loss_fn, state.critic_params)
+    a_up, actor_opt = atx.update(a_grads, state.actor_opt, state.actor_params)
+    optim.apply_updates(state.actor_params, a_up)
+    c_up, critic_opt = ctx.update(c_grads, state.critic_opt, state.critic_params)
+    optim.apply_updates(state.critic_params, c_up)
+    new_state = PPOState(state.actor_params, state.critic_params, state.reward_params,
+                         actor_opt, critic_opt)
+    return new_state, {"actor_loss": a_loss.detach(), "policy_loss": p_loss.detach(),
+                       "value_loss": v_loss.detach()}
+
+
+def update_policy(state: PPOState, state_cfgs, cfg: PPOConfig, txs, agent_all: dict,
+                  expert_all: dict, advantages: torch.Tensor,
+                  returns: torch.Tensor) -> Tuple[PPOState, dict]:
+    """cfg.ppo_steps updates (ppo_train.py:365-417) -> (state', the mean of
+    each metric over the steps, 0-d device tensors: nothing is read on the
+    host here)."""
+    steps = []
+    for _ in range(cfg.ppo_steps):
+        state, metrics = update_policy_step(state, state_cfgs, cfg, txs, agent_all, expert_all,
+                                            advantages, returns)
+        steps.append(metrics)
+    return state, {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's training steps, on one GPU.
 
-    python3 scripts/profile_torch_train.py [--model agent|discrim|dqn] [--route NAME|all]
+    python3 scripts/profile_torch_train.py [--model agent|discrim|dqn|ppo] [--route NAME|all]
                                            [--out build/profile]
 
 ``--model agent`` (the default): the flagship ``config.agent_config``, B=32 x
@@ -18,8 +18,15 @@ tail), ``plain`` RLMG_FFN_BACKEND=xla.  ``--model dqn``: the DQN agent at
 episodes, each a (1, 50)-row forward, ``rl.env.dqn_rollout_song``) and one
 ``rl.dqn.update`` at B=30 x S=50 (``DQNConfig``'s batch); ``default`` is the
 plain composition (the JAX rule at 1500 rows), ``kernel``
-RLMG_ATTN_BACKEND=pallas (kernel F in every layer).  Random weights from a
-seed, synthetic CP rows (seed 0), dropout 0.1 as the CLIs train.
+RLMG_ATTN_BACKEND=pallas (kernel F in every layer).  ``--model ppo``: the
+PPO actor and critic at ``actor_config`` / ``critic_config`` (12 layers),
+the reward model ``ppo_reward_config`` at 10, two windows per route: one
+rollout song (``rl.ppo.rollout_song``, 30 episodes of an actor, a critic
+and a reward forward on one 50-row state) and one ``rl.ppo.update_policy``
+(10 steps at B=30 x S=50); ``default`` is the plain composition, ``kernel``
+RLMG_FFN_BACKEND=pallas (kernel G in every actor and critic layer).  Random
+weights from a seed, synthetic CP rows (seed 0), dropout 0.1 as the CLIs
+train (PPO's forwards are deterministic, as in the reference).
 
 Each window runs once untraced first (kernels built, allocator warm), then
 under torch.profiler.  For each it prints the wall time, the summed device
@@ -46,7 +53,7 @@ from reinforcement_learning_in_music_generation_torch.data import dataset  # noq
 from reinforcement_learning_in_music_generation_torch.models import (  # noqa: E402
     linear_transformer as lt, longformer as lf)
 from reinforcement_learning_in_music_generation_torch.ops import _build  # noqa: E402
-from reinforcement_learning_in_music_generation_torch.rl import dqn, env  # noqa: E402
+from reinforcement_learning_in_music_generation_torch.rl import dqn, env, ppo  # noqa: E402
 from reinforcement_learning_in_music_generation_torch.train import (  # noqa: E402
     optim, pretrain)
 
@@ -65,6 +72,8 @@ MODELS = {
                             "plain": {"RLMG_FFN_BACKEND": "xla"}}),
     "dqn": dict(batch=30, seq=50, cfg=lambda: C.agent_config(DISCRIM_VOCAB),
                 routes={"default": {}, "kernel": {"RLMG_ATTN_BACKEND": "pallas"}}),
+    "ppo": dict(batch=30, seq=50, cfg=C.actor_config,
+                routes={"default": {}, "kernel": {"RLMG_FFN_BACKEND": "pallas"}}),
 }
 STEPS = 2
 
@@ -101,7 +110,7 @@ def main():
     ap.add_argument("--model", default="agent", choices=tuple(MODELS))
     ap.add_argument("--route", default="all",
                     help="a route of the model (agent: kernel, plain; discrim: kernel, "
-                         "window, plain; dqn: default, kernel) or all")
+                         "window, plain; dqn and ppo: default, kernel) or all")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
     model = MODELS[args.model]
@@ -120,7 +129,7 @@ def main():
     cfg = model["cfg"]()
     b, s = model["batch"], model["seq"]
     dev = torch.device("cuda")
-    song_len = 512 if args.model == "dqn" else s     # a rollout slides over a whole song
+    song_len = 512 if args.model in ("dqn", "ppo") else s   # a rollout slides over a song
     x, y, m = (torch.from_numpy(a).to(dev) for a in
                dataset.synthetic_cp_dataset(b, song_len, n_class=cfg.vocab_sizes, seed=0))
     res = []
@@ -128,8 +137,9 @@ def main():
         for k in KNOBS:
             os.environ.pop(k, None)
         os.environ.update(model["routes"][route])
-        if args.model == "dqn":
-            res += profile_dqn(route, cfg, x, y, m, b, s, args.out)
+        if args.model in ("dqn", "ppo"):
+            fn = profile_dqn if args.model == "dqn" else profile_ppo
+            res += fn(route, cfg, x, y, m, b, s, args.out)
             continue
         params = model["init"](cfg, seed=0, device=dev)
         tx = optim.adam(1e-4, grad_clip=3.0)
@@ -170,6 +180,34 @@ def profile_dqn(route, cfg, x, y, m, b, s, out_dir):
         state[0], _ = dqn.update(state[0], cfg, dcfg, tx, batch, ebatch, gen)
 
     out.append(profile(f"dqn_{route}_update_B{b}_S{s}", update, out_dir, b * s, steps=1))
+    del state[0]
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_ppo(route, acfg, x, y, m, b, s, out_dir):
+    """One PPO rollout song and one update_policy on the current route."""
+    pcfg = C.PPOConfig()
+    cfgs = (acfg, C.critic_config(acfg.vocab_sizes),
+            C.ppo_reward_config(acfg.vocab_sizes, n_layer=10))
+    state = [ppo.init_state(*cfgs, pcfg, seed=0, device=x.device)]
+    txs = ppo.make_optimizers(pcfg)
+
+    def rollout():
+        return ppo.rollout_song(state[0], cfgs, x[0], y[0], m[0], episodes=pcfg.episodes,
+                                n_states=s, n_actions=pcfg.n_actions)
+
+    out = [profile(f"ppo_{route}_rollout_song", rollout, out_dir, pcfg.episodes * s, steps=1)]
+    agent_t, expert_t = rollout()
+    returns = ppo.calculate_returns(agent_t["reward"][:, 0], pcfg.discount)
+    adv = ppo.calculate_advantages(returns, agent_t["value"])
+
+    def update():
+        state[0], _ = ppo.update_policy(state[0], cfgs, pcfg, txs, agent_t, expert_t, adv,
+                                        returns)
+
+    out.append(profile(f"ppo_{route}_update_policy_B{b}_S{s}", update, out_dir,
+                       pcfg.ppo_steps * b * s, steps=pcfg.ppo_steps))
     del state[0]
     torch.cuda.empty_cache()
     return out

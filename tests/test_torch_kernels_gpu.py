@@ -356,3 +356,54 @@ def test_causal_product_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tlk.causal_product(y, y, y)
     with pytest.raises(ValueError, match="as wide"):
         tlk.causal_product(x, x, x[..., :32])
+
+
+def _ffn_inputs(dev, n, d, di, seed=8):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda *shape, sc=1.0: torch.randn(shape, generator=gen, device=dev) * sc
+    inputs = (rnd(n, d), rnd(d, di, sc=0.2), rnd(di, sc=0.1), rnd(di, d, sc=0.1),
+              rnd(d, sc=0.1), 1 + rnd(d, sc=0.1), rnd(d, sc=0.1))
+    return inputs, rnd(n, d)
+
+
+# rows: one rollout state (50) and ragged counts (100, 300) for the 128-row tiles
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [50, 100, 300])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_ffn_block_kernel_matches_plain(dev, n, p):
+    inputs, g = _ffn_inputs(dev, n, 64, 256)
+    seed = torch.tensor(31337, dtype=torch.int32, device=dev)
+    before = (tfb.ffn_block.launches_fwd, tfb.ffn_block.launches_bwd)
+    ok, gk = _fwd_bwd(lambda *a: tfb.ffn_block(*a, seed, p), inputs, g)
+    op, gp = _fwd_bwd(lambda *a: tfb.ffn_block_plain(*a, seed, p), inputs, g)
+    assert (tfb.ffn_block.launches_fwd, tfb.ffn_block.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    _close(ok, op, 1e-4, "out")
+    for name, x, y in zip(("dh", "dw1", "db1", "dw2", "db2", "dln_s", "dln_b"), gk, gp):
+        assert torch.isfinite(x).all(), name
+        _close(x, y, 1e-3, name)
+
+
+@pytest.mark.gpu
+def test_ffn_block_kernel_is_deterministic(dev):
+    """No atomics: two backward launches give bit-equal gradients."""
+    (h, *ws), dout = _ffn_inputs(dev, 1000, 64, 128, seed=9)
+    seed = torch.tensor(9, dtype=torch.int32, device=dev)
+    g1 = tfb.ffn_backward_kernel(h, ws, dout, seed, 0.1)
+    g2 = tfb.ffn_backward_kernel(h, ws, dout, seed, 0.1)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+@pytest.mark.gpu
+def test_ffn_block_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    (h, *ws), _ = _ffn_inputs(dev, 40, 32, 64)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tfb.ffn_block(h.bfloat16(), *[w.bfloat16() for w in ws], 0, 0.0)
+    (hw, *wide), _ = _ffn_inputs(dev, 8, 1028, 64)
+    with pytest.raises(ValueError, match="d_model"):
+        tfb.ffn_block(hw, *wide, 0, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfb.ffn_block(h, ws[0].T.contiguous().T, *ws[1:], 0, 0.0)
+    with pytest.raises(ValueError, match="shape"):
+        tfb.ffn_block(h, ws[0], ws[1][:32].contiguous(), *ws[2:], 0, 0.0)

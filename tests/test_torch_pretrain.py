@@ -131,10 +131,14 @@ def test_qkv_route_follows_the_jax_rule_only(monkeypatch):
 def test_unported_options_raise(monkeypatch, jparams, batch):
     x, y, m = batch
     tp = tw.from_jax_params(jparams, device="cpu")
+    # RLMG_FFN_BACKEND=pallas is ported (kernel G; its plain twin on CPU
+    # tensors): the JAX ffn_block route, run in interpret mode, to 1e-4
     monkeypatch.setenv("RLMG_FFN_BACKEND", "pallas")
+    monkeypatch.setenv("RLMG_FFN_INTERPRET", "1")
     monkeypatch.setenv("RLMG_ATTN_BACKEND", "xla")
-    with pytest.raises(NotImplementedError, match="ffn_block"):
-        tlt.forward_hidden(tp, TCFG, _t(x))
+    np.testing.assert_allclose(tlt.forward_hidden(tp, TCFG, _t(x)).numpy(),
+                               np.asarray(lt.forward_hidden(jparams, CFG, jnp.asarray(x))),
+                               rtol=1e-4, atol=1e-4)
     # RLMG_ATTN_BACKEND=pallas is ported (kernel F; its plain twin on CPU
     # tensors, the same chunked core as xla)
     monkeypatch.setenv("RLMG_FFN_BACKEND", "xla")

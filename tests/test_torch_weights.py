@@ -196,6 +196,10 @@ def test_port_imports_no_jax():
     pkg = os.path.join(root, "reinforcement_learning_in_music_generation_torch")
     for d, _, names in os.walk(pkg):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    rel = {os.path.relpath(f, pkg) for f in files}
+    # the RL modules and kernels of the later slices are among those walked
+    assert {"rl/ppo.py", "rl/dqn.py", "models/critic.py", "data/events.py",
+            "ops/ffn_block.py", "ops/linear_attention_kernel.py"} <= rel
     for path in files:
         with open(path) as f:
             for i, line in enumerate(f, 1):
