@@ -23,9 +23,10 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
        equal: the fed-back streams part only after a near-tie); its heads +
        sample pass on fixed h against the plain version with the same seed
        (>= 99% of tokens equal: they differ only at near-ties);
-  3. runs ``apps/cli.py generate`` end to end twice, 5 songs (the per-step
-     v4 path) and 128 songs (the chunked v6 path), checks the MIDI files
-     and fails if a kernel of the path was launched no time;
+  3. runs ``apps/cli.py generate`` end to end twice (bf16 weights, its
+     default), 5 songs (the per-step v4 path) and 128 songs (the chunked v6
+     path), checks the MIDI files and fails if a kernel of the path was
+     launched no time;
   4. holds the two training kernels against their plain versions at the
      pretrain slice's shapes (B=32 x S=512 rows, flagship width, f32,
      TF32 off): qkv_attention_block (kernel C) forward within 1e-4 of the
@@ -117,7 +118,23 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      and F's 0, every loss finite;
  20. runs ``apps/cli.py inference`` (the actor at full width, 150 tokens)
      and checks the MIDI file holds 150 notes;
- 21. times each kernel and its plain version at the main paths' shapes
+ 21. holds the latency kernels (csrc/latency_decode.cu: v8, one launch a
+     chunk, and v7, one a layer) against their plain twin (kernel B's plain
+     chunk) at B=1, 5 and 16, 32 teacher-forced tokens, greedy and CP
+     sampling with one seed: >= 99% of the tokens equal, with f32 weights
+     and state (state within 1e-4 of its magnitude) and with bf16 weights
+     and state; v7 and v8 bit-equal there and on whole 32-token calls; v8's
+     64 tokens in one call equal 2 x 32; a batch of 17 refused;
+ 22. runs ``apps/cli.py generate`` (8 bars, the bf16 default) with 1 and 5
+     songs on the per-step path and under RLMG_LATENCY_DECODE=1 on v8 and
+     (RLMG_LATENCY_KERNEL=v7) v7: MIDI files and runtime_stats.json
+     written, only the route's kernel launched; prints tokens/s of each;
+ 23. generates 64 tokens after a 100-token prompt (the parallel prefill)
+     on the per-step (5 songs), chunked (128) and v8 (5) paths, and holds
+     forward_prefill's state against 100 decode steps (1e-3 of magnitude);
+ 24. times v8, v7, the plain twin and kernel A per token at B=1, 5 and 16
+     (bf16 weights and state) beside the bound;
+ 25. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
      beside the library call.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -231,10 +248,13 @@ def qkv_attention_work(n, d, h, n_seq, tile=64):
 
 def attn_tail_work(n, d, di):
     """(forward, backward) operations and bytes of attn_tail_block: the
-    backward recomputes the forward and takes two products per weight."""
+    backward takes two products per weight, 2x the forward's operations
+    (what the gradients need; kernel D's recomputed forward, one forward
+    more, is its design's extra cost and is printed beside the bound, as
+    G's in ffn_work)."""
     w = 4 * (d * d + 2 * d * di + 7 * d + di)
     f_ops = 2 * n * (d * d + 2 * d * di)
-    return (f_ops, 4 * 3 * n * d + w), (3 * f_ops, 4 * 5 * n * d + 2 * w)
+    return (f_ops, 4 * 3 * n * d + w), (2 * f_ops, 4 * 5 * n * d + 2 * w)
 
 
 def causal_product_work(b, h, s, e, chunk=128):
@@ -273,6 +293,29 @@ def ffn_work(n, d, di):
     w = 4 * (2 * d * di + di + 3 * d)
     f_ops = 4 * n * d * di
     return (f_ops, 4 * 2 * n * d + w), (2 * f_ops, 4 * 3 * n * d + 2 * w)
+
+
+def latency_state_bytes(b, L, d, h, *, s_bytes):
+    """Bytes of reading and writing the decode state (S and z of every
+    layer, song and head) once."""
+    e = d // h
+    return 2 * s_bytes * L * b * h * (e * e + e)
+
+
+def latency_work(b, T, L, d, di, h, *, w_bytes, s_bytes, nf=FIELDS, vf=256):
+    """(operations, bytes) of a T-token latency-decode chunk of B songs, the
+    function v8 and v7 both compute: 2 B (L (4 D^2 + 2 D DI) + D NF VF_PAD)
+    operations a token; bytes the weights once a token (layer stack and
+    padded heads in their stored type, the f32 head bias and final LN), the
+    state read and written once a chunk, and each token's pe row and B x NF
+    ids.  v7 streams the state every token: that is its design's cost, not
+    the function's (``latency_state_bytes`` a token, printed beside)."""
+    w = L * (4 * d * d + 2 * d * di) + d * nf * vf
+    small = L * (9 * d + di)                     # the layers' biases and LN, stored type
+    ops = T * 2 * b * w
+    nbytes_ = (T * (w_bytes * (w + small) + 4 * (nf * vf + 2 * d + d + 2 * b * nf))
+               + latency_state_bytes(b, L, d, h, s_bytes=s_bytes))
+    return ops, nbytes_
 
 
 def window_work(b, h, s, d, w, mask):
@@ -386,6 +429,231 @@ def check_step(tag, out_k, out_p, zero_grads=()) -> None:
     check(u_worst[0] <= 1e-3, f"{tag}: update of {u_worst[1]} differs by {u_worst[0]}")
 
 
+def latency_slice(cfg, params, dev, gen) -> list:
+    """Phases 21-24: the latency kernels (v8 and v7 of csrc/latency_decode.cu)
+    against their plain twin, ``cli generate`` on the latency path, the
+    prompt prefill on the card, and the kernels' times.  Returns the two
+    entries of the kernels line."""
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.apps import cli
+    from reinforcement_learning_in_music_generation_torch.generate import sampler
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        decode_kernel_v4 as dk4, decode_kernel_v6 as dk6, sampling as smp)
+    from reinforcement_learning_in_music_generation_torch.ops.experimental import (
+        decode_kernel_v7 as dk7, decode_kernel_v8 as dk8)
+    L, D, H, E, DI = cfg.n_layer, cfg.d_model, cfg.n_head, cfg.d_head, cfg.d_inner
+    f32, bf16 = torch.float32, torch.bfloat16
+    kern = {7: dk7.fused_decode_v7, 8: dk8.fused_decode_v8}
+    rp = {f32: dk8.make_resident_params(params, cfg),
+          bf16: dk8.make_resident_params(params, cfg, dtype=bf16)}
+    cp = dict(temps=tuple(s.temperature for s in smp.CP_SAMPLING),
+              topps=tuple(s.top_p if s.top_p is not None else float("inf")
+                          for s in smp.CP_SAMPLING))
+    modes = {True: dict(temps=(1.0,) * FIELDS, topps=(float("inf"),) * FIELDS), False: cp}
+
+    def rand_tokens(steps, b):
+        return torch.stack([torch.randint(0, v, (steps, b), generator=gen, device=dev)
+                            for v in cfg.vocab_sizes], dim=-1).to(torch.int32)
+
+    def kw(greedy):
+        return dict(n_head=H, vocab_sizes=cfg.vocab_sizes, greedy=greedy, eps=cfg.attn_eps,
+                    **modes[greedy])
+
+    def plain(rp_, tok, st, t0, seed, n, greedy):
+        k = kw(greedy)
+        k.pop("vocab_sizes")
+        return dk6.fused_decode_v6_plain(rp_, tok, st.s, st.z, t0, seed, max_tokens=n, **k)[0]
+
+    # -- 21. both kernels against the plain twin, teacher-forced, 32 tokens --
+    errs = {}
+    for wdt, sdt in ((f32, f32), (bf16, bf16)):
+        for b in (1, 5, 16):
+            toks = rand_tokens(32, b)
+            for greedy in (True, False):
+                st = {v: dk4.init_state(cfg, b, sdt, dev) for v in (7, 8, 0)}
+                agree, total = {7: 0, 8: 0}, 32 * b * FIELDS
+                for t in range(32):
+                    out = {v: kern[v](rp[wdt], toks[t], st[v].s, st[v].z, t, 5, max_tokens=1,
+                                      **kw(greedy))[0] for v in (7, 8)}
+                    op = plain(rp[wdt], toks[t], st[0], t, 5, 1, greedy)
+                    check(torch.equal(out[7], out[8]), f"latency v7 != v8 at token {t}")
+                    for v in (7, 8):
+                        agree[v] += (out[v] == op).sum().item()
+                torch.cuda.synchronize()
+                check(torch.equal(st[7].s, st[8].s) and torch.equal(st[7].z, st[8].z),
+                      "latency v7 and v8 states differ")
+                ds = (st[8].s.float() - st[0].s.float()).abs().max().item()
+                mag = st[0].s.float().abs().max().item()
+                tag = (f"B={b} weights {str(wdt)[6:]} state {str(sdt)[6:]} "
+                       f"{'greedy' if greedy else 'CP sampling'}")
+                print(f"[latency] {tag}: teacher-forced agreement with the plain twin v8 "
+                      f"{agree[8] / total:.4%}, v7 {agree[7] / total:.4%} (v7 == v8 bit for "
+                      f"bit); max|ds| {ds:.3e} (max|s| {mag:.3e})", flush=True)
+                for v in (7, 8):
+                    check(agree[v] / total >= 0.99, f"latency v{v} {tag}: agreement "
+                                                    f"{agree[v] / total} < 99%")
+                if sdt == f32:
+                    check(ds <= 1e-4 * max(1.0, mag), f"latency {tag}: max|ds| {ds}")
+                    errs[b] = max(errs.get(b, 0.0), ds)
+    tok0 = rand_tokens(1, 5)[0]
+    for greedy in (True, False):            # whole fed-back calls: v7 == v8, bit for bit
+        st = {v: dk4.init_state(cfg, 5, bf16, dev) for v in (7, 8)}
+        out = {v: kern[v](rp[bf16], tok0, st[v].s, st[v].z, 0, 77, max_tokens=32,
+                          **kw(greedy))[0] for v in (7, 8)}
+        same = torch.equal(out[7], out[8]) and torch.equal(st[7].s, st[8].s) and \
+            torch.equal(st[7].z, st[8].z)
+        print(f"[latency] 32-token call, B=5, bf16, {'greedy' if greedy else 'CP sampling'}: "
+              f"v7 and v8 {'identical' if same else 'DIFFERENT'}", flush=True)
+        check(same, "latency: v7 and v8 calls differ")
+    s1, s2 = dk4.init_state(cfg, 5, bf16, dev), dk4.init_state(cfg, 5, bf16, dev)
+    one = dk8.fused_decode_v8(rp[bf16], tok0, s1.s, s1.z, 0, 99, max_tokens=64, **kw(False))[0]
+    first = dk8.fused_decode_v8(rp[bf16], tok0, s2.s, s2.z, 0, 99, max_tokens=32, **kw(False))[0]
+    second = dk8.fused_decode_v8(rp[bf16], first[-1].contiguous(), s2.s, s2.z, 32, 99,
+                                 max_tokens=32, **kw(False))[0]
+    same = torch.equal(one, torch.cat([first, second])) and torch.equal(s1.s, s2.s) and \
+        torch.equal(s1.z, s2.z)
+    print(f"[latency] v8 chunk invariance (64 vs 2x32 tokens, B=5): "
+          f"{'identical' if same else 'DIFFERENT'}", flush=True)
+    check(same, "latency v8: one call of 64 tokens differs from two of 32")
+    big = dk8.MAX_BATCH + 1
+    sb = dk4.init_state(cfg, big, bf16, dev)
+    for v in (7, 8):
+        try:
+            kern[v](rp[bf16], rand_tokens(1, big)[0], sb.s, sb.z, 0, 0, max_tokens=1,
+                    **kw(True))
+            fail(f"latency v{v}: a batch of {big} was not refused")
+        except ValueError as e:
+            print(f"[latency] v{v} refuses B={big}: {e}", flush=True)
+
+    # -- 22. cli generate on the latency path, beside the per-step path ------
+    knobs = ("RLMG_LATENCY_DECODE", "RLMG_LATENCY_KERNEL")
+    saved = {k: os.environ.pop(k, None) for k in knobs}
+    counters = {"A": dk4.fused_stack_step, "B": dk6.fused_decode_v6, "v7": dk7.fused_decode_v7,
+                "v8": dk8.fused_decode_v8}
+    launches, per_token, rates = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for songs in (1, 5):
+            for route, env in (("per-step", {}), ("v8", {"RLMG_LATENCY_DECODE": "1"}),
+                               ("v7", {"RLMG_LATENCY_DECODE": "1", "RLMG_LATENCY_KERNEL": "v7"})):
+                os.environ.update(env)
+                for fn in counters.values():
+                    fn.launches = 0
+                for fn in (counters["v7"], counters["v8"]):
+                    dk8.reset(fn)
+                out = os.path.join(tmp, f"{route}-{songs}", "midis")
+                res = cli.main(["generate", "--songs", str(songs), "--bars", "8",
+                                "--max-tokens", "512", "--warmup", "--out-dir", out])
+                torch.cuda.synchronize()
+                counts = {k: fn.launches for k, fn in counters.items()}
+                for k in env:
+                    os.environ.pop(k)
+                rates[(route, songs)] = res["tokens_per_s"]
+                print(f"[generate] {route} path, {songs} songs (8 bars, bf16): {res['tokens']} "
+                      f"tokens in {res['seconds']:.3f}s = {res['tokens_per_s']:.1f} tokens/s; "
+                      f"launches (with --warmup) {counts}", flush=True)
+                mine = "A" if route == "per-step" else route
+                check(counts[mine] > 0, f"generate {route} {songs} songs: its kernel never ran")
+                check(all(n == 0 for k, n in counts.items() if k != mine),
+                      f"generate {route} {songs} songs: another kernel ran: {counts}")
+                for i in range(songs):
+                    with open(os.path.join(out, f"get_{i}.mid"), "rb") as f:
+                        check(f.read(4) == b"MThd", f"generate {route}: get_{i}.mid not a MIDI")
+                with open(os.path.join(out, "..", "runtime_stats.json")) as f:
+                    stats = json.load(f)
+                check(len(stats["song_time"]) == songs and
+                      sum(stats["words_len_list"]) == res["tokens"],
+                      f"generate {route}: runtime_stats.json does not match the songs")
+                if songs == 5:
+                    launches[route] = counts[mine]
+                if songs == 5 and route != "per-step":
+                    fn = counters[route]
+                    per_token[route] = fn.cuda_launches / fn.positions
+                    print(f"[generate] {route}, 5 songs: {fn.cuda_launches} CUDA launches in "
+                          f"{fn.launches} calls for {fn.positions} token positions = "
+                          f"{per_token[route]:.6g} launches a position", flush=True)
+            print(f"[generate] {songs} songs, tokens/s: per-step (kernel A) "
+                  f"{rates[('per-step', songs)]:.1f}, v8 {rates[('v8', songs)]:.1f}, v7 "
+                  f"{rates[('v7', songs)]:.1f}", flush=True)
+
+    # -- 23. the prompt prefill on the card -----------------------------------
+    prompt = rand_tokens(100, 1)[:, 0].cpu().numpy()
+    for route, songs, env, fn in (("per-step", 5, {}, dk4.fused_stack_step),
+                                  ("v6", 128, {}, dk6.fused_decode_v6),
+                                  ("v8", 5, {"RLMG_LATENCY_DECODE": "1"}, dk8.fused_decode_v8)):
+        os.environ.update(env)
+        fn.launches = 0
+        gcfg = C.GenerateConfig(batch_size=songs, max_tokens=64, bar_production=None,
+                                token_count=64, seed=3)
+        out = sampler.generate_songs(params, cfg, gcfg, init=prompt)
+        torch.cuda.synchronize()
+        for k in env:
+            os.environ.pop(k)
+        ok = all(s.shape == (164, FIELDS) and (s[:100] == prompt).all() for s in out)
+        print(f"[prefill] 100-token prompt, {songs} songs on the {route} path: "
+              f"{'ok' if ok else 'WRONG'} ({fn.launches} kernel calls)", flush=True)
+        check(ok and len(out) == songs and fn.launches > 0, f"prefill on the {route} path")
+    x = rand_tokens(100, 5).transpose(0, 1).contiguous()
+    _, pst = lt.forward_prefill(params, cfg, x)
+    scan = lt.init_decode_state(cfg, 5, device=dev)
+    for t in range(100):
+        _, scan = lt.decode_step(params, cfg, x[:, t], scan)
+    torch.cuda.synchronize()
+    ds = (pst.s - scan.s).abs().max().item()
+    mag = scan.s.abs().max().item()
+    print(f"[prefill] forward_prefill vs 100 decode steps, B=5, f32: max|ds| {ds:.3e} (max|s| "
+          f"{mag:.3e}), max|dz| {(pst.z - scan.z).abs().max().item():.3e}", flush=True)
+    check(ds <= 1e-3 * max(1.0, mag), f"prefill state differs from the scan's by {ds}")
+    for k, v in saved.items():
+        if v is not None:
+            os.environ[k] = v
+
+    # -- 24. times per token, bf16 weights and state ---------------------------
+    T = 32
+    dp16 = lt.make_decode_params(params, cfg, bf16)
+    rows = {}
+    for b in (1, 5, 16):
+        tok = rand_tokens(1, b)[0]
+        st = dk4.init_state(cfg, b, bf16, dev)
+        row = {}
+        for v in (8, 7, 8):                 # v8 twice: a first call warms the card
+            row[v] = time_ms(lambda: kern[v](rp[bf16], tok, st.s, st.z, 0, 1, max_tokens=T,
+                                             **kw(False)), 5) / T
+        row["plain"] = time_ms(lambda: plain(rp[bf16], tok, st, 0, 1, 2, False), 2) / 2
+        h = lt.embed_input(params, cfg, tok, 0, None).float()
+        row["A"] = time_ms(lambda: dk4.fused_stack_step(dp16, h, st.s, st.z, n_head=H), 20)
+        ops, nb = latency_work(b, T, L, D, DI, H, w_bytes=2, s_bytes=2)
+        bd, row["by"] = bound(nb, ops)
+        row["bound"] = bd / T
+        row["state"] = latency_state_bytes(b, L, D, H, s_bytes=2) / HBM_BYTES_PER_S * 1e3
+        rows[b] = row
+        print(f"[time] latency B={b} (bf16 weights and state), ms a token: v8 {row[8]:.4f}, v7 "
+              f"{row[7]:.4f}, plain twin {row['plain']:.3f}, kernel A (layer stack only) "
+              f"{row['A']:.4f}; bound {row['bound']:.4f} ({row['by']}); v7's state traffic "
+              f"a token {row['state']:.4f}", flush=True)
+    pkg = "reinforcement_learning_in_music_generation_torch"
+    tpu = "reinforcement_learning_in_music_generation_tpu/ops/experimental"
+    entries = []
+    for v, line in ((8, 315), (7, 200)):
+        entry = {
+            "name": f"latency_decode_v{v}", "route": "cuda",
+            "source": f"{pkg}/csrc/latency_decode.cu",
+            "replaces": f"{tpu}/decode_kernel_v{v}.py:{line}", "launches": launches[f"v{v}"],
+            "launches_per_token": per_token[f"v{v}"], "max_abs_err": max(errs.values()),
+            "ms": rows[5][v], "plain_ms": rows[5]["plain"], "bound_ms": rows[5]["bound"],
+            "bound_by": rows[5]["by"], "library_ms": None, "kernel_a_ms": rows[5]["A"],
+            "unit": "ms per token of B=5 songs, bf16 weights and state, 32-token calls",
+            "by_batch": {str(b): {"ms": r[v], "plain_ms": r["plain"], "kernel_a_ms": r["A"],
+                                  "bound_ms": r["bound"], "bound_by": r["by"]}
+                         for b, r in rows.items()},
+            "tokens_per_s_generate": {str(s): rates[(f"v{v}", s)] for s in (1, 5)},
+            "tokens_per_s_generate_per_step": {str(s): rates[("per-step", s)] for s in (1, 5)}}
+        if v == 7:
+            entry["state_ms_per_token"] = rows[5]["state"]
+        entries.append(entry)
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -441,8 +709,9 @@ def main() -> None:
         return torch.stack([lg.argmax(-1) for lg in logits], dim=-1)
 
     # -- 2a. decode_step (v4 counterpart) against its plain version --------
-    # (weights, songs, state): the generate default (f32 weights, bf16 state)
-    # at both batches, an f32 state for the tight check, and --dtype bfloat16
+    # (weights, songs, state): f32 weights with the default bf16 state at
+    # both batches, an f32 state for the tight check, and bf16 weights (the
+    # generate default)
     f32, bf16 = torch.float32, torch.bfloat16
     dparams_bf16 = lt.make_decode_params(params, cfg, bf16)
     a_err = 0.0
@@ -552,7 +821,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for name, songs, max_tok, counter in (
                 ("v4", 5, 512, dk4.fused_stack_step), ("v6", 128, 256, dk6.fused_decode_v6)):
-            out = os.path.join(tmp, name)
+            out = os.path.join(tmp, name, "midis")
             dk4.fused_stack_step.launches = 0
             dk6.fused_decode_v6.launches = 0
             res = cli.main(["generate", "--songs", str(songs), "--bars", "8",
@@ -1261,7 +1530,9 @@ def main() -> None:
     check(head == b"MThd", "inference: the output is not a MIDI file")
     check(res["tokens"] == res["notes"] == 150, f"inference: {res['notes']} notes, expected 150")
 
-    # -- 21. times at the main paths' shapes -------------------------------
+    lat_entries = latency_slice(cfg, params, dev, gen)      # phases 21-24
+
+    # -- 25. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
     sdt = st.s.dtype
     h5 = lt.embed_input(params, cfg, rand_tokens(1, 5)[0], 0, None).float()
@@ -1306,13 +1577,15 @@ def main() -> None:
     (df_ops, df_b), (db_ops, db_b) = attn_tail_work(NT, D, DI)
     d_bf, d_bfby = bound(df_b, df_ops)
     d_bb, d_bbby = bound(db_b, db_ops)
+    d_recompute = bound(0, df_ops)[0]       # the backward's recomputed forward, at peak
     print(f"[time] qkv_attention N={NT}: forward {c_fwd:.3f} ms (plain {c_pf:.3f}, bound "
           f"{c_bf:.4f} {c_bfby}, {cf_ops / 1e9:.2f} GFLOP), backward {c_bwd:.3f} ms (plain "
           f"{c_pb:.3f}, bound {c_bb:.4f} {c_bbby}, {cb_ops / 1e9:.2f} GFLOP; the two kernel "
           f"passes alone {c_pass:.3f} ms)")
     print(f"[time] attn_tail N={NT} p=0.1: forward {d_fwd:.3f} ms (plain {d_pf:.3f}, bound "
           f"{d_bf:.4f} {d_bfby}, {df_ops / 1e9:.2f} GFLOP), backward {d_bwd:.3f} ms (plain "
-          f"{d_pb:.3f}, bound {d_bb:.4f} {d_bbby}, {db_ops / 1e9:.2f} GFLOP)")
+          f"{d_pb:.3f}, bound {d_bb:.4f} {d_bbby}, {db_ops / 1e9:.2f} GFLOP; the recomputed "
+          f"forward adds {df_ops / 1e9:.2f} GFLOP, {d_recompute:.4f} ms at peak)")
     print(f"[time] train step B={BT} S={ST}: kernel route {step_ms['kernel']:.1f} ms, plain "
           f"route {step_ms['plain']:.1f} ms")
 
@@ -1324,10 +1597,12 @@ def main() -> None:
     (dlf_ops, dlf_b), (dlb_ops, dlb_b) = attn_tail_work(ND, dcfg.d_model, dcfg.d_inner)
     dl_bf, _ = bound(dlf_b, dlf_ops)
     dl_bb, _ = bound(dlb_b, dlb_ops)
+    dl_recompute = bound(0, dlf_ops)[0]
     print(f"[time] attn_tail N={ND} D={dcfg.d_model} DI={dcfg.d_inner} p=0.1 mid_drop=False: "
           f"forward {dl_fwd:.3f} ms (plain {dl_pf:.3f}, bound {dl_bf:.4f}, "
           f"{dlf_ops / 1e9:.2f} GFLOP), backward {dl_bwd:.3f} ms (plain {dl_pb:.3f}, bound "
-          f"{dl_bb:.4f}, {dlb_ops / 1e9:.2f} GFLOP)")
+          f"{dl_bb:.4f}, {dlb_ops / 1e9:.2f} GFLOP; the recomputed forward {dl_recompute:.4f} "
+          f"ms at peak)")
 
     e_in = (q_e, k_e, v_e)
     e_fwd, e_bwd = time_fwd_bwd(e_kernel(dms), e_in, g_e, 20)
@@ -1422,11 +1697,12 @@ def main() -> None:
          "max_abs_err": d_err, "ms": d_fwd + d_bwd, "ms_fwd": d_fwd, "ms_bwd": d_bwd,
          "plain_ms": d_pf + d_pb, "bound_ms": d_bf + d_bb, "bound_ms_fwd": d_bf,
          "bound_ms_bwd": d_bb, "bound_by": d_bfby if d_bfby == d_bbby else "operations",
+         "recompute_ms_bwd": d_recompute,
          "library_ms": None, "launches_discrim": sum(launches["D_discrim"]),
          "longformer_shape": {"rows": ND, "d_inner": dcfg.d_inner, "ms_fwd": dl_fwd,
                               "ms_bwd": dl_bwd, "plain_ms": dl_pf + dl_pb,
                               "bound_ms_fwd": dl_bf, "bound_ms_bwd": dl_bb,
-                              "max_abs_err": d_lf_err}},
+                              "recompute_ms_bwd": dl_recompute, "max_abs_err": d_lf_err}},
         {"name": "window_attention_band", "route": "cuda",
          "source": f"{pkg}/csrc/window_attention.cu",
          "replaces": f"{tpu}/window_attention_kernel.py:203", "launches": sum(launches["E"]),
@@ -1458,7 +1734,7 @@ def main() -> None:
          "bound_by": g_t["update"]["bound_by"], "library_ms": None,
          "update_shape": g_t["update"], "rollout_shape": g_t["rollout"],
          "pretrain_shape": g_t["pretrain"], "launches_pretrain": sum(launches["G_pretrain"])},
-    ]
+    ] + lat_entries
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

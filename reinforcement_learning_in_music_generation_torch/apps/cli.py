@@ -33,7 +33,9 @@ port's ``pretrain``.  ``RLMG_ATTN_BACKEND=pallas`` sends the agent's
 attention to kernel F (``ops/linear_attention_kernel.py``), as it sends the
 JAX package's to its Pallas causal product; ``RLMG_FFN_BACKEND=pallas``
 sends the post-LN1 half of every linear-transformer layer to kernel G
-(``ops/ffn_block.py ffn_block``).
+(``ops/ffn_block.py ffn_block``).  ``RLMG_LATENCY_DECODE=1`` sends
+``generate`` to the latency kernels (v8, or v7 under
+``RLMG_LATENCY_KERNEL=v7``, ``ops/experimental``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from ..rl import airl, buffers, dqn, env, ppo
 from ..train import pretrain as pretrain_lib
 from ..utils import plotting
 from ..utils.checkpoint import save_checkpoint
+from ..utils.metrics import RuntimeStats
 from ..utils.saver import MetricsBus, Saver
 from ..weights import _ParamsUnpickler, load_jax_checkpoint
 
@@ -65,8 +68,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def cmd_generate(args) -> dict:
-    """Generate ``--songs`` songs in one batch and write get_<i>.mid files.
-    Returns {"songs", "tokens", "seconds", "tokens_per_s"}."""
+    """Generate ``--songs`` songs in one batch, write get_<i>.mid files and
+    ``runtime_stats.json`` beside ``--out-dir`` (JAX :593-598).  Returns
+    {"songs", "tokens", "seconds", "tokens_per_s"}."""
     e2w, w2e = tokenizer.drop_type(tokenizer.construct_cp_dict())
     vocab = tuple(tokenizer.n_classes(e2w))
     mcfg = C.agent_config(vocab, n_layer=args.layers)
@@ -90,10 +94,13 @@ def cmd_generate(args) -> dict:
     songs = sampler.generate_songs(params, mcfg, gcfg)
     elapsed = time.perf_counter() - t0
     total = sum(len(s) for s in songs)
+    stats = RuntimeStats()
     for i, song in enumerate(songs):
         path = os.path.join(args.out_dir, f"get_{i}.mid")
         tokenizer.write_midi_cp(song, path, w2e)
+        stats.add_song(elapsed / len(songs), len(song))
         print(f"song {i}: {len(song)} tokens -> {path}")
+    stats.dump(os.path.join(args.out_dir, "..", "runtime_stats.json"))
     rate = total / elapsed if elapsed > 0 else float("inf")
     print(f"ave token time: {rate:.1f} tokens/sec ({total} tokens in {elapsed:.2f}s, "
           f"{args.songs} songs on {device})")
@@ -504,7 +511,7 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--warmup", action="store_true",
                    help="run once before timing (builds the kernels)")
-    d.add_argument("--dtype", default="float32", choices=tuple(_DTYPES),
+    d.add_argument("--dtype", default="bfloat16", choices=tuple(_DTYPES),
                    help="decode weight dtype (bf16 halves the weight stream)")
     d.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions of the kernels")

@@ -18,7 +18,9 @@
 //                       the padding), temperature, the 24-step bisection
 //                       nucleus threshold, Gumbel-max with bits from
 //                       Philox4x32-10, first-argmax
-// and feeds each emitted token to the next step.  The host loop over T
+// (the bodies of both, embed_row and heads_sample_row, are in
+// decode_sample.cuh, shared with latency_decode.cu) and feeds each emitted
+// token to the next step.  The host loop over T
 // stays in C, so a chunk costs one call from Python; v6's single launch
 // per chunk (the whole loop inside one kernel) is not reproduced yet.
 //
@@ -37,96 +39,20 @@
 // 256 logits, held in registers; the products are the K-split tiled GEMMs
 // of decode_layers.cuh, without tensor cores yet.
 
-#include "decode_layers.cuh"
+#include "decode_sample.cuh"
 
 namespace rlmg {
 
-constexpr int VF_PAD = 256, MAX_NF = 8, NUCLEUS_ITERS = 24;
-constexpr float NEG = -1e30f;
-
-struct FieldArgs {
-  int off[MAX_NF];      // first row of field f in the folded embedding M
-  float tinv[MAX_NF];   // 1 / temperature
-  float topp[MAX_NF];   // nucleus mass (inf: keep every token)
-};
-
-// Standard Gumbel noise from 32 random bits: u in (0,1) from the top 24.
-__device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {
-  const float u = (float)(bits >> 8) * 5.9604644775390625e-08f + 2.9802322387695312e-08f;
-  return -logf(-logf(u));
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : -INFINITY;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return v;
-}
-
-// Index of the first maximal value over the block (ties: smallest index).
-__device__ __forceinline__ int block_argmax_first(float v, int i, float* rv, int* ri) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (ov > v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-  if (lane == 0) {
-    rv[wid] = v;
-    ri[wid] = i;
-  }
-  __syncthreads();
-  if (wid == 0) {
-    const int nw = blockDim.x >> 5;
-    v = lane < nw ? rv[lane] : -INFINITY;
-    i = lane < nw ? ri[lane] : 0x7fffffff;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-      if (ov > v || (ov == v && oi < i)) {
-        v = ov;
-        i = oi;
-      }
-    }
-    if (lane == 0) ri[0] = i;
-  }
-  __syncthreads();
-  i = ri[0];
-  __syncthreads();
-  return i;
-}
-
-// h[b] = sum_f m[off_f + tok[b, f]] + bin + pe_row, one block per song.
+// h[b] = embed_row(tok[b]), one block per song.
 __global__ void embed_kernel(const int* __restrict__ tok, const float* __restrict__ m,
                              FieldArgs fa, const float* __restrict__ bin,
                              const float* __restrict__ pe_row, float* __restrict__ h, int NF,
                              int D) {
   const int b = blockIdx.x;
-  const int* tb = tok + (size_t)b * NF;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.f;
-    for (int f = 0; f < NF; ++f) acc += m[(size_t)(fa.off[f] + tb[f]) * D + d];
-    h[(size_t)b * D + d] = (acc + bin[d]) + pe_row[d];
-  }
+  embed_row(tok + (size_t)b * NF, m, fa, bin, pe_row, h + (size_t)b * D, NF, D);
 }
 
-// One block of VF_PAD threads per (song b, field f); thread v owns logit v.
+// One block of VF_PAD threads per (song b, field f).
 template <typename TW>
 __global__ void __launch_bounds__(VF_PAD)
 heads_sample_kernel(const float* __restrict__ h, const float* __restrict__ fls,
@@ -136,36 +62,10 @@ heads_sample_kernel(const float* __restrict__ h, const float* __restrict__ fls,
   __shared__ float hf[MAX_D];
   __shared__ float red[32];
   __shared__ int redi[32];
-  const int b = blockIdx.x / NF, f = blockIdx.x % NF, v = threadIdx.x;
-  for (int i = v; i < D; i += blockDim.x) hf[i] = h[(size_t)b * D + i];
-  __syncthreads();
-  ln_row(hf, D, 1e-5f, red);
-  for (int i = v; i < D; i += blockDim.x) hf[i] = hf[i] * fls[i] + flb[i];
-  __syncthreads();
-  const int ncol = NF * VF_PAD, col = f * VF_PAD + v;
-  float acc = 0.f;
-  for (int d = 0; d < D; ++d) acc = fmaf(hf[d], ld(hw + (size_t)d * ncol + col), acc);
-  const float x = (acc + hb[col]) * fa.tinv[f];
-  int tok;
-  if (greedy) {
-    tok = block_argmax_first(x, v, red, redi);
-  } else {
-    const float mx = block_max(x, red);
-    const float ex = expf(x - mx);
-    const float p = ex / (block_sum(ex, red) * 1.00001f);
-    const float tp = fa.topp[f];
-    float lo = 0.f, hi = 1.f;
-    for (int it = 0; it < NUCLEUS_ITERS; ++it) {
-      const float mid = 0.5f * (lo + hi);
-      const float mass = block_sum(p > mid ? p : 0.f, red);
-      if (mass > tp) lo = mid;
-      else hi = mid;
-    }
-    const uint32_t bits = philox_first(seed, (uint32_t)pos, (uint32_t)f, (uint32_t)v, (uint32_t)b);
-    const float score = p > lo ? x + gumbel_from_bits(bits) : NEG;
-    tok = block_argmax_first(score, v, red, redi);
-  }
-  if (v == 0) tok_out[(size_t)b * NF + f] = tok;
+  const int b = blockIdx.x / NF, f = blockIdx.x % NF;
+  const int tok = heads_sample_row<TW>(h + (size_t)b * D, fls, flb, hw, hb, fa, b, f, NF, D,
+                                       pos, seed, greedy, hf, red, redi);
+  if (threadIdx.x == 0) tok_out[(size_t)b * NF + f] = tok;
 }
 
 inline int heads_sample(const float* h, const float* fls, const float* flb, const void* hw,
@@ -181,16 +81,6 @@ inline int heads_sample(const float* h, const float* fls, const float* flb, cons
   }
   RLMG_CHECK();
   return 0;
-}
-
-inline FieldArgs field_args(const int* off, const float* tinv, const float* topp, int NF) {
-  FieldArgs fa{};
-  for (int f = 0; f < NF; ++f) {
-    fa.off[f] = off ? off[f] : 0;
-    fa.tinv[f] = tinv[f];
-    fa.topp[f] = topp[f];
-  }
-  return fa;
 }
 
 }  // namespace rlmg

@@ -149,9 +149,54 @@ __global__ void reduce_act_kernel(const float* __restrict__ part,
 
 constexpr int ATT_THREADS = 256, MAX_E = 128;
 
+// The state update and read of one (song, head) slice by one block of
+// ATT_THREADS threads: S += k v^T, z += k, att = q^T S / (q.z + eps), with
+// phi(q), phi(k) and v (E values each) in shared memory.  sp (E,E) and zp
+// (E) are updated in place, in their stored type, wherever they live
+// (device memory for the per-step and chunked kernels, shared memory for
+// the latency kernel's resident state); the read uses the f32 sums before
+// they are rounded.  att (E) may be device or shared memory.  part
+// (ATT_THREADS), dq (E) and den_s (1) are shared scratch.  Ends before
+// att is written for every thread: the caller synchronises.
+template <typename TS>
+__device__ __forceinline__ void attn_slice(const float* qs, const float* ks, const float* vs,
+                                           TS* sp, TS* zp, float* att, int E, float eps,
+                                           float* part, float* dq, float* den_s) {
+  const int tid = threadIdx.x;
+  // thread (jg, u): column u of S, rows jg, jg+G, ... (G = 256/E groups)
+  const int G = ATT_THREADS / E, u = tid % E, jg = tid / E;
+  float num = 0.f;
+  for (int j = jg; j < E; j += G) {
+    TS* p = sp + (size_t)j * E + u;
+    const float sv = fmaf(ks[j], vs[u], ld(p));
+    st(p, sv);
+    num = fmaf(qs[j], sv, num);
+  }
+  part[tid] = num;
+  if (tid < E) {
+    TS* p = zp + tid;
+    const float zv = ld(p) + ks[tid];
+    st(p, zv);
+    dq[tid] = qs[tid] * zv;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    float d = 0.f;
+    for (int i = tid; i < E; i += 32) d += dq[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    if (tid == 0) *den_s = d + eps;
+  }
+  __syncthreads();
+  if (tid < E) {
+    float n = 0.f;
+    for (int g = 0; g < G; ++g) n += part[g * E + tid];
+    att[tid] = n / *den_s;
+  }
+}
+
 // One block per (song b, head h).  qkv (B, 3D) holds [phi(q) | phi(k) | v].
 // s, z point at this layer's (B,H,E,E) / (B,H,E) state; updated in place.
-// The read uses the f32 sums before they are rounded to the stored type.
 template <typename TS>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_state_kernel(const float* __restrict__ qkv, TS* __restrict__ s,
@@ -169,37 +214,8 @@ attn_state_kernel(const float* __restrict__ qkv, TS* __restrict__ s,
     vs[tid] = row[2 * D + tid];
   }
   __syncthreads();
-  // thread (jg, u): column u of S, rows jg, jg+G, ... (G = 256/E groups)
-  const int G = ATT_THREADS / E, u = tid % E, jg = tid / E;
-  TS* sp = s + (size_t)bh * E * E;
-  float num = 0.f;
-  for (int j = jg; j < E; j += G) {
-    TS* p = sp + (size_t)j * E + u;
-    const float sv = ld(p) + ks[j] * vs[u];
-    st(p, sv);
-    num = fmaf(qs[j], sv, num);
-  }
-  part[tid] = num;
-  if (tid < E) {
-    TS* p = z + (size_t)bh * E + tid;
-    const float zv = ld(p) + ks[tid];
-    st(p, zv);
-    dq[tid] = qs[tid] * zv;
-  }
-  __syncthreads();
-  if (tid < 32) {
-    float d = 0.f;
-    for (int i = tid; i < E; i += 32) d += dq[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-    if (tid == 0) den_s = d + eps;
-  }
-  __syncthreads();
-  if (tid < E) {
-    float n = 0.f;
-    for (int g = 0; g < G; ++g) n += part[g * E + tid];
-    att[(size_t)b * D + h * E + tid] = n / den_s;
-  }
+  attn_slice<TS>(qs, ks, vs, s + (size_t)bh * E * E, z + (size_t)bh * E,
+                 att + (size_t)b * D + h * E, E, eps, part, dq, &den_s);
 }
 
 // Sum over the block, returned to every thread.  red: 32 floats of shared.

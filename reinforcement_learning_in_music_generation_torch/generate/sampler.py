@@ -1,7 +1,7 @@
 """Autoregressive CP generation: counterpart of the JAX package's
 ``generate/sampler.py``.
 
-Two decode paths, chosen as in the JAX package:
+Three decode paths, chosen as in the JAX package:
   * per-step (``generate_tokens``): one ``decode_step`` per token, through
     the ``decode_kernel_v4`` kernel on CUDA (``fused=True``) or the plain
     ``lt.decode_step`` (``fused=False``), then on-device sampling
@@ -9,22 +9,26 @@ Two decode paths, chosen as in the JAX package:
   * chunked (``generate_tokens_persistent``): stochastic batches of
     ``persistent_min_batch()`` songs or more, through the
     ``decode_kernel_v6`` kernel, which samples on the card and emits up to
-    128 tokens per call.
+    128 tokens per call;
+  * latency (``generate_tokens_latency``): opt-in (``RLMG_LATENCY_DECODE``,
+    ``RLMG_LATENCY_MAX_BATCH``), through ``ops/experimental``'s v8 kernel
+    (one launch per chunk) or v7 (one per layer, ``RLMG_LATENCY_KERNEL``).
+
+Prompts of ``RLMG_PREFILL_MIN`` (16) tokens or more seed the state of a
+non-greedy run through the parallel prefill (``lt.forward_prefill``),
+padded to a 64-token bucket; greedy runs keep the per-token scan.
 
 Stop conditions (testing-no-type-cp.py:169-174): a token whose bar-beat
 field is 'Bar' counts a bar; a song is done when its count reaches
 ``bar_cond`` (the final Bar token is kept).  Finished songs emit zero
 tokens that are marked invalid.  A fixed token budget (``token_count``)
-masks the tail instead.
-
-Out of scope in the port (they raise ``NotImplementedError``): the latency
-kernels (v7/v8), mesh sharding, and the parallel prompt prefill that the
-JAX package runs for non-greedy prompts of RLMG_PREFILL_MIN (16) tokens
-or more.
+masks the tail instead.  Mesh sharding is not ported
+(``NotImplementedError``).
 """
 
 from __future__ import annotations
 
+import collections
 import os
 from typing import NamedTuple, Optional, Sequence
 
@@ -38,6 +42,8 @@ from ..ops import decode_kernel_v4 as dk4
 from ..ops import decode_kernel_v6 as dk6
 from ..ops import sampling as smp
 from ..ops.decode_common import decode_state_dtype
+from ..ops.experimental import decode_kernel_v7 as dk7
+from ..ops.experimental import decode_kernel_v8 as dk8
 
 
 class GenResult(NamedTuple):
@@ -90,15 +96,32 @@ def use_persistent_decode(device, batch: Optional[int] = None) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def _refuse_unported(batch: int, greedy: bool) -> None:
-    """The latency kernels (JAX v7/v8) are not ported: raise where the JAX
-    package would dispatch to them."""
+def latency_max_batch() -> int:
+    """Largest stochastic batch routed to the latency kernels (v8 or v7,
+    ``latency_kernel_version()``).  0, the default, disables the path: it is
+    opt-in, as in the JAX package.  RLMG_LATENCY_MAX_BATCH overrides."""
+    return int(os.environ.get("RLMG_LATENCY_MAX_BATCH", "0"))
+
+
+def use_latency_decode(device, batch: Optional[int] = None) -> bool:
+    """The latency kernels: CUDA, and batch <= latency_max_batch() when
+    given (the JAX rule with "the device is CUDA" for "the backend is a
+    TPU").  RLMG_LATENCY_DECODE=0/1 overrides everything."""
     env = os.environ.get("RLMG_LATENCY_DECODE")
-    lat_max = int(os.environ.get("RLMG_LATENCY_MAX_BATCH", "0"))
-    if env == "1" or (env is None and not greedy and batch <= lat_max):
-        raise NotImplementedError(
-            "latency decode kernels (v7/v8) are not ported; unset "
-            "RLMG_LATENCY_DECODE / RLMG_LATENCY_MAX_BATCH")
+    if env is not None:
+        return env == "1"
+    if batch is None or batch > latency_max_batch():
+        return False
+    return torch.device(device).type == "cuda"
+
+
+def latency_kernel_version() -> str:
+    """"v8" (one launch per chunk, the default) or "v7" (one launch per
+    layer); RLMG_LATENCY_KERNEL overrides, anything else raises."""
+    v = os.environ.get("RLMG_LATENCY_KERNEL", "v8")
+    if v not in ("v7", "v8"):
+        raise ValueError(f"RLMG_LATENCY_KERNEL must be v7 or v8, got {v!r}")
+    return v
 
 
 def _prompt_prefill_active(t0: int) -> bool:
@@ -108,11 +131,63 @@ def _prompt_prefill_active(t0: int) -> bool:
             and t0 >= int(os.environ.get("RLMG_PREFILL_MIN", "16")))
 
 
-def _refuse_prefill(t0: int) -> None:
-    if _prompt_prefill_active(t0):
-        raise NotImplementedError(
-            f"a {t0}-token prompt takes the parallel prefill, which is not "
-            "ported; set RLMG_PREFILL=0 to seed token by token")
+def _bucket_pad(prompt: torch.Tensor):
+    """A prompt that takes the prefill, padded with zero rows to its 64-token
+    bucket (``lt.prefill_bucket``) -> (prompt, n_valid): n_valid is the true
+    length, or None when no padding was needed."""
+    t = prompt.shape[1]
+    tb = lt.prefill_bucket(t)
+    if tb == t:
+        return prompt, None
+    return torch.nn.functional.pad(prompt, (0, 0, 0, tb - t)), t
+
+
+def _seed_state(params: dict, cfg: LinearTransformerConfig, init_tokens: torch.Tensor,
+                state: lt.DecodeState, pe: torch.Tensor,
+                n_valid: Optional[int] = None) -> lt.DecodeState:
+    """Teacher-force ``init_tokens`` into the plain recurrent state (JAX
+    :191-216): the parallel prefill for long prompts, the per-token steps
+    below RLMG_PREFILL_MIN.  ``n_valid``: the true prompt length when the
+    caller bucket-padded init_tokens (prefill only)."""
+    if _prompt_prefill_active(init_tokens.shape[1]):
+        _, st = lt.forward_prefill(params, cfg, init_tokens, n_valid, pe_table=pe)
+        return lt.DecodeState(st.s.to(state.s.dtype), st.z.to(state.z.dtype), st.step)
+    for t in range(init_tokens.shape[1]):
+        _, state = lt.decode_step(params, cfg, init_tokens[:, t], state, pe_table=pe)
+    return state
+
+
+_PACKED_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_PACKED_CACHE_SIZE = 8
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _packed_decode_params(params: dict, cfg: LinearTransformerConfig) -> dk6.V6Params:
+    """The chunked kernels' weights (v6, v7 and v8 share one layout), packed
+    once per params object (JAX :301-322): keyed on its identity with a
+    strong reference, so the id cannot be reused while cached; LRU.  JAX
+    arrays are immutable; torch tensors are not, so an entry also records
+    each leaf's version counter and is packed again after an in-place
+    update (an optimizer step)."""
+    key = (id(params), cfg)
+    versions = tuple(t._version for t in _leaves(params))
+    hit = _PACKED_CACHE.get(key)
+    if hit is not None and hit[0] is params and hit[1] == versions:
+        _PACKED_CACHE.move_to_end(key)
+        return hit[2]
+    packed = dk8.make_resident_params(params, cfg)
+    _PACKED_CACHE.pop(key, None)
+    while len(_PACKED_CACHE) >= _PACKED_CACHE_SIZE:
+        _PACKED_CACHE.popitem(last=False)
+    _PACKED_CACHE[key] = (params, versions, packed)
+    return packed
 
 
 def generate_tokens(params: dict, cfg: LinearTransformerConfig,
@@ -123,18 +198,23 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
                     barbeat_field: int = 2, bar_token_id: int = 1,
                     greedy: bool = False,
                     settings: Sequence[smp.FieldSampling] = smp.CP_SAMPLING,
-                    fused: bool = False, fused_sampling: bool = False
-                    ) -> GenResult:
+                    fused: bool = False, fused_sampling: bool = False,
+                    n_valid: Optional[int] = None) -> GenResult:
     """init_tokens (B, T0, n_fields) seeds the state (teacher-forced), then
     up to ``max_tokens`` sampled steps.  Returns seed + generated tokens.
 
     ``fused=True`` runs the layer stack through the ``decode_kernel_v4``
     kernel (state stored in ``decode_state_dtype()``); ``fused=False`` the
     plain ``lt.decode_step`` with an f32 state.  The bar-count stop gives
-    the JAX while_loop's tokens and valid mask."""
+    the JAX while_loop's tokens and valid mask.
+
+    A non-greedy prompt of RLMG_PREFILL_MIN tokens or more seeds the state
+    through the parallel prefill (JAX :602-636), cast straight into the
+    step's state type; greedy keeps the per-token steps (the greedy pin).
+    ``n_valid``: the true prompt length when the caller bucket-padded
+    init_tokens (``lt.prefill_bucket``), legal only where the prefill runs;
+    the pad rows come back valid=False."""
     b, t0, nf = init_tokens.shape
-    if not greedy:
-        _refuse_prefill(t0)
     dev = init_tokens.device
     dtype = params["in_linear"]["w"].dtype
     pe = cm.sinusoidal_table(cfg.max_len, cfg.d_model, dtype, dev)
@@ -150,10 +230,23 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
         def step_fn(tok, st):
             return lt.decode_step(params, cfg, tok, st, pe_table=pe)
 
-    h = torch.zeros((b, cfg.d_model), dtype=dtype, device=dev)
-    for t in range(t0):
-        h, state = step_fn(init_tokens[:, t], state)
-    init_bars = (init_tokens[..., barbeat_field] == bar_token_id).sum(1).to(torch.int32)
+    prefill_ok = (not greedy and not (fused and cfg.n_head % 2 != 0)
+                  and _prompt_prefill_active(t0))
+    if n_valid is not None and not prefill_ok:
+        raise ValueError("n_valid (a bucket-padded prompt) needs the prefill seeding")
+    if prefill_ok:
+        h, pst = lt.forward_prefill(params, cfg, init_tokens, n_valid, pe_table=pe)
+        h = h.to(dtype)
+        state = lt.DecodeState(pst.s.to(state.s.dtype), pst.z.to(state.z.dtype), pst.step)
+    else:
+        h = torch.zeros((b, cfg.d_model), dtype=dtype, device=dev)
+        for t in range(t0):
+            h, state = step_fn(init_tokens[:, t], state)
+    seed_valid = torch.ones((b, t0), dtype=torch.bool, device=dev)
+    if n_valid is not None:
+        seed_valid &= torch.arange(t0, device=dev)[None, :] < n_valid
+    init_bars = ((init_tokens[..., barbeat_field] == bar_token_id) & seed_valid
+                 ).sum(1).to(torch.int32)
     if fused_sampling:
         hw, hb = cm.fused_head_params(params["heads"], cfg.n_fields)
 
@@ -181,8 +274,7 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
     if token_count is not None:
         valid &= torch.arange(max_tokens, device=dev)[None, :] < token_count
     tokens = torch.cat([init_tokens.to(torch.int32), toks], dim=1)
-    valid = torch.cat([torch.ones((b, t0), dtype=torch.bool, device=dev), valid], dim=1)
-    return GenResult(tokens, valid, bars)
+    return GenResult(tokens, torch.cat([seed_valid, valid], dim=1), bars)
 
 
 def generate_tokens_persistent(params: dict, cfg: LinearTransformerConfig,
@@ -194,23 +286,64 @@ def generate_tokens_persistent(params: dict, cfg: LinearTransformerConfig,
                                greedy: bool = False,
                                settings: Sequence[smp.FieldSampling] = smp.CP_SAMPLING,
                                chunk: Optional[int] = None) -> GenResult:
-    """generate_tokens through the ``decode_kernel_v6`` kernel, as the JAX
-    ``_generate_tokens_chunked``: every init token but the last is
-    teacher-forced through the plain ``lt.decode_step``, the last one is the
-    kernel's first input, and each call emits up to ``chunk`` tokens.  The
-    host checks the bar-count stop between calls; validity and bar counts
-    are then derived after the fact with the per-step path's semantics."""
+    """generate_tokens through the ``decode_kernel_v6`` kernel (the JAX
+    function, :324-354)."""
+    return _generate_tokens_chunked(
+        "v6", params, cfg, init_tokens, generator=generator, max_tokens=max_tokens,
+        bar_cond=bar_cond, token_count=token_count, barbeat_field=barbeat_field,
+        bar_token_id=bar_token_id, greedy=greedy, settings=settings, chunk=chunk)
+
+
+def generate_tokens_latency(params: dict, cfg: LinearTransformerConfig,
+                            init_tokens: torch.Tensor, *,
+                            generator: Optional[torch.Generator] = None,
+                            max_tokens: int, bar_cond: Optional[int] = None,
+                            token_count: Optional[int] = None,
+                            barbeat_field: int = 2, bar_token_id: int = 1,
+                            greedy: bool = False,
+                            settings: Sequence[smp.FieldSampling] = smp.CP_SAMPLING,
+                            chunk: Optional[int] = None) -> GenResult:
+    """generate_tokens through the latency kernels (the JAX function,
+    :357-383): ``decode_kernel_v8`` (one launch per chunk, the default) or
+    ``decode_kernel_v7`` (one launch per layer), as
+    ``latency_kernel_version()`` says.  Meant for B <= latency_max_batch();
+    the kernels take at most 16 songs."""
+    return _generate_tokens_chunked(
+        latency_kernel_version(), params, cfg, init_tokens, generator=generator,
+        max_tokens=max_tokens, bar_cond=bar_cond, token_count=token_count,
+        barbeat_field=barbeat_field, bar_token_id=bar_token_id, greedy=greedy,
+        settings=settings, chunk=chunk)
+
+
+_CHUNK_KERNELS = {"v6": dk6.fused_decode_v6, "v7": dk7.fused_decode_v7,
+                  "v8": dk8.fused_decode_v8}
+
+
+def _generate_tokens_chunked(backend: str, params: dict, cfg: LinearTransformerConfig,
+                             init_tokens: torch.Tensor, *,
+                             generator: Optional[torch.Generator], max_tokens: int,
+                             bar_cond: Optional[int], token_count: Optional[int],
+                             barbeat_field: int, bar_token_id: int, greedy: bool,
+                             settings: Sequence[smp.FieldSampling],
+                             chunk: Optional[int]) -> GenResult:
+    """The chunked kernels' loop (JAX :386-505): every init token but the
+    last seeds the state (``_seed_state``: the prefill for long prompts,
+    bucket-padded, else token by token), the last one is the kernel's first
+    input, and each call emits up to ``chunk`` tokens.  The host checks the
+    bar-count stop between calls; validity and bar counts are then derived
+    after the fact with the per-step path's semantics."""
     b, t0, nf = init_tokens.shape
     dev = init_tokens.device
     if chunk is None:
         chunk = min(max_tokens, 256) if bar_cond is None else 128
-    _refuse_prefill(t0 - 1)
     dtype = params["in_linear"]["w"].dtype
     pe = cm.sinusoidal_table(cfg.max_len, cfg.d_model, dtype, dev)
-    v6p = dk6.make_v6_params(params, cfg)
-    state = lt.init_decode_state(cfg, b, device=dev)
-    for t in range(t0 - 1):
-        _, state = lt.decode_step(params, cfg, init_tokens[:, t], state, pe_table=pe)
+    packed = _packed_decode_params(params, cfg)
+    prompt, n_valid = init_tokens[:, :-1], None
+    if _prompt_prefill_active(t0 - 1):
+        prompt, n_valid = _bucket_pad(prompt)
+    state = _seed_state(params, cfg, prompt, lt.init_decode_state(cfg, b, device=dev), pe,
+                        n_valid)
     sdt = decode_state_dtype()
     s, z = state.s.to(sdt).contiguous(), state.z.to(sdt).contiguous()
     tok = init_tokens[:, -1].to(torch.int32).contiguous()
@@ -224,11 +357,12 @@ def generate_tokens_persistent(params: dict, cfg: LinearTransformerConfig,
     seed &= 0x3FFFFFFF
     temps = tuple(st.temperature for st in settings)
     topps = tuple(st.top_p if st.top_p is not None else float("inf") for st in settings)
+    fused_decode = _CHUNK_KERNELS[backend]
     pieces, done_t, bars = [], 0, init_bars
     while done_t < max_tokens:
         n = min(chunk, max_tokens - done_t)
-        toks, s, z = dk6.fused_decode_v6(
-            v6p, tok, s, z, t0 - 1 + done_t, seed, n_head=cfg.n_head, max_tokens=n,
+        toks, s, z = fused_decode(
+            packed, tok, s, z, t0 - 1 + done_t, seed, n_head=cfg.n_head, max_tokens=n,
             vocab_sizes=cfg.vocab_sizes, temps=temps, topps=topps, greedy=greedy,
             eps=cfg.attn_eps)
         pieces.append(toks)
@@ -279,7 +413,9 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
     Greedy pins the plain per-step path whatever the device and batch (the
     JAX greedy pin, sampler.py:738-750): the kernels sum in another order and
     can flip an argmax at a near-tie.  RLMG_PERSISTENT_DECODE=1,
-    RLMG_FUSED_DECODE=1 and RLMG_FUSED_SAMPLING=1 opt greedy back in."""
+    RLMG_LATENCY_DECODE=1, RLMG_FUSED_DECODE=1 and RLMG_FUSED_SAMPLING=1 opt
+    greedy back in.  The latency path takes precedence over the chunked one
+    and never serves odd head counts (JAX :760-769)."""
     if mesh is not None:
         raise NotImplementedError("mesh-sharded generation is not ported")
     dev = params["in_linear"]["w"].device
@@ -300,20 +436,27 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
         bar_cond=gen_cfg.bar_production if gen_cfg.token_count is None else None,
         token_count=gen_cfg.token_count, greedy=gen_cfg.greedy,
         settings=smp.GREEDY if gen_cfg.greedy else smp.CP_SAMPLING)
-    _refuse_unported(b, gen_cfg.greedy)
     if gen_cfg.greedy:
         use_pers = os.environ.get("RLMG_PERSISTENT_DECODE") == "1"
+        use_lat = os.environ.get("RLMG_LATENCY_DECODE") == "1"
         use_f = os.environ.get("RLMG_FUSED_DECODE") == "1"
         use_fs = os.environ.get("RLMG_FUSED_SAMPLING") == "1"
     else:
         use_pers = use_persistent_decode(dev, batch=b)
+        use_lat = use_latency_decode(dev, batch=b)
         use_f = use_fused_decode(dev)
         use_fs = use_fused_sampling()
-    if use_pers:
+    if use_lat and cfg.n_head % 2 == 0:
+        res = generate_tokens_latency(params, cfg, init_tokens, **kwargs)
+    elif use_pers:
         res = generate_tokens_persistent(params, cfg, init_tokens, **kwargs)
     else:
+        n_valid = None
+        if (not gen_cfg.greedy and not (use_f and cfg.n_head % 2 != 0)
+                and _prompt_prefill_active(init_tokens.shape[1])):
+            init_tokens, n_valid = _bucket_pad(init_tokens)   # pad rows come back invalid
         res = generate_tokens(params, cfg, init_tokens, **kwargs, fused=use_f,
-                              fused_sampling=use_fs)
+                              fused_sampling=use_fs, n_valid=n_valid)
     tokens = res.tokens.cpu().numpy()
     valid = res.valid.cpu().numpy()
     return [tokens[i][valid[i]] for i in range(b)]

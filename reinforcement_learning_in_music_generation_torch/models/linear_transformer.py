@@ -17,8 +17,9 @@ the plain PyTorch composition.  An explicit ``RLMG_ATTN_BACKEND=pallas`` (or
 ``cfg.attn_backend``) takes the unfused layer at any row count, with kernel
 F (``ops/linear_attention_kernel.py``) as its attention; an explicit
 ``RLMG_FFN_BACKEND=pallas`` runs the unfused layer's post-LN1 half through
-kernel G (``ops/ffn_block.py ffn_block``) at any row count.  Not ported yet
-(ROADMAP): ``forward_prefill``, ``remat``.
+kernel G (``ops/ffn_block.py ffn_block``) at any row count.  The parallel
+prompt prefill (``forward_prefill``) returns the recurrent decode state of
+a prompt in one training-style pass.  Not ported yet (ROADMAP): ``remat``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from ..config import LinearTransformerConfig
 from ..ops.attention_block import qkv_attention_block
 from ..ops.ffn_block import attn_tail_block, ffn_block
 from ..ops.linear_attention import (causal_linear_attention,
-                                    causal_linear_attention_bshe, linear_attention_step)
+                                    causal_linear_attention_bshe, feature_map,
+                                    linear_attention_step)
 from ..ops.losses import fields_cross_entropy
 from . import common as cm
 
@@ -337,3 +339,55 @@ def decode_step(params: dict, cfg: LinearTransformerConfig, token: torch.Tensor,
         new_z.append(z_l)
     h = cm.layernorm(params["final_ln"], h)
     return h, DecodeState(torch.stack(new_s), torch.stack(new_z), state.step + 1)
+
+
+def prefill_bucket(t: int, quantum: int = 64) -> int:
+    """Padded prompt length for ``forward_prefill``: the next multiple of
+    ``quantum`` (the JAX function, :585), so prompts of varied lengths share
+    one padded shape."""
+    return max(quantum, -(-t // quantum) * quantum)
+
+
+def forward_prefill(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor,
+                    n_valid: Optional[int] = None, *,
+                    pe_table: Optional[torch.Tensor] = None,
+                    state_dtype: torch.dtype = torch.float32
+                    ) -> Tuple[torch.Tensor, DecodeState]:
+    """Parallel prompt ingestion (JAX :593-646): one training-style forward
+    over the prompt that also returns the recurrent state after its last
+    valid token, the closed form of scanning ``decode_step`` over it,
+
+        S_l = sum_t phi(k_t) v_t^T,   z_l = sum_t phi(k_t).
+
+    x (B, T, n_fields) int, T possibly padded (``prefill_bucket``);
+    ``n_valid`` (default T) is the prompt's true length: positions >=
+    n_valid add nothing to the state, and h_last is read at n_valid - 1.
+    The state sums in ``state_dtype`` (f32) whatever the weights' type.
+    The attention is the chunked ``causal_linear_attention_bshe`` core on
+    every backend, as JAX's; its summation order differs from the
+    per-token scan, so streams are float-close, not bit-equal.
+
+    Returns (h_last (B, D) after final_ln, DecodeState at step n_valid)."""
+    b, t, _ = x.shape
+    n_valid = t if n_valid is None else int(n_valid)
+    valid = (torch.arange(t, device=x.device) < n_valid)[None, :, None, None]
+    h = cm.linear(params["in_linear"], cm.embed_fields(params["emb"], x))
+    if pe_table is None:
+        pe_table = cm.sinusoidal_table(cfg.max_len, cfg.d_model, h.dtype, h.device)
+    h = h + pe_table[:t][None].to(h.dtype)
+    ss, zs = [], []
+    for l in range(cfg.n_layer):
+        lp = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in params["layers"].items()}
+        bshe = lambda a: a.reshape(b, t, cfg.n_head, cfg.d_head)
+        q, k, v = (bshe(cm.linear(lp[n], h)) for n in ("wq", "wk", "wv"))
+        pk = feature_map(k.to(state_dtype)) * valid
+        ss.append(torch.einsum("bthe,bthf->bhef", pk, v.to(state_dtype)))
+        zs.append(pk.sum(1))
+        att = causal_linear_attention_bshe(q, k, v, eps=cfg.attn_eps,
+                                           chunk=min(cfg.attn_chunk, t))
+        att = cm.linear(lp["wo"], att.reshape(b, t, cfg.d_model))
+        h = cm.layernorm(lp["ln1"], h + att)
+        y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], h), approximate="none")
+        h = cm.layernorm(lp["ln2"], h + cm.linear(lp["ffn2"], y))
+    h_last = cm.layernorm(params["final_ln"], h[:, n_valid - 1])
+    return h_last, DecodeState(torch.stack(ss), torch.stack(zs), n_valid)

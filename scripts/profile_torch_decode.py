@@ -4,11 +4,15 @@
     python3 scripts/profile_torch_decode.py [--out build/profile]
 
 At the flagship width (config.agent_config, random weights from a seed) it
-traces, with torch.profiler, the two decode paths of ``generate``:
+traces, with torch.profiler, the decode paths of ``generate``:
   * per-step: ``generate_tokens(fused=True, fused_sampling=True)``, 5 songs,
-    64 steps (the decode_step kernel plus the sampling in PyTorch);
+    64 steps (the decode_step kernel plus the sampling in PyTorch), with
+    f32 weights and again with bf16 (``generate``'s default);
   * chunked: ``generate_tokens_persistent``, 128 songs, one 128-token call
-    (the decode_chunk kernel, sampling included).
+    (the decode_chunk kernel, sampling included), f32 weights;
+  * latency: ``generate_tokens_latency``, 5 songs, one 64-token call, bf16
+    weights, on v8 and under ``RLMG_LATENCY_KERNEL=v7`` on v7 (the
+    latency_decode kernels, sampling included).
 Each window runs once untraced first (kernels built, caches warm).  For
 each it prints the wall time, the summed device time of all kernels, the
 device busy share (device time over wall time; launches overlap rarely
@@ -86,12 +90,24 @@ def main():
         return torch.tensor([[sampler.CP_SEED]], dtype=torch.int32,
                             device=dev).expand(b, 1, 6).contiguous()
 
+    p16 = lt.cast_params(params, torch.bfloat16)
+
+    def latency(version):
+        os.environ["RLMG_LATENCY_KERNEL"] = version
+        return sampler.generate_tokens_latency(p16, cfg, init(5), generator=gen,
+                                               max_tokens=64)
+
     res = [
         profile("per_step_B5_64steps", lambda: sampler.generate_tokens(
             params, cfg, init(5), generator=gen, max_tokens=64, fused=True,
             fused_sampling=True), args.out),
         profile("chunked_B128_128tokens", lambda: sampler.generate_tokens_persistent(
             params, cfg, init(128), generator=gen, max_tokens=128), args.out),
+        profile("per_step_B5_64steps_bf16", lambda: sampler.generate_tokens(
+            p16, cfg, init(5), generator=gen, max_tokens=64, fused=True,
+            fused_sampling=True), args.out),
+        profile("latency_v8_B5_64tokens_bf16", lambda: latency("v8"), args.out),
+        profile("latency_v7_B5_64tokens_bf16", lambda: latency("v7"), args.out),
     ]
     print(json.dumps({"card": card, "windows": res}))
 

@@ -17,6 +17,8 @@ from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v
 from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v6 as tdk6
 from reinforcement_learning_in_music_generation_torch.ops import ffn_block as tfb
 from reinforcement_learning_in_music_generation_torch.ops import sampling as tsmp
+from reinforcement_learning_in_music_generation_torch.ops.experimental import (
+    decode_kernel_v7 as tdk7, decode_kernel_v8 as tdk8)
 
 VOCAB = (56, 135, 18, 87, 18, 25)
 CP_TEMPS = tuple(s.temperature for s in tsmp.CP_SAMPLING)
@@ -407,3 +409,84 @@ def test_ffn_block_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tfb.ffn_block(h, ws[0].T.contiguous().T, *ws[1:], 0, 0.0)
     with pytest.raises(ValueError, match="shape"):
         tfb.ffn_block(h, ws[0], ws[1][:32].contiguous(), *ws[2:], 0, 0.0)
+
+
+# -- the latency kernels (csrc/latency_decode.cu): v8 one launch per chunk, v7
+# one launch per layer; the plain twin is kernel B's plain chunk
+
+LATENCY = {7: tdk7.fused_decode_v7, 8: tdk8.fused_decode_v8}
+
+
+def _latency_setup(dev, wdt, b):
+    cfg, params, gen = _setup(dev, 128, 2, wdt)       # d_model 128, heads of 64, FFN 256
+    rp = tdk8.make_resident_params(params, cfg)
+    return cfg, rp, gen, [_tokens(gen, dev, b) for _ in range(8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("version", [7, 8])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 5, 16])
+def test_latency_kernel_matches_plain(dev, version, wdt, b):
+    """Teacher-forced, one token a call, f32 state: the state within 1e-4
+    (rtol) / 1e-3 (atol) of the plain twin's (summation order only), the
+    greedy and the sampled tokens (same Philox bits) equal but at
+    near-ties.  Each call issues one CUDA launch (v8) or L + 2 (v7)."""
+    cfg, rp, gen, toks = _latency_setup(dev, wdt, b)
+    fn = LATENCY[version]
+    per_call = 1 if version == 8 else cfg.n_layer + 2
+    for greedy, temps, topps in ((True, (1.0,) * 6, (float("inf"),) * 6),
+                                 (False, CP_TEMPS, CP_TOPPS)):
+        kw = dict(n_head=2, max_tokens=1, temps=temps, topps=topps, greedy=greedy,
+                  eps=cfg.attn_eps)
+        sk = tdk4.init_state(cfg, b, torch.float32, dev)
+        sp = tdk4.init_state(cfg, b, torch.float32, dev)
+        before, cuda_before, agree = fn.launches, fn.cuda_launches, 0
+        for t, tok in enumerate(toks):
+            ok, _, _ = fn(rp, tok, sk.s, sk.z, t, 3, vocab_sizes=VOCAB, **kw)
+            op, _, _ = tdk6.fused_decode_v6_plain(rp, tok, sp.s, sp.z, t, 3, **kw)
+            agree += int((ok == op).sum())
+        assert fn.launches == before + len(toks)
+        assert fn.cuda_launches == cuda_before + per_call * len(toks)
+        assert agree / (len(toks) * b * 6) >= 0.97
+        torch.testing.assert_close(sk.s, sp.s, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(sk.z, sp.z, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_latency_v7_equals_v8_and_is_chunk_invariant(dev, sdt, greedy):
+    """v7 and v8 run the same device functions in the same order: tokens and
+    states bit-equal; 16 tokens in one v8 call equal 8 + 8."""
+    b = 5
+    cfg, rp, gen, toks = _latency_setup(dev, torch.bfloat16, b)
+    kw = dict(n_head=2, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS, greedy=greedy,
+              eps=cfg.attn_eps)
+    st = {v: tdk4.init_state(cfg, b, sdt, dev) for v in (7, 8, 0)}
+    out = {v: LATENCY[v](rp, toks[0], st[v].s, st[v].z, 2, 11, max_tokens=16, **kw)[0]
+           for v in (7, 8)}
+    first, _, _ = tdk8.fused_decode_v8(rp, toks[0], st[0].s, st[0].z, 2, 11, max_tokens=8,
+                                      **kw)
+    rest, _, _ = tdk8.fused_decode_v8(rp, first[-1].contiguous(), st[0].s, st[0].z, 10, 11,
+                                     max_tokens=8, **kw)
+    assert torch.equal(out[7], out[8])
+    assert torch.equal(st[7].s, st[8].s) and torch.equal(st[7].z, st[8].z)
+    assert torch.equal(out[8], torch.cat([first, rest]))
+    assert torch.equal(st[8].s, st[0].s) and torch.equal(st[8].z, st[0].z)
+    assert (out[8] >= 0).all() and (out[8] < torch.tensor(VOCAB, device=dev)).all()
+
+
+@pytest.mark.gpu
+def test_latency_wrappers_reject_what_the_kernels_do_not_take(dev):
+    cfg, rp, gen, _ = _latency_setup(dev, torch.float32, 1)
+    kw = dict(n_head=2, max_tokens=1, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
+    big = tdk8.MAX_BATCH + 1
+    st = tdk4.init_state(cfg, big, torch.float32, dev)
+    for fn in LATENCY.values():
+        with pytest.raises(ValueError, match="batch"):
+            fn(rp, _tokens(gen, dev, big), st.s, st.z, 0, 0, **kw)
+        with pytest.raises(ValueError, match="tok0"):
+            fn(rp, _tokens(gen, dev, big).long(), st.s, st.z, 0, 0, **kw)
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(rp, _tokens(gen, dev, big).to("meta"), st.s, st.z, 0, 0, **kw)
