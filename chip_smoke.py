@@ -6,8 +6,9 @@
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
   1. builds every kernel of the generation, training, discriminator, DQN and
-     PPO paths from ``csrc/`` (one nvcc per source, in parallel), prints each library's
-     ptxas registers and spills, and the card's name and power limit;
+     PPO paths and the decode kernels v3, v1, v2 and v5 from ``csrc/`` (one
+     nvcc per source, in parallel), prints each library's ptxas registers
+     and spills, and the card's name and power limit;
   2. at the full width of ``config.agent_config`` (12 layers, d_model 512,
      8 heads, FFN 2048) with random weights from a seed, holds each kernel
      against its plain PyTorch version on the same inputs:
@@ -134,7 +135,32 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      forward_prefill's state against 100 decode steps (1e-3 of magnitude);
  24. times v8, v7, the plain twin and kernel A per token at B=1, 5 and 16
      (bf16 weights and state) beside the bound;
- 25. times each kernel and its plain version at the main paths' shapes
+ 25. holds v3 (csrc/decode_aug.cu) against its plain twin at full width,
+     8 heads of 64 at B=5 and 32 and one head of 512 at B=5, f32 and bf16
+     weights, f32 augmented state, 32 teacher-forced tokens: h and the
+     state within 1e-4 of their magnitude with f32 weights, >= 99% greedy
+     agreement with bf16;
+ 26. the odd-head path end to end: ``generate_songs`` with agent_config at
+     one head of 512 (5 songs, 8 bars, CP sampling, bf16, the default env)
+     reaches v3 and never kernel A, every token in its vocabulary; tokens/s
+     printed beside kernel A's at 8 heads;
+ 27. v1 and v2 (the same source) through ``fused_decode_step`` at full
+     width, B=32, 16 tokens, f32: h and state within 1e-4 of their
+     magnitude against the plain twins, one wrapper call a layer;
+ 28. v5 (csrc/latency_decode.cu): its main path, the parity (B=8, T=64,
+     bf16 and f32 weights) and perf (B=256, T=128, bb 8, 16, 32) modes of
+     scripts/profile_torch_decode_v5.py, launches the kernel, every token in
+     range, the f32 greedy stream >= 99% equal to the per-step path's (the
+     bf16 one is printed: that reference rounds its activations to bf16);
+     against its plain twin at B=8, bf16 weights, 64 one-token calls
+     each from the twin's state, greedy and CP sampling with one seed:
+     >= 99% of the tokens equal, and after the same 64 fed tokens the
+     states within 1e-3 of their magnitude; bb=16 at B=8 refused;
+ 29. times v3 (B=5 at one head; B=5, 32, 128 at 8 heads), v1 and v2 (one
+     layer, B=32) and v5 (B=8; B=256 at bb 8, 16, 32) beside their plain
+     twins, kernel A (and v8) at the same B, the launches a token read from
+     the counters and the bound (operations at the bf16 peak for v5);
+ 30. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
      beside the library call.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -156,6 +182,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # f32 FMA outside the tensor cores
+BF16_FLOPS = 989e12            # bf16 products with f32 sums, tensor cores, dense
 FIELDS = 6
 
 
@@ -182,8 +209,13 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
+    """(least ms, what binds) of a function that moves ``nbytes`` and does
+    ``flops`` operations at the card's peak for their type: ``BF16_FLOPS``
+    where the function's products take bf16 inputs (v5, v7 and v8 cast the
+    activations to the bf16 weights' type), else f32 outside the tensor
+    cores."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -316,6 +348,31 @@ def latency_work(b, T, L, d, di, h, *, w_bytes, s_bytes, nf=FIELDS, vf=256):
     nbytes_ = (T * (w_bytes * (w + small) + 4 * (nf * vf + 2 * d + d + 2 * b * nf))
                + latency_state_bytes(b, L, d, h, s_bytes=s_bytes))
     return ops, nbytes_
+
+
+def aug_state_bytes(b, L, d, h):
+    """Bytes of reading and writing the f32 augmented state of v3, v1 and v2
+    once: (E, E + 1) values a (layer, head, song)."""
+    e = d // h
+    return 2 * 4 * L * h * b * e * (e + 1)
+
+
+def v5_state_bytes(b, L, d, h):
+    """Bytes of reading and writing v5's f32 batch-major state once: S
+    (E, H E) and z (H E) a (layer, song)."""
+    e = d // h
+    return 2 * 4 * L * b * (e * d + d)
+
+
+def decode_token_work(b, L, d, di, *, w_bytes, state_bytes, nf=0, vf=256):
+    """(operations, bytes) of one decode token of B songs through L layers,
+    and through the padded heads when nf > 0: 2 B (L (4 D^2 + 2 D DI) +
+    D NF VF_PAD) operations; bytes the weight matrices once in their stored
+    type, the f32 biases and LN vectors, the state read and written once
+    (``state_bytes``) and h in and out."""
+    w = L * (4 * d * d + 2 * d * di) + d * nf * vf
+    small = 4 * (L * (9 * d + di) + nf * vf)
+    return 2 * b * w, w_bytes * w + small + state_bytes + 2 * 4 * b * d
 
 
 def window_work(b, h, s, d, w, mask):
@@ -623,7 +680,7 @@ def latency_slice(cfg, params, dev, gen) -> list:
         h = lt.embed_input(params, cfg, tok, 0, None).float()
         row["A"] = time_ms(lambda: dk4.fused_stack_step(dp16, h, st.s, st.z, n_head=H), 20)
         ops, nb = latency_work(b, T, L, D, DI, H, w_bytes=2, s_bytes=2)
-        bd, row["by"] = bound(nb, ops)
+        bd, row["by"] = bound(nb, ops, BF16_FLOPS)
         row["bound"] = bd / T
         row["state"] = latency_state_bytes(b, L, D, H, s_bytes=2) / HBM_BYTES_PER_S * 1e3
         rows[b] = row
@@ -651,6 +708,328 @@ def latency_slice(cfg, params, dev, gen) -> list:
         if v == 7:
             entry["state_ms_per_token"] = rows[5]["state"]
         entries.append(entry)
+    return entries
+
+
+def aug_slice(cfg, params, dev, gen) -> list:
+    """Phases 25-29: v3 (csrc/decode_aug.cu) against its plain twin and on
+    its main path, odd-head ``generate_songs``; v1 and v2 (the same source)
+    through ``fused_decode_step``; v5 (csrc/latency_decode.cu) on its main
+    path, ``scripts/profile_torch_decode_v5.py``'s parity and perf modes,
+    and against its plain twin; then their times.  Returns the four entries
+    of the kernels line."""
+    import dataclasses
+    import importlib.util
+
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.generate import sampler
+    from reinforcement_learning_in_music_generation_torch.models import (
+        common as cm, linear_transformer as lt)
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        decode_kernel_v3 as dk3, decode_kernel_v4 as dk4, sampling as smp)
+    from reinforcement_learning_in_music_generation_torch.ops.experimental import (
+        decode_kernel as dk, decode_kernel_v5 as dk5, decode_kernel_v8 as dk8)
+    L, D, H, DI = cfg.n_layer, cfg.d_model, cfg.n_head, cfg.d_inner
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg1 = dataclasses.replace(cfg, n_head=1)             # the odd head count dividing 512
+    p16 = lt.cast_params(params, bf16)
+    dparams = lt.make_decode_params(params, cfg)
+    v3p = {(c.n_head, w): dk3.make_v3_params(params, c, dtype=w) for c in (cfg, cfg1)
+           for w in (f32, bf16)}
+    vocab = torch.tensor(cfg.vocab_sizes, device=dev)
+    cp = dict(temps=tuple(s.temperature for s in smp.CP_SAMPLING),
+              topps=tuple(s.top_p if s.top_p is not None else float("inf")
+                          for s in smp.CP_SAMPLING))
+    modes = {True: dict(temps=(1.0,) * FIELDS, topps=(float("inf"),) * FIELDS), False: cp}
+
+    def rand_tokens(steps, b):
+        return torch.stack([torch.randint(0, v, (steps, b), generator=gen, device=dev)
+                            for v in cfg.vocab_sizes], dim=-1).to(torch.int32)
+
+    def greedy_next(h):
+        logits = lt.fused_logits(dparams, cfg, cm.layernorm(params["final_ln"], h))
+        return torch.stack([lg.argmax(-1) for lg in logits], dim=-1)
+
+    def layer(li, p=params):
+        return {k: {kk: vv[li] for kk, vv in v.items()} for k, v in p["layers"].items()}
+
+    # -- 25. v3 against its plain twin, 32 teacher-forced tokens -------------
+    v3_err = 0.0
+    for c, b, wdt in ((cfg, 5, f32), (cfg, 32, f32), (cfg, 5, bf16), (cfg, 32, bf16),
+                      (cfg1, 5, f32), (cfg1, 5, bf16)):
+        vp = v3p[(c.n_head, wdt)]
+        sk, sp = dk3.init_aug_state(c, b, dev), dk3.init_aug_state(c, b, dev)
+        toks = rand_tokens(32, b)
+        h_err, h_abs, agree = 0.0, 0.0, 0
+        for t in range(32):
+            h0 = lt.embed_input(params, c, toks[t], t, None).float()
+            hk, _ = dk3.fused_stack_step(vp, h0, sk, n_head=c.n_head, eps=c.attn_eps)
+            hp, _ = dk3.fused_stack_step_plain(vp, h0, sp, n_head=c.n_head, eps=c.attn_eps)
+            h_abs = max(h_abs, max_err(hk, hp))
+            h_err = max(h_err, max_err(hk, hp) / magnitude(hp))
+            agree += (greedy_next(hk) == greedy_next(hp)).sum().item()
+        torch.cuda.synchronize()
+        s_err = max_err(sk, sp) / magnitude(sp)
+        frac = agree / (32 * b * FIELDS)
+        tag = f"{c.n_head} head(s) of {D // c.n_head}, B={b}, weights {str(wdt)[6:]}"
+        print(f"[v3] {tag}: max|dh| / magnitude {h_err:.3e} (max|dh| {h_abs:.3e}), max|ds| / "
+              f"magnitude {s_err:.3e} (max|s| {sp.abs().max().item():.3e}); greedy agreement "
+              f"{frac:.4%}", flush=True)
+        if wdt == f32:
+            check(h_err <= 1e-4 and s_err <= 1e-4, f"v3 {tag}: h {h_err}, state {s_err}")
+            v3_err = max(v3_err, h_abs)
+        else:
+            check(frac >= 0.99, f"v3 {tag}: greedy agreement {frac} < 99%")
+
+    # -- 26. the odd-head path end to end: generate_songs, default env --------
+    knobs = [k for k in os.environ if k.startswith("RLMG_") and "DECODE" in k or k in (
+        "RLMG_FUSED_SAMPLING", "RLMG_LATENCY_MAX_BATCH", "RLMG_PERSISTENT_MIN_BATCH")]
+    saved = {k: os.environ.pop(k) for k in knobs}
+    rates, gen_launches = {}, {}
+    for name, c in (("v3", cfg1), ("A", cfg)):
+        sampler.generate_songs(p16, c, C.GenerateConfig(batch_size=5, max_tokens=8,
+                                                        bar_production=None, token_count=8))
+        torch.cuda.synchronize()
+        for fn in (dk3.fused_stack_step, dk4.fused_stack_step):
+            fn.launches = 0
+        dk3.fused_stack_step.cuda_launches = 0
+        t = time.perf_counter()
+        songs = sampler.generate_songs(p16, c, C.GenerateConfig(batch_size=5, max_tokens=512,
+                                                                bar_production=8, seed=11))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        counts = {"v3": dk3.fused_stack_step.launches, "A": dk4.fused_stack_step.launches,
+                  "v3_cuda": dk3.fused_stack_step.cuda_launches}
+        n_tok = sum(len(s) for s in songs)
+        ok = len(songs) == 5 and all(
+            len(s) and ((s >= 0) & (s < vocab.cpu().numpy())).all() for s in songs)
+        rates[name] = n_tok / sec
+        gen_launches[name] = counts
+        print(f"[generate_songs] {c.n_head} head(s), 5 songs, 8 bars, bf16 weights: {n_tok} "
+              f"tokens in {sec:.3f}s = {rates[name]:.1f} tokens/s; wrapper calls {counts}",
+              flush=True)
+        check(ok, f"generate_songs ({name}): a token outside its vocabulary")
+        other = "A" if name == "v3" else "v3"
+        check(counts[name] > 0 and counts[other] == 0,
+              f"generate_songs ({name}): kernel calls {counts}")
+    os.environ.update(saved)
+    v3_cuda_per_token = gen_launches["v3"]["v3_cuda"] / max(1, gen_launches["v3"]["v3"])
+    print(f"[generate_songs] tokens/s: v3 at one head {rates['v3']:.1f}, kernel A at 8 heads "
+          f"{rates['A']:.1f}; v3's CUDA launches a token {v3_cuda_per_token:g}", flush=True)
+
+    # -- 27. v1 and v2 through fused_decode_step, B=32, 16 tokens, f32 --------
+    layer_err, layer_launch = {}, {}
+    for variant, fn, plain in (("v1", dk.fused_layer_step, dk.fused_layer_step_plain),
+                               ("v2", dk.fused_layer_step_v2, dk.fused_layer_step_v2_plain)):
+        b = 32
+        toks = rand_tokens(16, b)
+        sk = lt.DecodeState(dk.aug_state_init(cfg, b, dev), None, 0)
+        sp = dk.aug_state_init(cfg, b, dev)
+        fn.launches = fn.cuda_launches = 0
+        h_err, h_abs = 0.0, 0.0
+        for t in range(16):
+            hk, sk = dk.fused_decode_step(params, cfg, toks[t], sk, variant=variant)
+            hp = lt.embed_input(params, cfg, toks[t], t, None)
+            for li in range(L):
+                hp, _ = plain(hp, layer(li), sp[li], n_head=H, eps=cfg.attn_eps)
+            hp = cm.layernorm(params["final_ln"], hp)
+            h_abs = max(h_abs, max_err(hk, hp))
+            h_err = max(h_err, max_err(hk, hp) / magnitude(hp))
+        torch.cuda.synchronize()
+        s_err = max_err(sk.s, sp) / magnitude(sp)
+        layer_err[variant] = h_abs
+        layer_launch[variant] = (fn.launches, fn.cuda_launches)
+        print(f"[{variant}] fused_decode_step B={b}, 16 tokens, f32: max|dh| / magnitude "
+              f"{h_err:.3e}, max|ds| / magnitude {s_err:.3e}; wrapper calls {fn.launches}, "
+              f"CUDA launches {fn.cuda_launches}", flush=True)
+        check(h_err <= 1e-4 and s_err <= 1e-4, f"{variant}: h {h_err}, state {s_err}")
+        check(fn.launches == 16 * L, f"{variant}: {fn.launches} calls, expected {16 * L}")
+
+    # -- 28. v5: its main path, then against its plain twin -------------------
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_decode_v5", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                "scripts", "profile_torch_decode_v5.py"))
+    prof5 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof5)
+    dk5.fused_decode_v5.launches = dk5.fused_decode_v5.positions = 0
+    par = {str(w)[6:]: prof5.parity(8, 64, dev, dtype=w) for w in (bf16, f32)}
+    prf = prof5.perf(256, 128, dev, reps=1)
+    torch.cuda.synchronize()
+    v5_launches, v5_positions = dk5.fused_decode_v5.launches, dk5.fused_decode_v5.positions
+    print(f"[v5] profile_torch_decode_v5 parity (bf16, f32) + perf: {v5_launches} kernel calls "
+          f"for {v5_positions} token positions", flush=True)
+    for w, r in par.items():
+        print(f"[v5] free-running greedy parity with the per-step path, {w} weights: "
+              f"{r['tokens'] - r['mismatches']}/{r['tokens']} tokens equal, first mismatch "
+              f"(song, token, field) {r['first_mismatch']}", flush=True)
+    check(v5_launches > 0, "v5: its main path never launched the kernel")
+    # in f32 the streams differ only in the order of their sums; in bf16 the
+    # reference also rounds its activations, so they part at near-ties early
+    f32_par = par["float32"]
+    check(f32_par["mismatches"] <= 0.01 * f32_par["tokens"],
+          f"v5: f32 greedy parity {f32_par['mismatches']} of {f32_par['tokens']} tokens differ")
+    check(all(r["stochastic_in_range"] for r in par.values())
+          and all(r["in_range"] for r in prf["by_bb"].values()),
+          "v5: a token outside its vocabulary")
+    v5p = dk5.make_v5_params(p16, cfg)
+    pe = cm.sinusoidal_table(cfg.max_len, D, f32, dev)
+    b = 8
+    toks = rand_tokens(64, b)
+    v5_err = 0.0
+    for greedy in (True, False):
+        kw = dict(n_head=H, max_tokens=1, greedy=greedy, eps=cfg.attn_eps, **modes[greedy])
+        st = lt.init_decode_state(cfg, b, device=dev)
+        s_own, z_own = dk5.pack_state(st.s, st.z)
+        sp, zp = dk5.pack_state(st.s, st.z)
+        agree = 0
+        for t in range(64):
+            s_tf, z_tf = sp.clone(), zp.clone()       # a call from the plain twin's state
+            ok = dk5.fused_decode_v5(v5p, toks[t], s_tf, z_tf, pe[t:t + 1], 17 + t, bb=8,
+                                     vocab_sizes=cfg.vocab_sizes, **kw)[0]
+            dk5.fused_decode_v5(v5p, toks[t], s_own, z_own, pe[t:t + 1], 17 + t, bb=8,
+                                vocab_sizes=cfg.vocab_sizes, **kw)
+            op = dk5.fused_decode_v5_plain(v5p, toks[t], sp, zp, pe[t:t + 1], 17 + t, **kw)[0]
+            agree += (ok == op).sum().item()
+            check(bool(((ok >= 0) & (ok < vocab)).all()), "v5: a token outside its vocabulary")
+        torch.cuda.synchronize()
+        frac = agree / (64 * b * FIELDS)
+        ds = max(max_err(s_own, sp) / magnitude(sp), max_err(z_own, zp) / magnitude(zp))
+        v5_err = max(v5_err, max_err(s_own, sp))
+        mode = "greedy" if greedy else "CP sampling, one seed"
+        print(f"[v5] B={b}, bf16 weights, f32 state, 64 tokens, {mode}: teacher-forced "
+              f"agreement with the plain twin {frac:.4%}; state after the same 64 fed tokens "
+              f"max|ds| / magnitude {ds:.3e}", flush=True)
+        check(frac >= 0.99, f"v5 {mode}: agreement {frac} < 99%")
+        check(ds <= 1e-3, f"v5 {mode}: state differs by {ds} of its magnitude")
+    try:
+        dk5.fused_decode_v5(v5p, toks[0], s_own, z_own, pe, 0, bb=16,
+                            vocab_sizes=cfg.vocab_sizes, **kw)
+        fail("v5: bb=16 at B=8 was not refused")
+    except ValueError as e:
+        print(f"[v5] refuses bb=16 at B=8: {e}", flush=True)
+
+    # -- 29. times: v3, v1, v2, v5 beside their plain twins, kernel A and v8 --
+    dp16 = lt.make_decode_params(params, cfg, bf16)
+    t3 = {}
+    for c, b in ((cfg1, 5), (cfg, 5), (cfg, 32), (cfg, 128)):
+        vp = v3p[(c.n_head, bf16)]
+        st3 = dk3.init_aug_state(c, b, dev)
+        h0 = lt.embed_input(params, c, rand_tokens(1, b)[0], 0, None).float()
+        n0 = dk3.fused_stack_step.cuda_launches
+        ms = time_ms(lambda: dk3.fused_stack_step(vp, h0, st3, n_head=c.n_head), 20)
+        per_call = (dk3.fused_stack_step.cuda_launches - n0) / 21
+        pms = time_ms(lambda: dk3.fused_stack_step_plain(vp, h0, st3, n_head=c.n_head), 3)
+        row = {"ms": ms, "plain_ms": pms, "cuda_launches_per_token": per_call}
+        if c.n_head % 2 == 0:
+            sa = dk4.init_state(c, b, device=dev)
+            row["kernel_a_ms"] = time_ms(lambda: dk4.fused_stack_step(dp16, h0, sa.s, sa.z,
+                                                                      n_head=c.n_head), 20)
+        ops, nb = decode_token_work(b, L, D, DI, w_bytes=2,
+                                    state_bytes=aug_state_bytes(b, L, D, c.n_head))
+        row["bound_ms"], row["bound_by"] = bound(nb, ops)
+        t3[(c.n_head, b)] = row
+        print(f"[time] v3 {c.n_head} head(s), B={b}, bf16 weights, f32 state: {ms:.4f} ms a "
+              f"token ({per_call:g} CUDA launches), plain {pms:.3f}, kernel A "
+              f"{row.get('kernel_a_ms', float('nan')):.4f} (bf16 state); bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    b = 32
+    h32 = lt.embed_input(params, cfg, rand_tokens(1, b)[0], 0, None).float()
+    sa = dk4.init_state(cfg, b, f32, dev)
+    a32 = time_ms(lambda: dk4.fused_stack_step(dparams, h32, sa.s, sa.z, n_head=H), 20) / L
+    tl = {}
+    for variant, fn, plain in (("v1", dk.fused_layer_step, dk.fused_layer_step_plain),
+                               ("v2", dk.fused_layer_step_v2, dk.fused_layer_step_v2_plain)):
+        s1 = dk.aug_state_init(cfg, b, dev)[0]
+        lp = layer(0)
+        n0 = fn.cuda_launches
+        ms = time_ms(lambda: fn(h32, lp, s1, n_head=H), 20)
+        per_call = (fn.cuda_launches - n0) / 21
+        pms = time_ms(lambda: plain(h32, lp, s1, n_head=H), 5)
+        ops, nb = decode_token_work(b, 1, D, DI, w_bytes=4,
+                                    state_bytes=aug_state_bytes(b, 1, D, H))
+        bd, by = bound(nb, ops)
+        tl[variant] = {"ms": ms, "plain_ms": pms, "kernel_a_ms_per_layer": a32,
+                       "cuda_launches_per_call": per_call, "bound_ms": bd, "bound_by": by}
+        print(f"[time] {variant} one layer, B={b}, f32 weights: {ms:.4f} ms a call "
+              f"({per_call:g} CUDA launches, the per-call weight layout included), plain "
+              f"{pms:.3f}, kernel A's layer stack / L {a32:.4f} (f32 state); bound {bd:.4f} "
+              f"({by})", flush=True)
+    t5 = {}
+    rp16 = dk8.make_resident_params(params, cfg, dtype=bf16)
+    for b, T, bbs in ((8, 64, (8,)), (256, 32, (8, 16, 32))):
+        st = lt.init_decode_state(cfg, b, device=dev)
+        s5, z5 = dk5.pack_state(st.s, st.z)
+        tok = rand_tokens(1, b)[0]
+        kw = dict(n_head=H, vocab_sizes=cfg.vocab_sizes, greedy=False, eps=cfg.attn_eps, **cp)
+        for bb in bbs:
+            dk5.fused_decode_v5.launches = dk5.fused_decode_v5.positions = 0
+            ms = time_ms(lambda: dk5.fused_decode_v5(v5p, tok, s5, z5, pe[:T], 1, max_tokens=T,
+                                                     bb=bb, **kw), 3) / T
+            row = {"ms": ms, "bb": bb, "T": T, "launches_per_token":
+                   dk5.fused_decode_v5.launches / max(1, dk5.fused_decode_v5.positions)}
+            if bb == bbs[0]:
+                kp = dict(kw)
+                kp.pop("vocab_sizes")
+                row["plain_ms"] = time_ms(lambda: dk5.fused_decode_v5_plain(
+                    v5p, tok, s5, z5, pe[:1], 1, max_tokens=1, **kp), 1)
+                sa = dk4.init_state(cfg, b, bf16, dev)
+                h0 = lt.embed_input(params, cfg, tok, 0, None).float()
+                row["kernel_a_ms"] = time_ms(lambda: dk4.fused_stack_step(dp16, h0, sa.s, sa.z,
+                                                                          n_head=H), 10)
+                if b <= dk8.MAX_BATCH:
+                    s8 = dk4.init_state(cfg, b, bf16, dev)
+                    row["v8_ms"] = time_ms(lambda: dk8.fused_decode_v8(
+                        rp16, tok, s8.s, s8.z, 0, 1, max_tokens=T, **kw), 3) / T
+                base = row
+            ops, nb = decode_token_work(b, L, D, DI, w_bytes=2, nf=FIELDS,
+                                        state_bytes=v5_state_bytes(b, L, D, H))
+            row["bound_ms"], row["bound_by"] = bound(nb, ops, BF16_FLOPS)
+            for k in ("plain_ms", "kernel_a_ms", "v8_ms"):
+                if k in base:
+                    row[k] = base[k]
+            t5[(b, bb)] = row
+            print(f"[time] v5 B={b} bb={bb}, bf16 weights, f32 state, {T}-token calls: "
+                  f"{ms:.4f} ms a token, plain {row['plain_ms']:.3f}, kernel A (layer stack, "
+                  f"bf16 state) {row['kernel_a_ms']:.4f}, v8 {row.get('v8_ms', float('nan')):.4f}"
+                  f"; {row['launches_per_token']:g} launches a token; bound "
+                  f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+
+    pkg = "reinforcement_learning_in_music_generation_torch"
+    tpu = "reinforcement_learning_in_music_generation_tpu/ops"
+    main3 = t3[(1, 5)]
+    entries = [
+        {"name": "decode_step_v3", "route": "cuda", "source": f"{pkg}/csrc/decode_aug.cu",
+         "replaces": f"{tpu}/decode_kernel_v3.py:173", "launches": gen_launches["v3"]["v3"],
+         "cuda_launches_per_token": v3_cuda_per_token, "max_abs_err": v3_err,
+         "ms": main3["ms"], "plain_ms": main3["plain_ms"], "bound_ms": main3["bound_ms"],
+         "bound_by": main3["bound_by"], "library_ms": None,
+         "unit": "ms per token of B=5 songs at one head of 512 (the odd-head path), bf16 "
+                 "weights, f32 state",
+         "by_batch": {f"{H} heads, B={b}": t3[(H, b)] for b in (5, 32, 128)},
+         "tokens_per_s_generate_songs": {"v3, one head": rates["v3"],
+                                         f"kernel A, {H} heads": rates["A"]}},
+    ]
+    for variant, line in (("v1", 91), ("v2", 186)):
+        r = tl[variant]
+        entries.append({
+            "name": f"decode_layer_{variant}", "route": "cuda", "source": f"{pkg}/csrc/decode_aug.cu",
+            "replaces": f"{tpu}/experimental/decode_kernel.py:{line}",
+            "launches": layer_launch[variant][0],
+            "cuda_launches_per_call": r["cuda_launches_per_call"],
+            "max_abs_err": layer_err[variant], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "kernel_a_ms_per_layer": r["kernel_a_ms_per_layer"],
+            "unit": "ms per layer call of B=32 songs, f32 weights and state"})
+    head5 = t5[(256, 8)]
+    entries.append({
+        "name": "decode_v5", "route": "cuda", "source": f"{pkg}/csrc/latency_decode.cu",
+        "replaces": f"{tpu}/experimental/decode_kernel_v5.py:411", "launches": v5_launches,
+        "launches_per_token": v5_launches / max(1, v5_positions), "max_abs_err": v5_err,
+        "ms": head5["ms"], "plain_ms": head5["plain_ms"], "bound_ms": head5["bound_ms"],
+        "bound_by": head5["bound_by"], "library_ms": None, "kernel_a_ms": head5["kernel_a_ms"],
+        "unit": "ms per token of B=256 songs, bb 8, bf16 weights, f32 state, 32-token calls",
+        "by_shape": {f"B={b} bb={bb}": r for (b, bb), r in t5.items()},
+        "profile_parity": par, "profile_perf": prf})
     return entries
 
 
@@ -1531,8 +1910,9 @@ def main() -> None:
     check(res["tokens"] == res["notes"] == 150, f"inference: {res['notes']} notes, expected 150")
 
     lat_entries = latency_slice(cfg, params, dev, gen)      # phases 21-24
+    aug_entries = aug_slice(cfg, params, dev, gen)          # phases 25-29
 
-    # -- 25. times at the main paths' shapes -------------------------------
+    # -- 30. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
     sdt = st.s.dtype
     h5 = lt.embed_input(params, cfg, rand_tokens(1, 5)[0], 0, None).float()
@@ -1734,7 +2114,7 @@ def main() -> None:
          "bound_by": g_t["update"]["bound_by"], "library_ms": None,
          "update_shape": g_t["update"], "rollout_shape": g_t["rollout"],
          "pretrain_shape": g_t["pretrain"], "launches_pretrain": sum(launches["G_pretrain"])},
-    ] + lat_entries
+    ] + lat_entries + aug_entries
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

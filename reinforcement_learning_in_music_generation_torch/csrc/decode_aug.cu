@@ -1,0 +1,284 @@
+// One decode token on the augmented state [S | z], (E, E + 1) f32 per
+// (head, song), z the last column: the CUDA counterparts of
+//   reinforcement_learning_in_music_generation_tpu/ops/decode_kernel_v3.py
+//     fused_stack_step (v3, its Pallas body _step_kernel: grid (L, H, batch
+//     blocks), every layer of a token, head-major weights, exact-erf gelu),
+//   .../ops/experimental/decode_kernel.py fused_layer_step (v1, its body
+//     _layer_kernel: one layer, the (D, 3D) [q | k | v] weight) and
+//     fused_layer_step_v2 (v2, _layer_kernel_v2: one layer, head-major
+//     weights); v1 and v2 use the tanh gelu.
+// One set of device functions serves the three.  A call runs L layers (v3:
+// every layer, v1 and v2: one) and the variant sets three switches: the
+// qkv weight's layout, the gelu, and where the Wo bias joins the residual.
+//
+// Per layer (launches in brackets):
+//   qkv      h @ Wqkv + b, phi on q and k.  v1: one K-split product over the
+//            (D, 3D) weight into a (B, 3D) buffer [2]; v2, v3: one per head
+//            over its (D, 3E) block of the (H, D, 3E) weight, into an
+//            (H, B, 3E) buffer [2 H]
+//   state    aug_state_kernel [1], one block per (head, song, tile of 32
+//            state columns).  Each block loops over the E rows, so its
+//            columns need no sum across blocks: S[:, u] += k v[u], num[u] =
+//            q . S[:, u].  Each block also forms column E, z + k, and the
+//            denominator q . (z + k); the last block of a (head, song) to
+//            finish writes column E back (an atomic counter picks it; the
+//            value written is the same whichever block it is).  att =
+//            num / (den + eps) into (B, D).  Any head width E.
+//   Wo, LN1  K-split att @ Wo [1], then LN1 [1] of h + (att Wo + bo) (v1) or
+//            of (h + att Wo) + bo (v2, v3: the sums of the TPU kernels);
+//            the head-major Wo (H, E, D) is the (D, D) matrix row for row
+//   FFN      y = gelu(h1 W1 + b1) [2], h = LN2(h1 + (y W2 + b2)) [2]
+// The products, the K-split reduction and the LN row are those of
+// decode_layers.cuh (kernel A's).  Everything accumulates in f32; the
+// weight matrices are read in their stored type (f32 or bf16), the biases
+// and LN vectors are f32, the state is f32, as in the TPU kernels.
+//
+// Bound on the card.  Per token the weights are read once (37.7M values at
+// the flagship width: 75.5 MB in bf16) and the state read and written once
+// (L H B E (E + 1) f32 each way: 1.6 MB a song at 12 layers and 8 heads of
+// 64); 2 B L (4 D^2 + 2 D DI) operations.  At B <= 128 in bf16 the bytes
+// bind.  What the design does about it: every product is K-split until
+// about 1024 blocks are in flight, the state is streamed once each way in
+// rows of 32 columns; what it does not do yet: tensor cores, one launch a
+// token (v3 issues 2 H + 7 launches a layer, v1 9).
+
+#include "decode_layers.cuh"
+
+namespace rlmg {
+
+constexpr int AUG_TC = 32;                       // state columns a block
+constexpr int AUG_THREADS = 256;
+constexpr int AUG_RG = AUG_THREADS / AUG_TC;     // row groups a block: 8
+
+// Where q, k and v of (song b, head h) lie in the qkv buffer: q at
+// b sb + h sh, k kd after q, v vd after q.
+struct QkvAt {
+  int sb, sh, kd, vd;
+};
+
+// Grid: H B ceil(E / AUG_TC) blocks in (head, song, tile) order; 2 E floats
+// of dynamic shared memory.  s_aug: the layer's (H, B, E, E + 1) state,
+// updated in place.  done: H B ints, 0 on entry and on exit.
+__global__ void __launch_bounds__(AUG_THREADS)
+aug_state_kernel(const float* __restrict__ qkv, QkvAt at, float* __restrict__ s_aug,
+                 float* __restrict__ att, int* __restrict__ done, int B, int H, int E,
+                 float eps) {
+  extern __shared__ float qk[];                  // q (E), k (E)
+  __shared__ float part[AUG_THREADS];
+  __shared__ float red[32];
+  __shared__ int last;
+  const int n_ct = (E + AUG_TC - 1) / AUG_TC;
+  const int ct = blockIdx.x % n_ct, hb = blockIdx.x / n_ct, h = hb / B, b = hb % B;
+  const int tid = threadIdx.x, c = tid % AUG_TC, rg = tid / AUG_TC, u = ct * AUG_TC + c;
+  const float* row = qkv + (size_t)b * at.sb + (size_t)h * at.sh;
+  float* qs = qk;
+  float* ks = qk + E;
+  for (int i = tid; i < E; i += AUG_THREADS) {
+    qs[i] = row[i];
+    ks[i] = row[at.kd + i];
+  }
+  const float vu = u < E ? row[at.vd + u] : 0.f;
+  __syncthreads();
+  const int W = E + 1;
+  float* sp = s_aug + (size_t)hb * E * W;
+  float num = 0.f;
+  if (u < E) {
+    for (int j = rg; j < E; j += AUG_RG) {
+      float* p = sp + (size_t)j * W + u;
+      const float sv = fmaf(ks[j], vu, *p);
+      *p = sv;
+      num = fmaf(qs[j], sv, num);
+    }
+  }
+  part[tid] = num;
+  float dq = 0.f;                                 // column E: read here, written below
+  for (int j = tid; j < E; j += AUG_THREADS) dq = fmaf(qs[j], sp[(size_t)j * W + E] + ks[j], dq);
+  const float den = block_sum(dq, red) + eps;     // synchronises: part is complete
+  if (rg == 0 && u < E) {
+    float n = 0.f;
+    for (int g = 0; g < AUG_RG; ++g) n += part[g * AUG_TC + c];
+    att[(size_t)b * H * E + (size_t)h * E + u] = n / den;
+  }
+  if (tid == 0) {                                 // every block has read column E by now
+    last = atomicAdd(done + hb, 1) == n_ct - 1;
+    if (last) done[hb] = 0;
+  }
+  __syncthreads();
+  if (last)
+    for (int j = tid; j < E; j += AUG_THREADS) sp[(size_t)j * W + E] += ks[j];
+}
+
+// out[row] = LN((resid[row] + sum_z part[z][row]) + bias) * scale + shift:
+// res_ln_kernel's row with the bias added after the residual, the order of
+// the v2 and v3 TPU kernels (h + sum_h att_h Wo_h, then + bo).
+__global__ void __launch_bounds__(LN_THREADS)
+res_ln_bias_last_kernel(const float* __restrict__ part, int S, const float* __restrict__ bias,
+                        const float* __restrict__ resid, const float* __restrict__ scale,
+                        const float* __restrict__ shift, float* __restrict__ out, int M, int D,
+                        float eps) {
+  __shared__ float xr[MAX_D];
+  __shared__ float red[32];
+  const size_t base = (size_t)blockIdx.x * D, MD = (size_t)M * D;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    float v = 0.f;
+    for (int zi = 0; zi < S; ++zi) v += part[zi * MD + base + i];
+    xr[i] = (resid[base + i] + v) + bias[i];
+  }
+  __syncthreads();
+  ln_row(xr, D, eps, red);
+  for (int i = threadIdx.x; i < D; i += blockDim.x) out[base + i] = xr[i] * scale[i] + shift[i];
+}
+
+// K-split partial sums of x (M, K) @ w (K, N) into part (s, M, N); *s gets
+// the number of slices.
+template <typename TW>
+int partials(const float* x, const TW* w, float* part, int M, int K, int N, cudaStream_t st,
+             int* s) {
+  const Split sp = split_k(M, K, N);
+  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, sp.s);
+  gemm_kernel<TW><<<grid, LIN_THREADS, 0, st>>>(x, w, (const TW*)nullptr, nullptr, part, M, K,
+                                                N, sp.kchunk, ACT_NONE, 0);
+  *s = sp.s;
+  RLMG_CHECK();
+  return 0;
+}
+
+// y (M, N) = act(sum of the s partial sums + bias), bias f32.
+inline int reduce(const float* part, int s, const float* bias, float* y, int M, int N, int act,
+                  int phi_cols, cudaStream_t st) {
+  const size_t mn = (size_t)M * N;
+  reduce_act_kernel<float><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(part, bias, y, M, N, s,
+                                                                          act, phi_cols);
+  RLMG_CHECK();
+  return 0;
+}
+
+struct AugArgs {
+  const void* w[N_WEIGHTS];   // decode_layers.cuh order, stacked over L: matrices in the
+                              // weights' type, biases and LN vectors f32
+  float* s;                   // (L, H, B, E, E + 1)
+  float *h, *qkv, *att, *h1, *y1, *part;
+  int* done;                  // (H, B)
+  int L, B, D, H, DI;
+  float eps;
+  int head_major, gelu_tanh, bias_last;
+};
+
+inline size_t aug_scratch_floats(int B, int D, int H, int DI, int head_major) {
+  const int E = D / H;
+  size_t part = 0;
+  const int shapes[4][2] = {{D, head_major ? 3 * E : 3 * D}, {D, D}, {D, DI}, {DI, D}};
+  for (auto& kn : shapes) {
+    const Split sp = split_k(B, kn[0], kn[1]);
+    const size_t n = (size_t)sp.s * B * kn[1];
+    if (n > part) part = n;
+  }
+  return (size_t)B * (3 * D + D + D + DI) + part;
+}
+
+#define AUG_TRY(call)          \
+  do {                         \
+    const int rc_ = (call);    \
+    if (rc_) return rc_;       \
+  } while (0)
+
+template <typename TW>
+int aug_run(const AugArgs& a, cudaStream_t st, int* launched) {
+  const int B = a.B, D = a.D, H = a.H, E = D / H, DI = a.DI;
+  const TW* const* M = (const TW* const*)a.w;
+  const float* const* V = (const float* const*)a.w;
+  const size_t slice = (size_t)H * B * E * (E + 1);
+  const QkvAt at = a.head_major ? QkvAt{3 * E, B * 3 * E, E, 2 * E} : QkvAt{3 * D, E, D, 2 * D};
+  const int n_ct = (E + AUG_TC - 1) / AUG_TC;
+  int s = 0;
+  for (int l = 0; l < a.L; ++l) {
+    const size_t dd = (size_t)l * D * D, d = (size_t)l * D;
+    const TW* wqkv = M[W_QKV] + 3 * dd;
+    const float* bqkv = V[B_QKV] + 3 * d;
+    if (a.head_major) {
+      for (int hh = 0; hh < H; ++hh) {
+        AUG_TRY(partials<TW>(a.h, wqkv + (size_t)hh * D * 3 * E, a.part, B, D, 3 * E, st, &s));
+        AUG_TRY(reduce(a.part, s, bqkv + hh * 3 * E, a.qkv + (size_t)hh * B * 3 * E, B, 3 * E,
+                       ACT_PHI, 2 * E, st));
+      }
+      *launched += 2 * H;
+    } else {
+      AUG_TRY(partials<TW>(a.h, wqkv, a.part, B, D, 3 * D, st, &s));
+      AUG_TRY(reduce(a.part, s, bqkv, a.qkv, B, 3 * D, ACT_PHI, 2 * D, st));
+      *launched += 2;
+    }
+    aug_state_kernel<<<H * B * n_ct, AUG_THREADS, 2 * E * sizeof(float), st>>>(
+        a.qkv, at, a.s + l * slice, a.att, a.done, B, H, E, a.eps);
+    RLMG_CHECK();
+    AUG_TRY(partials<TW>(a.att, M[W_O] + dd, a.part, B, D, D, st, &s));
+    if (a.bias_last)
+      res_ln_bias_last_kernel<<<B, LN_THREADS, 0, st>>>(a.part, s, V[B_O] + d, a.h,
+                                                         V[LN1_S] + d, V[LN1_B] + d, a.h1, B,
+                                                         D, 1e-5f);
+    else
+      res_ln_kernel<float><<<B, LN_THREADS, 0, st>>>(a.part, s, V[B_O] + d, a.h, V[LN1_S] + d,
+                                                     V[LN1_B] + d, a.h1, B, D, 1e-5f);
+    RLMG_CHECK();
+    AUG_TRY(partials<TW>(a.h1, M[W_F1] + (size_t)l * D * DI, a.part, B, D, DI, st, &s));
+    AUG_TRY(reduce(a.part, s, V[B_F1] + (size_t)l * DI, a.y1, B, DI,
+                   a.gelu_tanh ? ACT_GELU_TANH : ACT_GELU, 0, st));
+    AUG_TRY(partials<TW>(a.y1, M[W_F2] + (size_t)l * DI * D, a.part, B, DI, D, st, &s));
+    res_ln_kernel<float><<<B, LN_THREADS, 0, st>>>(a.part, s, V[B_F2] + d, a.h1, V[LN2_S] + d,
+                                                   V[LN2_B] + d, a.h, B, D, 1e-5f);
+    RLMG_CHECK();
+    *launched += 7;
+  }
+  return 0;
+}
+
+}  // namespace rlmg
+
+extern "C" {
+
+// f32 scratch floats rlmg_decode_aug needs at batch B.
+long long rlmg_aug_scratch_floats(int B, int D, int H, int DI, int head_major) {
+  return (long long)rlmg::aug_scratch_floats(B, D, H, DI, head_major);
+}
+
+// L layers of one token.  h (B, D) f32 is read as the input and overwritten
+// with the output; w: 12 layer-stacked pointers in rlmg::W_QKV..LN2_B order
+// (the qkv weight (L, D, 3D) or, head_major, (L, H, D, 3E); Wo (L, D, D) or
+// (L, H, E, D); matrices in one type, w_bf16; biases and LN vectors f32);
+// s_aug (L, H, B, E, E + 1) f32, updated in place; done: H B zeroed ints
+// (left zeroed).  gelu_tanh: the tanh gelu (v1, v2) or the erf one (v3);
+// bias_last: LN1 of (h + att Wo) + bo (v2, v3) or of h + (att Wo + bo)
+// (v1).  *launched receives the number of kernel launches issued.  Returns
+// 0 or the first CUDA error code.
+int rlmg_decode_aug(float* h, const void* const* w, float* s_aug, float* scratch, int* done,
+                    int L, int B, int D, int H, int DI, float eps, int w_bf16, int head_major,
+                    int gelu_tanh, int bias_last, void* stream, int* launched) {
+  *launched = 0;
+  if (L < 1 || B < 1 || H < 1 || DI < 1 || D % H || D > rlmg::MAX_D)
+    return (int)cudaErrorInvalidValue;
+  rlmg::AugArgs a{};
+  for (int i = 0; i < rlmg::N_WEIGHTS; ++i) a.w[i] = w[i];
+  a.s = s_aug;
+  a.h = h;
+  a.qkv = scratch;
+  a.att = a.qkv + (size_t)B * 3 * D;
+  a.h1 = a.att + (size_t)B * D;
+  a.y1 = a.h1 + (size_t)B * D;
+  a.part = a.y1 + (size_t)B * DI;
+  a.done = done;
+  a.L = L;
+  a.B = B;
+  a.D = D;
+  a.H = H;
+  a.DI = DI;
+  a.eps = eps;
+  a.head_major = head_major;
+  a.gelu_tanh = gelu_tanh;
+  a.bias_last = bias_last;
+  cudaStream_t st = (cudaStream_t)stream;
+  return w_bf16 ? rlmg::aug_run<__nv_bfloat16>(a, st, launched)
+                : rlmg::aug_run<float>(a, st, launched);
+}
+
+const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+}  // extern "C"

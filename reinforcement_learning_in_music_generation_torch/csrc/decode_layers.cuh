@@ -1,6 +1,8 @@
 // The per-token layer stack of the causal linear-attention transformer,
 // shared by decode_step.cu (one token per call) and decode_chunk.cu (T
-// tokens per call).  Plain C interface; no PyTorch headers.
+// tokens per call); its products, reductions and LN rows also serve
+// latency_decode.cu and decode_aug.cu.  Plain C interface; no PyTorch
+// headers.
 //
 // Per layer, one host function (stack_step) launches:
 //   gemm_kernel       qkv = h @ Wqkv (+ b, phi on the q and k columns)
@@ -43,6 +45,11 @@ __device__ __forceinline__ float phi(float x) { return x > 0.f ? x + 1.f : expf(
 __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
 }
+// jax.nn.gelu(x, approximate=True), the gelu of the per-layer v1/v2 decode
+// kernels (decode_aug.cu)
+__device__ __forceinline__ float gelu_tanh(float x) {
+  return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * (x * x * x)))));
+}
 
 // First output word of Philox4x32-10 at counter (c0..c3), key (seed,
 // PHILOX_KEY1).  ops/decode_common.py philox_bits draws the same bits.
@@ -68,10 +75,11 @@ __device__ __forceinline__ uint32_t philox_first(uint32_t seed, uint32_t c0, uin
   return c0;
 }
 
-enum { ACT_NONE = 0, ACT_GELU = 1, ACT_PHI = 2 };
+enum { ACT_NONE = 0, ACT_GELU = 1, ACT_PHI = 2, ACT_GELU_TANH = 3 };
 
 __device__ __forceinline__ float activate(float v, int act, int n, int phi_cols) {
   if (act == ACT_GELU) return gelu_exact(v);
+  if (act == ACT_GELU_TANH) return gelu_tanh(v);
   if (act == ACT_PHI && n < phi_cols) return phi(v);
   return v;
 }
@@ -151,23 +159,25 @@ constexpr int ATT_THREADS = 256, MAX_E = 128;
 
 // The state update and read of one (song, head) slice by one block of
 // ATT_THREADS threads: S += k v^T, z += k, att = q^T S / (q.z + eps), with
-// phi(q), phi(k) and v (E values each) in shared memory.  sp (E,E) and zp
-// (E) are updated in place, in their stored type, wherever they live
-// (device memory for the per-step and chunked kernels, shared memory for
-// the latency kernel's resident state); the read uses the f32 sums before
-// they are rounded.  att (E) may be device or shared memory.  part
-// (ATT_THREADS), dq (E) and den_s (1) are shared scratch.  Ends before
-// att is written for every thread: the caller synchronises.
+// phi(q), phi(k) and v (E values each) in shared memory.  sp (E,E), rows
+// `rs` values apart (E in the DecodeState layout, H E in the batch-major
+// layout of the v5 kernel), and zp (E) are updated in place, in their
+// stored type, wherever they live (device memory for the per-step and
+// chunked kernels, shared memory for the latency kernel's resident state);
+// the read uses the f32 sums before they are rounded.  att (E) may be
+// device or shared memory.  part (ATT_THREADS), dq (E) and den_s (1) are
+// shared scratch.  Ends before att is written for every thread: the
+// caller synchronises.
 template <typename TS>
 __device__ __forceinline__ void attn_slice(const float* qs, const float* ks, const float* vs,
                                            TS* sp, TS* zp, float* att, int E, float eps,
-                                           float* part, float* dq, float* den_s) {
+                                           float* part, float* dq, float* den_s, int rs) {
   const int tid = threadIdx.x;
   // thread (jg, u): column u of S, rows jg, jg+G, ... (G = 256/E groups)
   const int G = ATT_THREADS / E, u = tid % E, jg = tid / E;
   float num = 0.f;
   for (int j = jg; j < E; j += G) {
-    TS* p = sp + (size_t)j * E + u;
+    TS* p = sp + (size_t)j * rs + u;
     const float sv = fmaf(ks[j], vs[u], ld(p));
     st(p, sv);
     num = fmaf(qs[j], sv, num);
@@ -215,7 +225,7 @@ attn_state_kernel(const float* __restrict__ qkv, TS* __restrict__ s,
   }
   __syncthreads();
   attn_slice<TS>(qs, ks, vs, s + (size_t)bh * E * E, z + (size_t)bh * E,
-                 att + (size_t)b * D + h * E, E, eps, part, dq, &den_s);
+                 att + (size_t)b * D + h * E, E, eps, part, dq, &den_s, E);
 }
 
 // Sum over the block, returned to every thread.  red: 32 floats of shared.

@@ -1,13 +1,18 @@
-// Latency-mode decode: T tokens per call for a few songs (B <= 16), with the
-// sampling on the card.  The CUDA counterparts of
+// T decode tokens per call with the sampling on the card: latency mode for a
+// few songs (v8, v7: B <= 16) and the batch-major v5 at any batch.  The
+// CUDA counterparts of
 // reinforcement_learning_in_music_generation_tpu/ops/experimental/
 //   decode_kernel_v8.py fused_decode_v8 (its Pallas body _v8_kernel: one
 //                       grid program per token, an in-kernel loop over the
-//                       layers, weights and state resident in VMEM) and
+//                       layers, weights and state resident in VMEM),
 //   decode_kernel_v7.py fused_decode_v7 (_v7_kernel: grid (T, L), one
-//                       program per layer per token).
-// Both compute one function, so here they share one set of device
-// functions and differ only in how much of it one launch does:
+//                       program per layer per token) and
+//   decode_kernel_v5.py fused_decode_v5 (_v5_kernel: grid (T,), the
+//                       batch-major state streamed through VMEM per layer
+//                       in blocks of bb songs).
+// All three compute one function, so here they share one set of device
+// functions and differ only in how much of it one launch does and where
+// the state lives:
 //
 //   v8  one persistent cooperative launch per chunk.  The grid is one block
 //       per SM (all co-resident, as cudaLaunchCooperativeKernel requires);
@@ -22,6 +27,12 @@
 //       embedding, one cooperative launch per layer (its phases separated by
 //       5 grid barriers), the heads + sample pass.  The state lives in
 //       device memory, since shared memory does not outlive a launch.
+//   v5  one cooperative launch for all T tokens, v8's phases, with the f32
+//       state in device memory in v5's layout, S (L, B, E, H E) and z
+//       (L, B, H E), read and written every token (at B=256 it cannot stay
+//       on chip).  A product item carries bb songs (8, 16 or 32, dividing
+//       B), the counterpart of the TPU kernel's bb-song state blocks; the
+//       state items stay one (song, head) slice.
 // The same device functions in the same order give v7 and v8 bit-equal
 // tokens and states.  Every phase splits its work into items whose
 // arithmetic does not depend on the grid size or on which block runs them.
@@ -60,7 +71,12 @@
 // over all SMs; what it does not do yet: tensor cores, wide loads, and
 // overlap of one phase's weight loads with the barrier before it.  At
 // B <= 16 the barriers and the latency of each phase's loads set the time,
-// not the bytes.
+// not the bytes.  v5 at B=256 also streams the f32 state, 2 x 410 MB a
+// token: the bytes bind (0.27 ms a token at 3.35 TB/s).  Its 19.7 GFLOP a
+// token are bf16 products in the TPU function (activations cast to the
+// weights' type), 0.02 ms at the tensor cores' 989 TFLOP/s; this kernel
+// does them as f32 FMAs outside the tensor cores, which alone take 0.29 ms
+// at 67 TFLOP/s.
 
 #include <cooperative_groups.h>
 
@@ -80,6 +96,12 @@ static_assert(LT_THREADS == VF_PAD && LT_THREADS == ATT_THREADS, "one block size
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
 
+// RLMG_V5_ABLATE (v5 only, for attributing its time; the output is garbage):
+// ABLATE_STATE streams the state through and skips every other layer
+// phase, ABLATE_ATTN keeps the products and streams the state through
+// without its update and read (att = 0).
+enum { ABLATE_NONE = 0, ABLATE_STATE = 1, ABLATE_ATTN = 2 };
+
 struct LatArgs {
   const void* w[N_WEIGHTS];      // stacked layer weights, one type (decode_layers.cuh order)
   const float* m;                // folded embedding (sum V_f, D)
@@ -90,18 +112,21 @@ struct LatArgs {
   FieldArgs fa;
   const int* tok0;               // (B, NF), fed at t0
   int* tokens;                   // (T, B, NF)
-  void *s, *z;                   // (L, B, H, E, E), (L, B, H, E)
+  void *s, *z;                   // (L, B, H, E, E), (L, B, H, E); v5: (L, B, E, H E),
+                                 // (L, B, H E)
   float *h, *h1;                 // (B, D) each
   float *pqkv, *po, *p1, *p2;    // partial sums: (D/64, B, 3D), (H, B, D), (D/64, B, DI), (DI/64, B, D)
   int L, B, D, H, DI, NF, T, t0;
   unsigned int seed;
   int greedy;
   float eps;
+  int ablate;                    // v5 only
 };
 
-// Shared floats one block needs for the phases (the largest of them).
-inline size_t work_floats(int B, int D, int H) {
-  const size_t gemm = 4 * (size_t)B * LT_KC;                  // x chunk + 3 partial rows
+// Shared floats one block needs for the phases (the largest of them), when a
+// product item carries nb songs.
+inline size_t work_floats(int nb, int D, int H) {
+  const size_t gemm = 4 * (size_t)nb * LT_KC;                 // x chunk + 3 partial rows
   const size_t attn = 5 * (size_t)(D / H) + ATT_THREADS + 1;   // q k v dq att, part, den
   const size_t row = (size_t)D + 64;                           // x row, red, redi
   size_t w = gemm > attn ? gemm : attn;
@@ -133,59 +158,66 @@ __device__ __forceinline__ LayerW<TW> layer_w(const LatArgs& a, int l) {
 // every 64-row slice kc, one (64 columns, 64 rows) tile of w per item.
 // x (B, K) is the sum of nsum slices of src (nsum, B, K), and
 // gelu_exact(. + xbias) when xbias is given.  Thread (c, kq) takes column
-// c over rows 16 kq .. 16 kq + 15 for every song; the four quarters are
-// added in order.
-template <typename TW>
+// c over rows 16 kq .. 16 kq + 15 for every song of the item; the four
+// quarters are added in order.  An item carries all B <= MB songs, or,
+// CHUNKED (v5), one chunk of MB songs; a song's sums do not depend on MB
+// or on the chunk it falls in.
+template <typename TW, int MB, bool CHUNKED>
 __device__ void skinny_gemm(const float* src, int nsum, const TW* __restrict__ xbias,
                             const TW* __restrict__ w, float* part, int B, int K, int N,
                             float* wk, int g, int G) {
-  float* xs = wk;                  // (B, 64)
-  float* red = wk + B * LT_KC;     // (3, B, 64)
-  const int n_nt = N / LT_TN, items = n_nt * (K / LT_KC);
+  const int n_nt = N / LT_TN, n_kc = K / LT_KC;
+  const int items = n_nt * n_kc * (CHUNKED ? (B + MB - 1) / MB : 1);
+  const int rb = CHUNKED ? MB : B;  // songs an item holds at most
+  float* xs = wk;                    // (rb, 64)
+  float* red = wk + rb * LT_KC;      // (3, rb, 64)
   const int c = threadIdx.x % LT_TN, kq = threadIdx.x / LT_TN;
   for (int it = g; it < items; it += G) {
-    const int nt = it % n_nt, kc = it / n_nt, n = nt * LT_TN + c, k0 = kc * LT_KC;
+    const int nt = it % n_nt, kc = CHUNKED ? (it / n_nt) % n_kc : it / n_nt;
+    const int b0 = CHUNKED ? it / (n_nt * n_kc) * MB : 0;
+    const int nb = CHUNKED ? min(MB, B - b0) : B, n = nt * LT_TN + c, k0 = kc * LT_KC;
     __syncthreads();               // the last item's xs and red are read
-    for (int i = threadIdx.x; i < B * LT_KC; i += blockDim.x) {
-      const int b = i / LT_KC, k = k0 + i % LT_KC;
+    for (int i = threadIdx.x; i < nb * LT_KC; i += blockDim.x) {
+      const int b = b0 + i / LT_KC, k = k0 + i % LT_KC;
       float v = 0.f;
       for (int j = 0; j < nsum; ++j) v += __ldcg(src + ((size_t)j * B + b) * K + k);
       xs[i] = xbias ? gelu_exact(v + ld(xbias + k)) : v;
     }
     __syncthreads();
-    float acc[LT_MAX_B];
+    float acc[MB];
 #pragma unroll
-    for (int b = 0; b < LT_MAX_B; ++b) acc[b] = 0.f;
+    for (int b = 0; b < MB; ++b) acc[b] = 0.f;
     const TW* wp = w + (size_t)(k0 + kq * LT_KQ) * N + n;
     const float* xk = xs + kq * LT_KQ;
 #pragma unroll
     for (int k = 0; k < LT_KQ; ++k) {
       const float wv = ldg(wp + (size_t)k * N);
 #pragma unroll
-      for (int b = 0; b < LT_MAX_B; ++b)
-        if (b < B) acc[b] = fmaf(xk[b * LT_KC + k], wv, acc[b]);
+      for (int b = 0; b < MB; ++b)
+        if (b < nb) acc[b] = fmaf(xk[b * LT_KC + k], wv, acc[b]);
     }
     if (kq > 0) {
 #pragma unroll
-      for (int b = 0; b < LT_MAX_B; ++b)
-        if (b < B) red[((kq - 1) * B + b) * LT_TN + c] = acc[b];
+      for (int b = 0; b < MB; ++b)
+        if (b < nb) red[((kq - 1) * rb + b) * LT_TN + c] = acc[b];
     }
     __syncthreads();
     if (kq == 0) {
 #pragma unroll
-      for (int b = 0; b < LT_MAX_B; ++b)
-        if (b < B)
-          part[((size_t)kc * B + b) * N + n] = ((acc[b] + red[b * LT_TN + c]) +
-                                                red[(B + b) * LT_TN + c]) +
-                                               red[(2 * B + b) * LT_TN + c];
+      for (int b = 0; b < MB; ++b)
+        if (b < nb)
+          part[((size_t)kc * B + b0 + b) * N + n] = ((acc[b] + red[b * LT_TN + c]) +
+                                                     red[(rb + b) * LT_TN + c]) +
+                                                    red[(2 * rb + b) * LT_TN + c];
     }
   }
 }
 
-// Phase B for one (song b, head hd) slice of layer w; sp, zp its state.
-template <typename TW, typename TS>
+// Phase B for one (song b, head hd) slice of layer w; sp, zp its state, the
+// rows of sp rs values apart.  V5: the v5 kernel, which honours a.ablate.
+template <typename TW, typename TS, bool V5>
 __device__ void attn_wo_slice(const LatArgs& a, const LayerW<TW>& w, int b, int hd, TS* sp,
-                              TS* zp, float* wk) {
+                              TS* zp, int rs, float* wk) {
   const int D = a.D, E = D / a.H, nk = D / LT_KC, tid = threadIdx.x;
   float* qs = wk;
   float* ks = qs + E;
@@ -209,7 +241,18 @@ __device__ void attn_wo_slice(const LatArgs& a, const LayerW<TW>& w, int b, int 
     vs[tid] = v + ld(w.bqkv + 2 * D + cq);
   }
   __syncthreads();
-  attn_slice<TS>(qs, ks, vs, sp, zp, att, E, a.eps, part, dq, den);
+  if (V5 && a.ablate == ABLATE_ATTN) {   // the state streamed through, no update or read
+    for (int i = tid; i < E * E; i += blockDim.x) {
+      TS* p = sp + (size_t)(i / E) * rs + i % E;
+      st(p, ld(p));
+    }
+    if (tid < E) {
+      st(zp + tid, ld(zp + tid));
+      att[tid] = 0.f;
+    }
+  } else {
+    attn_slice<TS>(qs, ks, vs, sp, zp, att, E, a.eps, part, dq, den, rs);
+  }
   __syncthreads();
   const TW* wo = w.wo + (size_t)hd * E * D;
   float* out = a.po + ((size_t)hd * a.B + b) * D;
@@ -248,28 +291,41 @@ __device__ __forceinline__ int first_owned(int base, int g, int G) {
 
 // The phases of layer l (A, B, D, E, F, G) with grid barriers between
 // them; the caller synchronises after G.  With s_res, the state slices
-// live in shared memory (slice i at s_res[(i / G) E E]); else in a.s, a.z.
-template <typename TW, typename TS>
+// live in shared memory (slice i at s_res[(i / G) E E]); else in a.s, a.z,
+// in the DecodeState layout, or, V5, in v5's (the products then carry
+// chunks of MB songs).
+template <typename TW, typename TS, int MB, bool V5>
 __device__ void layer_phases(const LatArgs& a, int l, float* wk, TS* s_res, TS* z_res) {
   cg::grid_group grid = cg::this_grid();
   const int g = blockIdx.x, G = gridDim.x;
   const int B = a.B, D = a.D, H = a.H, E = D / H, DI = a.DI, BH = B * H;
   const LayerW<TW> w = layer_w<TW>(a, l);
-  skinny_gemm<TW>(a.h, 1, nullptr, w.qkv, a.pqkv, B, D, 3 * D, wk, g, G);
+  skinny_gemm<TW, MB, V5>(a.h, 1, nullptr, w.qkv, a.pqkv, B, D, 3 * D, wk, g, G);
   grid.sync();
   for (int i = first_owned(l * BH, g, G); i < (l + 1) * BH; i += G) {
-    const int j = i - l * BH;
-    TS* sp = s_res ? s_res + (size_t)(i / G) * E * E : (TS*)a.s + (size_t)i * E * E;
-    TS* zp = s_res ? z_res + (size_t)(i / G) * E : (TS*)a.z + (size_t)i * E;
-    attn_wo_slice<TW, TS>(a, w, j / H, j % H, sp, zp, wk);
+    const int j = i - l * BH, b = j / H, hd = j % H;
+    TS *sp, *zp;
+    int rs = E;
+    if (s_res) {
+      sp = s_res + (size_t)(i / G) * E * E;
+      zp = z_res + (size_t)(i / G) * E;
+    } else if (V5) {                             // (L, B, E, H E), (L, B, H E)
+      sp = (TS*)a.s + (size_t)(l * B + b) * E * D + hd * E;
+      zp = (TS*)a.z + (size_t)(l * B + b) * D + hd * E;
+      rs = D;
+    } else {
+      sp = (TS*)a.s + (size_t)i * E * E;
+      zp = (TS*)a.z + (size_t)i * E;
+    }
+    attn_wo_slice<TW, TS, V5>(a, w, b, hd, sp, zp, rs, wk);
   }
   grid.sync();
   for (int b = g; b < B; b += G)
     res_ln_row<TW>(a.h, a.po, H, w.bo, w.l1s, w.l1b, a.h1, B, D, b, wk);
   grid.sync();
-  skinny_gemm<TW>(a.h1, 1, nullptr, w.w1, a.p1, B, D, DI, wk, g, G);
+  skinny_gemm<TW, MB, V5>(a.h1, 1, nullptr, w.w1, a.p1, B, D, DI, wk, g, G);
   grid.sync();
-  skinny_gemm<TW>(a.p1, D / LT_KC, w.b1, w.w2, a.p2, B, DI, D, wk, g, G);
+  skinny_gemm<TW, MB, V5>(a.p1, D / LT_KC, w.b1, w.w2, a.p2, B, DI, D, wk, g, G);
   grid.sync();
   for (int b = g; b < B; b += G)
     res_ln_row<TW>(a.h1, a.p2, DI / LT_KC, w.b2, w.l2s, w.l2b, a.h, B, D, b, wk);
@@ -321,7 +377,7 @@ latency_v8_kernel(const __grid_constant__ LatArgs a, int work) {
     embed_phase(a, t, g, G);
     grid.sync();
     for (int l = 0; l < a.L; ++l) {
-      layer_phases<TW, TS>(a, l, wk, s_res, z_res);
+      layer_phases<TW, TS, LT_MAX_B, false>(a, l, wk, s_res, z_res);
       grid.sync();
     }
     sample_phase<TW>(a, t, g, G, wk);
@@ -342,7 +398,7 @@ latency_v8_kernel(const __grid_constant__ LatArgs a, int work) {
 template <typename TW, typename TS>
 __global__ void __launch_bounds__(LT_THREADS)
 latency_v7_layer_kernel(const __grid_constant__ LatArgs a, int l) {
-  layer_phases<TW, TS>(a, l, (float*)lt_smem, (TS*)nullptr, (TS*)nullptr);
+  layer_phases<TW, TS, LT_MAX_B, false>(a, l, (float*)lt_smem, (TS*)nullptr, (TS*)nullptr);
 }
 
 __global__ void __launch_bounds__(LT_THREADS) latency_embed_kernel(const __grid_constant__ LatArgs a,
@@ -354,6 +410,41 @@ template <typename TW>
 __global__ void __launch_bounds__(LT_THREADS)
 latency_sample_kernel(const __grid_constant__ LatArgs a, int t) {
   sample_phase<TW>(a, t, blockIdx.x, gridDim.x, (float*)lt_smem);
+}
+
+// ABLATE_STATE's layer: v5's f32 state of layer l read and written back,
+// nothing else.
+__device__ void stream_state(const LatArgs& a, int l, int g, int G) {
+  const size_t nz = (size_t)a.B * a.D, ns = nz * (a.D / a.H);
+  float* s = (float*)a.s + l * ns;
+  float* z = (float*)a.z + l * nz;
+  const size_t i0 = (size_t)g * blockDim.x + threadIdx.x, step = (size_t)G * blockDim.x;
+  for (size_t i = i0; i < ns; i += step) __stcg(s + i, __ldcg(s + i));
+  for (size_t i = i0; i < nz; i += step) __stcg(z + i, __ldcg(z + i));
+}
+
+// v5: T tokens of B songs in one cooperative launch of one block per SM,
+// v8's phases with the f32 state in device memory in the batch-major
+// layout (read and written every token: it cannot stay on chip at B=256),
+// the products carrying MB songs an item.
+template <typename TW, int MB>
+__global__ void __launch_bounds__(LT_THREADS, 1) decode_v5_kernel(const __grid_constant__ LatArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int g = blockIdx.x, G = gridDim.x;
+  float* wk = (float*)lt_smem;
+  for (int t = 0; t < a.T; ++t) {
+    embed_phase(a, t, g, G);
+    grid.sync();
+    for (int l = 0; l < a.L; ++l) {
+      if (a.ablate == ABLATE_STATE)
+        stream_state(a, l, g, G);
+      else
+        layer_phases<TW, float, MB, true>(a, l, wk, (float*)nullptr, (float*)nullptr);
+      grid.sync();
+    }
+    sample_phase<TW>(a, t, g, G, wk);
+    if (t + 1 < a.T) grid.sync();
+  }
 }
 
 inline int card(int* n_sm, int* max_smem) {
@@ -382,7 +473,7 @@ int cooperative_ok(K kern, int grid, size_t smem, int n_sm) {
 // *launched receives the number of kernel launches issued.
 template <typename TW, typename TS>
 int latency_run(int version, LatArgs& a, int n_sm, cudaStream_t st, int* launched) {
-  const int work = (int)work_floats(a.B, a.D, a.H);
+  const int work = (int)work_floats(a.B < LT_MAX_B ? a.B : LT_MAX_B, a.D, a.H);
   if (version == 8) {
     const size_t smem = work * sizeof(float) +
                         resident_bytes(a.L, a.B, a.D, a.H, sizeof(TS) == 2, n_sm);
@@ -418,9 +509,64 @@ int latency_run(int version, LatArgs& a, int n_sm, cudaStream_t st, int* launche
   return 0;
 }
 
+template <typename TW, int MB>
+int v5_run(LatArgs& a, int n_sm, cudaStream_t st) {
+  const size_t smem = work_floats(MB, a.D, a.H) * sizeof(float);
+  const auto kern = decode_v5_kernel<TW, MB>;
+  const int rc = cooperative_ok(kern, n_sm, smem, n_sm);
+  if (rc) return rc;
+  void* args[] = {(void*)&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)kern, n_sm, LT_THREADS, args, smem, st);
+}
+
+inline bool phases_shape_ok(int D, int H, int DI, int NF) {
+  return stack_shape_ok(D, H) && D % LT_KC == 0 && DI % LT_KC == 0 && NF >= 1 && NF <= MAX_NF;
+}
+
 inline bool latency_shape_ok(int B, int D, int H, int DI, int NF) {
-  return B >= 1 && B <= LT_MAX_B && stack_shape_ok(D, H) && D % LT_KC == 0 && DI % LT_KC == 0 &&
-         NF >= 1 && NF <= MAX_NF;
+  return B >= 1 && B <= LT_MAX_B && phases_shape_ok(D, H, DI, NF);
+}
+
+// The kernels' arguments; scratch holds rlmg_latency_scratch_floats floats.
+inline LatArgs lat_args(const int* tok0, int* tokens, const float* m, const float* bin,
+                        const float* pe, const void* const* w, const void* hw, const float* hb,
+                        const float* fls, const float* flb, const int* off, const float* tinv,
+                        const float* topp, void* s, void* z, float* scratch, int T, int t0,
+                        unsigned int seed, int greedy, int L, int B, int D, int H, int DI,
+                        int NF, float eps) {
+  LatArgs a{};
+  for (int i = 0; i < N_WEIGHTS; ++i) a.w[i] = w[i];
+  a.m = m;
+  a.bin = bin;
+  a.pe = pe;
+  a.hw = hw;
+  a.hb = hb;
+  a.fls = fls;
+  a.flb = flb;
+  a.fa = field_args(off, tinv, topp, NF);
+  a.tok0 = tok0;
+  a.tokens = tokens;
+  a.s = s;
+  a.z = z;
+  const size_t bd = (size_t)B * D, nk = D / LT_KC;
+  a.h = scratch;
+  a.h1 = a.h + bd;
+  a.pqkv = a.h1 + bd;
+  a.po = a.pqkv + nk * 3 * bd;
+  a.p1 = a.po + (size_t)H * bd;
+  a.p2 = a.p1 + nk * B * (size_t)DI;
+  a.L = L;
+  a.B = B;
+  a.D = D;
+  a.H = H;
+  a.DI = DI;
+  a.NF = NF;
+  a.T = T;
+  a.t0 = t0;
+  a.seed = seed;
+  a.greedy = greedy;
+  a.eps = eps;
+  return a;
 }
 
 }  // namespace rlmg
@@ -436,7 +582,8 @@ long long rlmg_latency_scratch_floats(int B, int D, int H, int DI) {
 // Dynamic shared bytes a block of the version's layer launch needs on a
 // grid of `grid` blocks (v8: its resident state slices included).
 long long rlmg_latency_smem_bytes(int version, int L, int B, int D, int H, int s_bf16, int grid) {
-  const long long work = (long long)rlmg::work_floats(B, D, H) * 4;
+  const long long work = (long long)rlmg::work_floats(B < rlmg::LT_MAX_B ? B : rlmg::LT_MAX_B,
+                                                      D, H) * 4;
   return version == 8 ? work + (long long)rlmg::resident_bytes(L, B, D, H, s_bf16, grid) : work;
 }
 
@@ -462,38 +609,9 @@ int rlmg_latency_decode(int version, const int* tok0, int* tokens, const float* 
   int n_sm = 0, max_smem = 0;
   const int rc = rlmg::card(&n_sm, &max_smem);
   if (rc) return rc;
-  rlmg::LatArgs a{};
-  for (int i = 0; i < rlmg::N_WEIGHTS; ++i) a.w[i] = w[i];
-  a.m = m;
-  a.bin = bin;
-  a.pe = pe;
-  a.hw = hw;
-  a.hb = hb;
-  a.fls = fls;
-  a.flb = flb;
-  a.fa = rlmg::field_args(off, tinv, topp, NF);
-  a.tok0 = tok0;
-  a.tokens = tokens;
-  a.s = s;
-  a.z = z;
-  const size_t bd = (size_t)B * D, nk = D / rlmg::LT_KC;
-  a.h = scratch;
-  a.h1 = a.h + bd;
-  a.pqkv = a.h1 + bd;
-  a.po = a.pqkv + nk * 3 * bd;
-  a.p1 = a.po + (size_t)H * bd;
-  a.p2 = a.p1 + nk * B * (size_t)DI;
-  a.L = L;
-  a.B = B;
-  a.D = D;
-  a.H = H;
-  a.DI = DI;
-  a.NF = NF;
-  a.T = T;
-  a.t0 = t0;
-  a.seed = seed;
-  a.greedy = greedy;
-  a.eps = eps;
+  rlmg::LatArgs a = rlmg::lat_args(tok0, tokens, m, bin, pe, w, hw, hb, fls, flb, off, tinv,
+                                    topp, s, z, scratch, T, t0, seed, greedy, L, B, D, H, DI,
+                                    NF, eps);
   cudaStream_t st = (cudaStream_t)stream;
   using bf = __nv_bfloat16;
   if (w_bf16)
@@ -501,6 +619,41 @@ int rlmg_latency_decode(int version, const int* tok0, int* tokens, const float* 
                   : rlmg::latency_run<bf, float>(version, a, n_sm, st, launched);
   return s_bf16 ? rlmg::latency_run<float, bf>(version, a, n_sm, st, launched)
                 : rlmg::latency_run<float, float>(version, a, n_sm, st, launched);
+}
+
+// Decode T tokens of B songs with the v5 kernel, one cooperative launch.
+// tok0 (B, NF) int32 is the first token fed; tokens (T, B, NF) int32
+// receives the T successors.  s (L, B, E, H E) and z (L, B, H E) f32 are
+// updated in place.  pe_rows (T, D) f32 are the fed tokens' positional
+// rows; the Philox position of token t is t.  bb (8, 16 or 32, dividing B)
+// is the number of songs a product item carries.  ablate: ABLATE_* (0 for
+// a real decode).  Other arguments as rlmg_latency_decode's.
+int rlmg_decode_v5(const int* tok0, int* tokens, const float* m, const float* bin,
+                   const float* pe_rows, const void* const* w, const void* hw, const float* hb,
+                   const float* fls, const float* flb, const int* off, const float* tinv,
+                   const float* topp, float* s, float* z, float* scratch, int T,
+                   unsigned int seed, int greedy, int L, int B, int D, int H, int DI, int NF,
+                   int bb, float eps, int w_bf16, int ablate, void* stream) {
+  if (!rlmg::phases_shape_ok(D, H, DI, NF) || T < 1 || B < 1 ||
+      (bb != 8 && bb != 16 && bb != 32) || B % bb || ablate < 0 || ablate > 2)
+    return (int)cudaErrorInvalidValue;
+  int n_sm = 0, max_smem = 0;
+  const int rc = rlmg::card(&n_sm, &max_smem);
+  if (rc) return rc;
+  rlmg::LatArgs a = rlmg::lat_args(tok0, tokens, m, bin, pe_rows, w, hw, hb, fls, flb, off, tinv,
+                                    topp, s, z, scratch, T, 0, seed, greedy, L, B, D, H, DI, NF,
+                                    eps);
+  a.ablate = ablate;
+  cudaStream_t st = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
+  if (w_bf16) {
+    if (bb == 8) return rlmg::v5_run<bf, 8>(a, n_sm, st);
+    if (bb == 16) return rlmg::v5_run<bf, 16>(a, n_sm, st);
+    return rlmg::v5_run<bf, 32>(a, n_sm, st);
+  }
+  if (bb == 8) return rlmg::v5_run<float, 8>(a, n_sm, st);
+  if (bb == 16) return rlmg::v5_run<float, 16>(a, n_sm, st);
+  return rlmg::v5_run<float, 32>(a, n_sm, st);
 }
 
 const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -3,7 +3,8 @@
 
 Three decode paths, chosen as in the JAX package:
   * per-step (``generate_tokens``): one ``decode_step`` per token, through
-    the ``decode_kernel_v4`` kernel on CUDA (``fused=True``) or the plain
+    the ``decode_kernel_v4`` kernel on CUDA (``fused=True``; the
+    ``decode_kernel_v3`` kernel when the head count is odd) or the plain
     ``lt.decode_step`` (``fused=False``), then on-device sampling
     (``ops/sampling.py``);
   * chunked (``generate_tokens_persistent``): stochastic batches of
@@ -38,6 +39,7 @@ import torch
 from ..config import GenerateConfig, LinearTransformerConfig
 from ..models import common as cm
 from ..models import linear_transformer as lt
+from ..ops import decode_kernel_v3 as dk3
 from ..ops import decode_kernel_v4 as dk4
 from ..ops import decode_kernel_v6 as dk6
 from ..ops import sampling as smp
@@ -204,9 +206,12 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
     up to ``max_tokens`` sampled steps.  Returns seed + generated tokens.
 
     ``fused=True`` runs the layer stack through the ``decode_kernel_v4``
-    kernel (state stored in ``decode_state_dtype()``); ``fused=False`` the
-    plain ``lt.decode_step`` with an f32 state.  The bar-count stop gives
-    the JAX while_loop's tokens and valid mask.
+    kernel (state stored in ``decode_state_dtype()``) when the head count is
+    even and through the ``decode_kernel_v3`` kernel (an f32 augmented
+    state, whatever RLMG_DECODE_STATE_DTYPE says) when it is odd (JAX
+    :583-597); ``fused=False`` the plain ``lt.decode_step`` with an f32
+    state.  The bar-count stop gives the JAX while_loop's tokens and valid
+    mask.
 
     A non-greedy prompt of RLMG_PREFILL_MIN tokens or more seeds the state
     through the parallel prefill (JAX :602-636), cast straight into the
@@ -218,12 +223,19 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
     dev = init_tokens.device
     dtype = params["in_linear"]["w"].dtype
     pe = cm.sinusoidal_table(cfg.max_len, cfg.d_model, dtype, dev)
-    if fused:
+    if fused and cfg.n_head % 2 == 0:
         dparams = lt.make_decode_params(params, cfg)
         state = dk4.init_state(cfg, b, device=dev)
 
         def step_fn(tok, st):
             return dk4.decode_step_v4(params, dparams, cfg, tok, st, pe_table=pe)
+    elif fused:
+        v3p = dk3.make_v3_params(params, cfg, dtype=dtype)
+        state = lt.DecodeState(dk3.init_aug_state(cfg, b, dev),
+                               torch.zeros((1,), dtype=torch.float32, device=dev), 0)
+
+        def step_fn(tok, st):
+            return dk3.decode_step_v3(params, v3p, cfg, tok, st, pe_table=pe)
     else:
         state = lt.init_decode_state(cfg, b, device=dev)
 
@@ -414,8 +426,9 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
     JAX greedy pin, sampler.py:738-750): the kernels sum in another order and
     can flip an argmax at a near-tie.  RLMG_PERSISTENT_DECODE=1,
     RLMG_LATENCY_DECODE=1, RLMG_FUSED_DECODE=1 and RLMG_FUSED_SAMPLING=1 opt
-    greedy back in.  The latency path takes precedence over the chunked one
-    and never serves odd head counts (JAX :760-769)."""
+    greedy back in.  The latency path takes precedence over the chunked one;
+    odd head counts take neither and decode per step (JAX :760-769), through
+    the v3 kernel when fused."""
     if mesh is not None:
         raise NotImplementedError("mesh-sharded generation is not ported")
     dev = params["in_linear"]["w"].device
@@ -446,7 +459,9 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
         use_lat = use_latency_decode(dev, batch=b)
         use_f = use_fused_decode(dev)
         use_fs = use_fused_sampling()
-    if use_lat and cfg.n_head % 2 == 0:
+    if cfg.n_head % 2 != 0:
+        use_pers = use_lat = False
+    if use_lat:
         res = generate_tokens_latency(params, cfg, init_tokens, **kwargs)
     elif use_pers:
         res = generate_tokens_persistent(params, cfg, init_tokens, **kwargs)

@@ -28,7 +28,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("decode_step", "decode_chunk", "attention_block", "attn_tail", "window_attention",
-           "causal_product", "ffn_block", "latency_decode")
+           "causal_product", "ffn_block", "latency_decode", "decode_aug")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

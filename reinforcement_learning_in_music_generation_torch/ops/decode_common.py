@@ -1,10 +1,11 @@
-"""Knobs and plain helpers shared by the decode kernels (v4 per-step,
-v6 chunked).
+"""Knobs and plain helpers shared by the decode kernels.
 
 Counterpart of the JAX package's ``ops/decode_common.py``, plus the plain
 ``phi``/``ln``/``gelu_exact`` that the JAX package keeps in
-``decode_kernel_v3.py``.  CUDA has ``erff``, so gelu is the exact erf form
-and needs no polynomial.
+``decode_kernel_v3.py`` and ``gelu_tanh``, the plain form of the
+``jax.nn.gelu(approximate=True)`` of ``ops/experimental/decode_kernel.py``.
+CUDA has ``erff``, so the exact gelu needs no counterpart of the JAX
+package's erf polynomial (``decode_kernel_v3._erf``, within 1.5e-7 of erf).
 """
 
 from __future__ import annotations
@@ -47,6 +48,12 @@ def phi(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.erf(x * 0.7071067811865476))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``, the gelu of the per-layer v1/v2
+    decode kernels (``ops/experimental/decode_kernel.py``)."""
+    return x * (0.5 * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * (x * x * x)))))
 
 
 def ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -74,6 +74,8 @@ def _lib() -> ctypes.CDLL:
         lib.rlmg_latency_decode.argtypes = ([i] + [p] * 16 + [i, i, u, i, i, i, i, i, i, i, f,
                                                              i, i, p, ctypes.POINTER(i)])
         lib.rlmg_latency_decode.restype = i
+        lib.rlmg_decode_v5.argtypes = [p] * 16 + [i, u] + [i] * 8 + [f, i, i, p]
+        lib.rlmg_decode_v5.restype = i
         lib.rlmg_error_string.argtypes = [i]
         lib.rlmg_error_string.restype = ctypes.c_char_p
         _LIB = lib

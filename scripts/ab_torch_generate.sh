@@ -1,9 +1,12 @@
 #!/bin/bash
 # Two checkouts of the repo, A and B, held against each other on one card:
 # `cli generate` (8 bars, f32 weights, --warmup) at 128 songs (the chunked
-# path) and 5 songs (the per-step path), in turns A, B, B, A, twice, so
-# that neither side always runs first.  Prints the card and one
-# tokens/s line per run.
+# path), 5 songs (the per-step path) and 5 songs under RLMG_LATENCY_DECODE=1
+# (the latency path, v8), then ms a token of the kernels v8 and v7 (32-token
+# calls, CP sampling) and of kernel A's layer stack at B = 1, 5 and 16
+# (agent_config width, random bf16 weights and state, CUDA events after a
+# warm call), in turns A, B, B, A, twice, so that neither side always runs
+# first.  Prints the card and one line per run.
 #
 #   bash scripts/ab_torch_generate.sh <checkout A> <checkout B>
 #
@@ -12,15 +15,61 @@ set -u
 a=$1
 b=$2
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-run() {  # checkout songs max_tokens
-  (cd "$1" && python -m reinforcement_learning_in_music_generation_torch.apps.cli generate \
+run() {  # checkout songs max_tokens [latency]
+  (cd "$1" && RLMG_LATENCY_DECODE=${4:-0} \
+     python -m reinforcement_learning_in_music_generation_torch.apps.cli generate \
      --songs "$2" --bars 8 --max-tokens "$3" --dtype float32 --warmup \
      --out-dir "${TMPDIR:-/tmp}/ab_generate/m" 2>&1 | grep "ave token time" \
-     | sed "s|^|$1 songs=$2: |")
+     | sed "s|^|$1 songs=$2 latency=${4:-0}: |")
+}
+per_token() {  # checkout: the package is imported from it (python's cwd)
+  (cd "$1" && python3 - <<'EOF' | sed "s|^|$1 ms a token: |"
+import torch
+from reinforcement_learning_in_music_generation_torch import config as C
+from reinforcement_learning_in_music_generation_torch.data import tokenizer
+from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v4 as dk4, sampling as smp
+from reinforcement_learning_in_music_generation_torch.ops.experimental import (
+    decode_kernel_v7 as dk7, decode_kernel_v8 as dk8)
+
+
+def time_ms(fn, reps):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+e2w, _ = tokenizer.drop_type(tokenizer.construct_cp_dict())
+cfg = C.agent_config(tuple(tokenizer.n_classes(e2w)))
+params = lt.init_params(cfg, seed=0, device="cuda")
+rp = dk8.make_resident_params(params, cfg, dtype=torch.bfloat16)
+dp = lt.make_decode_params(params, cfg, torch.bfloat16)
+kw = dict(n_head=cfg.n_head, vocab_sizes=cfg.vocab_sizes, greedy=False, eps=cfg.attn_eps,
+          temps=tuple(s.temperature for s in smp.CP_SAMPLING),
+          topps=tuple(s.top_p if s.top_p is not None else float("inf") for s in smp.CP_SAMPLING))
+out = []
+for b in (1, 5, 16):
+    tok = torch.zeros((b, 6), dtype=torch.int32, device="cuda")
+    st = dk4.init_state(cfg, b, torch.bfloat16, "cuda")
+    v8 = time_ms(lambda: dk8.fused_decode_v8(rp, tok, st.s, st.z, 0, 1, max_tokens=32, **kw), 10)
+    v7 = time_ms(lambda: dk7.fused_decode_v7(rp, tok, st.s, st.z, 0, 1, max_tokens=32, **kw), 5)
+    h = torch.zeros((b, cfg.d_model), device="cuda")
+    a = time_ms(lambda: dk4.fused_stack_step(dp, h, st.s, st.z, n_head=cfg.n_head), 30)
+    out.append(f"B={b} v8 {v8 / 32:.4f} v7 {v7 / 32:.4f} A {a:.4f}")
+print(" | ".join(out))
+EOF
+  )
 }
 for rep in 1 2; do
   for tree in "$a" "$b" "$b" "$a"; do
     run "$tree" 128 256
     run "$tree" 5 512
+    run "$tree" 5 512 1
+    per_token "$tree"
   done
 done

@@ -12,7 +12,12 @@ traces, with torch.profiler, the decode paths of ``generate``:
     (the decode_chunk kernel, sampling included), f32 weights;
   * latency: ``generate_tokens_latency``, 5 songs, one 64-token call, bf16
     weights, on v8 and under ``RLMG_LATENCY_KERNEL=v7`` on v7 (the
-    latency_decode kernels, sampling included).
+    latency_decode kernels, sampling included);
+  * v3: 32 songs, 64 steps of ``decode_step_v3`` (the decode_aug kernel),
+    bf16 weights, f32 augmented state, the counterparts of runs E ("v3
+    kernel only": a constant token fed back, no heads) and F ("v3 +
+    sampling": heads and CP sampling in PyTorch) of the JAX package's
+    ``scripts/profile_decode.py``.
 Each window runs once untraced first (kernels built, caches warm).  For
 each it prints the wall time, the summed device time of all kernels, the
 device busy share (device time over wall time; launches overlap rarely
@@ -38,8 +43,10 @@ from reinforcement_learning_in_music_generation_torch import config as C  # noqa
 from reinforcement_learning_in_music_generation_torch.data import tokenizer  # noqa: E402
 from reinforcement_learning_in_music_generation_torch.generate import sampler  # noqa: E402
 from reinforcement_learning_in_music_generation_torch.models import (  # noqa: E402
-    linear_transformer as lt)
+    common as cm, linear_transformer as lt)
 from reinforcement_learning_in_music_generation_torch.ops import _build  # noqa: E402
+from reinforcement_learning_in_music_generation_torch.ops import (  # noqa: E402
+    decode_kernel_v3 as dk3, sampling as smp)
 
 
 def profile(name, fn, out_dir, top=10):
@@ -97,6 +104,20 @@ def main():
         return sampler.generate_tokens_latency(p16, cfg, init(5), generator=gen,
                                                max_tokens=64)
 
+    pe16 = cm.sinusoidal_table(cfg.max_len, cfg.d_model, torch.bfloat16, dev)
+    v3p = dk3.make_v3_params(p16, cfg, dtype=torch.bfloat16)
+
+    def v3_steps(sample):
+        b = 32
+        st = lt.DecodeState(dk3.init_aug_state(cfg, b, dev), torch.zeros(1, device=dev), 0)
+        h = torch.zeros((b, cfg.d_model), dtype=torch.bfloat16, device=dev)
+        tok = torch.zeros((b, 6), dtype=torch.int32, device=dev)
+        for _ in range(64):
+            if sample:
+                tok = smp.sample_fields(gen, lt.forward_output(p16, cfg, h), smp.CP_SAMPLING)
+            h, st = dk3.decode_step_v3(p16, v3p, cfg, tok, st, pe_table=pe16)
+        return h
+
     res = [
         profile("per_step_B5_64steps", lambda: sampler.generate_tokens(
             params, cfg, init(5), generator=gen, max_tokens=64, fused=True,
@@ -108,6 +129,8 @@ def main():
             fused_sampling=True), args.out),
         profile("latency_v8_B5_64tokens_bf16", lambda: latency("v8"), args.out),
         profile("latency_v7_B5_64tokens_bf16", lambda: latency("v7"), args.out),
+        profile("v3_B32_64steps_bf16", lambda: v3_steps(False), args.out),
+        profile("v3_sampling_B32_64steps_bf16", lambda: v3_steps(True), args.out),
     ]
     print(json.dumps({"card": card, "windows": res}))
 

@@ -44,3 +44,43 @@ def test_latency_bound_counts_weights_once_a_token(smoke):
     state = 2 * 2 * L * b * h * (e * e + e)              # read once and written once, bf16
     assert smoke.latency_state_bytes(b, L, d, h, s_bytes=2) == state
     assert nbytes > T * 2 * w and nbytes - state == T * (nbytes1 - state)
+
+
+def test_decode_token_bound_counts_weights_and_state_once(smoke):
+    """One token of v3, v1/v2 (L = 1) or v5: the weight matrices once in
+    their stored type (75.5 MB in bf16 at the flagship width), the f32
+    state read and written once (1.6 MB a song each way at 12 layers and 8
+    heads of 64, for v3's augmented layout and v5's batch-major one alike),
+    2 B (L (4 D^2 + 2 D DI) + D NF VF_PAD) operations."""
+    L, d, di, h, b = 12, 512, 2048, 8, 32
+    w = L * (4 * d * d + 2 * d * di)
+    assert 2 * w == 75_497_472
+    aug = smoke.aug_state_bytes(b, L, d, h)
+    assert aug == b * 2 * (12 * 8 * 64 * 65 * 4)
+    assert smoke.v5_state_bytes(b, L, d, h) == b * 2 * (12 * (64 * 512 + 512) * 4)
+    ops, nbytes = smoke.decode_token_work(b, L, d, di, w_bytes=2, state_bytes=aug)
+    assert ops == 2 * b * w
+    assert nbytes == 2 * w + 4 * L * (9 * d + di) + aug + 2 * 4 * b * d
+    ops6, nbytes6 = smoke.decode_token_work(b, L, d, di, w_bytes=2, state_bytes=aug, nf=6)
+    assert ops6 - ops == 2 * b * d * 6 * 256
+    assert nbytes6 - nbytes == 2 * d * 6 * 256 + 4 * 6 * 256
+    ops5, nbytes5 = smoke.decode_token_work(256, L, d, di, w_bytes=2, nf=6,
+                                            state_bytes=smoke.v5_state_bytes(256, L, d, h))
+    # v5's products take bf16 inputs: at the tensor cores' peak the bytes bind
+    bound_ms, by = smoke.bound(nbytes5, ops5, smoke.BF16_FLOPS)
+    assert by == "bytes" and 0.267 < bound_ms < 0.268
+    # the same operations as f32 FMAs (v3, kernel A: f32 products) would bind
+    bound_ms, by = smoke.bound(nbytes5, ops5)
+    assert by == "operations" and 0.29 < bound_ms < 0.30
+
+
+@pytest.mark.parametrize("peak", ["F32_FLOPS", "BF16_FLOPS"])
+def test_bound_charges_operations_at_the_peak_of_their_type(smoke, peak):
+    """The bound is the larger of bytes over 3.35 TB/s and operations over
+    the card's peak for their type (67 TFLOP/s in f32 outside the tensor
+    cores, 989 TFLOP/s in bf16), in ms."""
+    rate = getattr(smoke, peak)
+    assert rate == {"F32_FLOPS": 67e12, "BF16_FLOPS": 989e12}[peak]
+    assert smoke.bound(0, rate * 1e-3, rate) == (1.0, "operations")
+    assert smoke.bound(3.35e9, rate * 1e-3, rate) == (1.0, "bytes")
+    assert smoke.bound(2 * 3.35e9, rate * 1e-3, rate)[0] == 2.0

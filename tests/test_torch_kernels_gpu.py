@@ -11,14 +11,17 @@ import pytest
 import torch
 
 from reinforcement_learning_in_music_generation_torch import config as TC
+from reinforcement_learning_in_music_generation_torch.models import common as tcm
 from reinforcement_learning_in_music_generation_torch.models import linear_transformer as tlt
 from reinforcement_learning_in_music_generation_torch.ops import attention_block as tab
+from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v3 as tdk3
 from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v4 as tdk4
 from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v6 as tdk6
 from reinforcement_learning_in_music_generation_torch.ops import ffn_block as tfb
 from reinforcement_learning_in_music_generation_torch.ops import sampling as tsmp
 from reinforcement_learning_in_music_generation_torch.ops.experimental import (
-    decode_kernel_v7 as tdk7, decode_kernel_v8 as tdk8)
+    decode_kernel as tdk, decode_kernel_v5 as tdk5, decode_kernel_v7 as tdk7,
+    decode_kernel_v8 as tdk8)
 
 VOCAB = (56, 135, 18, 87, 18, 25)
 CP_TEMPS = tuple(s.temperature for s in tsmp.CP_SAMPLING)
@@ -490,3 +493,174 @@ def test_latency_wrappers_reject_what_the_kernels_do_not_take(dev):
             fn(rp, _tokens(gen, dev, big).long(), st.s, st.z, 0, 0, **kw)
         with pytest.raises(ValueError, match="no kernel"):
             fn(rp, _tokens(gen, dev, big).to("meta"), st.s, st.z, 0, 0, **kw)
+
+
+# -- v3, v1, v2 (csrc/decode_aug.cu) and v5 (csrc/latency_decode.cu) -----------
+
+# (d_model, n_head): 3 heads of 16, one head of 128, 2 heads of 64
+AUG_SHAPES = [(48, 3), (128, 1), (128, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,n_head", AUG_SHAPES)
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_v3_kernel_matches_plain(dev, d_model, n_head, wdt):
+    """Six tokens, f32 augmented state: h within 1e-4 and the state within
+    1e-4 (rtol) / 1e-3 (atol) of the plain twin (summation order only); one
+    wrapper call a token, 2 H + 7 CUDA launches a layer."""
+    cfg, params, gen = _setup(dev, d_model, n_head, wdt)
+    v3p = tdk3.make_v3_params(params, cfg, dtype=wdt)
+    b = 5
+    sk, sp = tdk3.init_aug_state(cfg, b, dev), tdk3.init_aug_state(cfg, b, dev)
+    before, cuda_before = tdk3.fused_stack_step.launches, tdk3.fused_stack_step.cuda_launches
+    for t in range(6):
+        h0 = tlt.embed_input(params, cfg, _tokens(gen, dev, b), t, None).float()
+        hk, _ = tdk3.fused_stack_step(v3p, h0, sk, n_head=n_head)
+        hp, _ = tdk3.fused_stack_step_plain(v3p, h0, sp, n_head=n_head)
+        torch.testing.assert_close(hk, hp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-3)
+    assert tdk3.fused_stack_step.launches == before + 6
+    assert (tdk3.fused_stack_step.cuda_launches - cuda_before
+            == 6 * cfg.n_layer * (2 * n_head + 7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,n_head", AUG_SHAPES)
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_layer_kernels_match_plain(dev, d_model, n_head, variant):
+    """fused_decode_step over 5 tokens, f32: h and the state as for v3; one
+    wrapper call a layer."""
+    cfg, params, gen = _setup(dev, d_model, n_head, torch.float32)
+    fn = tdk.fused_layer_step if variant == "v1" else tdk.fused_layer_step_v2
+    plain = tdk.fused_layer_step_plain if variant == "v1" else tdk.fused_layer_step_v2_plain
+    b = 4
+    sk = tlt.DecodeState(tdk.aug_state_init(cfg, b, dev), None, 0)
+    sp = tdk.aug_state_init(cfg, b, dev)
+    before = fn.launches
+    for t in range(5):
+        tok = _tokens(gen, dev, b)
+        hk, sk = tdk.fused_decode_step(params, cfg, tok, sk, variant=variant)
+        hp = tlt.embed_input(params, cfg, tok, t, None)
+        for li in range(cfg.n_layer):
+            lp = {k: {kk: vv[li] for kk, vv in v.items()} for k, v in params["layers"].items()}
+            hp, _ = plain(hp, lp, sp[li], n_head=n_head, eps=cfg.attn_eps)
+        hp = tcm.layernorm(params["final_ln"], hp)
+        torch.testing.assert_close(hk, hp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sk.s, sp, rtol=1e-4, atol=1e-3)
+    assert fn.launches == before + 5 * cfg.n_layer
+
+
+@pytest.mark.gpu
+def test_aug_wrappers_reject_what_the_kernel_does_not_take(dev):
+    cfg, params, gen = _setup(dev, 48, 3, torch.float32)
+    v3p = tdk3.make_v3_params(params, cfg, dtype=torch.float32)
+    h0 = torch.zeros((2, 48), device=dev)
+    s = tdk3.init_aug_state(cfg, 2, dev)
+    with pytest.raises(ValueError, match="state"):
+        tdk3.fused_stack_step(v3p, h0, s.to(torch.bfloat16), n_head=3)
+    with pytest.raises(ValueError, match="state"):
+        tdk3.fused_stack_step(v3p, h0, s[:, :, :1].contiguous(), n_head=3)
+    with pytest.raises(TypeError, match="h0"):
+        tdk3.fused_stack_step(v3p, h0.double(), s, n_head=3)
+    with pytest.raises(ValueError, match="qkvb"):
+        tdk3.fused_stack_step(dict(v3p, qkvb=v3p["qkvb"].to(torch.bfloat16)), h0, s, n_head=3)
+    with pytest.raises(ValueError, match="no kernel"):
+        tdk3.fused_stack_step(v3p, h0.to("meta"), s, n_head=3)
+
+
+def _v5_setup(dev, b):
+    cfg, params, gen = _setup(dev, 128, 2, torch.bfloat16)
+    v5p = tdk5.make_v5_params(params, cfg)
+    pe = tcm.sinusoidal_table(cfg.max_len, cfg.d_model, torch.float32, dev)
+    return cfg, v5p, gen, pe
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 32])
+def test_v5_kernel_matches_plain(dev, b):
+    """bf16 weights, f32 state, bb 8: teacher-forced one-token calls from the
+    twin's state agree on the greedy and the sampled tokens but at
+    near-ties; after the same 8 fed tokens the states agree within 1e-4
+    (rtol) / 1e-3 (atol).  One launch a call."""
+    cfg, v5p, gen, pe = _v5_setup(dev, b)
+    for greedy, temps, topps in ((True, (1.0,) * 6, (float("inf"),) * 6),
+                                 (False, CP_TEMPS, CP_TOPPS)):
+        kw = dict(n_head=2, max_tokens=1, temps=temps, topps=topps, greedy=greedy,
+                  eps=cfg.attn_eps)
+        st = tlt.init_decode_state(cfg, b, device=dev)
+        sk, zk = tdk5.pack_state(st.s, st.z)
+        sp, zp = tdk5.pack_state(st.s, st.z)
+        before, agree = tdk5.fused_decode_v5.launches, 0
+        for t in range(8):
+            tok = _tokens(gen, dev, b)
+            ok, _, _ = tdk5.fused_decode_v5(v5p, tok, sk, zk, pe[t:t + 1], 3 + t, bb=8,
+                                            vocab_sizes=VOCAB, **kw)
+            op, _, _ = tdk5.fused_decode_v5_plain(v5p, tok, sp, zp, pe[t:t + 1], 3 + t, **kw)
+            agree += int((ok == op).sum())
+        assert tdk5.fused_decode_v5.launches == before + 8
+        assert agree / (8 * b * 6) >= 0.97
+        torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(zk, zp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_v5_bb_does_not_change_the_result(dev):
+    """A song's sums do not depend on how many songs a product item
+    carries: bb 8, 16 and 32 give the same tokens and state, bit for bit."""
+    b = 32
+    cfg, v5p, gen, pe = _v5_setup(dev, b)
+    tok = _tokens(gen, dev, b)
+    outs = []
+    for bb in (8, 16, 32):
+        st = tlt.init_decode_state(cfg, b, device=dev)
+        s5, z5 = tdk5.pack_state(st.s, st.z)
+        toks, _, _ = tdk5.fused_decode_v5(v5p, tok, s5, z5, pe[:6], 5, n_head=2, max_tokens=6,
+                                          bb=bb, vocab_sizes=VOCAB, temps=CP_TEMPS,
+                                          topps=CP_TOPPS, eps=cfg.attn_eps)
+        outs.append((toks, s5, z5))
+    for toks, s5, z5 in outs[1:]:
+        assert torch.equal(toks, outs[0][0])
+        assert torch.equal(s5, outs[0][1]) and torch.equal(z5, outs[0][2])
+    assert (outs[0][0] >= 0).all() and (outs[0][0] < torch.tensor(VOCAB, device=dev)).all()
+
+
+@pytest.mark.gpu
+def test_v5_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    b = 8
+    cfg, v5p, gen, pe = _v5_setup(dev, b)
+    st = tlt.init_decode_state(cfg, b, device=dev)
+    s5, z5 = tdk5.pack_state(st.s, st.z)
+    kw = dict(n_head=2, max_tokens=1, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
+    tok = _tokens(gen, dev, b)
+    for bb in (16, 12):
+        with pytest.raises(ValueError, match="bb="):
+            tdk5.fused_decode_v5(v5p, tok, s5, z5, pe, 0, bb=bb, **kw)
+    with pytest.raises(ValueError, match="s5"):
+        tdk5.fused_decode_v5(v5p, tok, s5.to(torch.bfloat16), z5, pe, 0, bb=8, **kw)
+    with pytest.raises(ValueError, match="s5"):
+        tdk5.fused_decode_v5(v5p, tok, st.s.contiguous(), z5, pe, 0, bb=8, **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        tdk5.fused_decode_v5(v5p, tok.to("meta"), s5, z5, pe, 0, bb=8, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ablate", ["state", "attn"])
+def test_v5_ablations_stream_the_state_through(dev, ablate, monkeypatch):
+    """RLMG_V5_ABLATE (time attribution only): the kernel runs, every token
+    is a valid id, and the state is streamed through unchanged; an unknown
+    value raises."""
+    b = 8
+    cfg, v5p, gen, pe = _v5_setup(dev, b)
+    st = tlt.init_decode_state(cfg, b, device=dev)
+    s5, z5 = tdk5.pack_state(st.s, st.z)
+    s5.normal_(generator=gen)
+    z5.normal_(generator=gen)
+    s0, z0 = s5.clone(), z5.clone()
+    kw = dict(n_head=2, max_tokens=4, bb=8, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
+    monkeypatch.setenv("RLMG_V5_ABLATE", ablate)
+    toks, _, _ = tdk5.fused_decode_v5(v5p, _tokens(gen, dev, b), s5, z5, pe, 0, **kw)
+    assert (toks >= 0).all() and (toks < torch.tensor(VOCAB, device=dev)).all()
+    assert torch.equal(s5, s0) and torch.equal(z5, z0)
+    monkeypatch.setenv("RLMG_V5_ABLATE", "matmul")
+    with pytest.raises(ValueError, match="RLMG_V5_ABLATE"):
+        tdk5.fused_decode_v5(v5p, _tokens(gen, dev, b), s5, z5, pe, 0, **kw)
