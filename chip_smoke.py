@@ -17,17 +17,23 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
        an f32 state (both sides accumulate in f32; only the summation order
        differs), and >= 99% greedy next-token agreement with the default
        bf16 state;
-       decode_chunk (v6 counterpart), B=128: >= 99% teacher-forced greedy
-       agreement with f32 and bf16 states and bf16 weights (state
-       difference <= 1e-4 of its magnitude with f32); chunk invariance (64 tokens in one call equal
-       2 x 32, bit for bit); a greedy 128-token call (>= 95% of tokens
-       equal: the fed-back streams part only after a near-tie); its heads +
-       sample pass on fixed h against the plain version with the same seed
-       (>= 99% of tokens equal: they differ only at near-ties);
-  3. runs ``apps/cli.py generate`` end to end twice (bf16 weights, its
-     default), 5 songs (the per-step v4 path) and 128 songs (the chunked v6
-     path), checks the MIDI files and fails if a kernel of the path was
-     launched no time;
+       decode_chunk (v6 counterpart), B=128, against its twin of v6's
+       arithmetic, on the SIMT route (f32 weights) and the tensor-core
+       route (bf16 weights, generate's default): >= 99% teacher-forced
+       greedy agreement with f32 and bf16 states (state difference <= 1e-4
+       of its magnitude with f32); chunk invariance on both routes (64
+       tokens in one call equal 2 x 32, bit for bit); a greedy 128-token
+       call (>= 95% of tokens equal with f32 weights: the fed-back streams
+       part only after a near-tie; printed for bf16, where one comes within
+       a few tokens); the HMMA/HGMMA count in the SASS of the tensor-core
+       route's product kernels (cuobjdump, > 0); the SIMT heads + sample
+       pass on fixed h against the plain version with the same seed (>= 99%
+       of tokens equal: they differ only at near-ties);
+  3. runs ``apps/cli.py generate`` end to end: 5 songs (the per-step v4
+     path) and 128 songs (the chunked v6 path's tensor-core route) with
+     bf16 weights, its default, and 128 songs with ``--dtype float32``
+     (the SIMT route), checks the MIDI files and fails if the route's
+     kernel was launched no time (or the SIMT route ran at bf16);
   4. holds the two training kernels against their plain versions at the
      pretrain slice's shapes (B=32 x S=512 rows, flagship width, f32,
      TF32 off): qkv_attention_block (kernel C) forward within 1e-4 of the
@@ -162,7 +168,8 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      the counters and the bound (operations at the bf16 peak for v5);
  30. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
-     beside the library call.
+     beside the library call; kernel B at B=128 and 1024 (T=128) on both
+     routes, with the state-streaming floor and the CUDA launches a call.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -173,6 +180,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -183,6 +191,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # f32 FMA outside the tensor cores
 BF16_FLOPS = 989e12            # bf16 products with f32 sums, tensor cores, dense
+# kernel B's tensor-core route with an f32 state: max|dS| against its twin,
+# as a share of max|S|, after 16 teacher-forced tokens at the main path's shape
+S_TC_TOL = 3e-4
 FIELDS = 6
 
 
@@ -221,6 +232,34 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
 
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mma_counts(sass: str, marker: str) -> dict:
+    """{function: number of HMMA / HGMMA instructions} over the functions
+    of a ``cuobjdump -sass`` listing whose name contains ``marker``."""
+    fn, counts = None, {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if marker in m.group(1) else None
+            if fn:
+                counts.setdefault(fn, 0)
+        elif fn and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def cuobjdump_path():
+    """The toolkit's cuobjdump, else the one Triton ships, else None."""
+    cands = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and os.path.exists(c)), None)
 
 
 def max_err(a, b) -> float:
@@ -375,6 +414,25 @@ def decode_token_work(b, L, d, di, *, w_bytes, state_bytes, nf=0, vf=256):
     return 2 * b * w, w_bytes * w + small + state_bytes + 2 * 4 * b * d
 
 
+def chunk_work(b, T, L, d, di, h, *, w_bytes, s_bytes, fold_rows, nf=FIELDS, vf=256):
+    """(operations, bytes, state-streaming floor in bytes) of a T-token call
+    of kernel B at B songs: T (2 B (L (4 D^2 + 2 D DI) + D NF VF_PAD) + 4 L B
+    H E^2) operations (the state update and read too); bytes the layer
+    weights and padded heads once in their stored type, the f32 fold
+    (``fold_rows`` x D), head bias, in_linear bias and final LN, T pe rows,
+    the state read and written once a call and the tokens.  The floor
+    streams the layer weights and the state every token instead: the state
+    does not fit the card's L2 and shared memory between tokens."""
+    e = d // h
+    w = L * (4 * d * d + 2 * d * di) + d * nf * vf
+    layers = w_bytes * (w + L * (9 * d + di))
+    state = latency_state_bytes(b, L, d, h, s_bytes=s_bytes)
+    ops = T * (2 * b * w + 4 * L * b * h * e * e)
+    nbytes_ = (layers + 4 * (nf * vf + fold_rows * d + 3 * d) + 4 * T * d + state
+               + 4 * b * nf * (T + 1))
+    return ops, nbytes_, T * (layers + state)
+
+
 def window_work(b, h, s, d, w, mask):
     """(forward, backward) (operations, bytes) of band attention at this
     shape, the (query, key) pairs they count, and the pairs whose query and
@@ -520,7 +578,7 @@ def latency_slice(cfg, params, dev, gen) -> list:
     def plain(rp_, tok, st, t0, seed, n, greedy):
         k = kw(greedy)
         k.pop("vocab_sizes")
-        return dk6.fused_decode_v6_plain(rp_, tok, st.s, st.z, t0, seed, max_tokens=n, **k)[0]
+        return dk6.chunk_decode_v4_plain(rp_, tok, st.s, st.z, t0, seed, max_tokens=n, **k)[0]
 
     # -- 21. both kernels against the plain twin, teacher-forced, 32 tokens --
     errs = {}
@@ -1124,16 +1182,19 @@ def main() -> None:
             check(rate >= 0.99, f"decode_step {tag}: agreement {rate} < 99%")
 
     # -- 2b. decode_chunk (v6 counterpart) against its plain version -------
+    # f32 weights take the SIMT route, bf16 weights (generate's default) the
+    # tensor-core route; the twin computes v6's arithmetic for both
     v6p = dk6.make_v6_params(params, cfg)
     b6 = 128
     temps = tuple(s.temperature for s in smp.CP_SAMPLING)
     topps = tuple(s.top_p if s.top_p is not None else float("inf") for s in smp.CP_SAMPLING)
     kw = dict(n_head=H, vocab_sizes=cfg.vocab_sizes, temps=temps, topps=topps,
               eps=cfg.attn_eps)
-    b_err = 0.0
+    b_err = {}
+    dk6.reset_counts()
     toks = rand_tokens(16, b6)
     v6p_bf16 = dk6.make_v6_params(params, cfg, dtype=bf16)
-    for wdt, sdt in ((f32, f32), (f32, bf16), (bf16, bf16)):
+    for wdt, sdt in ((f32, f32), (f32, bf16), (bf16, f32), (bf16, bf16)):
         vp = v6p if wdt == f32 else v6p_bf16
         sk = dk4.init_state(cfg, b6, sdt, dev)
         sp = dk4.init_state(cfg, b6, sdt, dev)
@@ -1154,35 +1215,78 @@ def main() -> None:
               f"max|ds| {ds:.3e} (max|s| {mag:.3e})", flush=True)
         check(rate >= 0.99, f"decode_chunk {tag}: agreement {rate} < 99%")
         if sdt == f32:
-            check(ds <= 1e-4 * max(1.0, mag), f"decode_chunk {tag}: max|ds| {ds}")
-            b_err = ds
+            # the SIMT route's sums alone differ in order: 1e-4.  The tensor-
+            # core route also rounds activations to bf16 on both sides, so a
+            # reordered sum can flip a rounding: 3e-4, under what a state
+            # rounded to bf16 reads (the control below)
+            tol = 1e-4 if wdt == f32 else S_TC_TOL
+            check(ds <= tol * max(1.0, mag), f"decode_chunk {tag}: max|ds| {ds} > {tol} x "
+                                             f"{mag}")
+            b_err[wdt] = ds
+            if wdt == bf16:
+                s_ref_f32 = sp.s.float()
+        elif wdt == bf16:
+            # the control: the route with its state rounded to bf16, against
+            # the f32-state twin the gate above reads
+            ctl = (sk.s.float() - s_ref_f32).abs().max().item()
+            mag_ref = max(1.0, s_ref_f32.abs().max().item())
+            print(f"[decode_chunk] control, B={b6} weights bfloat16 state rounded to bfloat16, "
+                  f"against the f32-state twin: max|ds| {ctl:.3e} = {ctl / mag_ref:.3e} of max|s| "
+                  f"(gate {S_TC_TOL:g}; the f32-state route reads {b_err[bf16] / mag_ref:.3e})",
+                  flush=True)
+            check(ctl > S_TC_TOL * mag_ref, "decode_chunk: the f32-state gate would pass a state "
+                                            f"rounded to bf16 ({ctl} <= {S_TC_TOL} x {mag_ref})")
+            del s_ref_f32
+    check(dk6.fused_decode_v6.tc_calls == 32, "decode_chunk: the bf16 checks did not all "
+          f"take the tensor-core route ({dk6.fused_decode_v6.tc_calls} of 32)")
 
+    # chunk invariance on both routes: 64 tokens in one call equal 2 x 32
     tok0 = torch.tensor(sampler.CP_SEED, dtype=torch.int32, device=dev).repeat(b6, 1)
-    s1 = dk4.init_state(cfg, b6, device=dev)
-    s2 = dk4.init_state(cfg, b6, device=dev)
-    one, _, _ = dk6.fused_decode_v6(v6p, tok0, s1.s, s1.z, 0, 99, max_tokens=64, **kw)
-    first, _, _ = dk6.fused_decode_v6(v6p, tok0, s2.s, s2.z, 0, 99, max_tokens=32, **kw)
-    second, _, _ = dk6.fused_decode_v6(v6p, first[-1].contiguous(), s2.s, s2.z, 32, 99,
-                                       max_tokens=32, **kw)
-    same = torch.equal(one, torch.cat([first, second])) and torch.equal(s1.s, s2.s) \
-        and torch.equal(s1.z, s2.z)
-    print(f"[decode_chunk] chunk invariance (64 vs 2x32 tokens, B={b6}): "
-          f"{'identical' if same else 'DIFFERENT'}", flush=True)
-    check(same, "decode_chunk: one call of 64 tokens differs from two of 32")
+    for vp in (v6p, v6p_bf16):
+        s1 = dk4.init_state(cfg, b6, device=dev)
+        s2 = dk4.init_state(cfg, b6, device=dev)
+        one, _, _ = dk6.fused_decode_v6(vp, tok0, s1.s, s1.z, 0, 99, max_tokens=64, **kw)
+        first, _, _ = dk6.fused_decode_v6(vp, tok0, s2.s, s2.z, 0, 99, max_tokens=32, **kw)
+        second, _, _ = dk6.fused_decode_v6(vp, first[-1].contiguous(), s2.s, s2.z, 32, 99,
+                                           max_tokens=32, **kw)
+        same = torch.equal(one, torch.cat([first, second])) and torch.equal(s1.s, s2.s) \
+            and torch.equal(s1.z, s2.z)
+        route = "SIMT, f32 weights" if vp is v6p else "tensor cores, bf16 weights"
+        print(f"[decode_chunk] chunk invariance ({route}; 64 vs 2x32 tokens, B={b6}): "
+              f"{'identical' if same else 'DIFFERENT'}", flush=True)
+        check(same, f"decode_chunk ({route}): one call of 64 tokens differs from two of 32")
 
     # a whole 128-token call (the main path's chunk) feeds each token back:
     # greedy with an f32 state, the streams agree until a near-tie flips one
-    sk = dk4.init_state(cfg, b6, torch.float32, dev)
-    sp = dk4.init_state(cfg, b6, torch.float32, dev)
-    gk, _, _ = dk6.fused_decode_v6(v6p, tok0, sk.s, sk.z, 0, 0, max_tokens=128,
-                                   greedy=True, **kw)
-    gp, _, _ = dk6.fused_decode_v6_plain(v6p, tok0, sp.s, sp.z, 0, 0, max_tokens=128,
-                                         greedy=True, n_head=H, temps=temps, topps=topps,
-                                         eps=cfg.attn_eps)
-    rate = (gk == gp).float().mean().item()
-    print(f"[decode_chunk] greedy 128-token call, B={b6}, f32 state: {rate:.4%} of "
-          f"tokens equal to the plain version", flush=True)
-    check(rate >= 0.95, f"decode_chunk greedy 128-token call: {rate} < 95% equal")
+    # (with bf16 weights a flip comes within a few tokens, so that stream's
+    # agreement is printed, not gated)
+    for vp in (v6p, v6p_bf16):
+        sk = dk4.init_state(cfg, b6, torch.float32, dev)
+        sp = dk4.init_state(cfg, b6, torch.float32, dev)
+        gk, _, _ = dk6.fused_decode_v6(vp, tok0, sk.s, sk.z, 0, 0, max_tokens=128,
+                                       greedy=True, **kw)
+        gp, _, _ = dk6.fused_decode_v6_plain(vp, tok0, sp.s, sp.z, 0, 0, max_tokens=128,
+                                             greedy=True, n_head=H, temps=temps, topps=topps,
+                                             eps=cfg.attn_eps)
+        rate = (gk == gp).float().mean().item()
+        wname = "f32" if vp is v6p else "bf16"
+        print(f"[decode_chunk] greedy 128-token call, B={b6}, {wname} weights, f32 state: "
+              f"{rate:.4%} of tokens equal to the plain version", flush=True)
+        if vp is v6p:
+            check(rate >= 0.95, f"decode_chunk greedy 128-token call: {rate} < 95% equal")
+
+    # the tensor-core route's products run on the tensor cores: HMMA in the
+    # SASS of its product kernels
+    cuobjdump = cuobjdump_path()
+    check(cuobjdump is not None, "cuobjdump not found (toolkit or Triton's copy)")
+    sass = subprocess.run([cuobjdump, "-sass", libs["decode_chunk"]], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-500:]}")
+    b_mma = mma_counts(sass.stdout, "tc_gemm_kernel")
+    print(f"[decode_chunk] HMMA/HGMMA instructions in the tensor-core route's product kernels "
+          f"({cuobjdump}): {b_mma}", flush=True)
+    check(len(b_mma) > 0 and all(n > 0 for n in b_mma.values()),
+          f"decode_chunk: no tensor-core instructions in {b_mma}")
 
     hfix = torch.randn((b6, D), generator=gen, device=dev)
     for greedy in (False, True):
@@ -1196,22 +1300,43 @@ def main() -> None:
         check(rate >= 0.99, f"heads+sample: agreement {rate} < 99%")
 
     # -- 3. the main path, end to end -------------------------------------
+    # generate's default bf16 weights at 5 songs (kernel A) and 128 (kernel
+    # B's tensor-core route), and 128 songs with --dtype float32 (B's SIMT
+    # route)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, songs, max_tok, counter in (
-                ("v4", 5, 512, dk4.fused_stack_step), ("v6", 128, 256, dk6.fused_decode_v6)):
+        for name, songs, max_tok, dtype in (("v4", 5, 512, "bfloat16"),
+                                            ("v6_tc", 128, 256, "bfloat16"),
+                                            ("v6", 128, 256, "float32")):
             out = os.path.join(tmp, name, "midis")
             dk4.fused_stack_step.launches = 0
-            dk6.fused_decode_v6.launches = 0
+            dk6.reset_counts()
+            # the tensor-core route: a warm request on seed 1, then the timed
+            # one on seed 0, a new request
+            warm = ["--warmup"] if name == "v6_tc" else []
             res = cli.main(["generate", "--songs", str(songs), "--bars", "8",
-                            "--max-tokens", str(max_tok), "--out-dir", out])
+                            "--max-tokens", str(max_tok), "--dtype", dtype, "--out-dir", out,
+                            *warm])
             torch.cuda.synchronize()
-            launches[name] = counter.launches
-            print(f"[generate] {songs} songs: {res['tokens']} tokens in "
+            f6 = dk6.fused_decode_v6
+            launches[name] = {"v4": dk4.fused_stack_step.launches, "v6_tc": f6.tc_calls,
+                              "v6": f6.launches - f6.tc_calls}[name]
+            print(f"[generate] {songs} songs, {dtype} weights: {res['tokens']} tokens in "
                   f"{res['seconds']:.3f}s = {res['tokens_per_s']:.1f} tokens/s; launches "
-                  f"decode_step {dk4.fused_stack_step.launches}, decode_chunk "
-                  f"{dk6.fused_decode_v6.launches}", flush=True)
-            check(counter.launches > 0, f"generate {songs} songs: its kernel never launched")
+                  f"decode_step {dk4.fused_stack_step.launches}, decode_chunk SIMT "
+                  f"{f6.launches - f6.tc_calls}, tensor cores {f6.tc_calls} ({f6.cuda_launches} "
+                  f"CUDA launches for {f6.positions} positions, {f6.graph_kernels} kernels in a "
+                  f"token's graph, {f6.captures} instantiated, {f6.updates} updated)",
+                  flush=True)
+            check(launches[name] > 0, f"generate {songs} songs {dtype}: its kernel never "
+                                      "launched")
+            if name == "v6_tc":
+                check(f6.launches == f6.tc_calls, "generate 128 songs bf16: the SIMT route ran")
+                check(f6.captures <= 1, f"generate 128 songs bf16: {f6.captures} token graphs "
+                                        "instantiated for two requests of one shape")
+                tc_launch = dict(cuda_launches=f6.cuda_launches, positions=f6.positions,
+                                 graph_kernels=f6.graph_kernels, captures=f6.captures,
+                                 updates=f6.updates)
             for i in range(songs):
                 with open(os.path.join(out, f"get_{i}.mid"), "rb") as f:
                     head = f.read(4)
@@ -1924,23 +2049,77 @@ def main() -> None:
     a_flops = 2 * 5 * L * (4 * D * D + 2 * D * DI) + 4 * L * 5 * H * E * E
     a_bound, a_by = bound(a_bytes, a_flops)
 
+    # kernel B: a 128-token call at B=128 (and B=1024, bench.py's decode
+    # shape) with the default bf16 state, f32 weights (SIMT route) and bf16
+    # weights (tensor-core route, bound at the bf16 tensor-core rate: v6
+    # casts every product's input to the weights' type)
     T6 = 128
-    st6 = dk4.init_state(cfg, b6, device=dev)
-    b_ms = time_ms(lambda: dk6.fused_decode_v6(v6p, tok0, st6.s, st6.z, 0, 1,
-                                               max_tokens=T6, **kw), 3)
-    b_plain = time_ms(lambda: dk6.fused_decode_v6_plain(
-        v6p, tok0, st6.s, st6.z, 0, 1, max_tokens=T6, n_head=H, temps=temps,
-        topps=topps, eps=cfg.attn_eps), 1)
-    b_bytes = (nbytes(wts) + nbytes([v6p.head_w, v6p.head_b, v6p.m, v6p.b_in, v6p.fls,
-                                     v6p.flb]) + T6 * D * 4 + 2 * nbytes([st6.s, st6.z])
-               + b6 * FIELDS * 4 * (T6 + 1))
-    b_flops = T6 * (2 * b6 * (L * (4 * D * D + 2 * D * DI) + D * FIELDS * 256)
-                    + 4 * L * b6 * H * E * E)
-    b_bound, b_by = bound(b_bytes, b_flops)
+    fold_rows = v6p.m.shape[0]
+    b_t = {}
+    for wdt, b in ((f32, b6), (bf16, b6), (bf16, 1024)):
+        vp = v6p if wdt == f32 else v6p_bf16
+        st6 = dk4.init_state(cfg, b, device=dev)
+        tok_b = tok0[:1].repeat(b, 1)
+        dk6.reset_counts()
+        ms = time_ms(lambda: dk6.fused_decode_v6(vp, tok_b, st6.s, st6.z, 0, 1,
+                                                 max_tokens=T6, **kw), 3)
+        f6 = dk6.fused_decode_v6
+        per_call = f6.cuda_launches / f6.tc_calls if wdt == bf16 else None
+        plain = None
+        if b == b6:
+            plain = time_ms(lambda: dk6.fused_decode_v6_plain(
+                vp, tok_b, st6.s, st6.z, 0, 1, max_tokens=T6, n_head=H, temps=temps,
+                topps=topps, eps=cfg.attn_eps), 1)
+        ops, nb, floor_b = chunk_work(b, T6, L, D, DI, H, w_bytes=2 if wdt == bf16 else 4,
+                                      s_bytes=st6.s.element_size(), fold_rows=fold_rows)
+        bd, by = bound(nb, ops, BF16_FLOPS if wdt == bf16 else F32_FLOPS)
+        b_t[(wdt, b)] = dict(ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by,
+                             floor_ms=floor_b / HBM_BYTES_PER_S * 1e3, launches_per_call=per_call,
+                             graph_kernels=f6.graph_kernels,
+                             gflop=ops / 1e9, mb=nb / 1e6)
+        plain_s = f"{plain:.3f}" if plain is not None else "not timed"
+        print(f"[time] decode_chunk B={b} T={T6} {str(wdt)[6:]} weights "
+              f"({'tensor cores' if wdt == bf16 else 'SIMT'}), {str(st6.s.dtype)[6:]} state: "
+              f"{ms:.3f} ms, plain {plain_s} ms, bound {bd:.4f} ms ({by}; {ops / 1e9:.1f} GFLOP, "
+              f"{nb / 1e6:.1f} MB), state-streaming floor {floor_b / HBM_BYTES_PER_S * 1e3:.3f} "
+              f"ms" + (f"; {per_call:.0f} CUDA launches a call ({f6.graph_kernels} kernels in "
+                       f"each token's graph)" if wdt == bf16 else ""), flush=True)
+        del st6
+    b_ms, b_plain, b_bound, b_by = (b_t[(f32, b6)][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                 "bound_by"))
+
+    # the host's time to issue a one-token call of the tensor-core route by
+    # what its graph needs: a new shape instantiates one, another state
+    # tensor updates it in place, a new seed on the same tensors launches it
+    # as it is (the card's work is queued behind; timed until the call
+    # returns)
+    f6 = dk6.fused_decode_v6
+    host = {}
+    for what, b, n_states in (("instantiate", b6 - 1, 1), ("update", b6, 2),
+                              ("replay", b6, 1)):
+        sts = [dk4.init_state(cfg, b, device=dev) for _ in range(n_states)]
+        tok_b = tok0[:1].repeat(b, 1)
+        if what != "instantiate":
+            dk6.fused_decode_v6(v6p_bf16, tok_b, sts[-1].s, sts[-1].z, 0, 0, max_tokens=1, **kw)
+        torch.cuda.synchronize()
+        c0, u0, n, t_host = f6.captures, f6.updates, (1 if what == "instantiate" else 20), 0.0
+        for i in range(n):
+            st_i = sts[i % n_states]
+            t = time.perf_counter()
+            dk6.fused_decode_v6(v6p_bf16, tok_b, st_i.s, st_i.z, 0, i + 1, max_tokens=1, **kw)
+            t_host += time.perf_counter() - t
+        torch.cuda.synchronize()
+        host[what] = dict(ms=t_host * 1e3 / n, captures=f6.captures - c0,
+                          updates=f6.updates - u0)
+        del sts
+    print(f"[time] decode_chunk tensor cores, host ms to issue a one-token call (B={b6}): "
+          + ", ".join(f"{k} {v['ms']:.3f} ({v['captures']} instantiated, {v['updates']} "
+                      f"updated in {n})" for k, v in host.items()
+                      for n in [1 if k == "instantiate" else 20]), flush=True)
+    check(host["replay"]["captures"] == host["update"]["captures"] == 0,
+          f"decode_chunk: calls of one shape instantiated a graph ({host})")
     print(f"[time] decode_step B=5 (f32 weights, {str(sdt)[6:]} state): {a_ms:.3f} ms, "
           f"plain {a_plain:.3f} ms, bound {a_bound:.4f} ms ({a_by})")
-    print(f"[time] decode_chunk B={b6} T={T6}: {b_ms:.3f} ms, plain {b_plain:.3f} ms, "
-          f"bound {b_bound:.4f} ms ({b_by})")
 
     c_fwd, c_bwd = time_fwd_bwd(c_kernel, c_in, g_tr, 20)
     c_pf, c_pb = time_fwd_bwd(c_plain, c_in, g_tr, 5)
@@ -2061,8 +2240,21 @@ def main() -> None:
          "bound_by": a_by, "library_ms": None},
         {"name": "decode_chunk_v6", "route": "cuda", "source": f"{pkg}/csrc/decode_chunk.cu",
          "replaces": f"{tpu}/decode_kernel_v6.py:364", "launches": launches["v6"],
-         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
-         "bound_by": b_by, "library_ms": None},
+         "weights": "float32", "max_abs_err": b_err[f32], "ms": b_ms, "plain_ms": b_plain,
+         "bound_ms": b_bound, "bound_by": b_by, "library_ms": None},
+        # the tensor-core route (bf16 weights, generate's default) at B=128,
+        # and at B=1024
+        {"name": "decode_chunk_v6_tc", "route": "cuda",
+         "source": f"{pkg}/csrc/decode_chunk_tc.cuh",
+         "replaces": f"{tpu}/decode_kernel_v6.py:364", "launches": launches["v6_tc"],
+         "weights": "bfloat16", "max_abs_err": b_err[bf16], "ms": b_t[(bf16, b6)]["ms"],
+         "plain_ms": b_t[(bf16, b6)]["plain_ms"], "bound_ms": b_t[(bf16, b6)]["bound_ms"],
+         "bound_by": b_t[(bf16, b6)]["bound_by"], "library_ms": None,
+         "state_floor_ms": b_t[(bf16, b6)]["floor_ms"],
+         "cuda_launches_per_call": b_t[(bf16, b6)]["launches_per_call"],
+         "graph_kernels": b_t[(bf16, b6)]["graph_kernels"], "hmma": b_mma,
+         "main_path_launches": tc_launch, "host_ms_per_call": host,
+         "b1024": b_t[(bf16, 1024)]},
         {"name": "qkv_attention_block", "route": "cuda",
          "source": f"{pkg}/csrc/attention_block.cu",
          "replaces": f"{tpu}/attention_block.py:346", "launches": sum(launches["C"]),

@@ -41,6 +41,7 @@ sends the post-LN1 half of every linear-transformer layer to kernel G
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import os
 import sys
@@ -87,7 +88,8 @@ def cmd_generate(args) -> dict:
                             batch_size=args.songs, out_dir=args.out_dir,
                             seed=args.seed)
     if args.warmup:
-        sampler.generate_songs(params, mcfg, gcfg)
+        # another seed, so that the timed call is a new request
+        sampler.generate_songs(params, mcfg, dataclasses.replace(gcfg, seed=args.seed + 1))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -510,7 +512,7 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--out-dir", default="gen_midis")
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--warmup", action="store_true",
-                   help="run once before timing (builds the kernels)")
+                   help="run once, on seed + 1, before timing (builds the kernels)")
     d.add_argument("--dtype", default="bfloat16", choices=tuple(_DTYPES),
                    help="decode weight dtype (bf16 halves the weight stream)")
     d.add_argument("--device", default="cuda",

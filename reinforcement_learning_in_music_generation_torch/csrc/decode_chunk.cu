@@ -8,38 +8,45 @@
 // the TPU's vector unit; here every tensor is batch-major and the state
 // keeps the DecodeState layout S (L,B,H,E,E), z (L,B,H,E).
 //
-// Per token, rlmg_decode_chunk launches, on one stream:
-//   embed_kernel        h = sum_f M[off_f + tok_f] + b_in + pe[pos]: the
-//                       embedding folded through in_linear (one row per
-//                       (field, id)), one block per song
-//   layer stack         decode_layers.cuh, the kernels of decode_step.cu
-//   heads_sample_kernel one block per (song, field): final LN, the padded
-//                       head product (VF_PAD columns per field, NEG bias in
-//                       the padding), temperature, the 24-step bisection
-//                       nucleus threshold, Gumbel-max with bits from
-//                       Philox4x32-10, first-argmax
-// (the bodies of both, embed_row and heads_sample_row, are in
-// decode_sample.cuh, shared with latency_decode.cu) and feeds each emitted
-// token to the next step.  The host loop over T
-// stays in C, so a chunk costs one call from Python; v6's single launch
-// per chunk (the whole loop inside one kernel) is not reproduced yet.
+// Two routes, chosen by the weights' type:
+//   bf16 weights (generate's default): rlmg_decode_chunk_tc, the tensor-core
+//     route of decode_chunk_tc.cuh.  v6 casts every product's input to the
+//     weights' type and sums in f32, which is what mma.sync bf16 -> f32
+//     computes.  One token is 7 L + 3 kernels (embedding; per layer the qkv
+//     product, the state pass, Wo, LN1, FFN1, FFN2, LN2; the heads product
+//     and the sampling pass), captured as a CUDA graph, one for each shape,
+//     that reads the call's position, seed and sampling settings from a
+//     block on the card; a call launches one small kernel (tok0 and those
+//     values onto the card) and the graph T times.
+//   f32 weights: rlmg_decode_chunk, per token an embed kernel, the layer
+//     stack of decode_layers.cuh (A's K-split SIMT f32 products) and
+//     heads_sample_kernel, one block per (song, field); v6's casts are no-ops
+//     there and the f32 FMA rate is the bound.
+// (embed_row, heads_sample_row and sample_logit are in decode_sample.cuh,
+// shared with latency_decode.cu.)
 //
 // Random bits: Philox4x32-10 keyed by (seed, PHILOX_KEY1) at counter
 // (absolute position, field, vocab index, song).  The stream depends only
 // on the position, so one call of 64 tokens and two of 32 emit the same
 // tokens.  ops/decode_common.py philox_bits draws the same bits in torch.
 //
-// Bound on the card.  Per call the weights are read once (151 MB in f32 at
-// the flagship width) and the state once in and once out (201 MB in bf16 at
-// B=128); per token the products take 2*B*(L*(4*D*D + 2*D*DI) +
-// D*NF*VF_PAD) operations (9.7 GFLOP at B=128).  At B=128 and T=128 the
-// operations bind (67 TFLOP/s for f32 FMAs outside the tensor cores, 989
-// TFLOP/s bf16 in them).  This design keeps the per-token intermediates in
-// one f32 scratch buffer and the sampling in one pass over each field's
-// 256 logits, held in registers; the products are the K-split tiled GEMMs
-// of decode_layers.cuh, without tensor cores yet.
+// Bound on the card, agent_config width, B=128, T=128 with bf16 weights:
+// the products take 2 B (L (4 D^2 + 2 D DI) + D NF VF_PAD) operations a
+// token, 1.29e12 a call, 1.30 ms at 989 TFLOP/s (bf16 tensor cores), over
+// the 282 MB of bytes the call must move (weights 77 MB once, the bf16
+// state 204 MB in and out once).  But the state (102 MB at B=128) does not
+// fit the card's 50 MB of L2, so every design streams it every token: 282
+// MB a token, 0.084 ms, about 10.8 ms a call, the floor this route aims at.
+// The state pass reads and writes it in 16-byte pieces; the products
+// stream the weights over K-split tiles on every SM.  With f32 weights the
+// products bind: 19.2 ms a call at 67 TFLOP/s (f32 FMAs).
 
-#include "decode_sample.cuh"
+#include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+
+#include "decode_chunk_tc.cuh"
 
 namespace rlmg {
 
@@ -83,6 +90,104 @@ inline int heads_sample(const float* h, const float* fls, const float* flb, cons
   return 0;
 }
 
+
+// -- the tensor-core route (bf16 weights) -------------------------------------
+
+// One instantiated token graph per shape (TcArgs: device, L, B, D, H, DI,
+// NF, state type), holding the pointers of the call that last ran it.  The
+// per-call values (position, seed, sampling settings) are read from TcCtrl
+// on the card, so a call with the same pointers launches the graph as it
+// is; a call with other pointers (another state, weights or buffers)
+// captures its token again and updates the graph in place
+// (cudaGraphExecUpdate: the same kernels with new arguments).
+struct TcGraph {
+  bool used;
+  TcArgs args;
+  cudaGraphExec_t exec;
+  int kernels;
+};
+constexpr int TC_SHAPES = 8, TC_MAX_DEVICES = 64;
+static TcGraph tc_graphs[TC_SHAPES];
+static int tc_next = 0;
+static cudaStream_t tc_capture_streams[TC_MAX_DEVICES];
+static std::mutex tc_mutex;
+
+template <typename TS>
+int tc_capture(const TcArgs& a, cudaStream_t cs, cudaGraph_t* g, int* kernels) {
+  cudaError_t e = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+  if (e != cudaSuccess) return (int)e;
+  const int n = tc_enqueue_token<TS>(a, cs);
+  *g = nullptr;
+  e = cudaStreamEndCapture(cs, g);
+  if (n < 0 || e != cudaSuccess) {
+    if (*g) cudaGraphDestroy(*g);
+    *g = nullptr;
+    cudaGetLastError();
+    return n < 0 ? -n : (int)e;
+  }
+  *kernels = n;
+  return 0;
+}
+
+// The graph for a, brought up to a's pointers.  *how: 0 launched as it
+// was, 1 updated in place, 2 instantiated by this call.  Called under
+// tc_mutex.
+inline int tc_graph(const TcArgs& a, TcGraph** out, int* how) {
+  TcGraph* slot = nullptr;
+  for (TcGraph& c : tc_graphs)
+    if (c.used && tc_same_shape(c.args, a)) slot = &c;
+  if (slot != nullptr && memcmp(&slot->args, &a, sizeof(TcArgs)) == 0) {
+    *out = slot;
+    *how = 0;
+    return 0;
+  }
+  if (a.dev < 0 || a.dev >= TC_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  cudaStream_t& cs = tc_capture_streams[a.dev];
+  if (cs == nullptr) {
+    const cudaError_t e = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int rc = tc_gemm_prepare();
+  if (rc) return rc;
+  cudaGraph_t g = nullptr;
+  int n = 0;
+  rc = a.s_bf16 ? tc_capture<bf16>(a, cs, &g, &n) : tc_capture<float>(a, cs, &g, &n);
+  if (rc) return rc;
+  cudaError_t e = cudaErrorUnknown;
+  if (slot != nullptr) {
+    // updates apply to later launches; those already queued keep theirs
+    cudaGraphExecUpdateResultInfo res;
+    e = cudaGraphExecUpdate(slot->exec, g, &res);
+    if (e == cudaSuccess) {
+      *how = 1;
+    } else {
+      cudaGetLastError();
+      cudaGraphExecDestroy(slot->exec);   // freed when its launches end
+      slot->used = false;
+    }
+  }
+  if (e != cudaSuccess) {
+    if (slot == nullptr) {
+      slot = &tc_graphs[tc_next];
+      tc_next = (tc_next + 1) % TC_SHAPES;
+      if (slot->used) cudaGraphExecDestroy(slot->exec);
+      slot->used = false;
+    }
+    e = cudaGraphInstantiateWithFlags(&slot->exec, g, 0);
+    if (e != cudaSuccess) {
+      cudaGraphDestroy(g);
+      return (int)e;
+    }
+    *how = 2;
+  }
+  cudaGraphDestroy(g);
+  slot->used = true;
+  memcpy(&slot->args, &a, sizeof(TcArgs));
+  slot->kernels = n;
+  *out = slot;
+  return 0;
+}
+
 }  // namespace rlmg
 
 extern "C" {
@@ -91,10 +196,10 @@ long long rlmg_stack_scratch_floats(int B, int D, int DI) {
   return (long long)rlmg::stack_scratch_floats(B, D, DI);
 }
 
-// Decode T tokens.  tok0 (B,NF) int32 is fed at position t0; tokens (T,B,NF)
-// int32 receives the T successors (tokens[t] is fed at t0+t+1 by the next
-// step or call).  s, z are updated in place.  off, tinv, topp are host
-// arrays of NF values.  h (B,D) f32 and scratch
+// Decode T tokens with f32 weights.  tok0 (B,NF) int32 is fed at position
+// t0; tokens (T,B,NF) int32 receives the T successors (tokens[t] is fed at
+// t0+t+1 by the next step or call).  s, z are updated in place.  off,
+// tinv, topp are host arrays of NF values.  h (B,D) f32 and scratch
 // (rlmg_stack_scratch_floats) are the caller's.  pe is the whole (max_len, D)
 // f32 table; rows t0..t0+T-1 are read.
 int rlmg_decode_chunk(const int* tok0, int* tokens, const float* m, const float* bin,
@@ -102,7 +207,7 @@ int rlmg_decode_chunk(const int* tok0, int* tokens, const float* m, const float*
                       const float* fls, const float* flb, const int* off, const float* tinv,
                       const float* topp, void* s, void* z, float* h, float* scratch, int T,
                       int t0, unsigned int seed, int greedy, int L, int B, int D, int H,
-                      int DI, int NF, float eps, int w_bf16, int s_bf16, void* stream) {
+                      int DI, int NF, float eps, int s_bf16, void* stream) {
   if (!rlmg::stack_shape_ok(D, H) || NF > rlmg::MAX_NF || NF < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -113,17 +218,22 @@ int rlmg_decode_chunk(const int* tok0, int* tokens, const float* m, const float*
     rlmg::embed_kernel<<<B, 256, 0, st>>>(tin, m, fa, bin, pe + (size_t)(t0 + t) * D, h, NF,
                                           D);
     RLMG_CHECK();
-    int rc = rlmg::stack_step_any(h, w, s, z, scratch, L, B, D, H, DI, eps, w_bf16, s_bf16, st);
+    using bf = __nv_bfloat16;
+    int rc = s_bf16 ? rlmg::stack_step<float, bf>(h, w, (bf*)s, (bf*)z, scratch, L, B, D, H, DI,
+                                                  eps, st)
+                    : rlmg::stack_step<float, float>(h, w, (float*)s, (float*)z, scratch, L, B,
+                                                     D, H, DI, eps, st);
     if (rc) return rc;
     rc = rlmg::heads_sample(h, fls, flb, hw, hb, fa, tokens + t * bnf, B, NF, D, t0 + t, seed,
-                            greedy, w_bf16, st);
+                            greedy, 0, st);
     if (rc) return rc;
   }
   return 0;
 }
 
-// The heads + sampling pass alone, on a given final hidden state h (B,D)
-// (before the final LN), as the chunk runs it for position pos.
+// The SIMT heads + sampling pass alone (heads_sample_row: the f32 route's,
+// and v8's and v7's), on a given final hidden state h (B,D) (before the
+// final LN), for position pos.
 int rlmg_heads_sample(const float* h, const void* hw, const float* hb, const float* fls,
                       const float* flb, const float* tinv, const float* topp, int* tok_out,
                       int B, int D, int NF, int pos, unsigned int seed, int greedy, int w_bf16,
@@ -132,6 +242,79 @@ int rlmg_heads_sample(const float* h, const void* hw, const float* hb, const flo
   const rlmg::FieldArgs fa = rlmg::field_args(nullptr, tinv, topp, NF);
   return rlmg::heads_sample(h, fls, flb, hw, hb, fa, tok_out, B, NF, D, pos, seed, greedy,
                             w_bf16, (cudaStream_t)stream);
+}
+
+long long rlmg_tc_workspace_bytes(int B, int D, int DI, int NF) {
+  rlmg::TcBufs o;
+  return (long long)rlmg::tc_carve(nullptr, B, D, DI, NF, &o);
+}
+
+// Decode T tokens with bf16 weights on the tensor-core route (arguments as
+// rlmg_decode_chunk).  tokbuf (rows >= T+1, B, NF) int32 receives tok0 in
+// row 0 and the token emitted at t0+t in row t+1; work
+// (rlmg_tc_workspace_bytes) is the caller's device buffer.  The layer
+// weights w, the padded heads hw are bf16.  info[0]: the launches this call
+// issued (one kernel, then the token graph T times); info[1]: kernels in
+// the graph; info[2]: 0 if the shape's graph was launched as it was, 1 if
+// it was updated to this call's pointers, 2 if it was instantiated.
+int rlmg_decode_chunk_tc(const int* tok0, int* tokbuf, const float* m, const float* bin,
+                         const float* pe, const void* const* w, const void* hw,
+                         const float* hb, const float* fls, const float* flb, const int* off,
+                         const float* tinv, const float* topp, void* s, void* z, void* work,
+                         int T, int t0, unsigned int seed, int greedy, int L, int B, int D,
+                         int H, int DI, int NF, float eps, int s_bf16, void* stream,
+                         int* info) {
+  if (!rlmg::tc_shape_ok(D, H, DI) || NF > rlmg::MAX_NF || NF < 1 || B < 1 || T < 1 || L < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  rlmg::TcArgs a;
+  memset(&a, 0, sizeof a);
+  a.tokbuf = tokbuf;
+  a.m = m;
+  a.bin = bin;
+  a.pe = pe;
+  a.head_b = hb;
+  a.fls = fls;
+  a.flb = flb;
+  a.head_w = (const rlmg::bf16*)hw;
+  for (int i = 0; i < rlmg::N_WEIGHTS; ++i) a.w[i] = (const rlmg::bf16*)w[i];
+  a.s = s;
+  a.z = z;
+  a.work = (char*)work;
+  a.L = L;
+  a.B = B;
+  a.D = D;
+  a.H = H;
+  a.DI = DI;
+  a.NF = NF;
+  a.s_bf16 = s_bf16;
+  a.eps = eps;
+  cudaError_t e = cudaGetDevice(&a.dev);
+  if (e != cudaSuccess) return (int)e;
+  rlmg::TcCtrl c;
+  memset(&c, 0, sizeof c);
+  c.t0 = t0;
+  c.seed = seed;
+  c.greedy = greedy;
+  c.fa = rlmg::field_args(off, tinv, topp, NF);
+  rlmg::TcBufs o;
+  rlmg::tc_carve(a.work, B, D, DI, NF, &o);
+  const int n = B * NF;
+  rlmg::tc_begin_kernel<<<(n + 255) / 256, 256, 0, st>>>(tok0, tokbuf, o.ctrl, c, n);
+  RLMG_CHECK();
+  // held until the launches are queued, so no other call updates the graph
+  // between them
+  std::lock_guard<std::mutex> lock(rlmg::tc_mutex);
+  rlmg::TcGraph* g = nullptr;
+  const int rc = rlmg::tc_graph(a, &g, &info[2]);
+  if (rc) return rc;
+  for (int t = 0; t < T; ++t) {
+    e = cudaGraphLaunch(g->exec, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  info[0] = 1 + T;
+  info[1] = g->kernels;
+  return 0;
 }
 
 const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -11,7 +11,9 @@
 //                    NEG bias in the padding), temperature, the 24-step
 //                    bisection nucleus threshold, Gumbel-max with bits from
 //                    Philox4x32-10 at counter (position, field, vocab index,
-//                    song), first-argmax
+//                    song), first-argmax; its sampling half, sample_logit,
+//                    also serves kernel B's tensor-core route
+//                    (decode_chunk_tc.cuh), whose head product is a GEMM
 //
 // Both read what an earlier phase of the same launch may have written (the
 // tokens, h) with __ldcg, past the SM's L1, so a persistent kernel sees the
@@ -116,6 +118,31 @@ __device__ __forceinline__ void embed_row(const int* tok_b, const float* __restr
   }
 }
 
+// The token of field f for song b from its tempered logit x (thread v of a
+// block of VF_PAD owns vocab index v), returned to every thread: greedy
+// first-argmax, or the 24-step bisection nucleus threshold and Gumbel-max
+// with bits from Philox4x32-10 at counter (position, field, vocab index,
+// song).  red, redi: 32 values each of shared memory.
+__device__ __forceinline__ int sample_logit(float x, const FieldArgs& fa, int b, int f, int pos,
+                                            uint32_t seed, int greedy, float* red, int* redi) {
+  const int v = threadIdx.x;
+  if (greedy) return block_argmax_first(x, v, red, redi);
+  const float mx = block_max(x, red);
+  const float ex = expf(x - mx);
+  const float p = ex / (block_sum(ex, red) * 1.00001f);
+  const float tp = fa.topp[f];
+  float lo = 0.f, hi = 1.f;
+  for (int it = 0; it < NUCLEUS_ITERS; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    const float mass = block_sum(p > mid ? p : 0.f, red);
+    if (mass > tp) lo = mid;
+    else hi = mid;
+  }
+  const uint32_t bits = philox_first(seed, (uint32_t)pos, (uint32_t)f, (uint32_t)v, (uint32_t)b);
+  const float score = p > lo ? x + gumbel_from_bits(bits) : NEG;
+  return block_argmax_first(score, v, red, redi);
+}
+
 // The token of field f for song b from h_b (D, before the final LN), by a
 // block of VF_PAD threads (thread v owns logit v); returned to every
 // thread.  hf: D floats of shared memory; red, redi: 32 each.
@@ -137,21 +164,7 @@ __device__ __forceinline__ int heads_sample_row(const float* h_b, const float* _
   float acc = 0.f;
   for (int d = 0; d < D; ++d) acc = fmaf(hf[d], ld(hw + (size_t)d * ncol + col), acc);
   const float x = (acc + hb[col]) * fa.tinv[f];
-  if (greedy) return block_argmax_first(x, v, red, redi);
-  const float mx = block_max(x, red);
-  const float ex = expf(x - mx);
-  const float p = ex / (block_sum(ex, red) * 1.00001f);
-  const float tp = fa.topp[f];
-  float lo = 0.f, hi = 1.f;
-  for (int it = 0; it < NUCLEUS_ITERS; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    const float mass = block_sum(p > mid ? p : 0.f, red);
-    if (mass > tp) lo = mid;
-    else hi = mid;
-  }
-  const uint32_t bits = philox_first(seed, (uint32_t)pos, (uint32_t)f, (uint32_t)v, (uint32_t)b);
-  const float score = p > lo ? x + gumbel_from_bits(bits) : NEG;
-  return block_argmax_first(score, v, red, redi);
+  return sample_logit(x, fa, b, f, pos, seed, greedy, red, redi);
 }
 
 }  // namespace rlmg

@@ -139,18 +139,21 @@ fused_stack_step.launches = 0
 
 def fused_stack_step_plain(dparams: dict, h0: torch.Tensor, s: torch.Tensor,
                            z: torch.Tensor, *, n_head: int,
-                           eps: float = DEFAULT_EPS
+                           eps: float = DEFAULT_EPS, round_to: Optional[torch.dtype] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic in PyTorch: f32 activations, weights read in
     their stored dtype, the state accumulated in f32 and rounded only when
-    stored (in place); the read uses the unrounded f32 sums."""
+    stored (in place); the read uses the unrounded f32 sums.  ``round_to``:
+    round each product's input activations to this dtype first (JAX v6's
+    ``.astype(w.dtype)``; a no-op for float32), the sums stay f32."""
     ws = [t.float() for t in layer_weights(dparams)]
+    r = (lambda x: x) if round_to is None else (lambda x: x.to(round_to).float())
     qkv_w, qkv_b, wo_w, wo_b, l1s, l1b, f1w, f1b, f2w, f2b, l2s, l2b = ws
     h = h0.float()
     b, d = h.shape
     e = d // n_head
     for l in range(s.shape[0]):
-        qkv = h @ qkv_w[l] + qkv_b[l]
+        qkv = r(h) @ qkv_w[l] + qkv_b[l]
         q = phi(qkv[:, :d]).reshape(b, n_head, e)
         k = phi(qkv[:, d:2 * d]).reshape(b, n_head, e)
         v = qkv[:, 2 * d:].reshape(b, n_head, e)
@@ -161,9 +164,9 @@ def fused_stack_step_plain(dparams: dict, h0: torch.Tensor, s: torch.Tensor,
         num = torch.einsum("bhe,bhef->bhf", q, s_new)
         den = (q * z_new).sum(-1) + eps
         att = (num / den[..., None]).reshape(b, d)
-        h1 = ln(h + (att @ wo_w[l] + wo_b[l]), l1s[l], l1b[l])
-        y = gelu_exact(h1 @ f1w[l] + f1b[l])
-        h = ln(h1 + (y @ f2w[l] + f2b[l]), l2s[l], l2b[l])
+        h1 = ln(h + (r(att) @ wo_w[l] + wo_b[l]), l1s[l], l1b[l])
+        y = gelu_exact(r(h1) @ f1w[l] + f1b[l])
+        h = ln(h1 + (r(y) @ f2w[l] + f2b[l]), l2s[l], l2b[l])
     return h, s, z
 
 

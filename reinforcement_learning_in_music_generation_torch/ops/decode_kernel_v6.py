@@ -2,26 +2,42 @@
 JAX package's ``ops/decode_kernel_v6.py`` (``fused_decode_v6``, its Pallas
 body ``_v6_kernel``).
 
-Kernel: ``csrc/decode_chunk.cu``, hand-written CUDA for ``sm_90a``.  Per
-token it launches an embed kernel (the six embedding rows folded through
-in_linear, plus the in_linear bias and the pe row), the layer stack of
-``decode_kernel_v4`` (``csrc/decode_layers.cuh``), and a heads + sample
-kernel, one block per (song, field): final LN, the padded head product,
-temperature, the 24-step bisection nucleus threshold, Gumbel-max and
-first-argmax.  The emitted token feeds the next step; the loop over T runs
-in C, one call per chunk.
+Kernel: ``csrc/decode_chunk.cu``, hand-written CUDA for ``sm_90a``, two
+routes chosen by the weights' type.
+
+* bf16 weights (``generate``'s default): the tensor-core route of
+  ``csrc/decode_chunk_tc.cuh``.  JAX's v6 casts each product's input
+  activations to the weights' type and sums in f32 (:255 qkv, :286 Wo,
+  :292 and :296 the FFN, :331 the heads); here those products are
+  ``mma.sync`` bf16 -> f32 tiles that stream the weights over K-split
+  blocks, the bias / phi / gelu / residual / LN work sits in the passes
+  around them, and the state pass reads and writes S and z once a token in
+  16-byte pieces, one block per (song, head) (head widths 16, 32, 64 and
+  128; a plainer pass takes the others).  One token's 7 L + 3 kernels are
+  captured as a CUDA graph, one a shape, that reads the call's position,
+  seed and sampling settings from a block on the card; a call launches one
+  small kernel and the graph T times.
+* f32 weights: per token an embed kernel, the layer stack of
+  ``decode_kernel_v4`` (``csrc/decode_layers.cuh``, SIMT f32 products) and
+  a heads + sample kernel, one block per (song, field).  v6's casts are
+  no-ops there.
 
 The TPU kernel's transposed layout (batch on the 128 lanes) was a fix for
 the TPU's vector unit; here tensors are batch-major and the state keeps
 the ``DecodeState`` layout.  Random bits come from Philox4x32-10 keyed by
 (seed, absolute position, field, vocab index, song), so a chunk split into
 two calls emits the same tokens (chunk invariance, the JAX contract
-:33-43).  ``fused_decode_v6_plain`` draws the same bits in torch integer
-ops (``decode_common.philox_bits``).
+:33-43).  ``fused_decode_v6_plain``, the plain twin, has v6's arithmetic
+(each product's input rounded to the weights' type, f32 sums) and draws
+the same bits in torch integer ops (``decode_common.philox_bits``).
+``chunk_decode_v4_plain`` is the same chunk with v4's arithmetic (f32
+activations, the weights cast up): the twin of v8, v7 and v5, whose
+kernels compute that.
 
-Bound on the H100 (details in the source): per call the weights are read
-once and the state once in and out; at B=128 the per-token products
-(9.7 GFLOP) bind.
+Bound on the H100 (details in the source): with bf16 weights at B=128 the
+products (1.29 TFLOP a 128-token call) take 1.30 ms at 989 TFLOP/s, but the
+bf16 state (102 MB) cannot stay on the card's chip, so streaming it every
+token sets a floor near 10.8 ms a call; with f32 weights the f32 FMAs bind.
 """
 
 from __future__ import annotations
@@ -125,11 +141,15 @@ def embed_plain(v6p: V6Params, tok: torch.Tensor, pos: int) -> torch.Tensor:
 
 def heads_sample_plain(v6p: V6Params, h: torch.Tensor, *, seed: int, pos: int,
                        temps: Sequence[float], topps: Sequence[float],
-                       greedy: bool = False) -> torch.Tensor:
+                       greedy: bool = False, round_to: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
     """Final LN, padded heads, temperature, nucleus, Gumbel-max on h (B, D)
-    -> tokens (B, NF) int32.  Bits: Philox at (pos, field, vocab id, song)."""
+    -> tokens (B, NF) int32.  Bits: Philox at (pos, field, vocab id, song).
+    ``round_to``: round the head product's input to this dtype first (v6)."""
     b, nf, dev = h.shape[0], len(temps), h.device
     hf = ln(h.float(), v6p.fls, v6p.flb)
+    if round_to is not None:
+        hf = hf.to(round_to).float()
     logits = hf @ v6p.head_w.float() + v6p.head_b
     tinv = torch.tensor([1.0 / t for t in temps], dtype=torch.float32, device=dev)
     x = logits.reshape(b, nf, VF_PAD) * tinv[None, :, None]
@@ -148,20 +168,42 @@ def heads_sample_plain(v6p: V6Params, h: torch.Tensor, *, seed: int, pos: int,
     return argmax_first(score).to(torch.int32)
 
 
-def fused_decode_v6_plain(v6p: V6Params, tok0, s, z, t0: int, seed: int, *,
-                          n_head: int, max_tokens: int, temps, topps,
-                          greedy: bool = False, eps: float = DEFAULT_EPS):
-    """The kernel's computation in PyTorch, token by token."""
+def _chunk_plain(v6p: V6Params, tok0, s, z, t0: int, seed: int, *, n_head: int,
+                 max_tokens: int, temps, topps, greedy: bool, eps: float,
+                 round_to: Optional[torch.dtype]):
     out = torch.empty((max_tokens,) + tuple(tok0.shape), dtype=torch.int32,
                       device=tok0.device)
     tok = tok0
     for t in range(max_tokens):
         h = embed_plain(v6p, tok, t0 + t)
-        h, s, z = fused_stack_step_plain(v6p.layers, h, s, z, n_head=n_head, eps=eps)
+        h, s, z = fused_stack_step_plain(v6p.layers, h, s, z, n_head=n_head, eps=eps,
+                                         round_to=round_to)
         tok = heads_sample_plain(v6p, h, seed=seed, pos=t0 + t, temps=temps,
-                                 topps=topps, greedy=greedy)
+                                 topps=topps, greedy=greedy, round_to=round_to)
         out[t] = tok
     return out, s, z
+
+
+def fused_decode_v6_plain(v6p: V6Params, tok0, s, z, t0: int, seed: int, *,
+                          n_head: int, max_tokens: int, temps, topps,
+                          greedy: bool = False, eps: float = DEFAULT_EPS):
+    """The kernel's computation in PyTorch, token by token, with v6's
+    arithmetic: each product's input activations rounded to the weights'
+    dtype, f32 sums (with f32 weights the rounding is a no-op and this is
+    ``chunk_decode_v4_plain``, bit for bit)."""
+    return _chunk_plain(v6p, tok0, s, z, t0, seed, n_head=n_head, max_tokens=max_tokens,
+                        temps=temps, topps=topps, greedy=greedy, eps=eps,
+                        round_to=v6p.head_w.dtype)
+
+
+def chunk_decode_v4_plain(v6p: V6Params, tok0, s, z, t0: int, seed: int, *,
+                          n_head: int, max_tokens: int, temps, topps,
+                          greedy: bool = False, eps: float = DEFAULT_EPS):
+    """The same chunk with v4's arithmetic: f32 activations, the weights
+    read in their stored dtype and cast up.  The plain twin of the v8, v7
+    and v5 kernels (``ops/experimental``), which compute that."""
+    return _chunk_plain(v6p, tok0, s, z, t0, seed, n_head=n_head, max_tokens=max_tokens,
+                        temps=temps, topps=topps, greedy=greedy, eps=eps, round_to=None)
 
 
 # -- the kernel ---------------------------------------------------------------
@@ -176,8 +218,13 @@ def _lib() -> ctypes.CDLL:
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.rlmg_stack_scratch_floats.argtypes = [i, i, i]
         lib.rlmg_stack_scratch_floats.restype = ctypes.c_longlong
-        lib.rlmg_decode_chunk.argtypes = [p] * 17 + [i, i, u, i, i, i, i, i, i, i, f, i, i, p]
+        lib.rlmg_decode_chunk.argtypes = [p] * 17 + [i, i, u, i, i, i, i, i, i, i, f, i, p]
         lib.rlmg_decode_chunk.restype = i
+        lib.rlmg_tc_workspace_bytes.argtypes = [i, i, i, i]
+        lib.rlmg_tc_workspace_bytes.restype = ctypes.c_longlong
+        lib.rlmg_decode_chunk_tc.argtypes = ([p] * 16 + [i, i, u, i, i, i, i, i, i, i, f, i]
+                                             + [p, p])
+        lib.rlmg_decode_chunk_tc.restype = i
         lib.rlmg_heads_sample.argtypes = [p] * 8 + [i, i, i, i, u, i, i, p]
         lib.rlmg_heads_sample.restype = i
         lib.rlmg_error_string.argtypes = [i]
@@ -212,6 +259,17 @@ def _cuda_or_raise(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
+def tc_shape_error(d: int, n_head: int, di: int) -> Optional[str]:
+    """Why the tensor-core route does not take this shape, or None
+    (``csrc/decode_chunk_tc.cuh tc_shape_ok``)."""
+    e = d // n_head
+    if e * n_head != d or e > 128:
+        return f"head width {d}/{n_head}: the state pass takes whole widths up to 128"
+    if d % 8 or di % 8 or d > 2048:
+        return f"d_model {d}, d_inner {di}: need multiples of 8, d_model <= 2048"
+    return None
+
+
 def fused_decode_v6(v6p: V6Params, tok0: torch.Tensor, s: torch.Tensor,
                     z: torch.Tensor, t0: int, seed: int, *, n_head: int,
                     max_tokens: int, vocab_sizes: Sequence[int],
@@ -224,8 +282,18 @@ def fused_decode_v6(v6p: V6Params, tok0: torch.Tensor, s: torch.Tensor,
     (the last one is the next call's tok0).  ``topps``: inf keeps every
     token.  tok0 must hold valid ids.
 
-    CUDA tensors go to the kernel (``launches`` counts the calls); CPU
-    tensors to ``fused_decode_v6_plain``."""
+    CUDA tensors go to the kernel: bf16 weights to the tensor-core route
+    (``tc_shape_error`` says which shapes it takes; others raise), f32
+    weights to the SIMT route.  ``launches`` counts the calls of either;
+    the tensor-core route's also ``tc_calls``, ``cuda_launches`` (one
+    kernel and T graph launches a call), ``positions`` (tokens decoded),
+    ``graph_kernels`` (kernels in a token's graph), ``captures`` (token
+    graphs instantiated: one a shape) and ``updates`` (the shape's graph
+    brought to a call's new pointers in place); ``reset_counts`` zeroes
+    them.  The seed, position and sampling settings reach the graph through
+    a block on the card, so a new request with the same pointers launches
+    it as it is.  CPU tensors go to
+    ``fused_decode_v6_plain``."""
     nf = len(vocab_sizes)
     if tuple(tok0.shape[1:]) != (nf,) or tok0.dtype != torch.int32:
         raise ValueError(f"tok0: expected int32 (B, {nf}), got {tok0.dtype} {tuple(tok0.shape)}")
@@ -243,37 +311,73 @@ def fused_decode_v6(v6p: V6Params, tok0: torch.Tensor, s: torch.Tensor,
     h = torch.empty((b, d), dtype=torch.float32, device=tok0.device)
     L, b, d, H, di = _check_inputs(ws, h, s, z, n_head)
     _check_v6(v6p, h, nf)
+    if max_tokens < 1:
+        raise ValueError(f"max_tokens: {max_tokens} (at least 1)")
     tok0 = tok0.contiguous()
     tinv, topp, off = _field_arrays(nf, temps, topps, v6p.field_off)
     lib = _lib()
+    ptrs = (ctypes.c_void_p * len(ws))(*[t.data_ptr() for t in ws])
+    common = (v6p.m.data_ptr(), v6p.b_in.data_ptr(), v6p.pe.data_ptr(), ptrs,
+              v6p.head_w.data_ptr(), v6p.head_b.data_ptr(), v6p.fls.data_ptr(),
+              v6p.flb.data_ptr(), off, tinv, topp, s.data_ptr(), z.data_ptr())
+    s_bf16 = int(s.dtype == torch.bfloat16)
     with torch.cuda.device(tok0.device):
-        tokens = torch.empty((max_tokens, b, nf), dtype=torch.int32, device=tok0.device)
-        scratch = torch.empty(lib.rlmg_stack_scratch_floats(b, d, di),
-                              dtype=torch.float32, device=tok0.device)
-        ptrs = (ctypes.c_void_p * len(ws))(*[t.data_ptr() for t in ws])
-        rc = lib.rlmg_decode_chunk(
-            tok0.data_ptr(), tokens.data_ptr(), v6p.m.data_ptr(), v6p.b_in.data_ptr(),
-            v6p.pe.data_ptr(), ptrs, v6p.head_w.data_ptr(), v6p.head_b.data_ptr(),
-            v6p.fls.data_ptr(), v6p.flb.data_ptr(), off, tinv, topp,
-            s.data_ptr(), z.data_ptr(), h.data_ptr(), scratch.data_ptr(),
-            max_tokens, t0, seed & 0xFFFFFFFF, int(greedy), L, b, d, H, di, nf, eps,
-            int(ws[0].dtype == torch.bfloat16), int(s.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"decode_chunk kernel: {lib.rlmg_error_string(rc).decode()}")
+        stream = torch.cuda.current_stream().cuda_stream
+        if ws[0].dtype == torch.bfloat16:
+            why = tc_shape_error(d, H, di)
+            if why is not None:
+                raise ValueError(f"fused_decode_v6 (bf16 weights): {why}")
+            # rows for 128 tokens at least, so that the chunks of a request
+            # ask the allocator for one size and the graph's pointers repeat
+            tok = torch.empty((max(max_tokens, 128) + 1, b, nf), dtype=torch.int32,
+                              device=tok0.device)
+            work = torch.empty(lib.rlmg_tc_workspace_bytes(b, d, di, nf), dtype=torch.uint8,
+                               device=tok0.device)
+            info = (ctypes.c_int * 3)()
+            rc = lib.rlmg_decode_chunk_tc(
+                tok0.data_ptr(), tok.data_ptr(), *common, work.data_ptr(), max_tokens, t0,
+                seed & 0xFFFFFFFF, int(greedy), L, b, d, H, di, nf, eps, s_bf16, stream, info)
+            if rc:
+                raise RuntimeError(f"decode_chunk kernel: {lib.rlmg_error_string(rc).decode()}")
+            tokens = tok[1:max_tokens + 1].clone()
+            f = fused_decode_v6
+            f.tc_calls += 1
+            f.cuda_launches += info[0]
+            f.positions += max_tokens
+            f.graph_kernels = info[1]
+            f.updates += info[2] == 1
+            f.captures += info[2] == 2
+        else:
+            tokens = torch.empty((max_tokens, b, nf), dtype=torch.int32, device=tok0.device)
+            scratch = torch.empty(lib.rlmg_stack_scratch_floats(b, d, di),
+                                  dtype=torch.float32, device=tok0.device)
+            rc = lib.rlmg_decode_chunk(
+                tok0.data_ptr(), tokens.data_ptr(), *common, h.data_ptr(), scratch.data_ptr(),
+                max_tokens, t0, seed & 0xFFFFFFFF, int(greedy), L, b, d, H, di, nf, eps,
+                s_bf16, stream)
+            if rc:
+                raise RuntimeError(f"decode_chunk kernel: {lib.rlmg_error_string(rc).decode()}")
     fused_decode_v6.launches += 1
     return tokens, s, z
 
 
-fused_decode_v6.launches = 0
+def reset_counts() -> None:
+    """Zero ``fused_decode_v6``'s counters."""
+    f = fused_decode_v6
+    f.launches = f.tc_calls = f.cuda_launches = f.positions = 0
+    f.graph_kernels = f.captures = f.updates = 0
+
+
+reset_counts()
 
 
 def heads_sample(v6p: V6Params, h: torch.Tensor, *, seed: int, pos: int,
                  temps: Sequence[float], topps: Sequence[float],
                  greedy: bool = False) -> torch.Tensor:
-    """The chunk kernel's heads + sample pass alone, on h (B, D) f32 (before
-    the final LN) -> tokens (B, NF) int32, for holding it against
-    ``heads_sample_plain``.  CPU tensors take the plain version."""
+    """The SIMT heads + sample pass alone (the f32 route's, and v8's and
+    v7's), on h (B, D) f32 (before the final LN) -> tokens (B, NF) int32,
+    for holding it against ``heads_sample_plain``.  CPU tensors take the
+    plain version."""
     if h.device.type == "cpu":
         return heads_sample_plain(v6p, h, seed=seed, pos=pos, temps=temps,
                                   topps=topps, greedy=greedy)

@@ -25,7 +25,7 @@ Activations stay f32 where the TPU kernel casts them to the weights'
 type before each product.
 
 Plain twin: ``fused_decode_v5_plain``, kernel B's plain chunk
-(``decode_kernel_v6.fused_decode_v6_plain``) on the unpacked state, with
+in v4's arithmetic (``decode_kernel_v6.chunk_decode_v4_plain``) on the unpacked state, with
 ``pe_rows`` as its positional table and 0 as its first position.
 
 ``RLMG_V5_ABLATE`` (the kernel only, for attributing its time; the output
@@ -46,7 +46,7 @@ import torch
 
 from ..decode_kernel_v4 import _check_inputs, layer_weights
 from ..decode_kernel_v6 import (V6Params, _check_v6, _cuda_or_raise, _field_arrays,
-                                argmax_first, fused_decode_v6_plain, nucleus_keep)
+                                argmax_first, chunk_decode_v4_plain, nucleus_keep)
 from ..linear_attention import DEFAULT_EPS
 from .decode_kernel_v8 import TILE, _lib, make_resident_params
 
@@ -89,12 +89,12 @@ def fused_decode_v5_plain(v5p: V5Params, tok0: torch.Tensor, s5: torch.Tensor,
                           z5: torch.Tensor, pe_rows: torch.Tensor, seed: int, *, n_head: int,
                           max_tokens: int, temps: Sequence[float], topps: Sequence[float],
                           greedy: bool = False, eps: float = DEFAULT_EPS):
-    """The kernel's computation in PyTorch: ``fused_decode_v6_plain`` on the
+    """The kernel's computation in PyTorch: ``chunk_decode_v4_plain`` on the
     unpacked state, pe row and Philox position t for the t-th fed token.
     s5, z5 are updated in place."""
     s, z = unpack_state(s5, z5, n_head)
     s, z = s.contiguous(), z.contiguous()
-    toks, s, z = fused_decode_v6_plain(v5p._replace(pe=pe_rows.float()), tok0, s, z, 0, seed,
+    toks, s, z = chunk_decode_v4_plain(v5p._replace(pe=pe_rows.float()), tok0, s, z, 0, seed,
                                        n_head=n_head, max_tokens=max_tokens, temps=temps,
                                        topps=topps, greedy=greedy, eps=eps)
     ps, pz = pack_state(s, z)

@@ -11,7 +11,7 @@ launch; the same functions in the same order give tokens and states
 bit-equal to v8's, as the JAX test ``test_v8_matches_v7_greedy`` asks of
 the TPU pair.
 
-Plain twin: ``decode_kernel_v6.fused_decode_v6_plain``, shared with v8.
+Plain twin: ``decode_kernel_v6.chunk_decode_v4_plain``, shared with v8.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Sequence
 
 import torch
 
-from ..decode_kernel_v6 import fused_decode_v6_plain
+from ..decode_kernel_v6 import chunk_decode_v4_plain
 from ..linear_attention import DEFAULT_EPS
 from .decode_kernel_v8 import (ResidentParams, check_tok0, count, make_resident_params, reset,
                                run_kernel)
@@ -38,11 +38,11 @@ def fused_decode_v7(v7p: V7Params, tok0: torch.Tensor, s: torch.Tensor, z: torch
     int32 is fed at t0, s/z are updated in place, returns (tokens (T, B,
     NF) int32, s, z).  CUDA tensors go to the kernel (``launches`` counts
     the calls, ``cuda_launches`` their (L + 2) T launches); CPU tensors to
-    ``fused_decode_v6_plain``."""
+    ``chunk_decode_v4_plain``."""
     nf = len(vocab_sizes)
     check_tok0(v7p, tok0, t0, max_tokens, nf)
     if tok0.device.type == "cpu":
-        return fused_decode_v6_plain(v7p, tok0, s, z, t0, seed, n_head=n_head,
+        return chunk_decode_v4_plain(v7p, tok0, s, z, t0, seed, n_head=n_head,
                                      max_tokens=max_tokens, temps=temps, topps=topps,
                                      greedy=greedy, eps=eps)
     tokens, n = run_kernel(7, v7p, tok0, s, z, t0, seed, n_head=n_head, max_tokens=max_tokens,

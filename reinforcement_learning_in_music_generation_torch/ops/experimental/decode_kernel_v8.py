@@ -15,10 +15,13 @@ to 8 rows are TPU layout details and are not ported: the state keeps the
 ``DecodeState`` layout, s (L,B,H,E,E) and z (L,B,H,E), as kernels A and B
 do.
 
-Plain twin: ``decode_kernel_v6.fused_decode_v6_plain``.  The kernel
+Plain twin: ``decode_kernel_v6.chunk_decode_v4_plain``.  The kernel
 computes kernel B's function with kernel B's sampling (the same Philox
-counter: position, field, vocab index, song), so kernel B's plain chunk is
-this kernel's plain version too, and ``decode_kernel_v7`` shares it.
+counter: position, field, vocab index, song) in v4's arithmetic (f32
+activations, the weights cast up), so kernel B's plain chunk in that
+arithmetic is this kernel's plain version too, and ``decode_kernel_v7``
+shares it.  (JAX's v8 casts the activations to bf16 before each product,
+as v6 does; moving onto v6's arithmetic is this kernel's redesign.)
 
 The wrapper refuses (``ValueError``) a batch above ``MAX_BATCH`` and one
 whose resident state does not fit the card's shared memory (an f32 state
@@ -36,7 +39,7 @@ import torch
 from .. import _build
 from ..decode_kernel_v4 import _check_inputs, layer_weights
 from ..decode_kernel_v6 import (V6Params, _check_v6, _cuda_or_raise, _field_arrays,
-                                fused_decode_v6_plain, make_v6_params)
+                                chunk_decode_v4_plain, make_v6_params)
 from ..linear_attention import DEFAULT_EPS
 
 MAX_BATCH = 16          # csrc/latency_decode.cu LT_MAX_B
@@ -181,11 +184,11 @@ def fused_decode_v8(rp: ResidentParams, tok0: torch.Tensor, s: torch.Tensor,
 
     CUDA tensors go to the kernel (``launches`` counts the calls, one
     launch each; see ``count``); CPU tensors to the plain twin
-    ``fused_decode_v6_plain``; any other device raises."""
+    ``chunk_decode_v4_plain``; any other device raises."""
     nf = len(vocab_sizes)
     check_tok0(rp, tok0, t0, max_tokens, nf)
     if tok0.device.type == "cpu":
-        return fused_decode_v6_plain(rp, tok0, s, z, t0, seed, n_head=n_head,
+        return chunk_decode_v4_plain(rp, tok0, s, z, t0, seed, n_head=n_head,
                                      max_tokens=max_tokens, temps=temps, topps=topps,
                                      greedy=greedy, eps=eps)
     tokens, n = run_kernel(8, rp, tok0, s, z, t0, seed, n_head=n_head, max_tokens=max_tokens,

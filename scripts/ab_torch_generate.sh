@@ -1,9 +1,11 @@
 #!/bin/bash
 # Two checkouts of the repo, A and B, held against each other on one card:
-# `cli generate` (8 bars, f32 weights, --warmup) at 128 songs (the chunked
-# path), 5 songs (the per-step path) and 5 songs under RLMG_LATENCY_DECODE=1
-# (the latency path, v8), then ms a token of the kernels v8 and v7 (32-token
-# calls, CP sampling) and of kernel A's layer stack at B = 1, 5 and 16
+# `cli generate` (8 bars, --warmup) at 128 songs (the chunked path) with
+# bf16 weights (its default) and with f32 weights, 5 songs (the per-step
+# path) and 5 songs under RLMG_LATENCY_DECODE=1 (the latency path, v8), f32
+# weights, then ms a token of the kernels v8 and v7 (32-token calls, CP
+# sampling) and of kernel A's layer stack at B = 1, 5 and 16, and ms a
+# 128-token call of kernel B with bf16 weights at B = 128 and 1024
 # (agent_config width, random bf16 weights and state, CUDA events after a
 # warm call), in turns A, B, B, A, twice, so that neither side always runs
 # first.  Prints the card and one line per run.
@@ -15,12 +17,12 @@ set -u
 a=$1
 b=$2
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-run() {  # checkout songs max_tokens [latency]
-  (cd "$1" && RLMG_LATENCY_DECODE=${4:-0} \
+run() {  # checkout songs max_tokens dtype [latency]
+  (cd "$1" && RLMG_LATENCY_DECODE=${5:-0} \
      python -m reinforcement_learning_in_music_generation_torch.apps.cli generate \
-     --songs "$2" --bars 8 --max-tokens "$3" --dtype float32 --warmup \
+     --songs "$2" --bars 8 --max-tokens "$3" --dtype "$4" --warmup \
      --out-dir "${TMPDIR:-/tmp}/ab_generate/m" 2>&1 | grep "ave token time" \
-     | sed "s|^|$1 songs=$2 latency=${4:-0}: |")
+     | sed "s|^|$1 songs=$2 $4 latency=${5:-0}: |")
 }
 per_token() {  # checkout: the package is imported from it (python's cwd)
   (cd "$1" && python3 - <<'EOF' | sed "s|^|$1 ms a token: |"
@@ -28,7 +30,8 @@ import torch
 from reinforcement_learning_in_music_generation_torch import config as C
 from reinforcement_learning_in_music_generation_torch.data import tokenizer
 from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
-from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v4 as dk4, sampling as smp
+from reinforcement_learning_in_music_generation_torch.ops import (
+    decode_kernel_v4 as dk4, decode_kernel_v6 as dk6, sampling as smp)
 from reinforcement_learning_in_music_generation_torch.ops.experimental import (
     decode_kernel_v7 as dk7, decode_kernel_v8 as dk8)
 
@@ -61,15 +64,22 @@ for b in (1, 5, 16):
     h = torch.zeros((b, cfg.d_model), device="cuda")
     a = time_ms(lambda: dk4.fused_stack_step(dp, h, st.s, st.z, n_head=cfg.n_head), 30)
     out.append(f"B={b} v8 {v8 / 32:.4f} v7 {v7 / 32:.4f} A {a:.4f}")
+v6p = dk6.make_v6_params(params, cfg, dtype=torch.bfloat16)
+for b in (128, 1024):
+    tok = torch.zeros((b, 6), dtype=torch.int32, device="cuda")
+    st = dk4.init_state(cfg, b, torch.bfloat16, "cuda")
+    ms = time_ms(lambda: dk6.fused_decode_v6(v6p, tok, st.s, st.z, 0, 1, max_tokens=128, **kw), 2)
+    out.append(f"B-bf16 B={b} {ms:.3f} ms a call")
 print(" | ".join(out))
 EOF
   )
 }
 for rep in 1 2; do
   for tree in "$a" "$b" "$b" "$a"; do
-    run "$tree" 128 256
-    run "$tree" 5 512
-    run "$tree" 5 512 1
+    run "$tree" 128 256 bfloat16
+    run "$tree" 128 256 float32
+    run "$tree" 5 512 float32
+    run "$tree" 5 512 float32 1
     per_token "$tree"
   done
 done

@@ -84,3 +84,42 @@ def test_bound_charges_operations_at_the_peak_of_their_type(smoke, peak):
     assert smoke.bound(0, rate * 1e-3, rate) == (1.0, "operations")
     assert smoke.bound(3.35e9, rate * 1e-3, rate) == (1.0, "bytes")
     assert smoke.bound(2 * 3.35e9, rate * 1e-3, rate)[0] == 2.0
+
+
+@pytest.mark.parametrize("w_bytes,peak,want_ms", [(4, "F32_FLOPS", 19.2312),
+                                                  (2, "BF16_FLOPS", 1.3028)])
+def test_chunk_bound_at_the_main_path_shape(smoke, w_bytes, peak, want_ms):
+    """Kernel B, a 128-token call at B=128, agent_config width, bf16 state:
+    1.2885e12 operations (the products and the state update and read) bind,
+    19.231 ms at the f32 FMA rate (f32 weights, the SIMT route) and 1.3028
+    ms at the bf16 tensor-core rate (bf16 weights, where v6 casts every
+    product's input to the weights' type); streaming the weights and the
+    state every token sets a floor of about 10.76 ms with bf16 weights."""
+    vocab = (56, 135, 18, 87, 18, 25)
+    ops, nbytes, floor = smoke.chunk_work(128, 128, 12, 512, 2048, 8, w_bytes=w_bytes,
+                                          s_bytes=2, fold_rows=sum(vocab))
+    assert ops == 1_288_490_188_800
+    bound_ms, by = smoke.bound(nbytes, ops, getattr(smoke, peak))
+    assert by == "operations" and abs(bound_ms - want_ms) < 1e-4
+    if w_bytes == 2:
+        assert 282e6 < nbytes < 284e6
+        assert abs(floor / smoke.HBM_BYTES_PER_S * 1e3 - 10.7636) < 1e-3
+
+
+def test_mma_counts_reads_the_tensor_core_instructions_of_named_functions(smoke):
+    """HMMA / HGMMA lines are counted per SASS function whose name holds the
+    marker; other functions and other instructions are not."""
+    sass = "\n".join([
+        "        Function : _ZN4rlmg14tc_gemm_kernelILi0EEEvv",
+        "        /*0100*/   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "        /*0110*/   HMMA.16816.F32.BF16 R16, R8, R14, R16 ;",
+        "        /*0120*/   LDSM.16.M88.4 R8, [R2] ;",
+        "        Function : _ZN4rlmg13tc_ln_kernelEv",
+        "        /*0100*/   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "        Function : _ZN4rlmg14tc_gemm_kernelILi1EEEvv",
+        "        /*0200*/   HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "        Function : _ZN4rlmg14tc_gemm_kernelILi2EEEvv",
+        "        /*0300*/   FFMA R1, R2, R3, R1 ;"])
+    assert smoke.mma_counts(sass, "tc_gemm_kernel") == {
+        "_ZN4rlmg14tc_gemm_kernelILi0EEEvv": 2, "_ZN4rlmg14tc_gemm_kernelILi1EEEvv": 1,
+        "_ZN4rlmg14tc_gemm_kernelILi2EEEvv": 0}

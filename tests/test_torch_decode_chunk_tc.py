@@ -1,0 +1,230 @@
+"""Kernel B's tensor-core route (bf16 weights) and the split of its plain
+twin, on the CPU.
+
+With bf16 weights kernel B (``csrc/decode_chunk.cu`` + ``decode_chunk_tc.cuh``)
+computes JAX v6's arithmetic: every product's input activations are rounded
+to the weights' type, the sums stay f32 (JAX ``ops/decode_kernel_v6.py``
+:255, :286, :292, :296, :331).  Its plain twin ``fused_decode_v6_plain``
+does the same; ``chunk_decode_v4_plain`` keeps v4's arithmetic (f32
+activations) for v8, v7 and v5, whose kernels compute that.  The kernel
+itself runs only on a card (``tests/test_torch_kernels_gpu.py``,
+``chip_smoke.py`` phase 2b); here the twins are held against the JAX
+package: a JAX composition of v6's products from the JAX ``make_v6_params``,
+and JAX's XLA ``decode_step``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reinforcement_learning_in_music_generation_torch import config as TC
+from reinforcement_learning_in_music_generation_torch import weights as tw
+from reinforcement_learning_in_music_generation_torch.ops import decode_common as tdc
+from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v4 as tdk4
+from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v6 as tdk6
+from reinforcement_learning_in_music_generation_torch.ops import sampling as tsmp
+from reinforcement_learning_in_music_generation_torch.ops.experimental import (
+    decode_kernel_v5 as tdk5, decode_kernel_v7 as tdk7, decode_kernel_v8 as tdk8)
+from reinforcement_learning_in_music_generation_tpu import config as C
+from reinforcement_learning_in_music_generation_tpu.models import linear_transformer as lt
+from reinforcement_learning_in_music_generation_tpu.ops import decode_kernel_v3 as dk3
+from reinforcement_learning_in_music_generation_tpu.ops import decode_kernel_v6 as dk6
+
+VOCAB = (56, 135, 18, 87, 18, 25)
+KW = dict(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=64, n_layer=3, n_head=2, d_inner=128,
+          max_len=256)
+CFG = C.LinearTransformerConfig(**KW)
+TCFG = TC.LinearTransformerConfig(**KW)
+GREEDY = dict(temps=(1.0,) * 6, topps=(float("inf"),) * 6, greedy=True)
+CP = dict(temps=tuple(s.temperature for s in tsmp.CP_SAMPLING),
+          topps=tuple(s.top_p if s.top_p is not None else float("inf")
+                      for s in tsmp.CP_SAMPLING))
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(scope="module")
+def both():
+    """(JAX params rounded to bf16 values and held in f32, the same as torch
+    tensors): both sides then read identical bf16 weights, and JAX's
+    make_v6_params keeps the biases and LN vectors at those same values."""
+    jp = lt.init_params(jax.random.PRNGKey(3), CFG)
+    jp = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16).astype(jnp.float32), jp)
+    return jp, tw.from_jax_params(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+
+
+def _tokens(seed, steps, b):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, v, size=(steps, b)) for v in VOCAB], -1).astype(np.int32)
+
+
+def _state(seed, b, dtype=torch.float32):
+    """A nonzero decode state: S normal, z positive (a sum of phi(k) > 0)."""
+    rng = np.random.default_rng(seed)
+    e = TCFG.d_model // TCFG.n_head
+    s = rng.normal(size=(TCFG.n_layer, b, TCFG.n_head, e, e)).astype(np.float32)
+    z = rng.uniform(0.5, 2.0, size=(TCFG.n_layer, b, TCFG.n_head, e)).astype(np.float32)
+    return torch.from_numpy(s).to(dtype), torch.from_numpy(z).to(dtype)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_f32_weights_keep_the_twin_bit_for_bit(both, greedy):
+    """(a) With f32 weights v6's casts are no-ops: the v6 twin and the v4
+    twin give the same tokens and state, bit for bit (0 tolerance)."""
+    _, tp = both
+    tv = tdk6.make_v6_params(tp, TCFG, dtype=torch.float32)
+    tok0 = torch.from_numpy(_tokens(1, 1, 4)[0])
+    mode = GREEDY if greedy else CP
+    s1, z1 = _state(2, 4)
+    s2, z2 = s1.clone(), z1.clone()
+    a, _, _ = tdk6.fused_decode_v6_plain(tv, tok0, s1, z1, 3, 9, n_head=2, max_tokens=6, **mode)
+    b, _, _ = tdk6.chunk_decode_v4_plain(tv, tok0, s2, z2, 3, 9, n_head=2, max_tokens=6, **mode)
+    assert torch.equal(a, b) and torch.equal(s1, s2) and torch.equal(z1, z2)
+
+
+def _jax_v6_step(jv, tok, s, z, pos, n_head, eps):
+    """One token of v6's arithmetic composed in JAX from the JAX
+    make_v6_params (transposed weights, (rows, 128) lane-replicated
+    columns), batch-major: every product jnp.dot(x.astype(bf16), w,
+    preferred_element_type=f32).  Returns (h after the layer stack, logits
+    (B, NF*VF_PAD), s, z)."""
+    f32, bf = jnp.float32, jnp.bfloat16
+    col = lambda slab: slab[..., 0]
+    dot = lambda x, wT: jnp.dot(x.astype(bf), wT.T, preferred_element_type=f32)
+    ln = lambda x, sc, bi: dk6._lnT(x.T, sc[:, None], bi[:, None]).T
+    offs = np.concatenate([[0], np.cumsum(VOCAB)[:-1]])
+    m = jv.membT.T
+    h = sum(m[offs[f] + tok[:, f]] for f in range(len(VOCAB))) + col(jv.binrT) + jv.pe[pos]
+    b, d = h.shape
+    e = d // n_head
+    s_out, z_out = [], []
+    for l in range(jv.qkvwT.shape[0]):
+        qkv = dot(h, jv.qkvwT[l]) + col(jv.qkvbT[l])
+        q = dk3._phi(qkv[:, :d]).reshape(b, n_head, e)
+        k = dk3._phi(qkv[:, d:2 * d]).reshape(b, n_head, e)
+        v = qkv[:, 2 * d:].reshape(b, n_head, e)
+        sn = s[l] + k[..., :, None] * v[..., None, :]
+        zn = z[l] + k
+        s_out.append(sn)
+        z_out.append(zn)
+        num = jnp.einsum("bhj,bhju->bhu", q, sn)
+        den = (q * zn).sum(-1) + eps
+        att = (num / den[..., None]).reshape(b, d)
+        h1 = ln(h + dot(att, jv.wowT[l]) + col(jv.wobT[l]), col(jv.l1sT[l]), col(jv.l1bT[l]))
+        y = dk3._gelu_exact(dot(h1, jv.f1wT[l]) + col(jv.f1bT[l]))
+        h = ln(h1 + dot(y, jv.f2wT[l]) + col(jv.f2bT[l]), col(jv.l2sT[l]), col(jv.l2bT[l]))
+    hf = ln(h, col(jv.flsT), col(jv.flbT))
+    logits = dot(hf, jv.whpT) + col(jv.bhpT)
+    return h, logits, jnp.stack(s_out), jnp.stack(z_out)
+
+
+def test_bf16_twin_step_matches_a_jax_composition_of_v6(both):
+    """(b) One decode step with bf16 weights: the twin's layer stack output
+    within 1e-5 of max|h| of the JAX composition of v6's products (both
+    round the same f32 activations to bf16 and sum exact bf16 products in
+    f32, in another order: the reorder is the only difference), the state
+    within 1e-5 of its magnitude, and the greedy tokens equal."""
+    jp, tp = both
+    b, pos = 4, 5
+    tv = tdk6.make_v6_params(tp, TCFG, dtype=BF16)
+    jv = dk6.make_v6_params(jp, CFG, jnp.asarray(tv.pe.numpy()), dtype=jnp.bfloat16)
+    tok = _tokens(7, 1, b)[0]
+    s0, z0 = _state(8, b)
+    jh, jlog, js, jz = _jax_v6_step(jv, jnp.asarray(tok), jnp.asarray(s0.numpy()),
+                                    jnp.asarray(z0.numpy()), pos, 2, CFG.attn_eps)
+    s1, z1 = s0.clone(), z0.clone()
+    h0 = tdk6.embed_plain(tv, torch.from_numpy(tok), pos)
+    th, _, _ = tdk4.fused_stack_step_plain(tv.layers, h0, s1, z1, n_head=2, eps=CFG.attn_eps,
+                                           round_to=BF16)
+    jh = np.asarray(jh)
+    assert np.abs(th.numpy() - jh).max() <= 1e-5 * np.abs(jh).max()
+    for ours, ref in ((s1, js), (z1, jz)):
+        ref = np.asarray(ref)
+        assert np.abs(ours.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    s2, z2 = s0.clone(), z0.clone()
+    toks, _, _ = tdk6.fused_decode_v6_plain(tv, torch.from_numpy(tok), s2, z2, pos, 0, n_head=2,
+                                            max_tokens=1, eps=CFG.attn_eps, **GREEDY)
+    ref_tok = np.asarray(jnp.argmax(jlog.reshape(b, len(VOCAB), tdc.VF_PAD), -1))
+    np.testing.assert_array_equal(toks[0].numpy(), ref_tok)
+
+
+def test_bf16_twin_agrees_with_the_jax_xla_decode_step(both):
+    """(c) Teacher-forced greedy next tokens over 32 steps (8 songs, 6
+    fields): the twin with bf16 weights against JAX's XLA decode_step on
+    bf16 params agree on at least 98% of the (step, song, field)
+    decisions, the rate JAX v6's contract states for v6 against the XLA
+    path (ops/decode_kernel_v6.py:33-43).  The XLA path carries its
+    activations in bf16, the twin in f32 with bf16 product inputs, so
+    near-ties may flip."""
+    jp, tp = both
+    b, T = 8, 32
+    jp16 = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), jp)
+    tv = tdk6.make_v6_params(tp, TCFG, dtype=BF16)
+    toks = _tokens(11, T, b)
+    st = tdk4.init_state(TCFG, b, torch.float32, "cpu")
+    js = lt.init_decode_state(CFG, b)
+    agree = 0
+    for t in range(T):
+        ours, _, _ = tdk6.fused_decode_v6_plain(tv, torch.from_numpy(toks[t]), st.s, st.z, t, 0,
+                                                n_head=2, max_tokens=1, eps=CFG.attn_eps,
+                                                **GREEDY)
+        h, js = lt.decode_step(jp16, CFG, jnp.asarray(toks[t]), js)
+        ref = np.stack([np.asarray(jnp.argmax(lg, -1)) for lg in lt.forward_output(jp16, CFG, h)],
+                       -1)
+        agree += int((ours[0].numpy() == ref).sum())
+    rate = agree / (T * b * len(VOCAB))
+    assert rate >= 0.98, f"teacher-forced greedy agreement {rate:.4f}"
+
+
+def _count(monkeypatch, module, name):
+    calls, real = [], getattr(module, name)
+
+    def wrapped(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, wrapped)
+    return calls
+
+
+def test_latency_and_v5_wrappers_keep_the_v4_arithmetic_twin(both, monkeypatch):
+    """(d) On the CPU v8, v7 and v5 reach chunk_decode_v4_plain (their
+    kernels keep v4's arithmetic) and kernel B does not; with bf16 weights
+    their tokens and state equal that twin's bit for bit, while kernel B's
+    twin rounds its product inputs and ends in another state."""
+    _, tp = both
+    rp = tdk8.make_resident_params(tp, TCFG, dtype=BF16)
+    tok0 = torch.from_numpy(_tokens(4, 1, 8)[0])     # v5 takes batches of 8
+    kw = dict(n_head=2, max_tokens=4, vocab_sizes=VOCAB, eps=CFG.attn_eps, **CP)
+    ref_s, ref_z = _state(5, 8)
+    ref, _, _ = tdk6.chunk_decode_v4_plain(rp, tok0, ref_s, ref_z, 0, 13, n_head=2, max_tokens=4,
+                                           eps=CFG.attn_eps, **CP)
+    calls = {m.__name__: _count(monkeypatch, m, "chunk_decode_v4_plain")
+             for m in (tdk5, tdk7, tdk8, tdk6)}
+    for fn in (tdk8.fused_decode_v8, tdk7.fused_decode_v7):
+        s, z = _state(5, 8)
+        out, _, _ = fn(rp, tok0, s, z, 0, 13, **kw)
+        assert torch.equal(out, ref) and torch.equal(s, ref_s) and torch.equal(z, ref_z)
+    s, z = _state(5, 8)
+    s5, z5 = tdk5.pack_state(s, z)
+    v5p = tdk5.make_v5_params(tp, TCFG)
+    out, s5, z5 = tdk5.fused_decode_v5(v5p, tok0, s5, z5, v5p.pe[:4].contiguous(), 13, **kw)
+    s5u, z5u = tdk5.unpack_state(s5, z5, 2)
+    assert torch.equal(out, ref) and torch.equal(s5u, ref_s) and torch.equal(z5u, ref_z)
+    assert [len(calls[m.__name__]) for m in (tdk8, tdk7, tdk5)] == [1, 1, 1]
+    s, z = _state(5, 8)
+    tdk6.fused_decode_v6(rp, tok0, s, z, 0, 13, **kw)
+    assert not calls[tdk6.__name__] and not torch.equal(s, ref_s)
+
+
+@pytest.mark.parametrize("d_model,n_head,d_inner,ok", [
+    (512, 8, 2048, True), (64, 2, 128, True), (32, 2, 64, True), (48, 3, 96, True),
+    (96, 2, 192, True), (64, 8, 128, True), (4096, 32, 128, False), (12, 3, 64, False),
+    (64, 2, 100, False), (256, 1, 512, False)])
+def test_tc_route_names_the_shapes_it_refuses(d_model, n_head, d_inner, ok):
+    """The tensor-core route takes head widths up to 128 (16, 32, 64 and 128
+    in 16-byte pieces, the others by a plainer state pass), d_model and
+    d_inner in multiples of 8 and d_model up to 2048; the wrapper raises
+    with the reason (``tc_shape_error``) on a card for anything else."""
+    why = tdk6.tc_shape_error(d_model, n_head, d_inner)
+    assert (why is None) == ok, why

@@ -117,6 +117,130 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                              max_tokens=1, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
 
 
+# kernel B's tensor-core route (bf16 weights): (d_model, n_head, d_inner) at
+# the tests' small width and at agent_config's (depth cut to 2 layers)
+# small, agent_config's width, and heads of 8 (the state pass without
+# 16-byte pieces)
+TC_WIDTHS = [(64, 2, 128), (512, 8, 2048), (32, 4, 64)]
+
+
+def _tc_setup(dev, d_model, n_head, d_inner):
+    cfg = TC.LinearTransformerConfig(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=d_model,
+                                     n_layer=2, n_head=n_head, d_inner=d_inner, max_len=512)
+    params = tlt.init_params(cfg, seed=4, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    return cfg, tdk6.make_v6_params(params, cfg, dtype=torch.bfloat16), gen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,n_head,d_inner", TC_WIDTHS)
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
+def test_decode_chunk_tc_matches_its_twin(dev, d_model, n_head, d_inner, sdt):
+    """The tensor-core route against its twin of v6's arithmetic,
+    teacher-forced, one token a call, 16 tokens, at B = 1, 65, 100, 128 and
+    200 (ragged row tiles): greedy next tokens equal on >= 99% of all the
+    (token, song, field) decisions (both round the same f32 activations to
+    bf16; the sums' order differs, so near-ties may flip); with an f32
+    state, S within 1e-4 of max|S| at every B.  Every call takes the
+    tensor-core route: one kernel and one graph launch a token."""
+    cfg, v6p, gen = _tc_setup(dev, d_model, n_head, d_inner)
+    kw = dict(n_head=n_head, max_tokens=1, temps=(1.0,) * 6, topps=(float("inf"),) * 6,
+              greedy=True, eps=cfg.attn_eps)
+    agree = total = 0
+    for b in (1, 65, 100, 128, 200):
+        sk = tdk4.init_state(cfg, b, sdt, dev)
+        sp = tdk4.init_state(cfg, b, sdt, dev)
+        calls, cuda = tdk6.fused_decode_v6.tc_calls, tdk6.fused_decode_v6.cuda_launches
+        for t in range(16):
+            tok = _tokens(gen, dev, b)
+            ok, _, _ = tdk6.fused_decode_v6(v6p, tok, sk.s, sk.z, t, 3, vocab_sizes=VOCAB, **kw)
+            op, _, _ = tdk6.fused_decode_v6_plain(v6p, tok, sp.s, sp.z, t, 3, **kw)
+            agree += int((ok == op).sum())
+            total += ok.numel()
+        assert tdk6.fused_decode_v6.tc_calls == calls + 16
+        assert tdk6.fused_decode_v6.cuda_launches == cuda + 2 * 16
+        if sdt == torch.float32:
+            _close(sk.s, sp.s, 1e-4, f"S at B={b}")
+    assert agree / total >= 0.99, f"agreement {agree / total}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("greedy", [True, False])
+def test_decode_chunk_tc_is_chunk_invariant(dev, greedy):
+    """One call of 64 tokens equals two of 32, tokens and state bit for bit
+    (no float atomics; the splits and the Philox counter depend on the
+    shapes and the position only), at a ragged batch."""
+    cfg, v6p, gen = _tc_setup(dev, 64, 2, 128)
+    b = 65
+    kw = dict(n_head=2, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS, greedy=greedy,
+              eps=cfg.attn_eps)
+    tok0 = _tokens(gen, dev, b)
+    s1 = tdk4.init_state(cfg, b, device=dev)
+    s2 = tdk4.init_state(cfg, b, device=dev)
+    one, _, _ = tdk6.fused_decode_v6(v6p, tok0, s1.s, s1.z, 3, 17, max_tokens=64, **kw)
+    first, _, _ = tdk6.fused_decode_v6(v6p, tok0, s2.s, s2.z, 3, 17, max_tokens=32, **kw)
+    rest, _, _ = tdk6.fused_decode_v6(v6p, first[-1].contiguous(), s2.s, s2.z, 35, 17,
+                                      max_tokens=32, **kw)
+    assert torch.equal(one, torch.cat([first, rest]))
+    assert torch.equal(s1.s, s2.s) and torch.equal(s1.z, s2.z)
+    assert (one >= 0).all() and (one < torch.tensor(VOCAB, device=dev)).all()
+
+
+@pytest.mark.gpu
+def test_decode_chunk_tc_graph_serves_every_call(dev):
+    """One token graph a shape.  The seed, the sampling mode and the
+    position reach it through a block on the card: calls that change them
+    instantiate nothing, and each call's tokens are the ones its own values
+    give (seed 2 again after seed 1 repeats seed 2's tokens bit for bit;
+    seed 1's differ).  A call on another state tensor updates the graph in
+    place and decodes as a call on the first one does."""
+    cfg, v6p, gen = _tc_setup(dev, 64, 2, 128)
+    b = 65
+    kw = dict(n_head=2, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS, max_tokens=8,
+              eps=cfg.attn_eps)
+    f = tdk6.fused_decode_v6
+    tok0 = _tokens(gen, dev, b)
+    st = tdk4.init_state(cfg, b, device=dev)
+
+    def run(state, seed, t0=0, greedy=False):
+        state.s.zero_()
+        state.z.zero_()
+        out, _, _ = f(v6p, tok0, state.s, state.z, t0, seed, greedy=greedy, **kw)
+        return out
+
+    x2 = run(st, 2)
+    captures = f.captures
+    x1 = run(st, 1)
+    assert torch.equal(run(st, 2), x2) and not torch.equal(x1, x2)
+    assert not torch.equal(run(st, 2, t0=5), x2)
+    g = run(st, 2, greedy=True)
+    assert f.captures == captures
+    other = tdk4.init_state(cfg, b, device=dev)
+    updates = f.updates
+    assert torch.equal(run(other, 2, greedy=True), g) and torch.equal(run(other, 2), x2)
+    assert f.updates > updates and f.captures == captures
+    sp = tdk4.init_state(cfg, b, device=dev)
+    gp, _, _ = tdk6.fused_decode_v6_plain(v6p, tok0, sp.s, sp.z, 0, 2, n_head=2, max_tokens=1,
+                                          temps=CP_TEMPS, topps=CP_TOPPS, greedy=True,
+                                          eps=cfg.attn_eps)
+    assert (g[0] == gp[0]).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
+def test_decode_chunk_tc_rejects_what_it_does_not_take(dev):
+    """bf16 weights at a d_model the SIMT route takes but the tensor-core
+    products do not (12: operand rows are read in 16-byte pieces) raise;
+    there is no other route for them."""
+    cfg, v6p, gen = _tc_setup(dev, 12, 3, 64)
+    st = tdk4.init_state(cfg, 3, device=dev)
+    before = tdk6.fused_decode_v6.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tdk6.fused_decode_v6(v6p, _tokens(gen, dev, 3), st.s, st.z, 0, 0, n_head=3,
+                             max_tokens=4, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
+    assert tdk6.fused_decode_v6.launches == before
+
+
 def _close(a, b, tol, what):
     """max |a - b| <= tol * max(1, max |b|)."""
     err = (a.float() - b.float()).abs().max().item()
@@ -447,7 +571,7 @@ def test_latency_kernel_matches_plain(dev, version, wdt, b):
         before, cuda_before, agree = fn.launches, fn.cuda_launches, 0
         for t, tok in enumerate(toks):
             ok, _, _ = fn(rp, tok, sk.s, sk.z, t, 3, vocab_sizes=VOCAB, **kw)
-            op, _, _ = tdk6.fused_decode_v6_plain(rp, tok, sp.s, sp.z, t, 3, **kw)
+            op, _, _ = tdk6.chunk_decode_v4_plain(rp, tok, sp.s, sp.z, t, 3, **kw)
             agree += int((ok == op).sum())
         assert fn.launches == before + len(toks)
         assert fn.cuda_launches == cuda_before + per_call * len(toks)
