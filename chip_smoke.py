@@ -39,7 +39,10 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      TF32 off): qkv_attention_block (kernel C) forward within 1e-4 of the
      output's magnitude and (dh, dWqkv, dbqkv) within 1e-3 of each
      gradient's; attn_tail_block (kernel D) the same, at dropout 0 and 0.1
-     (the plain version draws the same Philox bits);
+     (the plain version draws the same Philox bits), and on bf16 tensors
+     against its twin of JAX's bf16 arithmetic, the output and every
+     gradient within BF16_TOL (2^-7) of its magnitude; the HMMA count in
+     the SASS of D's and G's product kernels (cuobjdump, > 0 in each);
   5. takes one full-width train step (dropout 0, same weights and batch)
      on the kernel route and on the plain route: losses within 1e-4
      relative, every gradient within 1e-3 of its leaf's magnitude, every
@@ -47,9 +50,11 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      Adam updates themselves within 1e-3 of the leaf's largest update
      wherever the plain gradient's sign is settled (|g| above the gradient
      check's limit); then times two more steps of each;
-  6. runs ``apps/cli.py pretrain`` for 4 steps at B=32, S=512 on each route
-     and fails unless each training-kernel counter reads 12 x steps on the
-     kernel route (0 on the plain one) and every logged loss is finite;
+  6. runs ``apps/cli.py pretrain`` for 4 steps at B=32, S=512 on each route,
+     and on the kernel route with ``--dtype bfloat16`` (C and D on bf16
+     tensors), and fails unless each training-kernel counter reads 12 x
+     steps on the kernel route (0 on the plain one) and every logged loss
+     is finite;
   7. holds kernel E (window_attention_band, the counterpart of
      window_attention_pallas) against its plain twin at the discriminator
      LM's shape (B=4, H=8, S=3584, D=64, window 512, f32) with the padding
@@ -61,7 +66,7 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      within 1e-4 on the rows that see a kept key;
   8. holds kernel D at the Longformer's shape (14336 rows, d_model 512,
      d_inner 1024, mid_drop=False) against its plain version at dropout 0
-     and 0.1, forward and the 12 gradients, as in 4;
+     and 0.1, forward and the 12 gradients, f32 and bf16 as in 4;
   9. takes one discriminator-LM step (discrim_lm_config at full width,
      B=4 x S=3584, dropout 0, same weights and batch) on three routes:
      default (kernel D + the plain band attention), RLMG_WINDOW_BACKEND=
@@ -104,8 +109,8 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      against its plain twin at 50 rows (a rollout state), 100 (ragged),
      1500 (a PPO update) and 16384 (pretrain), d_model 512, FFN 2048, f32,
      dropout 0 and 0.1: out within 1e-4 of its magnitude, the seven
-     gradients within 1e-3 of theirs; two backward runs bit-equal; bfloat16
-     and d_model 1028 refused;
+     gradients within 1e-3 of theirs; on bf16 tensors within BF16_TOL as in
+     4; two backward runs bit-equal at both dtypes; d_model 1028 refused;
  17. one full-width PPO rollout song and update step (actor_config and
      critic_config at 12 layers, the reward ppo_reward_config at 10, dropout
      0, lr 1e-4, 30 episodes of 50-state windows) on the default route and
@@ -169,7 +174,11 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
  30. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
      beside the library call; kernel B at B=128 and 1024 (T=128) on both
-     routes, with the state-streaming floor and the CUDA launches a call.
+     routes, with the state-streaming floor and the CUDA launches a call;
+     kernels D (16384 and 14336 rows) and G (50, 1500, 16384 rows) at f32
+     and bf16 with the CUDA launches a call, bounded at the rate of their
+     tensor-core arithmetic (bf16 989 TFLOP/s; f32 tensors 989/6, six bf16
+     products a product), the f32 FMA bound beside.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -191,6 +200,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # f32 FMA outside the tensor cores
 BF16_FLOPS = 989e12            # bf16 products with f32 sums, tensor cores, dense
+# kernels D and G on f32 tensors: each product as six bf16 products (the
+# operands split into three bf16 planes) on the tensor cores
+SPLIT_BF16_FLOPS = BF16_FLOPS / 6
+# kernels D and G on bf16 tensors against their twins: every tensor within
+# this share of its magnitude, twice the bf16 rounding step (2^-8) at it
+BF16_TOL = 2 ** -7
 # kernel B's tensor-core route with an f32 state: max|dS| against its twin,
 # as a share of max|S|, after 16 teacher-forced tokens at the main path's shape
 S_TC_TOL = 3e-4
@@ -224,8 +239,9 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
     """(least ms, what binds) of a function that moves ``nbytes`` and does
     ``flops`` operations at the card's peak for their type: ``BF16_FLOPS``
     where the function's products take bf16 inputs (v5, v7 and v8 cast the
-    activations to the bf16 weights' type), else f32 outside the tensor
-    cores."""
+    activations to the bf16 weights' type; D and G on bf16 tensors),
+    ``SPLIT_BF16_FLOPS`` for D and G on f32 tensors (six bf16 products a
+    product), else f32 outside the tensor cores."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -298,6 +314,42 @@ def time_fwd_bwd(fn, inputs, g, reps: int):
     return f_ms, b_ms
 
 
+def fused_times(tag, kernel, plain, inputs, g, reps, work, counted) -> dict:
+    """Kernel D or G (``kernel``; ``counted``: its wrapper, whose
+    ``cuda_launches`` counts) beside its twin ``plain`` on ``inputs`` and the
+    upstream gradient g, in their dtype: CUDA-event ms forward and backward,
+    CUDA launches a call, and bounds from ``work(bytes an element)`` at the
+    rate of the route's arithmetic (bf16 tensors BF16_FLOPS, f32 tensors
+    SPLIT_BF16_FLOPS), with the f32 FMA bound of earlier PRs beside them."""
+    dt = inputs[0].dtype
+    rate = BF16_FLOPS if dt == torch.bfloat16 else SPLIT_BF16_FLOPS
+    ts = [t.detach().clone().requires_grad_(True) for t in inputs]
+    c0 = counted.cuda_launches
+    out = kernel(*ts)
+    c1 = counted.cuda_launches
+    torch.autograd.grad(out, ts, g)
+    n_fwd, n_bwd = c1 - c0, counted.cuda_launches - c1
+    del out, ts
+    k_f, k_b = time_fwd_bwd(kernel, inputs, g, reps)
+    p_f, p_b = time_fwd_bwd(plain, inputs, g, max(3, reps // 5))
+    (f_ops, f_b), (b_ops, b_b) = work(inputs[0].element_size())
+    (bf, bfby), (bb, bbby) = bound(f_b, f_ops, rate), bound(b_b, b_ops, rate)
+    fma_f, fma_b = bound(f_b, f_ops)[0], bound(b_b, b_ops)[0]
+    recompute = bound(0, f_ops, rate)[0]
+    print(f"[time] {tag} {str(dt)[6:]}: forward {k_f:.4f} ms (plain {p_f:.4f}, bound {bf:.4f} "
+          f"{bfby}, f32 FMA bound {fma_f:.4f}; {f_ops / 1e9:.3f} GFLOP, {f_b / 1e6:.1f} MB; "
+          f"{n_fwd} CUDA launches), backward {k_b:.4f} ms (plain {p_b:.4f}, bound {bb:.4f} "
+          f"{bbby}, f32 FMA bound {fma_b:.4f}; {b_ops / 1e9:.3f} GFLOP, {b_b / 1e6:.1f} MB; "
+          f"{n_bwd} CUDA launches; the recomputed forward adds {recompute:.4f} ms at the "
+          f"route's rate)", flush=True)
+    return dict(dtype=str(dt)[6:], ms_fwd=k_f, ms_bwd=k_b, plain_ms_fwd=p_f, plain_ms_bwd=p_b,
+                bound_ms_fwd=bf, bound_ms_bwd=bb, bound_by_fwd=bfby, bound_by_bwd=bbby,
+                bound_by=bound(f_b + b_b, f_ops + b_ops, rate)[1], fma_bound_ms_fwd=fma_f,
+                fma_bound_ms_bwd=fma_b, recompute_ms_bwd=recompute, cuda_launches_fwd=n_fwd,
+                cuda_launches_bwd=n_bwd, gflop_fwd=f_ops / 1e9, gflop_bwd=b_ops / 1e9,
+                mb_fwd=f_b / 1e6, mb_bwd=b_b / 1e6)
+
+
 def qkv_attention_work(n, d, h, n_seq, tile=64):
     """(forward, backward) operations and bytes of qkv_attention_block at
     this shape, the attention counted at the kernel's 64-row tile: a score
@@ -317,15 +369,15 @@ def qkv_attention_work(n, d, h, n_seq, tile=64):
     return (f_ops, f_bytes), (b_ops, b_bytes)
 
 
-def attn_tail_work(n, d, di):
-    """(forward, backward) operations and bytes of attn_tail_block: the
-    backward takes two products per weight, 2x the forward's operations
-    (what the gradients need; kernel D's recomputed forward, one forward
-    more, is its design's extra cost and is printed beside the bound, as
-    G's in ffn_work)."""
-    w = 4 * (d * d + 2 * d * di + 7 * d + di)
+def attn_tail_work(n, d, di, elem=4):
+    """(forward, backward) operations and bytes of attn_tail_block on
+    tensors of ``elem`` bytes an element: the backward takes two products
+    per weight, 2x the forward's operations (what the gradients need;
+    kernel D's recomputed forward, one forward more, is its design's extra
+    cost and is printed beside the bound, as G's in ffn_work)."""
+    w = elem * (d * d + 2 * d * di + 7 * d + di)
     f_ops = 2 * n * (d * d + 2 * d * di)
-    return (f_ops, 4 * 3 * n * d + w), (2 * f_ops, 4 * 5 * n * d + 2 * w)
+    return (f_ops, elem * 3 * n * d + w), (2 * f_ops, elem * 5 * n * d + 2 * w)
 
 
 def causal_product_work(b, h, s, e, chunk=128):
@@ -353,17 +405,17 @@ TAIL_GRADS = ("dh_in", "da_pre", "dWo", "dbo", "dln1_s", "dln1_b", "dW1", "db1",
 FFN_GRADS = ("dh", "dW1", "db1", "dW2", "db2", "dln2_s", "dln2_b")
 
 
-def ffn_work(n, d, di):
-    """(forward, backward) (operations, bytes) of ffn_block: forward 4 N D DI
-    (two products), backward 8 N D DI (two products per weight: the
-    gradients need no more; kernel G's recomputed forward, 4 N D DI more,
-    is its design's extra cost, printed beside the bound); bytes each input
-    read once, each output written once (forward h in, out out, the
-    parameters; backward h and dO in, dh out, the parameters in and their
-    gradients out)."""
-    w = 4 * (2 * d * di + di + 3 * d)
+def ffn_work(n, d, di, elem=4):
+    """(forward, backward) (operations, bytes) of ffn_block on tensors of
+    ``elem`` bytes an element: forward 4 N D DI (two products), backward
+    8 N D DI (two products per weight: the gradients need no more; kernel
+    G's recomputed forward, 4 N D DI more, is its design's extra cost,
+    printed beside the bound); bytes each input read once, each output
+    written once (forward h in, out out, the parameters; backward h and dO
+    in, dh out, the parameters in and their gradients out)."""
+    w = elem * (2 * d * di + di + 3 * d)
     f_ops = 4 * n * d * di
-    return (f_ops, 4 * 2 * n * d + w), (2 * f_ops, 4 * 3 * n * d + 2 * w)
+    return (f_ops, elem * 2 * n * d + w), (2 * f_ops, elem * 3 * n * d + 2 * w)
 
 
 def latency_state_bytes(b, L, d, h, *, s_bytes):
@@ -453,11 +505,12 @@ def window_work(b, h, s, d, w, mask):
     return (4 * pairs * d, f_bytes), (10 * pairs * d, b_bytes), pairs, kept_pairs
 
 
-def check_fused(tag, kernel, plain, inputs, g, names) -> float:
+def check_fused(tag, kernel, plain, inputs, g, names, tols=(1e-4, 1e-3)) -> float:
     """A fused kernel against its plain version at dropout 0 and 0.1
     (``kernel(p)``, ``plain(p)``: functions of ``inputs``): the output within
-    1e-4 of its magnitude, each gradient (``names``) within 1e-3 of its own.
-    Returns the largest output difference."""
+    ``tols[0]`` of its magnitude (1e-4), each gradient (``names``) within
+    ``tols[1]`` of its own (1e-3).  Returns the largest output difference."""
+    out_tol, grad_tol = tols
     d_err = 0.0
     for p_drop in (0.0, 0.1):
         ok, gk = fwd_bwd(kernel(p_drop), inputs, g)
@@ -466,24 +519,28 @@ def check_fused(tag, kernel, plain, inputs, g, names) -> float:
         d_err = max(d_err, e)
         print(f"[{tag}] p={p_drop}: max|d out| {e:.3e} (max|out| {magnitude(op_):.3e})",
               flush=True)
-        check(e <= 1e-4 * magnitude(op_), f"{tag} p={p_drop} forward: max|diff| {e}")
+        check(e <= out_tol * magnitude(op_), f"{tag} p={p_drop} forward: max|diff| {e}")
         worst = 0.0
         for name, x, y in zip(names, gk, gp):
             e = max_err(x, y) / magnitude(y)
             worst = max(worst, e)
             check(bool(torch.isfinite(x).all()), f"{tag} p={p_drop} {name}: not finite")
-            check(e <= 1e-3, f"{tag} p={p_drop} {name}: max|diff| {e} of its magnitude")
+            check(e <= grad_tol, f"{tag} p={p_drop} {name}: max|diff| {e} of its magnitude")
         print(f"[{tag}] p={p_drop}: {len(names)} gradients, worst max|diff| / magnitude "
               f"{worst:.3e}", flush=True)
     return d_err
 
 
-def check_tail(tag, tfb, d_in, g, seed_t, mid_drop) -> float:
+def check_tail(tag, tfb, d_in, g, seed_t, mid_drop, tols=(1e-4, 1e-3)) -> float:
     """Kernel D against its plain version (check_fused), the 12 gradients."""
     return check_fused(
         tag, lambda p: (lambda *a: tfb.attn_tail_block(*a, seed_t, p, mid_drop)),
         lambda p: (lambda *a: tfb.attn_tail_block_plain(*a, seed_t, p, mid_drop)), d_in, g,
-        TAIL_GRADS)
+        TAIL_GRADS, tols)
+
+
+def as_bf16(tensors):
+    return tuple(t.bfloat16() for t in tensors)
 
 
 def check_step(tag, out_k, out_p, zero_grads=()) -> None:
@@ -1381,9 +1438,27 @@ def main() -> None:
 
     tail_ws = tail_weights(lp0)
     seed_t = torch.tensor(20260, dtype=torch.int32, device=dev)
-    d_err = check_tail(f"attn_tail N={NT} D={D} DI={DI}", tfb, (h_tr, op.contiguous(), *tail_ws),
-                       g_tr, seed_t, True)
+    d_in = (h_tr, op.contiguous(), *tail_ws)
+    d_err = check_tail(f"attn_tail N={NT} D={D} DI={DI}", tfb, d_in, g_tr, seed_t, True)
+    # bf16 tensors against the twin of JAX's bf16 arithmetic
+    d_err_bf16 = check_tail(f"attn_tail N={NT} D={D} DI={DI} bf16", tfb, as_bf16(d_in),
+                            g_tr.bfloat16(), seed_t, True, (BF16_TOL, BF16_TOL))
     del gk, gp
+    # every product of D and G on the tensor cores: HMMA in the SASS of
+    # their product kernels, at both arithmetics
+    dg_mma = {}
+    for name in ("attn_tail", "ffn_block"):
+        sass = subprocess.run([cuobjdump, "-sass", libs[name]], capture_output=True, text=True,
+                              timeout=300)
+        check(sass.returncode == 0, f"cuobjdump -sass {name} failed: {sass.stderr[-500:]}")
+        mma = mma_counts(sass.stdout, "tt_gemm_kernel")
+        dg_mma[name] = {"kernels": len(mma), "hmma_min": min(mma.values(), default=0),
+                        "hmma_max": max(mma.values(), default=0)}
+        print(f"[{name}] HMMA instructions in its {len(mma)} product kernels: "
+              f"{min(mma.values(), default=0)} to {max(mma.values(), default=0)} each",
+              flush=True)
+        check(len(mma) >= 6 and all(n > 0 for n in mma.values()),
+              f"{name}: a product kernel without tensor-core instructions ({mma})")
 
     # -- 5. one full-width train step, kernel route against plain route ----
     knobs = ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_FFN_MIN_ROWS", "RLMG_WINDOW_BACKEND")
@@ -1458,32 +1533,35 @@ def main() -> None:
     del step_out, p0
 
     # -- 6. the training main path: cli pretrain, 4 steps at B=32 x S=512 ---
+    # (route, dtype): the kernel route also at --dtype bfloat16 (C + D on
+    # bf16 tensors, float32 master weights)
     cli_res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("kernel", "plain"):
+        for name, dt in (("kernel", "float32"), ("plain", "float32"), ("kernel", "bfloat16")):
             set_env(routes[name])
             zero_counts()
             res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64",
                             "--batch-size", str(BT), "--seq-len", str(ST), "--max-steps", "4",
-                            "--exp-dir", os.path.join(tmp, name, "exp"),
-                            "--ckpt-dir", os.path.join(tmp, name, "ckpt")])
+                            "--dtype", dt, "--exp-dir", os.path.join(tmp, name + dt, "exp"),
+                            "--ckpt-dir", os.path.join(tmp, name + dt, "ckpt")])
             torch.cuda.synchronize()
             counts = read_counts()
-            cli_res[name] = (res, counts)
+            cli_res[name, dt] = (res, counts)
             ms_step = res["seconds"] / res["steps"] * 1e3
-            print(f"[pretrain] {name} route: {res['steps']} steps in {res['seconds']:.3f}s "
+            print(f"[pretrain] {name} route, {dt}: {res['steps']} steps in {res['seconds']:.3f}s "
                   f"= {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s (with one "
                   f"epoch-end checkpoint); logged losses {res['batch_losses']}; launches "
                   f"(C, D, E, F, G fwd/bwd) {counts}", flush=True)
-            check(res["steps"] == 4, f"pretrain {name}: {res['steps']} steps, expected 4")
+            check(res["steps"] == 4, f"pretrain {name} {dt}: {res['steps']} steps, expected 4")
             check(len(res["batch_losses"]) > 0 and all(
                 math.isfinite(v) for v in res["batch_losses"] + res["history"]),
-                f"pretrain {name}: a logged loss is not finite")
+                f"pretrain {name} {dt}: a logged loss is not finite")
             want = [12 * 4] * 4 + [0] * 6 if name == "kernel" else [0] * 10
-            check(counts == want, f"pretrain {name}: launches {counts}, expected {want}")
+            check(counts == want, f"pretrain {name} {dt}: launches {counts}, expected {want}")
     restore_env()
-    launches["C"] = cli_res["kernel"][1][0:2]
-    launches["D"] = cli_res["kernel"][1][2:4]
+    launches["C"] = cli_res["kernel", "float32"][1][0:2]
+    launches["D"] = cli_res["kernel", "float32"][1][2:4]
+    launches["D_bf16"] = cli_res["kernel", "bfloat16"][1][2:4]
 
     # -- 7. kernel E against its plain twin at the discriminator LM's shape --
     dvocab = (56, 135, 18, 87, 18, 25)          # discrim-pretrain without --with-type
@@ -1560,6 +1638,9 @@ def main() -> None:
     d_lf_in = (h_lf, a_lf, *lf_ws)
     d_lf_err = check_tail(f"attn_tail N={ND} D={dcfg.d_model} DI={dcfg.d_inner} mid_drop=False",
                           tfb, d_lf_in, g_lf, seed_t, False)
+    d_lf_err_bf16 = check_tail(f"attn_tail N={ND} D={dcfg.d_model} DI={dcfg.d_inner} "
+                               f"mid_drop=False bf16", tfb, as_bf16(d_lf_in), g_lf.bfloat16(),
+                               seed_t, False, (BF16_TOL, BF16_TOL))
 
     # -- 9. one discriminator-LM step on three routes ------------------------
     droutes = {"default": {}, "window": {"RLMG_WINDOW_BACKEND": "pallas"},
@@ -1829,30 +1910,32 @@ def main() -> None:
                      (torch.randn((n, D), generator=gen, device=dev),
                       torch.randn((n, D), generator=gen, device=dev)))
         h_g, gg = g_in[tag]
-        g_err[tag] = check_fused(
-            f"ffn_block {tag} N={n} D={D} DI={DI}",
-            lambda p: (lambda *a: tfb.ffn_block(*a, seed_t, p)),
-            lambda p: (lambda *a: tfb.ffn_block_plain(*a, seed_t, p)), (h_g, *ffn_ws), gg,
-            FFN_GRADS)
+        g_kernel = lambda p: (lambda *a: tfb.ffn_block(*a, seed_t, p))
+        g_plain = lambda p: (lambda *a: tfb.ffn_block_plain(*a, seed_t, p))
+        g_err[tag] = check_fused(f"ffn_block {tag} N={n} D={D} DI={DI}", g_kernel, g_plain,
+                                 (h_g, *ffn_ws), gg, FFN_GRADS)
+        # bf16 tensors against the twin of JAX's bf16 arithmetic
+        g_err[tag, "bf16"] = check_fused(f"ffn_block {tag} N={n} D={D} DI={DI} bf16", g_kernel,
+                                         g_plain, as_bf16((h_g, *ffn_ws)), gg.bfloat16(),
+                                         FFN_GRADS, (BF16_TOL, BF16_TOL))
     for tag in ("ragged", "update"):
-        h_g, gg = g_in[tag]
-        g1 = tfb.ffn_backward_kernel(h_g, ffn_ws, gg, seed_t, 0.1)
-        g2 = tfb.ffn_backward_kernel(h_g, ffn_ws, gg, seed_t, 0.1)
-        same = all(torch.equal(a_, b_) for a_, b_ in zip(g1, g2))
-        print(f"[ffn_block] {tag}: two backward runs {'bit-equal' if same else 'DIFFERENT'}",
-              flush=True)
-        check(same, f"ffn_block {tag}: two backward runs differ")
-    h_g = g_in["ragged"][0]
+        for dt in (torch.float32, torch.bfloat16):
+            h_g, gg = (t.to(dt) for t in g_in[tag])
+            ws_ = [w.to(dt) for w in ffn_ws]
+            g1 = tfb.ffn_backward_kernel(h_g, ws_, gg, seed_t, 0.1)
+            g2 = tfb.ffn_backward_kernel(h_g, ws_, gg, seed_t, 0.1)
+            same = all(torch.equal(a_, b_) for a_, b_ in zip(g1, g2))
+            print(f"[ffn_block] {tag} {str(dt)[6:]}: two backward runs "
+                  f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+            check(same, f"ffn_block {tag} {dt}: two backward runs differ")
     wide = [torch.ones(s_, device=dev) for s_ in ((1028, 64), (64,), (64, 1028), (1028,),
                                                   (1028,), (1028,))]
-    for what, bad in (("bfloat16", (h_g.bfloat16(), *[w.bfloat16() for w in ffn_ws])),
-                      ("d_model 1028", (torch.ones((8, 1028), device=dev), *wide))):
-        try:
-            tfb.ffn_block(*bad, 0, 0.0)
-        except (NotImplementedError, TypeError, ValueError) as e:
-            print(f"[ffn_block] {what}: refused ({e})", flush=True)
-        else:
-            fail(f"ffn_block took {what}")
+    try:
+        tfb.ffn_block(torch.ones((8, 1028), device=dev), *wide, 0, 0.0)
+    except ValueError as e:
+        print(f"[ffn_block] d_model 1028: refused ({e})", flush=True)
+    else:
+        fail("ffn_block took d_model 1028")
 
     # -- 17. one full-width PPO update on the default and the kernel-G route --
     from reinforcement_learning_in_music_generation_torch.models import critic as critic_lib
@@ -2129,39 +2212,33 @@ def main() -> None:
     (cf_ops, cf_b), (cb_ops, cb_b) = qkv_attention_work(NT, D, H, BT)
     c_bf, c_bfby = bound(cf_b, cf_ops)
     c_bb, c_bbby = bound(cb_b, cb_ops)
-    d_tr = (h_tr, att_k.contiguous(), *tail_ws)
-    d_fwd, d_bwd = time_fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed_t, 0.1), d_tr, g_tr, 10)
-    d_pf, d_pb = time_fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed_t, 0.1), d_tr,
-                              g_tr, 3)
-    (df_ops, df_b), (db_ops, db_b) = attn_tail_work(NT, D, DI)
-    d_bf, d_bfby = bound(df_b, df_ops)
-    d_bb, d_bbby = bound(db_b, db_ops)
-    d_recompute = bound(0, df_ops)[0]       # the backward's recomputed forward, at peak
     print(f"[time] qkv_attention N={NT}: forward {c_fwd:.3f} ms (plain {c_pf:.3f}, bound "
           f"{c_bf:.4f} {c_bfby}, {cf_ops / 1e9:.2f} GFLOP), backward {c_bwd:.3f} ms (plain "
           f"{c_pb:.3f}, bound {c_bb:.4f} {c_bbby}, {cb_ops / 1e9:.2f} GFLOP; the two kernel "
           f"passes alone {c_pass:.3f} ms)")
-    print(f"[time] attn_tail N={NT} p=0.1: forward {d_fwd:.3f} ms (plain {d_pf:.3f}, bound "
-          f"{d_bf:.4f} {d_bfby}, {df_ops / 1e9:.2f} GFLOP), backward {d_bwd:.3f} ms (plain "
-          f"{d_pb:.3f}, bound {d_bb:.4f} {d_bbby}, {db_ops / 1e9:.2f} GFLOP; the recomputed "
-          f"forward adds {df_ops / 1e9:.2f} GFLOP, {d_recompute:.4f} ms at peak)")
     print(f"[time] train step B={BT} S={ST}: kernel route {step_ms['kernel']:.1f} ms, plain "
           f"route {step_ms['plain']:.1f} ms")
 
+    # D at both dtypes and both of its paths' shapes, dropout 0.1
+    d_tr = (h_tr, att_k.contiguous(), *tail_ws)
     d_lf = (h_lf, a_lf, *lf_ws)
-    dl_fwd, dl_bwd = time_fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed_t, 0.1, False), d_lf,
-                                  g_lf, 10)
-    dl_pf, dl_pb = time_fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed_t, 0.1, False),
-                                d_lf, g_lf, 3)
-    (dlf_ops, dlf_b), (dlb_ops, dlb_b) = attn_tail_work(ND, dcfg.d_model, dcfg.d_inner)
-    dl_bf, _ = bound(dlf_b, dlf_ops)
-    dl_bb, _ = bound(dlb_b, dlb_ops)
-    dl_recompute = bound(0, dlf_ops)[0]
-    print(f"[time] attn_tail N={ND} D={dcfg.d_model} DI={dcfg.d_inner} p=0.1 mid_drop=False: "
-          f"forward {dl_fwd:.3f} ms (plain {dl_pf:.3f}, bound {dl_bf:.4f}, "
-          f"{dlf_ops / 1e9:.2f} GFLOP), backward {dl_bwd:.3f} ms (plain {dl_pb:.3f}, bound "
-          f"{dl_bb:.4f}, {dlb_ops / 1e9:.2f} GFLOP; the recomputed forward {dl_recompute:.4f} "
-          f"ms at peak)")
+    d_t = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for tag, ins, gg, mid, work in (
+                ("pretrain", d_tr, g_tr, True, lambda el: attn_tail_work(NT, D, DI, el)),
+                ("longformer", d_lf, g_lf, False,
+                 lambda el: attn_tail_work(ND, dcfg.d_model, dcfg.d_inner, el))):
+            d_t[tag, dt] = fused_times(
+                f"attn_tail {tag} N={ins[0].shape[0]} DI={ins[6].shape[1]} p=0.1 "
+                f"mid_drop={mid}", lambda *a, m=mid: tfb.attn_tail_block(*a, seed_t, 0.1, m),
+                lambda *a, m=mid: tfb.attn_tail_block_plain(*a, seed_t, 0.1, m),
+                [t.to(dt) for t in ins], gg.to(dt), 10, work, tfb.attn_tail_block)
+            torch.cuda.empty_cache()
+    for (tag, dt), err in (
+            (("pretrain", torch.float32), d_err), (("pretrain", torch.bfloat16), d_err_bf16),
+            (("longformer", torch.float32), d_lf_err),
+            (("longformer", torch.bfloat16), d_lf_err_bf16)):
+        d_t[tag, dt]["max_abs_err"] = err
 
     e_in = (q_e, k_e, v_e)
     e_fwd, e_bwd = time_fwd_bwd(e_kernel(dms), e_in, g_e, 20)
@@ -2203,28 +2280,20 @@ def main() -> None:
           f"route {q_ms['kernel']:.1f} ms")
 
     # G at the rollout's and the update's rows (dropout 0, as PPO runs them)
-    # and pretrain's (dropout 0.1)
+    # and pretrain's (dropout 0.1), at both dtypes
     g_t = {}
     for tag, p_drop, reps in (("rollout", 0.0, 50), ("update", 0.0, 20), ("pretrain", 0.1, 10)):
         h_g, gg = g_in[tag]
-        gin = (h_g, *ffn_ws)
-        gk_f, gk_b = time_fwd_bwd(lambda *a: tfb.ffn_block(*a, seed_t, p_drop), gin, gg, reps)
-        gp_f, gp_b = time_fwd_bwd(lambda *a: tfb.ffn_block_plain(*a, seed_t, p_drop), gin, gg,
-                                  max(3, reps // 5))
-        (gf_ops, gf_b), (gb_ops, gb_b) = ffn_work(g_rows[tag], D, DI)
-        (bf, bfby), (bb, bbby) = bound(gf_b, gf_ops), bound(gb_b, gb_ops)
-        recompute = bound(0, gf_ops)[0]         # the backward's recomputed forward, at peak
-        g_t[tag] = dict(rows=g_rows[tag], dropout=p_drop, ms_fwd=gk_f, ms_bwd=gk_b,
-                        plain_ms_fwd=gp_f, plain_ms_bwd=gp_b, bound_ms_fwd=bf, bound_ms_bwd=bb,
-                        bound_by_fwd=bfby, bound_by_bwd=bbby,
-                        bound_by=bound(gf_b + gb_b, gf_ops + gb_ops)[1],
-                        gflop_fwd=gf_ops / 1e9, gflop_bwd=gb_ops / 1e9, mb_fwd=gf_b / 1e6,
-                        mb_bwd=gb_b / 1e6, recompute_ms_bwd=recompute, max_abs_err=g_err[tag])
-        print(f"[time] ffn_block {tag} N={g_rows[tag]} p={p_drop}: forward {gk_f:.4f} ms (plain "
-              f"{gp_f:.4f}, bound {bf:.4f} {bfby}, {gf_ops / 1e9:.3f} GFLOP, {gf_b / 1e6:.1f} MB), "
-              f"backward {gk_b:.4f} ms (plain {gp_b:.4f}, bound {bb:.4f} {bbby}, "
-              f"{gb_ops / 1e9:.3f} GFLOP, {gb_b / 1e6:.1f} MB; the recomputed forward adds "
-              f"{gf_ops / 1e9:.3f} GFLOP, {recompute:.4f} ms at peak)")
+        for dt in (torch.float32, torch.bfloat16):
+            g_t[tag, dt] = fused_times(
+                f"ffn_block {tag} N={g_rows[tag]} p={p_drop}",
+                lambda *a, p_=p_drop: tfb.ffn_block(*a, seed_t, p_),
+                lambda *a, p_=p_drop: tfb.ffn_block_plain(*a, seed_t, p_),
+                [t.to(dt) for t in (h_g, *ffn_ws)], gg.to(dt), reps,
+                lambda el, n_=g_rows[tag]: ffn_work(n_, D, DI, el), tfb.ffn_block)
+            g_t[tag, dt].update(rows=g_rows[tag], dropout=p_drop,
+                                max_abs_err=g_err[tag] if dt == torch.float32 else
+                                g_err[tag, "bf16"])
     p_def, p_ker = pcli["default"][0], pcli["kernel"][0]
     print(f"[time] PPO update step B={SE} x S={NE}: default route {p_ms['default']:.1f} ms, "
           f"kernel-G route {p_ms['kernel']:.1f} ms; ppo-train per rollout song "
@@ -2233,6 +2302,7 @@ def main() -> None:
 
     pkg = "reinforcement_learning_in_music_generation_torch"
     tpu = "reinforcement_learning_in_music_generation_tpu/ops"
+    d32, g32 = d_t["pretrain", torch.float32], g_t["update", torch.float32]
     kernels = [
         {"name": "decode_step_v4", "route": "cuda", "source": f"{pkg}/csrc/decode_step.cu",
          "replaces": f"{tpu}/decode_kernel_v4.py:155", "launches": launches["v4"],
@@ -2263,18 +2333,21 @@ def main() -> None:
          "plain_ms": c_pf + c_pb, "bound_ms": c_bf + c_bb, "bound_ms_fwd": c_bf,
          "bound_ms_bwd": c_bb, "bound_by": c_bfby if c_bfby == c_bbby else "operations",
          "library_ms": None},
+        # D at pretrain's 16384 rows, f32 (the CLI default); bf16 and the
+        # Longformer's shape beside; bounds at the route's tensor-core rate
         {"name": "attn_tail_block", "route": "cuda", "source": f"{pkg}/csrc/attn_tail.cu",
          "replaces": f"{tpu}/ffn_block.py:419", "launches": sum(launches["D"]),
          "launches_fwd": launches["D"][0], "launches_bwd": launches["D"][1],
-         "max_abs_err": d_err, "ms": d_fwd + d_bwd, "ms_fwd": d_fwd, "ms_bwd": d_bwd,
-         "plain_ms": d_pf + d_pb, "bound_ms": d_bf + d_bb, "bound_ms_fwd": d_bf,
-         "bound_ms_bwd": d_bb, "bound_by": d_bfby if d_bfby == d_bbby else "operations",
-         "recompute_ms_bwd": d_recompute,
-         "library_ms": None, "launches_discrim": sum(launches["D_discrim"]),
-         "longformer_shape": {"rows": ND, "d_inner": dcfg.d_inner, "ms_fwd": dl_fwd,
-                              "ms_bwd": dl_bwd, "plain_ms": dl_pf + dl_pb,
-                              "bound_ms_fwd": dl_bf, "bound_ms_bwd": dl_bb,
-                              "recompute_ms_bwd": dl_recompute, "max_abs_err": d_lf_err}},
+         "max_abs_err": d_err, "ms": d32["ms_fwd"] + d32["ms_bwd"],
+         "plain_ms": d32["plain_ms_fwd"] + d32["plain_ms_bwd"],
+         "bound_ms": d32["bound_ms_fwd"] + d32["bound_ms_bwd"], "bound_by": d32["bound_by"],
+         "library_ms": None, **{k: v for k, v in d32.items() if k != "bound_by"},
+         "launches_bf16": sum(launches["D_bf16"]),
+         "launches_discrim": sum(launches["D_discrim"]), "hmma": dg_mma["attn_tail"],
+         "bf16": d_t["pretrain", torch.bfloat16],
+         "longformer_shape": {"rows": ND, "d_inner": dcfg.d_inner,
+                              **d_t["longformer", torch.float32],
+                              "bf16": d_t["longformer", torch.bfloat16]}},
         {"name": "window_attention_band", "route": "cuda",
          "source": f"{pkg}/csrc/window_attention.cu",
          "replaces": f"{tpu}/window_attention_kernel.py:203", "launches": sum(launches["E"]),
@@ -2294,18 +2367,18 @@ def main() -> None:
          "bound_by": f_t["dqn"]["bound_by"],
          "library_ms": None, "dqn_shape": f_t["dqn"], "rollout_shape": f_t["rollout"],
          "pretrain_shape": f_t["pretrain"], "launches_pretrain": sum(launches["F_pretrain"])},
-        # G at a PPO update's 1500 rows; no single PyTorch call computes
-        # LN(h + FFN(h))
+        # G at a PPO update's 1500 rows, f32; no single PyTorch call computes
+        # LN(h + FFN(h)); every shape at both dtypes beside
         {"name": "ffn_block", "route": "cuda", "source": f"{pkg}/csrc/ffn_block.cu",
          "replaces": f"{tpu}/ffn_block.py:187", "launches": sum(launches["G"]),
          "launches_fwd": launches["G"][0], "launches_bwd": launches["G"][1],
-         "max_abs_err": g_err["update"],
-         "ms": g_t["update"]["ms_fwd"] + g_t["update"]["ms_bwd"],
-         "plain_ms": g_t["update"]["plain_ms_fwd"] + g_t["update"]["plain_ms_bwd"],
-         "bound_ms": g_t["update"]["bound_ms_fwd"] + g_t["update"]["bound_ms_bwd"],
-         "bound_by": g_t["update"]["bound_by"], "library_ms": None,
-         "update_shape": g_t["update"], "rollout_shape": g_t["rollout"],
-         "pretrain_shape": g_t["pretrain"], "launches_pretrain": sum(launches["G_pretrain"])},
+         "max_abs_err": g_err["update"], "ms": g32["ms_fwd"] + g32["ms_bwd"],
+         "plain_ms": g32["plain_ms_fwd"] + g32["plain_ms_bwd"],
+         "bound_ms": g32["bound_ms_fwd"] + g32["bound_ms_bwd"], "bound_by": g32["bound_by"],
+         "library_ms": None, "hmma": dg_mma["ffn_block"],
+         **{f"{tag}_shape": {**g_t[tag, torch.float32], "bf16": g_t[tag, torch.bfloat16]}
+            for tag in ("update", "rollout", "pretrain")},
+         "launches_pretrain": sum(launches["G_pretrain"])},
     ] + lat_entries + aug_entries
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port's training steps, on one GPU.
 
     python3 scripts/profile_torch_train.py [--model agent|discrim|dqn|ppo] [--route NAME|all]
-                                           [--out build/profile]
+                                           [--dtype float32|bfloat16] [--out build/profile]
 
 ``--model agent`` (the default): the flagship ``config.agent_config``, B=32 x
 S=512, two ``train.pretrain.agent_train_step`` calls per route: ``kernel``
@@ -27,6 +27,8 @@ and a reward forward on one 50-row state) and one ``rl.ppo.update_policy``
 RLMG_FFN_BACKEND=pallas (kernel G in every actor and critic layer).  Random
 weights from a seed, synthetic CP rows (seed 0), dropout 0.1 as the CLIs
 train (PPO's forwards are deterministic, as in the reference).
+``--dtype bfloat16`` (agent and discrim) trains as ``cli pretrain --dtype
+bfloat16`` does: bf16 compute, f32 master weights.
 
 Each window runs once untraced first (kernels built, allocator warm), then
 under torch.profiler.  For each it prints the wall time, the summed device
@@ -38,6 +40,7 @@ numbers.  Chrome traces go to ``--out``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -111,6 +114,8 @@ def main():
     ap.add_argument("--route", default="all",
                     help="a route of the model (agent: kernel, plain; discrim: kernel, "
                          "window, plain; dqn and ppo: default, kernel) or all")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="compute dtype of the agent and discrim steps")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
     model = MODELS[args.model]
@@ -127,6 +132,8 @@ def main():
     print(f"card: {card}")
     _build.build_all()
     cfg = model["cfg"]()
+    if args.model in ("agent", "discrim"):
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     b, s = model["batch"], model["seq"]
     dev = torch.device("cuda")
     song_len = 512 if args.model in ("dqn", "ppo") else s   # a rollout slides over a song
@@ -153,7 +160,8 @@ def main():
                 p, st, _ = model["step"](p, st, cfg, tx, x, y, m, gen)
             state[0] = st
 
-        res.append(profile(f"{args.model}_{route}_B{b}_S{s}", steps, args.out, b * s))
+        res.append(profile(f"{args.model}_{route}_{args.dtype}_B{b}_S{s}", steps, args.out,
+                           b * s))
         del params, state
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "model": args.model, "windows": res}))

@@ -412,10 +412,105 @@ def test_training_wrappers_reject_what_the_kernels_do_not_take(dev):
                                 torch.zeros(432, device=dev), 2, 2, chunk=8)
     ws = [torch.zeros(s, device=dev) for s in ((32, 32), (32,), (32,), (32,), (32, 64), (64,),
                                                (64, 32), (32,), (32,), (32,))]
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tfb.attn_tail_block(h.bfloat16(), h.bfloat16(), *[x.bfloat16() for x in ws], 0, 0.0)
+    with pytest.raises(TypeError, match="like the input"):     # one dtype for every tensor
+        tfb.attn_tail_block(h.bfloat16(), h.bfloat16(), *ws, 0, 0.0)
     with pytest.raises(ValueError, match="shape"):
         tfb.attn_tail_block(h, h[:, :16].contiguous(), *ws, 0, 0.0)
+
+
+# kernels D and G on bf16 tensors against their twins, which compute JAX's
+# bf16 arithmetic (operands rounded to bf16, f32 sums, f32 elementwise):
+# every tensor within 2^-7 of its magnitude, one bf16 step at it (the two
+# differ only in the order of f32 sums, which can move a rounding)
+BF16_TOL = 2 ** -7
+TAIL_GRADS = ("dh_in", "da_pre", "dwo_w", "dwo_b", "dln1_s", "dln1_b", "dw1", "db1", "dw2",
+              "db2", "dln2_s", "dln2_b")
+FFN_GRADS = ("dh", "dw1", "db1", "dw2", "db2", "dln_s", "dln_b")
+
+
+def _tail_inputs(dev, n, d, di, seed=4):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda *shape, sc=1.0: torch.randn(shape, generator=gen, device=dev) * sc
+    inputs = (rnd(n, d), rnd(n, d), rnd(d, d, sc=0.2), rnd(d, sc=0.1), 1 + rnd(d, sc=0.1),
+              rnd(d, sc=0.1), rnd(d, di, sc=0.2), rnd(di, sc=0.1), rnd(di, d, sc=0.1),
+              rnd(d, sc=0.1), 1 + rnd(d, sc=0.1), rnd(d, sc=0.1))
+    return inputs, rnd(n, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 50, 300])
+@pytest.mark.parametrize("p,mid_drop", [(0.0, True), (0.1, True), (0.1, False)])
+def test_attn_tail_kernel_matches_plain_bf16(dev, n, p, mid_drop):
+    inputs, g = _tail_inputs(dev, n, 64, 256)
+    inputs, g = tuple(t.bfloat16() for t in inputs), g.bfloat16()
+    seed = torch.tensor(123457, dtype=torch.int32, device=dev)
+    ok, gk = _fwd_bwd(lambda *a: tfb.attn_tail_block(*a, seed, p, mid_drop), inputs, g)
+    op, gp = _fwd_bwd(lambda *a: tfb.attn_tail_block_plain(*a, seed, p, mid_drop), inputs, g)
+    assert ok.dtype == torch.bfloat16 and all(x.dtype == torch.bfloat16 for x in gk)
+    _close(ok, op, BF16_TOL, "out")
+    for name, x, y in zip(TAIL_GRADS, gk, gp):
+        assert torch.isfinite(x).all(), name
+        _close(x, y, BF16_TOL, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_attn_tail_kernel_is_deterministic_at_each_dtype(dev, dt):
+    inputs, g = _tail_inputs(dev, 1000, 64, 128, seed=5)
+    (h, a, *ws), g = [t.to(dt) for t in inputs], g.to(dt)
+    seed = torch.tensor(9, dtype=torch.int32, device=dev)
+    g1 = tfb.backward_kernel(h, a, ws, g, seed, 0.1, True)
+    g2 = tfb.backward_kernel(h, a, ws, g, seed, 0.1, True)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+def _layout_operands(dev, m, n, k, layout, dt, seed=6):
+    """(a, b, a_t, b_t) of op(a) @ op(b) at (M, N, K) in ``layout``: "nn"
+    (forward products), "nt" (x @ W^T), "tn" (X^T @ dY, K = rows)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    a_t, b_t = layout == "tn", layout == "nt"
+    a = torch.randn((k, m) if a_t else (m, k), generator=gen, device=dev).to(dt)
+    b = torch.randn((n, k) if b_t else (k, n), generator=gen, device=dev).to(dt)
+    return a, b, a_t, b_t
+
+
+# (M, N, K) per layout: the ragged dimension is the one stored as rows (M for
+# nn and nt, K, the rows of X and dY, for tn); the last case of each is past
+# 2^28 multiply-adds, so it takes the 128 x 128 tiles and a K split
+TILE_CASES = ([("nn", m, 40, 72) for m in (1, 50, 100, 1500)]
+              + [("nt", m, 56, 72) for m in (1, 50, 100, 1500)]
+              + [("tn", 40, 72, k) for k in (1, 50, 100, 1500)]
+              + [("nn", 1500, 256, 1024), ("nt", 1500, 256, 1024), ("tn", 512, 512, 1500)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,m,n,k", TILE_CASES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_tile_product_matches_plain(dev, layout, m, n, k, dt):
+    """Within 1e-5 of the result's magnitude of the f32 product of the same
+    values: f32 operands on the split arithmetic (three bf16 planes, about
+    2^-24 of a term dropped), bf16 operands exactly (the order of the sums
+    differs)."""
+    a, b, a_t, b_t = _layout_operands(dev, m, n, k, layout, dt)
+    before = tfb.tile_product.cuda_launches
+    c = tfb.tile_product(a, b, a_t, b_t)
+    assert tfb.tile_product.cuda_launches > before
+    ref = (a.T if a_t else a).float() @ (b.T if b_t else b).float()
+    assert c.shape == (m, n) and torch.isfinite(c).all()
+    _close(c, ref, 1e-5, f"{layout} {m}x{n}x{k}")
+
+
+@pytest.mark.gpu
+def test_tile_product_rejects_what_the_tile_does_not_take(dev):
+    a, b, _, _ = _layout_operands(dev, 8, 16, 16, "nn", torch.float32)
+    with pytest.raises(TypeError):
+        tfb.tile_product(a, b.bfloat16())
+    with pytest.raises(ValueError):
+        tfb.tile_product(a.T.contiguous(), b.T.contiguous(), True, True)   # (A^T, B^T)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfb.tile_product(a[:, :12].contiguous(), b[:12].contiguous())
 
 
 def _product_inputs(dev, b, h, s, e, layout, seed=7):
@@ -525,10 +620,39 @@ def test_ffn_block_kernel_is_deterministic(dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 50, 100, 1500])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_ffn_block_kernel_matches_plain_bf16(dev, n, p):
+    inputs, g = _ffn_inputs(dev, n, 64, 256)
+    inputs, g = tuple(t.bfloat16() for t in inputs), g.bfloat16()
+    seed = torch.tensor(31337, dtype=torch.int32, device=dev)
+    before = (tfb.ffn_block.launches_fwd, tfb.ffn_block.launches_bwd)
+    ok, gk = _fwd_bwd(lambda *a: tfb.ffn_block(*a, seed, p), inputs, g)
+    op, gp = _fwd_bwd(lambda *a: tfb.ffn_block_plain(*a, seed, p), inputs, g)
+    assert (tfb.ffn_block.launches_fwd, tfb.ffn_block.launches_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    assert ok.dtype == torch.bfloat16 and all(x.dtype == torch.bfloat16 for x in gk)
+    _close(ok, op, BF16_TOL, "out")
+    for name, x, y in zip(FFN_GRADS, gk, gp):
+        assert torch.isfinite(x).all(), name
+        _close(x, y, BF16_TOL, name)
+
+
+@pytest.mark.gpu
+def test_ffn_block_kernel_is_deterministic_in_bf16(dev):
+    (h, *ws), dout = _ffn_inputs(dev, 1000, 64, 128, seed=9)
+    h, ws, dout = h.bfloat16(), [w.bfloat16() for w in ws], dout.bfloat16()
+    seed = torch.tensor(9, dtype=torch.int32, device=dev)
+    g1 = tfb.ffn_backward_kernel(h, ws, dout, seed, 0.1)
+    g2 = tfb.ffn_backward_kernel(h, ws, dout, seed, 0.1)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+@pytest.mark.gpu
 def test_ffn_block_wrapper_rejects_what_the_kernel_does_not_take(dev):
     (h, *ws), _ = _ffn_inputs(dev, 40, 32, 64)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tfb.ffn_block(h.bfloat16(), *[w.bfloat16() for w in ws], 0, 0.0)
+    with pytest.raises(TypeError, match="like the input"):     # one dtype for every tensor
+        tfb.ffn_block(h.bfloat16(), *ws, 0, 0.0)
     (hw, *wide), _ = _ffn_inputs(dev, 8, 1028, 64)
     with pytest.raises(ValueError, match="d_model"):
         tfb.ffn_block(hw, *wide, 0, 0.0)
