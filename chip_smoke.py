@@ -131,21 +131,29 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
  20. runs ``apps/cli.py inference`` (the actor at full width, 150 tokens)
      and checks the MIDI file holds 150 notes;
  21. holds the latency kernels (csrc/latency_decode.cu: v8, one launch a
-     chunk, and v7, one a layer) against their plain twin (kernel B's plain
-     chunk) at B=1, 5 and 16, 32 teacher-forced tokens, greedy and CP
-     sampling with one seed: >= 99% of the tokens equal, with f32 weights
-     and state (state within 1e-4 of its magnitude) and with bf16 weights
-     and state; v7 and v8 bit-equal there and on whole 32-token calls; v8's
-     64 tokens in one call equal 2 x 32; a batch of 17 refused;
+     chunk, and v7, a graph of L + 2 launches a token) against their plain
+     twin (``latency_decode_plain``: JAX v8's bf16 rounding of the product
+     inputs and the embedding rows) at B=1, 5 and 16, 32 teacher-forced
+     tokens, greedy and CP sampling with one seed: >= 99% of the tokens
+     equal, with f32 weights and state (state within 1e-4 of its
+     magnitude), bf16 weights and f32 state (within 3e-4 of max|S|, kernel
+     B's gate) and bf16 weights and state; v7 and v8 bit-equal there and on
+     whole 32-token calls; v8's 64 tokens in one call equal 2 x 32; a batch
+     of 17 refused;
  22. runs ``apps/cli.py generate`` (8 bars, the bf16 default) with 1 and 5
      songs on the per-step path and under RLMG_LATENCY_DECODE=1 on v8 and
      (RLMG_LATENCY_KERNEL=v7) v7: MIDI files and runtime_stats.json
-     written, only the route's kernel launched; prints tokens/s of each;
+     written, only the route's kernel launched, at most 4 L + 2 grid
+     barriers a token position as the kernels count them, and at most one
+     v7 token graph instantiated in a run's calls; prints tokens/s of each;
  23. generates 64 tokens after a 100-token prompt (the parallel prefill)
      on the per-step (5 songs), chunked (128) and v8 (5) paths, and holds
      forward_prefill's state against 100 decode steps (1e-3 of magnitude);
- 24. times v8, v7, the plain twin and kernel A per token at B=1, 5 and 16
-     (bf16 weights and state) beside the bound;
+ 24. counts HMMA in the SASS of the bf16-weight latency kernels (> 0 in
+     each), and times v8, v7, the plain twin and kernel A per token at B=1,
+     5 and 16 (bf16 weights and state) beside the bound, with the grid
+     barriers a token the kernels counted (at most 4 L + 2) and the CUDA
+     launches a token;
  25. holds v3 (csrc/decode_aug.cu) against its plain twin at full width,
      8 heads of 64 at B=5 and 32 and one head of 512 at B=5, f32 and bf16
      weights, f32 augmented state, 32 teacher-forced tokens: h and the
@@ -635,11 +643,11 @@ def latency_slice(cfg, params, dev, gen) -> list:
     def plain(rp_, tok, st, t0, seed, n, greedy):
         k = kw(greedy)
         k.pop("vocab_sizes")
-        return dk6.chunk_decode_v4_plain(rp_, tok, st.s, st.z, t0, seed, max_tokens=n, **k)[0]
+        return dk8.latency_decode_plain(rp_, tok, st.s, st.z, t0, seed, max_tokens=n, **k)[0]
 
     # -- 21. both kernels against the plain twin, teacher-forced, 32 tokens --
-    errs = {}
-    for wdt, sdt in ((f32, f32), (bf16, bf16)):
+    errs, errs_bf16 = {}, {}
+    for wdt, sdt in ((f32, f32), (bf16, f32), (bf16, bf16)):
         for b in (1, 5, 16):
             toks = rand_tokens(32, b)
             for greedy in (True, False):
@@ -665,9 +673,13 @@ def latency_slice(cfg, params, dev, gen) -> list:
                 for v in (7, 8):
                     check(agree[v] / total >= 0.99, f"latency v{v} {tag}: agreement "
                                                     f"{agree[v] / total} < 99%")
-                if sdt == f32:
+                if sdt == f32 and wdt == f32:
                     check(ds <= 1e-4 * max(1.0, mag), f"latency {tag}: max|ds| {ds}")
                     errs[b] = max(errs.get(b, 0.0), ds)
+                elif sdt == f32:                # bf16 weights: kernel B's gate
+                    check(ds <= S_TC_TOL * max(1.0, mag), f"latency {tag}: max|ds| {ds} > "
+                                                           f"{S_TC_TOL} of max|s| {mag}")
+                    errs_bf16[b] = max(errs_bf16.get(b, 0.0), ds / max(1.0, mag))
     tok0 = rand_tokens(1, 5)[0]
     for greedy in (True, False):            # whole fed-back calls: v7 == v8, bit for bit
         st = {v: dk4.init_state(cfg, 5, bf16, dev) for v in (7, 8)}
@@ -703,7 +715,7 @@ def latency_slice(cfg, params, dev, gen) -> list:
     saved = {k: os.environ.pop(k, None) for k in knobs}
     counters = {"A": dk4.fused_stack_step, "B": dk6.fused_decode_v6, "v7": dk7.fused_decode_v7,
                 "v8": dk8.fused_decode_v8}
-    launches, per_token, rates = {}, {}, {}
+    launches, per_token, bar_token, rates = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for songs in (1, 5):
             for route, env in (("per-step", {}), ("v8", {"RLMG_LATENCY_DECODE": "1"}),
@@ -713,11 +725,13 @@ def latency_slice(cfg, params, dev, gen) -> list:
                     fn.launches = 0
                 for fn in (counters["v7"], counters["v8"]):
                     dk8.reset(fn)
+                dk8.barriers_passed(reset=True)
                 out = os.path.join(tmp, f"{route}-{songs}", "midis")
                 res = cli.main(["generate", "--songs", str(songs), "--bars", "8",
                                 "--max-tokens", "512", "--warmup", "--out-dir", out])
                 torch.cuda.synchronize()
                 counts = {k: fn.launches for k, fn in counters.items()}
+                n_bar = dk8.barriers_passed()
                 for k in env:
                     os.environ.pop(k)
                 rates[(route, songs)] = res["tokens_per_s"]
@@ -738,12 +752,28 @@ def latency_slice(cfg, params, dev, gen) -> list:
                       f"generate {route}: runtime_stats.json does not match the songs")
                 if songs == 5:
                     launches[route] = counts[mine]
-                if songs == 5 and route != "per-step":
-                    fn = counters[route]
+                if route == "per-step":
+                    check(n_bar == 0, f"generate per-step: {n_bar} latency barriers counted")
+                    continue
+                # the kernels' own count of the grid barriers they passed, and
+                # (v7) one token graph a shape serving every call of the run
+                fn = counters[route]
+                check(0 < n_bar <= (4 * L + 2) * fn.positions,
+                      f"generate {route} {songs} songs: {n_bar} grid barriers for "
+                      f"{fn.positions} token positions, above 4 L + 2 a position")
+                if route == "v7":
+                    check(fn.captures <= 1 < fn.launches,
+                          f"generate v7 {songs} songs: {fn.captures} token graphs "
+                          f"instantiated in {fn.launches} calls")
+                print(f"[generate] {route}, {songs} songs: {fn.cuda_launches} CUDA launches "
+                      f"and {n_bar} grid barriers (counted by the kernels) in {fn.launches} "
+                      f"calls for {fn.positions} token positions = "
+                      f"{fn.cuda_launches / fn.positions:.6g} launches and "
+                      f"{n_bar / fn.positions:.6g} barriers a position; token graphs "
+                      f"{fn.captures} instantiated, {fn.updates} updated", flush=True)
+                if songs == 5:
                     per_token[route] = fn.cuda_launches / fn.positions
-                    print(f"[generate] {route}, 5 songs: {fn.cuda_launches} CUDA launches in "
-                          f"{fn.launches} calls for {fn.positions} token positions = "
-                          f"{per_token[route]:.6g} launches a position", flush=True)
+                    bar_token[route] = n_bar / fn.positions
             print(f"[generate] {songs} songs, tokens/s: per-step (kernel A) "
                   f"{rates[('per-step', songs)]:.1f}, v8 {rates[('v8', songs)]:.1f}, v7 "
                   f"{rates[('v7', songs)]:.1f}", flush=True)
@@ -781,6 +811,22 @@ def latency_slice(cfg, params, dev, gen) -> list:
             os.environ[k] = v
 
     # -- 24. times per token, bf16 weights and state ---------------------------
+    # the bf16 products run on the tensor cores: HMMA in the SASS of the
+    # bf16-weight instantiations of v8's kernel and v7's layer and heads
+    # kernels (the f32-weight ones keep f32 FMAs)
+    from reinforcement_learning_in_music_generation_torch.ops import _build
+    cuobjdump = cuobjdump_path()
+    check(cuobjdump is not None, "cuobjdump not found (toolkit or Triton's copy)")
+    sass = subprocess.run([cuobjdump, "-sass", _build.build_all()["latency_decode"]],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-500:]}")
+    lat_mma = {k: n for k, n in mma_counts(sass.stdout, "latency_v").items()
+               if "sample" not in k}
+    print(f"[latency] HMMA instructions a kernel ({cuobjdump}): {lat_mma}", flush=True)
+    bf16_kernels = {k: n for k, n in lat_mma.items() if "kernelI13__nv_bfloat16" in k}
+    check(len(bf16_kernels) == 5 and all(n > 0 for n in bf16_kernels.values()),
+          f"latency: no tensor-core instructions in the bf16-weight kernels {bf16_kernels}")
+    design = dk8.barriers_per_token(L)        # the source's constant, printed beside
     T = 32
     dp16 = lt.make_decode_params(params, cfg, bf16)
     rows = {}
@@ -792,6 +838,14 @@ def latency_slice(cfg, params, dev, gen) -> list:
             row[v] = time_ms(lambda: kern[v](rp[bf16], tok, st.s, st.z, 0, 1, max_tokens=T,
                                              **kw(False)), 5) / T
         row["plain"] = time_ms(lambda: plain(rp[bf16], tok, st, 0, 1, 2, False), 2) / 2
+        for v in (7, 8):
+            dk8.reset(kern[v])
+            dk8.barriers_passed(reset=True)
+            kern[v](rp[bf16], tok, st.s, st.z, 0, 1, max_tokens=T, **kw(False))
+            row[f"launches{v}"] = kern[v].cuda_launches / kern[v].positions
+            row[f"barriers{v}"] = dk8.barriers_passed() / kern[v].positions
+            check(row[f"barriers{v}"] <= 4 * L + 2, f"latency v{v} B={b}: "
+                  f"{row[f'barriers{v}']} grid barriers a token > 4 L + 2")
         h = lt.embed_input(params, cfg, tok, 0, None).float()
         row["A"] = time_ms(lambda: dk4.fused_stack_step(dp16, h, st.s, st.z, n_head=H), 20)
         ops, nb = latency_work(b, T, L, D, DI, H, w_bytes=2, s_bytes=2)
@@ -802,7 +856,10 @@ def latency_slice(cfg, params, dev, gen) -> list:
         print(f"[time] latency B={b} (bf16 weights and state), ms a token: v8 {row[8]:.4f}, v7 "
               f"{row[7]:.4f}, plain twin {row['plain']:.3f}, kernel A (layer stack only) "
               f"{row['A']:.4f}; bound {row['bound']:.4f} ({row['by']}); v7's state traffic "
-              f"a token {row['state']:.4f}", flush=True)
+              f"a token {row['state']:.4f}; grid barriers a token counted by the kernels "
+              f"v8 {row['barriers8']:.4g}, v7 {row['barriers7']:.4g} (design {design}); CUDA "
+              f"launches a token v8 {row['launches8']:.4g}, v7 {row['launches7']:.4g} (v8's "
+              f"ring: {kern[8].slots} slots of 8 KB a block)", flush=True)
     pkg = "reinforcement_learning_in_music_generation_torch"
     tpu = "reinforcement_learning_in_music_generation_tpu/ops/experimental"
     entries = []
@@ -812,11 +869,14 @@ def latency_slice(cfg, params, dev, gen) -> list:
             "source": f"{pkg}/csrc/latency_decode.cu",
             "replaces": f"{tpu}/decode_kernel_v{v}.py:{line}", "launches": launches[f"v{v}"],
             "launches_per_token": per_token[f"v{v}"], "max_abs_err": max(errs.values()),
+            "max_ds_share_bf16_weights_f32_state": max(errs_bf16.values()),
+            "barriers_per_token": bar_token[f"v{v}"], "hmma": sum(bf16_kernels.values()),
             "ms": rows[5][v], "plain_ms": rows[5]["plain"], "bound_ms": rows[5]["bound"],
             "bound_by": rows[5]["by"], "library_ms": None, "kernel_a_ms": rows[5]["A"],
             "unit": "ms per token of B=5 songs, bf16 weights and state, 32-token calls",
             "by_batch": {str(b): {"ms": r[v], "plain_ms": r["plain"], "kernel_a_ms": r["A"],
-                                  "bound_ms": r["bound"], "bound_by": r["by"]}
+                                  "bound_ms": r["bound"], "bound_by": r["by"],
+                                  "barriers_per_token": r[f"barriers{v}"]}
                          for b, r in rows.items()},
             "tokens_per_s_generate": {str(s): rates[(f"v{v}", s)] for s in (1, 5)},
             "tokens_per_s_generate_per_step": {str(s): rates[("per-step", s)] for s in (1, 5)}}

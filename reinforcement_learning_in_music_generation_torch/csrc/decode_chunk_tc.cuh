@@ -82,20 +82,14 @@ using TileS = TcTile<64, 32, 4, 1, 6>;
 // times fewer than with TileS
 using TileL = TcTile<128, 128, 2, 4, 4>;
 
-// Programmatic dependent launch: every kernel of a token is launched with
-// programmatic stream serialization, lets the next kernel launch as soon
-// as all its own blocks run (griddep_launch), and waits for the previous
-// kernel's completion and memory (griddep_wait) before it reads anything
-// an earlier kernel wrote or writes anything at all.  A kernel's launch and
-// what it may do before the wait (the products prefetch their weight
-// tiles) overlap the previous kernel's tail.  Every kernel waits, so
-// completion is ordered transitively along the token.
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ __forceinline__ void griddep_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
+// Programmatic dependent launch (griddep_wait, griddep_launch in
+// tc_mma.cuh): every kernel of a token is launched with programmatic stream
+// serialization, lets the next kernel launch as soon as all its own blocks
+// run, and waits for the previous kernel's completion and memory before it
+// reads anything an earlier kernel wrote or writes anything at all.  A
+// kernel's launch and what it may do before the wait (the products
+// prefetch their weight tiles) overlap the previous kernel's tail.  Every
+// kernel waits, so completion is ordered transitively along the token.
 
 template <typename... KArgs, typename... Args>
 inline int pdl_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,

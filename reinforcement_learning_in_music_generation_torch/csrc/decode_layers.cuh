@@ -40,6 +40,11 @@ __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// x rounded to TW's precision (a product input cast to the weights' type)
+template <typename TW>
+__device__ __forceinline__ float ld_round(float x) {
+  return sizeof(TW) == 2 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
 
 __device__ __forceinline__ float phi(float x) { return x > 0.f ? x + 1.f : expf(fminf(x, 0.f)); }
 __device__ __forceinline__ float gelu_exact(float x) {

@@ -1,7 +1,9 @@
-// Tensor-core pieces shared by the bf16 decode route (decode_chunk_tc.cuh)
-// and the training products (train_gemm_tc.cuh): cp.async copies of 16
-// bytes into shared memory, ldmatrix fragment loads from it and the
-// m16n8k16 bf16 mma with f32 sums.  Plain C interface; no PyTorch headers.
+// Tensor-core pieces shared by the bf16 decode routes (decode_chunk_tc.cuh,
+// latency_decode.cu) and the training products (train_gemm_tc.cuh):
+// cp.async copies of 16 bytes into shared memory, TMA copies and the
+// mbarriers that count them, ldmatrix fragment loads, the m16n8k16 bf16
+// mma with f32 sums, and the programmatic-dependent-launch controls.  Plain C interface; no
+// PyTorch headers.
 
 #pragma once
 
@@ -34,6 +36,62 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem)
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
+// Copies by the Tensor Memory Accelerator into shared memory, counted by
+// an mbarrier: one thread announces a stage's bytes (mbar_expect_tx) and
+// issues its copies (tma_load_2d: a box of a tensor map; bulk_load:
+// contiguous bytes); a waiter of phase `parity` then sees them all.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// tmap: a CUtensorMap in kernel parameter (or constant, global) memory;
+// (x, y): the box's first column and row.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(tmap), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Orders this thread's earlier shared-memory accesses (and, after a block
+// barrier, the block's) before later TMA writes to the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Programmatic dependent launch: griddep_launch lets the next kernel of
+// the stream launch once every block of this one has called it (or ended);
+// griddep_wait waits for the previous kernel's completion and memory.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // c (16x8 f32) += a (16x16 bf16, row) b (16x8 bf16, col)
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(

@@ -29,10 +29,11 @@ the ``DecodeState`` layout.  Random bits come from Philox4x32-10 keyed by
 two calls emits the same tokens (chunk invariance, the JAX contract
 :33-43).  ``fused_decode_v6_plain``, the plain twin, has v6's arithmetic
 (each product's input rounded to the weights' type, f32 sums) and draws
-the same bits in torch integer ops (``decode_common.philox_bits``).
-``chunk_decode_v4_plain`` is the same chunk with v4's arithmetic (f32
-activations, the weights cast up): the twin of v8, v7 and v5, whose
-kernels compute that.
+the same bits in torch integer ops (``decode_common.philox_bits``).  JAX's
+v8, v7 and v5 round at the same five points, so it is also the twin of the
+port's v5 and, with the folded embedding rounded to the weights' type as
+JAX's v8 and v7 store it, of v8 and v7
+(``experimental/decode_kernel_v8.latency_decode_plain``).
 
 Bound on the H100 (details in the source): with bf16 weights at B=128 the
 products (1.29 TFLOP a 128-token call) take 1.30 ms at 989 TFLOP/s, but the
@@ -189,21 +190,11 @@ def fused_decode_v6_plain(v6p: V6Params, tok0, s, z, t0: int, seed: int, *,
                           greedy: bool = False, eps: float = DEFAULT_EPS):
     """The kernel's computation in PyTorch, token by token, with v6's
     arithmetic: each product's input activations rounded to the weights'
-    dtype, f32 sums (with f32 weights the rounding is a no-op and this is
-    ``chunk_decode_v4_plain``, bit for bit)."""
+    dtype, f32 sums (with f32 weights the rounding is a no-op: v4's
+    arithmetic, f32 activations)."""
     return _chunk_plain(v6p, tok0, s, z, t0, seed, n_head=n_head, max_tokens=max_tokens,
                         temps=temps, topps=topps, greedy=greedy, eps=eps,
                         round_to=v6p.head_w.dtype)
-
-
-def chunk_decode_v4_plain(v6p: V6Params, tok0, s, z, t0: int, seed: int, *,
-                          n_head: int, max_tokens: int, temps, topps,
-                          greedy: bool = False, eps: float = DEFAULT_EPS):
-    """The same chunk with v4's arithmetic: f32 activations, the weights
-    read in their stored dtype and cast up.  The plain twin of the v8, v7
-    and v5 kernels (``ops/experimental``), which compute that."""
-    return _chunk_plain(v6p, tok0, s, z, t0, seed, n_head=n_head, max_tokens=max_tokens,
-                        temps=temps, topps=topps, greedy=greedy, eps=eps, round_to=None)
 
 
 # -- the kernel ---------------------------------------------------------------

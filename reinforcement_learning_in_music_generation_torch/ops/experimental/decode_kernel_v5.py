@@ -4,10 +4,10 @@ counterpart of the JAX package's ``ops/experimental/decode_kernel_v5.py``
 
 Kernel: ``csrc/latency_decode.cu`` (``decode_v5_kernel``), hand-written CUDA
 for ``sm_90a``: one cooperative launch of one block per SM decodes all T
-tokens, the phases of ``decode_kernel_v8`` separated by grid barriers
-(embedding; per layer the qkv product, the state update and Wo product per
-(song, head), LN1, the two FFN products, LN2; then the heads, nucleus and
-Gumbel-max), with the f32 state in device memory in v5's layout, S (L, B,
+tokens, its own SIMT phases separated by grid barriers (embedding; per
+layer the qkv product in 64 x 64 tiles, the state update and Wo product
+per (song, head), LN1, the two FFN products, LN2; then the heads, nucleus
+and Gumbel-max), with the f32 state in device memory in v5's layout, S (L, B,
 E, H E) and z (L, B, H E), read and written every token.  ``bb`` (8, 16 or
 32, dividing B) is the number of songs a product item carries, the
 counterpart of the TPU kernel's bb-song state blocks; a ``bb`` that does
@@ -20,13 +20,15 @@ function keeps ``memb``; the padded heads; the layer stack), and the
 sampling is theirs: a 24-step bisection nucleus and Gumbel-max with
 Philox4x32-10 bits at counter (t, field, vocab index, song), t the token's
 index in the call.  The TPU's ``prng_random_bits`` stream is not
-reproduced; JAX's v5 differs from its XLA sampler in the same way.
-Activations stay f32 where the TPU kernel casts them to the weights'
-type before each product.
+reproduced; JAX's v5 differs from its XLA sampler in the same way.  As
+JAX's v5, the kernel rounds each product's input activations to the
+weights' type (qkv, Wo, FFN1, FFN2, heads; JAX :276, :329, :335, :338,
+:382) and sums in f32; M stays f32.
 
-Plain twin: ``fused_decode_v5_plain``, kernel B's plain chunk
-in v4's arithmetic (``decode_kernel_v6.chunk_decode_v4_plain``) on the unpacked state, with
-``pe_rows`` as its positional table and 0 as its first position.
+Plain twin: ``fused_decode_v5_plain``, kernel B's plain chunk in v6's
+arithmetic (``decode_kernel_v6.fused_decode_v6_plain``, the same five
+roundings, M in f32) on the unpacked state, with ``pe_rows`` as its
+positional table and 0 as its first position.
 
 ``RLMG_V5_ABLATE`` (the kernel only, for attributing its time; the output
 is garbage under it, as in JAX :65-69): ``state`` streams each layer's
@@ -46,7 +48,7 @@ import torch
 
 from ..decode_kernel_v4 import _check_inputs, layer_weights
 from ..decode_kernel_v6 import (V6Params, _check_v6, _cuda_or_raise, _field_arrays,
-                                argmax_first, chunk_decode_v4_plain, nucleus_keep)
+                                argmax_first, fused_decode_v6_plain, nucleus_keep)
 from ..linear_attention import DEFAULT_EPS
 from .decode_kernel_v8 import TILE, _lib, make_resident_params
 
@@ -89,12 +91,14 @@ def fused_decode_v5_plain(v5p: V5Params, tok0: torch.Tensor, s5: torch.Tensor,
                           z5: torch.Tensor, pe_rows: torch.Tensor, seed: int, *, n_head: int,
                           max_tokens: int, temps: Sequence[float], topps: Sequence[float],
                           greedy: bool = False, eps: float = DEFAULT_EPS):
-    """The kernel's computation in PyTorch: ``chunk_decode_v4_plain`` on the
+    """The kernel's computation in PyTorch: ``fused_decode_v6_plain`` (JAX
+    v5's arithmetic: each product's input activations rounded to the
+    weights' dtype, f32 sums, the folded embedding M in f32) on the
     unpacked state, pe row and Philox position t for the t-th fed token.
     s5, z5 are updated in place."""
     s, z = unpack_state(s5, z5, n_head)
     s, z = s.contiguous(), z.contiguous()
-    toks, s, z = chunk_decode_v4_plain(v5p._replace(pe=pe_rows.float()), tok0, s, z, 0, seed,
+    toks, s, z = fused_decode_v6_plain(v5p._replace(pe=pe_rows.float()), tok0, s, z, 0, seed,
                                        n_head=n_head, max_tokens=max_tokens, temps=temps,
                                        topps=topps, greedy=greedy, eps=eps)
     ps, pz = pack_state(s, z)

@@ -8,21 +8,25 @@
 # 128-token call of kernel B with bf16 weights at B = 128 and 1024
 # (agent_config width, random bf16 weights and state, CUDA events after a
 # warm call), in turns A, B, B, A, twice, so that neither side always runs
-# first.  Prints the card and one line per run.
+# first.  Prints the card and one line per run.  With a third argument
+# `latency`, the generate runs are instead 1 and 5 songs on the latency
+# path with its default bf16 weights, on v8 and (RLMG_LATENCY_KERNEL=v7)
+# on v7.  AB_REPS (default 2) sets the rounds of A, B, B, A.
 #
-#   bash scripts/ab_torch_generate.sh <checkout A> <checkout B>
+#   bash scripts/ab_torch_generate.sh <checkout A> <checkout B> [latency]
 #
 # Each checkout builds its own kernels into its build/torch_kernels/.
 set -u
 a=$1
 b=$2
+mode=${3:-all}
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-run() {  # checkout songs max_tokens dtype [latency]
-  (cd "$1" && RLMG_LATENCY_DECODE=${5:-0} \
+run() {  # checkout songs max_tokens dtype [latency [kernel]]
+  (cd "$1" && RLMG_LATENCY_DECODE=${5:-0} RLMG_LATENCY_KERNEL=${6:-v8} \
      python -m reinforcement_learning_in_music_generation_torch.apps.cli generate \
      --songs "$2" --bars 8 --max-tokens "$3" --dtype "$4" --warmup \
      --out-dir "${TMPDIR:-/tmp}/ab_generate/m" 2>&1 | grep "ave token time" \
-     | sed "s|^|$1 songs=$2 $4 latency=${5:-0}: |")
+     | sed "s|^|$1 songs=$2 $4 latency=${5:-0} ${6:-}: |")
 }
 per_token() {  # checkout: the package is imported from it (python's cwd)
   (cd "$1" && python3 - <<'EOF' | sed "s|^|$1 ms a token: |"
@@ -74,12 +78,19 @@ print(" | ".join(out))
 EOF
   )
 }
-for rep in 1 2; do
+for rep in $(seq "${AB_REPS:-2}"); do
   for tree in "$a" "$b" "$b" "$a"; do
-    run "$tree" 128 256 bfloat16
-    run "$tree" 128 256 float32
-    run "$tree" 5 512 float32
-    run "$tree" 5 512 float32 1
+    if [ "$mode" = latency ]; then
+      for songs in 1 5; do
+        run "$tree" "$songs" 512 bfloat16 1 v8
+        run "$tree" "$songs" 512 bfloat16 1 v7
+      done
+    else
+      run "$tree" 128 256 bfloat16
+      run "$tree" 128 256 float32
+      run "$tree" 5 512 float32
+      run "$tree" 5 512 float32 1
+    fi
     per_token "$tree"
   done
 done

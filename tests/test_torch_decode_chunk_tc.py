@@ -5,8 +5,8 @@ With bf16 weights kernel B (``csrc/decode_chunk.cu`` + ``decode_chunk_tc.cuh``)
 computes JAX v6's arithmetic: every product's input activations are rounded
 to the weights' type, the sums stay f32 (JAX ``ops/decode_kernel_v6.py``
 :255, :286, :292, :296, :331).  Its plain twin ``fused_decode_v6_plain``
-does the same; ``chunk_decode_v4_plain`` keeps v4's arithmetic (f32
-activations) for v8, v7 and v5, whose kernels compute that.  The kernel
+does the same, and so do the twins of v8, v7 and v5, which round where
+JAX's v8, v7 and v5 round (v8 and v7 also the folded embedding).  The kernel
 itself runs only on a card (``tests/test_torch_kernels_gpu.py``,
 ``chip_smoke.py`` phase 2b); here the twins are held against the JAX
 package: a JAX composition of v6's products from the JAX ``make_v6_params``,
@@ -69,17 +69,29 @@ def _state(seed, b, dtype=torch.float32):
 
 @pytest.mark.parametrize("greedy", [True, False])
 def test_f32_weights_keep_the_twin_bit_for_bit(both, greedy):
-    """(a) With f32 weights v6's casts are no-ops: the v6 twin and the v4
-    twin give the same tokens and state, bit for bit (0 tolerance)."""
+    """(a) With f32 weights v6's casts are no-ops: the v6 twin equals v4's
+    arithmetic composed from the plain per-token pieces (embedding, the
+    unrounded layer stack, heads and sampling), and so does the latency
+    twin, whose embedding rounding is a no-op too: same tokens and state,
+    bit for bit (0 tolerance)."""
     _, tp = both
     tv = tdk6.make_v6_params(tp, TCFG, dtype=torch.float32)
     tok0 = torch.from_numpy(_tokens(1, 1, 4)[0])
     mode = GREEDY if greedy else CP
     s1, z1 = _state(2, 4)
     s2, z2 = s1.clone(), z1.clone()
+    s3, z3 = s1.clone(), z1.clone()
     a, _, _ = tdk6.fused_decode_v6_plain(tv, tok0, s1, z1, 3, 9, n_head=2, max_tokens=6, **mode)
-    b, _, _ = tdk6.chunk_decode_v4_plain(tv, tok0, s2, z2, 3, 9, n_head=2, max_tokens=6, **mode)
+    c, _, _ = tdk8.latency_decode_plain(tv, tok0, s3, z3, 3, 9, n_head=2, max_tokens=6, **mode)
+    tok, rows = tok0, []
+    for t in range(6):
+        h, s2, z2 = tdk4.fused_stack_step_plain(tv.layers, tdk6.embed_plain(tv, tok, 3 + t), s2,
+                                                z2, n_head=2)
+        tok = tdk6.heads_sample_plain(tv, h, seed=9, pos=3 + t, **mode)
+        rows.append(tok)
+    b = torch.stack(rows)
     assert torch.equal(a, b) and torch.equal(s1, s2) and torch.equal(z1, z2)
+    assert torch.equal(c, b) and torch.equal(s3, s2) and torch.equal(z3, z2)
 
 
 def _jax_v6_step(jv, tok, s, z, pos, n_head, eps):
@@ -188,33 +200,40 @@ def _count(monkeypatch, module, name):
 
 
 def test_latency_and_v5_wrappers_keep_the_v4_arithmetic_twin(both, monkeypatch):
-    """(d) On the CPU v8, v7 and v5 reach chunk_decode_v4_plain (their
-    kernels keep v4's arithmetic) and kernel B does not; with bf16 weights
-    their tokens and state equal that twin's bit for bit, while kernel B's
-    twin rounds its product inputs and ends in another state."""
+    """(d) On the CPU v8 and v7 reach latency_decode_plain and v5 reaches
+    fused_decode_v6_plain: with bf16 weights all three round their product
+    inputs as kernel B's twin does (JAX's v8, v7 and v5 do), and none keeps
+    v4's arithmetic.  v5's tokens and state equal kernel B's twin bit for
+    bit (M stays f32 in both); v8's and v7's equal it on embedding rows
+    rounded to bf16, and end in another state than v4's arithmetic."""
     _, tp = both
     rp = tdk8.make_resident_params(tp, TCFG, dtype=BF16)
     tok0 = torch.from_numpy(_tokens(4, 1, 8)[0])     # v5 takes batches of 8
     kw = dict(n_head=2, max_tokens=4, vocab_sizes=VOCAB, eps=CFG.attn_eps, **CP)
-    ref_s, ref_z = _state(5, 8)
-    ref, _, _ = tdk6.chunk_decode_v4_plain(rp, tok0, ref_s, ref_z, 0, 13, n_head=2, max_tokens=4,
-                                           eps=CFG.attn_eps, **CP)
-    calls = {m.__name__: _count(monkeypatch, m, "chunk_decode_v4_plain")
-             for m in (tdk5, tdk7, tdk8, tdk6)}
+    twin = dict(n_head=2, max_tokens=4, eps=CFG.attn_eps, **CP)
+    lat_s, lat_z = _state(5, 8)
+    lat, _, _ = tdk6.fused_decode_v6_plain(rp._replace(m=rp.m.to(BF16).float()), tok0, lat_s,
+                                           lat_z, 0, 13, **twin)
+    v5_s, v5_z = _state(5, 8)
+    v5_ref, _, _ = tdk6.fused_decode_v6_plain(rp, tok0, v5_s, v5_z, 0, 13, **twin)
+    v4_s, v4_z = _state(5, 8)
+    tdk6._chunk_plain(rp, tok0, v4_s, v4_z, 0, 13, round_to=None, greedy=False, **twin)
+    calls = {"v8": _count(monkeypatch, tdk8, "latency_decode_plain"),
+             "v7": _count(monkeypatch, tdk7, "latency_decode_plain"),
+             "v5": _count(monkeypatch, tdk5, "fused_decode_v6_plain")}
     for fn in (tdk8.fused_decode_v8, tdk7.fused_decode_v7):
         s, z = _state(5, 8)
         out, _, _ = fn(rp, tok0, s, z, 0, 13, **kw)
-        assert torch.equal(out, ref) and torch.equal(s, ref_s) and torch.equal(z, ref_z)
+        assert torch.equal(out, lat) and torch.equal(s, lat_s) and torch.equal(z, lat_z)
+        assert not torch.equal(s, v4_s)
     s, z = _state(5, 8)
     s5, z5 = tdk5.pack_state(s, z)
     v5p = tdk5.make_v5_params(tp, TCFG)
     out, s5, z5 = tdk5.fused_decode_v5(v5p, tok0, s5, z5, v5p.pe[:4].contiguous(), 13, **kw)
     s5u, z5u = tdk5.unpack_state(s5, z5, 2)
-    assert torch.equal(out, ref) and torch.equal(s5u, ref_s) and torch.equal(z5u, ref_z)
-    assert [len(calls[m.__name__]) for m in (tdk8, tdk7, tdk5)] == [1, 1, 1]
-    s, z = _state(5, 8)
-    tdk6.fused_decode_v6(rp, tok0, s, z, 0, 13, **kw)
-    assert not calls[tdk6.__name__] and not torch.equal(s, ref_s)
+    assert torch.equal(out, v5_ref) and torch.equal(s5u, v5_s) and torch.equal(z5u, v5_z)
+    assert not torch.equal(s5u, v4_s)
+    assert [len(calls[k]) for k in ("v8", "v7", "v5")] == [1, 1, 1]
 
 
 @pytest.mark.parametrize("d_model,n_head,d_inner,ok", [

@@ -1,22 +1,28 @@
 """The port's batch-major persistent decode (``ops/experimental/decode_kernel_v5.py``)
 against the JAX package, on the CPU.
 
-JAX's v5 kernel has no interpret mode (a nested ``emit_pipeline``; its test
-file's docstring), so, as in the JAX ``scripts/profile_decode_v5.py``, its
-parity reference is the JAX XLA greedy path (``generate_tokens(greedy=True,
-fused=False)``) and the plain ``decode_step`` state; the pieces the kernel is
-built from are held against JAX ``decode_kernel_v5``'s, on the cases of the
-JAX package's ``tests/test_decode_kernel_v5.py``.  The wrapper takes its
+JAX's v5 kernel has no interpret mode of its own (its nested
+``emit_pipeline`` asks the device for its TPU generation, which the CPU
+lacks), so, as in the JAX ``scripts/profile_decode_v5.py``, the f32 parity
+reference is the JAX XLA greedy path (``generate_tokens(greedy=True,
+fused=False)``) and the plain ``decode_step`` state; with bf16 weights the
+twin is held against JAX ``fused_decode_v5`` itself under
+``pltpu.force_tpu_interpret_mode()``, with the pipeline's generation lookup
+answered by the test.  The pieces the kernel is built from are held against
+JAX ``decode_kernel_v5``'s, on the cases of the JAX package's
+``tests/test_decode_kernel_v5.py``.  The wrapper takes its
 plain twin for CPU tensors; ``tests/test_torch_kernels_gpu.py`` holds the
 kernel against it on a card."""
 
 import importlib
 
 import jax
+import jax._src.pallas.mosaic.pipeline as jax_pipeline
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from reinforcement_learning_in_music_generation_torch import config as TC
 from reinforcement_learning_in_music_generation_torch import weights as tw
@@ -28,6 +34,7 @@ from reinforcement_learning_in_music_generation_torch.ops.experimental import (
     decode_kernel_v5 as tdk5)
 from reinforcement_learning_in_music_generation_tpu import config as C
 from reinforcement_learning_in_music_generation_tpu.generate import sampler as jsam
+from reinforcement_learning_in_music_generation_tpu.models import common as jcm
 from reinforcement_learning_in_music_generation_tpu.models import linear_transformer as lt
 from reinforcement_learning_in_music_generation_tpu.ops import sampling as jsmp
 
@@ -184,6 +191,48 @@ def test_plain_v5_samples_in_range_and_equals_kernel_b_plain(both):
                                      eps=CFG.attn_eps)
     assert torch.equal(toks, ref)
     assert torch.equal(tdk5.unpack_state(s5, z5, 2)[0], s)
+
+
+# bf16 weights: max|ds| / max|s| after one token against JAX's v5; the
+# reason and the measurements are those of test_torch_latency_decode's
+# BF16_STATE_TOL (repaired twin 3.0e-4 to 4.5e-4 on numpy seeds 1-4, v4's
+# arithmetic 1.1e-3 to 1.4e-3).
+BF16_STATE_TOL = 6e-4
+
+
+def test_bf16_weights_match_jax_v5_interpret(both, monkeypatch):
+    """bf16 weights, f32 state, B=64, bb=8, one greedy teacher-forced token
+    from a state seeded with 3 tokens: the wrapper on CPU tensors (the twin:
+    product inputs rounded to bf16, M in f32) and JAX fused_decode_v5 in TPU
+    interpret mode on make_v5_params(..., dtype=bf16) end in states within
+    BF16_STATE_TOL of max|s|, and >= 99% of the greedy tokens are equal."""
+    jp, tp = both
+    b = 64
+    rng = np.random.default_rng(1)
+    toks = np.stack([rng.integers(0, v, size=(b, 4)) for v in VOCAB], -1).astype(np.int32)
+    js = lt.init_decode_state(CFG, b)
+    ts = tlt.init_decode_state(TCFG, b, device="cpu")
+    for i in range(3):
+        _, js = lt.decode_step(jp, CFG, jnp.asarray(toks[:, i]), js)
+        _, ts = tlt.decode_step(tp, TCFG, torch.from_numpy(toks[:, i]), ts)
+    pe = jcm.sinusoidal_table(CFG.max_len, CFG.d_model, jnp.float32)
+    monkeypatch.setattr(jax_pipeline, "_get_tpu_generation", lambda: 5)
+    js5, jz5 = dk5.pack_state(js.s, js.z)
+    with pltpu.force_tpu_interpret_mode():
+        jt, js5, _ = dk5.fused_decode_v5(dk5.make_v5_params(jp, CFG, dtype=jnp.bfloat16),
+                                         jnp.asarray(toks[:, -1]), js5, jz5, pe[3:4],
+                                         jnp.int32(1), n_head=2, max_tokens=1, bb=8,
+                                         vocab_sizes=VOCAB, **GREEDY)
+    tv = tdk5.make_v5_params(tp, TCFG, dtype=torch.bfloat16)
+    s5, z5 = tdk5.pack_state(ts.s, ts.z)
+    pe_rows = torch.from_numpy(np.array(pe[3:4]))
+    ours, s5, _ = tdk5.fused_decode_v5(tv, torch.from_numpy(toks[:, -1]), s5, z5, pe_rows, 1,
+                                       n_head=2, max_tokens=1, bb=8, vocab_sizes=VOCAB,
+                                       eps=CFG.attn_eps, **GREEDY)
+    ref = np.asarray(js5)
+    ds = np.abs(s5.numpy() - ref).max() / np.abs(ref).max()
+    assert ds <= BF16_STATE_TOL, ds
+    assert (ours.numpy() == np.asarray(jt)).mean() >= 0.99
 
 
 @pytest.mark.parametrize("b,bb", [(8, 16), (12, 8), (16, 4), (32, 24)])

@@ -3,10 +3,12 @@
 against the JAX package, on the CPU.
 
 The CUDA kernel cannot run here: the wrappers take their plain twin
-(``decode_kernel_v6.fused_decode_v6_plain``) for CPU tensors, and that is
+(``decode_kernel_v8.latency_decode_plain``) for CPU tensors, and that is
 what is held against the JAX Pallas kernels run in TPU interpret mode
 (``pltpu.force_tpu_interpret_mode``), at the small config of the JAX
-package's ``tests/test_decode_kernel_v8.py``.  ``tests/test_torch_kernels_gpu.py``
+package's ``tests/test_decode_kernel_v8.py``: with f32 weights, and with
+bf16 weights, where JAX's v8 and v7 round each product's input and the
+folded embedding to bf16.  ``tests/test_torch_kernels_gpu.py``
 holds the kernels against the twin on a card."""
 
 import jax
@@ -119,6 +121,40 @@ def test_greedy_chunk_matches_jax_interpret(both, version):
     js_ref, jz_ref = dk8.unpack_state_pair(js4, jz4)
     np.testing.assert_allclose(s.numpy(), np.asarray(js_ref), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(z.numpy(), np.asarray(jz_ref), rtol=1e-5, atol=1e-5)
+
+
+# bf16 weights: max|ds| / max|s| after one token.  The twin rounds where JAX
+# rounds, but its f32 sums run in another order, so a product input near a
+# bf16 rounding boundary can round the other way (a step of 2^-8 of it):
+# 3.0e-4 to 4.5e-4 on numpy seeds 1-4; v4's arithmetic (f32 product inputs,
+# f32 embedding rows) is 1.1e-3 to 1.75e-3 away.
+BF16_STATE_TOL = 6e-4
+
+
+@pytest.mark.parametrize("version", ["v8", "v7"])
+def test_bf16_weights_match_jax_arithmetic(both, version):
+    """bf16 weights, f32 state, B=64, one greedy teacher-forced token from a
+    state seeded with 3 tokens: the wrapper on CPU tensors (the twin) and
+    the JAX Pallas kernel in TPU interpret mode on make_resident_params(...,
+    dtype=bf16) end in states within BF16_STATE_TOL of max|s|, and >= 99%
+    of the greedy tokens are equal."""
+    jp, tp = both
+    toks, js, ts = _seeded(jp, tp, b=64)
+    pe = jcm.sinusoidal_table(CFG.max_len, CFG.d_model, jnp.float32)
+    jr = dk8.make_resident_params(jp, CFG, pe, dtype=jnp.bfloat16)
+    s4, z4 = dk8.pack_state_pair(js.s, js.z)
+    with pltpu.force_tpu_interpret_mode():
+        jt, js4, jz4 = JAXK[version](
+            jr, jnp.asarray(toks[:, -1]).T, s4, z4, jnp.int32(3), jnp.int32(42),
+            n_head=CFG.n_head, max_tokens=1, vocab_sizes=VOCAB, **GREEDY)
+    tr = tdk8.make_resident_params(tp, TCFG, dtype=torch.bfloat16)
+    s, z = ts.s.clone(), ts.z.clone()
+    ours, s, z = PORT[version](tr, torch.from_numpy(toks[:, -1]), s, z, 3, 42, n_head=2,
+                               max_tokens=1, vocab_sizes=VOCAB, eps=CFG.attn_eps, **GREEDY)
+    js_ref = np.asarray(dk8.unpack_state_pair(js4, jz4)[0])
+    ds = np.abs(s.numpy() - js_ref).max() / np.abs(js_ref).max()
+    assert ds <= BF16_STATE_TOL, ds
+    assert (ours.numpy() == np.asarray(jt).transpose(0, 2, 1)).mean() >= 0.99
 
 
 @pytest.mark.parametrize("version", ["v8", "v7"])
