@@ -211,6 +211,9 @@ BF16_FLOPS = 989e12            # bf16 products with f32 sums, tensor cores, dens
 # kernels D and G on f32 tensors: each product as six bf16 products (the
 # operands split into three bf16 planes) on the tensor cores
 SPLIT_BF16_FLOPS = BF16_FLOPS / 6
+# kernel A and v3 with bf16 weights: each product as three bf16 products
+# (the f32 activations split into three planes, the weight exact in one)
+SPLIT3_BF16_FLOPS = BF16_FLOPS / 3
 # kernels D and G on bf16 tensors against their twins: every tensor within
 # this share of its magnitude, twice the bf16 rounding step (2^-8) at it
 BF16_TOL = 2 ** -7
@@ -284,6 +287,80 @@ def cuobjdump_path():
     except ImportError:
         pass
     return next((c for c in cands if c and os.path.exists(c)), None)
+
+
+def kernel_union_ms(prof) -> float:
+    """Length of the union of the device kernels' intervals of a
+    torch.profiler run (its Chrome trace), in ms."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and "dur" in e)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def token_graph_window(sampler, params, cfg, dev, b=5, steps=64) -> dict:
+    """A warm window of the per-step path's token graph under torch.profiler:
+    ``generate_tokens(fused, fused_sampling)`` at b songs for ``steps``
+    tokens (one eager prompt step, then a graph replay a token), after one
+    untraced call that captures the graph.  Returns the wall and device
+    times, the busy share (the kernels' union over the wall), the host's
+    launch calls (runtime or driver launches and graph launches, counted by
+    the profiler) a token, the replays and the captures in the window, and
+    the runs of the token kernel (A, or v3 at odd heads) as the kernel counts
+    them beside the wrapper's eager launches; and the device memory the
+    untraced call left allocated, which its cached token graph holds (its
+    weights, buffers and graph pool), when that call captured."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        decode_kernel_v3 as dk3, decode_kernel_v4 as dk4)
+    kern = dk4 if cfg.n_head % 2 == 0 else dk3
+    init = torch.tensor([[sampler.CP_SEED]], dtype=torch.int32,
+                        device=dev).expand(b, 1, FIELDS).contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def run():
+        return sampler.generate_tokens(params, cfg, init, generator=gen, max_tokens=steps,
+                                       fused=True, fused_sampling=True)
+
+    torch.cuda.synchronize()
+    m0, c0 = torch.cuda.memory_allocated(), sampler.generate_tokens.graph_captures
+    run()
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - m0
+            if sampler.generate_tokens.graph_captures > c0 else None)
+    r0, c0 = sampler.generate_tokens.graph_replays, sampler.generate_tokens.graph_captures
+    kern.kernel_runs(reset=True)
+    eager0 = kern.fused_stack_step.launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ka = prof.key_averages()
+    host = {ev.key: ev.count for ev in ka if ev.device_type == torch.autograd.DeviceType.CPU
+            and re.match(r"cu(da)?(Graph)?Launch", ev.key)}
+    dev_ms = sum(ev.self_device_time_total for ev in ka
+                 if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    kernels = sum(ev.count for ev in ka if ev.device_type == torch.autograd.DeviceType.CUDA)
+    union = kernel_union_ms(prof)
+    tokens = steps + 1
+    return dict(wall_ms=wall, device_ms=dev_ms, union_ms=union, busy=union / wall,
+                device_kernels=kernels, host_launches=sum(host.values()),
+                host_launches_per_token=sum(host.values()) / tokens, host_calls=host,
+                replays=sampler.generate_tokens.graph_replays - r0,
+                captures=sampler.generate_tokens.graph_captures - c0, tokens=tokens,
+                kernel_runs=kern.kernel_runs(),
+                eager_launches=kern.fused_stack_step.launches - eager0, graph_bytes=held)
 
 
 def max_err(a, b) -> float:
@@ -713,6 +790,8 @@ def latency_slice(cfg, params, dev, gen) -> list:
     # -- 22. cli generate on the latency path, beside the per-step path ------
     knobs = ("RLMG_LATENCY_DECODE", "RLMG_LATENCY_KERNEL")
     saved = {k: os.environ.pop(k, None) for k in knobs}
+    # A's count is its runs as the kernel counts them (its wrapper sees only
+    # the eager calls, not the token graph's replays)
     counters = {"A": dk4.fused_stack_step, "B": dk6.fused_decode_v6, "v7": dk7.fused_decode_v7,
                 "v8": dk8.fused_decode_v8}
     launches, per_token, bar_token, rates = {}, {}, {}, {}
@@ -726,11 +805,13 @@ def latency_slice(cfg, params, dev, gen) -> list:
                 for fn in (counters["v7"], counters["v8"]):
                     dk8.reset(fn)
                 dk8.barriers_passed(reset=True)
+                dk4.kernel_runs(reset=True)
                 out = os.path.join(tmp, f"{route}-{songs}", "midis")
                 res = cli.main(["generate", "--songs", str(songs), "--bars", "8",
                                 "--max-tokens", "512", "--warmup", "--out-dir", out])
                 torch.cuda.synchronize()
                 counts = {k: fn.launches for k, fn in counters.items()}
+                counts["A"] = dk4.kernel_runs()        # graph replays included
                 n_bar = dk8.barriers_passed()
                 for k in env:
                     os.environ.pop(k)
@@ -785,16 +866,19 @@ def latency_slice(cfg, params, dev, gen) -> list:
                                   ("v8", 5, {"RLMG_LATENCY_DECODE": "1"}, dk8.fused_decode_v8)):
         os.environ.update(env)
         fn.launches = 0
+        dk4.kernel_runs(reset=True)
         gcfg = C.GenerateConfig(batch_size=songs, max_tokens=64, bar_production=None,
                                 token_count=64, seed=3)
         out = sampler.generate_songs(params, cfg, gcfg, init=prompt)
         torch.cuda.synchronize()
+        # the per-step path's token graph replays A: its runs as A counts them
+        n = dk4.kernel_runs() if fn is dk4.fused_stack_step else fn.launches
         for k in env:
             os.environ.pop(k)
         ok = all(s.shape == (164, FIELDS) and (s[:100] == prompt).all() for s in out)
         print(f"[prefill] 100-token prompt, {songs} songs on the {route} path: "
-              f"{'ok' if ok else 'WRONG'} ({fn.launches} kernel calls)", flush=True)
-        check(ok and len(out) == songs and fn.launches > 0, f"prefill on the {route} path")
+              f"{'ok' if ok else 'WRONG'} ({n} kernel launches)", flush=True)
+        check(ok and len(out) == songs and n > 0, f"prefill on the {route} path")
     x = rand_tokens(100, 5).transpose(0, 1).contiguous()
     _, pst = lt.forward_prefill(params, cfg, x)
     scan = lt.init_decode_state(cfg, 5, device=dev)
@@ -847,7 +931,9 @@ def latency_slice(cfg, params, dev, gen) -> list:
             check(row[f"barriers{v}"] <= 4 * L + 2, f"latency v{v} B={b}: "
                   f"{row[f'barriers{v}']} grid barriers a token > 4 L + 2")
         h = lt.embed_input(params, cfg, tok, 0, None).float()
-        row["A"] = time_ms(lambda: dk4.fused_stack_step(dp16, h, st.s, st.z, n_head=H), 20)
+        wa = dk4.workspace(dp16, b)
+        row["A"] = time_ms(lambda: dk4.fused_stack_step(None, h, st.s, st.z, n_head=H,
+                                                        work=wa), 20)
         ops, nb = latency_work(b, T, L, D, DI, H, w_bytes=2, s_bytes=2)
         bd, row["by"] = bound(nb, ops, BF16_FLOPS)
         row["bound"] = bd / T
@@ -929,68 +1015,99 @@ def aug_slice(cfg, params, dev, gen) -> list:
         return {k: {kk: vv[li] for kk, vv in v.items()} for k, v in p["layers"].items()}
 
     # -- 25. v3 against its plain twin, 32 teacher-forced tokens -------------
-    v3_err = 0.0
+    # v3's state is f32 whatever the weights, so every case is held to h and
+    # state within 1e-4 of their magnitude.  A control, A's twin on the same
+    # weights and tokens with every product's input rounded to bf16 (v6's
+    # arithmetic), against the same twin unrounded, must end above that
+    # gate: the gate tells f32-grade activations from rounded ones.
+    dps = {w: lt.make_decode_params(params, cfg, w) for w in (f32, bf16)}
+    v3_err, v3_share, v3_ctrl = 0.0, 0.0, float("inf")
     for c, b, wdt in ((cfg, 5, f32), (cfg, 32, f32), (cfg, 5, bf16), (cfg, 32, bf16),
-                      (cfg1, 5, f32), (cfg1, 5, bf16)):
+                      (cfg, 128, bf16), (cfg1, 5, f32), (cfg1, 5, bf16), (cfg1, 32, bf16)):
         vp = v3p[(c.n_head, wdt)]
+        w3 = dk3.workspace(vp, b)
         sk, sp = dk3.init_aug_state(c, b, dev), dk3.init_aug_state(c, b, dev)
+        sa, sc = dk4.init_state(c, b, f32, dev), dk4.init_state(c, b, f32, dev)
         toks = rand_tokens(32, b)
-        h_err, h_abs, agree = 0.0, 0.0, 0
+        h_err, h_abs, c_err, agree = 0.0, 0.0, 0.0, 0
         for t in range(32):
             h0 = lt.embed_input(params, c, toks[t], t, None).float()
-            hk, _ = dk3.fused_stack_step(vp, h0, sk, n_head=c.n_head, eps=c.attn_eps)
+            hk, _ = dk3.fused_stack_step(None, h0, sk, n_head=c.n_head, eps=c.attn_eps, work=w3)
             hp, _ = dk3.fused_stack_step_plain(vp, h0, sp, n_head=c.n_head, eps=c.attn_eps)
+            ha, _, _ = dk4.fused_stack_step_plain(dps[wdt], h0, sa.s, sa.z, n_head=c.n_head,
+                                                  eps=c.attn_eps)
+            hc, _, _ = dk4.fused_stack_step_plain(dps[wdt], h0, sc.s, sc.z, n_head=c.n_head,
+                                                  eps=c.attn_eps, round_to=bf16)
             h_abs = max(h_abs, max_err(hk, hp))
             h_err = max(h_err, max_err(hk, hp) / magnitude(hp))
+            c_err = max(c_err, max_err(hc, ha) / magnitude(ha))
             agree += (greedy_next(hk) == greedy_next(hp)).sum().item()
         torch.cuda.synchronize()
         s_err = max_err(sk, sp) / magnitude(sp)
+        c_s = max_err(sc.s, sa.s) / magnitude(sa.s)
         frac = agree / (32 * b * FIELDS)
         tag = f"{c.n_head} head(s) of {D // c.n_head}, B={b}, weights {str(wdt)[6:]}"
         print(f"[v3] {tag}: max|dh| / magnitude {h_err:.3e} (max|dh| {h_abs:.3e}), max|ds| / "
               f"magnitude {s_err:.3e} (max|s| {sp.abs().max().item():.3e}); greedy agreement "
-              f"{frac:.4%}", flush=True)
-        if wdt == f32:
-            check(h_err <= 1e-4 and s_err <= 1e-4, f"v3 {tag}: h {h_err}, state {s_err}")
-            v3_err = max(v3_err, h_abs)
-        else:
+              f"{frac:.4%}; bf16-rounding control max|dh| / magnitude {c_err:.3e}, max|ds| / "
+              f"magnitude {c_s:.3e}", flush=True)
+        check(h_err <= 1e-4 and s_err <= 1e-4, f"v3 {tag}: h {h_err}, state {s_err}")
+        check(c_err > 1e-4, f"v3 {tag}: the bf16-rounding control {c_err} is not above the "
+                            "1e-4 gate")
+        if wdt == bf16:
             check(frac >= 0.99, f"v3 {tag}: greedy agreement {frac} < 99%")
+        v3_err = max(v3_err, h_abs)
+        v3_share = max(v3_share, h_err, s_err)
+        v3_ctrl = min(v3_ctrl, c_err)
+        del w3
 
     # -- 26. the odd-head path end to end: generate_songs, default env --------
     knobs = [k for k in os.environ if k.startswith("RLMG_") and "DECODE" in k or k in (
         "RLMG_FUSED_SAMPLING", "RLMG_LATENCY_MAX_BATCH", "RLMG_PERSISTENT_MIN_BATCH")]
     saved = {k: os.environ.pop(k) for k in knobs}
+    # a warm call with the timed call's settings (another seed) captures the
+    # token graph, so the timed call replays it.  A's and v3's runs are
+    # counted by the kernels, the graph's replays included: one a replay.
     rates, gen_launches = {}, {}
     for name, c in (("v3", cfg1), ("A", cfg)):
-        sampler.generate_songs(p16, c, C.GenerateConfig(batch_size=5, max_tokens=8,
-                                                        bar_production=None, token_count=8))
+        gcfg = C.GenerateConfig(batch_size=5, max_tokens=512, bar_production=8, seed=11)
+        sampler.generate_songs(p16, c, dataclasses.replace(gcfg, seed=12))
         torch.cuda.synchronize()
-        for fn in (dk3.fused_stack_step, dk4.fused_stack_step):
-            fn.launches = 0
-        dk3.fused_stack_step.cuda_launches = 0
+        for m in (dk3, dk4):
+            m.fused_stack_step.launches = 0
+            m.kernel_runs(reset=True)
+        r0, c0 = sampler.generate_tokens.graph_replays, sampler.generate_tokens.graph_captures
         t = time.perf_counter()
-        songs = sampler.generate_songs(p16, c, C.GenerateConfig(batch_size=5, max_tokens=512,
-                                                                bar_production=8, seed=11))
+        songs = sampler.generate_songs(p16, c, gcfg)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t
-        counts = {"v3": dk3.fused_stack_step.launches, "A": dk4.fused_stack_step.launches,
-                  "v3_cuda": dk3.fused_stack_step.cuda_launches}
+        mine = dk3 if name == "v3" else dk4
+        counts = {"v3": dk3.kernel_runs(), "A": dk4.kernel_runs(),
+                  "eager": mine.fused_stack_step.launches,
+                  "replays": sampler.generate_tokens.graph_replays - r0,
+                  "captures": sampler.generate_tokens.graph_captures - c0}
         n_tok = sum(len(s) for s in songs)
         ok = len(songs) == 5 and all(
             len(s) and ((s >= 0) & (s < vocab.cpu().numpy())).all() for s in songs)
         rates[name] = n_tok / sec
         gen_launches[name] = counts
-        print(f"[generate_songs] {c.n_head} head(s), 5 songs, 8 bars, bf16 weights: {n_tok} "
-              f"tokens in {sec:.3f}s = {rates[name]:.1f} tokens/s; wrapper calls {counts}",
-              flush=True)
+        print(f"[generate_songs] {c.n_head} head(s), 5 songs, 8 bars, bf16 weights, warm: "
+              f"{n_tok} tokens in {sec:.3f}s = {rates[name]:.1f} tokens/s; kernel runs (counted "
+              f"by the kernels) and the token graph {counts}", flush=True)
         check(ok, f"generate_songs ({name}): a token outside its vocabulary")
         other = "A" if name == "v3" else "v3"
         check(counts[name] > 0 and counts[other] == 0,
-              f"generate_songs ({name}): kernel calls {counts}")
+              f"generate_songs ({name}): kernel runs {counts}")
+        check(counts["captures"] == 0 and counts["replays"] > 0,
+              f"generate_songs ({name}): the warm call did not serve the timed one {counts}")
+        check(counts[name] == counts["replays"] + counts["eager"],
+              f"generate_songs ({name}): {counts[name]} kernel runs for {counts['replays']} "
+              f"graph replays and {counts['eager']} eager calls")
     os.environ.update(saved)
-    v3_cuda_per_token = gen_launches["v3"]["v3_cuda"] / max(1, gen_launches["v3"]["v3"])
+    g3 = gen_launches["v3"]
+    v3_runs_per_token = g3["v3"] / (g3["replays"] + g3["eager"])
     print(f"[generate_songs] tokens/s: v3 at one head {rates['v3']:.1f}, kernel A at 8 heads "
-          f"{rates['A']:.1f}; v3's CUDA launches a token {v3_cuda_per_token:g}", flush=True)
+          f"{rates['A']:.1f}; v3's runs a token {v3_runs_per_token:g}", flush=True)
 
     # -- 27. v1 and v2 through fused_decode_step, B=32, 16 tokens, f32 --------
     layer_err, layer_launch = {}, {}
@@ -1086,22 +1203,27 @@ def aug_slice(cfg, params, dev, gen) -> list:
     # -- 29. times: v3, v1, v2, v5 beside their plain twins, kernel A and v8 --
     dp16 = lt.make_decode_params(params, cfg, bf16)
     t3 = {}
-    for c, b in ((cfg1, 5), (cfg, 5), (cfg, 32), (cfg, 128)):
+    for c, b in ((cfg1, 5), (cfg1, 32), (cfg1, 128), (cfg, 5), (cfg, 32), (cfg, 128)):
         vp = v3p[(c.n_head, bf16)]
         st3 = dk3.init_aug_state(c, b, dev)
         h0 = lt.embed_input(params, c, rand_tokens(1, b)[0], 0, None).float()
+        w3 = dk3.workspace(vp, b)
         n0 = dk3.fused_stack_step.cuda_launches
-        ms = time_ms(lambda: dk3.fused_stack_step(vp, h0, st3, n_head=c.n_head), 20)
+        dk3.kernel_runs(reset=True)
+        ms = time_ms(lambda: dk3.fused_stack_step(None, h0, st3, n_head=c.n_head, work=w3), 20)
         per_call = (dk3.fused_stack_step.cuda_launches - n0) / 21
+        check(dk3.kernel_runs() == 21, "v3: the kernel did not count one run a call")
         pms = time_ms(lambda: dk3.fused_stack_step_plain(vp, h0, st3, n_head=c.n_head), 3)
         row = {"ms": ms, "plain_ms": pms, "cuda_launches_per_token": per_call}
         if c.n_head % 2 == 0:
             sa = dk4.init_state(c, b, device=dev)
-            row["kernel_a_ms"] = time_ms(lambda: dk4.fused_stack_step(dp16, h0, sa.s, sa.z,
-                                                                      n_head=c.n_head), 20)
+            wa = dk4.workspace(dp16, b)
+            row["kernel_a_ms"] = time_ms(lambda: dk4.fused_stack_step(None, h0, sa.s, sa.z,
+                                                                      n_head=c.n_head, work=wa),
+                                         20)
         ops, nb = decode_token_work(b, L, D, DI, w_bytes=2,
                                     state_bytes=aug_state_bytes(b, L, D, c.n_head))
-        row["bound_ms"], row["bound_by"] = bound(nb, ops)
+        row["bound_ms"], row["bound_by"] = bound(nb, ops, SPLIT3_BF16_FLOPS)
         t3[(c.n_head, b)] = row
         print(f"[time] v3 {c.n_head} head(s), B={b}, bf16 weights, f32 state: {ms:.4f} ms a "
               f"token ({per_call:g} CUDA launches), plain {pms:.3f}, kernel A "
@@ -1110,7 +1232,9 @@ def aug_slice(cfg, params, dev, gen) -> list:
     b = 32
     h32 = lt.embed_input(params, cfg, rand_tokens(1, b)[0], 0, None).float()
     sa = dk4.init_state(cfg, b, f32, dev)
-    a32 = time_ms(lambda: dk4.fused_stack_step(dparams, h32, sa.s, sa.z, n_head=H), 20) / L
+    wa = dk4.workspace(dparams, b)
+    a32 = time_ms(lambda: dk4.fused_stack_step(None, h32, sa.s, sa.z, n_head=H, work=wa),
+                  20) / L
     tl = {}
     for variant, fn, plain in (("v1", dk.fused_layer_step, dk.fused_layer_step_plain),
                                ("v2", dk.fused_layer_step_v2, dk.fused_layer_step_v2_plain)):
@@ -1149,8 +1273,9 @@ def aug_slice(cfg, params, dev, gen) -> list:
                     v5p, tok, s5, z5, pe[:1], 1, max_tokens=1, **kp), 1)
                 sa = dk4.init_state(cfg, b, bf16, dev)
                 h0 = lt.embed_input(params, cfg, tok, 0, None).float()
-                row["kernel_a_ms"] = time_ms(lambda: dk4.fused_stack_step(dp16, h0, sa.s, sa.z,
-                                                                          n_head=H), 10)
+                wa = dk4.workspace(dp16, b)
+                row["kernel_a_ms"] = time_ms(lambda: dk4.fused_stack_step(None, h0, sa.s, sa.z,
+                                                                          n_head=H, work=wa), 10)
                 if b <= dk8.MAX_BATCH:
                     s8 = dk4.init_state(cfg, b, bf16, dev)
                     row["v8_ms"] = time_ms(lambda: dk8.fused_decode_v8(
@@ -1174,13 +1299,14 @@ def aug_slice(cfg, params, dev, gen) -> list:
     main3 = t3[(1, 5)]
     entries = [
         {"name": "decode_step_v3", "route": "cuda", "source": f"{pkg}/csrc/decode_aug.cu",
-         "replaces": f"{tpu}/decode_kernel_v3.py:173", "launches": gen_launches["v3"]["v3"],
-         "cuda_launches_per_token": v3_cuda_per_token, "max_abs_err": v3_err,
+         "replaces": f"{tpu}/decode_kernel_v3.py:173", "launches": g3["v3"],
+         "runs_per_token": v3_runs_per_token, "max_abs_err": v3_err,
+         "max_share_of_magnitude": v3_share, "bf16_rounding_control_min_share": v3_ctrl,
          "ms": main3["ms"], "plain_ms": main3["plain_ms"], "bound_ms": main3["bound_ms"],
          "bound_by": main3["bound_by"], "library_ms": None,
          "unit": "ms per token of B=5 songs at one head of 512 (the odd-head path), bf16 "
                  "weights, f32 state",
-         "by_batch": {f"{H} heads, B={b}": t3[(H, b)] for b in (5, 32, 128)},
+         "by_batch": {f"{n} head(s), B={b}": t3[(n, b)] for n in (1, H) for b in (5, 32, 128)},
          "tokens_per_s_generate_songs": {"v3, one head": rates["v3"],
                                          f"kernel A, {H} heads": rates["A"]}},
     ]
@@ -1265,38 +1391,83 @@ def main() -> None:
     # -- 2a. decode_step (v4 counterpart) against its plain version --------
     # (weights, songs, state): f32 weights with the default bf16 state at
     # both batches, an f32 state for the tight check, and bf16 weights (the
-    # generate default)
+    # generate default) at 1 to 128 songs.  At an f32 state a control, the
+    # twin with every product's input rounded to bf16 (v6's arithmetic), is
+    # held above the gate the kernel is held below: the gate tells f32-grade
+    # activations from rounded ones.
     f32, bf16 = torch.float32, torch.bfloat16
     dparams_bf16 = lt.make_decode_params(params, cfg, bf16)
-    a_err = 0.0
+    a_err, a_ctrl = 0.0, float("inf")
+    a_calls0, a_cuda0 = dk4.fused_stack_step.launches, dk4.fused_stack_step.cuda_launches
+    dk4.kernel_runs(reset=True)
     for wdt, b, sdt in ((f32, 5, f32), (f32, 5, bf16), (f32, 128, f32), (f32, 128, bf16),
-                        (bf16, 5, f32), (bf16, 5, bf16)):
+                        (bf16, 1, f32), (bf16, 5, f32), (bf16, 5, bf16), (bf16, 32, f32),
+                        (bf16, 64, bf16), (bf16, 128, f32)):
         dp = dparams if wdt == f32 else dparams_bf16
         toks = rand_tokens(16, b)
         sk = dk4.init_state(cfg, b, sdt, dev)
         sp = dk4.init_state(cfg, b, sdt, dev)
+        sc = dk4.init_state(cfg, b, sdt, dev)
+        wk = dk4.workspace(dp, b)
         agree = total = 0
-        dh = 0.0
+        dh = dc = 0.0
         for t in range(16):
             h0 = lt.embed_input(params, cfg, toks[t], t, None).float()
-            hk, _, _ = dk4.fused_stack_step(dp, h0, sk.s, sk.z, n_head=H, eps=cfg.attn_eps)
+            hk, _, _ = dk4.fused_stack_step(None, h0, sk.s, sk.z, n_head=H, eps=cfg.attn_eps,
+                                            work=wk)
             hp, _, _ = dk4.fused_stack_step_plain(dp, h0, sp.s, sp.z, n_head=H,
                                                   eps=cfg.attn_eps)
             dh = max(dh, (hk - hp).abs().max().item())
             gk, gp = greedy_next(hk), greedy_next(hp)
             agree += (gk == gp).sum().item()
             total += gk.numel()
+            if sdt == f32:
+                hc, _, _ = dk4.fused_stack_step_plain(dp, h0, sc.s, sc.z, n_head=H,
+                                                      eps=cfg.attn_eps, round_to=bf16)
+                dc = max(dc, (hc - hp).abs().max().item())
         torch.cuda.synchronize()
         ds = (sk.s.float() - sp.s.float()).abs().max().item()
         rate = agree / total
         tag = f"B={b} weights {str(wdt)[6:]} state {str(sdt)[6:]}"
+        ctrl = f", bf16-rounding control max|dh| {dc:.3e}" if sdt == f32 else ""
         print(f"[decode_step] {tag}: max|dh| {dh:.3e}, max|ds| {ds:.3e}, "
-              f"greedy agreement {rate:.4%}", flush=True)
+              f"greedy agreement {rate:.4%}{ctrl}", flush=True)
         if sdt == f32:
             check(dh <= 1e-3, f"decode_step {tag}: max|dh| {dh} > 1e-3")
+            check(dc > 1e-3, f"decode_step {tag}: the bf16-rounding control {dc} is not "
+                             "above the 1e-3 gate")
             a_err = max(a_err, dh)
+            a_ctrl = min(a_ctrl, dc)
         else:
             check(rate >= 0.99, f"decode_step {tag}: agreement {rate} < 99%")
+    a_calls = dk4.fused_stack_step.launches - a_calls0
+    a_cuda_per_token = (dk4.fused_stack_step.cuda_launches - a_cuda0) / max(1, a_calls)
+    a_runs_per_token = dk4.kernel_runs() / max(1, a_calls)
+    print(f"[decode_step] {a_calls} calls, {a_cuda_per_token:g} CUDA launches a token (every "
+          f"layer in one cooperative launch), {a_runs_per_token:g} runs a token as the kernel "
+          f"counts them; the control's least max|dh| {a_ctrl:.3e}", flush=True)
+    check(a_cuda_per_token == 1 and a_runs_per_token == 1,
+          f"decode_step: {a_cuda_per_token} CUDA launches and {a_runs_per_token} kernel runs "
+          "a token")
+
+    # every product of A's and v3's token kernel on the tensor cores: HMMA in
+    # the SASS of their instantiations (bf16 weights: three bf16 products a
+    # product, f32 weights six)
+    cuobjdump = cuobjdump_path()
+    check(cuobjdump is not None, "cuobjdump not found (toolkit or Triton's copy)")
+    stack_mma = {}
+    for lib in ("decode_step", "decode_aug"):
+        sass = subprocess.run([cuobjdump, "-sass", libs[lib]], capture_output=True, text=True,
+                              timeout=300)
+        check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-500:]}")
+        stack_mma.update({f"{lib}:{k}": n
+                          for k, n in mma_counts(sass.stdout, "stack_tc_kernel").items()})
+    print(f"[decode_step] HMMA instructions in the token kernel's instantiations (A: "
+          f"decode_step, v3: decode_aug): {stack_mma}", flush=True)
+    stack_bf16 = {k: n for k, n in stack_mma.items() if "stack_tc_kernelI13__nv_bfloat16" in k}
+    check(len(stack_bf16) == 3 and all(n > 0 for n in stack_bf16.values()),
+          f"decode_step / v3: no tensor-core instructions in the bf16-weight kernels "
+          f"{stack_bf16}")
 
     # -- 2b. decode_chunk (v6 counterpart) against its plain version -------
     # f32 weights take the SIMT route, bf16 weights (generate's default) the
@@ -1427,6 +1598,7 @@ def main() -> None:
                                             ("v6", 128, 256, "float32")):
             out = os.path.join(tmp, name, "midis")
             dk4.fused_stack_step.launches = 0
+            dk4.kernel_runs(reset=True)
             dk6.reset_counts()
             # the tensor-core route: a warm request on seed 1, then the timed
             # one on seed 0, a new request
@@ -1436,11 +1608,14 @@ def main() -> None:
                             *warm])
             torch.cuda.synchronize()
             f6 = dk6.fused_decode_v6
-            launches[name] = {"v4": dk4.fused_stack_step.launches, "v6_tc": f6.tc_calls,
+            a_runs = dk4.kernel_runs()
+            launches[name] = {"v4": a_runs, "v6_tc": f6.tc_calls,
                               "v6": f6.launches - f6.tc_calls}[name]
+            cold = " (a cold call: it captures the token graph)" if name == "v4" else ""
             print(f"[generate] {songs} songs, {dtype} weights: {res['tokens']} tokens in "
-                  f"{res['seconds']:.3f}s = {res['tokens_per_s']:.1f} tokens/s; launches "
-                  f"decode_step {dk4.fused_stack_step.launches}, decode_chunk SIMT "
+                  f"{res['seconds']:.3f}s = {res['tokens_per_s']:.1f} tokens/s{cold}; launches "
+                  f"decode_step {a_runs} (counted by the kernel; "
+                  f"{dk4.fused_stack_step.launches} eager), decode_chunk SIMT "
                   f"{f6.launches - f6.tc_calls}, tensor cores {f6.tc_calls} ({f6.cuda_launches} "
                   f"CUDA launches for {f6.positions} positions, {f6.graph_kernels} kernels in a "
                   f"token's graph, {f6.captures} instantiated, {f6.updates} updated)",
@@ -1459,6 +1634,35 @@ def main() -> None:
                     head = f.read(4)
                 check(head == b"MThd", f"generate {songs} songs: get_{i}.mid is not a MIDI")
             check(res["songs"] == songs and res["tokens"] >= songs, "generate: no tokens")
+
+    # -- 3b. the per-step path's token graph, 5 songs, 64 tokens -----------
+    # one graph replay a token: the host's launches a token (was about 208:
+    # A's 108 and PyTorch's sampling, embedding and final LN), the replays,
+    # the device's busy share, for f32 and bf16 (generate's default) weights
+    p16 = lt.cast_params(params, bf16)
+    graph_win = {}
+    for name, p_ in (("float32", params), ("bfloat16", p16)):
+        w = token_graph_window(sampler, p_, cfg, dev)
+        graph_win[name] = w
+        print(f"[generate] per-step token graph, 5 songs, {w['tokens']} tokens, {name} "
+              f"weights: wall {w['wall_ms']:.3f} ms, device {w['device_ms']:.3f} ms (union "
+              f"{w['union_ms']:.3f}), busy {w['busy']:.1%}; {w['device_kernels']} device "
+              f"kernels; host launches {w['host_launches']} = "
+              f"{w['host_launches_per_token']:.3f} a token {w['host_calls']}; graph replays "
+              f"{w['replays']}, captures {w['captures']}; kernel A's runs (counted by the "
+              f"kernel) {w['kernel_runs']} = {w['kernel_runs'] / w['tokens']:g} a token, of "
+              f"them eager launches {w['eager_launches']}; the cached token graph holds "
+              f"{w['graph_bytes']} bytes of device memory", flush=True)
+        check(w["replays"] == w["tokens"] - 1 and w["captures"] == 0,
+              f"per-step token graph ({name}): {w['replays']} replays, {w['captures']} "
+              "captures in a warm window")
+        # one run of the token kernel a replay, as the kernel counts them
+        check(w["kernel_runs"] == w["tokens"] == w["replays"] + w["eager_launches"],
+              f"per-step token graph ({name}): kernel A ran {w['kernel_runs']} times for "
+              f"{w['tokens']} tokens ({w['replays']} replays, {w['eager_launches']} eager)")
+        check(0 < w["host_launches_per_token"] < 20,
+              f"per-step token graph ({name}): {w['host_launches_per_token']} host launches "
+              "a token")
 
     # -- 4. the training kernels against their plain versions -------------
     from reinforcement_learning_in_music_generation_torch.data import dataset
@@ -2184,13 +2388,34 @@ def main() -> None:
     st = dk4.init_state(cfg, 5, device=dev)
     sdt = st.s.dtype
     h5 = lt.embed_input(params, cfg, rand_tokens(1, 5)[0], 0, None).float()
-    a_ms = time_ms(lambda: dk4.fused_stack_step(dparams, h5, st.s, st.z, n_head=H), 50)
+    wa = dk4.workspace(dparams, 5)
+    a_ms = time_ms(lambda: dk4.fused_stack_step(None, h5, st.s, st.z, n_head=H, work=wa), 50)
     a_plain = time_ms(lambda: dk4.fused_stack_step_plain(dparams, h5, st.s, st.z,
                                                          n_head=H), 20)
     wts = dk4.layer_weights(dparams)
     a_bytes = nbytes(wts) + 2 * nbytes([st.s, st.z]) + 2 * h5.numel() * 4
     a_flops = 2 * 5 * L * (4 * D * D + 2 * D * DI) + 4 * L * 5 * H * E * E
-    a_bound, a_by = bound(a_bytes, a_flops)
+    # the products on the tensor cores as six bf16 products (f32 weights)
+    a_bound, a_by = bound(a_bytes, a_flops, SPLIT_BF16_FLOPS)
+    # with bf16 weights (generate's default) and a bf16 state, at 1 to 128
+    # songs: three bf16 products a product
+    a_bf16 = {}
+    wts16 = dk4.layer_weights(dparams_bf16)
+    for b in (1, 5, 32, 64, 128):
+        st_b = dk4.init_state(cfg, b, bf16, dev)
+        h_b = lt.embed_input(params, cfg, rand_tokens(1, b)[0], 0, None).float()
+        wa = dk4.workspace(dparams_bf16, b)
+        ms = time_ms(lambda: dk4.fused_stack_step(None, h_b, st_b.s, st_b.z, n_head=H, work=wa),
+                     30)
+        pms = time_ms(lambda: dk4.fused_stack_step_plain(dparams_bf16, h_b, st_b.s, st_b.z,
+                                                         n_head=H), 3)
+        nb = nbytes(wts16) + 2 * nbytes([st_b.s, st_b.z]) + 2 * h_b.numel() * 4
+        ops = 2 * b * L * (4 * D * D + 2 * D * DI) + 4 * L * b * H * E * E
+        bd, by = bound(nb, ops, SPLIT3_BF16_FLOPS)
+        a_bf16[b] = dict(ms=ms, plain_ms=pms, bound_ms=bd, bound_by=by)
+        print(f"[time] decode_step B={b}, bf16 weights and state: {ms:.4f} ms a token, plain "
+              f"{pms:.3f}, bound {bd:.4f} ({by})", flush=True)
+        del st_b, wa
 
     # kernel B: a 128-token call at B=128 (and B=1024, bench.py's decode
     # shape) with the default bf16 state, f32 weights (SIMT route) and bf16
@@ -2364,10 +2589,19 @@ def main() -> None:
     tpu = "reinforcement_learning_in_music_generation_tpu/ops"
     d32, g32 = d_t["pretrain", torch.float32], g_t["update", torch.float32]
     kernels = [
+        # A with f32 weights at B=5 (the default bf16 state); generate's bf16
+        # weights at 1-128 songs beside, and the per-step token graph
         {"name": "decode_step_v4", "route": "cuda", "source": f"{pkg}/csrc/decode_step.cu",
          "replaces": f"{tpu}/decode_kernel_v4.py:155", "launches": launches["v4"],
          "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-         "bound_by": a_by, "library_ms": None},
+         "bound_by": a_by, "library_ms": None, "cuda_launches_per_token": a_cuda_per_token,
+         "runs_per_token_generate": graph_win["bfloat16"]["kernel_runs"]
+         / graph_win["bfloat16"]["tokens"], "bf16_rounding_control_min_max_dh": a_ctrl,
+         "hmma": {k.split(":")[1][:60]: n for k, n in stack_mma.items()
+                  if k.startswith("decode_step")},
+         "bf16_weights_by_batch": {str(b): r for b, r in a_bf16.items()},
+         "per_step_token_graph": {k: {kk: vv for kk, vv in w.items() if kk != "host_calls"}
+                                  for k, w in graph_win.items()}},
         {"name": "decode_chunk_v6", "route": "cuda", "source": f"{pkg}/csrc/decode_chunk.cu",
          "replaces": f"{tpu}/decode_kernel_v6.py:364", "launches": launches["v6"],
          "weights": "float32", "max_abs_err": b_err[f32], "ms": b_ms, "plain_ms": b_plain,
@@ -2440,6 +2674,10 @@ def main() -> None:
             for tag in ("update", "rollout", "pretrain")},
          "launches_pretrain": sum(launches["G_pretrain"])},
     ] + lat_entries + aug_entries
+    for e in kernels:                                        # v3's share of the SASS count
+        if e["name"] == "decode_step_v3":
+            e["hmma"] = {k.split(":")[1][:60]: n for k, n in stack_mma.items()
+                         if k.startswith("decode_aug")}
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

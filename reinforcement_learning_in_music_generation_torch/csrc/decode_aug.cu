@@ -7,13 +7,22 @@
 //     _layer_kernel: one layer, the (D, 3D) [q | k | v] weight) and
 //     fused_layer_step_v2 (v2, _layer_kernel_v2: one layer, head-major
 //     weights); v1 and v2 use the tanh gelu.
-// One set of device functions serves the three.  A call runs L layers (v3:
-// every layer, v1 and v2: one) and the variant sets three switches: the
-// qkv weight's layout, the gelu, and where the Wo bias joins the residual.
 //
+// v3 (rlmg_v3_tc_step) runs kernel A's token kernel, decode_stack_tc.cuh's
+// stack_tc_kernel, on the augmented state: one cooperative launch a token,
+// four grid barriers a layer, every product on the tensor cores at f32
+// grade (three bf16 products a product with bf16 weights, six with f32),
+// the qkv columns head-major [q_h k_h v_h] as the head-major weight packs
+// them, LN1 of (h + att Wo) + bo; the state items update S[:, u] for u < E
+// and column E (z) after the grid barrier, so every item reads the z of
+// before the token.  That header's note gives the design and the bound.
+//
+// v1 and v2 (rlmg_decode_aug) keep the per-layer passes below, one set of
+// device functions for the two, the variant setting two switches: the qkv
+// weight's layout and where the Wo bias joins the residual.
 // Per layer (launches in brackets):
 //   qkv      h @ Wqkv + b, phi on q and k.  v1: one K-split product over the
-//            (D, 3D) weight into a (B, 3D) buffer [2]; v2, v3: one per head
+//            (D, 3D) weight into a (B, 3D) buffer [2]; v2: one per head
 //            over its (D, 3E) block of the (H, D, 3E) weight, into an
 //            (H, B, 3E) buffer [2 H]
 //   state    aug_state_kernel [1], one block per (head, song, tile of 32
@@ -25,24 +34,21 @@
 //            value written is the same whichever block it is).  att =
 //            num / (den + eps) into (B, D).  Any head width E.
 //   Wo, LN1  K-split att @ Wo [1], then LN1 [1] of h + (att Wo + bo) (v1) or
-//            of (h + att Wo) + bo (v2, v3: the sums of the TPU kernels);
+//            of (h + att Wo) + bo (v2: the sum of the TPU kernel);
 //            the head-major Wo (H, E, D) is the (D, D) matrix row for row
 //   FFN      y = gelu(h1 W1 + b1) [2], h = LN2(h1 + (y W2 + b2)) [2]
 // The products, the K-split reduction and the LN row are those of
-// decode_layers.cuh (kernel A's).  Everything accumulates in f32; the
-// weight matrices are read in their stored type (f32 or bf16), the biases
-// and LN vectors are f32, the state is f32, as in the TPU kernels.
+// decode_layers.cuh.  Everything accumulates in f32; the weight matrices
+// are read in their stored type (f32 or bf16), the biases and LN vectors
+// are f32, the state is f32, as in the TPU kernels.
 //
 // Bound on the card.  Per token the weights are read once (37.7M values at
 // the flagship width: 75.5 MB in bf16) and the state read and written once
 // (L H B E (E + 1) f32 each way: 1.6 MB a song at 12 layers and 8 heads of
 // 64); 2 B L (4 D^2 + 2 D DI) operations.  At B <= 128 in bf16 the bytes
-// bind.  What the design does about it: every product is K-split until
-// about 1024 blocks are in flight, the state is streamed once each way in
-// rows of 32 columns; what it does not do yet: tensor cores, one launch a
-// token (v3 issues 2 H + 7 launches a layer, v1 9).
+// bind.
 
-#include "decode_layers.cuh"
+#include "decode_stack_tc.cuh"
 
 namespace rlmg {
 
@@ -110,7 +116,7 @@ aug_state_kernel(const float* __restrict__ qkv, QkvAt at, float* __restrict__ s_
 
 // out[row] = LN((resid[row] + sum_z part[z][row]) + bias) * scale + shift:
 // res_ln_kernel's row with the bias added after the residual, the order of
-// the v2 and v3 TPU kernels (h + sum_h att_h Wo_h, then + bo).
+// the v2 TPU kernel (h + sum_h att_h Wo_h, then + bo).
 __global__ void __launch_bounds__(LN_THREADS)
 res_ln_bias_last_kernel(const float* __restrict__ part, int S, const float* __restrict__ bias,
                         const float* __restrict__ resid, const float* __restrict__ scale,
@@ -161,7 +167,7 @@ struct AugArgs {
   int* done;                  // (H, B)
   int L, B, D, H, DI;
   float eps;
-  int head_major, gelu_tanh, bias_last;
+  int head_major, bias_last;
 };
 
 inline size_t aug_scratch_floats(int B, int D, int H, int DI, int head_major) {
@@ -220,8 +226,7 @@ int aug_run(const AugArgs& a, cudaStream_t st, int* launched) {
                                                      V[LN1_B] + d, a.h1, B, D, 1e-5f);
     RLMG_CHECK();
     AUG_TRY(partials<TW>(a.h1, M[W_F1] + (size_t)l * D * DI, a.part, B, D, DI, st, &s));
-    AUG_TRY(reduce(a.part, s, V[B_F1] + (size_t)l * DI, a.y1, B, DI,
-                   a.gelu_tanh ? ACT_GELU_TANH : ACT_GELU, 0, st));
+    AUG_TRY(reduce(a.part, s, V[B_F1] + (size_t)l * DI, a.y1, B, DI, ACT_GELU_TANH, 0, st));
     AUG_TRY(partials<TW>(a.y1, M[W_F2] + (size_t)l * DI * D, a.part, B, DI, D, st, &s));
     res_ln_kernel<float><<<B, LN_THREADS, 0, st>>>(a.part, s, V[B_F2] + d, a.h1, V[LN2_S] + d,
                                                    V[LN2_B] + d, a.h, B, D, 1e-5f);
@@ -245,13 +250,12 @@ long long rlmg_aug_scratch_floats(int B, int D, int H, int DI, int head_major) {
 // (the qkv weight (L, D, 3D) or, head_major, (L, H, D, 3E); Wo (L, D, D) or
 // (L, H, E, D); matrices in one type, w_bf16; biases and LN vectors f32);
 // s_aug (L, H, B, E, E + 1) f32, updated in place; done: H B zeroed ints
-// (left zeroed).  gelu_tanh: the tanh gelu (v1, v2) or the erf one (v3);
-// bias_last: LN1 of (h + att Wo) + bo (v2, v3) or of h + (att Wo + bo)
-// (v1).  *launched receives the number of kernel launches issued.  Returns
-// 0 or the first CUDA error code.
+// (left zeroed); the tanh gelu.  bias_last: LN1 of (h + att Wo) + bo (v2)
+// or of h + (att Wo + bo) (v1).  *launched receives the number of kernel
+// launches issued.  Returns 0 or the first CUDA error code.
 int rlmg_decode_aug(float* h, const void* const* w, float* s_aug, float* scratch, int* done,
                     int L, int B, int D, int H, int DI, float eps, int w_bf16, int head_major,
-                    int gelu_tanh, int bias_last, void* stream, int* launched) {
+                    int bias_last, void* stream, int* launched) {
   *launched = 0;
   if (L < 1 || B < 1 || H < 1 || DI < 1 || D % H || D > rlmg::MAX_D)
     return (int)cudaErrorInvalidValue;
@@ -272,11 +276,43 @@ int rlmg_decode_aug(float* h, const void* const* w, float* s_aug, float* scratch
   a.DI = DI;
   a.eps = eps;
   a.head_major = head_major;
-  a.gelu_tanh = gelu_tanh;
   a.bias_last = bias_last;
   cudaStream_t st = (cudaStream_t)stream;
   return w_bf16 ? rlmg::aug_run<__nv_bfloat16>(a, st, launched)
                 : rlmg::aug_run<float>(a, st, launched);
+}
+
+// v3's token kernel: the f32 scratch floats a call needs at batch B, whether
+// it takes (D, H, DI) (1 or 0), and its runs since the last reset as the
+// kernel counts them (decode_step.cu's entries of the same names, for v3).
+long long rlmg_v3_tc_scratch_floats(int B, int D, int DI) {
+  return rlmg::stack_tc_scratch_floats(B, D, DI);
+}
+int rlmg_v3_tc_shape_ok(int D, int H, int DI) { return rlmg::stack_tc_shape_ok(D, H, DI); }
+long long rlmg_v3_tc_runs(int reset) { return rlmg::stack_tc_runs(reset); }
+
+// v3: L layers of one token in one launch.  h_in (B, D) f32 is read, h_out
+// (B, D) f32 gets the output; w: the four packed matrices (Wqkv with its
+// columns head-major, Wo, W1, W2; ops/decode_kernel_v4.py pack_fragments)
+// in one type (w_bf16); v: the eight stacked f32 vectors (qkv bias
+// head-major, Wo bias, LN1 scale and shift, FFN1 bias, FFN2 bias, LN2 scale
+// and shift); s_aug (L, H, B, E, E + 1) f32, updated in place; scratch:
+// rlmg_v3_tc_scratch_floats(B, D, DI) floats; cnt: (B + 15) / 16 zeroed
+// ints, left zeroed.  *launched gets the CUDA launches issued.  Returns 0
+// or the first CUDA error code.
+int rlmg_v3_tc_step(const void* const* w, const void* const* v, float* s_aug,
+                    const float* h_in, float* h_out, float* scratch, unsigned int* cnt, int L,
+                    int B, int D, int H, int DI, float eps, int w_bf16, void* stream,
+                    int* launched) {
+  *launched = 0;
+  if (L < 1 || B < 1 || !rlmg::stack_tc_shape_ok(D, H, DI)) return (int)cudaErrorInvalidValue;
+  const rlmg::StackTcArgs a = rlmg::stack_tc_args(w, v, s_aug, nullptr, h_in, h_out, scratch,
+                                                  cnt, L, B, D, H, DI, eps, 1);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int rc = w_bf16 ? rlmg::stack_tc_launch<__nv_bfloat16, float, float, true>(a, st)
+                        : rlmg::stack_tc_launch<float, float, float, true>(a, st);
+  if (rc == 0) *launched = 1;
+  return rc;
 }
 
 const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,8 +1,8 @@
-// The per-token layer stack of the causal linear-attention transformer,
-// shared by decode_step.cu (one token per call) and decode_chunk.cu (T
-// tokens per call); its products, reductions and LN rows also serve
-// latency_decode.cu and decode_aug.cu.  Plain C interface; no PyTorch
-// headers.
+// The per-token layer stack of the causal linear-attention transformer on
+// SIMT products, run by decode_chunk.cu (T tokens per call, f32 weights);
+// its products, reductions and LN rows also serve latency_decode.cu and
+// decode_aug.cu's per-layer v1 / v2 kernels.  (Kernel A and v3 run
+// decode_stack_tc.cuh.)  Plain C interface; no PyTorch headers.
 //
 // Per layer, one host function (stack_step) launches:
 //   gemm_kernel       qkv = h @ Wqkv (+ b, phi on the q and k columns)
@@ -401,22 +401,6 @@ int stack_step(float* h, const void* const* w, TS* s, TS* z, float* scratch, int
 inline bool stack_shape_ok(int D, int H) {
   const int E = H > 0 ? D / H : 0;
   return E * H == D && E <= MAX_E && ATT_THREADS % E == 0 && D <= MAX_D;
-}
-
-// stack_step with the weight type (w_bf16) and state type (s_bf16) chosen
-// at run time.
-inline int stack_step_any(float* h, const void* const* w, void* s, void* z,
-                          float* scratch, int L, int B, int D, int H, int DI, float eps,
-                          int w_bf16, int s_bf16, cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  if (w_bf16) {
-    return s_bf16 ? stack_step<bf, bf>(h, w, (bf*)s, (bf*)z, scratch, L, B, D, H, DI, eps, st)
-                  : stack_step<bf, float>(h, w, (float*)s, (float*)z, scratch, L, B, D, H,
-                                          DI, eps, st);
-  }
-  return s_bf16 ? stack_step<float, bf>(h, w, (bf*)s, (bf*)z, scratch, L, B, D, H, DI, eps, st)
-                : stack_step<float, float>(h, w, (float*)s, (float*)z, scratch, L, B, D, H,
-                                           DI, eps, st);
 }
 
 }  // namespace rlmg

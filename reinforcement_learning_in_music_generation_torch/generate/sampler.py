@@ -6,7 +6,11 @@ Three decode paths, chosen as in the JAX package:
     the ``decode_kernel_v4`` kernel on CUDA (``fused=True``; the
     ``decode_kernel_v3`` kernel when the head count is odd) or the plain
     ``lt.decode_step`` (``fused=False``), then on-device sampling
-    (``ops/sampling.py``);
+    (``ops/sampling.py``).  On CUDA with ``fused`` and ``fused_sampling``
+    (``generate_songs``' default) each token runs as one CUDA graph replay:
+    the sampling, the bookkeeping, the embedding, the kernel and the final
+    LN, captured once per shape and weights (``_TokenGraph``), the
+    counterpart of the JAX package's compiled loop body;
   * chunked (``generate_tokens_persistent``): stochastic batches of
     ``persistent_min_batch()`` songs or more, through the
     ``decode_kernel_v6`` kernel, which samples on the card and emits up to
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import os
+import weakref
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -159,10 +164,6 @@ def _seed_state(params: dict, cfg: LinearTransformerConfig, init_tokens: torch.T
     return state
 
 
-_PACKED_CACHE: "collections.OrderedDict" = collections.OrderedDict()
-_PACKED_CACHE_SIZE = 8
-
-
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -171,25 +172,224 @@ def _leaves(tree):
         yield tree
 
 
-def _packed_decode_params(params: dict, cfg: LinearTransformerConfig) -> dk6.V6Params:
-    """The chunked kernels' weights (v6, v7 and v8 share one layout), packed
-    once per params object (JAX :301-322): keyed on its identity with a
-    strong reference, so the id cannot be reused while cached; LRU.  JAX
-    arrays are immutable; torch tensors are not, so an entry also records
-    each leaf's version counter and is packed again after an in-place
-    update (an optimizer step)."""
-    key = (id(params), cfg)
-    versions = tuple(t._version for t in _leaves(params))
-    hit = _PACKED_CACHE.get(key)
-    if hit is not None and hit[0] is params and hit[1] == versions:
-        _PACKED_CACHE.move_to_end(key)
+def _clone(tree):
+    return {k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+def _cached(cache: "collections.OrderedDict", size: int, key, params: dict, build):
+    """``build()``, kept in ``cache`` (an LRU of ``size`` entries) under
+    ``key`` for as long as ``params``' tensors live unchanged.  An entry
+    holds weak references to the tensors and their version counters: JAX
+    arrays are immutable, torch tensors are not, so an in-place update (an
+    optimizer step) builds again, and the entry goes when one of the
+    tensors is freed.  What ``build`` returns should hold none of them."""
+    leaves = list(_leaves(params))
+    versions = tuple(t._version for t in leaves)
+    hit = cache.get(key)
+    if (hit is not None and hit[1] == versions and len(hit[0]) == len(leaves)
+            and all(r() is t for r, t in zip(hit[0], leaves))):
+        cache.move_to_end(key)
         return hit[2]
-    packed = dk8.make_resident_params(params, cfg)
-    _PACKED_CACHE.pop(key, None)
-    while len(_PACKED_CACHE) >= _PACKED_CACHE_SIZE:
-        _PACKED_CACHE.popitem(last=False)
-    _PACKED_CACHE[key] = (params, versions, packed)
-    return packed
+    cache.pop(key, None)
+    while len(cache) >= size:
+        cache.popitem(last=False)
+    value, tag = build(), object()
+
+    def drop(_):
+        entry = cache.get(key)
+        if entry is not None and entry[3] is tag:
+            del cache[key]
+    cache[key] = ([weakref.ref(t, drop) for t in leaves], versions, value, tag)
+    return value
+
+
+_PACKED_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_PACKED_CACHE_SIZE = 8
+
+
+def _packed_decode_params(params: dict, cfg: LinearTransformerConfig) -> dk6.V6Params:
+    """The chunked and latency kernels' weights (``make_resident_params``),
+    packed once per params object (JAX :301-322), cached by ``_cached``."""
+    return _cached(_PACKED_CACHE, _PACKED_CACHE_SIZE, (id(params), cfg), params,
+                   lambda: dk8.make_resident_params(params, cfg))
+
+
+class _Loop(NamedTuple):
+    """The sampled loop's state on the device: the tokens (B, T, n_fields)
+    and their validity (B, T) so far, the finished songs, the bar counts,
+    and t, the next token's index ((1,) long)."""
+    toks: torch.Tensor
+    valid: torch.Tensor
+    done: torch.Tensor
+    bars: torch.Tensor
+    t: torch.Tensor
+
+    @staticmethod
+    def new(b: int, max_tokens: int, nf: int, dev) -> "_Loop":
+        return _Loop(torch.zeros((b, max_tokens, nf), dtype=torch.int32, device=dev),
+                     torch.zeros((b, max_tokens), dtype=torch.bool, device=dev),
+                     torch.zeros((b,), dtype=torch.bool, device=dev),
+                     torch.zeros((b,), dtype=torch.int32, device=dev),
+                     torch.zeros((1,), dtype=torch.long, device=dev))
+
+    def start(self, done: torch.Tensor, bars: torch.Tensor) -> None:
+        self.toks.zero_()
+        self.valid.zero_()
+        self.done.copy_(done)
+        self.bars.copy_(bars)
+        self.t.zero_()
+
+
+def _loop_token(loop: _Loop, h: torch.Tensor, sample, step, bar_cond: Optional[int],
+                barbeat_field: int, bar_token_id: int) -> torch.Tensor:
+    """One token of the sampled loop, all on the device: ``sample(h)``, zero
+    for finished songs, bars counted, the token and its validity stored at
+    loop.t, the songs that reached ``bar_cond`` marked done, t advanced;
+    returns ``step(token)``, the next h.  The eager loop runs it from the
+    host, ``_TokenGraph`` captures it."""
+    done = loop.done
+    tok = sample(h)
+    tok = torch.where(done[:, None], torch.zeros_like(tok), tok)
+    loop.bars.add_(((tok[:, barbeat_field] == bar_token_id) & ~done).to(torch.int32))
+    loop.toks.index_copy_(1, loop.t, tok[:, None])
+    loop.valid.index_copy_(1, loop.t, ~done[:, None])
+    if bar_cond is not None:
+        torch.logical_or(done, loop.bars >= bar_cond, out=done)
+    loop.t.add_(1)
+    return step(tok)
+
+
+class _TokenGraph:
+    """One sampled token of ``generate_tokens``' loop as a CUDA graph, for
+    one (weights, config, batch, token budget, sampling settings): a capture
+    of ``_loop_token`` at the device position pos, with kernel A (v3 at odd
+    heads) and the final LN as its step.  Every buffer the graph reads or
+    writes belongs to the object: the kernel's workspace, and copies of the
+    embedding, in_linear and final LN weights and of the heads, so it keeps
+    none of the caller's tensors alive.  A call copies its start into them
+    and replays the graph a token.  The random draws come from the object's
+    generator, registered with the graph (each replay draws new numbers and
+    advances it as the eager loop advances its own); a call sets it to the
+    caller's generator's state and hands the state back after the loop, so
+    the stream is the eager one."""
+
+    def __init__(self, params: dict, cfg: LinearTransformerConfig, b: int, max_tokens: int,
+                 greedy: bool, settings, bar_cond: Optional[int], barbeat_field: int,
+                 bar_token_id: int):
+        dev = params["in_linear"]["w"].device
+        dtype = params["in_linear"]["w"].dtype
+        self.cfg, self.dev, self.max_tokens = cfg, dev, max_tokens
+        self.greedy, self.settings, self.bar_cond = greedy, tuple(settings), bar_cond
+        self.barbeat_field, self.bar_token_id = barbeat_field, bar_token_id
+        self.own = {k: _clone(params[k]) for k in ("emb", "in_linear", "final_ln")}
+        self.pe = cm.sinusoidal_table(cfg.max_len, cfg.d_model, dtype, dev)
+        self.hw, self.hb = cm.fused_head_params(params["heads"], cfg.n_fields)
+        if cfg.n_head % 2 == 0:
+            st = dk4.init_state(cfg, b, device=dev)
+            self.s, self.z = st.s, st.z
+            self.work = dk4.workspace(lt.make_decode_params(params, cfg), b)
+        else:
+            self.s = dk3.init_aug_state(cfg, b, dev)
+            self.z = torch.zeros((1,), dtype=torch.float32, device=dev)
+            self.work = dk3.workspace(dk3.make_v3_params(params, cfg, dtype=dtype), b)
+        self.h = torch.zeros((b, cfg.d_model), dtype=dtype, device=dev)
+        self.pos = torch.zeros((), dtype=torch.long, device=dev)
+        self.loop = _Loop.new(b, max_tokens, cfg.n_fields, dev)
+        self.gen = None if greedy else torch.Generator(device=dev)
+        # one eager run on the capture stream first (lazy set-up: cuBLAS
+        # workspaces, the sampler's constants, the kernel's launch set-up);
+        # its effects on the buffers are overwritten by every call.  The
+        # capture is begun and ended directly: torch.cuda.graph's context
+        # also empties the allocator's caches and reads torch.compiler's
+        # config, whose first import cost a cold call 0.8 s on the card.
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self._body()
+            if self.gen is not None:
+                self.graph.register_generator_state(self.gen)
+            self.graph.capture_begin()
+            try:
+                self._body()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        generate_tokens.graph_captures += 1
+
+    def step(self, tok: torch.Tensor, pos) -> torch.Tensor:
+        """The kernel step on the object's state: embed tok at pos (an int or
+        a 0-d device tensor), the layer stack, the final LN."""
+        x = lt.embed_input(self.own, self.cfg, tok, pos, self.pe)
+        if self.cfg.n_head % 2 == 0:
+            out = dk4.fused_stack_step(None, x.float(), self.s, self.z, n_head=self.cfg.n_head,
+                                       eps=self.cfg.attn_eps, work=self.work)[0]
+        else:
+            out = dk3.fused_stack_step(None, x.float(), self.s, n_head=self.cfg.n_head,
+                                       eps=self.cfg.attn_eps, work=self.work)[0]
+        return cm.layernorm(self.own["final_ln"], out.to(x.dtype))
+
+    def _sample(self, h: torch.Tensor) -> torch.Tensor:
+        return smp.sample_fields_fused(self.gen, h @ self.hw + self.hb, self.cfg.vocab_sizes,
+                                       self.settings, greedy=self.greedy)
+
+    def _body(self) -> None:
+        self.h.copy_(_loop_token(self.loop, self.h, self._sample,
+                                 lambda tok: self.step(tok, self.pos), self.bar_cond,
+                                 self.barbeat_field, self.bar_token_id))
+        self.pos += 1
+
+    def run(self, h: torch.Tensor, step: int, done: torch.Tensor, bars: torch.Tensor,
+            generator: Optional[torch.Generator]):
+        """The sampled loop from h and the object's state at position step:
+        (toks, valid, bars), fresh tensors."""
+        self.h.copy_(h)
+        self.pos.fill_(step)
+        self.loop.start(done, bars)
+        src = None
+        if self.gen is not None:
+            src = generator if generator is not None else \
+                torch.cuda.default_generators[self.dev.index or 0]
+            self.gen.set_state(src.get_state())
+        for t in range(self.max_tokens):
+            if (self.bar_cond is not None and t % STOP_CHECK_EVERY == 0
+                    and bool(self.loop.done.all())):
+                break
+            self.graph.replay()
+            generate_tokens.graph_replays += 1
+        if src is not None:
+            src.set_state(self.gen.get_state())
+        return self.loop.toks.clone(), self.loop.valid.clone(), self.loop.bars.clone()
+
+
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream every token graph of ``dev`` is captured on.  PyTorch
+    keeps a cuBLAS workspace for each stream that ran a cuBLAS product, for
+    the life of the process (32 MiB on an H100), so a new stream a capture
+    would leave one behind each time."""
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
+
+
+_TOKEN_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_TOKEN_GRAPH_CACHE_SIZE = 4
+
+
+def _token_graph(params: dict, cfg: LinearTransformerConfig, b: int, max_tokens: int,
+                 greedy: bool, settings, bar_cond: Optional[int], barbeat_field: int,
+                 bar_token_id: int) -> _TokenGraph:
+    """The ``_TokenGraph`` of these weights and this loop, captured at its
+    first use and cached by ``_cached`` per params, shape, budget, settings
+    and the state's dtype."""
+    key = (id(params), cfg, b, max_tokens, greedy, tuple(settings), bar_cond, barbeat_field,
+           bar_token_id, decode_state_dtype())
+    return _cached(_TOKEN_GRAPHS, _TOKEN_GRAPH_CACHE_SIZE, key, params,
+                   lambda: _TokenGraph(params, cfg, b, max_tokens, greedy, settings, bar_cond,
+                                       barbeat_field, bar_token_id))
 
 
 def generate_tokens(params: dict, cfg: LinearTransformerConfig,
@@ -218,24 +418,41 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
     step's state type; greedy keeps the per-token steps (the greedy pin).
     ``n_valid``: the true prompt length when the caller bucket-padded
     init_tokens (``lt.prefill_bucket``), legal only where the prefill runs;
-    the pad rows come back valid=False."""
+    the pad rows come back valid=False.
+
+    On CUDA with ``fused`` and ``fused_sampling`` each sampled token is one
+    replay of a ``_TokenGraph`` (``graph_captures`` and ``graph_replays``
+    count them; a failed capture or replay raises); the prompt's steps run
+    eagerly on the graph's state.  Elsewhere the loop runs eagerly."""
     b, t0, nf = init_tokens.shape
     dev = init_tokens.device
     dtype = params["in_linear"]["w"].dtype
+    graphed = fused and fused_sampling and dev.type == "cuda" and max_tokens > 0
     pe = cm.sinusoidal_table(cfg.max_len, cfg.d_model, dtype, dev)
-    if fused and cfg.n_head % 2 == 0:
-        dparams = lt.make_decode_params(params, cfg)
-        state = dk4.init_state(cfg, b, device=dev)
+    if graphed:
+        tg = _token_graph(params, cfg, b, max_tokens, greedy, settings, bar_cond,
+                          barbeat_field, bar_token_id)
+        tg.s.zero_()
+        tg.z.zero_()
+        state = lt.DecodeState(tg.s, tg.z, 0)
 
         def step_fn(tok, st):
-            return dk4.decode_step_v4(params, dparams, cfg, tok, st, pe_table=pe)
+            return tg.step(tok, st.step), lt.DecodeState(st.s, st.z, st.step + 1)
+    elif fused and cfg.n_head % 2 == 0:
+        dparams = lt.make_decode_params(params, cfg)
+        state = dk4.init_state(cfg, b, device=dev)
+        work = dk4.workspace(dparams, b) if dev.type == "cuda" else None
+
+        def step_fn(tok, st):
+            return dk4.decode_step_v4(params, dparams, cfg, tok, st, pe_table=pe, work=work)
     elif fused:
         v3p = dk3.make_v3_params(params, cfg, dtype=dtype)
         state = lt.DecodeState(dk3.init_aug_state(cfg, b, dev),
                                torch.zeros((1,), dtype=torch.float32, device=dev), 0)
+        work = dk3.workspace(v3p, b) if dev.type == "cuda" else None
 
         def step_fn(tok, st):
-            return dk3.decode_step_v3(params, v3p, cfg, tok, st, pe_table=pe)
+            return dk3.decode_step_v3(params, v3p, cfg, tok, st, pe_table=pe, work=work)
     else:
         state = lt.init_decode_state(cfg, b, device=dev)
 
@@ -249,7 +466,12 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
     if prefill_ok:
         h, pst = lt.forward_prefill(params, cfg, init_tokens, n_valid, pe_table=pe)
         h = h.to(dtype)
-        state = lt.DecodeState(pst.s.to(state.s.dtype), pst.z.to(state.z.dtype), pst.step)
+        if graphed:
+            state.s.copy_(pst.s)
+            state.z.copy_(pst.z)
+            state = lt.DecodeState(state.s, state.z, pst.step)
+        else:
+            state = lt.DecodeState(pst.s.to(state.s.dtype), pst.z.to(state.z.dtype), pst.step)
     else:
         h = torch.zeros((b, cfg.d_model), dtype=dtype, device=dev)
         for t in range(t0):
@@ -259,34 +481,54 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
         seed_valid &= torch.arange(t0, device=dev)[None, :] < n_valid
     init_bars = ((init_tokens[..., barbeat_field] == bar_token_id) & seed_valid
                  ).sum(1).to(torch.int32)
-    if fused_sampling:
-        hw, hb = cm.fused_head_params(params["heads"], cfg.n_fields)
-
-    toks = torch.zeros((b, max_tokens, nf), dtype=torch.int32, device=dev)
-    valid = torch.zeros((b, max_tokens), dtype=torch.bool, device=dev)
-    bars = init_bars.clone()
     done = (init_bars >= bar_cond) if bar_cond is not None else \
         torch.zeros((b,), dtype=torch.bool, device=dev)
-    for t in range(max_tokens):
-        if bar_cond is not None and t % STOP_CHECK_EVERY == 0 and bool(done.all()):
-            break
-        if fused_sampling:
-            tok = smp.sample_fields_fused(generator, h @ hw + hb, cfg.vocab_sizes,
-                                          settings, greedy=greedy)
-        else:
-            tok = smp.sample_fields(generator, lt.forward_output(params, cfg, h),
-                                    settings, greedy=greedy)
-        tok = torch.where(done[:, None], torch.zeros_like(tok), tok)
-        bars += ((tok[:, barbeat_field] == bar_token_id) & ~done).to(torch.int32)
-        toks[:, t] = tok
-        valid[:, t] = ~done
-        if bar_cond is not None:
-            done = done | (bars >= bar_cond)
-        h, state = step_fn(tok, state)
+    if graphed:
+        toks, valid, bars = tg.run(h, int(state.step), done, init_bars, generator)
+    else:
+        toks, valid, bars = _eager_loop(params, cfg, h, state, step_fn, done, init_bars,
+                                        generator=generator, max_tokens=max_tokens,
+                                        bar_cond=bar_cond, barbeat_field=barbeat_field,
+                                        bar_token_id=bar_token_id, greedy=greedy,
+                                        settings=settings, fused_sampling=fused_sampling)
     if token_count is not None:
         valid &= torch.arange(max_tokens, device=dev)[None, :] < token_count
     tokens = torch.cat([init_tokens.to(torch.int32), toks], dim=1)
     return GenResult(tokens, torch.cat([seed_valid, valid], dim=1), bars)
+
+
+generate_tokens.graph_captures = generate_tokens.graph_replays = 0
+
+
+def _eager_loop(params: dict, cfg: LinearTransformerConfig, h: torch.Tensor,
+                state: lt.DecodeState, step_fn, done: torch.Tensor, init_bars: torch.Tensor, *,
+                generator: Optional[torch.Generator], max_tokens: int,
+                bar_cond: Optional[int], barbeat_field: int, bar_token_id: int,
+                greedy: bool, settings: Sequence[smp.FieldSampling], fused_sampling: bool):
+    """The sampled loop token by token from the host (``_loop_token`` with
+    ``step_fn`` as its step): (toks, valid, bars)."""
+    loop = _Loop.new(h.shape[0], max_tokens, cfg.n_fields, h.device)
+    loop.start(done, init_bars)
+    if fused_sampling:
+        hw, hb = cm.fused_head_params(params["heads"], cfg.n_fields)
+
+        def sample(x):
+            return smp.sample_fields_fused(generator, x @ hw + hb, cfg.vocab_sizes, settings,
+                                           greedy=greedy)
+    else:
+        def sample(x):
+            return smp.sample_fields(generator, lt.forward_output(params, cfg, x), settings,
+                                     greedy=greedy)
+
+    def step(tok):
+        nonlocal state
+        out, state = step_fn(tok, state)
+        return out
+    for t in range(max_tokens):
+        if bar_cond is not None and t % STOP_CHECK_EVERY == 0 and bool(loop.done.all()):
+            break
+        h = _loop_token(loop, h, sample, step, bar_cond, barbeat_field, bar_token_id)
+    return loop.toks, loop.valid, loop.bars
 
 
 def generate_tokens_persistent(params: dict, cfg: LinearTransformerConfig,

@@ -25,7 +25,7 @@ a prompt in one training-style pass.  Not ported yet (ROADMAP): ``remat``.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -301,13 +301,19 @@ def init_decode_state(cfg: LinearTransformerConfig, batch: int,
 
 
 def embed_input(params: dict, cfg: LinearTransformerConfig, token: torch.Tensor,
-                step: int, pe_table: Optional[torch.Tensor]) -> torch.Tensor:
-    """Token (B, n_fields) -> in_linear(embeddings) + pe row ``step``."""
+                step: Union[int, torch.Tensor], pe_table: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """Token (B, n_fields) -> in_linear(embeddings) + pe row ``step``.
+    ``step``: a Python int, or a 0-d integer tensor on the table's device
+    (the row is then gathered on the device, with no host sync: a CUDA
+    graph replays it at whatever position the tensor holds)."""
     embs = cm.embed_fields(params["emb"], token)
     h = cm.linear(params["in_linear"], embs)
     if pe_table is None:
         pe_table = cm.sinusoidal_table(cfg.max_len, cfg.d_model, h.dtype, h.device)
-    return h + pe_table[step].to(h.dtype)
+    row = pe_table.index_select(0, step.reshape(1))[0] if torch.is_tensor(step) \
+        else pe_table[step]
+    return h + row.to(h.dtype)
 
 
 def decode_step(params: dict, cfg: LinearTransformerConfig, token: torch.Tensor,

@@ -122,7 +122,7 @@ def _layer_call(variant: str, h: torch.Tensor, layer_params: dict, s_aug: torch.
     ws = (_v1_weights(layer_params) if variant == "v1"
           else _v2_weights(layer_params, n_head))
     out, n = run_aug(ws, h.float().contiguous(), s_aug[None], n_head=n_head, eps=eps,
-                     head_major=variant == "v2", gelu_tanh=True, bias_last=variant == "v2",
+                     head_major=variant == "v2", bias_last=variant == "v2",
                      name=f"fused_layer_step ({variant})")
     wrapper.launches += 1
     wrapper.cuda_launches += n

@@ -103,9 +103,19 @@ def sample_fields(generator: Optional[torch.Generator],
     return torch.stack(words, dim=-1).to(torch.int32)
 
 
-def _fused_layout(vocab_sizes: Sequence[int], device):
-    """Gather map packing concatenated logits (B, sum V_f) into a padded
-    (nf, Vmax) grid: (idx (nf, Vmax) int64, valid bool)."""
+_FUSED_CONSTS: dict = {}
+
+
+def _fused_consts(vocab_sizes: Sequence[int], settings: Sequence[FieldSampling], device):
+    """The fused chain's constants on ``device``, made once per (vocab,
+    settings, device) and kept, so a call issues no host-to-device copy (a
+    CUDA graph can capture it): the gather map packing concatenated logits
+    (B, sum V_f) into a padded (nf, Vmax) grid (idx int64, valid bool), the
+    temperatures and the nucleus masses (inf where a field has none)."""
+    key = (tuple(vocab_sizes), tuple(settings), str(device))
+    hit = _FUSED_CONSTS.get(key)
+    if hit is not None:
+        return hit
     nf, vmax = len(vocab_sizes), max(vocab_sizes)
     idx = torch.zeros((nf, vmax), dtype=torch.long)
     valid = torch.zeros((nf, vmax), dtype=torch.bool)
@@ -114,7 +124,12 @@ def _fused_layout(vocab_sizes: Sequence[int], device):
         idx[f, :v] = torch.arange(off, off + v)
         valid[f, :v] = True
         off += v
-    return idx.to(device), valid.to(device)
+    temps = torch.tensor([st.temperature for st in settings], dtype=torch.float32)
+    topp = torch.tensor([st.top_p if st.top_p is not None else float("inf")
+                         for st in settings], dtype=torch.float32)
+    hit = tuple(t.to(device) for t in (idx.reshape(-1), valid, temps, topp))
+    _FUSED_CONSTS[key] = hit
+    return hit
 
 
 def sample_fields_fused(generator: Optional[torch.Generator],
@@ -134,15 +149,11 @@ def sample_fields_fused(generator: Optional[torch.Generator],
     b = logits_cat.shape[0]
     nf, vmax = len(vocab_sizes), max(vocab_sizes)
     dev = logits_cat.device
-    idx, valid = _fused_layout(vocab_sizes, dev)
-    padded = logits_cat.float()[:, idx.reshape(-1)].reshape(b, nf, vmax)
-    padded = torch.where(valid[None], padded, torch.tensor(float("-inf"), device=dev))
+    idx, valid, temps, topp = _fused_consts(vocab_sizes, settings, dev)
+    padded = logits_cat.float()[:, idx].reshape(b, nf, vmax)
+    padded = torch.where(valid[None], padded, float("-inf"))
     if greedy:
         return torch.argmax(padded, dim=-1).to(torch.int32)
-
-    temps = torch.tensor([s.temperature for s in settings], dtype=torch.float32, device=dev)
-    topp = torch.tensor([s.top_p if s.top_p is not None else float("inf")
-                         for s in settings], dtype=torch.float32, device=dev)
 
     scaled = padded / temps[None, :, None]
     scaled = scaled - scaled.max(dim=-1, keepdim=True).values

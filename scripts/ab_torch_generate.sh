@@ -2,8 +2,9 @@
 # Two checkouts of the repo, A and B, held against each other on one card:
 # `cli generate` (8 bars, --warmup) at 128 songs (the chunked path) with
 # bf16 weights (its default) and with f32 weights, 5 songs (the per-step
-# path) and 5 songs under RLMG_LATENCY_DECODE=1 (the latency path, v8), f32
-# weights, then ms a token of the kernels v8 and v7 (32-token calls, CP
+# path) with bf16 and f32 weights and 5 songs under RLMG_LATENCY_DECODE=1
+# (the latency path, v8), f32 weights, then ms a token of the kernels v8
+# and v7 (32-token calls, CP
 # sampling) and of kernel A's layer stack at B = 1, 5 and 16, and ms a
 # 128-token call of kernel B with bf16 weights at B = 128 and 1024
 # (agent_config width, random bf16 weights and state, CUDA events after a
@@ -11,9 +12,13 @@
 # first.  Prints the card and one line per run.  With a third argument
 # `latency`, the generate runs are instead 1 and 5 songs on the latency
 # path with its default bf16 weights, on v8 and (RLMG_LATENCY_KERNEL=v7)
-# on v7.  AB_REPS (default 2) sets the rounds of A, B, B, A.
+# on v7.  With `cold`, they are 5 songs on the per-step path with bf16 and
+# f32 weights, each first as a process's only call (no --warmup: the call
+# pays the first call's set-up, a token graph's capture included) and then
+# with --warmup, and the kernel times are left out.  AB_REPS (default 2)
+# sets the rounds of A, B, B, A.
 #
-#   bash scripts/ab_torch_generate.sh <checkout A> <checkout B> [latency]
+#   bash scripts/ab_torch_generate.sh <checkout A> <checkout B> [latency|cold]
 #
 # Each checkout builds its own kernels into its build/torch_kernels/.
 set -u
@@ -21,12 +26,14 @@ a=$1
 b=$2
 mode=${3:-all}
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-run() {  # checkout songs max_tokens dtype [latency [kernel]]
+run() {  # checkout songs max_tokens dtype [latency [kernel [cold]]]
+  local warm=--warmup
+  [ "${7:-}" = cold ] && warm=
   (cd "$1" && RLMG_LATENCY_DECODE=${5:-0} RLMG_LATENCY_KERNEL=${6:-v8} \
      python -m reinforcement_learning_in_music_generation_torch.apps.cli generate \
-     --songs "$2" --bars 8 --max-tokens "$3" --dtype "$4" --warmup \
+     --songs "$2" --bars 8 --max-tokens "$3" --dtype "$4" $warm \
      --out-dir "${TMPDIR:-/tmp}/ab_generate/m" 2>&1 | grep "ave token time" \
-     | sed "s|^|$1 songs=$2 $4 latency=${5:-0} ${6:-}: |")
+     | sed "s|^|$1 songs=$2 $4 latency=${5:-0} ${6:-} ${7:-warm}: |")
 }
 per_token() {  # checkout: the package is imported from it (python's cwd)
   (cd "$1" && python3 - <<'EOF' | sed "s|^|$1 ms a token: |"
@@ -66,7 +73,9 @@ for b in (1, 5, 16):
     v8 = time_ms(lambda: dk8.fused_decode_v8(rp, tok, st.s, st.z, 0, 1, max_tokens=32, **kw), 10)
     v7 = time_ms(lambda: dk7.fused_decode_v7(rp, tok, st.s, st.z, 0, 1, max_tokens=32, **kw), 5)
     h = torch.zeros((b, cfg.d_model), device="cuda")
-    a = time_ms(lambda: dk4.fused_stack_step(dp, h, st.s, st.z, n_head=cfg.n_head), 30)
+    # a checkout whose kernel A takes a caller-held workspace gets one
+    kw_a = {"work": dk4.workspace(dp, b)} if hasattr(dk4, "StackWorkspace") else {}
+    a = time_ms(lambda: dk4.fused_stack_step(dp, h, st.s, st.z, n_head=cfg.n_head, **kw_a), 30)
     out.append(f"B={b} v8 {v8 / 32:.4f} v7 {v7 / 32:.4f} A {a:.4f}")
 v6p = dk6.make_v6_params(params, cfg, dtype=torch.bfloat16)
 for b in (128, 1024):
@@ -80,7 +89,13 @@ EOF
 }
 for rep in $(seq "${AB_REPS:-2}"); do
   for tree in "$a" "$b" "$b" "$a"; do
-    if [ "$mode" = latency ]; then
+    if [ "$mode" = cold ]; then
+      for dtype in bfloat16 float32; do
+        run "$tree" 5 512 "$dtype" 0 v8 cold
+        run "$tree" 5 512 "$dtype"
+      done
+      continue
+    elif [ "$mode" = latency ]; then
       for songs in 1 5; do
         run "$tree" "$songs" 512 bfloat16 1 v8
         run "$tree" "$songs" 512 bfloat16 1 v7
@@ -88,6 +103,7 @@ for rep in $(seq "${AB_REPS:-2}"); do
     else
       run "$tree" 128 256 bfloat16
       run "$tree" 128 256 float32
+      run "$tree" 5 512 bfloat16
       run "$tree" 5 512 float32
       run "$tree" 5 512 float32 1
     fi

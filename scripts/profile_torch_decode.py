@@ -244,10 +244,11 @@ def main():
         st = lt.DecodeState(dk3.init_aug_state(cfg, b, dev), torch.zeros(1, device=dev), 0)
         h = torch.zeros((b, cfg.d_model), dtype=torch.bfloat16, device=dev)
         tok = torch.zeros((b, 6), dtype=torch.int32, device=dev)
+        work = dk3.workspace(v3p, b)
         for _ in range(64):
             if sample:
                 tok = smp.sample_fields(gen, lt.forward_output(p16, cfg, h), smp.CP_SAMPLING)
-            h, st = dk3.decode_step_v3(p16, v3p, cfg, tok, st, pe_table=pe16)
+            h, st = dk3.decode_step_v3(p16, v3p, cfg, tok, st, pe_table=pe16, work=work)
         return h
 
     res = [

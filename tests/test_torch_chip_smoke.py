@@ -69,9 +69,27 @@ def test_decode_token_bound_counts_weights_and_state_once(smoke):
     # v5's products take bf16 inputs: at the tensor cores' peak the bytes bind
     bound_ms, by = smoke.bound(nbytes5, ops5, smoke.BF16_FLOPS)
     assert by == "bytes" and 0.267 < bound_ms < 0.268
-    # the same operations as f32 FMAs (v3, kernel A: f32 products) would bind
+    # the same operations as f32 FMAs (the products of v3 and kernel A before
+    # they moved to the tensor cores) would bind
     bound_ms, by = smoke.bound(nbytes5, ops5)
     assert by == "operations" and 0.29 < bound_ms < 0.30
+
+
+@pytest.mark.parametrize("b,state,by", [(5, True, "bytes"), (128, True, "bytes"),
+                                        (4096, False, "operations")])
+def test_token_kernel_bound_charges_three_bf16_products(smoke, b, state, by):
+    """Kernel A and v3 with bf16 weights form each product as three bf16
+    products (the f32 activations in three planes): operations at a third
+    of the bf16 peak; at the per-step path's batches the bytes bind (with
+    v3's f32 state at any batch), the operations only for the weights alone
+    at thousands of songs."""
+    L, d, di, h = 12, 512, 2048, 8
+    assert smoke.SPLIT3_BF16_FLOPS == smoke.BF16_FLOPS / 3
+    ops, nbytes = smoke.decode_token_work(
+        b, L, d, di, w_bytes=2, state_bytes=smoke.aug_state_bytes(b, L, d, h) if state else 0)
+    bound_ms, got = smoke.bound(nbytes, ops, smoke.SPLIT3_BF16_FLOPS)
+    assert got == by
+    assert bound_ms == max(nbytes / smoke.HBM_BYTES_PER_S, ops / smoke.SPLIT3_BF16_FLOPS) * 1e3
 
 
 @pytest.mark.parametrize("peak", ["F32_FLOPS", "BF16_FLOPS"])

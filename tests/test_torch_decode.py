@@ -16,6 +16,7 @@ import torch
 
 from reinforcement_learning_in_music_generation_torch import config as TC
 from reinforcement_learning_in_music_generation_torch import weights as tw
+from reinforcement_learning_in_music_generation_torch.models import common as tcm
 from reinforcement_learning_in_music_generation_torch.models import linear_transformer as tlt
 from reinforcement_learning_in_music_generation_torch.ops import decode_common as tdc
 from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v4 as tdk4
@@ -77,27 +78,109 @@ def test_make_decode_params_and_fused_logits_match_jax(both):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
 
 
-def test_plain_decode_step_v4_matches_pallas_interpret(both):
+def _bf16_matrices(td: dict) -> dict:
+    """make_decode_params' dict with the four weight matrices in bf16 and
+    the vectors in f32: what JAX make_v4_params(dtype=bfloat16) holds."""
+    out = dict(td, qkv_w=td["qkv_w"].to(torch.bfloat16))
+    for k in ("wo", "ffn1", "ffn2"):
+        out[k] = dict(td[k], w=td[k]["w"].to(torch.bfloat16))
+    return out
+
+
+# (weights, state, rtol/atol of h, of the state).  f32 weights and state:
+# the tolerances of tests/test_decode_kernel_v3.py (the two sides sum in
+# other orders).  bf16 weights: the same values cast up on both sides, so
+# the same tolerances.  bf16 state: both sides round the same f32 sums on
+# store; a sum the two orders left on either side of a rounding boundary
+# would store one bf16 step apart, so the state is held to 2^-8 relative
+# (here every stored value agrees, and h within 7.2e-7).
+V4_CASES = [("float32", "float32", (2e-4, 2e-5), (2e-4, 2e-5)),
+            ("bfloat16", "float32", (2e-4, 2e-5), (2e-4, 2e-5)),
+            ("bfloat16", "bfloat16", (2e-4, 2e-5), (4e-3, 2e-5))]
+
+
+@pytest.mark.parametrize("wdt,sdt,h_tol,s_tol", V4_CASES)
+def test_plain_decode_step_v4_matches_pallas_interpret(both, wdt, sdt, h_tol, s_tol):
     """Kernel A's plain version against the Pallas v4 kernel in interpret
-    mode, f32 state (tests/test_decode_kernel_v3.py tolerances)."""
+    mode at the dtypes the port runs: f32 or bf16 weights (JAX
+    make_v4_params' dtype), f32 or bf16 state."""
     jp, tp = both
     b = 4
-    v4p = dk4.make_v4_params(jp, CFG, dtype=jnp.float32)
-    jst = dk4.init_pair_state(CFG, b, dtype=jnp.float32)
+    v4p = dk4.make_v4_params(jp, CFG, dtype=getattr(jnp, wdt))
+    jst = dk4.init_pair_state(CFG, b, dtype=getattr(jnp, sdt))
     td = tlt.make_decode_params(tp, TCFG)
-    tst = tdk4.init_state(TCFG, b, torch.float32, "cpu")
+    if wdt == "bfloat16":
+        td = _bf16_matrices(td)
+    tst = tdk4.init_state(TCFG, b, getattr(torch, sdt), "cpu")
     toks = _tokens(1, 6, b)
     for t in range(6):
         jh, jst = dk4.decode_step_v4(jp, v4p, CFG, jnp.asarray(toks[t]), jst, interpret=True)
         th, tst = tdk4.decode_step_v4(tp, td, TCFG, torch.from_numpy(toks[t]), tst)
-        np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=h_tol[0], atol=h_tol[1])
     L, P, e = CFG.n_layer, CFG.n_head // 2, CFG.d_head
-    s4 = np.asarray(jst.s).reshape(L, P, b, e, 2, e).transpose(0, 2, 1, 4, 3, 5)
-    z4 = np.asarray(jst.z).reshape(L, P, b, 2, e).transpose(0, 2, 1, 3, 4)
-    np.testing.assert_allclose(tst.s.numpy(), s4.reshape(L, b, CFG.n_head, e, e),
-                               rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(tst.z.numpy(), z4.reshape(L, b, CFG.n_head, e),
-                               rtol=2e-4, atol=2e-5)
+    s4 = np.asarray(jst.s.astype(jnp.float32)).reshape(L, P, b, e, 2, e).transpose(
+        0, 2, 1, 4, 3, 5)
+    z4 = np.asarray(jst.z.astype(jnp.float32)).reshape(L, P, b, 2, e).transpose(0, 2, 1, 3, 4)
+    np.testing.assert_allclose(tst.s.float().numpy(), s4.reshape(L, b, CFG.n_head, e, e),
+                               rtol=s_tol[0], atol=s_tol[1])
+    np.testing.assert_allclose(tst.z.float().numpy(), z4.reshape(L, b, CFG.n_head, e),
+                               rtol=s_tol[0], atol=s_tol[1])
+
+
+def test_plain_twin_sums_ln1_as_the_jax_kernel(both, monkeypatch):
+    """LN1's input is (h + att Wo) + bo, JAX v4's ``hf + ao_scr[...] +
+    wob_ref[0, 0]``: ln1_input equals that expression in jnp bit for bit on
+    values where the other order, h + (att Wo + bo), differs; and the twin
+    forms LN1's input through ln1_input, once a layer."""
+    rng = np.random.default_rng(11)
+    h = rng.normal(size=(64, 32)).astype(np.float32) * 1e3
+    ao = rng.normal(size=(64, 32)).astype(np.float32)
+    bo = rng.normal(size=(32,)).astype(np.float32) * 1e-3
+    jax_order = np.asarray(jnp.asarray(h) + jnp.asarray(ao) + jnp.asarray(bo))
+    ours = tdk4.ln1_input(torch.from_numpy(h), torch.from_numpy(ao), torch.from_numpy(bo))
+    np.testing.assert_array_equal(ours.numpy(), jax_order)
+    other = (torch.from_numpy(h) + (torch.from_numpy(ao) + torch.from_numpy(bo))).numpy()
+    assert (other != jax_order).any()            # the orders can be told apart here
+    _, tp = both
+    seen, real = [], tdk4.ln1_input
+    monkeypatch.setattr(tdk4, "ln1_input", lambda *a: seen.append(a) or real(*a))
+    td = tlt.make_decode_params(tp, TCFG)
+    st = tdk4.init_state(TCFG, 2, torch.float32, "cpu")
+    tdk4.fused_stack_step_plain(td, torch.from_numpy(h[:2]), st.s, st.z, n_head=2)
+    assert len(seen) == CFG.n_layer
+    assert torch.equal(seen[0][0], torch.from_numpy(h[:2]))
+
+
+def test_pack_fragments_follow_the_mma_layout():
+    """pack_fragments' (L, N/8, Kp/32, 32, 8) values are the B fragments of
+    mma.m16n8k16 (lane l = 4 g + t, depth step s: rows k0 + 2t, +1, +8, +9
+    of column 8 j + g, k0 = 32 c + 16 s), K padded with zeros to 32."""
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy(rng.normal(size=(2, 40, 24)).astype(np.float32))
+    p = tdk4.pack_fragments(w)
+    assert tuple(p.shape) == (2, 3, 2, 32, 8)
+    wp = torch.nn.functional.pad(w, (0, 0, 0, 24))
+    for l, j, c, lane in ((0, 0, 0, 0), (1, 2, 1, 31), (0, 1, 1, 13), (1, 0, 0, 6)):
+        g, t = lane // 4, lane % 4
+        for sidx in range(2):
+            k0 = 32 * c + 16 * sidx + 2 * t
+            want = [wp[l, k, 8 * j + g] for k in (k0, k0 + 1, k0 + 8, k0 + 9)]
+            assert p[l, j, c, lane, 4 * sidx:4 * sidx + 4].tolist() == [x.item() for x in want]
+    assert (p[:, :, 1, :, :].abs().sum() > 0) and tdk4.pack_fragments(w[:, :32]).shape[2] == 1
+
+
+def test_embed_input_at_a_device_position_equals_the_int_position(both):
+    """embed_input with the position as a 0-d tensor (what the per-step
+    CUDA graph replays) gives the int position's rows bit for bit."""
+    _, tp = both
+    tok = torch.from_numpy(_tokens(13, 1, 3)[0])
+    pe = tcm.sinusoidal_table(TCFG.max_len, TCFG.d_model, torch.float32, "cpu")
+    for step in (0, 1, 17, TCFG.max_len - 1):
+        a = tlt.embed_input(tp, TCFG, tok, step, pe)
+        b = tlt.embed_input(tp, TCFG, tok, torch.tensor(step), pe)
+        assert torch.equal(a, b), step
+    assert torch.equal(tlt.embed_input(tp, TCFG, tok, torch.tensor(5), None),
+                       tlt.embed_input(tp, TCFG, tok, 5, None))
 
 
 def test_fused_stack_step_checks_its_inputs(both):
@@ -111,6 +194,25 @@ def test_fused_stack_step_checks_its_inputs(both):
         tdk4._check_inputs(tdk4.layer_weights(td), h, st.s[:, :1], st.z, 2)
     with pytest.raises(TypeError, match="h0"):
         tdk4._check_inputs(tdk4.layer_weights(td), h.double(), st.s, st.z, 2)
+
+
+@pytest.mark.parametrize("d_model,n_head,ok", [(48, 4, False), (48, 3, True),
+                                                (2056, 8, False)])
+def test_chunk_kernels_keep_their_head_width_rule(d_model, n_head, ok):
+    """The input check that kernels B, v5, v8 and v7 share refuses what their
+    kernels do not take: a head width not dividing 256 (12 at 48 / 4) or
+    above 128, or d_model above 2048 (a width kernel A refuses too, for its
+    own reasons, and checks through its library)."""
+    cfg = TC.LinearTransformerConfig(vocab_sizes=VOCAB, emb_sizes=(4,) * 6, d_model=d_model,
+                                     n_layer=1, n_head=n_head, d_inner=16)
+    dp = tlt.make_decode_params(tlt.init_params(cfg, seed=0, device="cpu"), cfg)
+    st = tdk4.init_state(cfg, 2, torch.float32, "cpu")
+    h = torch.zeros((2, d_model))
+    if ok:
+        assert tdk4._check_inputs(tdk4.layer_weights(dp), h, st.s, st.z, n_head)[2] == d_model
+    else:
+        with pytest.raises(ValueError, match="head width"):
+            tdk4._check_inputs(tdk4.layer_weights(dp), h, st.s, st.z, n_head)
 
 
 def test_v6_params_match_jax_fold_and_heads(both):

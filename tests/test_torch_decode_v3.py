@@ -70,13 +70,16 @@ def test_make_v3_params_equals_jax(d_model, n_head, dtype):
 
 
 @pytest.mark.parametrize("d_model,n_head", SHAPES)
-def test_decode_step_v3_matches_jax_interpret(d_model, n_head):
-    """Six teacher-forced tokens at B=4, f32 weights: h within rtol 2e-4 /
-    atol 2e-5 and the augmented state within 1e-4 / 1e-5 of the JAX kernel
-    in interpret mode."""
+@pytest.mark.parametrize("wdt", ["float32", "bfloat16"])
+def test_decode_step_v3_matches_jax_interpret(d_model, n_head, wdt):
+    """Six teacher-forced tokens at B=4, f32 or bf16 weights (make_v3_params'
+    dtype on both sides: the matrices in it, the vectors f32; the state is
+    f32 either way): h within rtol 2e-4 / atol 2e-5 and the augmented state
+    within 1e-4 / 1e-5 of the JAX kernel in interpret mode (the same values
+    cast up on both sides; only the sums' order differs)."""
     cfg, tcfg, jp, tp = _both(d_model, n_head)
-    jv = dk3.make_v3_params(jp, cfg, dtype=jnp.float32)
-    tv = tdk3.make_v3_params(tp, tcfg, dtype=torch.float32)
+    jv = dk3.make_v3_params(jp, cfg, dtype=getattr(jnp, wdt))
+    tv = tdk3.make_v3_params(tp, tcfg, dtype=getattr(torch, wdt))
     b = 4
     rng = np.random.default_rng(0)
     toks = np.stack([rng.integers(0, v, size=(6, b)) for v in VOCAB], -1).astype(np.int32)

@@ -187,3 +187,33 @@ def test_cli_reads_jax_checkpoint(tmp_path):
     ttok.write_midi_cp(song, str(tmp_path / "ref.mid"), w2e)
     with open(out / "get_0.mid", "rb") as a, open(tmp_path / "ref.mid", "rb") as b:
         assert a.read() == b.read()
+
+
+def test_cache_holds_its_tensors_weakly_and_builds_again_after_an_update():
+    """sampler._cached (the token graphs' and the packed weights' cache): a
+    hit while the params' tensors live unchanged; a new build after an
+    in-place update or a replaced tensor; the entry gone once a tensor is
+    freed, since it holds none of them; the oldest entry evicted past its
+    size."""
+    import collections
+    import gc
+    cache = collections.OrderedDict()
+    builds = []
+
+    def get(p, key="k"):
+        return tsam._cached(cache, 2, key, p, lambda: builds.append(key) or len(builds))
+
+    p = {"a": torch.zeros(3), "b": {"c": torch.ones(2)}}
+    assert get(p) == 1 and get(p) == 1
+    p["b"]["c"].add_(1)                             # updated in place
+    assert get(p) == 2 and get(p) == 2
+    p["b"]["c"] = torch.ones(2)                     # replaced: the old tensor is freed
+    assert "k" not in cache
+    assert get(p) == 3
+    del p
+    gc.collect()
+    assert not cache
+    q = [{"a": torch.zeros(1)} for _ in range(3)]
+    for i, qi in enumerate(q):
+        get(qi, i)
+    assert list(cache) == [1, 2] and builds[-3:] == [0, 1, 2]
