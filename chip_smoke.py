@@ -81,10 +81,13 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
  11. holds kernel F (causal_product, the counterpart of the Pallas causal
      linear-attention product _fwd_pallas / _bwd_pallas) against its plain
      twin at (1, 8, 50, 64) (a rollout episode), (30, 8, 50, 64) (a DQN
-     update), (32, 8, 512, 64) (pretrain) and a ragged (4, 8, 300, 64), f32,
-     in the model's layout (views of (B, S, H, E) tensors): out and den
-     within 1e-4 of their magnitude, dq / dk / dv within 1e-3 of theirs; two
-     backward runs bit-equal; bfloat16 inputs and heads of 72 refused;
+     update), (32, 8, 512, 64) (pretrain), a ragged (4, 8, 300, 64) and the
+     tile edge (4, 8, 64, 64), (4, 8, 65, 64), f32, in the model's layout
+     (views of (B, S, H, E) tensors): out and den within 1e-4 of their
+     magnitude, dq / dk / dv within 1e-3 of theirs; F's runs as the kernel
+     counts them equal the wrapper's calls; two backward runs bit-equal at
+     the DQN, ragged and pretrain shapes; bfloat16 inputs and heads of 72
+     refused;
  12. takes one full-width DQN update (agent_config, dropout 0, lr 1e-4,
      B=30 x S=50, the same weights and batches) on the default route (the
      plain composition) and under RLMG_ATTN_BACKEND=pallas (kernel F): mse
@@ -92,19 +95,30 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      in 5; F's counters 3 x 12 forward and 2 x 12 backward (eval, target,
      CE; no backward through the target) and 0 on the default route;
      choose_action on 50 states equal in >= 99% of the action fields across
-     routes; then times two more updates of each;
+     routes; then times two more updates of each; then (12b) on each route
+     4 rollout songs (50 episodes) as graph replays (one an episode) and as
+     the eager loop, states, actions and next states bit-equal, again after
+     one in-place DQN update, with ms per song, host launches and the busy
+     share of one song's window of each; one capture a route; F's own runs
+     12 x 50 x 12 + 36 forward and 24 backward, the wrapper's counts its
+     eager calls only (the capture's first episode, the eager songs and the
+     update);
  13. takes one AIRL disc_step and scores 500 states at full width (10
      layers, window 50, B=100 x S=50): finite losses and scores; times the
      step and the scoring pass;
  14. runs ``apps/cli.py dqn-train`` (batch 30, buffer 500, 12 songs, 2
      updates) on both routes: 2 updates, the checkpoints and
      agent_info.pickle written, every printed loss and score finite, F's
-     counters 12 x (50 x 12 + 3 x 2) = 7272 forward and 12 x 2 x 2 = 48
-     backward under RLMG_ATTN_BACKEND=pallas and 0 on the default route;
-     prints ms per rollout song, per DQN update and per AIRL pass;
+     own runs 12 x (50 x 12 + 3 x 2) = 7272 forward and 12 x 2 x 2 = 48
+     backward under RLMG_ATTN_BACKEND=pallas and 0 on the default route,
+     the wrapper's counts the eager calls (12 a capture and the updates'
+     72 + 48); the median ms per rollout song after the
+     first (graph replays) at most a third of phase 12b's eager loop's on
+     each route; prints ms per rollout song, per DQN update and per AIRL
+     pass;
  15. runs ``apps/cli.py pretrain`` 4 steps at B=32 x S=512 under
-     RLMG_ATTN_BACKEND=pallas: F's counters 48 + 48, C's and D's 0, every
-     loss finite;
+     RLMG_ATTN_BACKEND=pallas: F's counters 48 + 48 and its own runs the
+     same, C's and D's 0, every loss finite;
  16. holds kernel G (ffn_block, the counterpart of the Pallas ffn_block)
      against its plain twin at 50 rows (a rollout state), 100 (ragged),
      1500 (a PPO update) and 16384 (pretrain), d_model 512, FFN 2048, f32,
@@ -114,20 +128,30 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
  17. one full-width PPO rollout song and update step (actor_config and
      critic_config at 12 layers, the reward ppo_reward_config at 10, dropout
      0, lr 1e-4, 30 episodes of 50-state windows) on the default route and
-     under RLMG_FFN_BACKEND=pallas (kernel G): G's counters 30 x 24 forward
-     in the rollout and 36 + 36 in the update (0 on the default route);
+     under RLMG_FFN_BACKEND=pallas (kernel G): G's own forward runs 30 x 24
+     in the graphed rollout (the wrapper's count 24, the capture's first
+     episode) and the wrapper's 36 + 36 in the update (0 on the default
+     route);
      choose_action on 50 states equal in >= 99% of the action fields; the
      rollout's values and rewards within 1e-4; the losses within 1e-4
      relative, gradients, parameters and Adam updates of both trees as in
-     5; then times two more steps of each;
+     5; then times two more steps of each; then (17b) on each route 4
+     rollout songs as graph replays and as the eager loop: states and
+     actions bit-equal, log-probs, values and rewards within 1e-6 of their
+     magnitude, again after one in-place update step, with ms per song, host
+     launches and busy share; one capture a route; G's own forward runs
+     those of every episode and the update, the wrapper's its eager calls;
  18. runs ``apps/cli.py ppo-train`` (2 songs, 30 episodes, 50 states, 25
      actions, 10 PPO steps) on both routes: ppo_best.ckpt written, every
-     printed loss and reward finite, G's counters 2 x 1080 forward and
-     2 x 360 backward under the knob and 0 on the default route; prints ms
-     per rollout song and per update_policy;
+     printed loss and reward finite, G's own forward runs 2 x 1080 and the
+     wrapper's 2 x 360 backward under the knob and 0 on the default route,
+     the wrapper's forward count its eager calls (24 a capture and the
+     updates' 2 x 360); the second rollout song (graph replays) at most
+     a third of phase 17b's eager median; prints ms per rollout song and
+     per update_policy;
  19. runs ``apps/cli.py pretrain`` 4 steps at B=32 x S=512 under
-     RLMG_FFN_BACKEND=pallas (dropout 0.1): G's counters 48 + 48, C's, D's
-     and F's 0, every loss finite;
+     RLMG_FFN_BACKEND=pallas (dropout 0.1): G's counters 48 + 48 (its own
+     forward runs 48), C's, D's and F's 0, every loss finite;
  20. runs ``apps/cli.py inference`` (the actor at full width, 150 tokens)
      and checks the MIDI file holds 150 notes;
  21. holds the latency kernels (csrc/latency_decode.cu: v8, one launch a
@@ -186,7 +210,10 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      kernels D (16384 and 14336 rows) and G (50, 1500, 16384 rows) at f32
      and bf16 with the CUDA launches a call, bounded at the rate of their
      tensor-core arithmetic (bf16 989 TFLOP/s; f32 tensors 989/6, six bf16
-     products a product), the f32 FMA bound beside.
+     products a product), the f32 FMA bound beside; kernel F at the
+     rollout, DQN-update and pretrain shapes through the wrapper, on the
+     card alone (profiler) and back to back (the host's pace), bounded at
+     989/6 TFLOP/s with the f32 FMA bound beside.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -244,6 +271,22 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """The card's ms a call of ``fn``, whose call launches each of its
+    kernels once: the sum over its kernels of each one's mean time under
+    torch.profiler, over ``reps`` calls after a warm one (the host's pace
+    does not enter; a mean per kernel, as the profiler may not keep every
+    record of a window)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total / ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count) / 1e3
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
@@ -361,6 +404,72 @@ def token_graph_window(sampler, params, cfg, dev, b=5, steps=64) -> dict:
                 captures=sampler.generate_tokens.graph_captures - c0, tokens=tokens,
                 kernel_runs=kern.kernel_runs(),
                 eager_launches=kern.fused_stack_step.launches - eager0, graph_bytes=held)
+
+
+def rollout_window(run) -> dict:
+    """One call of ``run`` (a rollout song) under torch.profiler: the wall
+    ms, the kernels' union ms, the busy share (union / wall) and the host's
+    launch calls (runtime or driver kernel launches and graph launches)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ka = prof.key_averages()
+    host = {ev.key: ev.count for ev in ka if ev.device_type == torch.autograd.DeviceType.CPU
+            and re.match(r"cu(da)?(Graph)?Launch", ev.key)}
+    union = kernel_union_ms(prof)
+    return dict(wall_ms=wall, union_ms=union, busy=union / wall,
+                host_launches=sum(host.values()), host_calls=host)
+
+
+def compare_rollouts(tag, rollout, songs, update, exact_keys, close_keys):
+    """``rollout(song, graph)`` of each song graphed (a replay an episode)
+    and eager: the keys ``exact_keys`` bit-equal, ``close_keys`` within
+    1e-6 of their magnitude; then ``update()`` (an in-place optimizer step
+    on the rollout's weights) and one song again.  Returns the ms per song
+    of each (the first graphed song pays the capture) and one song's
+    profiler window of each."""
+    ms = {True: [], False: []}
+    out = {}
+    for i in range(songs):
+        for graph in (True, False):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[graph] = rollout(i, graph)
+            torch.cuda.synchronize()
+            ms[graph].append((time.perf_counter() - t) * 1e3)
+        worst = 0.0
+        for k in exact_keys:
+            check(torch.equal(out[True][k], out[False][k]),
+                  f"{tag}: song {i}: graphed {k} differs from the eager loop's")
+        for k in close_keys:
+            e = max_err(out[True][k], out[False][k])
+            worst = max(worst, e / magnitude(out[False][k]))
+            check(e <= 1e-6 * magnitude(out[False][k]), f"{tag}: song {i}: {k} differs by {e}")
+        print(f"[{tag}] song {i}: graphed {ms[True][-1]:.1f} ms, eager {ms[False][-1]:.1f} ms; "
+              f"{', '.join(exact_keys)} bit-equal; {', '.join(close_keys) or 'nothing else'} "
+              f"within {worst:.3e} of their magnitude", flush=True)
+    update()
+    g, e = rollout(0, True), rollout(0, False)
+    same = all(torch.equal(g[k], e[k]) for k in exact_keys) and all(
+        max_err(g[k], e[k]) <= 1e-6 * magnitude(e[k]) for k in close_keys)
+    print(f"[{tag}] after an in-place update of the weights: the replay "
+          f"{'equals' if same else 'DIFFERS FROM'} the eager loop", flush=True)
+    check(same, f"{tag}: after an in-place update the replay differs from the eager loop")
+    win = {graph: rollout_window(lambda: rollout(1, graph)) for graph in (True, False)}
+    med = {graph: sorted(v[1:])[len(v[1:]) // 2] for graph, v in ms.items()}
+    for graph in (True, False):
+        w = win[graph]
+        print(f"[{tag}] {'graphed' if graph else 'eager'}: median ms per song after the first "
+              f"{med[graph]:.2f} (first {ms[graph][0]:.1f}); one song under the profiler: wall "
+              f"{w['wall_ms']:.2f} ms, kernels' union {w['union_ms']:.2f} ms, busy "
+              f"{w['busy']:.1%}, {w['host_launches']} host launches {w['host_calls']}",
+              flush=True)
+    return dict(ms_graphed=ms[True], ms_eager=ms[False], median_graphed=med[True],
+                median_eager=med[False], window_graphed=win[True], window_eager=win[False])
 
 
 def max_err(a, b) -> float:
@@ -1968,8 +2077,10 @@ def main() -> None:
     f_plain = lambda *a: tlk.causal_product_plain(*a, cfg.attn_eps)[0]
     BQ, SQ = 30, 50                               # a DQN update's (B, S)
     f_shapes = {"rollout": (1, H, SQ, E), "dqn": (BQ, H, SQ, E), "pretrain": (BT, H, ST, E),
-                "ragged": (4, H, 300, E)}
+                "ragged": (4, H, 300, E), "edge64": (4, H, 64, E), "edge65": (4, H, 65, E)}
     f_in, f_err = {}, {}
+    tlk.kernel_runs(reset=True)
+    f_calls = (tlk.causal_product.launches_fwd, tlk.causal_product.launches_bwd)
     for tag, shape in f_shapes.items():
         pq, pk, v_f, g_f = f_in[tag] = product_inputs(*shape)
         ok, gk = fwd_bwd(f_kernel, (pq, pk, v_f), g_f)
@@ -1991,14 +2102,23 @@ def main() -> None:
             check(bool(torch.isfinite(x_).all()), f"causal_product {tag} {name}: not finite")
             check(e_ <= 1e-3 * magnitude(y_), f"causal_product {tag} {name}: max|diff| {e_}")
         del ok, gk, op, gp
+    f_calls = (tlk.causal_product.launches_fwd - f_calls[0],
+               tlk.causal_product.launches_bwd - f_calls[1])
+    f_runs = tlk.kernel_runs()
+    print(f"[causal_product] runs as the kernel counts them {f_runs}, the wrapper's calls "
+          f"{f_calls}", flush=True)
+    check(f_runs == f_calls, f"causal_product: the kernel counted {f_runs} runs for the "
+          f"wrapper's {f_calls} calls")
+    for tag in ("dqn", "ragged", "pretrain"):               # one tile, and the state pass
+        pq, pk, v_f, g_f = f_in[tag]
+        out_f, den_f = tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps)
+        g1 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
+        g2 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(g1, g2))
+        print(f"[causal_product] {tag}: two backward runs {'bit-equal' if same else 'DIFFERENT'}",
+              flush=True)
+        check(same, f"causal_product {tag}: two backward runs differ")
     pq, pk, v_f, g_f = f_in["ragged"]
-    out_f, den_f = tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps)
-    g1 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
-    g2 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
-    same = all(torch.equal(a_, b_) for a_, b_ in zip(g1, g2))
-    print(f"[causal_product] two backward runs: {'bit-equal' if same else 'DIFFERENT'}",
-          flush=True)
-    check(same, "causal_product: two backward runs differ")
     for what, bad in (("bfloat16", (pq.bfloat16(), pk.bfloat16(), v_f.bfloat16())),
                       ("head width 72", (torch.ones((1, H, SQ, 72), device=dev),) * 3)):
         try:
@@ -2010,6 +2130,7 @@ def main() -> None:
 
     # -- 12. one full-width DQN update on the default and the kernel-F route -
     from reinforcement_learning_in_music_generation_torch.rl import airl, buffers, dqn, env
+    from reinforcement_learning_in_music_generation_torch.rl import episode_graph as teg
     vocab = (56, 135, 18, 87, 18, 25)             # dqn-train's six fields
     qcfg = C.agent_config(vocab, dropout=0.0)
     # lr 1e-4, as phase 5 steps, so the parameter check can see an update
@@ -2069,6 +2190,46 @@ def main() -> None:
     print(f"[dqn_update] choose_action on {SQ} states: {agree:.4%} of action fields equal "
           f"across routes", flush=True)
     check(agree >= 0.99, f"choose_action: {agree} < 99% equal across routes")
+
+    # -- 12b. the DQN rollout: a graph replay an episode against the eager loop
+    q_roll = {}
+    for name, envv in qroutes.items():
+        set_env(envv)
+        hold = {"s": dqn.init_state(qcfg, dqcfg, topt.tree_map(torch.clone, qp0))}
+        qtx = dqn.make_optimizer(dqcfg)
+
+        def q_rollout(i, graph):
+            return env.dqn_rollout_song(hold["s"].eval_params, qcfg, qxs[i], qys[i], qms[i],
+                                        episodes=50, n_states=SQ, n_actions=dqcfg.n_actions,
+                                        graph=graph)[0]
+
+        def q_update():
+            hold["s"], _ = dqn.update(hold["s"], qcfg, dqcfg, qtx, qbatch, qebatch, None)
+
+        zero_counts()
+        tlk.kernel_runs(reset=True)
+        caps = teg.EpisodeLoop.captures
+        q_roll[name] = compare_rollouts(f"dqn_rollout {name}", q_rollout, 4, q_update,
+                                        ("state", "action", "next_state"), ())
+        torch.cuda.synchronize()
+        counts, runs = read_counts(), tlk.kernel_runs()
+        caps = teg.EpisodeLoop.captures - caps
+        # 6 songs each way (4, one after the update, one window); the wrappers
+        # count the eager episodes only, each capture's first one among them;
+        # F counts its own runs, replays included
+        eager = 6 * 50 + caps
+        on = name == "kernel"
+        want = [0] * 6 + ([eager * L + 3 * L, 2 * L] if on else [0, 0]) + [0, 0]
+        want_runs = (12 * 50 * L + 3 * L, 2 * L) if on else (0, 0)
+        print(f"[dqn_rollout] {name} route: {caps} capture(s); the wrappers' eager launches "
+              f"(C, D, E, F, G fwd/bwd) {counts}; F's runs as the kernel counts them {runs}",
+              flush=True)
+        check(caps == 1, f"dqn rollouts, {name} route: {caps} captures, expected 1")
+        check(counts == want, f"dqn rollouts, {name} route: launches {counts}, expected {want}")
+        check(runs == want_runs, f"dqn rollouts, {name} route: F counted {runs} runs, "
+              f"expected {want_runs}")
+        del hold, qtx
+    restore_env()
     del q_out, qp0
 
     # -- 13. one AIRL discriminator step and a scoring pass at full width ------
@@ -2115,13 +2276,16 @@ def main() -> None:
             set_env(envv)
             ck = os.path.join(tmp, name, "ckpt")
             zero_counts()
+            tlk.kernel_runs(reset=True)
+            caps = teg.EpisodeLoop.captures
             res = cli.main(["dqn-train", "--synthetic", "--synthetic-songs", "16",
                             "--seq-len", "512", "--batch-size", str(BQ), "--buffer-size", "500",
                             "--songs", "12", "--max-updates", "2", "--ckpt-epoch-gate", "0",
                             "--exp-dir", os.path.join(tmp, name, "exp"), "--ckpt-dir", ck])
             torch.cuda.synchronize()
             counts = read_counts()
-            qcli[name] = (res, counts)
+            caps = teg.EpisodeLoop.captures - caps
+            qcli[name] = (res, counts, tlk.kernel_runs())
             med = lambda v: sorted(v)[len(v) // 2]
             print(f"[dqn-train] {name} route: {res['updates']} updates; ms per rollout song "
                   f"(50 episodes) median {med(res['rollout_ms']):.1f} (first "
@@ -2133,16 +2297,36 @@ def main() -> None:
                 check(os.path.exists(os.path.join(ck, f_)), f"dqn-train {name}: no {f_}")
             check(all(math.isfinite(v) for m_ in res["metrics"] for v in m_.values()),
                   f"dqn-train {name}: a printed loss or score is not finite")
-            want = [0] * 6 + ([12 * (50 * 12 + 3 * 2), 12 * 2 * 2] if name == "kernel"
-                              else [0, 0]) + [0, 0]
+            # F runs 12 songs x 50 episodes x 12 layers and 3 forwards and 2
+            # backwards of the 12 layers an update, as the kernel counts them;
+            # the wrapper counts the eager calls: each capture's first episode
+            # and the updates
+            on = name == "kernel"
+            want_runs = (12 * (50 * 12 + 3 * 2), 12 * 2 * 2) if on else (0, 0)
+            want = [0] * 6 + ([12 * (caps + 3 * 2), 12 * 2 * 2] if on else [0, 0]) + [0, 0]
+            check(caps >= 1, f"dqn-train {name}: the rollouts captured no graph")
             check(counts == want, f"dqn-train {name}: launches {counts}, expected {want}")
+            runs = tlk.kernel_runs()
+            check(runs == want_runs, f"dqn-train {name}: F counted {runs} runs, expected "
+                  f"{want_runs}")
+            cli_med = med(res["rollout_ms"][1:])
+            ratio = cli_med / q_roll[name]["median_eager"]
+            print(f"[dqn-train] {name} route: {caps} capture(s); F's runs as the kernel counts "
+                  f"them {runs}; median "
+                  f"ms per rollout song after the first {cli_med:.1f} (graph replays) against "
+                  f"the eager loop's {q_roll[name]['median_eager']:.1f} (phase 12b): "
+                  f"{ratio:.3f}", flush=True)
+            check(ratio <= 1 / 3, f"dqn-train {name}: graphed rollout songs take {ratio:.3f} "
+                  "of the eager loop's time, more than a third")
     restore_env()
-    launches["F"] = qcli["kernel"][1][6:8]
+    launches["F"] = qcli["kernel"][2]                 # the kernel's own count
+    launches["F_eager"] = qcli["kernel"][1][6:8]
 
     # -- 15. cli pretrain on kernel F's route (RLMG_ATTN_BACKEND=pallas) -----
     with tempfile.TemporaryDirectory() as tmp:
         set_env({"RLMG_ATTN_BACKEND": "pallas"})
         zero_counts()
+        tlk.kernel_runs(reset=True)
         res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64", "--batch-size",
                         str(BT), "--seq-len", str(ST), "--max-steps", "4",
                         "--exp-dir", os.path.join(tmp, "exp"), "--ckpt-dir",
@@ -2160,6 +2344,8 @@ def main() -> None:
         "pretrain on kernel F's route: a logged loss is not finite")
     want = [0] * 6 + [12 * 4, 12 * 4, 0, 0]
     check(counts == want, f"pretrain on kernel F's route: launches {counts}, expected {want}")
+    runs = tlk.kernel_runs()
+    check(list(runs) == want[6:8], f"pretrain on kernel F's route: F counted {runs} runs")
     launches["F_pretrain"] = counts[6:8]
 
     # -- 16. kernel G against its plain twin ----------------------------------
@@ -2231,15 +2417,26 @@ def main() -> None:
         set_env(envv)
         pst, _ = ppo_fresh()
         zero_counts()
+        tfb.ffn_kernel_runs(reset=True)
+        caps = teg.EpisodeLoop.captures
         p_roll[name] = ppo.rollout_song(pst, pcfgs, px[0], py[0], pm[0], episodes=SE,
                                         n_states=NE, n_actions=NS)
         torch.cuda.synchronize()
-        counts = read_counts()
-        want = [0] * 8 + ([SE * (pacfg.n_layer + pccfg.n_layer), 0] if name == "kernel"
-                          else [0, 0])
-        print(f"[ppo_rollout] {name} route: launches (C, D, E, F, G fwd/bwd) {counts}",
-              flush=True)
+        counts, g_runs = read_counts(), tfb.ffn_kernel_runs()
+        caps = teg.EpisodeLoop.captures - caps
+        # a graphed song: the wrapper counts the capture's first episode, G
+        # its own runs of every episode
+        per_ep = pacfg.n_layer + pccfg.n_layer
+        on = name == "kernel"
+        want = [0] * 8 + ([caps * per_ep, 0] if on else [0, 0])
+        want_runs = SE * per_ep if on else 0
+        print(f"[ppo_rollout] {name} route: {caps} capture(s); the wrappers' eager launches "
+              f"(C, D, E, F, G fwd/bwd) {counts}; G's forward runs as the kernel counts them "
+              f"{g_runs}", flush=True)
+        check(caps == 1, f"ppo rollout, {name} route: {caps} captures, expected 1")
         check(counts == want, f"ppo rollout, {name} route: launches {counts}, expected {want}")
+        check(g_runs == want_runs, f"ppo rollout, {name} route: G counted {g_runs} runs, "
+              f"expected {want_runs}")
         p_act[name] = ppo.choose_action(pst0.actor_params, pacfg, p_states, n_actions=NS)[0]
     restore_env()
     agree = (p_act["kernel"] == p_act["default"]).float().mean().item()
@@ -2266,6 +2463,50 @@ def main() -> None:
           f"rollouts share: max|diff| {e:.3e} (max {magnitude(agent_d['reward']):.3e})",
           flush=True)
     check(e <= 1e-4 * magnitude(agent_d["reward"]), f"ppo rollout rewards: max|diff| {e}")
+
+    # -- 17b. the PPO rollout: a graph replay an episode against the eager loop
+    pxs, pys, pms = (torch.from_numpy(a).to(dev) for a in
+                     dataset.synthetic_cp_dataset(4, 512, n_class=avocab, seed=6))
+    p_ret0 = ppo.calculate_returns(agent_d["reward"][:, 0], ppcfg.discount)
+    p_adv0 = ppo.calculate_advantages(p_ret0, agent_d["value"])
+    p_cmp = {}
+    for name, envv in proutes.items():
+        set_env(envv)
+        pst, ptxs = ppo_fresh()
+        hold = {"s": pst}
+
+        def p_rollout(i, graph):
+            return ppo.rollout_song(hold["s"], pcfgs, pxs[i], pys[i], pms[i], episodes=SE,
+                                    n_states=NE, n_actions=NS, graph=graph)[0]
+
+        def p_update():
+            hold["s"], _ = ppo.update_policy_step(hold["s"], pcfgs, ppcfg, ptxs, agent_d,
+                                                  expert_d, p_adv0, p_ret0)
+
+        zero_counts()
+        tfb.ffn_kernel_runs(reset=True)
+        caps = teg.EpisodeLoop.captures
+        p_cmp[name] = compare_rollouts(f"ppo_rollout {name}", p_rollout, 4, p_update,
+                                       ("state", "action", "next_state"),
+                                       ("log_action", "value", "reward"))
+        torch.cuda.synchronize()
+        counts, g_runs = read_counts(), tfb.ffn_kernel_runs()
+        caps = teg.EpisodeLoop.captures - caps
+        n_fwd = 2 * pacfg.n_layer + pccfg.n_layer
+        # 6 songs each way, as in 12b: the wrappers count the eager episodes,
+        # G its own forward runs, replays included
+        on = name == "kernel"
+        want = [0] * 8 + ([(6 * SE + caps) * per_ep + n_fwd, n_fwd] if on else [0, 0])
+        want_runs = 12 * SE * per_ep + n_fwd if on else 0
+        print(f"[ppo_rollout] {name} route: {caps} capture(s); the wrappers' eager launches "
+              f"(C, D, E, F, G fwd/bwd) {counts}; G's forward runs as the kernel counts them "
+              f"{g_runs}", flush=True)
+        check(caps == 1, f"ppo rollouts, {name} route: {caps} captures, expected 1")
+        check(counts == want, f"ppo rollouts, {name} route: launches {counts}, expected {want}")
+        check(g_runs == want_runs, f"ppo rollouts, {name} route: G counted {g_runs} runs, "
+              f"expected {want_runs}")
+        del hold, pst, ptxs
+    restore_env()
     p_ret = ppo.calculate_returns(agent_d["reward"][:, 0], ppcfg.discount)
     p_adv = ppo.calculate_advantages(p_ret, agent_d["value"])
     p_out, p_ms = {}, {}
@@ -2324,13 +2565,16 @@ def main() -> None:
             set_env(envv)
             ck = os.path.join(tmp, name, "ckpt")
             zero_counts()
+            tfb.ffn_kernel_runs(reset=True)
+            caps = teg.EpisodeLoop.captures
             res = cli.main(["ppo-train", "--synthetic", "--synthetic-songs", "4", "--seq-len",
                             "512", "--songs", "2", "--episodes", str(SE), "--n-states",
                             str(NE), "--n-actions", str(NS), "--ppo-steps", "10",
                             "--exp-dir", os.path.join(tmp, name, "exp"), "--ckpt-dir", ck])
             torch.cuda.synchronize()
             counts = read_counts()
-            pcli[name] = (res, counts)
+            caps = teg.EpisodeLoop.captures - caps
+            pcli[name] = (res, counts, tfb.ffn_kernel_runs())
             print(f"[ppo-train] {name} route: ms per rollout song ({SE} episodes) "
                   f"{res['rollout_ms']}; ms per update_policy (10 steps) {res['update_ms']}; "
                   f"metrics {res['metrics']}; launches (C, D, E, F, G fwd/bwd) {counts}",
@@ -2340,17 +2584,38 @@ def main() -> None:
                   f"ppo-train {name}: no ppo_best.ckpt")
             check(all(math.isfinite(v) for m_ in res["metrics"] for v in m_.values()),
                   f"ppo-train {name}: a printed loss or reward is not finite")
-            per_song = (SE * (pacfg.n_layer + pccfg.n_layer) + 10 * n_fwd, 10 * n_fwd)
-            want = [0] * 8 + ([2 * per_song[0], 2 * per_song[1]] if name == "kernel"
+            # G's forward runs (its own count): 2 songs of SE episodes and 2 x
+            # 10 update steps; the wrapper counts the eager calls: each
+            # capture's first episode and the updates
+            on = name == "kernel"
+            want_runs = 2 * (SE * per_ep + 10 * n_fwd) if on else 0
+            want = [0] * 8 + ([caps * per_ep + 2 * 10 * n_fwd, 2 * 10 * n_fwd] if on
                               else [0, 0])
+            check(caps >= 1, f"ppo-train {name}: the rollouts captured no graph")
             check(counts == want, f"ppo-train {name}: launches {counts}, expected {want}")
+            g_runs = tfb.ffn_kernel_runs()
+            check(g_runs == want_runs, f"ppo-train {name}: G counted {g_runs} runs, expected "
+                  f"{want_runs}")
+            cli_med = res["rollout_ms"][1]
+            ratio = cli_med / p_cmp[name]["median_eager"]
+            print(f"[ppo-train] {name} route: {caps} capture(s); G's forward runs as the "
+                  f"kernel counts them "
+                  f"{g_runs}; ms of the rollout song after the first {cli_med:.1f} (graph "
+                  f"replays) against the eager loop's median {p_cmp[name]['median_eager']:.1f} "
+                  f"(phase 17b): {ratio:.3f}", flush=True)
+            check(ratio <= 1 / 3, f"ppo-train {name}: graphed rollout songs take {ratio:.3f} "
+                  "of the eager loop's time, more than a third")
     restore_env()
-    launches["G"] = pcli["kernel"][1][8:10]
+    # G's forward runs as the kernel counts them; its backward runs eagerly
+    # only (the updates), so the wrapper's count is its launches
+    launches["G"] = (pcli["kernel"][2], pcli["kernel"][1][9])
+    launches["G_eager"] = pcli["kernel"][1][8:10]
 
     # -- 19. cli pretrain on kernel G's route (RLMG_FFN_BACKEND=pallas) -------
     with tempfile.TemporaryDirectory() as tmp:
         set_env({"RLMG_FFN_BACKEND": "pallas"})
         zero_counts()
+        tfb.ffn_kernel_runs(reset=True)
         res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64", "--batch-size",
                         str(BT), "--seq-len", str(ST), "--max-steps", "4",
                         "--exp-dir", os.path.join(tmp, "exp"), "--ckpt-dir",
@@ -2368,6 +2633,8 @@ def main() -> None:
         "pretrain on kernel G's route: a logged loss is not finite")
     want = [0] * 8 + [12 * 4, 12 * 4]
     check(counts == want, f"pretrain on kernel G's route: launches {counts}, expected {want}")
+    g_runs = tfb.ffn_kernel_runs()
+    check(g_runs == want[8], f"pretrain on kernel G's route: G counted {g_runs} forward runs")
     launches["G_pretrain"] = counts[8:10]
 
     # -- 20. cli inference: the PPO actor's 150 tokens to a tuple-event MIDI --
@@ -2550,17 +2817,37 @@ def main() -> None:
         reps = 50 if tag != "pretrain" else 20
         fk, bk = time_fwd_bwd(f_kernel, (pq, pk, v_f), g_f, reps)
         fp, bp = time_fwd_bwd(f_plain, (pq, pk, v_f), g_f, 10)
+        # the card's own time a call (the kernels under the profiler) beside
+        # the back-to-back time, which the host paces where it is slower
+        o_f, d_f = tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps)
+        c0 = tlk.causal_product.cuda_launches
+        dfk = device_ms(lambda: tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps), reps)
+        c1 = tlk.causal_product.cuda_launches
+        dbk = device_ms(lambda: tlk.backward_kernel(pq, pk, v_f, o_f, d_f, g_f, cfg.attn_eps),
+                        reps)
+        n_fl, n_bl = (c1 - c0) // (reps + 1), (tlk.causal_product.cuda_launches - c1) // (reps + 1)
+        hfk = time_ms(lambda: tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps), reps)
+        hbk = time_ms(lambda: tlk.backward_kernel(pq, pk, v_f, o_f, d_f, g_f, cfg.attn_eps), reps)
         (ff_ops, ff_b), (fb_ops, fb_b) = causal_product_work(*f_shapes[tag])
-        (bf, bfby), (bb, bbby) = bound(ff_b, ff_ops), bound(fb_b, fb_ops)
-        f_t[tag] = dict(ms_fwd=fk, ms_bwd=bk, plain_ms_fwd=fp, plain_ms_bwd=bp, bound_ms_fwd=bf,
-                        bound_ms_bwd=bb, bound_by_fwd=bfby, bound_by_bwd=bbby,
-                        bound_by=bound(ff_b + fb_b, ff_ops + fb_ops)[1],
+        (bf, bfby), (bb, bbby) = (bound(ff_b, ff_ops, SPLIT_BF16_FLOPS),
+                                  bound(fb_b, fb_ops, SPLIT_BF16_FLOPS))
+        fma_f, fma_b = bound(ff_b, ff_ops)[0], bound(fb_b, fb_ops)[0]
+        f_t[tag] = dict(ms_fwd=fk, ms_bwd=bk, device_ms_fwd=dfk, device_ms_bwd=dbk,
+                        host_bound_ms_fwd=hfk, host_bound_ms_bwd=hbk, plain_ms_fwd=fp,
+                        plain_ms_bwd=bp, bound_ms_fwd=bf, bound_ms_bwd=bb, bound_by_fwd=bfby,
+                        bound_by_bwd=bbby,
+                        bound_by=bound(ff_b + fb_b, ff_ops + fb_ops, SPLIT_BF16_FLOPS)[1],
+                        fma_bound_ms_fwd=fma_f, fma_bound_ms_bwd=fma_b,
+                        cuda_launches_fwd=n_fl, cuda_launches_bwd=n_bl,
                         gflop_fwd=ff_ops / 1e9, gflop_bwd=fb_ops / 1e9, mb_fwd=ff_b / 1e6,
                         mb_bwd=fb_b / 1e6, max_abs_err=f_err[tag])
-        print(f"[time] causal_product {tag} {f_shapes[tag]}: forward {fk:.4f} ms (plain "
-              f"{fp:.4f}, bound {bf:.4f} {bfby}, {ff_ops / 1e9:.3f} GFLOP, {ff_b / 1e6:.1f} MB), "
-              f"backward {bk:.4f} ms (plain {bp:.4f}, bound {bb:.4f} {bbby}, "
-              f"{fb_ops / 1e9:.3f} GFLOP, {fb_b / 1e6:.1f} MB)")
+        print(f"[time] causal_product {tag} {f_shapes[tag]}: forward {fk:.4f} ms through the "
+              f"wrapper (device {dfk:.4f}, forward_kernel back to back {hfk:.4f}; plain "
+              f"{fp:.4f}, bound {bf:.5f} {bfby}, f32 FMA bound {fma_f:.5f}; {ff_ops / 1e9:.3f} "
+              f"GFLOP, {ff_b / 1e6:.1f} MB; {n_fl} CUDA launches), backward {bk:.4f} ms "
+              f"(device {dbk:.4f}, backward_kernel back to back {hbk:.4f}; plain {bp:.4f}, "
+              f"bound {bb:.5f} {bbby}, f32 FMA bound {fma_b:.5f}; {fb_ops / 1e9:.3f} GFLOP, "
+              f"{fb_b / 1e6:.1f} MB; {n_bl} CUDA launches)", flush=True)
     print(f"[time] DQN update B={BQ} x S={SQ}: default route {q_ms['default']:.1f} ms, kernel-F "
           f"route {q_ms['kernel']:.1f} ms")
 
@@ -2651,16 +2938,30 @@ def main() -> None:
          "bound_ms_bwd": e_bb, "bound_by": e_bfby if e_bfby == e_bbby else "operations",
          "library_ms": e_lf + e_lb, "library_ms_fwd": e_lf, "library_ms_bwd": e_lb},
         # F at a DQN update's shape; no single PyTorch call computes causal
-        # linear attention (scaled_dot_product_attention is softmax attention)
+        # linear attention (scaled_dot_product_attention is softmax attention);
+        # bound at the rate of its six bf16 products a product (989/6 TFLOP/s),
+        # the f32 FMA bound of earlier PRs beside; launches as the kernel counts
+        # its runs (graph replays included), the wrapper's eager calls beside
         {"name": "causal_product", "route": "cuda", "source": f"{pkg}/csrc/causal_product.cu",
          "replaces": f"{tpu}/linear_attention.py:225", "launches": sum(launches["F"]),
          "launches_fwd": launches["F"][0], "launches_bwd": launches["F"][1],
+         "eager_calls_fwd": launches["F_eager"][0], "eager_calls_bwd": launches["F_eager"][1],
          "max_abs_err": f_err["dqn"], "ms": f_t["dqn"]["ms_fwd"] + f_t["dqn"]["ms_bwd"],
+         "device_ms": f_t["dqn"]["device_ms_fwd"] + f_t["dqn"]["device_ms_bwd"],
+         "device_us_rollout_fwd": f_t["rollout"]["device_ms_fwd"] * 1e3,
+         "host_bound_us_rollout_fwd": f_t["rollout"]["host_bound_ms_fwd"] * 1e3,
          "plain_ms": f_t["dqn"]["plain_ms_fwd"] + f_t["dqn"]["plain_ms_bwd"],
          "bound_ms": f_t["dqn"]["bound_ms_fwd"] + f_t["dqn"]["bound_ms_bwd"],
+         "fma_bound_ms": f_t["dqn"]["fma_bound_ms_fwd"] + f_t["dqn"]["fma_bound_ms_bwd"],
          "bound_by": f_t["dqn"]["bound_by"],
          "library_ms": None, "dqn_shape": f_t["dqn"], "rollout_shape": f_t["rollout"],
-         "pretrain_shape": f_t["pretrain"], "launches_pretrain": sum(launches["F_pretrain"])},
+         "pretrain_shape": f_t["pretrain"], "launches_pretrain": sum(launches["F_pretrain"]),
+         "dqn_rollout_song": {k: {kk: vv for kk, vv in v.items() if "window" not in kk}
+                              | {"busy_graphed": v["window_graphed"]["busy"],
+                                 "busy_eager": v["window_eager"]["busy"],
+                                 "host_launches_graphed": v["window_graphed"]["host_launches"],
+                                 "host_launches_eager": v["window_eager"]["host_launches"]}
+                              for k, v in q_roll.items()}},
         # G at a PPO update's 1500 rows, f32; no single PyTorch call computes
         # LN(h + FFN(h)); every shape at both dtypes beside
         {"name": "ffn_block", "route": "cuda", "source": f"{pkg}/csrc/ffn_block.cu",
@@ -2672,7 +2973,14 @@ def main() -> None:
          "library_ms": None, "hmma": dg_mma["ffn_block"],
          **{f"{tag}_shape": {**g_t[tag, torch.float32], "bf16": g_t[tag, torch.bfloat16]}
             for tag in ("update", "rollout", "pretrain")},
-         "launches_pretrain": sum(launches["G_pretrain"])},
+         "launches_pretrain": sum(launches["G_pretrain"]),
+         "eager_calls_fwd": launches["G_eager"][0],
+         "ppo_rollout_song": {k: {kk: vv for kk, vv in v.items() if "window" not in kk}
+                              | {"busy_graphed": v["window_graphed"]["busy"],
+                                 "busy_eager": v["window_eager"]["busy"],
+                                 "host_launches_graphed": v["window_graphed"]["host_launches"],
+                                 "host_launches_eager": v["window_eager"]["host_launches"]}
+                              for k, v in p_cmp.items()}},
     ] + lat_entries + aug_entries
     for e in kernels:                                        # v3's share of the SASS count
         if e["name"] == "decode_step_v3":

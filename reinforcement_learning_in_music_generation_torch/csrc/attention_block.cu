@@ -7,7 +7,7 @@
 // Forward: one GEMM (train_gemm.cuh) writes pqkv = [phi(q) | phi(k) | v]
 // with the bias and phi = elu+1 in its epilogue; pqkv is the backward
 // residual, as on the TPU.  Then the causal recurrence of
-// linear_attention.cuh (shared with kernel F, causal_product.cu) runs one
+// linear_attention.cuh runs one
 // block per (sequence, head) that walks the sequence in tiles of AT_T = 64
 // rows with the running state S = sum phi(k) v^T (E x E) and z = sum phi(k)
 // in shared memory, in place of the TPU's sequential grid axis.  The tile

@@ -68,7 +68,7 @@ int ffn_fwd(const T* h, const T* const* w, T* out, float* scratch, const int* se
   int rc = split_all(c.jobs, st);
   if (rc) return rc;
   if ((rc = ffn_forward(c.h, h, fw, c.f, c.part, seed, p, inv, 1, N, D, DI, st))) return rc;
-  return ln_fwd(c.f.r, fw.ln_s, fw.ln_b, out, N, D, st);
+  return ln_fwd(c.f.r, fw.ln_s, fw.ln_b, out, N, D, st, TtPlanes{}, 1);   // counts the run
 }
 
 template <typename T>
@@ -178,6 +178,21 @@ int rlmg_ffn_bwd(const void* h, const void* const* w, const void* dout, void* co
                    inv, N, D, DI, st);
   return ffn_bwd((const float*)h, (const float* const*)w, (const float*)dout,
                  (float* const*)grads, scratch, seed, p, inv, N, D, DI, st);
+}
+
+// Forward calls that ran to their end on the current card since the last
+// reset, as the kernel counts them (its last launch, graph replays
+// included).  Waits for the card; reset zeroes the count after the read.
+// Returns 0 or a CUDA error code.
+int rlmg_ffn_runs(long long* runs, int reset) {
+  unsigned long long n = 0;
+  cudaError_t e = cudaMemcpyFromSymbol(&n, rlmg::tt_ln_runs, sizeof n);
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    e = cudaMemcpyToSymbol(rlmg::tt_ln_runs, &zero, sizeof zero);
+  }
+  *runs = (long long)n;
+  return (int)e;
 }
 
 const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

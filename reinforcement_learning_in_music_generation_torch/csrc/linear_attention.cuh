@@ -1,8 +1,7 @@
-// The chunked causal linear-attention passes, forward and backward, shared
-// by kernel C (attention_block.cu: q, k, v packed in the qkv projection's
-// (N, 3D) output, phi' folded into the gradient) and kernel F
-// (causal_product.cu: feature-mapped q, k and v as (B, H, S, E) tensors of
-// any batch / head / row strides).  The kernels are templates over an I/O
+// The chunked causal linear-attention passes, forward and backward, of
+// kernel C (attention_block.cu: q, k, v packed in the qkv projection's
+// (N, 3D) output, phi' folded into the gradient); kernel F
+// (causal_product.cu) has passes of its own.  The kernels are templates over an I/O
 // policy IO that says where row i of head h of sequence b lives:
 //   float q/k/v(b, h, i, e)        inputs (phi(q), phi(k), v)
 //   float g/out(b, h, i, f)        upstream gradient and forward output

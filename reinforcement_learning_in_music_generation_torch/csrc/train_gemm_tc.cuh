@@ -526,13 +526,20 @@ __device__ __forceinline__ void row_stats(const float (&v)[NC], int D, int lane,
   rstd = rsqrtf(warp_sum(q) / D + LN_EPS);
 }
 
+// Launches of ln_fwd_kernel with `count` set that ran, counted by the
+// kernel (block 0's thread 0), one counter a library: kernel G counts its
+// forward's runs so (ffn_block.cu rlmg_ffn_runs), graph replays included.
+__device__ unsigned long long tt_ln_runs;
+
 // out = (x - mu) * rstd * scale + bias, per row; also as a product's
 // operand planes when planes.p[0] is set.
 template <int NC, typename TS, typename TO>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_fwd_kernel(const float* __restrict__ x, const TS* __restrict__ scale,
-              const TS* __restrict__ bias, TO* __restrict__ out, TtPlanes planes, int M, int D) {
+              const TS* __restrict__ bias, TO* __restrict__ out, TtPlanes planes, int M, int D,
+              int count) {
   const int lane = threadIdx.x & 31, r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (count && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&tt_ln_runs, 1ull);
   if (r >= M) return;
   const float* xr = x + (size_t)r * D;
   float v[NC];
@@ -616,12 +623,12 @@ ln_bwd_kernel(const float* __restrict__ x, const TG* __restrict__ dy,
 
 template <typename TS, typename TO>
 int ln_fwd(const float* x, const TS* scale, const TS* bias, TO* out, int M, int D,
-           cudaStream_t st, TtPlanes planes = {}) {
+           cudaStream_t st, TtPlanes planes = {}, int count = 0) {
   const int blocks = (M + LN_WARPS - 1) / LN_WARPS, th = LN_WARPS * 32;
-  if (D <= 128) ln_fwd_kernel<4, TS, TO><<<blocks, th, 0, st>>>(x, scale, bias, out, planes, M, D);
-  else if (D <= 256) ln_fwd_kernel<8, TS, TO><<<blocks, th, 0, st>>>(x, scale, bias, out, planes, M, D);
-  else if (D <= 512) ln_fwd_kernel<16, TS, TO><<<blocks, th, 0, st>>>(x, scale, bias, out, planes, M, D);
-  else ln_fwd_kernel<32, TS, TO><<<blocks, th, 0, st>>>(x, scale, bias, out, planes, M, D);
+  if (D <= 128) ln_fwd_kernel<4, TS, TO><<<blocks, th, 0, st>>>(x, scale, bias, out, planes, M, D, count);
+  else if (D <= 256) ln_fwd_kernel<8, TS, TO><<<blocks, th, 0, st>>>(x, scale, bias, out, planes, M, D, count);
+  else if (D <= 512) ln_fwd_kernel<16, TS, TO><<<blocks, th, 0, st>>>(x, scale, bias, out, planes, M, D, count);
+  else ln_fwd_kernel<32, TS, TO><<<blocks, th, 0, st>>>(x, scale, bias, out, planes, M, D, count);
   ++tt_launches();
   RLMG_CHECK();
   return 0;

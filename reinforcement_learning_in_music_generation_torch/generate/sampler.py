@@ -51,6 +51,7 @@ from ..ops import sampling as smp
 from ..ops.decode_common import decode_state_dtype
 from ..ops.experimental import decode_kernel_v7 as dk7
 from ..ops.experimental import decode_kernel_v8 as dk8
+from ..utils.cuda_graph import capture_stream
 
 
 class GenResult(NamedTuple):
@@ -302,7 +303,7 @@ class _TokenGraph:
         # capture is begun and ended directly: torch.cuda.graph's context
         # also empties the allocator's caches and reads torch.compiler's
         # config, whose first import cost a cold call 0.8 s on the card.
-        stream = _capture_stream(dev)
+        stream = capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
@@ -360,19 +361,6 @@ class _TokenGraph:
         if src is not None:
             src.set_state(self.gen.get_state())
         return self.loop.toks.clone(), self.loop.valid.clone(), self.loop.bars.clone()
-
-
-_CAPTURE_STREAMS: dict = {}
-
-
-def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
-    """The side stream every token graph of ``dev`` is captured on.  PyTorch
-    keeps a cuBLAS workspace for each stream that ran a cuBLAS product, for
-    the life of the process (32 MiB on an H100), so a new stream a capture
-    would leave one behind each time."""
-    if dev not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-    return _CAPTURE_STREAMS[dev]
 
 
 _TOKEN_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()

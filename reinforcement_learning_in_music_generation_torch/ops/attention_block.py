@@ -139,7 +139,8 @@ class _QkvAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, wqkv, bqkv, n_seq: int, n_head: int, eps: float):
         att, pqkv, den = forward_kernel(h, wqkv, bqkv, n_seq, n_head, eps)
-        qkv_attention_block.launches_fwd += 1
+        if not torch.cuda.is_current_stream_capturing():    # a capture records, launches nothing
+            qkv_attention_block.launches_fwd += 1
         ctx.save_for_backward(h, wqkv, pqkv, att, den)
         ctx.cfg = (n_seq, n_head, eps)
         return att

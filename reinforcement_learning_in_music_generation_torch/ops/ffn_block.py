@@ -43,7 +43,10 @@ versions compute the same (``_product``).
 
 ``attn_tail_block`` and ``ffn_block`` launch their kernel for CUDA tensors
 (counting forward and backward calls apart, and in ``cuda_launches`` the
-CUDA launches the calls issued) and run their plain version
+CUDA launches the calls issued, none while a CUDA graph capture records;
+kernel G's forward also counts its own runs on the card, graph replays
+included, read by ``ffn_kernel_runs``)
+and run their plain version
 (``attn_tail_block_plain``, ``ffn_block_plain``) for CPU tensors; any other
 device raises.  The kernels take contiguous float32 or bfloat16 with widths
 that are multiples of 8 (16-byte copies of the products' bf16 operands) and
@@ -219,6 +222,7 @@ _BINDINGS = {
         "rlmg_ffn_bwd": ([_P] * 6 + [_F, _F] + [_I] * 4 + [_P], _I),
         "rlmg_tile_scratch_floats": ([_I] * 3, ctypes.c_longlong),
         "rlmg_tile_product": ([_P] * 4 + [_I] * 6 + [_P], _I),
+        "rlmg_ffn_runs": ([ctypes.POINTER(ctypes.c_longlong), _I], _I),
         "rlmg_cuda_launches": ([], ctypes.c_longlong),
         "rlmg_error_string": ([_I], ctypes.c_char_p)},
 }
@@ -253,7 +257,8 @@ def _run(name: str, sym: str, what: str, h: torch.Tensor, args, counted) -> None
     before = lib.rlmg_cuda_launches()
     with torch.cuda.device(h.device):
         rc = getattr(lib, sym)(*args, _is_bf16(h), torch.cuda.current_stream().cuda_stream)
-    counted.cuda_launches += lib.rlmg_cuda_launches() - before
+    if not torch.cuda.is_current_stream_capturing():    # a capture records, launches nothing
+        counted.cuda_launches += lib.rlmg_cuda_launches() - before
     if rc:
         raise RuntimeError(f"{name} {what} kernel: {lib.rlmg_error_string(rc).decode()}")
 
@@ -302,7 +307,8 @@ class _AttnTail(torch.autograd.Function):
                 p: float, mid_drop: bool):
         ws = [wow, wob, ln1s, ln1b, w1, b1, w2, b2, ln2s, ln2b]
         out = forward_kernel(h_in, a_pre, ws, seed, p, mid_drop)
-        attn_tail_block.launches_fwd += 1
+        if not torch.cuda.is_current_stream_capturing():
+            attn_tail_block.launches_fwd += 1
         ctx.save_for_backward(h_in, a_pre, *ws, seed)
         ctx.cfg = (p, mid_drop)
         return out
@@ -389,7 +395,8 @@ class _Ffn(torch.autograd.Function):
     def forward(ctx, h, w1, b1, w2, b2, ln_s, ln_b, seed, p: float):
         ws = [w1, b1, w2, b2, ln_s, ln_b]
         out = ffn_forward_kernel(h, ws, seed, p)
-        ffn_block.launches_fwd += 1
+        if not torch.cuda.is_current_stream_capturing():
+            ffn_block.launches_fwd += 1
         ctx.save_for_backward(h, *ws, seed)
         ctx.p = p
         return out
@@ -462,3 +469,16 @@ def tile_product(a: torch.Tensor, b: torch.Tensor, a_t: bool = False,
 
 
 tile_product.cuda_launches = 0
+
+
+def ffn_kernel_runs(reset: bool = False) -> int:
+    """Forward calls of kernel G that ran on the current card since the last
+    reset, as the kernel counts them (its last launch; eager or replayed
+    from a CUDA graph); waits for the card.  ``reset`` zeroes the count
+    after the read."""
+    lib = _lib("ffn_block")
+    n = ctypes.c_longlong()
+    rc = lib.rlmg_ffn_runs(ctypes.byref(n), int(reset))
+    if rc:
+        raise RuntimeError(f"ffn_block run count: {lib.rlmg_error_string(rc).decode()}")
+    return n.value

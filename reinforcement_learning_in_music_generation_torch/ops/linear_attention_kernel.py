@@ -7,24 +7,30 @@ backward ("kernel F"): the counterpart of the JAX package's
     out_i = phi(q_i) S_i / (phi(q_i) . z_i + eps),  den_i = phi(q_i) . z_i
     S_i = sum_{j <= i} phi(k_j) v_j^T,  z_i = sum_{j <= i} phi(k_j)
 
-Kernel F: ``csrc/causal_product.cu`` (the passes of
-``csrc/linear_attention.cuh``, shared with kernel C), hand-written CUDA for
-``sm_90a``, built at first use (``_build.py``) and called through ctypes.
-The forward walks each (sequence, head) in 64-row tiles with (S, z) in
-shared memory and writes out and den; the backward is two deterministic
-passes, d phi(q) in forward order carrying (S, z) and d phi(k), dv in
-reverse order carrying (G, gz), with dnum = g / (den + eps) and dden =
--sum(g out) / (den + eps) formed inside them.  Rows past S are masked by
-bounds (the TPU padded to its 128-row chunk), so the kernel reads nothing
-past S and allocates no padded copy; ``chunk`` is the plain twin's.
+Kernel F: ``csrc/causal_product.cu``, hand-written CUDA for ``sm_90a``,
+built at first use (``_build.py``) and called through ctypes.  Row tiles of
+64 run in parallel: at S <= 64 one launch, a block a 16-row group; longer
+sequences first take a state pass that writes each tile's k^T [v | 1]
+(and, backward, q^T [dnum | dd]) to a scratch tensor, whose slots the
+output pass sums in order (prefix (S, z) for the forward and d phi(q),
+suffix (G, gz) for d phi(k), dv).  Every product runs on the tensor cores
+at f32 grade (three bf16 planes an operand, six products a product), and
+nothing is padded or copied; ``chunk`` is the plain twin's.
 
 ``causal_product`` takes float32 phi(q), phi(k), v (B, H, S, E) with a unit
 last stride and any other strides (the model's (B, H, S, E) views of
 (B, S, H, E) projections go in without copies, and out and the gradients
 come back in the inputs' layout), E a multiple of 4 and at most 64.
 Anything else raises, on every device.  On a CPU tensor it runs
-``causal_product_plain``; on a CUDA tensor it launches the kernel (counted
-in ``launches_fwd`` / ``launches_bwd``); any other device raises.
+``causal_product_plain``; on a CUDA tensor it launches the kernel; any
+other device raises.  The kernel loads 16 bytes at a time, so an input
+whose (batch, head, row) strides are not multiples of 4 or whose base is
+not 16-byte aligned (never the model's) goes in as a contiguous copy.
+
+Counts: ``launches_fwd`` / ``launches_bwd`` the wrapper's eager calls,
+``cuda_launches`` the CUDA launches they made (1 a call at S <= 64, else
+2); a call made while a CUDA graph capture records counts nothing.  ``kernel_runs`` reads the kernel's own count of the calls that
+ran on the card, graph replays included.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch
 from . import _build
 from .linear_attention import DEFAULT_EPS, _DEF_CHUNK, _ChunkedCore
 
-MAX_HEAD_WIDTH = 64          # csrc/linear_attention.cuh AT_MAX_E
+MAX_HEAD_WIDTH = 64          # csrc/causal_product.cu cpk::MAX_E
 
 
 def causal_product_plain(phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
@@ -68,20 +74,28 @@ def _check(phi_q, phi_k, v) -> None:
                              f"dimension (strides {t.stride()})")
 
 
+TILE = 64                    # csrc/causal_product.cu cpk::T
+
 _LIB: Optional[ctypes.CDLL] = None
+_FWD = _BWD = None           # the library's entry points, bound once
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
+    global _LIB, _FWD, _BWD
     if _LIB is None:
         lib = _build.load("causal_product")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rlmg_causal_product_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        lib.rlmg_causal_product_fwd.argtypes = [p] * 7 + [i] * 4 + [f, p]
         lib.rlmg_causal_product_fwd.restype = i
-        lib.rlmg_causal_product_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.rlmg_causal_product_bwd.argtypes = [p] * 11 + [i] * 4 + [f, p]
         lib.rlmg_causal_product_bwd.restype = i
+        lib.rlmg_causal_product_scratch_floats.argtypes = [i] * 5
+        lib.rlmg_causal_product_scratch_floats.restype = ll
+        lib.rlmg_causal_product_runs.argtypes = [ctypes.POINTER(ll), i]
+        lib.rlmg_causal_product_runs.restype = i
         lib.rlmg_error_string.argtypes = [i]
         lib.rlmg_error_string.restype = ctypes.c_char_p
+        _FWD, _BWD = lib.rlmg_causal_product_fwd, lib.rlmg_causal_product_bwd
         _LIB = lib
     return _LIB
 
@@ -92,43 +106,82 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _loadable(*tensors):
+    """The tensors, each as it is or, where the kernel's 16-byte loads could
+    not read it (the stride of a dimension longer than 1 not a multiple of
+    4, or a base not 16-byte aligned), as a contiguous copy in a new
+    allocation."""
+    return tuple(t if t.data_ptr() % 16 == 0 and all(
+        st % 4 == 0 or n == 1 for st, n in zip(t.stride()[:3], t.shape[:3]))
+        else t.clone(memory_format=torch.contiguous_format) for t in tensors)
+
+
+def _scratch(b: int, h: int, s: int, e: int, backward: int, device) -> Optional[torch.Tensor]:
+    if s <= TILE:
+        return None
+    n = _lib().rlmg_causal_product_scratch_floats(b, h, s, e, backward)
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc:
         raise RuntimeError(f"causal_product {what} kernel: "
                            f"{_lib().rlmg_error_string(rc).decode()}")
 
 
+def kernel_runs(reset: bool = False) -> Tuple[int, int]:
+    """(forward, backward) calls of kernel F that ran on the current card
+    since the last reset, as the kernel counts them (eager or replayed from
+    a CUDA graph); waits for the card.  ``reset`` zeroes both after the
+    read."""
+    runs = (ctypes.c_longlong * 2)()
+    _raise_on(_lib().rlmg_causal_product_runs(runs, int(reset)), "run count")
+    return runs[0], runs[1]
+
+
 def forward_kernel(phi_q, phi_k, v, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One forward launch on checked inputs -> (out in phi_q's layout, den
-    (B, H, S)).  Not counted in ``launches_fwd`` (the wrapper counts)."""
+    """One forward call on checked inputs -> (out in phi_q's layout, den
+    (B, H, S)).  Counts ``cuda_launches``, not ``launches_fwd`` (the
+    wrapper counts its calls)."""
+    phi_q, phi_k, v = _loadable(phi_q, phi_k, v)
     b, h, s, e = phi_q.shape
+    dev = phi_q.device
+    _lib()
     out = torch.empty_like(phi_q)
-    den = torch.empty((b, h, s), dtype=torch.float32, device=phi_q.device)
-    with torch.cuda.device(phi_q.device):
-        rc = _lib().rlmg_causal_product_fwd(
-            phi_q.data_ptr(), phi_k.data_ptr(), v.data_ptr(), out.data_ptr(), den.data_ptr(),
-            _strides(phi_q, phi_k, v, out), b, h, s, e, eps,
-            torch.cuda.current_stream().cuda_stream)
+    den = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    scratch = _scratch(b, h, s, e, 0, dev)
+    args = (phi_q.data_ptr(), phi_k.data_ptr(), v.data_ptr(), out.data_ptr(), den.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), _strides(phi_q, phi_k, v, out),
+            b, h, s, e, eps)
+    with torch.cuda.device(dev):
+        rc = _FWD(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "forward")
+    if not torch.cuda.is_current_stream_capturing():    # a capture records, launches nothing
+        causal_product.cuda_launches += 1 + (s > TILE)
     return out, den
 
 
 def backward_kernel(phi_q, phi_k, v, out, den, g,
                     eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The two backward launches (dq pass, then dk/dv pass) -> (d phi_q,
-    d phi_k, dv), each in its input's layout.  Not counted in
-    ``launches_bwd``."""
-    b, h, s, e = phi_q.shape
+    """The backward call (a state pass first past one tile) -> (d phi_q,
+    d phi_k, dv), each in its input's layout.  Counts ``cuda_launches``,
+    not ``launches_bwd``."""
     if g.stride(-1) != 1:
         g = g.contiguous()
+    phi_q, phi_k, v, out, g = _loadable(phi_q, phi_k, v, out, g)
+    b, h, s, e = phi_q.shape
+    dev = phi_q.device
+    _lib()
     dq, dk, dv = torch.empty_like(phi_q), torch.empty_like(phi_k), torch.empty_like(v)
-    with torch.cuda.device(phi_q.device):
-        rc = _lib().rlmg_causal_product_bwd(
-            phi_q.data_ptr(), phi_k.data_ptr(), v.data_ptr(), out.data_ptr(), den.data_ptr(),
+    scratch = _scratch(b, h, s, e, 1, dev)
+    args = (phi_q.data_ptr(), phi_k.data_ptr(), v.data_ptr(), out.data_ptr(), den.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _strides(phi_q, phi_k, v, out, g, dq, dk, dv), b, h, s, e, eps,
-            torch.cuda.current_stream().cuda_stream)
+            None if scratch is None else scratch.data_ptr(),
+            _strides(phi_q, phi_k, v, out, g, dq, dk, dv), b, h, s, e, eps)
+    with torch.cuda.device(dev):
+        rc = _BWD(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "backward")
+    causal_product.cuda_launches += 1 + (s > TILE)
     return dq, dk, dv
 
 
@@ -137,7 +190,8 @@ class _CausalProduct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, phi_q, phi_k, v, eps: float):
         out, den = forward_kernel(phi_q, phi_k, v, eps)
-        causal_product.launches_fwd += 1
+        if not torch.cuda.is_current_stream_capturing():
+            causal_product.launches_fwd += 1
         ctx.save_for_backward(phi_q, phi_k, v, out, den)
         ctx.eps = eps
         ctx.mark_non_differentiable(den)
@@ -167,3 +221,4 @@ def causal_product(phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
 
 causal_product.launches_fwd = 0
 causal_product.launches_bwd = 0
+causal_product.cuda_launches = 0

@@ -214,7 +214,8 @@ class _WindowBand(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask32, window: int):
         out, stats = forward_kernel(q, k, v, mask32, window)
-        window_attention_band.launches_fwd += 1
+        if not torch.cuda.is_current_stream_capturing():    # a capture records, launches nothing
+            window_attention_band.launches_fwd += 1
         ctx.save_for_backward(q, k, v, mask32, out, stats)
         ctx.window = window
         return out

@@ -31,6 +31,7 @@ from ..models import critic as critic_lib
 from ..models import linear_transformer as lt
 from ..models import longformer as lf
 from ..train import optim
+from . import episode_graph
 from .env import _windows
 
 
@@ -81,36 +82,71 @@ def choose_action(actor_params: dict, acfg: LinearTransformerConfig, state: torc
     return _policy_logprobs(lt.forward_output(actor_params, acfg, h), n_actions)
 
 
+class _PpoEpisodes(episode_graph.EpisodeLoop):
+    """A song's PPO episodes on static buffers: the current state, the
+    song's state masks, the stacked next states, actions, log-probs, values
+    and rewards, and the episode index."""
+
+    def __init__(self, cfgs, episodes: int, n_states: int, n_actions: int, nf: int, dev):
+        super().__init__(dev)
+        i32, f32 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.float32, device=dev)
+        self.cfgs, self.n_actions = cfgs, n_actions
+        self.cur = torch.zeros((n_states, nf), **i32)
+        self.mask_state = torch.zeros((episodes, n_states), **f32)
+        self.nexts = torch.zeros((episodes, n_states, nf), **i32)
+        self.actions = torch.zeros((episodes, n_actions, nf), **i32)
+        self.logps = torch.zeros((episodes, n_actions, nf), **f32)
+        self.values = torch.zeros((episodes, 1), **f32)
+        self.rewards = torch.zeros((episodes, 1), **f32)
+        self.idx = torch.zeros((1,), dtype=torch.long, device=dev)
+
+    def body(self, trees) -> None:
+        """One episode: the actor's action and log-probs, the next state,
+        the critic's value of it and the reward model's score under the
+        episode's mask, all stored at the index."""
+        (actor, critic, reward), (acfg, ccfg, rcfg) = trees, self.cfgs
+        action, logp = choose_action(actor, acfg, self.cur[None], n_actions=self.n_actions)
+        nxt = torch.cat([self.cur[:self.n_actions], action[0]], dim=0)[None]
+        value = critic_lib.value_produce(critic, ccfg, nxt)
+        score = lf.eval_score(reward, rcfg, nxt, self.mask_state.index_select(0, self.idx))
+        self.nexts.index_copy_(0, self.idx, nxt)
+        self.actions.index_copy_(0, self.idx, action)
+        self.logps.index_copy_(0, self.idx, logp)
+        self.values.index_copy_(0, self.idx, value[None])
+        self.rewards.index_copy_(0, self.idx, score)
+        self.cur.copy_(nxt[0])
+        self.idx.add_(1)
+
+
 @torch.no_grad()
 def rollout_song(state: PPOState, state_cfgs, song_x: torch.Tensor, expert_y: torch.Tensor,
                  song_mask: torch.Tensor, *, episodes: int = 30, n_states: int = 50,
-                 n_actions: int = 25) -> Tuple[Dict, Dict]:
+                 n_actions: int = 25, graph: bool = True) -> Tuple[Dict, Dict]:
     """One song's rollout (ppo_train.py:460-497) -> (agent, expert)
-    transitions, each stacked (episodes, ...).  A loop of episodes on the
-    device: nothing waits for the host.  Expert and mask windows start at
-    the episode number (clamped into the song, as ``lax.dynamic_slice_in_dim``
-    clamps); the next state's mask starts one later, the reference's
-    offset."""
-    acfg, ccfg, rcfg = state_cfgs
+    transitions, each stacked (episodes, ...), tensors of their own.  A
+    loop of episodes on the device: nothing waits for the host; on CUDA
+    each episode is a replay of one CUDA graph, cached per weights
+    (``episode_graph.cached``), and ``graph=False`` runs the eager loop
+    there (for comparisons).  Expert and mask windows start at the episode
+    number (clamped into the song, as ``lax.dynamic_slice_in_dim`` clamps);
+    the next state's mask starts one later, the reference's offset."""
     dev = song_x.device
+    nf = song_x.shape[-1]
+    trees = (state.actor_params, state.critic_params, state.reward_params)
+    build = lambda: _PpoEpisodes(state_cfgs, episodes, n_states, n_actions, nf, dev)
+    graph = graph and dev.type == "cuda"
+    ep = episode_graph.cached(("ppo", tuple(state_cfgs), episodes, n_states, n_actions, nf, dev),
+                              trees, build) if graph else build()
     num = torch.arange(episodes, device=dev)
     mask_state = _windows(song_mask, num, n_states).to(torch.float32)
-    cur = song_x[:n_states].to(torch.int32)
-    nexts, actions, logps, values, rewards = [], [], [], [], []
-    for i in range(episodes):
-        action, logp = choose_action(state.actor_params, acfg, cur[None], n_actions=n_actions)
-        next_state = torch.cat([cur[:n_actions], action[0]], dim=0)
-        values.append(critic_lib.value_produce(state.critic_params, ccfg, next_state[None]))
-        rewards.append(lf.eval_score(state.reward_params, rcfg, next_state[None],
-                                     mask_state[i][None])[0])
-        nexts.append(next_state)
-        actions.append(action[0])
-        logps.append(logp[0])
-        cur = next_state
-    next_states, action = torch.stack(nexts), torch.stack(actions)
+    ep.mask_state.copy_(mask_state)
+    ep.cur.copy_(song_x[:n_states])
+    ep.idx.zero_()
+    ep.run(episodes, trees, graph)
+    next_states, action = ep.nexts.clone(), ep.actions.clone()
     col = lambda v, dt: torch.full((episodes, 1), v, dtype=dt, device=dev)
-    agent_t = {"state": next_states, "action": action, "log_action": torch.stack(logps),
-               "value": torch.stack(values), "reward": torch.stack(rewards),
+    agent_t = {"state": next_states, "action": action, "log_action": ep.logps.clone(),
+               "value": ep.values.clone(), "reward": ep.rewards.clone(),
                "next_state": next_states, "done": col(0, torch.int32)}
     expert_t = {"state": _windows(expert_y, num, n_states).to(torch.int32), "action": action,
                 "reward": col(1.0, torch.float32),

@@ -1,2 +1,2 @@
 """Logging and checkpoints of the port (counterpart of the JAX package's
-``utils``)."""
+``utils``), and the stream its CUDA graphs are captured on."""

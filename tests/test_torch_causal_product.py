@@ -7,8 +7,9 @@ The JAX side runs its Pallas kernels in interpret mode under
 tests/test_linear_attention.py runs them; the port's wrapper runs its plain
 twin on CPU tensors.  Inputs come from a numpy seed.  Forward within 1e-5 of
 its magnitude, the q, k, v gradients within 1e-4 of theirs, at sequence
-lengths 1, 37, 50 (DQN's state) and 67 with chunks of 16 and 128 (one
-ragged chunk, as JAX pads 50 to 128).  One full ``forward_hidden`` under
+lengths 1, 37, 50 (DQN's state), 67 and 150 (a ragged third 64-row tile of
+the CUDA kernel) with chunks of 16 and 128 (one ragged chunk, as JAX pads
+50 to 128).  One full ``forward_hidden`` under
 RLMG_ATTN_BACKEND=pallas agrees on both sides, and the wrapper refuses what
 the kernel does not take."""
 
@@ -43,7 +44,7 @@ def _close(a, b, tol, what):
 
 
 @pytest.mark.parametrize("chunk", [16, 128])
-@pytest.mark.parametrize("s", [1, 37, 50, 67])
+@pytest.mark.parametrize("s", [1, 37, 50, 67, 150])
 def test_pallas_route_matches_jax(s, chunk):
     q, k, v, w = _inputs(1, 2, s, 8, seed=s + chunk)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and its CUDA
+graphs (the per-step token, the rollout episodes) against their eager loops,
+on a card.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one.  The file imports neither jax nor the JAX package, so it also
@@ -779,9 +781,11 @@ def _product_inputs(dev, b, h, s, e, layout, seed=7):
 
 
 # (B, H, S, E, layout): one row, DQN's one ragged tile, a ragged second tile,
-# several tiles with a ragged last one, narrow heads
+# several tiles with a ragged last one, narrow heads, a rollout episode, the
+# tile edge (one full tile; one row past it)
 PRODUCT_CASES = [(2, 2, 1, 64, "bhse"), (3, 8, 50, 64, "bshe"), (2, 4, 67, 64, "bhse"),
-                 (2, 8, 300, 64, "bshe"), (1, 2, 130, 8, "bhse")]
+                 (2, 8, 300, 64, "bshe"), (1, 2, 130, 8, "bhse"), (1, 8, 50, 64, "bshe"),
+                 (2, 8, 64, 64, "bhse"), (2, 8, 65, 64, "bshe")]
 
 
 @pytest.mark.gpu
@@ -831,6 +835,148 @@ def test_causal_product_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tlk.causal_product(y, y, y)
     with pytest.raises(ValueError, match="as wide"):
         tlk.causal_product(x, x, x[..., :32])
+
+
+def _rl_setup(dev):
+    """A small agent (two layers, d_model 64, heads of 32) and three songs."""
+    cfg = TC.LinearTransformerConfig(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=64,
+                                     n_layer=2, n_head=2, d_inner=128, dropout=0.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    songs = [torch.stack([torch.randint(0, v, (160,), generator=gen, device=dev) for v in VOCAB],
+                         -1).to(torch.int32) for _ in range(3)]
+    masks = [(torch.rand(160, generator=gen, device=dev) > 0.1).float() for _ in range(3)]
+    return cfg, gen, songs, masks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn", ["xla", "pallas"])
+def test_graphed_dqn_rollout_equals_the_eager_loop(dev, attn, monkeypatch):
+    """dqn_rollout_song on CUDA replays one graph an episode: its
+    transitions equal the eager loop's bit for bit on both attention routes,
+    and after an in-place Adam step the replay sees the new weights."""
+    from reinforcement_learning_in_music_generation_torch.rl import dqn as tdqn
+    from reinforcement_learning_in_music_generation_torch.rl import env as tenv
+    from reinforcement_learning_in_music_generation_torch.rl import episode_graph as teg
+    monkeypatch.setenv("RLMG_ATTN_BACKEND", attn)
+    cfg, _, songs, masks = _rl_setup(dev)
+    qcfg = TC.DQNConfig(lr=1e-3, n_states=20, n_actions=10, episodes=6)
+    st = tdqn.init_state(cfg, qcfg, tlt.init_params(cfg, seed=5, device=dev))
+    kw = dict(episodes=6, n_states=20, n_actions=10)
+
+    def both(i):
+        g = tenv.dqn_rollout_song(st.eval_params, cfg, songs[i], songs[i], masks[i], **kw)
+        e = tenv.dqn_rollout_song(st.eval_params, cfg, songs[i], songs[i], masks[i],
+                                  graph=False, **kw)
+        for ours, ref in zip(g, e):
+            for k in ref:
+                assert torch.equal(ours[k], ref[k]), k
+        return g[0]
+
+    c0 = teg.EpisodeLoop.captures
+    for i in range(3):
+        agent = both(i)
+    assert teg.EpisodeLoop.captures == c0 + 1          # one capture serves every song
+    batch = {k: agent[k] for k in ("state", "action", "reward", "next_state", "done")}
+    ebatch = {"state": agent["state"], "next_state": agent["next_state"],
+              "mask_next_state": torch.ones(agent["state"].shape[:2], device=dev)}
+    wq = st.eval_params["layers"]["wq"]["w"]
+    w0, ptr = wq.clone(), wq.data_ptr()
+    st, _ = tdqn.update(st, cfg, qcfg, tdqn.make_optimizer(qcfg), batch, ebatch, None)
+    assert not torch.equal(wq, w0) and wq.data_ptr() == ptr    # updated in place
+    both(2)                                            # the replay against the new weights
+    assert teg.EpisodeLoop.captures == c0 + 1          # the same storage: replayed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ffn", ["xla", "pallas"])
+def test_graphed_ppo_rollout_equals_the_eager_loop(dev, ffn, monkeypatch):
+    """ppo.rollout_song on CUDA replays one graph an episode: states and
+    actions equal the eager loop's bit for bit, log-probs, values and
+    rewards within 1e-6 of their magnitude, on both FFN routes, also after
+    an in-place update step of the actor and the critic."""
+    from reinforcement_learning_in_music_generation_torch.rl import ppo as tppo
+    monkeypatch.setenv("RLMG_FFN_BACKEND", ffn)
+    cfg, _, songs, masks = _rl_setup(dev)
+    acfg = TC.actor_config(VOCAB, emb_sizes=(16,) * 6, d_model=64, n_layer=2, n_head=2,
+                           d_inner=128, dropout=0.0)
+    ccfg = TC.critic_config(VOCAB, emb_sizes=(16,) * 6, d_model=64, n_layer=2, n_head=2,
+                            d_inner=128, dropout=0.0)
+    rcfg = TC.ppo_reward_config(VOCAB, emb_sizes=(16,) * 6, d_model=64, n_layer=1, n_head=2,
+                                d_inner=128, attention_window=16, dropout=0.0)
+    pcfg = TC.PPOConfig(lr=1e-3, n_states=20, n_actions=10, episodes=5)
+    st = tppo.init_state(acfg, ccfg, rcfg, pcfg, seed=3, device=dev)
+    txs = tppo.make_optimizers(pcfg)
+    kw = dict(episodes=5, n_states=20, n_actions=10)
+
+    def both(i):
+        g, _ = tppo.rollout_song(st, (acfg, ccfg, rcfg), songs[i], songs[i], masks[i], **kw)
+        e, _ = tppo.rollout_song(st, (acfg, ccfg, rcfg), songs[i], songs[i], masks[i],
+                                 graph=False, **kw)
+        for k in ("state", "action", "next_state"):
+            assert torch.equal(g[k], e[k]), k
+        for k in ("log_action", "value", "reward"):
+            _close(g[k], e[k], 1e-6, k)
+        return e
+
+    for i in range(3):
+        agent = both(i)
+    ret = tppo.calculate_returns(agent["reward"][:, 0], pcfg.discount)
+    adv = tppo.calculate_advantages(ret, agent["value"])
+    expert = {"state": agent["state"], "mask_state": torch.ones(agent["state"].shape[:2],
+                                                                device=dev)}
+    st, _ = tppo.update_policy_step(st, (acfg, ccfg, rcfg), pcfg, txs, agent, expert, adv, ret)
+    both(1)
+
+
+@pytest.mark.gpu
+def test_rollout_graph_goes_with_its_weights(dev):
+    """The cached episode graph holds none of the weights: once they are
+    dropped its entry and its memory go."""
+    import gc
+
+    from reinforcement_learning_in_music_generation_torch.rl import env as tenv
+    from reinforcement_learning_in_music_generation_torch.rl import episode_graph as teg
+    cfg, _, songs, masks = _rl_setup(dev)
+    kw = dict(episodes=4, n_states=20, n_actions=10)
+    p = tlt.init_params(cfg, seed=6, device=dev)
+    tenv.dqn_rollout_song(p, cfg, songs[0], songs[0], masks[0], **kw)
+    del p
+    gc.collect()
+    torch.cuda.synchronize()
+    base, keys = torch.cuda.memory_allocated(), set(teg._LOOPS)
+    p = tlt.init_params(cfg, seed=7, device=dev)
+    with_params = torch.cuda.memory_allocated()
+    tenv.dqn_rollout_song(p, cfg, songs[0], songs[0], masks[0], **kw)
+    assert len(set(teg._LOOPS) - keys) == 1
+    del p
+    gc.collect()
+    torch.cuda.synchronize()
+    assert set(teg._LOOPS) <= keys
+    assert torch.cuda.memory_allocated() <= base + (with_params - base) // 100 + (1 << 16)
+
+
+@pytest.mark.gpu
+def test_causal_product_counts_its_replayed_runs(dev, monkeypatch):
+    """Under RLMG_ATTN_BACKEND=pallas kernel F counts its own runs: captured
+    calls x replays + eager calls; the wrapper counts only the eager calls
+    (the capture records, and a replay does not reach the host)."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        linear_attention_kernel as tlk)
+    from reinforcement_learning_in_music_generation_torch.rl import env as tenv
+    monkeypatch.setenv("RLMG_ATTN_BACKEND", "pallas")
+    cfg, _, songs, masks = _rl_setup(dev)
+    kw = dict(episodes=5, n_states=20, n_actions=10)
+    p = tlt.init_params(cfg, seed=8, device=dev)
+    tlk.kernel_runs(reset=True)
+    f0 = tlk.causal_product.launches_fwd
+    for i in range(2):            # song 0: one eager episode, a capture, 4 replays; song 1: 5
+        tenv.dqn_rollout_song(p, cfg, songs[i], songs[i], masks[i], **kw)
+    tenv.dqn_rollout_song(p, cfg, songs[2], songs[2], masks[2], graph=False, **kw)   # eager
+    captured = eager = cfg.n_layer                     # F calls an episode
+    want = captured * (4 + 5) + eager * (1 + 5)
+    assert tlk.kernel_runs() == (want, 0)
+    assert tlk.causal_product.launches_fwd - f0 == eager * (1 + 5)
 
 
 def _ffn_inputs(dev, n, d, di, seed=8):

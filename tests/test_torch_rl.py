@@ -9,6 +9,8 @@ songs from the JAX ``synthetic_cp_dataset`` (numpy, seeded).  Integer
 transitions agree exactly; losses to 1e-5 relative; parameters after an
 optimizer step per leaf at tests/test_torch_pretrain.py's tolerances."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from reinforcement_learning_in_music_generation_torch.rl import airl as tairl
 from reinforcement_learning_in_music_generation_torch.rl import buffers as tbuf
 from reinforcement_learning_in_music_generation_torch.rl import dqn as tdqn
 from reinforcement_learning_in_music_generation_torch.rl import env as tenv
+from reinforcement_learning_in_music_generation_torch.rl import episode_graph as teg
 from reinforcement_learning_in_music_generation_torch.train import optim as topt
 from reinforcement_learning_in_music_generation_tpu import config as C
 from reinforcement_learning_in_music_generation_tpu.data import dataset
@@ -154,6 +157,59 @@ def test_choose_action_and_rollout_match_jax(lt_params):
     # the reference's quirk: next_state = concat(state[:n_actions], action)
     np.testing.assert_array_equal(ta["next_state"][:, :5].numpy(), ta["state"][:, :5].numpy())
     np.testing.assert_array_equal(ta["state"][1:].numpy(), ta["next_state"][:-1].numpy())
+
+
+@pytest.mark.parametrize("knob", teg.ROUTE_VARS)
+def test_rollout_graph_cache_key_follows_routes_and_storage(monkeypatch, lt_params, knob):
+    """The cached episode loop is keyed on the weights' tensors and their
+    storage and on the routes read at capture: each backend knob and a new
+    storage for one parameter give a new entry; an in-place update keeps
+    it; freeing the weights drops it."""
+    tp = tw.from_jax_params(lt_params, device="cpu")
+    built = []
+
+    def build():
+        built.append(object())
+        return built[-1]
+
+    key = ("dqn", TTINY, 4)
+    first = teg.cached(key, (tp,), build)
+    assert teg.cached(key, (tp,), build) is first and len(built) == 1
+    with torch.no_grad():                         # an optimizer step: in place
+        tp["layers"]["wq"]["w"].add_(0.5)
+    assert teg.cached(key, (tp,), build) is first and len(built) == 1
+    before = os.environ.get(knob)
+    monkeypatch.setenv(knob, "pallas" if knob != "RLMG_FFN_MIN_ROWS" else "1")
+    assert teg.cached(key, (tp,), build) is not first and len(built) == 2
+    if before is None:
+        monkeypatch.delenv(knob)
+    else:
+        monkeypatch.setenv(knob, before)
+    assert teg.cached(key, (tp,), build) is first
+    tp["final_ln"]["scale"] = tp["final_ln"]["scale"].clone()    # a new storage
+    assert teg.cached(key, (tp,), build) is not first and len(built) == 3
+    n = len(teg._LOOPS)
+    del tp
+    import gc
+    gc.collect()
+    assert len(teg._LOOPS) < n
+
+
+def test_rollouts_on_the_cpu_never_capture(monkeypatch, lt_params):
+    """On CPU tensors the episode body runs eagerly: no graph is captured,
+    nothing is cached, and the result equals the forced eager loop's."""
+    def no_graph(*a, **k):
+        raise AssertionError("a CUDA graph was made on the CPU path")
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
+    tp = tw.from_jax_params(lt_params, device="cpu")
+    x, y, mask = _song()
+    c0, n0 = teg.EpisodeLoop.captures, len(teg._LOOPS)
+    kw = dict(episodes=4, n_states=10, n_actions=5)
+    ta, te = tenv.dqn_rollout_song(tp, TTINY, _t(x), _t(y), _t(mask), **kw)
+    fa, fe = tenv.dqn_rollout_song(tp, TTINY, _t(x), _t(y), _t(mask), graph=False, **kw)
+    assert teg.EpisodeLoop.captures == c0 and len(teg._LOOPS) == n0
+    for k in ta:
+        torch.testing.assert_close(ta[k], fa[k], rtol=0, atol=0)
 
 
 def _rollout_batches(params):
