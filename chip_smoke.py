@@ -18,22 +18,27 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
        differs), and >= 99% greedy next-token agreement with the default
        bf16 state;
        decode_chunk (v6 counterpart), B=128, against its twin of v6's
-       arithmetic, on the SIMT route (f32 weights) and the tensor-core
-       route (bf16 weights, generate's default): >= 99% teacher-forced
-       greedy agreement with f32 and bf16 states (state difference <= 1e-4
-       of its magnitude with f32); chunk invariance on both routes (64
-       tokens in one call equal 2 x 32, bit for bit); a greedy 128-token
-       call (>= 95% of tokens equal with f32 weights: the fed-back streams
-       part only after a near-tie; printed for bf16, where one comes within
-       a few tokens); the HMMA/HGMMA count in the SASS of the tensor-core
-       route's product kernels (cuobjdump, > 0); the SIMT heads + sample
-       pass on fixed h against the plain version with the same seed (>= 99%
-       of tokens equal: they differ only at near-ties);
+       arithmetic, at f32 weights (f32-grade products: three bf16 planes an
+       operand, six products) and bf16 weights (generate's default), both on
+       the tensor cores: >= 99% teacher-forced greedy agreement with f32 and
+       bf16 states (state difference <= 1e-4 of its magnitude with f32
+       weights and state, 3e-4 with bf16 weights, each with a control that
+       must end above it: the route on the weights rounded to bf16, and a
+       state rounded to bf16); every call on the tensor-core route; chunk
+       invariance at both weight types (64 tokens in one call equal 2 x 32,
+       bit for bit); a greedy 128-token call (>= 95% of tokens equal with
+       f32 weights: the fed-back streams part only after a near-tie;
+       printed for bf16, where one comes within a few tokens); the HMMA/HGMMA
+       count in the SASS of the route's product kernels at both weight types
+       and of kernel E's three passes (cuobjdump, > 0 in each); the SIMT
+       heads + sample pass on fixed h against the plain version with the
+       same seed (>= 99% of tokens equal: they differ only at near-ties);
   3. runs ``apps/cli.py generate`` end to end: 5 songs (the per-step v4
-     path) and 128 songs (the chunked v6 path's tensor-core route) with
-     bf16 weights, its default, and 128 songs with ``--dtype float32``
-     (the SIMT route), checks the MIDI files and fails if the route's
-     kernel was launched no time (or the SIMT route ran at bf16);
+     path) and 128 songs (the chunked v6 path) with bf16 weights, its
+     default, and 128 songs with ``--dtype float32``, checks the MIDI files
+     and fails if the path's kernel was launched no time, or if a 128-song
+     run's calls did not all reach kernel B's tensor-core route at 1 + T
+     CUDA launches a call;
   4. holds the two training kernels against their plain versions at the
      pretrain slice's shapes (B=32 x S=512 rows, flagship width, f32,
      TF32 off): qkv_attention_block (kernel C) forward within 1e-4 of the
@@ -61,9 +66,11 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      of synthetic_cp_dataset(4, 3584) (seed 0) and with a padding tail
      longer than w on every song: out and LSE within 1e-5 of their
      magnitude, dq / dk / dv (dO zero on padded rows, as the LM's masked
-     loss gives) within 1e-4 of theirs, every value finite; the library
-     yardstick (scaled_dot_product_attention with the additive band mask)
-     within 1e-4 on the rows that see a kept key;
+     loss gives) within 1e-4 of theirs, every value finite, with a control
+     (the twin on q, k, v rounded to bf16, against the f32 twin) that must
+     end above those gates; the library yardstick
+     (scaled_dot_product_attention with the additive band mask) within
+     1e-4 on the rows that see a kept key;
   8. holds kernel D at the Longformer's shape (14336 rows, d_model 512,
      d_inner 1024, mid_drop=False) against its plain version at dropout 0
      and 0.1, forward and the 12 gradients, f32 and bf16 as in 4;
@@ -205,8 +212,11 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      the counters and the bound (operations at the bf16 peak for v5);
  30. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
-     beside the library call; kernel B at B=128 and 1024 (T=128) on both
-     routes, with the state-streaming floor and the CUDA launches a call;
+     beside the library call (and its device time under the profiler);
+     kernel B at B=128 and 1024 (T=128) at both weight types, with the
+     state-streaming floor and the CUDA launches a call (1 + T); B with f32
+     weights and E bounded at 989/6 TFLOP/s (their f32-grade products on
+     the tensor cores), the f32 FMA bound beside;
      kernels D (16384 and 14336 rows) and G (50, 1500, 16384 rows) at f32
      and bf16 with the CUDA launches a call, bounded at the rate of their
      tensor-core arithmetic (bf16 989 TFLOP/s; f32 tensors 989/6, six bf16
@@ -278,15 +288,21 @@ def device_ms(fn, reps: int) -> float:
     kernels once: the sum over its kernels of each one's mean time under
     torch.profiler, over ``reps`` calls after a warm one (the host's pace
     does not enter; a mean per kernel, as the profiler may not keep every
-    record of a window)."""
+    record of a window); CUDA events over back-to-back calls when it keeps
+    no device time at all."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.self_device_time_total / ev.count for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count) / 1e3
+    ms = sum(ev.self_device_time_total / ev.count for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count) / 1e3
+    if ms == 0:       # no device record kept: CUDA events over back-to-back calls instead
+        print("[time] the profiler kept no device time for this window: CUDA events instead",
+              flush=True)
+        return time_ms(fn, reps)
+    return ms
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
@@ -1579,15 +1595,16 @@ def main() -> None:
           f"{stack_bf16}")
 
     # -- 2b. decode_chunk (v6 counterpart) against its plain version -------
-    # f32 weights take the SIMT route, bf16 weights (generate's default) the
-    # tensor-core route; the twin computes v6's arithmetic for both
+    # both weight types take the tensor-core route: f32 weights at f32 grade
+    # (three bf16 planes an operand, six products), bf16 weights (generate's
+    # default) at v6's cast; the twin computes v6's arithmetic for both
     v6p = dk6.make_v6_params(params, cfg)
     b6 = 128
     temps = tuple(s.temperature for s in smp.CP_SAMPLING)
     topps = tuple(s.top_p if s.top_p is not None else float("inf") for s in smp.CP_SAMPLING)
     kw = dict(n_head=H, vocab_sizes=cfg.vocab_sizes, temps=temps, topps=topps,
               eps=cfg.attn_eps)
-    b_err = {}
+    b_err, b_share = {}, {}
     dk6.reset_counts()
     toks = rand_tokens(16, b6)
     v6p_bf16 = dk6.make_v6_params(params, cfg, dtype=bf16)
@@ -1612,16 +1629,32 @@ def main() -> None:
               f"max|ds| {ds:.3e} (max|s| {mag:.3e})", flush=True)
         check(rate >= 0.99, f"decode_chunk {tag}: agreement {rate} < 99%")
         if sdt == f32:
-            # the SIMT route's sums alone differ in order: 1e-4.  The tensor-
-            # core route also rounds activations to bf16 on both sides, so a
-            # reordered sum can flip a rounding: 3e-4, under what a state
-            # rounded to bf16 reads (the control below)
+            # f32 weights: f32-grade products on both sides, the sums in
+            # another order: 1e-4.  bf16 weights: both sides also round the
+            # activations to bf16, so a reordered sum can flip a rounding:
+            # 3e-4, under what a state rounded to bf16 reads (the control
+            # below)
             tol = 1e-4 if wdt == f32 else S_TC_TOL
             check(ds <= tol * max(1.0, mag), f"decode_chunk {tag}: max|ds| {ds} > {tol} x "
                                              f"{mag}")
             b_err[wdt] = ds
-            if wdt == bf16:
+            b_share[wdt] = ds / max(1.0, mag)
+            if wdt == f32:
+                s_twin_f32w = sp.s.float()
+            else:
                 s_ref_f32 = sp.s.float()
+                # the f32 weights' control: the route on the same weights
+                # rounded to bf16, against the f32 weights' twin
+                ctl = (sk.s.float() - s_twin_f32w).abs().max().item()
+                mag_w = max(1.0, s_twin_f32w.abs().max().item())
+                b_share["control_f32_weights"] = ctl / mag_w
+                print(f"[decode_chunk] control, B={b6} weights rounded to bfloat16, f32 state, "
+                      f"against the f32 weights' twin: max|ds| {ctl:.3e} = {ctl / mag_w:.3e} of "
+                      f"max|s| (gate 1e-4; the f32 weights' route reads {b_share[f32]:.3e})",
+                      flush=True)
+                check(ctl > 1e-4 * mag_w, "decode_chunk: the f32 weights' gate would pass bf16 "
+                                          f"weights ({ctl} <= 1e-4 x {mag_w})")
+                del s_twin_f32w
         elif wdt == bf16:
             # the control: the route with its state rounded to bf16, against
             # the f32-state twin the gate above reads
@@ -1634,10 +1667,11 @@ def main() -> None:
             check(ctl > S_TC_TOL * mag_ref, "decode_chunk: the f32-state gate would pass a state "
                                             f"rounded to bf16 ({ctl} <= {S_TC_TOL} x {mag_ref})")
             del s_ref_f32
-    check(dk6.fused_decode_v6.tc_calls == 32, "decode_chunk: the bf16 checks did not all "
-          f"take the tensor-core route ({dk6.fused_decode_v6.tc_calls} of 32)")
+    f6 = dk6.fused_decode_v6
+    check(f6.tc_calls == f6.launches == 64, "decode_chunk: the checks did not all take the "
+          f"tensor-core route ({f6.tc_calls} of {f6.launches} calls, 64 made)")
 
-    # chunk invariance on both routes: 64 tokens in one call equal 2 x 32
+    # chunk invariance at both weight types: 64 tokens in one call equal 2 x 32
     tok0 = torch.tensor(sampler.CP_SEED, dtype=torch.int32, device=dev).repeat(b6, 1)
     for vp in (v6p, v6p_bf16):
         s1 = dk4.init_state(cfg, b6, device=dev)
@@ -1648,7 +1682,7 @@ def main() -> None:
                                            max_tokens=32, **kw)
         same = torch.equal(one, torch.cat([first, second])) and torch.equal(s1.s, s2.s) \
             and torch.equal(s1.z, s2.z)
-        route = "SIMT, f32 weights" if vp is v6p else "tensor cores, bf16 weights"
+        route = "f32 weights" if vp is v6p else "bf16 weights"
         print(f"[decode_chunk] chunk invariance ({route}; 64 vs 2x32 tokens, B={b6}): "
               f"{'identical' if same else 'DIFFERENT'}", flush=True)
         check(same, f"decode_chunk ({route}): one call of 64 tokens differs from two of 32")
@@ -1672,18 +1706,29 @@ def main() -> None:
         if vp is v6p:
             check(rate >= 0.95, f"decode_chunk greedy 128-token call: {rate} < 95% equal")
 
-    # the tensor-core route's products run on the tensor cores: HMMA in the
-    # SASS of its product kernels
+    # the route's products run on the tensor cores at both weight types:
+    # HMMA in the SASS of its product kernels (four instantiations a weight
+    # type); and kernel E's three passes at each compiled depth
     cuobjdump = cuobjdump_path()
     check(cuobjdump is not None, "cuobjdump not found (toolkit or Triton's copy)")
     sass = subprocess.run([cuobjdump, "-sass", libs["decode_chunk"]], capture_output=True,
                           text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-500:]}")
     b_mma = mma_counts(sass.stdout, "tc_gemm_kernel")
-    print(f"[decode_chunk] HMMA/HGMMA instructions in the tensor-core route's product kernels "
+    b_mma_f32 = {k: n for k, n in b_mma.items() if "EfEEv" in k}
+    print(f"[decode_chunk] HMMA/HGMMA instructions in the route's product kernels "
           f"({cuobjdump}): {b_mma}", flush=True)
-    check(len(b_mma) > 0 and all(n > 0 for n in b_mma.values()),
-          f"decode_chunk: no tensor-core instructions in {b_mma}")
+    check(len(b_mma) == 8 and len(b_mma_f32) == 4 and all(n > 0 for n in b_mma.values()),
+          f"decode_chunk: a product kernel without tensor-core instructions, or not one "
+          f"instantiation a tile, epilogue and weight type ({b_mma})")
+    sass = subprocess.run([cuobjdump, "-sass", libs["window_attention"]], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-500:]}")
+    e_mma = mma_counts(sass.stdout, "wa_")
+    print(f"[window_attn] HMMA instructions in kernel E's passes: {e_mma}", flush=True)
+    check(all(sum(n > 0 and name in k for k, n in e_mma.items()) == 4
+              for name in ("wa_fwd_kernel", "wa_dq_kernel", "wa_dkv_kernel")),
+          f"window_attn: a pass without tensor-core instructions at some depth ({e_mma})")
 
     hfix = torch.randn((b6, D), generator=gen, device=dev)
     for greedy in (False, True):
@@ -1698,9 +1743,9 @@ def main() -> None:
 
     # -- 3. the main path, end to end -------------------------------------
     # generate's default bf16 weights at 5 songs (kernel A) and 128 (kernel
-    # B's tensor-core route), and 128 songs with --dtype float32 (B's SIMT
-    # route)
-    launches = {}
+    # B), and 128 songs with --dtype float32 (kernel B at f32 grade); both
+    # of B's runs must reach its tensor-core route
+    launches, tc_launch = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, songs, max_tok, dtype in (("v4", 5, 512, "bfloat16"),
                                             ("v6_tc", 128, 256, "bfloat16"),
@@ -1709,35 +1754,38 @@ def main() -> None:
             dk4.fused_stack_step.launches = 0
             dk4.kernel_runs(reset=True)
             dk6.reset_counts()
-            # the tensor-core route: a warm request on seed 1, then the timed
-            # one on seed 0, a new request
-            warm = ["--warmup"] if name == "v6_tc" else []
+            # kernel B: a warm request on seed 1, then the timed one on seed 0,
+            # a new request
+            warm = ["--warmup"] if name != "v4" else []
             res = cli.main(["generate", "--songs", str(songs), "--bars", "8",
                             "--max-tokens", str(max_tok), "--dtype", dtype, "--out-dir", out,
                             *warm])
             torch.cuda.synchronize()
             f6 = dk6.fused_decode_v6
             a_runs = dk4.kernel_runs()
-            launches[name] = {"v4": a_runs, "v6_tc": f6.tc_calls,
-                              "v6": f6.launches - f6.tc_calls}[name]
+            launches[name] = a_runs if name == "v4" else f6.tc_calls
             cold = " (a cold call: it captures the token graph)" if name == "v4" else ""
             print(f"[generate] {songs} songs, {dtype} weights: {res['tokens']} tokens in "
                   f"{res['seconds']:.3f}s = {res['tokens_per_s']:.1f} tokens/s{cold}; launches "
                   f"decode_step {a_runs} (counted by the kernel; "
-                  f"{dk4.fused_stack_step.launches} eager), decode_chunk SIMT "
-                  f"{f6.launches - f6.tc_calls}, tensor cores {f6.tc_calls} ({f6.cuda_launches} "
+                  f"{dk4.fused_stack_step.launches} eager), decode_chunk {f6.launches} calls, "
+                  f"on the tensor cores {f6.tc_calls} ({f6.cuda_launches} "
                   f"CUDA launches for {f6.positions} positions, {f6.graph_kernels} kernels in a "
                   f"token's graph, {f6.captures} instantiated, {f6.updates} updated)",
                   flush=True)
             check(launches[name] > 0, f"generate {songs} songs {dtype}: its kernel never "
                                       "launched")
-            if name == "v6_tc":
-                check(f6.launches == f6.tc_calls, "generate 128 songs bf16: the SIMT route ran")
-                check(f6.captures <= 1, f"generate 128 songs bf16: {f6.captures} token graphs "
-                                        "instantiated for two requests of one shape")
-                tc_launch = dict(cuda_launches=f6.cuda_launches, positions=f6.positions,
-                                 graph_kernels=f6.graph_kernels, captures=f6.captures,
-                                 updates=f6.updates)
+            if name != "v4":
+                check(f6.launches == f6.tc_calls > 0, f"generate 128 songs {dtype}: "
+                      f"{f6.tc_calls} of {f6.launches} calls reached the tensor-core route")
+                check(f6.captures <= 1, f"generate 128 songs {dtype}: {f6.captures} token "
+                                        "graphs instantiated for two requests of one shape")
+                check(f6.cuda_launches == f6.tc_calls + f6.positions,
+                      f"generate 128 songs {dtype}: {f6.cuda_launches} CUDA launches for "
+                      f"{f6.tc_calls} calls of {f6.positions} positions (1 + T a call)")
+                tc_launch[name] = dict(cuda_launches=f6.cuda_launches, positions=f6.positions,
+                                       graph_kernels=f6.graph_kernels, captures=f6.captures,
+                                       updates=f6.updates, tokens_per_s=res["tokens_per_s"])
             for i in range(songs):
                 with open(os.path.join(out, f"get_{i}.mid"), "rb") as f:
                     head = f.read(4)
@@ -1985,6 +2033,24 @@ def main() -> None:
             print(f"[window_attn] {tag} {name}: max|diff| {e:.3e} of magnitude "
                   f"{magnitude(y):.3e}", flush=True)
             check(e <= 1e-4 * magnitude(y), f"window_attn {tag} {name}: max|diff| {e}")
+        if tag == "synthetic padding":
+            # the control: the twin on q, k, v rounded to bf16, against the
+            # f32 twin, must end above the gates the kernel is held below
+            oc, gc = fwd_bwd(e_plain(mask), [t.bfloat16().float() for t in (q_e, k_e, v_e)],
+                             g_e)
+            e_ctl = {"out": max_err(oc, op) / magnitude(op)}
+            e_ctl.update({n_: max_err(x, y) / magnitude(y)
+                          for n_, x, y in zip(("dq", "dk", "dv"), gc, gp)})
+            e_share = {"out": e_all / magnitude(op)}
+            e_share.update({n_: max_err(x, y) / magnitude(y)
+                            for n_, x, y in zip(("dq", "dk", "dv"), gk, gp)})
+            print(f"[window_attn] control, the twin on q, k, v rounded to bfloat16 against the "
+                  f"f32 twin, share of magnitude: " + ", ".join(
+                      f"{k_} {v_:.3e} (kernel {e_share[k_]:.3e})" for k_, v_ in e_ctl.items())
+                  + "; gates out 1e-5, gradients 1e-4", flush=True)
+            check(e_ctl["out"] > 1e-5 and all(e_ctl[n_] > 1e-4 for n_ in ("dq", "dk", "dv")),
+                  f"window_attn: the gates would pass bf16-rounded inputs ({e_ctl})")
+            del oc, gc
         del ok, gk, op, gp
     # the library yardstick: one PyTorch call with the (B, 1, S, S) additive mask
     q_e, k_e, v_e, g_e = band_inputs()
@@ -2685,13 +2751,14 @@ def main() -> None:
         del st_b, wa
 
     # kernel B: a 128-token call at B=128 (and B=1024, bench.py's decode
-    # shape) with the default bf16 state, f32 weights (SIMT route) and bf16
-    # weights (tensor-core route, bound at the bf16 tensor-core rate: v6
-    # casts every product's input to the weights' type)
+    # shape) with the default bf16 state, f32 weights (bound at 989/6
+    # TFLOP/s: six bf16 products a product; the f32 FMA bound beside) and
+    # bf16 weights (bound at the bf16 tensor-core rate: v6 casts every
+    # product's input to the weights' type)
     T6 = 128
     fold_rows = v6p.m.shape[0]
     b_t = {}
-    for wdt, b in ((f32, b6), (bf16, b6), (bf16, 1024)):
+    for wdt, b in ((f32, b6), (bf16, b6), (bf16, 1024), (f32, 1024)):
         vp = v6p if wdt == f32 else v6p_bf16
         st6 = dk4.init_state(cfg, b, device=dev)
         tok_b = tok0[:1].repeat(b, 1)
@@ -2699,7 +2766,7 @@ def main() -> None:
         ms = time_ms(lambda: dk6.fused_decode_v6(vp, tok_b, st6.s, st6.z, 0, 1,
                                                  max_tokens=T6, **kw), 3)
         f6 = dk6.fused_decode_v6
-        per_call = f6.cuda_launches / f6.tc_calls if wdt == bf16 else None
+        per_call = f6.cuda_launches / f6.tc_calls
         plain = None
         if b == b6:
             plain = time_ms(lambda: dk6.fused_decode_v6_plain(
@@ -2707,18 +2774,22 @@ def main() -> None:
                 topps=topps, eps=cfg.attn_eps), 1)
         ops, nb, floor_b = chunk_work(b, T6, L, D, DI, H, w_bytes=2 if wdt == bf16 else 4,
                                       s_bytes=st6.s.element_size(), fold_rows=fold_rows)
-        bd, by = bound(nb, ops, BF16_FLOPS if wdt == bf16 else F32_FLOPS)
+        bd, by = bound(nb, ops, BF16_FLOPS if wdt == bf16 else SPLIT_BF16_FLOPS)
         b_t[(wdt, b)] = dict(ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by,
                              floor_ms=floor_b / HBM_BYTES_PER_S * 1e3, launches_per_call=per_call,
                              graph_kernels=f6.graph_kernels,
                              gflop=ops / 1e9, mb=nb / 1e6)
+        if wdt == f32:
+            b_t[(wdt, b)]["fma_bound_ms"] = bound(nb, ops)[0]
         plain_s = f"{plain:.3f}" if plain is not None else "not timed"
-        print(f"[time] decode_chunk B={b} T={T6} {str(wdt)[6:]} weights "
-              f"({'tensor cores' if wdt == bf16 else 'SIMT'}), {str(st6.s.dtype)[6:]} state: "
-              f"{ms:.3f} ms, plain {plain_s} ms, bound {bd:.4f} ms ({by}; {ops / 1e9:.1f} GFLOP, "
-              f"{nb / 1e6:.1f} MB), state-streaming floor {floor_b / HBM_BYTES_PER_S * 1e3:.3f} "
-              f"ms" + (f"; {per_call:.0f} CUDA launches a call ({f6.graph_kernels} kernels in "
-                       f"each token's graph)" if wdt == bf16 else ""), flush=True)
+        fma_s = f", f32 FMA bound {b_t[(wdt, b)]['fma_bound_ms']:.4f}" if wdt == f32 else ""
+        print(f"[time] decode_chunk B={b} T={T6} {str(wdt)[6:]} weights, "
+              f"{str(st6.s.dtype)[6:]} state: {ms:.3f} ms, plain {plain_s} ms, bound {bd:.4f} ms "
+              f"({by}; {ops / 1e9:.1f} GFLOP, {nb / 1e6:.1f} MB{fma_s}), state-streaming floor "
+              f"{floor_b / HBM_BYTES_PER_S * 1e3:.3f} ms; {per_call:.0f} CUDA launches a call "
+              f"({f6.graph_kernels} kernels in each token's graph)", flush=True)
+        check(per_call == 1 + T6, f"decode_chunk B={b} {str(wdt)[6:]} weights: {per_call} CUDA "
+                                  f"launches a call (1 + T = {1 + T6})")
         del st6
     b_ms, b_plain, b_bound, b_by = (b_t[(f32, b6)][k] for k in ("ms", "plain_ms", "bound_ms",
                                                                  "bound_by"))
@@ -2797,16 +2868,23 @@ def main() -> None:
     e_pf, e_pb = time_fwd_bwd(e_plain(dms), e_in, g_e, 5)
     e_lf, e_lb = time_fwd_bwd(e_lib, e_in, g_e, 10)
     (ef_ops, ef_b), (eb_ops, eb_b), pairs, kept_pairs = window_work(BD, HD, SD, ED, WD, dms)
-    e_bf, e_bfby = bound(ef_b, ef_ops)
-    e_bb, e_bbby = bound(eb_b, eb_ops)
-    ek_bf, _ = bound(ef_b, ef_ops * kept_pairs / pairs)
-    ek_bb, _ = bound(eb_b, eb_ops * kept_pairs / pairs)
+    # at f32 grade on the tensor cores (six bf16 products a product), the
+    # f32 FMA bound beside
+    e_bf, e_bfby = bound(ef_b, ef_ops, SPLIT_BF16_FLOPS)
+    e_bb, e_bbby = bound(eb_b, eb_ops, SPLIT_BF16_FLOPS)
+    e_fma_f, e_fma_b = bound(ef_b, ef_ops)[0], bound(eb_b, eb_ops)[0]
+    ek_bf, _ = bound(ef_b, ef_ops * kept_pairs / pairs, SPLIT_BF16_FLOPS)
+    ek_bb, _ = bound(eb_b, eb_ops * kept_pairs / pairs, SPLIT_BF16_FLOPS)
+    e_dev_f = device_ms(lambda: twk.forward_kernel(q_e, k_e, v_e, dms, WIN), 10)
+    o_e, st_e = twk.forward_kernel(q_e, k_e, v_e, dms, WIN)
+    e_dev_b = device_ms(lambda: twk.backward_kernel(q_e, k_e, v_e, dms, o_e, st_e, g_e, WIN), 10)
     print(f"[time] window_attention B={BD} H={HD} S={SD} D={ED} w={WD}: forward {e_fwd:.3f} ms "
-          f"(plain {e_pf:.3f}, library {e_lf:.3f}, bound {e_bf:.4f} {e_bfby}, "
-          f"{ef_ops / 1e9:.2f} GFLOP), backward {e_bwd:.3f} ms (plain {e_pb:.3f}, library "
-          f"{e_lb:.3f}, bound {e_bb:.4f} {e_bbby}, {eb_ops / 1e9:.2f} GFLOP); bounds count "
-          f"{pairs} (query, key) pairs of the band; the {kept_pairs} with both kept would give "
-          f"{ek_bf:.4f} / {ek_bb:.4f} ms")
+          f"(device {e_dev_f:.4f}; plain {e_pf:.3f}, library {e_lf:.3f}, bound {e_bf:.4f} "
+          f"{e_bfby}, f32 FMA bound {e_fma_f:.4f}, {ef_ops / 1e9:.2f} GFLOP), backward "
+          f"{e_bwd:.3f} ms (device {e_dev_b:.4f}; plain {e_pb:.3f}, library {e_lb:.3f}, bound "
+          f"{e_bb:.4f} {e_bbby}, f32 FMA bound {e_fma_b:.4f}, {eb_ops / 1e9:.2f} GFLOP); bounds "
+          f"count {pairs} (query, key) pairs of the band; the {kept_pairs} with both kept would "
+          f"give {ek_bf:.4f} / {ek_bb:.4f} ms")
     print(f"[time] discriminator-LM step B={BD} S={SD}: default route (kernel D) "
           f"{dstep_ms['default']:.1f} ms, window route (kernel E) {dstep_ms['window']:.1f} ms, "
           f"plain route {dstep_ms['plain']:.1f} ms")
@@ -2889,11 +2967,22 @@ def main() -> None:
          "bf16_weights_by_batch": {str(b): r for b, r in a_bf16.items()},
          "per_step_token_graph": {k: {kk: vv for kk, vv in w.items() if kk != "host_calls"}
                                   for k, w in graph_win.items()}},
-        {"name": "decode_chunk_v6", "route": "cuda", "source": f"{pkg}/csrc/decode_chunk.cu",
+        # B with f32 weights (f32-grade products on the tensor cores) at
+        # B=128, and at B=1024; bound at 989/6 TFLOP/s, the f32 FMA bound
+        # beside
+        {"name": "decode_chunk_v6", "route": "cuda",
+         "source": f"{pkg}/csrc/decode_chunk_tc.cuh",
          "replaces": f"{tpu}/decode_kernel_v6.py:364", "launches": launches["v6"],
          "weights": "float32", "max_abs_err": b_err[f32], "ms": b_ms, "plain_ms": b_plain,
-         "bound_ms": b_bound, "bound_by": b_by, "library_ms": None},
-        # the tensor-core route (bf16 weights, generate's default) at B=128,
+         "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
+         "fma_bound_ms": b_t[(f32, b6)]["fma_bound_ms"],
+         "state_floor_ms": b_t[(f32, b6)]["floor_ms"],
+         "cuda_launches_per_call": b_t[(f32, b6)]["launches_per_call"],
+         "graph_kernels": b_t[(f32, b6)]["graph_kernels"], "hmma": b_mma_f32,
+         "max_share_of_magnitude": b_share[f32],
+         "bf16_weights_control_share": b_share["control_f32_weights"],
+         "main_path_launches": tc_launch["v6"], "b1024": b_t[(f32, 1024)]},
+        # the same kernel with bf16 weights (generate's default) at B=128,
         # and at B=1024
         {"name": "decode_chunk_v6_tc", "route": "cuda",
          "source": f"{pkg}/csrc/decode_chunk_tc.cuh",
@@ -2903,8 +2992,9 @@ def main() -> None:
          "bound_by": b_t[(bf16, b6)]["bound_by"], "library_ms": None,
          "state_floor_ms": b_t[(bf16, b6)]["floor_ms"],
          "cuda_launches_per_call": b_t[(bf16, b6)]["launches_per_call"],
-         "graph_kernels": b_t[(bf16, b6)]["graph_kernels"], "hmma": b_mma,
-         "main_path_launches": tc_launch, "host_ms_per_call": host,
+         "graph_kernels": b_t[(bf16, b6)]["graph_kernels"],
+         "hmma": {k: n for k, n in b_mma.items() if k not in b_mma_f32},
+         "main_path_launches": tc_launch["v6_tc"], "host_ms_per_call": host,
          "b1024": b_t[(bf16, 1024)]},
         {"name": "qkv_attention_block", "route": "cuda",
          "source": f"{pkg}/csrc/attention_block.cu",
@@ -2929,14 +3019,20 @@ def main() -> None:
          "longformer_shape": {"rows": ND, "d_inner": dcfg.d_inner,
                               **d_t["longformer", torch.float32],
                               "bf16": d_t["longformer", torch.bfloat16]}},
+        # E at the discriminator LM's shape; bound at 989/6 TFLOP/s (its
+        # products at f32 grade on the tensor cores), the f32 FMA bound beside
         {"name": "window_attention_band", "route": "cuda",
          "source": f"{pkg}/csrc/window_attention.cu",
          "replaces": f"{tpu}/window_attention_kernel.py:203", "launches": sum(launches["E"]),
          "launches_fwd": launches["E"][0], "launches_bwd": launches["E"][1],
          "max_abs_err": e_err, "ms": e_fwd + e_bwd, "ms_fwd": e_fwd, "ms_bwd": e_bwd,
+         "device_ms_fwd": e_dev_f, "device_ms_bwd": e_dev_b,
          "plain_ms": e_pf + e_pb, "bound_ms": e_bf + e_bb, "bound_ms_fwd": e_bf,
          "bound_ms_bwd": e_bb, "bound_by": e_bfby if e_bfby == e_bbby else "operations",
-         "library_ms": e_lf + e_lb, "library_ms_fwd": e_lf, "library_ms_bwd": e_lb},
+         "fma_bound_ms_fwd": e_fma_f, "fma_bound_ms_bwd": e_fma_b,
+         "library_ms": e_lf + e_lb, "library_ms_fwd": e_lf, "library_ms_bwd": e_lb,
+         "max_share_of_magnitude": e_share, "bf16_rounding_control_share": e_ctl,
+         "hmma": e_mma},
         # F at a DQN update's shape; no single PyTorch call computes causal
         # linear attention (scaled_dot_product_attention is softmax attention);
         # bound at the rate of its six bf16 products a product (989/6 TFLOP/s),

@@ -8,22 +8,18 @@
 // the TPU's vector unit; here every tensor is batch-major and the state
 // keeps the DecodeState layout S (L,B,H,E,E), z (L,B,H,E).
 //
-// Two routes, chosen by the weights' type:
-//   bf16 weights (generate's default): rlmg_decode_chunk_tc, the tensor-core
-//     route of decode_chunk_tc.cuh.  v6 casts every product's input to the
-//     weights' type and sums in f32, which is what mma.sync bf16 -> f32
-//     computes.  One token is 7 L + 3 kernels (embedding; per layer the qkv
-//     product, the state pass, Wo, LN1, FFN1, FFN2, LN2; the heads product
-//     and the sampling pass), captured as a CUDA graph, one for each shape,
-//     that reads the call's position, seed and sampling settings from a
-//     block on the card; a call launches one small kernel (tok0 and those
-//     values onto the card) and the graph T times.
-//   f32 weights: rlmg_decode_chunk, per token an embed kernel, the layer
-//     stack of decode_layers.cuh (A's K-split SIMT f32 products) and
-//     heads_sample_kernel, one block per (song, field); v6's casts are no-ops
-//     there and the f32 FMA rate is the bound.
+// One route for both weight types (decode_chunk_tc.cuh): every product
+// on the tensor cores at v6's arithmetic, bf16 inputs with bf16 weights and
+// f32 grade (three bf16 planes an operand, six products) with f32 weights.
+// One token is 7 L + 3 kernels (embedding; per layer the qkv product, the
+// state pass, Wo, LN1, FFN1, FFN2, LN2; the heads product and the sampling
+// pass), captured as a CUDA graph, one for each shape and weight type,
+// that reads the call's position, seed and sampling settings from a block
+// on the card; a call launches one small kernel (tok0 and those values
+// onto the card) and the graph T times.
 // (embed_row, heads_sample_row and sample_logit are in decode_sample.cuh,
-// shared with latency_decode.cu.)
+// shared with latency_decode.cu; rlmg_heads_sample runs heads_sample_row
+// alone, the latency kernels' heads + sampling pass.)
 //
 // Random bits: Philox4x32-10 keyed by (seed, PHILOX_KEY1) at counter
 // (absolute position, field, vocab index, song).  The stream depends only
@@ -39,7 +35,10 @@
 // MB a token, 0.084 ms, about 10.8 ms a call, the floor this route aims at.
 // The state pass reads and writes it in 16-byte pieces; the products
 // stream the weights over K-split tiles on every SM.  With f32 weights the
-// products bind: 19.2 ms a call at 67 TFLOP/s (f32 FMAs).
+// products take six bf16 products each: 7.8 ms a call at 989/6 TFLOP/s,
+// under the floor of streaming the f32 weights (151 MB) and the state
+// every token, about 13.7 ms a call; the route streams the weights' bf16
+// planes, 226 MB a token.
 
 #include <stdint.h>
 #include <string.h>
@@ -49,15 +48,6 @@
 #include "decode_chunk_tc.cuh"
 
 namespace rlmg {
-
-// h[b] = embed_row(tok[b]), one block per song.
-__global__ void embed_kernel(const int* __restrict__ tok, const float* __restrict__ m,
-                             FieldArgs fa, const float* __restrict__ bin,
-                             const float* __restrict__ pe_row, float* __restrict__ h, int NF,
-                             int D) {
-  const int b = blockIdx.x;
-  embed_row(tok + (size_t)b * NF, m, fa, bin, pe_row, h + (size_t)b * D, NF, D);
-}
 
 // One block of VF_PAD threads per (song b, field f).
 template <typename TW>
@@ -90,12 +80,9 @@ inline int heads_sample(const float* h, const float* fls, const float* flb, cons
   return 0;
 }
 
-
-// -- the tensor-core route (bf16 weights) -------------------------------------
-
 // One instantiated token graph per shape (TcArgs: device, L, B, D, H, DI,
-// NF, state type), holding the pointers of the call that last ran it.  The
-// per-call values (position, seed, sampling settings) are read from TcCtrl
+// NF, state type, weight type), holding the pointers of the call that last
+// ran it.  The per-call values (position, seed, sampling settings) are read from TcCtrl
 // on the card, so a call with the same pointers launches the graph as it
 // is; a call with other pointers (another state, weights or buffers)
 // captures its token again and updates the graph in place
@@ -112,11 +99,11 @@ static int tc_next = 0;
 static cudaStream_t tc_capture_streams[TC_MAX_DEVICES];
 static std::mutex tc_mutex;
 
-template <typename TS>
+template <typename TS, typename TW>
 int tc_capture(const TcArgs& a, cudaStream_t cs, cudaGraph_t* g, int* kernels) {
   cudaError_t e = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
   if (e != cudaSuccess) return (int)e;
-  const int n = tc_enqueue_token<TS>(a, cs);
+  const int n = tc_enqueue_token<TS, TW>(a, cs);
   *g = nullptr;
   e = cudaStreamEndCapture(cs, g);
   if (n < 0 || e != cudaSuccess) {
@@ -147,11 +134,16 @@ inline int tc_graph(const TcArgs& a, TcGraph** out, int* how) {
     const cudaError_t e = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
     if (e != cudaSuccess) return (int)e;
   }
-  int rc = tc_gemm_prepare();
+  int rc = a.w_f32 ? tc_gemm_prepare<float>() : tc_gemm_prepare<bf16>();
   if (rc) return rc;
   cudaGraph_t g = nullptr;
   int n = 0;
-  rc = a.s_bf16 ? tc_capture<bf16>(a, cs, &g, &n) : tc_capture<float>(a, cs, &g, &n);
+  if (a.w_f32)
+    rc = a.s_bf16 ? tc_capture<bf16, float>(a, cs, &g, &n)
+                  : tc_capture<float, float>(a, cs, &g, &n);
+  else
+    rc = a.s_bf16 ? tc_capture<bf16, bf16>(a, cs, &g, &n)
+                  : tc_capture<float, bf16>(a, cs, &g, &n);
   if (rc) return rc;
   cudaError_t e = cudaErrorUnknown;
   if (slot != nullptr) {
@@ -192,48 +184,9 @@ inline int tc_graph(const TcArgs& a, TcGraph** out, int* how) {
 
 extern "C" {
 
-long long rlmg_stack_scratch_floats(int B, int D, int DI) {
-  return (long long)rlmg::stack_scratch_floats(B, D, DI);
-}
-
-// Decode T tokens with f32 weights.  tok0 (B,NF) int32 is fed at position
-// t0; tokens (T,B,NF) int32 receives the T successors (tokens[t] is fed at
-// t0+t+1 by the next step or call).  s, z are updated in place.  off,
-// tinv, topp are host arrays of NF values.  h (B,D) f32 and scratch
-// (rlmg_stack_scratch_floats) are the caller's.  pe is the whole (max_len, D)
-// f32 table; rows t0..t0+T-1 are read.
-int rlmg_decode_chunk(const int* tok0, int* tokens, const float* m, const float* bin,
-                      const float* pe, const void* const* w, const void* hw, const float* hb,
-                      const float* fls, const float* flb, const int* off, const float* tinv,
-                      const float* topp, void* s, void* z, float* h, float* scratch, int T,
-                      int t0, unsigned int seed, int greedy, int L, int B, int D, int H,
-                      int DI, int NF, float eps, int s_bf16, void* stream) {
-  if (!rlmg::stack_shape_ok(D, H) || NF > rlmg::MAX_NF || NF < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const rlmg::FieldArgs fa = rlmg::field_args(off, tinv, topp, NF);
-  const size_t bnf = (size_t)B * NF;
-  for (int t = 0; t < T; ++t) {
-    const int* tin = t == 0 ? tok0 : tokens + (t - 1) * bnf;
-    rlmg::embed_kernel<<<B, 256, 0, st>>>(tin, m, fa, bin, pe + (size_t)(t0 + t) * D, h, NF,
-                                          D);
-    RLMG_CHECK();
-    using bf = __nv_bfloat16;
-    int rc = s_bf16 ? rlmg::stack_step<float, bf>(h, w, (bf*)s, (bf*)z, scratch, L, B, D, H, DI,
-                                                  eps, st)
-                    : rlmg::stack_step<float, float>(h, w, (float*)s, (float*)z, scratch, L, B,
-                                                     D, H, DI, eps, st);
-    if (rc) return rc;
-    rc = rlmg::heads_sample(h, fls, flb, hw, hb, fa, tokens + t * bnf, B, NF, D, t0 + t, seed,
-                            greedy, 0, st);
-    if (rc) return rc;
-  }
-  return 0;
-}
-
-// The SIMT heads + sampling pass alone (heads_sample_row: the f32 route's,
-// and v8's and v7's), on a given final hidden state h (B,D) (before the
-// final LN), for position pos.
+// The SIMT heads + sampling pass alone (heads_sample_row: v8's and v7's),
+// on a given final hidden state h (B,D) (before the final LN), for
+// position pos.
 int rlmg_heads_sample(const float* h, const void* hw, const float* hb, const float* fls,
                       const float* flb, const float* tinv, const float* topp, int* tok_out,
                       int B, int D, int NF, int pos, unsigned int seed, int greedy, int w_bf16,
@@ -244,27 +197,34 @@ int rlmg_heads_sample(const float* h, const void* hw, const float* hb, const flo
                             w_bf16, (cudaStream_t)stream);
 }
 
-long long rlmg_tc_workspace_bytes(int B, int D, int DI, int NF) {
+long long rlmg_tc_workspace_bytes(int B, int D, int DI, int NF, int w_f32) {
   rlmg::TcBufs o;
-  return (long long)rlmg::tc_carve(nullptr, B, D, DI, NF, &o);
+  return (long long)rlmg::tc_carve(nullptr, B, D, DI, NF, w_f32 ? 3 : 1, &o);
 }
 
-// Decode T tokens with bf16 weights on the tensor-core route (arguments as
-// rlmg_decode_chunk).  tokbuf (rows >= T+1, B, NF) int32 receives tok0 in
-// row 0 and the token emitted at t0+t in row t+1; work
-// (rlmg_tc_workspace_bytes) is the caller's device buffer.  The layer
-// weights w, the padded heads hw are bf16.  info[0]: the launches this call
-// issued (one kernel, then the token graph T times); info[1]: kernels in
-// the graph; info[2]: 0 if the shape's graph was launched as it was, 1 if
-// it was updated to this call's pointers, 2 if it was instantiated.
+// Decode T tokens.  tok0 (B,NF) int32 is fed at position t0; tokbuf (rows
+// >= T+1, B, NF) int32 receives tok0 in row 0 and the token emitted at t0+t
+// in row t+1 (row t+1 is fed at t0+t+1 by the next step or call).  s, z
+// are updated in place.  off, tinv, topp are host arrays of NF values.  pe
+// is the whole (max_len, D) f32 table; rows t0..t0+T-1 are read.  w: the
+// N_WEIGHTS stacked layer weights and hw the padded heads, bf16 (w_f32 =
+// 0) or f32 (w_f32 = 1); with f32 weights planes holds the products'
+// weights as three bf16 planes each (TC_PRODUCTS x 3 pointers, rows padded
+// to a multiple of 8 values; decode_chunk_tc.cuh TcArgs::wp).  work
+// (rlmg_tc_workspace_bytes) is the caller's device buffer.  info[0]: the
+// launches this call issued (one kernel, then the token graph T times);
+// info[1]: kernels in the graph; info[2]: 0 if the shape's graph was
+// launched as it was, 1 if it was updated to this call's pointers, 2 if it
+// was instantiated.
 int rlmg_decode_chunk_tc(const int* tok0, int* tokbuf, const float* m, const float* bin,
                          const float* pe, const void* const* w, const void* hw,
-                         const float* hb, const float* fls, const float* flb, const int* off,
-                         const float* tinv, const float* topp, void* s, void* z, void* work,
-                         int T, int t0, unsigned int seed, int greedy, int L, int B, int D,
-                         int H, int DI, int NF, float eps, int s_bf16, void* stream,
-                         int* info) {
-  if (!rlmg::tc_shape_ok(D, H, DI) || NF > rlmg::MAX_NF || NF < 1 || B < 1 || T < 1 || L < 1)
+                         const void* const* planes, const float* hb, const float* fls,
+                         const float* flb, const int* off, const float* tinv, const float* topp,
+                         void* s, void* z, void* work, int T, int t0, unsigned int seed,
+                         int greedy, int L, int B, int D, int H, int DI, int NF, float eps,
+                         int s_bf16, int w_f32, void* stream, int* info) {
+  if (!rlmg::tc_shape_ok(D, H, DI, w_f32) || (w_f32 && planes == nullptr) ||
+      NF > rlmg::MAX_NF || NF < 1 || B < 1 || T < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   rlmg::TcArgs a;
@@ -276,8 +236,16 @@ int rlmg_decode_chunk_tc(const int* tok0, int* tokbuf, const float* m, const flo
   a.head_b = hb;
   a.fls = fls;
   a.flb = flb;
-  a.head_w = (const rlmg::bf16*)hw;
-  for (int i = 0; i < rlmg::N_WEIGHTS; ++i) a.w[i] = (const rlmg::bf16*)w[i];
+  for (int i = 0; i < rlmg::N_WEIGHTS; ++i) a.w[i] = w[i];
+  using rlmg::bf16;
+  if (w_f32) {
+    for (int i = 0; i < rlmg::TC_PRODUCTS; ++i)
+      for (int p = 0; p < 3; ++p) a.wp[i][p] = (const bf16*)planes[3 * i + p];
+  } else {                                  // bf16 weights are their own plane
+    const int mats[4] = {rlmg::W_QKV, rlmg::W_O, rlmg::W_F1, rlmg::W_F2};
+    for (int i = 0; i < 4; ++i) a.wp[i][0] = (const bf16*)w[mats[i]];
+    a.wp[rlmg::TC_HEADS][0] = (const bf16*)hw;
+  }
   a.s = s;
   a.z = z;
   a.work = (char*)work;
@@ -288,6 +256,7 @@ int rlmg_decode_chunk_tc(const int* tok0, int* tokbuf, const float* m, const flo
   a.DI = DI;
   a.NF = NF;
   a.s_bf16 = s_bf16;
+  a.w_f32 = w_f32;
   a.eps = eps;
   cudaError_t e = cudaGetDevice(&a.dev);
   if (e != cudaSuccess) return (int)e;
@@ -298,7 +267,7 @@ int rlmg_decode_chunk_tc(const int* tok0, int* tokbuf, const float* m, const flo
   c.greedy = greedy;
   c.fa = rlmg::field_args(off, tinv, topp, NF);
   rlmg::TcBufs o;
-  rlmg::tc_carve(a.work, B, D, DI, NF, &o);
+  rlmg::tc_carve(a.work, B, D, DI, NF, w_f32 ? 3 : 1, &o);
   const int n = B * NF;
   rlmg::tc_begin_kernel<<<(n + 255) / 256, 256, 0, st>>>(tok0, tokbuf, o.ctrl, c, n);
   RLMG_CHECK();

@@ -1,31 +1,20 @@
-// The per-token layer stack of the causal linear-attention transformer on
-// SIMT products, run by decode_chunk.cu (T tokens per call, f32 weights);
-// its products, reductions and LN rows also serve latency_decode.cu and
-// decode_aug.cu's per-layer v1 / v2 kernels.  (Kernel A and v3 run
-// decode_stack_tc.cuh.)  Plain C interface; no PyTorch headers.
+// SIMT building blocks of the decode kernels: K-split 32x32-tiled f32
+// products and their ordered reduction (decode_aug.cu's per-layer v1 / v2
+// kernels), the state update of one (song, head) slice (attn_slice: the
+// latency kernels), LN rows, phi, gelu, Philox and the layer-weight order
+// (every decode route).  (Kernel A and v3 run decode_stack_tc.cuh, kernel
+// B decode_chunk_tc.cuh.)  Plain C interface; no PyTorch headers.
 //
-// Per layer, one host function (stack_step) launches:
-//   gemm_kernel       qkv = h @ Wqkv (+ b, phi on the q and k columns)
-//   [reduce_act]      only when the product was split along K
-//   attn_state_kernel one block per (song, head): S += phi(k) v^T,
-//                     z += phi(k), att = phi(q)^T S / (phi(q).z + eps);
-//                     reads S once and writes it once, in its stored type
-//   gemm_kernel       att @ Wo, K-split partial sums
-//   res_ln_kernel     h1 = LN1(h + sum(partials) + bo)
-//   gemm_kernel       y1 = gelu_exact(h1 @ W1 + b1)   (erff, no polynomial)
-//   [reduce_act]
-//   gemm_kernel       y1 @ W2, K-split partial sums
-//   res_ln_kernel     h = LN2(h1 + sum(partials) + b2)
 // Everything accumulates in f32; weights are read in their stored type
 // (float or bf16), the state (S, z) in its own (float or bf16).
 //
-// The products are 32x32-tiled shared-memory GEMMs.  Decode batches are
-// skinny (M = songs), so a plain tiling gives a few dozen blocks per
-// product and leaves most of the card idle; each product is therefore
-// split along K into enough blocks to fill the card (about 8 per SM), the
-// partial sums land in an f32 scratch buffer and a second pass adds them
-// in a fixed order.  No atomics, so every result is bit-reproducible: the
-// chunked decode relies on that for its chunk invariance.
+// The products (gemm_kernel) are 32x32-tiled shared-memory GEMMs.  Decode
+// batches are skinny (M = songs), so a plain tiling gives a few dozen
+// blocks per product and leaves most of the card idle; each product is
+// therefore split along K into enough blocks to fill the card (about 8 per
+// SM), the partial sums land in an f32 scratch buffer and a second pass
+// (reduce_act_kernel, res_ln_kernel) adds them in a fixed order.  No
+// atomics, so every result is bit-reproducible.
 
 #pragma once
 
@@ -210,29 +199,6 @@ __device__ __forceinline__ void attn_slice(const float* qs, const float* ks, con
   }
 }
 
-// One block per (song b, head h).  qkv (B, 3D) holds [phi(q) | phi(k) | v].
-// s, z point at this layer's (B,H,E,E) / (B,H,E) state; updated in place.
-template <typename TS>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_state_kernel(const float* __restrict__ qkv, TS* __restrict__ s,
-                  TS* __restrict__ z, float* __restrict__ att, int H, int E,
-                  float eps) {
-  __shared__ float qs[MAX_E], ks[MAX_E], vs[MAX_E], dq[MAX_E];
-  __shared__ float part[ATT_THREADS];
-  __shared__ float den_s;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, D = H * E;
-  const int tid = threadIdx.x;
-  const float* row = qkv + (size_t)b * 3 * D + h * E;
-  if (tid < E) {
-    qs[tid] = row[tid];
-    ks[tid] = row[D + tid];
-    vs[tid] = row[2 * D + tid];
-  }
-  __syncthreads();
-  attn_slice<TS>(qs, ks, vs, s + (size_t)bh * E * E, z + (size_t)bh * E,
-                 att + (size_t)b * D + h * E, E, eps, part, dq, &den_s, E);
-}
-
 // Sum over the block, returned to every thread.  red: 32 floats of shared.
 __device__ __forceinline__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -311,92 +277,10 @@ inline Split split_k(int M, int K, int N) {
   return {(K + kchunk - 1) / kchunk, kchunk};
 }
 
-// f32 scratch the layer stack needs at batch B: qkv (B,3D), att (B,D),
-// h1 (B,D), y1 (B,DI), then the K-split partial sums of the largest product.
-inline size_t stack_scratch_floats(int B, int D, int DI) {
-  size_t part = 0;
-  const int shapes[4][2] = {{D, 3 * D}, {D, D}, {D, DI}, {DI, D}};
-  for (auto& kn : shapes) {
-    const Split sp = split_k(B, kn[0], kn[1]);
-    const size_t n = (size_t)sp.s * B * kn[1];
-    if (n > part) part = n;
-  }
-  return (size_t)B * (3 * D + D + D + DI) + part;
-}
-
 // Layer weights, per-layer slices of (L, ...) stacks, all in one type TW:
 // qkv_w (D,3D), qkv_b (3D), wo_w (D,D), wo_b, ln1_s, ln1_b (D),
 // f1_w (D,DI), f1_b (DI), f2_w (DI,D), f2_b, ln2_s, ln2_b (D).
 enum { W_QKV, B_QKV, W_O, B_O, LN1_S, LN1_B, W_F1, B_F1, W_F2, B_F2, LN2_S, LN2_B, N_WEIGHTS };
-
-template <typename TW>
-int linear(const float* x, const TW* w, const TW* bias, float* y, float* part,
-           int M, int K, int N, int act, int phi_cols, cudaStream_t st) {
-  const Split sp = split_k(M, K, N);
-  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, sp.s);
-  gemm_kernel<TW><<<grid, LIN_THREADS, 0, st>>>(
-      x, w, bias, y, sp.s > 1 ? part : nullptr, M, K, N, sp.kchunk, act, phi_cols);
-  RLMG_CHECK();
-  if (sp.s > 1) {
-    const size_t mn = (size_t)M * N;
-    reduce_act_kernel<TW><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-        part, bias, y, M, N, sp.s, act, phi_cols);
-    RLMG_CHECK();
-  }
-  return 0;
-}
-
-// out = LN(resid + x @ w + bias): K-split partials, then one fused pass.
-template <typename TW>
-int linear_res_ln(const float* x, const TW* w, const TW* bias, const float* resid,
-                  const TW* scale, const TW* shift, float* out, float* part, int M,
-                  int K, int N, cudaStream_t st) {
-  const Split sp = split_k(M, K, N);
-  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, sp.s);
-  gemm_kernel<TW><<<grid, LIN_THREADS, 0, st>>>(x, w, bias, nullptr, part, M, K, N,
-                                                sp.kchunk, ACT_NONE, 0);
-  RLMG_CHECK();
-  res_ln_kernel<TW><<<M, LN_THREADS, 0, st>>>(part, sp.s, bias, resid, scale, shift,
-                                              out, M, N, 1e-5f);
-  RLMG_CHECK();
-  return 0;
-}
-
-// One token through all L layers.  h (B,D) f32 is read as the input and
-// overwritten with the output; s (L,B,H,E,E), z (L,B,H,E) are updated in
-// place.  w: the N_WEIGHTS stacked weight pointers.  scratch: at least
-// stack_scratch_floats(B, D, DI) floats.
-template <typename TW, typename TS>
-int stack_step(float* h, const void* const* w, TS* s, TS* z, float* scratch, int L,
-               int B, int D, int H, int DI, float eps, cudaStream_t st) {
-  const int E = D / H;
-  const size_t sl = (size_t)B * H * E * E, zl = (size_t)B * H * E;
-  float* qkv = scratch;
-  float* att = qkv + (size_t)B * 3 * D;
-  float* h1 = att + (size_t)B * D;
-  float* y1 = h1 + (size_t)B * D;
-  float* part = y1 + (size_t)B * DI;
-  auto W = [&](int i) { return (const TW*)w[i]; };
-  for (int l = 0; l < L; ++l) {
-    const size_t dd = (size_t)l * D * D, d = (size_t)l * D;
-    int rc = linear<TW>(h, W(W_QKV) + 3 * dd, W(B_QKV) + 3 * d, qkv, part, B, D,
-                        3 * D, ACT_PHI, 2 * D, st);
-    if (rc) return rc;
-    attn_state_kernel<TS><<<B * H, ATT_THREADS, 0, st>>>(qkv, s + l * sl, z + l * zl,
-                                                         att, H, E, eps);
-    RLMG_CHECK();
-    rc = linear_res_ln<TW>(att, W(W_O) + dd, W(B_O) + d, h, W(LN1_S) + d, W(LN1_B) + d,
-                           h1, part, B, D, D, st);
-    if (rc) return rc;
-    rc = linear<TW>(h1, W(W_F1) + (size_t)l * D * DI, W(B_F1) + (size_t)l * DI, y1,
-                    part, B, D, DI, ACT_GELU, 0, st);
-    if (rc) return rc;
-    rc = linear_res_ln<TW>(y1, W(W_F2) + (size_t)l * DI * D, W(B_F2) + d, h1,
-                           W(LN2_S) + d, W(LN2_B) + d, h, part, B, DI, D, st);
-    if (rc) return rc;
-  }
-  return 0;
-}
 
 inline bool stack_shape_ok(int D, int H) {
   const int E = H > 0 ? D / H : 0;

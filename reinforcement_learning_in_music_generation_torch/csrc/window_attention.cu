@@ -1,56 +1,98 @@
-// Band (sliding-window) softmax attention, forward and backward: the CUDA
-// counterpart of
+// Band (sliding-window) softmax attention, forward and backward ("kernel
+// E"): the CUDA counterpart of
 // reinforcement_learning_in_music_generation_tpu/ops/window_attention_kernel.py
 // window_attention_pallas (its Pallas bodies _fwd_kernel, _dq_kernel and
 // _dkv_kernel).
 //
 // q, k, v, out (B, H, S, E) f32 with any batch / head / row strides (the last
-// dimension contiguous); mask (B, S) f32, 1 = keep.  Query i sees key j when
-// |i - j| <= w and j < S: keys outside that band are not in the row's softmax
-// (the kernels visit only the key tiles the band touches, and drop the rest
-// of a tile); a key inside it that the mask drops scores the finite -1e9, as
-// on the TPU.  Every row is finite: a row with no kept key in its band
-// averages its band uniformly.  Masked scores are constants, so they pass no
-// gradient to q or k.
+// dimension contiguous, rows of 16 bytes); mask (B, S) f32, 1 = keep.  Query
+// i sees key j when |i - j| <= w and j < S: keys outside that band are not
+// in the row's softmax (the kernels visit only the key tiles the band
+// touches, and drop the rest of a tile); a key inside it that the mask
+// drops scores the finite -1e9, as on the TPU.  Every row is finite: a row
+// with no kept key in its band averages its band uniformly.  Masked scores
+// are constants, so they pass no gradient to q or k.
 //
-// Forward, wa_fwd_kernel: one block per (64 query rows, batch x head).  The
-// block keeps q^T in shared memory and walks the 64-key tiles of
+// Forward, wa_fwd_kernel: one block of 4 warps per (64 query rows, batch x
+// head), each warp 16 rows.  The block walks the 64-key tiles of
 // [q0 - w, q0 + 63 + w] clipped to [0, S) (at most 10 at w = 256), with an
-// online softmax: per tile S = q k^T * scale, the running row max m and sum l,
-// out = out * exp(m_old - m_new) + P v.  It writes out / l and the row
+// online softmax: per tile S = q k^T * scale, the running row max m and sum
+// l, out = out * exp(m_old - m_new) + P v.  It writes out / l and the row
 // statistics (m, log l), whose sum is the row's LSE.  The backward takes
 // P = exp((S - m) - log l) from them, not exp(S - LSE): in a row whose band
 // holds only masked keys m = -1e9, and m + log l rounds back to m in f32.
 // The TPU kernel read a 256-row block against its three clamped neighbours,
 // which needed block >= w; the tile loop takes any w.
-// Backward, two passes as on the TPU, both deterministic (no atomics):
-//   wa_dq_kernel   per query tile: D = rowsum(dO * O) (written for the next
-//                  pass), then over its key tiles P = exp((S - m) - log l),
-//                  dP = dO v^T, dS = P (dP - D), dq += dS k;
-//   wa_dkv_kernel  per key tile, over the query tiles that see it (the same
-//                  band, mirrored): dv += P^T dO, dk += dS^T q.
-// Thread layout of every 64 x 64 product: 256 threads, each a 4 x 4 register
-// block (rows 4 (tid / 16), columns 4 (tid % 16)) summed from shared memory
-// by outer4 (train_gemm.cuh); the 16 lanes that share a row reduce its max
-// and sum with shuffles.  Shared memory: forward 64 KB, dq 96 KB, dk/dv 112
-// KB at E = 64, so two blocks fit on an SM.
+// Backward, deterministic (no atomics), in three passes:
+//   wa_rowdot_kernel D = rowsum(dO * O), a warp a row;
+//   wa_dkv_kernel    per key tile, over the query tiles that see it (the
+//                    band, mirrored), with keys as rows: S^T = k q^T,
+//                    dP^T = v dO^T, P^T = exp((S^T - m) - log l),
+//                    dS^T = P^T (dP^T - D), dv += P^T dO, dk += dS^T q; and
+//                    each dS^T tile to its slot of a scratch buffer;
+//   wa_dq_kernel     per query tile, over its key tiles in order: dq += dS k,
+//                    dS read back from the slots.
+// Five tile products, the function's count (the TPU's dq pass recomputed
+// S and dP: seven): the dS slots (279 MB at the discriminator's shape,
+// written and read once) cost less than the two recomputed products did.
+//
+// Every tile product runs on the tensor cores at f32 grade: mma.sync
+// m16n8k16 over three bf16 planes of each f32 operand (x = hi + mid + lo,
+// the 24 bits of an f32 value) and the six plane products whose terms reach
+// 2^-16 of a product, each depth of 16 summed afresh and added to the
+// running sum in f32 (train_gemm_tc.cuh's arithmetic for kernels D and G).
+//   * q, k, v and dO tiles are copied by cp.async (16 bytes a thread,
+//     straight from the strided tensors, rows past S and columns past E
+//     zero-filled) into an f32 staging area, the next tile's copy in flight
+//     while the current one is multiplied; each tile is split into its
+//     three planes once, in shared memory (depth padded to a multiple of 16
+//     with zeros, rows padded by 16 bytes against bank conflicts), and read
+//     by ldmatrix: plain where the tile is the B operand with the product's
+//     depth along its rows' contiguous dimension (S = q k^T, dP = dO v^T,
+//     their transposes), .trans where the depth runs down its rows (P v,
+//     dS k, P^T dO, dS^T q).  The forward keeps q's fragments in registers,
+//     so two blocks fit on an SM.
+//   * P and dS are formed in registers and split there, once a tile: the
+//     accumulator of a 16 x 16 piece is the next product's A operand.
+//   * The online softmax keeps each row's running max and sum in registers,
+//     reduced across the quad of lanes that share the row.
+//   * The dk / dv pass's blocks have 8 warps: warps w and w + 4 share a
+//     16-row group of the key tile, each taking 32 of the query tile's 64
+//     rows, and add their sums in a fixed order at the end, so each warp
+//     holds half the accumulators (one block an SM: its shared memory).
+//     The dq pass reads the dS^T slots with ldmatrix.trans as the A
+//     operand; it holds two tiles' planes, two blocks an SM.
+// Kernels are compiled for the depth padded to 16, 32, 48 or 64 (head
+// widths that are multiples of 4 up to 64).
 //
 // Bound on the card (PERF.md).  At B = 4, H = 8, S = 3584, E = 64, w = 256 the
 // band holds 1,772,800 (query, key) pairs per (b, h): the forward is 2
 // products (14.52 GFLOP) and the backward 5 (36.31 GFLOP), against ~0.04 ms
-// of bytes, so f32 operations bind (0.217 / 0.542 ms at 67 TFLOP/s outside
-// the tensor cores).  What the design does about it: every product runs from
-// shared memory in 4x4 register blocks and the (64, 64) score, probability
-// and dS tiles never leave shared memory; the 64-row tiles compute 12% more
-// pairs than the band holds.  No tensor cores yet.
+// of bytes: at f32 grade on the tensor cores (989/6 TFLOP/s) 0.088 / 0.220
+// ms (f32 FMAs outside them: 0.217 / 0.542).  The 64-row tiles compute 12%
+// more pairs than the band holds.
 
-#include "train_gemm.cuh"
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "tc_mma.cuh"
 
 namespace rlmg {
 
-constexpr int WA_T = 64, WA_THREADS = 256, WA_MAX_E = 64;
+using bf16 = __nv_bfloat16;
+
+constexpr int WA_T = 64, WA_MAX_E = 64;
+constexpr int WA_THREADS = 128;         // forward: 4 warps of 16 query rows
+constexpr int WA_BWD_THREADS = 256;     // backward: 8 warps, two a 16-row group
+constexpr int WA_PAD = 8;                // bf16 a plane row is padded by
 constexpr float WA_NEG = -1e9f;          // score of a masked key (finite, as on the TPU)
 constexpr float WA_FLOOR = -3.0e38f;     // running max before any key is seen
+
+#define RLMG_CHECK()                           \
+  do {                                         \
+    const cudaError_t e_ = cudaGetLastError(); \
+    if (e_ != cudaSuccess) return (int)e_;     \
+  } while (0)
 
 // A (B, H, S, E) tensor: base and strides in elements (batch, head, row).
 struct Bhsd {
@@ -61,121 +103,225 @@ struct Bhsd {
   }
 };
 
-// Rows s0 .. s0 + 63 of (b, h) into shared memory: transposed T[e][i]
-// and / or row-major R[i][e] (either may be null); rows at or past S are 0.
-__device__ __forceinline__ void load_tile(const Bhsd& t, int b, int h, int s0, int S, int E,
-                                          float* T, float* R) {
-  const int E4 = E / 4;
-  if (T != nullptr)
-    for (int idx = threadIdx.x; idx < WA_T * E4; idx += WA_THREADS) {
-      const int i = idx % WA_T, e = 4 * (idx / WA_T);   // i fastest: conflict-free stores
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (s0 + i < S) x = *reinterpret_cast<const float4*>(t.row(b, h, s0 + i) + e);
-      T[e * WA_T + i] = x.x;
-      T[(e + 1) * WA_T + i] = x.y;
-      T[(e + 2) * WA_T + i] = x.z;
-      T[(e + 3) * WA_T + i] = x.w;
-    }
-  if (R != nullptr)
-    for (int idx = threadIdx.x; idx < WA_T * E4; idx += WA_THREADS) {
-      const int i = idx / E4, e = 4 * (idx % E4);
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (s0 + i < S) x = *reinterpret_cast<const float4*>(t.row(b, h, s0 + i) + e);
-      *reinterpret_cast<float4*>(R + i * E + e) = x;
-    }
+// A tile of 64 rows as three bf16 planes in shared memory, depth EP (the
+// head width padded to 16), rows of STRIDE bf16.
+template <int EP>
+struct WaTile {
+  static constexpr int STRIDE = EP + WA_PAD, PLANE = WA_T * STRIDE, ELEMS = 3 * PLANE;
+  static constexpr int BYTES = ELEMS * 2, STAGE_FLOATS = WA_T * EP;
+};
+
+// -- staging and planes ----------------------------------------------------------
+
+// cp.async of rows s0 .. s0 + 63 of (b, h) into stg [64][EP] f32; rows past
+// S and columns past E are zeros.
+template <int EP>
+__device__ __forceinline__ void stage_rows(float* stg, const Bhsd& t, int b, int h, int s0, int S,
+                                           int E) {
+  constexpr int PR = EP / 4;             // 16-byte pieces a row
+  for (int idx = threadIdx.x; idx < WA_T * PR; idx += blockDim.x) {
+    const int r = idx / PR, c = (idx % PR) * 4;
+    const bool ok = s0 + r < S && c < E;
+    cp_async16(stg + r * EP + c, ok ? t.row(b, h, s0 + r) + c : t.p, ok);
+  }
 }
 
-// Keep flags of keys k0 .. k0 + 63 (0 past S).
-__device__ __forceinline__ void load_keep(const float* mask, int b, int k0, int S, float* km) {
-  for (int j = threadIdx.x; j < WA_T; j += WA_THREADS)
-    km[j] = k0 + j < S ? mask[(size_t)b * S + k0 + j] : 0.f;
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// (x, y) as three bf16 planes: hi = bf16(v), mid = bf16(v - hi), lo =
+// bf16(v - hi - mid); each remainder is exact in f32.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& h, uint32_t& m, uint32_t& l) {
+  const __nv_bfloat162 bh = __floats2bfloat162_rn(x, y);
+  const float2 fh = __bfloat1622float2(bh);
+  x -= fh.x;
+  y -= fh.y;
+  const __nv_bfloat162 bm = __floats2bfloat162_rn(x, y);
+  const float2 fm = __bfloat1622float2(bm);
+  h = bits(bh);
+  m = bits(bm);
+  l = bits(__floats2bfloat162_rn(x - fm.x, y - fm.y));
+}
+
+// The staged f32 tile into its three planes.
+template <int EP>
+__device__ __forceinline__ void split_tile(bf16* pl, const float* stg) {
+  using P = WaTile<EP>;
+  constexpr int PR = EP / 4;
+  for (int idx = threadIdx.x; idx < WA_T * PR; idx += blockDim.x) {
+    const int r = idx / PR, c = (idx % PR) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(stg + r * EP + c);
+    uint32_t h0, m0, l0, h1, m1, l1;
+    split2(x.x, x.y, h0, m0, l0);
+    split2(x.z, x.w, h1, m1, l1);
+    bf16* d = pl + r * P::STRIDE + c;
+    *reinterpret_cast<uint2*>(d) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(d + P::PLANE) = make_uint2(m0, m1);
+    *reinterpret_cast<uint2*>(d + 2 * P::PLANE) = make_uint2(l0, l1);
+  }
+}
+
+// -- fragments (mma.m16n8k16 row.col layouts) ----------------------------------
+
+// A (16 x 16): rows row0.. of the tile, depth k0..
+template <int EP>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[3][4], const bf16* pl, int row0, int k0) {
+  using P = WaTile<EP>;
+  const int lane = threadIdx.x & 31;
+  const bf16* s = pl + (row0 + (lane & 15)) * P::STRIDE + k0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) ldmatrix_x4(a[p], s + p * P::PLANE);
+}
+// B of two n-tiles (n0.. n0 + 15) at depth k0..: the tile's rows are n,
+// depth along them (b[p][0..1] the first n-tile, b[p][2..3] the second)
+template <int EP>
+__device__ __forceinline__ void frag_b_rows(uint32_t (&b)[3][4], const bf16* pl, int n0, int k0) {
+  using P = WaTile<EP>;
+  const int lane = threadIdx.x & 31;
+  const bf16* s =
+      pl + (n0 + (lane & 7) + (lane >> 4) * 8) * P::STRIDE + k0 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) ldmatrix_x4(b[p], s + p * P::PLANE);
+}
+// B of two n-tiles at depth k0..: the tile's rows are the depth, n along them
+template <int EP>
+__device__ __forceinline__ void frag_b_cols(uint32_t (&b)[3][4], const bf16* pl, int k0, int n0) {
+  using P = WaTile<EP>;
+  const int lane = threadIdx.x & 31;
+  const bf16* s = pl + (k0 + (lane & 15)) * P::STRIDE + n0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) ldmatrix_x4_trans(b[p], s + p * P::PLANE);
+}
+// A (16 x 16): rows m0.. of the product, depth k0..: the tile's rows are the
+// depth, the product's rows along them
+template <int EP>
+__device__ __forceinline__ void frag_a_cols(uint32_t (&a)[3][4], const bf16* pl, int m0, int k0) {
+  using P = WaTile<EP>;
+  const int lane = threadIdx.x & 31;
+  const bf16* s =
+      pl + (k0 + (lane & 7) + (lane >> 4) * 8) * P::STRIDE + m0 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) ldmatrix_x4_trans(a[p], s + p * P::PLANE);
+}
+// A (16 x 16) from a product's two 16 x 8 accumulator tiles (its n is this
+// product's depth), split into planes
+__device__ __forceinline__ void frag_a_acc(uint32_t (&a)[3][4], const float* c0,
+                                           const float* c1) {
+  split2(c0[0], c0[1], a[0][0], a[1][0], a[2][0]);
+  split2(c0[2], c0[3], a[0][1], a[1][1], a[2][1]);
+  split2(c1[0], c1[1], a[0][2], a[1][2], a[2][2]);
+  split2(c1[2], c1[3], a[0][3], a[1][3], a[2][3]);
+}
+// acc (16 x 8) += a b at f32 grade, b the n-tile at b[p][o..o+1]: the six
+// plane products, summed afresh, then one rounded f32 add (the tensor cores
+// truncate what they add to a running sum)
+__device__ __forceinline__ void mma6(float* acc, const uint32_t (&a)[3][4],
+                                     const uint32_t (&b)[3][4], int o) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(c, a[2], &b[0][o]);
+  mma_bf16(c, a[0], &b[2][o]);
+  mma_bf16(c, a[1], &b[1][o]);
+  mma_bf16(c, a[1], &b[0][o]);
+  mma_bf16(c, a[0], &b[1][o]);
+  mma_bf16(c, a[0], &b[0][o]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += c[i];
+}
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[n][i] = 0.f;
+}
+// c (16 x 16 NP) = A B^T over depth EP: A's rows row0.. of ta, B's rows
+// n0 .. n0 + 16 NP - 1 of tb
+template <int EP, int NP>
+__device__ __forceinline__ void tile_scores(float (&c)[2 * NP][4], const bf16* ta, int row0,
+                                            const bf16* tb, int n0) {
+  zero(c);
+#pragma unroll
+  for (int ks = 0; ks < EP / 16; ++ks) {
+    uint32_t a[3][4];
+    frag_a<EP>(a, ta, row0, ks * 16);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      uint32_t b[3][4];
+      frag_b_rows<EP>(b, tb, n0 + np * 16, ks * 16);
+      mma6(c[2 * np], a, b, 0);
+      mma6(c[2 * np + 1], a, b, 2);
+    }
+  }
+}
+// acc (16 x EP) += X tb[k0 .. k0 + 16 KP - 1], X (16 x 16 KP) in
+// accumulators
+template <int EP, int KP>
+__device__ __forceinline__ void tile_apply(float (&acc)[EP / 8][4], const float (&x)[2 * KP][4],
+                                           const bf16* tb, int k0) {
+#pragma unroll
+  for (int kp = 0; kp < KP; ++kp) {
+    uint32_t a[3][4];
+    frag_a_acc(a, x[2 * kp], x[2 * kp + 1]);
+#pragma unroll
+    for (int np = 0; np < EP / 16; ++np) {
+      uint32_t b[3][4];
+      frag_b_cols<EP>(b, tb, k0 + kp * 16, np * 16);
+      mma6(acc[2 * np], a, b, 0);
+      mma6(acc[2 * np + 1], a, b, 2);
+    }
+  }
+}
+// The backward's warp pairs: warps w and w + 4 share a 16-row group of the
+// block's own tile, each taking 32 of the other tile's 64 rows; the second
+// warp's sums go through `red` to the first, which adds them (a fixed
+// order) and writes the rows.
+template <int EP>
+__device__ __forceinline__ void pair_sum(float (&acc)[EP / 8][4], float* red, int half) {
+  const int i = (threadIdx.x & 127) * (EP / 2);
+  if (half == 1)
+#pragma unroll
+    for (int n = 0; n < EP / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) red[i + 4 * n + q] = acc[n][q];
+  __syncthreads();
+  if (half == 0)
+#pragma unroll
+    for (int n = 0; n < EP / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[n][q] += red[i + 4 * n + q];
+}
+
+// max / sum over the quad of lanes that share an accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ bool in_band(int qp, int kp, int S, int w) {
   return qp < S && kp < S && abs(qp - kp) <= w;
 }
 
-// max / sum over the 16 lanes that share a row group (lanes differ in bits 0-3)
-__device__ __forceinline__ float row16_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// Keep flags of keys k0 .. k0 + 63 (0 past S).
+__device__ __forceinline__ void load_keep(const float* mask, int b, int k0, int S, float* km) {
+  for (int j = threadIdx.x; j < WA_T; j += blockDim.x)
+    km[j] = k0 + j < S ? mask[(size_t)b * S + k0 + j] : 0.f;
 }
 
-__device__ __forceinline__ void store4(float* dst, const float (&a)[4], float s) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a[0] * s, a[1] * s, a[2] * s, a[3] * s);
-}
-
-__global__ void __launch_bounds__(WA_THREADS, 2)
-wa_fwd_kernel(Bhsd q, Bhsd k, Bhsd v, const float* __restrict__ mask, Bhsd o,
-              float* __restrict__ stats, int H, int S, int E, int w, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  float* qT = sm;                      // E x T
-  float* kT = qT + E * WA_T;           // E x T
-  float* vr = kT + E * WA_T;           // T x E
-  float* PT = vr + WA_T * E;           // T x T, PT[j][i] = P[i][j]
-  float* km = PT + WA_T * WA_T;        // T
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * WA_T;
-  const int r0 = (threadIdx.x >> 4) * 4, c0 = (threadIdx.x & 15) * 4;
-  load_tile(q, b, h, q0, S, E, qT, nullptr);
-  float m[4], l[4], acc[4][4];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) m[ii] = WA_FLOOR, l[ii] = 0.f;
-  zero4(acc);
-  const int kt0 = max(0, q0 - w) / WA_T, kt1 = min(S - 1, q0 + WA_T - 1 + w) / WA_T;
-  for (int kt = kt0; kt <= kt1; ++kt) {
-    const int k0 = kt * WA_T;
-    __syncthreads();                   // the last tile's readers are done
-    load_tile(k, b, h, k0, S, E, kT, nullptr);
-    load_tile(v, b, h, k0, S, E, nullptr, vr);
-    load_keep(mask, b, k0, S, km);
-    __syncthreads();
-    float s[4][4];
-    zero4(s);
-    outer4(s, qT, WA_T, r0, kT, WA_T, c0, E);
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      float mt = WA_FLOOR;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (in_band(q0 + r0 + ii, k0 + c0 + jj, S, w)) {
-          s[ii][jj] = km[c0 + jj] > 0.f ? s[ii][jj] * scale : WA_NEG;
-          mt = fmaxf(mt, s[ii][jj]);
-        } else {
-          s[ii][jj] = -INFINITY;       // not in the row's softmax
-        }
-      }
-      const float mn = fmaxf(m[ii], row16_max(mt));
-      const float alpha = expf(m[ii] - mn);
-      m[ii] = mn;
-      float ps = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = s[ii][jj] == -INFINITY ? 0.f : expf(s[ii][jj] - mn);
-        PT[(c0 + jj) * WA_T + r0 + ii] = p;
-        ps += p;
-      }
-      l[ii] = l[ii] * alpha + row16_sum(ps);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[ii][jj] *= alpha;
-    }
-    __syncthreads();
-    if (c0 < E) outer4(acc, PT, WA_T, r0, vr, E, c0, WA_T);
-  }
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int qp = q0 + r0 + ii;
-    if (qp >= S) continue;
-    if (c0 < E) store4(const_cast<float*>(o.row(b, h, qp)) + c0, acc[ii], 1.f / l[ii]);
-    if (c0 == 0) {                     // (m, log l): rows of stats[0] and stats[1]
-      stats[(size_t)bh * S + qp] = m[ii];
-      stats[(size_t)gridDim.y * S + (size_t)bh * S + qp] = logf(l[ii]);
-    }
+// (m, log l, D) of query rows q0 .. q0 + 63 into rm, rl, rd (0 past S); rd
+// from rowdot when it is given.
+__device__ __forceinline__ void load_rows(const float* stats, const float* rowdot,
+                                          size_t n_rows, int bh, int q0, int S, float* rm,
+                                          float* rl, float* rd) {
+  for (int i = threadIdx.x; i < WA_T; i += blockDim.x) {
+    const bool ok = q0 + i < S;
+    const size_t at = (size_t)bh * S + q0 + i;
+    rm[i] = ok ? stats[at] : 0.f;
+    rl[i] = ok ? stats[n_rows + at] : 0.f;
+    if (rowdot != nullptr) rd[i] = ok ? rowdot[at] : 0.f;
   }
 }
 
@@ -190,160 +336,364 @@ __device__ __forceinline__ float band_prob(float s, int qp, int kp, float keep, 
   return expf(((kept ? s * scale : WA_NEG) - row_m) - row_logl);
 }
 
-// The (m, log l) of query rows q0 .. q0 + 63 into rm, rl (0 past S).
-__device__ __forceinline__ void load_stats(const float* stats, size_t n_rows, int bh, int q0,
-                                           int S, float* rm, float* rl) {
-  for (int i = threadIdx.x; i < WA_T; i += WA_THREADS) {
-    const bool ok = q0 + i < S;
-    rm[i] = ok ? stats[(size_t)bh * S + q0 + i] : 0.f;
-    rl[i] = ok ? stats[n_rows + (size_t)bh * S + q0 + i] : 0.f;
-  }
-}
+// -- forward -----------------------------------------------------------------------
 
+template <int EP>
 __global__ void __launch_bounds__(WA_THREADS, 2)
-wa_dq_kernel(Bhsd q, Bhsd k, Bhsd v, const float* __restrict__ mask, Bhsd o, Bhsd dout,
-             const float* __restrict__ stats, float* __restrict__ rowdot, Bhsd dq, int H,
-             int S, int E, int w, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  float* qT = sm;                      // E x T
-  float* doT = qT + E * WA_T;          // E x T
-  float* kT = doT + E * WA_T;          // E x T
-  float* vT = kT + E * WA_T;           // E x T
-  float* kr = vT + E * WA_T;           // T x E
-  float* dST = kr + WA_T * E;          // T x T, dST[j][i] = dS[i][j]
-  float* km = dST + WA_T * WA_T;       // T
-  float* rm = km + WA_T;               // T: row max m of the tile's rows
-  float* rl = rm + WA_T;               // T: their log l
-  float* rd = rl + WA_T;               // T: their D
+wa_fwd_kernel(Bhsd q, Bhsd k, Bhsd v, const float* __restrict__ mask, Bhsd o,
+              float* __restrict__ stats, int H, int S, int E, int w, float scale) {
+  using P = WaTile<EP>;
+  extern __shared__ __align__(16) unsigned char wa_smem[];
+  bf16* kpl = reinterpret_cast<bf16*>(wa_smem);
+  bf16* vpl = kpl + P::ELEMS;
+  float* stg = reinterpret_cast<float*>(vpl + P::ELEMS);   // [2][64][EP]: k, v
+  float* km = stg + 2 * P::STAGE_FLOATS;                    // [64]
   const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * WA_T;
-  const int r0 = (threadIdx.x >> 4) * 4, c0 = (threadIdx.x & 15) * 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  load_tile(q, b, h, q0, S, E, qT, nullptr);
-  load_tile(dout, b, h, q0, S, E, doT, nullptr);
-  for (int i = warp; i < WA_T; i += WA_THREADS / 32) {   // D = rowsum(dO * O), a warp a row
-    float d = 0.f;
-    if (q0 + i < S) {
-      const float* gr = dout.row(b, h, q0 + i);
-      const float* orow = o.row(b, h, q0 + i);
-      for (int f = lane; f < E; f += 32) d = fmaf(gr[f], orow[f], d);
-    }
-    d = warp_sum(d);
-    if (lane == 0) {
-      rd[i] = d;
-      if (q0 + i < S) rowdot[(size_t)bh * S + q0 + i] = d;
-    }
-  }
-  load_stats(stats, (size_t)gridDim.y * S, bh, q0, S, rm, rl);
-  float acc[4][4];
-  zero4(acc);
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+
+  // q's planes, through kpl, into registers for the whole walk
+  stage_rows<EP>(stg, q, b, h, q0, S, E);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<EP>(kpl, stg);
+  __syncthreads();
+  uint32_t qa[EP / 16][3][4];
+#pragma unroll
+  for (int ks = 0; ks < EP / 16; ++ks) frag_a<EP>(qa[ks], kpl, r0, ks * 16);
+
   const int kt0 = max(0, q0 - w) / WA_T, kt1 = min(S - 1, q0 + WA_T - 1 + w) / WA_T;
+  stage_rows<EP>(stg, k, b, h, kt0 * WA_T, S, E);
+  stage_rows<EP>(stg + P::STAGE_FLOATS, v, b, h, kt0 * WA_T, S, E);
+  cp_async_commit();
+  float m[2] = {WA_FLOOR, WA_FLOOR}, l[2] = {0.f, 0.f}, acc[EP / 8][4];
+  zero(acc);
   for (int kt = kt0; kt <= kt1; ++kt) {
     const int k0 = kt * WA_T;
-    __syncthreads();
-    load_tile(k, b, h, k0, S, E, kT, kr);
-    load_tile(v, b, h, k0, S, E, vT, nullptr);
+    cp_async_wait<0>();
+    __syncthreads();                   // the tile landed; the last tile's readers are done
+    split_tile<EP>(kpl, stg);
+    split_tile<EP>(vpl, stg + P::STAGE_FLOATS);
     load_keep(mask, b, k0, S, km);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    zero4(s);
-    zero4(dp);
-    outer4(s, qT, WA_T, r0, kT, WA_T, c0, E);
-    outer4(dp, doT, WA_T, r0, vT, WA_T, c0, E);
+    if (kt < kt1) {                    // the next tile's copy runs under this one's products
+      stage_rows<EP>(stg, k, b, h, k0 + WA_T, S, E);
+      stage_rows<EP>(stg + P::STAGE_FLOATS, v, b, h, k0 + WA_T, S, E);
+    }
+    cp_async_commit();
+    float s[8][4];
+    zero(s);
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
+    for (int ks = 0; ks < EP / 16; ++ks)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        bool kept;
-        const float p = band_prob(s[ii][jj], q0 + r0 + ii, k0 + c0 + jj, km[c0 + jj],
-                                  rm[r0 + ii], rl[r0 + ii], S, w, scale, kept);
-        dST[(c0 + jj) * WA_T + r0 + ii] = kept ? p * (dp[ii][jj] - rd[r0 + ii]) : 0.f;
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[3][4];
+        frag_b_rows<EP>(bk, kpl, np * 16, ks * 16);
+        mma6(s[2 * np], qa[ks], bk, 0);
+        mma6(s[2 * np + 1], qa[ks], bk, 2);
       }
-    __syncthreads();
-    if (c0 < E) outer4(acc, dST, WA_T, r0, kr, E, c0, WA_T);
+    float mt[2] = {WA_FLOOR, WA_FLOOR};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = e >> 1, col = j * 8 + t2 + (e & 1);
+        if (in_band(q0 + r0 + g + 8 * rr, k0 + col, S, w)) {
+          s[j][e] = km[col] > 0.f ? s[j][e] * scale : WA_NEG;
+          mt[rr] = fmaxf(mt[rr], s[j][e]);
+        } else {
+          s[j][e] = -INFINITY;         // not in the row's softmax
+        }
+      }
+    float alpha[2], mn[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mn[rr] = fmaxf(m[rr], quad_max(mt[rr]));
+      alpha[rr] = expf(m[rr] - mn[rr]);
+      m[rr] = mn[rr];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = e >> 1;
+        const float p = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - mn[rr]);
+        s[j][e] = p;
+        ps[rr] += p;
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + quad_sum(ps[rr]);
+#pragma unroll
+    for (int n = 0; n < EP / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    tile_apply<EP, 4>(acc, s, vpl, 0);
   }
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-    if (q0 + r0 + ii < S && c0 < E)
-      store4(const_cast<float*>(dq.row(b, h, q0 + r0 + ii)) + c0, acc[ii], scale);
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qp = q0 + r0 + g + 8 * rr;
+    if (qp >= S) continue;
+    const float inv = 1.f / l[rr];
+    float* orow = const_cast<float*>(o.row(b, h, qp));
+#pragma unroll
+    for (int n = 0; n < EP / 8; ++n) {
+      const int col = n * 8 + t2;
+      if (col < E)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(acc[n][2 * rr] * inv, acc[n][2 * rr + 1] * inv);
+    }
+    if (t2 == 0) {                     // (m, log l): rows of stats[0] and stats[1]
+      stats[(size_t)bh * S + qp] = m[rr];
+      stats[(size_t)gridDim.y * S + (size_t)bh * S + qp] = logf(l[rr]);
+    }
+  }
 }
 
-// Per key tile: rows of the 4x4 blocks are keys (j), columns queries (i).
+// -- backward ----------------------------------------------------------------------
+
+// Key tile kt meets the query tiles from wa_first_tile(kt) on (at most
+// wa_slots of them); its dS^T share of query tile qt is the 64 x 64 f32 slot
+// [key][query] at (bh, kt, qt - wa_first_tile(kt)) of the scratch.
+__host__ __device__ __forceinline__ int wa_first_tile(int t, int w) {
+  return max(0, t * WA_T - w) / WA_T;
+}
+__host__ __device__ __forceinline__ int wa_slots(int w) { return (2 * w + WA_T - 1) / WA_T + 2; }
+template <typename T>
+__device__ __forceinline__ T* wa_slot(T* dss, int bh, int n_tiles, int kt, int j, int w) {
+  return dss + (((size_t)bh * n_tiles + kt) * wa_slots(w) + j) * (WA_T * WA_T);
+}
+
+// D = rowsum(dO * O), a warp a row of the B H S rows.
+__global__ void wa_rowdot_kernel(Bhsd o, Bhsd dout, float* __restrict__ rowdot, int H, int S,
+                                 int E, int rows) {
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const int bh = r / S, i = r % S, b = bh / H, h = bh % H;
+  const float* gr = dout.row(b, h, i);
+  const float* orow = o.row(b, h, i);
+  float d = 0.f;
+  for (int f = lane; f < E; f += 32) d = fmaf(gr[f], orow[f], d);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+  if (lane == 0) rowdot[r] = d;
+}
+
+// Per query tile, after wa_dkv_kernel: dq = scale * sum over its key tiles,
+// in order, of dS k, dS read from the key tiles' slots.
+template <int EP>
 __global__ void __launch_bounds__(WA_THREADS, 2)
+wa_dq_kernel(Bhsd k, const float* __restrict__ dss, Bhsd dq, int H, int S, int E, int w,
+             float scale) {
+  using P = WaTile<EP>;
+  using PS = WaTile<WA_T>;                 // a dS^T slot: 64 keys x 64 queries
+  extern __shared__ __align__(16) unsigned char wa_smem[];
+  bf16* kpl = reinterpret_cast<bf16*>(wa_smem);
+  bf16* dspl = kpl + P::ELEMS;
+  float* stg = reinterpret_cast<float*>(dspl + PS::ELEMS);  // k [64][EP], dS^T [64][64]
+  float* sstg = stg + P::STAGE_FLOATS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, qt = blockIdx.x, q0 = qt * WA_T;
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  auto stage = [&](int kt) {
+    stage_rows<EP>(stg, k, b, h, kt * WA_T, S, E);
+    const float* sl = wa_slot(dss, bh, gridDim.x, kt, qt - wa_first_tile(kt, w), w);
+    for (int idx = threadIdx.x; idx < WA_T * WA_T / 4; idx += blockDim.x)
+      cp_async16(sstg + 4 * idx, sl + 4 * idx, true);
+  };
+  const int kt0 = max(0, q0 - w) / WA_T, kt1 = min(S - 1, q0 + WA_T - 1 + w) / WA_T;
+  stage(kt0);
+  cp_async_commit();
+  float acc[EP / 8][4];
+  zero(acc);
+  for (int kt = kt0; kt <= kt1; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();
+    split_tile<EP>(kpl, stg);
+    split_tile<WA_T>(dspl, sstg);
+    __syncthreads();
+    if (kt < kt1) stage(kt + 1);
+    cp_async_commit();
+#pragma unroll
+    for (int kp = 0; kp < 4; ++kp) {       // dq += dS k over the tile's 64 keys
+      uint32_t a[3][4];
+      frag_a_cols<WA_T>(a, dspl, r0, kp * 16);
+#pragma unroll
+      for (int np = 0; np < EP / 16; ++np) {
+        uint32_t bk[3][4];
+        frag_b_cols<EP>(bk, kpl, kp * 16, np * 16);
+        mma6(acc[2 * np], a, bk, 0);
+        mma6(acc[2 * np + 1], a, bk, 2);
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qp = q0 + r0 + g + 8 * rr;
+    if (qp >= S) continue;
+    float* drow = const_cast<float*>(dq.row(b, h, qp));
+#pragma unroll
+    for (int n = 0; n < EP / 8; ++n) {
+      const int col = n * 8 + t2;
+      if (col < E)
+        *reinterpret_cast<float2*>(drow + col) =
+            make_float2(acc[n][2 * rr] * scale, acc[n][2 * rr + 1] * scale);
+    }
+  }
+}
+
+// Per key tile: the accumulators' rows are keys (j), their columns queries (i).
+template <int EP>
+__global__ void __launch_bounds__(WA_BWD_THREADS, 1)
 wa_dkv_kernel(Bhsd q, Bhsd k, Bhsd v, const float* __restrict__ mask, Bhsd dout,
               const float* __restrict__ stats, const float* __restrict__ rowdot, Bhsd dk,
-              Bhsd dv, int H, int S, int E, int w, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  float* kT = sm;                      // E x T
-  float* vT = kT + E * WA_T;           // E x T
-  float* qT = vT + E * WA_T;           // E x T
-  float* doT = qT + E * WA_T;          // E x T
-  float* qr = doT + E * WA_T;          // T x E
-  float* dor = qr + WA_T * E;          // T x E
-  float* Pb = dor + WA_T * E;          // T x T, Pb[i][j]: P, then dS
-  float* km = Pb + WA_T * WA_T;        // T
-  float* rm = km + WA_T;               // T: m, log l and D of the query tile's rows
-  float* rl = rm + WA_T;               // T
-  float* rd = rl + WA_T;               // T
+              Bhsd dv, float* __restrict__ dss, int H, int S, int E, int w, float scale) {
+  using P = WaTile<EP>;
+  extern __shared__ __align__(16) unsigned char wa_smem[];
+  bf16* kpl = reinterpret_cast<bf16*>(wa_smem);
+  bf16* vpl = kpl + P::ELEMS;
+  bf16* qpl = vpl + P::ELEMS;
+  bf16* dopl = qpl + P::ELEMS;
+  float* stg = reinterpret_cast<float*>(dopl + P::ELEMS);  // [2][64][EP]
+  float* km = stg + 2 * P::STAGE_FLOATS;                    // [64]: the block's keys
+  float* rm = km + WA_T;               // [64]: m, log l and D of the query tile's rows
+  float* rl = rm + WA_T;
+  float* rd = rl + WA_T;
   const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * WA_T;
-  const int r0 = (threadIdx.x >> 4) * 4, c0 = (threadIdx.x & 15) * 4;
-  load_tile(k, b, h, k0, S, E, kT, nullptr);
-  load_tile(v, b, h, k0, S, E, vT, nullptr);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (warp & 3) * 16, half = warp >> 2, c0 = half * 32;   // keys; queries c0..
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+
+  stage_rows<EP>(stg, k, b, h, k0, S, E);
+  stage_rows<EP>(stg + P::STAGE_FLOATS, v, b, h, k0, S, E);
+  cp_async_commit();
   load_keep(mask, b, k0, S, km);
-  float dka[4][4], dva[4][4];
-  zero4(dka);
-  zero4(dva);
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<EP>(kpl, stg);
+  split_tile<EP>(vpl, stg + P::STAGE_FLOATS);
+  __syncthreads();
+
   const int qt0 = max(0, k0 - w) / WA_T, qt1 = min(S - 1, k0 + WA_T - 1 + w) / WA_T;
+  stage_rows<EP>(stg, q, b, h, qt0 * WA_T, S, E);
+  stage_rows<EP>(stg + P::STAGE_FLOATS, dout, b, h, qt0 * WA_T, S, E);
+  cp_async_commit();
+  float dka[EP / 8][4], dva[EP / 8][4];
+  zero(dka);
+  zero(dva);
   for (int qt = qt0; qt <= qt1; ++qt) {
     const int q0 = qt * WA_T;
+    cp_async_wait<0>();
     __syncthreads();
-    load_tile(q, b, h, q0, S, E, qT, qr);
-    load_tile(dout, b, h, q0, S, E, doT, dor);
-    load_stats(stats, (size_t)gridDim.y * S, bh, q0, S, rm, rl);
-    for (int i = threadIdx.x; i < WA_T; i += WA_THREADS)
-      rd[i] = q0 + i < S ? rowdot[(size_t)bh * S + q0 + i] : 0.f;
+    split_tile<EP>(qpl, stg);
+    split_tile<EP>(dopl, stg + P::STAGE_FLOATS);
+    load_rows(stats, rowdot, (size_t)gridDim.y * S, bh, q0, S, rm, rl, rd);
     __syncthreads();
-    float st[4][4], dpt[4][4], ds[4][4];
-    zero4(st);
-    zero4(dpt);
-    outer4(st, kT, WA_T, r0, qT, WA_T, c0, E);      // S^T[j][i]
-    outer4(dpt, vT, WA_T, r0, doT, WA_T, c0, E);    // dP^T[j][i]
+    if (qt < qt1) {
+      stage_rows<EP>(stg, q, b, h, q0 + WA_T, S, E);
+      stage_rows<EP>(stg + P::STAGE_FLOATS, dout, b, h, q0 + WA_T, S, E);
+    }
+    cp_async_commit();
+    float st[4][4], dpt[4][4];
+    tile_scores<EP, 2>(st, kpl, r0, qpl, c0);          // S^T[j][i]
+    tile_scores<EP, 2>(dpt, vpl, r0, dopl, c0);        // dP^T[j][i]
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
+      for (int e = 0; e < 4; ++e) {
+        const int key = r0 + g + 8 * (e >> 1), i = c0 + jj * 8 + t2 + (e & 1);
         bool kept;
-        const float p = band_prob(st[jj][ii], q0 + c0 + ii, k0 + r0 + jj, km[r0 + jj],
-                                  rm[c0 + ii], rl[c0 + ii], S, w, scale, kept);
-        ds[jj][ii] = kept ? p * (dpt[jj][ii] - rd[c0 + ii]) : 0.f;
-        Pb[(c0 + ii) * WA_T + r0 + jj] = p;
+        const float p = band_prob(st[jj][e], q0 + i, k0 + key, km[key], rm[i], rl[i], S, w,
+                                  scale, kept);
+        st[jj][e] = p;                                        // P^T
+        dpt[jj][e] = kept ? p * (dpt[jj][e] - rd[i]) : 0.f;   // dS^T
       }
-    __syncthreads();
-    if (c0 < E) outer4(dva, Pb, WA_T, r0, dor, E, c0, WA_T);
-    __syncthreads();
+    float* sl = wa_slot(dss, bh, gridDim.x, blockIdx.x, qt - qt0, w);   // for the dq pass
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) Pb[(c0 + ii) * WA_T + r0 + jj] = ds[jj][ii];
-    __syncthreads();
-    if (c0 < E) outer4(dka, Pb, WA_T, r0, qr, E, c0, WA_T);
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<float2*>(sl + (r0 + g + 8 * rr) * WA_T + c0 + jj * 8 + t2) =
+            make_float2(dpt[jj][2 * rr], dpt[jj][2 * rr + 1]);
+    tile_apply<EP, 2>(dva, st, dopl, c0);
+    tile_apply<EP, 2>(dka, dpt, qpl, c0);
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  pair_sum<EP>(dva, stg, half);
+  pair_sum<EP>(dka, stg + P::STAGE_FLOATS, half);
+  if (half == 1) return;
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    const int kp = k0 + r0 + jj;
-    if (kp >= S || c0 >= E) continue;
-    store4(const_cast<float*>(dk.row(b, h, kp)) + c0, dka[jj], scale);
-    store4(const_cast<float*>(dv.row(b, h, kp)) + c0, dva[jj], 1.f);
+  for (int rr = 0; rr < 2; ++rr) {
+    const int kp = k0 + r0 + g + 8 * rr;
+    if (kp >= S) continue;
+    float* krow = const_cast<float*>(dk.row(b, h, kp));
+    float* vrow = const_cast<float*>(dv.row(b, h, kp));
+#pragma unroll
+    for (int n = 0; n < EP / 8; ++n) {
+      const int col = n * 8 + t2;
+      if (col >= E) continue;
+      *reinterpret_cast<float2*>(krow + col) =
+          make_float2(dka[n][2 * rr] * scale, dka[n][2 * rr + 1] * scale);
+      *reinterpret_cast<float2*>(vrow + col) = make_float2(dva[n][2 * rr], dva[n][2 * rr + 1]);
+    }
   }
 }
 
-inline size_t fwd_smem(int E) { return (3 * (size_t)E * WA_T + WA_T * WA_T + WA_T) * 4; }
-inline size_t dq_smem(int E) { return (5 * (size_t)E * WA_T + WA_T * WA_T + 4 * WA_T) * 4; }
-inline size_t dkv_smem(int E) { return (6 * (size_t)E * WA_T + WA_T * WA_T + 4 * WA_T) * 4; }
+// Shared memory of each kernel at depth EP: planes, two staged f32 tiles
+// and the rows' small vectors.
+template <int EP>
+struct WaSmem {
+  static constexpr int STAGES = 2 * WaTile<EP>::STAGE_FLOATS * 4;
+  static constexpr int FWD = 2 * WaTile<EP>::BYTES + STAGES + WA_T * 4;
+  static constexpr int DKV = 4 * WaTile<EP>::BYTES + STAGES + 4 * WA_T * 4;
+  static constexpr int DQ = WaTile<EP>::BYTES + WaTile<WA_T>::BYTES +
+                            (WaTile<EP>::STAGE_FLOATS + WA_T * WA_T) * 4;
+};
 
 inline Bhsd tensor(const float* p, const long long* st) { return Bhsd{p, st[0], st[1], st[2]}; }
 
 inline bool shape_ok(int B, int H, int S, int E, int w) {
   return B > 0 && H > 0 && S > 0 && w > 0 && E > 0 && E % 4 == 0 && E <= WA_MAX_E;
+}
+
+template <int EP>
+int fwd_launch(const Bhsd& q, const Bhsd& k, const Bhsd& v, const float* mask, const Bhsd& o,
+               float* stats, int B, int H, int S, int E, int w, float scale, cudaStream_t st) {
+  constexpr int smem = WaSmem<EP>::FWD;
+  const cudaError_t e =
+      cudaFuncSetAttribute(wa_fwd_kernel<EP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + WA_T - 1) / WA_T, B * H);
+  wa_fwd_kernel<EP><<<grid, WA_THREADS, smem, st>>>(q, k, v, mask, o, stats, H, S, E, w, scale);
+  RLMG_CHECK();
+  return 0;
+}
+
+template <int EP>
+int bwd_launch(const Bhsd& q, const Bhsd& k, const Bhsd& v, const float* mask, const Bhsd& o,
+               const Bhsd& dout, const float* stats, float* rowdot, float* dss, const Bhsd& dq,
+               const Bhsd& dk, const Bhsd& dv, int B, int H, int S, int E, int w, float scale,
+               cudaStream_t st) {
+  constexpr int s_dkv = WaSmem<EP>::DKV, s_dq = WaSmem<EP>::DQ;
+  cudaError_t e =
+      cudaFuncSetAttribute(wa_dkv_kernel<EP>, cudaFuncAttributeMaxDynamicSharedMemorySize, s_dkv);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(wa_dq_kernel<EP>, cudaFuncAttributeMaxDynamicSharedMemorySize, s_dq);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = B * H * S;
+  wa_rowdot_kernel<<<(rows + 7) / 8, 256, 0, st>>>(o, dout, rowdot, H, S, E, rows);
+  RLMG_CHECK();
+  const dim3 grid((S + WA_T - 1) / WA_T, B * H);
+  wa_dkv_kernel<EP><<<grid, WA_BWD_THREADS, s_dkv, st>>>(q, k, v, mask, dout, stats, rowdot, dk,
+                                                         dv, dss, H, S, E, w, scale);
+  RLMG_CHECK();
+  wa_dq_kernel<EP><<<grid, WA_THREADS, s_dq, st>>>(k, dss, dq, H, S, E, w, scale);
+  RLMG_CHECK();
+  return 0;
 }
 
 }  // namespace rlmg
@@ -360,40 +710,48 @@ int rlmg_window_attn_fwd(const float* q, const float* k, const float* v, const f
   using namespace rlmg;
   if (!shape_ok(B, H, S, E, w)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = fwd_smem(E);
-  cudaFuncSetAttribute(wa_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const dim3 grid((S + WA_T - 1) / WA_T, B * H);
-  wa_fwd_kernel<<<grid, WA_THREADS, smem, st>>>(
-      tensor(q, strides), tensor(k, strides + 3), tensor(v, strides + 6), mask,
-      tensor(out, strides + 9), stats, H, S, E, w, scale);
-  RLMG_CHECK();
-  return 0;
+  const Bhsd tq = tensor(q, strides), tk = tensor(k, strides + 3), tv = tensor(v, strides + 6);
+  const Bhsd to = tensor(out, strides + 9);
+  switch ((E + 15) / 16) {
+    case 1: return fwd_launch<16>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
+    case 2: return fwd_launch<32>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
+    case 3: return fwd_launch<48>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
+    default: return fwd_launch<64>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
+  }
+}
+
+// f32 values of the backward's dS scratch at this shape (one 64 x 64 slot
+// for each key tile and query tile of the band).
+long long rlmg_window_attn_scratch_floats(int B, int H, int S, int w) {
+  using namespace rlmg;
+  return (long long)B * H * ((S + WA_T - 1) / WA_T) * wa_slots(w) * WA_T * WA_T;
 }
 
 // dq, dk, dv of the upstream gradient dout, from the forward's out and
-// stats.  rowdot: (B, H, S) f32 scratch for D = rowsum(dout * out).
-// strides: q, k, v, out, dout, dq, dk, dv.
+// stats.  rowdot: (B, H, S) f32 scratch for D = rowsum(dout * out); dss:
+// rlmg_window_attn_scratch_floats f32 for dS.  strides: q, k, v, out,
+// dout, dq, dk, dv.
 int rlmg_window_attn_bwd(const float* q, const float* k, const float* v, const float* mask,
                          const float* out, const float* dout, const float* stats, float* rowdot,
-                         float* dq, float* dk, float* dv, const long long* strides, int B, int H,
-                         int S, int E, int w, float scale, void* stream) {
+                         float* dss, float* dq, float* dk, float* dv, const long long* strides,
+                         int B, int H, int S, int E, int w, float scale, void* stream) {
   using namespace rlmg;
   if (!shape_ok(B, H, S, E, w)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const Bhsd tq = tensor(q, strides), tk = tensor(k, strides + 3), tv = tensor(v, strides + 6);
   const Bhsd to = tensor(out, strides + 9), tdo = tensor(dout, strides + 12);
-  const size_t s1 = dq_smem(E), s2 = dkv_smem(E);
-  cudaFuncSetAttribute(wa_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
-  cudaFuncSetAttribute(wa_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
-  const dim3 grid((S + WA_T - 1) / WA_T, B * H);
-  wa_dq_kernel<<<grid, WA_THREADS, s1, st>>>(tq, tk, tv, mask, to, tdo, stats, rowdot,
-                                             tensor(dq, strides + 15), H, S, E, w, scale);
-  RLMG_CHECK();
-  wa_dkv_kernel<<<grid, WA_THREADS, s2, st>>>(tq, tk, tv, mask, tdo, stats, rowdot,
-                                              tensor(dk, strides + 18), tensor(dv, strides + 21),
-                                              H, S, E, w, scale);
-  RLMG_CHECK();
-  return 0;
+  const Bhsd tdq = tensor(dq, strides + 15), tdk = tensor(dk, strides + 18),
+             tdv = tensor(dv, strides + 21);
+#define RLMG_WA_BWD(EP) \
+  bwd_launch<EP>(tq, tk, tv, mask, to, tdo, stats, rowdot, dss, tdq, tdk, tdv, B, H, S, E, w, \
+                 scale, st)
+  switch ((E + 15) / 16) {
+    case 1: return RLMG_WA_BWD(16);
+    case 2: return RLMG_WA_BWD(32);
+    case 3: return RLMG_WA_BWD(48);
+    default: return RLMG_WA_BWD(64);
+  }
+#undef RLMG_WA_BWD
 }
 
 const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -2,25 +2,27 @@
 JAX package's ``ops/decode_kernel_v6.py`` (``fused_decode_v6``, its Pallas
 body ``_v6_kernel``).
 
-Kernel: ``csrc/decode_chunk.cu``, hand-written CUDA for ``sm_90a``, two
-routes chosen by the weights' type.
+Kernel: ``csrc/decode_chunk.cu`` + ``csrc/decode_chunk_tc.cuh``,
+hand-written CUDA for ``sm_90a``: every product on the tensor cores
+(``mma.sync`` bf16 -> f32 tiles that stream the weights over K-split
+blocks), the bias / phi / gelu / residual / LN work in the passes around
+them, and the state pass reading and writing S and z once a token in
+16-byte pieces, one block per (song, head) (head widths 16, 32, 64 and
+128; a plainer pass takes the others).  One token's 7 L + 3 kernels are
+captured as a CUDA graph, one a shape and weight type, that reads the
+call's position, seed and sampling settings from a block on the card; a
+call launches one small kernel and the graph T times.  JAX's v6 casts each
+product's input activations to the weights' type and sums in f32 (:255
+qkv, :286 Wo, :292 and :296 the FFN, :331 the heads):
 
-* bf16 weights (``generate``'s default): the tensor-core route of
-  ``csrc/decode_chunk_tc.cuh``.  JAX's v6 casts each product's input
-  activations to the weights' type and sums in f32 (:255 qkv, :286 Wo,
-  :292 and :296 the FFN, :331 the heads); here those products are
-  ``mma.sync`` bf16 -> f32 tiles that stream the weights over K-split
-  blocks, the bias / phi / gelu / residual / LN work sits in the passes
-  around them, and the state pass reads and writes S and z once a token in
-  16-byte pieces, one block per (song, head) (head widths 16, 32, 64 and
-  128; a plainer pass takes the others).  One token's 7 L + 3 kernels are
-  captured as a CUDA graph, one a shape, that reads the call's position,
-  seed and sampling settings from a block on the card; a call launches one
-  small kernel and the graph T times.
-* f32 weights: per token an embed kernel, the layer stack of
-  ``decode_kernel_v4`` (``csrc/decode_layers.cuh``, SIMT f32 products) and
-  a heads + sample kernel, one block per (song, field).  v6's casts are
-  no-ops there.
+* bf16 weights (``generate``'s default): one bf16 product a product, the
+  activations rounded to bf16 by the passes that write them;
+* f32 weights: the cast is a no-op, so the products are taken at f32
+  grade: each operand as three bf16 planes (x = hi + mid + lo) and six
+  bf16 products a product, each depth of 16 summed afresh in f32.  The
+  weights' planes are packed once by ``make_v6_params`` (``weight_planes``,
+  rows padded to a multiple of 8 with zeros), so any d_model and d_inner
+  go in; the activations' planes are written by the passes.
 
 The TPU kernel's transposed layout (batch on the 128 lanes) was a fix for
 the TPU's vector unit; here tensors are batch-major and the state keeps
@@ -38,7 +40,9 @@ JAX's v8 and v7 store it, of v8 and v7
 Bound on the H100 (details in the source): with bf16 weights at B=128 the
 products (1.29 TFLOP a 128-token call) take 1.30 ms at 989 TFLOP/s, but the
 bf16 state (102 MB) cannot stay on the card's chip, so streaming it every
-token sets a floor near 10.8 ms a call; with f32 weights the f32 FMAs bind.
+token sets a floor near 10.8 ms a call; with f32 weights the products take
+7.8 ms at 989/6 TFLOP/s and streaming the f32 weights and the state every
+token about 13.7 ms.
 """
 
 from __future__ import annotations
@@ -70,13 +74,39 @@ class V6Params(NamedTuple):
     head_b: torch.Tensor     # (NF*VF_PAD,) f32, NEG in the padding
     fls: torch.Tensor        # (D,) f32 final LN scale
     flb: torch.Tensor        # (D,) f32 final LN bias
+    # f32 weights on a card: the products' weights (qkv, wo, f1, f2, heads)
+    # as weight_planes, the tensor-core route's operands; else None
+    planes: Optional[Tuple[torch.Tensor, ...]] = None
+
+
+PLANE_WEIGHTS = (0, 2, 6, 8)   # qkv_w, wo_w, f1_w, f2_w in layer_weights order
+
+
+def weight_planes(w: torch.Tensor) -> torch.Tensor:
+    """An f32 (..., K, N) weight as three bf16 planes (3, ..., K, N8), N8 =
+    N rounded up to a multiple of 8 (zeros in the padding): hi = bf16(w),
+    mid = bf16(w - hi), lo = bf16(w - hi - mid), each rounded to nearest
+    even and each remainder exact in f32, so hi + mid + lo holds w's 24
+    bits (csrc/decode_chunk_tc.cuh's arithmetic for f32 weights)."""
+    if w.dtype != torch.float32:
+        raise TypeError(f"weight_planes: {w.dtype} (takes float32)")
+    n = w.shape[-1]
+    w = torch.nn.functional.pad(w, (0, (-n) % 8))
+    hi = w.to(torch.bfloat16)
+    r = w - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo]).contiguous()
 
 
 def make_v6_params(params: dict, cfg, pe_table: Optional[torch.Tensor] = None,
                    dtype: Optional[torch.dtype] = None) -> V6Params:
     """Fold the embeddings through in_linear (JAX make_v6_params :119-128)
     and pad the six heads to VF_PAD columns each.  ``dtype``: the layer and
-    head weights' type (default: the params' own)."""
+    head weights' type (default: the params' own).  With f32 weights on a
+    card it also packs the products' weights into their bf16 planes
+    (``planes``), which the kernel reads: 1.5 times the f32 matrices'
+    bytes."""
     f32 = torch.float32
     win = params["in_linear"]["w"]
     dtype = dtype or win.dtype
@@ -96,14 +126,20 @@ def make_v6_params(params: dict, cfg, pe_table: Optional[torch.Tensor] = None,
         head_b[f * VF_PAD:f * VF_PAD + v] = params["heads"][n]["b"].to(f32)
     if pe_table is None:
         pe_table = cm.sinusoidal_table(cfg.max_len, d, f32, dev)
+    layers = lt.make_decode_params(params, cfg, dtype)
+    head_w = head_w.to(dtype).contiguous()
+    planes = None
+    if dtype == f32 and dev.type == "cuda":
+        ws = layer_weights(layers)
+        planes = tuple(weight_planes(t) for t in [ws[i] for i in PLANE_WEIGHTS] + [head_w])
     return V6Params(
-        layers=lt.make_decode_params(params, cfg, dtype),
+        layers=layers,
         m=torch.cat(rows).contiguous(), field_off=tuple(offs),
         b_in=params["in_linear"]["b"].to(f32).contiguous(),
         pe=pe_table.to(f32).contiguous(),
-        head_w=head_w.to(dtype).contiguous(), head_b=head_b,
+        head_w=head_w, head_b=head_b,
         fls=params["final_ln"]["scale"].to(f32).contiguous(),
-        flb=params["final_ln"]["bias"].to(f32).contiguous())
+        flb=params["final_ln"]["bias"].to(f32).contiguous(), planes=planes)
 
 
 # -- plain pieces (JAX nucleus_keep_sub :169, argmax_first_sub :187) --------
@@ -207,13 +243,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("decode_chunk")
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-        lib.rlmg_stack_scratch_floats.argtypes = [i, i, i]
-        lib.rlmg_stack_scratch_floats.restype = ctypes.c_longlong
-        lib.rlmg_decode_chunk.argtypes = [p] * 17 + [i, i, u, i, i, i, i, i, i, i, f, i, p]
-        lib.rlmg_decode_chunk.restype = i
-        lib.rlmg_tc_workspace_bytes.argtypes = [i, i, i, i]
+        lib.rlmg_tc_workspace_bytes.argtypes = [i, i, i, i, i]
         lib.rlmg_tc_workspace_bytes.restype = ctypes.c_longlong
-        lib.rlmg_decode_chunk_tc.argtypes = ([p] * 16 + [i, i, u, i, i, i, i, i, i, i, f, i]
+        lib.rlmg_decode_chunk_tc.argtypes = ([p] * 17 + [i, i, u, i, i, i, i, i, i, i, f, i, i]
                                              + [p, p])
         lib.rlmg_decode_chunk_tc.restype = i
         lib.rlmg_heads_sample.argtypes = [p] * 8 + [i, i, i, i, u, i, i, p]
@@ -250,15 +282,37 @@ def _cuda_or_raise(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
-def tc_shape_error(d: int, n_head: int, di: int) -> Optional[str]:
-    """Why the tensor-core route does not take this shape, or None
-    (``csrc/decode_chunk_tc.cuh tc_shape_ok``)."""
+def tc_shape_error(d: int, n_head: int, di: int, f32_weights: bool = False) -> Optional[str]:
+    """Why the kernel does not take this shape, or None
+    (``csrc/decode_chunk_tc.cuh tc_shape_ok``): head widths up to 128 and
+    d_model up to 2048; bf16 weights are read in place in 16-byte pieces,
+    so d_model and d_inner must be multiples of 8 (f32 weights reach it as
+    padded planes)."""
     e = d // n_head
     if e * n_head != d or e > 128:
         return f"head width {d}/{n_head}: the state pass takes whole widths up to 128"
-    if d % 8 or di % 8 or d > 2048:
-        return f"d_model {d}, d_inner {di}: need multiples of 8, d_model <= 2048"
+    if d > 2048:
+        return f"d_model {d}: at most 2048"
+    if not f32_weights and (d % 8 or di % 8):
+        return f"d_model {d}, d_inner {di}: bf16 weights need multiples of 8"
     return None
+
+
+def _check_planes(v6p: V6Params, ws, dev) -> None:
+    """The f32 weights' planes: present, on the card, the packed shapes of
+    the products' weights."""
+    if v6p.planes is None:
+        raise ValueError("fused_decode_v6 (f32 weights): the params carry no weight planes; "
+                         "make them with make_v6_params on the card")
+    mats = [ws[i] for i in PLANE_WEIGHTS] + [v6p.head_w]
+    for t, w in zip(v6p.planes, mats):
+        n = w.shape[-1]
+        shape = (3,) + tuple(w.shape[:-1]) + (n + (-n) % 8,)
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"fused_decode_v6 (f32 weights): planes {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, expected contiguous bfloat16 {shape} "
+                             f"on {dev} (weight_planes)")
 
 
 def fused_decode_v6(v6p: V6Params, tok0: torch.Tensor, s: torch.Tensor,
@@ -273,18 +327,18 @@ def fused_decode_v6(v6p: V6Params, tok0: torch.Tensor, s: torch.Tensor,
     (the last one is the next call's tok0).  ``topps``: inf keeps every
     token.  tok0 must hold valid ids.
 
-    CUDA tensors go to the kernel: bf16 weights to the tensor-core route
-    (``tc_shape_error`` says which shapes it takes; others raise), f32
-    weights to the SIMT route.  ``launches`` counts the calls of either;
-    the tensor-core route's also ``tc_calls``, ``cuda_launches`` (one
-    kernel and T graph launches a call), ``positions`` (tokens decoded),
-    ``graph_kernels`` (kernels in a token's graph), ``captures`` (token
-    graphs instantiated: one a shape) and ``updates`` (the shape's graph
-    brought to a call's new pointers in place); ``reset_counts`` zeroes
-    them.  The seed, position and sampling settings reach the graph through
-    a block on the card, so a new request with the same pointers launches
-    it as it is.  CPU tensors go to
-    ``fused_decode_v6_plain``."""
+    CUDA tensors go to the kernel, bf16 and f32 weights alike
+    (``tc_shape_error`` says which shapes it takes; others raise; f32
+    weights need the planes ``make_v6_params`` packs on the card).
+    ``launches`` and ``tc_calls`` count the calls, ``cuda_launches`` the
+    CUDA launches (one kernel and T graph launches a call), ``positions``
+    the tokens decoded, ``graph_kernels`` the kernels in a token's graph,
+    ``captures`` the token graphs instantiated (one a shape and weight
+    type) and ``updates`` the shape's graph brought to a call's new
+    pointers in place; ``reset_counts`` zeroes them.  The seed, position
+    and sampling settings reach the graph through a block on the card, so a
+    new request with the same pointers launches it as it is.  CPU tensors
+    go to ``fused_decode_v6_plain``."""
     nf = len(vocab_sizes)
     if tuple(tok0.shape[1:]) != (nf,) or tok0.dtype != torch.int32:
         raise ValueError(f"tok0: expected int32 (B, {nf}), got {tok0.dtype} {tuple(tok0.shape)}")
@@ -304,51 +358,45 @@ def fused_decode_v6(v6p: V6Params, tok0: torch.Tensor, s: torch.Tensor,
     _check_v6(v6p, h, nf)
     if max_tokens < 1:
         raise ValueError(f"max_tokens: {max_tokens} (at least 1)")
+    w_f32 = ws[0].dtype == torch.float32
+    why = tc_shape_error(d, H, di, w_f32)
+    if why is not None:
+        raise ValueError(f"fused_decode_v6 ({'f32' if w_f32 else 'bf16'} weights): {why}")
+    planes = None
+    if w_f32:
+        _check_planes(v6p, ws, tok0.device)
+        planes = (ctypes.c_void_p * (3 * len(v6p.planes)))(
+            *[t[i].data_ptr() for t in v6p.planes for i in range(3)])
     tok0 = tok0.contiguous()
     tinv, topp, off = _field_arrays(nf, temps, topps, v6p.field_off)
     lib = _lib()
     ptrs = (ctypes.c_void_p * len(ws))(*[t.data_ptr() for t in ws])
-    common = (v6p.m.data_ptr(), v6p.b_in.data_ptr(), v6p.pe.data_ptr(), ptrs,
-              v6p.head_w.data_ptr(), v6p.head_b.data_ptr(), v6p.fls.data_ptr(),
-              v6p.flb.data_ptr(), off, tinv, topp, s.data_ptr(), z.data_ptr())
-    s_bf16 = int(s.dtype == torch.bfloat16)
     with torch.cuda.device(tok0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if ws[0].dtype == torch.bfloat16:
-            why = tc_shape_error(d, H, di)
-            if why is not None:
-                raise ValueError(f"fused_decode_v6 (bf16 weights): {why}")
-            # rows for 128 tokens at least, so that the chunks of a request
-            # ask the allocator for one size and the graph's pointers repeat
-            tok = torch.empty((max(max_tokens, 128) + 1, b, nf), dtype=torch.int32,
-                              device=tok0.device)
-            work = torch.empty(lib.rlmg_tc_workspace_bytes(b, d, di, nf), dtype=torch.uint8,
-                               device=tok0.device)
-            info = (ctypes.c_int * 3)()
-            rc = lib.rlmg_decode_chunk_tc(
-                tok0.data_ptr(), tok.data_ptr(), *common, work.data_ptr(), max_tokens, t0,
-                seed & 0xFFFFFFFF, int(greedy), L, b, d, H, di, nf, eps, s_bf16, stream, info)
-            if rc:
-                raise RuntimeError(f"decode_chunk kernel: {lib.rlmg_error_string(rc).decode()}")
-            tokens = tok[1:max_tokens + 1].clone()
-            f = fused_decode_v6
-            f.tc_calls += 1
-            f.cuda_launches += info[0]
-            f.positions += max_tokens
-            f.graph_kernels = info[1]
-            f.updates += info[2] == 1
-            f.captures += info[2] == 2
-        else:
-            tokens = torch.empty((max_tokens, b, nf), dtype=torch.int32, device=tok0.device)
-            scratch = torch.empty(lib.rlmg_stack_scratch_floats(b, d, di),
-                                  dtype=torch.float32, device=tok0.device)
-            rc = lib.rlmg_decode_chunk(
-                tok0.data_ptr(), tokens.data_ptr(), *common, h.data_ptr(), scratch.data_ptr(),
-                max_tokens, t0, seed & 0xFFFFFFFF, int(greedy), L, b, d, H, di, nf, eps,
-                s_bf16, stream)
-            if rc:
-                raise RuntimeError(f"decode_chunk kernel: {lib.rlmg_error_string(rc).decode()}")
-    fused_decode_v6.launches += 1
+        # rows for 128 tokens at least, so that the chunks of a request ask
+        # the allocator for one size and the graph's pointers repeat
+        tok = torch.empty((max(max_tokens, 128) + 1, b, nf), dtype=torch.int32,
+                          device=tok0.device)
+        work = torch.empty(lib.rlmg_tc_workspace_bytes(b, d, di, nf, int(w_f32)),
+                           dtype=torch.uint8, device=tok0.device)
+        info = (ctypes.c_int * 3)()
+        rc = lib.rlmg_decode_chunk_tc(
+            tok0.data_ptr(), tok.data_ptr(), v6p.m.data_ptr(), v6p.b_in.data_ptr(),
+            v6p.pe.data_ptr(), ptrs, v6p.head_w.data_ptr(), planes, v6p.head_b.data_ptr(),
+            v6p.fls.data_ptr(), v6p.flb.data_ptr(), off, tinv, topp, s.data_ptr(),
+            z.data_ptr(), work.data_ptr(), max_tokens, t0, seed & 0xFFFFFFFF, int(greedy), L,
+            b, d, H, di, nf, eps, int(s.dtype == torch.bfloat16), int(w_f32), stream, info)
+    if rc:
+        raise RuntimeError(f"decode_chunk kernel: {lib.rlmg_error_string(rc).decode()}")
+    tokens = tok[1:max_tokens + 1].clone()
+    f = fused_decode_v6
+    f.launches += 1
+    f.tc_calls += 1
+    f.cuda_launches += info[0]
+    f.positions += max_tokens
+    f.graph_kernels = info[1]
+    f.updates += info[2] == 1
+    f.captures += info[2] == 2
     return tokens, s, z
 
 
@@ -365,10 +413,9 @@ reset_counts()
 def heads_sample(v6p: V6Params, h: torch.Tensor, *, seed: int, pos: int,
                  temps: Sequence[float], topps: Sequence[float],
                  greedy: bool = False) -> torch.Tensor:
-    """The SIMT heads + sample pass alone (the f32 route's, and v8's and
-    v7's), on h (B, D) f32 (before the final LN) -> tokens (B, NF) int32,
-    for holding it against ``heads_sample_plain``.  CPU tensors take the
-    plain version."""
+    """The SIMT heads + sample pass alone (v8's and v7's), on h (B, D) f32
+    (before the final LN) -> tokens (B, NF) int32, for holding it against
+    ``heads_sample_plain``.  CPU tensors take the plain version."""
     if h.device.type == "cpu":
         return heads_sample_plain(v6p, h, seed=seed, pos=pos, temps=temps,
                                   topps=topps, greedy=greedy)

@@ -7,15 +7,20 @@ Each query i sees the keys j with |i - j| <= w = max(1, window // 2) that
 the padding mask keeps.  Kernel E: ``csrc/window_attention.cu``,
 hand-written CUDA for ``sm_90a``, built at first use (``_build.py``) and
 called through ctypes.  The forward is flash attention restricted to the
-band: one block per (batch x head, 64 query rows) walks the key tiles of
-64 that the band touches, with an online softmax in f32, and writes out
-and each row's max score m and log l (LSE = m + log l).  The backward is
-the TPU's two passes, both deterministic (no atomics): a dq pass over query
-tiles, which also writes D = rowsum(dO * O), and a dk/dv pass over key
-tiles that walks the mirrored band of query tiles; both recompute
-P = exp((S - m) - log l).  (The TPU kernel recomputes exp(S - LSE), which
-in f32 loses log l in a row whose band holds only masked keys, where
-m = -1e9.)  The TPU's
+band: one block of 4 warps per (batch x head, 64 query rows) walks the key
+tiles of 64 that the band touches, with an online softmax in f32, and
+writes out and each row's max score m and log l (LSE = m + log l).  The
+backward is deterministic (no atomics): D = rowsum(dO * O); a dk/dv pass
+over key tiles walks the mirrored band of query tiles, recomputes
+P = exp((S - m) - log l) and writes each tile's dS to a scratch slot; a dq
+pass over query tiles sums dS k over its key tiles in order.  Five tile
+products, where the TPU's dq pass recomputed S and dP.  (The TPU kernel
+recomputes exp(S - LSE), which in f32 loses log l in a row whose band
+holds only masked keys, where m = -1e9.)  Every tile product runs on the
+tensor cores at f32 grade, as JAX's kernel computes in f32 (:42-50, :56,
+:80-81): each f32 tile is split once, in shared memory, into three bf16
+planes, and each product is ``mma.sync``'s six plane products, each depth
+of 16 summed afresh in f32; P and dS are split in registers.  The TPU's
 256-row blocks with three clamped neighbours are not copied: the tile loop
 covers any window.
 
@@ -140,9 +145,10 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rlmg_window_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.rlmg_window_attn_fwd.restype = i
-        lib.rlmg_window_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                             f, p]
+        lib.rlmg_window_attn_bwd.argtypes = [p] * 13 + [i, i, i, i, i, f, p]
         lib.rlmg_window_attn_bwd.restype = i
+        lib.rlmg_window_attn_scratch_floats.argtypes = [i, i, i, i]
+        lib.rlmg_window_attn_scratch_floats.restype = ctypes.c_longlong
         lib.rlmg_error_string.argtypes = [i]
         lib.rlmg_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -189,8 +195,9 @@ def forward_kernel(q, k, v, mask32, window: int) -> Tuple[torch.Tensor, torch.Te
 
 def backward_kernel(q, k, v, mask32, out, stats, dout,
                     window: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The two backward launches (dq pass, then dk/dv pass) -> (dq, dk, dv),
-    each in its input's layout.  Not counted in ``launches_bwd``."""
+    """The three backward launches (D = rowsum(dO * O), the dk/dv pass,
+    then the dq pass) -> (dq, dk, dv), each in its input's layout.  Not
+    counted in ``launches_bwd``."""
     b, h, s, d = q.shape
     if not _kernel_ready(dout):
         dout = dout.contiguous()
@@ -198,11 +205,13 @@ def backward_kernel(q, k, v, mask32, out, stats, dout,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rowdot = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     w = max(1, window // 2)
+    dss = torch.empty(lib.rlmg_window_attn_scratch_floats(b, h, s, w), dtype=torch.float32,
+                      device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.rlmg_window_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       mask32.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                                      stats.data_ptr(), rowdot.data_ptr(), dq.data_ptr(),
-                                      dk.data_ptr(), dv.data_ptr(),
+                                      stats.data_ptr(), rowdot.data_ptr(), dss.data_ptr(),
+                                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                       _strides(q, k, v, out, dout, dq, dk, dv), b, h, s, d, w,
                                       1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "backward")

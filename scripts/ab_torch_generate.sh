@@ -15,10 +15,13 @@
 # on v7.  With `cold`, they are 5 songs on the per-step path with bf16 and
 # f32 weights, each first as a process's only call (no --warmup: the call
 # pays the first call's set-up, a token graph's capture included) and then
-# with --warmup, and the kernel times are left out.  AB_REPS (default 2)
-# sets the rounds of A, B, B, A.
+# with --warmup, and the kernel times are left out.  With `f32`, kernel B
+# with f32 weights alone: `cli generate --dtype float32` at 128 songs
+# (tokens/s, --warmup) and ms a 128-token call at B = 128 and 1024 (f32
+# weights, bf16 state, CP sampling, CUDA events after a warm call).
+# AB_REPS (default 2) sets the rounds of A, B, B, A.
 #
-#   bash scripts/ab_torch_generate.sh <checkout A> <checkout B> [latency|cold]
+#   bash scripts/ab_torch_generate.sh <checkout A> <checkout B> [latency|cold|f32]
 #
 # Each checkout builds its own kernels into its build/torch_kernels/.
 set -u
@@ -34,6 +37,40 @@ run() {  # checkout songs max_tokens dtype [latency [kernel [cold]]]
      --songs "$2" --bars 8 --max-tokens "$3" --dtype "$4" $warm \
      --out-dir "${TMPDIR:-/tmp}/ab_generate/m" 2>&1 | grep "ave token time" \
      | sed "s|^|$1 songs=$2 $4 latency=${5:-0} ${6:-} ${7:-warm}: |")
+}
+chunk_f32() {  # checkout: kernel B with f32 weights, ms a 128-token call
+  (cd "$1" && python3 - <<'EOF' | sed "s|^|$1 ms a call: |"
+import torch
+from reinforcement_learning_in_music_generation_torch import config as C
+from reinforcement_learning_in_music_generation_torch.data import tokenizer
+from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+from reinforcement_learning_in_music_generation_torch.ops import (
+    decode_kernel_v4 as dk4, decode_kernel_v6 as dk6, sampling as smp)
+
+e2w, _ = tokenizer.drop_type(tokenizer.construct_cp_dict())
+cfg = C.agent_config(tuple(tokenizer.n_classes(e2w)))
+params = lt.init_params(cfg, seed=0, device="cuda")
+v6p = dk6.make_v6_params(params, cfg, dtype=torch.float32)
+kw = dict(n_head=cfg.n_head, vocab_sizes=cfg.vocab_sizes, greedy=False, eps=cfg.attn_eps,
+          temps=tuple(s.temperature for s in smp.CP_SAMPLING),
+          topps=tuple(s.top_p if s.top_p is not None else float("inf") for s in smp.CP_SAMPLING))
+out = []
+for b in (128, 1024):
+    tok = torch.zeros((b, 6), dtype=torch.int32, device="cuda")
+    st = dk4.init_state(cfg, b, torch.bfloat16, "cuda")
+    call = lambda: dk6.fused_decode_v6(v6p, tok, st.s, st.z, 0, 1, max_tokens=128, **kw)
+    call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(2):
+        call()
+    end.record()
+    end.synchronize()
+    out.append(f"B-f32 B={b} {start.elapsed_time(end) / 2:.3f} ms a call")
+    del st
+print(" | ".join(out))
+EOF
+  )
 }
 per_token() {  # checkout: the package is imported from it (python's cwd)
   (cd "$1" && python3 - <<'EOF' | sed "s|^|$1 ms a token: |"
@@ -89,7 +126,11 @@ EOF
 }
 for rep in $(seq "${AB_REPS:-2}"); do
   for tree in "$a" "$b" "$b" "$a"; do
-    if [ "$mode" = cold ]; then
+    if [ "$mode" = f32 ]; then
+      run "$tree" 128 256 float32
+      chunk_f32 "$tree"
+      continue
+    elif [ "$mode" = cold ]; then
       for dtype in bfloat16 float32; do
         run "$tree" 5 512 "$dtype" 0 v8 cold
         run "$tree" 5 512 "$dtype"

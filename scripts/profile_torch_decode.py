@@ -10,8 +10,8 @@ traces, with torch.profiler, the decode paths of ``generate``:
     64 steps (the decode_step kernel plus the sampling in PyTorch), with
     f32 weights and again with bf16 (``generate``'s default);
   * chunked: ``generate_tokens_persistent``, 128 songs, one 128-token call
-    (the decode_chunk kernel, sampling included), f32 weights (its SIMT
-    route) and bf16 weights (its tensor-core route, ``generate``'s default);
+    (the decode_chunk kernel on the tensor cores, sampling included), f32
+    weights (f32-grade products) and bf16 weights (``generate``'s default);
   * latency: ``generate_tokens_latency``, 5 songs, one 64-token call, bf16
     weights, on v8 and under ``RLMG_LATENCY_KERNEL=v7`` on v7 (the
     latency_decode kernels, sampling included);
@@ -36,11 +36,15 @@ token's critical path: it copies ``csrc/`` into
 ``decode_chunk_tc.cuh`` (its launch returns at once; the outputs are then
 garbage, the timing is not), builds each variant with nvcc in parallel and
 times a 128-token call at B=128 and a 64-token call at B=1024 (bf16
-weights and state, CP sampling, CUDA events after a warm call) for every
-variant in turn, ``--reps`` rounds.  Variants: full; no_pdl (plain stream
-order); no_state (the state pass); no_ln (both LN passes); no_products
-(every product); no_ffn1 (FFN1 only).  The difference from ``full`` is the
-pass's share of the critical path.
+state, CP sampling, CUDA events after a warm call), with bf16 weights and
+with f32 weights, for every variant in turn, ``--reps`` rounds.
+Variants: full; no_pdl (plain stream order); no_state (the state pass);
+no_ln (both LN passes); no_products (every product); no_ffn1 (FFN1 only);
+w_hi_plane (f32 weights: the products copy only the weights' hi plane, a
+third of the planes' bytes and half the f32 weights', so its gain bounds
+what reading the weights as f32 and splitting them in shared memory could
+save in bytes).  The difference from ``full`` is the pass's share of the
+critical path.
 """
 
 from __future__ import annotations
@@ -80,10 +84,12 @@ ABLATIONS = {
     "full": [],
     "no_pdl": [("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;")],
     "no_state": [skip("  switch (E) {\n    case 16:")],
-    "no_ln": [skip("  return pdl_launch(tc_ln_kernel,")],
+    "no_ln": [skip("  return pdl_launch(tc_ln_kernel<TW>,")],
     "no_products": [skip("  return sp.large ? tc_gemm_tile<")],
     "no_ffn1": [("    RLMG_TC_STEP(tc_gemm<TC_EPI_GELU>(",
                  "    if (0) RLMG_TC_STEP(tc_gemm<TC_EPI_GELU>(")],
+    "w_hi_plane": [("        cp_async_bytes(s + pl * T::W_ELEMS",
+                    "        if (pl == 0) cp_async_bytes(s + pl * T::W_ELEMS")],
 }
 
 
@@ -159,8 +165,8 @@ def ablation_libs():
         if proc.returncode:
             sys.exit(f"profile_torch_decode: nvcc failed on {name}:\n{log}")
         lib = ctypes.CDLL(path)
-        for fn in ("rlmg_stack_scratch_floats", "rlmg_decode_chunk", "rlmg_tc_workspace_bytes",
-                   "rlmg_decode_chunk_tc", "rlmg_heads_sample", "rlmg_error_string"):
+        for fn in ("rlmg_tc_workspace_bytes", "rlmg_decode_chunk_tc", "rlmg_heads_sample",
+                   "rlmg_error_string"):
             getattr(lib, fn).argtypes = getattr(real, fn).argtypes
             getattr(lib, fn).restype = getattr(real, fn).restype
         libs[name] = lib
@@ -168,9 +174,11 @@ def ablation_libs():
 
 
 def ablate(cfg, params, dev, reps):
-    """Each variant's us a token at B=128 (128-token calls) and B=1024 (64)."""
+    """Each variant's us a token at B=128 (128-token calls) and B=1024 (64),
+    bf16 and f32 weights."""
     libs = ablation_libs()
-    v6p = dk6.make_v6_params(params, cfg, dtype=torch.bfloat16)
+    v6ps = {"bf16": dk6.make_v6_params(params, cfg, dtype=torch.bfloat16),
+            "f32": dk6.make_v6_params(params, cfg, dtype=torch.float32)}
     kw = dict(n_head=cfg.n_head, vocab_sizes=cfg.vocab_sizes, eps=cfg.attn_eps,
               temps=tuple(s.temperature for s in smp.CP_SAMPLING),
               topps=tuple(s.top_p if s.top_p is not None else float("inf")
@@ -191,12 +199,13 @@ def ablate(cfg, params, dev, reps):
         for name, lib in libs.items():
             dk6._LIB = lib
             res = []
-            for b, T in ((128, 128), (1024, 64)):
-                st = dk4.init_state(cfg, b, torch.bfloat16, dev)
-                tok0 = torch.zeros((b, 6), dtype=torch.int32, device=dev)
-                ms = time_ms(lambda: dk6.fused_decode_v6(v6p, tok0, st.s, st.z, 0, 1,
-                                                         max_tokens=T, **kw), 3)
-                res.append(f"B={b} {ms / T * 1e3:.1f} us a token")
+            for wname, v6p in v6ps.items():
+                for b, T in ((128, 128), (1024, 64)):
+                    st = dk4.init_state(cfg, b, torch.bfloat16, dev)
+                    tok0 = torch.zeros((b, 6), dtype=torch.int32, device=dev)
+                    ms = time_ms(lambda: dk6.fused_decode_v6(v6p, tok0, st.s, st.z, 0, 1,
+                                                             max_tokens=T, **kw), 3)
+                    res.append(f"{wname} B={b} {ms / T * 1e3:.1f} us a token")
             print(f"[ablate round {rnd}] {name:12s} " + ", ".join(res), flush=True)
 
 

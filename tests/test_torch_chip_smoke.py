@@ -105,23 +105,51 @@ def test_bound_charges_operations_at_the_peak_of_their_type(smoke, peak):
 
 
 @pytest.mark.parametrize("w_bytes,peak,want_ms", [(4, "F32_FLOPS", 19.2312),
+                                                  (4, "SPLIT_BF16_FLOPS", 7.8169),
                                                   (2, "BF16_FLOPS", 1.3028)])
 def test_chunk_bound_at_the_main_path_shape(smoke, w_bytes, peak, want_ms):
     """Kernel B, a 128-token call at B=128, agent_config width, bf16 state:
     1.2885e12 operations (the products and the state update and read) bind,
-    19.231 ms at the f32 FMA rate (f32 weights, the SIMT route) and 1.3028
-    ms at the bf16 tensor-core rate (bf16 weights, where v6 casts every
-    product's input to the weights' type); streaming the weights and the
-    state every token sets a floor of about 10.76 ms with bf16 weights."""
+    7.817 ms at 989/6 TFLOP/s (f32 weights: each product as six bf16
+    products on the tensor cores), 19.231 ms at the f32 FMA rate (the bound
+    printed beside it) and 1.3028 ms at the bf16 tensor-core rate (bf16
+    weights, where v6 casts every product's input to the weights' type);
+    streaming the weights and the state every token sets a floor of about
+    10.76 ms with bf16 weights and 13.71 ms with f32 weights, above the
+    f32 weights' operation bound."""
     vocab = (56, 135, 18, 87, 18, 25)
     ops, nbytes, floor = smoke.chunk_work(128, 128, 12, 512, 2048, 8, w_bytes=w_bytes,
                                           s_bytes=2, fold_rows=sum(vocab))
     assert ops == 1_288_490_188_800
     bound_ms, by = smoke.bound(nbytes, ops, getattr(smoke, peak))
     assert by == "operations" and abs(bound_ms - want_ms) < 1e-4
+    floor_ms = floor / smoke.HBM_BYTES_PER_S * 1e3
     if w_bytes == 2:
         assert 282e6 < nbytes < 284e6
-        assert abs(floor / smoke.HBM_BYTES_PER_S * 1e3 - 10.7636) < 1e-3
+        assert abs(floor_ms - 10.7636) < 1e-3
+    else:
+        assert abs(floor_ms - 13.7144) < 1e-3
+        assert floor_ms > bound_ms or peak == "F32_FLOPS"
+
+
+def test_window_bound_at_the_discriminator_shape(smoke):
+    """Kernel E at B=4, H=8, S=3584, E=64, w=256: 1,772,800 (query, key)
+    pairs per (b, h); the forward's two products (14.52 GFLOP) and the
+    backward's five (36.31 GFLOP) bind at 989/6 TFLOP/s (f32-grade products
+    on the tensor cores: 0.0881 / 0.2203 ms), 0.2168 / 0.5419 ms at the f32
+    FMA rate; a padding mask does not change the count."""
+    import torch
+    mask = torch.ones((4, 3584))
+    mask[:, 3000:] = 0
+    (f_ops, f_bytes), (b_ops, b_bytes), pairs, kept = smoke.window_work(4, 8, 3584, 64, 256, mask)
+    assert pairs == 4 * 8 * 1_772_800 and kept < pairs
+    assert abs(f_ops / 1e9 - 14.52) < 0.01 and abs(b_ops / 1e9 - 36.31) < 0.01
+    assert b_ops * 2 == f_ops * 5
+    for ops, nbytes, split, fma in ((f_ops, f_bytes, 0.0881, 0.2168),
+                                    (b_ops, b_bytes, 0.2203, 0.5419)):
+        got, by = smoke.bound(nbytes, ops, smoke.SPLIT_BF16_FLOPS)
+        assert by == "operations" and abs(got - split) < 1e-4
+        assert abs(smoke.bound(nbytes, ops)[0] - fma) < 1e-4
 
 
 def test_mma_counts_reads_the_tensor_core_instructions_of_named_functions(smoke):

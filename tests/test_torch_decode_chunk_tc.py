@@ -1,10 +1,11 @@
-"""Kernel B's tensor-core route (bf16 weights) and the split of its plain
-twin, on the CPU.
+"""Kernel B's tensor-core route and the split of its plain twin, on the CPU.
 
-With bf16 weights kernel B (``csrc/decode_chunk.cu`` + ``decode_chunk_tc.cuh``)
-computes JAX v6's arithmetic: every product's input activations are rounded
-to the weights' type, the sums stay f32 (JAX ``ops/decode_kernel_v6.py``
-:255, :286, :292, :296, :331).  Its plain twin ``fused_decode_v6_plain``
+Kernel B (``csrc/decode_chunk.cu`` + ``decode_chunk_tc.cuh``) computes JAX
+v6's arithmetic: every product's input activations are rounded to the
+weights' type, the sums stay f32 (JAX ``ops/decode_kernel_v6.py`` :255,
+:286, :292, :296, :331).  With f32 weights that rounding is a no-op and the
+kernel takes each product at f32 grade, from three bf16 planes of each
+operand (``weight_planes``; six bf16 products a product).  Its plain twin ``fused_decode_v6_plain``
 does the same, and so do the twins of v8, v7 and v5, which round where
 JAX's v8, v7 and v5 round (v8 and v7 also the folded embedding).  The kernel
 itself runs only on a card (``tests/test_torch_kernels_gpu.py``,
@@ -199,7 +200,7 @@ def _count(monkeypatch, module, name):
     return calls
 
 
-def test_latency_and_v5_wrappers_keep_the_v4_arithmetic_twin(both, monkeypatch):
+def test_cpu_routes_of_v8_v7_and_v5_reach_the_repaired_twins(both, monkeypatch):
     """(d) On the CPU v8 and v7 reach latency_decode_plain and v5 reaches
     fused_decode_v6_plain: with bf16 weights all three round their product
     inputs as kernel B's twin does (JAX's v8, v7 and v5 do), and none keeps
@@ -236,14 +237,89 @@ def test_latency_and_v5_wrappers_keep_the_v4_arithmetic_twin(both, monkeypatch):
     assert [len(calls[k]) for k in ("v8", "v7", "v5")] == [1, 1, 1]
 
 
-@pytest.mark.parametrize("d_model,n_head,d_inner,ok", [
-    (512, 8, 2048, True), (64, 2, 128, True), (32, 2, 64, True), (48, 3, 96, True),
-    (96, 2, 192, True), (64, 8, 128, True), (4096, 32, 128, False), (12, 3, 64, False),
-    (64, 2, 100, False), (256, 1, 512, False)])
-def test_tc_route_names_the_shapes_it_refuses(d_model, n_head, d_inner, ok):
+@pytest.mark.parametrize("f32_weights", [False, True])
+@pytest.mark.parametrize("d_model,n_head,d_inner,ok_bf16,ok_f32", [
+    (512, 8, 2048, True, True), (64, 2, 128, True, True), (32, 2, 64, True, True),
+    (48, 3, 96, True, True), (96, 2, 192, True, True), (64, 8, 128, True, True),
+    (4096, 32, 128, False, False), (12, 3, 64, False, True), (64, 2, 100, False, True),
+    (256, 1, 512, False, False)])
+def test_tc_route_names_the_shapes_it_refuses(d_model, n_head, d_inner, ok_bf16, ok_f32,
+                                              f32_weights):
     """The tensor-core route takes head widths up to 128 (16, 32, 64 and 128
-    in 16-byte pieces, the others by a plainer state pass), d_model and
-    d_inner in multiples of 8 and d_model up to 2048; the wrapper raises
-    with the reason (``tc_shape_error``) on a card for anything else."""
-    why = tdk6.tc_shape_error(d_model, n_head, d_inner)
-    assert (why is None) == ok, why
+    in 16-byte pieces, the others by a plainer state pass) and d_model up to
+    2048; bf16 weights, read in place, also need d_model and d_inner in
+    multiples of 8, while f32 weights reach the products as padded planes
+    and take any; the wrapper raises with the reason (``tc_shape_error``)
+    on a card for anything else."""
+    why = tdk6.tc_shape_error(d_model, n_head, d_inner, f32_weights)
+    assert (why is None) == (ok_f32 if f32_weights else ok_bf16), why
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 13), (64, 96), (3, 8, 1)])
+def test_weight_planes_hold_the_f32_weights(shape):
+    """An f32 weight as three bf16 planes, rows padded to a multiple of 8
+    with zeros: hi = bf16(w), mid and lo the rounded remainders, and
+    hi + mid + lo gives w back exactly (its 24 bits)."""
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.normal(scale=0.05, size=shape).astype(np.float32))
+    p = tdk6.weight_planes(w)
+    n = shape[-1]
+    assert p.dtype == BF16 and tuple(p.shape) == (3,) + shape[:-1] + (n + (-n) % 8,)
+    assert torch.equal(p[0, ..., :n], w.to(BF16))
+    assert torch.equal((p[0].float() + p[1].float()) + p[2].float(),
+                       torch.nn.functional.pad(w, (0, (-n) % 8)))
+    assert not p[..., n:].any()
+    with pytest.raises(TypeError):
+        tdk6.weight_planes(w.to(BF16))
+
+
+def _six_products(x: np.ndarray, planes: torch.Tensor) -> np.ndarray:
+    """The kernel's product at f32 grade, in numpy: x split into planes as
+    the passes write them, and per depth of 16 the six plane products
+    (each bf16 product exact in f32, summed in f32), added to the running
+    f32 sum."""
+    xp = tdk6.weight_planes(torch.from_numpy(x))[..., :x.shape[1]].float().numpy()
+    wp = planes.float().numpy()
+    acc = np.zeros((x.shape[0], wp.shape[-1]), dtype=np.float32)
+    for k0 in range(0, x.shape[1], 16):
+        a, w = xp[:, :, k0:k0 + 16], wp[:, k0:k0 + 16]
+        c = sum(a[i] @ w[j] for i, j in ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0)))
+        acc = acc + c.astype(np.float32)
+    return acc
+
+
+def test_six_plane_products_match_the_jax_f32_product():
+    """With f32 weights JAX's v6 takes its products in f32 (the cast to the
+    weights' type is a no-op): the kernel's arithmetic, six bf16 plane
+    products a depth of 16 from ``weight_planes``, agrees with JAX's f32
+    product to 1e-6 of its magnitude at the decode's qkv shape, where the
+    product of the hi planes alone (bf16 inputs) misses by far more."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(16, 96)).astype(np.float32)
+    w = rng.normal(scale=0.1, size=(96, 3 * 40)).astype(np.float32)
+    ref = np.asarray(jnp.dot(jnp.asarray(x), jnp.asarray(w), preferred_element_type=jnp.float32,
+                             precision=jax.lax.Precision.HIGHEST))
+    planes = tdk6.weight_planes(torch.from_numpy(w))
+    got = _six_products(x, planes)[:, :w.shape[1]]
+    mag = np.abs(ref).max()
+    hi = torch.from_numpy(x).to(BF16).float().numpy() @ planes[0, :, :w.shape[1]].float().numpy()
+    assert np.abs(got - ref).max() <= 1e-6 * mag
+    assert np.abs(hi - ref).max() > 1e-3 * mag
+
+
+def test_make_v6_params_packs_planes_for_the_card_only(both):
+    """make_v6_params packs the products' planes only for f32 weights on a
+    card (none on the CPU, whose twin reads the weights); the wrapper's
+    check takes the packed shapes and refuses others."""
+    _, tp = both
+    v32 = tdk6.make_v6_params(tp, TCFG, dtype=torch.float32)
+    assert v32.planes is None and tdk6.make_v6_params(tp, TCFG, dtype=BF16).planes is None
+    ws = tdk4.layer_weights(v32.layers)
+    planes = tuple(tdk6.weight_planes(t) for t in
+                   [ws[i] for i in tdk6.PLANE_WEIGHTS] + [v32.head_w])
+    tdk6._check_planes(v32._replace(planes=planes), ws, torch.device("cpu"))
+    with pytest.raises(ValueError, match="planes"):
+        tdk6._check_planes(v32, ws, torch.device("cpu"))
+    with pytest.raises(ValueError, match="planes"):
+        tdk6._check_planes(v32._replace(planes=planes[1:] + planes[:1]), ws,
+                           torch.device("cpu"))

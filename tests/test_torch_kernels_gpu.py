@@ -335,9 +335,14 @@ def test_decode_chunk_kernel_matches_plain(dev, d_model, n_head, wdt):
               greedy=True, eps=cfg.attn_eps)
     s1 = tdk4.init_state(cfg, b, torch.float32, dev)
     s2 = tdk4.init_state(cfg, b, torch.float32, dev)
+    f = tdk6.fused_decode_v6
+    calls, cuda, positions = f.tc_calls, f.cuda_launches, f.positions
     ok, _, _ = tdk6.fused_decode_v6(v6p, tok0, s1.s, s1.z, 0, 1, vocab_sizes=VOCAB, **kw)
     op, _, _ = tdk6.fused_decode_v6_plain(v6p, tok0, s2.s, s2.z, 0, 1, **kw)
     assert (ok == op).float().mean() >= 0.95
+    # both weight types reach the tensor-core route: one kernel and T graph
+    # launches a call
+    assert (f.tc_calls, f.cuda_launches, f.positions) == (calls + 1, cuda + 25, positions + 24)
     h = torch.randn((b, d_model), generator=gen, device=dev)
     for greedy in (False, True):
         hk = tdk6.heads_sample(v6p, h, seed=9, pos=4, temps=CP_TEMPS, topps=CP_TOPPS,
@@ -364,47 +369,63 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                              max_tokens=1, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
 
 
-# kernel B's tensor-core route (bf16 weights): (d_model, n_head, d_inner) at
-# the tests' small width and at agent_config's (depth cut to 2 layers)
-# small, agent_config's width, and heads of 8 (the state pass without
-# 16-byte pieces)
+# kernel B's tensor-core route: (d_model, n_head, d_inner) at the tests'
+# small width and at agent_config's (depth cut to 2 layers), and heads of 8
+# (the state pass without 16-byte pieces); f32 weights also at widths bf16
+# weights cannot take (rows not a multiple of 8: the products read padded
+# planes)
 TC_WIDTHS = [(64, 2, 128), (512, 8, 2048), (32, 4, 64)]
+TC_CASES = ([w + (torch.bfloat16,) for w in TC_WIDTHS]
+            + [w + (torch.float32,) for w in TC_WIDTHS + [(12, 3, 100), (20, 5, 36)]])
 
 
-def _tc_setup(dev, d_model, n_head, d_inner):
+def _tc_setup(dev, d_model, n_head, d_inner, wdt=torch.bfloat16):
     cfg = TC.LinearTransformerConfig(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=d_model,
                                      n_layer=2, n_head=n_head, d_inner=d_inner, max_len=512)
     params = tlt.init_params(cfg, seed=4, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    return cfg, tdk6.make_v6_params(params, cfg, dtype=torch.bfloat16), gen
+    return cfg, tdk6.make_v6_params(params, cfg, dtype=wdt), gen
+
+
+def _teacher_forced(v6p, cfg, gen, dev, b, sdt, n_head, steps=16, twin=None):
+    """The route and the twin (of ``twin`` params, default the route's)
+    fed the same random tokens one a call, greedy, from zero states:
+    (agreeing decisions, decisions, route's state, twin's state)."""
+    twin = v6p if twin is None else twin
+    kw = dict(n_head=n_head, max_tokens=1, temps=(1.0,) * 6, topps=(float("inf"),) * 6,
+              greedy=True, eps=cfg.attn_eps)
+    sk = tdk4.init_state(cfg, b, sdt, dev)
+    sp = tdk4.init_state(cfg, b, sdt, dev)
+    agree = total = 0
+    for t in range(steps):
+        tok = _tokens(gen, dev, b)
+        ok, _, _ = tdk6.fused_decode_v6(v6p, tok, sk.s, sk.z, t, 3, vocab_sizes=VOCAB, **kw)
+        op, _, _ = tdk6.fused_decode_v6_plain(twin, tok, sp.s, sp.z, t, 3, **kw)
+        agree += int((ok == op).sum())
+        total += ok.numel()
+    return agree, total, sk, sp
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d_model,n_head,d_inner", TC_WIDTHS)
+@pytest.mark.parametrize("d_model,n_head,d_inner,wdt", TC_CASES)
 @pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
-def test_decode_chunk_tc_matches_its_twin(dev, d_model, n_head, d_inner, sdt):
+def test_decode_chunk_tc_matches_its_twin(dev, d_model, n_head, d_inner, wdt, sdt):
     """The tensor-core route against its twin of v6's arithmetic,
     teacher-forced, one token a call, 16 tokens, at B = 1, 65, 100, 128 and
     200 (ragged row tiles): greedy next tokens equal on >= 99% of all the
-    (token, song, field) decisions (both round the same f32 activations to
-    bf16; the sums' order differs, so near-ties may flip); with an f32
-    state, S within 1e-4 of max|S| at every B.  Every call takes the
-    tensor-core route: one kernel and one graph launch a token."""
-    cfg, v6p, gen = _tc_setup(dev, d_model, n_head, d_inner)
-    kw = dict(n_head=n_head, max_tokens=1, temps=(1.0,) * 6, topps=(float("inf"),) * 6,
-              greedy=True, eps=cfg.attn_eps)
+    (token, song, field) decisions (with bf16 weights both round the same
+    f32 activations to bf16; the sums' order differs, so near-ties may
+    flip); with an f32 state, S within 1e-4 of max|S| at every B.  Every
+    call takes the tensor-core route: one kernel and one graph launch a
+    token."""
+    cfg, v6p, gen = _tc_setup(dev, d_model, n_head, d_inner, wdt)
     agree = total = 0
     for b in (1, 65, 100, 128, 200):
-        sk = tdk4.init_state(cfg, b, sdt, dev)
-        sp = tdk4.init_state(cfg, b, sdt, dev)
         calls, cuda = tdk6.fused_decode_v6.tc_calls, tdk6.fused_decode_v6.cuda_launches
-        for t in range(16):
-            tok = _tokens(gen, dev, b)
-            ok, _, _ = tdk6.fused_decode_v6(v6p, tok, sk.s, sk.z, t, 3, vocab_sizes=VOCAB, **kw)
-            op, _, _ = tdk6.fused_decode_v6_plain(v6p, tok, sp.s, sp.z, t, 3, **kw)
-            agree += int((ok == op).sum())
-            total += ok.numel()
+        a, n, sk, sp = _teacher_forced(v6p, cfg, gen, dev, b, sdt, n_head)
+        agree += a
+        total += n
         assert tdk6.fused_decode_v6.tc_calls == calls + 16
         assert tdk6.fused_decode_v6.cuda_launches == cuda + 2 * 16
         if sdt == torch.float32:
@@ -413,12 +434,35 @@ def test_decode_chunk_tc_matches_its_twin(dev, d_model, n_head, d_inner, sdt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d_model,n_head,d_inner", TC_WIDTHS)
+def test_decode_chunk_f32_gate_holds_bf16_weights_above_it(dev, d_model, n_head, d_inner):
+    """The control of the f32 weights' gate: at an f32 state the route on
+    the weights rounded to bf16, teacher-forced against the twin on the f32
+    weights, ends above 1e-4 of max|S| at B = 128, where the route on the
+    f32 weights ends below it (``-s`` prints both shares)."""
+    cfg, v6p, gen = _tc_setup(dev, d_model, n_head, d_inner, torch.float32)
+    v6b = _tc_setup(dev, d_model, n_head, d_inner, torch.bfloat16)[1]
+    seed = int(torch.randint(0, 2 ** 31, (1,), generator=gen, device=dev))
+    shares = []
+    for route in (v6p, v6b):
+        gen.manual_seed(seed)
+        _, _, sk, sp = _teacher_forced(route, cfg, gen, dev, 128, torch.float32, n_head,
+                                       twin=v6p)
+        shares.append(_share(sk.s, sp.s))
+    print(f"[gate] decode_chunk f32 weights ({d_model}, {n_head}, {d_inner}): route "
+          f"{shares[0]:.3e}, bf16-weights control {shares[1]:.3e} of max|S| (gate 1e-4)")
+    assert shares[0] <= 1e-4 < shares[1]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("greedy", [True, False])
-def test_decode_chunk_tc_is_chunk_invariant(dev, greedy):
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float32])
+def test_decode_chunk_tc_is_chunk_invariant(dev, greedy, wdt):
     """One call of 64 tokens equals two of 32, tokens and state bit for bit
     (no float atomics; the splits and the Philox counter depend on the
-    shapes and the position only), at a ragged batch."""
-    cfg, v6p, gen = _tc_setup(dev, 64, 2, 128)
+    shapes and the position only), at a ragged batch, at both weight
+    types."""
+    cfg, v6p, gen = _tc_setup(dev, 64, 2, 128, wdt)
     b = 65
     kw = dict(n_head=2, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS, greedy=greedy,
               eps=cfg.attn_eps)
@@ -435,14 +479,15 @@ def test_decode_chunk_tc_is_chunk_invariant(dev, greedy):
 
 
 @pytest.mark.gpu
-def test_decode_chunk_tc_graph_serves_every_call(dev):
-    """One token graph a shape.  The seed, the sampling mode and the
-    position reach it through a block on the card: calls that change them
-    instantiate nothing, and each call's tokens are the ones its own values
-    give (seed 2 again after seed 1 repeats seed 2's tokens bit for bit;
-    seed 1's differ).  A call on another state tensor updates the graph in
-    place and decodes as a call on the first one does."""
-    cfg, v6p, gen = _tc_setup(dev, 64, 2, 128)
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float32])
+def test_decode_chunk_tc_graph_serves_every_call(dev, wdt):
+    """One token graph a shape and weight type.  The seed, the sampling
+    mode and the position reach it through a block on the card: calls that
+    change them instantiate nothing, and each call's tokens are the ones
+    its own values give (seed 2 again after seed 1 repeats seed 2's tokens
+    bit for bit; seed 1's differ).  A call on another state tensor updates
+    the graph in place and decodes as a call on the first one does."""
+    cfg, v6p, gen = _tc_setup(dev, 64, 2, 128, wdt)
     b = 65
     kw = dict(n_head=2, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS, max_tokens=8,
               eps=cfg.attn_eps)
@@ -476,15 +521,20 @@ def test_decode_chunk_tc_graph_serves_every_call(dev):
 
 @pytest.mark.gpu
 def test_decode_chunk_tc_rejects_what_it_does_not_take(dev):
-    """bf16 weights at a d_model the SIMT route takes but the tensor-core
-    products do not (12: operand rows are read in 16-byte pieces) raise;
-    there is no other route for them."""
+    """bf16 weights at a d_model f32 weights take but the bf16 products do
+    not (12: their operand rows are read in place in 16-byte pieces) raise;
+    there is no other route for them.  f32 weights without the planes
+    make_v6_params packs raise too."""
     cfg, v6p, gen = _tc_setup(dev, 12, 3, 64)
     st = tdk4.init_state(cfg, 3, device=dev)
     before = tdk6.fused_decode_v6.launches
+    kw = dict(n_head=3, max_tokens=4, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
     with pytest.raises(ValueError, match="multiples of 8"):
-        tdk6.fused_decode_v6(v6p, _tokens(gen, dev, 3), st.s, st.z, 0, 0, n_head=3,
-                             max_tokens=4, vocab_sizes=VOCAB, temps=CP_TEMPS, topps=CP_TOPPS)
+        tdk6.fused_decode_v6(v6p, _tokens(gen, dev, 3), st.s, st.z, 0, 0, **kw)
+    v6f = _tc_setup(dev, 12, 3, 64, torch.float32)[1]
+    with pytest.raises(ValueError, match="planes"):
+        tdk6.fused_decode_v6(v6f._replace(planes=None), _tokens(gen, dev, 3), st.s, st.z, 0, 0,
+                             **kw)
     assert tdk6.fused_decode_v6.launches == before
 
 
@@ -617,6 +667,30 @@ def test_window_attention_kernel_matches_plain(dev, b, h, s, d, window, tail, la
         _close(x, y, 1e-4, name)
     lse = twk.forward_kernel(q, k, v, mask, window)[1].sum(0)
     _close(lse, twk.window_attention_band_plain(q, k, v, mask, window)[1], 1e-5, "lse")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d,window,tail,layout", BAND_CASES)
+def test_window_attention_gates_hold_bf16_inputs_above_them(dev, b, h, s, d, window, tail,
+                                                             layout):
+    """The control of the kernel's gates: the plain twin on q, k, v rounded
+    to bf16 ends above 1e-5 of out's magnitude and 1e-4 of each gradient's
+    from the twin on the f32 inputs, where the kernel ends below them
+    (``-s`` prints both)."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        window_attention_kernel as twk)
+    q, k, v, mask, g = _band_inputs(dev, b, h, s, d, tail, layout)
+    plain = lambda *a: twk.window_attention_band_plain(*a, mask, window)[0]
+    ok, gk = _fwd_bwd(lambda *a: twk.window_attention_band(*a, mask, window), (q, k, v), g)
+    op, gp = _fwd_bwd(plain, (q, k, v), g)
+    oc, gc = _fwd_bwd(plain, [t.bfloat16().float() for t in (q, k, v)], g)
+    kern = [_share(ok, op)] + [_share(x, y) for x, y in zip(gk, gp)]
+    ctl = [_share(oc, op)] + [_share(x, y) for x, y in zip(gc, gp)]
+    print(f"[gate] window_attention {(b, h, s, d, window, tail)}: kernel (out, dq, dk, dv) "
+          + ", ".join(f"{x:.2e}" for x in kern) + "; bf16-input control "
+          + ", ".join(f"{x:.2e}" for x in ctl) + " (gates 1e-5, 1e-4)")
+    assert kern[0] <= 1e-5 < ctl[0]
+    assert all(x <= 1e-4 < y for x, y in zip(kern[1:], ctl[1:]))
 
 
 @pytest.mark.gpu
