@@ -43,7 +43,12 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      pretrain slice's shapes (B=32 x S=512 rows, flagship width, f32,
      TF32 off): qkv_attention_block (kernel C) forward within 1e-4 of the
      output's magnitude and (dh, dWqkv, dbqkv) within 1e-3 of each
-     gradient's; attn_tail_block (kernel D) the same, at dropout 0 and 0.1
+     gradient's; on bf16 tensors against its twin of JAX's bf16 arithmetic
+     (f32 projection and attention, stores rounded), att and every
+     gradient within BF16_TOL of its magnitude, the parent's arithmetic
+     (every product rounded to bf16) printed beside as a control; HGMMA
+     in the SASS of C's two projection kernels (cuobjdump, > 0 in each);
+     attn_tail_block (kernel D) the same, at dropout 0 and 0.1
      (the plain version draws the same Philox bits), and on bf16 tensors
      against its twin of JAX's bf16 arithmetic, the output and every
      gradient within BF16_TOL (2^-7) of its magnitude; the HMMA count in
@@ -58,8 +63,8 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
   6. runs ``apps/cli.py pretrain`` for 4 steps at B=32, S=512 on each route,
      and on the kernel route with ``--dtype bfloat16`` (C and D on bf16
      tensors), and fails unless each training-kernel counter reads 12 x
-     steps on the kernel route (0 on the plain one) and every logged loss
-     is finite;
+     steps on the kernel route (0 on the plain one), C's attention runs as
+     its passes count them the same, and every logged loss is finite;
   7. holds kernel E (window_attention_band, the counterpart of
      window_attention_pallas) against its plain twin at the discriminator
      LM's shape (B=4, H=8, S=3584, D=64, window 512, f32) with the padding
@@ -217,6 +222,11 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      state-streaming floor and the CUDA launches a call (1 + T); B with f32
      weights and E bounded at 989/6 TFLOP/s (their f32-grade products on
      the tensor cores), the f32 FMA bound beside;
+     kernel C (16384 rows) at f32 and bf16 through the wrapper, and its
+     projection and attention passes alone (events and device time), each
+     bounded at its route's rate (the projection 989 TFLOP/s for bf16
+     tensors, 989/6 for f32; the attention's f32-grade products 989/6),
+     the f32 FMA bound beside;
      kernels D (16384 and 14336 rows) and G (50, 1500, 16384 rows) at f32
      and bf16 with the CUDA launches a call, bounded at the rate of their
      tensor-core arithmetic (bf16 989 TFLOP/s; f32 tensors 989/6, six bf16
@@ -560,23 +570,29 @@ def fused_times(tag, kernel, plain, inputs, g, reps, work, counted) -> dict:
                 mb_fwd=f_b / 1e6, mb_bwd=b_b / 1e6)
 
 
-def qkv_attention_work(n, d, h, n_seq, tile=64):
-    """(forward, backward) operations and bytes of qkv_attention_block at
-    this shape, the attention counted at the kernel's 64-row tile: a score
-    product (q k^T, A v and their backward counterparts) counts only its
-    causal half, tile (tile + 1) e operations, and a state product
-    (q S, S += k^T v, ...) 2 tile e^2.  Forward: 2 score and 2 state
-    products a tile; backward: 2 + 2 in the prefix pass, 4 + 3 in the
-    suffix pass, plus the dh / dW / db products."""
+def qkv_attention_work(n, d, h, n_seq, tile=64, elem=4):
+    """{part: (operations, bytes)} of qkv_attention_block at this shape on
+    tensors of ``elem`` bytes an element (den f32): "proj" the qkv
+    projection (h, W, b in, pqkv out), "attn_fwd" the attention forward
+    (pqkv in, att and den out), "fwd" the two; "attn_bwd" the attention
+    backward (pqkv, g, att, den in, dqkv out), "bwd" it and the dh / dW / db
+    products (h, W in, dh, dW, db out).  The attention counted at the
+    kernel's 64-row tile: a score product (q k^T, A v and their backward
+    counterparts) counts only its causal half, tile (tile + 1) e
+    operations, and a state product (q S, S += k^T v, ...) 2 tile e^2.
+    Forward: 2 score and 2 state products a tile; backward: 2 + 2 in the
+    prefix pass, 4 + 3 in the suffix pass."""
     e, s = d // h, n // n_seq
     tiles = n_seq * h * -(-s // tile)
     tri, state = tile * (tile + 1) * e, 2 * tile * e * e
-    f_ops = 2 * n * d * 3 * d + tiles * (2 * tri + 2 * state)
-    b_ops = tiles * (6 * tri + 5 * state) + 4 * n * d * 3 * d + n * 3 * d
-    f_bytes = 4 * (n * d + 3 * d * d + 3 * d + n * d + 3 * n * d + n * h)
-    b_bytes = 4 * (3 * n * d + n * d + n * d + n * h + n * d + 3 * d * d + n * d + 3 * d * d
-                   + 3 * d)
-    return (f_ops, f_bytes), (b_ops, b_bytes)
+    proj = (2 * n * d * 3 * d, elem * (n * d + 3 * d * d + 3 * d + 3 * n * d))
+    attn_fwd = (tiles * (2 * tri + 2 * state), elem * (3 * n * d + n * d) + 4 * n * h)
+    attn_bwd = (tiles * (6 * tri + 5 * state), elem * (3 * n * d + 2 * n * d + 3 * n * d)
+                + 4 * n * h)
+    grads = (4 * n * d * 3 * d + n * 3 * d, elem * (n * d + 3 * d * d + n * d + 3 * d * d + 3 * d))
+    add = lambda *ws: (sum(w[0] for w in ws), sum(w[1] for w in ws))
+    return {"proj": proj, "attn_fwd": attn_fwd, "fwd": add(proj, attn_fwd),
+            "attn_bwd": attn_bwd, "bwd": add(attn_bwd, grads)}
 
 
 def attn_tail_work(n, d, di, elem=4):
@@ -747,6 +763,18 @@ def check_tail(tag, tfb, d_in, g, seed_t, mid_drop, tols=(1e-4, 1e-3)) -> float:
         tag, lambda p: (lambda *a: tfb.attn_tail_block(*a, seed_t, p, mid_drop)),
         lambda p: (lambda *a: tfb.attn_tail_block_plain(*a, seed_t, p, mid_drop)), d_in, g,
         TAIL_GRADS, tols)
+
+
+def parent_qkv_attention(h, wqkv, bqkv, n_seq, n_head, chunk):
+    """Kernel C's earlier plain version, the control of phase 4's bf16
+    gate: the projection in h's type, then the chunked attention with
+    every product's output in that type (autograd for the backward)."""
+    from reinforcement_learning_in_music_generation_torch.ops.linear_attention import (
+        causal_linear_attention_bshe)
+    n, d = h.shape
+    q, k, v = (h @ wqkv + bqkv).split(d, dim=-1)
+    shp = lambda x: x.reshape(n_seq, n // n_seq, n_head, d // n_head)
+    return causal_linear_attention_bshe(shp(q), shp(k), shp(v), chunk=chunk).reshape(n, d)
 
 
 def as_bf16(tensors):
@@ -1842,6 +1870,7 @@ def main() -> None:
     ok, gk = fwd_bwd(c_kernel, c_in, g_tr)
     op, gp = fwd_bwd(c_plain, c_in, g_tr)
     c_err = max_err(ok, op)
+    c_out = op
     print(f"[qkv_attention] B={BT} S={ST} D={D} H={H} chunk {CHUNK}: max|d att| {c_err:.3e} "
           f"(max|att| {magnitude(op):.3e})", flush=True)
     check(c_err <= 1e-4 * magnitude(op), f"qkv_attention forward: max|d att| {c_err}")
@@ -1850,6 +1879,25 @@ def main() -> None:
         print(f"[qkv_attention] {name}: max|diff| {e:.3e} of magnitude {magnitude(y):.3e}",
               flush=True)
         check(e <= 1e-3 * magnitude(y), f"qkv_attention {name}: max|diff| {e}")
+    del gk, gp
+    # bf16 tensors against the twin of JAX's bf16 arithmetic (f32 projection
+    # and attention, stores rounded): every tensor within BF16_TOL of its
+    # magnitude; beside it, as a control, the parent's arithmetic (the
+    # projection and every attention product rounded to bf16)
+    c_in16 = as_bf16(c_in)
+    ok, gk = fwd_bwd(c_kernel, c_in16, g_tr.bfloat16())
+    op, gp = fwd_bwd(c_plain, c_in16, g_tr.bfloat16())
+    oc, gc = fwd_bwd(lambda h_, w_, b_: parent_qkv_attention(h_, w_, b_, BT, H, CHUNK), c_in16,
+                     g_tr.bfloat16())
+    c_share_bf16 = {}
+    for name, x, y, z in zip(("att", "dh", "dWqkv", "dbqkv"), (ok, *gk), (op, *gp), (oc, *gc)):
+        e, ctl = max_err(x, y) / magnitude(y), max_err(z, y) / magnitude(y)
+        c_share_bf16[name] = {"share": e, "parent_arithmetic_share": ctl}
+        print(f"[qkv_attention] bf16 {name}: max|diff| / magnitude {e:.3e} (gate {BF16_TOL:.3e}; "
+              f"the parent's arithmetic {ctl:.3e})", flush=True)
+        check(bool(torch.isfinite(x.float()).all()), f"qkv_attention bf16 {name}: not finite")
+        check(e <= BF16_TOL, f"qkv_attention bf16 {name}: max|diff| {e} of its magnitude")
+    del ok, gk, op, gp, oc, gc, c_in16
 
     def tail_weights(lp):
         return [t.contiguous() for t in (
@@ -1859,12 +1907,11 @@ def main() -> None:
 
     tail_ws = tail_weights(lp0)
     seed_t = torch.tensor(20260, dtype=torch.int32, device=dev)
-    d_in = (h_tr, op.contiguous(), *tail_ws)
+    d_in = (h_tr, c_out.contiguous(), *tail_ws)
     d_err = check_tail(f"attn_tail N={NT} D={D} DI={DI}", tfb, d_in, g_tr, seed_t, True)
     # bf16 tensors against the twin of JAX's bf16 arithmetic
     d_err_bf16 = check_tail(f"attn_tail N={NT} D={D} DI={DI} bf16", tfb, as_bf16(d_in),
                             g_tr.bfloat16(), seed_t, True, (BF16_TOL, BF16_TOL))
-    del gk, gp
     # every product of D and G on the tensor cores: HMMA in the SASS of
     # their product kernels, at both arithmetics
     dg_mma = {}
@@ -1880,6 +1927,17 @@ def main() -> None:
               flush=True)
         check(len(mma) >= 6 and all(n > 0 for n in mma.values()),
               f"{name}: a product kernel without tensor-core instructions ({mma})")
+    # C's projection on warpgroup MMA: HGMMA in the SASS of its product
+    # kernel at both arithmetics
+    sass = subprocess.run([cuobjdump, "-sass", libs["attention_block"]], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass attention_block failed: {sass.stderr[-500:]}")
+    c_mma = mma_counts("\n".join(line for line in sass.stdout.splitlines()
+                                 if "Function :" in line or "HGMMA" in line), "wg_gemm_kernel")
+    print(f"[qkv_attention] HGMMA instructions in its {len(c_mma)} projection kernels: "
+          f"{sorted(c_mma.values())}", flush=True)
+    check(len(c_mma) == 2 and all(n > 0 for n in c_mma.values()),
+          f"qkv_attention: a projection kernel without warpgroup MMA ({c_mma})")
 
     # -- 5. one full-width train step, kernel route against plain route ----
     knobs = ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_FFN_MIN_ROWS", "RLMG_WINDOW_BACKEND")
@@ -1961,26 +2019,32 @@ def main() -> None:
         for name, dt in (("kernel", "float32"), ("plain", "float32"), ("kernel", "bfloat16")):
             set_env(routes[name])
             zero_counts()
+            tab.kernel_runs(reset=True)
             res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64",
                             "--batch-size", str(BT), "--seq-len", str(ST), "--max-steps", "4",
                             "--dtype", dt, "--exp-dir", os.path.join(tmp, name + dt, "exp"),
                             "--ckpt-dir", os.path.join(tmp, name + dt, "ckpt")])
             torch.cuda.synchronize()
             counts = read_counts()
-            cli_res[name, dt] = (res, counts)
+            c_runs = tab.kernel_runs()
+            cli_res[name, dt] = (res, counts, c_runs)
             ms_step = res["seconds"] / res["steps"] * 1e3
             print(f"[pretrain] {name} route, {dt}: {res['steps']} steps in {res['seconds']:.3f}s "
                   f"= {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s (with one "
                   f"epoch-end checkpoint); logged losses {res['batch_losses']}; launches "
-                  f"(C, D, E, F, G fwd/bwd) {counts}", flush=True)
+                  f"(C, D, E, F, G fwd/bwd) {counts}; C's attention runs as it counts them "
+                  f"{c_runs}", flush=True)
             check(res["steps"] == 4, f"pretrain {name} {dt}: {res['steps']} steps, expected 4")
             check(len(res["batch_losses"]) > 0 and all(
                 math.isfinite(v) for v in res["batch_losses"] + res["history"]),
                 f"pretrain {name} {dt}: a logged loss is not finite")
             want = [12 * 4] * 4 + [0] * 6 if name == "kernel" else [0] * 10
             check(counts == want, f"pretrain {name} {dt}: launches {counts}, expected {want}")
+            check(c_runs == tuple(want[:2]), f"pretrain {name} {dt}: C counted {c_runs} runs, "
+                                             f"expected {tuple(want[:2])}")
     restore_env()
-    launches["C"] = cli_res["kernel", "float32"][1][0:2]
+    launches["C"] = list(cli_res["kernel", "float32"][2])
+    launches["C_bf16"] = list(cli_res["kernel", "bfloat16"][2])
     launches["D"] = cli_res["kernel", "float32"][1][2:4]
     launches["D_bf16"] = cli_res["kernel", "bfloat16"][1][2:4]
 
@@ -2827,18 +2891,61 @@ def main() -> None:
     print(f"[time] decode_step B=5 (f32 weights, {str(sdt)[6:]} state): {a_ms:.3f} ms, "
           f"plain {a_plain:.3f} ms, bound {a_bound:.4f} ms ({a_by})")
 
-    c_fwd, c_bwd = time_fwd_bwd(c_kernel, c_in, g_tr, 20)
-    c_pf, c_pb = time_fwd_bwd(c_plain, c_in, g_tr, 5)
-    att_k, pqkv_k, den_k = tab.forward_kernel(h_tr, wqkv, bqkv, BT, H, cfg.attn_eps)
-    c_pass = time_ms(lambda: tab.backward_kernel(pqkv_k, g_tr, att_k, den_k, BT, H,
-                                                 cfg.attn_eps), 20)
-    (cf_ops, cf_b), (cb_ops, cb_b) = qkv_attention_work(NT, D, H, BT)
-    c_bf, c_bfby = bound(cf_b, cf_ops)
-    c_bb, c_bbby = bound(cb_b, cb_ops)
-    print(f"[time] qkv_attention N={NT}: forward {c_fwd:.3f} ms (plain {c_pf:.3f}, bound "
-          f"{c_bf:.4f} {c_bfby}, {cf_ops / 1e9:.2f} GFLOP), backward {c_bwd:.3f} ms (plain "
-          f"{c_pb:.3f}, bound {c_bb:.4f} {c_bbby}, {cb_ops / 1e9:.2f} GFLOP; the two kernel "
-          f"passes alone {c_pass:.3f} ms)")
+    # C at both dtypes: through the wrapper and autograd, and its parts
+    # alone (the projection; the attention passes forward and backward),
+    # CUDA events and the profiler's device time; bounds at the route's
+    # rates (the projection at 989 TFLOP/s for bf16 tensors, 989/6 for f32;
+    # the attention's f32-grade products at 989/6 at both), the f32 FMA
+    # bound beside
+    c_t = {}
+    for dt in (torch.float32, torch.bfloat16):
+        ins = c_in if dt == torch.float32 else as_bf16(c_in)
+        h_c, w_c, b_c = ins
+        g_c = g_tr.to(dt)
+        k_f, k_b = time_fwd_bwd(c_kernel, ins, g_c, 20)
+        p_f, p_b = time_fwd_bwd(c_plain, ins, g_c, 5)
+        att_c, pqkv_c, den_c = tab.forward_kernel(h_c, w_c, b_c, BT, H, cfg.attn_eps)
+        x_c = tab.project_kernel(h_c, w_c, b_c)[1]
+        parts = {"proj": lambda: tab.project_kernel(h_c, w_c, b_c),
+                 "attn_fwd": lambda: tab.attention_kernel(x_c, BT, H, cfg.attn_eps, dt),
+                 "attn_bwd": lambda: tab.backward_kernel(pqkv_c, g_c, att_c, den_c, BT, H,
+                                                         cfg.attn_eps)}
+        work = qkv_attention_work(NT, D, H, BT, elem=h_c.element_size())
+        p_rate = BF16_FLOPS if dt == torch.bfloat16 else SPLIT_BF16_FLOPS
+        rates = {"proj": p_rate, "attn_fwd": SPLIT_BF16_FLOPS, "attn_bwd": SPLIT_BF16_FLOPS}
+        row = {"dtype": str(dt)[6:], "ms_fwd": k_f, "ms_bwd": k_b, "plain_ms_fwd": p_f,
+               "plain_ms_bwd": p_b}
+        for part, fn in parts.items():
+            ops, nb = work[part]
+            row[f"{part}_ms"] = time_ms(fn, 20)
+            row[f"{part}_device_ms"] = device_ms(fn, 20)
+            row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = bound(nb, ops, rates[part])
+            row[f"{part}_fma_bound_ms"] = bound(nb, ops)[0]
+        # whole calls: the bytes against the sum of the parts' operation
+        # times (the dh / dW / db products at the projection's rate)
+        grad_ops = work["bwd"][0] - work["attn_bwd"][0]
+        t_ops = {"fwd": work["proj"][0] / p_rate + work["attn_fwd"][0] / SPLIT_BF16_FLOPS,
+                 "bwd": grad_ops / p_rate + work["attn_bwd"][0] / SPLIT_BF16_FLOPS}
+        for way in ("fwd", "bwd"):
+            ops, nb = work[way]
+            t_b = nb / HBM_BYTES_PER_S
+            row[f"bound_ms_{way}"] = max(t_b, t_ops[way]) * 1e3
+            row[f"bound_by_{way}"] = "bytes" if t_b >= t_ops[way] else "operations"
+            row[f"fma_bound_ms_{way}"] = bound(nb, ops)[0]
+            row[f"gflop_{way}"], row[f"mb_{way}"] = ops / 1e9, nb / 1e6
+        c_t[dt] = row
+        print(f"[time] qkv_attention N={NT} {row['dtype']}: forward {k_f:.4f} ms (plain "
+              f"{p_f:.3f}, bound {row['bound_ms_fwd']:.4f} {row['bound_by_fwd']}, f32 FMA "
+              f"bound {row['fma_bound_ms_fwd']:.4f}), backward {k_b:.4f} ms (plain {p_b:.3f}, "
+              f"bound {row['bound_ms_bwd']:.4f} {row['bound_by_bwd']}, f32 FMA bound "
+              f"{row['fma_bound_ms_bwd']:.4f}); " + "; ".join(
+                  f"{part} {row[f'{part}_ms']:.4f} ms (device {row[f'{part}_device_ms']:.4f}, "
+                  f"bound {row[f'{part}_bound_ms']:.4f} {row[f'{part}_bound_by']}, f32 FMA "
+                  f"{row[f'{part}_fma_bound_ms']:.4f})" for part in parts), flush=True)
+        if dt == torch.float32:
+            att_k = att_c
+        del att_c, pqkv_c, den_c, x_c, parts
+    c32 = c_t[torch.float32]
     print(f"[time] train step B={BT} S={ST}: kernel route {step_ms['kernel']:.1f} ms, plain "
           f"route {step_ms['plain']:.1f} ms")
 
@@ -2996,14 +3103,23 @@ def main() -> None:
          "hmma": {k: n for k, n in b_mma.items() if k not in b_mma_f32},
          "main_path_launches": tc_launch["v6_tc"], "host_ms_per_call": host,
          "b1024": b_t[(bf16, 1024)]},
+        # C at pretrain's 16384 rows, f32 (the CLI default), bf16 beside;
+        # launches as its attention passes count their runs in `cli
+        # pretrain`; bounds at the route's rates
         {"name": "qkv_attention_block", "route": "cuda",
          "source": f"{pkg}/csrc/attention_block.cu",
+         "sources": [f"{pkg}/csrc/attention_block.cu", f"{pkg}/csrc/train_gemm_wg.cuh",
+                     f"{pkg}/csrc/causal_product.cuh"],
          "replaces": f"{tpu}/attention_block.py:346", "launches": sum(launches["C"]),
          "launches_fwd": launches["C"][0], "launches_bwd": launches["C"][1],
-         "max_abs_err": c_err, "ms": c_fwd + c_bwd, "ms_fwd": c_fwd, "ms_bwd": c_bwd,
-         "plain_ms": c_pf + c_pb, "bound_ms": c_bf + c_bb, "bound_ms_fwd": c_bf,
-         "bound_ms_bwd": c_bb, "bound_by": c_bfby if c_bfby == c_bbby else "operations",
-         "library_ms": None},
+         "launches_bf16": sum(launches["C_bf16"]),
+         "max_abs_err": c_err, "ms": c32["ms_fwd"] + c32["ms_bwd"],
+         "plain_ms": c32["plain_ms_fwd"] + c32["plain_ms_bwd"],
+         "bound_ms": c32["bound_ms_fwd"] + c32["bound_ms_bwd"],
+         "bound_by": c32["bound_by_fwd"] if c32["bound_by_fwd"] == c32["bound_by_bwd"]
+         else "operations", "library_ms": None,
+         **{k: v for k, v in c32.items() if k != "dtype"}, "bf16": c_t[torch.bfloat16],
+         "bf16_shares": c_share_bf16, "hgmma": c_mma},
         # D at pretrain's 16384 rows, f32 (the CLI default); bf16 and the
         # Longformer's shape beside; bounds at the route's tensor-core rate
         {"name": "attn_tail_block", "route": "cuda", "source": f"{pkg}/csrc/attn_tail.cu",

@@ -1,150 +1,163 @@
-// qkv projection + chunked causal linear attention, forward and backward:
-// the CUDA counterpart of
+// qkv projection + chunked causal linear attention, forward and backward
+// ("kernel C"): the CUDA counterpart of
 // reinforcement_learning_in_music_generation_tpu/ops/attention_block.py
 // qkv_attention_block (its Pallas bodies _fwd_kernel, _bwd_dq_kernel and
-// _bwd_dkv_kernel).
+// _bwd_dkv_kernel), in JAX's arithmetic at f32 and at bf16.
 //
-// Forward: one GEMM (train_gemm.cuh) writes pqkv = [phi(q) | phi(k) | v]
-// with the bias and phi = elu+1 in its epilogue; pqkv is the backward
-// residual, as on the TPU.  Then the causal recurrence of
-// linear_attention.cuh runs one
-// block per (sequence, head) that walks the sequence in tiles of AT_T = 64
-// rows with the running state S = sum phi(k) v^T (E x E) and z = sum phi(k)
-// in shared memory, in place of the TPU's sequential grid axis.  The tile
-// length is a numerics-free choice; the wrapper still checks the caller's
-// chunk against the sequence length, as the TPU kernel does.  Backward,
-// that header's two passes over the same blocks (the TPU's two passes),
-// reading q, k, v from pqkv through PqkvIO below, with phi' recovered from
-// the stored phi as min(phi, 1).  They write dqkv (N, 3D);
-// dh = dqkv W^T, dW = h^T dqkv and db stay outside, as on the TPU.
-// The TPU kernel packed two heads per program and masked half-lanes to
-// fill 128-lane rows; that has no purpose here and is dropped.
+// Projection (rlmg_qkv_project): pqkv = [phi(q) | phi(k) | v] = h Wqkv + b
+// with phi = elu + 1 on the first 2D columns, on the wgmma tile of
+// train_gemm_wg.cuh (f32 tensors: six bf16 products a depth from three
+// planes an operand; bf16: one bf16 product, f32 sums).  pqkv, in h's
+// type, is the backward's residual, as on the TPU.  At bf16 the epilogue
+// also writes the unrounded f32 values (xqkv): JAX's kernel attends on
+// its f32 projection and rounds only what it stores, so the attention
+// reads xqkv (a transient 4 N 3D bytes, 100 MB at 16384 x 1536, about
+// 0.06 ms of traffic; chosen over rounding the residual inside the
+// attention pass, which would have the passes write pqkv for rows their
+// tile only reads).  At f32 the two are one array.
+//
+// Attention (rlmg_qkv_attn_fwd, rlmg_qkv_attn_bwd): the passes of
+// causal_product.cuh, kernel F's, on (B, H, S, E) views of the packed rows
+// (strides (S 3D, E, 3D)): the forward reads f32 and writes att in h's
+// type and den (B, H, S) f32; the backward reads pqkv, g and att in h's
+// type and writes dqkv (N, 3D) in h's type, with phi' = min(phi, 1) of the
+// stored phi folded into d phi(q) and d phi(k) by the pass that writes
+// them (JAX's _qab_bwd).  dh = dqkv W^T, dW = h^T dqkv and db stay
+// outside, as JAX leaves them to XLA.  The TPU kernel's head-pair packing
+// (128-lane rows) has no purpose here and is dropped; its chunk is the
+// plain twin's, a numerics-free choice of the tile here.
 //
 // Bound on the card (PERF.md).  At N = 16384 rows, D = 512, 8 heads of 64:
-// the projection is 2 N D 3D = 25.8 GFLOP and the attention 3.2 GFLOP (the
-// causal half of each score tile), and the forward moves ~0.2 GB, so
-// operations bind (about 0.43 ms at 67 TFLOP/s, f32 outside the tensor
-// cores).  What the design does about it: the qkv
-// product is a register-blocked tile GEMM; every attention product is a 4x4
-// register-blocked outer product from shared memory, and the (C, C) score
-// tiles and the states never leave shared memory.  No tensor cores yet.
+// the projection is 2 N D 3D = 25.8 GFLOP, 0.026 ms at 989 TFLOP/s for
+// bf16 tensors and 0.157 ms at 989/6 for f32 (six bf16 products); the
+// attention's causal half 3.2 GFLOP forward, its bytes bind (F's bound).
 
-#include "linear_attention.cuh"
+#include "causal_product.cuh"
+#include "train_gemm_wg.cuh"
 
 namespace rlmg {
 
-// q, k, v of row i of head h packed in pqkv (N, 3D) = [phi(q) | phi(k) | v];
-// att, g (N, D); den (N, H) f32; dqkv (N, 3D) gets phi' = min(phi, 1)
-// folded into d phi(q) and d phi(k).
 template <typename T>
-struct PqkvIO {
-  const T* pqkv;
-  T* att;
-  float* dens;
-  const T* grad;
-  T* dqkv;
-  int S, D, H, E;
-  __device__ __forceinline__ size_t row(int b, int i) const { return (size_t)b * S + i; }
-  __device__ __forceinline__ size_t col(int h, int e) const { return (size_t)h * E + e; }
-  __device__ __forceinline__ float q(int b, int h, int i, int e) const {
-    return ld(pqkv + row(b, i) * 3 * D + col(h, e));
-  }
-  __device__ __forceinline__ float k(int b, int h, int i, int e) const {
-    return ld(pqkv + row(b, i) * 3 * D + D + col(h, e));
-  }
-  __device__ __forceinline__ float v(int b, int h, int i, int e) const {
-    return ld(pqkv + row(b, i) * 3 * D + 2 * D + col(h, e));
-  }
-  __device__ __forceinline__ float g(int b, int h, int i, int f) const {
-    return ld(grad + row(b, i) * D + col(h, f));
-  }
-  __device__ __forceinline__ float out(int b, int h, int i, int f) const {
-    return ld(att + row(b, i) * D + col(h, f));
-  }
-  __device__ __forceinline__ float den(int b, int h, int i) const {
-    return dens[row(b, i) * H + h];
-  }
-  __device__ __forceinline__ void put_out(int b, int h, int i, int f, float x) const {
-    st(att + row(b, i) * D + col(h, f), x);
-  }
-  __device__ __forceinline__ void put_den(int b, int h, int i, float x) const {
-    dens[row(b, i) * H + h] = x;
-  }
-  __device__ __forceinline__ void put_dq(int b, int h, int i, int e, float x) const {
-    st(dqkv + row(b, i) * 3 * D + col(h, e), x * fminf(q(b, h, i, e), 1.f));
-  }
-  __device__ __forceinline__ void put_dk(int b, int h, int i, int e, float x) const {
-    st(dqkv + row(b, i) * 3 * D + D + col(h, e), x * fminf(k(b, h, i, e), 1.f));
-  }
-  __device__ __forceinline__ void put_dv(int b, int h, int i, int f, float x) const {
-    st(dqkv + row(b, i) * 3 * D + 2 * D + col(h, f), x);
-  }
-};
+int qkv_project(const T* h, const T* w, const T* b, T* pqkv, float* xqkv, wg::bf16* planes,
+                int N, int D, cudaStream_t st) {
+  const wg::Epi<T> e{b, pqkv, xqkv, 2 * D};
+  return wg::gemm<T>(h, w, N, 3 * D, D, e, planes, st);
+}
 
-template <typename T>
-int qkv_attn_fwd(const T* h, const T* w, const T* bias, T* pqkv, T* att, float* den, int N,
-                 int n_seq, int D, int H, float eps, cudaStream_t st) {
-  const int E = D / H, S = N / n_seq;
-  Epi<T, T> e;
-  e.out = pqkv;
-  e.bias = bias;
-  e.act = ACT_PHI;
-  e.phi_cols = 2 * D;
-  int rc = gemm<false, false>(h, w, N, 3 * D, D, e, st);
-  if (rc) return rc;
-  const PqkvIO<T> io{pqkv, att, den, nullptr, nullptr, S, D, H, E};
-  return la_forward(io, n_seq, H, S, E, eps, st);
+// The heads of the packed (N, 3D) rows at column offset c as (B, H, S, E).
+template <typename X>
+cpk::Bhse<X> heads(const X* rows, int c, int S, int width, int E) {
+  return cpk::Bhse<X>{rows + c, (long long)S * width, E, width};
 }
 
 template <typename T>
-int qkv_attn_bwd(const T* pqkv, const T* g, const T* att, const float* den, T* dqkv, int N,
-                 int n_seq, int D, int H, float eps, cudaStream_t st) {
+int qkv_attn_fwd(const float* x, T* att, float* den, float* scratch, int N, int n_seq, int D,
+                 int H, float eps, cudaStream_t st) {
+  using A = cpk::Args<float, T>;
   const int E = D / H, S = N / n_seq;
-  const PqkvIO<T> io{pqkv, const_cast<T*>(att), const_cast<float*>(den), g, dqkv, S, D, H, E};
-  return la_backward(io, n_seq, H, S, E, eps, st);
+  A a = cpk::make_args<A>(H, S, E, eps, scratch);
+  a.q = heads(x, 0, S, 3 * D, E);
+  a.k = heads(x, D, S, 3 * D, E);
+  a.v = heads(x, 2 * D, S, 3 * D, E);
+  a.o = heads<T>(att, 0, S, D, E);
+  a.den = den;
+  return cpk::forward_any(a, n_seq, st);
+}
+
+template <typename T>
+int qkv_attn_bwd(const T* pqkv, const T* g, const T* att, const float* den, T* dqkv,
+                 float* scratch, int N, int n_seq, int D, int H, float eps, cudaStream_t st) {
+  using A = cpk::Args<T, T>;
+  const int E = D / H, S = N / n_seq;
+  A a = cpk::make_args<A>(H, S, E, eps, scratch);
+  a.q = heads(pqkv, 0, S, 3 * D, E);
+  a.k = heads(pqkv, D, S, 3 * D, E);
+  a.v = heads(pqkv, 2 * D, S, 3 * D, E);
+  a.g = heads(g, 0, S, D, E);
+  a.o = heads(att, 0, S, D, E);
+  a.dq = heads<T>(dqkv, 0, S, 3 * D, E);
+  a.dk = heads<T>(dqkv, D, S, 3 * D, E);
+  a.dv = heads<T>(dqkv, 2 * D, S, 3 * D, E);
+  a.den = const_cast<float*>(den);
+  a.fold = 1;
+  return cpk::backward_any(a, n_seq, st);
 }
 
 inline bool attn_shape_ok(int N, int n_seq, int D, int H) {
-  if (H <= 0 || n_seq <= 0 || D % H || N % n_seq) return false;
+  if (H <= 0 || n_seq <= 0 || n_seq > 65535 || H > 65535 || D % H || N % n_seq) return false;
   const int E = D / H;
-  return E % 4 == 0 && E <= AT_MAX_E;
+  return E % 4 == 0 && E <= cpk::MAX_E && D % 8 == 0;
 }
 
 }  // namespace rlmg
 
 extern "C" {
 
-// h (N, D), w (D, 3D), b (3D) in one type (bf16 = 1: bfloat16, else f32).
-// Writes pqkv (N, 3D) and att (N, D) in that type and den (N, H) f32.
-// N = n_seq sequences of N / n_seq rows.  Returns 0 or a CUDA error code.
-int rlmg_qkv_attn_fwd(const void* h, const void* w, const void* b, void* pqkv, void* att,
-                      float* den, int N, int n_seq, int D, int H, float eps, int bf16,
-                      void* stream) {
-  using namespace rlmg;
-  using bf = __nv_bfloat16;
-  if (!attn_shape_ok(N, n_seq, D, H)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return qkv_attn_fwd<bf>((const bf*)h, (const bf*)w, (const bf*)b, (bf*)pqkv, (bf*)att, den, N,
-                            n_seq, D, H, eps, st);
-  return qkv_attn_fwd<float>((const float*)h, (const float*)w, (const float*)b, (float*)pqkv,
-                             (float*)att, den, N, n_seq, D, H, eps, st);
+// bf16 elements of the planes rlmg_qkv_project splits (h's at f32, W^T's).
+long long rlmg_qkv_plane_elems(int N, int D, int bf16) {
+  return (long long)rlmg::wg::plane_elems(N, 3 * D, D, !bf16);
 }
 
-// From the forward's pqkv, att, den and the upstream gradient g (N, D),
-// writes dqkv (N, 3D) = [d phi(q) * phi'(q) | d phi(k) * phi'(k) | dv].
+// f32 scratch floats of an attention call (0 at S <= 64).
+long long rlmg_qkv_attn_scratch_floats(int n_seq, int H, int S, int E, int backward) {
+  return rlmg::cpk::scratch_floats(n_seq, H, S, E, backward);
+}
+
+// h (N, D), w (D, 3D), b (3D) in one type (bf16 = 1: bfloat16, else f32)
+// -> pqkv (N, 3D) = [phi(q) | phi(k) | v] in that type and, at bf16, its
+// f32 values in xqkv (N, 3D); planes: rlmg_qkv_plane_elems bf16.  Three
+// launches at f32 (two splits, the product), two at bf16.  Returns 0 or a
+// CUDA error code.
+int rlmg_qkv_project(const void* h, const void* w, const void* b, void* pqkv, float* xqkv,
+                     void* planes, int N, int D, int bf16, void* stream) {
+  using namespace rlmg;
+  if (N <= 0 || D <= 0 || D % 8) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return qkv_project<__nv_bfloat16>((const __nv_bfloat16*)h, (const __nv_bfloat16*)w,
+                                      (const __nv_bfloat16*)b, (__nv_bfloat16*)pqkv, xqkv,
+                                      (__nv_bfloat16*)planes, N, D, st);
+  return qkv_project<float>((const float*)h, (const float*)w, (const float*)b, (float*)pqkv,
+                            nullptr, (__nv_bfloat16*)planes, N, D, st);
+}
+
+// The attention forward on the projection's f32 values x (N, 3D) (at f32
+// pqkv itself): att (N, D) in h's type (bf16 = 1: bfloat16) and den
+// (n_seq, H, S) f32.  N = n_seq sequences of S = N / n_seq rows; scratch:
+// rlmg_qkv_attn_scratch_floats(..., 0).  One launch at S <= 64, else two.
+int rlmg_qkv_attn_fwd(const float* x, void* att, float* den, float* scratch, int N, int n_seq,
+                      int D, int H, float eps, int bf16, void* stream) {
+  using namespace rlmg;
+  if (!attn_shape_ok(N, n_seq, D, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return qkv_attn_fwd<__nv_bfloat16>(x, (__nv_bfloat16*)att, den, scratch, N, n_seq, D, H,
+                                       eps, st);
+  return qkv_attn_fwd<float>(x, (float*)att, den, scratch, N, n_seq, D, H, eps, st);
+}
+
+// From the residual pqkv, att, den and the upstream gradient g (N, D), all
+// in h's type but den, writes dqkv (N, 3D) = [d phi(q) phi'(q) | d phi(k)
+// phi'(k) | dv] in that type; scratch: ..._scratch_floats(..., 1).
 int rlmg_qkv_attn_bwd(const void* pqkv, const void* g, const void* att, const float* den,
-                      void* dqkv, int N, int n_seq, int D, int H, float eps, int bf16,
-                      void* stream) {
+                      void* dqkv, float* scratch, int N, int n_seq, int D, int H, float eps,
+                      int bf16, void* stream) {
   using namespace rlmg;
   using bf = __nv_bfloat16;
   if (!attn_shape_ok(N, n_seq, D, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    return qkv_attn_bwd<bf>((const bf*)pqkv, (const bf*)g, (const bf*)att, den, (bf*)dqkv, N,
-                            n_seq, D, H, eps, st);
+    return qkv_attn_bwd<bf>((const bf*)pqkv, (const bf*)g, (const bf*)att, den, (bf*)dqkv,
+                            scratch, N, n_seq, D, H, eps, st);
   return qkv_attn_bwd<float>((const float*)pqkv, (const float*)g, (const float*)att, den,
-                             (float*)dqkv, N, n_seq, D, H, eps, st);
+                             (float*)dqkv, scratch, N, n_seq, D, H, eps, st);
+}
+
+// Attention calls that ran to their end on the current card since the
+// last reset, as the kernel counts them (graph replays included): runs[0]
+// forward, runs[1] backward; reset zeroes them after the read.
+int rlmg_qkv_attn_runs(long long* runs, int reset) {
+  return rlmg::cpk::read_runs(runs, reset);
 }
 
 const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

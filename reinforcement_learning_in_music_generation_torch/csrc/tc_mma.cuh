@@ -99,6 +99,14 @@ __device__ __forceinline__ void griddep_launch() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
+// Two neighbouring values stored as f32 or bf16 (one 8- or 4-byte store).
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // c (16x8 f32) += a (16x16 bf16, row) b (16x8 bf16, col)
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(

@@ -1,7 +1,7 @@
 // Building blocks of kernels D (attn_tail.cu) and G (ffn_block.cu): a
-// tensor-core product tile with train_gemm.cuh's fused epilogue, and the
-// row kernels (LayerNorm forward and backward, column sums, ordered sums of
-// partial results), for f32 or bf16 tensors.  Plain C interface through the
+// tensor-core product tile with a fused epilogue, and the row kernels
+// (LayerNorm forward and backward, column sums, ordered sums of partial
+// results), for f32 or bf16 tensors.  Plain C interface through the
 // sources; no PyTorch headers.
 //
 // Products.  C (M,N) = op(A) @ op(B) on mma.sync.m16n8k16 (bf16 operands,
@@ -42,10 +42,17 @@
 // A split product writes its raw K-slice sums, and tt_epi_kernel adds them
 // in slice order and applies the epilogue: no atomics, every result
 // bit-reproducible.
-// Epilogue per element, train_gemm.cuh's order: + bias[n]; store to `pre`;
+// Epilogue per element: + bias[n]; store to `pre`;
 // gelu; x dropout mask of `site` (drop_scale, the same Philox bits); x
 // gelu'(dgelu_x[m,n]); + resid[m,n]; store to `out` in its type and/or as
 // the planes of a later product's operand.
+//
+// Dropout.  The TPU kernels drew their bits from the on-core PRNG per row
+// tile; here every element's bits are Philox4x32-10 at counter (row,
+// column, site, 0) under key (seed, PHILOX_KEY1), so a mask depends only on
+// the absolute position, forward and backward see the same mask by
+// construction, and ops/ffn_block.py draws the same bits in PyTorch.  Keep
+// rule of the JAX kernels: top 24 bits x 2^-24 >= p, kept values x 1/(1-p).
 //
 // Operand dimensions: the contiguous one of each operand a multiple of 8
 // (16-byte copies of bf16: the wrappers check D, DI); rows take any count
@@ -55,10 +62,35 @@
 
 #include <type_traits>
 
+#include "decode_layers.cuh"
 #include "tc_mma.cuh"
-#include "train_gemm.cuh"
 
 namespace rlmg {
+
+// Dropout multiplier of one element: 1/(1-p) if kept, else 0.
+__device__ __forceinline__ float drop_scale(uint32_t seed, int site, int row, int col,
+                                            float p, float inv) {
+  const uint32_t bits = philox_first(seed, (uint32_t)row, (uint32_t)col, (uint32_t)site, 0u);
+  return (float)(bits >> 8) * 5.9604644775390625e-08f >= p ? inv : 0.f;
+}
+
+// d/dx of the exact gelu: Phi(x) + x * phi(x).
+__device__ __forceinline__ float dgelu(float x) {
+  const float cdf = 0.5f * (1.f + erff(x * 0.7071067811865476f));
+  return cdf + x * expf(-0.5f * x * x) * 0.3989422804014327f;
+}
+
+struct Drop {
+  const int* seed;   // device pointer to the int32 seed (read in the kernel: no host sync)
+  int site;          // 1, 2 or 3; 0 = no dropout
+  float p, inv;      // rate and 1/(1-p) (computed on the host in double)
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
 
 using bf16 = __nv_bfloat16;
 
@@ -160,7 +192,7 @@ __device__ __forceinline__ void tile_load(bf16* dst, const bf16* __restrict__ g,
   }
 }
 
-// The fused epilogue (train_gemm.cuh Epi's steps) with typed tensors: TW
+// The fused epilogue with typed tensors: TW
 // the bias (a parameter), TC the output, TR the residual.
 template <typename TW, typename TC, typename TR>
 struct TcEpi {
@@ -186,12 +218,6 @@ __device__ __forceinline__ float epi_value(const E& e, float v, int m, int n, si
   return v;
 }
 
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // The epilogue of the pair (m, n), (m, n + 1) of sums v0, v1.
 template <class E>

@@ -7,8 +7,10 @@ backward ("kernel F"): the counterpart of the JAX package's
     out_i = phi(q_i) S_i / (phi(q_i) . z_i + eps),  den_i = phi(q_i) . z_i
     S_i = sum_{j <= i} phi(k_j) v_j^T,  z_i = sum_{j <= i} phi(k_j)
 
-Kernel F: ``csrc/causal_product.cu``, hand-written CUDA for ``sm_90a``,
-built at first use (``_build.py``) and called through ctypes.  Row tiles of
+Kernel F: ``csrc/causal_product.cu`` (its passes in
+``csrc/causal_product.cuh``, which kernel C's attention half runs too),
+hand-written CUDA for ``sm_90a``, built at first use (``_build.py``) and
+called through ctypes.  Row tiles of
 64 run in parallel: at S <= 64 one launch, a block a 16-row group; longer
 sequences first take a state pass that writes each tile's k^T [v | 1]
 (and, backward, q^T [dnum | dd]) to a scratch tensor, whose slots the
@@ -43,7 +45,7 @@ import torch
 from . import _build
 from .linear_attention import DEFAULT_EPS, _DEF_CHUNK, _ChunkedCore
 
-MAX_HEAD_WIDTH = 64          # csrc/causal_product.cu cpk::MAX_E
+MAX_HEAD_WIDTH = 64          # csrc/causal_product.cuh cpk::MAX_E
 
 
 def causal_product_plain(phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
@@ -74,7 +76,7 @@ def _check(phi_q, phi_k, v) -> None:
                              f"dimension (strides {t.stride()})")
 
 
-TILE = 64                    # csrc/causal_product.cu cpk::T
+TILE = 64                    # csrc/causal_product.cuh cpk::T
 
 _LIB: Optional[ctypes.CDLL] = None
 _FWD = _BWD = None           # the library's entry points, bound once

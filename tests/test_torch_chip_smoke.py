@@ -169,3 +169,20 @@ def test_mma_counts_reads_the_tensor_core_instructions_of_named_functions(smoke)
     assert smoke.mma_counts(sass, "tc_gemm_kernel") == {
         "_ZN4rlmg14tc_gemm_kernelILi0EEEvv": 2, "_ZN4rlmg14tc_gemm_kernelILi1EEEvv": 1,
         "_ZN4rlmg14tc_gemm_kernelILi2EEEvv": 0}
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+def test_qkv_attention_work_splits_projection_and_attention(smoke, elem):
+    """Kernel C's work: the projection's 2 N D 3D operations, the parts
+    adding up to the whole calls, and bf16 tensors moving half the bytes of
+    f32 ones but for den (N H f32)."""
+    n, d, h, n_seq = 16384, 512, 8, 32
+    w = smoke.qkv_attention_work(n, d, h, n_seq, elem=elem)
+    assert w["proj"][0] == 2 * n * d * 3 * d
+    for part in (0, 1):
+        assert w["fwd"][part] == w["proj"][part] + w["attn_fwd"][part]
+        assert w["bwd"][part] > w["attn_bwd"][part]
+    w32 = smoke.qkv_attention_work(n, d, h, n_seq)
+    den = 4 * n * h
+    assert w["attn_fwd"][1] - den == (w32["attn_fwd"][1] - den) * elem // 4
+    assert w["proj"][1] == w32["proj"][1] * elem // 4
