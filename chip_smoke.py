@@ -45,8 +45,12 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      output's magnitude and (dh, dWqkv, dbqkv) within 1e-3 of each
      gradient's; on bf16 tensors against its twin of JAX's bf16 arithmetic
      (f32 projection and attention, stores rounded), att and every
-     gradient within BF16_TOL of its magnitude, the parent's arithmetic
-     (every product rounded to bf16) printed beside as a control; HGMMA
+     gradient within C_BF16_GATES (max|diff| within BF16_TOL or less of
+     its magnitude, mean|diff| within a small share of mean|ref|), with a
+     control that must end above the mean limits: the kernel with its
+     attention reading the rounded residual (the parent kernel's fault),
+     and the parent's plain arithmetic (every product rounded to bf16)
+     printed beside; HGMMA
      in the SASS of C's two projection kernels (cuobjdump, > 0 in each);
      attn_tail_block (kernel D) the same, at dropout 0 and 0.1
      (the plain version draws the same Philox bits), and on bf16 tensors
@@ -264,6 +268,23 @@ SPLIT3_BF16_FLOPS = BF16_FLOPS / 3
 # kernels D and G on bf16 tensors against their twins: every tensor within
 # this share of its magnitude, twice the bf16 rounding step (2^-8) at it
 BF16_TOL = 2 ** -7
+# kernel C on bf16 tensors against its twin of JAX's arithmetic, per
+# tensor: (max|diff| / magnitude, mean|diff| / mean|ref|).  The kernel and
+# the twin round the same f32 values on store, so they differ only where
+# their f32 sums straddle a rounding boundary: a few elements, one bf16
+# step each.  A kernel that attends on the rounded residual (the fault
+# of C's earlier kernel; qkv_rounded_control puts it back) moves most
+# elements: its mean share ends above these limits, which
+# qkv_bf16_gate_failures checks.  The max share cannot tell the two apart
+# (one step at the largest value is up to 2^-7 of it, and the fault's
+# largest difference is often that same step), so it stays at BF16_TOL.
+# The mean limits sit between the card's readings (NVIDIA H100 80GB HBM3,
+# 700 W; the pretrain shape at three seeds and the card tests' four bf16
+# shapes): the kernel's largest mean share att 8.9e-7, dh 1.32e-4, dWqkv
+# 8.8e-5, dbqkv 2.7e-5; the control's least 1.40e-3, 9.4e-4, 9.8e-4,
+# 2.3e-4 (PERF.md).
+C_BF16_GATES = {"att": (BF16_TOL, 3e-5), "dh": (BF16_TOL, 3.5e-4),
+                "dWqkv": (BF16_TOL, 3e-4), "dbqkv": (BF16_TOL, 8e-5)}
 # kernel B's tensor-core route with an f32 state: max|dS| against its twin,
 # as a share of max|S|, after 16 teacher-forced tokens at the main path's shape
 S_TC_TOL = 3e-4
@@ -775,6 +796,62 @@ def parent_qkv_attention(h, wqkv, bqkv, n_seq, n_head, chunk):
     q, k, v = (h @ wqkv + bqkv).split(d, dim=-1)
     shp = lambda x: x.reshape(n_seq, n // n_seq, n_head, d // n_head)
     return causal_linear_attention_bshe(shp(q), shp(k), shp(v), chunk=chunk).reshape(n, d)
+
+
+def qkv_rounded_control(tab, h, wqkv, bqkv, g, n_seq, n_head):
+    """Kernel C with its parent's bf16 fault put back: the attention passes
+    read the stored residual pqkv (rounded to h's type, widened to f32) in
+    place of the projection's f32 values; the backward as C's own.  ->
+    (att, dh, dWqkv, dbqkv).  A control of the bf16 gate: no wrapper call,
+    so the wrapper counts nothing."""
+    eps = tab.DEFAULT_EPS
+    with torch.no_grad():
+        pqkv, _ = tab.project_kernel(h, wqkv, bqkv)
+        att, den = tab.attention_kernel(pqkv.float(), n_seq, n_head, eps, h.dtype)
+        dqkv = tab.backward_kernel(pqkv, g.to(h.dtype).contiguous(), att, den, n_seq, n_head,
+                                   eps)
+        return att, dqkv @ wqkv.T, h.T @ dqkv, dqkv.sum(0).to(wqkv.dtype)
+
+
+def bf16_shares(x, y):
+    """(max|x - y| / magnitude(y), mean|x - y| / mean|y|)."""
+    d = (x.float() - y.float()).abs()
+    return d.max().item() / magnitude(y), d.mean().item() / max(y.float().abs().mean().item(),
+                                                                1e-30)
+
+
+def qkv_bf16_readings(tab, h, wqkv, bqkv, g, n_seq, n_head, chunk):
+    """Kernel C on bf16 tensors against its twin of JAX's arithmetic: for
+    att, dh, dWqkv and dbqkv, {"kernel": shares, "control": shares,
+    "finite": bool, "dtype": in h's type}, shares = bf16_shares against
+    the twin; the control is qkv_rounded_control."""
+    ok, gk = fwd_bwd(lambda h_, w_, b_: tab.qkv_attention_block(h_, w_, b_, n_seq, n_head,
+                                                                chunk=chunk), (h, wqkv, bqkv), g)
+    op, gp = fwd_bwd(lambda h_, w_, b_: tab.qkv_attention_block_plain(h_, w_, b_, n_seq, n_head,
+                                                                      chunk=chunk),
+                     (h, wqkv, bqkv), g)
+    oc = qkv_rounded_control(tab, h, wqkv, bqkv, g, n_seq, n_head)
+    return {name: {"kernel": bf16_shares(x, y), "control": bf16_shares(z, y),
+                   "finite": bool(torch.isfinite(x.float()).all()), "dtype": x.dtype == h.dtype}
+            for name, x, y, z in zip(C_BF16_GATES, (ok, *gk), (op, *gp), oc)}
+
+
+def qkv_bf16_gate_failures(readings):
+    """What C_BF16_GATES refuses in qkv_bf16_readings' result: the kernel
+    above a limit, or the control not above the mean limit."""
+    bad = []
+    for name, r in readings.items():
+        (k_max, k_mean), c_mean = r["kernel"], r["control"][1]
+        g_max, g_mean = C_BF16_GATES[name]
+        if not r["finite"] or not r["dtype"]:
+            bad.append(f"{name}: not finite, or not in the inputs' type")
+        if k_max > g_max or k_mean > g_mean:
+            bad.append(f"{name}: max / mean share {k_max:.3e} / {k_mean:.3e} above "
+                       f"{g_max:.3e} / {g_mean:.3e}")
+        if not c_mean > g_mean:
+            bad.append(f"{name}: the rounded-residual control's mean share {c_mean:.3e} is not "
+                       f"above {g_mean:.3e}")
+    return bad
 
 
 def as_bf16(tensors):
@@ -1881,23 +1958,30 @@ def main() -> None:
         check(e <= 1e-3 * magnitude(y), f"qkv_attention {name}: max|diff| {e}")
     del gk, gp
     # bf16 tensors against the twin of JAX's bf16 arithmetic (f32 projection
-    # and attention, stores rounded): every tensor within BF16_TOL of its
-    # magnitude; beside it, as a control, the parent's arithmetic (the
-    # projection and every attention product rounded to bf16)
+    # and attention, stores rounded): every tensor within C_BF16_GATES, the
+    # rounded-residual control (the parent kernel's fault) above them; the
+    # parent's plain arithmetic (the projection and every attention product
+    # rounded to bf16) printed beside
     c_in16 = as_bf16(c_in)
-    ok, gk = fwd_bwd(c_kernel, c_in16, g_tr.bfloat16())
+    c_read = qkv_bf16_readings(tab, *c_in16, g_tr.bfloat16(), BT, H, CHUNK)
     op, gp = fwd_bwd(c_plain, c_in16, g_tr.bfloat16())
     oc, gc = fwd_bwd(lambda h_, w_, b_: parent_qkv_attention(h_, w_, b_, BT, H, CHUNK), c_in16,
                      g_tr.bfloat16())
     c_share_bf16 = {}
-    for name, x, y, z in zip(("att", "dh", "dWqkv", "dbqkv"), (ok, *gk), (op, *gp), (oc, *gc)):
-        e, ctl = max_err(x, y) / magnitude(y), max_err(z, y) / magnitude(y)
-        c_share_bf16[name] = {"share": e, "parent_arithmetic_share": ctl}
-        print(f"[qkv_attention] bf16 {name}: max|diff| / magnitude {e:.3e} (gate {BF16_TOL:.3e}; "
-              f"the parent's arithmetic {ctl:.3e})", flush=True)
-        check(bool(torch.isfinite(x.float()).all()), f"qkv_attention bf16 {name}: not finite")
-        check(e <= BF16_TOL, f"qkv_attention bf16 {name}: max|diff| {e} of its magnitude")
-    del ok, gk, op, gp, oc, gc, c_in16
+    for name, y, z in zip(C_BF16_GATES, (op, *gp), (oc, *gc)):
+        r = c_read[name]
+        ctl = bf16_shares(z, y)
+        c_share_bf16[name] = {"share": r["kernel"][0], "mean_share": r["kernel"][1],
+                              "rounded_residual_control": r["control"],
+                              "parent_arithmetic": ctl, "gate": C_BF16_GATES[name]}
+        print(f"[qkv_attention] bf16 {name}: max / mean share {r['kernel'][0]:.3e} / "
+              f"{r['kernel'][1]:.3e} (gate {C_BF16_GATES[name][0]:.3e} / "
+              f"{C_BF16_GATES[name][1]:.3e}); the rounded-residual control "
+              f"{r['control'][0]:.3e} / {r['control'][1]:.3e}; the parent's arithmetic "
+              f"{ctl[0]:.3e} / {ctl[1]:.3e}", flush=True)
+    for msg in qkv_bf16_gate_failures(c_read):
+        fail(f"qkv_attention bf16 {msg}")
+    del op, gp, oc, gc, c_in16
 
     def tail_weights(lp):
         return [t.contiguous() for t in (
@@ -3109,7 +3193,7 @@ def main() -> None:
         {"name": "qkv_attention_block", "route": "cuda",
          "source": f"{pkg}/csrc/attention_block.cu",
          "sources": [f"{pkg}/csrc/attention_block.cu", f"{pkg}/csrc/train_gemm_wg.cuh",
-                     f"{pkg}/csrc/causal_product.cuh"],
+                     f"{pkg}/csrc/train_split.cuh", f"{pkg}/csrc/causal_product.cuh"],
          "replaces": f"{tpu}/attention_block.py:346", "launches": sum(launches["C"]),
          "launches_fwd": launches["C"][0], "launches_bwd": launches["C"][1],
          "launches_bf16": sum(launches["C_bf16"]),

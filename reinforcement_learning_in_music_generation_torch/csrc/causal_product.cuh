@@ -60,18 +60,22 @@
 //    over three bf16 planes of each f32 operand (x = hi + mid + lo), the
 //    six products whose terms reach 2^-16 of a product, each depth of 16
 //    summed afresh and added to the running sum in f32
-//    (train_gemm_tc.cuh's arithmetic for kernels D and G).  The planes are
-//    split in registers from f32 tiles in shared memory; the score tile
-//    never leaves registers: its accumulator is the next product's A
-//    operand.  The kernels are compiled for the model's head width (E =
-//    64: every loop unrolls without branches, so a tile's independent
-//    products interleave) and for any other width.
+//    (train_gemm_tc.cuh's arithmetic for kernels D and G).  The long
+//    backward (S > T) splits each operand tile into its planes once, as
+//    the block loads it, and reads fragments by ldmatrix (153 KB of shared
+//    memory at E = 64, one block an SM); the other passes split f32 tiles
+//    in registers, fragment by fragment (two blocks an SM or more).  The
+//    score tile never leaves registers: its accumulator is the next
+//    product's A operand.  The kernels are compiled for the model's head
+//    width (E = 64: every loop unrolls without branches, so a tile's
+//    independent products interleave) and for any other width.
 //  * The last launch of a call counts the call's run on the card
 //    (cp_runs, one counter a library), so graph replays are counted by the
 //    kernel.
-//  What holds it back (PERF.md): the planes are split in registers for
-//  each fragment, and at S > T the backward's dk / dv role does twice the
-//  dq role's products.
+//  What holds it back (PERF.md): the long backward waits for its loads
+//  at one block an SM, the other passes split planes in registers for each
+//  fragment, and at S > T the backward's dk / dv role does twice the dq
+//  role's products.
 
 #pragma once
 
@@ -423,12 +427,13 @@ __global__ void __launch_bounds__(256, 2) cp_state_kernel(A a) {
   }
 }
 
-// X (EP x KA at ld) = the sum of the scratch slots [ta, tb) of kind which,
-// in slot order; every thread keeps its columns' loads of up to 16 slots
-// in flight at once (runs while the block's copies fly).
-template <class A>
-__device__ __forceinline__ void sum_slots(float* X, int ld, int which, int b, int h, int ta,
-                                          int tb, const A& a) {
+// The sum of the scratch slots [ta, tb) of kind which, in slot order,
+// handed to put(e, f, float4) a row e and four columns f of EP x KA at a
+// time; every thread keeps its columns' loads of up to 16 slots in flight
+// at once (runs while the block's copies fly).
+template <class A, class Put>
+__device__ __forceinline__ void sum_slots_to(Put put, int which, int b, int h, int ta, int tb,
+                                             const A& a) {
   const float* base = slot(a, which, b, h, 0);
   const size_t tile = (size_t)a.EP * a.KA;
   const int c4 = a.KA / 4;
@@ -455,7 +460,112 @@ __device__ __forceinline__ void sum_slots(float* X, int ld, int which, int b, in
       s.z += y.z;
       s.w += y.w;
     }
-    *reinterpret_cast<float4*>(X + e * ld + f) = s;
+    put(e, f, s);
+  }
+}
+// The same into X (EP x KA f32 at ld).
+template <class A>
+__device__ __forceinline__ void sum_slots(float* X, int ld, int which, int b, int h, int ta,
+                                          int tb, const A& a) {
+  sum_slots_to([&](int e, int f, float4 v) { *reinterpret_cast<float4*>(X + e * ld + f) = v; },
+               which, b, h, ta, tb, a);
+}
+
+// -- planes in shared memory (the long backward) -----------------------------------
+//
+// A tile of f32 values kept as its three bf16 planes, split once as the
+// block loads it: plane p at P + p * ps, row r at r * ld (ld = width +
+// BPAD bf16, an odd number of 16-byte units, so ldmatrix's eight rows of
+// a matrix fall in distinct banks).  Fragments are read by ldmatrix (x4:
+// an A tile, or the B tiles of two neighbouring n-tiles; .trans where the
+// tile is stored k-major), the same bits split2 forms in registers.
+
+constexpr int BPAD = 8;
+
+// v (four values of a row) as three planes at p (plane stride ps).
+__device__ __forceinline__ void st_planes4(bf16* p, int ps, float4 v) {
+  uint32_t h0, m0, l0, h1, m1, l1;
+  split2(v.x, v.y, h0, m0, l0);
+  split2(v.z, v.w, h1, m1, l1);
+  *reinterpret_cast<uint2*>(p) = make_uint2(h0, h1);
+  *reinterpret_cast<uint2*>(p + ps) = make_uint2(m0, m1);
+  *reinterpret_cast<uint2*>(p + 2 * ps) = make_uint2(l0, l1);
+}
+// One value x as three planes at p.
+__device__ __forceinline__ void st_planes1(bf16* p, int ps, float x) {
+  const bf16 hb = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(hb);
+  const bf16 mb = __float2bfloat16_rn(r);
+  p[0] = hb;
+  p[ps] = mb;
+  p[2 * ps] = __float2bfloat16_rn(r - __bfloat162float(mb));
+}
+// Rows [row0, row0 + T) of t, columns [0, width), as planes at P; rows >=
+// S and columns >= E are zeros; each value divided by div[r] where div is
+// given (the backward's dnum = g / (den + eps)).  Four loads in flight a
+// thread.
+template <class A, typename X>
+__device__ __forceinline__ void load_planes(bf16* P, int ld, int ps, const Bhse<X>& t, int b,
+                                            int h, int row0, int width, const float* div,
+                                            const A& a) {
+  constexpr int U = 4;
+  const int c4 = width / 4, total = T * c4;
+  for (int base = threadIdx.x; base < total; base += U * blockDim.x) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * blockDim.x, r = idx / c4, c = (idx % c4) * 4, i = row0 + r;
+      v[u] = idx < total && i < a.S && c < a.E ? ld4(t.at(b, h, i, c))
+                                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * blockDim.x, r = idx / c4, c = (idx % c4) * 4;
+      if (idx >= total) continue;
+      if (div != nullptr) {
+        const float q = div[r];
+        v[u] = make_float4(v[u].x / q, v[u].y / q, v[u].z / q, v[u].w / q);
+      }
+      st_planes4(P + r * ld + c, ps, v[u]);
+    }
+  }
+}
+// A (16 x 16) = X[m][k0 + k] of the planes at row 0.
+__device__ __forceinline__ void pfrag_a(uint32_t (&a)[3][4], const bf16* P, int ld, int ps,
+                                        int k0) {
+  const int l = threadIdx.x & 31;
+  const bf16* q = P + (l & 15) * ld + k0 + (l >> 4) * 8;
+#pragma unroll
+  for (int pl = 0; pl < 3; ++pl) ldmatrix_x4(a[pl], q + pl * ps);
+}
+// B (16 x 8) of n-tiles n0 and n0 + 8 = X[n][k0 + k], X stored n-major, at row n0.
+__device__ __forceinline__ void pfrag_b_rows2(uint32_t (&b0)[3][2], uint32_t (&b1)[3][2],
+                                              const bf16* P, int ld, int ps, int k0) {
+  const int l = threadIdx.x & 31;
+  const bf16* q = P + ((l & 7) + ((l >> 4) << 3)) * ld + k0 + ((l >> 3) & 1) * 8;
+#pragma unroll
+  for (int pl = 0; pl < 3; ++pl) {
+    uint32_t r[4];
+    ldmatrix_x4(r, q + pl * ps);
+    b0[pl][0] = r[0];
+    b0[pl][1] = r[1];
+    b1[pl][0] = r[2];
+    b1[pl][1] = r[3];
+  }
+}
+// B (16 x 8) of n-tiles n0 and n0 + 8 = X[k0 + k][n], X stored k-major, at column n0.
+__device__ __forceinline__ void pfrag_b_cols2(uint32_t (&b0)[3][2], uint32_t (&b1)[3][2],
+                                              const bf16* P, int ld, int ps, int k0) {
+  const int l = threadIdx.x & 31;
+  const bf16* q = P + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + (l >> 4) * 8;
+#pragma unroll
+  for (int pl = 0; pl < 3; ++pl) {
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, q + pl * ps);
+    b0[pl][0] = r[0];
+    b0[pl][1] = r[1];
+    b1[pl][0] = r[2];
+    b1[pl][1] = r[3];
   }
 }
 
@@ -512,38 +622,84 @@ __device__ __forceinline__ void fwd_part(float (&acc)[NA_MAX][4], const float* Q
   }
 }
 
+// The backward's products read their operand tiles through a view: FView,
+// an f32 tile (row stride ld floats) split into planes fragment by
+// fragment in registers (the S <= T pass), or PView, a tile kept as its
+// planes (the long pass, read by ldmatrix).  rows(r) / cols(c) offset a
+// view; B fragments come in pairs of n-tiles (n0, n0 + 8).  Either view
+// gives the same fragments, so the same bits.
+struct FView {
+  const float* p;
+  int ld;
+  __device__ __forceinline__ FView rows(int r) const { return FView{p + r * ld, ld}; }
+  __device__ __forceinline__ FView cols(int c) const { return FView{p + c, ld}; }
+};
+struct PView {
+  const bf16* p;
+  int ld, ps;
+  __device__ __forceinline__ PView rows(int r) const { return PView{p + r * ld, ld, ps}; }
+  __device__ __forceinline__ PView cols(int c) const { return PView{p + c, ld, ps}; }
+};
+__device__ __forceinline__ void frag_a(uint32_t (&a)[3][4], FView v, int k0) {
+  frag_a_rows(a, v.p, v.ld, k0);
+}
+__device__ __forceinline__ void frag_a(uint32_t (&a)[3][4], PView v, int k0) {
+  pfrag_a(a, v.p, v.ld, v.ps, k0);
+}
+// B = X[n][k0 + k], X n-major (rows n0, n0 + 8 of the view).
+__device__ __forceinline__ void frag_b_rows2(uint32_t (&b0)[3][2], uint32_t (&b1)[3][2],
+                                             FView v, int k0) {
+  frag_b_rows(b0, v.p, v.ld, k0);
+  frag_b_rows(b1, v.p + 8 * v.ld, v.ld, k0);
+}
+__device__ __forceinline__ void frag_b_rows2(uint32_t (&b0)[3][2], uint32_t (&b1)[3][2],
+                                             PView v, int k0) {
+  pfrag_b_rows2(b0, b1, v.p, v.ld, v.ps, k0);
+}
+// B = X[k0 + k][n], X k-major (columns n0, n0 + 8 of the view).
+__device__ __forceinline__ void frag_b_cols2(uint32_t (&b0)[3][2], uint32_t (&b1)[3][2],
+                                             FView v, int k0) {
+  frag_b_cols(b0, v.p, v.ld, k0);
+  frag_b_cols(b1, v.p + 8, v.ld, k0);
+}
+__device__ __forceinline__ void frag_b_cols2(uint32_t (&b0)[3][2], uint32_t (&b1)[3][2],
+                                             PView v, int k0) {
+  pfrag_b_cols2(b0, b1, v.p, v.ld, v.ps, k0);
+}
+
 // dq (16 x EP) += tril([dnum | dd] [v | 1]^T) k over the NK keys [key0,
 // key0 + NK) of rows [R0, R0 + 16) when `keys`, plus [dnum | dd] [S | z]^T
 // over the depths [p0, p1) of [dnum | dd]'s columns when Sa is given.
-template <int EC, int NK, class A>
-__device__ __forceinline__ void dq_part(float (&dq)[MAX_E / 8][4], const float* DNw,
-                                        const float* Kc, const float* Vc, bool keys,
-                                        const float* Sa, int p0, int p1, int R0, int key0,
-                                        const A& a) {
+template <int EC, int NK, class V, class A>
+__device__ __forceinline__ void dq_part(float (&dq)[MAX_E / 8][4], V DNw, V Kc, V Vc,
+                                        bool keys, const V* Sa, int p0, int p1, int R0,
+                                        int key0, const A& a) {
   const Dims<EC> d(a);
-  const int lde = d.EP + PAD, lda = d.KA + PAD, ne = d.EP / 8;
+  const int ne = d.EP / 8;
   float m[NK / 8][4];
   zero(m);
 #pragma unroll
   for (int k0 = 0; k0 < MAX_E + 16; k0 += 16) {
     if (k0 >= d.KA) continue;
     uint32_t ad[3][4];
-    frag_a_rows(ad, DNw, lda, k0);
+    frag_a(ad, DNw, k0);
     if (keys) {
 #pragma unroll
-      for (int n = 0; n < NK / 8; ++n) {
-        uint32_t bv[3][2];
-        frag_b_rows(bv, Vc + n * 8 * lda, lda, k0);
-        mma6(m[n], ad, bv);
+      for (int n = 0; n < NK / 8; n += 2) {
+        uint32_t b0[3][2], b1[3][2];
+        frag_b_rows2(b0, b1, Vc.rows(n * 8), k0);
+        mma6(m[n], ad, b0);
+        mma6(m[n + 1], ad, b1);
       }
     }
     if (Sa != nullptr && k0 >= p0 && k0 < p1) {
 #pragma unroll
-      for (int n = 0; n < MAX_E / 8; ++n) {
+      for (int n = 0; n < MAX_E / 8; n += 2) {
         if (n >= ne) continue;
-        uint32_t bs[3][2];
-        frag_b_rows(bs, Sa + n * 8 * lda, lda, k0);
-        mma6(dq[n], ad, bs);
+        uint32_t b0[3][2], b1[3][2];
+        frag_b_rows2(b0, b1, Sa->rows(n * 8), k0);
+        mma6(dq[n], ad, b0);
+        mma6(dq[n + 1], ad, b1);
       }
     }
   }
@@ -554,11 +710,12 @@ __device__ __forceinline__ void dq_part(float (&dq)[MAX_E / 8][4], const float* 
     uint32_t am[3][4];
     frag_a_acc(am, m[2 * ks], m[2 * ks + 1]);
 #pragma unroll
-    for (int n = 0; n < MAX_E / 8; ++n) {
+    for (int n = 0; n < MAX_E / 8; n += 2) {
       if (n >= ne) continue;
-      uint32_t bk[3][2];
-      frag_b_cols(bk, Kc + n * 8, lde, ks * 16);
-      mma6(dq[n], am, bk);
+      uint32_t b0[3][2], b1[3][2];
+      frag_b_cols2(b0, b1, Kc.cols(n * 8), ks * 16);
+      mma6(dq[n], am, b0);
+      mma6(dq[n + 1], am, b1);
     }
   }
 }
@@ -567,35 +724,36 @@ __device__ __forceinline__ void dq_part(float (&dq)[MAX_E / 8][4], const float* 
 // DNc) when `queries`: dk (16 x EP) += triu([v | 1] [dnum | dd]^T) q, plus
 // [v | 1] [G | gz]^T over the depths [p0, p1) of [v | 1]'s columns when G
 // is given.
-template <int EC, int NQ, class A>
-__device__ __forceinline__ void dk_part(float (&dk)[MAX_E / 8][4], const float* Vw,
-                                        const float* Qc, const float* DNc, bool queries,
-                                        const float* G, int p0, int p1, int J0, int q0,
+template <int EC, int NQ, class V, class A>
+__device__ __forceinline__ void dk_part(float (&dk)[MAX_E / 8][4], V Vw, V Qc, V DNc,
+                                        bool queries, const V* G, int p0, int p1, int J0, int q0,
                                         const A& a) {
   const Dims<EC> d(a);
-  const int lde = d.EP + PAD, lda = d.KA + PAD, ne = d.EP / 8;
+  const int ne = d.EP / 8;
   float p[NQ / 8][4];
   zero(p);
 #pragma unroll
   for (int k0 = 0; k0 < MAX_E + 16; k0 += 16) {
     if (k0 >= d.KA) continue;
     uint32_t av[3][4];
-    frag_a_rows(av, Vw, lda, k0);
+    frag_a(av, Vw, k0);
     if (queries) {
 #pragma unroll
-      for (int n = 0; n < NQ / 8; ++n) {
-        uint32_t bd[3][2];
-        frag_b_rows(bd, DNc + n * 8 * lda, lda, k0);
-        mma6(p[n], av, bd);
+      for (int n = 0; n < NQ / 8; n += 2) {
+        uint32_t b0[3][2], b1[3][2];
+        frag_b_rows2(b0, b1, DNc.rows(n * 8), k0);
+        mma6(p[n], av, b0);
+        mma6(p[n + 1], av, b1);
       }
     }
     if (G != nullptr && k0 >= p0 && k0 < p1) {
 #pragma unroll
-      for (int n = 0; n < MAX_E / 8; ++n) {
+      for (int n = 0; n < MAX_E / 8; n += 2) {
         if (n >= ne) continue;
-        uint32_t bg[3][2];
-        frag_b_rows(bg, G + n * 8 * lda, lda, k0);
-        mma6(dk[n], av, bg);
+        uint32_t b0[3][2], b1[3][2];
+        frag_b_rows2(b0, b1, G->rows(n * 8), k0);
+        mma6(dk[n], av, b0);
+        mma6(dk[n + 1], av, b1);
       }
     }
   }
@@ -606,46 +764,48 @@ __device__ __forceinline__ void dk_part(float (&dk)[MAX_E / 8][4], const float* 
     uint32_t ap[3][4];
     frag_a_acc(ap, p[2 * ks], p[2 * ks + 1]);
 #pragma unroll
-    for (int n = 0; n < MAX_E / 8; ++n) {
+    for (int n = 0; n < MAX_E / 8; n += 2) {
       if (n >= ne) continue;
-      uint32_t bq[3][2];
-      frag_b_cols(bq, Qc + ks * 16 * lde + n * 8, lde, 0);
-      mma6(dk[n], ap, bq);
+      uint32_t b0[3][2], b1[3][2];
+      frag_b_cols2(b0, b1, Qc.cols(n * 8), ks * 16);
+      mma6(dk[n], ap, b0);
+      mma6(dk[n + 1], ap, b1);
     }
   }
 }
 
 // The same keys and queries: dv (16 x EP) += triu(k q^T) dnum, plus k G
 // over the depths [p0, p1) of k's columns when G is given.
-template <int EC, int NQ, class A>
-__device__ __forceinline__ void dv_part(float (&dv)[MAX_E / 8][4], const float* Kw,
-                                        const float* Qc, const float* DNc, bool queries,
-                                        const float* G, int p0, int p1, int J0, int q0,
+template <int EC, int NQ, class V, class A>
+__device__ __forceinline__ void dv_part(float (&dv)[MAX_E / 8][4], V Kw, V Qc, V DNc,
+                                        bool queries, const V* G, int p0, int p1, int J0, int q0,
                                         const A& a) {
   const Dims<EC> d(a);
-  const int lde = d.EP + PAD, lda = d.KA + PAD, ne = d.EP / 8;
+  const int ne = d.EP / 8;
   float p[NQ / 8][4];
   zero(p);
 #pragma unroll
   for (int k0 = 0; k0 < MAX_E; k0 += 16) {
     if (k0 >= d.EP) continue;
     uint32_t ak[3][4];
-    frag_a_rows(ak, Kw, lde, k0);
+    frag_a(ak, Kw, k0);
     if (queries) {
 #pragma unroll
-      for (int n = 0; n < NQ / 8; ++n) {
-        uint32_t bq[3][2];
-        frag_b_rows(bq, Qc + n * 8 * lde, lde, k0);
-        mma6(p[n], ak, bq);
+      for (int n = 0; n < NQ / 8; n += 2) {
+        uint32_t b0[3][2], b1[3][2];
+        frag_b_rows2(b0, b1, Qc.rows(n * 8), k0);
+        mma6(p[n], ak, b0);
+        mma6(p[n + 1], ak, b1);
       }
     }
     if (G != nullptr && k0 >= p0 && k0 < p1) {
 #pragma unroll
-      for (int n = 0; n < MAX_E / 8; ++n) {
+      for (int n = 0; n < MAX_E / 8; n += 2) {
         if (n >= ne) continue;
-        uint32_t bg[3][2];
-        frag_b_cols(bg, G + n * 8, lda, k0);
-        mma6(dv[n], ak, bg);
+        uint32_t b0[3][2], b1[3][2];
+        frag_b_cols2(b0, b1, G->cols(n * 8), k0);
+        mma6(dv[n], ak, b0);
+        mma6(dv[n + 1], ak, b1);
       }
     }
   }
@@ -656,11 +816,12 @@ __device__ __forceinline__ void dv_part(float (&dv)[MAX_E / 8][4], const float* 
     uint32_t ap[3][4];
     frag_a_acc(ap, p[2 * ks], p[2 * ks + 1]);
 #pragma unroll
-    for (int n = 0; n < MAX_E / 8; ++n) {
+    for (int n = 0; n < MAX_E / 8; n += 2) {
       if (n >= ne) continue;
-      uint32_t bd[3][2];
-      frag_b_cols(bd, DNc + ks * 16 * lda + n * 8, lda, 0);
-      mma6(dv[n], ap, bd);
+      uint32_t b0[3][2], b1[3][2];
+      frag_b_cols2(b0, b1, DNc.cols(n * 8), ks * 16);
+      mma6(dv[n], ap, b0);
+      mma6(dv[n + 1], ap, b1);
     }
   }
 }
@@ -819,8 +980,9 @@ __global__ void __launch_bounds__(128) cp_bwd_short_kernel(A a) {
     form_dnum(DN, lda, dd, dd + 16, r0, 16, a);
     __syncthreads();
     if (w <= r)
-      dq_part<EC, 16>(d0, DN, K + 16 * w * lde, V + 16 * w * lda, true, nullptr, 0, 0, r0,
-                      16 * w, a);
+      dq_part<EC, 16>(d0, FView{DN, lda}, FView{K, lde}.rows(16 * w),
+                      FView{V, lda}.rows(16 * w), true, (const FView*)nullptr, 0, 0, r0, 16 * w,
+                      a);
     __syncthreads();
     put_acc(red + w * 16 * lde, lde, d0, ne);
     __syncthreads();
@@ -845,11 +1007,12 @@ __global__ void __launch_bounds__(128) cp_bwd_short_kernel(A a) {
     form_dnum(DN, lda, dd, dd + T, r0, nq, a);
     __syncthreads();
     const bool on = w >= r && w < nw;
-    const float* Qc = Q + (16 * w - r0) * lde;
-    const float* DNc = DN + (16 * w - r0) * lda;
+    const FView Qc = FView{Q, lde}.rows(16 * w - r0), DNc = FView{DN, lda}.rows(16 * w - r0);
     if (on) {
-      dk_part<EC, 16>(d0, V, Qc, DNc, true, nullptr, 0, 0, r0, 16 * w, a);
-      dv_part<EC, 16>(d1, K, Qc, DNc, true, nullptr, 0, 0, r0, 16 * w, a);
+      dk_part<EC, 16>(d0, FView{V, lda}, Qc, DNc, true, (const FView*)nullptr, 0, 0, r0, 16 * w,
+                      a);
+      dv_part<EC, 16>(d1, FView{K, lde}, Qc, DNc, true, (const FView*)nullptr, 0, 0, r0, 16 * w,
+                      a);
     }
     __syncthreads();
     put_acc(red + w * 16 * lde, lde, d0, ne);
@@ -867,53 +1030,60 @@ __global__ void __launch_bounds__(128) cp_bwd_short_kernel(A a) {
 // other side's rows (skipped where the mask keeps none) and of the depths
 // of the state product; the halves' sums meet in shared memory.  Role 0:
 // d phi(q) from the tile's keys and the prefix (S, z); role 1: d phi(k),
-// dv from the tile's queries and the suffix (G, gz).
+// dv from the tile's queries and the suffix (G, gz).  Every operand tile
+// is split into its planes once, as it is loaded (153 KB at E = 64: one
+// block an SM), and read by ldmatrix.
 template <int EC, class A>
-__global__ void __launch_bounds__(256, 2) cp_bwd_long_kernel(A a) {
+__global__ void __launch_bounds__(256, 1) cp_bwd_long_kernel(A a) {
   extern __shared__ __align__(16) float sm[];
   const Dims<EC> d(a);
   const int role = blockIdx.x & 1, tile = blockIdx.x >> 1, t0 = tile * T;
   const int h = blockIdx.y, b = blockIdx.z, w = threadIdx.x >> 5, rg = w & 3, hf = w >> 2;
-  const int lde = d.EP + PAD, lda = d.KA + PAD, R0 = t0 + 16 * rg, c0 = t0 + 32 * hf;
-  float* dd = sm;                    // 64, and den + eps 64
-  float* DN = dd + 2 * T;            // 64 x KA
-  float* K = DN + T * lda;           // 64 x EP
-  float* V = K + T * lde;            // 64 x KA
-  float* Q = V + T * lda;            // 64 x EP (role 1)
-  float* Sa = Q + T * lde;           // EP x KA: [S | z] before, or [G | gz] after
-  float* red = DN;                   // after the products: 2 x 2 x 64 x EP
+  const int lde = d.EP + PAD, R0 = t0 + 16 * rg, c0 = t0 + 32 * hf;
+  const int se = d.EP + BPAD, sa = d.KA + BPAD, pe = T * se, pa = T * sa, ps = d.EP * sa;
+  float* dd = sm;                              // 64, and den + eps 64
+  bf16* DN = reinterpret_cast<bf16*>(dd + 2 * T);   // planes: 64 x KA
+  bf16* K = DN + 3 * pa;                       // 64 x EP
+  bf16* V = K + 3 * pe;                        // 64 x KA
+  bf16* Q = V + 3 * pa;                        // 64 x EP (role 1)
+  bf16* Sa = Q + 3 * pe;                       // EP x KA: [S | z] before, or [G | gz] after
+  float* red = dd + 2 * T;                     // after the products: 2 x 2 x 64 x EP f32
   const bool more = role == 0 ? tile > 0 : tile < a.NT - 1;
-  load_rows(DN, lda, a.g, b, h, t0, T, d.KA, a);
-  load_rows(K, lde, a.k, b, h, t0, T, d.EP, a);
-  load_rows(V, lda, a.v, b, h, t0, T, d.KA, a);
-  if (role == 1) load_rows(Q, lde, a.q, b, h, t0, T, d.EP, a);
-  cp_async_commit();
+  form_dd(dd, dd + T, b, h, t0, T, a);
+  load_planes(K, se, pe, a.k, b, h, t0, d.EP, nullptr, a);
+  load_planes(V, sa, pa, a.v, b, h, t0, d.KA, nullptr, a);
+  if (role == 1) load_planes(Q, se, pe, a.q, b, h, t0, d.EP, nullptr, a);
   if (more) {
+    const auto put = [&](int e, int f, float4 v) { st_planes4(Sa + e * sa + f, ps, v); };
     if (role == 0) {
-      sum_slots(Sa, lda, 0, b, h, 0, tile, a);
+      sum_slots_to(put, 0, b, h, 0, tile, a);
     } else {
-      sum_slots(Sa, lda, 1, b, h, tile + 1, a.NT, a);
+      sum_slots_to(put, 1, b, h, tile + 1, a.NT, a);
     }
   }
-  form_dd(dd, dd + T, b, h, t0, T, a);
-  cp_async_wait<0>();
   __syncthreads();
-  set_ones(V, lda, t0, T, a);
-  form_dnum(DN, lda, dd, dd + T, t0, T, a);
+  load_planes(DN, sa, pa, a.g, b, h, t0, d.KA, dd + T, a);   // dnum = g / (den + eps)
+  __syncthreads();                                             // its zeros past E written
+  for (int r = threadIdx.x; r < T; r += blockDim.x) {          // the ones and dd columns
+    const bool ok = t0 + r < a.S;
+    st_planes1(V + r * sa + a.E, pa, ok ? 1.f : 0.f);
+    st_planes1(DN + r * sa + a.E, pa, ok ? dd[r] : 0.f);
+  }
   __syncthreads();
-  const int ne = d.EP / 8, pa = d.KA / 32 * 16 + (d.KA % 32), pe = d.EP / 32 * 16;
+  const int ne = d.EP / 8, pka = d.KA / 32 * 16 + (d.KA % 32), pke = d.EP / 32 * 16;
+  const PView vDN{DN, sa, pa}, vK{K, se, pe}, vV{V, sa, pa}, vQ{Q, se, pe}, vS{Sa, sa, ps};
   float d0[MAX_E / 8][4], d1[MAX_E / 8][4];
   zero(d0);
   zero(d1);
   if (role == 0) {
-    dq_part<EC, 32>(d0, DN + 16 * rg * lda, K + 32 * hf * lde, V + 32 * hf * lda, c0 <= R0 + 15,
-                    more ? Sa : nullptr, hf ? pa : 0, hf ? d.KA : pa, R0, c0, a);
+    dq_part<EC, 32>(d0, vDN.rows(16 * rg), vK.rows(32 * hf), vV.rows(32 * hf), c0 <= R0 + 15,
+                    more ? &vS : nullptr, hf ? pka : 0, hf ? d.KA : pka, R0, c0, a);
   } else {
     const bool on = c0 + 31 >= R0;
-    dk_part<EC, 32>(d0, V + 16 * rg * lda, Q + 32 * hf * lde, DN + 32 * hf * lda, on,
-                    more ? Sa : nullptr, hf ? pa : 0, hf ? d.KA : pa, R0, c0, a);
-    dv_part<EC, 32>(d1, K + 16 * rg * lde, Q + 32 * hf * lde, DN + 32 * hf * lda, on,
-                    more ? Sa : nullptr, hf ? pe : 0, hf ? d.EP : pe, R0, c0, a);
+    dk_part<EC, 32>(d0, vV.rows(16 * rg), vQ.rows(32 * hf), vDN.rows(32 * hf), on,
+                    more ? &vS : nullptr, hf ? pka : 0, hf ? d.KA : pka, R0, c0, a);
+    dv_part<EC, 32>(d1, vK.rows(16 * rg), vQ.rows(32 * hf), vDN.rows(32 * hf), on,
+                    more ? &vS : nullptr, hf ? pke : 0, hf ? d.EP : pke, R0, c0, a);
   }
   __syncthreads();
   put_acc(red + (hf * T + 16 * rg) * lde, lde, d0, ne);
@@ -939,9 +1109,11 @@ inline size_t fwd_smem(bool lng, int EP, int KA) {
 }
 inline size_t bwd_smem(bool lng, int EP, int KA) {
   const size_t lde = EP + PAD, lda = KA + PAD;
-  if (lng)
-    return sizeof(float) * (2 * T + std::max(2 * T * lda + 2 * T * lde, 4 * T * lde) +
-                            EP * lda);
+  if (lng)       // the planes of DN, K, V, Q, [S | z], or the partial sums
+    return sizeof(float) * 2 * T +
+           std::max(sizeof(bf16) * 3 * (2 * T * (KA + BPAD) + 2 * T * (EP + BPAD) +
+                                        EP * (KA + BPAD)),
+                    sizeof(float) * 4 * T * lde);
   const size_t dq = 32 + std::max(16 * lda + T * lde + T * lda, 4 * 16 * lde);
   const size_t dkv = 2 * T + std::max(16 * (lde + lda) + T * (lde + lda), 8 * 16 * lde);
   return sizeof(float) * std::max(dq, dkv);

@@ -15,8 +15,9 @@
 //     tensor cores and added to the running sum in registers by an f32 add.
 // Operands reach the tile as bf16 planes in device memory, K contiguous:
 // a bf16 h is its own plane; an f32 h and the weights (transposed to
-// (N, K)) are split by one pass a call each (split_rows_kernel,
-// split_cols_kernel: the weights' planes are not kept across calls).
+// (N, K)) are split by one pass a call each (train_split.cuh's
+// split_kernel, split_cols_kernel: the weights' planes are not kept
+// across calls).
 //
 // The tile.  A block of two warpgroups owns 128 x 128 of C, each
 // warpgroup 64 rows, its sums in registers (64 floats a thread; a second
@@ -43,6 +44,7 @@
 
 #include "decode_layers.cuh"
 #include "tc_mma.cuh"
+#include "train_split.cuh"
 
 namespace rlmg {
 namespace wg {
@@ -258,28 +260,6 @@ wg_gemm_kernel(const __grid_constant__ Maps tm, int M, int N, int K, Epi<T> e) {
   }
 }
 
-// x (n values, a multiple of 8) into its three bf16 planes, same layout;
-// 8 values a thread, 16-byte stores.
-__global__ void split_rows_kernel(const float* __restrict__ x, bf16* __restrict__ hi,
-                                  bf16* __restrict__ mid, bf16* __restrict__ lo, size_t n) {
-  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
-  if (i >= n) return;
-  const float4 v0 = *reinterpret_cast<const float4*>(x + i);
-  const float4 v1 = *reinterpret_cast<const float4*>(x + i + 4);
-  const float a[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-  __align__(16) bf16 h[8], m[8], l[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    h[j] = __float2bfloat16_rn(a[j]);
-    const float r = a[j] - __bfloat162float(h[j]);
-    m[j] = __float2bfloat16_rn(r);
-    l[j] = __float2bfloat16_rn(r - __bfloat162float(m[j]));
-  }
-  *reinterpret_cast<uint4*>(hi + i) = *reinterpret_cast<const uint4*>(h);
-  *reinterpret_cast<uint4*>(mid + i) = *reinterpret_cast<const uint4*>(m);
-  *reinterpret_cast<uint4*>(lo + i) = *reinterpret_cast<const uint4*>(l);
-}
-
 // w (K, N) row-major in T into the planes of w^T (N, K): PL of them (one,
 // the bf16 value, for bf16 weights).  32 x 32 tiles through shared memory.
 template <typename T, int PL>
@@ -361,9 +341,12 @@ int gemm(const T* a, const T* w, int M, int N, int K, const Epi<T>& e, bf16* pla
   const bf16* ap[3] = {reinterpret_cast<const bf16*>(a), nullptr, nullptr};
   if constexpr (PL == 3) {
     const size_t ha = (size_t)M * K;
-    split_rows_kernel<<<(unsigned)((ha / 8 + 255) / 256), 256, 0, st>>>(
-        reinterpret_cast<const float*>(a), planes, planes + ha, planes + 2 * ha, ha);
-    for (int pl = 0; pl < 3; ++pl) ap[pl] = planes + pl * ha;
+    if (ha > 0x7fffffff) return (int)cudaErrorInvalidValue;    // split_kernel's int index
+    SplitJobs jobs;
+    jobs.job[0] = SplitJob{reinterpret_cast<const float*>(a), {}, (int)ha};
+    for (int pl = 0; pl < 3; ++pl) ap[pl] = jobs.job[0].planes.p[pl] = planes + pl * ha;
+    jobs.count = 1;
+    split_kernel<<<dim3((unsigned)((ha / 4 + 255) / 256), 1), 256, 0, st>>>(jobs);
     planes += 3 * ha;
   }
   split_cols_kernel<T, PL><<<dim3((N + 31) / 32, (K + 31) / 32), dim3(32, 8), 0, st>>>(

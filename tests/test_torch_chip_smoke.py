@@ -186,3 +186,27 @@ def test_qkv_attention_work_splits_projection_and_attention(smoke, elem):
     den = 4 * n * h
     assert w["attn_fwd"][1] - den == (w32["attn_fwd"][1] - den) * elem // 4
     assert w["proj"][1] == w32["proj"][1] * elem // 4
+
+
+def _readings(kernel, control, finite=True, dtype=True):
+    return {name: {"kernel": kernel, "control": control, "finite": finite, "dtype": dtype}
+            for name in ("att", "dh", "dWqkv", "dbqkv")}
+
+
+@pytest.mark.parametrize("kernel,control,finite,dtype,refused", [
+    ((0.0, 0.0), (5e-3, 1e-3), True, True, False),        # rounding flips only: passes
+    ((1e-2, 0.0), (5e-3, 1e-3), True, True, True),        # a max share above BF16_TOL
+    ((1e-3, 1e-3), (5e-3, 1e-3), True, True, True),       # the fault's mean share
+    ((0.0, 0.0), (5e-3, 1e-9), True, True, True),         # a control that sees nothing
+    ((0.0, 0.0), (5e-3, 1e-3), False, True, True),        # not finite
+    ((0.0, 0.0), (5e-3, 1e-3), True, False, True),        # not in the inputs' type
+])
+def test_qkv_bf16_gate_refuses_the_fault_and_a_blind_control(smoke, kernel, control, finite,
+                                                              dtype, refused):
+    """Kernel C's bf16 gate: every tensor within C_BF16_GATES, and the
+    rounded-residual control above the mean limit, or the gate reports it
+    (one message a tensor)."""
+    bad = smoke.qkv_bf16_gate_failures(_readings(kernel, control, finite, dtype))
+    assert len(bad) == (4 if refused else 0), bad
+    for name, (g_max, g_mean) in smoke.C_BF16_GATES.items():
+        assert g_max <= smoke.BF16_TOL and 0 < g_mean < 1e-3, name
