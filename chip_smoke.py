@@ -237,7 +237,30 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      products a product), the f32 FMA bound beside; kernel F at the
      rollout, DQN-update and pretrain shapes through the wrapper, on the
      card alone (profiler) and back to back (the host's pace), bounded at
-     989/6 TFLOP/s with the f32 FMA bound beside.
+     989/6 TFLOP/s with the f32 FMA bound beside;
+ 31. the continuous batcher (``generate/serving.py``, kernel A, one CUDA
+     graph replay a step) at agent_config: 24 songs of 8 bars on 8 slots,
+     f32 weights (``serve``'s default) and bf16 (``generate``'s): the
+     graphed loop's songs, steps and songs_done equal the eager loop's on
+     the same generator; every song has 8 bars and starts with CP_SEED;
+     every slot refilled at least once; each refilled slot's (s, z) rows
+     equal those of its song teacher-forced from a zero state through
+     kernel A in the slot's row of a batch of 8 (within 1e-3 of their
+     magnitude; bit-equality printed, and the share alone at batch 1);
+     kernel A's runs, as the kernel counts them, equal the replays plus the
+     eager calls; prints tokens/s, the steps against synchronous batching of
+     the same 24 songs (and generate_songs run in three batches of 8) and
+     the refill's share of a replay;
+ 32. ``apps/cli.py generate --continuous`` (24 songs, 8 slots, 8 bars) and
+     ``generate --prompt`` on a MIDI file written from a generated song at
+     5 songs (kernel A) and 128 (kernel B), the prompt taking the parallel
+     prefill: the MIDI files, every prompted song starting with the prompt
+     with the bars asked, and the path's kernel launched;
+ 33. ``apps/cli.py serve`` on a request file (an unconditional request, a
+     prompt request, one without an id, a shutdown line): responses.jsonl,
+     the MIDI files and the journal; then a request appended after the
+     shutdown and the daemon restarted on the same file serves only it;
+     prints the requests served a second.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -254,6 +277,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -1564,6 +1588,298 @@ def aug_slice(cfg, params, dev, gen) -> list:
     return entries
 
 
+def slot_state_alone(dk4, lt, cm, params, cfg, dev, tokens, b=1, row=0):
+    """(s, z) of one song's tokens (T, n_fields) teacher-forced from a zero
+    state through kernel A at positions 0 .. T-1, in row ``row`` of a batch
+    of b whose other rows take the song's first token each step (kernel A
+    forms each row alone, but the batch can change its summation order)."""
+    st = dk4.init_state(cfg, b, device=dev)
+    dparams = lt.make_decode_params(params, cfg)
+    work = dk4.workspace(dparams, b) if dev.type == "cuda" else None
+    pe = cm.sinusoidal_table(cfg.max_len, cfg.d_model, params["in_linear"]["w"].dtype, dev)
+    feed = tokens[:1].expand(b, -1).clone()
+    for pos in range(tokens.shape[0]):
+        feed[row] = tokens[pos]
+        x = lt.embed_input(params, cfg, feed, pos, pe)
+        dk4.fused_stack_step(dparams, x.float(), st.s, st.z, n_head=cfg.n_head,
+                             eps=cfg.attn_eps, work=work)
+    return st.s[:, row], st.z[:, row]
+
+
+def refilled_slot_errors(dk4, lt, cm, params, cfg, dev, loop, toks, fin):
+    """Each slot that was refilled, against its song decoded from a fresh
+    state: the tokens since its last finish (after the init token)
+    teacher-forced through kernel A from a zero state, in the slot's row of
+    a batch of the loop's size, and alone at batch 1.  toks (T, B, nf) and
+    fin (T, B) are every step the loop ran, so its state is the one after
+    step T - 1.  Returns [(slot, share of magnitude at the loop's batch,
+    bit-equal there, share of magnitude at batch 1)]."""
+    out = []
+    b = fin.shape[1]
+
+    def share(s, z, k):
+        return max(max_err(loop.s[:, k], s) / magnitude(s),
+                   max_err(loop.z[:, k], z) / magnitude(z))
+    for k in range(b):
+        hits = torch.nonzero(fin[:, k]).flatten()
+        if len(hits) == 0:
+            continue
+        last = int(hits[-1])
+        seq = torch.cat([loop.tok0[k:k + 1], toks[last + 1:, k].to(dev)])
+        s, z = slot_state_alone(dk4, lt, cm, params, cfg, dev, seq, b, k)
+        s1, z1 = slot_state_alone(dk4, lt, cm, params, cfg, dev, seq)
+        out.append((k, share(s, z, k),
+                    bool(torch.equal(loop.s[:, k], s) and torch.equal(loop.z[:, k], z)),
+                    share(s1, z1, k)))
+    return out
+
+
+def serving_slice(cfg, params, dev) -> dict:
+    """Phases 31-33: the continuous batcher on kernel A against its eager
+    loop and its slots against songs decoded alone; ``cli generate
+    --continuous`` and ``--prompt``; the ``serve`` daemon and its restart.
+    Returns the kernels' runs on these paths and the serving figures."""
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.apps import cli
+    from reinforcement_learning_in_music_generation_torch.data import tokenizer
+    from reinforcement_learning_in_music_generation_torch.generate import sampler, serving
+    from reinforcement_learning_in_music_generation_torch.models import (
+        common as cm, linear_transformer as lt)
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        decode_kernel_v4 as dk4, decode_kernel_v6 as dk6, sampling as smp)
+    f32, bf16 = torch.float32, torch.bfloat16
+    gsc = serving.generate_songs_continuous
+    n_songs, bars, batch, per_song = 24, 8, 8, 512
+    kw = dict(n_songs=n_songs, bar_cond=bars, batch=batch, max_tokens_per_song=per_song)
+    max_steps = -(-((-(-n_songs // batch) + 1) * per_song) // 1024) * 1024
+    seed_row = torch.tensor(sampler.CP_SEED, dtype=torch.int32)
+    record, serve_loop = {}, serving._serve_loop
+
+    def recording(*a, **k):
+        out = serve_loop(*a, **k)
+        record.update(toks=torch.as_tensor(out[0]), fin=torch.as_tensor(out[1]))
+        return out
+    serving._serve_loop = recording
+
+    def generator(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    # -- 31. the continuous batcher: graphed against eager, slots against alone
+    figures, runs_serve = {}, 0
+    try:
+        for wname, wdt in (("float32", f32), ("bfloat16", bf16)):
+            p_ = lt.cast_params(params, wdt)
+            eager = gsc(p_, cfg, generator(31), graph=False, **kw)
+            c0, r0 = gsc.graph_captures, gsc.graph_replays
+            graphed = gsc(p_, cfg, generator(31), **kw)           # captures the step
+            check(gsc.graph_captures == c0 + 1, f"serve loop ({wname}): no capture")
+            check((graphed.steps, graphed.songs_done) == (eager.steps, eager.songs_done)
+                  and len(graphed.songs) == len(eager.songs) == n_songs
+                  and all(np.array_equal(a, b) for a, b in zip(graphed.songs, eager.songs)),
+                  f"serve loop ({wname}): the graphed loop's songs differ from the eager loop's "
+                  f"(steps {graphed.steps} / {eager.steps})")
+            for song in graphed.songs:
+                check(int((song[:, 2] == 1).sum()) == bars
+                      and np.array_equal(song[0], seed_row.numpy()),
+                      f"serve loop ({wname}): a song without {bars} bars or the CP seed")
+            fin, toks = record["fin"], record["toks"]
+            refilled = fin[:graphed.steps].any(0)
+            check(bool(refilled.all()), f"serve loop ({wname}): slots never refilled: "
+                                        f"{torch.nonzero(~refilled).flatten().tolist()}")
+            c0 = gsc.graph_captures
+            loop = serving._graphed_loop(p_, cfg, batch, max_steps, smp.CP_SAMPLING, 2, 1)
+            check(gsc.graph_captures == c0, f"serve loop ({wname}): the loop is not cached")
+            errs = refilled_slot_errors(dk4, lt, cm, p_, cfg, dev, loop, toks, fin)
+            worst = max(e[1] for e in errs)
+            print(f"[serve] {wname} weights: {len(errs)} refilled slots against their songs "
+                  f"from a fresh state through kernel A at batch {batch}: largest share of "
+                  f"magnitude {worst:.3e}, {sum(e[2] for e in errs)} of {len(errs)} "
+                  f"bit-equal; at batch 1 (another summation order in kernel A): "
+                  f"{max(e[3] for e in errs):.3e}", flush=True)
+            check(len(errs) == batch and worst <= 1e-3,
+                  f"serve loop ({wname}): a refilled slot's state is not a fresh one's "
+                  f"({worst:.3e} of its magnitude)")
+            # a warm request on a new seed, timed; kernel A's runs as it counts them
+            torch.cuda.synchronize()
+            dk4.kernel_runs(reset=True)
+            eager0, r0, ran0 = dk4.fused_stack_step.launches, gsc.graph_replays, gsc.steps_run
+            t = time.perf_counter()
+            warm = gsc(p_, cfg, generator(32), **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            runs = dk4.kernel_runs()
+            replays, eager_n = gsc.graph_replays - r0, dk4.fused_stack_step.launches - eager0
+            ran = gsc.steps_run - ran0
+            check(runs == replays + eager_n and replays == ran > 0,
+                  f"serve loop ({wname}): kernel A ran {runs} times for {replays} replays and "
+                  f"{eager_n} eager calls")
+            runs_serve += runs
+            tokens = sum(len(x) for x in warm.songs)
+            # synchronous batching of the same songs: waves of 8 in completion
+            # order, each as long as its longest song; and generate_songs
+            # itself in three batches of 8
+            lens = [len(x) - 1 for x in warm.songs]
+            sync_steps = sum(max(lens[i:i + batch]) for i in range(0, n_songs, batch))
+            gcfg = C.GenerateConfig(n_songs=batch, bar_production=bars, max_tokens=per_song,
+                                    batch_size=batch)
+            sampler.generate_songs(p_, cfg, gcfg, generator=generator(33))      # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sync_songs = []
+            for i in range(n_songs // batch):
+                sync_songs += sampler.generate_songs(p_, cfg, gcfg, generator=generator(34 + i))
+            torch.cuda.synchronize()
+            sync_sec = time.perf_counter() - t
+            sync_run_steps = sum(max(len(x) - 1 for x in sync_songs[i:i + batch])
+                                 for i in range(0, n_songs, batch))
+            sync_tokens = sum(len(x) for x in sync_songs)
+            # the refill's share of a step: the refill alone captured on the
+            # loop's buffers, against a replay of the whole step
+            mask = torch.zeros(batch, dtype=torch.bool, device=dev)
+            mask[::3] = True
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            refill_graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                loop.refill(mask)
+                refill_graph.capture_begin()
+                loop.refill(mask)
+                refill_graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            reps = 200
+            loop.t.zero_()
+            step_ms = time_ms(loop.graph.replay, reps, warmup=0)
+            refill_ms = time_ms(refill_graph.replay, reps)
+            del refill_graph
+            figures[wname] = dict(
+                tokens=tokens, seconds=sec, tokens_per_s=tokens / sec, steps=warm.steps,
+                steps_run=ran, songs_done=warm.songs_done, sync_steps_same_songs=sync_steps,
+                generate_songs_steps=sync_run_steps, generate_songs_tokens=sync_tokens,
+                generate_songs_seconds=sync_sec, generate_songs_tokens_per_s=sync_tokens / sync_sec,
+                step_ms=step_ms, refill_ms=refill_ms, refill_share=refill_ms / step_ms,
+                kernel_a_runs=runs, replays=replays, eager_calls=eager_n,
+                state_share=worst, bit_equal_slots=sum(e[2] for e in errs),
+                state_share_batch1=max(e[3] for e in errs))
+            f = figures[wname]
+            print(f"[serve] {wname} weights, {n_songs} songs of {bars} bars on {batch} slots: "
+                  f"{tokens} tokens in {sec:.3f}s = {f['tokens_per_s']:.1f} tokens/s; "
+                  f"{warm.steps} decode steps ({ran} run, the host checking the stop every "
+                  f"{sampler.STOP_CHECK_EVERY}) against {sync_steps} for synchronous batches of "
+                  f"the same songs; generate_songs in 3 batches of {batch}: {sync_run_steps} "
+                  f"steps, {f['generate_songs_tokens_per_s']:.1f} tokens/s; a replayed step "
+                  f"{step_ms:.4f} ms, the refill alone {refill_ms:.4f} ms = "
+                  f"{f['refill_share']:.1%} of it; kernel A ran {runs} times ({replays} replays, "
+                  f"{eager_n} eager)", flush=True)
+    finally:
+        serving._serve_loop = serve_loop
+
+    # -- 32. cli generate --continuous and --prompt ---------------------------
+    written, write = [], tokenizer.write_midi_cp
+
+    def recording_write(song, path, w2e):
+        written.append(np.asarray(song).copy())
+        return write(song, path, w2e)
+    runs_prompt = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cont")
+        dk4.kernel_runs(reset=True)
+        res = cli.main(["generate", "--continuous", "--songs", str(n_songs),
+                        "--continuous-batch", str(batch), "--bars", str(bars), "--max-tokens",
+                        str(per_song), "--out-dir", out])
+        a_runs = dk4.kernel_runs()
+        for i in range(n_songs):
+            with open(os.path.join(out, f"get_{i}.mid"), "rb") as fh:
+                check(fh.read(4) == b"MThd", f"generate --continuous: get_{i}.mid is not a MIDI")
+        check(res["songs"] == n_songs and a_runs > 0,
+              f"generate --continuous: {res['songs']} songs, kernel A ran {a_runs} times")
+        print(f"[generate --continuous] {n_songs} songs on {batch} slots: {res['tokens']} tokens "
+              f"in {res['seconds']:.3f}s = {res['tokens_per_s']:.1f} tokens/s, {res['steps']} "
+              f"steps; kernel A ran {a_runs} times", flush=True)
+        runs_prompt["continuous_cli"] = a_runs
+        prompt = os.path.join(tmp, "prompt.mid")
+        longest = max(graphed.songs, key=len)
+        tokenizer.write_midi_cp(longest, prompt, tokenizer.drop_type(
+            tokenizer.construct_cp_dict())[1])
+        rows = cli._prompt_rows(prompt)
+        n_rows = min(len(rows), 48)
+        p_bars = int((rows[:n_rows, 2] == 1).sum())
+        check(n_rows >= 16, f"generate --prompt: the prompt has {n_rows} rows, fewer than the "
+                            "prefill's 16")
+        tokenizer.write_midi_cp = recording_write
+        try:
+            for songs, name in ((5, "A"), (128, "B")):
+                written.clear()
+                dk4.kernel_runs(reset=True)
+                dk6.reset_counts()
+                out = os.path.join(tmp, f"prompt{songs}")
+                res = cli.main(["generate", "--songs", str(songs), "--bars", str(p_bars + 4),
+                                "--max-tokens", "256", "--prompt", prompt, "--prompt-tokens",
+                                str(n_rows), "--out-dir", out])
+                n = dk4.kernel_runs() if name == "A" else dk6.fused_decode_v6.tc_calls
+                runs_prompt[name] = n
+                check(len(written) == songs == res["songs"] and n > 0,
+                      f"generate --prompt, {songs} songs: kernel {name} ran {n} times")
+                for song in written:
+                    check(np.array_equal(song[:n_rows], rows[:n_rows])
+                          and int((song[:, 2] == 1).sum()) == p_bars + 4,
+                          f"generate --prompt, {songs} songs: a song without the prompt or "
+                          f"{p_bars + 4} bars")
+                print(f"[generate --prompt] {n_rows} prompt rows ({p_bars} bars), {songs} "
+                      f"songs of {p_bars + 4} bars: {res['tokens']} tokens in "
+                      f"{res['seconds']:.3f}s = {res['tokens_per_s']:.1f} tokens/s; kernel "
+                      f"{name} ran {n} times", flush=True)
+        finally:
+            tokenizer.write_midi_cp = write
+
+        # -- 33. cli serve, and a restart after its shutdown -----------------
+        reqs = os.path.join(tmp, "requests.jsonl")
+        served_dir = os.path.join(tmp, "served")
+        lines = [{"id": "u", "songs": 3, "bars": 4, "seed": 1},
+                 {"id": "p", "songs": 2, "bars": p_bars + 2, "prompt": prompt, "seed": 2},
+                 {"songs": 2, "bars": 2}, {"cmd": "shutdown"}]
+        with open(reqs, "w") as fh:
+            fh.write("".join(json.dumps(x) + "\n" for x in lines))
+        args = ["serve", "--requests", reqs, "--out-dir", served_dir, "--batch", str(batch),
+                "--max-tokens", str(per_song), "--poll", "0.05"]
+        dk4.kernel_runs(reset=True)
+        res = cli.main(args)
+        a_runs = dk4.kernel_runs()
+        with open(os.path.join(served_dir, "responses.jsonl")) as fh:
+            resp = [json.loads(x) for x in fh.read().splitlines() if x]
+        check(res["served"] == 3 and [(r["id"], r["songs"]) for r in resp]
+              == [("u", 3), ("p", 2), ("req", 2)] and a_runs > 0,
+              f"serve: served {res['served']}, responses {resp}, kernel A ran {a_runs} times")
+        for r in resp:
+            for path in r["files"]:
+                with open(path, "rb") as fh:
+                    check(fh.read(4) == b"MThd", f"serve: {path} is not a MIDI")
+        with open(reqs + ".journal") as fh:
+            journal = fh.read().splitlines()
+        check(journal[:2] == ["u", "p"] and len(journal) == 4
+              and all(j.startswith("@") for j in journal[2:]), f"serve: journal {journal}")
+        rate = res["served"] / res["seconds"]
+        print(f"[serve] 3 requests (7 songs; one prompt request) in {res['seconds']:.3f}s = "
+              f"{rate:.3f} requests/s; kernel A ran {a_runs} times; journal {journal}",
+              flush=True)
+        with open(reqs, "a") as fh:
+            fh.write(json.dumps({"id": "late", "songs": 2, "bars": 3}) + "\n")
+        res2 = cli.main(args + ["--idle-timeout", "1"])
+        with open(os.path.join(served_dir, "responses.jsonl")) as fh:
+            resp2 = [json.loads(x) for x in fh.read().splitlines() if x]
+        with open(reqs + ".journal") as fh:
+            journal2 = fh.read().splitlines()
+        check(res2["served"] == 1 and [r["id"] for r in resp2] == ["u", "p", "req", "late"]
+              and journal2 == journal + ["late"],
+              f"serve restart: served {res2['served']}, responses {[r['id'] for r in resp2]}, "
+              f"journal {journal2}")
+        print(f"[serve] restarted after the shutdown: served only the appended request "
+              f"({res2['served']}), journal {journal2}", flush=True)
+    return dict(runs_serve=runs_serve, runs_prompt=runs_prompt, figures=figures,
+                requests_per_s=rate, serve_a_runs=a_runs)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -2864,6 +3180,7 @@ def main() -> None:
 
     lat_entries = latency_slice(cfg, params, dev, gen)      # phases 21-24
     aug_entries = aug_slice(cfg, params, dev, gen)          # phases 25-29
+    serve = serving_slice(cfg, params, dev)                 # phases 31-33
 
     # -- 30. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
@@ -3157,7 +3474,15 @@ def main() -> None:
                   if k.startswith("decode_step")},
          "bf16_weights_by_batch": {str(b): r for b, r in a_bf16.items()},
          "per_step_token_graph": {k: {kk: vv for kk, vv in w.items() if kk != "host_calls"}
-                                  for k, w in graph_win.items()}},
+                                  for k, w in graph_win.items()},
+         # runs as the kernel counts them on the serving paths: the
+         # continuous batcher's timed requests at both weight types (phase
+         # 31), generate --continuous and the 5-song prompt (32), serve (33)
+         "launches_serve_loop": serve["runs_serve"],
+         "launches_continuous_cli": serve["runs_prompt"]["continuous_cli"],
+         "launches_prompt": serve["runs_prompt"]["A"],
+         "launches_serve_cli": serve["serve_a_runs"],
+         "serving": serve["figures"], "serve_requests_per_s": serve["requests_per_s"]},
         # B with f32 weights (f32-grade products on the tensor cores) at
         # B=128, and at B=1024; bound at 989/6 TFLOP/s, the f32 FMA bound
         # beside
@@ -3178,7 +3503,8 @@ def main() -> None:
         {"name": "decode_chunk_v6_tc", "route": "cuda",
          "source": f"{pkg}/csrc/decode_chunk_tc.cuh",
          "replaces": f"{tpu}/decode_kernel_v6.py:364", "launches": launches["v6_tc"],
-         "weights": "bfloat16", "max_abs_err": b_err[bf16], "ms": b_t[(bf16, b6)]["ms"],
+         "launches_prompt": serve["runs_prompt"]["B"], "weights": "bfloat16",
+         "max_abs_err": b_err[bf16], "ms": b_t[(bf16, b6)]["ms"],
          "plain_ms": b_t[(bf16, b6)]["plain_ms"], "bound_ms": b_t[(bf16, b6)]["bound_ms"],
          "bound_by": b_t[(bf16, b6)]["bound_by"], "library_ms": None,
          "state_floor_ms": b_t[(bf16, b6)]["floor_ms"],

@@ -12,7 +12,11 @@ Ported so far:
   * ``ppo-train`` (JAX cmd_ppo_train, cli.py:414), PPO fine-tuning with a
     learned reward;
   * ``inference`` (JAX cmd_inference, cli.py:666), the PPO actor's fixed-
-    token generation written out as a tuple-event MIDI file.
+    token generation written out as a tuple-event MIDI file;
+  * ``serve`` (JAX cmd_serve, cli.py:601), the generation daemon over a
+    JSONL request file, and ``generate --continuous`` / ``--prompt``;
+  * ``prepare-data``, ``preprocess``, ``split-data`` and ``data-midi`` (JAX
+    cli.py:46-109, 218), the host-side corpus commands.
 Run them as
 
     python -m reinforcement_learning_in_music_generation_torch.apps.cli generate --songs 5
@@ -25,8 +29,11 @@ Run them as
     python -m reinforcement_learning_in_music_generation_torch.apps.cli ppo-train --synthetic \
         --seq-len 130 --songs 2
     python -m reinforcement_learning_in_music_generation_torch.apps.cli inference --tokens 150
+    python -m reinforcement_learning_in_music_generation_torch.apps.cli generate --continuous \
+        --songs 24 --continuous-batch 8 --bars 8
+    python -m reinforcement_learning_in_music_generation_torch.apps.cli serve --requests r.jsonl
 
-They run on the GPU unless ``--device cpu`` is given.  Without ``--ckpt``
+The model commands run on the GPU unless ``--device cpu`` is given.  Without ``--ckpt``
 the generation weights are random, drawn from ``--seed``; ``--ckpt`` reads
 a checkpoint written by the JAX package's ``save_checkpoint`` or by the
 port's ``pretrain``.  ``RLMG_ATTN_BACKEND=pallas`` sends the agent's
@@ -43,17 +50,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
+import json
 import os
 import sys
 import pickle
 import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from .. import config as C
-from ..data import dataset, tokenizer
-from ..generate import sampler
+from ..data import cp_tokenizer, dataset, parallel_encode, tokenizer
+from ..generate import sampler, serving
 from ..models import linear_transformer as lt
 from ..models import longformer as lf
 from ..ops import sampling as smp
@@ -68,33 +77,80 @@ from ..weights import _ParamsUnpickler, load_jax_checkpoint
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def cmd_generate(args) -> dict:
-    """Generate ``--songs`` songs in one batch, write get_<i>.mid files and
-    ``runtime_stats.json`` beside ``--out-dir`` (JAX :593-598).  Returns
-    {"songs", "tokens", "seconds", "tokens_per_s"}."""
-    e2w, w2e = tokenizer.drop_type(tokenizer.construct_cp_dict())
-    vocab = tuple(tokenizer.n_classes(e2w))
-    mcfg = C.agent_config(vocab, n_layer=args.layers)
-    device = torch.device(args.device)
+def _generation_params(args, mcfg, device: torch.device) -> dict:
+    """The agent's weights for ``generate`` and ``serve``: ``--ckpt``'s
+    params, or random ones drawn from ``--seed``, cast to ``--dtype``."""
     if args.ckpt:
         template = lt.init_params(mcfg, seed=0, device="cpu")
         params = load_jax_checkpoint(args.ckpt, template, device=device)
     else:
         params = lt.init_params(mcfg, seed=args.seed, device=device)
-    params = lt.cast_params(params, _DTYPES[args.dtype])
+    return lt.cast_params(params, _DTYPES[args.dtype])
+
+
+def _prompt_rows(path: str) -> np.ndarray:
+    """A MIDI file CP-encoded to (T0, 6) rows, the 'type' column dropped."""
+    return np.delete(cp_tokenizer.CPEncoder().encode(path), 3, axis=1)
+
+
+def cmd_generate(args) -> dict:
+    """Generate ``--songs`` songs, write get_<i>.mid files and
+    ``runtime_stats.json`` beside ``--out-dir`` (JAX :510-598).  One batch
+    through ``sampler.generate_songs`` (``--prompt``: the MIDI file's CP rows
+    seed every song), or with ``--continuous`` through the continuous batcher
+    over ``--continuous-batch`` slots (``generate/serving.py``).  Returns
+    {"songs", "tokens", "seconds", "tokens_per_s"} (and "steps" with
+    ``--continuous``)."""
+    if args.continuous and (args.prompt or args.greedy or args.dp > 1 or args.tp > 1):
+        raise SystemExit(
+            "--continuous does not combine with --prompt/--greedy/--dp/--tp yet (the serving "
+            "loop is stochastic, unconditional, single-device); drop --continuous or those flags")
+    for flag in ("dp", "tp"):
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(f"--{flag} > 1: parallelism is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+    e2w, w2e = tokenizer.drop_type(tokenizer.construct_cp_dict())
+    vocab = tuple(tokenizer.n_classes(e2w))
+    mcfg = C.agent_config(vocab, n_layer=args.layers)
+    device = torch.device(args.device)
+    params = _generation_params(args, mcfg, device)
     os.makedirs(args.out_dir, exist_ok=True)
+    init = sampler.CP_SEED
+    if args.prompt:
+        rows = _prompt_rows(args.prompt)
+        init = rows[: args.prompt_tokens] if args.prompt_tokens else rows
+        print(f"prompt: {args.prompt} -> {len(init)} seed tokens")
     gcfg = C.GenerateConfig(n_songs=args.songs, bar_production=args.bars,
                             max_tokens=args.max_tokens, greedy=args.greedy,
                             batch_size=args.songs, out_dir=args.out_dir,
                             seed=args.seed)
+    extra = {}
+    if args.continuous:
+        batch = args.continuous_batch or min(args.songs, 8)
+
+        def run(seed):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            return serving.generate_songs_continuous(
+                params, mcfg, gen, n_songs=args.songs, bar_cond=args.bars, batch=batch,
+                max_tokens_per_song=args.max_tokens)
+    else:
+        def run(seed):
+            return sampler.generate_songs(params, mcfg, dataclasses.replace(gcfg, seed=seed),
+                                          init=init)
     if args.warmup:
-        # another seed, so that the timed call is a new request
-        sampler.generate_songs(params, mcfg, dataclasses.replace(gcfg, seed=args.seed + 1))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        run(args.seed + 1)      # another seed, so that the timed call is a new request
+    _sync(device)
     t0 = time.perf_counter()
-    songs = sampler.generate_songs(params, mcfg, gcfg)
+    out = run(args.seed)
     elapsed = time.perf_counter() - t0
+    if args.continuous:
+        songs = out.songs
+        extra = {"steps": out.steps}
+        print(f"continuous batching: {len(songs)} songs in {out.steps} decode steps "
+              f"(batch {batch})")
+    else:
+        songs = out
     total = sum(len(s) for s in songs)
     stats = RuntimeStats()
     for i, song in enumerate(songs):
@@ -105,8 +161,118 @@ def cmd_generate(args) -> dict:
     stats.dump(os.path.join(args.out_dir, "..", "runtime_stats.json"))
     rate = total / elapsed if elapsed > 0 else float("inf")
     print(f"ave token time: {rate:.1f} tokens/sec ({total} tokens in {elapsed:.2f}s, "
-          f"{args.songs} songs on {device})")
-    return {"songs": len(songs), "tokens": total, "seconds": elapsed, "tokens_per_s": rate}
+          f"{len(songs)} songs on {device})")
+    return {"songs": len(songs), "tokens": total, "seconds": elapsed, "tokens_per_s": rate,
+            **extra}
+
+
+def cmd_serve(args) -> dict:
+    """Generation daemon (JAX cmd_serve, :601-663): tails ``--requests``
+    (JSON lines), answers each request with the continuous batcher, or
+    through ``generate_songs`` for a request with a MIDI "prompt", writes
+    <id>_<k>.mid files and a responses.jsonl line per request into
+    ``--out-dir``, and journals what it served (``serving.serve_requests``).
+    The weights load once.  SIGTERM or SIGINT drains and returns (it sets
+    ``train/pretrain.py INTERRUPT``).  Returns {"served", "seconds"}."""
+    e2w, w2e = tokenizer.drop_type(tokenizer.construct_cp_dict())
+    vocab = tuple(tokenizer.n_classes(e2w))
+    mcfg = C.agent_config(vocab, n_layer=args.layers)
+    device = torch.device(args.device)
+    params = _generation_params(args, mcfg, device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    resp_path = os.path.join(args.out_dir, "responses.jsonl")
+
+    def on_result(req, res):
+        rid = str(req.get("id", "req"))
+        paths = []
+        for k, song in enumerate(res.songs):
+            path = os.path.join(args.out_dir, f"{rid}_{k}.mid")
+            tokenizer.write_midi_cp(np.asarray(song), path, w2e)
+            paths.append(path)
+        line = {"id": rid, "songs": len(res.songs), "steps": res.steps, "files": paths}
+        with open(resp_path, "a") as f:
+            f.write(json.dumps(line) + "\n")
+        print(f"served {rid}: {len(res.songs)} songs in {res.steps} steps")
+
+    pretrain_lib._install_interrupt_handler()      # SIGTERM = clean drain
+    print(f"serving from {args.requests} (batch {args.batch}) on {device}; "
+          f"shutdown: SIGTERM or a {{\"cmd\": \"shutdown\"}} line")
+    t0 = time.perf_counter()
+    n = serving.serve_requests(
+        params, mcfg, args.requests, on_result, batch=args.batch, poll_s=args.poll,
+        max_requests=args.max_requests, idle_timeout_s=args.idle_timeout,
+        max_tokens_per_song=args.max_tokens, stop_event=pretrain_lib.INTERRUPT,
+        prompt_loader=_prompt_rows)
+    elapsed = time.perf_counter() - t0
+    print(f"served {n} requests; exiting")
+    return {"served": n, "seconds": elapsed}
+
+
+# -- data commands (host-side; no device) ------------------------------------------
+
+def cmd_prepare_data(args) -> None:
+    """MIDI folder -> worded_data.pickle + dictionary.pickle (``--scheme
+    tuple``, ppo_policy/prepare_data.py:360-380) or train_data_linear.npz +
+    dictionary.pkl (``--scheme cp``, the DQN side's files); JAX :46-85."""
+    os.makedirs(args.save_folder, exist_ok=True)
+    midis = []
+    for root, _, files in os.walk(args.midi_folder):
+        for f in files:
+            if f.endswith((".mid", ".midi")):
+                midis.append(os.path.join(root, f))
+    print(f"number of midis: {len(midis)}")
+    if args.scheme == "cp":
+        x, y, mask, dicts = cp_tokenizer.build_cp_training_data(
+            midis, seq_len=args.cp_seq_len, with_type=True, workers=args.workers)
+        np.savez(os.path.join(args.save_folder, "train_data_linear.npz"), x=x, y=y, mask=mask)
+        with open(os.path.join(args.save_folder, "dictionary.pkl"), "wb") as f:
+            pickle.dump([dicts[0], dicts[1]], f)
+        print(f"CP dataset: x {x.shape} -> {args.save_folder}")
+        return
+    songs = parallel_encode.tuple_extract_corpus(midis, workers=args.workers)
+    dicts = tokenizer.construct_tuple_dict()
+    tokenizer.save_dict(dicts, os.path.join(args.save_folder, "dictionary.pickle"))
+    worded = tokenizer.tuple_events_to_words(songs, dicts[0])
+    with open(os.path.join(args.save_folder, "worded_data.pickle"), "wb") as f:
+        pickle.dump(worded, f, protocol=pickle.HIGHEST_PROTOCOL)
+    print(f"saved dictionary + worded_data to {args.save_folder}")
+
+
+def cmd_preprocess(args) -> None:
+    """worded_data.pickle -> our_dataset.pickle (ppo_policy/preprocess.py;
+    JAX :88-100)."""
+    with open(args.worded_data, "rb") as f:
+        worded = pickle.load(f)
+    packed = dataset.process_data(dataset.flatten_worded_songs(worded),
+                                  max_seq_len=args.max_seq_len)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "wb") as f:
+        pickle.dump(packed, f, protocol=pickle.HIGHEST_PROTOCOL)
+    print(f"train_x {packed['train_x'].shape} -> {args.out}")
+
+
+def cmd_split_data(args) -> None:
+    """90/10 split -> worded_data_{train,test}.pickle beside the input
+    (ppo_policy/prepare_data.py:443-464; JAX :103-109)."""
+    n_train, n_test = dataset.split_data(args.worded_data, seed=args.seed)
+    print(f"n_train: {n_train}, n_test: {n_test}")
+
+
+def cmd_data_midi(args) -> None:
+    """One packed-dataset row decoded back to a tuple-event MIDI file
+    (ppo_policy/data_midi.py:39-56; JAX :218-235)."""
+    with open(args.dictionary, "rb") as f:
+        _, w2e = pickle.load(f)
+    with open(args.dataset, "rb") as f:
+        packed = pickle.load(f)
+    row = packed["train_x"][args.row]
+    mask = packed.get("mask")
+    if mask is not None:
+        row = row[mask[args.row] > 0]
+    events = tokenizer.words_to_tuple_events(row, w2e)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    tokenizer.tuple_events_to_midi(events, args.out)
+    print(f"row {args.row} ({len(events)} events) -> {args.out}")
 
 
 def _load_pretrain_data(args, vocab):
@@ -513,11 +679,71 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--warmup", action="store_true",
                    help="run once, on seed + 1, before timing (builds the kernels)")
+    d.add_argument("--prompt", default=None,
+                   help="MIDI file to continue from (its CP rows seed every song)")
+    d.add_argument("--prompt-tokens", type=int, default=None,
+                   help="keep the prompt's first N rows")
+    d.add_argument("--continuous", action="store_true",
+                   help="continuous batching: a slot refills the moment its song completes "
+                        "(serving mode; right for --songs >> batch)")
+    d.add_argument("--continuous-batch", type=int, default=None,
+                   help="slot count for --continuous (default min(songs, 8))")
+    d.add_argument("--dp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
     d.add_argument("--dtype", default="bfloat16", choices=tuple(_DTYPES),
                    help="decode weight dtype (bf16 halves the weight stream)")
     d.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions of the kernels")
     d.set_defaults(fn=cmd_generate)
+
+    d = sub.add_parser("serve", help="generation daemon over a JSONL request file "
+                                     "(continuous batching)")
+    d.add_argument("--requests", required=True,
+                   help='JSONL file to tail: {"id", "songs", "bars", "seed", "prompt"}; '
+                        '{"cmd": "shutdown"} stops')
+    d.add_argument("--out-dir", default="served")
+    d.add_argument("--batch", type=int, default=8)
+    d.add_argument("--layers", type=int, default=12)
+    d.add_argument("--ckpt", default=None, help="params of a JAX or port checkpoint")
+    d.add_argument("--dtype", default="float32", choices=tuple(_DTYPES),
+                   help="decode weight dtype (float32, as the JAX serve; generate's is bfloat16)")
+    d.add_argument("--seed", type=int, default=0)
+    d.add_argument("--poll", type=float, default=0.5)
+    d.add_argument("--max-tokens", type=int, default=4096)
+    d.add_argument("--max-requests", type=int, default=None)
+    d.add_argument("--idle-timeout", type=float, default=None)
+    d.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain versions of the kernels")
+    d.set_defaults(fn=cmd_serve)
+
+    d = sub.add_parser("prepare-data", help="MIDI -> worded data + dictionary")
+    d.add_argument("--midi-folder", required=True)
+    d.add_argument("--save-folder", default="./dataset")
+    d.add_argument("--scheme", choices=("tuple", "cp"), default="tuple",
+                   help="tuple: ppo pipeline files; cp: DQN-side train_data_linear.npz + "
+                        "dictionary.pkl")
+    d.add_argument("--cp-seq-len", type=int, default=3584)
+    d.add_argument("--workers", type=int, default=None,
+                   help="process-pool width for encoding (default: all CPUs)")
+    d.set_defaults(fn=cmd_prepare_data)
+
+    d = sub.add_parser("preprocess", help="worded data -> packed dataset")
+    d.add_argument("--worded-data", default="./dataset/worded_data.pickle")
+    d.add_argument("--out", default="./dataset/our_dataset.pickle")
+    d.add_argument("--max-seq-len", type=int, default=1200)
+    d.set_defaults(fn=cmd_preprocess)
+
+    d = sub.add_parser("split-data", help="90/10 train/test split of a worded-data pickle")
+    d.add_argument("--worded-data", default="./dataset/worded_data.pickle")
+    d.add_argument("--seed", type=int, default=0)
+    d.set_defaults(fn=cmd_split_data)
+
+    d = sub.add_parser("data-midi", help="decode a dataset row to MIDI")
+    d.add_argument("--dataset", default="./dataset/our_dataset.pickle")
+    d.add_argument("--dictionary", default="./dataset/dictionary.pickle")
+    d.add_argument("--row", type=int, default=10)
+    d.add_argument("--out", default="./gen_midi/111.mid")
+    d.set_defaults(fn=cmd_data_midi)
 
     d = sub.add_parser(
         "pretrain", help="agent CE pretrain",

@@ -1,21 +1,155 @@
-"""CP dataset loaders: the counterpart of the JAX package's
-``data/dataset.py`` (``load_cp_npz`` and ``synthetic_cp_dataset``), in
-numpy only, so one seed gives the JAX package's arrays exactly.
+"""Dataset construction: windowing, padding/masking, packing, loaders.
 
-  * ``load_cp_npz`` -- the precomputed Pop1K7 CP dataset consumed by the DQN
+Covers D8-D10 of SURVEY §2.1:
+
+  * `prepare_data_for_training` — 16-bar sliding windows, per-field PAD,
+    shuffle (ppo_policy/prepare_data.py:383-438)
+  * `process_data` — pad/truncate to MaxSeqLen with 0/1 mask, shuffle,
+    split halves -> {'train_x','train_y','mask'} (ppo_policy/preprocess.py)
+  * `load_cp_npz` — the precomputed Pop1K7 CP dataset consumed by the DQN
     pipeline, with the 'type' column dropped
     (dqn_policy/agent_pretrain.py:491-531, IRL_dqn_train.py:417-434)
-  * ``synthetic_cp_dataset`` -- structured random CP data, so pretraining
-    runs without the external datasets
+  * `synthetic_cp_dataset` — structured random CP data so every pipeline is
+    runnable/benchmarkable without the external Google-Drive datasets
+
+The port's own copy of the JAX package's ``data/dataset.py`` (which imports
+no JAX): the port imports nothing of that package.  ``tests/test_torch_corpus_cli.py``
+holds its output byte-equal to the original's.
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+
+# ---------------------------------------------------------------------------
+# PPO-side datasets
+# ---------------------------------------------------------------------------
+
+def prepare_data_for_training(worded_songs: Sequence, e2w: Dict, *,
+                              is_train: bool = True, n_step_bars: int = 16,
+                              n_bars_per_x: int = 16, max_len: int = 512,
+                              seed: Optional[int] = 0) -> np.ndarray:
+    """[songs][bars][notes][6] word rows -> (N, max_len, 6) windows.
+
+    Bar field (index 1) is assigned the in-window bar index 0..15;
+    windows longer than max_len are dropped; train windows are padded with
+    the per-field <PAD> id and shuffled (prepare_data.py:383-438)."""
+    pad_word = [e2w[etype][f"{etype} <PAD>"] for etype in e2w]
+    xs: List[List[List[int]]] = []
+    for song in worded_songs:
+        for start in range(0, len(song) - n_bars_per_x + 1, n_step_bars):
+            window = song[start:start + n_bars_per_x]
+            rows: List[List[int]] = []
+            for bar_idx, bar in enumerate(window):
+                for note in bar:
+                    row = list(note)
+                    row[1] = bar_idx
+                    rows.append(row)
+            if len(rows) > max_len:
+                continue
+            if is_train:
+                while len(rows) < max_len:
+                    rows.append(list(pad_word))
+            xs.append(rows)
+    if not xs:
+        return np.zeros((0, max_len, len(pad_word)), np.int32)
+    if is_train:
+        arr = np.asarray(xs, np.int32)
+        if seed is not None:
+            np.random.default_rng(seed).shuffle(arr, axis=0)
+        return arr
+    return np.asarray(xs, dtype=object)
+
+
+def process_data(worded_flat: Sequence, max_seq_len: int = 1200, *,
+                 seed: Optional[int] = 0) -> Dict[str, np.ndarray]:
+    """Flat per-song token rows -> padded/truncated halves
+    {'train_x','train_y','mask'} (ppo_policy/preprocess.py:10-72)."""
+    data, masks = [], []
+    n_fields = len(worded_flat[0][0]) if worded_flat else 6
+    pad_word = [0] * n_fields
+    for song in worded_flat:
+        rows = [list(r) for r in song]
+        mask = [1] * len(rows)
+        if len(rows) <= max_seq_len:
+            while len(rows) < max_seq_len:
+                rows.append(list(pad_word))
+                mask.append(0)
+        else:
+            rows = rows[:max_seq_len]
+            mask = mask[:max_seq_len]
+        data.append(rows)
+        masks.append(mask)
+    data = np.asarray(data, np.int32)
+    masks = np.asarray(masks, np.float32)
+    if seed is not None:
+        idx = np.arange(len(data))
+        np.random.default_rng(seed).shuffle(idx)
+        data, masks = data[idx], masks[idx]
+    half = len(data) // 2
+    return {
+        "train_x": data[:half],
+        "train_y": data[half:2 * half],
+        "mask": masks[:half],
+    }
+
+
+def split_data(data_file: str, *, seed: Optional[int] = 0,
+               test_frac: float = 0.1) -> Tuple[int, int]:
+    """90/10 train/test split of a worded-data pickle
+    (ppo_policy/prepare_data.py:443-464): loads `data_file` (either the
+    packed ``{'train': ...}`` dict or a raw song list), shuffles, and
+    writes ``worded_data_train.pickle`` / ``worded_data_test.pickle`` next
+    to it.  The reference seeds its shuffle from an external
+    ``shuffle_order.pickle`` then re-shuffles randomly; here the order is
+    a seeded rng (seed=None for nondeterministic).  Returns
+    (n_train, n_test)."""
+    import os
+    dirname = os.path.dirname(data_file)
+    with open(data_file, "rb") as handle:
+        data = pickle.load(handle)
+    if isinstance(data, dict):
+        data = data["train"]
+    n_data = len(data)
+    n_test = n_data // 10 if test_frac == 0.1 else int(n_data * test_frac)
+    n_train = n_data - n_test
+    index = np.arange(n_data)
+    np.random.default_rng(seed).shuffle(index)
+    # index the python list directly: np.asarray(data, dtype=object) on a
+    # uniformly-shaped corpus builds a multi-dim object ndarray, so the
+    # pickles would hold numpy sub-arrays instead of the reference's
+    # lists-of-lists
+    data = [data[i] for i in index]
+    with open(os.path.join(dirname, "worded_data_train.pickle"), "wb") as f:
+        pickle.dump(data[:n_train], f, protocol=pickle.HIGHEST_PROTOCOL)
+    with open(os.path.join(dirname, "worded_data_test.pickle"), "wb") as f:
+        pickle.dump(data[n_train:], f, protocol=pickle.HIGHEST_PROTOCOL)
+    return n_train, n_test
+
+
+def flatten_worded_songs(worded_songs: Sequence) -> List[List[List[int]]]:
+    """[songs][bars][notes][6] -> [songs][notes][6] with in-song bar id
+    capped at 15 (dictionary Bar range, prepare_data.py:254-257)."""
+    out = []
+    for song in worded_songs:
+        rows = []
+        for bar_idx, bar in enumerate(song):
+            for note in bar:
+                row = list(note)
+                row[1] = min(bar_idx, 15)
+                rows.append(row)
+        if rows:
+            out.append(rows)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# DQN-side (CP npz) loader
+# ---------------------------------------------------------------------------
 
 def load_cp_npz(npz_path: str, dict_path: str, *, drop_type_col: bool = True):
     """Load the Pop1K7 CP dataset: x/y (N, 3584, 7), mask (N, 3584) and the

@@ -288,7 +288,8 @@ def fused_logits(dparams: dict, cfg: LinearTransformerConfig,
 class DecodeState(NamedTuple):
     s: torch.Tensor    # (L, B, H, Dh, Dh) running sum phi(k) v^T per layer
     z: torch.Tensor    # (L, B, H, Dh)
-    step: int          # absolute position (row of the positional table)
+    step: Union[int, torch.Tensor]   # absolute position (row of the positional
+                                     # table): an int, or a (B,) tensor, one a song
 
 
 def init_decode_state(cfg: LinearTransformerConfig, batch: int,
@@ -304,14 +305,16 @@ def embed_input(params: dict, cfg: LinearTransformerConfig, token: torch.Tensor,
                 step: Union[int, torch.Tensor], pe_table: Optional[torch.Tensor]
                 ) -> torch.Tensor:
     """Token (B, n_fields) -> in_linear(embeddings) + pe row ``step``.
-    ``step``: a Python int, or a 0-d integer tensor on the table's device
-    (the row is then gathered on the device, with no host sync: a CUDA
-    graph replays it at whatever position the tensor holds)."""
+    ``step``: a Python int, a 0-d integer tensor on the table's device, or a
+    (B,) one, a position per song (the JAX ``pe_table[state.step]`` gather,
+    which continuous batching uses: each slot at its own position).  A
+    tensor's rows are gathered on the device, with no host sync: a CUDA
+    graph replays the gather at whatever positions the tensor holds."""
     embs = cm.embed_fields(params["emb"], token)
     h = cm.linear(params["in_linear"], embs)
     if pe_table is None:
         pe_table = cm.sinusoidal_table(cfg.max_len, cfg.d_model, h.dtype, h.device)
-    row = pe_table.index_select(0, step.reshape(1))[0] if torch.is_tensor(step) \
+    row = pe_table.index_select(0, step.reshape(-1)) if torch.is_tensor(step) \
         else pe_table[step]
     return h + row.to(h.dtype)
 

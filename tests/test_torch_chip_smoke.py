@@ -210,3 +210,56 @@ def test_qkv_bf16_gate_refuses_the_fault_and_a_blind_control(smoke, kernel, cont
     assert len(bad) == (4 if refused else 0), bad
     for name, (g_max, g_mean) in smoke.C_BF16_GATES.items():
         assert g_max <= smoke.BF16_TOL and 0 < g_mean < 1e-3, name
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_refilled_slot_check_sees_a_fresh_state_and_a_missed_refill(smoke, fused, monkeypatch):
+    """Phase 31's slot check on the CPU: after the continuous batcher's loop
+    (kernel A's plain twin, or the plain decode step), every refilled slot's
+    rows equal its current song decoded from a zero state in the same row
+    of a batch of the loop's size, bit for bit; a refill that leaves one
+    finished slot's rows in place is caught."""
+    import torch
+
+    from reinforcement_learning_in_music_generation_torch import config as TC
+    from reinforcement_learning_in_music_generation_torch.generate import serving
+    from reinforcement_learning_in_music_generation_torch.models import common as cm
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v4 as dk4
+    from reinforcement_learning_in_music_generation_torch.ops import sampling as smp
+
+    cfg = TC.LinearTransformerConfig(vocab_sizes=(8, 16, 4, 12, 4, 6), emb_sizes=(8,) * 6,
+                                     d_model=32, n_layer=2, n_head=2, d_inner=64)
+    params = lt.init_params(cfg, seed=0, device="cpu")
+    dev = torch.device("cpu")
+    init = torch.tensor([[0, 0, 1, 0, 0, 0]], dtype=torch.int32).expand(4, -1).contiguous()
+
+    def run(loop):
+        gen = torch.Generator()
+        gen.manual_seed(9)
+        return loop.run(init, 9, 256, 2, gen)
+    if not fused:      # the plain step's f32 rows are held to kernel A's twin at f32
+        monkeypatch.setenv("RLMG_DECODE_STATE_DTYPE", "float32")
+    loop = serving._ServeLoop(params, cfg, 4, 256, smp.CP_SAMPLING, 2, 1, fused=fused,
+                              graph=False)
+    toks, fin = run(loop)
+    errs = smoke.refilled_slot_errors(dk4, lt, cm, params, cfg, dev, loop, toks, fin)
+    assert len(errs) == 4
+    if fused:
+        assert all(e[1] == 0 and e[2] for e in errs)
+    else:
+        assert max(e[1] for e in errs) < 1e-5
+
+    class Leaky(serving._ServeLoop):            # forgets to zero slot 0's rows
+        def refill(self, finished):
+            keep = finished.clone()
+            keep[0] = False
+            self.s.masked_fill_(keep.view(1, -1, 1, 1, 1), 0)
+            self.z.masked_fill_(keep.view(1, -1, 1, 1), 0)
+            self.pos.masked_fill_(finished, 0)
+            self.bars.copy_(torch.where(finished, self.bars0, self.bars))
+            self.done.add_(finished.sum(dtype=torch.int32))
+    leaky = Leaky(params, cfg, 4, 256, smp.CP_SAMPLING, 2, 1, fused=True, graph=False)
+    toks, fin = run(leaky)
+    errs = smoke.refilled_slot_errors(dk4, lt, cm, params, cfg, dev, leaky, toks, fin)
+    assert errs[0][0] == 0 and errs[0][1] > 1e-2 and not errs[0][2]

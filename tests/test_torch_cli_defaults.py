@@ -15,7 +15,7 @@ from reinforcement_learning_in_music_generation_tpu.apps import cli as jcli
 from reinforcement_learning_in_music_generation_tpu.utils import metrics as jmetrics
 
 PORTED = ("generate", "pretrain", "discrim-pretrain", "my-pretrain", "dqn-train", "ppo-train",
-          "inference")
+          "inference", "serve", "prepare-data", "preprocess", "split-data", "data-midi")
 
 
 def _subparsers(parser):
@@ -38,6 +38,30 @@ def test_shared_flags_have_the_jax_defaults(cmd):
 def test_generate_dtype_defaults_to_bfloat16():
     args = tcli.build_parser().parse_args(["generate"])
     assert args.dtype == "bfloat16"
+
+
+def test_serve_dtype_defaults_to_float32():
+    """``serve`` keeps f32 weights by default, unlike ``generate``, as in JAX."""
+    ours = tcli.build_parser().parse_args(["serve", "--requests", "r.jsonl"])
+    ref = jcli.build_parser().parse_args(["serve", "--requests", "r.jsonl"])
+    assert ours.dtype == ref.dtype == "float32"
+    assert (ours.batch, ours.max_tokens, ours.poll) == (ref.batch, ref.max_tokens, ref.poll)
+
+
+def test_generate_has_every_jax_flag():
+    ours = set(_defaults(_subparsers(tcli.build_parser())["generate"]))
+    ref = set(_defaults(_subparsers(jcli.build_parser())["generate"]))
+    assert ref <= ours and {"prompt", "prompt_tokens", "continuous", "continuous_batch",
+                            "dp", "tp"} <= ours
+
+
+@pytest.mark.parametrize("flag", [["--prompt", "x.mid"], ["--greedy"], ["--dp", "2"],
+                                  ["--tp", "2"]])
+def test_continuous_refuses_what_jax_refuses(flag):
+    args = ["generate", "--continuous", "--device", "cpu", "--layers", "1"] + flag
+    with pytest.raises(SystemExit) as ours:
+        tcli.main(args)
+    assert "--continuous does not combine" in str(ours.value)
 
 
 def test_runtime_stats_match_jax(tmp_path):

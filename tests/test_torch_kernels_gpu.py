@@ -1518,3 +1518,71 @@ def test_v5_ablations_stream_the_state_through(dev, ablate, monkeypatch):
     monkeypatch.setenv("RLMG_V5_ABLATE", "matmul")
     with pytest.raises(ValueError, match="RLMG_V5_ABLATE"):
         tdk5.fused_decode_v5(v5p, _tokens(gen, dev, b), s5, z5, pe, 0, **kw)
+
+
+def _serve_setup(dev, wdt):
+    cfg = TC.LinearTransformerConfig(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=64,
+                                     n_layer=2, n_head=2, d_inner=128)
+    params = tlt.cast_params(tlt.init_params(cfg, seed=1, device=dev), wdt)
+    return cfg, params
+
+
+def _serve_gen(dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_graphed_serve_loop_equals_the_eager_loop(dev, b, wdt):
+    """The continuous batcher with one graph replay a step gives the eager
+    loop's songs, steps and songs_done on the same generator, and kernel A
+    runs once a replay and once an eager call, as the kernel counts them."""
+    from reinforcement_learning_in_music_generation_torch.generate import serving as tsrv
+    cfg, params = _serve_setup(dev, wdt)
+    kw = dict(n_songs=2 * b + 3, bar_cond=3, batch=b, max_tokens_per_song=96)
+    eager = tsrv.generate_songs_continuous(params, cfg, _serve_gen(dev, 5), graph=False, **kw)
+    graphed = tsrv.generate_songs_continuous(params, cfg, _serve_gen(dev, 5), **kw)
+    assert (graphed.steps, graphed.songs_done) == (eager.steps, eager.songs_done)
+    assert len(graphed.songs) == len(eager.songs) == 2 * b + 3
+    for x, y in zip(graphed.songs, eager.songs):
+        assert (x == y).all() and int((x[:, 2] == 1).sum()) == 3
+    tdk4.kernel_runs(reset=True)
+    eager0, r0 = tdk4.fused_stack_step.launches, tsrv.generate_songs_continuous.graph_replays
+    c0 = tsrv.generate_songs_continuous.graph_captures
+    tsrv.generate_songs_continuous(params, cfg, _serve_gen(dev, 6), **kw)
+    replays = tsrv.generate_songs_continuous.graph_replays - r0
+    assert tsrv.generate_songs_continuous.graph_captures == c0       # one capture serves both
+    assert tdk4.kernel_runs() == replays + tdk4.fused_stack_step.launches - eager0
+    assert tdk4.fused_stack_step.launches - eager0 == 1             # the init token's step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_refilled_slot_state_is_a_fresh_ones(dev, b):
+    """After the loop, each refilled slot's (s, z) rows equal those of its
+    current song teacher-forced from a zero state through kernel A in the
+    slot's row of a batch of the same size."""
+    from reinforcement_learning_in_music_generation_torch.generate import serving as tsrv
+    from reinforcement_learning_in_music_generation_torch.ops import sampling as tsmp
+    smoke = _smoke()
+    cfg, params = _serve_setup(dev, torch.bfloat16)
+    record, loop_fn = {}, tsrv._serve_loop
+
+    def recording(*a, **k):
+        out = loop_fn(*a, **k)
+        record.update(toks=torch.as_tensor(out[0]), fin=torch.as_tensor(out[1]))
+        return out
+    tsrv._serve_loop = recording
+    try:
+        tsrv.generate_songs_continuous(params, cfg, _serve_gen(dev, 7), n_songs=3 * b,
+                                       bar_cond=2, batch=b, max_tokens_per_song=64)
+    finally:
+        tsrv._serve_loop = loop_fn
+    max_steps = -(-((3 + 1) * 64) // 1024) * 1024
+    loop = tsrv._graphed_loop(params, cfg, b, max_steps, tsmp.CP_SAMPLING, 2, 1)
+    errs = smoke.refilled_slot_errors(tdk4, tlt, tcm, params, cfg, dev, loop, record["toks"],
+                                      record["fin"])
+    assert errs and max(e[1] for e in errs) <= 1e-3, errs
