@@ -30,7 +30,8 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
        f32 weights: the fed-back streams part only after a near-tie;
        printed for bf16, where one comes within a few tokens); the HMMA/HGMMA
        count in the SASS of the route's product kernels at both weight types
-       and of kernel E's three passes (cuobjdump, > 0 in each); the SIMT
+       and of kernel E's three passes at every depth for f32 and bf16
+       tensors (cuobjdump, > 0 in each); the SIMT
        heads + sample pass on fixed h against the plain version with the
        same seed (>= 99% of tokens equal: they differ only at near-ties);
   3. runs ``apps/cli.py generate`` end to end: 5 songs (the per-step v4
@@ -64,11 +65,22 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      Adam updates themselves within 1e-3 of the leaf's largest update
      wherever the plain gradient's sign is settled (|g| above the gradient
      check's limit); then times two more steps of each;
+ 5b. takes the kernel route's step (C + D, dropout 0.1) with
+     ``remat=True`` (each layer under torch.utils.checkpoint) and without,
+     from the same generator seed, at f32 and bf16: losses and gradients
+     under the checks of 5, the generator's state after the step equal, C's
+     and D's forward counters at 2 x 12 (the recompute) and their backward
+     at 12, the remat step's peak device memory below the other's; prints
+     both peaks and ms a step;
   6. runs ``apps/cli.py pretrain`` for 4 steps at B=32, S=512 on each route,
      and on the kernel route with ``--dtype bfloat16`` (C and D on bf16
      tensors), and fails unless each training-kernel counter reads 12 x
      steps on the kernel route (0 on the plain one), C's attention runs as
-     its passes count them the same, and every logged loss is finite;
+     its passes count them the same, and every logged loss is finite; then
+     ``--dtype bfloat16`` under RLMG_ATTN_BACKEND=pallas (kernel F on bf16
+     tensors): F's counters and its own runs 48 + 48, the others 0, every
+     loss finite, and the top five kinds of ``utils.summarize_trace`` over
+     one profiled step (``utils.profile_trace``);
   7. holds kernel E (window_attention_band, the counterpart of
      window_attention_pallas) against its plain twin at the discriminator
      LM's shape (B=4, H=8, S=3584, D=64, window 512, f32) with the padding
@@ -77,7 +89,12 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      magnitude, dq / dk / dv (dO zero on padded rows, as the LM's masked
      loss gives) within 1e-4 of theirs, every value finite, with a control
      (the twin on q, k, v rounded to bf16, against the f32 twin) that must
-     end above those gates; the library yardstick
+     end above those gates; on bf16 tensors (synthetic padding) against
+     its twin of JAX's bf16 arithmetic, out (kept rows) and the gradients
+     within E_BF16_GATES (max|diff| within BF16_TOL of the magnitude,
+     mean|diff| within a small share of mean|ref|), with a control that
+     must end above the mean limits (the twin with P and dS rounded to bf16
+     before their products); the library yardstick
      (scaled_dot_product_attention with the additive band mask) within
      1e-4 on the rows that see a kept key;
   8. holds kernel D at the Longformer's shape (14336 rows, d_model 512,
@@ -89,7 +106,9 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      pallas (kernel E + the plain tail) and all plain (RLMG_FFN_BACKEND=
      xla); each kernel route against the plain one with the checks of 5,
      counters 12 + 12 for its kernel and 0 for the other; then times two
-     more steps of each;
+     more steps of each; and one step with the parameters in bf16 under
+     RLMG_WINDOW_BACKEND=pallas (kernel E on bf16 tensors): finite loss and
+     gradients, E's counters 12 + 12;
  10. runs ``apps/cli.py discrim-pretrain`` for 4 steps at B=4, S=3584 on
      the default route and under RLMG_WINDOW_BACKEND=pallas and fails
      unless the route's kernel counters read 12 x 4 and every logged loss
@@ -102,8 +121,13 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      (views of (B, S, H, E) tensors): out and den within 1e-4 of their
      magnitude, dq / dk / dv within 1e-3 of theirs; F's runs as the kernel
      counts them equal the wrapper's calls; two backward runs bit-equal at
-     the DQN, ragged and pretrain shapes; bfloat16 inputs and heads of 72
-     refused;
+     the DQN, ragged and pretrain shapes; on bf16 tensors at the rollout,
+     ragged and pretrain shapes against its twin of JAX's bf16 arithmetic,
+     out, den and the gradients within F_BF16_GATES (as E's), with two
+     controls that must end above the mean limits (the chunked composition
+     in bf16 arithmetic; for the gradients F's f32 route with den
+     unrounded), two bf16 backward runs bit-equal; float64 inputs and heads
+     of 72 refused;
  12. takes one full-width DQN update (agent_config, dropout 0, lr 1e-4,
      B=30 x S=50, the same weights and batches) on the default route (the
      plain composition) and under RLMG_ATTN_BACKEND=pallas (kernel F): mse
@@ -237,7 +261,11 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      products a product), the f32 FMA bound beside; kernel F at the
      rollout, DQN-update and pretrain shapes through the wrapper, on the
      card alone (profiler) and back to back (the host's pace), bounded at
-     989/6 TFLOP/s with the f32 FMA bound beside;
+     989/6 TFLOP/s with the f32 FMA bound beside; F on bf16 tensors at the
+     rollout, ragged and pretrain shapes and E on bf16 tensors at the
+     discriminator's (SDPA on the same bf16 tensors beside), bounded at
+     bf16 bytes and the bf16 peak, the rate of their f32-grade products
+     beside, with the card's name and power limit;
  31. the continuous batcher (``generate/serving.py``, kernel A, one CUDA
      graph replay a step) at agent_config: 24 songs of 8 bars on 8 slots,
      f32 weights (``serve``'s default) and bf16 (``generate``'s): the
@@ -309,6 +337,28 @@ BF16_TOL = 2 ** -7
 # 2.3e-4 (PERF.md).
 C_BF16_GATES = {"att": (BF16_TOL, 3e-5), "dh": (BF16_TOL, 3.5e-4),
                 "dWqkv": (BF16_TOL, 3e-4), "dbqkv": (BF16_TOL, 8e-5)}
+# kernels F and E on bf16 tensors against their twins of JAX's bf16
+# arithmetic, per tensor, as C_BF16_GATES: both sides widen the bf16 inputs
+# to f32, form every product at f32 grade and round the same f32 values on
+# store (F also den, and dnum / dd in bf16 arithmetic from the rounded out
+# and den), so they differ only where a sum in another order straddles a
+# rounding boundary.  The controls (product_bf16_readings: the chunked
+# composition in bf16 arithmetic, and F's f32 route with den unrounded for
+# the gradients; band_rounded_control: P and dS rounded before their
+# products) round elsewhere and must end above the mean limits.  A den that
+# the two sides round differently (a sum straddling a boundary) moves that
+# row's dnum, so F's gradients flip more often than its out.  The limits sit
+# between the card's readings (NVIDIA H100 80GB HBM3, 700 W; phases 7 and
+# 11 and the card tests test_causal_product_bf16_kernel_holds_its_gates and
+# test_window_attention_bf16_kernel_holds_its_gates, F at ten shapes from
+# (1, 8, 50, 64) to (32, 8, 512, 64), E at five up to the discriminator's):
+# the kernels' largest mean share F out 2.3e-7, den 2.1e-6, dq 4.9e-6, dk
+# 1.8e-5, dv 1.6e-5, E out 4.8e-7, gradients 3.8e-6; the controls' least F
+# out 2.4e-3, den 1.1e-4, dq 6.1e-3, dk 2.5e-3, dv 2.1e-3, E 1.5e-3 (PERF.md).
+F_BF16_GATES = {"out": (BF16_TOL, 3e-5), "den": (BF16_TOL, 2e-5), "dq": (BF16_TOL, 2e-4),
+                "dk": (BF16_TOL, 2e-4), "dv": (BF16_TOL, 2e-4)}
+E_BF16_GATES = {"out": (BF16_TOL, 3e-5), "dq": (BF16_TOL, 1e-4), "dk": (BF16_TOL, 1e-4),
+                "dv": (BF16_TOL, 1e-4)}
 # kernel B's tensor-core route with an f32 state: max|dS| against its twin,
 # as a share of max|S|, after 16 teacher-forced tokens at the main path's shape
 S_TC_TOL = 3e-4
@@ -651,15 +701,16 @@ def attn_tail_work(n, d, di, elem=4):
     return (f_ops, elem * 3 * n * d + w), (2 * f_ops, elem * 5 * n * d + 2 * w)
 
 
-def causal_product_work(b, h, s, e, chunk=128):
+def causal_product_work(b, h, s, e, chunk=128, elem=4):
     """(forward, backward) (operations, bytes) of the causal product at this
-    shape, counted as kernel C's attention: per chunk of c rows (the JAX
-    kernel's 128, the last one ragged: only the rows the data has) a score
-    product counts its causal half, c (c + 1) e operations, and a state
-    product (q S, S += k^T v, ...) 2 c e^2; forward 2 + 2 of them, backward
-    6 + 5.  Bytes: each input read once, each output written once (forward
-    phi(q), phi(k), v in, out and den out; backward those, out, den and dO
-    in, three gradients out)."""
+    shape on tensors of ``elem`` bytes an element (den too), counted as
+    kernel C's attention: per chunk of c rows (the JAX kernel's 128, the
+    last one ragged: only the rows the data has) a score product counts its
+    causal half, c (c + 1) e operations, and a state product (q S, S +=
+    k^T v, ...) 2 c e^2; forward 2 + 2 of them, backward 6 + 5.  Bytes:
+    each input read once, each output written once (forward phi(q), phi(k),
+    v in, out and den out; backward those, out, den and dO in, three
+    gradients out)."""
     tri = state = 0
     for t0 in range(0, s, chunk):
         c = min(chunk, s - t0)
@@ -667,8 +718,8 @@ def causal_product_work(b, h, s, e, chunk=128):
         state += 2 * c * e * e
     tri, state = b * h * tri, b * h * state
     n, rows = b * h * s * e, b * h * s
-    return ((2 * tri + 2 * state, 4 * (4 * n + rows)),
-            (6 * tri + 5 * state, 4 * (8 * n + rows)))
+    return ((2 * tri + 2 * state, elem * (4 * n + rows)),
+            (6 * tri + 5 * state, elem * (8 * n + rows)))
 
 
 TAIL_GRADS = ("dh_in", "da_pre", "dWo", "dbo", "dln1_s", "dln1_b", "dW1", "db1", "dW2", "db2",
@@ -756,14 +807,15 @@ def chunk_work(b, T, L, d, di, h, *, w_bytes, s_bytes, fold_rows, nf=FIELDS, vf=
     return ops, nbytes_, T * (layers + state)
 
 
-def window_work(b, h, s, d, w, mask):
+def window_work(b, h, s, d, w, mask, elem=4):
     """(forward, backward) (operations, bytes) of band attention at this
-    shape, the (query, key) pairs they count, and the pairs whose query and
-    key are both kept.  The count takes every query with the keys of
-    [q - w, q + w] within [0, S): the function's padded rows are outputs
-    too.  Forward: 2 products (2 operations a pair and a column each);
-    backward: 5 (S recomputed, dP, dV, dQ, dK).  Bytes: each input read
-    once, each output written once."""
+    shape on q, k, v, out and their gradients of ``elem`` bytes an element
+    (the mask and the row LSE f32), the (query, key) pairs they count, and
+    the pairs whose query and key are both kept.  The count takes every
+    query with the keys of [q - w, q + w] within [0, S): the function's
+    padded rows are outputs too.  Forward: 2 products (2 operations a pair
+    and a column each); backward: 5 (S recomputed, dP, dV, dQ, dK).  Bytes:
+    each input read once, each output written once."""
     q = torch.arange(s, dtype=torch.int64)
     lo, hi = torch.clamp(q - w, min=0), torch.clamp(q + w, max=s - 1)
     pairs = b * h * int((hi - lo + 1).sum())
@@ -771,8 +823,8 @@ def window_work(b, h, s, d, w, mask):
     cs = torch.nn.functional.pad(keep.cumsum(1), (1, 0))
     kept_pairs = h * int(((cs[:, hi + 1] - cs[:, lo]) * keep).sum())
     n, rows = b * h * s * d, b * h * s
-    f_bytes = 4 * (3 * n + b * s + n + rows)
-    b_bytes = 4 * (5 * n + rows + b * s + 3 * n)
+    f_bytes = elem * (3 * n + n) + 4 * (b * s + rows)
+    b_bytes = elem * (5 * n + 3 * n) + 4 * (rows + b * s)
     return (4 * pairs * d, f_bytes), (10 * pairs * d, b_bytes), pairs, kept_pairs
 
 
@@ -860,22 +912,137 @@ def qkv_bf16_readings(tab, h, wqkv, bqkv, g, n_seq, n_head, chunk):
             for name, x, y, z in zip(C_BF16_GATES, (ok, *gk), (op, *gp), oc)}
 
 
-def qkv_bf16_gate_failures(readings):
-    """What C_BF16_GATES refuses in qkv_bf16_readings' result: the kernel
-    above a limit, or the control not above the mean limit."""
+def bf16_gate_failures(readings, gates, controls):
+    """What ``gates`` ({tensor: (max share, mean share)}) refuses in a bf16
+    readings dict ({tensor: {"kernel": shares, <control>: shares, "finite",
+    "dtype"}}): the kernel above a limit, not finite or not in the inputs'
+    type, or a control (``controls``: {key: what it is}; a tensor may lack
+    one) not above the mean limit."""
     bad = []
     for name, r in readings.items():
-        (k_max, k_mean), c_mean = r["kernel"], r["control"][1]
-        g_max, g_mean = C_BF16_GATES[name]
+        k_max, k_mean = r["kernel"]
+        g_max, g_mean = gates[name]
         if not r["finite"] or not r["dtype"]:
             bad.append(f"{name}: not finite, or not in the inputs' type")
         if k_max > g_max or k_mean > g_mean:
             bad.append(f"{name}: max / mean share {k_max:.3e} / {k_mean:.3e} above "
                        f"{g_max:.3e} / {g_mean:.3e}")
-        if not c_mean > g_mean:
-            bad.append(f"{name}: the rounded-residual control's mean share {c_mean:.3e} is not "
-                       f"above {g_mean:.3e}")
+        for key, what in controls.items():
+            if key in r and not r[key][1] > g_mean:
+                bad.append(f"{name}: {what}'s mean share {r[key][1]:.3e} is not above "
+                           f"{g_mean:.3e}")
     return bad
+
+
+def qkv_bf16_gate_failures(readings):
+    """What C_BF16_GATES refuses in qkv_bf16_readings' result: the kernel
+    above a limit, or the control not above the mean limit."""
+    return bf16_gate_failures(readings, C_BF16_GATES, {"control": "the rounded-residual control"})
+
+
+def product_bf16_readings(tlk, tla, pq, pk, v, g, eps, chunk):
+    """Kernel F on bf16 tensors against its twin of JAX's bf16 arithmetic:
+    for out, den, dq, dk and dv, {"kernel": shares, "control": shares,
+    "control_f32_route": shares, "finite", "dtype": in the inputs' type},
+    shares = bf16_shares against the twin.  The controls: the chunked
+    composition in bf16 arithmetic (every product rounded), and, for the
+    gradients, F's f32 route on the inputs widened to f32 (den unrounded,
+    dnum and dd formed in f32), its outputs rounded to bf16 (on out and den
+    it rounds the twin's f32 values: no control there).  Returns (readings,
+    the kernel's five tensors)."""
+    def run(fn):
+        ts = [t.detach().clone().requires_grad_(True) for t in (pq, pk, v)]
+        out, den = fn(*ts)
+        return (out.detach(), den, *torch.autograd.grad(out, ts, g))
+
+    ok = run(lambda *a: tlk.causal_product(*a, eps))
+    op = run(lambda *a: tlk.causal_product_plain(*a, eps, chunk))
+    t = lambda x: x.transpose(1, 2)
+    oc = run(lambda a, b, c: tuple(x.transpose(1, 2) for x in tla._ChunkedCore.apply(
+        t(a), t(b), t(c), eps, chunk)))
+    with torch.no_grad():
+        wide = [x.float() for x in (pq, pk, v)]
+        o32, d32 = tlk.forward_kernel(*wide, eps)
+        of = (o32, d32, *tlk.backward_kernel(*wide, o32, d32, g.float(), eps))
+    readings = {}
+    for name, x, y, z, f in zip(F_BF16_GATES, ok, op, oc, of):
+        r = {"kernel": bf16_shares(x, y), "control": bf16_shares(z, y), "max_abs": max_err(x, y),
+             "finite": bool(torch.isfinite(x.float()).all()), "dtype": x.dtype == pq.dtype}
+        if name not in ("out", "den"):
+            r["control_f32_route"] = bf16_shares(f.to(pq.dtype), y)
+        readings[name] = r
+    return readings, ok
+
+
+def band_rounded_control(twk, q, k, v, mask, window, g):
+    """Kernel E's twin with the flash-attention shortcut that JAX's kernel
+    does not take: P rounded to q's type before P v and P^T dO, and dS
+    before dS k and dS^T q; the rest as the twin (f32 from the widened
+    inputs, dr = sum(dO out) from the rounded out, every output rounded on
+    store) -> (out, dq, dk, dv).  Blocked over the queries as the twin.  A
+    control of phase 7's bf16 gate; at float32 every rounding is the
+    identity and it is the twin's function."""
+    dt, dev = q.dtype, q.device
+    rnd = lambda x: x.to(dt).float()
+    b, h, s, d = q.shape
+    w = max(1, window // 2)
+    blk = min(twk.pick_blocks(s, window)[0], s)
+    pad_s, scale = (-s) % blk, 1.0 / math.sqrt(d)
+    kw = blk + 2 * w
+    pad = torch.nn.functional.pad
+    qp, gp = pad(q.float(), (0, 0, 0, pad_s)), pad(g.float(), (0, 0, 0, pad_s))
+    kp, vp = pad(k.float(), (0, 0, w, w + pad_s)), pad(v.float(), (0, 0, w, w + pad_s))
+    keep = torch.ones((b, s), device=dev) if mask is None else mask
+    mp = pad(keep.float(), (w, w + pad_s)) > 0
+    row = torch.arange(blk, device=dev)[:, None]
+    col = torch.arange(kw, device=dev)[None, :]
+    out, dq = torch.empty_like(qp), torch.empty_like(qp)
+    dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
+    for qs in range(0, s + pad_s, blk):
+        key = qs - w + col
+        band = ((col >= row) & (col <= row + 2 * w) & (key >= 0) & (key < s)) | (qs + row >= s)
+        kept = mp[:, None, None, qs:qs + kw]
+        qb, gb, kb, vb = qp[:, :, qs:qs + blk], gp[:, :, qs:qs + blk], kp[:, :, qs:qs + kw], \
+            vp[:, :, qs:qs + kw]
+        sc = torch.where(kept, torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale, twk.NEG_INF)
+        p = torch.softmax(sc.masked_fill(~band, float("-inf")), dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", rnd(p), vb)
+        out[:, :, qs:qs + blk] = o
+        dr = (gb * rnd(o)).sum(-1, keepdim=True)
+        dp = torch.einsum("bhqd,bhkd->bhqk", gb, vb)
+        ds = rnd(torch.where(kept & band, p * (dp - dr), 0.0))
+        dq[:, :, qs:qs + blk] = torch.einsum("bhqk,bhkd->bhqd", ds, kb) * scale
+        dk[:, :, qs:qs + kw] += torch.einsum("bhqk,bhqd->bhkd", ds, qb) * scale
+        dv[:, :, qs:qs + kw] += torch.einsum("bhqk,bhqd->bhkd", rnd(p), gb)
+    return (out[:, :, :s].to(dt), dq[:, :, :s].to(dt), dk[:, :, w:w + s].to(dt),
+            dv[:, :, w:w + s].to(dt))
+
+
+def band_bf16_readings(twk, q, k, v, mask, window, g):
+    """Kernel E on bf16 tensors against its twin of JAX's bf16 arithmetic:
+    for out (the rows that see a kept key), dq, dk and dv, {"kernel":
+    shares, "control": shares of band_rounded_control, "finite", "dtype"},
+    shares = bf16_shares against the twin.  Returns (readings, the kernel's
+    four tensors)."""
+    def run(fn):
+        ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ts)
+        return (out.detach(), *torch.autograd.grad(out, ts, g))
+
+    ok = run(lambda *a: twk.window_attention_band(*a, mask, window))
+    op = run(lambda *a: twk.window_attention_band_plain(*a, mask, window)[0])
+    with torch.no_grad():
+        oc = band_rounded_control(twk, q, k, v, mask, window, g)
+    valid = (mask[:, None, :, None] > 0).to(q.dtype)
+    readings = {}
+    for name, x, y, z in zip(E_BF16_GATES, ok, op, oc):
+        keep = valid if name == "out" else 1
+        readings[name] = {"kernel": bf16_shares(x * keep, y * keep),
+                          "control": bf16_shares(z * keep, y * keep),
+                          "max_abs": max_err(x * keep, y * keep),
+                          "finite": bool(torch.isfinite(x.float()).all()),
+                          "dtype": x.dtype == q.dtype}
+    return readings, ok
 
 
 def as_bf16(tensors):
@@ -1893,6 +2060,7 @@ def main() -> None:
         from reinforcement_learning_in_music_generation_torch.ops import (
             _build, decode_kernel_v4 as dk4, decode_kernel_v6 as dk6,
             linear_attention as tla, sampling as smp)
+        from reinforcement_learning_in_music_generation_torch import utils as tu
     except ImportError as e:
         fail(f"the port's package is not importable ({e}); run from the repo root")
 
@@ -2147,9 +2315,11 @@ def main() -> None:
     check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-500:]}")
     e_mma = mma_counts(sass.stdout, "wa_")
     print(f"[window_attn] HMMA instructions in kernel E's passes: {e_mma}", flush=True)
-    check(all(sum(n > 0 and name in k for k, n in e_mma.items()) == 4
+    # each pass at four depths for f32 and for bf16 tensors
+    check(all(sum(n > 0 and name in k for k, n in e_mma.items()) == 8
+              and sum(n > 0 and name in k and "__nv_bfloat16" in k for k, n in e_mma.items()) == 4
               for name in ("wa_fwd_kernel", "wa_dq_kernel", "wa_dkv_kernel")),
-          f"window_attn: a pass without tensor-core instructions at some depth ({e_mma})")
+          f"window_attn: a pass without tensor-core instructions at some depth or type ({e_mma})")
 
     hfix = torch.randn((b6, D), generator=gen, device=dev)
     for greedy in (False, True):
@@ -2409,7 +2579,69 @@ def main() -> None:
         check(counts == want, f"train step, {name} route: launches {counts}, expected {want}")
     restore_env()
     check_step("train_step", step_out["kernel"], step_out["plain"])
-    del step_out, p0
+    del step_out
+
+    # -- 5b. remat: the step with every layer under torch.utils.checkpoint --
+    # C + D (the default route at 16384 rows), dropout 0.1, f32 and bf16, the
+    # same generator seed with and without remat: loss and gradients under
+    # phase 5's checks, the generator's state after the step equal (the
+    # recompute replays each layer's dropout seeds), C's and D's forward
+    # counters at two calls a layer and step (the recompute), backward at
+    # one; the peak device memory of the remat step below the other's
+    remat_t = {}
+    for dt in ("float32", "bfloat16"):
+        rr = {}
+        for r in (False, True):
+            mcfg = C.agent_config(cfg.vocab_sizes, dropout=0.1, remat=r, dtype=dt)
+            set_env(routes["kernel"])
+            prm = topt.tree_map(torch.clone, p0)
+            gen_r = torch.Generator(device=dev)
+            gen_r.manual_seed(4321)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            zero_counts()
+            grads, (loss, _) = tpre.agent_grad_step(prm, mcfg, xs.long(), ys.long(), ms, gen_r)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            counts = read_counts()
+            rr[r] = dict(loss=float(loss), grads=named_leaves(grads), state=gen_r.get_state(),
+                         peak=peak, peak_above_resident=peak - before, counts=counts)
+            del grads
+            t = time.perf_counter()
+            for _ in range(2):
+                tpre.agent_grad_step(prm, mcfg, xs.long(), ys.long(), ms, gen_r)
+            torch.cuda.synchronize()
+            rr[r]["ms"] = (time.perf_counter() - t) / 2 * 1e3
+            del prm
+        restore_env()
+        a, b = rr[False], rr[True]
+        rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+        g_worst = max((max_err(b["grads"][k], a["grads"][k])
+                       / max(a["grads"][k].abs().max().item(), 1e-30), k) for k in a["grads"])
+        print(f"[remat] {dt}, C + D, dropout 0.1: loss {b['loss']:.7f} with remat, "
+              f"{a['loss']:.7f} without ({'bit-equal' if b['loss'] == a['loss'] else 'relative'} "
+              f"{rel:.2e}); gradients: worst max|diff| / leaf magnitude {g_worst[0]:.3e} "
+              f"({g_worst[1]}); generator state after the step "
+              f"{'equal' if torch.equal(a['state'], b['state']) else 'DIFFERENT'}; peak device "
+              f"memory {b['peak'] / 2**20:.1f} MiB with remat, {a['peak'] / 2**20:.1f} without "
+              f"({b['peak_above_resident'] / 2**20:.1f} / {a['peak_above_resident'] / 2**20:.1f} "
+              f"MiB above what was resident); {b['ms']:.1f} / {a['ms']:.1f} ms a step "
+              f"(gradients only); launches (C, D, E, F, G fwd/bwd) {b['counts']} / {a['counts']} "
+              f"({smi_line})", flush=True)
+        L2 = tcfg.n_layer
+        check(a["counts"] == [L2] * 4 + [0] * 6 and
+              b["counts"] == [2 * L2, L2, 2 * L2, L2] + [0] * 6,
+              f"remat {dt}: launches {b['counts']} with remat, {a['counts']} without")
+        check(rel <= 1e-4, f"remat {dt}: losses differ by {rel} relative")
+        check(g_worst[0] <= 1e-3, f"remat {dt}: gradient {g_worst[1]} differs by {g_worst[0]}")
+        check(torch.equal(a["state"], b["state"]), f"remat {dt}: the generator ends elsewhere")
+        check(b["peak"] < a["peak"], f"remat {dt}: peak {b['peak']} not below {a['peak']}")
+        remat_t[dt] = {f"{k}_{'remat' if r else 'plain'}": v for r, d_ in rr.items()
+                       for k, v in d_.items() if k in ("loss", "peak", "peak_above_resident", "ms")}
+        del rr, a, b
+    del p0
 
     # -- 6. the training main path: cli pretrain, 4 steps at B=32 x S=512 ---
     # (route, dtype): the kernel route also at --dtype bfloat16 (C + D on
@@ -2442,6 +2674,53 @@ def main() -> None:
             check(counts == want, f"pretrain {name} {dt}: launches {counts}, expected {want}")
             check(c_runs == tuple(want[:2]), f"pretrain {name} {dt}: C counted {c_runs} runs, "
                                              f"expected {tuple(want[:2])}")
+        # kernel F on bf16 tensors: --dtype bfloat16 under RLMG_ATTN_BACKEND=pallas
+        # (the unfused layer, its attention kernel F at every layer), then
+        # one profiled step of that route under utils.profile_trace
+        set_env({"RLMG_ATTN_BACKEND": "pallas"})
+        zero_counts()
+        tlk.kernel_runs(reset=True)
+        res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64", "--batch-size",
+                        str(BT), "--seq-len", str(ST), "--max-steps", "4", "--dtype", "bfloat16",
+                        "--exp-dir", os.path.join(tmp, "f16", "exp"),
+                        "--ckpt-dir", os.path.join(tmp, "f16", "ckpt")])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        f_runs16 = tlk.kernel_runs()
+        ms_step = res["seconds"] / res["steps"] * 1e3
+        print(f"[pretrain] kernel-F route, bfloat16: {res['steps']} steps in {res['seconds']:.3f}s "
+              f"= {ms_step:.1f} ms/step, {res['tokens_per_s']:.1f} tokens/s; logged losses "
+              f"{res['batch_losses']}; launches (C, D, E, F, G fwd/bwd) {counts}; F's runs as it "
+              f"counts them {f_runs16}", flush=True)
+        check(res["steps"] == 4, f"pretrain on kernel F's route, bf16: {res['steps']} steps")
+        check(len(res["batch_losses"]) > 0 and all(
+            math.isfinite(v) for v in res["batch_losses"] + res["history"]),
+            "pretrain on kernel F's route, bf16: a logged loss is not finite")
+        want = [0] * 6 + [12 * 4, 12 * 4, 0, 0]
+        check(counts == want, f"pretrain on kernel F's route, bf16: launches {counts}, expected "
+                              f"{want}")
+        check(list(f_runs16) == want[6:8], f"pretrain on kernel F's route, bf16: F counted "
+                                           f"{f_runs16} runs")
+        launches["F_bf16"] = counts[6:8]
+        pcfg = C.agent_config(cfg.vocab_sizes, dtype="bfloat16")
+        prm = lt.init_params(pcfg, seed=0, device=dev)
+        ptx = topt.adam(1e-4, grad_clip=3.0)
+        pst = ptx.init(prm)
+        gen_p = torch.Generator(device=dev)
+        gen_p.manual_seed(0)
+        prm, pst, _ = tpre.agent_train_step(prm, pst, pcfg, ptx, xs.long(), ys.long(), ms, gen_p)
+        trace_dir = os.path.join(tmp, "trace")
+        with tu.profile_trace(trace_dir):
+            tpre.agent_train_step(prm, pst, pcfg, ptx, xs.long(), ys.long(), ms, gen_p)
+            torch.cuda.synchronize()
+        f16_top = tu.summarize_trace(trace_dir, top=5)
+        print("[pretrain] kernel-F route, bfloat16, one profiled step: the top five kinds of "
+              "device time " + "; ".join(f"{k} {us:.1f} us ({n:g} calls)" for k, us, n in f16_top),
+              flush=True)
+        f16_kinds = [k for k, _, _ in tu.summarize_trace(trace_dir, top=1000)]
+        print(f"[pretrain] the profiled step's kinds: {len(f16_kinds)}, kernel F's passes "
+              f"{[k for k in f16_kinds if 'cpk::' in k]}", flush=True)
+        del prm, pst
     restore_env()
     launches["C"] = list(cli_res["kernel", "float32"][2])
     launches["C_bf16"] = list(cli_res["kernel", "bfloat16"][2])
@@ -2516,6 +2795,24 @@ def main() -> None:
                   f"window_attn: the gates would pass bf16-rounded inputs ({e_ctl})")
             del oc, gc
         del ok, gk, op, gp
+    # bf16 tensors: E against its twin of JAX's bf16 arithmetic (f32 scores,
+    # softmax and products, out and the gradients rounded on store, dr from
+    # the rounded out), the synthetic padding; every tensor within
+    # E_BF16_GATES, the control (P and dS rounded before their products)
+    # above the mean limits
+    e16_in = as_bf16(band_inputs())
+    e_read16, e16_out = band_bf16_readings(twk, *e16_in[:3], dms, WIN,
+                                           e16_in[3] * dms[:, None, :, None].bfloat16())
+    for name, r in e_read16.items():
+        print(f"[window_attn] bf16 {name}: max / mean share {r['kernel'][0]:.3e} / "
+              f"{r['kernel'][1]:.3e} (gate {E_BF16_GATES[name][0]:.3e} / "
+              f"{E_BF16_GATES[name][1]:.3e}); the P / dS rounded control {r['control'][0]:.3e} / "
+              f"{r['control'][1]:.3e}", flush=True)
+    for msg in bf16_gate_failures(e_read16, E_BF16_GATES,
+                                  {"control": "the P / dS rounded control"}):
+        fail(f"window_attn bf16 {msg}")
+    e_err16 = e_read16["out"]["max_abs"]
+    del e16_in, e16_out
     # the library yardstick: one PyTorch call with the (B, 1, S, S) additive mask
     q_e, k_e, v_e, g_e = band_inputs()
     g_e = g_e * dms[:, None, :, None]
@@ -2561,7 +2858,25 @@ def main() -> None:
         check(counts == dwant[name],
               f"discrim step, {name} route: launches {counts}, expected {dwant[name]}")
         torch.cuda.empty_cache()
+    # bf16 parameters under RLMG_WINDOW_BACKEND=pallas: kernel E on bf16
+    # tensors in every layer, forward and backward
+    set_env(droutes["window"])
+    dp16 = lt.cast_params(dp0, bf16)
+    zero_counts()
+    grads16, (loss16, _) = tpre.longformer_grad_step(dp16, dcfg, dxs.long(), dys.long(), dms,
+                                                     None)
+    torch.cuda.synchronize()
+    counts = read_counts()
     restore_env()
+    finite16 = all(bool(torch.isfinite(g_.float()).all()) for g_ in named_leaves(grads16).values())
+    print(f"[discrim_step] window route, bf16 parameters: loss {float(loss16):.6f}, gradients "
+          f"finite: {finite16}; launches (C, D, E, F, G fwd/bwd) {counts}", flush=True)
+    check(math.isfinite(float(loss16)) and finite16,
+          "discrim step, bf16 parameters: a loss or gradient is not finite")
+    check(counts == dwant["window"], f"discrim step, bf16 parameters: launches {counts}, "
+                                     f"expected {dwant['window']}")
+    launches["E_bf16"] = counts[4:6]
+    del dp16, grads16
     for name in ("default", "window"):
         check_step(f"discrim_step {name}", dstep_out[name], dstep_out["plain"],
                    zero_grads=("/layers/wk/b",))
@@ -2648,8 +2963,37 @@ def main() -> None:
         print(f"[causal_product] {tag}: two backward runs {'bit-equal' if same else 'DIFFERENT'}",
               flush=True)
         check(same, f"causal_product {tag}: two backward runs differ")
+    # bf16 tensors in the model's layout: F against its twin of JAX's bf16
+    # arithmetic (f32 products, out and den rounded on store, dnum / dd in
+    # bf16 arithmetic from them) at the rollout, ragged and pretrain shapes:
+    # every tensor within F_BF16_GATES, the bf16 composition above every mean
+    # limit and F's f32 route (den unrounded) above the gradients'; two
+    # backward runs bit-equal
+    f_read16 = {}
+    for tag in ("rollout", "ragged", "pretrain"):
+        pq, pk, v_f, g_f = as_bf16(f_in[tag])
+        f_read16[tag], _ = product_bf16_readings(tlk, tla, pq, pk, v_f, g_f, cfg.attn_eps,
+                                                 CHUNK)
+        for name, r in f_read16[tag].items():
+            f32r = (f"; F's f32 route {r['control_f32_route'][0]:.3e} / "
+                    f"{r['control_f32_route'][1]:.3e}" if "control_f32_route" in r else "")
+            print(f"[causal_product] bf16 {tag} {name}: max / mean share {r['kernel'][0]:.3e} / "
+                  f"{r['kernel'][1]:.3e} (gate {F_BF16_GATES[name][0]:.3e} / "
+                  f"{F_BF16_GATES[name][1]:.3e}); the bf16 composition {r['control'][0]:.3e} / "
+                  f"{r['control'][1]:.3e}{f32r}", flush=True)
+        for msg in bf16_gate_failures(f_read16[tag], F_BF16_GATES,
+                                      {"control": "the bf16 composition",
+                                       "control_f32_route": "F's f32 route"}):
+            fail(f"causal_product bf16 {tag} {msg}")
+        out_f, den_f = tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps)
+        g1 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
+        g2 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(g1, g2))
+        print(f"[causal_product] bf16 {tag}: two backward runs "
+              f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+        check(same, f"causal_product bf16 {tag}: two backward runs differ")
     pq, pk, v_f, g_f = f_in["ragged"]
-    for what, bad in (("bfloat16", (pq.bfloat16(), pk.bfloat16(), v_f.bfloat16())),
+    for what, bad in (("float64", (pq.double(), pk.double(), v_f.double())),
                       ("head width 72", (torch.ones((1, H, SQ, 72), device=dev),) * 3)):
         try:
             tlk.causal_product(*bad)
@@ -3393,6 +3737,33 @@ def main() -> None:
           f"{e_bb:.4f} {e_bbby}, f32 FMA bound {e_fma_b:.4f}, {eb_ops / 1e9:.2f} GFLOP); bounds "
           f"count {pairs} (query, key) pairs of the band; the {kept_pairs} with both kept would "
           f"give {ek_bf:.4f} / {ek_bb:.4f} ms")
+    # E on bf16 tensors at the same shape: the bound at bf16 bytes and the
+    # bf16 peak (the least the card could take for bf16 inputs), the rate of
+    # the kernel's f32-grade products (989/6) beside; the library call on the
+    # same bf16 tensors with the mask in bf16
+    e16 = as_bf16((q_e, k_e, v_e))
+    g_e16, mask16 = g_e.bfloat16(), lib_mask.bfloat16()
+    e16_f, e16_b = time_fwd_bwd(e_kernel(dms), e16, g_e16, 20)
+    e16_pf, e16_pb = time_fwd_bwd(e_plain(dms), e16, g_e16, 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    e16_lf, e16_lb = time_fwd_bwd(lambda q_, k_, v_: sdpa(q_, k_, v_, attn_mask=mask16), e16,
+                                  g_e16, 10)
+    (f16_ops, f16_b), (b16_ops, b16_b), _, _ = window_work(BD, HD, SD, ED, WD, dms, elem=2)
+    e16_bf, e16_bfby = bound(f16_b, f16_ops, BF16_FLOPS)
+    e16_bb, e16_bbby = bound(b16_b, b16_ops, BF16_FLOPS)
+    e16_gf, e16_gb = bound(f16_b, f16_ops, SPLIT_BF16_FLOPS)[0], bound(b16_b, b16_ops,
+                                                                      SPLIT_BF16_FLOPS)[0]
+    e16_dev_f = device_ms(lambda: twk.forward_kernel(*e16, dms, WIN), 10)
+    o16, st16 = twk.forward_kernel(*e16, dms, WIN)
+    e16_dev_b = device_ms(lambda: twk.backward_kernel(*e16, dms, o16, st16, g_e16, WIN), 10)
+    print(f"[time] window_attention bf16 B={BD} H={HD} S={SD} D={ED} w={WD}: forward "
+          f"{e16_f:.3f} ms (device {e16_dev_f:.4f}; plain {e16_pf:.3f}, library {e16_lf:.3f}, "
+          f"bound {e16_bf:.4f} {e16_bfby}, at the f32-grade products' rate {e16_gf:.4f}; "
+          f"{f16_b / 1e6:.1f} MB), backward {e16_b:.3f} ms (device {e16_dev_b:.4f}; plain "
+          f"{e16_pb:.3f}, library {e16_lb:.3f}, bound {e16_bb:.4f} {e16_bbby}, at the "
+          f"f32-grade products' rate {e16_gb:.4f}; {b16_b / 1e6:.1f} MB) ({smi_line})",
+          flush=True)
+    del e16, g_e16, mask16, o16, st16
     print(f"[time] discriminator-LM step B={BD} S={SD}: default route (kernel D) "
           f"{dstep_ms['default']:.1f} ms, window route (kernel E) {dstep_ms['window']:.1f} ms, "
           f"plain route {dstep_ms['plain']:.1f} ms")
@@ -3434,6 +3805,34 @@ def main() -> None:
               f"(device {dbk:.4f}, backward_kernel back to back {hbk:.4f}; plain {bp:.4f}, "
               f"bound {bb:.5f} {bbby}, f32 FMA bound {fma_b:.5f}; {fb_ops / 1e9:.3f} GFLOP, "
               f"{fb_b / 1e6:.1f} MB; {n_bl} CUDA launches)", flush=True)
+    # F on bf16 tensors at the rollout, ragged and pretrain shapes: bounds at
+    # bf16 bytes and the bf16 peak, the rate of its f32-grade products beside
+    f16_t = {}
+    for tag in ("rollout", "ragged", "pretrain"):
+        pq, pk, v_f, g_f = as_bf16(f_in[tag])
+        reps = 50 if tag != "pretrain" else 20
+        fk, bk = time_fwd_bwd(f_kernel, (pq, pk, v_f), g_f, reps)
+        fp, bp = time_fwd_bwd(f_plain, (pq, pk, v_f), g_f, 10)
+        o_f, d_f = tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps)
+        dfk = device_ms(lambda: tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps), reps)
+        dbk = device_ms(lambda: tlk.backward_kernel(pq, pk, v_f, o_f, d_f, g_f, cfg.attn_eps),
+                        reps)
+        (ff_ops, ff_b), (fb_ops, fb_b) = causal_product_work(*f_shapes[tag], elem=2)
+        (bf, bfby), (bb, bbby) = bound(ff_b, ff_ops, BF16_FLOPS), bound(fb_b, fb_ops, BF16_FLOPS)
+        gf, gb = bound(ff_b, ff_ops, SPLIT_BF16_FLOPS)[0], bound(fb_b, fb_ops, SPLIT_BF16_FLOPS)[0]
+        f16_t[tag] = dict(ms_fwd=fk, ms_bwd=bk, device_ms_fwd=dfk, device_ms_bwd=dbk,
+                          plain_ms_fwd=fp, plain_ms_bwd=bp, bound_ms_fwd=bf, bound_ms_bwd=bb,
+                          bound_by_fwd=bfby, bound_by_bwd=bbby,
+                          bound_by=bound(ff_b + fb_b, ff_ops + fb_ops, BF16_FLOPS)[1],
+                          f32_grade_bound_ms_fwd=gf, f32_grade_bound_ms_bwd=gb,
+                          mb_fwd=ff_b / 1e6, mb_bwd=fb_b / 1e6,
+                          max_abs_err=f_read16[tag]["out"]["max_abs"],
+                          shares={n_: r["kernel"] for n_, r in f_read16[tag].items()})
+        print(f"[time] causal_product bf16 {tag} {f_shapes[tag]}: forward {fk:.4f} ms through "
+              f"the wrapper (device {dfk:.4f}; plain {fp:.4f}, bound {bf:.5f} {bfby}, at the "
+              f"f32-grade products' rate {gf:.5f}; {ff_b / 1e6:.1f} MB), backward {bk:.4f} ms "
+              f"(device {dbk:.4f}; plain {bp:.4f}, bound {bb:.5f} {bbby}, at the f32-grade "
+              f"products' rate {gb:.5f}; {fb_b / 1e6:.1f} MB) ({smi_line})", flush=True)
     print(f"[time] DQN update B={BQ} x S={SQ}: default route {q_ms['default']:.1f} ms, kernel-F "
           f"route {q_ms['kernel']:.1f} ms")
 
@@ -3584,6 +3983,41 @@ def main() -> None:
                                  "host_launches_graphed": v["window_graphed"]["host_launches"],
                                  "host_launches_eager": v["window_eager"]["host_launches"]}
                               for k, v in q_roll.items()}},
+        # F on bf16 tensors at the pretrain shape, the main path's (cli pretrain
+        # --dtype bfloat16 under RLMG_ATTN_BACKEND=pallas, phase 6); bound at
+        # bf16 bytes and the bf16 peak, the rate of its f32-grade products
+        # beside; the rollout and ragged shapes beside
+        {"name": "causal_product_bf16", "route": "cuda",
+         "source": f"{pkg}/csrc/causal_product.cu",
+         "replaces": f"{tpu}/linear_attention.py:225", "launches": sum(launches["F_bf16"]),
+         "launches_fwd": launches["F_bf16"][0], "launches_bwd": launches["F_bf16"][1],
+         "dtype": "bfloat16", "max_abs_err": f16_t["pretrain"]["max_abs_err"],
+         "ms": f16_t["pretrain"]["ms_fwd"] + f16_t["pretrain"]["ms_bwd"],
+         "device_ms": f16_t["pretrain"]["device_ms_fwd"] + f16_t["pretrain"]["device_ms_bwd"],
+         "plain_ms": f16_t["pretrain"]["plain_ms_fwd"] + f16_t["pretrain"]["plain_ms_bwd"],
+         "bound_ms": f16_t["pretrain"]["bound_ms_fwd"] + f16_t["pretrain"]["bound_ms_bwd"],
+         "bound_by": f16_t["pretrain"]["bound_by"], "library_ms": None,
+         "f32_grade_bound_ms": f16_t["pretrain"]["f32_grade_bound_ms_fwd"]
+         + f16_t["pretrain"]["f32_grade_bound_ms_bwd"],
+         "bf16_gates": F_BF16_GATES, "readings": f_read16,
+         **{f"{tag}_shape": f16_t[tag] for tag in f16_t},
+         "pretrain_profiled_step_top5": f16_top, "remat": remat_t},
+        # E on bf16 tensors at the discriminator LM's shape (the LM with bf16
+        # parameters under RLMG_WINDOW_BACKEND=pallas, phase 9); bound at
+        # bf16 bytes and the bf16 peak, the f32-grade rate beside; the
+        # library call on the same bf16 tensors
+        {"name": "window_attention_band_bf16", "route": "cuda",
+         "source": f"{pkg}/csrc/window_attention.cu",
+         "replaces": f"{tpu}/window_attention_kernel.py:203", "launches": sum(launches["E_bf16"]),
+         "launches_fwd": launches["E_bf16"][0], "launches_bwd": launches["E_bf16"][1],
+         "dtype": "bfloat16", "max_abs_err": e_err16, "ms": e16_f + e16_b, "ms_fwd": e16_f,
+         "ms_bwd": e16_b, "device_ms_fwd": e16_dev_f, "device_ms_bwd": e16_dev_b,
+         "plain_ms": e16_pf + e16_pb, "bound_ms": e16_bf + e16_bb, "bound_ms_fwd": e16_bf,
+         "bound_ms_bwd": e16_bb, "bound_by": e16_bfby if e16_bfby == e16_bbby else "operations",
+         "f32_grade_bound_ms_fwd": e16_gf, "f32_grade_bound_ms_bwd": e16_gb,
+         "library_ms": e16_lf + e16_lb, "library_ms_fwd": e16_lf, "library_ms_bwd": e16_lb,
+         "bf16_gates": E_BF16_GATES, "readings": e_read16,
+         "hmma_bf16": {k: n for k, n in e_mma.items() if "__nv_bfloat16" in k}},
         # G at a PPO update's 1500 rows, f32; no single PyTorch call computes
         # LN(h + FFN(h)); every shape at both dtypes beside
         {"name": "ffn_block", "route": "cuda", "source": f"{pkg}/csrc/ffn_block.cu",

@@ -30,7 +30,7 @@ class LinearTransformerConfig:
     attn_eps: float = 1e-6         # linear-attention denominator epsilon
     attn_chunk: int = 128          # linear-attention chunk length
     attn_backend: Optional[str] = None  # 'xla' / 'pallas-qkv' / 'pallas'; None = auto/env
-    remat: bool = False            # per-layer recompute (not ported: raises)
+    remat: bool = False            # per-layer recompute (torch.utils.checkpoint)
     with_value_head: bool = False  # PPO actor adds one
     dtype: str = "float32"         # compute dtype ("bfloat16": f32 master weights)
 

@@ -5,21 +5,57 @@
 // _bwd_dkv_kernel), which replaced fast_transformers' causal_product.
 //
 // The passes, their bound and their design: causal_product.cuh (shared
-// with kernel C's attention half).  Here they run on f32 (B, H, S, E)
-// views: phi(q), phi(k), v, out and the gradients with batch / head / row
+// with kernel C's attention half).  Here they run on (B, H, S, E) views of
+// one type T, f32 or bf16 (JAX's kernel takes any dtype and computes in
+// f32): phi(q), phi(k), v, out and the gradients with batch / head / row
 // strides that are multiples of 4 elements, 16-byte aligned bases and a
 // unit last stride, so the (B, H, S, E) views of (B, S, H, E) projections
-// go in and come out without copies; den (B, H, S) contiguous.
+// go in and come out without copies; den (B, H, S) contiguous, in T.  At
+// bf16 the tiles are widened to f32 as they are staged, every product is
+// the f32-grade one of the f32 route, out and den are rounded on store,
+// and the backward forms dnum and dd in bf16 arithmetic from the rounded
+// out and den (Args<bf16, bf16, bf16>), where _fwd_pallas / _bwd_pallas
+// round.
 
 #include "causal_product.cuh"
 
 namespace rlmg {
 namespace cpk {
 
-using FArgs = Args<float, float>;
+template <typename T>
+inline Bhse<T> bhse(const void* p, const long long* s) {
+  return Bhse<T>{(const T*)p, s[0], s[1], s[2]};
+}
 
-inline Bhse<float> bhse(const void* p, const long long* s) {
-  return Bhse<float>{(const float*)p, s[0], s[1], s[2]};
+template <typename T>
+int fwd(const void* pq, const void* pk, const void* v, void* out, void* den, float* scratch,
+        const long long* strides, int B, int H, int S, int E, float eps, cudaStream_t st) {
+  using A = Args<T, T, T>;
+  A a = make_args<A>(H, S, E, eps, scratch);
+  a.q = bhse<T>(pq, strides);
+  a.k = bhse<T>(pk, strides + 3);
+  a.v = bhse<T>(v, strides + 6);
+  a.o = bhse<T>(out, strides + 9);
+  a.den = (T*)den;
+  return forward_any(a, B, st);
+}
+
+template <typename T>
+int bwd(const void* pq, const void* pk, const void* v, const void* out, const void* den,
+        const void* g, void* dq, void* dk, void* dv, float* scratch, const long long* strides,
+        int B, int H, int S, int E, float eps, cudaStream_t st) {
+  using A = Args<T, T, T>;
+  A a = make_args<A>(H, S, E, eps, scratch);
+  a.q = bhse<T>(pq, strides);
+  a.k = bhse<T>(pk, strides + 3);
+  a.v = bhse<T>(v, strides + 6);
+  a.o = bhse<T>(out, strides + 9);
+  a.g = bhse<T>(g, strides + 12);
+  a.dq = bhse<T>(dq, strides + 15);
+  a.dk = bhse<T>(dk, strides + 18);
+  a.dv = bhse<T>(dv, strides + 21);
+  a.den = (T*)const_cast<void*>(den);
+  return backward_any(a, B, st);
 }
 
 }  // namespace cpk
@@ -33,47 +69,37 @@ long long rlmg_causal_product_scratch_floats(int B, int H, int S, int E, int bac
   return rlmg::cpk::scratch_floats(B, H, S, E, backward);
 }
 
-// phi(q), phi(k), v (B, H, S, E) f32 -> out (B, H, S, E) and den (B, H, S).
-// strides: (batch, head, row) of phi(q), phi(k), v, out, in elements;
-// scratch: rlmg_causal_product_scratch_floats(..., 0) floats.  One launch
-// at S <= 64, else two (the state pass first).  Returns 0 or a CUDA error
-// code.
-int rlmg_causal_product_fwd(const void* pq, const void* pk, const void* v, void* out, float* den,
+// phi(q), phi(k), v (B, H, S, E) -> out (B, H, S, E) and den (B, H, S),
+// all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1).  strides: (batch, head, row)
+// of phi(q), phi(k), v, out, in elements; scratch:
+// rlmg_causal_product_scratch_floats(..., 0) floats.  One launch at S <=
+// 64, else two (the state pass first).  Returns 0 or a CUDA error code.
+int rlmg_causal_product_fwd(const void* pq, const void* pk, const void* v, void* out, void* den,
                             float* scratch, const long long* strides, int B, int H, int S,
-                            int E, float eps, void* stream) {
+                            int E, float eps, int is_bf16, void* stream) {
   using namespace rlmg::cpk;
   if (!shape_ok(B, H, S, E)) return (int)cudaErrorInvalidValue;
-  FArgs a = make_args<FArgs>(H, S, E, eps, scratch);
-  a.q = bhse(pq, strides);
-  a.k = bhse(pk, strides + 3);
-  a.v = bhse(v, strides + 6);
-  a.o = bhse(out, strides + 9);
-  a.den = den;
   const cudaStream_t st = (cudaStream_t)stream;
-  return forward_any(a, B, st);
+  if (is_bf16)
+    return fwd<__nv_bfloat16>(pq, pk, v, out, den, scratch, strides, B, H, S, E, eps, st);
+  return fwd<float>(pq, pk, v, out, den, scratch, strides, B, H, S, E, eps, st);
 }
 
-// From the forward's inputs, out and den and the upstream gradient g,
-// writes d phi(q), d phi(k), dv.  strides: (batch, head, row) of phi(q),
-// phi(k), v, out, g, dq, dk, dv; scratch: ..._scratch_floats(..., 1).
+// From the forward's inputs, out and den and the upstream gradient g, all
+// in the forward's type, writes d phi(q), d phi(k), dv in it.  strides:
+// (batch, head, row) of phi(q), phi(k), v, out, g, dq, dk, dv; scratch:
+// ..._scratch_floats(..., 1).
 int rlmg_causal_product_bwd(const void* pq, const void* pk, const void* v, const void* out,
-                            const float* den, const void* g, void* dq, void* dk, void* dv,
+                            const void* den, const void* g, void* dq, void* dk, void* dv,
                             float* scratch, const long long* strides, int B, int H, int S,
-                            int E, float eps, void* stream) {
+                            int E, float eps, int is_bf16, void* stream) {
   using namespace rlmg::cpk;
   if (!shape_ok(B, H, S, E)) return (int)cudaErrorInvalidValue;
-  FArgs a = make_args<FArgs>(H, S, E, eps, scratch);
-  a.q = bhse(pq, strides);
-  a.k = bhse(pk, strides + 3);
-  a.v = bhse(v, strides + 6);
-  a.o = bhse(out, strides + 9);
-  a.g = bhse(g, strides + 12);
-  a.dq = bhse(dq, strides + 15);
-  a.dk = bhse(dk, strides + 18);
-  a.dv = bhse(dv, strides + 21);
-  a.den = const_cast<float*>(den);
   const cudaStream_t st = (cudaStream_t)stream;
-  return backward_any(a, B, st);
+  if (is_bf16)
+    return bwd<__nv_bfloat16>(pq, pk, v, out, den, g, dq, dk, dv, scratch, strides, B, H, S, E,
+                              eps, st);
+  return bwd<float>(pq, pk, v, out, den, g, dq, dk, dv, scratch, strides, B, H, S, E, eps, st);
 }
 
 // Calls that ran to their end on the current card since the last reset,

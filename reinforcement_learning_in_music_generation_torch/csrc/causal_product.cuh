@@ -14,18 +14,25 @@
 // head / row strides in elements, multiples of 4, a unit last stride, so
 // the (B, H, S, E) views of (B, S, H, E) projections (F) and the heads of
 // kernel C's packed (N, 3D) rows [phi(q) | phi(k) | v] (strides (S 3D, E,
-// 3D)) go in and come out without copies; den (B, H, S) contiguous f32.
+// 3D)) go in and come out without copies; den (B, H, S) contiguous (f32,
+// or bf16 in F's bf16 instantiation).
 // E <= 64, a multiple of 4.
 //
 // IO policy, Args<TI, TO>: phi(q), phi(k), v and the upstream gradient are
 // read in TI, out is written (forward) and read (backward) in TO, the
 // gradients written in TO; f32 tiles are copied by cp.async, bf16 ones
 // loaded and converted to f32 as the tile is staged, so every product
-// sees f32 values.  F: <float, float>.  C: forward <float, T> on the
+// sees f32 values.  F: <float, float> and <bf16, bf16, bf16>.  C: forward <float, T> on the
 // projection's unrounded f32 values (att rounded to h's type T on store),
 // backward <T, T> on the stored residual, with fold set: d phi(q) and
 // d phi(k) leave the pass that writes them times phi' = min(phi, 1) of
-// the stored phi, as JAX's _qab_bwd folds them.
+// the stored phi, as JAX's _qab_bwd folds them.  The third parameter TD
+// is den's type: F's bf16 instantiation stores den rounded to bf16, as
+// _fwd_pallas returns it, and then forms the backward's dnum = g / (den +
+// eps) and dd = -sum(g out) / (den + eps) in bf16 arithmetic, as
+// _bwd_pallas forms them outside its kernels (each product g out rounded,
+// the sum taken in f32 and rounded, den + eps and each quotient rounded);
+// with an f32 den (F's f32 instantiation, C) they are f32.
 //
 // What binds.  At a rollout episode (1, 8, 50, 64) the forward is 9 MFLOP
 // and 0.4 MB: the launch and one round trip to memory bind, and a (head,
@@ -82,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "tc_mma.cuh"
 
@@ -111,12 +119,13 @@ struct Bhse {
 };
 
 // A call's tensors and shape: q, k, v, g read in TI; out written
-// (forward) or read (backward) in TO, dq, dk, dv written in TO.
-template <typename TI, typename TO>
+// (forward) or read (backward) in TO, dq, dk, dv written in TO; den in TD.
+template <typename TI, typename TO, typename TD = float>
 struct Args {
+  using Den = TD;
   Bhse<TI> q, k, v, g;
   Bhse<TO> o, dq, dk, dv;
-  float* den;        // (B, H, S) contiguous
+  TD* den;           // (B, H, S) contiguous
   float* scratch;    // S > T: per tile k^T [v|1] (and q^T [dnum|dd]), EP x KA each
   int H, S, E, EP, KA, NT;
   float eps;
@@ -140,6 +149,22 @@ __device__ __forceinline__ float2 ld2(const bf16* p) {
 }
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) / 16 * 16; }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void st1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st1(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+// x as the backward's dnum / dd arithmetic keeps it: rounded to bf16 where
+// den is stored in bf16 (JAX's bf16 arithmetic outside _bwd_pallas'
+// kernels), else as it is.
+template <class A>
+__device__ __forceinline__ float dna_round(float x) {
+  if constexpr (std::is_same<typename A::Den, bf16>::value) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
 
 // -- fragments -----------------------------------------------------------------
 
@@ -313,15 +338,24 @@ __device__ __forceinline__ void form_dd(float* dd, float* dv, int b, int h, int 
           y[c] = ld4(orow + 4 * (2 * c + part));
         }
 #pragma unroll
-      for (int c = 0; c < MAX_E / 8; ++c)
-        if (2 * c + part < a.E / 4)
+      for (int c = 0; c < MAX_E / 8; ++c) {
+        if (2 * c + part >= a.E / 4) continue;
+        if constexpr (std::is_same<typename A::Den, bf16>::value) {   // each g out rounded
+          s += dna_round<A>(x[c].x * y[c].x);
+          s += dna_round<A>(x[c].y * y[c].y);
+          s += dna_round<A>(x[c].z * y[c].z);
+          s += dna_round<A>(x[c].w * y[c].w);
+        } else {
           s = fmaf(x[c].w, y[c].w, fmaf(x[c].z, y[c].z, fmaf(x[c].y, y[c].y,
                                                              fmaf(x[c].x, y[c].x, s))));
+        }
+      }
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     if (part == 0) {
-      const float d = i < a.S ? a.den[((size_t)b * a.H + h) * a.S + i] + a.eps : 1.f;
-      dd[r] = -s / d;
+      const float d =
+          i < a.S ? dna_round<A>(to_f(a.den[((size_t)b * a.H + h) * a.S + i]) + a.eps) : 1.f;
+      dd[r] = dna_round<A>(-dna_round<A>(s) / d);
       dv[r] = d;
     }
   }
@@ -335,7 +369,7 @@ __device__ __forceinline__ void form_dnum(float* DN, int ld, const float* dd, co
   for (int idx = threadIdx.x; idx < n * c; idx += blockDim.x) {
     const int r = idx / c, f = idx % c;
     if (row0 + r >= a.S) continue;          // zeros already
-    DN[r * ld + f] = f == a.E ? dd[r] : DN[r * ld + f] / dv[r];
+    DN[r * ld + f] = f == a.E ? dd[r] : dna_round<A>(DN[r * ld + f] / dv[r]);
   }
 }
 __device__ __forceinline__ void count_run(int which) {
@@ -524,7 +558,8 @@ __device__ __forceinline__ void load_planes(bf16* P, int ld, int ps, const Bhse<
       if (idx >= total) continue;
       if (div != nullptr) {
         const float q = div[r];
-        v[u] = make_float4(v[u].x / q, v[u].y / q, v[u].z / q, v[u].w / q);
+        v[u] = make_float4(dna_round<A>(v[u].x / q), dna_round<A>(v[u].y / q),
+                           dna_round<A>(v[u].z / q), dna_round<A>(v[u].w / q));
       }
       st_planes4(P + r * ld + c, ps, v[u]);
     }
@@ -857,7 +892,7 @@ template <class A>
 __device__ __forceinline__ void reduce_out(const float* red, int ld, int w0, int w1, int nr,
                                            int b, int h, int row0, const A& a) {
   const int half = a.E / 2, rows = 16 * nr;
-  float* dn = a.den + ((size_t)b * a.H + h) * a.S;
+  auto* dn = a.den + ((size_t)b * a.H + h) * a.S;
   for (int idx = threadIdx.x; idx < rows * half; idx += blockDim.x) {
     const int i = idx / half, f = 2 * (idx % half);
     if (row0 + i >= a.S) continue;
@@ -870,7 +905,7 @@ __device__ __forceinline__ void reduce_out(const float* red, int ld, int w0, int
     }
     const float inv = 1.f / (ds + a.eps);
     st2(a.o.mut(b, h, row0 + i, f), x * inv, y * inv);
-    if (f == 0) dn[row0 + i] = ds;
+    if (f == 0) st1(dn + row0 + i, ds);
   }
 }
 

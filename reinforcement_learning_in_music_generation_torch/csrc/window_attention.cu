@@ -4,8 +4,14 @@
 // window_attention_pallas (its Pallas bodies _fwd_kernel, _dq_kernel and
 // _dkv_kernel).
 //
-// q, k, v, out (B, H, S, E) f32 with any batch / head / row strides (the last
-// dimension contiguous, rows of 16 bytes); mask (B, S) f32, 1 = keep.  Query
+// q, k, v, out (B, H, S, E) of one type T, f32 or bf16 (JAX's kernel takes
+// any dtype and computes in f32), with any batch / head / row strides that
+// are multiples of 4 elements (the last dimension contiguous); mask (B, S)
+// f32, 1 = keep.  At bf16 each tile is widened to f32 as it is staged (a
+// bf16 value is exact in f32, so its mid and lo planes are zeros and the
+// f32 route runs on it unchanged), out and the gradients are rounded on
+// store, the row statistics stay f32, and D = rowsum(dO * O) reads the
+// stored, rounded out, as _wa_bwd takes it.  Query
 // i sees key j when |i - j| <= w and j < S: keys outside that band are not
 // in the row's softmax (the kernels visit only the key tiles the band
 // touches, and drop the rest of a tile); a key inside it that the mask
@@ -94,14 +100,21 @@ constexpr float WA_FLOOR = -3.0e38f;     // running max before any key is seen
     if (e_ != cudaSuccess) return (int)e_;     \
   } while (0)
 
-// A (B, H, S, E) tensor: base and strides in elements (batch, head, row).
+// A (B, H, S, E) tensor of T: base and strides in elements (batch, head, row).
+template <typename T>
 struct Bhsd {
-  const float* p;
+  const T* p;
   long long sb, sh, ss;
-  __device__ __forceinline__ const float* row(int b, int h, int s) const {
+  __device__ __forceinline__ const T* row(int b, int h, int s) const {
     return p + b * sb + h * sh + s * ss;
   }
+  __device__ __forceinline__ T* out_row(int b, int h, int s) const {
+    return const_cast<T*>(row(b, h, s));
+  }
 };
+
+__device__ __forceinline__ float wa_f(float x) { return x; }
+__device__ __forceinline__ float wa_f(bf16 x) { return __bfloat162float(x); }
 
 // A tile of 64 rows as three bf16 planes in shared memory, depth EP (the
 // head width padded to 16), rows of STRIDE bf16.
@@ -113,16 +126,33 @@ struct WaTile {
 
 // -- staging and planes ----------------------------------------------------------
 
-// cp.async of rows s0 .. s0 + 63 of (b, h) into stg [64][EP] f32; rows past
-// S and columns past E are zeros.
+// Rows s0 .. s0 + 63 of (b, h) into stg [64][EP] f32; rows past S and
+// columns past E are zeros.  f32: by cp.async; bf16: four values a thread
+// loaded, widened and stored (the copy done when the call returns).
 template <int EP>
-__device__ __forceinline__ void stage_rows(float* stg, const Bhsd& t, int b, int h, int s0, int S,
-                                           int E) {
+__device__ __forceinline__ void stage_rows(float* stg, const Bhsd<float>& t, int b, int h,
+                                           int s0, int S, int E) {
   constexpr int PR = EP / 4;             // 16-byte pieces a row
   for (int idx = threadIdx.x; idx < WA_T * PR; idx += blockDim.x) {
     const int r = idx / PR, c = (idx % PR) * 4;
     const bool ok = s0 + r < S && c < E;
     cp_async16(stg + r * EP + c, ok ? t.row(b, h, s0 + r) + c : t.p, ok);
+  }
+}
+template <int EP>
+__device__ __forceinline__ void stage_rows(float* stg, const Bhsd<bf16>& t, int b, int h,
+                                           int s0, int S, int E) {
+  constexpr int PR = EP / 4;
+  for (int idx = threadIdx.x; idx < WA_T * PR; idx += blockDim.x) {
+    const int r = idx / PR, c = (idx % PR) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s0 + r < S && c < E) {
+      const uint2 u = *reinterpret_cast<const uint2*>(t.row(b, h, s0 + r) + c);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      x = make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+    *reinterpret_cast<float4*>(stg + r * EP + c) = x;
   }
 }
 
@@ -338,9 +368,9 @@ __device__ __forceinline__ float band_prob(float s, int qp, int kp, float keep, 
 
 // -- forward -----------------------------------------------------------------------
 
-template <int EP>
+template <int EP, typename T>
 __global__ void __launch_bounds__(WA_THREADS, 2)
-wa_fwd_kernel(Bhsd q, Bhsd k, Bhsd v, const float* __restrict__ mask, Bhsd o,
+wa_fwd_kernel(Bhsd<T> q, Bhsd<T> k, Bhsd<T> v, const float* __restrict__ mask, Bhsd<T> o,
               float* __restrict__ stats, int H, int S, int E, int w, float scale) {
   using P = WaTile<EP>;
   extern __shared__ __align__(16) unsigned char wa_smem[];
@@ -438,13 +468,11 @@ wa_fwd_kernel(Bhsd q, Bhsd k, Bhsd v, const float* __restrict__ mask, Bhsd o,
     const int qp = q0 + r0 + g + 8 * rr;
     if (qp >= S) continue;
     const float inv = 1.f / l[rr];
-    float* orow = const_cast<float*>(o.row(b, h, qp));
+    T* orow = o.out_row(b, h, qp);
 #pragma unroll
     for (int n = 0; n < EP / 8; ++n) {
       const int col = n * 8 + t2;
-      if (col < E)
-        *reinterpret_cast<float2*>(orow + col) =
-            make_float2(acc[n][2 * rr] * inv, acc[n][2 * rr + 1] * inv);
+      if (col < E) st2(orow + col, acc[n][2 * rr] * inv, acc[n][2 * rr + 1] * inv);
     }
     if (t2 == 0) {                     // (m, log l): rows of stats[0] and stats[1]
       stats[(size_t)bh * S + qp] = m[rr];
@@ -467,16 +495,18 @@ __device__ __forceinline__ T* wa_slot(T* dss, int bh, int n_tiles, int kt, int j
   return dss + (((size_t)bh * n_tiles + kt) * wa_slots(w) + j) * (WA_T * WA_T);
 }
 
-// D = rowsum(dO * O), a warp a row of the B H S rows.
-__global__ void wa_rowdot_kernel(Bhsd o, Bhsd dout, float* __restrict__ rowdot, int H, int S,
-                                 int E, int rows) {
+// D = rowsum(dO * O), a warp a row of the B H S rows, in f32 from the
+// stored O.
+template <typename T>
+__global__ void wa_rowdot_kernel(Bhsd<T> o, Bhsd<T> dout, float* __restrict__ rowdot, int H,
+                                 int S, int E, int rows) {
   const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (r >= rows) return;
   const int bh = r / S, i = r % S, b = bh / H, h = bh % H;
-  const float* gr = dout.row(b, h, i);
-  const float* orow = o.row(b, h, i);
+  const T* gr = dout.row(b, h, i);
+  const T* orow = o.row(b, h, i);
   float d = 0.f;
-  for (int f = lane; f < E; f += 32) d = fmaf(gr[f], orow[f], d);
+  for (int f = lane; f < E; f += 32) d = fmaf(wa_f(gr[f]), wa_f(orow[f]), d);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
   if (lane == 0) rowdot[r] = d;
@@ -484,9 +514,9 @@ __global__ void wa_rowdot_kernel(Bhsd o, Bhsd dout, float* __restrict__ rowdot, 
 
 // Per query tile, after wa_dkv_kernel: dq = scale * sum over its key tiles,
 // in order, of dS k, dS read from the key tiles' slots.
-template <int EP>
+template <int EP, typename T>
 __global__ void __launch_bounds__(WA_THREADS, 2)
-wa_dq_kernel(Bhsd k, const float* __restrict__ dss, Bhsd dq, int H, int S, int E, int w,
+wa_dq_kernel(Bhsd<T> k, const float* __restrict__ dss, Bhsd<T> dq, int H, int S, int E, int w,
              float scale) {
   using P = WaTile<EP>;
   using PS = WaTile<WA_T>;                 // a dS^T slot: 64 keys x 64 queries
@@ -534,23 +564,21 @@ wa_dq_kernel(Bhsd k, const float* __restrict__ dss, Bhsd dq, int H, int S, int E
   for (int rr = 0; rr < 2; ++rr) {
     const int qp = q0 + r0 + g + 8 * rr;
     if (qp >= S) continue;
-    float* drow = const_cast<float*>(dq.row(b, h, qp));
+    T* drow = dq.out_row(b, h, qp);
 #pragma unroll
     for (int n = 0; n < EP / 8; ++n) {
       const int col = n * 8 + t2;
-      if (col < E)
-        *reinterpret_cast<float2*>(drow + col) =
-            make_float2(acc[n][2 * rr] * scale, acc[n][2 * rr + 1] * scale);
+      if (col < E) st2(drow + col, acc[n][2 * rr] * scale, acc[n][2 * rr + 1] * scale);
     }
   }
 }
 
 // Per key tile: the accumulators' rows are keys (j), their columns queries (i).
-template <int EP>
+template <int EP, typename T>
 __global__ void __launch_bounds__(WA_BWD_THREADS, 1)
-wa_dkv_kernel(Bhsd q, Bhsd k, Bhsd v, const float* __restrict__ mask, Bhsd dout,
-              const float* __restrict__ stats, const float* __restrict__ rowdot, Bhsd dk,
-              Bhsd dv, float* __restrict__ dss, int H, int S, int E, int w, float scale) {
+wa_dkv_kernel(Bhsd<T> q, Bhsd<T> k, Bhsd<T> v, const float* __restrict__ mask, Bhsd<T> dout,
+              const float* __restrict__ stats, const float* __restrict__ rowdot, Bhsd<T> dk,
+              Bhsd<T> dv, float* __restrict__ dss, int H, int S, int E, int w, float scale) {
   using P = WaTile<EP>;
   extern __shared__ __align__(16) unsigned char wa_smem[];
   bf16* kpl = reinterpret_cast<bf16*>(wa_smem);
@@ -630,15 +658,14 @@ wa_dkv_kernel(Bhsd q, Bhsd k, Bhsd v, const float* __restrict__ mask, Bhsd dout,
   for (int rr = 0; rr < 2; ++rr) {
     const int kp = k0 + r0 + g + 8 * rr;
     if (kp >= S) continue;
-    float* krow = const_cast<float*>(dk.row(b, h, kp));
-    float* vrow = const_cast<float*>(dv.row(b, h, kp));
+    T* krow = dk.out_row(b, h, kp);
+    T* vrow = dv.out_row(b, h, kp);
 #pragma unroll
     for (int n = 0; n < EP / 8; ++n) {
       const int col = n * 8 + t2;
       if (col >= E) continue;
-      *reinterpret_cast<float2*>(krow + col) =
-          make_float2(dka[n][2 * rr] * scale, dka[n][2 * rr + 1] * scale);
-      *reinterpret_cast<float2*>(vrow + col) = make_float2(dva[n][2 * rr], dva[n][2 * rr + 1]);
+      st2(krow + col, dka[n][2 * rr] * scale, dka[n][2 * rr + 1] * scale);
+      st2(vrow + col, dva[n][2 * rr], dva[n][2 * rr + 1]);
     }
   }
 }
@@ -654,46 +681,88 @@ struct WaSmem {
                             (WaTile<EP>::STAGE_FLOATS + WA_T * WA_T) * 4;
 };
 
-inline Bhsd tensor(const float* p, const long long* st) { return Bhsd{p, st[0], st[1], st[2]}; }
+template <typename T>
+inline Bhsd<T> tensor(const void* p, const long long* st) {
+  return Bhsd<T>{(const T*)p, st[0], st[1], st[2]};
+}
 
 inline bool shape_ok(int B, int H, int S, int E, int w) {
   return B > 0 && H > 0 && S > 0 && w > 0 && E > 0 && E % 4 == 0 && E <= WA_MAX_E;
 }
 
-template <int EP>
-int fwd_launch(const Bhsd& q, const Bhsd& k, const Bhsd& v, const float* mask, const Bhsd& o,
-               float* stats, int B, int H, int S, int E, int w, float scale, cudaStream_t st) {
+template <int EP, typename T>
+int fwd_launch(const Bhsd<T>& q, const Bhsd<T>& k, const Bhsd<T>& v, const float* mask,
+               const Bhsd<T>& o, float* stats, int B, int H, int S, int E, int w, float scale,
+               cudaStream_t st) {
   constexpr int smem = WaSmem<EP>::FWD;
-  const cudaError_t e =
-      cudaFuncSetAttribute(wa_fwd_kernel<EP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e = cudaFuncSetAttribute(wa_fwd_kernel<EP, T>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + WA_T - 1) / WA_T, B * H);
-  wa_fwd_kernel<EP><<<grid, WA_THREADS, smem, st>>>(q, k, v, mask, o, stats, H, S, E, w, scale);
+  wa_fwd_kernel<EP, T><<<grid, WA_THREADS, smem, st>>>(q, k, v, mask, o, stats, H, S, E, w,
+                                                       scale);
   RLMG_CHECK();
   return 0;
 }
 
-template <int EP>
-int bwd_launch(const Bhsd& q, const Bhsd& k, const Bhsd& v, const float* mask, const Bhsd& o,
-               const Bhsd& dout, const float* stats, float* rowdot, float* dss, const Bhsd& dq,
-               const Bhsd& dk, const Bhsd& dv, int B, int H, int S, int E, int w, float scale,
-               cudaStream_t st) {
+template <int EP, typename T>
+int bwd_launch(const Bhsd<T>& q, const Bhsd<T>& k, const Bhsd<T>& v, const float* mask,
+               const Bhsd<T>& o, const Bhsd<T>& dout, const float* stats, float* rowdot,
+               float* dss, const Bhsd<T>& dq, const Bhsd<T>& dk, const Bhsd<T>& dv, int B, int H,
+               int S, int E, int w, float scale, cudaStream_t st) {
   constexpr int s_dkv = WaSmem<EP>::DKV, s_dq = WaSmem<EP>::DQ;
-  cudaError_t e =
-      cudaFuncSetAttribute(wa_dkv_kernel<EP>, cudaFuncAttributeMaxDynamicSharedMemorySize, s_dkv);
+  cudaError_t e = cudaFuncSetAttribute(wa_dkv_kernel<EP, T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, s_dkv);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(wa_dq_kernel<EP>, cudaFuncAttributeMaxDynamicSharedMemorySize, s_dq);
+    e = cudaFuncSetAttribute(wa_dq_kernel<EP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             s_dq);
   if (e != cudaSuccess) return (int)e;
   const int rows = B * H * S;
-  wa_rowdot_kernel<<<(rows + 7) / 8, 256, 0, st>>>(o, dout, rowdot, H, S, E, rows);
+  wa_rowdot_kernel<T><<<(rows + 7) / 8, 256, 0, st>>>(o, dout, rowdot, H, S, E, rows);
   RLMG_CHECK();
   const dim3 grid((S + WA_T - 1) / WA_T, B * H);
-  wa_dkv_kernel<EP><<<grid, WA_BWD_THREADS, s_dkv, st>>>(q, k, v, mask, dout, stats, rowdot, dk,
-                                                         dv, dss, H, S, E, w, scale);
+  wa_dkv_kernel<EP, T><<<grid, WA_BWD_THREADS, s_dkv, st>>>(q, k, v, mask, dout, stats, rowdot,
+                                                            dk, dv, dss, H, S, E, w, scale);
   RLMG_CHECK();
-  wa_dq_kernel<EP><<<grid, WA_THREADS, s_dq, st>>>(k, dss, dq, H, S, E, w, scale);
+  wa_dq_kernel<EP, T><<<grid, WA_THREADS, s_dq, st>>>(k, dss, dq, H, S, E, w, scale);
   RLMG_CHECK();
   return 0;
+}
+
+// A forward or backward call at the head width's compiled depth.
+template <typename T>
+int window_fwd(const void* q, const void* k, const void* v, const float* mask, void* out,
+               float* stats, const long long* strides, int B, int H, int S, int E, int w,
+               float scale, cudaStream_t st) {
+  const Bhsd<T> tq = tensor<T>(q, strides), tk = tensor<T>(k, strides + 3),
+                tv = tensor<T>(v, strides + 6), to = tensor<T>(out, strides + 9);
+  switch ((E + 15) / 16) {
+    case 1: return fwd_launch<16, T>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
+    case 2: return fwd_launch<32, T>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
+    case 3: return fwd_launch<48, T>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
+    default: return fwd_launch<64, T>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
+  }
+}
+
+template <typename T>
+int window_bwd(const void* q, const void* k, const void* v, const float* mask, const void* out,
+               const void* dout, const float* stats, float* rowdot, float* dss, void* dq,
+               void* dk, void* dv, const long long* strides, int B, int H, int S, int E, int w,
+               float scale, cudaStream_t st) {
+  const Bhsd<T> tq = tensor<T>(q, strides), tk = tensor<T>(k, strides + 3),
+                tv = tensor<T>(v, strides + 6), to = tensor<T>(out, strides + 9),
+                tdo = tensor<T>(dout, strides + 12), tdq = tensor<T>(dq, strides + 15),
+                tdk = tensor<T>(dk, strides + 18), tdv = tensor<T>(dv, strides + 21);
+#define RLMG_WA_BWD(EP) \
+  bwd_launch<EP, T>(tq, tk, tv, mask, to, tdo, stats, rowdot, dss, tdq, tdk, tdv, B, H, S, E, w, \
+                    scale, st)
+  switch ((E + 15) / 16) {
+    case 1: return RLMG_WA_BWD(16);
+    case 2: return RLMG_WA_BWD(32);
+    case 3: return RLMG_WA_BWD(48);
+    default: return RLMG_WA_BWD(64);
+  }
+#undef RLMG_WA_BWD
 }
 
 }  // namespace rlmg
@@ -701,23 +770,19 @@ int bwd_launch(const Bhsd& q, const Bhsd& k, const Bhsd& v, const float* mask, c
 extern "C" {
 
 // out (B, H, S, E) of q, k, v and mask, and stats (2, B, H, S) contiguous
-// f32: each row's max score m and log l (LSE = m + log l).  strides:
-// (batch, head, row) of q, k, v, out, in elements; w the one-sided window;
-// scale = 1 / sqrt(E).  Returns 0 or the first CUDA error code.
-int rlmg_window_attn_fwd(const float* q, const float* k, const float* v, const float* mask,
-                         float* out, float* stats, const long long* strides, int B, int H,
-                         int S, int E, int w, float scale, void* stream) {
+// f32: each row's max score m and log l (LSE = m + log l).  q, k, v, out
+// f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); strides: (batch, head, row) of
+// q, k, v, out, in elements; w the one-sided window; scale = 1 / sqrt(E).
+// Returns 0 or the first CUDA error code.
+int rlmg_window_attn_fwd(const void* q, const void* k, const void* v, const float* mask,
+                         void* out, float* stats, const long long* strides, int B, int H,
+                         int S, int E, int w, float scale, int is_bf16, void* stream) {
   using namespace rlmg;
   if (!shape_ok(B, H, S, E, w)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const Bhsd tq = tensor(q, strides), tk = tensor(k, strides + 3), tv = tensor(v, strides + 6);
-  const Bhsd to = tensor(out, strides + 9);
-  switch ((E + 15) / 16) {
-    case 1: return fwd_launch<16>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
-    case 2: return fwd_launch<32>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
-    case 3: return fwd_launch<48>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
-    default: return fwd_launch<64>(tq, tk, tv, mask, to, stats, B, H, S, E, w, scale, st);
-  }
+  if (is_bf16)
+    return window_fwd<bf16>(q, k, v, mask, out, stats, strides, B, H, S, E, w, scale, st);
+  return window_fwd<float>(q, k, v, mask, out, stats, strides, B, H, S, E, w, scale, st);
 }
 
 // f32 values of the backward's dS scratch at this shape (one 64 x 64 slot
@@ -728,30 +793,23 @@ long long rlmg_window_attn_scratch_floats(int B, int H, int S, int w) {
 }
 
 // dq, dk, dv of the upstream gradient dout, from the forward's out and
-// stats.  rowdot: (B, H, S) f32 scratch for D = rowsum(dout * out); dss:
+// stats, all but the f32 scratch in the forward's type.  rowdot: (B, H,
+// S) f32 scratch for D = rowsum(dout * out); dss:
 // rlmg_window_attn_scratch_floats f32 for dS.  strides: q, k, v, out,
 // dout, dq, dk, dv.
-int rlmg_window_attn_bwd(const float* q, const float* k, const float* v, const float* mask,
-                         const float* out, const float* dout, const float* stats, float* rowdot,
-                         float* dss, float* dq, float* dk, float* dv, const long long* strides,
-                         int B, int H, int S, int E, int w, float scale, void* stream) {
+int rlmg_window_attn_bwd(const void* q, const void* k, const void* v, const float* mask,
+                         const void* out, const void* dout, const float* stats, float* rowdot,
+                         float* dss, void* dq, void* dk, void* dv, const long long* strides,
+                         int B, int H, int S, int E, int w, float scale, int is_bf16,
+                         void* stream) {
   using namespace rlmg;
   if (!shape_ok(B, H, S, E, w)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const Bhsd tq = tensor(q, strides), tk = tensor(k, strides + 3), tv = tensor(v, strides + 6);
-  const Bhsd to = tensor(out, strides + 9), tdo = tensor(dout, strides + 12);
-  const Bhsd tdq = tensor(dq, strides + 15), tdk = tensor(dk, strides + 18),
-             tdv = tensor(dv, strides + 21);
-#define RLMG_WA_BWD(EP) \
-  bwd_launch<EP>(tq, tk, tv, mask, to, tdo, stats, rowdot, dss, tdq, tdk, tdv, B, H, S, E, w, \
-                 scale, st)
-  switch ((E + 15) / 16) {
-    case 1: return RLMG_WA_BWD(16);
-    case 2: return RLMG_WA_BWD(32);
-    case 3: return RLMG_WA_BWD(48);
-    default: return RLMG_WA_BWD(64);
-  }
-#undef RLMG_WA_BWD
+  if (is_bf16)
+    return window_bwd<bf16>(q, k, v, mask, out, dout, stats, rowdot, dss, dq, dk, dv, strides,
+                            B, H, S, E, w, scale, st);
+  return window_bwd<float>(q, k, v, mask, out, dout, stats, rowdot, dss, dq, dk, dv, strides,
+                           B, H, S, E, w, scale, st);
 }
 
 const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -19,7 +19,10 @@ F (``ops/linear_attention_kernel.py``) as its attention; an explicit
 ``RLMG_FFN_BACKEND=pallas`` runs the unfused layer's post-LN1 half through
 kernel G (``ops/ffn_block.py ffn_block``) at any row count.  The parallel
 prompt prefill (``forward_prefill``) returns the recurrent decode state of
-a prompt in one training-style pass.  Not ported yet (ROADMAP): ``remat``.
+a prompt in one training-style pass.  ``cfg.remat`` runs each layer under
+``torch.utils.checkpoint`` (JAX's per-layer ``jax.checkpoint``): the
+backward recomputes the layer from its input, with the same dropout masks
+and kernel seeds (``_remat_layer``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import os
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from ..config import LinearTransformerConfig
 from ..ops.attention_block import qkv_attention_block
@@ -208,6 +212,33 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
     return cm.layernorm(lp["ln2"], h + y)
 
 
+def _remat_layer(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
+                 generator: Optional[torch.Generator], deterministic: bool,
+                 attn_backend: Optional[str]) -> torch.Tensor:
+    """``_layer_forward`` under ``torch.utils.checkpoint`` (JAX ``cfg.remat``:
+    ``jax.checkpoint`` around each layer): the backward keeps only the
+    layer's input and runs the layer again.  The layer's randomness (the
+    dropout masks and the fused kernels' seeds, all drawn from
+    ``generator``) replays: the first run draws from ``generator`` as the
+    layer does without remat, the recompute from a generator of its own set
+    to ``generator``'s state before the layer, so it draws the same values
+    and the caller's generator ends where it would without remat.  The
+    kernels' forward counters count the recompute too: two forward calls
+    a layer and step."""
+    state = None if generator is None else generator.get_state()
+    runs = []
+
+    def run(h_: torch.Tensor, lp_: dict) -> torch.Tensor:
+        gen = generator
+        if runs and generator is not None:          # the recompute: replay the draws
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        runs.append(1)
+        return _layer_forward(cfg, h_, lp_, gen, deterministic, attn_backend)
+
+    return torch.utils.checkpoint.checkpoint(run, h, lp, use_reentrant=False)
+
+
 def forward_hidden(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, *,
                    deterministic: bool = True, generator: Optional[torch.Generator] = None,
                    attn_backend: Optional[str] = None) -> torch.Tensor:
@@ -215,17 +246,16 @@ def forward_hidden(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, 
     embeddings -> in_linear -> positional encoding -> causal-linear
     encoder).  ``generator`` (on the tensors' device) draws the dropout
     masks and the kernels' dropout seeds; None means no dropout."""
-    if cfg.remat:
-        raise NotImplementedError("LinearTransformerConfig.remat is not ported yet: ROADMAP")
     deterministic = deterministic or generator is None
     s = x.shape[1]
     h = cm.linear(params["in_linear"], cm.embed_fields(params["emb"], x))
     h = h + cm.sinusoidal_table(s, cfg.d_model, h.dtype, h.device)[None]
     h = cm.dropout(generator, h, cfg.dropout, deterministic)
     layers = params["layers"]
+    layer = _remat_layer if cfg.remat and torch.is_grad_enabled() else _layer_forward
     for l in range(cfg.n_layer):
         lp = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in layers.items()}
-        h = _layer_forward(cfg, h, lp, generator, deterministic, attn_backend)
+        h = layer(cfg, h, lp, generator, deterministic, attn_backend)
     return cm.layernorm(params["final_ln"], h)
 
 

@@ -83,9 +83,15 @@ def _fwd_bshe(q, k, v, eps: float, chunk: int):
 
 def _bwd_bshe(q, k, v, out, den, g, eps: float, chunk: int):
     """Analytic backward in (B, S, H, *) layout; returns (dq, dk, dv)."""
-    s0 = q.shape[1]
     dnum = g / (den + eps)[..., None]
     dden = -(g * out).sum(-1) / (den + eps)
+    return _bwd_core(q, k, v, dnum, dden, chunk)
+
+
+def _bwd_core(q, k, v, dnum, dden, chunk: int):
+    """The backward's two passes from dnum = g / (den + eps) (B, S, H, F)
+    and dden = -sum(g out) / (den + eps) (B, S, H): (dq, dk, dv)."""
+    s0 = q.shape[1]
     q, k, v, dnum, dden = (_pad_rows(t, 1, chunk) for t in (q, k, v, dnum, dden))
     lower = _lower(chunk, q)
     upper = lower.T

@@ -17,12 +17,18 @@ sequences first take a state pass that writes each tile's k^T [v | 1]
 output pass sums in order (prefix (S, z) for the forward and d phi(q),
 suffix (G, gz) for d phi(k), dv).  Every product runs on the tensor cores
 at f32 grade (three bf16 planes an operand, six products a product), and
-nothing is padded or copied; ``chunk`` is the plain twin's.
+nothing is padded or copied; ``chunk`` is the plain twin's.  On bf16
+tensors (JAX's kernel takes any dtype, computes in f32 and returns out and
+den in the inputs' dtype) the tiles are widened to f32 as they are loaded,
+out and den are rounded on store, and the backward forms dnum and dd in
+bf16 arithmetic from the rounded out and den, as ``_bwd_pallas`` does
+outside its kernels; dq, dk, dv are rounded on store.
 
-``causal_product`` takes float32 phi(q), phi(k), v (B, H, S, E) with a unit
-last stride and any other strides (the model's (B, H, S, E) views of
-(B, S, H, E) projections go in without copies, and out and the gradients
-come back in the inputs' layout), E a multiple of 4 and at most 64.
+``causal_product`` takes phi(q), phi(k), v (B, H, S, E) of one type,
+float32 or bfloat16, with a unit last stride and any other strides (the
+model's (B, H, S, E) views of (B, S, H, E) projections go in without
+copies, and out and the gradients come back in the inputs' layout), E a
+multiple of 4 and at most 64.
 Anything else raises, on every device.  On a CPU tensor it runs
 ``causal_product_plain``; on a CUDA tensor it launches the kernel; any
 other device raises.  The kernel loads 16 bytes at a time, so an input
@@ -31,8 +37,9 @@ not 16-byte aligned (never the model's) goes in as a contiguous copy.
 
 Counts: ``launches_fwd`` / ``launches_bwd`` the wrapper's eager calls,
 ``cuda_launches`` the CUDA launches they made (1 a call at S <= 64, else
-2); a call made while a CUDA graph capture records counts nothing.  ``kernel_runs`` reads the kernel's own count of the calls that
-ran on the card, graph replays included.
+2); a call made while a CUDA graph capture records counts nothing.
+``kernel_runs`` reads the kernel's own count of the calls that ran on the
+card, graph replays included.
 """
 
 from __future__ import annotations
@@ -43,20 +50,56 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .linear_attention import DEFAULT_EPS, _DEF_CHUNK, _ChunkedCore
+from .linear_attention import DEFAULT_EPS, _DEF_CHUNK, _bwd_core, _fwd_bshe
 
 MAX_HEAD_WIDTH = 64          # csrc/causal_product.cuh cpk::MAX_E
+
+
+class _PlainProduct(torch.autograd.Function):
+    """JAX ``_fwd_pallas`` / ``_bwd_pallas``'s arithmetic in PyTorch ops, on
+    (B, H, S, E) tensors of one type T (float32 or bfloat16), through the
+    chunked core on transposed views.  Forward: q, k, v widened to f32,
+    every product f32, out = num / (den + eps) formed in f32; out and den
+    returned rounded to T.  Backward (``_bwd_pallas``): dnum = g / (den +
+    eps) and dden = -sum(g out) / (den + eps) in T's arithmetic on the
+    rounded out and den (the sum taken in f32, as ``jnp.sum`` takes a bf16
+    sum, and rounded), widened to f32 for the two passes; dq, dk, dv
+    rounded to T.  At float32 every rounding is the identity: the chunked
+    core's own arithmetic."""
+
+    @staticmethod
+    def forward(ctx, phi_q, phi_k, v, eps: float, chunk: int):
+        t = lambda x: x.transpose(1, 2).float()
+        out, den = _fwd_bshe(t(phi_q), t(phi_k), t(v), eps, chunk)
+        out, den = out.transpose(1, 2).to(v.dtype), den.transpose(1, 2).to(v.dtype)
+        ctx.save_for_backward(phi_q, phi_k, v, out, den)
+        ctx.cfg = (eps, chunk)
+        ctx.mark_non_differentiable(den)
+        return out, den
+
+    @staticmethod
+    def backward(ctx, g, _g_den):
+        phi_q, phi_k, v, out, den = ctx.saved_tensors
+        eps, chunk = ctx.cfg
+        g = g.to(out.dtype)
+        dnum = g / (den + eps)[..., None]
+        dden = -(g * out).float().sum(-1).to(out.dtype) / (den + eps)
+        t = lambda x: x.transpose(1, 2).float()
+        grads = _bwd_core(t(phi_q), t(phi_k), t(v), t(dnum), t(dden), chunk)
+        return tuple(d.transpose(1, 2).to(x.dtype) for d, x in zip(grads, (phi_q, phi_k, v))) \
+            + (None, None)
 
 
 def causal_product_plain(phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
                          eps: float = DEFAULT_EPS,
                          chunk: int = _DEF_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same function in PyTorch ops: the chunked composition
-    (``_fwd_bshe`` / ``_bwd_bshe``, analytic backward) on transposed views
-    -> (out (B, H, S, E), den (B, H, S)); den is not differentiable."""
-    t = lambda x: x.transpose(1, 2)
-    out, den = _ChunkedCore.apply(t(phi_q), t(phi_k), t(v), eps, chunk)
-    return t(out), den.transpose(1, 2)
+    """The same function in PyTorch ops (``_PlainProduct``: JAX's Pallas
+    arithmetic at the inputs' type) -> (out (B, H, S, E), den (B, H, S)),
+    both in the inputs' type; den is not differentiable."""
+    return _PlainProduct.apply(phi_q, phi_k, v, eps, chunk)
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(phi_q, phi_k, v) -> None:
@@ -65,8 +108,9 @@ def _check(phi_q, phi_k, v) -> None:
         raise ValueError(f"causal_product: head width {e}; the kernel takes a multiple of 4 "
                          f"up to {MAX_HEAD_WIDTH}")
     for name, t in (("phi_q", phi_q), ("phi_k", phi_k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"causal_product {name}: {t.dtype} (the kernel takes float32)")
+        if t.dtype not in _DTYPES or t.dtype != phi_q.dtype:
+            raise TypeError(f"causal_product {name}: {t.dtype} (the kernel takes float32 or "
+                            f"bfloat16, phi_q's {phi_q.dtype} for all three)")
         if t.ndim != 4 or t.shape != phi_q.shape or t.device != phi_q.device:
             raise ValueError(f"causal_product {name}: shape {tuple(t.shape)} on {t.device}, "
                              f"expected phi_q's {tuple(phi_q.shape)} on {phi_q.device} "
@@ -87,9 +131,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("causal_product")
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.rlmg_causal_product_fwd.argtypes = [p] * 7 + [i] * 4 + [f, p]
+        lib.rlmg_causal_product_fwd.argtypes = [p] * 7 + [i] * 4 + [f, i, p]
         lib.rlmg_causal_product_fwd.restype = i
-        lib.rlmg_causal_product_bwd.argtypes = [p] * 11 + [i] * 4 + [f, p]
+        lib.rlmg_causal_product_bwd.argtypes = [p] * 11 + [i] * 4 + [f, i, p]
         lib.rlmg_causal_product_bwd.restype = i
         lib.rlmg_causal_product_scratch_floats.argtypes = [i] * 5
         lib.rlmg_causal_product_scratch_floats.restype = ll
@@ -143,18 +187,18 @@ def kernel_runs(reset: bool = False) -> Tuple[int, int]:
 
 def forward_kernel(phi_q, phi_k, v, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward call on checked inputs -> (out in phi_q's layout, den
-    (B, H, S)).  Counts ``cuda_launches``, not ``launches_fwd`` (the
-    wrapper counts its calls)."""
+    (B, H, S)), both in the inputs' type.  Counts ``cuda_launches``, not
+    ``launches_fwd`` (the wrapper counts its calls)."""
     phi_q, phi_k, v = _loadable(phi_q, phi_k, v)
     b, h, s, e = phi_q.shape
     dev = phi_q.device
     _lib()
     out = torch.empty_like(phi_q)
-    den = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    den = torch.empty((b, h, s), dtype=phi_q.dtype, device=dev)
     scratch = _scratch(b, h, s, e, 0, dev)
     args = (phi_q.data_ptr(), phi_k.data_ptr(), v.data_ptr(), out.data_ptr(), den.data_ptr(),
             None if scratch is None else scratch.data_ptr(), _strides(phi_q, phi_k, v, out),
-            b, h, s, e, eps)
+            b, h, s, e, eps, int(phi_q.dtype == torch.bfloat16))
     with torch.cuda.device(dev):
         rc = _FWD(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "forward")
@@ -166,10 +210,10 @@ def forward_kernel(phi_q, phi_k, v, eps: float) -> Tuple[torch.Tensor, torch.Ten
 def backward_kernel(phi_q, phi_k, v, out, den, g,
                     eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward call (a state pass first past one tile) -> (d phi_q,
-    d phi_k, dv), each in its input's layout.  Counts ``cuda_launches``,
-    not ``launches_bwd``."""
-    if g.stride(-1) != 1:
-        g = g.contiguous()
+    d phi_k, dv), each in its input's layout and type.  Counts
+    ``cuda_launches``, not ``launches_bwd``."""
+    if g.stride(-1) != 1 or g.dtype != phi_q.dtype:
+        g = g.to(phi_q.dtype).contiguous()
     phi_q, phi_k, v, out, g = _loadable(phi_q, phi_k, v, out, g)
     b, h, s, e = phi_q.shape
     dev = phi_q.device
@@ -179,7 +223,8 @@ def backward_kernel(phi_q, phi_k, v, out, den, g,
     args = (phi_q.data_ptr(), phi_k.data_ptr(), v.data_ptr(), out.data_ptr(), den.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            _strides(phi_q, phi_k, v, out, g, dq, dk, dv), b, h, s, e, eps)
+            _strides(phi_q, phi_k, v, out, g, dq, dk, dv), b, h, s, e, eps,
+            int(phi_q.dtype == torch.bfloat16))
     with torch.cuda.device(dev):
         rc = _BWD(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "backward")

@@ -33,13 +33,20 @@ values (they spread the -1e9 rows over their blocks); callers use only
 rows that see a kept key, and there the two agree.  Masked scores are
 constants, so they pass no gradient to q or k.
 
-``window_attention_band`` takes contiguous-in-the-last-dimension float32
-q, k, v (B, H, S, D) with any strides that are multiples of 4 (the
-Longformer passes transposed views of (B, S, H, D) projections, so no
-copy), D a multiple of 4 and at most 64, and a (B, S) mask (None = keep
-all).  Anything else raises, on every device.  On a CPU tensor it runs
+``window_attention_band`` takes contiguous-in-the-last-dimension q, k, v
+(B, H, S, D) of one type, float32 or bfloat16, with any strides that are
+multiples of 4 (the Longformer passes transposed views of (B, S, H, D)
+projections, so no copy), D a multiple of 4 and at most 64, and a (B, S)
+mask (None = keep all).  Anything else raises, on every device.  On a CPU tensor it runs
 ``window_attention_band_plain``; on a CUDA tensor it launches the kernels
 (counted in ``launches_fwd`` / ``launches_bwd``); any other device raises.
+
+bfloat16 (JAX's kernel takes any dtype, computes in f32 and stores out and
+the gradients in the inputs' dtype, lse in f32): the kernel widens each
+tile to f32 as it stages it (a bf16 value is exact in f32, its mid and lo
+planes zeros) and runs the f32 route unchanged, rounding out, dq, dk and
+dv on store; D = rowsum(dO * O) reads the stored, rounded out, as JAX's
+backward does.  The twin on bf16 tensors is ``_PlainBandBf16``.
 """
 
 from __future__ import annotations
@@ -70,10 +77,51 @@ def pick_blocks(s: int, window: int) -> Tuple[int, int]:
 def window_attention_band_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 mask: Optional[torch.Tensor],
                                 window: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in PyTorch ops (autograd gives the backward):
-    (out (B, H, S, D), lse (B, H, S)).  Blocked over the queries, so memory
-    stays O(S * window): each block of ``pick_blocks`` rows sees its keys
-    from a w-padded copy of k and v."""
+    """The kernel's function in PyTorch ops: (out (B, H, S, D) in q's type,
+    lse (B, H, S)).  On float32 tensors ``band_plain`` (autograd gives the
+    backward); on bfloat16 ones JAX's arithmetic at bf16 (``_PlainBandBf16``)."""
+    if q.dtype == torch.bfloat16:
+        return _PlainBandBf16.apply(q, k, v, mask, window)
+    return band_plain(q, k, v, mask, window)
+
+
+class _PlainBandBf16(torch.autograd.Function):
+    """``window_attention_pallas``'s arithmetic on bf16 q, k, v: widened to
+    f32, scores, softmax and P v in f32, out rounded to bf16 on store, lse
+    f32 (``_wa_fwd``); the backward's dr = sum(g out) taken in f32 from the
+    stored, rounded out (``_wa_bwd`` :257), dS = P (dP - dr), and dq, dk, dv
+    in f32, rounded on store.  The f32 backward comes from autograd of
+    ``band_plain``, whose softmax gradient uses dr = g . out_f32; the
+    cotangent c = g . (out_f32 - out) given to lse (d lse / d scores = P)
+    turns its dS into P (dP - g . out)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, window: int):
+        out, lse = band_plain(q.float(), k.float(), v.float(), mask, window)
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask, ctx.window = mask, window
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out = ctx.saved_tensors
+        g = g.float()
+        with torch.enable_grad():
+            ins = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+            out32, lse = band_plain(*ins, ctx.mask, ctx.window)
+            c = (g * (out32.detach() - out.float())).sum(-1)
+            grads = torch.autograd.grad((out32, lse), ins, (g, c))
+        return tuple(d.to(t.dtype) for d, t in zip(grads, (q, k, v))) + (None, None)
+
+
+def band_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+               window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Band attention in PyTorch ops at the inputs' type (autograd gives
+    the backward): (out (B, H, S, D), lse (B, H, S)).  Blocked over the
+    queries, so memory stays O(S * window): each block of ``pick_blocks``
+    rows sees its keys from a w-padded copy of k and v."""
     b, h, s, d = q.shape
     w = max(1, window // 2)
     blk = min(pick_blocks(s, window)[0], s)
@@ -117,9 +165,9 @@ def _check(q, k, v, mask, window) -> None:
         raise ValueError(f"window_attention_band: head width {d}; the kernel takes a multiple "
                          f"of 4 up to {MAX_HEAD_WIDTH}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
+        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
             raise TypeError(f"window_attention_band {name}: {t.dtype} (the kernel takes "
-                            "float32)")
+                            f"float32 or bfloat16, q's {q.dtype} for all three)")
         if t.ndim != 4 or t.shape != q.shape or t.device != q.device:
             raise ValueError(f"window_attention_band {name}: shape {tuple(t.shape)} on "
                              f"{t.device}, expected q's {tuple(q.shape)} on {q.device}")
@@ -143,9 +191,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("window_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rlmg_window_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.rlmg_window_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, p]
         lib.rlmg_window_attn_fwd.restype = i
-        lib.rlmg_window_attn_bwd.argtypes = [p] * 13 + [i, i, i, i, i, f, p]
+        lib.rlmg_window_attn_bwd.argtypes = [p] * 13 + [i, i, i, i, i, f, i, p]
         lib.rlmg_window_attn_bwd.restype = i
         lib.rlmg_window_attn_scratch_floats.argtypes = [i, i, i, i]
         lib.rlmg_window_attn_scratch_floats.restype = ctypes.c_longlong
@@ -176,9 +224,9 @@ def _mask_f32(mask: Optional[torch.Tensor], q: torch.Tensor) -> torch.Tensor:
 
 def forward_kernel(q, k, v, mask32, window: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward launch on checked inputs (``mask32``: (B, S) float32,
-    contiguous) -> (out in q's layout, stats (2, B, H, S): each row's max
-    score m and log l; the row's LSE is ``stats.sum(0)``).  Not counted in
-    ``launches_fwd`` (the wrapper counts)."""
+    contiguous) -> (out in q's layout and type, stats (2, B, H, S) f32:
+    each row's max score m and log l; the row's LSE is ``stats.sum(0)``).
+    Not counted in ``launches_fwd`` (the wrapper counts)."""
     b, h, s, d = q.shape
     lib = _lib()
     out = torch.empty_like(q)
@@ -188,6 +236,7 @@ def forward_kernel(q, k, v, mask32, window: int) -> Tuple[torch.Tensor, torch.Te
         rc = lib.rlmg_window_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       mask32.data_ptr(), out.data_ptr(), stats.data_ptr(),
                                       _strides(q, k, v, out), b, h, s, d, w, 1.0 / math.sqrt(d),
+                                      int(q.dtype == torch.bfloat16),
                                       torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "forward")
     return out, stats
@@ -196,11 +245,11 @@ def forward_kernel(q, k, v, mask32, window: int) -> Tuple[torch.Tensor, torch.Te
 def backward_kernel(q, k, v, mask32, out, stats, dout,
                     window: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The three backward launches (D = rowsum(dO * O), the dk/dv pass,
-    then the dq pass) -> (dq, dk, dv), each in its input's layout.  Not
-    counted in ``launches_bwd``."""
+    then the dq pass) -> (dq, dk, dv), each in its input's layout and
+    type.  Not counted in ``launches_bwd``."""
     b, h, s, d = q.shape
-    if not _kernel_ready(dout):
-        dout = dout.contiguous()
+    if not _kernel_ready(dout) or dout.dtype != q.dtype:
+        dout = dout.to(q.dtype).contiguous()
     lib = _lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rowdot = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -213,7 +262,8 @@ def backward_kernel(q, k, v, mask32, out, stats, dout,
                                       stats.data_ptr(), rowdot.data_ptr(), dss.data_ptr(),
                                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                       _strides(q, k, v, out, dout, dq, dk, dv), b, h, s, d, w,
-                                      1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+                                      1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+                                      torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "backward")
     return dq, dk, dv
 

@@ -1,5 +1,6 @@
 """Checkpoint save/load with resume: the counterpart of the JAX package's
-``utils/checkpoint.py`` (the pickle format; orbax is not ported).
+``utils/checkpoint.py`` (the pickle format and ``load_params_lenient``;
+orbax waits for the parallelism item of ROADMAP Queue 1).
 
 A checkpoint is a pickle of ``{"params", "opt_state", "step", "extra"}``:
 
@@ -24,7 +25,7 @@ import pickle
 from typing import Any, Optional
 
 from ..train.optim import AdamState
-from ..weights import _check_against, _ParamsUnpickler, from_jax_params, to_numpy
+from ..weights import _check_against, _flat, _ParamsUnpickler, from_jax_params, to_numpy
 
 
 def save_checkpoint(path: str, params: Any, opt_state: Optional[AdamState] = None,
@@ -65,3 +66,26 @@ def load_checkpoint(path: str, params_template: Any = None, opt_state_template: 
                                      from_jax_params(state["nu"], device),
                                      int(state["count"]))
     return out
+
+
+def load_params_lenient(path: str, params_template: Any) -> Any:
+    """``strict=False``-style load (ppo_train.py:226,231; JAX
+    ``load_params_lenient``): the params of a pickle checkpoint (the JAX
+    package's or this port's; a bare params tree too) merged into
+    ``params_template``, a tree of tensors: each leaf whose key path and
+    shape match takes the checkpoint's values, in the template leaf's
+    dtype and on its device; every other leaf keeps the template's."""
+    with open(path, "rb") as f:
+        payload = _ParamsUnpickler(f).load()
+    loaded = payload["params"] if isinstance(payload, dict) and "params" in payload else payload
+    flat_l = _flat(loaded)
+
+    def merge(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: merge(v, f"{prefix}[{k!r}]") for k, v in tree.items()}
+        lv = flat_l.get(prefix)
+        if lv is not None and tuple(getattr(lv, "shape", ())) == tuple(tree.shape):
+            return from_jax_params(lv, tree.device).to(tree.dtype)
+        return tree
+
+    return merge(params_template)

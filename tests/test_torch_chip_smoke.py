@@ -263,3 +263,78 @@ def test_refilled_slot_check_sees_a_fresh_state_and_a_missed_refill(smoke, fused
     toks, fin = run(leaky)
     errs = smoke.refilled_slot_errors(dk4, lt, cm, params, cfg, dev, leaky, toks, fin)
     assert errs[0][0] == 0 and errs[0][1] > 1e-2 and not errs[0][2]
+
+
+def _bf16_readings(names, kernel, controls):
+    return {n: {"kernel": kernel, "finite": True, "dtype": True, **controls} for n in names}
+
+
+@pytest.mark.parametrize("gates", ["F_BF16_GATES", "E_BF16_GATES"])
+@pytest.mark.parametrize("kernel,control,f32_route,refused", [
+    ((1e-3, 1e-6), (5e-3, 2e-3), (4e-3, 2e-3), False),   # rounding flips only: passes
+    ((1e-2, 1e-6), (5e-3, 2e-3), (4e-3, 2e-3), True),    # a max share above BF16_TOL
+    ((1e-3, 1e-3), (5e-3, 2e-3), (4e-3, 2e-3), True),    # a fault's mean share
+    ((1e-3, 1e-6), (5e-3, 1e-9), (4e-3, 2e-3), True),    # a control that sees nothing
+    ((1e-3, 1e-6), (5e-3, 2e-3), (4e-3, 1e-9), True),    # F's f32 route that sees nothing
+])
+def test_f_and_e_bf16_gates_refuse_a_fault_and_a_blind_control(smoke, gates, kernel, control,
+                                                               f32_route, refused):
+    """Kernels F's and E's bf16 gates (phases 7 and 11): every tensor within
+    its limits, each control above the mean limit, or the gate reports it;
+    the limits no looser than BF16_TOL at the max and below the controls'
+    card readings (1.1e-4 and up) at the mean."""
+    g = getattr(smoke, gates)
+    controls = {"control": control}
+    if gates == "F_BF16_GATES":
+        controls["control_f32_route"] = f32_route
+    elif f32_route[1] < 1e-6:                 # E has no f32-route control
+        refused = False
+    bad = smoke.bf16_gate_failures(_bf16_readings(g, kernel, controls), g,
+                                   {"control": "a", "control_f32_route": "b"})
+    assert bool(bad) == refused, bad
+    for name, (g_max, g_mean) in g.items():
+        assert g_max <= smoke.BF16_TOL and 1e-6 < g_mean <= 2e-4, name
+
+
+def test_band_rounded_control_is_the_twin_at_f32_and_off_it_at_bf16(smoke):
+    """Phase 7's control on the CPU: with nothing to round (f32) it is the
+    twin's function, forward and gradients (autograd of ``band_plain``),
+    to f32 rounding; at bf16 (P and dS rounded) every tensor's mean share
+    against the bf16 twin ends above E_BF16_GATES' mean limit."""
+    import torch
+
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        window_attention_kernel as twk)
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, g = (torch.randn((2, 2, 300, 16), generator=gen) for _ in range(4))
+    mask = torch.ones((2, 300))
+    mask[0, 230:] = 0.0                      # a tail longer than w = 50
+    g = g * mask[:, None, :, None]
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = twk.band_plain(*ts, mask, 100)[0]
+    ref = (out, *torch.autograd.grad(out, ts, g))
+    for x, y in zip(smoke.band_rounded_control(twk, q, k, v, mask, 100, g), ref):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+    b16 = [t.bfloat16() for t in (q, k, v, g)]
+    readings, _ = smoke.band_bf16_readings(twk, *b16[:3], mask, 100, b16[3])
+    for name, r in readings.items():
+        assert r["kernel"] == (0.0, 0.0), name          # the wrapper runs the twin on the CPU
+        assert r["control"][1] > smoke.E_BF16_GATES[name][1], name
+
+
+@pytest.mark.parametrize("shape", [(32, 8, 512, 64), (1, 8, 50, 64)])
+def test_bf16_bounds_count_two_bytes_an_element(smoke, shape):
+    """F's and E's bounds on bf16 tensors: the same operations, half the
+    bytes of the tensors (E's mask and row LSE stay f32, F's den is bf16)."""
+    import torch
+    (f_ops, f_b), (b_ops, b_b) = smoke.causal_product_work(*shape)
+    (f16_ops, f16_b), (b16_ops, b16_b) = smoke.causal_product_work(*shape, elem=2)
+    assert (f16_ops, b16_ops) == (f_ops, b_ops) and (f16_b, b16_b) == (f_b // 2, b_b // 2)
+    b, h, s, d = shape
+    mask = torch.ones((b, s))
+    (e_ops, e_b), (eb_ops, eb_b), _, _ = smoke.window_work(b, h, s, d, 25, mask)
+    (e16_ops, e16_b), (eb16_ops, eb16_b), _, _ = smoke.window_work(b, h, s, d, 25, mask, elem=2)
+    n, fixed = b * h * s * d, 4 * (b * s + b * h * s)
+    assert (e16_ops, eb16_ops) == (e_ops, eb_ops)
+    assert e_b - fixed == 16 * n and e16_b - fixed == 8 * n
+    assert eb_b - fixed == 32 * n and eb16_b - fixed == 16 * n

@@ -766,6 +766,30 @@ def test_window_attention_gates_hold_bf16_inputs_above_them(dev, b, h, s, d, win
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d,window,tail,layout", BAND_CASES)
+def test_window_attention_bf16_kernel_holds_its_gates(dev, b, h, s, d, window, tail, layout):
+    """bf16 tensors against the twin of JAX's bf16 arithmetic: out (kept
+    rows) and every gradient within chip_smoke's E_BF16_GATES, the twin
+    with P and dS rounded before their products above the mean limits
+    (``-s`` prints both); two bf16 backward runs bit-equal."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        window_attention_kernel as twk)
+    smoke = _smoke()
+    q, k, v, mask, g = (t.bfloat16() if t.ndim == 4 else t
+                        for t in _band_inputs(dev, b, h, s, d, tail, layout))
+    readings, ok = smoke.band_bf16_readings(twk, q, k, v, mask, window, g)
+    print(f"[gate] window_attention bf16 {(b, h, s, d, window, tail)}: " + "; ".join(
+        f"{n} {r['kernel'][0]:.2e} / {r['kernel'][1]:.2e} (control {r['control'][1]:.2e})"
+        for n, r in readings.items()))
+    assert all(x.dtype == torch.bfloat16 for x in ok)
+    assert not smoke.bf16_gate_failures(readings, smoke.E_BF16_GATES, {"control": "control"})
+    out, stats = twk.forward_kernel(q, k, v, mask, window)
+    g1 = twk.backward_kernel(q, k, v, mask, out, stats, g, window)
+    g2 = twk.backward_kernel(q, k, v, mask, out, stats, g, window)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+@pytest.mark.gpu
 def test_window_attention_kernel_is_deterministic(dev):
     """No atomics: two backward launches give bit-equal gradients."""
     from reinforcement_learning_in_music_generation_torch.ops import (
@@ -782,8 +806,8 @@ def test_window_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
     from reinforcement_learning_in_music_generation_torch.ops import (
         window_attention_kernel as twk)
     x = torch.zeros((1, 2, 64, 16), device=dev)
-    with pytest.raises(TypeError, match="float32"):
-        twk.window_attention_band(x.bfloat16(), x.bfloat16(), x.bfloat16(), None, 16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        twk.window_attention_band(x.half(), x.half(), x.half(), None, 16)
     wide = torch.zeros((1, 2, 64, 72), device=dev)
     with pytest.raises(ValueError, match="head width"):
         twk.window_attention_band(wide, wide, wide, None, 16)
@@ -955,6 +979,74 @@ def test_causal_product_kernel_matches_plain(dev, b, h, s, e, layout):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,e,layout", [c for c in PRODUCT_CASES if c[2] > 1])
+def test_causal_product_bf16_kernel_holds_its_gates(dev, b, h, s, e, layout):
+    """bf16 tensors against the twin of JAX's bf16 arithmetic: out, den and
+    every gradient within chip_smoke's F_BF16_GATES, the bf16 composition
+    and (gradients) F's f32 route with den unrounded above the mean limits
+    (``-s`` prints them); out and the gradients in the inputs' layout; two
+    bf16 backward runs bit-equal.  Not at one row: den is then one product
+    a row, which the bf16 composition rounds as the twin does."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        linear_attention as tla, linear_attention_kernel as tlk)
+    smoke = _smoke()
+    pq, pk, v, g = (t.bfloat16() for t in _product_inputs(dev, b, h, s, e, layout))
+    readings, ok = smoke.product_bf16_readings(tlk, tla, pq, pk, v, g, 1e-6, 128)
+    print(f"[gate] causal_product bf16 {(b, h, s, e)}: " + "; ".join(
+        f"{n} {r['kernel'][0]:.2e} / {r['kernel'][1]:.2e} (controls {r['control'][1]:.2e}"
+        + (f", {r['control_f32_route'][1]:.2e}" if "control_f32_route" in r else "") + ")"
+        for n, r in readings.items()))
+    assert all(x.dtype == torch.bfloat16 for x in ok) and ok[0].stride() == pq.stride()
+    assert not smoke.bf16_gate_failures(readings, smoke.F_BF16_GATES,
+                                        {"control": "A", "control_f32_route": "B"})
+    out, den = tlk.forward_kernel(pq, pk, v, 1e-6)
+    g1 = tlk.backward_kernel(pq, pk, v, out, den, g, 1e-6)
+    g2 = tlk.backward_kernel(pq, pk, v, out, den, g, 1e-6)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_step_on_the_kernel_route_equals_the_step_without_it(dev, dtype, monkeypatch):
+    """Kernels C and D (forced at a small shape), dropout 0.1: with remat
+    the loss is bit-equal, the gradients within rtol 1e-4 / atol 1e-6, the
+    generator ends in the same state, and C's and D's forward wrappers run
+    twice a layer (the recompute), their backward once."""
+    from reinforcement_learning_in_music_generation_torch.train import pretrain as tpre
+    monkeypatch.setenv("RLMG_FFN_MIN_ROWS", "1")
+    for k in ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND"):
+        monkeypatch.delenv(k, raising=False)
+    kw = dict(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=64, n_layer=2, n_head=2,
+              d_inner=128, dropout=0.1, dtype=dtype)
+    params = tlt.init_params(TC.LinearTransformerConfig(**kw), seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.stack([torch.randint(0, v_, (2, 64), generator=gen, device=dev) for v_ in VOCAB],
+                    -1)
+    mask = torch.ones((2, 64), device=dev)
+    out = {}
+    for remat in (False, True):
+        cfg = TC.LinearTransformerConfig(**kw, remat=remat)
+        step_gen = torch.Generator(device=dev)
+        step_gen.manual_seed(7)
+        counts0 = (tab.qkv_attention_block.launches_fwd, tab.qkv_attention_block.launches_bwd,
+                   tfb.attn_tail_block.launches_fwd, tfb.attn_tail_block.launches_bwd)
+        grads, (loss, _) = tpre.agent_grad_step(params, cfg, x, x, mask, step_gen)
+        counts = (tab.qkv_attention_block.launches_fwd, tab.qkv_attention_block.launches_bwd,
+                  tfb.attn_tail_block.launches_fwd, tfb.attn_tail_block.launches_bwd)
+        out[remat] = (loss, grads, step_gen.get_state(),
+                      tuple(c - c0 for c, c0 in zip(counts, counts0)))
+    (l0, g0, s0, c0), (l1, g1, s1, c1) = out[False], out[True]
+    assert c0 == (2, 2, 2, 2) and c1 == (4, 2, 4, 2)
+    assert torch.equal(l0, l1) and torch.equal(s0, s1)
+
+    def leaves(t):
+        return [y for v_ in t.values() for y in leaves(v_)] if isinstance(t, dict) else [t]
+    for a, b_ in zip(leaves(g1), leaves(g0)):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
 def test_causal_product_kernel_is_deterministic(dev):
     """No atomics: two backward launches give bit-equal gradients."""
     from reinforcement_learning_in_music_generation_torch.ops import (
@@ -971,8 +1063,8 @@ def test_causal_product_wrapper_rejects_what_the_kernel_does_not_take(dev):
     from reinforcement_learning_in_music_generation_torch.ops import (
         linear_attention_kernel as tlk)
     x = torch.ones((1, 2, 50, 64), device=dev)
-    with pytest.raises(TypeError, match="float32"):
-        tlk.causal_product(x.bfloat16(), x.bfloat16(), x.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tlk.causal_product(x.double(), x.double(), x.double())
     wide = torch.ones((1, 2, 50, 72), device=dev)
     with pytest.raises(ValueError, match="head width"):
         tlk.causal_product(wide, wide, wide)

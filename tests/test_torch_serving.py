@@ -318,9 +318,16 @@ def test_serve_requests_byte_cursor_multibyte_and_hostile_ids(params, tmp_path):
     assert len(served) == 4
 
 
-REQUESTS = ('{"id": "a", "songs": 2, "bars": 3, "seed": 1}\n'
-            'not json\n'
+_HEAD = ('{"id": "a", "songs": 2, "bars": 3, "seed": 1}\n'
+         'not json\n')
+# the anonymous request's synthetic id is "@<byte offset of its line>"; the
+# explicit id after it is that same string, which JAX's daemon keeps in one
+# namespace with the synthetic ones (generate/serving.py:357-358): it skips
+# the second as already served, and the port copies that
+COLLIDING = f"@{len(_HEAD.encode())}"
+REQUESTS = (_HEAD +
             '{"songs": 1, "bars": 2}\n'
+            f'{{"id": "{COLLIDING}", "songs": 4, "bars": 1}}\n'
             '{"id": "caf\\u00e9 \\u00fc", "songs": 1}\n'
             '{"id": "x\\nb\\\\r", "songs": 3, "bars": 1, "seed": 9}\n'
             '{"id": "p", "songs": 2, "bars": 4, "prompt": "x.mid", "seed": 2}\n'
@@ -367,6 +374,8 @@ def test_serve_requests_journal_and_order_match_jax(jparams, params, monkeypatch
         out[name] = (n1, n2, calls, (d / "r.jsonl.journal").read_bytes())
     assert out["torch"] == out["jax"]
     assert out["torch"][:2] == (6, 1)
+    assert not any(COLLIDING in req for req, *_ in out["torch"][2])
+    assert out["torch"][3].decode().splitlines().count(COLLIDING) == 1
 
 
 # -- the CLI on the CPU (agent_config's width, one layer) -------------------------------
