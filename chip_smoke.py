@@ -289,6 +289,27 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      the MIDI files and the journal; then a request appended after the
      shutdown and the daemon restarted on the same file serves only it;
      prints the requests served a second.
+ 34. data parallelism, two ranks on the one card (``parallel.launch``, gloo
+     over CUDA tensors: NCCL refuses two ranks on one card, and make_mesh
+     must refuse them unless backend="gloo" is passed), at agent_config, B=32
+     x S=512 global, the second half's rows masked after 100 positions (the
+     ranks' mask sums differ): one f32 step at dropout 0 with ``dp_mesh`` on
+     each rank's 16 x 512 rows, C and D launched 12 times forward and
+     backward on each rank (E, F, G none); the loss, gradients, parameters
+     and Adam updates within phase 5's step gates of the same step in one
+     process on the whole batch, and the control, the Adam step of the mean
+     of the ranks' own means, outside them; the ranks' parameters after the
+     step bit-equal; one bf16 step at dropout 0.1 (a finite loss, equal on
+     both ranks, C and D counted), and kernel D's outputs on equal inputs
+     from equal generator states different on the two ranks (seeds 7919
+     apart) and equal without the mesh; prints ms a step on each rank and
+     in one process, and the gradients' all-reduce;
+ 35. ``generate_songs(mesh=...)`` on 8 songs with bf16 weights, greedy under
+     RLMG_FUSED_DECODE=1 RLMG_FUSED_SAMPLING=1 (kernel A, one graph replay a
+     token): the tokens equal one process's on the same 8 songs, kernel A's
+     runs counted on both ranks; a stochastic run's 8 songs valid, the same
+     list on both ranks, and no song of rank 0 a copy of one of rank 1;
+     prints ms on the ranks and in one process.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -1049,6 +1070,46 @@ def as_bf16(tensors):
     return tuple(t.bfloat16() for t in tensors)
 
 
+def step_errors(out_k, out_p, zero_grads=()) -> dict:
+    """check_step's readings of a step (loss, per-field losses, params
+    after Adam, grads, Adam updates) against a reference step: the loss's
+    relative error, and the worst (error, leaf) of the gradients (over the
+    leaf's magnitude), the parameters (over magnitude(p), and without the
+    floor of 1) and the updates where the gradient's sign is settled."""
+    lk, _, pk, gk, uk = out_k
+    lp_, _, pp, gp, up = out_p
+    rest = [k for k in gp if k not in zero_grads]
+    g_worst = max((max_err(gk[k], gp[k]) / max(gp[k].abs().max().item(), 1e-30), k)
+                  for k in rest)
+    u_worst, u_seen = (0.0, ""), 0
+    for k in rest:
+        settled = gp[k].abs() > 1e-3 * gp[k].abs().max()
+        u_seen += int(settled.sum().item())
+        if settled.any():
+            e = (uk[k] - up[k])[settled].abs().max().item() / up[k].abs().max().item()
+            u_worst = max(u_worst, (e, k))
+    p_worst = max((max_err(pk[k], pp[k]) / magnitude(pp[k]), k) for k in pp)
+    p_leaf = max((max_err(pk[k], pp[k]) / max(pp[k].abs().max().item(), 1e-30), k)
+                 for k in pp)
+    return {"loss": abs(lk - lp_) / abs(lp_), "grads": g_worst, "params": p_worst,
+            "params_leaf": p_leaf, "updates": u_worst, "updates_seen": u_seen}
+
+
+# check_step's limits: (loss relative, gradients, parameters, updates)
+STEP_GATES = {"loss": 1e-4, "grads": 1e-3, "params": 1e-4, "updates": 1e-3}
+
+
+def step_gate_failures(errors: dict) -> list:
+    """The readings of ``step_errors`` above STEP_GATES."""
+    out = []
+    for key, limit in STEP_GATES.items():
+        v = errors[key] if key == "loss" else errors[key][0]
+        if not v <= limit:
+            out.append(f"{key} {v:.3e} > {limit:g}" + ("" if key == "loss"
+                                                         else f" ({errors[key][1]})"))
+    return out
+
+
 def check_step(tag, out_k, out_p, zero_grads=()) -> None:
     """One step on a kernel route against the same step on the plain route.
     ``zero_grads``: leaves whose gradient is 0 in exact arithmetic (the key
@@ -1080,19 +1141,9 @@ def check_step(tag, out_k, out_p, zero_grads=()) -> None:
         print(f"[{tag}] {k}: gradient 0 in exact arithmetic; largest |g| of the two routes "
               f"{noise:.3e} (largest gradient of the step {g_top:.3e})", flush=True)
         check(noise <= 1e-6 * g_top, f"{tag}: gradient {k} is {noise}, not rounding noise")
-    rest = [k for k in gp if k not in zero_grads]
-    g_worst = max((max_err(gk[k], gp[k]) / max(gp[k].abs().max().item(), 1e-30), k)
-                  for k in rest)
-    u_worst, u_seen = (0.0, ""), 0
-    for k in rest:
-        settled = gp[k].abs() > 1e-3 * gp[k].abs().max()
-        u_seen += int(settled.sum().item())
-        if settled.any():
-            e = (uk[k] - up[k])[settled].abs().max().item() / up[k].abs().max().item()
-            u_worst = max(u_worst, (e, k))
-    p_worst = max((max_err(pk[k], pp[k]) / magnitude(pp[k]), k) for k in pp)
-    p_leaf = max((max_err(pk[k], pp[k]) / max(pp[k].abs().max().item(), 1e-30), k)
-                 for k in pp)
+    e = step_errors(out_k, out_p, zero_grads)
+    g_worst, p_worst, p_leaf, u_worst, u_seen = (e["grads"], e["params"], e["params_leaf"],
+                                                 e["updates"], e["updates_seen"])
     print(f"[{tag}] gradients: worst max|diff| / leaf magnitude {g_worst[0]:.3e} "
           f"({g_worst[1]})", flush=True)
     print(f"[{tag}] params after one Adam step: worst max|diff| / magnitude "
@@ -2047,6 +2098,368 @@ def serving_slice(cfg, params, dev) -> dict:
                 requests_per_s=rate, serve_a_runs=a_runs)
 
 
+# the wrapper counters of the training kernels, in the order phase 5 reads
+# them: (C fwd, C bwd, D fwd, D bwd, E fwd, E bwd, F fwd, F bwd, G fwd, G bwd)
+def train_counters():
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        attention_block as tab, ffn_block as tfb, linear_attention_kernel as tlk,
+        window_attention_kernel as twk)
+    return ((tab.qkv_attention_block, "launches_fwd"), (tab.qkv_attention_block, "launches_bwd"),
+            (tfb.attn_tail_block, "launches_fwd"), (tfb.attn_tail_block, "launches_bwd"),
+            (twk.window_attention_band, "launches_fwd"),
+            (twk.window_attention_band, "launches_bwd"),
+            (tlk.causal_product, "launches_fwd"), (tlk.causal_product, "launches_bwd"),
+            (tfb.ffn_block, "launches_fwd"), (tfb.ffn_block, "launches_bwd"))
+
+
+def dp_rank(spec: dict) -> dict:
+    """Phases 34-35 on one rank of a group of ``spec["world"]`` ranks (2 by
+    default): over gloo, every rank on card 0 (``dp_run`` spawns them;
+    tests/test_torch_kernels_gpu.py at a small size); over nccl
+    (``spec["backend"]``), rank r on card r (scripts/dp_nccl.py).
+    ``spec``: the config's keywords ("cfg"), the global batch "B" x "S",
+    "valid_tail" (the second half's rows keep only their first valid_tail
+    positions, so the ranks' mask sums differ), "min_rows"
+    (RLMG_FFN_MIN_ROWS; None keeps the default), phase 35's "songs",
+    "max_tokens" and "bars" (no "songs": phase 34 alone), and "device"
+    (gloo's card, default card 0; "cpu" rehearses the code on the kernels'
+    plain versions, where the gates on the launches fail).
+
+    Phase 34: one f32 step (dropout 0) on the rank's rows with dp_mesh, C
+    and D counted; rank 0 also takes the same step in one process on the
+    whole batch and holds the dp step against it (``step_errors``), and the
+    control, the Adam step of the mean of the ranks' own means, against it
+    too; the ranks' parameters after the step compared bit for bit; the
+    all-reduce, the dp step and the one-process step timed; one bf16 step
+    at dropout 0.1, and kernel D's output on equal inputs from equal
+    generator states on both ranks (rank r's seed + 7919 r), beside the
+    same call without the mesh.  Phase 35: ``generate_songs(mesh=...)``
+    greedy with bf16 weights on kernel A (RLMG_FUSED_DECODE=1,
+    RLMG_FUSED_SAMPLING=1), A's runs counted; rank 0 also decodes the same
+    songs in one process; then a stochastic run."""
+    import dataclasses
+    import torch.distributed as dist
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.data import dataset
+    from reinforcement_learning_in_music_generation_torch.generate import sampler
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        decode_kernel_v4 as dk4, ffn_block as tfb)
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.train import (
+        optim as topt, pretrain as tpre)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for k in ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_WINDOW_BACKEND", "RLMG_FFN_MIN_ROWS",
+              "RLMG_PERSISTENT_DECODE", "RLMG_LATENCY_DECODE"):
+        os.environ.pop(k, None)
+    if spec.get("min_rows"):
+        os.environ["RLMG_FFN_MIN_ROWS"] = str(spec["min_rows"])
+    world = spec.get("world", 2)
+    if spec.get("backend", "gloo") == "nccl":      # launch put rank r on card r
+        mesh = pm.make_mesh(world)
+        dev, refused = mesh.device, None
+    else:
+        dev = torch.device(spec.get("device", "cuda:0"))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        try:                                        # NCCL takes a card a rank
+            pm.make_mesh(world, devices=[dev] * world)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        mesh = pm.make_mesh(world, devices=[dev] * world, backend="gloo")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rank = mesh.rank
+    out = {"rank": rank, "backend": mesh.backend, "nccl_refused": refused}
+    # the path's collectives on CUDA tensors
+    red = torch.full((4,), float(rank + 1), device=dev)
+    pm.all_reduce_(mesh, [red])
+    bc = torch.full((4,), float(rank + 1), device=dev)
+    pm.broadcast_(mesh, [bc])
+    ga = pm.all_gather(mesh, torch.full((2,), float(rank), device=dev))
+    out["collectives"] = {"all_reduce": red.tolist(), "broadcast": bc.tolist(),
+                          "all_gather": torch.cat(ga).tolist(),
+                          "all_gather_object": pm.all_gather_object(mesh, rank)}
+
+    # -- 34. the dp step ---------------------------------------------------
+    counters = train_counters()
+
+    def zero_counts():
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return [getattr(fn, attr) for fn, attr in counters]
+
+    cfg = C.LinearTransformerConfig(**spec["cfg"], dropout=0.0)
+    p0 = lt.init_params(cfg, seed=0, device=dev)
+    b, s_len, tail = spec["B"], spec["S"], spec["valid_tail"]
+    x, y, m = dataset.synthetic_cp_dataset(b, s_len, n_class=cfg.vocab_sizes, seed=0)
+    m = np.ones_like(m, dtype=np.float32)
+    m[b // 2:, tail:] = 0.0
+    full = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (x.astype(np.int64), y.astype(np.int64), m))
+    mine = pm.shard_batch(mesh, full)
+    out["rows"] = int(mine[0].shape[0]) * s_len
+    out["mask_sum"] = float(mine[2].sum())
+    tx = topt.adam(1e-4, grad_clip=3.0)
+
+    def step(batch, dp_mesh):
+        prm = topt.tree_map(torch.clone, p0)
+        st = tx.init(prm)
+        zero_counts()
+        grads, (loss, losses) = tpre.agent_grad_step(prm, cfg, *batch, None, dp_mesh=dp_mesh)
+        updates, _ = tx.update(grads, st, prm)
+        prm, _ = tpre.apply_grads(prm, st, tx, grads)
+        sync()
+        return [float(loss), losses.cpu(), named_leaves(prm), named_leaves(grads),
+                named_leaves(updates)], read_counts()
+
+    dp_out, out["dp_counts"] = step(mine, mesh)
+    flat = torch.cat([v.reshape(-1) for v in dp_out[2].values()])
+    parts = pm.all_gather(mesh, flat)
+    out["ranks_equal"] = all(bool(torch.equal(parts[0], q)) for q in parts[1:])
+    del flat, parts
+    # the control: the mean of the ranks' own means, and its Adam step
+    local, _ = step(mine, None)
+    g_n = [g.clone() for g in local[3].values()]
+    l_n = torch.tensor([local[0]], device=dev)
+    ls_n = local[1].to(dev)
+    pm.all_reduce_(mesh, g_n + [l_n, ls_n])
+    g_tree = topt.tree_unflatten(p0, [g / world for g in g_n])
+    u_n, _ = tx.update(g_tree, tx.init(p0), p0)
+    p_n = topt.tree_map(torch.add, p0, u_n)
+    naive = [float(l_n) / world, (ls_n / world).cpu(), named_leaves(p_n), named_leaves(g_tree),
+             named_leaves(u_n)]
+    del local, g_n, g_tree, u_n, p_n
+    dist.barrier()
+    if rank == 0:
+        ref, out["single_counts"] = step(full, None)
+        out["loss"], out["loss_single"], out["loss_naive"] = dp_out[0], ref[0], naive[0]
+        out["errors"] = step_errors(dp_out, ref)
+        out["control"] = step_errors(naive, ref)
+        del ref
+    del dp_out, naive
+    dist.barrier()
+
+    def timed(batch, dp_mesh, n=3) -> float:
+        prm = topt.tree_map(torch.clone, p0)
+        st = tx.init(prm)
+        prm, st, _ = tpre.agent_train_step(prm, st, cfg, tx, *batch, None, dp_mesh=dp_mesh)
+        sync()
+        t = time.perf_counter()
+        for _ in range(n):
+            prm, st, _ = tpre.agent_train_step(prm, st, cfg, tx, *batch, None, dp_mesh=dp_mesh)
+        sync()
+        return (time.perf_counter() - t) / n * 1e3
+
+    leaves = [torch.zeros_like(t) for t in topt.tree_leaves(p0)]
+    pm.all_reduce_(mesh, leaves)
+    sync()
+    dist.barrier()
+    t = time.perf_counter()
+    for _ in range(3):
+        pm.all_reduce_(mesh, leaves)
+    sync()
+    out["allreduce_ms"] = (time.perf_counter() - t) / 3 * 1e3
+    out["allreduce_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves
+    dist.barrier()
+    out["ms_dp"] = timed(mine, mesh)
+    dist.barrier()
+    if rank == 0:
+        out["ms_single"] = timed(full, None)
+    dist.barrier()
+
+    # bf16 at dropout 0.1: a finite global loss, D counted; D's masks
+    cfg_b = dataclasses.replace(cfg, dtype="bfloat16", dropout=0.1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    prm = topt.tree_map(torch.clone, p0)
+    st = tx.init(prm)
+    zero_counts()
+    prm, st, (loss_b, _) = tpre.agent_train_step(prm, st, cfg_b, tx, *mine, gen, dp_mesh=mesh)
+    sync()
+    out["bf16"] = {"loss": float(loss_b), "counts": read_counts()}
+    del prm, st
+    lp0 = {k: {kk: vv[0].to(torch.bfloat16) for kk, vv in v.items()}
+           for k, v in p0["layers"].items()}
+    g_in = torch.Generator(device=dev)
+    g_in.manual_seed(3)
+    h_in = torch.randn((256, cfg.d_model), generator=g_in, device=dev).to(torch.bfloat16)
+    a_in = torch.randn((256, cfg.d_model), generator=g_in, device=dev).to(torch.bfloat16)
+    d_out = {}
+    for name, dp_mesh in (("mesh", mesh), ("none", None)):
+        g_s = torch.Generator(device=dev)
+        g_s.manual_seed(77)
+        seed = lt._dropout_seed(g_s, 0.1, dev, dp_mesh)
+        o = tfb.attn_tail_block(h_in, a_in, lp0["wo"]["w"], lp0["wo"]["b"], lp0["ln1"]["scale"],
+                                lp0["ln1"]["bias"], lp0["ffn1"]["w"], lp0["ffn1"]["b"],
+                                lp0["ffn2"]["w"], lp0["ffn2"]["b"], lp0["ln2"]["scale"],
+                                lp0["ln2"]["bias"], seed, 0.1)
+        o_all = pm.all_gather(mesh, o.float())
+        d_out[name] = (pm.all_gather_object(mesh, int(seed)),
+                       any(bool(torch.equal(o_all[i], o_all[j]))
+                           for i in range(world) for j in range(i)))
+    # "d_equal": some two ranks' outputs equal
+    out["bf16"]["seeds"], out["bf16"]["d_equal"] = d_out["mesh"]
+    out["bf16"]["seeds_none"], out["bf16"]["d_equal_none"] = d_out["none"]
+
+    # -- 35. generate_songs on the mesh, kernel A on each rank ---------------
+    if spec.get("songs"):
+        os.environ["RLMG_FUSED_DECODE"] = "1"
+        os.environ["RLMG_FUSED_SAMPLING"] = "1"
+        pg = lt.cast_params(p0, torch.bfloat16)
+        gcfg = C.GenerateConfig(batch_size=spec["songs"], max_tokens=spec["max_tokens"],
+                                bar_production=spec["bars"], greedy=True)
+
+        def a_runs(reset=False):              # A counts its runs, graph replays too
+            return dk4.kernel_runs(reset) if dev.type == "cuda" else 0
+
+        def decode(g_cfg, dp_mesh):
+            sampler.generate_songs(pg, cfg, g_cfg, mesh=dp_mesh)    # builds the token graph
+            sync()
+            a_runs(reset=True)
+            t = time.perf_counter()
+            songs = sampler.generate_songs(pg, cfg, g_cfg, mesh=dp_mesh)
+            sync()
+            return songs, (time.perf_counter() - t) * 1e3, a_runs()
+
+        dist.barrier()
+        greedy, ms, runs = decode(gcfg, mesh)
+        out["generate"] = {"greedy": greedy, "ms_dp": ms, "a_runs": runs}
+        dist.barrier()
+        if rank == 0:
+            single, ms1, runs1 = decode(gcfg, None)
+            out["generate"].update(single=single, ms_single=ms1, a_runs_single=runs1)
+        dist.barrier()
+        stoch = sampler.generate_songs(pg, cfg, dataclasses.replace(gcfg, greedy=False, seed=5),
+                                       mesh=mesh)
+        out["generate"]["stochastic"] = stoch
+    return out
+
+
+def dp_gate_failures(res: list, n_layer: int, vocab_sizes) -> list:
+    """Phases 34-35's gates over every rank's ``dp_rank`` readings; the
+    failures, each a line ([] when every gate holds)."""
+    fails = []
+    want = [n_layer] * 4 + [0] * 6
+    world, r0 = len(res), res[0]
+    for r in res:
+        tag = f"rank {r['rank']}"
+        if r["nccl_refused"] == "":
+            fails.append(f"{tag}: make_mesh put NCCL ranks on one card")
+        c = r["collectives"]
+        if (c["all_reduce"] != [world * (world + 1) / 2] * 4 or c["broadcast"] != [1.0] * 4
+                or c["all_gather"] != [float(i // 2) for i in range(2 * world)]
+                or c["all_gather_object"] != list(range(world))):
+            fails.append(f"{tag}: {r['backend']} collectives on CUDA tensors gave {c}")
+        if r["dp_counts"] != want:
+            fails.append(f"{tag}: dp step launches (C, D, E, F, G fwd/bwd) {r['dp_counts']}, "
+                         f"expected {want}")
+        if r["bf16"]["counts"] != want:
+            fails.append(f"{tag}: bf16 dp step launches {r['bf16']['counts']}, expected {want}")
+        if not math.isfinite(r["bf16"]["loss"]) or r["bf16"]["loss"] != r0["bf16"]["loss"]:
+            fails.append(f"{tag}: bf16 dp step loss {r['bf16']['loss']} (rank 0: "
+                         f"{r0['bf16']['loss']})")
+        if not r["ranks_equal"]:
+            fails.append(f"{tag}: the ranks' parameters differ after the dp step")
+        if "generate" in r and not r["generate"]["a_runs"] > 0:
+            fails.append(f"{tag}: kernel A ran no time on the mesh")
+    if len({r["mask_sum"] for r in res}) == 1:
+        fails.append("the ranks' mask sums are equal: the control cannot fail")
+    if r0["single_counts"] != want:
+        fails.append(f"one-process step launches {r0['single_counts']}, expected {want}")
+    bad = step_gate_failures(r0["errors"])
+    if bad:
+        fails.append(f"dp step against the one-process step: {bad}")
+    if not step_gate_failures(r0["control"]):
+        fails.append("the control (mean of the ranks' means) passes the step gate")
+    seeds = r0["bf16"]["seeds"]
+    if [q - seeds[0] for q in seeds] != [7919 * i for i in range(world)] or r0["bf16"]["d_equal"]:
+        fails.append(f"kernel D's seeds on the ranks {seeds}: the masks do not differ")
+    if len(set(r0["bf16"]["seeds_none"])) != 1:
+        fails.append(f"without the mesh the ranks drew the seeds {r0['bf16']['seeds_none']}")
+    if "generate" in r0:
+        g0 = r0["generate"]
+        if len(g0["greedy"]) != len(g0["single"]) or any(
+                not np.array_equal(a, b) for a, b in zip(g0["greedy"], g0["single"])):
+            fails.append("greedy songs on the mesh differ from one process's")
+        for r in res[1:]:
+            for key in ("greedy", "stochastic"):
+                if any(not np.array_equal(a, b) for a, b in zip(g0[key], r["generate"][key])):
+                    fails.append(f"{key}: rank {r['rank']} returned another list than rank 0")
+        st = g0["stochastic"]
+        per = len(st) // world
+        seed_row = np.asarray((0, 0, 1, 0, 0, 0))
+        for i, song in enumerate(st):
+            if (len(song) < 2 or not np.array_equal(song[0], seed_row)
+                    or (song < 0).any() or (song >= np.asarray(vocab_sizes)).any()):
+                fails.append(f"stochastic song {i} is not a valid song")
+        if any(np.array_equal(st[i], st[j]) for i in range(len(st)) for j in range(i)
+               if i // per != j // per):
+            fails.append("a rank's stochastic song is a copy of another rank's")
+    return fails
+
+
+def dp_run(cfg, smi_line, world: int = 2, backend: str = "gloo", batch: int = 32) -> None:
+    """``world`` ranks of ``dp_rank`` at ``cfg``'s width, ``batch`` x 512
+    global, with phase 35's 8 songs: over gloo all on card 0 (phases 34-35),
+    over nccl a card each (scripts/dp_nccl.py); prints the readings and fails
+    on ``dp_gate_failures``."""
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    spec = {"cfg": dict(vocab_sizes=cfg.vocab_sizes), "B": batch, "S": 512, "valid_tail": 100,
+            "min_rows": None, "songs": 8, "max_tokens": 256, "bars": 8, "world": world,
+            "backend": backend}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # the ranks are processes of their own
+    t = time.perf_counter()
+    res = pm.launch(dp_rank, world, (spec,), backend=backend, timeout_s=600)
+    wall = time.perf_counter() - t
+    r0 = res[0]
+
+    def each(key, fmt):
+        return " / ".join(format(r[key], fmt) for r in res)
+    cards = "all on card 0" if backend == "gloo" else "a card each"
+    e, c = r0["errors"], r0["control"]
+    print(f"[dp] {world} ranks over {backend}, {cards} ({smi_line}); make_mesh's refusal of "
+          f"NCCL ranks sharing a card: {(r0['nccl_refused'] or '')[:80]!r}; the collectives on "
+          f"CUDA tensors: {r0['collectives']}; {wall:.1f}s with the ranks' start", flush=True)
+    print(f"[dp] 34: rows a rank {r0['rows']}, mask sums {each('mask_sum', '.0f')}; launches "
+          f"(C, D, E, F, G fwd/bwd) a rank {[r['dp_counts'] for r in res]}, one process "
+          f"{r0['single_counts']}", flush=True)
+    print(f"[dp] 34: loss dp {r0['loss']:.7f}, one process {r0['loss_single']:.7f}, mean of the "
+          f"ranks' means {r0['loss_naive']:.7f}; dp against one process: loss {e['loss']:.2e}, "
+          f"gradients {e['grads'][0]:.3e} ({e['grads'][1]}), params {e['params'][0]:.3e}, "
+          f"updates {e['updates'][0]:.3e}; the control: loss {c['loss']:.2e}, gradients "
+          f"{c['grads'][0]:.3e} ({c['grads'][1]}), params {c['params'][0]:.3e}, updates "
+          f"{c['updates'][0]:.3e} (gates {STEP_GATES}); ranks' params after the step "
+          f"{'bit-equal' if all(r['ranks_equal'] for r in res) else 'DIFFERENT'}", flush=True)
+    share = "; ranks sharing one card share its SMs, so these times say nothing of scaling" \
+        if backend == "gloo" else ""
+    print(f"[dp] 34: ms a step (f32, C + D): {each('ms_dp', '.1f')} on the ranks at once "
+          f"({r0['rows'] // 512} x 512 rows each), {r0['ms_single']:.1f} in one process "
+          f"({batch} x 512); the gradients' all-reduce ({r0['allreduce_bytes'] / 2**20:.1f} MiB) "
+          f"{each('allreduce_ms', '.1f')} ms{share} ({smi_line})", flush=True)
+    b0 = r0["bf16"]
+    print(f"[dp] 34: bf16 at dropout 0.1: loss {b0['loss']:.6f} on every rank, launches "
+          f"{b0['counts']}; kernel D's seeds from one generator state {b0['seeds']} (outputs "
+          f"on equal inputs {'some equal' if b0['d_equal'] else 'all different'}), without "
+          f"the mesh {b0['seeds_none']} ({'equal' if b0['d_equal_none'] else 'different'})",
+          flush=True)
+    g = [r["generate"] for r in res]
+    print(f"[dp] 35: generate_songs on the mesh, {len(g[0]['greedy'])} songs greedy, bf16 "
+          f"weights: {sum(len(x) for x in g[0]['greedy'])} tokens, kernel A's runs "
+          f"{[x['a_runs'] for x in g]} on the ranks ({g[0]['a_runs_single']} in one process); "
+          f"{' / '.join(format(x['ms_dp'], '.1f') for x in g)} ms on the ranks, "
+          f"{g[0]['ms_single']:.1f} ms in one process ({smi_line}); greedy songs equal one "
+          f"process's: {all(np.array_equal(a, b) for a, b in zip(g[0]['greedy'], g[0]['single']))}"
+          f"; stochastic: {[len(x) for x in g[0]['stochastic']]} tokens", flush=True)
+    fails = dp_gate_failures(res, cfg.n_layer, cfg.vocab_sizes)
+    check(not fails, f"dp over {backend}: " + "; ".join(fails))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -2524,13 +2937,7 @@ def main() -> None:
             if v is not None:
                 os.environ[k] = v
 
-    # (C fwd, C bwd, D fwd, D bwd, E fwd, E bwd, F fwd, F bwd, G fwd, G bwd)
-    counters = ((tab.qkv_attention_block, "launches_fwd"), (tab.qkv_attention_block, "launches_bwd"),
-                (tfb.attn_tail_block, "launches_fwd"), (tfb.attn_tail_block, "launches_bwd"),
-                (twk.window_attention_band, "launches_fwd"),
-                (twk.window_attention_band, "launches_bwd"),
-                (tlk.causal_product, "launches_fwd"), (tlk.causal_product, "launches_bwd"),
-                (tfb.ffn_block, "launches_fwd"), (tfb.ffn_block, "launches_bwd"))
+    counters = train_counters()
 
     def zero_counts():
         for fn, attr in counters:
@@ -3525,6 +3932,7 @@ def main() -> None:
     lat_entries = latency_slice(cfg, params, dev, gen)      # phases 21-24
     aug_entries = aug_slice(cfg, params, dev, gen)          # phases 25-29
     serve = serving_slice(cfg, params, dev)                 # phases 31-33
+    dp_run(cfg, smi_line)                                    # phases 34-35
 
     # -- 30. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)

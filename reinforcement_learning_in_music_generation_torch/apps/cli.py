@@ -33,6 +33,12 @@ Run them as
         --songs 24 --continuous-batch 8 --bars 8
     python -m reinforcement_learning_in_music_generation_torch.apps.cli serve --requests r.jsonl
 
+``pretrain --dp N`` and ``generate --dp N`` run N data-parallel ranks
+(``parallel/mesh.py``), which the command starts itself, one process each:
+with ``--device cpu`` over gloo on the CPU, on CUDA over NCCL with a card a
+rank; started by ``torchrun --nproc_per_node N``, each process joins
+torchrun's group instead.  Rank 0 prints and writes the files.
+
 The model commands run on the GPU unless ``--device cpu`` is given.  Without ``--ckpt``
 the generation weights are random, drawn from ``--seed``; ``--ckpt`` reads
 a checkpoint written by the JAX package's ``save_checkpoint`` or by the
@@ -48,6 +54,7 @@ sends the post-LN1 half of every linear-transformer layer to kernel G
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -66,12 +73,13 @@ from ..generate import sampler, serving
 from ..models import linear_transformer as lt
 from ..models import longformer as lf
 from ..ops import sampling as smp
+from ..parallel import mesh as pmesh
 from ..rl import airl, buffers, dqn, env, ppo
 from ..train import pretrain as pretrain_lib
 from ..utils import plotting
 from ..utils.checkpoint import save_checkpoint
 from ..utils.metrics import RuntimeStats
-from ..utils.saver import MetricsBus, Saver
+from ..utils.saver import MetricsBus, QuietSaver, Saver
 from ..weights import _ParamsUnpickler, load_jax_checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -88,33 +96,69 @@ def _generation_params(args, mcfg, device: torch.device) -> dict:
     return lt.cast_params(params, _DTYPES[args.dtype])
 
 
+def _run_ranks(args):
+    """Run ``args.fn`` on ``args.dp`` data-parallel ranks and return rank
+    0's result: in the group of a ``torchrun`` that started this process,
+    else in ranks started here (``parallel.launch``).  gloo with ``--device
+    cpu``, else NCCL (a card a rank)."""
+    backend = "gloo" if torch.device(args.device).type == "cpu" else "nccl"
+    if pmesh.launched_by_torchrun():
+        pmesh.join_torchrun_group(backend)
+        try:
+            return _rank_main(args)
+        finally:
+            torch.distributed.destroy_process_group()
+    return pmesh.launch(_rank_main, args.dp, (args,), backend=backend)[0]
+
+
+def _rank_main(args):
+    """One rank of ``_run_ranks``: its mesh, then the command; ranks other
+    than 0 print nothing."""
+    mesh = pmesh.make_mesh(dp=args.dp)
+    if mesh.rank == 0:
+        return args.fn(args, mesh=mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return args.fn(args, mesh=mesh)
+
+
+def _parallel_flags(args, ported: tuple = ()) -> None:
+    """Raise for the mesh flags > 1 that are not ported (ROADMAP Queue 1
+    item 9): tp (9(b)), pp (9(d)), dp outside ``ported``' commands (9(b2))."""
+    items = {"dp": "9(b2)", "tp": "9(b)", "pp": "9(d)"}
+    for flag, item in items.items():
+        if flag not in ported and getattr(args, flag, 1) > 1:
+            raise NotImplementedError(f"--{flag} > 1: this parallelism is not ported yet "
+                                      f"(ROADMAP Queue 1 item {item})")
+
+
 def _prompt_rows(path: str) -> np.ndarray:
     """A MIDI file CP-encoded to (T0, 6) rows, the 'type' column dropped."""
     return np.delete(cp_tokenizer.CPEncoder().encode(path), 3, axis=1)
 
 
-def cmd_generate(args) -> dict:
+def cmd_generate(args, mesh=None) -> dict:
     """Generate ``--songs`` songs, write get_<i>.mid files and
     ``runtime_stats.json`` beside ``--out-dir`` (JAX :510-598).  One batch
     through ``sampler.generate_songs`` (``--prompt``: the MIDI file's CP rows
     seed every song), or with ``--continuous`` through the continuous batcher
-    over ``--continuous-batch`` slots (``generate/serving.py``).  Returns
-    {"songs", "tokens", "seconds", "tokens_per_s"} (and "steps" with
+    over ``--continuous-batch`` slots (``generate/serving.py``).  ``--dp N``:
+    the songs split over N ranks (``_run_ranks``), each decoding its share.
+    Returns {"songs", "tokens", "seconds", "tokens_per_s"} (and "steps" with
     ``--continuous``)."""
     if args.continuous and (args.prompt or args.greedy or args.dp > 1 or args.tp > 1):
         raise SystemExit(
             "--continuous does not combine with --prompt/--greedy/--dp/--tp yet (the serving "
             "loop is stochastic, unconditional, single-device); drop --continuous or those flags")
-    for flag in ("dp", "tp"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(f"--{flag} > 1: parallelism is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
+    _parallel_flags(args, ported=("dp",))
+    if args.dp > 1 and mesh is None:
+        return _run_ranks(args)
     e2w, w2e = tokenizer.drop_type(tokenizer.construct_cp_dict())
     vocab = tuple(tokenizer.n_classes(e2w))
     mcfg = C.agent_config(vocab, n_layer=args.layers)
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     params = _generation_params(args, mcfg, device)
-    os.makedirs(args.out_dir, exist_ok=True)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(args.out_dir, exist_ok=True)
     init = sampler.CP_SEED
     if args.prompt:
         rows = _prompt_rows(args.prompt)
@@ -137,7 +181,7 @@ def cmd_generate(args) -> dict:
     else:
         def run(seed):
             return sampler.generate_songs(params, mcfg, dataclasses.replace(gcfg, seed=seed),
-                                          init=init)
+                                          init=init, mesh=mesh)
     if args.warmup:
         run(args.seed + 1)      # another seed, so that the timed call is a new request
     _sync(device)
@@ -153,15 +197,19 @@ def cmd_generate(args) -> dict:
         songs = out
     total = sum(len(s) for s in songs)
     stats = RuntimeStats()
+    writer = mesh is None or mesh.rank == 0
     for i, song in enumerate(songs):
         path = os.path.join(args.out_dir, f"get_{i}.mid")
-        tokenizer.write_midi_cp(song, path, w2e)
+        if writer:
+            tokenizer.write_midi_cp(song, path, w2e)
         stats.add_song(elapsed / len(songs), len(song))
         print(f"song {i}: {len(song)} tokens -> {path}")
-    stats.dump(os.path.join(args.out_dir, "..", "runtime_stats.json"))
+    if writer:
+        stats.dump(os.path.join(args.out_dir, "..", "runtime_stats.json"))
     rate = total / elapsed if elapsed > 0 else float("inf")
+    ranks = "" if mesh is None else f", {mesh.dp} ranks"
     print(f"ave token time: {rate:.1f} tokens/sec ({total} tokens in {elapsed:.2f}s, "
-          f"{len(songs)} songs on {device})")
+          f"{len(songs)} songs on {device}{ranks})")
     return {"songs": len(songs), "tokens": total, "seconds": elapsed, "tokens_per_s": rate,
             **extra}
 
@@ -284,16 +332,19 @@ def _load_pretrain_data(args, vocab):
 
 def _run_pretrain(params, mcfg, x, y, mask, pcfg: C.PretrainConfig, device, *,
                   use_wandb: bool = False, max_steps=None, resume=None,
-                  step_fn=pretrain_lib.agent_train_step) -> dict:
+                  step_fn=pretrain_lib.agent_train_step, mesh=None) -> dict:
     """The pretrain loop, timed after the data and the weights are made.
-    Returns {"steps", "seconds", "tokens_per_s", "batch_losses", "history"}."""
+    Returns {"steps", "seconds", "tokens_per_s", "batch_losses", "history"}.
+    Under a mesh only rank 0 logs."""
     print(f"n_parameters: {lt.n_params(params):,}")
-    bus = MetricsBus(Saver(pcfg.exp_dir), use_wandb=use_wandb)
+    rank0 = mesh is None or mesh.rank == 0
+    bus = MetricsBus(Saver(pcfg.exp_dir) if rank0 else QuietSaver(),
+                     use_wandb=use_wandb and rank0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     params, _, history = pretrain_lib.pretrain(params, mcfg, x, y, mask, pcfg, step_fn=step_fn,
-                                               metrics=bus, max_steps=max_steps,
+                                               mesh=mesh, metrics=bus, max_steps=max_steps,
                                                resume_from=resume)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -308,18 +359,18 @@ def _run_pretrain(params, mcfg, x, y, mask, pcfg: C.PretrainConfig, device, *,
             "batch_losses": bus.history.get("batch loss", []), "history": history}
 
 
-def cmd_pretrain(args) -> dict:
+def cmd_pretrain(args, mesh=None) -> dict:
     """Agent CE pretrain (dqn_policy/agent_pretrain.py:485-632); returns
-    ``_run_pretrain``'s numbers."""
-    for flag in ("dp", "tp", "pp"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(f"--{flag} > 1: parallelism is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
+    ``_run_pretrain``'s numbers.  ``--dp N``: N data-parallel ranks
+    (``_run_ranks``), each on its 1/N of every ``--batch-size`` batch."""
+    _parallel_flags(args, ported=("dp",))
+    if args.dp > 1 and mesh is None:
+        return _run_ranks(args)
     vocab = (tuple(int(v) for v in args.vocab.split(",")) if args.vocab
              else (56, 135, 18, 87, 18, 25))
     mcfg = C.agent_config(vocab, n_layer=args.layers, dtype=args.dtype)
     x, y, mask = _load_pretrain_data(args, vocab)
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     params = lt.init_params(mcfg, seed=args.seed, device=device)
     pcfg = C.PretrainConfig(n_epoch=args.epochs, batch_size=args.batch_size, lr=args.lr,
                             ckpt_dir=args.ckpt_dir, exp_dir=args.exp_dir, seed=args.seed,
@@ -327,7 +378,7 @@ def cmd_pretrain(args) -> dict:
                             ckpt_backend=args.ckpt_backend,
                             save_on_interrupt=args.save_on_interrupt)
     return _run_pretrain(params, mcfg, x, y, mask, pcfg, device, use_wandb=args.wandb,
-                         max_steps=args.max_steps, resume=args.resume)
+                         max_steps=args.max_steps, resume=args.resume, mesh=mesh)
 
 
 def cmd_discrim_pretrain(args) -> dict:
@@ -409,10 +460,7 @@ def cmd_dqn_train(args) -> dict:
     Returns {"updates", "metrics" (one dict of floats per update),
     "rollout_ms" (per song), "update_ms" and "airl_ms" (per update), each
     timed to a device synchronisation}."""
-    for flag in ("dp", "tp"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(f"--{flag} > 1: parallelism is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
+    _parallel_flags(args)
     vocab = (56, 135, 18, 87, 18, 25)
     mcfg = C.agent_config(vocab, n_layer=args.layers)
     wcfg = C.airl_discriminator_config(vocab, n_layer=max(1, args.layers - 2))
@@ -537,10 +585,7 @@ def cmd_ppo_train(args) -> dict:
     layer scan does.  Returns {"songs", "metrics" (one dict of floats per
     song, with "mean_reward"), "rollout_ms" and "update_ms" (per song, each
     timed to a device synchronisation)}."""
-    for flag in ("dp", "tp"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(f"--{flag} > 1: parallelism is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
+    _parallel_flags(args)
     vocab = (49, 19, 19, 89, 67, 25)
     device = torch.device(args.device)
     actor_params = reward_params = None
@@ -688,7 +733,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(serving mode; right for --songs >> batch)")
     d.add_argument("--continuous-batch", type=int, default=None,
                    help="slot count for --continuous (default min(songs, 8))")
-    d.add_argument("--dp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks, one process each, started here (gloo with "
+                        "--device cpu, else NCCL with a card a rank); each decodes its share "
+                        "of the songs")
     d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
     d.add_argument("--dtype", default="bfloat16", choices=tuple(_DTYPES),
                    help="decode weight dtype (bf16 halves the weight stream)")
@@ -757,7 +805,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(params + optimizer state + epoch)")
     d.add_argument("--dtype", default="float32", choices=tuple(_DTYPES),
                    help="compute dtype; bfloat16 keeps float32 master weights")
-    d.add_argument("--dp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks, one process each, started here (gloo with "
+                        "--device cpu, else NCCL with a card a rank); each takes 1/dp of "
+                        "every batch")
     d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
     d.add_argument("--pp", type=int, default=1, help="not ported yet (> 1 raises)")
     d.add_argument("--save-on-interrupt", action="store_true",
@@ -766,7 +817,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="orbax is not ported yet (raises)")
     d.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches per optimizer step")
-    d.add_argument("--zero1", action="store_true", help="not ported yet (raises)")
+    d.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: Adam's moments sliced over the dp ranks (optimizer memory / "
+                        "dp; one all-gather of the updates a step); needs --dp > 1")
     d.set_defaults(fn=cmd_pretrain)
 
     d = sub.add_parser(

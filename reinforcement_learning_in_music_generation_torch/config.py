@@ -3,7 +3,8 @@
 Only what the ported paths use: the causal linear-attention transformer's
 config and its ``agent_config`` / ``actor_config`` / ``critic_config``
 presets, the sliding-window (Longformer) encoder's config and its three
-presets, and the generation, pretrain, DQN, AIRL and PPO configs.  Field
+presets, the generation, pretrain, DQN, AIRL and PPO configs, and the mesh
+layout (``MeshConfig``).  Field
 names and defaults match the JAX package.  Left out: ``scan_unroll`` (the
 port runs its layer loops eagerly, there is no scan to unroll) and
 ``PretrainConfig.prng_impl`` (a JAX PRNG choice).
@@ -161,10 +162,10 @@ class PretrainConfig:
     log_every: int = 10             # batches between host-side loss fetches
     lr_milestones: Tuple[int, ...] = ()   # MultiStepLR milestones, in epochs
     lr_gamma: float = 0.1
-    zero1: bool = False             # not ported (raises)
+    zero1: bool = False             # ZeRO-1: Adam's moments sliced over the mesh's dp
     prefetch_depth: int = 2         # host->device input look-ahead
     grad_accum: int = 1             # micro-batches per optimizer step
-    ckpt_backend: str = "pickle"    # "orbax" is not ported (raises)
+    ckpt_backend: str = "pickle"    # "orbax" is not ported (raises, ROADMAP item 9(d))
     save_on_interrupt: bool = False  # SIGTERM/SIGINT: checkpoint and return
 
 
@@ -219,3 +220,16 @@ class PPOConfig:
     # The reference discounts rewards in forward order (ppo_train.py:348-357);
     # the default fixes it, True reproduces it.
     compat_forward_returns: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh layout: ``dp`` ranks, each a process, times ``tp``."""
+
+    dp: int = -1    # -1: infer from the world size / tp
+    tp: int = 1
+
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int]:
+        tp = max(1, self.tp)
+        dp = self.dp if self.dp > 0 else max(1, n_devices // tp)
+        return dp, tp

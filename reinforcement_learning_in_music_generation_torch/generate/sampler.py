@@ -27,8 +27,12 @@ Stop conditions (testing-no-type-cp.py:169-174): a token whose bar-beat
 field is 'Bar' counts a bar; a song is done when its count reaches
 ``bar_cond`` (the final Bar token is kept).  Finished songs emit zero
 tokens that are marked invalid.  A fixed token budget (``token_count``)
-masks the tail instead.  Mesh sharding is not ported
-(``NotImplementedError``).
+masks the tail instead.
+
+Under a dp mesh (``generate_songs(mesh=...)``, ``parallel/mesh.py``) each
+rank decodes its share of the songs on the per-step path, as JAX's mesh
+always takes it, with a generator of its own, and the songs are
+all-gathered in global order.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from ..ops import sampling as smp
 from ..ops.decode_common import decode_state_dtype
 from ..ops.experimental import decode_kernel_v7 as dk7
 from ..ops.experimental import decode_kernel_v8 as dk8
+from ..parallel.mesh import all_gather_object
 from ..utils.cuda_graph import capture_stream
 
 
@@ -658,11 +663,23 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
     RLMG_LATENCY_DECODE=1, RLMG_FUSED_DECODE=1 and RLMG_FUSED_SAMPLING=1 opt
     greedy back in.  The latency path takes precedence over the chunked one;
     odd head counts take neither and decode per step (JAX :760-769), through
-    the v3 kernel when fused."""
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded generation is not ported")
+    the v3 kernel when fused.
+
+    ``mesh`` (``parallel.make_mesh``, dp only; every rank calls this): rank
+    r decodes songs [r b/dp, (r+1) b/dp) on the per-step path (JAX takes
+    neither the latency nor the chunked path under a mesh), from a
+    generator seeded 7919 r above the run's seed (``gen_cfg.seed``, or a
+    draw from ``generator``), so no two ranks' songs are copies; every rank
+    returns all b songs, in order.  A batch that dp does not divide is
+    decoded whole on every rank, from the run's own generator (JAX's
+    replicated placement)."""
+    if mesh is not None and mesh.shape.get("tp", 1) > 1:
+        raise NotImplementedError("generate_songs(mesh=...) with tp > 1: tensor parallelism "
+                                  "is not ported yet (ROADMAP Queue 1 item 9(b))")
     dev = params["in_linear"]["w"].device
-    b = gen_cfg.batch_size
+    b_all = gen_cfg.batch_size
+    sharded = mesh is not None and mesh.dp > 1 and b_all % mesh.dp == 0
+    b = b_all // mesh.dp if sharded else b_all
     init_arr = np.asarray(init, dtype=np.int64)
     if init_arr.ndim == 1:
         init_arr = init_arr[None, :]
@@ -671,7 +688,12 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
         raise ValueError(f"init: rows of {cfg.n_fields} ids within {cfg.vocab_sizes}")
     init_tokens = torch.as_tensor(init_arr, dtype=torch.int32, device=dev)
     init_tokens = init_tokens[None].expand(b, -1, -1).contiguous()
-    if generator is None:
+    if sharded:
+        seed = gen_cfg.seed if generator is None else int(torch.randint(
+            0, 2 ** 62, (), generator=generator, device=generator.device))
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed + 7919 * mesh.rank)
+    elif generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(gen_cfg.seed)
     kwargs = dict(
@@ -691,6 +713,8 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
         use_fs = use_fused_sampling()
     if cfg.n_head % 2 != 0:
         use_pers = use_lat = False
+    if mesh is not None:
+        use_pers = use_lat = False
     if use_lat:
         res = generate_tokens_latency(params, cfg, init_tokens, **kwargs)
     elif use_pers:
@@ -704,4 +728,7 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
                               fused_sampling=use_fs, n_valid=n_valid)
     tokens = res.tokens.cpu().numpy()
     valid = res.valid.cpu().numpy()
-    return [tokens[i][valid[i]] for i in range(b)]
+    songs = [tokens[i][valid[i]] for i in range(b)]
+    if sharded:
+        songs = [song for part in all_gather_object(mesh, songs) for song in part]
+    return songs

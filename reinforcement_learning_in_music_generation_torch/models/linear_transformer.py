@@ -13,7 +13,11 @@ stored (in, out), per-layer leaves stacked (L, ...).  The training forward
 picks its route per layer as the JAX package does (``_ffn_backend``): on a
 CUDA device at ``RLMG_FFN_MIN_ROWS`` (8192) rows or more, kernel C
 (``ops/attention_block.py``) and kernel D (``ops/ffn_block.py``); otherwise
-the plain PyTorch composition.  An explicit ``RLMG_ATTN_BACKEND=pallas`` (or
+the plain PyTorch composition.  Under a data-parallel mesh (``dp_mesh``,
+``parallel/mesh.py``) each rank runs its own rows: the rule reads the rank's
+row count, kernel C runs on the rank's own sequences, kernel D's dropout
+seed gets ``7919 * rank`` added (the JAX rule), and the loss is the global
+masked CE (``ops/losses.py``).  An explicit ``RLMG_ATTN_BACKEND=pallas`` (or
 ``cfg.attn_backend``) takes the unfused layer at any row count, with kernel
 F (``ops/linear_attention_kernel.py``) as its attention; an explicit
 ``RLMG_FFN_BACKEND=pallas`` runs the unfused layer's post-LN1 half through
@@ -28,6 +32,7 @@ and kernel seeds (``_remat_layer``).
 from __future__ import annotations
 
 import os
+import warnings
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -107,37 +112,63 @@ def _ffn_min_rows() -> int:
     return int(os.environ.get("RLMG_FFN_MIN_ROWS", "8192"))
 
 
-def _ffn_backend(n_rows: int, device: torch.device) -> str:
+def _mesh_axes(dp_mesh) -> Tuple[int, int]:
+    """(dp, tp) of a mesh, (1, 1) without one."""
+    if dp_mesh is None:
+        return 1, 1
+    return dp_mesh.shape.get("dp", 1), dp_mesh.shape.get("tp", 1)
+
+
+def _ffn_backend(n_rows: int, device: torch.device, dp_mesh=None) -> str:
     """FFN-tail route of the training forward: "pallas-tail" runs kernel D
     (Wo + dropout + residual + LN1 + FFN + LN2, ``ops/ffn_block.py``),
     "xla" the plain PyTorch composition, "pallas" kernel G (the post-LN1
-    FFN + LN2, ``ops/ffn_block.py ffn_block``).  RLMG_FFN_BACKEND overrides.
+    FFN + LN2, ``ops/ffn_block.py ffn_block``).  RLMG_FFN_BACKEND overrides,
+    except under tp > 1, which always takes "xla" (with a warning: the fused
+    LN would normalize ffn2's partial sums).
 
     Default: the JAX rule with "the tensors are on a CUDA device" in place
     of "the default backend is a TPU": "pallas-tail" at ``_ffn_min_rows()``
-    rows or more on a CUDA device, else "xla".  The JAX rule's device-count
-    and tensor-parallel guards have no counterpart: the port runs on one
-    card and shards nothing."""
+    rows or more on a CUDA device, else "xla".  ``n_rows`` is the rows the
+    kernel would see: under a dp mesh this rank's, JAX's per-shard
+    ``n_rows // dp`` (the rank holds its 1/dp share of the batch)."""
+    tp = _mesh_axes(dp_mesh)[1]
     v = os.environ.get("RLMG_FFN_BACKEND")
     if v:
         if v not in _FFN_BACKENDS:
             raise ValueError(f"RLMG_FFN_BACKEND={v!r}: expected one of {_FFN_BACKENDS}")
+        if v in ("pallas", "pallas-tail") and tp > 1:
+            warnings.warn(f"RLMG_FFN_BACKEND={v} ignored under tp={tp}: the fused LN would "
+                          "normalize ffn2's partial sums; the composition instead")
+            return "xla"
         return v
-    if device.type == "cuda" and n_rows >= _ffn_min_rows():
+    if device.type == "cuda" and tp == 1 and n_rows >= _ffn_min_rows():
         return "pallas-tail"
     return "xla"
 
 
-def _qkv_attention_call(cfg: LinearTransformerConfig, lp: dict,
-                        h: torch.Tensor) -> Optional[torch.Tensor]:
-    """Kernel C (``ops/attention_block.py``) for (b, s, d) ``h``, or None
-    where it does not serve the configuration and the caller takes the
-    composition: the JAX rule (2-D h, odd head count, sequence length not
-    a multiple of the chunk).  A head layout the kernel does not take
-    raises there."""
+def _qkv_attention_call(cfg: LinearTransformerConfig, lp: dict, h: torch.Tensor,
+                        dp_mesh=None) -> Optional[torch.Tensor]:
+    """Kernel C (``ops/attention_block.py``) for (b, s, d) ``h``, this
+    rank's sequences under a dp mesh, or None where it does not serve the
+    configuration and the caller takes the composition: the JAX rule (2-D
+    h, odd head count, tp > 1 with a warning, dp not dividing b, sequence
+    length not a multiple of the chunk).  A head layout the kernel does not
+    take raises there.  JAX reads b on the global batch; here b is the
+    rank's: the same for a batch kept whole (dp does not divide it), while
+    a sharded batch whose per-rank share dp does not divide takes the
+    composition here where JAX takes C (the same function, up to
+    rounding)."""
     if h.ndim != 3 or cfg.n_head % 2 != 0:
         return None
     b, s, d = h.shape
+    dp, tp = _mesh_axes(dp_mesh)
+    if tp > 1:
+        warnings.warn("attention backend pallas-qkv ignored under tp > 1: the qkv projections "
+                      "are tensor-sharded; the composition instead")
+        return None
+    if dp > 1 and b % dp != 0:
+        return None
     chunk = min(cfg.attn_chunk, s)
     if s % chunk != 0:
         return None
@@ -148,36 +179,42 @@ def _qkv_attention_call(cfg: LinearTransformerConfig, lp: dict,
     return att.reshape(b, s, d)
 
 
-def _dropout_seed(generator: Optional[torch.Generator], p: float, device):
+def _dropout_seed(generator: Optional[torch.Generator], p: float, device, dp_mesh=None):
     """A fused kernel's dropout seed: drawn from ``generator`` when p > 0,
-    else 0 (no generator means no dropout, not dropout with a fixed seed)."""
+    else 0 (no generator means no dropout, not dropout with a fixed seed).
+    Under a dp mesh rank r adds 7919 r (JAX's ``axis_index("dp") * 7919``):
+    the kernels draw their masks by row, and the rows restart at 0 on every
+    rank."""
     if p <= 0.0:
         return 0
-    return torch.randint(0, 2 ** 30, (), generator=generator, device=generator.device,
-                         dtype=torch.int32).to(device, non_blocking=True)
+    seed = torch.randint(0, 2 ** 30, (), generator=generator, device=generator.device,
+                         dtype=torch.int32)
+    if _mesh_axes(dp_mesh)[0] > 1:
+        seed = seed + 7919 * dp_mesh.rank
+    return seed.to(device, non_blocking=True)
 
 
 def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                    generator: Optional[torch.Generator], deterministic: bool,
-                   attn_backend: Optional[str]) -> torch.Tensor:
+                   attn_backend: Optional[str], dp_mesh=None) -> torch.Tensor:
     # an explicitly requested attention backend (argument, config or env)
     # is not dropped by the fused route, whose attention is the head-minor
     # composition or kernel C; "xla" and None are compatible with it
     explicit_attn = attn_backend or cfg.attn_backend or os.environ.get("RLMG_ATTN_BACKEND")
     fused_ok = explicit_attn in (None, "", "xla", "pallas-qkv")
-    if h.ndim == 3 and fused_ok and _ffn_backend(h.shape[0] * h.shape[1],
-                                                 h.device) == "pallas-tail":
+    if h.ndim == 3 and fused_ok and _ffn_backend(h.shape[0] * h.shape[1], h.device,
+                                                 dp_mesh) == "pallas-tail":
         b, s, d = h.shape
         att = None
         if explicit_attn in ("pallas-qkv", None, ""):
-            att = _qkv_attention_call(cfg, lp, h)
+            att = _qkv_attention_call(cfg, lp, h, dp_mesh)
         if att is None:
             bshe = lambda x: x.reshape(b, s, cfg.n_head, cfg.d_head)
             att = causal_linear_attention_bshe(
                 bshe(cm.linear(lp["wq"], h)), bshe(cm.linear(lp["wk"], h)),
                 bshe(cm.linear(lp["wv"], h)), eps=cfg.attn_eps, chunk=cfg.attn_chunk)
         p = 0.0 if (deterministic or generator is None) else cfg.dropout
-        seed = _dropout_seed(generator, p, h.device)
+        seed = _dropout_seed(generator, p, h.device, dp_mesh)
         out = attn_tail_block(h.reshape(b * s, d), att.reshape(b * s, d).contiguous(),
                               lp["wo"]["w"], lp["wo"]["b"], lp["ln1"]["scale"],
                               lp["ln1"]["bias"], lp["ffn1"]["w"], lp["ffn1"]["b"],
@@ -186,7 +223,7 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
         return out.reshape(b, s, d)
     att = None
     if explicit_attn == "pallas-qkv":
-        att = _qkv_attention_call(cfg, lp, h)
+        att = _qkv_attention_call(cfg, lp, h, dp_mesh)
     if att is None:
         q = _split_heads(cm.linear(lp["wq"], h), cfg.n_head)
         k = _split_heads(cm.linear(lp["wk"], h), cfg.n_head)
@@ -198,12 +235,12 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                                                    backend=ca_backend, chunk=cfg.attn_chunk))
     att = cm.linear(lp["wo"], att)
     h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic))
-    if h.ndim == 3 and _ffn_backend(h.shape[0] * h.shape[1], h.device) == "pallas":
+    if h.ndim == 3 and _ffn_backend(h.shape[0] * h.shape[1], h.device, dp_mesh) == "pallas":
         b, s, d = h.shape
         p = 0.0 if (deterministic or generator is None) else cfg.dropout
         out = ffn_block(h.reshape(b * s, d), lp["ffn1"]["w"], lp["ffn1"]["b"], lp["ffn2"]["w"],
                         lp["ffn2"]["b"], lp["ln2"]["scale"], lp["ln2"]["bias"],
-                        _dropout_seed(generator, p, h.device), p)
+                        _dropout_seed(generator, p, h.device, dp_mesh), p)
         return out.reshape(b, s, d)
     y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], h), approximate="none")
     y = cm.dropout(generator, y, cfg.dropout, deterministic)
@@ -214,7 +251,7 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
 
 def _remat_layer(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                  generator: Optional[torch.Generator], deterministic: bool,
-                 attn_backend: Optional[str]) -> torch.Tensor:
+                 attn_backend: Optional[str], dp_mesh=None) -> torch.Tensor:
     """``_layer_forward`` under ``torch.utils.checkpoint`` (JAX ``cfg.remat``:
     ``jax.checkpoint`` around each layer): the backward keeps only the
     layer's input and runs the layer again.  The layer's randomness (the
@@ -234,18 +271,19 @@ def _remat_layer(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
             gen = torch.Generator(device=generator.device)
             gen.set_state(state)
         runs.append(1)
-        return _layer_forward(cfg, h_, lp_, gen, deterministic, attn_backend)
+        return _layer_forward(cfg, h_, lp_, gen, deterministic, attn_backend, dp_mesh)
 
     return torch.utils.checkpoint.checkpoint(run, h, lp, use_reentrant=False)
 
 
 def forward_hidden(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, *,
                    deterministic: bool = True, generator: Optional[torch.Generator] = None,
-                   attn_backend: Optional[str] = None) -> torch.Tensor:
+                   attn_backend: Optional[str] = None, dp_mesh=None) -> torch.Tensor:
     """x (B, S, n_fields) int -> h (B, S, D) (dqn_policy/model.py:200-233:
     embeddings -> in_linear -> positional encoding -> causal-linear
     encoder).  ``generator`` (on the tensors' device) draws the dropout
-    masks and the kernels' dropout seeds; None means no dropout."""
+    masks and the kernels' dropout seeds; None means no dropout.
+    ``dp_mesh``: x is this rank's rows of a batch over the mesh's dp."""
     deterministic = deterministic or generator is None
     s = x.shape[1]
     h = cm.linear(params["in_linear"], cm.embed_fields(params["emb"], x))
@@ -255,7 +293,7 @@ def forward_hidden(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, 
     layer = _remat_layer if cfg.remat and torch.is_grad_enabled() else _layer_forward
     for l in range(cfg.n_layer):
         lp = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in layers.items()}
-        h = layer(cfg, h, lp, generator, deterministic, attn_backend)
+        h = layer(cfg, h, lp, generator, deterministic, attn_backend, dp_mesh)
     return cm.layernorm(params["final_ln"], h)
 
 
@@ -275,12 +313,13 @@ def value_head(params: dict, h: torch.Tensor) -> torch.Tensor:
 def train_losses(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor,
                  target: torch.Tensor, mask: torch.Tensor, *, deterministic: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 attn_backend: Optional[str] = None) -> torch.Tensor:
+                 attn_backend: Optional[str] = None, dp_mesh=None) -> torch.Tensor:
     """Per-field masked CE (n_fields,), as LinearTransformer.train_step
-    (dqn_policy/model.py:170-197)."""
+    (dqn_policy/model.py:170-197); under a dp mesh this rank's share of the
+    global losses (``ops/losses.py``), which the caller all-reduces."""
     h = forward_hidden(params, cfg, x, deterministic=deterministic, generator=generator,
-                       attn_backend=attn_backend)
-    return fields_cross_entropy(forward_output(params, cfg, h), target, mask)
+                       attn_backend=attn_backend, dp_mesh=dp_mesh)
+    return fields_cross_entropy(forward_output(params, cfg, h), target, mask, mesh=dp_mesh)
 
 
 def make_decode_params(params: dict, cfg: LinearTransformerConfig,

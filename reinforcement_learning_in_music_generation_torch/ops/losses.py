@@ -4,31 +4,53 @@
 Masked per-field cross-entropy as the reference computes it:
 CrossEntropyLoss(reduction='none') * mask, summed and divided by mask.sum()
 (dqn_policy/model.py:109, 163-167).  The CE always reduces in float32.
+
+Under a dp mesh (``parallel/mesh.py``) the loss is JAX's over the GLOBAL
+batch, sum(ce * mask) / max(sum(mask), 1) with both sums over every rank's
+rows: each rank divides its own numerator by the all-reduced denominator, so
+the ranks' losses, and their gradients, sum to the global ones (the caller
+all-reduces both).  The mean of the ranks' own means is another loss
+wherever their mask sums differ.  The denominator is data: no gradient.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 
+def _mask_sum(mask: torch.Tensor, mesh) -> torch.Tensor:
+    """sum(mask), over every rank's rows under a dp mesh."""
+    den = mask.float().sum().detach()
+    if mesh is not None and mesh.dp > 1:
+        from ..parallel.mesh import all_reduce_
+        all_reduce_(mesh, [den])
+    return den
+
+
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
+                         mask: torch.Tensor, den: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits (B,S,V), targets (B,S) int, mask (B,S) {0,1} -> scalar
-    sum(ce * mask) / max(sum(mask), 1)."""
+    sum(ce * mask) / max(den, 1); ``den`` defaults to sum(mask) (the global
+    one under a dp mesh: ``fields_cross_entropy``)."""
     logits = logits.float()
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     ce = torch.logsumexp(logits, dim=-1) - gold
     mask = mask.to(ce.dtype)
-    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if den is None:
+        den = mask.sum()
+    return (ce * mask).sum() / torch.clamp(den, min=1.0)
 
 
 def fields_cross_entropy(logits_per_field: Sequence[torch.Tensor], targets: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
+                         mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-field masked CE, stacked: targets (B,S,n_fields) -> (n_fields,)
-    (dqn_policy/model.py:170-197; callers average)."""
-    return torch.stack([masked_cross_entropy(lg, targets[..., i], mask)
+    (dqn_policy/model.py:170-197; callers average); under a dp ``mesh`` this
+    rank's share of the global losses (one all-reduce for the fields'
+    shared denominator)."""
+    den = _mask_sum(mask, mesh)
+    return torch.stack([masked_cross_entropy(lg, targets[..., i], mask, den=den)
                         for i, lg in enumerate(logits_per_field)])
 
 

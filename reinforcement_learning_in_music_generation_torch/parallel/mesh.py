@@ -1,0 +1,273 @@
+"""The data-parallel mesh: one process a rank over ``torch.distributed`` (the
+counterpart of the JAX package's ``parallel/mesh.py``).
+
+JAX runs its ('dp', 'tp') mesh as one program over the devices (GSPMD).  The
+port runs one process a rank: rank r holds a full copy of the parameters and
+rows [r b/dp, (r+1) b/dp) of each global batch of b rows; a batch whose
+leading size dp does not divide is kept whole on every rank, as JAX's
+``shard_batch`` replicates it.  The callers add the collectives that GSPMD
+inserts: the masked CE's denominator and the gradients are all-reduced
+(``ops/losses.py``, ``train/pretrain.py``), ZeRO-1 all-gathers its updates
+(``train/optim.py``), generation all-gathers the songs
+(``generate/sampler.py``).
+
+Backends: ``nccl`` where each rank has a card of its own (rank r on
+``cuda:r``), ``gloo`` on the CPU.  NCCL refuses two ranks on one card (a
+duplicate GPU), so ``make_mesh`` raises where the ranks' devices share a card
+unless the caller passes ``backend="gloo"``; gloo then carries the CUDA
+tensors as they are (the card's PyTorch 2.11 runs every collective used here
+on them: ``chip_smoke.py`` phase 34).
+
+``launch`` starts the ranks of one machine: a process each (start method
+``spawn``), a ``file://`` rendezvous in a fresh temporary directory, a
+timeout on the process group's collectives and on every join; a rank that
+raises stops them all.  Tensor parallelism (tp > 1) waits for ROADMAP
+Queue 1 item 9(b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import queue as queue_lib
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..config import MeshConfig
+
+# the collectives' and the rendezvous' limit (torch's own default for gloo)
+DEFAULT_TIMEOUT_S = 1800.0
+_JOIN_S = 60.0          # a rank that has sent its result must exit within this
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A rank's view of the mesh: the axis sizes (``shape["dp"]``,
+    ``shape["tp"]``), this process's rank, the device it computes on and
+    the process group's backend (the default group)."""
+
+    shape: Dict[str, int]
+    rank: int
+    device: torch.device
+    backend: str
+
+    @property
+    def dp(self) -> int:
+        return self.shape["dp"]
+
+
+def make_mesh(dp: int = -1, tp: int = 1, devices: Optional[Sequence] = None,
+              backend: Optional[str] = None) -> Mesh:
+    """This rank's ``Mesh`` over the initialized process group, whose size
+    must be dp * tp (dp = -1: the world size / tp).  ``devices``: one torch
+    device a rank (default ``cuda:r`` under nccl, the CPU under gloo).  Ranks
+    that share a card need ``backend="gloo"``, passed explicitly; ``backend``
+    must name the group's backend where given."""
+    if tp > 1:
+        raise NotImplementedError("tp > 1: tensor parallelism is not ported yet "
+                                  "(ROADMAP Queue 1 item 9(b))")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh needs an initialized torch.distributed process group "
+                           "(parallel.launch starts one a rank; under torchrun, "
+                           "init_process_group)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    dp, tp = MeshConfig(dp, tp).axis_sizes(world)
+    if dp * tp != world:
+        raise ValueError(f"mesh {dp}x{tp} needs {dp * tp} ranks; the process group has {world}")
+    group_backend = dist.get_backend()
+    if backend is not None and backend != group_backend:
+        raise ValueError(f"backend={backend!r}, but the process group runs {group_backend!r}")
+    if devices is None:
+        devices = [torch.device("cuda", r) if group_backend == "nccl" else torch.device("cpu")
+                   for r in range(world)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    cards = {d.index or 0 for d in devices if d.type == "cuda"}
+    if any(d.type == "cuda" for d in devices):
+        if not torch.cuda.is_available() or max(cards) >= torch.cuda.device_count():
+            raise ValueError(f"devices {devices}: this machine has "
+                             f"{torch.cuda.device_count()} CUDA cards")
+        if len(cards) < world and backend != "gloo":
+            raise ValueError(f"{world} ranks on {len(cards)} card(s): NCCL takes one card a "
+                             "rank; pass backend='gloo' (over a gloo process group) to share "
+                             "a card")
+    elif group_backend == "nccl":
+        raise ValueError("an nccl process group needs CUDA devices")
+    return Mesh({"dp": dp, "tp": tp}, rank, devices[rank], group_backend)
+
+
+def shard_rows(mesh: Mesh, n: int) -> slice:
+    """This rank's rows of a leading axis of ``n``: its 1/dp share, or all
+    of them where dp does not divide n."""
+    dp = mesh.dp
+    if n % dp:
+        return slice(0, n)
+    k = n // dp
+    return slice(mesh.rank * k, (mesh.rank + 1) * k)
+
+
+def shard_batch(mesh: Mesh, batch):
+    """Each leaf's rows of this rank (``shard_rows`` of its leading axis);
+    a tuple, list or dict of tensors or numpy arrays."""
+    if isinstance(batch, dict):
+        return {k: shard_batch(mesh, v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(shard_batch(mesh, v) for v in batch)
+    return batch[shard_rows(mesh, batch.shape[0])] if batch.ndim else batch
+
+
+def _in_place(tensors: Sequence[torch.Tensor], collective: Callable) -> None:
+    """``collective`` on one flat buffer a dtype of the tensors, its result
+    copied back into them."""
+    if dist.get_world_size() == 1:
+        return
+    groups: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    for group in groups.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        collective(flat)
+        off = 0
+        for t in group:
+            t.detach().copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+def all_reduce_(mesh: Mesh, tensors: Sequence[torch.Tensor], op: str = "sum") -> None:
+    """Each tensor summed ("sum") or maxed ("max") over the ranks, in place:
+    one collective a dtype."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    _in_place(tensors, lambda flat: dist.all_reduce(flat, op=red))
+
+
+def broadcast_(mesh: Mesh, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
+    """Rank ``src``'s values of each tensor on every rank, in place."""
+    _in_place(tensors, lambda flat: dist.broadcast(flat, src=src))
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's ``t`` (the same shape and dtype on each), in rank order."""
+    world = dist.get_world_size()
+    if world == 1:
+        return [t]
+    src = t.detach().contiguous()
+    out = [torch.empty_like(src) for _ in range(world)]
+    dist.all_gather(out, src)
+    return out
+
+
+def all_gather_object(mesh: Mesh, obj: Any) -> list:
+    """Every rank's picklable ``obj``, in rank order."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+# -- launching the ranks ---------------------------------------------------------
+
+def _to_host(obj):
+    """Tensors in a rank's result as numpy arrays (bf16 widened to f32)."""
+    if torch.is_tensor(obj):
+        t = obj.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _rank_entry(fn, args, rank, world, backend, init_method, results):
+    """A spawned rank: join the group (nccl: on ``cuda:rank``), run ``fn``,
+    send its result or its traceback."""
+    try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+        dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+        out = _to_host(fn(*args))
+        dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:               # reported to the parent, which stops every rank
+        results.put((rank, False, traceback.format_exc()))
+        results.close()
+        results.join_thread()
+        sys.exit(1)
+
+
+def launch(fn: Callable, world: int, args: tuple = (), *, backend: str = "gloo",
+           timeout_s: Optional[float] = None) -> list:
+    """Run ``fn(*args)`` in ``world`` new processes, one a rank of a process
+    group of ``backend``; returns each rank's return value, in rank order
+    (tensors as numpy arrays).  ``fn`` is pickled by reference, so it lives
+    at the top level of a module the children can import; they start from a
+    fresh interpreter (``spawn``).  ``timeout_s`` bounds the whole run
+    (None: no bound), ``DEFAULT_TIMEOUT_S`` the rendezvous and each
+    collective.  A rank that raises or dies, or a run past ``timeout_s``,
+    kills every rank and raises here."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="rlmg_dp_")
+    init_method = "file://" + os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=_rank_entry, daemon=True,
+                         args=(fn, args, r, world, backend, init_method, results))
+             for r in range(world)]
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    out: Dict[int, Any] = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(out) < world:
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks did not finish within {timeout_s} s")
+            try:
+                rank, ok, val = results.get(timeout=1.0)
+            except queue_lib.Empty:
+                for r, p in enumerate(procs):
+                    if r not in out and p.exitcode is not None:
+                        raise RuntimeError(f"rank {r} exited with code {p.exitcode} "
+                                           "and no result")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{val}")
+            out[rank] = val
+        for r, p in enumerate(procs):
+            p.join(_JOIN_S)
+            if p.exitcode != 0:
+                raise RuntimeError(f"rank {r} sent its result, then exited with code "
+                                   f"{p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(_JOIN_S)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(world)]
+
+
+def launched_by_torchrun() -> bool:
+    """The environment of a rank that ``torchrun`` started (RANK and
+    WORLD_SIZE set), whose group the CLI joins instead of launching."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def join_torchrun_group(backend: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+    """Join ``torchrun``'s process group (env:// rendezvous; nccl: on
+    ``cuda:LOCAL_RANK``) unless already in one; returns the rank."""
+    if not dist.is_initialized():
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", os.environ["RANK"])))
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=datetime.timedelta(seconds=timeout_s))
+    return dist.get_rank()

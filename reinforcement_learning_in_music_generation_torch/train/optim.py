@@ -13,7 +13,8 @@ inject_hyperparams(adam)(lr, b1, b2, eps))``), not ``torch.optim``'s:
 
 Parameters, gradients and moments are nested dicts of tensors (the JAX
 parameter tree).  ``value_and_grad`` is ``jax.value_and_grad(has_aux=True)``
-on such a tree; ``apply_updates`` adds the updates in place.
+on such a tree; ``apply_updates`` adds the updates in place.  ``zero1``
+wraps ``Adam`` so that each rank of a dp mesh keeps a slice of the moments.
 """
 
 from __future__ import annotations
@@ -100,14 +101,22 @@ class Adam:
     def learning_rate(self, count: int) -> float:
         return self.lr(count) if callable(self.lr) else self.lr
 
+    def clip(self, grads: dict) -> dict:
+        """The gradients scaled to ``grad_clip`` where their global norm
+        reaches it (optax ``clip_by_global_norm``)."""
+        if self.grad_clip is None:
+            return grads
+        g_norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in tree_leaves(grads)))
+        keep = g_norm < self.grad_clip
+        return tree_map(lambda g: torch.where(keep, g, (g / g_norm) * self.grad_clip), grads)
+
     def update(self, grads: dict, state: AdamState, params: Optional[dict] = None):
         """-> (updates, state'); no host synchronisation."""
-        if self.grad_clip is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
-                                    for g in tree_leaves(grads)))
-            keep = g_norm < self.grad_clip
-            grads = tree_map(lambda g: torch.where(keep, g, (g / g_norm) * self.grad_clip),
-                             grads)
+        return self.adam_update(self.clip(grads), state)
+
+    def adam_update(self, grads: dict, state: AdamState):
+        """Adam on clipped gradients -> (updates, state'); elementwise, so a
+        slice of the gradients and moments gives that slice of the result."""
         b1, b2 = self.b1, self.b2
         count = state.count + 1
         # 1 - b^t in float32, as optax's bias_correction
@@ -124,6 +133,70 @@ class Adam:
 def adam(lr: Union[float, Schedule], *, grad_clip: Optional[float] = None, b1: float = 0.9,
          b2: float = 0.999, eps: float = 1e-8) -> Adam:
     return Adam(lr, grad_clip=grad_clip, b1=b1, b2=b2, eps=eps)
+
+
+class Zero1:
+    """ZeRO-1 around an ``Adam`` (JAX ``train/optim.py zero1``): each rank
+    keeps Adam's moments only for its slice of every leaf along the
+    dimension that ``parallel.zero1_specs`` gives it "dp" (leaves without
+    one keep whole moments).  The gradients arrive all-reduced, so every
+    rank clips the same global gradient; it then updates its slice and the
+    updates are all-gathered (one collective a step).  Adam is elementwise,
+    so the result is bit-equal to the unsliced ``Adam``: only the moments'
+    memory changes (1/dp of the sliced leaves')."""
+
+    def __init__(self, tx: Adam, mesh, params: dict):
+        from ..parallel.sharding import dp_axis, zero1_specs
+        self.tx, self.mesh = tx, mesh
+        self.axes = tree_map(dp_axis, zero1_specs(mesh, params))
+
+    def _slice(self, t: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+        if axis is None:
+            return t
+        k = t.shape[axis] // self.mesh.dp
+        return t.narrow(axis, self.mesh.rank * k, k)
+
+    def local(self, tree: dict) -> dict:
+        """This rank's slice of each leaf of a tree like the params."""
+        return tree_map(lambda t, a: self._slice(t, a).contiguous(), tree, self.axes)
+
+    def gather(self, tree: dict) -> dict:
+        """Every rank's slices of a tree like the params, put back whole:
+        one all-gather of all the sliced leaves flattened together."""
+        from ..parallel.mesh import all_gather
+        leaves, axes = tree_leaves(tree), tree_leaves(self.axes)
+        sliced = [i for i, a in enumerate(axes) if a is not None]
+        if not sliced:
+            return tree
+        parts = all_gather(self.mesh, torch.cat([leaves[i].reshape(-1) for i in sliced]))
+        whole = list(leaves)
+        off = 0
+        for i in sliced:
+            n = leaves[i].numel()
+            whole[i] = torch.cat([p[off:off + n].view_as(leaves[i]) for p in parts], axes[i])
+            off += n
+        return tree_unflatten(tree, whole)
+
+    def init(self, params: dict) -> AdamState:
+        state = self.tx.init(params)
+        return AdamState(self.local(state.mu), self.local(state.nu), 0)
+
+    def update(self, grads: dict, state: AdamState, params: Optional[dict] = None):
+        """-> (whole updates, state' with this rank's slices)."""
+        updates, state = self.tx.adam_update(self.local(self.tx.clip(grads)), state)
+        return self.gather(updates), state
+
+    def full_state(self, state: AdamState) -> AdamState:
+        """The whole moments (a collective: every rank calls it)."""
+        return AdamState(self.gather(state.mu), self.gather(state.nu), state.count)
+
+    def local_state(self, state: AdamState) -> AdamState:
+        """This rank's slices of whole moments (a checkpoint's)."""
+        return AdamState(self.local(state.mu), self.local(state.nu), state.count)
+
+
+def zero1(tx: Adam, mesh, params: dict) -> Zero1:
+    return Zero1(tx, mesh, params)
 
 
 @torch.no_grad()

@@ -14,14 +14,20 @@ checkpoints and early stop at loss <= 0.05 (agent_pretrain.py:594-632),
 ``save_on_interrupt`` and ``resume_from`` (in the port's checkpoint
 format).
 
-Runs on one device.  Not ported yet (ROADMAP Queue 1 item 9, raise
-``NotImplementedError``): a ``mesh`` (dp / tp / pp), ZeRO-1 and the orbax
-checkpoint backend.  The steps update ``params`` and the optimizer state in
-place and return them.
+Runs on one device, or on each rank of a data-parallel mesh
+(``parallel/mesh.py``): every step takes ``dp_mesh``, with which the loss is
+the global masked CE and the gradients (with the loss values) are
+all-reduced (SUM) before clipping and Adam, so every rank clips the global
+gradient by its global norm, as under JAX's GSPMD.  ``pretrain(mesh=...)``
+adds ZeRO-1 (``PretrainConfig.zero1``, ``optim.zero1``).  Not ported yet,
+raising ``NotImplementedError``: a mesh with a tp or pp axis and the orbax
+checkpoint backend (ROADMAP Queue 1 items 9(b), 9(d), 9(e)).  The steps
+update ``params`` and the optimizer state in place and return them.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from typing import Callable, Optional
@@ -33,22 +39,30 @@ from ..config import LinearTransformerConfig, PretrainConfig, WindowTransformerC
 from ..models import linear_transformer as lt
 from ..models import longformer as lf
 from ..ops.losses import fields_cross_entropy
-from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from ..utils.saver import MetricsBus, Saver, loss_bucket_filename
+from ..parallel.mesh import all_reduce_
+from ..parallel.sharding import shard_params
+from ..utils.checkpoint import full_opt_state, load_checkpoint, local_opt_state, save_checkpoint
+from ..utils.saver import MetricsBus, QuietSaver, Saver, loss_bucket_filename
 from . import optim
 from .data_pipeline import prefetch_batches
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _grads(params: dict, losses_fn: Callable):
+def _grads(params: dict, losses_fn: Callable, dp_mesh=None):
     """(grads tree, loss, per-field losses) of the mean of
-    ``losses_fn(params)``; leaves the loss does not reach get zeros."""
+    ``losses_fn(params)``; leaves the loss does not reach get zeros.  Under
+    a dp mesh ``losses_fn`` gives this rank's share of the global losses:
+    the gradients and the losses are summed over the ranks (one all-reduce
+    a dtype), so every rank holds the global ones."""
     def loss_fn(p):
         losses = losses_fn(p)
         return losses.mean(), losses
     loss, losses, grads = optim.value_and_grad(loss_fn, params)
-    return grads, loss.detach(), losses.detach()
+    loss, losses = loss.detach(), losses.detach()
+    if dp_mesh is not None and dp_mesh.dp > 1:
+        all_reduce_(dp_mesh, optim.tree_leaves(grads) + [loss, losses])
+    return grads, loss, losses
 
 
 def _scaled(grads: dict, scale: float) -> dict:
@@ -56,53 +70,62 @@ def _scaled(grads: dict, scale: float) -> dict:
 
 
 def _agent_losses(cfg: LinearTransformerConfig, x, y, mask,
-                  generator: Optional[torch.Generator]) -> Callable:
+                  generator: Optional[torch.Generator], dp_mesh) -> Callable:
     def losses_fn(p):
         if cfg.dtype != "float32":
             p = lt.cast_params(p, _DTYPES[cfg.dtype])
-        return lt.train_losses(p, cfg, x, y, mask, deterministic=False, generator=generator)
+        return lt.train_losses(p, cfg, x, y, mask, deterministic=False, generator=generator,
+                               dp_mesh=dp_mesh)
     return losses_fn
 
 
 def _longformer_losses(cfg: WindowTransformerConfig, x, y, mask,
-                       generator: Optional[torch.Generator]) -> Callable:
+                       generator: Optional[torch.Generator], dp_mesh) -> Callable:
     def losses_fn(p):
         logits = lf.token_logits(p, cfg, x, mask, deterministic=False, generator=generator)
-        return fields_cross_entropy(logits, y, mask)
+        return fields_cross_entropy(logits, y, mask, mesh=dp_mesh)
     return losses_fn
 
 
 def agent_train_step(params: dict, opt_state: optim.AdamState, cfg: LinearTransformerConfig,
-                     tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator]):
-    """One CE pretrain step -> (params', opt_state', (loss, per-field))."""
-    grads, loss, losses = _grads(params, _agent_losses(cfg, x, y, mask, generator))
+                     tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator],
+                     dp_mesh=None):
+    """One CE pretrain step -> (params', opt_state', (loss, per-field)).
+    ``dp_mesh``: x, y, mask are this rank's rows of the global batch."""
+    grads, loss, losses = _grads(params, _agent_losses(cfg, x, y, mask, generator, dp_mesh),
+                                 dp_mesh)
     updates, opt_state = tx.update(grads, opt_state, params)
     return optim.apply_updates(params, updates), opt_state, (loss, losses)
 
 
 def agent_grad_step(params: dict, cfg: LinearTransformerConfig, x, y, mask,
-                    generator: Optional[torch.Generator], scale: float = 1.0):
+                    generator: Optional[torch.Generator], scale: float = 1.0, dp_mesh=None):
     """Gradients and loss only, the micro-batch unit of gradient
     accumulation; ``scale`` pre-divides by the accumulation count, so the
     summed micro-gradients are the mean gradient."""
-    grads, loss, losses = _grads(params, _agent_losses(cfg, x, y, mask, generator))
+    grads, loss, losses = _grads(params, _agent_losses(cfg, x, y, mask, generator, dp_mesh),
+                                 dp_mesh)
     return _scaled(grads, scale), (loss, losses)
 
 
 def longformer_lm_step(params: dict, opt_state: optim.AdamState, cfg: WindowTransformerConfig,
-                       tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator]):
+                       tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator],
+                       dp_mesh=None):
     """Discriminator-LM pretrain step (dqn_policy/discrim-pretrain.py:342-490):
     per-field masked CE through the window transformer -> (params',
     opt_state', (loss, per-field))."""
-    grads, loss, losses = _grads(params, _longformer_losses(cfg, x, y, mask, generator))
+    grads, loss, losses = _grads(
+        params, _longformer_losses(cfg, x, y, mask, generator, dp_mesh), dp_mesh)
     updates, opt_state = tx.update(grads, opt_state, params)
     return optim.apply_updates(params, updates), opt_state, (loss, losses)
 
 
 def longformer_grad_step(params: dict, cfg: WindowTransformerConfig, x, y, mask,
-                         generator: Optional[torch.Generator], scale: float = 1.0):
+                         generator: Optional[torch.Generator], scale: float = 1.0,
+                         dp_mesh=None):
     """``longformer_lm_step`` without the optimizer: the accumulation unit."""
-    grads, loss, losses = _grads(params, _longformer_losses(cfg, x, y, mask, generator))
+    grads, loss, losses = _grads(
+        params, _longformer_losses(cfg, x, y, mask, generator, dp_mesh), dp_mesh)
     return _scaled(grads, scale), (loss, losses)
 
 
@@ -145,16 +168,30 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
     accumulation takes the matching grad step and raises ``ValueError`` for
     any other ``step_fn``.  ``max_steps`` bounds the batches (for tests and
     measurements).  A ``metrics`` bus that carries a ``Saver`` logs to that
-    saver's ``log.txt``; otherwise the loop opens ``pcfg.exp_dir/log.txt``."""
-    if mesh is not None:
-        raise NotImplementedError("pretrain(mesh=...): data/tensor/pipeline parallelism is "
-                                  "not ported yet (ROADMAP Queue 1 item 9)")
-    if pcfg.zero1:
-        raise NotImplementedError("PretrainConfig.zero1 is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+    saver's ``log.txt``; otherwise the loop opens ``pcfg.exp_dir/log.txt``.
+
+    ``mesh`` (``parallel.make_mesh``, dp only; JAX's loop :201-387): every
+    rank runs this loop on its rows of each global batch of
+    ``pcfg.batch_size``, from rank 0's parameters, with a generator of its
+    own (seed ``pcfg.seed + 7919 * rank``); the steps make the loss and the
+    gradients global, so every rank holds the same parameters and history.
+    ``pcfg.zero1`` slices Adam's moments over the ranks (``optim.zero1``;
+    it needs dp > 1).  Only rank 0 logs and writes checkpoints, after the
+    ZeRO-1 moments are gathered; every rank reads ``resume_from``.  With
+    ``save_on_interrupt`` the interrupt flag is all-reduced (MAX) at every
+    batch, so all ranks stop at the same one."""
+    if mesh is not None and (mesh.shape.get("tp", 1) > 1 or "pp" in mesh.shape):
+        raise NotImplementedError("pretrain(mesh=...) with a tp or pp axis: tensor and "
+                                  "pipeline parallelism are not ported yet (ROADMAP Queue 1 "
+                                  "items 9(b) and 9(d))")
     if pcfg.ckpt_backend != "pickle":
         raise NotImplementedError(f"ckpt_backend={pcfg.ckpt_backend!r}: only the pickle "
-                                  "format is ported (ROADMAP Queue 1 item 9)")
+                                  "format is ported (ROADMAP Queue 1 item 9(e))")
+    dp = mesh.dp if mesh is not None else 1
+    rank = mesh.rank if mesh is not None else 0
+    if pcfg.zero1 and dp <= 1:
+        raise ValueError("PretrainConfig.zero1 needs a mesh with dp>1 (the optimizer state "
+                         "shards over 'dp')")
     accum = max(1, pcfg.grad_accum)
     grad_step = _GRAD_STEPS.get(step_fn)
     if accum > 1 and grad_step is None:
@@ -162,39 +199,66 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
                          "longformer_lm_step); custom step_fns must apply their own "
                          "accumulation")
     device = optim.tree_leaves(params)[0].device
+    if mesh is not None:
+        if grad_step is None:
+            raise ValueError("pretrain(mesh=...) needs a known step_fn (agent_train_step / "
+                             "longformer_lm_step): the steps hold the collectives")
+        if mesh.device != device:
+            raise ValueError(f"the mesh computes on {mesh.device}, params are on {device}")
+        shard_params(mesh, params)
+        step_fn = functools.partial(step_fn, dp_mesh=mesh)
+        grad_step = functools.partial(grad_step, dp_mesh=mesh)
     # schedules count OPTIMIZER steps; milestones are epochs
     num_batch_sched = max(1, len(train_x) // pcfg.batch_size // accum)
     lr = (optim.multistep_lr(pcfg.lr, tuple(int(m) * num_batch_sched
                                             for m in pcfg.lr_milestones), pcfg.lr_gamma)
           if pcfg.lr_milestones else pcfg.lr)
     tx = optim.adam(lr, grad_clip=pcfg.grad_clip)
+    if pcfg.zero1:
+        tx = optim.zero1(tx, mesh, params)
     opt_state = tx.init(params)
     start_epoch = 0
     if resume_from is not None:
         if os.path.isdir(resume_from):
             raise NotImplementedError(f"{resume_from} is a directory (an orbax checkpoint): "
-                                      "only the pickle format is ported")
-        ck = load_checkpoint(resume_from, params_template=params, opt_state_template=opt_state,
+                                      "only the pickle format is ported (ROADMAP Queue 1 "
+                                      "item 9(e))")
+        ck = load_checkpoint(resume_from, params_template=params,
+                             opt_state_template=optim.AdamState(params, params, 0),
                              device=device)
         params = ck["params"]
         if ck["opt_state"] is not None:
-            opt_state = ck["opt_state"]
+            opt_state = local_opt_state(tx, ck["opt_state"])
         start_epoch = int(ck["extra"].get("epoch", -1)) + 1
-    saver = metrics.saver if metrics is not None and metrics.saver is not None \
-        else Saver(pcfg.exp_dir)
+    if metrics is not None and metrics.saver is not None:
+        saver = metrics.saver
+    else:
+        saver = Saver(pcfg.exp_dir) if rank == 0 else QuietSaver()
     bus = metrics or MetricsBus(saver)
     saver.add_summary_msg(f" > params amount: {lt.n_params(params):,d}")
 
     def save(name: str, extra: dict) -> str:
+        """Every rank calls it (ZeRO-1 gathers the moments); rank 0 writes."""
         path = f"{pcfg.ckpt_dir}/{name}.ckpt"
-        return save_checkpoint(path, params, opt_state, step=saver.global_step, extra=extra)
+        state = full_opt_state(tx, opt_state)
+        if rank == 0:
+            save_checkpoint(path, params, state, step=saver.global_step, extra=extra)
+        return path
+
+    def interrupted() -> bool:
+        flag = INTERRUPT.is_set()
+        if mesh is not None:
+            t = torch.tensor([float(flag)], device=device)
+            all_reduce_(mesh, [t], op="max")
+            flag = bool(t.item())
+        return flag
 
     if pcfg.save_on_interrupt:
         _install_interrupt_handler()
         INTERRUPT.clear()
     num_batch = len(train_x) // pcfg.batch_size
     generator = torch.Generator(device=device)
-    generator.manual_seed(pcfg.seed)
+    generator.manual_seed(pcfg.seed + 7919 * rank)
     grads_acc, micro = None, 0
     steps_done = 0
     history = []
@@ -205,7 +269,7 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
         acc_losses = torch.zeros(len(cfg.vocab_sizes), device=device)
         for bidx, (bx, by, bm) in prefetch_batches(train_x, train_y, train_mask,
                                                    pcfg.batch_size, device,
-                                                   depth=pcfg.prefetch_depth):
+                                                   depth=pcfg.prefetch_depth, mesh=mesh):
             saver.global_step_increment()
             if accum == 1:
                 params, opt_state, (loss, losses) = step_fn(params, opt_state, cfg, tx, bx, by,
@@ -227,7 +291,7 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
             if (bidx + 1) % max(1, pcfg.log_every) == 0 or bidx == num_batch - 1:
                 bus.log({"batch loss": float(loss)})
             steps_done += 1
-            if pcfg.save_on_interrupt and INTERRUPT.is_set():
+            if pcfg.save_on_interrupt and interrupted():
                 if grads_acc is not None:
                     params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
                 path = save("interrupt", {"epoch": epoch - 1, "interrupted": True})

@@ -15,7 +15,9 @@ A checkpoint is a pickle of ``{"params", "opt_state", "step", "extra"}``:
     way round; the params cross both ways.
 
 Reading goes through ``weights``' restricted unpickler: numpy arrays and
-plain containers only.
+plain containers only.  Under ZeRO-1 (``train/optim.py Zero1``) a
+checkpoint holds the whole moments: ``full_opt_state`` gathers them before
+a save, ``local_opt_state`` cuts a rank's slices out of a loaded state.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import os
 import pickle
 from typing import Any, Optional
 
-from ..train.optim import AdamState
+from ..train.optim import AdamState, Zero1
 from ..weights import _check_against, _flat, _ParamsUnpickler, from_jax_params, to_numpy
 
 
@@ -66,6 +68,19 @@ def load_checkpoint(path: str, params_template: Any = None, opt_state_template: 
                                      from_jax_params(state["nu"], device),
                                      int(state["count"]))
     return out
+
+
+def full_opt_state(tx, opt_state: Optional[AdamState]) -> Optional[AdamState]:
+    """The optimizer state to save: ZeRO-1's moments gathered whole (a
+    collective, so every rank calls it), any other state as it is."""
+    return tx.full_state(opt_state) if isinstance(tx, Zero1) and opt_state is not None \
+        else opt_state
+
+
+def local_opt_state(tx, opt_state: AdamState) -> AdamState:
+    """A loaded (whole) optimizer state as ``tx`` keeps it: this rank's
+    ZeRO-1 slices, any other state as it is."""
+    return tx.local_state(opt_state) if isinstance(tx, Zero1) else opt_state
 
 
 def load_params_lenient(path: str, params_template: Any) -> Any:

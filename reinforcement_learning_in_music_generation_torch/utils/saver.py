@@ -49,6 +49,23 @@ class Saver:
         self._fh.close()
 
 
+class QuietSaver(Saver):
+    """A ``Saver`` that counts the steps and writes nothing: the saver of a
+    rank other than 0 of a dp mesh (rank 0 logs)."""
+
+    def __init__(self):                 # opens no file
+        self.exp_dir, self.global_step, self.init_time = None, 0, time.time()
+
+    def add_summary_msg(self, msg: str) -> None:
+        pass
+
+    def add_summary(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class MetricsBus:
     """One metrics bus fanning out to the log file, wandb if installed and
     an in-memory history, in place of the reference's four logging paths."""

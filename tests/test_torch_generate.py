@@ -17,6 +17,7 @@ from reinforcement_learning_in_music_generation_torch.apps import cli
 from reinforcement_learning_in_music_generation_torch.data import tokenizer as ttok
 from reinforcement_learning_in_music_generation_torch.generate import sampler as tsam
 from reinforcement_learning_in_music_generation_torch.ops import sampling as tsmp
+from reinforcement_learning_in_music_generation_torch.parallel.mesh import Mesh
 from reinforcement_learning_in_music_generation_tpu import config as C
 from reinforcement_learning_in_music_generation_tpu.data import tokenizer as jtok
 from reinforcement_learning_in_music_generation_tpu.generate import sampler as jsam
@@ -143,11 +144,13 @@ def test_dispatch_predicates(monkeypatch):
 
 
 def test_unported_paths_raise(golden_params, monkeypatch):
-    """Mesh sharding still raises; the latency path and the parallel prompt
+    """A mesh with a tp axis still raises (dp meshes are ported:
+    tests/test_torch_parallel.py); the latency path and the parallel prompt
     prefill, unported until the latency slice, now run."""
     gcfg = TC.GenerateConfig(batch_size=2, max_tokens=4, bar_production=10 ** 9)
+    tp_mesh = Mesh({"dp": 1, "tp": 2}, 0, torch.device("cpu"), "gloo")
     with pytest.raises(NotImplementedError, match="mesh"):
-        tsam.generate_songs(golden_params, TCFG, gcfg, mesh=object())
+        tsam.generate_songs(golden_params, TCFG, gcfg, mesh=tp_mesh)
     songs = tsam.generate_songs(golden_params, TCFG, gcfg, init=[tsam.CP_SEED] * 16)
     assert [s.shape for s in songs] == [(20, 6)] * 2
     with pytest.raises(ValueError, match="init"):

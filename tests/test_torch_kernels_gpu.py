@@ -1678,3 +1678,24 @@ def test_refilled_slot_state_is_a_fresh_ones(dev, b):
     errs = smoke.refilled_slot_errors(tdk4, tlt, tcm, params, cfg, dev, loop, record["toks"],
                                       record["fin"])
     assert errs and max(e[1] for e in errs) <= 1e-3, errs
+
+
+@pytest.mark.gpu
+def test_dp_step_and_generate_on_two_ranks_of_one_card(dev, monkeypatch):
+    """chip_smoke.py phases 34-35 at a small size (d_model 128, 2 layers,
+    2 heads, B 4 x S 128 global, C and D from 256 rows): two gloo ranks on
+    the one card; the dp step on C + D within the step gates of the
+    one-process step and the mean of the ranks' means outside them, the
+    ranks' parameters bit-equal, D's masks apart on the two ranks, greedy
+    songs on kernel A equal to one process's, stochastic songs not copies
+    (``chip_smoke.dp_gate_failures``)."""
+    import os
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    spec = {"cfg": dict(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=128, n_layer=2,
+                        n_head=2, d_inner=256, max_len=512),
+            "B": 4, "S": 128, "valid_tail": 20, "min_rows": 256, "songs": 4, "max_tokens": 32,
+            "bars": 8}
+    res = pm.launch(chip_smoke.dp_rank, 2, (spec,), timeout_s=300)
+    assert chip_smoke.dp_gate_failures(res, 2, VOCAB) == []

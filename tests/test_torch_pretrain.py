@@ -24,6 +24,7 @@ from reinforcement_learning_in_music_generation_torch.apps import cli as tcli
 from reinforcement_learning_in_music_generation_torch.data import dataset as tds
 from reinforcement_learning_in_music_generation_torch.models import linear_transformer as tlt
 from reinforcement_learning_in_music_generation_torch.ops import losses as tloss
+from reinforcement_learning_in_music_generation_torch.parallel.mesh import Mesh
 from reinforcement_learning_in_music_generation_torch.train import data_pipeline as tdp
 from reinforcement_learning_in_music_generation_torch.train import optim as topt
 from reinforcement_learning_in_music_generation_torch.train import pretrain as tpre
@@ -151,13 +152,18 @@ def test_unported_options_raise(monkeypatch, jparams, batch):
     torch.testing.assert_close(
         tlt.forward_hidden(tp, TC.LinearTransformerConfig(**KW, remat=True), _t(x)), plain,
         rtol=0, atol=0)
-    for pcfg, kw in ((TC.PretrainConfig(zero1=True), {}),
-                     (TC.PretrainConfig(ckpt_backend="orbax"), {}),
-                     (TC.PretrainConfig(), {"mesh": object()})):
+    # data parallelism and ZeRO-1 are ported (tests/test_torch_parallel.py):
+    # a mesh with a tp axis and the orbax backend still raise, and ZeRO-1
+    # without a dp > 1 mesh raises JAX's ValueError
+    tp_mesh = Mesh({"dp": 1, "tp": 2}, 0, torch.device("cpu"), "gloo")
+    for pcfg, kw in ((TC.PretrainConfig(ckpt_backend="orbax"), {}),
+                     (TC.PretrainConfig(), {"mesh": tp_mesh})):
         with pytest.raises(NotImplementedError):
             tpre.pretrain(tp, TCFG, x, y, m, pcfg, **kw)
-    with pytest.raises(NotImplementedError, match="--dp"):
-        tcli.main(["pretrain", "--device", "cpu", "--synthetic", "--dp", "2"])
+    with pytest.raises(ValueError, match="dp>1"):
+        tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(zero1=True))
+    with pytest.raises(NotImplementedError, match="--tp"):
+        tcli.main(["pretrain", "--device", "cpu", "--synthetic", "--tp", "2"])
 
 
 def test_losses_match_jax():
