@@ -1099,10 +1099,10 @@ def step_errors(out_k, out_p, zero_grads=()) -> dict:
 STEP_GATES = {"loss": 1e-4, "grads": 1e-3, "params": 1e-4, "updates": 1e-3}
 
 
-def step_gate_failures(errors: dict) -> list:
-    """The readings of ``step_errors`` above STEP_GATES."""
+def step_gate_failures(errors: dict, gates: dict = STEP_GATES) -> list:
+    """The readings of ``step_errors`` above ``gates``."""
     out = []
-    for key, limit in STEP_GATES.items():
+    for key, limit in gates.items():
         v = errors[key] if key == "loss" else errors[key][0]
         if not v <= limit:
             out.append(f"{key} {v:.3e} > {limit:g}" + ("" if key == "loss"
@@ -2174,13 +2174,13 @@ def dp_rank(spec: dict) -> dict:
     out = {"rank": rank, "backend": mesh.backend, "nccl_refused": refused}
     # the path's collectives on CUDA tensors
     red = torch.full((4,), float(rank + 1), device=dev)
-    pm.all_reduce_(mesh, [red])
+    pm.all_reduce_(mesh, [red], axis="world")
     bc = torch.full((4,), float(rank + 1), device=dev)
-    pm.broadcast_(mesh, [bc])
-    ga = pm.all_gather(mesh, torch.full((2,), float(rank), device=dev))
+    pm.broadcast_(mesh, [bc], axis="world")
+    ga = pm.all_gather(mesh, torch.full((2,), float(rank), device=dev), axis="world")
     out["collectives"] = {"all_reduce": red.tolist(), "broadcast": bc.tolist(),
                           "all_gather": torch.cat(ga).tolist(),
-                          "all_gather_object": pm.all_gather_object(mesh, rank)}
+                          "all_gather_object": pm.all_gather_object(mesh, rank, axis="world")}
 
     # -- 34. the dp step ---------------------------------------------------
     counters = train_counters()
@@ -2218,7 +2218,7 @@ def dp_rank(spec: dict) -> dict:
 
     dp_out, out["dp_counts"] = step(mine, mesh)
     flat = torch.cat([v.reshape(-1) for v in dp_out[2].values()])
-    parts = pm.all_gather(mesh, flat)
+    parts = pm.all_gather(mesh, flat, axis="world")
     out["ranks_equal"] = all(bool(torch.equal(parts[0], q)) for q in parts[1:])
     del flat, parts
     # the control: the mean of the ranks' own means, and its Adam step
@@ -2226,7 +2226,7 @@ def dp_rank(spec: dict) -> dict:
     g_n = [g.clone() for g in local[3].values()]
     l_n = torch.tensor([local[0]], device=dev)
     ls_n = local[1].to(dev)
-    pm.all_reduce_(mesh, g_n + [l_n, ls_n])
+    pm.all_reduce_(mesh, g_n + [l_n, ls_n], axis="world")
     g_tree = topt.tree_unflatten(p0, [g / world for g in g_n])
     u_n, _ = tx.update(g_tree, tx.init(p0), p0)
     p_n = topt.tree_map(torch.add, p0, u_n)
@@ -2255,12 +2255,12 @@ def dp_rank(spec: dict) -> dict:
         return (time.perf_counter() - t) / n * 1e3
 
     leaves = [torch.zeros_like(t) for t in topt.tree_leaves(p0)]
-    pm.all_reduce_(mesh, leaves)
+    pm.all_reduce_(mesh, leaves, axis="world")
     sync()
     dist.barrier()
     t = time.perf_counter()
     for _ in range(3):
-        pm.all_reduce_(mesh, leaves)
+        pm.all_reduce_(mesh, leaves, axis="world")
     sync()
     out["allreduce_ms"] = (time.perf_counter() - t) / 3 * 1e3
     out["allreduce_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
@@ -2298,8 +2298,8 @@ def dp_rank(spec: dict) -> dict:
                                 lp0["ln1"]["bias"], lp0["ffn1"]["w"], lp0["ffn1"]["b"],
                                 lp0["ffn2"]["w"], lp0["ffn2"]["b"], lp0["ln2"]["scale"],
                                 lp0["ln2"]["bias"], seed, 0.1)
-        o_all = pm.all_gather(mesh, o.float())
-        d_out[name] = (pm.all_gather_object(mesh, int(seed)),
+        o_all = pm.all_gather(mesh, o.float(), axis="world")
+        d_out[name] = (pm.all_gather_object(mesh, int(seed), axis="world"),
                        any(bool(torch.equal(o_all[i], o_all[j]))
                            for i in range(world) for j in range(i)))
     # "d_equal": some two ranks' outputs equal
@@ -2458,6 +2458,398 @@ def dp_run(cfg, smi_line, world: int = 2, backend: str = "gloo", batch: int = 32
           f"; stochastic: {[len(x) for x in g[0]['stochastic']]} tokens", flush=True)
     fails = dp_gate_failures(res, cfg.n_layer, cfg.vocab_sizes)
     check(not fails, f"dp over {backend}: " + "; ".join(fails))
+
+
+# tensor parallelism's phases 36-38: the tp step's gates (f32 as check_step;
+# bf16 loss and gradients within BF16_STEP_GATES: bf16 keeps 8 bits, unit
+# roundoff 2^-9 ~ 2e-3, and the tp and one-process steps round the
+# row-parallel sums at other points through 12 layers; Adam's first step
+# moves every parameter by about lr whatever the gradient's size, so the
+# parameters and updates say nothing more at bf16)
+BF16_STEP_GATES = {"loss": 1e-2, "grads": 5e-2}
+
+
+class _CollectiveCount:
+    """Counts torch.distributed's all_reduce and all_gather calls (and their
+    elements) while it is entered."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.calls = dist, {}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.dist, n) for n in ("all_reduce", "all_gather")}
+        for name, fn in self.saved.items():
+            def counted(*a, _fn=fn, _name=name, **k):
+                t = a[0] if _name == "all_reduce" else a[1]
+                c = self.calls.setdefault(_name, [0, 0])
+                c[0] += 1
+                c[1] += t.numel()
+                return _fn(*a, **k)
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def tp_rank(spec: dict) -> dict:
+    """Phases 36-38 on one rank of a (dp, tp) mesh of ``spec["dp"]`` x
+    ``spec["tp"]`` ranks: over gloo every rank on card 0 (``tp_run`` spawns
+    them; tests/test_torch_kernels_gpu.py at a small size), over nccl
+    (``spec["backend"]``) rank r on card r (scripts/dp_nccl.py --tp).
+    ``spec``: the config's keywords ("cfg"), the global batch "B" x "S",
+    "valid_tail" (the second half's rows keep only their first valid_tail
+    positions, so the dp indices' mask sums differ), "routes" (of "plain",
+    "f": RLMG_ATTN_BACKEND=pallas), "bf16" (one bf16 step on the F route),
+    "control" (the step with torch.distributed.nn's all_reduce in place of
+    reduce_from_tp), "songs" / "max_tokens" (phase 38's greedy songs, f32
+    weights, then 32 stochastic tokens a song; none: no generation),
+    "device" (gloo's card; "cpu" rehearses on the kernels' plain
+    versions).
+
+    Each step: one f32 step (dropout 0) on the rank's rows and tp shards,
+    the kernels' wrapper counts and the collectives counted, the gathered
+    parameters, gradients and updates; rank 0 also takes the same step in
+    one process on the whole batch on the same route and holds the tp step
+    against it (``step_errors``).  Then the times on the F route at f32:
+    the tp step, one process's step and the dp step at the same global
+    batch (a mesh of dp = dp x tp over the same ranks), and an all-reduce of
+    one activation over the tp group."""
+    import dataclasses
+    import torch.distributed as dist
+    import torch.distributed.nn.functional as dnf
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.data import dataset
+    from reinforcement_learning_in_music_generation_torch.generate import sampler
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        decode_kernel_v4 as dk4, linear_attention_kernel as tlk)
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.parallel import sharding as psh
+    from reinforcement_learning_in_music_generation_torch.parallel import tensor as ptn
+    from reinforcement_learning_in_music_generation_torch.train import (
+        optim as topt, pretrain as tpre)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for k in ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_WINDOW_BACKEND", "RLMG_FFN_MIN_ROWS",
+              "RLMG_PERSISTENT_DECODE", "RLMG_LATENCY_DECODE", "RLMG_FUSED_DECODE"):
+        os.environ.pop(k, None)
+    dp, tp = spec["dp"], spec["tp"]
+    world = dp * tp
+    if spec.get("backend", "gloo") == "nccl":
+        mesh = pm.make_mesh(dp, tp)
+        dev = mesh.device
+        dp_mesh = pm.make_mesh(world, 1)
+    else:
+        dev = torch.device(spec.get("device", "cuda:0"))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = pm.make_mesh(dp, tp, devices=[dev] * world, backend="gloo")
+        dp_mesh = pm.make_mesh(world, 1, devices=[dev] * world, backend="gloo")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rank = mesh.rank
+    out = {"rank": rank, "dp_index": mesh.dp_index, "tp_index": mesh.tp_index,
+           "backend": mesh.backend}
+    counters = train_counters()
+
+    def zero_counts():
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return [getattr(fn, attr) for fn, attr in counters]
+
+    cfg = C.LinearTransformerConfig(**spec["cfg"], dropout=0.0)
+    p0 = lt.init_params(cfg, seed=0, device=dev)
+    mine_p = psh.shard_params(mesh, topt.tree_map(torch.clone, p0))
+    out["param_share"] = lt.n_params(mine_p) / lt.n_params(p0)
+    b, s_len, tail = spec["B"], spec["S"], spec["valid_tail"]
+    x, y, m = dataset.synthetic_cp_dataset(b, s_len, n_class=cfg.vocab_sizes, seed=0)
+    m = np.ones_like(m, dtype=np.float32)
+    m[b // 2:, tail:] = 0.0
+    full = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (x.astype(np.int64), y.astype(np.int64), m))
+    mine = pm.shard_batch(mesh, full)
+    out["rows"] = int(mine[0].shape[0]) * s_len
+    tx = topt.adam(1e-4, grad_clip=3.0)
+    routes = {"plain": {"RLMG_FFN_BACKEND": "xla", "RLMG_ATTN_BACKEND": "xla"},
+              "f": {"RLMG_FFN_BACKEND": "xla", "RLMG_ATTN_BACKEND": "pallas"}}
+
+    def step(route, dtype, batch, prm0, step_mesh):
+        os.environ.update(routes[route])
+        scfg = dataclasses.replace(cfg, dtype=dtype)
+        prm = topt.tree_map(torch.clone, prm0)
+        st = tx.init(prm)
+        zero_counts()
+        runs0 = tlk.kernel_runs(reset=True) if cuda else (0, 0)
+        with _CollectiveCount() as cc:
+            grads, (loss, losses) = tpre.agent_grad_step(prm, scfg, *batch, None,
+                                                         dp_mesh=step_mesh)
+            updates, _ = tx.update(grads, st, prm, mesh=step_mesh)
+            prm, _ = tpre.apply_grads(prm, st, tx, grads, step_mesh)
+        sync()
+        counts, runs = read_counts(), (tlk.kernel_runs() if cuda else runs0)
+        if step_mesh is not None:
+            prm, grads = psh.gather_params(step_mesh, prm), psh.gather_params(step_mesh, grads)
+            updates = psh.gather_params(step_mesh, updates)
+        res = [float(loss), losses.cpu(), named_leaves(prm), named_leaves(grads),
+               named_leaves(updates)]
+        return res, {"counts": counts, "f_runs": list(runs), "collectives": cc.calls}
+
+    def timed(route, dtype, batch, prm0, step_mesh, n=3) -> float:
+        os.environ.update(routes[route])
+        scfg = dataclasses.replace(cfg, dtype=dtype)
+        prm = topt.tree_map(torch.clone, prm0)
+        st = tx.init(prm)
+        prm, st, _ = tpre.agent_train_step(prm, st, scfg, tx, *batch, None, dp_mesh=step_mesh)
+        sync()
+        t = time.perf_counter()
+        for _ in range(n):
+            prm, st, _ = tpre.agent_train_step(prm, st, scfg, tx, *batch, None,
+                                               dp_mesh=step_mesh)
+        sync()
+        return (time.perf_counter() - t) / n * 1e3
+
+    def held(name, route, dtype, tp_out):
+        """Rank 0: the one-process step on the same route, and the tp step's
+        readings against it; every rank: the losses of its tp group."""
+        losses = pm.all_gather_object(mesh, tp_out[0], axis="world")
+        out[name]["loss_ranks"] = losses
+        dist.barrier()
+        if rank == 0:
+            ref, info = step(route, dtype, full, p0, None)
+            out[name]["single"] = info
+            out[name]["loss_single"] = ref[0]
+            out[name]["errors"] = step_errors(tp_out, ref)
+            del ref
+        dist.barrier()
+
+    steps = [(r, "float32") for r in spec["routes"]] + ([("f", "bfloat16")] if spec.get("bf16")
+                                                        else [])
+    for route, dtype in steps:
+        name = f"{route}_{dtype}"
+        tp_out, info = step(route, dtype, mine, mine_p, mesh)
+        out[name] = {"tp": info, "loss": tp_out[0]}
+        held(name, route, dtype, tp_out)
+        del tp_out
+    if spec.get("control"):
+        # the control: torch.distributed.nn's all_reduce (its backward sums
+        # the replicated gradient again) in place of reduce_from_tp
+        keep = lt.reduce_from_tp
+        lt.reduce_from_tp = lambda t, m_: dnf.all_reduce(t, group=m_.group("tp"))
+        try:
+            c_out, _ = step("f", "float32", mine, mine_p, mesh)
+        finally:
+            lt.reduce_from_tp = keep
+        out["control"] = {}
+        held("control", "f", "float32", c_out)
+        del c_out
+    # times, on the F route at f32: the tp step, one process, dp at the same
+    # global batch (a warm step, then the mean of two)
+    dp_rows = pm.shard_batch(dp_mesh, full)
+    times = {}
+    for route, dtype in [s_ for s_ in steps if s_ == ("f", "float32")]:
+        key = f"{route}_{dtype}"
+        dist.barrier()
+        times[f"tp_{key}"] = timed(route, dtype, mine, mine_p, mesh, n=2)
+        dist.barrier()
+        times[f"dp_{key}"] = timed(route, dtype, dp_rows, p0, dp_mesh, n=2)
+        dist.barrier()
+        if rank == 0:
+            times[f"single_{key}"] = timed(route, dtype, full, p0, None, n=2)
+        dist.barrier()
+    act = torch.zeros((mine[0].shape[0], s_len, cfg.d_model), device=dev)
+    red = lambda: ptn.reduce_from_tp(act, mesh)
+    red()
+    sync()
+    dist.barrier()
+    t = time.perf_counter()
+    for _ in range(10):
+        red()
+    sync()
+    times["allreduce_activation_ms"] = (time.perf_counter() - t) / 10 * 1e3
+    times["activation_bytes"] = act.numel() * 4
+    out["times"] = times
+    del act
+
+    # -- 38. generate_songs under tp: greedy against one process, stochastic
+    if spec.get("songs"):
+        gcfg = C.GenerateConfig(batch_size=spec["songs"], max_tokens=spec["max_tokens"],
+                                bar_production=10 ** 9, greedy=True)
+        a_runs = (lambda reset=False: dk4.kernel_runs(reset)) if cuda else (lambda r=False: 0)
+        dist.barrier()
+        a_runs(True)
+        t = time.perf_counter()
+        greedy = sampler.generate_songs(p0, cfg, gcfg, mesh=mesh)
+        sync()
+        ms_tp = (time.perf_counter() - t) * 1e3
+        runs_tp = a_runs()
+        dist.barrier()
+        single, ms_one = None, None
+        if rank == 0:
+            t = time.perf_counter()
+            single = sampler.generate_songs(p0, cfg, gcfg)
+            sync()
+            ms_one = (time.perf_counter() - t) * 1e3
+        single, ms_one = pm.all_gather_object(mesh, (single, ms_one), axis="world")[0]
+        gen = {"greedy": greedy, "single": single, "ms_tp": ms_tp, "ms_single": ms_one,
+               "a_runs": runs_tp}
+        # the first token where the tp songs part from one process's, and the
+        # top-2 margins of that field's logits in both, teacher-forced on the
+        # common prefix (every rank finds the same place: the songs are
+        # equal on all of them)
+        first = next(((i, t_, int(np.flatnonzero(a[t_] != o[t_])[0]))
+                      for i, (a, o) in enumerate(zip(greedy, single))
+                      for t_ in range(min(len(a), len(o))) if not np.array_equal(a[t_], o[t_])),
+                     None)
+        gen["first_difference"] = first
+        if first is not None:
+            i, t_, f = first
+            shard = psh.shard_tree(mesh, p0)
+            prefix = torch.as_tensor(single[i][:t_], dtype=torch.int32, device=dev)[None]
+            st_tp = lt.init_decode_state(cfg, 1, device=dev, mesh=mesh)
+            st_one = lt.init_decode_state(cfg, 1, device=dev)
+            for k in range(t_):
+                h_tp, st_tp = lt.decode_step(shard, cfg, prefix[:, k], st_tp, mesh=mesh)
+                h_one, st_one = lt.decode_step(p0, cfg, prefix[:, k], st_one)
+            off = int(sum(cfg.vocab_sizes[:f]))
+            margins = []
+            for lg in (lt.head_logits(shard, cfg, h_tp, mesh), lt.head_logits(p0, cfg, h_one)):
+                top = torch.topk(lg[0, off:off + cfg.vocab_sizes[f]].float(), 2)
+                margins.append((top.indices.tolist(), float(top.values[0] - top.values[1])))
+            gen["margins"] = margins
+        stoch = dataclasses.replace(gcfg, greedy=False, seed=5, max_tokens=32)
+        gen["stochastic"] = sampler.generate_songs(p0, cfg, stoch, mesh=mesh)
+        out["generate"] = gen
+    return out
+
+
+def tp_gate_failures(res: list, n_layer: int, vocab_sizes, spec: dict) -> list:
+    """Phases 36-38's gates over every rank's ``tp_rank`` readings; the
+    failures, each a line ([] when every gate holds)."""
+    fails = []
+    r0 = res[0]
+    tp = spec["tp"]
+    steps = [f"{r}_float32" for r in spec["routes"]] + (["f_bfloat16"] if spec.get("bf16")
+                                                        else [])
+    for name in steps:
+        want = [0] * 6 + ([n_layer, n_layer] if name.startswith("f_") else [0, 0]) + [0, 0]
+        for r in res:
+            if r[name]["tp"]["counts"] != want:
+                fails.append(f"rank {r['rank']} {name}: launches (C, D, E, F, G fwd/bwd) "
+                             f"{r[name]['tp']['counts']}, expected {want}")
+        if r0[name]["single"]["counts"] != want:
+            fails.append(f"one process {name}: launches {r0[name]['single']['counts']}, "
+                         f"expected {want}")
+        losses = r0[name]["loss_ranks"]
+        for g in range(len(losses) // tp):
+            grp = losses[g * tp:(g + 1) * tp]
+            if len(set(grp)) != 1 or not all(math.isfinite(v) for v in grp):
+                fails.append(f"{name}: losses of tp group {g} {grp}")
+        bad = step_gate_failures(r0[name]["errors"],
+                                 BF16_STEP_GATES if "bfloat16" in name else STEP_GATES)
+        if bad:
+            fails.append(f"{name}: tp step against one process: {bad}")
+    for r in res:
+        if not abs(r["param_share"] - 1 / tp) < 0.05:
+            fails.append(f"rank {r['rank']} holds {r['param_share']:.3f} of the parameters")
+    if spec.get("control") and not step_gate_failures(r0["control"]["errors"]):
+        fails.append("the control (torch.distributed.nn's all_reduce) passes the step gate")
+    if "generate" in r0:
+        g0 = r0["generate"]
+        for r in res:
+            g = r["generate"]
+            if g["a_runs"] != 0:
+                fails.append(f"rank {r['rank']}: kernel A ran {g['a_runs']} times under tp")
+            for key in ("greedy", "stochastic"):
+                if len(g[key]) != len(g0[key]) or any(
+                        not np.array_equal(a, b) for a, b in zip(g0[key], g[key])):
+                    fails.append(f"{key}: rank {r['rank']} returned another list than rank 0")
+        if len(g0["greedy"]) != spec["songs"] or any(
+                len(s) != spec["max_tokens"] + 1 for s in g0["greedy"]):
+            fails.append(f"greedy: {[len(s) for s in g0['greedy']]} tokens a song")
+        seed_row = np.asarray((0, 0, 1, 0, 0, 0))
+        for i, song in enumerate(g0["stochastic"]):
+            if (len(song) < 2 or not np.array_equal(song[0], seed_row)
+                    or (song < 0).any() or (song >= np.asarray(vocab_sizes)).any()):
+                fails.append(f"stochastic song {i} is not a valid song")
+        if g0["first_difference"] is not None:
+            # a flip of the row-parallel sums' order is legitimate only at a
+            # near-tie: one process's top-2 margin there under 1e-3
+            margin = g0["margins"][1][1]
+            if not margin < 1e-3:
+                fails.append(f"greedy songs part from one process's at {g0['first_difference']} "
+                             f"with one process's top-2 margin {margin:.3e}")
+    return fails
+
+
+def tp_run(cfg, smi_line, *, backend: str = "gloo", meshes=None) -> dict:
+    """Phases 36-38: the (dp, tp) meshes of ``tp_rank`` at ``cfg``'s width,
+    over gloo all on card 0 (36: tp = 2, B = 8 x 512, both f32 routes and the
+    control, then 38: generate_songs 8 greedy songs of 256 tokens and a
+    stochastic run; 37: dp = 2 x tp = 2, B = 16 x 512, the F route at f32
+    and bf16), or over nccl a card each (scripts/dp_nccl.py --tp); prints
+    the readings, fails on ``tp_gate_failures``, returns each mesh's rank-0
+    readings."""
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    base = {"cfg": dict(vocab_sizes=cfg.vocab_sizes), "S": 512, "valid_tail": 100}
+    if meshes is None:
+        meshes = [dict(base, phase=36, dp=1, tp=2, B=8, routes=("plain", "f"), control=True,
+                       songs=8, max_tokens=256),
+                  dict(base, phase=37, dp=2, tp=2, B=16, routes=("f",), bf16=True)]
+    cards = "all on card 0" if backend == "gloo" else "a card each"
+    found = {}
+    for spec in meshes:
+        spec = dict(spec, backend=backend)
+        world = spec["dp"] * spec["tp"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # the ranks are processes of their own
+        t = time.perf_counter()
+        res = pm.launch(tp_rank, world, (spec,), backend=backend, timeout_s=600)
+        wall = time.perf_counter() - t
+        r0 = res[0]
+        tag = f"[tp] {spec['phase']}: dp={spec['dp']} x tp={spec['tp']} over {backend}, {cards}"
+        print(f"{tag} ({smi_line}): {wall:.1f}s with the ranks' start; rows a rank "
+              f"{r0['rows']}, parameters a rank {r0['param_share']:.3f} of the whole", flush=True)
+        for name in [k for k in r0 if k.endswith(("_float32", "_bfloat16"))] + (
+                ["control"] if "control" in r0 else []):
+            e = r0[name]["errors"]
+            info = r0[name].get("tp", {})
+            print(f"{tag} {name}: loss tp {r0[name]['loss_ranks']} one process "
+                  f"{r0[name]['loss_single']:.7f}; against one process: loss {e['loss']:.2e}, "
+                  f"gradients {e['grads'][0]:.3e} ({e['grads'][1]}), params {e['params'][0]:.3e},"
+                  f" updates {e['updates'][0]:.3e}; launches (C, D, E, F, G fwd/bwd) a rank "
+                  f"{[r[name]['tp']['counts'] for r in res] if info else '-'}, F's own runs "
+                  f"{info.get('f_runs')}; collectives a step (calls, elements) "
+                  f"{info.get('collectives')}", flush=True)
+        tm = r0["times"]
+        share = "; ranks sharing one card share its SMs, so these times say nothing of " \
+            "scaling" if backend == "gloo" else ""
+        print(f"{tag}: ms a step {{tp, dp at the same global batch, one process}}: "
+              + "; ".join(f"{k[3:]} {tm[k]:.1f} / {tm['dp_' + k[3:]]:.1f} / "
+                          f"{tm.get('single_' + k[3:], float('nan')):.1f} (rank 0; tp on the "
+                          f"ranks {[round(r['times'][k], 1) for r in res]})"
+                          for k in tm if k.startswith("tp_"))
+              + f"; one all-reduce of an activation ({tm['activation_bytes'] / 2**20:.1f} MiB) "
+              f"over tp {tm['allreduce_activation_ms']:.2f} ms{share} ({smi_line})", flush=True)
+        if "generate" in r0:
+            g = r0["generate"]
+            print(f"[tp] 38: generate_songs under tp={spec['tp']}, {len(g['greedy'])} greedy "
+                  f"songs of {spec['max_tokens']} tokens, f32 weights: {g['ms_tp']:.1f} ms on "
+                  f"the ranks, {g['ms_single']:.1f} ms in one process ({smi_line}); kernel A's "
+                  f"runs under tp {[r['generate']['a_runs'] for r in res]}; first token apart "
+                  f"from one process's (song, token, field) {g['first_difference']}"
+                  + (f", top-2 (ids, margin) tp {g['margins'][0]} one process "
+                     f"{g['margins'][1]}" if g["first_difference"] else "")
+                  + f"; stochastic: {[len(s) for s in g['stochastic']]} tokens", flush=True)
+        fails = tp_gate_failures(res, cfg.n_layer, cfg.vocab_sizes, spec)
+        check(not fails, f"tp over {backend}, phase {spec['phase']}: " + "; ".join(fails))
+        found[spec["phase"]] = {"res": [{k: v for k, v in r.items() if k != "generate"}
+                                        for r in res], "generate": r0.get("generate")}
+    return found
 
 
 def main() -> None:
@@ -3933,6 +4325,13 @@ def main() -> None:
     aug_entries = aug_slice(cfg, params, dev, gen)          # phases 25-29
     serve = serving_slice(cfg, params, dev)                 # phases 31-33
     dp_run(cfg, smi_line)                                    # phases 34-35
+    tp_found = tp_run(cfg, smi_line)                         # phases 36-38
+
+    def tp_f_launches(dtype):
+        """F's (fwd, bwd) wrapper launches on each rank of the tp steps of
+        phases 36-37 on its route, by phase."""
+        return {f"phase{ph}": [r[f"f_{dtype}"]["tp"]["counts"][6:8] for r in v["res"]]
+                for ph, v in tp_found.items() if f"f_{dtype}" in v["res"][0]}
 
     # -- 30. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
@@ -4385,6 +4784,7 @@ def main() -> None:
          "bound_by": f_t["dqn"]["bound_by"],
          "library_ms": None, "dqn_shape": f_t["dqn"], "rollout_shape": f_t["rollout"],
          "pretrain_shape": f_t["pretrain"], "launches_pretrain": sum(launches["F_pretrain"]),
+         "launches_tp": tp_f_launches("float32"),
          "dqn_rollout_song": {k: {kk: vv for kk, vv in v.items() if "window" not in kk}
                               | {"busy_graphed": v["window_graphed"]["busy"],
                                  "busy_eager": v["window_eager"]["busy"],
@@ -4409,7 +4809,8 @@ def main() -> None:
          + f16_t["pretrain"]["f32_grade_bound_ms_bwd"],
          "bf16_gates": F_BF16_GATES, "readings": f_read16,
          **{f"{tag}_shape": f16_t[tag] for tag in f16_t},
-         "pretrain_profiled_step_top5": f16_top, "remat": remat_t},
+         "pretrain_profiled_step_top5": f16_top, "remat": remat_t,
+         "launches_tp": tp_f_launches("bfloat16")},
         # E on bf16 tensors at the discriminator LM's shape (the LM with bf16
         # parameters under RLMG_WINDOW_BACKEND=pallas, phase 9); bound at
         # bf16 bytes and the bf16 peak, the f32-grade rate beside; the

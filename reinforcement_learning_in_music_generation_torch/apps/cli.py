@@ -33,11 +33,13 @@ Run them as
         --songs 24 --continuous-batch 8 --bars 8
     python -m reinforcement_learning_in_music_generation_torch.apps.cli serve --requests r.jsonl
 
-``pretrain --dp N`` and ``generate --dp N`` run N data-parallel ranks
-(``parallel/mesh.py``), which the command starts itself, one process each:
-with ``--device cpu`` over gloo on the CPU, on CUDA over NCCL with a card a
-rank; started by ``torchrun --nproc_per_node N``, each process joins
-torchrun's group instead.  Rank 0 prints and writes the files.
+``pretrain --dp N --tp M`` and ``generate --dp N --tp M`` run N x M ranks on
+a (dp, tp) mesh (``parallel/mesh.py``): each dp index takes 1/N of every
+batch (of the songs), each tp rank of it 1/M of the Megatron-split weights.
+The command starts the ranks itself, one process each: with ``--device
+cpu`` over gloo on the CPU, on CUDA over NCCL with a card a rank; started
+by ``torchrun --nproc_per_node N*M``, each process joins torchrun's group
+instead.  Rank 0 prints and writes the files.
 
 The model commands run on the GPU unless ``--device cpu`` is given.  Without ``--ckpt``
 the generation weights are random, drawn from ``--seed``; ``--ckpt`` reads
@@ -97,7 +99,7 @@ def _generation_params(args, mcfg, device: torch.device) -> dict:
 
 
 def _run_ranks(args):
-    """Run ``args.fn`` on ``args.dp`` data-parallel ranks and return rank
+    """Run ``args.fn`` on ``args.dp`` x ``args.tp`` ranks and return rank
     0's result: in the group of a ``torchrun`` that started this process,
     else in ranks started here (``parallel.launch``).  gloo with ``--device
     cpu``, else NCCL (a card a rank)."""
@@ -108,13 +110,13 @@ def _run_ranks(args):
             return _rank_main(args)
         finally:
             torch.distributed.destroy_process_group()
-    return pmesh.launch(_rank_main, args.dp, (args,), backend=backend)[0]
+    return pmesh.launch(_rank_main, args.dp * args.tp, (args,), backend=backend)[0]
 
 
 def _rank_main(args):
     """One rank of ``_run_ranks``: its mesh, then the command; ranks other
     than 0 print nothing."""
-    mesh = pmesh.make_mesh(dp=args.dp)
+    mesh = pmesh.make_mesh(dp=args.dp, tp=args.tp)
     if mesh.rank == 0:
         return args.fn(args, mesh=mesh)
     with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
@@ -123,8 +125,9 @@ def _rank_main(args):
 
 def _parallel_flags(args, ported: tuple = ()) -> None:
     """Raise for the mesh flags > 1 that are not ported (ROADMAP Queue 1
-    item 9): tp (9(b)), pp (9(d)), dp outside ``ported``' commands (9(b2))."""
-    items = {"dp": "9(b2)", "tp": "9(b)", "pp": "9(d)"}
+    item 9): pp (9(d)), dp and tp outside ``ported``' commands (the RL
+    commands, 9(b2))."""
+    items = {"dp": "9(b2)", "tp": "9(b2)", "pp": "9(d)"}
     for flag, item in items.items():
         if flag not in ported and getattr(args, flag, 1) > 1:
             raise NotImplementedError(f"--{flag} > 1: this parallelism is not ported yet "
@@ -142,15 +145,16 @@ def cmd_generate(args, mesh=None) -> dict:
     through ``sampler.generate_songs`` (``--prompt``: the MIDI file's CP rows
     seed every song), or with ``--continuous`` through the continuous batcher
     over ``--continuous-batch`` slots (``generate/serving.py``).  ``--dp N``:
-    the songs split over N ranks (``_run_ranks``), each decoding its share.
+    the songs split over N dp indices (``_run_ranks``), each decoding its
+    share; ``--tp M``: M ranks a dp index, each on its 1/M of the weights.
     Returns {"songs", "tokens", "seconds", "tokens_per_s"} (and "steps" with
     ``--continuous``)."""
     if args.continuous and (args.prompt or args.greedy or args.dp > 1 or args.tp > 1):
         raise SystemExit(
             "--continuous does not combine with --prompt/--greedy/--dp/--tp yet (the serving "
             "loop is stochastic, unconditional, single-device); drop --continuous or those flags")
-    _parallel_flags(args, ported=("dp",))
-    if args.dp > 1 and mesh is None:
+    _parallel_flags(args, ported=("dp", "tp"))
+    if (args.dp > 1 or args.tp > 1) and mesh is None:
         return _run_ranks(args)
     e2w, w2e = tokenizer.drop_type(tokenizer.construct_cp_dict())
     vocab = tuple(tokenizer.n_classes(e2w))
@@ -207,7 +211,7 @@ def cmd_generate(args, mesh=None) -> dict:
     if writer:
         stats.dump(os.path.join(args.out_dir, "..", "runtime_stats.json"))
     rate = total / elapsed if elapsed > 0 else float("inf")
-    ranks = "" if mesh is None else f", {mesh.dp} ranks"
+    ranks = "" if mesh is None else f", {mesh.dp} x {mesh.tp} ranks (dp x tp)"
     print(f"ave token time: {rate:.1f} tokens/sec ({total} tokens in {elapsed:.2f}s, "
           f"{len(songs)} songs on {device}{ranks})")
     return {"songs": len(songs), "tokens": total, "seconds": elapsed, "tokens_per_s": rate,
@@ -361,10 +365,11 @@ def _run_pretrain(params, mcfg, x, y, mask, pcfg: C.PretrainConfig, device, *,
 
 def cmd_pretrain(args, mesh=None) -> dict:
     """Agent CE pretrain (dqn_policy/agent_pretrain.py:485-632); returns
-    ``_run_pretrain``'s numbers.  ``--dp N``: N data-parallel ranks
-    (``_run_ranks``), each on its 1/N of every ``--batch-size`` batch."""
-    _parallel_flags(args, ported=("dp",))
-    if args.dp > 1 and mesh is None:
+    ``_run_pretrain``'s numbers.  ``--dp N``: N dp indices (``_run_ranks``),
+    each on its 1/N of every ``--batch-size`` batch; ``--tp M``: M ranks a
+    dp index, each holding its 1/M of the Megatron-split weights."""
+    _parallel_flags(args, ported=("dp", "tp"))
+    if (args.dp > 1 or args.tp > 1) and mesh is None:
         return _run_ranks(args)
     vocab = (tuple(int(v) for v in args.vocab.split(",")) if args.vocab
              else (56, 135, 18, 87, 18, 25))
@@ -737,7 +742,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel ranks, one process each, started here (gloo with "
                         "--device cpu, else NCCL with a card a rank); each decodes its share "
                         "of the songs")
-    d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks a dp index (Megatron: each holds 1/tp of the "
+                        "heads, FFN, embeddings and output heads); dp x tp processes in all, "
+                        "started as for --dp; not with --continuous")
     d.add_argument("--dtype", default="bfloat16", choices=tuple(_DTYPES),
                    help="decode weight dtype (bf16 halves the weight stream)")
     d.add_argument("--device", default="cuda",
@@ -809,7 +817,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel ranks, one process each, started here (gloo with "
                         "--device cpu, else NCCL with a card a rank); each takes 1/dp of "
                         "every batch")
-    d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks a dp index (Megatron: each holds 1/tp of the "
+                        "heads, FFN, embeddings and output heads); dp x tp processes in all, "
+                        "started as for --dp")
     d.add_argument("--pp", type=int, default=1, help="not ported yet (> 1 raises)")
     d.add_argument("--save-on-interrupt", action="store_true",
                    help="SIGTERM/SIGINT checkpoints to interrupt.ckpt and returns")

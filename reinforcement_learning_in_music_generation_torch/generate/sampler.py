@@ -29,16 +29,21 @@ field is 'Bar' counts a bar; a song is done when its count reaches
 tokens that are marked invalid.  A fixed token budget (``token_count``)
 masks the tail instead.
 
-Under a dp mesh (``generate_songs(mesh=...)``, ``parallel/mesh.py``) each
-rank decodes its share of the songs on the per-step path, as JAX's mesh
+Under a mesh (``generate_songs(mesh=...)``, ``parallel/mesh.py``) each dp
+index decodes its share of the songs on the per-step path, as JAX's mesh
 always takes it, with a generator of its own, and the songs are
-all-gathered in global order.
+all-gathered over dp in global order.  Under tp > 1 the ranks of a tp group
+decode the same songs in step, each on its shards of the weights
+(``lt.decode_step``'s Megatron layer, the heads row-parallel), from
+generators with the same seed, so they sample the same token from the same
+logits at every step.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import warnings
 import weakref
 from typing import NamedTuple, Optional, Sequence
 
@@ -56,6 +61,7 @@ from ..ops.decode_common import decode_state_dtype
 from ..ops.experimental import decode_kernel_v7 as dk7
 from ..ops.experimental import decode_kernel_v8 as dk8
 from ..parallel.mesh import all_gather_object
+from ..parallel.sharding import shard_tree
 from ..utils.cuda_graph import capture_stream
 
 
@@ -394,7 +400,7 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
                     greedy: bool = False,
                     settings: Sequence[smp.FieldSampling] = smp.CP_SAMPLING,
                     fused: bool = False, fused_sampling: bool = False,
-                    n_valid: Optional[int] = None) -> GenResult:
+                    n_valid: Optional[int] = None, mesh=None) -> GenResult:
     """init_tokens (B, T0, n_fields) seeds the state (teacher-forced), then
     up to ``max_tokens`` sampled steps.  Returns seed + generated tokens.
 
@@ -416,7 +422,15 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
     On CUDA with ``fused`` and ``fused_sampling`` each sampled token is one
     replay of a ``_TokenGraph`` (``graph_captures`` and ``graph_replays``
     count them; a failed capture or replay raises); the prompt's steps run
-    eagerly on the graph's state.  Elsewhere the loop runs eagerly."""
+    eagerly on the graph's state.  Elsewhere the loop runs eagerly.
+
+    ``mesh`` with tp > 1: ``params`` are the rank's tp shards and the plain
+    per-step path runs the Megatron layer (``lt.decode_step(mesh=...)``);
+    ``fused`` is refused there (kernels A and v3 read every layer's whole
+    weights and have no place for the row-parallel sums)."""
+    tp = 1 if mesh is None else mesh.tp
+    if fused and tp > 1:
+        raise ValueError("fused=True under tp > 1: kernels A and v3 take whole weights")
     b, t0, nf = init_tokens.shape
     dev = init_tokens.device
     dtype = params["in_linear"]["w"].dtype
@@ -447,17 +461,17 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
         def step_fn(tok, st):
             return dk3.decode_step_v3(params, v3p, cfg, tok, st, pe_table=pe, work=work)
     else:
-        state = lt.init_decode_state(cfg, b, device=dev)
+        state = lt.init_decode_state(cfg, b, device=dev, mesh=mesh)
 
         def step_fn(tok, st):
-            return lt.decode_step(params, cfg, tok, st, pe_table=pe)
+            return lt.decode_step(params, cfg, tok, st, pe_table=pe, mesh=mesh)
 
     prefill_ok = (not greedy and not (fused and cfg.n_head % 2 != 0)
                   and _prompt_prefill_active(t0))
     if n_valid is not None and not prefill_ok:
         raise ValueError("n_valid (a bucket-padded prompt) needs the prefill seeding")
     if prefill_ok:
-        h, pst = lt.forward_prefill(params, cfg, init_tokens, n_valid, pe_table=pe)
+        h, pst = lt.forward_prefill(params, cfg, init_tokens, n_valid, pe_table=pe, mesh=mesh)
         h = h.to(dtype)
         if graphed:
             state.s.copy_(pst.s)
@@ -483,7 +497,8 @@ def generate_tokens(params: dict, cfg: LinearTransformerConfig,
                                         generator=generator, max_tokens=max_tokens,
                                         bar_cond=bar_cond, barbeat_field=barbeat_field,
                                         bar_token_id=bar_token_id, greedy=greedy,
-                                        settings=settings, fused_sampling=fused_sampling)
+                                        settings=settings, fused_sampling=fused_sampling,
+                                        mesh=mesh)
     if token_count is not None:
         valid &= torch.arange(max_tokens, device=dev)[None, :] < token_count
     tokens = torch.cat([init_tokens.to(torch.int32), toks], dim=1)
@@ -497,12 +512,22 @@ def _eager_loop(params: dict, cfg: LinearTransformerConfig, h: torch.Tensor,
                 state: lt.DecodeState, step_fn, done: torch.Tensor, init_bars: torch.Tensor, *,
                 generator: Optional[torch.Generator], max_tokens: int,
                 bar_cond: Optional[int], barbeat_field: int, bar_token_id: int,
-                greedy: bool, settings: Sequence[smp.FieldSampling], fused_sampling: bool):
+                greedy: bool, settings: Sequence[smp.FieldSampling], fused_sampling: bool,
+                mesh=None):
     """The sampled loop token by token from the host (``_loop_token`` with
-    ``step_fn`` as its step): (toks, valid, bars)."""
+    ``step_fn`` as its step): (toks, valid, bars).  Under tp (``mesh``) the
+    logits come from the row-parallel heads."""
     loop = _Loop.new(h.shape[0], max_tokens, cfg.n_fields, h.device)
     loop.start(done, init_bars)
-    if fused_sampling:
+    if mesh is not None and mesh.tp > 1:
+        def sample(x):
+            logits = lt.head_logits(params, cfg, x, mesh)
+            if fused_sampling:
+                return smp.sample_fields_fused(generator, logits, cfg.vocab_sizes, settings,
+                                               greedy=greedy)
+            return smp.sample_fields(generator, torch.split(logits, list(cfg.vocab_sizes), -1),
+                                     settings, greedy=greedy)
+    elif fused_sampling:
         hw, hb = cm.fused_head_params(params["heads"], cfg.n_fields)
 
         def sample(x):
@@ -665,17 +690,27 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
     odd head counts take neither and decode per step (JAX :760-769), through
     the v3 kernel when fused.
 
-    ``mesh`` (``parallel.make_mesh``, dp only; every rank calls this): rank
-    r decodes songs [r b/dp, (r+1) b/dp) on the per-step path (JAX takes
-    neither the latency nor the chunked path under a mesh), from a
-    generator seeded 7919 r above the run's seed (``gen_cfg.seed``, or a
-    draw from ``generator``), so no two ranks' songs are copies; every rank
-    returns all b songs, in order.  A batch that dp does not divide is
+    ``mesh`` (``parallel.make_mesh``; every rank calls this): the ranks of
+    dp index i decode songs [i b/dp, (i+1) b/dp) on the per-step path (JAX
+    takes neither the latency nor the chunked path under a mesh), from a
+    generator seeded 7919 i above the run's seed (``gen_cfg.seed``, or a
+    draw from ``generator``), so no two dp indices' songs are copies; every
+    rank returns all b songs, in order.  A batch that dp does not divide is
     decoded whole on every rank, from the run's own generator (JAX's
-    replicated placement)."""
-    if mesh is not None and mesh.shape.get("tp", 1) > 1:
-        raise NotImplementedError("generate_songs(mesh=...) with tp > 1: tensor parallelism "
-                                  "is not ported yet (ROADMAP Queue 1 item 9(b))")
+    replicated placement).  Under tp > 1 ``params`` is the whole tree, the
+    same on every rank; each rank keeps its tp shards of it (JAX's
+    ``shard_params``) and decodes with the Megatron layer on the plain
+    per-step path.  Kernel A does not run under tp: it reads every layer's
+    whole weights in one launch and has no place for the row-parallel sums
+    (JAX's reason for keeping C, D and G off the tp layer); an explicit
+    ``RLMG_FUSED_DECODE=1`` is ignored there with a warning.  Where JAX's
+    GSPMD would hand its v4 kernel all-gathered weights, the port does not:
+    the gather would undo tp's memory split.  Greedy tokens equal one
+    process's, as JAX's (tests/test_sharded_generation.py)."""
+    tp = 1 if mesh is None else mesh.tp
+    if tp > 1:
+        lt.check_tp(cfg, tp)
+        params = shard_tree(mesh, params)
     dev = params["in_linear"]["w"].device
     b_all = gen_cfg.batch_size
     sharded = mesh is not None and mesh.dp > 1 and b_all % mesh.dp == 0
@@ -692,7 +727,7 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
         seed = gen_cfg.seed if generator is None else int(torch.randint(
             0, 2 ** 62, (), generator=generator, device=generator.device))
         generator = torch.Generator(device=dev)
-        generator.manual_seed(seed + 7919 * mesh.rank)
+        generator.manual_seed(seed + 7919 * mesh.dp_index)
     elif generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(gen_cfg.seed)
@@ -715,6 +750,11 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
         use_pers = use_lat = False
     if mesh is not None:
         use_pers = use_lat = False
+    if tp > 1:
+        if use_f and os.environ.get("RLMG_FUSED_DECODE") == "1":
+            warnings.warn(f"RLMG_FUSED_DECODE=1 ignored under tp={tp}: kernel A reads every "
+                          "layer's whole weights; the per-step Megatron layer instead")
+        use_f = False
     if use_lat:
         res = generate_tokens_latency(params, cfg, init_tokens, **kwargs)
     elif use_pers:
@@ -725,10 +765,10 @@ def generate_songs(params: dict, cfg: LinearTransformerConfig,
                 and _prompt_prefill_active(init_tokens.shape[1])):
             init_tokens, n_valid = _bucket_pad(init_tokens)   # pad rows come back invalid
         res = generate_tokens(params, cfg, init_tokens, **kwargs, fused=use_f,
-                              fused_sampling=use_fs, n_valid=n_valid)
+                              fused_sampling=use_fs, n_valid=n_valid, mesh=mesh)
     tokens = res.tokens.cpu().numpy()
     valid = res.valid.cpu().numpy()
     songs = [tokens[i][valid[i]] for i in range(b)]
     if sharded:
-        songs = [song for part in all_gather_object(mesh, songs) for song in part]
+        songs = [song for part in all_gather_object(mesh, songs, axis="dp") for song in part]
     return songs

@@ -62,12 +62,14 @@ def init_embedding(vocab: int, dim: int, *, generator, device,
     return torch.randn((vocab, dim), generator=generator, device=device, dtype=dtype)
 
 
-def scaled_embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """nn.Embedding * sqrt(d) (dqn_policy/model.py:67-74).  An embedding
-    lookup, not ``table[ids]``: on a card the backward of advanced indexing
-    walks each run of repeated ids serially, and with vocabularies of 18-135
-    ids over 16384 rows that took 5.5 ms per field per step."""
-    return torch.nn.functional.embedding(ids, table) * math.sqrt(table.shape[-1])
+def scaled_embed(table: torch.Tensor, ids: torch.Tensor, dim: Optional[int] = None
+                 ) -> torch.Tensor:
+    """nn.Embedding * sqrt(d) (dqn_policy/model.py:67-74); ``dim``: d where
+    ``table`` holds a column shard of it.  An embedding lookup, not
+    ``table[ids]``: on a card the backward of advanced indexing walks each
+    run of repeated ids serially, and with vocabularies of 18-135 ids over
+    16384 rows that took 5.5 ms per field per step."""
+    return torch.nn.functional.embedding(ids, table) * math.sqrt(dim or table.shape[-1])
 
 
 def init_layernorm(dim: int, *, device, dtype=torch.float32,
@@ -96,14 +98,19 @@ def sinusoidal_table(max_len: int, d_model: int, dtype=torch.float32,
 
 
 def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Inverted dropout, keep probability 1 - rate (JAX ``cm.dropout``).  No
     generator means no dropout.  The mask is drawn from ``generator`` (on
     x's device), so it differs from the JAX package's draw for the same
-    seed."""
+    seed.  ``shard`` = (i, n): x is the i-th of n column shards of a
+    tensor; the whole tensor's mask is drawn and x keeps its columns, so
+    the draw is the one-process draw."""
     if deterministic or rate <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    i, n = shard
+    k = x.shape[-1]
+    keep = torch.rand(x.shape[:-1] + (k * n,), generator=generator, device=x.device)
+    keep = keep[..., i * k:(i + 1) * k] < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -114,11 +121,13 @@ def init_field_embeddings(vocab_sizes: Sequence[int], emb_sizes: Sequence[int],
             for n, v, e in zip(names, vocab_sizes, emb_sizes)}
 
 
-def embed_fields(emb_params: dict, x: torch.Tensor) -> torch.Tensor:
+def embed_fields(emb_params: dict, x: torch.Tensor, tp: int = 1) -> torch.Tensor:
     """x (..., n_fields) int -> concat of scaled per-field embeddings
-    (dqn_policy/model.py:206-221)."""
+    (dqn_policy/model.py:206-221); ``tp``: the tables are column shards of
+    1/tp of each field's embedding (scaled by the whole width)."""
     names = field_names(x.shape[-1])
-    parts = [scaled_embed(emb_params[n], x[..., i].long()) for i, n in enumerate(names)]
+    parts = [scaled_embed(emb_params[n], x[..., i].long(), emb_params[n].shape[-1] * tp)
+             for i, n in enumerate(names)]
     return torch.cat(parts, dim=-1)
 
 

@@ -16,8 +16,18 @@ CUDA device at ``RLMG_FFN_MIN_ROWS`` (8192) rows or more, kernel C
 the plain PyTorch composition.  Under a data-parallel mesh (``dp_mesh``,
 ``parallel/mesh.py``) each rank runs its own rows: the rule reads the rank's
 row count, kernel C runs on the rank's own sequences, kernel D's dropout
-seed gets ``7919 * rank`` added (the JAX rule), and the loss is the global
-masked CE (``ops/losses.py``).  An explicit ``RLMG_ATTN_BACKEND=pallas`` (or
+seed gets ``7919 * dp_index`` added (the JAX rule), and the loss is the
+global masked CE (``ops/losses.py``).  Under a mesh with tp > 1 each rank
+holds its tp shard of the Megatron-split weights (``parallel/sharding.py``)
+and runs JAX's manual Megatron layer (``parallel/pipeline.py
+_layer_forward_tp``): each field's embedding columns and ``in_linear``'s
+output gathered, q/k/v of its n_head/tp heads, ``wo`` and ``ffn2``
+row-parallel with one all-reduce each and their biases added once after
+it, the heads row-parallel over d_model; the activations between them
+replicated (``parallel/tensor.py``).  C, D and G do not run under tp (the
+JAX guards, with their warnings); the attention is
+``causal_linear_attention`` on the rank's heads, kernel F under
+``RLMG_ATTN_BACKEND=pallas``.  An explicit ``RLMG_ATTN_BACKEND=pallas`` (or
 ``cfg.attn_backend``) takes the unfused layer at any row count, with kernel
 F (``ops/linear_attention_kernel.py``) as its attention; an explicit
 ``RLMG_FFN_BACKEND=pallas`` runs the unfused layer's post-LN1 half through
@@ -45,6 +55,8 @@ from ..ops.linear_attention import (causal_linear_attention,
                                     causal_linear_attention_bshe, feature_map,
                                     linear_attention_step)
 from ..ops.losses import fields_cross_entropy
+from ..parallel.tensor import (copy_to_tp, gather_fields_from_tp, gather_from_tp,
+                               reduce_from_tp, scatter_to_tp)
 from . import common as cm
 
 
@@ -119,6 +131,43 @@ def _mesh_axes(dp_mesh) -> Tuple[int, int]:
     return dp_mesh.shape.get("dp", 1), dp_mesh.shape.get("tp", 1)
 
 
+def check_tp(cfg: LinearTransformerConfig, tp: int) -> None:
+    """Raise ``ValueError`` unless ``tp`` divides every dimension the
+    Megatron rules split: the heads, d_inner, d_model and each field's
+    embedding (JAX ``parallel/pipeline.py:169-172`` for the first two)."""
+    if tp == 1:
+        return
+    sizes = {"n_head": cfg.n_head, "d_inner": cfg.d_inner, "d_model": cfg.d_model,
+             **{f"emb_sizes[{i}]": e for i, e in enumerate(cfg.emb_sizes)}}
+    bad = {k: v for k, v in sizes.items() if v % tp}
+    if bad:
+        raise ValueError(f"tp={tp} must divide {bad} (Megatron shards: whole heads, FFN "
+                         "columns, d_model rows of the heads and embedding columns)")
+
+
+def _row_linear(p: dict, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product under tp: the rank's rows of ``p["w"]``
+    times its columns of x, summed over the tp ranks, then the (whole) bias
+    once; ``cm.linear`` without tp."""
+    if _mesh_axes(mesh)[1] == 1:
+        return cm.linear(p, x)
+    return reduce_from_tp(x @ p["w"], mesh) + p["b"]
+
+
+def embed_project(params: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """x (..., n_fields) int -> in_linear(concat of the scaled embeddings),
+    (..., d_model).  Under tp the rank's columns of each field's embedding
+    are gathered field by field into the whole concat, ``in_linear`` runs
+    column-parallel and its columns are gathered: h comes out replicated."""
+    tp = _mesh_axes(mesh)[1]
+    if tp == 1:
+        return cm.linear(params["in_linear"], cm.embed_fields(params["emb"], x))
+    names = cm.field_names(x.shape[-1])
+    e = gather_fields_from_tp(cm.embed_fields(params["emb"], x, tp), mesh,
+                              [params["emb"][n].shape[-1] for n in names])
+    return gather_from_tp(cm.linear(params["in_linear"], copy_to_tp(e, mesh)), mesh)
+
+
 def _ffn_backend(n_rows: int, device: torch.device, dp_mesh=None) -> str:
     """FFN-tail route of the training forward: "pallas-tail" runs kernel D
     (Wo + dropout + residual + LN1 + FFN + LN2, ``ops/ffn_block.py``),
@@ -182,15 +231,15 @@ def _qkv_attention_call(cfg: LinearTransformerConfig, lp: dict, h: torch.Tensor,
 def _dropout_seed(generator: Optional[torch.Generator], p: float, device, dp_mesh=None):
     """A fused kernel's dropout seed: drawn from ``generator`` when p > 0,
     else 0 (no generator means no dropout, not dropout with a fixed seed).
-    Under a dp mesh rank r adds 7919 r (JAX's ``axis_index("dp") * 7919``):
-    the kernels draw their masks by row, and the rows restart at 0 on every
-    rank."""
+    Under a dp mesh the ranks of dp index i add 7919 i (JAX's
+    ``axis_index("dp") * 7919``): the kernels draw their masks by row, and
+    the rows restart at 0 on every dp index."""
     if p <= 0.0:
         return 0
     seed = torch.randint(0, 2 ** 30, (), generator=generator, device=generator.device,
                          dtype=torch.int32)
     if _mesh_axes(dp_mesh)[0] > 1:
-        seed = seed + 7919 * dp_mesh.rank
+        seed = seed + 7919 * dp_mesh.dp_index
     return seed.to(device, non_blocking=True)
 
 
@@ -224,16 +273,19 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
     att = None
     if explicit_attn == "pallas-qkv":
         att = _qkv_attention_call(cfg, lp, h, dp_mesh)
+    tp = _mesh_axes(dp_mesh)[1]
     if att is None:
-        q = _split_heads(cm.linear(lp["wq"], h), cfg.n_head)
-        k = _split_heads(cm.linear(lp["wk"], h), cfg.n_head)
-        v = _split_heads(cm.linear(lp["wv"], h), cfg.n_head)
+        # under tp: the rank's n_head / tp heads, column-parallel
+        hc = copy_to_tp(h, dp_mesh)
+        q = _split_heads(cm.linear(lp["wq"], hc), cfg.n_head // tp)
+        k = _split_heads(cm.linear(lp["wk"], hc), cfg.n_head // tp)
+        v = _split_heads(cm.linear(lp["wv"], hc), cfg.n_head // tp)
         ca_backend = attn_backend or cfg.attn_backend
-        if ca_backend == "pallas-qkv":      # odd heads / 2-D h: the composition
+        if ca_backend == "pallas-qkv":      # odd heads / 2-D h / tp: the composition
             ca_backend = "xla"
         att = _merge_heads(causal_linear_attention(q, k, v, eps=cfg.attn_eps,
                                                    backend=ca_backend, chunk=cfg.attn_chunk))
-    att = cm.linear(lp["wo"], att)
+    att = _row_linear(lp["wo"], att, dp_mesh)
     h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic))
     if h.ndim == 3 and _ffn_backend(h.shape[0] * h.shape[1], h.device, dp_mesh) == "pallas":
         b, s, d = h.shape
@@ -242,9 +294,13 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                         lp["ffn2"]["b"], lp["ln2"]["scale"], lp["ln2"]["bias"],
                         _dropout_seed(generator, p, h.device, dp_mesh), p)
         return out.reshape(b, s, d)
-    y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], h), approximate="none")
-    y = cm.dropout(generator, y, cfg.dropout, deterministic)
-    y = cm.linear(lp["ffn2"], y)
+    y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], copy_to_tp(h, dp_mesh)),
+                                 approximate="none")
+    # the rank's columns of the one-process mask: the tp ranks' generators
+    # stay in step
+    y = cm.dropout(generator, y, cfg.dropout, deterministic,
+                   shard=(dp_mesh.tp_index, tp) if tp > 1 else (0, 1))
+    y = _row_linear(lp["ffn2"], y, dp_mesh)
     y = cm.dropout(generator, y, cfg.dropout, deterministic)
     return cm.layernorm(lp["ln2"], h + y)
 
@@ -283,10 +339,13 @@ def forward_hidden(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, 
     embeddings -> in_linear -> positional encoding -> causal-linear
     encoder).  ``generator`` (on the tensors' device) draws the dropout
     masks and the kernels' dropout seeds; None means no dropout.
-    ``dp_mesh``: x is this rank's rows of a batch over the mesh's dp."""
+    ``dp_mesh``: x is this rank's rows of a batch over the mesh's dp, and
+    under tp > 1 ``params`` the rank's tp shards; h comes out replicated
+    over the tp group."""
+    check_tp(cfg, _mesh_axes(dp_mesh)[1])
     deterministic = deterministic or generator is None
     s = x.shape[1]
-    h = cm.linear(params["in_linear"], cm.embed_fields(params["emb"], x))
+    h = embed_project(params, x, dp_mesh)
     h = h + cm.sinusoidal_table(s, cfg.d_model, h.dtype, h.device)[None]
     h = cm.dropout(generator, h, cfg.dropout, deterministic)
     layers = params["layers"]
@@ -297,10 +356,25 @@ def forward_hidden(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, 
     return cm.layernorm(params["final_ln"], h)
 
 
-def forward_output(params: dict, cfg: LinearTransformerConfig,
-                   h: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """h -> tuple of per-field logits (dqn_policy/model.py:241-249)."""
-    return cm.apply_field_heads(params["heads"], h, cfg.n_fields)
+def forward_output(params: dict, cfg: LinearTransformerConfig, h: torch.Tensor,
+                   mesh=None) -> Tuple[torch.Tensor, ...]:
+    """h -> tuple of per-field logits (dqn_policy/model.py:241-249).  Under
+    tp the heads are row-parallel over d_model (``head_logits``)."""
+    if _mesh_axes(mesh)[1] == 1:
+        return cm.apply_field_heads(params["heads"], h, cfg.n_fields)
+    return tuple(torch.split(head_logits(params, cfg, h, mesh), list(cfg.vocab_sizes), dim=-1))
+
+
+def head_logits(params: dict, cfg: LinearTransformerConfig, h: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """The six heads' logits side by side, (..., sum V), in field order.
+    Under tp: the rank's d_model columns of the replicated h times its rows
+    of each head's ``w``, the six partial products summed over the tp ranks
+    in one all-reduce, then the biases."""
+    hw, hb = cm.fused_head_params(params["heads"], cfg.n_fields)
+    if _mesh_axes(mesh)[1] == 1:
+        return h @ hw + hb
+    return reduce_from_tp(scatter_to_tp(h, mesh) @ hw, mesh) + hb
 
 
 def value_head(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -319,7 +393,8 @@ def train_losses(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor,
     global losses (``ops/losses.py``), which the caller all-reduces."""
     h = forward_hidden(params, cfg, x, deterministic=deterministic, generator=generator,
                        attn_backend=attn_backend, dp_mesh=dp_mesh)
-    return fields_cross_entropy(forward_output(params, cfg, h), target, mask, mesh=dp_mesh)
+    return fields_cross_entropy(forward_output(params, cfg, h, dp_mesh), target, mask,
+                                mesh=dp_mesh)
 
 
 def make_decode_params(params: dict, cfg: LinearTransformerConfig,
@@ -362,25 +437,26 @@ class DecodeState(NamedTuple):
 
 
 def init_decode_state(cfg: LinearTransformerConfig, batch: int,
-                      dtype=torch.float32, device="cuda") -> DecodeState:
-    dh = cfg.d_head
+                      dtype=torch.float32, device="cuda", mesh=None) -> DecodeState:
+    """A zero state; under tp of the rank's n_head / tp heads."""
+    dh, h = cfg.d_head, cfg.n_head // _mesh_axes(mesh)[1]
     return DecodeState(
-        s=torch.zeros((cfg.n_layer, batch, cfg.n_head, dh, dh), dtype=dtype, device=device),
-        z=torch.zeros((cfg.n_layer, batch, cfg.n_head, dh), dtype=dtype, device=device),
+        s=torch.zeros((cfg.n_layer, batch, h, dh, dh), dtype=dtype, device=device),
+        z=torch.zeros((cfg.n_layer, batch, h, dh), dtype=dtype, device=device),
         step=0)
 
 
 def embed_input(params: dict, cfg: LinearTransformerConfig, token: torch.Tensor,
-                step: Union[int, torch.Tensor], pe_table: Optional[torch.Tensor]
-                ) -> torch.Tensor:
+                step: Union[int, torch.Tensor], pe_table: Optional[torch.Tensor],
+                mesh=None) -> torch.Tensor:
     """Token (B, n_fields) -> in_linear(embeddings) + pe row ``step``.
     ``step``: a Python int, a 0-d integer tensor on the table's device, or a
     (B,) one, a position per song (the JAX ``pe_table[state.step]`` gather,
     which continuous batching uses: each slot at its own position).  A
     tensor's rows are gathered on the device, with no host sync: a CUDA
-    graph replays the gather at whatever positions the tensor holds."""
-    embs = cm.embed_fields(params["emb"], token)
-    h = cm.linear(params["in_linear"], embs)
+    graph replays the gather at whatever positions the tensor holds.
+    ``mesh``: tp shards in, h replicated out (``embed_project``)."""
+    h = embed_project(params, token, mesh)
     if pe_table is None:
         pe_table = cm.sinusoidal_table(cfg.max_len, cfg.d_model, h.dtype, h.device)
     row = pe_table.index_select(0, step.reshape(-1)) if torch.is_tensor(step) \
@@ -389,18 +465,22 @@ def embed_input(params: dict, cfg: LinearTransformerConfig, token: torch.Tensor,
 
 
 def decode_step(params: dict, cfg: LinearTransformerConfig, token: torch.Tensor,
-                state: DecodeState, *, pe_table: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, DecodeState]:
+                state: DecodeState, *, pe_table: Optional[torch.Tensor] = None,
+                mesh=None) -> Tuple[torch.Tensor, DecodeState]:
     """One-token forward: token (B, n_fields) int -> (h_last (B, D), state').
 
     The plain recurrent path (fast_transformers' recurrent mode,
     dqn_policy/model.py:236-238).  q/k/v are cast to the state dtype before
-    the state update, as in the JAX function."""
+    the state update, as in the JAX function.  Under tp (``mesh``) the
+    per-token Megatron layer on the rank's shards: the state holds the
+    rank's n_head / tp heads, h is replicated.  No gradient flows here, so
+    the column-parallel products need no ``copy_to_tp``."""
+    tp = _mesh_axes(mesh)[1]
     b = token.shape[0]
-    h = embed_input(params, cfg, token, state.step, pe_table)
+    h = embed_input(params, cfg, token, state.step, pe_table, mesh)
     lp = params["layers"]
     new_s, new_z = [], []
-    shape = (b, cfg.n_head, cfg.d_head)
+    shape = (b, cfg.n_head // tp, cfg.d_head)
     for l in range(cfg.n_layer):
         layer = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in lp.items()}
         s_l, z_l = state.s[l], state.z[l]
@@ -408,10 +488,10 @@ def decode_step(params: dict, cfg: LinearTransformerConfig, token: torch.Tensor,
         k = cm.linear(layer["wk"], h).reshape(shape).to(s_l.dtype)
         v = cm.linear(layer["wv"], h).reshape(shape).to(s_l.dtype)
         att, (s_l, z_l) = linear_attention_step(q, k, v, (s_l, z_l), eps=cfg.attn_eps)
-        att = cm.linear(layer["wo"], att.to(h.dtype).reshape(b, cfg.d_model))
+        att = _row_linear(layer["wo"], att.to(h.dtype).reshape(b, cfg.d_model // tp), mesh)
         h = cm.layernorm(layer["ln1"], h + att)
         y = torch.nn.functional.gelu(cm.linear(layer["ffn1"], h), approximate="none")
-        y = cm.linear(layer["ffn2"], y)
+        y = _row_linear(layer["ffn2"], y, mesh)
         h = cm.layernorm(layer["ln2"], h + y)
         new_s.append(s_l)
         new_z.append(z_l)
@@ -429,7 +509,7 @@ def prefill_bucket(t: int, quantum: int = 64) -> int:
 def forward_prefill(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor,
                     n_valid: Optional[int] = None, *,
                     pe_table: Optional[torch.Tensor] = None,
-                    state_dtype: torch.dtype = torch.float32
+                    state_dtype: torch.dtype = torch.float32, mesh=None
                     ) -> Tuple[torch.Tensor, DecodeState]:
     """Parallel prompt ingestion (JAX :593-646): one training-style forward
     over the prompt that also returns the recurrent state after its last
@@ -445,27 +525,31 @@ def forward_prefill(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor,
     every backend, as JAX's; its summation order differs from the
     per-token scan, so streams are float-close, not bit-equal.
 
+    Under tp (``mesh``) the Megatron layer of ``decode_step`` on the
+    rank's shards; the state holds its n_head / tp heads.
+
     Returns (h_last (B, D) after final_ln, DecodeState at step n_valid)."""
+    tp = _mesh_axes(mesh)[1]
     b, t, _ = x.shape
     n_valid = t if n_valid is None else int(n_valid)
     valid = (torch.arange(t, device=x.device) < n_valid)[None, :, None, None]
-    h = cm.linear(params["in_linear"], cm.embed_fields(params["emb"], x))
+    h = embed_project(params, x, mesh)
     if pe_table is None:
         pe_table = cm.sinusoidal_table(cfg.max_len, cfg.d_model, h.dtype, h.device)
     h = h + pe_table[:t][None].to(h.dtype)
     ss, zs = [], []
     for l in range(cfg.n_layer):
         lp = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in params["layers"].items()}
-        bshe = lambda a: a.reshape(b, t, cfg.n_head, cfg.d_head)
+        bshe = lambda a: a.reshape(b, t, cfg.n_head // tp, cfg.d_head)
         q, k, v = (bshe(cm.linear(lp[n], h)) for n in ("wq", "wk", "wv"))
         pk = feature_map(k.to(state_dtype)) * valid
         ss.append(torch.einsum("bthe,bthf->bhef", pk, v.to(state_dtype)))
         zs.append(pk.sum(1))
         att = causal_linear_attention_bshe(q, k, v, eps=cfg.attn_eps,
                                            chunk=min(cfg.attn_chunk, t))
-        att = cm.linear(lp["wo"], att.reshape(b, t, cfg.d_model))
+        att = _row_linear(lp["wo"], att.reshape(b, t, cfg.d_model // tp), mesh)
         h = cm.layernorm(lp["ln1"], h + att)
         y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], h), approximate="none")
-        h = cm.layernorm(lp["ln2"], h + cm.linear(lp["ffn2"], y))
+        h = cm.layernorm(lp["ln2"], h + _row_linear(lp["ffn2"], y, mesh))
     h_last = cm.layernorm(params["final_ln"], h[:, n_valid - 1])
     return h_last, DecodeState(torch.stack(ss), torch.stack(zs), n_valid)

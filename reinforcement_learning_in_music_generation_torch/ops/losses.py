@@ -6,10 +6,12 @@ CrossEntropyLoss(reduction='none') * mask, summed and divided by mask.sum()
 (dqn_policy/model.py:109, 163-167).  The CE always reduces in float32.
 
 Under a dp mesh (``parallel/mesh.py``) the loss is JAX's over the GLOBAL
-batch, sum(ce * mask) / max(sum(mask), 1) with both sums over every rank's
-rows: each rank divides its own numerator by the all-reduced denominator, so
-the ranks' losses, and their gradients, sum to the global ones (the caller
-all-reduces both).  The mean of the ranks' own means is another loss
+batch, sum(ce * mask) / max(sum(mask), 1) with both sums over every dp
+index's rows: each rank divides its own numerator by the denominator
+all-reduced over its dp group, so the losses, and their gradients, of the
+ranks of a dp group sum to the global ones (the caller all-reduces both over
+that group).  The ranks of a tp group hold the same rows, so the world's
+sum would count each row tp times.  The mean of the ranks' own means is another loss
 wherever their mask sums differ.  The denominator is data: no gradient.
 """
 
@@ -21,11 +23,11 @@ import torch
 
 
 def _mask_sum(mask: torch.Tensor, mesh) -> torch.Tensor:
-    """sum(mask), over every rank's rows under a dp mesh."""
+    """sum(mask), over every dp index's rows under a mesh."""
     den = mask.float().sum().detach()
     if mesh is not None and mesh.dp > 1:
         from ..parallel.mesh import all_reduce_
-        all_reduce_(mesh, [den])
+        all_reduce_(mesh, [den], axis="dp")
     return den
 
 

@@ -1,13 +1,13 @@
-"""Data parallelism across processes (the counterpart of the JAX package's
-``parallel``): the mesh, the launch of its ranks and its collectives
-(``mesh``), and the parameter layout rules that ZeRO-1 slices by
-(``sharding``).  Tensor parallelism and the pipeline wait for ROADMAP Queue 1
-item 9(b) and 9(d)."""
+"""Data and tensor parallelism across processes (the counterpart of the JAX
+package's ``parallel``): the (dp, tp) mesh, the launch of its ranks and its
+collectives (``mesh``), the parameter layout rules, the rank's shards and
+ZeRO-1's slices (``sharding``), and the Megatron layer's collectives
+(``tensor``).  The pipeline waits for ROADMAP Queue 1 item 9(d)."""
 
 from .mesh import Mesh, launch, make_mesh, shard_batch, shard_rows
-from .sharding import param_specs, shard_params, spec_for_path, zero1_specs
+from .sharding import gather_params, param_specs, shard_params, spec_for_path, zero1_specs
 
 __all__ = [
     "Mesh", "launch", "make_mesh", "shard_batch", "shard_rows",
-    "param_specs", "shard_params", "spec_for_path", "zero1_specs",
+    "gather_params", "param_specs", "shard_params", "spec_for_path", "zero1_specs",
 ]

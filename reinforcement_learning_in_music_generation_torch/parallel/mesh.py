@@ -1,15 +1,19 @@
-"""The data-parallel mesh: one process a rank over ``torch.distributed`` (the
+"""The (dp, tp) mesh: one process a rank over ``torch.distributed`` (the
 counterpart of the JAX package's ``parallel/mesh.py``).
 
 JAX runs its ('dp', 'tp') mesh as one program over the devices (GSPMD).  The
-port runs one process a rank: rank r holds a full copy of the parameters and
-rows [r b/dp, (r+1) b/dp) of each global batch of b rows; a batch whose
-leading size dp does not divide is kept whole on every rank, as JAX's
-``shard_batch`` replicates it.  The callers add the collectives that GSPMD
-inserts: the masked CE's denominator and the gradients are all-reduced
-(``ops/losses.py``, ``train/pretrain.py``), ZeRO-1 all-gathers its updates
-(``train/optim.py``), generation all-gathers the songs
-(``generate/sampler.py``).
+port runs one process a rank.  A mesh of dp x tp ranks lays them out as JAX
+lays out its devices (``reshape(dp, tp)``, tp the minor axis): rank r sits
+at dp index r // tp and tp index r % tp.  The ranks of one dp index (a tp
+group) hold the same rows of each global batch, rows
+[i b/dp, (i+1) b/dp) for dp index i (a batch whose leading size dp does not
+divide is kept whole on every rank, as JAX's ``shard_batch`` replicates
+it), and each holds its tp shard of the parameters that the Megatron rules
+split (``parallel/sharding.py``).  The callers add the collectives that
+GSPMD inserts: over the dp group the masked CE's denominator and the
+gradients (``ops/losses.py``, ``train/pretrain.py``), ZeRO-1's updates
+(``train/optim.py``) and the songs (``generate/sampler.py``); over the tp
+group the Megatron layer's (``parallel/tensor.py``) and the clip's norm.
 
 Backends: ``nccl`` where each rank has a card of its own (rank r on
 ``cuda:r``), ``gloo`` on the CPU.  NCCL refuses two ranks on one card (a
@@ -21,8 +25,7 @@ on them: ``chip_smoke.py`` phase 34).
 ``launch`` starts the ranks of one machine: a process each (start method
 ``spawn``), a ``file://`` rendezvous in a fresh temporary directory, a
 timeout on the process group's collectives and on every join; a rank that
-raises stops them all.  Tensor parallelism (tp > 1) waits for ROADMAP
-Queue 1 item 9(b).
+raises stops them all.
 """
 
 from __future__ import annotations
@@ -51,29 +54,76 @@ _JOIN_S = 60.0          # a rank that has sent its result must exit within this
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """A rank's view of the mesh: the axis sizes (``shape["dp"]``,
-    ``shape["tp"]``), this process's rank, the device it computes on and
-    the process group's backend (the default group)."""
+    ``shape["tp"]``), this process's rank, the device it computes on, the
+    process group's backend (the default group), and the subgroups of its
+    two axes: ``groups["dp"]`` the ranks of its tp index (its dp row),
+    ``groups["tp"]`` the ranks of its dp index (its tp column).  An axis
+    that spans the world has None (the default group) as its group; an axis
+    of size 1 needs none."""
 
     shape: Dict[str, int]
     rank: int
     device: torch.device
     backend: str
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def dp(self) -> int:
         return self.shape["dp"]
 
+    @property
+    def tp(self) -> int:
+        return self.shape.get("tp", 1)
+
+    @property
+    def dp_index(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_index(self) -> int:
+        return self.rank % self.tp
+
+    def size(self, axis: str) -> int:
+        """The ranks of ``axis`` ("dp", "tp" or "world")."""
+        return self.dp * self.tp if axis == "world" else self.shape.get(axis, 1)
+
+    def group(self, axis: str):
+        """The process group of ``axis`` (None: the default group)."""
+        if axis == "world":
+            return None
+        if axis not in ("dp", "tp"):
+            raise ValueError(f"axis {axis!r}: expected 'dp', 'tp' or 'world'")
+        return self.groups.get(axis)
+
+
+def _axis_groups(dp: int, tp: int, rank: int) -> Dict[str, Any]:
+    """Every dp row's and every tp column's group, made on every rank in the
+    same order (``dist.new_group`` is collective); this rank's two.  Only a
+    mesh with both axes above 1 needs them: otherwise the axis of size > 1
+    is the world."""
+    if dp == 1 or tp == 1:
+        return {}
+    mine = {}
+    for t in range(tp):                         # dp rows: the ranks of tp index t
+        g = dist.new_group([d * tp + t for d in range(dp)])
+        if rank % tp == t:
+            mine["dp"] = g
+    for d in range(dp):                         # tp columns: the ranks of dp index d
+        g = dist.new_group([d * tp + t for t in range(tp)])
+        if rank // tp == d:
+            mine["tp"] = g
+    return mine
+
 
 def make_mesh(dp: int = -1, tp: int = 1, devices: Optional[Sequence] = None,
               backend: Optional[str] = None) -> Mesh:
     """This rank's ``Mesh`` over the initialized process group, whose size
-    must be dp * tp (dp = -1: the world size / tp).  ``devices``: one torch
-    device a rank (default ``cuda:r`` under nccl, the CPU under gloo).  Ranks
-    that share a card need ``backend="gloo"``, passed explicitly; ``backend``
-    must name the group's backend where given."""
-    if tp > 1:
-        raise NotImplementedError("tp > 1: tensor parallelism is not ported yet "
-                                  "(ROADMAP Queue 1 item 9(b))")
+    must be dp * tp (dp = -1: the world size / tp); rank r at dp index
+    r // tp, tp index r % tp.  ``devices``: one torch device a rank
+    (default ``cuda:r`` under nccl, the CPU under gloo).  Ranks that share a
+    card need ``backend="gloo"``, passed explicitly; ``backend`` must name
+    the group's backend where given.  Every rank calls it (the axes'
+    subgroups are made collectively)."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_mesh needs an initialized torch.distributed process group "
                            "(parallel.launch starts one a rank; under torchrun, "
@@ -102,17 +152,19 @@ def make_mesh(dp: int = -1, tp: int = 1, devices: Optional[Sequence] = None,
                              "a card")
     elif group_backend == "nccl":
         raise ValueError("an nccl process group needs CUDA devices")
-    return Mesh({"dp": dp, "tp": tp}, rank, devices[rank], group_backend)
+    return Mesh({"dp": dp, "tp": tp}, rank, devices[rank], group_backend,
+                _axis_groups(dp, tp, rank))
 
 
 def shard_rows(mesh: Mesh, n: int) -> slice:
-    """This rank's rows of a leading axis of ``n``: its 1/dp share, or all
-    of them where dp does not divide n."""
+    """The rows of this rank's dp index on a leading axis of ``n``: its 1/dp
+    share, or all of them where dp does not divide n.  The ranks of one tp
+    group get the same rows."""
     dp = mesh.dp
     if n % dp:
         return slice(0, n)
     k = n // dp
-    return slice(mesh.rank * k, (mesh.rank + 1) * k)
+    return slice(mesh.dp_index * k, (mesh.dp_index + 1) * k)
 
 
 def shard_batch(mesh: Mesh, batch):
@@ -128,8 +180,6 @@ def shard_batch(mesh: Mesh, batch):
 def _in_place(tensors: Sequence[torch.Tensor], collective: Callable) -> None:
     """``collective`` on one flat buffer a dtype of the tensors, its result
     copied back into them."""
-    if dist.get_world_size() == 1:
-        return
     groups: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         groups.setdefault(t.dtype, []).append(t)
@@ -142,33 +192,50 @@ def _in_place(tensors: Sequence[torch.Tensor], collective: Callable) -> None:
             off += t.numel()
 
 
-def all_reduce_(mesh: Mesh, tensors: Sequence[torch.Tensor], op: str = "sum") -> None:
-    """Each tensor summed ("sum") or maxed ("max") over the ranks, in place:
-    one collective a dtype."""
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    _in_place(tensors, lambda flat: dist.all_reduce(flat, op=red))
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def broadcast_(mesh: Mesh, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Rank ``src``'s values of each tensor on every rank, in place."""
-    _in_place(tensors, lambda flat: dist.broadcast(flat, src=src))
+def all_reduce_(mesh: Mesh, tensors: Sequence[torch.Tensor], op: str = "sum", *,
+                axis: str) -> None:
+    """Each tensor summed ("sum") or maxed ("max") over the ranks of
+    ``axis`` ("dp", "tp" or "world"), in place: one collective a dtype."""
+    if mesh.size(axis) == 1:
+        return
+    group = mesh.group(axis)
+    _in_place(tensors, lambda flat: dist.all_reduce(flat, op=_OPS[op], group=group))
 
 
-def all_gather(mesh: Mesh, t: torch.Tensor) -> List[torch.Tensor]:
-    """Every rank's ``t`` (the same shape and dtype on each), in rank order."""
-    world = dist.get_world_size()
-    if world == 1:
+def broadcast_(mesh: Mesh, tensors: Sequence[torch.Tensor], src: int = 0, *,
+               axis: str) -> None:
+    """The values of each tensor on the ``src``-th rank of ``axis`` on every
+    rank of it, in place."""
+    if mesh.size(axis) == 1:
+        return
+    group = mesh.group(axis)
+    root = src if group is None else dist.get_global_rank(group, src)
+    _in_place(tensors, lambda flat: dist.broadcast(flat, src=root, group=group))
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor, *, axis: str) -> List[torch.Tensor]:
+    """Every ``axis`` rank's ``t`` (the same shape and dtype on each), in
+    the order of their index on the axis."""
+    n = mesh.size(axis)
+    if n == 1:
         return [t]
     src = t.detach().contiguous()
-    out = [torch.empty_like(src) for _ in range(world)]
-    dist.all_gather(out, src)
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src, group=mesh.group(axis))
     return out
 
 
-def all_gather_object(mesh: Mesh, obj: Any) -> list:
-    """Every rank's picklable ``obj``, in rank order."""
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+def all_gather_object(mesh: Mesh, obj: Any, *, axis: str) -> list:
+    """Every ``axis`` rank's picklable ``obj``, in the order of their index
+    on the axis."""
+    n = mesh.size(axis)
+    if n == 1:
+        return [obj]
+    out = [None] * n
+    dist.all_gather_object(out, obj, group=mesh.group(axis))
     return out
 
 

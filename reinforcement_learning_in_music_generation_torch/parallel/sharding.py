@@ -9,10 +9,12 @@ A spec is a tuple of axis names or None, one a dimension (``()``: whole), as
 JAX's ``PartitionSpec`` entries, and is computed from the axis sizes alone, so
 it needs no process group.
 
-The port runs dp only: the parameters are whole on every rank
-(``shard_params`` makes them equal), and the rules serve ZeRO-1's slices
-(``zero1_specs``, ``train/optim.py zero1``).  Splitting the weights over
-``tp`` waits for ROADMAP Queue 1 item 9(b).
+Each rank holds its tp shard of every leaf whose spec splits a dimension
+over "tp" (``shard_params``: rank 0's tree, then the rank's slice at its tp
+index), and the other leaves whole; ``gather_params`` puts a tree of shards
+back whole (checkpoints, tests).  The rules also serve ZeRO-1's slices
+(``zero1_specs``, ``train/optim.py zero1``): the "dp" axis they add is
+never a tp-split dimension, so a shard has its full length there.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any, Mapping, Tuple
 
 import torch
 
-from .mesh import Mesh, broadcast_
+from .mesh import Mesh, all_gather, broadcast_
 
 Spec = Tuple[Any, ...]
 
@@ -99,11 +101,67 @@ def dp_axis(spec: Spec):
     return spec.index("dp") if "dp" in spec else None
 
 
+def tp_axis(spec: Spec):
+    """The dimension a spec splits over "tp", or None."""
+    return spec.index("tp") if "tp" in spec else None
+
+
+def tp_axes(tree: Any) -> list:
+    """Each leaf's tp dimension (``tp_axis`` of its spec; None for a leaf
+    a tp mesh keeps whole), in leaf order."""
+    out = []
+    _with_paths(lambda path, leaf: out.append(tp_axis(spec_for_path(path, leaf.ndim))), tree)
+    return out
+
+
+def shard_tree(mesh: Mesh, tree: Any) -> Any:
+    """This rank's tp shard of each leaf of a whole tree (no collective);
+    the tree itself where tp is 1."""
+    if mesh.tp == 1:
+        return tree
+
+    def cut(path, leaf):
+        axis = tp_axis(spec_for_path(path, leaf.ndim))
+        if axis is None:
+            return leaf
+        k = leaf.shape[axis] // mesh.tp
+        return leaf.narrow(axis, mesh.tp_index * k, k).contiguous()
+    return _with_paths(cut, tree)
+
+
 @torch.no_grad()
 def shard_params(mesh: Mesh, params: Any) -> Any:
-    """Every rank's parameters set to rank 0's, in place (dp keeps them
-    whole on each rank); returns ``params``."""
+    """Rank 0's parameters on every rank (a broadcast, in place), then this
+    rank's tp shard of each leaf the Megatron rules split (``shard_tree``);
+    returns the rank's tree (``params`` itself where tp is 1)."""
     leaves = []
     _with_paths(lambda path, leaf: leaves.append(leaf), params)
-    broadcast_(mesh, leaves, src=0)
-    return params
+    broadcast_(mesh, leaves, src=0, axis="world")
+    return shard_tree(mesh, params)
+
+
+@torch.no_grad()
+def gather_params(mesh: Mesh, tree: Any) -> Any:
+    """A tree of this rank's tp shards (parameters, gradients, moments) put
+    back whole on every rank: one all-gather over the tp group of the
+    split leaves, flattened together a dtype.  Every rank of the tp group
+    calls it."""
+    if mesh.tp == 1:
+        return tree
+    leaves = []
+    _with_paths(lambda path, leaf: leaves.append(leaf), tree)
+    axes = tp_axes(tree)
+    whole = list(leaves)
+    by_dtype: dict = {}
+    for i, a in enumerate(axes):
+        if a is not None:
+            by_dtype.setdefault(leaves[i].dtype, []).append(i)
+    for idx in by_dtype.values():
+        parts = all_gather(mesh, torch.cat([leaves[i].reshape(-1) for i in idx]), axis="tp")
+        off = 0
+        for i in idx:
+            n = leaves[i].numel()
+            whole[i] = torch.cat([p[off:off + n].view_as(leaves[i]) for p in parts], axes[i])
+            off += n
+    it = iter(whole)
+    return _with_paths(lambda path, leaf: next(it), tree)

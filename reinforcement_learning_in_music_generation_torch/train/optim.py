@@ -15,6 +15,9 @@ Parameters, gradients and moments are nested dicts of tensors (the JAX
 parameter tree).  ``value_and_grad`` is ``jax.value_and_grad(has_aux=True)``
 on such a tree; ``apply_updates`` adds the updates in place.  ``zero1``
 wraps ``Adam`` so that each rank of a dp mesh keeps a slice of the moments.
+Under a tp mesh each rank holds its shards of the parameters, gradients and
+moments; Adam is elementwise, so only the clip's global norm needs the
+mesh (``Adam.clip``).
 """
 
 from __future__ import annotations
@@ -80,6 +83,23 @@ def step_lr(init_lr: float, step_size: int, gamma: float = 0.1) -> Schedule:
     return schedule
 
 
+def global_norm(grads: dict, mesh=None) -> torch.Tensor:
+    """The l2 norm of the whole gradient.  Under a tp mesh the leaves the
+    Megatron rules split are the rank's shards: their squared norms are
+    summed over the tp group (one all-reduce), the whole leaves' counted
+    once; every rank gets the norm optax computes on the global arrays."""
+    sq = lambda g: torch.sum(g.float() * g.float())
+    leaves = tree_leaves(grads)
+    if mesh is None or mesh.tp == 1:
+        return torch.sqrt(sum(sq(g) for g in leaves))
+    from ..parallel.mesh import all_reduce_
+    from ..parallel.sharding import tp_axes
+    axes = tp_axes(grads)
+    part = torch.stack([sq(g) for g, a in zip(leaves, axes) if a is not None]).sum()
+    all_reduce_(mesh, [part], axis="tp")
+    return torch.sqrt(part + sum(sq(g) for g, a in zip(leaves, axes) if a is None))
+
+
 class AdamState(NamedTuple):
     mu: dict            # first moments, the params' tree
     nu: dict            # second moments
@@ -101,18 +121,22 @@ class Adam:
     def learning_rate(self, count: int) -> float:
         return self.lr(count) if callable(self.lr) else self.lr
 
-    def clip(self, grads: dict) -> dict:
+    def clip(self, grads: dict, mesh=None) -> dict:
         """The gradients scaled to ``grad_clip`` where their global norm
-        reaches it (optax ``clip_by_global_norm``)."""
+        reaches it (optax ``clip_by_global_norm``).  Under a tp ``mesh``
+        ``grads`` are the rank's shards: the norm is that of the whole
+        gradient (``global_norm``), the same on every rank."""
         if self.grad_clip is None:
             return grads
-        g_norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in tree_leaves(grads)))
+        g_norm = global_norm(grads, mesh)
         keep = g_norm < self.grad_clip
         return tree_map(lambda g: torch.where(keep, g, (g / g_norm) * self.grad_clip), grads)
 
-    def update(self, grads: dict, state: AdamState, params: Optional[dict] = None):
-        """-> (updates, state'); no host synchronisation."""
-        return self.adam_update(self.clip(grads), state)
+    def update(self, grads: dict, state: AdamState, params: Optional[dict] = None,
+               mesh=None):
+        """-> (updates, state'); no host synchronisation.  ``mesh``: the
+        step's mesh, which the clip's norm reads."""
+        return self.adam_update(self.clip(grads, mesh), state)
 
     def adam_update(self, grads: dict, state: AdamState):
         """Adam on clipped gradients -> (updates, state'); elementwise, so a
@@ -139,9 +163,11 @@ class Zero1:
     """ZeRO-1 around an ``Adam`` (JAX ``train/optim.py zero1``): each rank
     keeps Adam's moments only for its slice of every leaf along the
     dimension that ``parallel.zero1_specs`` gives it "dp" (leaves without
-    one keep whole moments).  The gradients arrive all-reduced, so every
-    rank clips the same global gradient; it then updates its slice and the
-    updates are all-gathered (one collective a step).  Adam is elementwise,
+    one keep whole moments); the ranks of dp index i hold slice i.  The
+    gradients arrive all-reduced over the dp group, so every rank clips the
+    same global gradient; it then updates its slice and the updates are
+    all-gathered over the dp group (one collective a step).  Under tp the
+    trees are the rank's tp shards, whose "dp" dimension is whole.  Adam is elementwise,
     so the result is bit-equal to the unsliced ``Adam``: only the moments'
     memory changes (1/dp of the sliced leaves')."""
 
@@ -154,7 +180,7 @@ class Zero1:
         if axis is None:
             return t
         k = t.shape[axis] // self.mesh.dp
-        return t.narrow(axis, self.mesh.rank * k, k)
+        return t.narrow(axis, self.mesh.dp_index * k, k)
 
     def local(self, tree: dict) -> dict:
         """This rank's slice of each leaf of a tree like the params."""
@@ -168,7 +194,8 @@ class Zero1:
         sliced = [i for i, a in enumerate(axes) if a is not None]
         if not sliced:
             return tree
-        parts = all_gather(self.mesh, torch.cat([leaves[i].reshape(-1) for i in sliced]))
+        parts = all_gather(self.mesh, torch.cat([leaves[i].reshape(-1) for i in sliced]),
+                           axis="dp")
         whole = list(leaves)
         off = 0
         for i in sliced:
@@ -181,9 +208,11 @@ class Zero1:
         state = self.tx.init(params)
         return AdamState(self.local(state.mu), self.local(state.nu), 0)
 
-    def update(self, grads: dict, state: AdamState, params: Optional[dict] = None):
-        """-> (whole updates, state' with this rank's slices)."""
-        updates, state = self.tx.adam_update(self.local(self.tx.clip(grads)), state)
+    def update(self, grads: dict, state: AdamState, params: Optional[dict] = None,
+               mesh=None):
+        """-> (whole updates, state' with this rank's slices); the clip
+        reads the mesh ZeRO-1 was made with."""
+        updates, state = self.tx.adam_update(self.local(self.tx.clip(grads, self.mesh)), state)
         return self.gather(updates), state
 
     def full_state(self, state: AdamState) -> AdamState:

@@ -14,15 +14,20 @@ checkpoints and early stop at loss <= 0.05 (agent_pretrain.py:594-632),
 ``save_on_interrupt`` and ``resume_from`` (in the port's checkpoint
 format).
 
-Runs on one device, or on each rank of a data-parallel mesh
+Runs on one device, or on each rank of a (dp, tp) mesh
 (``parallel/mesh.py``): every step takes ``dp_mesh``, with which the loss is
 the global masked CE and the gradients (with the loss values) are
-all-reduced (SUM) before clipping and Adam, so every rank clips the global
-gradient by its global norm, as under JAX's GSPMD.  ``pretrain(mesh=...)``
-adds ZeRO-1 (``PretrainConfig.zero1``, ``optim.zero1``).  Not ported yet,
-raising ``NotImplementedError``: a mesh with a tp or pp axis and the orbax
-checkpoint backend (ROADMAP Queue 1 items 9(b), 9(d), 9(e)).  The steps
-update ``params`` and the optimizer state in place and return them.
+all-reduced (SUM) over the dp group before clipping and Adam, so every rank
+clips the global gradient by its global norm, as under JAX's GSPMD.  Under
+tp the parameters are the rank's tp shards: a split leaf's gradient is its
+shard's, a whole leaf's is already equal on the tp ranks, and the clip's
+norm sums the shards' over the tp group (``optim.global_norm``).  The
+Longformer LM step has no tensor-parallel layer and takes dp only.
+``pretrain(mesh=...)`` adds ZeRO-1 (``PretrainConfig.zero1``,
+``optim.zero1``).  Not ported yet, raising ``NotImplementedError``: a mesh
+with a pp axis and the orbax checkpoint backend (ROADMAP Queue 1 items
+9(d), 9(e)).  The steps update ``params`` and the optimizer state in place
+and return them.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from ..models import linear_transformer as lt
 from ..models import longformer as lf
 from ..ops.losses import fields_cross_entropy
 from ..parallel.mesh import all_reduce_
-from ..parallel.sharding import shard_params
+from ..parallel.sharding import gather_params, shard_params, shard_tree
 from ..utils.checkpoint import full_opt_state, load_checkpoint, local_opt_state, save_checkpoint
 from ..utils.saver import MetricsBus, QuietSaver, Saver, loss_bucket_filename
 from . import optim
@@ -53,15 +58,16 @@ def _grads(params: dict, losses_fn: Callable, dp_mesh=None):
     """(grads tree, loss, per-field losses) of the mean of
     ``losses_fn(params)``; leaves the loss does not reach get zeros.  Under
     a dp mesh ``losses_fn`` gives this rank's share of the global losses:
-    the gradients and the losses are summed over the ranks (one all-reduce
-    a dtype), so every rank holds the global ones."""
+    the gradients and the losses are summed over the dp group (one
+    all-reduce a dtype), so every rank holds the global ones (under tp,
+    those of its shards)."""
     def loss_fn(p):
         losses = losses_fn(p)
         return losses.mean(), losses
     loss, losses, grads = optim.value_and_grad(loss_fn, params)
     loss, losses = loss.detach(), losses.detach()
     if dp_mesh is not None and dp_mesh.dp > 1:
-        all_reduce_(dp_mesh, optim.tree_leaves(grads) + [loss, losses])
+        all_reduce_(dp_mesh, optim.tree_leaves(grads) + [loss, losses], axis="dp")
     return grads, loss, losses
 
 
@@ -91,10 +97,11 @@ def agent_train_step(params: dict, opt_state: optim.AdamState, cfg: LinearTransf
                      tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator],
                      dp_mesh=None):
     """One CE pretrain step -> (params', opt_state', (loss, per-field)).
-    ``dp_mesh``: x, y, mask are this rank's rows of the global batch."""
+    ``dp_mesh``: x, y, mask are this rank's rows of the global batch, and
+    under tp ``params`` and ``opt_state`` the rank's shards."""
     grads, loss, losses = _grads(params, _agent_losses(cfg, x, y, mask, generator, dp_mesh),
                                  dp_mesh)
-    updates, opt_state = tx.update(grads, opt_state, params)
+    updates, opt_state = tx.update(grads, opt_state, params, mesh=dp_mesh)
     return optim.apply_updates(params, updates), opt_state, (loss, losses)
 
 
@@ -116,7 +123,7 @@ def longformer_lm_step(params: dict, opt_state: optim.AdamState, cfg: WindowTran
     opt_state', (loss, per-field))."""
     grads, loss, losses = _grads(
         params, _longformer_losses(cfg, x, y, mask, generator, dp_mesh), dp_mesh)
-    updates, opt_state = tx.update(grads, opt_state, params)
+    updates, opt_state = tx.update(grads, opt_state, params, mesh=dp_mesh)
     return optim.apply_updates(params, updates), opt_state, (loss, losses)
 
 
@@ -133,8 +140,11 @@ def longformer_grad_step(params: dict, cfg: WindowTransformerConfig, x, y, mask,
 _GRAD_STEPS = {agent_train_step: agent_grad_step, longformer_lm_step: longformer_grad_step}
 
 
-def apply_grads(params: dict, opt_state: optim.AdamState, tx: optim.Adam, grads: dict):
-    updates, opt_state = tx.update(grads, opt_state, params)
+def apply_grads(params: dict, opt_state: optim.AdamState, tx: optim.Adam, grads: dict,
+                mesh=None):
+    """The optimizer step on summed micro-gradients; ``mesh``: the steps'
+    mesh (the clip's norm)."""
+    updates, opt_state = tx.update(grads, opt_state, params, mesh=mesh)
     return optim.apply_updates(params, updates), opt_state
 
 
@@ -170,25 +180,35 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
     measurements).  A ``metrics`` bus that carries a ``Saver`` logs to that
     saver's ``log.txt``; otherwise the loop opens ``pcfg.exp_dir/log.txt``.
 
-    ``mesh`` (``parallel.make_mesh``, dp only; JAX's loop :201-387): every
-    rank runs this loop on its rows of each global batch of
-    ``pcfg.batch_size``, from rank 0's parameters, with a generator of its
-    own (seed ``pcfg.seed + 7919 * rank``); the steps make the loss and the
-    gradients global, so every rank holds the same parameters and history.
-    ``pcfg.zero1`` slices Adam's moments over the ranks (``optim.zero1``;
-    it needs dp > 1).  Only rank 0 logs and writes checkpoints, after the
-    ZeRO-1 moments are gathered; every rank reads ``resume_from``.  With
-    ``save_on_interrupt`` the interrupt flag is all-reduced (MAX) at every
-    batch, so all ranks stop at the same one."""
-    if mesh is not None and (mesh.shape.get("tp", 1) > 1 or "pp" in mesh.shape):
-        raise NotImplementedError("pretrain(mesh=...) with a tp or pp axis: tensor and "
-                                  "pipeline parallelism are not ported yet (ROADMAP Queue 1 "
-                                  "items 9(b) and 9(d))")
+    ``mesh`` (``parallel.make_mesh``; JAX's loop :201-387): every rank
+    runs this loop on its dp index's rows of each global batch of
+    ``pcfg.batch_size``, from rank 0's parameters (under tp, its shards of
+    them), with a generator of its own (seed ``pcfg.seed + 7919 *
+    dp_index``: the ranks of a tp group draw the same dropout masks); the
+    steps make the loss and the gradients global, so every rank holds the
+    same parameters (shards) and history.  ``pcfg.zero1`` slices Adam's
+    moments over the dp ranks (``optim.zero1``; it needs dp > 1).  Only rank
+    0 logs and writes checkpoints, of the whole tree (the ZeRO-1 moments
+    gathered over dp, the tp shards over tp), in the layout one process
+    writes; every rank reads ``resume_from``'s whole tree and keeps its
+    shards, so a run resumes at another tp.  Under tp the returned params
+    and state are the rank's shards (``parallel.gather_params`` puts them
+    back whole).  With ``save_on_interrupt`` the interrupt flag is
+    all-reduced (MAX) at every batch, so all ranks stop at the same one."""
+    if mesh is not None and "pp" in mesh.shape:
+        raise NotImplementedError("pretrain(mesh=...) with a pp axis: pipeline parallelism "
+                                  "is not ported yet (ROADMAP Queue 1 item 9(d))")
     if pcfg.ckpt_backend != "pickle":
         raise NotImplementedError(f"ckpt_backend={pcfg.ckpt_backend!r}: only the pickle "
                                   "format is ported (ROADMAP Queue 1 item 9(e))")
     dp = mesh.dp if mesh is not None else 1
+    tp = mesh.tp if mesh is not None else 1
     rank = mesh.rank if mesh is not None else 0
+    if tp > 1:
+        if step_fn is not agent_train_step:
+            raise NotImplementedError("pretrain(mesh=...) with tp > 1 takes the agent step: the "
+                                      "Longformer LM has no tensor-parallel layer")
+        lt.check_tp(cfg, tp)
     if pcfg.zero1 and dp <= 1:
         raise ValueError("PretrainConfig.zero1 needs a mesh with dp>1 (the optimizer state "
                          "shards over 'dp')")
@@ -205,7 +225,8 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
                              "longformer_lm_step): the steps hold the collectives")
         if mesh.device != device:
             raise ValueError(f"the mesh computes on {mesh.device}, params are on {device}")
-        shard_params(mesh, params)
+        n_whole = lt.n_params(params)
+        params = shard_params(mesh, params)
         step_fn = functools.partial(step_fn, dp_mesh=mesh)
         grad_step = functools.partial(grad_step, dp_mesh=mesh)
     # schedules count OPTIMIZER steps; milestones are epochs
@@ -223,33 +244,38 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
             raise NotImplementedError(f"{resume_from} is a directory (an orbax checkpoint): "
                                       "only the pickle format is ported (ROADMAP Queue 1 "
                                       "item 9(e))")
-        ck = load_checkpoint(resume_from, params_template=params,
-                             opt_state_template=optim.AdamState(params, params, 0),
+        whole = params if tp == 1 else gather_params(mesh, params)
+        ck = load_checkpoint(resume_from, params_template=whole,
+                             opt_state_template=optim.AdamState(whole, whole, 0),
                              device=device)
-        params = ck["params"]
+        del whole
+        params = ck["params"] if tp == 1 else shard_tree(mesh, ck["params"])
         if ck["opt_state"] is not None:
-            opt_state = local_opt_state(tx, ck["opt_state"])
+            opt_state = local_opt_state(tx, ck["opt_state"], mesh)
         start_epoch = int(ck["extra"].get("epoch", -1)) + 1
     if metrics is not None and metrics.saver is not None:
         saver = metrics.saver
     else:
         saver = Saver(pcfg.exp_dir) if rank == 0 else QuietSaver()
     bus = metrics or MetricsBus(saver)
-    saver.add_summary_msg(f" > params amount: {lt.n_params(params):,d}")
+    saver.add_summary_msg(f" > params amount: "
+                          f"{n_whole if mesh is not None else lt.n_params(params):,d}")
 
     def save(name: str, extra: dict) -> str:
-        """Every rank calls it (ZeRO-1 gathers the moments); rank 0 writes."""
+        """Every rank calls it (ZeRO-1 gathers the moments, tp the shards);
+        rank 0 writes the whole tree."""
         path = f"{pcfg.ckpt_dir}/{name}.ckpt"
-        state = full_opt_state(tx, opt_state)
+        state = full_opt_state(tx, opt_state, mesh)
+        whole = params if tp == 1 else gather_params(mesh, params)
         if rank == 0:
-            save_checkpoint(path, params, state, step=saver.global_step, extra=extra)
+            save_checkpoint(path, whole, state, step=saver.global_step, extra=extra)
         return path
 
     def interrupted() -> bool:
         flag = INTERRUPT.is_set()
         if mesh is not None:
             t = torch.tensor([float(flag)], device=device)
-            all_reduce_(mesh, [t], op="max")
+            all_reduce_(mesh, [t], op="max", axis="world")
             flag = bool(t.item())
         return flag
 
@@ -258,7 +284,7 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
         INTERRUPT.clear()
     num_batch = len(train_x) // pcfg.batch_size
     generator = torch.Generator(device=device)
-    generator.manual_seed(pcfg.seed + 7919 * rank)
+    generator.manual_seed(pcfg.seed + 7919 * (mesh.dp_index if mesh is not None else 0))
     grads_acc, micro = None, 0
     steps_done = 0
     history = []
@@ -284,7 +310,7 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
                     torch.add, grads_acc, grads)
                 micro += 1
                 if micro == accum:
-                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
                     grads_acc, micro = None, 0
             acc_loss = acc_loss + loss
             acc_losses = acc_losses + losses
@@ -293,14 +319,14 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
             steps_done += 1
             if pcfg.save_on_interrupt and interrupted():
                 if grads_acc is not None:
-                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
                 path = save("interrupt", {"epoch": epoch - 1, "interrupted": True})
                 saver.add_summary_msg(f" > interrupted: checkpoint saved to {path}")
                 return params, opt_state, history
             if max_steps is not None and steps_done >= max_steps:
                 # a pending partial window still applies (1/K-scaled)
                 if grads_acc is not None:
-                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+                    params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
                 return params, opt_state, history
 
         epoch_loss = float(acc_loss) / max(num_batch, 1)
@@ -312,11 +338,11 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
         bucket = loss_bucket_filename(epoch_loss)
         if bucket is None:
             if grads_acc is not None:           # pending partial accumulation window
-                params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+                params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
                 grads_acc = None
             save("trainloss_final", {"epoch": epoch, "loss": epoch_loss})
             return params, opt_state, history
         save(bucket, {"epoch": epoch, "loss": epoch_loss})
     if grads_acc is not None:
-        params, opt_state = apply_grads(params, opt_state, tx, grads_acc)
+        params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
     return params, opt_state, history

@@ -18,6 +18,10 @@ Reading goes through ``weights``' restricted unpickler: numpy arrays and
 plain containers only.  Under ZeRO-1 (``train/optim.py Zero1``) a
 checkpoint holds the whole moments: ``full_opt_state`` gathers them before
 a save, ``local_opt_state`` cuts a rank's slices out of a loaded state.
+Under tp the same two gather and cut the moments' tp shards, as
+``parallel.gather_params`` and ``parallel.sharding.shard_tree`` do the
+parameters': a checkpoint is always the whole tree, in the layout one
+process writes, so a run resumes from it at any tp.
 """
 
 from __future__ import annotations
@@ -70,16 +74,28 @@ def load_checkpoint(path: str, params_template: Any = None, opt_state_template: 
     return out
 
 
-def full_opt_state(tx, opt_state: Optional[AdamState]) -> Optional[AdamState]:
-    """The optimizer state to save: ZeRO-1's moments gathered whole (a
-    collective, so every rank calls it), any other state as it is."""
-    return tx.full_state(opt_state) if isinstance(tx, Zero1) and opt_state is not None \
-        else opt_state
+def full_opt_state(tx, opt_state: Optional[AdamState], mesh=None) -> Optional[AdamState]:
+    """The optimizer state to save: ZeRO-1's moments gathered over dp, and
+    under a tp ``mesh`` the moments' shards gathered over tp (collectives,
+    so every rank calls it); any other state as it is."""
+    if opt_state is None:
+        return None
+    if isinstance(tx, Zero1):
+        opt_state = tx.full_state(opt_state)
+    if mesh is not None and mesh.tp > 1:
+        from ..parallel.sharding import gather_params
+        opt_state = AdamState(gather_params(mesh, opt_state.mu), gather_params(mesh, opt_state.nu),
+                              opt_state.count)
+    return opt_state
 
 
-def local_opt_state(tx, opt_state: AdamState) -> AdamState:
-    """A loaded (whole) optimizer state as ``tx`` keeps it: this rank's
-    ZeRO-1 slices, any other state as it is."""
+def local_opt_state(tx, opt_state: AdamState, mesh=None) -> AdamState:
+    """A loaded (whole) optimizer state as ``tx`` keeps it on this rank:
+    under a tp ``mesh`` the moments' tp shards, then ZeRO-1's slices."""
+    if mesh is not None and mesh.tp > 1:
+        from ..parallel.sharding import shard_tree
+        opt_state = AdamState(shard_tree(mesh, opt_state.mu), shard_tree(mesh, opt_state.nu),
+                              opt_state.count)
     return tx.local_state(opt_state) if isinstance(tx, Zero1) else opt_state
 
 

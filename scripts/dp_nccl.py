@@ -1,17 +1,29 @@
 #!/usr/bin/env python3
-"""Data parallelism over NCCL, one card a rank, at agent_config's width:
-``chip_smoke.py``'s phases 34-35 (``dp_rank``, gated by
+"""Data and tensor parallelism over NCCL, one card a rank, at agent_config's
+width.  Needs a card a rank:
+
+    python3 scripts/dp_nccl.py            # dp: 2 ranks, and 4 where there are 4 cards
+    python3 scripts/dp_nccl.py --tp       # tp: tp = 2, and tp = 4 and dp = 2 x tp = 2
+                                          # where there are 4 cards
+
+dp: ``chip_smoke.py``'s phases 34-35 (``dp_rank``, gated by
 ``dp_gate_failures``) with rank r on card r, B=32 x S=512 global at 2 ranks
 and B=64 at 4 (8192 rows a rank, so C and D run on each), then
 ``apps/cli.py pretrain --dp`` (4 steps) and ``generate --dp`` (8 songs) on
-CUDA, which take NCCL.  Needs a card a rank:
+CUDA, which take NCCL.
 
-    python3 scripts/dp_nccl.py            # 2 ranks, and 4 where there are 4 cards
+tp: phases 36-37 (``tp_rank``, gated by ``tp_gate_failures``) with rank r
+on card r: tp = 2 at B=8 x S=512 on the plain and F routes (with the
+control) and 38's 8 greedy songs of 256 tokens against one process; tp = 4
+at B=8 on the F route; dp = 2 x tp = 2 at B=16 on the F route at f32 and
+bf16; then ``cli pretrain --tp 2`` (4 steps), ``cli pretrain --dp 2 --tp 2``
+and ``cli generate --tp 2`` (8 songs) on CUDA over NCCL.
 
-Builds the kernels first (``ops/_build.py``).  Prints the card's name and
+Builds the kernels first (``ops/_build.py``).  Prints the cards' name and
 power limit beside the readings; exits non-zero where a gate fails.
 """
 
+import argparse
 import math
 import os
 import subprocess
@@ -26,9 +38,34 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import chip_smoke  # noqa: E402
 
 
+def _cli_pretrain(cli, tmp, smi_line, flags):
+    res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64", "--batch-size", "32",
+                    "--seq-len", "512", "--max-steps", "4", *flags,
+                    "--exp-dir", os.path.join(tmp, "exp"), "--ckpt-dir", os.path.join(tmp, "c")])
+    losses = res["batch_losses"]
+    print(f"[nccl] cli pretrain {' '.join(flags)}: {res['steps']} steps in {res['seconds']:.3f}s, "
+          f"{res['tokens_per_s']:.1f} tokens/s, batch losses {losses} ({smi_line})", flush=True)
+    chip_smoke.check(res["steps"] == 4 and all(math.isfinite(x) for x in losses),
+                     f"cli pretrain {flags}: {res}")
+
+
+def _cli_generate(cli, tmp, smi_line, flags):
+    out = os.path.join(tmp, "g" + "".join(flags).replace("-", ""))
+    res = cli.main(["generate", "--songs", "8", "--bars", "8", *flags, "--warmup",
+                    "--out-dir", out])
+    print(f"[nccl] cli generate {' '.join(flags)}: {res['songs']} songs, {res['tokens']} tokens "
+          f"in {res['seconds']:.3f}s, {res['tokens_per_s']:.1f} tokens/s ({smi_line})", flush=True)
+    chip_smoke.check(res["songs"] == 8 and len(os.listdir(out)) == 8,
+                     f"cli generate {flags}: {res}")
+
+
 def main() -> None:
-    if torch.cuda.device_count() < 2:
-        chip_smoke.fail(f"{torch.cuda.device_count()} CUDA card(s): NCCL needs a card a rank")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tp", action="store_true", help="the tensor-parallel runs (else dp)")
+    args = ap.parse_args()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        chip_smoke.fail(f"{n_cards} CUDA card(s): NCCL needs a card a rank")
     from reinforcement_learning_in_music_generation_torch import config as C
     from reinforcement_learning_in_music_generation_torch.apps import cli
     from reinforcement_learning_in_music_generation_torch.data import tokenizer
@@ -42,25 +79,27 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t:.1f}s", flush=True)
     e2w, _ = tokenizer.drop_type(tokenizer.construct_cp_dict())
     cfg = C.agent_config(tuple(tokenizer.n_classes(e2w)))
-    runs = [(2, 32)] + ([(4, 64)] if torch.cuda.device_count() >= 4 else [])
+    if args.tp:
+        base = {"cfg": dict(vocab_sizes=cfg.vocab_sizes), "S": 512, "valid_tail": 100}
+        meshes = [dict(base, phase="36n", dp=1, tp=2, B=8, routes=("plain", "f"), control=True,
+                       songs=8, max_tokens=256)]
+        if n_cards >= 4:
+            meshes += [dict(base, phase="36n4", dp=1, tp=4, B=8, routes=("f",)),
+                       dict(base, phase="37n", dp=2, tp=2, B=16, routes=("f",), bf16=True)]
+        chip_smoke.tp_run(cfg, smi_line, backend="nccl", meshes=meshes)
+        with tempfile.TemporaryDirectory() as tmp:
+            _cli_pretrain(cli, tmp, smi_line, ["--tp", "2"])
+            if n_cards >= 4:
+                _cli_pretrain(cli, tmp, smi_line, ["--dp", "2", "--tp", "2"])
+            _cli_generate(cli, tmp, smi_line, ["--tp", "2"])
+        print("dp_nccl --tp: ok", flush=True)
+        return
+    runs = [(2, 32)] + ([(4, 64)] if n_cards >= 4 else [])
     for world, batch in runs:
         chip_smoke.dp_run(cfg, smi_line, world=world, backend="nccl", batch=batch)
     with tempfile.TemporaryDirectory() as tmp:
-        res = cli.main(["pretrain", "--synthetic", "--synthetic-songs", "64", "--batch-size", "32",
-                        "--seq-len", "512", "--max-steps", "4", "--dp", "2",
-                        "--exp-dir", os.path.join(tmp, "exp"), "--ckpt-dir", os.path.join(tmp, "c")])
-        losses = res["batch_losses"]
-        print(f"[dp] cli pretrain --dp 2 (NCCL): {res['steps']} steps in {res['seconds']:.3f}s, "
-              f"{res['tokens_per_s']:.1f} tokens/s, batch losses {losses} ({smi_line})", flush=True)
-        chip_smoke.check(res["steps"] == 4 and all(math.isfinite(x) for x in losses),
-                         f"cli pretrain --dp 2: {res}")
-        res = cli.main(["generate", "--songs", "8", "--bars", "8", "--dp", "2", "--warmup",
-                        "--out-dir", os.path.join(tmp, "g")])
-        print(f"[dp] cli generate --dp 2 (NCCL): {res['songs']} songs, {res['tokens']} tokens in "
-              f"{res['seconds']:.3f}s, {res['tokens_per_s']:.1f} tokens/s ({smi_line})",
-              flush=True)
-        chip_smoke.check(res["songs"] == 8 and len(os.listdir(os.path.join(tmp, "g"))) == 8,
-                         f"cli generate --dp 2: {res}")
+        _cli_pretrain(cli, tmp, smi_line, ["--dp", "2"])
+        _cli_generate(cli, tmp, smi_line, ["--dp", "2"])
     print("dp_nccl: ok", flush=True)
 
 

@@ -144,12 +144,13 @@ def test_dispatch_predicates(monkeypatch):
 
 
 def test_unported_paths_raise(golden_params, monkeypatch):
-    """A mesh with a tp axis still raises (dp meshes are ported:
-    tests/test_torch_parallel.py); the latency path and the parallel prompt
-    prefill, unported until the latency slice, now run."""
+    """A mesh whose tp does not divide the heads raises before any collective
+    (dp and tp meshes are ported: tests/test_torch_parallel.py,
+    tests/test_torch_tensor_parallel.py); the latency path and the parallel
+    prompt prefill, unported until the latency slice, now run."""
     gcfg = TC.GenerateConfig(batch_size=2, max_tokens=4, bar_production=10 ** 9)
-    tp_mesh = Mesh({"dp": 1, "tp": 2}, 0, torch.device("cpu"), "gloo")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    tp_mesh = Mesh({"dp": 1, "tp": 3}, 0, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="n_head"):
         tsam.generate_songs(golden_params, TCFG, gcfg, mesh=tp_mesh)
     songs = tsam.generate_songs(golden_params, TCFG, gcfg, init=[tsam.CP_SEED] * 16)
     assert [s.shape for s in songs] == [(20, 6)] * 2

@@ -1699,3 +1699,22 @@ def test_dp_step_and_generate_on_two_ranks_of_one_card(dev, monkeypatch):
             "bars": 8}
     res = pm.launch(chip_smoke.dp_rank, 2, (spec,), timeout_s=300)
     assert chip_smoke.dp_gate_failures(res, 2, VOCAB) == []
+
+
+@pytest.mark.gpu
+def test_tp_f_route_step_on_two_ranks_of_one_card(dev, monkeypatch):
+    """chip_smoke.py phase 36 at a small size (d_model 128, 2 layers, 4
+    heads, B 4 x S 128): dp = 1 x tp = 2, two gloo ranks on the one card,
+    each on its shards; the step under RLMG_ATTN_BACKEND=pallas ran kernel
+    F once a layer forward and backward on each rank's 2 heads, C, D and G
+    no time, and is within the step gates of the one-process step on the
+    same route, the losses equal on both ranks (``chip_smoke.tp_gate_failures``)."""
+    import os
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    spec = {"cfg": dict(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=128, n_layer=2,
+                        n_head=4, d_inner=256, max_len=512),
+            "dp": 1, "tp": 2, "B": 4, "S": 128, "valid_tail": 20, "routes": ("f",)}
+    res = pm.launch(chip_smoke.tp_rank, 2, (spec,), timeout_s=300)
+    assert chip_smoke.tp_gate_failures(res, 2, VOCAB, spec) == []

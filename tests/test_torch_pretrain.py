@@ -152,18 +152,19 @@ def test_unported_options_raise(monkeypatch, jparams, batch):
     torch.testing.assert_close(
         tlt.forward_hidden(tp, TC.LinearTransformerConfig(**KW, remat=True), _t(x)), plain,
         rtol=0, atol=0)
-    # data parallelism and ZeRO-1 are ported (tests/test_torch_parallel.py):
-    # a mesh with a tp axis and the orbax backend still raise, and ZeRO-1
+    # data and tensor parallelism and ZeRO-1 are ported
+    # (tests/test_torch_parallel.py, tests/test_torch_tensor_parallel.py): a
+    # mesh with a pp axis and the orbax backend still raise, and ZeRO-1
     # without a dp > 1 mesh raises JAX's ValueError
-    tp_mesh = Mesh({"dp": 1, "tp": 2}, 0, torch.device("cpu"), "gloo")
+    pp_mesh = Mesh({"dp": 1, "tp": 1, "pp": 2}, 0, torch.device("cpu"), "gloo")
     for pcfg, kw in ((TC.PretrainConfig(ckpt_backend="orbax"), {}),
-                     (TC.PretrainConfig(), {"mesh": tp_mesh})):
+                     (TC.PretrainConfig(), {"mesh": pp_mesh})):
         with pytest.raises(NotImplementedError):
             tpre.pretrain(tp, TCFG, x, y, m, pcfg, **kw)
     with pytest.raises(ValueError, match="dp>1"):
         tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(zero1=True))
-    with pytest.raises(NotImplementedError, match="--tp"):
-        tcli.main(["pretrain", "--device", "cpu", "--synthetic", "--tp", "2"])
+    with pytest.raises(NotImplementedError, match="--pp"):
+        tcli.main(["pretrain", "--device", "cpu", "--synthetic", "--pp", "2"])
 
 
 def test_losses_match_jax():

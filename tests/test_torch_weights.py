@@ -188,13 +188,15 @@ def test_write_midi_cp_bytes_match_jax(tmp_path):
 
 def test_port_imports_no_jax():
     """No module of the port (nor the GPU smoke test, nor the rank functions
-    that tests/test_torch_parallel.py spawns) imports jax or the JAX
-    package, at the top or inside a function."""
+    that tests/test_torch_parallel.py and tests/test_torch_tensor_parallel.py
+    spawn) imports jax or the JAX package, at the top or inside a
+    function."""
     import re
     root = os.path.join(os.path.dirname(__file__), "..")
     pat = re.compile(r"(import|from) +(jax|reinforcement_learning_in_music_generation_tpu)\b")
     files = [os.path.join(root, "chip_smoke.py"),
-             os.path.join(root, "tests", "torch_dp_workers.py")]
+             os.path.join(root, "tests", "torch_dp_workers.py"),
+             os.path.join(root, "tests", "torch_tp_workers.py")]
     pkg = os.path.join(root, "reinforcement_learning_in_music_generation_torch")
     for d, _, names in os.walk(pkg):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -202,7 +204,7 @@ def test_port_imports_no_jax():
     # the RL modules and kernels of the later slices are among those walked
     assert {"rl/ppo.py", "rl/dqn.py", "models/critic.py", "data/events.py",
             "ops/ffn_block.py", "ops/linear_attention_kernel.py",
-            "parallel/mesh.py", "parallel/sharding.py"} <= rel
+            "parallel/mesh.py", "parallel/sharding.py", "parallel/tensor.py"} <= rel
     for path in files:
         with open(path) as f:
             for i, line in enumerate(f, 1):
