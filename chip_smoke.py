@@ -310,6 +310,38 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      runs counted on both ranks; a stochastic run's 8 songs valid, the same
      list on both ranks, and no song of rank 0 a copy of one of rank 1;
      prints ms on the ranks and in one process.
+ 36-38. tensor parallelism (``tp_run``): the tp step at tp = 2 and dp = 2 x
+     tp = 2 against one process, kernel F on each rank's heads, a control;
+     greedy songs under tp.
+ 39. the RL steps on dp = 1 x tp = 2 (``rl_run`` -> ``rl_rank``, two gloo
+     ranks on card 0, RLMG_ATTN_BACKEND=pallas RLMG_WINDOW_BACKEND=pallas,
+     flagship width, dropout 0, lr 1e-4): one dqn.update on 30 x 50 (kernel
+     F's own runs 36 + 24 a rank on (30, 4, 50, 64)), one AIRL disc_step on
+     100 x 50 (the dense band: E none) and on 4 x 2048 (E 30 + 30 a rank on
+     (4, 4, 2048, 64)), each within the loss and gradient gates of the same
+     step in one process; one DQN rollout song (50 episodes, eager under tp,
+     F 600 runs a rank on (1, 4, 50, 64)) whose actions equal one
+     process's, a difference passing only at a near-tie (one process's
+     top-2 margin under 1e-3, printed); the ranks' parameters bit-equal;
+ 40. dp = 2 x tp = 2, four ranks: a PPO rollout song (actions equal one
+     process's, values, rewards and log-probs within 1e-4 of their
+     magnitude) and one update_policy_step on its transitions split over
+     dp, the DQN update and the discriminator step, against one process;
+     control (i), each rank's own MSE mean summed over dp, must end outside
+     the gates; the dp ranks' actor, critic, agent and discriminator
+     parameters bit-equal;
+ 40b. dp = 2 x tp = 1, two ranks, under RLMG_FFN_BACKEND=pallas as well: a
+     DQN rollout song and a PPO rollout song, each graphed on every rank
+     (one capture, then a replay an episode), the DQN update and one
+     update_policy_step on each dp rank's rows, against one process;
+     kernels F and G counted on every rank (G at tp = 1 only), the ranks'
+     parameters bit-equal;
+ 41. ``cli dqn-train --tp 2`` and ``cli ppo-train --dp 2 --tp 2`` (4 layers)
+     on gloo ranks sharing card 0, through ``apps/cli.py``'s rank entry:
+     finite metrics, two DQN updates, the ranks' parameters and generator
+     equal, the checkpoints whole, F run on every rank; ms per rollout song
+     and update beside one process's with the same flags; prints the three
+     phases' time.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -2852,6 +2884,582 @@ def tp_run(cfg, smi_line, *, backend: str = "gloo", meshes=None) -> dict:
     return found
 
 
+# -- the RL commands on the (dp, tp) mesh: phases 39-41 ------------------------
+# the slice's routes: kernel F in every agent, actor and critic layer; kernel
+# E in the Longformer's layers wherever the JAX dispatch takes the banded
+# kernel (S > 1024 and S > 2 x window: the discriminator on 4 x 2048, not
+# on the commands' 50-token states, which take the dense band)
+RL_ROUTES = {"RLMG_ATTN_BACKEND": "pallas", "RLMG_WINDOW_BACKEND": "pallas"}
+# the mesh's step against one process: the loss and every gradient within
+# check_step's limits; the parameters and Adam updates are printed, not
+# gated.  The card's disc_long reading (NVIDIA H100 80GB HBM3, 700 W): the
+# gradients 7.753e-05 of their leaf's magnitude, inside the gate, the
+# parameters 1.910e-04 and the updates 1.938e-03, above check_step's 1e-4
+# and 1e-3.  Adam's first step moves an element by u = lr g / (|g| + eps),
+# so its error is about lr eps |dg| / (|g| + eps)^2: where |g| is near eps
+# (step_errors reads every element above 1e-3 of its leaf's largest |g|,
+# and a leaf's gradients can be small) the gradient's rounding is amplified
+# in u.  The updates' worst leaf was /pos_emb (printed since); which of its
+# elements moved was not read.
+RL_STEP_GATES = {k: STEP_GATES[k] for k in ("loss", "grads")}
+# leaves whose gradient is 0 in exact arithmetic (the softmax removes the key
+# bias, the train-mode BatchNorm the first score layer's bias): both sides
+# hold rounding noise there, printed and left out of the step gates
+RL_ZERO_GRADS = ("/layers/wk/b", "/score/l1/b")
+RL_RUNS = "(F fwd, F bwd, E fwd, E bwd, G fwd, G bwd)"
+
+
+def rl_runs(cuda: bool, reset: bool = False) -> list:
+    """``RL_RUNS`` on this process: F's and G's forwards and F's backward as
+    the kernels count their runs on the card (graph replays included), E's
+    and G's backward as their wrappers count their launches (eager on these
+    paths); ``reset`` zeroes them after the read."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        ffn_block as tfb, linear_attention_kernel as tlk, window_attention_kernel as twk)
+    band, g = twk.window_attention_band, tfb.ffn_block
+    out = [*(tlk.kernel_runs(reset) if cuda else (0, 0)), band.launches_fwd,
+           band.launches_bwd, tfb.ffn_kernel_runs(reset) if cuda else 0, g.launches_bwd]
+    if reset:
+        band.launches_fwd = band.launches_bwd = g.launches_bwd = 0
+    return out
+
+
+def rl_rank(spec: dict) -> dict:
+    """Phases 39-40 on one rank of a (dp, tp) mesh of ``spec["dp"]`` x
+    ``spec["tp"]`` ranks (``rl_run`` spawns them: over gloo every rank on
+    card 0; over nccl, ``spec["backend"]``, rank r on card r), at the
+    flagship width (``spec["n_layer"]``, default 12; the discriminator and
+    reward model 2 fewer) under ``RL_ROUTES``, dropout 0, lr 1e-4 (so that
+    one Adam step shows at the parameter gate).  ``spec["steps"]`` names
+    what runs: "dqn" (one dqn.update on a batch of 30 x 50), "control" (the
+    same with each rank's own MSE mean summed over dp: control (i)), "disc"
+    (one AIRL disc_step on 100 x 50, the rows whole on every rank), "disc_long"
+    (the same on 4 x 2048, where kernel E runs), "rollout" (one DQN rollout
+    song, 50 episodes, eager under tp), "ppo" (one PPO rollout song of 30
+    episodes, then one update_policy_step on its transitions split over dp).
+    ``spec["ffn"] = "pallas"`` adds RLMG_FFN_BACKEND=pallas (kernel G, at
+    tp = 1 only).  Each on the rank's rows and tp shards; rank 0 also runs it in one
+    process and holds the mesh's readings against it (``step_errors``).
+    Every rank digests its gathered parameters, so that the dp ranks can be
+    held bit-equal.  ``spec["device"] = "cpu"`` rehearses on the kernels'
+    plain versions."""
+    import torch.distributed as dist
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.data import dataset
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.models import longformer as lf
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.parallel import sharding as psh
+    from reinforcement_learning_in_music_generation_torch.rl import airl, dqn, env, ppo
+    from reinforcement_learning_in_music_generation_torch.train import optim as topt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for k in ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_WINDOW_BACKEND", "RLMG_FFN_MIN_ROWS"):
+        os.environ.pop(k, None)
+    os.environ.update(RL_ROUTES)
+    if spec.get("ffn"):
+        os.environ["RLMG_FFN_BACKEND"] = spec["ffn"]
+    dp, tp = spec["dp"], spec["tp"]
+    world = dp * tp
+    if spec.get("backend", "gloo") == "nccl":
+        mesh = pm.make_mesh(dp, tp)
+        dev = mesh.device
+    else:
+        dev = torch.device(spec.get("device", "cuda:0"))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = pm.make_mesh(dp, tp, devices=[dev] * world, backend="gloo")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rank = mesh.rank
+    out = {"rank": rank, "dp_index": mesh.dp_index, "tp_index": mesh.tp_index, "steps": {}}
+    clone = lambda tree: topt.tree_map(torch.clone, tree)
+    n_layer = spec.get("n_layer", 12)
+
+    def mine(tree, step_mesh):
+        """A copy of a whole tree, or this rank's tp shards of it."""
+        return clone(tree) if step_mesh is None else psh.shard_params(step_mesh, clone(tree))
+
+    def readings(loss, losses, prm, st, tx, step_mesh, zero=()):
+        """(``step_errors``' readings, the zero leaves' largest |g|, the whole
+        parameters' digest) of one step: the gradients from Adam's first
+        moment ((1 - b1) g after one step from zeros) and the update
+        recomputed from them; trees gathered under a mesh."""
+        g = topt.tree_map(lambda m_: m_ / (1.0 - tx.b1), st.mu)
+        u, _ = tx.update(g, tx.init(g))
+        if step_mesh is not None:
+            prm, g, u = (psh.gather_params(step_mesh, t_) for t_ in (prm, g, u))
+        p_, g_, u_ = named_leaves(prm), named_leaves(g), named_leaves(u)
+        noise = max((g_[k].abs().max().item() for k in zero if k in g_), default=0.0)
+        keep = lambda t_: {k: v for k, v in t_.items() if k not in zero}
+        return ([loss, losses, keep(p_), keep(g_), keep(u_)], noise,
+                tree_digest(topt.tree_leaves(prm)))
+
+    def timed(fn, *a):
+        rl_runs(cuda, reset=True)
+        sync()
+        t = time.perf_counter()
+        res = fn(*a)
+        sync()
+        return res, (time.perf_counter() - t) * 1e3, rl_runs(cuda)
+
+    def held(name, fn):
+        """``fn(mesh)`` on every rank, then ``fn(None)`` in one process on
+        rank 0: the mesh's step against one process's."""
+        got, ms, counted = timed(fn, mesh)
+        step = {"runs": counted, "ms": ms, "loss": got[0][0], "noise": got[1],
+                "digests": pm.all_gather_object(mesh, got[2], axis="world")}
+        dist.barrier()
+        if rank == 0:
+            one, ms1, _ = timed(fn, None)
+            step.update(ms_single=ms1, loss_single=one[0][0], noise_single=one[1],
+                        errors=step_errors(got[0], one[0]))
+            if name.startswith("disc"):
+                # the same step again in this process: the leaves whose
+                # parameters after it are not bit-equal to the first run's
+                again = fn(None)[0][2]
+                step["repeat_differs"] = [k for k, v in one[0][2].items()
+                                          if not torch.equal(v, again[k])]
+                del again
+            del one
+        del got
+        dist.barrier()
+        out["steps"][name] = step
+
+    vocab = (56, 135, 18, 87, 18, 25)                # dqn-train's six fields
+    qcfg = C.agent_config(vocab, n_layer=n_layer, dropout=0.0)
+    dqcfg = C.DQNConfig(lr=1e-4)
+    b_q, s_q, n_act = 30, dqcfg.n_states, dqcfg.n_actions
+    xs, ys, ms_ = (torch.from_numpy(a).to(dev) for a in
+                   dataset.synthetic_cp_dataset(b_q, 512, n_class=vocab, seed=0))
+    g0 = torch.Generator(device=dev)
+    g0.manual_seed(1)
+    st_rows = xs[:, 100:100 + s_q].int().contiguous()
+    qbatch = {"state": st_rows, "action": ys[:, 200:200 + n_act].int(),
+              "reward": torch.rand((b_q, 1), generator=g0, device=dev),
+              "next_state": torch.cat([st_rows[:, :n_act], ys[:, 200:200 + n_act].int()], 1),
+              "done": torch.zeros((b_q, 1), dtype=torch.int32, device=dev)}
+    qebatch = {"state": ys[:, :s_q].int(), "next_state": ys[:, s_q:2 * s_q].int(),
+               "mask_next_state": ms_[:, 1:s_q + 1].float()}
+    q0 = lt.init_params(qcfg, seed=0, device=dev)
+
+    def dqn_step(step_mesh, rank_local=False):
+        st = dqn.init_state(qcfg, dqcfg, mine(q0, step_mesh))
+        tx = dqn.make_optimizer(dqcfg)
+        keep = dqn.batch_mean
+        if rank_local:
+            dqn.batch_mean = lambda x, mesh_=None: torch.mean(x)
+        try:
+            # the whole batches: the update keeps the rank's dp rows
+            st, m = dqn.update(st, qcfg, dqcfg, tx, qbatch, qebatch, None, step_mesh)
+        finally:
+            dqn.batch_mean = keep
+        return readings(float(m["total"]), torch.stack([m["mse"], m["ce"]]).cpu(),
+                        st.eval_params, st.opt_state, tx, step_mesh)
+
+    wcfg = C.airl_discriminator_config(vocab, n_layer=max(1, n_layer - 2), dropout=0.0)
+    acfg = C.AIRLConfig(lr=1e-4)
+    w0 = lf.init_params(wcfg, seed=1, device=dev)
+
+    def disc_step(b, s, seed):
+        e_, a_ = (torch.from_numpy(dataset.synthetic_cp_dataset(b, s, n_class=vocab,
+                                                                seed=seed + i)[0]).to(dev).int()
+                  for i in range(2))
+        m_ = torch.ones((b, s), device=dev)
+        m_[b // 2:, s - s // 10:] = 0.0
+
+        def fn(step_mesh):
+            prm = mine(w0, step_mesh)
+            tx = airl.make_optimizer(acfg)
+            st = airl.AIRLState(prm, lf.init_state(wcfg, device=dev), tx.init(prm))
+            st, m = airl.disc_step(st, wcfg, tx, e_, m_, a_, None, step_mesh)
+            return readings(float(m["global_loss"]), torch.stack(
+                [m[k] for k in ("expert_loss", "agent_loss", "ce_loss")]).cpu(), st.params,
+                st.opt_state, tx, step_mesh, RL_ZERO_GRADS)
+        return fn
+
+    def margins(logits_fn, state, pos, field, cfg_):
+        """The top-2 (ids, margin) of one action field's logits at one of
+        the last n_actions positions, teacher-forced on ``state``."""
+        lg = logits_fn(state)[0, -n_act + pos]
+        off = int(sum(cfg_.vocab_sizes[:field]))
+        top = torch.topk(lg[off:off + cfg_.vocab_sizes[field]].float(), 2)
+        return top.indices.tolist(), float(top.values[0] - top.values[1])
+
+    def first_apart(acts, ref, ref_states, prm, whole, cfg_, logits):
+        """The first (episode, position, field) where ``acts`` part from one
+        process's ``ref``, with both sides' top-2 margins there (the mesh's
+        a collective of the rank's tp group, whose ranks hold the same
+        actions)."""
+        diff = np.argwhere(acts != ref)
+        if not len(diff):
+            return None
+        ep, pos, f = (int(v) for v in diff[0])
+        state = torch.as_tensor(ref_states[ep:ep + 1], device=dev)
+        return {"at": (ep, pos, f),
+                "margins": (margins(lambda s_: logits(prm, s_, mesh), state, pos, f, cfg_),
+                            margins(lambda s_: logits(whole, s_, None), state, pos, f, cfg_))}
+
+    def agent_logits(prm, s_, m_):
+        return lt.head_logits(prm, qcfg, lt.forward_hidden(prm, qcfg, s_, dp_mesh=m_), m_)
+
+    steps = spec["steps"]
+    if "dqn" in steps:
+        held("dqn", dqn_step)
+    if "control" in steps:
+        held("control", lambda m_: dqn_step(m_, rank_local=m_ is not None))
+    if "disc" in steps:
+        held("disc", disc_step(acfg.batch_size, s_q, 5))
+    if "disc_long" in steps:
+        held("disc_long", disc_step(4, 2048, 7))
+    if "rollout" in steps:
+        prm = mine(q0, mesh)
+        song = (xs[0], ys[0], ms_[0])
+        (a_t, _), ms, counted = timed(lambda: env.dqn_rollout_song(prm, qcfg, *song, mesh=mesh))
+        acts = a_t["action"].cpu().numpy()
+        single = None
+        dist.barrier()
+        if rank == 0:
+            (a_o, _), ms1, _ = timed(lambda: env.dqn_rollout_song(clone(q0), qcfg, *song))
+            single = (a_o["action"].cpu().numpy(), a_o["state"].cpu().numpy(), ms1)
+        ref, ref_states, ms1 = pm.all_gather_object(mesh, single, axis="world")[0]
+        out["steps"]["rollout"] = {
+            "runs": counted, "ms": ms, "ms_single": ms1, "episodes": int(acts.shape[0]),
+            "actions_equal": bool((acts == ref).all()),
+            "apart": first_apart(acts, ref, ref_states, prm, q0, qcfg, agent_logits)}
+        del prm
+    if "ppo" in steps:
+        pvocab = (49, 19, 19, 89, 67, 25)
+        pcfgs = (C.actor_config(pvocab, n_layer=n_layer, dropout=0.0),
+                 C.critic_config(pvocab, n_layer=n_layer, dropout=0.0),
+                 C.ppo_reward_config(pvocab, n_layer=max(1, n_layer - 2), dropout=0.0))
+        pcfg = C.PPOConfig(lr=1e-4)
+        p0 = ppo.init_state(*pcfgs, pcfg, seed=0, device=dev)
+        song = tuple(torch.from_numpy(a[0]).to(dev) for a in
+                     dataset.synthetic_cp_dataset(1, 512, n_class=pvocab, seed=4))
+
+        def fresh(step_mesh):
+            trees = [mine(t_, step_mesh) for t_ in p0[:3]]
+            txs = ppo.make_optimizers(pcfg)
+            return ppo.PPOState(*trees, txs[0].init(trees[0]), txs[1].init(trees[1])), txs
+
+        def actor_logits(prm, s_, m_):
+            return lt.head_logits(prm, pcfgs[0],
+                                  lt.forward_hidden(prm, pcfgs[0], s_, dp_mesh=m_), m_)
+
+        def step(state, txs, a_t, e_t, step_mesh):
+            ret = ppo.calculate_returns(a_t["reward"][:, 0], pcfg.discount)
+            adv = ppo.calculate_advantages(ret, a_t["value"])
+            a_s, e_s, adv_s, ret_s = (a_t, e_t, adv, ret) if step_mesh is None else \
+                pm.shard_batch(step_mesh, (a_t, e_t, adv, ret))
+            state, m = ppo.update_policy_step(state, pcfgs, pcfg, txs, a_s, e_s, adv_s, ret_s,
+                                              step_mesh)
+            pl = torch.stack([m["policy_loss"]]).cpu()
+            return (readings(float(m["actor_loss"]), pl, state.actor_params, state.actor_opt,
+                             txs[0], step_mesh),
+                    readings(float(m["value_loss"]), pl, state.critic_params,
+                             state.critic_opt, txs[1], step_mesh))
+
+        state, txs = fresh(mesh)
+        (a_t, e_t), ms_roll, roll_runs = timed(
+            lambda: ppo.rollout_song(state, pcfgs, *song, mesh=mesh))
+        single = None
+        dist.barrier()
+        if rank == 0:
+            st1, _ = fresh(None)
+            (a_o, _), ms1, _ = timed(lambda: ppo.rollout_song(st1, pcfgs, *song))
+            single = ({k: a_o[k].cpu().numpy() for k in ("action", "value", "reward",
+                                                         "log_action", "state")}, ms1)
+            del st1
+        ref, ms_roll1 = pm.all_gather_object(mesh, single, axis="world")[0]
+        got = {k: a_t[k].cpu().numpy() for k in ("action", "value", "reward", "log_action")}
+        roll = {"runs": roll_runs, "ms": ms_roll, "ms_single": ms_roll1,
+                "actions_equal": bool((got["action"] == ref["action"]).all()),
+                "apart": first_apart(got["action"], ref["action"], ref["state"],
+                                     state.actor_params, p0.actor_params, pcfgs[0],
+                                     actor_logits),
+                **{f"{k}_share": float(np.abs(got[k] - ref[k]).max() /
+                                       max(np.abs(ref[k]).max(), 1e-30))
+                   for k in ("value", "reward", "log_action")}}
+        (r_a, r_c), ms_upd, upd_runs = timed(step, state, txs, a_t, e_t, mesh)
+        rows = pm.shard_rows(mesh, pcfg.episodes)
+        upd = {"runs": upd_runs, "ms": ms_upd, "rows": rows.stop - rows.start,
+               "loss": (r_a[0][0], r_c[0][0]),
+               "digests": pm.all_gather_object(mesh, (r_a[2], r_c[2]), axis="world")}
+        dist.barrier()
+        if rank == 0:
+            st1, txs1 = fresh(None)
+            (o_a, o_c), ms1, _ = timed(step, st1, txs1, a_t, e_t, None)
+            upd.update(ms_single=ms1, loss_single=(o_a[0][0], o_c[0][0]),
+                       errors=(step_errors(r_a[0], o_a[0]), step_errors(r_c[0], o_c[0])))
+            del st1, o_a, o_c
+        dist.barrier()
+        out["steps"]["ppo_rollout"], out["steps"]["ppo"] = roll, upd
+    return out
+
+
+def rl_gate_failures(res: list, spec: dict) -> list:
+    """Phases 39-40's gates over every rank's ``rl_rank`` readings; the
+    failures, each a line ([] when every gate holds)."""
+    fails = []
+    L = spec.get("n_layer", 12)
+    Lw = max(1, L - 2)
+    r0 = res[0]["steps"]
+    # RL_RUNS on each rank: three agent forwards and two backwards an update
+    # (eval, target, CE); a rollout episode one forward; the discriminator
+    # at 4 x 2048 takes E in each layer of its three forwards (the expert's
+    # and the agent's scores, the token CE) and their backwards; at 50
+    # tokens the dense band; a PPO episode an actor and a critic forward, an
+    # update two actor forwards and one critic forward, each with its
+    # backward.  Under spec["ffn"] = "pallas" G runs wherever F does (the
+    # agent's, actor's and critic's layers), else nowhere
+    f = {"dqn": [3 * L, 2 * L], "control": [3 * L, 2 * L], "disc": [0, 0], "disc_long": [0, 0],
+         "rollout": [50 * L, 0], "ppo_rollout": [30 * 2 * L, 0], "ppo": [3 * L, 3 * L]}
+    e = {k: [3 * Lw, 3 * Lw] if k == "disc_long" else [0, 0] for k in f}
+    want = {k: f[k] + e[k] + (f[k] if spec.get("ffn") == "pallas" else [0, 0]) for k in f}
+    for name in r0:
+        for r in res:
+            if r["steps"][name]["runs"] != want[name]:
+                fails.append(f"rank {r['rank']} {name}: runs {RL_RUNS} "
+                             f"{r['steps'][name]['runs']}, expected {want[name]}")
+    for name in ("dqn", "disc", "disc_long"):
+        if name in r0:
+            bad = step_gate_failures(r0[name]["errors"], RL_STEP_GATES)
+            if bad:
+                fails.append(f"{name}: the mesh's step against one process: {bad}")
+            if len(set(r0[name]["digests"])) != 1:
+                fails.append(f"{name}: the ranks' parameters differ after the step")
+            losses = {r["steps"][name]["loss"] for r in res}
+            if len(losses) != 1 or not all(math.isfinite(v) for v in losses):
+                fails.append(f"{name}: losses on the ranks {sorted(losses)}")
+    if "control" in r0 and not step_gate_failures(r0["control"]["errors"], RL_STEP_GATES):
+        fails.append("control (i), each rank's own MSE mean, passes the step gate")
+    for name in ("rollout", "ppo_rollout"):
+        for r in res if name in r0 else ():
+            s = r["steps"][name]
+            if s["apart"] is not None:
+                # an argmax flip is legitimate only at a near-tie: one
+                # process's top-2 margin there under 1e-3
+                margin = s["apart"]["margins"][1][1]
+                if not margin < 1e-3:
+                    fails.append(f"rank {r['rank']} {name}: actions part from one process's "
+                                 f"at {s['apart']['at']} with one process's top-2 margin "
+                                 f"{margin:.3e}")
+            elif not s["actions_equal"]:
+                fails.append(f"rank {r['rank']} {name}: actions differ from one process's")
+    if "ppo_rollout" in r0:
+        s = r0["ppo_rollout"]
+        for k in ("value", "reward", "log_action"):
+            if s["apart"] is None and not s[f"{k}_share"] <= 1e-4:
+                fails.append(f"ppo rollout: {k} {s[f'{k}_share']:.3e} of its magnitude from "
+                             "one process's")
+    if "ppo" in r0:
+        for tag, e in zip(("actor", "critic"), r0["ppo"]["errors"]):
+            bad = step_gate_failures(e, RL_STEP_GATES)
+            if bad:
+                fails.append(f"ppo {tag}: the mesh's step against one process: {bad}")
+        if len(set(r0["ppo"]["digests"])) != 1:
+            fails.append("ppo: the ranks' actor or critic parameters differ after the step")
+    return fails
+
+
+def tree_digest(leaves) -> str:
+    """SHA-1 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha1()
+    for leaf in leaves:
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rl_cli_rank(argv: list, world: int, device=None) -> dict:
+    """One rank of an RL command on a mesh of ``world`` ranks: over gloo with
+    every rank on ``device`` (phase 41), or with ``device`` None over the
+    process group's NCCL, rank r on card r (scripts/dp_nccl.py --rl).  The
+    command runs on the rank's mesh as ``apps/cli.py``'s rank entry runs it
+    (rank 0 alone prints); then every rank's digest of each whole tree the
+    command ends with and of its generator, in rank order (collectives),
+    and this rank's ``rl_runs``."""
+    import contextlib
+    from reinforcement_learning_in_music_generation_torch.apps import cli
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.parallel import sharding as psh
+    from reinforcement_learning_in_music_generation_torch.train import optim as topt
+    os.environ.update(RL_ROUTES)
+    args = cli.build_parser().parse_args(argv)
+    if device is None:
+        mesh = pm.make_mesh(args.dp, args.tp)
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = pm.make_mesh(args.dp, args.tp, devices=[dev] * world, backend="gloo")
+    cuda = mesh.device.type == "cuda"
+    rl_runs(cuda, reset=True)
+    with open(os.devnull, "w") as null, \
+            contextlib.redirect_stdout(sys.stdout if mesh.rank == 0 else null):
+        res = args.fn(args, mesh=mesh)
+    runs = rl_runs(cuda)
+    leaves = {k: [v.get_state()] if isinstance(v, torch.Generator) else
+              topt.tree_leaves(psh.gather_params(mesh, v)) for k, v in res.pop("final").items()}
+    res["digests"] = {k: pm.all_gather_object(mesh, tree_digest(v), axis="world")
+                      for k, v in leaves.items()}
+    return {"res": res, "runs": runs}
+
+
+RL_CLI = {"dqn-train": ["--synthetic", "--synthetic-songs", "4", "--seq-len", "512",
+                        "--layers", "4", "--batch-size", "30", "--buffer-size", "100",
+                        "--songs", "4", "--max-updates", "2", "--ckpt-epoch-gate", "0",
+                        "--disc-epochs", "1"],
+          "ppo-train": ["--synthetic", "--synthetic-songs", "2", "--seq-len", "512",
+                        "--layers", "4", "--songs", "2", "--ppo-steps", "2"]}
+
+
+def rl_cli_run(smi_line, meshes, device="cuda:0") -> dict:
+    """Phase 41: ``cli dqn-train`` and ``cli ppo-train`` on gloo meshes on
+    ``device`` (``meshes``: {command: (dp, tp)}), and each in one process
+    with the same flags; the checkpoints loaded whole."""
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.apps import cli
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.utils.checkpoint import load_checkpoint
+    found = {}
+    keep = {k: os.environ.get(k) for k in RL_ROUTES}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cmd, (dp, tp) in meshes.items():
+            d = lambda *p: os.path.join(tmp, cmd, *p)
+            argv = [cmd, *RL_CLI[cmd], "--device", device]
+            flags = ["--dp", str(dp), "--tp", str(tp)]
+            t = time.perf_counter()
+            res = pm.launch(rl_cli_rank, dp * tp, (argv + flags + [
+                "--exp-dir", d("mesh", "e"), "--ckpt-dir", d("mesh", "c")], dp * tp, device),
+                backend="gloo", timeout_s=600)
+            wall = time.perf_counter() - t
+            os.environ.update(RL_ROUTES)
+            try:
+                one = cli.main(argv + ["--exp-dir", d("one", "e"), "--ckpt-dir", d("one", "c")])
+                del one["final"]
+            finally:
+                for k, v in keep.items():
+                    os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+            r0 = res[0]["res"]
+            cfg = (C.agent_config(n_layer=4) if cmd == "dqn-train" else
+                   C.actor_config(n_layer=4))
+            names = ("dqn_best.ckpt", "dqn_last.ckpt") if cmd == "dqn-train" else ("ppo_best.ckpt",)
+            shapes = {}
+            for name in names:
+                ck = load_checkpoint(d("mesh", "c", name),
+                                     params_template=lt.init_params(cfg, device="cpu"),
+                                     device="cpu")
+                shapes[name] = tuple(ck["params"]["layers"]["ffn1"]["w"].shape)
+            med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")
+            found[cmd] = {"res": r0, "one": one, "runs": [r["runs"] for r in res],
+                          "wall_s": wall, "shapes": shapes,
+                          "whole": (cfg.n_layer, cfg.d_model, cfg.d_inner)}
+            print(f"[rl] 41: cli {cmd} {' '.join(flags)} over gloo on one card ({smi_line}): "
+                  f"{wall:.1f}s with the ranks' start; ms per rollout song {r0['rollout_ms']} "
+                  f"(median {med(r0['rollout_ms']):.1f}; one process {med(one['rollout_ms']):.1f},"
+                  f" graphed), ms per update {r0['update_ms']} (one process {one['update_ms']}); "
+                  f"metrics {r0['metrics']}; runs {RL_RUNS} a rank "
+                  f"{found[cmd]['runs']}; checkpoints' ffn1 {shapes}; digests {r0['digests']}",
+                  flush=True)
+    return found
+
+
+def rl_cli_gate_failures(found: dict) -> list:
+    """Phase 41's gates: finite metrics, dqn-train's two updates, every
+    rank's parameters (and dqn-train's generator) equal, whole checkpoints,
+    kernel F run on every rank."""
+    fails = []
+    for cmd, f in found.items():
+        r0 = f["res"]
+        if not r0["metrics"] or not all(math.isfinite(v) for m_ in r0["metrics"]
+                                        for v in m_.values()):
+            fails.append(f"cli {cmd}: no metrics, or one not finite: {r0['metrics']}")
+        if cmd == "dqn-train" and r0["updates"] != 2:
+            fails.append(f"cli dqn-train: {r0['updates']} updates, expected 2")
+        for k, v in r0["digests"].items():
+            if len(set(v)) != 1:
+                fails.append(f"cli {cmd}: the ranks' {k} digests differ")
+        if any(s != f["whole"] for s in f["shapes"].values()):
+            fails.append(f"cli {cmd}: a checkpoint is not the whole tree: {f['shapes']}")
+        if any(r[0] == 0 for r in f["runs"]):
+            fails.append(f"cli {cmd}: kernel F ran no time on a rank: {f['runs']}")
+    return fails
+
+
+def rl_run(cfg, smi_line, *, backend: str = "gloo", meshes=None, n_layer: int = 12,
+           cli_meshes=None) -> dict:
+    """Phases 39-41: the (dp, tp) meshes of ``rl_rank``, over gloo all on
+    card 0 (39: dp = 1 x tp = 2, the DQN update, the discriminator step at
+    100 x 50 and 4 x 2048, a DQN rollout song; 40: dp = 2 x tp = 2, the PPO
+    rollout song and update step, the DQN update with control (i) and the
+    discriminator step; 40b: dp = 2 x tp = 1 under RLMG_FFN_BACKEND=pallas
+    too, the graphed DQN and PPO rollouts, the DQN update and the PPO
+    step), or over nccl a card each (scripts/dp_nccl.py --rl); then (41, gloo only) the two RL commands on a mesh through the
+    CLI.  Prints the readings, fails on the gates, returns each phase's
+    rank-0 readings and every rank's kernel runs."""
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    if meshes is None:
+        meshes = [dict(phase=39, dp=1, tp=2, steps=("dqn", "disc", "disc_long", "rollout")),
+                  dict(phase=40, dp=2, tp=2, steps=("ppo", "dqn", "control", "disc")),
+                  dict(phase="40b", dp=2, tp=1, ffn="pallas", steps=("rollout", "dqn", "ppo"))]
+    cards = "all on card 0" if backend == "gloo" else "a card each"
+    found = {}
+    t_all = time.perf_counter()
+    for spec in meshes:
+        spec = dict(spec, backend=backend, n_layer=n_layer)
+        world = spec["dp"] * spec["tp"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()        # the ranks are processes of their own
+        t = time.perf_counter()
+        res = pm.launch(rl_rank, world, (spec,), backend=backend, timeout_s=900)
+        wall = time.perf_counter() - t
+        r0 = res[0]["steps"]
+        tag = (f"[rl] {spec['phase']}: dp={spec['dp']} x tp={spec['tp']} over {backend}, {cards}"
+               + (f", RLMG_FFN_BACKEND={spec['ffn']}" if spec.get("ffn") else ""))
+        print(f"{tag} ({smi_line}): {wall:.1f}s with the ranks' start", flush=True)
+        for name, s in r0.items():
+            e = s.get("errors")
+            errs = "" if e is None else "; against one process: " + (
+                "; ".join(f"{t_} loss {e_['loss']:.2e}, gradients {e_['grads'][0]:.3e} "
+                          f"({e_['grads'][1]}), params {e_['params'][0]:.3e}, updates "
+                          f"{e_['updates'][0]:.3e} ({e_['updates'][1]})"
+                          for t_, e_ in zip(("actor", "critic"), e))
+                if isinstance(e, tuple) else
+                f"loss {e['loss']:.2e}, gradients {e['grads'][0]:.3e} ({e['grads'][1]}), "
+                f"params {e['params'][0]:.3e}, updates {e['updates'][0]:.3e} "
+                f"({e['updates'][1]})")
+            print(f"{tag} {name}: runs {RL_RUNS} a rank "
+                  f"{[r['steps'][name]['runs'] for r in res]}; ms on the ranks "
+                  f"{[round(r['steps'][name]['ms'], 1) for r in res]}, one process "
+                  f"{s.get('ms_single', float('nan')):.1f}"
+                  + (f"; loss {s['loss']} one process {s.get('loss_single')}" if "loss" in s
+                     else "") + errs
+                  + (f"; zero-gradient leaves' largest |g| {s['noise']:.3e} (one process "
+                     f"{s.get('noise_single', float('nan')):.3e})" if "noise" in s else "")
+                  + (f"; actions equal {s['actions_equal']}, first apart {s['apart']}"
+                     if "actions_equal" in s else "")
+                  + (f"; rows a rank {s['rows']}" if "rows" in s else "")
+                  + (f"; leaves not bit-equal when one process repeats the step "
+                     f"{s['repeat_differs']}" if "repeat_differs" in s else "")
+                  + ("; parameters bit-equal on the ranks" if "digests" in s and len(
+                      set(s["digests"])) == 1 else ""), flush=True)
+        fails = rl_gate_failures(res, spec)
+        check(not fails, f"rl over {backend}, phase {spec['phase']}: " + "; ".join(fails))
+        found[spec["phase"]] = {"steps": r0, "runs": {name: [r["steps"][name]["runs"]
+                                                             for r in res] for name in r0}}
+    if backend == "gloo":
+        cli_found = rl_cli_run(smi_line, cli_meshes or {"dqn-train": (1, 2),
+                                                        "ppo-train": (2, 2)})
+        fails = rl_cli_gate_failures(cli_found)
+        check(not fails, "rl, phase 41: " + "; ".join(fails))
+        found[41] = {"runs": {cmd: f["runs"] for cmd, f in cli_found.items()}}
+    print(f"[time] phases 39-41: {time.perf_counter() - t_all:.1f}s ({smi_line})", flush=True)
+    return found
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -4326,12 +4934,20 @@ def main() -> None:
     serve = serving_slice(cfg, params, dev)                 # phases 31-33
     dp_run(cfg, smi_line)                                    # phases 34-35
     tp_found = tp_run(cfg, smi_line)                         # phases 36-38
+    rl_found = rl_run(cfg, smi_line)                         # phases 39-41
 
     def tp_f_launches(dtype):
         """F's (fwd, bwd) wrapper launches on each rank of the tp steps of
         phases 36-37 on its route, by phase."""
         return {f"phase{ph}": [r[f"f_{dtype}"]["tp"]["counts"][6:8] for r in v["res"]]
                 for ph, v in tp_found.items() if f"f_{dtype}" in v["res"][0]}
+
+    def rl_launches(k):
+        """(fwd, bwd) runs of F (k = 0), E (k = 2) or G (k = 4) on each rank
+        of phases 39-41's steps, by phase and step (F and E on its rank's
+        n_head / tp heads; G at tp = 1, phase 40b)."""
+        return {f"phase{ph}": {name: [r[k:k + 2] for r in rs] for name, rs in v["runs"].items()}
+                for ph, v in rl_found.items()}
 
     # -- 30. times at the main paths' shapes -------------------------------
     st = dk4.init_state(cfg, 5, device=dev)
@@ -4764,7 +5380,7 @@ def main() -> None:
          "fma_bound_ms_fwd": e_fma_f, "fma_bound_ms_bwd": e_fma_b,
          "library_ms": e_lf + e_lb, "library_ms_fwd": e_lf, "library_ms_bwd": e_lb,
          "max_share_of_magnitude": e_share, "bf16_rounding_control_share": e_ctl,
-         "hmma": e_mma},
+         "hmma": e_mma, "launches_rl_mesh": rl_launches(2)},
         # F at a DQN update's shape; no single PyTorch call computes causal
         # linear attention (scaled_dot_product_attention is softmax attention);
         # bound at the rate of its six bf16 products a product (989/6 TFLOP/s),
@@ -4785,6 +5401,7 @@ def main() -> None:
          "library_ms": None, "dqn_shape": f_t["dqn"], "rollout_shape": f_t["rollout"],
          "pretrain_shape": f_t["pretrain"], "launches_pretrain": sum(launches["F_pretrain"]),
          "launches_tp": tp_f_launches("float32"),
+         "launches_rl_mesh": rl_launches(0),
          "dqn_rollout_song": {k: {kk: vv for kk, vv in v.items() if "window" not in kk}
                               | {"busy_graphed": v["window_graphed"]["busy"],
                                  "busy_eager": v["window_eager"]["busy"],
@@ -4840,6 +5457,7 @@ def main() -> None:
             for tag in ("update", "rollout", "pretrain")},
          "launches_pretrain": sum(launches["G_pretrain"]),
          "eager_calls_fwd": launches["G_eager"][0],
+         "launches_rl_mesh": {ph: v for ph, v in rl_launches(4).items() if ph == "phase40b"},
          "ppo_rollout_song": {k: {kk: vv for kk, vv in v.items() if "window" not in kk}
                               | {"busy_graphed": v["window_graphed"]["busy"],
                                  "busy_eager": v["window_eager"]["busy"],

@@ -33,9 +33,12 @@ Run them as
         --songs 24 --continuous-batch 8 --bars 8
     python -m reinforcement_learning_in_music_generation_torch.apps.cli serve --requests r.jsonl
 
-``pretrain --dp N --tp M`` and ``generate --dp N --tp M`` run N x M ranks on
-a (dp, tp) mesh (``parallel/mesh.py``): each dp index takes 1/N of every
-batch (of the songs), each tp rank of it 1/M of the Megatron-split weights.
+``pretrain``, ``generate``, ``dqn-train`` and ``ppo-train`` with ``--dp N
+--tp M`` run N x M ranks on a (dp, tp) mesh (``parallel/mesh.py``): each dp
+index takes 1/N of every batch (of the songs; the RL commands' update
+batches), each tp rank of it 1/M of the Megatron-split weights.  The RL
+commands' rollouts, their AIRL passes and their generator are the same on
+every rank.
 The command starts the ranks itself, one process each: with ``--device
 cpu`` over gloo on the CPU, on CUDA over NCCL with a card a rank; started
 by ``torchrun --nproc_per_node N*M``, each process joins torchrun's group
@@ -76,10 +79,12 @@ from ..models import linear_transformer as lt
 from ..models import longformer as lf
 from ..ops import sampling as smp
 from ..parallel import mesh as pmesh
+from ..parallel.sharding import gather_params, shard_params
 from ..rl import airl, buffers, dqn, env, ppo
+from ..train import optim
 from ..train import pretrain as pretrain_lib
 from ..utils import plotting
-from ..utils.checkpoint import save_checkpoint
+from ..utils.checkpoint import full_opt_state, save_checkpoint
 from ..utils.metrics import RuntimeStats
 from ..utils.saver import MetricsBus, QuietSaver, Saver
 from ..weights import _ParamsUnpickler, load_jax_checkpoint
@@ -115,23 +120,24 @@ def _run_ranks(args):
 
 def _rank_main(args):
     """One rank of ``_run_ranks``: its mesh, then the command; ranks other
-    than 0 print nothing."""
+    than 0 print nothing.  The RL commands' "final" (the rank's trees)
+    stays on the rank."""
     mesh = pmesh.make_mesh(dp=args.dp, tp=args.tp)
     if mesh.rank == 0:
-        return args.fn(args, mesh=mesh)
-    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-        return args.fn(args, mesh=mesh)
+        res = args.fn(args, mesh=mesh)
+    else:
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            res = args.fn(args, mesh=mesh)
+    res.pop("final", None)
+    return res
 
 
-def _parallel_flags(args, ported: tuple = ()) -> None:
-    """Raise for the mesh flags > 1 that are not ported (ROADMAP Queue 1
-    item 9): pp (9(d)), dp and tp outside ``ported``' commands (the RL
-    commands, 9(b2))."""
-    items = {"dp": "9(b2)", "tp": "9(b2)", "pp": "9(d)"}
-    for flag, item in items.items():
-        if flag not in ported and getattr(args, flag, 1) > 1:
-            raise NotImplementedError(f"--{flag} > 1: this parallelism is not ported yet "
-                                      f"(ROADMAP Queue 1 item {item})")
+def _parallel_flags(args) -> None:
+    """Raise for --pp > 1: the pipeline is not ported (ROADMAP Queue 1 item
+    9(d))."""
+    if getattr(args, "pp", 1) > 1:
+        raise NotImplementedError("--pp > 1: this parallelism is not ported yet "
+                                  "(ROADMAP Queue 1 item 9(d))")
 
 
 def _prompt_rows(path: str) -> np.ndarray:
@@ -153,7 +159,7 @@ def cmd_generate(args, mesh=None) -> dict:
         raise SystemExit(
             "--continuous does not combine with --prompt/--greedy/--dp/--tp yet (the serving "
             "loop is stochastic, unconditional, single-device); drop --continuous or those flags")
-    _parallel_flags(args, ported=("dp", "tp"))
+    _parallel_flags(args)
     if (args.dp > 1 or args.tp > 1) and mesh is None:
         return _run_ranks(args)
     e2w, w2e = tokenizer.drop_type(tokenizer.construct_cp_dict())
@@ -368,7 +374,7 @@ def cmd_pretrain(args, mesh=None) -> dict:
     ``_run_pretrain``'s numbers.  ``--dp N``: N dp indices (``_run_ranks``),
     each on its 1/N of every ``--batch-size`` batch; ``--tp M``: M ranks a
     dp index, each holding its 1/M of the Megatron-split weights."""
-    _parallel_flags(args, ported=("dp", "tp"))
+    _parallel_flags(args)
     if (args.dp > 1 or args.tp > 1) and mesh is None:
         return _run_ranks(args)
     vocab = (tuple(int(v) for v in args.vocab.split(",")) if args.vocab
@@ -455,7 +461,15 @@ def _plot_dqn(exp_dir: str, mse_hist, ce_hist, total_hist, agent_scores, expert_
                         ylabel="Mean discriminator score")
 
 
-def cmd_dqn_train(args) -> dict:
+def _whole(mesh, params: dict, tx=None, opt_state=None):
+    """(params, optimizer state) as a checkpoint holds them: whole trees,
+    the tp shards gathered (collectives: every rank calls it)."""
+    if mesh is None:
+        return params, opt_state
+    return gather_params(mesh, params), full_opt_state(tx, opt_state, mesh)
+
+
+def cmd_dqn_train(args, mesh=None) -> dict:
     """DQN + AIRL fine-tune (dqn_policy/IRL_dqn_train.py:386-498): per song,
     a 50-episode rollout into the agent and expert buffers; once the agent
     buffer has wrapped, an AIRL pass (discriminator training on the first
@@ -464,8 +478,21 @@ def cmd_dqn_train(args) -> dict:
     ``--ckpt-epoch-gate`` on, ``dqn_best.ckpt`` and ``agent_info.pickle``.
     Returns {"updates", "metrics" (one dict of floats per update),
     "rollout_ms" (per song), "update_ms" and "airl_ms" (per update), each
-    timed to a device synchronisation}."""
+    timed to a device synchronisation; "final": the eval and discriminator
+    trees and the generator at the end, the rank's own, which
+    ``_run_ranks`` does not carry back}.
+
+    ``--dp N --tp M`` (``_run_ranks``; JAX cli.py:299-351): the eval and
+    target nets, their Adam moments and the discriminator are each rank's
+    tp shards; the rollouts and the AIRL pass (on the whole buffers) are
+    the same on every rank; one generator seeded ``cfg.seed`` on every rank
+    draws the discriminator's dropout, both buffer samples and the update's
+    dropout, in one order, and the update splits its batches over dp
+    (``dqn.update``).  Rank 0 logs, plots and writes whole trees; the
+    metrics are the global ones, the times rank 0's."""
     _parallel_flags(args)
+    if (args.dp > 1 or args.tp > 1) and mesh is None:
+        return _run_ranks(args)
     vocab = (56, 135, 18, 87, 18, 25)
     mcfg = C.agent_config(vocab, n_layer=args.layers)
     wcfg = C.airl_discriminator_config(vocab, n_layer=max(1, args.layers - 2))
@@ -475,7 +502,8 @@ def cmd_dqn_train(args) -> dict:
     acfg = C.AIRLConfig(batch_size=min(100, args.buffer_size), epochs=args.disc_epochs,
                         lr_step=args.disc_lr_step, lr=args.disc_lr,
                         score_batch_size=min(args.score_batch_size, args.buffer_size))
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
+    rank0 = mesh is None or mesh.rank == 0
     x, y, mask = (torch.from_numpy(a).to(device) for a in _load_pretrain_data(args, vocab))
 
     pretrain_params = None
@@ -486,14 +514,23 @@ def cmd_dqn_train(args) -> dict:
     tx = dqn.make_optimizer(cfg)
     rstate = airl.init_state(wcfg, acfg, seed=cfg.seed + 1, device=device)
     rtx = airl.make_optimizer(acfg)
+    if mesh is not None:
+        eval_params = shard_params(mesh, state.eval_params)
+        state = dqn.DQNState(eval_params, optim.tree_map(torch.clone, eval_params),
+                             tx.init(eval_params), state.target_count)
+        disc = shard_params(mesh, rstate.params)
+        rstate = airl.AIRLState(disc, rstate.bn_state, rtx.init(disc))
     agent_buf = buffers.buffer_init(cfg.buffer_size, buffers.agent_field_specs(
         cfg.n_states, cfg.n_actions, cfg.n_features), device)
     expert_buf = buffers.buffer_init(cfg.buffer_size, buffers.expert_field_specs(
         cfg.n_states, cfg.n_actions, cfg.n_features), device)
+    # one stream on every rank: offset by the dp index, the ranks would
+    # train the discriminator on other masks and sample other batches
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
 
-    bus = MetricsBus(Saver(args.exp_dir), use_wandb=args.wandb)
+    bus = MetricsBus(Saver(args.exp_dir) if rank0 else QuietSaver(),
+                     use_wandb=args.wandb and rank0)
     mse_hist, ce_hist, total_hist = [], [], []
     agent_score_hist, expert_score_hist = [], []
     times = {"rollout_ms": [], "update_ms": [], "airl_ms": []}
@@ -504,17 +541,19 @@ def cmd_dqn_train(args) -> dict:
         t0 = time.perf_counter()
         agent_ts, expert_ts = env.dqn_rollout_song(
             state.eval_params, mcfg, x[song], y[song], mask[song], episodes=cfg.episodes,
-            n_states=cfg.n_states, n_actions=cfg.n_actions)
+            n_states=cfg.n_states, n_actions=cfg.n_actions, mesh=mesh)
         agent_buf = buffers.buffer_store_batch(agent_buf, agent_ts)
         expert_buf = buffers.buffer_store_batch(expert_buf, expert_ts)
         _sync(device)
         t1 = time.perf_counter()
         times["rollout_ms"].append((t1 - t0) * 1e3)
 
+        # the same decision on every rank: the rollouts are the same
         if agent_buf.counter > cfg.buffer_size:
             rstate, agent_r, expert_r, _ = airl.update_disc(
                 rstate, wcfg, acfg, rtx, buffers.buffer_get(agent_buf),
-                buffers.buffer_get(expert_buf), gen, train=(updates == 0 or args.retrain_disc))
+                buffers.buffer_get(expert_buf), gen, train=(updates == 0 or args.retrain_disc),
+                mesh=mesh)
             # the discriminator's mean expert and agent buffer scores
             # (the learning-effect curves of AIRL.py:194-226)
             agent_score_hist.append(float(agent_r.mean()))
@@ -524,10 +563,11 @@ def cmd_dqn_train(args) -> dict:
             agent_buf = agent_buf._replace(data={**agent_buf.data, "reward": agent_r})
             batch = buffers.buffer_sample(agent_buf, gen, cfg.batch_size)
             ebatch = buffers.buffer_sample(expert_buf, gen, cfg.batch_size)
+            rewards = batch["reward"]                       # the whole batch's
             state, metrics = dqn.update(
                 state, mcfg, cfg, tx, batch,
                 {"state": ebatch["state"], "next_state": ebatch["next_state"],
-                 "mask_next_state": ebatch["mask_next_state"]}, gen)
+                 "mask_next_state": ebatch["mask_next_state"]}, gen, mesh)
             metrics = {k: float(v) for k, v in metrics.items()}
             times["update_ms"].append((time.perf_counter() - t2) * 1e3)
             updates += 1
@@ -542,36 +582,42 @@ def cmd_dqn_train(args) -> dict:
                   f"| D(expert) {expert_score_hist[-1]:.3f}")
             if epoch >= cfg.ckpt_epoch_gate:
                 ckpt_path = os.path.join(args.ckpt_dir, "dqn_best.ckpt")
-                save_checkpoint(ckpt_path, state.eval_params, state.opt_state, epoch)
-                bus.save_file(ckpt_path)          # IRL_dqn_train.py:370 wandb.save
-                # the training record (IRL_dqn_train.py:380-383): 'Agent' = the
-                # last update batch's rewards, and the three loss histories under
-                # the reference's keys (with its literal ' global_loss')
-                record = {"Agent": batch["reward"].cpu().numpy(), "first_loss": mse_hist,
-                          "sec_loss": ce_hist, " global_loss": total_hist}
-                with open(os.path.join(args.ckpt_dir, "agent_info.pickle"), "wb") as f:
-                    pickle.dump(record, f)
-                _plot_dqn(args.exp_dir, mse_hist, ce_hist, total_hist, agent_score_hist,
-                          expert_score_hist)
+                params_w, opt_w = _whole(mesh, state.eval_params, tx, state.opt_state)
+                if rank0:
+                    save_checkpoint(ckpt_path, params_w, opt_w, epoch)
+                    bus.save_file(ckpt_path)          # IRL_dqn_train.py:370 wandb.save
+                    # the training record (IRL_dqn_train.py:380-383): 'Agent' = the
+                    # last update batch's rewards, and the three loss histories under
+                    # the reference's keys (with its literal ' global_loss')
+                    record = {"Agent": rewards.cpu().numpy(), "first_loss": mse_hist,
+                              "sec_loss": ce_hist, " global_loss": total_hist}
+                    with open(os.path.join(args.ckpt_dir, "agent_info.pickle"), "wb") as f:
+                        pickle.dump(record, f)
+                    _plot_dqn(args.exp_dir, mse_hist, ce_hist, total_hist, agent_score_hist,
+                              expert_score_hist)
         else:
             print(f"Epoch {epoch}/{cfg.num_songs} | buffer "
                   f"{agent_buf.counter}/{cfg.buffer_size}")
         if args.max_updates and updates >= args.max_updates:
             break
-    save_checkpoint(os.path.join(args.ckpt_dir, "dqn_last.ckpt"), state.eval_params,
-                    state.opt_state, cfg.num_songs)
-    if updates:
-        _plot_dqn(args.exp_dir, mse_hist, ce_hist, total_hist, agent_score_hist,
-                  expert_score_hist)
+    params_w, opt_w = _whole(mesh, state.eval_params, tx, state.opt_state)
+    if rank0:
+        save_checkpoint(os.path.join(args.ckpt_dir, "dqn_last.ckpt"), params_w, opt_w,
+                        cfg.num_songs)
+        if updates:
+            _plot_dqn(args.exp_dir, mse_hist, ce_hist, total_hist, agent_score_hist,
+                      expert_score_hist)
     bus.saver.close()
     mean = lambda v: sum(v) / len(v) if v else float("nan")
-    print(f"done: {updates} updates on {device}; {mean(times['rollout_ms']):.1f} ms per "
+    ranks = "" if mesh is None else f", {mesh.dp} x {mesh.tp} ranks (dp x tp)"
+    print(f"done: {updates} updates on {device}{ranks}; {mean(times['rollout_ms']):.1f} ms per "
           f"rollout song ({cfg.episodes} episodes), {mean(times['update_ms']):.1f} ms per DQN "
           f"update, {mean(times['airl_ms']):.1f} ms per AIRL pass")
     history = [{**{"mse": a, "ce": b, "total": c}, "agent_score": d, "expert_score": e}
                for a, b, c, d, e in zip(mse_hist, ce_hist, total_hist, agent_score_hist,
                                         expert_score_hist)]
-    return {"updates": updates, "metrics": history, **times}
+    return {"updates": updates, "metrics": history, **times,
+            "final": {"eval": state.eval_params, "disc": rstate.params, "generator": gen}}
 
 
 def _depth(params: Optional[dict]) -> Optional[int]:
@@ -579,7 +625,7 @@ def _depth(params: Optional[dict]) -> Optional[int]:
     return None if params is None else int(params["layers"]["wq"]["w"].shape[0])
 
 
-def cmd_ppo_train(args) -> dict:
+def cmd_ppo_train(args, mesh=None) -> dict:
     """PPO fine-tune (ppo_policy/ppo_train.py:419-528): per song, a rollout
     of ``--episodes`` episodes (actor action, critic value, learned reward),
     returns and advantages, then ``--ppo-steps`` clipped-surrogate updates of
@@ -589,10 +635,21 @@ def cmd_ppo_train(args) -> dict:
     a model read from one keeps the checkpoint's depth, as the JAX package's
     layer scan does.  Returns {"songs", "metrics" (one dict of floats per
     song, with "mean_reward"), "rollout_ms" and "update_ms" (per song, each
-    timed to a device synchronisation)}."""
+    timed to a device synchronisation); "final": the three trees at the end,
+    as ``cmd_dqn_train``'s}.
+
+    ``--dp N --tp M`` (``_run_ranks``; JAX cli.py:452-484): the actor, the
+    critic, the reward model and the two optimizers' moments are each
+    rank's tp shards; the rollout is the same on every rank, returns and
+    advantages are computed on the whole rollout, then the transitions and
+    both are split over dp.  Rank 0 logs, plots and writes the whole actor;
+    the metrics are the global ones, the times rank 0's."""
     _parallel_flags(args)
+    if (args.dp > 1 or args.tp > 1) and mesh is None:
+        return _run_ranks(args)
     vocab = (49, 19, 19, 89, 67, 25)
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
+    rank0 = mesh is None or mesh.rank == 0
     actor_params = reward_params = None
     if args.pretrain_actor:
         actor_params = load_jax_checkpoint(args.pretrain_actor, device=device)
@@ -611,8 +668,14 @@ def cmd_ppo_train(args) -> dict:
                            reward_params=reward_params, seed=cfg.seed, device=device)
     txs = ppo.make_optimizers(cfg)
     cfgs = (acfg, ccfg, rcfg)
+    if mesh is not None:
+        actor, critic = shard_params(mesh, state.actor_params), shard_params(mesh,
+                                                                             state.critic_params)
+        state = ppo.PPOState(actor, critic, shard_params(mesh, state.reward_params),
+                             txs[0].init(actor), txs[1].init(critic))
 
-    bus = MetricsBus(Saver(args.exp_dir), use_wandb=args.wandb)
+    bus = MetricsBus(Saver(args.exp_dir) if rank0 else QuietSaver(),
+                     use_wandb=args.wandb and rank0)
     history, reward_hist = [], []
     times = {"rollout_ms": [], "update_ms": []}
     reward_png = os.path.join(args.exp_dir, "ppo_reward.png")
@@ -622,17 +685,20 @@ def cmd_ppo_train(args) -> dict:
         t0 = time.perf_counter()
         agent_ts, expert_ts = ppo.rollout_song(state, cfgs, x[song], y[song], mask[song],
                                                episodes=cfg.episodes, n_states=cfg.n_states,
-                                               n_actions=cfg.n_actions)
+                                               n_actions=cfg.n_actions, mesh=mesh)
         returns = ppo.calculate_returns(agent_ts["reward"][:, 0], cfg.discount,
                                         compat_forward=cfg.compat_forward_returns)
         adv = ppo.calculate_advantages(returns, agent_ts["value"])
         # the learned reward model's mean score of the rollout: the learning
         # curve (ppo_train.py:516-527)
         mean_reward = agent_ts["reward"].mean()
+        if mesh is not None:
+            agent_ts, expert_ts, adv, returns = pmesh.shard_batch(
+                mesh, (agent_ts, expert_ts, adv, returns))
         _sync(device)
         t1 = time.perf_counter()
         state, metrics = ppo.update_policy(state, cfgs, cfg, txs, agent_ts, expert_ts, adv,
-                                           returns)
+                                           returns, mesh)
         # one host read per song: the metrics and the mean reward together
         vals = torch.stack([*metrics.values(), mean_reward]).tolist()
         times["rollout_ms"].append((t1 - t0) * 1e3)
@@ -644,19 +710,24 @@ def cmd_ppo_train(args) -> dict:
         print(f"Epoch {epoch}/{cfg.num_songs} | actor {metrics['actor_loss']:.4f} | critic "
               f"{metrics['value_loss']:.4f} | reward {metrics['mean_reward']:.4f}")
         if epoch % 5 == 0:
-            save_checkpoint(os.path.join(args.ckpt_dir, "ppo_best.ckpt"), state.actor_params,
-                            None, epoch)
-            plotting.curve_plot({"mean reward": reward_hist}, reward_png,
-                                ylabel="Learned reward (rollout mean)")
-    if reward_hist:
+            actor_w, _ = _whole(mesh, state.actor_params)
+            if rank0:
+                save_checkpoint(os.path.join(args.ckpt_dir, "ppo_best.ckpt"), actor_w, None,
+                                epoch)
+                plotting.curve_plot({"mean reward": reward_hist}, reward_png,
+                                    ylabel="Learned reward (rollout mean)")
+    if reward_hist and rank0:
         plotting.curve_plot({"mean reward": reward_hist}, reward_png,
                             ylabel="Learned reward (rollout mean)")
     bus.saver.close()
     mean = lambda v: sum(v) / len(v) if v else float("nan")
-    print(f"done: {cfg.num_songs} songs on {device}; {mean(times['rollout_ms']):.1f} ms per "
-          f"rollout song ({cfg.episodes} episodes), {mean(times['update_ms']):.1f} ms per "
+    ranks = "" if mesh is None else f", {mesh.dp} x {mesh.tp} ranks (dp x tp)"
+    print(f"done: {cfg.num_songs} songs on {device}{ranks}; {mean(times['rollout_ms']):.1f} ms "
+          f"per rollout song ({cfg.episodes} episodes), {mean(times['update_ms']):.1f} ms per "
           f"update_policy ({cfg.ppo_steps} steps)")
-    return {"songs": cfg.num_songs, "metrics": history, **times}
+    return {"songs": cfg.num_songs, "metrics": history, **times,
+            "final": {"actor": state.actor_params, "critic": state.critic_params,
+                      "reward": state.reward_params}}
 
 
 def cmd_inference(args) -> dict:
@@ -889,8 +960,14 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--score-batch-size", type=int, default=100,
                    help="buffer re-scoring batch; it sets the reward values, not only the "
                         "speed (train-mode BatchNorm with per-batch statistics)")
-    d.add_argument("--dp", type=int, default=1, help="not ported yet (> 1 raises)")
-    d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks, one process each, started here (gloo with "
+                        "--device cpu, else NCCL with a card a rank); each takes 1/dp of every "
+                        "DQN update batch; the rollouts and AIRL passes run on every rank")
+    d.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks a dp index (Megatron: each holds 1/tp of the "
+                        "agent's and the discriminator's heads, FFN, embeddings and output "
+                        "heads); dp x tp processes in all, started as for --dp")
     d.set_defaults(fn=cmd_dqn_train)
 
     d = sub.add_parser(
@@ -908,8 +985,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="actor params of a my-pretrain checkpoint (JAX or port)")
     d.add_argument("--pretrain-reward", default=None,
                    help="reward-model params of a my-pretrain --reward-pretrain checkpoint")
-    d.add_argument("--dp", type=int, default=1, help="not ported yet (> 1 raises)")
-    d.add_argument("--tp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks, one process each, started here (gloo with "
+                        "--device cpu, else NCCL with a card a rank); each takes 1/dp of every "
+                        "rollout's transitions in the updates; the rollouts run on every rank")
+    d.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks a dp index (Megatron: each holds 1/tp of the "
+                        "actor's, critic's and reward model's heads, FFN, embeddings and "
+                        "output heads); dp x tp processes in all, started as for --dp")
     d.add_argument("--compat-forward-returns", action="store_true",
                    help="the reference's forward-order reward discounting "
                         "(ppo_train.py:348-357)")

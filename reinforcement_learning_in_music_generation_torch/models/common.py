@@ -98,19 +98,27 @@ def sinusoidal_table(max_len: int, d_model: int, dtype=torch.float32,
 
 
 def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
-            deterministic: bool, shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+            deterministic: bool, shard: Tuple[int, int] = (0, 1),
+            rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Inverted dropout, keep probability 1 - rate (JAX ``cm.dropout``).  No
     generator means no dropout.  The mask is drawn from ``generator`` (on
     x's device), so it differs from the JAX package's draw for the same
     seed.  ``shard`` = (i, n): x is the i-th of n column shards of a
-    tensor; the whole tensor's mask is drawn and x keeps its columns, so
-    the draw is the one-process draw."""
+    tensor; ``rows`` = (j, m): x is the j-th of m blocks of a batch on its
+    leading axis (a dp rank's rows).  The whole tensor's mask is drawn and
+    x keeps its columns and rows, so the draw is the one-process draw."""
     if deterministic or rate <= 0.0 or generator is None:
         return x
     i, n = shard
-    k = x.shape[-1]
-    keep = torch.rand(x.shape[:-1] + (k * n,), generator=generator, device=x.device)
-    keep = keep[..., i * k:(i + 1) * k] < 1.0 - rate
+    j, m = rows
+    lead, k = x.shape[:-1], x.shape[-1]
+    if m > 1:
+        lead = (lead[0] * m,) + lead[1:]
+    keep = torch.rand(lead + (k * n,), generator=generator, device=x.device)
+    keep = keep[..., i * k:(i + 1) * k]
+    if m > 1:
+        keep = keep[j * x.shape[0]:(j + 1) * x.shape[0]]
+    keep = keep < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -34,11 +34,14 @@ def init_params(cfg: LinearTransformerConfig, *, seed: int = 0,
 
 def value_produce(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, *,
                   deterministic: bool = True, generator: Optional[torch.Generator] = None,
-                  attn_backend: Optional[str] = None) -> torch.Tensor:
-    """x (B, S, n_fields) -> value (B,) (ppo_policy/model.py:345-394)."""
+                  attn_backend: Optional[str] = None, dp_mesh=None) -> torch.Tensor:
+    """x (B, S, n_fields) -> value (B,) (ppo_policy/model.py:345-394).
+    ``dp_mesh``: x is this rank's rows, and under tp the trunk's leaves the
+    rank's shards (``lt.forward_hidden``); the value heads are whole and
+    read the reduced, replicated logits."""
     h = lt.forward_hidden(params, cfg, x, deterministic=deterministic, generator=generator,
-                          attn_backend=attn_backend)
-    logits = lt.forward_output(params, cfg, h)
+                          attn_backend=attn_backend, dp_mesh=dp_mesh)
+    logits = lt.forward_output(params, cfg, h, dp_mesh)
     names = cm.field_names(cfg.n_fields)
     vals = [torch.mean(cm.linear_scalar(params["value_heads"][n], lg), dim=1)
             for n, lg in zip(names, logits)]

@@ -245,7 +245,8 @@ def _dropout_seed(generator: Optional[torch.Generator], p: float, device, dp_mes
 
 def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                    generator: Optional[torch.Generator], deterministic: bool,
-                   attn_backend: Optional[str], dp_mesh=None) -> torch.Tensor:
+                   attn_backend: Optional[str], dp_mesh=None,
+                   rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     # an explicitly requested attention backend (argument, config or env)
     # is not dropped by the fused route, whose attention is the head-minor
     # composition or kernel C; "xla" and None are compatible with it
@@ -286,7 +287,8 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
         att = _merge_heads(causal_linear_attention(q, k, v, eps=cfg.attn_eps,
                                                    backend=ca_backend, chunk=cfg.attn_chunk))
     att = _row_linear(lp["wo"], att, dp_mesh)
-    h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic))
+    h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic,
+                                               rows=rows))
     if h.ndim == 3 and _ffn_backend(h.shape[0] * h.shape[1], h.device, dp_mesh) == "pallas":
         b, s, d = h.shape
         p = 0.0 if (deterministic or generator is None) else cfg.dropout
@@ -299,15 +301,16 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
     # the rank's columns of the one-process mask: the tp ranks' generators
     # stay in step
     y = cm.dropout(generator, y, cfg.dropout, deterministic,
-                   shard=(dp_mesh.tp_index, tp) if tp > 1 else (0, 1))
+                   shard=(dp_mesh.tp_index, tp) if tp > 1 else (0, 1), rows=rows)
     y = _row_linear(lp["ffn2"], y, dp_mesh)
-    y = cm.dropout(generator, y, cfg.dropout, deterministic)
+    y = cm.dropout(generator, y, cfg.dropout, deterministic, rows=rows)
     return cm.layernorm(lp["ln2"], h + y)
 
 
 def _remat_layer(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                  generator: Optional[torch.Generator], deterministic: bool,
-                 attn_backend: Optional[str], dp_mesh=None) -> torch.Tensor:
+                 attn_backend: Optional[str], dp_mesh=None,
+                 rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """``_layer_forward`` under ``torch.utils.checkpoint`` (JAX ``cfg.remat``:
     ``jax.checkpoint`` around each layer): the backward keeps only the
     layer's input and runs the layer again.  The layer's randomness (the
@@ -327,32 +330,38 @@ def _remat_layer(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
             gen = torch.Generator(device=generator.device)
             gen.set_state(state)
         runs.append(1)
-        return _layer_forward(cfg, h_, lp_, gen, deterministic, attn_backend, dp_mesh)
+        return _layer_forward(cfg, h_, lp_, gen, deterministic, attn_backend, dp_mesh, rows)
 
     return torch.utils.checkpoint.checkpoint(run, h, lp, use_reentrant=False)
 
 
 def forward_hidden(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor, *,
                    deterministic: bool = True, generator: Optional[torch.Generator] = None,
-                   attn_backend: Optional[str] = None, dp_mesh=None) -> torch.Tensor:
+                   attn_backend: Optional[str] = None, dp_mesh=None,
+                   rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """x (B, S, n_fields) int -> h (B, S, D) (dqn_policy/model.py:200-233:
     embeddings -> in_linear -> positional encoding -> causal-linear
     encoder).  ``generator`` (on the tensors' device) draws the dropout
     masks and the kernels' dropout seeds; None means no dropout.
     ``dp_mesh``: x is this rank's rows of a batch over the mesh's dp, and
     under tp > 1 ``params`` the rank's tp shards; h comes out replicated
-    over the tp group."""
+    over the tp group.  ``rows`` = (j, m): x is the j-th of m row blocks
+    of the batch (``parallel/mesh.py row_block``), and the composition's
+    dropout masks are the whole batch's draw at those rows, so that a
+    generator seeded alike on every rank stays in step (the fused kernels'
+    seeds keep JAX's dp rule, ``_dropout_seed``); (0, 1): x is the batch
+    the generator draws for."""
     check_tp(cfg, _mesh_axes(dp_mesh)[1])
     deterministic = deterministic or generator is None
     s = x.shape[1]
     h = embed_project(params, x, dp_mesh)
     h = h + cm.sinusoidal_table(s, cfg.d_model, h.dtype, h.device)[None]
-    h = cm.dropout(generator, h, cfg.dropout, deterministic)
+    h = cm.dropout(generator, h, cfg.dropout, deterministic, rows=rows)
     layers = params["layers"]
     layer = _remat_layer if cfg.remat and torch.is_grad_enabled() else _layer_forward
     for l in range(cfg.n_layer):
         lp = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in layers.items()}
-        h = layer(cfg, h, lp, generator, deterministic, attn_backend, dp_mesh)
+        h = layer(cfg, h, lp, generator, deterministic, attn_backend, dp_mesh, rows)
     return cm.layernorm(params["final_ln"], h)
 
 
@@ -387,12 +396,14 @@ def value_head(params: dict, h: torch.Tensor) -> torch.Tensor:
 def train_losses(params: dict, cfg: LinearTransformerConfig, x: torch.Tensor,
                  target: torch.Tensor, mask: torch.Tensor, *, deterministic: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 attn_backend: Optional[str] = None, dp_mesh=None) -> torch.Tensor:
+                 attn_backend: Optional[str] = None, dp_mesh=None,
+                 rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Per-field masked CE (n_fields,), as LinearTransformer.train_step
     (dqn_policy/model.py:170-197); under a dp mesh this rank's share of the
-    global losses (``ops/losses.py``), which the caller all-reduces."""
+    global losses (``ops/losses.py``), which the caller all-reduces.
+    ``rows``: as ``forward_hidden``'s."""
     h = forward_hidden(params, cfg, x, deterministic=deterministic, generator=generator,
-                       attn_backend=attn_backend, dp_mesh=dp_mesh)
+                       attn_backend=attn_backend, dp_mesh=dp_mesh, rows=rows)
     return fields_cross_entropy(forward_output(params, cfg, h, dp_mesh), target, mask,
                                 mesh=dp_mesh)
 

@@ -26,6 +26,21 @@ A layer takes one of two routes, by the JAX rule:
     long sequences under RLMG_WINDOW_BACKEND=pallas.
 Dropout is drawn from an explicit ``torch.Generator`` on the tensors'
 device; no generator means no dropout.
+
+Under a mesh with tp > 1 (``mesh``, ``parallel/mesh.py``) each rank holds
+its tp shard of the leaves the Megatron rules split (``emb``, ``proj``,
+the layers' q/k/v, ``wo``, ``ffn1``, ``ffn2`` and the token ``heads``;
+``parallel/sharding.py``) and runs the Megatron layer of the agent's
+(``models/linear_transformer.py``): each field's embedding columns
+gathered field by field, ``proj`` column-parallel and gathered before the
+positions and ``emb_ln``, q/k/v of the rank's n_head / tp heads (kernel E
+under RLMG_WINDOW_BACKEND=pallas on those heads), ``wo`` and ``ffn2``
+row-parallel with one all-reduce each and their biases once, the token
+heads row-parallel over d_model.  The activations between them, and so
+both dropouts' inputs, are replicated: every tp rank draws the same masks
+from the same generator state.  The score head, its BatchNorm and the eval
+heads read the replicated h with their whole weights.  Under tp the fused
+tail does not run (``_ffn_backend``'s guard, with its warning).
 """
 
 from __future__ import annotations
@@ -39,8 +54,9 @@ from ..config import WindowTransformerConfig
 from ..ops.ffn_block import attn_tail_block
 from ..ops.losses import fields_cross_entropy
 from ..ops.window_attention import window_attention, window_attention_bshe
+from ..parallel.tensor import copy_to_tp, gather_fields_from_tp, gather_from_tp
 from . import common as cm
-from .linear_transformer import _ffn_backend
+from .linear_transformer import _ffn_backend, _mesh_axes, _row_linear, check_tp, forward_output
 
 MAX_REL = 64            # relative_key distances kept (JAX init_params)
 
@@ -96,13 +112,15 @@ def init_state(cfg: WindowTransformerConfig, device="cuda") -> dict:
 
 def _layer(cfg: WindowTransformerConfig, h: torch.Tensor, lp: dict,
            attention_mask: Optional[torch.Tensor], rel: Optional[torch.Tensor],
-           generator: Optional[torch.Generator], deterministic: bool) -> torch.Tensor:
+           generator: Optional[torch.Generator], deterministic: bool,
+           mesh=None) -> torch.Tensor:
     b, s, d = h.shape
+    tp = _mesh_axes(mesh)[1]
     # an explicit RLMG_WINDOW_BACKEND=pallas request (kernel E, (B, H, S, D)
     # layout) is not dropped by the fused-tail route, whose attention is the
-    # head-minor composition
+    # head-minor composition; under tp the guard takes the composition
     if (os.environ.get("RLMG_WINDOW_BACKEND") != "pallas"
-            and _ffn_backend(b * s, h.device) == "pallas-tail"):
+            and _ffn_backend(b * s, h.device, mesh) == "pallas-tail"):
         bshe = lambda x: x.reshape(b, s, cfg.n_head, cfg.d_head)
         att = window_attention_bshe(bshe(cm.linear(lp["wq"], h)), bshe(cm.linear(lp["wk"], h)),
                                     bshe(cm.linear(lp["wv"], h)), attention_mask,
@@ -120,43 +138,60 @@ def _layer(cfg: WindowTransformerConfig, h: torch.Tensor, lp: dict,
                               lp["ffn2"]["w"], lp["ffn2"]["b"], lp["ln2"]["scale"],
                               lp["ln2"]["bias"], seed, p, mid_drop=False)
         return out.reshape(b, s, d)
-    heads = lambda x: x.reshape(b, s, cfg.n_head, cfg.d_head).transpose(1, 2)
-    att = window_attention(heads(cm.linear(lp["wq"], h)), heads(cm.linear(lp["wk"], h)),
-                           heads(cm.linear(lp["wv"], h)), attention_mask,
+    # under tp: the rank's n_head / tp heads, column-parallel
+    hc = copy_to_tp(h, mesh)
+    heads = lambda x: x.reshape(b, s, cfg.n_head // tp, cfg.d_head).transpose(1, 2)
+    att = window_attention(heads(cm.linear(lp["wq"], hc)), heads(cm.linear(lp["wk"], hc)),
+                           heads(cm.linear(lp["wv"], hc)), attention_mask,
                            window=cfg.attention_window, rel_emb=rel)
-    att = cm.linear(lp["wo"], att.transpose(1, 2).reshape(b, s, d))
+    att = _row_linear(lp["wo"], att.transpose(1, 2).reshape(b, s, d // tp), mesh)
     h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic))
-    y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], h), approximate="none")
-    y = cm.linear(lp["ffn2"], y)
+    y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], copy_to_tp(h, mesh)), approximate="none")
+    y = _row_linear(lp["ffn2"], y, mesh)
     return cm.layernorm(lp["ln2"], h + cm.dropout(generator, y, cfg.dropout, deterministic))
+
+
+def embed(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """x (B, S, n_fields) int -> the field-concat embeddings (B, S,
+    sum(emb_sizes)), whole: under tp each field's column shards gathered."""
+    tp = _mesh_axes(mesh)[1]
+    check_tp(cfg, tp)
+    embs = cm.embed_fields(params["emb"], x, tp)
+    if tp == 1:
+        return embs
+    names = cm.field_names(x.shape[-1])
+    return gather_fields_from_tp(embs, mesh, [params["emb"][n].shape[-1] for n in names])
 
 
 def forward(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor,
             attention_mask: Optional[torch.Tensor] = None, *, deterministic: bool = True,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
     """x (B, S, n_fields) int -> sequence output (B, S, D)
-    (AIRL_model.py:101-118: embeddings -> proj -> longformer)."""
-    embs = cm.embed_fields(params["emb"], x)
-    return forward_from_embeddings(params, cfg, embs, attention_mask,
-                                   deterministic=deterministic, generator=generator)
+    (AIRL_model.py:101-118: embeddings -> proj -> longformer); ``mesh``:
+    tp shards in, h replicated out."""
+    return forward_from_embeddings(params, cfg, embed(params, cfg, x, mesh), attention_mask,
+                                   deterministic=deterministic, generator=generator, mesh=mesh)
 
 
 def forward_from_embeddings(params: dict, cfg: WindowTransformerConfig, embs: torch.Tensor,
                             attention_mask: Optional[torch.Tensor] = None, *,
                             deterministic: bool = True,
-                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                            generator: Optional[torch.Generator] = None,
+                            mesh=None) -> torch.Tensor:
     """The trunk on field-concat embeddings (B, S, sum(emb_sizes)), HF's
     ``inputs_embeds`` path; the AIRL gradient penalty differentiates
-    through it."""
+    through it.  Under tp ``embs`` is whole and ``proj`` runs
+    column-parallel, its columns gathered."""
+    check_tp(cfg, _mesh_axes(mesh)[1])
     deterministic = deterministic or generator is None
     s = embs.shape[1]
-    h = cm.linear(params["proj"], embs) + params["pos_emb"][None, :s]
-    h = cm.layernorm(params["emb_ln"], h)
+    h = gather_from_tp(cm.linear(params["proj"], copy_to_tp(embs, mesh)), mesh)
+    h = cm.layernorm(params["emb_ln"], h + params["pos_emb"][None, :s])
     rel = params.get("rel_emb")
     layers = params["layers"]
     for l in range(cfg.n_layer):
         lp = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in layers.items()}
-        h = _layer(cfg, h, lp, attention_mask, rel, generator, deterministic)
+        h = _layer(cfg, h, lp, attention_mask, rel, generator, deterministic, mesh)
     return h
 
 
@@ -189,52 +224,58 @@ def _score_head(params: dict, state: dict, h: torch.Tensor,
 
 def score_forward(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor,
                   attention_mask: Optional[torch.Tensor], state: dict, *, train: bool = False,
-                  deterministic: bool = True, generator: Optional[torch.Generator] = None
-                  ) -> Tuple[torch.Tensor, dict]:
+                  deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                  mesh=None) -> Tuple[torch.Tensor, dict]:
     """Realness score in (0, 1) (AIRL_model.py:101-122) -> (score (B, 1),
     new BatchNorm state)."""
-    h = forward(params, cfg, x, attention_mask, deterministic=deterministic, generator=generator)
+    h = forward(params, cfg, x, attention_mask, deterministic=deterministic, generator=generator,
+                mesh=mesh)
     return _score_head(params, state, h, train)
 
 
 def score_from_embeddings(params: dict, cfg: WindowTransformerConfig, embs: torch.Tensor,
                           attention_mask: Optional[torch.Tensor], state: dict, *,
                           train: bool = False, deterministic: bool = True,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None, mesh=None
                           ) -> Tuple[torch.Tensor, dict]:
     """``score_forward`` on embeddings: the differentiable entry of the WGAN
     gradient penalty (token ids are discrete, so it interpolates
     embeddings)."""
     h = forward_from_embeddings(params, cfg, embs, attention_mask, deterministic=deterministic,
-                                generator=generator)
+                                generator=generator, mesh=mesh)
     return _score_head(params, state, h, train)
 
 
 def token_logits(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor,
                  attention_mask: Optional[torch.Tensor] = None, *, deterministic: bool = True,
-                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
-    """Per-field logits over the sequence (AIRL_model.py:131-153)."""
-    h = forward(params, cfg, x, attention_mask, deterministic=deterministic, generator=generator)
-    return cm.apply_field_heads(params["heads"], h, cfg.n_fields)
+                 generator: Optional[torch.Generator] = None,
+                 mesh=None) -> Tuple[torch.Tensor, ...]:
+    """Per-field logits over the sequence (AIRL_model.py:131-153); under tp
+    the heads row-parallel over d_model, the logits replicated."""
+    h = forward(params, cfg, x, attention_mask, deterministic=deterministic, generator=generator,
+                mesh=mesh)
+    return forward_output(params, cfg, h, mesh)
 
 
 def token_ce(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor, target: torch.Tensor,
              mask: torch.Tensor, *, deterministic: bool = True,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
     """Mean masked CE over fields (AIRL_model.py:131-170), with the mask
-    applied as intended (the reference's unmasked mean made it a no-op)."""
-    logits = token_logits(params, cfg, x, mask, deterministic=deterministic, generator=generator)
+    applied as intended (the reference's unmasked mean made it a no-op).
+    ``mesh``: the weights' tp shards; the rows are whole on every rank."""
+    logits = token_logits(params, cfg, x, mask, deterministic=deterministic, generator=generator,
+                          mesh=mesh)
     return torch.mean(fields_cross_entropy(logits, target, mask))
 
 
 def eval_score(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor,
                attention_mask: Optional[torch.Tensor] = None, *, deterministic: bool = True,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
     """PPO reward model score (B, 1): the mean over fields of the sigmoid of
     each field's scalar head, averaged over the sequence
     (ppo_policy/IRL_model.py:128-163)."""
     logits = token_logits(params, cfg, x, attention_mask, deterministic=deterministic,
-                          generator=generator)
+                          generator=generator, mesh=mesh)
     names = cm.field_names(cfg.n_fields)
     total = 0.0
     for n, lg in zip(names, logits):

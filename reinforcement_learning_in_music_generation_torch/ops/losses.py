@@ -13,6 +13,13 @@ ranks of a dp group sum to the global ones (the caller all-reduces both over
 that group).  The ranks of a tp group hold the same rows, so the world's
 sum would count each row tp times.  The mean of the ranks' own means is another loss
 wherever their mask sums differ.  The denominator is data: no gradient.
+
+Every other batch mean follows the same rule (``batch_mean``, the RL
+losses): the rank's sum over the element count all-reduced over the dp
+group.  It is right both where the batch is split over dp and where dp
+does not divide it and every rank holds it whole (``parallel/mesh.py
+shard_rows``): summed over the dp group, the ranks' shares give the global
+mean.  A rank's own mean summed over dp is dp times it in both cases.
 """
 
 from __future__ import annotations
@@ -29,6 +36,19 @@ def _mask_sum(mask: torch.Tensor, mesh) -> torch.Tensor:
         from ..parallel.mesh import all_reduce_
         all_reduce_(mesh, [den], axis="dp")
     return den
+
+
+def batch_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean of ``x``'s elements; under a dp ``mesh`` this rank's share
+    of the global mean, sum(x) over the element count all-reduced over the
+    dp group (no gradient through the count), which the caller sums over
+    that group with the gradients."""
+    if mesh is None or mesh.dp == 1:
+        return torch.mean(x)
+    from ..parallel.mesh import all_reduce_
+    count = torch.full((), float(x.numel()), device=x.device)
+    all_reduce_(mesh, [count], axis="dp")
+    return x.sum() / count
 
 
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -56,8 +76,9 @@ def fields_cross_entropy(logits_per_field: Sequence[torch.Tensor], targets: torc
                         for i, lg in enumerate(logits_per_field)])
 
 
-def binary_cross_entropy(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def binary_cross_entropy(pred: torch.Tensor, target: torch.Tensor, mesh=None) -> torch.Tensor:
     """BCE on probabilities (torch nn.BCELoss, dqn_policy/AIRL.py:43), with
-    the prediction clipped to [1e-7, 1 - 1e-7] as in the JAX package."""
+    the prediction clipped to [1e-7, 1 - 1e-7] as in the JAX package; the
+    mean is ``batch_mean``'s under a dp ``mesh``."""
     pred = torch.clamp(pred, 1e-7, 1.0 - 1e-7)
-    return -torch.mean(target * torch.log(pred) + (1.0 - target) * torch.log1p(-pred))
+    return -batch_mean(target * torch.log(pred) + (1.0 - target) * torch.log1p(-pred), mesh)

@@ -39,7 +39,7 @@ import sys
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -156,15 +156,18 @@ def make_mesh(dp: int = -1, tp: int = 1, devices: Optional[Sequence] = None,
                 _axis_groups(dp, tp, rank))
 
 
+def row_block(mesh: Mesh, n: int) -> Tuple[int, int]:
+    """(i, k): this rank holds the i-th of k equal blocks of a leading axis
+    of ``n`` rows, (dp index, dp), or (0, 1) where dp does not divide n."""
+    return (0, 1) if n % mesh.dp else (mesh.dp_index, mesh.dp)
+
+
 def shard_rows(mesh: Mesh, n: int) -> slice:
     """The rows of this rank's dp index on a leading axis of ``n``: its 1/dp
-    share, or all of them where dp does not divide n.  The ranks of one tp
-    group get the same rows."""
-    dp = mesh.dp
-    if n % dp:
-        return slice(0, n)
-    k = n // dp
-    return slice(mesh.dp_index * k, (mesh.dp_index + 1) * k)
+    share, or all of them where dp does not divide n (``row_block``).  The
+    ranks of one tp group get the same rows."""
+    i, k = row_block(mesh, n)
+    return slice(i * (n // k), (i + 1) * (n // k))
 
 
 def shard_batch(mesh: Mesh, batch):

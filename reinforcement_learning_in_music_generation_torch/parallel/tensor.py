@@ -18,6 +18,10 @@ and the rank's shard:
     all-gather) where a replicated tensor feeds a row-parallel product (the
     heads).
 
+Each function's backward is its conjugate, itself an autograd function,
+so a second derivative through them (the AIRL gradient penalty's,
+``rl/airl.py``) takes the conjugate's collective again.
+
 ``reduce_from_tp`` is not ``torch.distributed.nn.functional.all_reduce``:
 that one all-reduces the gradient again on the way back, and since the
 loss and its gradient are the same on every tp rank, it would multiply the
@@ -54,11 +58,6 @@ def _all_gather_last(mesh, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=-1).to(x.dtype)
 
 
-def _my_slice(mesh, x: torch.Tensor) -> torch.Tensor:
-    k = x.shape[-1] // mesh.tp
-    return x.narrow(-1, mesh.tp_index * k, k).contiguous()
-
-
 class _Copy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -67,28 +66,18 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(ctx.mesh, g), None
+        return _Reduce.apply(g, ctx.mesh), None
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
+        ctx.mesh = mesh
         return _all_reduce(mesh, x)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
-
-
-class _Scatter(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _my_slice(mesh, x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_gather_last(ctx.mesh, g), None
+        return _Copy.apply(g, ctx.mesh), None
 
 
 class _GatherFields(torch.autograd.Function):
@@ -106,12 +95,23 @@ class _GatherFields(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        tp, i = ctx.mesh.tp, ctx.mesh.tp_index
-        pieces, off = [], 0
-        for n in ctx.sizes:
-            pieces.append(g.narrow(-1, off + i * n, n))
-            off += n * tp
-        return torch.cat(pieces, dim=-1), None, None
+        return _ScatterFields.apply(g, ctx.mesh, ctx.sizes), None, None
+
+
+class _ScatterFields(torch.autograd.Function):
+    """Fields of ``tp * sizes`` columns, whole and concatenated -> the rank's
+    column shard of each, concatenated.  Backward: the fields gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, sizes):
+        ctx.mesh, ctx.sizes = mesh, sizes
+        tp, i = mesh.tp, mesh.tp_index
+        return torch.cat([x.narrow(-1, tp * off + i * n, n) for off, n in _offsets(sizes)],
+                         dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherFields.apply(g, ctx.mesh, ctx.sizes), None, None
 
 
 def _offsets(sizes: Sequence[int]):
@@ -139,7 +139,7 @@ def gather_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def scatter_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's column shard of a replicated ``x`` (..., n) -> (..., n/tp)."""
-    return x if _tp(mesh) == 1 else _Scatter.apply(x, mesh)
+    return x if _tp(mesh) == 1 else _ScatterFields.apply(x, mesh, (x.shape[-1] // mesh.tp,))
 
 
 def gather_fields_from_tp(x: torch.Tensor, mesh, sizes: Sequence[int]) -> torch.Tensor:

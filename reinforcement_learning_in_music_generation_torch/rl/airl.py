@@ -7,6 +7,16 @@ then used to re-score both replay buffers as rewards.  The JAX package scans
 the minibatches of an epoch and the scoring batches on the device; here they
 are Python loops of eager steps.  Steps update the parameters in place and
 return the new state.
+
+On a (dp, tp) mesh (``mesh``) the discriminator's parameters and Adam
+moments are the rank's tp shards and its layers run the Longformer's
+Megatron layer (``models/longformer.py``); the buffers and minibatches
+are whole on every dp rank, as the JAX CLI passes them, so its work is
+replicated over dp and split over tp: the means are each rank's own and
+the gradients are not summed over dp.  Every dp rank takes the same
+update, from the same generator state; the first rank of each dp group
+hands its gradients and BatchNorm statistics to the others
+(``disc_step``), so they end with the same parameters bit for bit.
 """
 
 from __future__ import annotations
@@ -16,9 +26,9 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import AIRLConfig, WindowTransformerConfig
-from ..models import common as cm
 from ..models import longformer as lf
 from ..ops.losses import binary_cross_entropy
+from ..parallel.mesh import broadcast_
 from ..train import optim
 
 
@@ -41,15 +51,15 @@ def init_state(mcfg: WindowTransformerConfig, cfg: AIRLConfig, *, seed: int = 0,
 
 
 def disc_step(state: AIRLState, mcfg: WindowTransformerConfig, tx: optim.Adam,
-              expert_states, expert_masks, agent_states,
-              generator: Optional[torch.Generator]) -> Tuple[AIRLState, dict]:
+              expert_states, expert_masks, agent_states, generator: Optional[torch.Generator],
+              mesh=None) -> Tuple[AIRLState, dict]:
     """One minibatch update (AIRL.py:142-182): global = BCE(D(expert) -> 1)
     + BCE(D(agent) -> 0) + CE_token(agent | expert), dropout from
     ``generator`` (None: no dropout).  The BatchNorm state threads from the
     expert pass into the agent pass and out, outside autograd.  Returns
     (state', {"expert_loss", "agent_loss", "ce_loss", "global_loss"} as 0-d
-    device tensors)."""
-    kw = dict(train=True, deterministic=False, generator=generator)
+    device tensors).  ``mesh``: the tp shards; the rows whole."""
+    kw = dict(train=True, deterministic=False, generator=generator, mesh=mesh)
 
     def loss_fn(p):
         exp_score, bn1 = lf.score_forward(p, mcfg, expert_states, expert_masks, state.bn_state,
@@ -59,11 +69,17 @@ def disc_step(state: AIRLState, mcfg: WindowTransformerConfig, tx: optim.Adam,
         exp_bce = binary_cross_entropy(exp_score, torch.ones_like(exp_score))
         agent_bce = binary_cross_entropy(agent_score, torch.zeros_like(agent_score))
         ce = lf.token_ce(p, mcfg, agent_states, expert_states, expert_masks,
-                         deterministic=False, generator=generator)
+                         deterministic=False, generator=generator, mesh=mesh)
         return exp_bce + agent_bce + ce, (exp_bce, agent_bce, ce, bn2)
 
     total, (exp_bce, agent_bce, ce, bn2), grads = optim.value_and_grad(loss_fn, state.params)
-    updates, opt_state = tx.update(grads, state.opt_state, state.params)
+    if mesh is not None and mesh.dp > 1:
+        # every dp rank computed this step on the same rows, but a card's
+        # backward need not repeat its bits from process to process: the dp
+        # group takes its first rank's gradients and BatchNorm statistics,
+        # so that its ranks keep one discriminator
+        broadcast_(mesh, optim.tree_leaves(grads) + list(bn2.values()), src=0, axis="dp")
+    updates, opt_state = tx.update(grads, state.opt_state, state.params, mesh=mesh)
     params = optim.apply_updates(state.params, updates)
     metrics = {"expert_loss": exp_bce.detach(), "agent_loss": agent_bce.detach(),
                "ce_loss": ce.detach(), "global_loss": total.detach()}
@@ -72,21 +88,22 @@ def disc_step(state: AIRLState, mcfg: WindowTransformerConfig, tx: optim.Adam,
 
 def disc_epoch(state: AIRLState, mcfg: WindowTransformerConfig, tx: optim.Adam,
                expert_states, expert_masks, agent_states,
-               generator: Optional[torch.Generator], batch_size: int) -> Tuple[AIRLState, dict]:
+               generator: Optional[torch.Generator], batch_size: int,
+               mesh=None) -> Tuple[AIRLState, dict]:
     """One pass over the buffers in whole minibatches (AIRL.py:136-212 inner
     loop); the metrics are the epoch's means (0-d device tensors)."""
     hist: List[dict] = []
     for i in range(expert_states.shape[0] // batch_size):
         sl = slice(i * batch_size, (i + 1) * batch_size)
         state, m = disc_step(state, mcfg, tx, expert_states[sl], expert_masks[sl],
-                             agent_states[sl], generator)
+                             agent_states[sl], generator, mesh)
         hist.append(m)
     return state, {k: torch.stack([m[k] for m in hist]).mean() for k in hist[0]}
 
 
 @torch.no_grad()
 def calculate_reward(state: AIRLState, mcfg: WindowTransformerConfig, states, masks,
-                     batch_size: int = 100) -> torch.Tensor:
+                     batch_size: int = 100, mesh=None) -> torch.Tensor:
     """Score a whole buffer (AIRL.py:69-90): (N, S, 6) -> (N, 1), in batches,
     no dropout.  Scoring uses train-mode BatchNorm with each batch's own
     statistics and throws the updated running stats away: the reference's
@@ -97,14 +114,14 @@ def calculate_reward(state: AIRLState, mcfg: WindowTransformerConfig, states, ma
     n = states.shape[0]
     scores = [lf.score_forward(state.params, mcfg, states[i:i + batch_size],
                                masks[i:i + batch_size], state.bn_state, train=True,
-                               deterministic=True)[0]
+                               deterministic=True, mesh=mesh)[0]
               for i in range(0, n, batch_size)]
     return torch.cat(scores, dim=0)
 
 
 def update_disc(state: AIRLState, mcfg: WindowTransformerConfig, cfg: AIRLConfig,
                 tx: optim.Adam, agent_buffer: dict, expert_buffer: dict,
-                generator: Optional[torch.Generator], *, train: bool = True):
+                generator: Optional[torch.Generator], *, train: bool = True, mesh=None):
     """Full discriminator update and buffer re-scoring (AIRL.py:121-236):
     ``cfg.epochs`` epochs when ``train``, then both buffers scored with the
     expert buffer's ``mask_state`` (it masks the agent states too).
@@ -115,36 +132,38 @@ def update_disc(state: AIRLState, mcfg: WindowTransformerConfig, cfg: AIRLConfig
         for _ in range(cfg.epochs):
             state, metrics = disc_epoch(state, mcfg, tx, expert_buffer["state"],
                                         expert_buffer["mask_state"], agent_buffer["state"],
-                                        generator, cfg.batch_size)
+                                        generator, cfg.batch_size, mesh)
             hist.append({k: float(v) for k, v in metrics.items()})
     agent_r = calculate_reward(state, mcfg, agent_buffer["state"], expert_buffer["mask_state"],
-                               cfg.score_batch_size)
+                               cfg.score_batch_size, mesh)
     expert_r = calculate_reward(state, mcfg, expert_buffer["state"],
-                                expert_buffer["mask_state"], cfg.score_batch_size)
+                                expert_buffer["mask_state"], cfg.score_batch_size, mesh)
     return state, agent_r, expert_r, hist
 
 
 def gradient_penalty(state: AIRLState, mcfg: WindowTransformerConfig, expert_states,
                      agent_states, masks, generator: Optional[torch.Generator] = None,
-                     lambda_term: float = 5.0, *,
-                     eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     lambda_term: float = 5.0, *, eta: Optional[torch.Tensor] = None,
+                     mesh=None) -> torch.Tensor:
     """WGAN-GP on interpolated embeddings (the reference defines it, never
     calls it and marks it '# Error #', AIRL.py:93-118): token ids are
     discrete, so it interpolates embeddings with eta ~ U(0, 1) per row
     (drawn from ``generator`` unless ``eta`` (B, 1, 1) is given) and takes
     the score's gradient there, through ``longformer.score_from_embeddings``
-    in eval mode.  Differentiable in the parameters."""
+    in eval mode.  Differentiable in the parameters.  Under tp (``mesh``)
+    it interpolates the gathered, whole embeddings, so the gradient's norm
+    is over the whole concat, as JAX's."""
     if eta is None:
         eta = torch.rand((expert_states.shape[0], 1, 1), generator=generator,
                          device=expert_states.device)
-    e_emb = cm.embed_fields(state.params["emb"], expert_states)
-    a_emb = cm.embed_fields(state.params["emb"], agent_states)
+    e_emb = lf.embed(state.params, mcfg, expert_states, mesh)
+    a_emb = lf.embed(state.params, mcfg, agent_states, mesh)
     inter = eta * e_emb + (1.0 - eta) * a_emb
     if not inter.requires_grad:
         inter = inter.detach().requires_grad_(True)
     with torch.enable_grad():
         score, _ = lf.score_from_embeddings(state.params, mcfg, inter, masks, state.bn_state,
-                                            train=False, deterministic=True)
+                                            train=False, deterministic=True, mesh=mesh)
         grads, = torch.autograd.grad(score.sum(), inter, create_graph=True)
     norms = torch.sqrt(torch.sum(grads ** 2, dim=(1, 2)) + 1e-12)
     return torch.mean((norms - 1.0) ** 2) * lambda_term

@@ -18,6 +18,15 @@ The optimizer adds its updates in place: ``update_policy_step`` updates the
 actor's and the critic's trees (two separate trees, never sharing storage)
 and returns the state with them.  The rollout's transitions are new tensors
 and the losses read them detached, so an update never changes them.
+
+On a (dp, tp) mesh (``mesh``) the three trees and the two optimizers'
+moments are the rank's tp shards.  The rollout is the same on every rank
+(eager at tp > 1, ``env.tp_eager``); returns and advantages are computed
+on the whole rollout, then the transitions and both are sharded over dp
+(``shard_batch``, the caller's).  The surrogate and the value MSE are
+``ops/losses.py batch_mean``'s and the actor's CE the global masked CE,
+each this rank's share of the global loss, and the actor's and critic's
+gradients and losses are summed over the dp group.
 """
 
 from __future__ import annotations
@@ -30,9 +39,10 @@ from ..config import LinearTransformerConfig, PPOConfig, WindowTransformerConfig
 from ..models import critic as critic_lib
 from ..models import linear_transformer as lt
 from ..models import longformer as lf
+from ..ops.losses import batch_mean
 from ..train import optim
 from . import episode_graph
-from .env import _windows
+from .env import _windows, tp_eager
 
 
 class PPOState(NamedTuple):
@@ -76,21 +86,24 @@ def _policy_logprobs(logits, n_actions: int) -> Tuple[torch.Tensor, torch.Tensor
 
 @torch.no_grad()
 def choose_action(actor_params: dict, acfg: LinearTransformerConfig, state: torch.Tensor,
-                  n_actions: int = 25) -> Tuple[torch.Tensor, torch.Tensor]:
-    """state (B, S, F) -> (actions, log-probs), each (B, n_actions, F)."""
-    h = lt.forward_hidden(actor_params, acfg, state, deterministic=True)
-    return _policy_logprobs(lt.forward_output(actor_params, acfg, h), n_actions)
+                  n_actions: int = 25, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """state (B, S, F) -> (actions, log-probs), each (B, n_actions, F);
+    ``mesh``: the actor's tp shards, the logits reduced and replicated."""
+    h = lt.forward_hidden(actor_params, acfg, state, deterministic=True, dp_mesh=mesh)
+    return _policy_logprobs(lt.forward_output(actor_params, acfg, h, mesh), n_actions)
 
 
 class _PpoEpisodes(episode_graph.EpisodeLoop):
     """A song's PPO episodes on static buffers: the current state, the
     song's state masks, the stacked next states, actions, log-probs, values
-    and rewards, and the episode index."""
+    and rewards, and the episode index; ``mesh``: the tp mesh of the
+    weights' shards (None: whole weights)."""
 
-    def __init__(self, cfgs, episodes: int, n_states: int, n_actions: int, nf: int, dev):
+    def __init__(self, cfgs, episodes: int, n_states: int, n_actions: int, nf: int, dev,
+                 mesh=None):
         super().__init__(dev)
         i32, f32 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.float32, device=dev)
-        self.cfgs, self.n_actions = cfgs, n_actions
+        self.cfgs, self.n_actions, self.mesh = cfgs, n_actions, mesh
         self.cur = torch.zeros((n_states, nf), **i32)
         self.mask_state = torch.zeros((episodes, n_states), **f32)
         self.nexts = torch.zeros((episodes, n_states, nf), **i32)
@@ -105,10 +118,13 @@ class _PpoEpisodes(episode_graph.EpisodeLoop):
         the critic's value of it and the reward model's score under the
         episode's mask, all stored at the index."""
         (actor, critic, reward), (acfg, ccfg, rcfg) = trees, self.cfgs
-        action, logp = choose_action(actor, acfg, self.cur[None], n_actions=self.n_actions)
+        mesh = self.mesh
+        action, logp = choose_action(actor, acfg, self.cur[None], n_actions=self.n_actions,
+                                     mesh=mesh)
         nxt = torch.cat([self.cur[:self.n_actions], action[0]], dim=0)[None]
-        value = critic_lib.value_produce(critic, ccfg, nxt)
-        score = lf.eval_score(reward, rcfg, nxt, self.mask_state.index_select(0, self.idx))
+        value = critic_lib.value_produce(critic, ccfg, nxt, dp_mesh=mesh)
+        score = lf.eval_score(reward, rcfg, nxt, self.mask_state.index_select(0, self.idx),
+                              mesh=mesh)
         self.nexts.index_copy_(0, self.idx, nxt)
         self.actions.index_copy_(0, self.idx, action)
         self.logps.index_copy_(0, self.idx, logp)
@@ -121,7 +137,7 @@ class _PpoEpisodes(episode_graph.EpisodeLoop):
 @torch.no_grad()
 def rollout_song(state: PPOState, state_cfgs, song_x: torch.Tensor, expert_y: torch.Tensor,
                  song_mask: torch.Tensor, *, episodes: int = 30, n_states: int = 50,
-                 n_actions: int = 25, graph: bool = True) -> Tuple[Dict, Dict]:
+                 n_actions: int = 25, graph: bool = True, mesh=None) -> Tuple[Dict, Dict]:
     """One song's rollout (ppo_train.py:460-497) -> (agent, expert)
     transitions, each stacked (episodes, ...), tensors of their own.  A
     loop of episodes on the device: nothing waits for the host; on CUDA
@@ -129,12 +145,15 @@ def rollout_song(state: PPOState, state_cfgs, song_x: torch.Tensor, expert_y: to
     (``episode_graph.cached``), and ``graph=False`` runs the eager loop
     there (for comparisons).  Expert and mask windows start at the episode
     number (clamped into the song, as ``lax.dynamic_slice_in_dim`` clamps);
-    the next state's mask starts one later, the reference's offset."""
+    the next state's mask starts one later, the reference's offset.
+    ``mesh``: every rank runs this same rollout; at tp > 1 the trees are
+    the rank's tp shards and the loop runs eagerly (``env.tp_eager``)."""
     dev = song_x.device
     nf = song_x.shape[-1]
     trees = (state.actor_params, state.critic_params, state.reward_params)
-    build = lambda: _PpoEpisodes(state_cfgs, episodes, n_states, n_actions, nf, dev)
-    graph = graph and dev.type == "cuda"
+    ep_mesh = mesh if tp_eager(mesh) else None
+    build = lambda: _PpoEpisodes(state_cfgs, episodes, n_states, n_actions, nf, dev, ep_mesh)
+    graph = graph and dev.type == "cuda" and not tp_eager(mesh)
     ep = episode_graph.cached(("ppo", tuple(state_cfgs), episodes, n_states, n_actions, nf, dev),
                               trees, build) if graph else build()
     num = torch.arange(episodes, device=dev)
@@ -189,11 +208,13 @@ def calculate_advantages(returns: torch.Tensor, values: torch.Tensor, *,
 
 
 def update_policy_step(state: PPOState, state_cfgs, cfg: PPOConfig, txs, agent_all: dict,
-                       expert_all: dict, advantages: torch.Tensor,
-                       returns: torch.Tensor) -> Tuple[PPOState, dict]:
+                       expert_all: dict, advantages: torch.Tensor, returns: torch.Tensor,
+                       mesh=None) -> Tuple[PPOState, dict]:
     """One clipped-surrogate actor update and one critic MSE update
     (ppo_train.py:380-412) -> (state', {"actor_loss", "policy_loss",
-    "value_loss"} as 0-d device tensors).  Updates both trees in place."""
+    "value_loss"} as 0-d device tensors).  Updates both trees in place.
+    ``mesh``: the transitions, advantages and returns are this rank's dp
+    rows, the trees its tp shards; the metrics are the global ones."""
     acfg, ccfg, _ = state_cfgs
     atx, ctx = txs
     old_logp = agent_all["log_action"].detach()                 # (N, n_act, F)
@@ -202,25 +223,25 @@ def update_policy_step(state: PPOState, state_cfgs, cfg: PPOConfig, txs, agent_a
     states = agent_all["state"]
 
     def actor_loss_fn(ap):
-        h = lt.forward_hidden(ap, acfg, states, deterministic=True)
-        _, new_logp = _policy_logprobs(lt.forward_output(ap, acfg, h), cfg.n_actions)
+        h = lt.forward_hidden(ap, acfg, states, deterministic=True, dp_mesh=mesh)
+        _, new_logp = _policy_logprobs(lt.forward_output(ap, acfg, h, mesh), cfg.n_actions)
         ratio = torch.exp(new_logp - old_logp)
         surr1 = ratio * adv
         surr2 = torch.clamp(ratio, 1.0 - cfg.ppo_clip, 1.0 + cfg.ppo_clip) * adv
-        policy_loss = -torch.mean(torch.minimum(surr1, surr2))
+        policy_loss = -batch_mean(torch.minimum(surr1, surr2), mesh)
         ce = lt.train_losses(ap, acfg, states, expert_all["state"], expert_all["mask_state"],
-                             deterministic=True)
+                             deterministic=True, dp_mesh=mesh)
         return policy_loss + torch.mean(ce), policy_loss
 
     def critic_loss_fn(cp):
-        values = critic_lib.value_produce(cp, ccfg, states)[:, None]
-        return torch.mean((returns - values) ** 2), None
+        values = critic_lib.value_produce(cp, ccfg, states, dp_mesh=mesh)[:, None]
+        return batch_mean((returns - values) ** 2, mesh), None
 
-    a_loss, p_loss, a_grads = optim.value_and_grad(actor_loss_fn, state.actor_params)
-    v_loss, _, c_grads = optim.value_and_grad(critic_loss_fn, state.critic_params)
-    a_up, actor_opt = atx.update(a_grads, state.actor_opt, state.actor_params)
+    a_loss, p_loss, a_grads = optim.value_and_grad(actor_loss_fn, state.actor_params, mesh)
+    v_loss, _, c_grads = optim.value_and_grad(critic_loss_fn, state.critic_params, mesh)
+    a_up, actor_opt = atx.update(a_grads, state.actor_opt, state.actor_params, mesh=mesh)
     optim.apply_updates(state.actor_params, a_up)
-    c_up, critic_opt = ctx.update(c_grads, state.critic_opt, state.critic_params)
+    c_up, critic_opt = ctx.update(c_grads, state.critic_opt, state.critic_params, mesh=mesh)
     optim.apply_updates(state.critic_params, c_up)
     new_state = PPOState(state.actor_params, state.critic_params, state.reward_params,
                          actor_opt, critic_opt)
@@ -229,14 +250,14 @@ def update_policy_step(state: PPOState, state_cfgs, cfg: PPOConfig, txs, agent_a
 
 
 def update_policy(state: PPOState, state_cfgs, cfg: PPOConfig, txs, agent_all: dict,
-                  expert_all: dict, advantages: torch.Tensor,
-                  returns: torch.Tensor) -> Tuple[PPOState, dict]:
+                  expert_all: dict, advantages: torch.Tensor, returns: torch.Tensor,
+                  mesh=None) -> Tuple[PPOState, dict]:
     """cfg.ppo_steps updates (ppo_train.py:365-417) -> (state', the mean of
     each metric over the steps, 0-d device tensors: nothing is read on the
     host here)."""
     steps = []
     for _ in range(cfg.ppo_steps):
         state, metrics = update_policy_step(state, state_cfgs, cfg, txs, agent_all, expert_all,
-                                            advantages, returns)
+                                            advantages, returns, mesh)
         steps.append(metrics)
     return state, {k: torch.stack([m[k] for m in steps]).mean() for k in steps[0]}

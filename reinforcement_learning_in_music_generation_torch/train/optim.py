@@ -49,15 +49,37 @@ def tree_unflatten(template, leaves: Sequence):
     return tree_map(lambda _: next(it), template)
 
 
-def value_and_grad(loss_fn: Callable, params: dict):
+def _aux_tensors(aux) -> list:
+    """The tensors of ``aux`` (a tensor, or tuples, lists and dicts of
+    them and of other values), in order."""
+    if torch.is_tensor(aux):
+        return [aux]
+    if isinstance(aux, dict):
+        aux = list(aux.values())
+    if isinstance(aux, (tuple, list)):
+        return [t for a in aux for t in _aux_tensors(a)]
+    return []
+
+
+def value_and_grad(loss_fn: Callable, params: dict, dp_mesh=None):
     """(loss, aux, grads) of ``loss_fn(params) -> (loss, aux)``: grads is a
     tree like ``params``, each leaf in its parameter's dtype; leaves the
     loss does not reach get zeros.  The loss is taken on detached copies of
-    the leaves, so ``params`` may be updated in place afterwards."""
+    the leaves, so ``params`` may be updated in place afterwards.
+
+    Under a ``dp_mesh`` with dp > 1, ``loss_fn`` gives this rank's share of
+    the global loss (``ops/losses.py``): the gradients, the loss and the
+    tensors of ``aux`` are summed over the dp group (one all-reduce a
+    dtype), detached, so every rank holds the global ones (under tp, those
+    of its shards)."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     loss, aux = loss_fn(tree_unflatten(params, leaves))
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g.to(t.dtype) for g, t in zip(grads, leaves)]
+    if dp_mesh is not None and dp_mesh.dp > 1:
+        from ..parallel.mesh import all_reduce_
+        loss = loss.detach()
+        all_reduce_(dp_mesh, grads + [loss] + _aux_tensors(aux), axis="dp")
     return loss, aux, tree_unflatten(params, grads)
 
 

@@ -58,17 +58,13 @@ def _grads(params: dict, losses_fn: Callable, dp_mesh=None):
     """(grads tree, loss, per-field losses) of the mean of
     ``losses_fn(params)``; leaves the loss does not reach get zeros.  Under
     a dp mesh ``losses_fn`` gives this rank's share of the global losses:
-    the gradients and the losses are summed over the dp group (one
-    all-reduce a dtype), so every rank holds the global ones (under tp,
-    those of its shards)."""
+    the gradients and the losses are summed over the dp group
+    (``optim.value_and_grad``), so every rank holds the global ones."""
     def loss_fn(p):
         losses = losses_fn(p)
-        return losses.mean(), losses
-    loss, losses, grads = optim.value_and_grad(loss_fn, params)
-    loss, losses = loss.detach(), losses.detach()
-    if dp_mesh is not None and dp_mesh.dp > 1:
-        all_reduce_(dp_mesh, optim.tree_leaves(grads) + [loss, losses], axis="dp")
-    return grads, loss, losses
+        return losses.mean(), losses.detach()
+    loss, losses, grads = optim.value_and_grad(loss_fn, params, dp_mesh)
+    return grads, loss.detach(), losses
 
 
 def _scaled(grads: dict, scale: float) -> dict:

@@ -5,6 +5,8 @@ width.  Needs a card a rank:
     python3 scripts/dp_nccl.py            # dp: 2 ranks, and 4 where there are 4 cards
     python3 scripts/dp_nccl.py --tp       # tp: tp = 2, and tp = 4 and dp = 2 x tp = 2
                                           # where there are 4 cards
+    python3 scripts/dp_nccl.py --rl       # the RL steps: tp = 2, and tp = 4 and
+                                          # dp = 2 x tp = 2 where there are 4 cards
 
 dp: ``chip_smoke.py``'s phases 34-35 (``dp_rank``, gated by
 ``dp_gate_failures``) with rank r on card r, B=32 x S=512 global at 2 ranks
@@ -18,6 +20,16 @@ control) and 38's 8 greedy songs of 256 tokens against one process; tp = 4
 at B=8 on the F route; dp = 2 x tp = 2 at B=16 on the F route at f32 and
 bf16; then ``cli pretrain --tp 2`` (4 steps), ``cli pretrain --dp 2 --tp 2``
 and ``cli generate --tp 2`` (8 songs) on CUDA over NCCL.
+
+rl: phases 39-40 (``rl_rank``, gated by ``rl_gate_failures``) with rank r
+on card r: tp = 2 (the DQN update, the discriminator step at 100 x 50 and
+4 x 2048, a DQN rollout song), dp = 2 x tp = 1 under RLMG_FFN_BACKEND=pallas
+(the graphed DQN and PPO rollouts, the DQN update, the PPO step), tp = 4
+(the update and both discriminator steps), dp = 2 x tp = 2 (the PPO
+rollout song and update step, the DQN update with control (i), the
+discriminator step), each against one process; then ``cli dqn-train --tp
+2`` and ``cli ppo-train --dp 2 --tp 2`` (``RL_CLI``'s flags) on CUDA over
+NCCL (``chip_smoke.rl_cli_rank``: the ranks' trees and generator digested).
 
 Builds the kernels first (``ops/_build.py``).  Prints the cards' name and
 power limit beside the readings; exits non-zero where a gate fails.
@@ -59,9 +71,33 @@ def _cli_generate(cli, tmp, smi_line, flags):
                      f"cli generate {flags}: {res}")
 
 
+def _cli_rl(tmp, smi_line, cmd, dp, tp):
+    """``cmd`` on dp x tp NCCL ranks, a card each, through
+    ``chip_smoke.rl_cli_rank`` (the command's own rank body, then the
+    ranks' digests of their trees and generator)."""
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    out = os.path.join(tmp, cmd)
+    flags = ["--dp", str(dp), "--tp", str(tp)]
+    argv = [cmd, *chip_smoke.RL_CLI[cmd], *flags, "--exp-dir", os.path.join(out, "e"),
+            "--ckpt-dir", os.path.join(out, "c")]
+    ranks = pm.launch(chip_smoke.rl_cli_rank, dp * tp, (argv, dp * tp), backend="nccl",
+                      timeout_s=900)
+    res = ranks[0]["res"]
+    med = lambda v: sorted(v)[len(v) // 2]
+    print(f"[nccl] cli {cmd} {' '.join(flags)}: ms per rollout song {res['rollout_ms']} "
+          f"(median {med(res['rollout_ms']):.1f}), ms per update {res['update_ms']}, metrics "
+          f"{res['metrics']}, digests {res['digests']}, runs {chip_smoke.RL_RUNS} a rank "
+          f"{[r['runs'] for r in ranks]} ({smi_line})", flush=True)
+    chip_smoke.check(bool(res["metrics"]) and all(
+        math.isfinite(v) for m in res["metrics"] for v in m.values())
+        and all(len(set(d)) == 1 for d in res["digests"].values()), f"cli {cmd} {flags}: {res}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tp", action="store_true", help="the tensor-parallel runs (else dp)")
+    ap.add_argument("--rl", action="store_true",
+                    help="the RL steps and commands on the mesh (else dp)")
     args = ap.parse_args()
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
@@ -79,6 +115,19 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t:.1f}s", flush=True)
     e2w, _ = tokenizer.drop_type(tokenizer.construct_cp_dict())
     cfg = C.agent_config(tuple(tokenizer.n_classes(e2w)))
+    if args.rl:
+        meshes = [dict(phase="39n", dp=1, tp=2, steps=("dqn", "disc", "disc_long", "rollout")),
+                  dict(phase="40bn", dp=2, tp=1, ffn="pallas", steps=("rollout", "dqn", "ppo"))]
+        if n_cards >= 4:
+            meshes += [dict(phase="39n4", dp=1, tp=4, steps=("dqn", "disc", "disc_long")),
+                       dict(phase="40n", dp=2, tp=2, steps=("ppo", "dqn", "control", "disc"))]
+        chip_smoke.rl_run(cfg, smi_line, backend="nccl", meshes=meshes)
+        with tempfile.TemporaryDirectory() as tmp:
+            _cli_rl(tmp, smi_line, "dqn-train", 1, 2)
+            if n_cards >= 4:
+                _cli_rl(tmp, smi_line, "ppo-train", 2, 2)
+        print("dp_nccl --rl: ok", flush=True)
+        return
     if args.tp:
         base = {"cfg": dict(vocab_sizes=cfg.vocab_sizes), "S": 512, "valid_tail": 100}
         meshes = [dict(base, phase="36n", dp=1, tp=2, B=8, routes=("plain", "f"), control=True,

@@ -338,3 +338,44 @@ def test_bf16_bounds_count_two_bytes_an_element(smoke, shape):
     assert (e16_ops, eb16_ops) == (e_ops, eb_ops)
     assert e_b - fixed == 16 * n and e16_b - fixed == 8 * n
     assert eb_b - fixed == 32 * n and eb16_b - fixed == 16 * n
+
+
+def _rl_readings(control_loss, margin, flip=True, digests=("a", "a"), g_ran=False):
+    """Two ranks' phase-39/40 readings (``rl_rank``'s layout): a DQN step
+    within the gates, the control step with ``control_loss`` relative loss,
+    a rollout whose actions part from one process's at one field where one
+    process's top-2 margin is ``margin`` (or do not part); kernel G's runs
+    those of F (``g_ran``) or none."""
+    ok = {"loss": 1e-7, "grads": (1e-6, "/w"), "params": (1e-6, "/w"),
+          "params_leaf": (1e-6, "/w"), "updates": (1e-6, "/w"), "updates_seen": 1}
+    bad = dict(ok, loss=control_loss, grads=(control_loss, "/w"))
+    apart = {"at": (3, 1, 2), "margins": (([1, 2], 1e-6), ([2, 1], margin))} if flip else None
+    runs = lambda f: f + [0, 0] + (f if g_ran else [0, 0])
+    steps = {"dqn": {"runs": runs([36, 24]), "loss": 1.0, "errors": ok,
+                     "digests": list(digests)},
+             "control": {"runs": runs([36, 24]), "loss": 1.3, "errors": bad,
+                         "digests": list(digests)},
+             "rollout": {"runs": runs([600, 0]), "actions_equal": not flip, "apart": apart}}
+    return [{"rank": r, "steps": steps} for r in range(2)]
+
+
+@pytest.mark.parametrize("control_loss,margin,flip,digests,ffn,g_ran,n_fails", [
+    (0.28, 1e-4, True, ("a", "a"), None, False, 0),   # the card's reading; a flip at a near-tie
+    (0.28, 1e-4, False, ("a", "a"), None, False, 0),
+    (1e-7, 1e-4, False, ("a", "a"), None, False, 1),  # a control inside the gates
+    (0.28, 0.05, True, ("a", "a"), None, False, 2),   # a flip off a tie, on each rank
+    (0.28, 1e-4, False, ("a", "b"), None, False, 1),  # the ranks' parameters apart
+    (0.28, 1e-4, False, ("a", "a"), "pallas", True, 0),   # G wherever F ran (phase 40b)
+    (0.28, 1e-4, False, ("a", "a"), "pallas", False, 6),  # G asked for and not run
+    (0.28, 1e-4, False, ("a", "a"), None, True, 6)])      # G run where it was not asked for
+def test_rl_gates_refuse_a_blind_control_a_flip_off_a_tie_and_ranks_apart(
+        smoke, control_loss, margin, flip, digests, ffn, g_ran, n_fails):
+    """Phases 39-40's gates (``rl_gate_failures``): the control (each rank's
+    own MSE mean) must end outside the loss and gradient gates; an action
+    apart from one process's passes only where one process's top-2 margin
+    is under 1e-3; the ranks' parameters are bit-equal; under
+    RLMG_FFN_BACKEND=pallas kernel G runs on every rank wherever F does,
+    and otherwise nowhere."""
+    fails = smoke.rl_gate_failures(_rl_readings(control_loss, margin, flip, digests, g_ran),
+                                   {"n_layer": 12, "ffn": ffn})
+    assert len(fails) == n_fails, fails

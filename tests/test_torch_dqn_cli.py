@@ -64,7 +64,7 @@ def test_dqn_train_on_cpu_writes_what_jax_reads(monkeypatch, tmp_path, route):
 def test_dqn_train_reads_a_jax_pretrain_checkpoint(tmp_path):
     """A JAX checkpoint of agent params goes in through --pretrain-ckpt; with
     one song (the buffer never fills, no update) dqn_last.ckpt holds those
-    params unchanged.  --dp / --tp > 1 raise."""
+    params unchanged (under --dp / --tp: tests/test_torch_rl_parallel.py)."""
     rng = np.random.default_rng(0)
     params = jax.tree_util.tree_map(
         lambda s: (rng.standard_normal(s.shape) * 0.02).astype(np.float32), _template())
@@ -76,6 +76,3 @@ def test_dqn_train_reads_a_jax_pretrain_checkpoint(tmp_path):
                                params_template=_template())["params"]
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(params)):
         np.testing.assert_array_equal(np.asarray(a), b)
-    for flag in ("--dp", "--tp"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            tcli.main(_flags(tmp_path, flag, "2"))

@@ -1718,3 +1718,23 @@ def test_tp_f_route_step_on_two_ranks_of_one_card(dev, monkeypatch):
             "dp": 1, "tp": 2, "B": 4, "S": 128, "valid_tail": 20, "routes": ("f",)}
     res = pm.launch(chip_smoke.tp_rank, 2, (spec,), timeout_s=300)
     assert chip_smoke.tp_gate_failures(res, 2, VOCAB, spec) == []
+
+
+@pytest.mark.gpu
+def test_rl_tp_update_on_two_ranks_of_one_card(dev, monkeypatch):
+    """chip_smoke.py phase 39 at two layers (the flagship width; the
+    discriminator at one): dp = 1 x tp = 2, two gloo ranks on the one card,
+    each on its shards, under RLMG_ATTN_BACKEND=pallas
+    RLMG_WINDOW_BACKEND=pallas: one DQN update (kernel F on (30, 4, 50, 64),
+    3 forwards and 2 backwards a layer), the discriminator step on 4 x 2048
+    (kernel E on (4, 4, 2048, 64) forward and backward) and a rollout song
+    (F once a layer an episode), each within the loss and gradient gates of
+    one process on the same route, the actions equal, the ranks' parameters
+    bit-equal (``chip_smoke.rl_gate_failures``)."""
+    import os
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    spec = {"phase": 39, "dp": 1, "tp": 2, "n_layer": 2, "steps": ("dqn", "disc_long", "rollout")}
+    res = pm.launch(chip_smoke.rl_rank, 2, (spec,), timeout_s=600)
+    assert chip_smoke.rl_gate_failures(res, spec) == []

@@ -404,15 +404,13 @@ def test_cli_generate_dp2_cpu(tmp_path, monkeypatch):
 
 def test_mesh_refusals(monkeypatch):
     """make_mesh without a group raises, at any tp; the CLI's unported mesh
-    flags name their items (tp is ported for pretrain and generate,
-    tests/test_torch_tensor_parallel.py; the RL commands' dp and tp wait
-    for 9(b2)); ZeRO-1 needs dp > 1, as in JAX."""
+    flag names its item (dp and tp are ported for every command that takes
+    them: tests/test_torch_tensor_parallel.py, tests/test_torch_rl_parallel.py);
+    ZeRO-1 needs dp > 1, as in JAX."""
     for dp, tp in ((2, 2), (2, 1)):
         with pytest.raises(RuntimeError, match="process group"):
             pm.make_mesh(dp, tp)
-    for argv, item in ((["dqn-train", "--tp", "2"], "9(b2)"), (["pretrain", "--pp", "2"], "9(d)"),
-                       (["ppo-train", "--tp", "2"], "9(b2)"), (["dqn-train", "--dp", "2"], "9(b2)"),
-                       (["ppo-train", "--dp", "2"], "9(b2)")):
+    for argv, item in ((["pretrain", "--pp", "2"], "9(d)"),):
         with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
             tcli.main(argv + ["--device", "cpu"])
     params = tlt.init_params(TC.LinearTransformerConfig(**W.KW), device="cpu")

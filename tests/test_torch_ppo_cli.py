@@ -80,8 +80,8 @@ def test_ppo_train_and_inference_read_my_pretrain_checkpoints(monkeypatch, tmp_p
     my-pretrain go in through --pretrain-actor / --pretrain-reward; the
     actor keeps its checkpoint's depth (ppo_best.ckpt holds 2 layers, read
     by the JAX package), as the JAX layer scan runs the checkpoint's layers.
-    inference --ckpt reads the same actor checkpoint.  --dp / --tp > 1
-    raise."""
+    inference --ckpt reads the same actor checkpoint (ppo-train under --dp /
+    --tp: tests/test_torch_rl_parallel.py)."""
     actor = _my_pretrain(monkeypatch, tmp_path / "actor", "--layers", "2")
     reward = _my_pretrain(monkeypatch, tmp_path / "reward", "--reward-pretrain",
                           "--reward-layers", "1")
@@ -96,9 +96,6 @@ def test_ppo_train_and_inference_read_my_pretrain_checkpoints(monkeypatch, tmp_p
                      "--ckpt", actor, "--out", str(out)])
     assert inf["tokens"] == inf["notes"] == 12
     assert out.read_bytes()[:4] == b"MThd"
-    for flag in ("--dp", "--tp"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            tcli.main(_flags(tmp_path, flag, "2"))
 
 
 def test_inference_on_cpu_writes_its_midi(tmp_path):

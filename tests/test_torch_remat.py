@@ -85,10 +85,10 @@ def test_a_recompute_that_draws_new_masks_is_seen(monkeypatch):
     _, g_ok, s_ok = _step(params, cfg, batch, torch.Generator().manual_seed(7), torch.float32)
     layer = tlt._layer_forward
 
-    def naive(cfg_, h, lp, generator, deterministic, attn_backend, dp_mesh=None):
+    def naive(cfg_, h, lp, generator, deterministic, attn_backend, dp_mesh=None, rows=(0, 1)):
         return torch.utils.checkpoint.checkpoint(
             lambda h_, lp_: layer(cfg_, h_, lp_, generator, deterministic, attn_backend,
-                                  dp_mesh), h, lp, use_reentrant=False)
+                                  dp_mesh, rows), h, lp, use_reentrant=False)
 
     monkeypatch.setattr(tlt, "_remat_layer", naive)
     _, g_bad, s_bad = _step(params, cfg, batch, torch.Generator().manual_seed(7), torch.float32)

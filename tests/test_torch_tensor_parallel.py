@@ -38,6 +38,7 @@ from reinforcement_learning_in_music_generation_torch import weights as tw
 from reinforcement_learning_in_music_generation_torch.apps import cli as tcli
 from reinforcement_learning_in_music_generation_torch.generate import sampler as tsam
 from reinforcement_learning_in_music_generation_torch.models import linear_transformer as tlt
+from reinforcement_learning_in_music_generation_torch.models import longformer as tlf
 from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
 from reinforcement_learning_in_music_generation_torch.train import optim as topt
 from reinforcement_learning_in_music_generation_torch.train import pretrain as tpre
@@ -452,9 +453,9 @@ def test_cli_generate_tp2_cpu(launched, work, tmp_path):
 def test_tp_refusals(monkeypatch):
     """A tp that does not divide the heads, d_inner, d_model or an embedding
     raises ValueError before any collective (a mesh object with no group);
-    the fused decode refuses tp; the CLI's unported mesh flags name their
-    items: the RL commands' --dp / --tp (9(b2)), --pp (9(d)); --continuous
-    refuses --tp; the orbax checkpoint raises (9(e))."""
+    the Longformer checks its own config the same way; the fused decode
+    refuses tp; the CLI's unported mesh flag names its item: --pp (9(d));
+    --continuous refuses --tp; the orbax checkpoint raises (9(e))."""
     fake = pm.Mesh({"dp": 1, "tp": 3}, 0, torch.device("cpu"), "gloo")
     params = tlt.init_params(W.CFG, device="cpu")
     x, y, m = (torch.from_numpy(a) for a in jds.synthetic_cp_dataset(2, S, n_class=VOCAB))
@@ -468,12 +469,16 @@ def test_tp_refusals(monkeypatch):
     with pytest.raises(ValueError, match="emb_sizes"):
         tlt.check_tp(dataclasses.replace(W.CFG, emb_sizes=(8, 8, 8, 8, 8, 6), n_head=4,
                                          d_inner=64), 4)
+    wcfg = TC.WindowTransformerConfig(vocab_sizes=VOCAB, emb_sizes=(8,) * 6, d_model=16,
+                                      n_layer=1, n_head=2, d_inner=32, max_pos=64,
+                                      attention_window=8)
+    with pytest.raises(ValueError, match="n_head"):
+        tlf.forward(tlf.init_params(wcfg, device="cpu"), wcfg, x.long(), mesh=fake)
     two = pm.Mesh({"dp": 1, "tp": 2}, 0, torch.device("cpu"), "gloo")
     with pytest.raises(ValueError, match="fused"):
         tsam.generate_tokens(params, W.CFG, torch.zeros((1, 1, 6), dtype=torch.int32),
                              max_tokens=2, fused=True, mesh=two)
-    for argv, item in ((["dqn-train", "--tp", "2"], "9(b2)"), (["ppo-train", "--tp", "2"], "9(b2)"),
-                       (["dqn-train", "--dp", "2"], "9(b2)"), (["pretrain", "--pp", "2"], "9(d)")):
+    for argv, item in ((["pretrain", "--pp", "2"], "9(d)"),):
         with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
             tcli.main(argv + ["--device", "cpu"])
     with pytest.raises(SystemExit, match="--continuous"):

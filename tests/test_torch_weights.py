@@ -187,8 +187,9 @@ def test_write_midi_cp_bytes_match_jax(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port (nor the GPU smoke test, nor the rank functions
-    that tests/test_torch_parallel.py and tests/test_torch_tensor_parallel.py
+    """No module of the port (nor the GPU smoke test, the NCCL script, nor
+    the rank functions that tests/test_torch_parallel.py,
+    tests/test_torch_tensor_parallel.py and tests/test_torch_rl_parallel.py
     spawn) imports jax or the JAX package, at the top or inside a
     function."""
     import re
@@ -196,7 +197,9 @@ def test_port_imports_no_jax():
     pat = re.compile(r"(import|from) +(jax|reinforcement_learning_in_music_generation_tpu)\b")
     files = [os.path.join(root, "chip_smoke.py"),
              os.path.join(root, "tests", "torch_dp_workers.py"),
-             os.path.join(root, "tests", "torch_tp_workers.py")]
+             os.path.join(root, "tests", "torch_tp_workers.py"),
+             os.path.join(root, "tests", "torch_rl_workers.py"),
+             os.path.join(root, "scripts", "dp_nccl.py")]
     pkg = os.path.join(root, "reinforcement_learning_in_music_generation_torch")
     for d, _, names in os.walk(pkg):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
