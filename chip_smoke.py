@@ -342,6 +342,30 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      equal, the checkpoints whole, F run on every rank; ms per rollout song
      and update beside one process's with the same flags; prints the three
      phases' time.
+ 42. sequence parallelism (``sp_run`` -> ``sp_rank``, two gloo ranks on card
+     0): q, k, v (32, 8, 512, 64) f32 split over sp = 2, each rank's half
+     through ``causal_linear_attention_sp(backend="pallas")`` forward and
+     backward (kernel F on (32, 8, 256, 64), its den cotangent added
+     outside it): F's calls and own runs 1 + 1 on each rank; the gathered
+     out and dq / dk / dv within phase 11's F gates of one process's
+     kernel-F call on the whole sequence; the controls (an inclusive
+     prefix; a gather whose backward keeps the rank's own cotangent) outside
+     them; ms a call on the ranks beside one process's.
+ 43. pipeline parallelism (``pp_run`` -> ``pp_rank``, gloo ranks on card 0,
+     agent_config, B=32 x S=512, dropout 0, RLMG_FFN_BACKEND=pallas-tail):
+     one pipeline step (m = 2 pp microbatches, the GPipe backward, Adam with
+     the clip by the whole gradient's norm) at pp = 2 and at dp = 2 x pp = 2:
+     kernel D 12 / pp x m times forward and backward on every stage, no
+     other kernel; within phase 36's step gates of one process's
+     agent_train_step on the same route; the replicated leaves bit-equal on
+     every rank; the control (the heads' gradients counted pp times) outside
+     the gates; at pp = 2 the same step under RLMG_FFN_BACKEND=pallas
+     (kernel G 12 / pp x m times on every stage, the same gates) and one
+     dropout-0.1 step at f32 and at bf16 (finite losses, equal on the
+     ranks); ms a step beside one process's.
+ 44. ``cli pretrain --pp 2 --dp 2`` (4 layers, one 8 x 512 batch) on gloo
+     ranks sharing card 0: finite losses, a whole-tree checkpoint from rank
+     0, and ``cli pretrain`` at pp 1 resuming from it.
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
@@ -583,8 +607,12 @@ def token_graph_window(sampler, params, cfg, dev, b=5, steps=64) -> dict:
 def rollout_window(run) -> dict:
     """One call of ``run`` (a rollout song) under torch.profiler: the wall
     ms, the kernels' union ms, the busy share (union / wall) and the host's
-    launch calls (runtime or driver kernel launches and graph launches)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    launch calls (runtime or driver kernel launches and graph launches).
+    The CUDA activity alone: it records the runtime's launch calls and the
+    kernels, and not the CPU operators, whose 10^5 events in an eager song
+    took the profiler 30 s to parse and added half the song's wall (the
+    same launch counts and union either way, one DQN song on the card)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t = time.perf_counter()
@@ -3460,6 +3488,489 @@ def rl_run(cfg, smi_line, *, backend: str = "gloo", meshes=None, n_layer: int = 
     return found
 
 
+# -- sequence and pipeline parallelism: phases 42-44 ---------------------------
+# kernel F in each sp rank's call; kernel D in each pipeline stage
+SP_SHAPE = (32, 8, 512, 64)      # the pretrain shape (B, H, S, E)
+PP_ROUTE = {"RLMG_FFN_BACKEND": "pallas-tail", "RLMG_ATTN_BACKEND": "xla"}
+# phase 11's gates of kernel F against its twin: out within 1e-4 of its
+# magnitude, the gradients within 1e-3 of theirs
+SP_GATES = {"out": 1e-4, "dq": 1e-3, "dk": 1e-3, "dv": 1e-3}
+
+
+def _rank_mesh(spec: dict, shape: dict):
+    """The named mesh of ``shape`` for a rank of ``spec``: over nccl rank r
+    on card r, else over gloo every rank on ``spec["device"]`` (card 0; "cpu"
+    rehearses on the kernels' plain versions)."""
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    if spec.get("backend", "gloo") == "nccl":
+        return pm.named_mesh(shape)
+    dev = torch.device(spec.get("device", "cuda:0"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return pm.named_mesh(shape, devices=[dev] * math.prod(shape.values()), backend="gloo")
+
+
+def sp_errors(out, grads, ref_out, ref_grads) -> dict:
+    """max|diff| over the reference's magnitude, for out and dq, dk, dv."""
+    errs = {"out": max_err(out, ref_out) / magnitude(ref_out)}
+    errs.update({k: max_err(a, b) / magnitude(b)
+                 for k, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)})
+    return errs
+
+
+def sp_rank(spec: dict) -> dict:
+    """Phase 42 on one rank of an sp mesh of ``spec["sp"]`` ranks: q, k, v
+    and the output's cotangent g at ``spec["shape"]`` (the whole sequence,
+    from one seed on every rank), the rank's shard of the sequence through
+    ``causal_linear_attention_sp(backend="pallas")`` forward and backward
+    (kernel F on (B, H, S / sp, E)): F's wrapper counts and its own runs
+    read around that call alone; the shards gathered, and on rank 0 the
+    one-process ``causal_linear_attention(backend="pallas")`` on the whole
+    sequence, the errors against it (``sp_errors``) and the two controls'
+    (an inclusive prefix; a gather whose backward keeps the rank's own
+    cotangent); then ms of the rank's call and of one process's."""
+    import torch.distributed as dist
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        linear_attention as tla, linear_attention_kernel as tlk)
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.parallel import tensor as ptn
+    n = spec["sp"]
+    mesh = _rank_mesh(spec, {"sp": n})
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    b, h, s, e = spec["shape"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v, g = (torch.randn((b, h, s, e), generator=gen, device=dev) for _ in range(4))
+    i, w = mesh.index("sp"), s // n
+    mine = [t[:, :, i * w:(i + 1) * w].contiguous() for t in (q, k, v, g)]
+
+    def call(qq, kk, vv, gg, fn=None):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (qq, kk, vv)]
+        out = (fn or (lambda *a: tla.causal_linear_attention_sp(*a, mesh, "sp",
+                                                                backend="pallas")))(*leaves)
+        out.backward(gg)
+        return out.detach(), [t.grad for t in leaves]
+
+    def whole(out, grads):
+        return [torch.cat(pm.all_gather(mesh, t, axis="sp"), dim=2) for t in [out] + grads]
+
+    f = tlk.causal_product
+    f.launches_fwd = f.launches_bwd = 0
+    if cuda:
+        tlk.kernel_runs(reset=True)
+    res = call(*mine)
+    sync()
+    out = {"rank": mesh.rank, "index": i, "backend": mesh.backend,
+           "counts": [f.launches_fwd, f.launches_bwd],
+           "runs": list(tlk.kernel_runs()) if cuda else [0, 0]}
+    got = whole(*res)
+    controls = {}
+    keep = tla.prefix_weights
+    tla.prefix_weights = lambda n_, idx, dtype, device: (
+        torch.arange(n_, device=device) <= idx).to(dtype)
+    try:
+        controls["inclusive_prefix"] = whole(*call(*mine))
+    finally:
+        tla.prefix_weights = keep
+
+    class OwnSlot(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, mesh_, axis):
+            ctx.i = mesh_.index(axis)
+            return torch.stack(pm.all_gather(mesh_, x, axis=axis))
+
+        @staticmethod
+        def backward(ctx, gg):
+            return gg[ctx.i], None, None
+    keep = ptn.gather_over
+    ptn.gather_over = lambda x, mesh_, axis: OwnSlot.apply(x, mesh_, axis)
+    try:
+        controls["no_reduce_scatter"] = whole(*call(*mine))
+    finally:
+        ptn.gather_over = keep
+    if mesh.rank == 0:
+        ref_out, ref_grads = call(q, k, v, g, lambda *a: tla.causal_linear_attention(
+            *a, backend="pallas"))
+        out["errors"] = sp_errors(got[0], got[1:], ref_out, ref_grads)
+        out["controls"] = {c: sp_errors(t[0], t[1:], ref_out, ref_grads)
+                           for c, t in controls.items()}
+    del got, controls
+    dist.barrier()
+    out["ms"] = time_ms(lambda: call(*mine), spec.get("reps", 5)) if cuda else None
+    dist.barrier()
+    if mesh.rank == 0 and cuda:
+        out["ms_single"] = time_ms(lambda: call(q, k, v, g, lambda *a: (
+            tla.causal_linear_attention(*a, backend="pallas"))), spec.get("reps", 5))
+    dist.barrier()
+    return out
+
+
+def sp_gate_failures(res: list, spec: dict) -> list:
+    """Phase 42's gates: F's wrapper called once forward and once backward
+    and run as often on every rank, the sp result within ``SP_GATES`` of one
+    process's, each control outside them."""
+    fails = []
+    for r in res:
+        if r["counts"] != [1, 1] or (spec.get("device", "cuda:0") != "cpu"
+                                     and r["runs"] != [1, 1]):
+            fails.append(f"rank {r['rank']}: F's calls {r['counts']}, its runs {r['runs']}, "
+                         "expected [1, 1] each")
+    e = res[0]["errors"]
+    bad = {k: v for k, v in e.items() if not v <= SP_GATES[k]}
+    if bad:
+        fails.append(f"sp against one process: {bad} above {SP_GATES}")
+    for name, c in res[0]["controls"].items():
+        if all(v <= SP_GATES[k] for k, v in c.items()):
+            fails.append(f"the control {name} passes the sp gates: {c}")
+    return fails
+
+
+def sp_run(smi_line, *, backend: str = "gloo", n: int = 2, shape=SP_SHAPE) -> dict:
+    """Phase 42: ``sp_rank`` on ``n`` ranks (gloo all on card 0, or nccl a
+    card each); prints the readings, fails on ``sp_gate_failures``."""
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    spec = {"sp": n, "shape": shape, "backend": backend}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res = pm.launch(sp_rank, n, (spec,), backend=backend, timeout_s=600)
+    wall = time.perf_counter() - t
+    r0 = res[0]
+    print(f"[sp] 42: causal_linear_attention_sp(backend='pallas') on sp = {n} over {backend} "
+          f"({smi_line}): {wall:.1f}s with the ranks' start; q, k, v {shape}, a rank's shard "
+          f"{shape[:2] + (shape[2] // n,) + shape[3:]}; F's calls (fwd, bwd) a rank "
+          f"{[r['counts'] for r in res]}, its runs {[r['runs'] for r in res]}; against one "
+          f"process's kernel-F call on the whole sequence (max|diff| / magnitude): "
+          f"{ {k: f'{v:.3e}' for k, v in r0['errors'].items()} }; controls "
+          + "; ".join(f"{c}: { {k: f'{v:.3e}' for k, v in e.items()} }"
+                      for c, e in r0["controls"].items())
+          + f"; ms a call fwd + bwd on the ranks {[r['ms'] for r in res]}, one process on the "
+          f"whole sequence {r0.get('ms_single')}", flush=True)
+    fails = sp_gate_failures(res, spec)
+    check(not fails, f"sp over {backend}, phase 42: " + "; ".join(fails))
+    return {"res": res, "wall_s": wall}
+
+
+def pp_rank(spec: dict) -> dict:
+    """Phase 43 on one rank of a (dp, pp) mesh of ``spec["dp"]`` x
+    ``spec["pp"]`` ranks under ``PP_ROUTE`` (kernel D in every stage): the
+    config's keywords ("cfg"), the global batch "B" x "S" (the second half's
+    rows masked after "valid_tail" positions).  One f32 pipeline step
+    (dropout 0, m = 2 pp microbatches, the grad step, the clip by the
+    mesh's norm, Adam) with the kernels' wrapper counts read around it, the
+    whole trees gathered; a digest of the rank's replicated leaves after
+    it; rank 0 also takes one process's ``agent_train_step`` on the whole
+    batch on the same route and holds the step against it
+    (``step_errors``), and, with "control", the step whose heads' and
+    final_ln's gradients are counted pp times.  "g_route": the same step
+    and its check under RLMG_FFN_BACKEND=pallas (kernel G in every stage).
+    "dropout": dtypes of one step each at dropout 0.1 (the losses);
+    "times": ms a pipeline step and one process's."""
+    import dataclasses
+    import hashlib
+    import torch.distributed as dist
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.data import dataset
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.parallel import pipeline as ppl
+    from reinforcement_learning_in_music_generation_torch.parallel import sharding as psh
+    from reinforcement_learning_in_music_generation_torch.train import (
+        optim as topt, pretrain as tpre)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for k_ in ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND", "RLMG_WINDOW_BACKEND", "RLMG_FFN_MIN_ROWS"):
+        os.environ.pop(k_, None)
+    os.environ.update(PP_ROUTE)
+    dp, pp = spec["dp"], spec["pp"]
+    mesh = _rank_mesh(spec, {"dp": dp, "pp": pp, "tp": 1})
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rank = mesh.rank
+    out = {"rank": rank, "index": (mesh.dp_index, mesh.pp_index), "backend": mesh.backend}
+    counters = train_counters()
+    cfg = C.LinearTransformerConfig(**spec["cfg"], dropout=0.0)
+    p0 = lt.init_params(cfg, seed=0, device=dev)
+    mine_p = ppl.shard_params_pp(mesh, topt.tree_map(torch.clone, p0))
+    b, s_len, tail = spec["B"], spec["S"], spec["valid_tail"]
+    x, y, m = dataset.synthetic_cp_dataset(b, s_len, n_class=cfg.vocab_sizes, seed=0)
+    m = np.ones_like(m, dtype=np.float32)
+    m[b // 2:, tail:] = 0.0
+    full = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (x.astype(np.int64), y.astype(np.int64), m))
+    tx = topt.adam(1e-4, grad_clip=3.0)
+    m_mb = ppl.n_microbatches(cfg, mesh, b)
+    out["microbatches"] = m_mb
+    out["rows_a_microbatch"] = b // (dp * m_mb) * s_len
+
+    def digest(tree) -> str:
+        h_ = hashlib.sha256()
+        for path, t in sorted(named_leaves(tree).items()):
+            if not path.startswith("/layers"):
+                h_.update(t.detach().float().cpu().numpy().tobytes())
+        return h_.hexdigest()[:16]
+
+    def readings(loss, losses, prm, grads, updates):
+        return [float(loss), losses.cpu(), named_leaves(prm), named_leaves(grads),
+                named_leaves(updates)]
+
+    def route_step(route: dict, control: bool) -> dict:
+        """The main path's step on ``route`` (the counts set to 0 just before
+        it, read after it), the ranks' losses and replicated digests; on
+        rank 0 the errors against one process's step on the same route
+        (and the control's, with ``control``)."""
+        os.environ.update(route)
+        res = {}
+        prm = topt.tree_map(torch.clone, mine_p)
+        st = tx.init(prm)
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        grads, (loss, losses) = tpre.agent_pp_grad_step(prm, cfg, *full, None, mesh=mesh)
+        updates, _ = tx.update(grads, st, prm, mesh=mesh)
+        prm = topt.apply_updates(prm, updates)
+        sync()
+        res["counts"] = [getattr(fn, attr) for fn, attr in counters]
+        pp_out = readings(loss, losses, psh.gather_params(mesh, prm),
+                          psh.gather_params(mesh, grads), psh.gather_params(mesh, updates))
+        ctl = None
+        if control:
+            # every stage's heads run, their gradients summed over pp
+            twice = topt.tree_map(torch.clone, grads)
+            for key in ("heads", "final_ln"):
+                twice[key] = topt.tree_map(lambda t: t * pp, twice[key])
+            prm_c = topt.tree_map(torch.clone, mine_p)
+            upd_c, _ = tx.update(twice, tx.init(prm_c), prm_c, mesh=mesh)
+            prm_c = topt.apply_updates(prm_c, upd_c)
+            ctl = readings(loss, losses, psh.gather_params(mesh, prm_c),
+                           psh.gather_params(mesh, twice), psh.gather_params(mesh, upd_c))
+            del prm_c, upd_c, twice
+        res["loss_ranks"] = pm.all_gather_object(mesh, float(loss), axis="world")
+        res["digests"] = pm.all_gather_object(mesh, digest(prm), axis="world")
+        del grads, updates, prm
+        dist.barrier()
+        if rank == 0:
+            prm = topt.tree_map(torch.clone, p0)
+            st = tx.init(prm)
+            grads, (loss1, losses1) = tpre.agent_grad_step(prm, cfg, *full, None)
+            updates, _ = tx.update(grads, st, prm)
+            prm = topt.apply_updates(prm, updates)
+            ref = readings(loss1, losses1, prm, grads, updates)
+            res["loss_single"] = float(loss1)
+            res["errors"] = step_errors(pp_out, ref)
+            if ctl is not None:
+                res["control_errors"] = step_errors(ctl, ref)
+            del prm, grads, updates, ref
+        del pp_out, ctl
+        dist.barrier()
+        return res
+
+    out.update(route_step(PP_ROUTE, bool(spec.get("control"))))
+    if spec.get("g_route"):
+        out["g"] = route_step({"RLMG_FFN_BACKEND": "pallas"}, False)
+    os.environ.update(PP_ROUTE)
+    out["dropout"] = {}
+    for dt in spec.get("dropout", ()):
+        dcfg = dataclasses.replace(cfg, dropout=0.1, dtype=dt)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7 + 7919 * (mesh.dp_index * pp + mesh.pp_index))
+        prm = topt.tree_map(torch.clone, mine_p)
+        prm, _, (ld, _) = tpre.agent_pp_train_step(prm, tx.init(prm), dcfg, tx, *full, gen,
+                                                   mesh=mesh)
+        out["dropout"][dt] = pm.all_gather_object(mesh, float(ld), axis="world")
+        del prm
+    if spec.get("times") and cuda:
+        def timed(step_fn, prm0, n=2):
+            prm_ = topt.tree_map(torch.clone, prm0)
+            st_ = tx.init(prm_)
+            prm_, st_, _ = step_fn(prm_, st_)
+            sync()
+            t = time.perf_counter()
+            for _ in range(n):
+                prm_, st_, _ = step_fn(prm_, st_)
+            sync()
+            return (time.perf_counter() - t) / n * 1e3
+        dist.barrier()
+        out["ms"] = timed(lambda p_, s_: tpre.agent_pp_train_step(p_, s_, cfg, tx, *full, None,
+                                                                  mesh=mesh), mine_p)
+        dist.barrier()
+        if rank == 0:
+            out["ms_single"] = timed(lambda p_, s_: tpre.agent_train_step(p_, s_, cfg, tx, *full,
+                                                                          None), p0)
+        dist.barrier()
+    return out
+
+
+def pp_gate_failures(res: list, spec: dict) -> list:
+    """Phase 43's gates over every rank's ``pp_rank`` readings: kernel D's
+    wrapper launched (n_layer / pp) x m times forward and backward on every
+    stage and no other kernel; the losses equal and finite on every rank;
+    the replicated leaves bit-equal on every rank after the step; the step
+    within ``STEP_GATES`` of one process's; the control outside them; the
+    dropout steps' losses finite and equal on every rank."""
+    fails = []
+    r0 = res[0]
+    n = spec["n_layer"] // spec["pp"] * r0["microbatches"]
+    for name, want, get in (("D", [0, 0, n, n] + [0] * 6, lambda r: r),
+                            ("G", [0] * 8 + [n, n], lambda r: r.get("g"))):
+        if get(r0) is None:
+            continue
+        for r in res:
+            if get(r)["counts"] != want:
+                fails.append(f"rank {r['rank']}, {name} route: launches (C, D, E, F, G "
+                             f"fwd/bwd) {get(r)['counts']}, expected {want}")
+        s0 = get(r0)
+        if len(set(s0["loss_ranks"])) != 1 or not all(math.isfinite(v)
+                                                       for v in s0["loss_ranks"]):
+            fails.append(f"{name} route: losses on the ranks {s0['loss_ranks']}")
+        if len(set(s0["digests"])) != 1:
+            fails.append(f"{name} route: the replicated leaves differ between the ranks: "
+                         f"{s0['digests']}")
+        bad = step_gate_failures(s0["errors"])
+        if bad:
+            fails.append(f"{name} route: pipeline step against one process: {bad}")
+    if "control_errors" in r0 and not step_gate_failures(r0["control_errors"]):
+        fails.append("the control (the heads' gradients counted pp times) passes the step gate")
+    for dt, losses in r0["dropout"].items():
+        if len(set(losses)) != 1 or not all(math.isfinite(v) for v in losses):
+            fails.append(f"dropout 0.1, {dt}: losses on the ranks {losses}")
+    return fails
+
+
+def pp_rank_cli(argv: list, world: int, device=None) -> dict:
+    """One rank of ``cli pretrain --pp`` on a mesh of ``world`` ranks: over
+    gloo every rank on ``device`` (phase 44), or with ``device`` None over
+    the process group's NCCL, rank r on card r (scripts/dp_nccl.py --pp);
+    the command runs on the rank's mesh as ``apps/cli.py``'s rank entry runs
+    it (rank 0 alone prints)."""
+    import contextlib
+    from reinforcement_learning_in_music_generation_torch.apps import cli
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    args = cli.build_parser().parse_args(argv)
+    shape = {"dp": args.dp, "pp": args.pp, "tp": args.tp}
+    if device is None:
+        mesh = pm.named_mesh(shape)
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = pm.named_mesh(shape, devices=[dev] * world, backend="gloo")
+    with open(os.devnull, "w") as null, \
+            contextlib.redirect_stdout(sys.stdout if mesh.rank == 0 else null):
+        return args.fn(args, mesh=mesh)
+
+
+PP_CLI = ["pretrain", "--synthetic", "--synthetic-songs", "8", "--batch-size", "8",
+          "--seq-len", "512", "--layers", "4"]
+
+
+def pp_cli_run(smi_line, *, dp: int = 2, pp: int = 2, device="cuda:0", backend="gloo") -> dict:
+    """Phase 44: ``cli pretrain --pp {pp} --dp {dp}`` (``PP_CLI``: 4 layers,
+    one 8 x 512 batch an epoch, one epoch) on gloo ranks sharing ``device``
+    (or NCCL a card a rank), then ``cli pretrain`` in this process at pp 1
+    resuming from its checkpoint for a second epoch; the checkpoint loaded
+    whole."""
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.apps import cli
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.utils.checkpoint import load_checkpoint
+    world = dp * pp
+    with tempfile.TemporaryDirectory() as tmp:
+        d = lambda *p: os.path.join(tmp, *p)
+        flags = ["--pp", str(pp), "--dp", str(dp)]
+        t = time.perf_counter()
+        res = pm.launch(pp_rank_cli, world, (PP_CLI + flags + [
+            "--device", device or "cuda", "--epochs", "1", "--exp-dir", d("e"),
+            "--ckpt-dir", d("c")], world, device), backend=backend, timeout_s=600)
+        wall = time.perf_counter() - t
+        names = sorted(os.listdir(d("c")))
+        ck = load_checkpoint(d("c", names[0]), params_template=lt.init_params(
+            C.agent_config(n_layer=4), device="cpu"), device="cpu") if names else None
+        shape = None if ck is None else tuple(ck["params"]["layers"]["ffn1"]["w"].shape)
+        resumed = cli.main(PP_CLI + ["--device", device or "cuda", "--epochs", "2", "--resume",
+                                     d("c", names[0]), "--exp-dir", d("e1"),
+                                     "--ckpt-dir", d("c1")]) if names else None
+    r0 = res[0]
+    found = {"res": r0, "wall_s": wall, "ckpt": names, "shape": shape, "resumed": resumed}
+    print(f"[pp] 44: cli pretrain {' '.join(flags)} over {backend} ({smi_line}): {wall:.1f}s with "
+          f"the ranks' start; {r0['steps']} step(s), batch losses {r0['batch_losses']}, history "
+          f"{r0['history']}, {r0['tokens_per_s']:.1f} tokens/s; checkpoints {names}, ffn1 "
+          f"{shape}; resumed at pp 1: history {resumed and resumed['history']}, steps "
+          f"{resumed and resumed['steps']}", flush=True)
+    fails = []
+    if not (r0["steps"] == 1 and r0["history"] and all(math.isfinite(v) for v in
+                                                       r0["history"] + r0["batch_losses"])):
+        fails.append(f"the pp run: {r0['steps']} steps, history {r0['history']}")
+    if shape != (4, 512, 2048):
+        fails.append(f"the checkpoint is not the whole tree: ffn1 {shape} ({names})")
+    if not (resumed and resumed["steps"] == 1 and len(resumed["history"]) == 1
+            and math.isfinite(resumed["history"][0])):
+        fails.append(f"the resume at pp 1: {resumed}")
+    check(not fails, "pp, phase 44: " + "; ".join(fails))
+    return found
+
+
+def pp_run(cfg, smi_line, *, backend: str = "gloo", meshes=None, cli: bool = True) -> dict:
+    """Phases 43-44: ``pp_rank`` on (dp, pp) meshes at ``cfg``'s width under
+    ``PP_ROUTE``, over gloo all on card 0 (43: pp = 2 with the control and
+    the dropout steps at f32 and bf16, then dp = 2 x pp = 2, each B = 32 x
+    512) or over nccl a card each (scripts/dp_nccl.py --pp); then (44)
+    ``pp_cli_run``.  Prints the readings, fails on the gates, returns each
+    mesh's readings."""
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    base = {"cfg": dict(vocab_sizes=cfg.vocab_sizes), "n_layer": cfg.n_layer, "B": 32,
+            "S": 512, "valid_tail": 100, "times": True}
+    if meshes is None:
+        meshes = [dict(base, phase=43, dp=1, pp=2, control=True, g_route=True,
+                       dropout=("float32", "bfloat16")),
+                  dict(base, phase="43b", dp=2, pp=2)]
+    found = {}
+    t_all = time.perf_counter()
+    for spec in meshes:
+        spec = dict(base, **spec, backend=backend)
+        world = spec["dp"] * spec["pp"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        res = pm.launch(pp_rank, world, (spec,), backend=backend, timeout_s=900)
+        wall = time.perf_counter() - t
+        r0 = res[0]
+        e = r0["errors"]
+        tag = f"[pp] {spec['phase']}: dp={spec['dp']} x pp={spec['pp']} over {backend}"
+        print(f"{tag} ({smi_line}): {wall:.1f}s with the ranks' start; {r0['microbatches']} "
+              f"microbatches of {r0['rows_a_microbatch']} rows; launches (C, D, E, F, G "
+              f"fwd/bwd) a rank {[r['counts'] for r in res]}; loss {r0['loss_ranks']} one "
+              f"process {r0['loss_single']:.7f}; against one process: loss {e['loss']:.2e}, "
+              f"gradients {e['grads'][0]:.3e} ({e['grads'][1]}), params {e['params'][0]:.3e}, "
+              f"updates {e['updates'][0]:.3e} ({e['updates'][1]}); replicated leaves' digests "
+              f"{r0['digests']}"
+              + (f"; control (heads counted pp times): gradients "
+                 f"{r0['control_errors']['grads'][0]:.3e} ({r0['control_errors']['grads'][1]})"
+                 if "control_errors" in r0 else "")
+              + (f"; dropout 0.1 losses {r0['dropout']}" if r0["dropout"] else "")
+              + (f"; under RLMG_FFN_BACKEND=pallas (kernel G): launches a rank "
+                 f"{[r['g']['counts'] for r in res]}, against one process: loss "
+                 f"{r0['g']['errors']['loss']:.2e}, gradients {r0['g']['errors']['grads'][0]:.3e}"
+                 f" ({r0['g']['errors']['grads'][1]}), params "
+                 f"{r0['g']['errors']['params'][0]:.3e}, updates "
+                 f"{r0['g']['errors']['updates'][0]:.3e}" if "g" in r0 else "")
+              + f"; ms a step {[round(r.get('ms') or float('nan'), 1) for r in res]}, one "
+              f"process {r0.get('ms_single', float('nan')):.1f}"
+              + ("; ranks sharing one card share its SMs, so these times say nothing of "
+                 "scaling" if backend == "gloo" else ""), flush=True)
+        fails = pp_gate_failures(res, spec)
+        check(not fails, f"pp over {backend}, phase {spec['phase']}: " + "; ".join(fails))
+        found[spec["phase"]] = {"res": res, "wall_s": wall}
+    if cli:
+        found[44] = pp_cli_run(smi_line, device="cuda:0" if backend == "gloo" else None,
+                               backend=backend)
+    print(f"[time] phases 43-44: {time.perf_counter() - t_all:.1f}s ({smi_line})", flush=True)
+    return found
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -4935,6 +5446,8 @@ def main() -> None:
     dp_run(cfg, smi_line)                                    # phases 34-35
     tp_found = tp_run(cfg, smi_line)                         # phases 36-38
     rl_found = rl_run(cfg, smi_line)                         # phases 39-41
+    sp_found = sp_run(smi_line)                              # phase 42
+    pp_found = pp_run(cfg, smi_line)                         # phases 43-44
 
     def tp_f_launches(dtype):
         """F's (fwd, bwd) wrapper launches on each rank of the tp steps of
@@ -5363,6 +5876,12 @@ def main() -> None:
          "library_ms": None, **{k: v for k, v in d32.items() if k != "bound_by"},
          "launches_bf16": sum(launches["D_bf16"]),
          "launches_discrim": sum(launches["D_discrim"]), "hmma": dg_mma["attn_tail"],
+         # phase 43: D's (fwd, bwd) on each pipeline stage, (n_layer / pp) x m
+         "launches_pp": {f"phase{ph}": [r["counts"][2:4] for r in v["res"]]
+                         for ph, v in pp_found.items() if ph != 44},
+         "pp_ms": {f"phase{ph}": {"ranks": [r.get("ms") for r in v["res"]],
+                                  "single": v["res"][0].get("ms_single")}
+                   for ph, v in pp_found.items() if ph != 44},
          "bf16": d_t["pretrain", torch.bfloat16],
          "longformer_shape": {"rows": ND, "d_inner": dcfg.d_inner,
                               **d_t["longformer", torch.float32],
@@ -5402,6 +5921,10 @@ def main() -> None:
          "pretrain_shape": f_t["pretrain"], "launches_pretrain": sum(launches["F_pretrain"]),
          "launches_tp": tp_f_launches("float32"),
          "launches_rl_mesh": rl_launches(0),
+         # phase 42: F's own runs (fwd, bwd) on each sp rank's (32, 8, 256, 64)
+         "launches_sp": {"phase42": [r["runs"] for r in sp_found["res"]]},
+         "sp_ms": {"ranks": [r["ms"] for r in sp_found["res"]],
+                   "single": sp_found["res"][0].get("ms_single")},
          "dqn_rollout_song": {k: {kk: vv for kk, vv in v.items() if "window" not in kk}
                               | {"busy_graphed": v["window_graphed"]["busy"],
                                  "busy_eager": v["window_eager"]["busy"],
@@ -5458,6 +5981,9 @@ def main() -> None:
          "launches_pretrain": sum(launches["G_pretrain"]),
          "eager_calls_fwd": launches["G_eager"][0],
          "launches_rl_mesh": {ph: v for ph, v in rl_launches(4).items() if ph == "phase40b"},
+         # phase 43 under RLMG_FFN_BACKEND=pallas: G's (fwd, bwd) on each stage
+         "launches_pp": {f"phase{ph}": [r["g"]["counts"][8:10] for r in v["res"]]
+                         for ph, v in pp_found.items() if ph != 44 and "g" in v["res"][0]},
          "ppo_rollout_song": {k: {kk: vv for kk, vv in v.items() if "window" not in kk}
                               | {"busy_graphed": v["window_graphed"]["busy"],
                                  "busy_eager": v["window_eager"]["busy"],

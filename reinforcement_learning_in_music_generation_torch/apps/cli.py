@@ -36,7 +36,9 @@ Run them as
 ``pretrain``, ``generate``, ``dqn-train`` and ``ppo-train`` with ``--dp N
 --tp M`` run N x M ranks on a (dp, tp) mesh (``parallel/mesh.py``): each dp
 index takes 1/N of every batch (of the songs; the RL commands' update
-batches), each tp rank of it 1/M of the Megatron-split weights.  The RL
+batches), each tp rank of it 1/M of the Megatron-split weights.
+``pretrain --pp P`` adds P pipeline stages, each holding 1/P of the layers
+(``parallel/pipeline.py``): N x P x M ranks on a (dp, pp, tp) mesh.  The RL
 commands' rollouts, their AIRL passes and their generator are the same on
 every rank.
 The command starts the ranks itself, one process each: with ``--device
@@ -104,8 +106,8 @@ def _generation_params(args, mcfg, device: torch.device) -> dict:
 
 
 def _run_ranks(args):
-    """Run ``args.fn`` on ``args.dp`` x ``args.tp`` ranks and return rank
-    0's result: in the group of a ``torchrun`` that started this process,
+    """Run ``args.fn`` on ``args.dp`` x ``args.pp`` x ``args.tp`` ranks and
+    return rank 0's result: in the group of a ``torchrun`` that started this process,
     else in ranks started here (``parallel.launch``).  gloo with ``--device
     cpu``, else NCCL (a card a rank)."""
     backend = "gloo" if torch.device(args.device).type == "cpu" else "nccl"
@@ -115,14 +117,17 @@ def _run_ranks(args):
             return _rank_main(args)
         finally:
             torch.distributed.destroy_process_group()
-    return pmesh.launch(_rank_main, args.dp * args.tp, (args,), backend=backend)[0]
+    world = C.MeshConfig(args.dp, args.tp, getattr(args, "pp", 1)).n_ranks()
+    return pmesh.launch(_rank_main, world, (args,), backend=backend)[0]
 
 
 def _rank_main(args):
-    """One rank of ``_run_ranks``: its mesh, then the command; ranks other
-    than 0 print nothing.  The RL commands' "final" (the rank's trees)
-    stays on the rank."""
-    mesh = pmesh.make_mesh(dp=args.dp, tp=args.tp)
+    """One rank of ``_run_ranks``: its mesh ((dp, pp, tp) with ``--pp`` >
+    1, else (dp, tp)), then the command; ranks other than 0 print nothing.
+    The RL commands' "final" (the rank's trees) stays on the rank."""
+    pp = getattr(args, "pp", 1)
+    mesh = (pmesh.make_pp_mesh(pp, dp=args.dp, tp=args.tp) if pp > 1
+            else pmesh.make_mesh(dp=args.dp, tp=args.tp))
     if mesh.rank == 0:
         res = args.fn(args, mesh=mesh)
     else:
@@ -130,14 +135,6 @@ def _rank_main(args):
             res = args.fn(args, mesh=mesh)
     res.pop("final", None)
     return res
-
-
-def _parallel_flags(args) -> None:
-    """Raise for --pp > 1: the pipeline is not ported (ROADMAP Queue 1 item
-    9(d))."""
-    if getattr(args, "pp", 1) > 1:
-        raise NotImplementedError("--pp > 1: this parallelism is not ported yet "
-                                  "(ROADMAP Queue 1 item 9(d))")
 
 
 def _prompt_rows(path: str) -> np.ndarray:
@@ -159,7 +156,6 @@ def cmd_generate(args, mesh=None) -> dict:
         raise SystemExit(
             "--continuous does not combine with --prompt/--greedy/--dp/--tp yet (the serving "
             "loop is stochastic, unconditional, single-device); drop --continuous or those flags")
-    _parallel_flags(args)
     if (args.dp > 1 or args.tp > 1) and mesh is None:
         return _run_ranks(args)
     e2w, w2e = tokenizer.drop_type(tokenizer.construct_cp_dict())
@@ -373,9 +369,20 @@ def cmd_pretrain(args, mesh=None) -> dict:
     """Agent CE pretrain (dqn_policy/agent_pretrain.py:485-632); returns
     ``_run_pretrain``'s numbers.  ``--dp N``: N dp indices (``_run_ranks``),
     each on its 1/N of every ``--batch-size`` batch; ``--tp M``: M ranks a
-    dp index, each holding its 1/M of the Megatron-split weights."""
-    _parallel_flags(args)
-    if (args.dp > 1 or args.tp > 1) and mesh is None:
+    dp index, each holding its 1/M of the Megatron-split weights; ``--pp
+    P``: P pipeline stages (JAX :139-146), each holding 1/P of the layers.
+    The flags the ranks would refuse are refused here first: the orbax
+    backend (``NotImplementedError``), ZeRO-1 with ``--pp`` and a ``--pp``
+    that does not divide the layers (``ValueError``, JAX's)."""
+    if args.ckpt_backend != "pickle":
+        raise NotImplementedError(f"--ckpt-backend {args.ckpt_backend}: only the pickle format "
+                                  "is ported (ROADMAP Queue 1 item 9(e))")
+    if args.pp > 1 and args.zero1:
+        raise ValueError("zero1 on a pipeline mesh is not implemented (moments would need the "
+                         "layer-stack 'pp' sharding on top of 'dp'); use a ('dp','tp') mesh")
+    if args.layers % args.pp:
+        raise ValueError(f"n_layer={args.layers} not divisible by pp={args.pp}")
+    if (args.dp > 1 or args.tp > 1 or args.pp > 1) and mesh is None:
         return _run_ranks(args)
     vocab = (tuple(int(v) for v in args.vocab.split(",")) if args.vocab
              else (56, 135, 18, 87, 18, 25))
@@ -490,7 +497,6 @@ def cmd_dqn_train(args, mesh=None) -> dict:
     dropout, in one order, and the update splits its batches over dp
     (``dqn.update``).  Rank 0 logs, plots and writes whole trees; the
     metrics are the global ones, the times rank 0's."""
-    _parallel_flags(args)
     if (args.dp > 1 or args.tp > 1) and mesh is None:
         return _run_ranks(args)
     vocab = (56, 135, 18, 87, 18, 25)
@@ -644,7 +650,6 @@ def cmd_ppo_train(args, mesh=None) -> dict:
     advantages are computed on the whole rollout, then the transitions and
     both are split over dp.  Rank 0 logs, plots and writes the whole actor;
     the metrics are the global ones, the times rank 0's."""
-    _parallel_flags(args)
     if (args.dp > 1 or args.tp > 1) and mesh is None:
         return _run_ranks(args)
     vocab = (49, 19, 19, 89, 67, 25)
@@ -892,11 +897,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tensor-parallel ranks a dp index (Megatron: each holds 1/tp of the "
                         "heads, FFN, embeddings and output heads); dp x tp processes in all, "
                         "started as for --dp")
-    d.add_argument("--pp", type=int, default=1, help="not ported yet (> 1 raises)")
+    d.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages (layer slabs over a 'pp' mesh axis, "
+                        "microbatched GPipe schedule; n_layer must divide by pp, batch by "
+                        "dp*2*pp; composes with --dp and --tp into dp x pp x tp ranks, started "
+                        "as for --dp)")
     d.add_argument("--save-on-interrupt", action="store_true",
                    help="SIGTERM/SIGINT checkpoints to interrupt.ckpt and returns")
     d.add_argument("--ckpt-backend", choices=("pickle", "orbax"), default="pickle",
-                   help="orbax is not ported yet (raises)")
+                   help="orbax is not ported yet (raises, ROADMAP Queue 1 item 9(e))")
     d.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches per optimizer step")
     d.add_argument("--zero1", action="store_true",

@@ -5,7 +5,8 @@ config and its ``agent_config`` / ``actor_config`` / ``critic_config``
 presets, the sliding-window (Longformer) encoder's config and its three
 presets, the generation, pretrain, DQN, AIRL and PPO configs, and the mesh
 layout (``MeshConfig``).  Field
-names and defaults match the JAX package.  Left out: ``scan_unroll`` (the
+names and defaults match the JAX package (``MeshConfig`` adds ``pp``, an
+argument of JAX's ``make_pp_mesh``).  Left out: ``scan_unroll`` (the
 port runs its layer loops eagerly, there is no scan to unroll) and
 ``PretrainConfig.prng_impl`` (a JAX PRNG choice).
 """
@@ -165,7 +166,7 @@ class PretrainConfig:
     zero1: bool = False             # ZeRO-1: Adam's moments sliced over the mesh's dp
     prefetch_depth: int = 2         # host->device input look-ahead
     grad_accum: int = 1             # micro-batches per optimizer step
-    ckpt_backend: str = "pickle"    # "orbax" is not ported (raises, ROADMAP item 9(d))
+    ckpt_backend: str = "pickle"    # "orbax" is not ported (raises, ROADMAP item 9(e))
     save_on_interrupt: bool = False  # SIGTERM/SIGINT: checkpoint and return
 
 
@@ -224,12 +225,19 @@ class PPOConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Mesh layout: ``dp`` ranks, each a process, times ``tp``."""
+    """Mesh layout: ``dp`` ranks, each a process, times ``pp`` pipeline
+    stages times ``tp``."""
 
-    dp: int = -1    # -1: infer from the world size / tp
+    dp: int = -1    # -1: infer from the world size / (pp tp)
     tp: int = 1
+    pp: int = 1
 
     def axis_sizes(self, n_devices: int) -> Tuple[int, int]:
+        """(dp, tp) on ``n_devices`` ranks."""
         tp = max(1, self.tp)
-        dp = self.dp if self.dp > 0 else max(1, n_devices // tp)
+        dp = self.dp if self.dp > 0 else max(1, n_devices // (tp * max(1, self.pp)))
         return dp, tp
+
+    def n_ranks(self) -> int:
+        """dp x pp x tp, the processes a run starts (dp given)."""
+        return max(1, self.dp) * max(1, self.pp) * max(1, self.tp)

@@ -168,7 +168,7 @@ def embed_project(params: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
     return gather_from_tp(cm.linear(params["in_linear"], copy_to_tp(e, mesh)), mesh)
 
 
-def _ffn_backend(n_rows: int, device: torch.device, dp_mesh=None) -> str:
+def _ffn_backend(n_rows: int, device: torch.device, dp_mesh=None, auto: bool = True) -> str:
     """FFN-tail route of the training forward: "pallas-tail" runs kernel D
     (Wo + dropout + residual + LN1 + FFN + LN2, ``ops/ffn_block.py``),
     "xla" the plain PyTorch composition, "pallas" kernel G (the post-LN1
@@ -180,7 +180,10 @@ def _ffn_backend(n_rows: int, device: torch.device, dp_mesh=None) -> str:
     of "the default backend is a TPU": "pallas-tail" at ``_ffn_min_rows()``
     rows or more on a CUDA device, else "xla".  ``n_rows`` is the rows the
     kernel would see: under a dp mesh this rank's, JAX's per-shard
-    ``n_rows // dp`` (the rank holds its 1/dp share of the batch)."""
+    ``n_rows // dp`` (the rank holds its 1/dp share of the batch).
+    ``auto=False`` drops that default ("xla" unless RLMG_FFN_BACKEND asks):
+    JAX's rule for a pipeline stage, which passes no mesh on a multi-device
+    program (``parallel/pipeline.py``)."""
     tp = _mesh_axes(dp_mesh)[1]
     v = os.environ.get("RLMG_FFN_BACKEND")
     if v:
@@ -191,7 +194,7 @@ def _ffn_backend(n_rows: int, device: torch.device, dp_mesh=None) -> str:
                           "normalize ffn2's partial sums; the composition instead")
             return "xla"
         return v
-    if device.type == "cuda" and tp == 1 and n_rows >= _ffn_min_rows():
+    if auto and device.type == "cuda" and tp == 1 and n_rows >= _ffn_min_rows():
         return "pallas-tail"
     return "xla"
 
@@ -246,14 +249,15 @@ def _dropout_seed(generator: Optional[torch.Generator], p: float, device, dp_mes
 def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                    generator: Optional[torch.Generator], deterministic: bool,
                    attn_backend: Optional[str], dp_mesh=None,
-                   rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+                   rows: Tuple[int, int] = (0, 1), ffn_auto: bool = True) -> torch.Tensor:
+    # ``ffn_auto``: ``_ffn_backend``'s ``auto`` (False in a pipeline stage).
     # an explicitly requested attention backend (argument, config or env)
     # is not dropped by the fused route, whose attention is the head-minor
     # composition or kernel C; "xla" and None are compatible with it
     explicit_attn = attn_backend or cfg.attn_backend or os.environ.get("RLMG_ATTN_BACKEND")
     fused_ok = explicit_attn in (None, "", "xla", "pallas-qkv")
     if h.ndim == 3 and fused_ok and _ffn_backend(h.shape[0] * h.shape[1], h.device,
-                                                 dp_mesh) == "pallas-tail":
+                                                 dp_mesh, ffn_auto) == "pallas-tail":
         b, s, d = h.shape
         att = None
         if explicit_attn in ("pallas-qkv", None, ""):
@@ -289,7 +293,8 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
     att = _row_linear(lp["wo"], att, dp_mesh)
     h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic,
                                                rows=rows))
-    if h.ndim == 3 and _ffn_backend(h.shape[0] * h.shape[1], h.device, dp_mesh) == "pallas":
+    if h.ndim == 3 and _ffn_backend(h.shape[0] * h.shape[1], h.device, dp_mesh,
+                                    ffn_auto) == "pallas":
         b, s, d = h.shape
         p = 0.0 if (deterministic or generator is None) else cfg.dropout
         out = ffn_block(h.reshape(b * s, d), lp["ffn1"]["w"], lp["ffn1"]["b"], lp["ffn2"]["w"],
@@ -310,7 +315,7 @@ def _layer_forward(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
 def _remat_layer(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
                  generator: Optional[torch.Generator], deterministic: bool,
                  attn_backend: Optional[str], dp_mesh=None,
-                 rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+                 rows: Tuple[int, int] = (0, 1), ffn_auto: bool = True) -> torch.Tensor:
     """``_layer_forward`` under ``torch.utils.checkpoint`` (JAX ``cfg.remat``:
     ``jax.checkpoint`` around each layer): the backward keeps only the
     layer's input and runs the layer again.  The layer's randomness (the
@@ -330,7 +335,8 @@ def _remat_layer(cfg: LinearTransformerConfig, h: torch.Tensor, lp: dict,
             gen = torch.Generator(device=generator.device)
             gen.set_state(state)
         runs.append(1)
-        return _layer_forward(cfg, h_, lp_, gen, deterministic, attn_backend, dp_mesh, rows)
+        return _layer_forward(cfg, h_, lp_, gen, deterministic, attn_backend, dp_mesh, rows,
+                              ffn_auto)
 
     return torch.utils.checkpoint.checkpoint(run, h, lp, use_reentrant=False)
 

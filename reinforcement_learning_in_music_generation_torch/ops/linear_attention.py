@@ -18,8 +18,15 @@ JAX package's Pallas causal product, ``_fwd_pallas`` / ``_bwd_pallas``)
 runs kernel F (``ops/linear_attention_kernel.py causal_product``, its plain
 twin on CPU tensors); anything else the chunked core on transposed views
 (``_fwd_xla`` / ``_bwd_xla``).  The chunked core is also the plain version
-behind kernels C (``ops/attention_block.py``) and F.  The sequence-parallel
-form waits for the parallelism item of ROADMAP Queue 1.
+behind kernels C (``ops/attention_block.py``) and F.
+
+The sequence-parallel form ``causal_linear_attention_sp`` (JAX :399) runs
+on each rank of a mesh axis that splits the sequence: the rank's product
+through ``_CoreWithDen`` (JAX ``_core_with_den``: out and den, both
+differentiable; kernel F for "pallas", the chunked core otherwise), then
+the exclusive prefix of the earlier ranks' state totals (S, z), gathered
+over the axis (``parallel/tensor.py gather_over``, whose backward sums each
+rank's cotangents over the ranks), corrects num and den.
 """
 
 from __future__ import annotations
@@ -165,6 +172,92 @@ def causal_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
         return causal_product(feature_map(q), feature_map(k), v, eps, chunk)[0]
     t = lambda x: x.transpose(1, 2)
     return t(causal_linear_attention_bshe(t(q), t(k), t(v), eps=eps, chunk=chunk))
+
+
+class _CoreWithDen(torch.autograd.Function):
+    """JAX ``_core_with_den``: the causal product of phi(q), phi(k), v
+    (B, H, S, E) -> (out (B, H, S, F), den (B, H, S)), both differentiable.
+    "pallas": kernel F (``linear_attention_kernel.product_fwd`` /
+    ``product_bwd``; its plain twin on CPU tensors), whose CUDA source
+    takes only out's cotangent; anything else the chunked core.  den's
+    cotangent is added outside the kernel, in PyTorch ops, as JAX adds it
+    in jnp (:453-466): den_i = phi(q_i) . cumsum(phi(k))_i, so d phi(q_i)
+    += g_den_i cumsum(phi(k))_i and d phi(k_j) += sum_{i >= j} g_den_i
+    phi(q_i)."""
+
+    @staticmethod
+    def forward(ctx, phi_q, phi_k, v, eps: float, chunk: int, backend: str):
+        if backend == "pallas":
+            from .linear_attention_kernel import product_fwd
+            out, den = product_fwd(phi_q, phi_k, v, eps, chunk)
+        else:
+            t = lambda x: x.transpose(1, 2)
+            out, den = _fwd_bshe(t(phi_q), t(phi_k), t(v), eps, chunk)
+            out, den = t(out), den.transpose(1, 2)
+        ctx.save_for_backward(phi_q, phi_k, v, out, den)
+        ctx.cfg = (eps, chunk, backend)
+        return out, den
+
+    @staticmethod
+    def backward(ctx, g, g_den):
+        phi_q, phi_k, v, out, den = ctx.saved_tensors
+        eps, chunk, backend = ctx.cfg
+        if backend == "pallas":
+            from .linear_attention_kernel import product_bwd
+            dq, dk, dv = product_bwd(phi_q, phi_k, v, out, den, g, eps, chunk)
+        else:
+            t = lambda x: x.transpose(1, 2)
+            grads = _bwd_bshe(t(phi_q), t(phi_k), t(v), t(out), den.transpose(1, 2), t(g),
+                              eps, chunk)
+            dq, dk, dv = (t(d) for d in grads)
+        g_den = g_den.to(phi_q.dtype)[..., None]
+        dq = dq + g_den * torch.cumsum(phi_k, dim=2)
+        dk = dk + torch.flip(torch.cumsum(torch.flip(g_den * phi_q, [2]), dim=2), [2])
+        return dq, dk, dv, None, None, None
+
+
+def core_with_den(phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
+                  eps: float = DEFAULT_EPS, chunk: int = _DEF_CHUNK,
+                  backend: str = "xla"):
+    """(out, den) of ``_CoreWithDen``, both differentiable."""
+    return _CoreWithDen.apply(phi_q, phi_k, v, eps, chunk, backend)
+
+
+def prefix_weights(n: int, idx: int, dtype, device) -> torch.Tensor:
+    """The weights of the ranks' state totals in rank ``idx``'s prefix:
+    1 for each rank before it, 0 for it and the ranks after it."""
+    return (torch.arange(n, device=device) < idx).to(dtype)
+
+
+def causal_linear_attention_sp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                               axis: str = "sp", *, eps: float = DEFAULT_EPS,
+                               chunk: int = _DEF_CHUNK,
+                               backend: Optional[str] = None) -> torch.Tensor:
+    """Sequence-parallel causal linear attention (JAX :399-444) on one rank
+    of ``mesh``'s ``axis``: q, k, v (B, H, S/n, E) are the rank's shard of
+    the sequence (rank i holds positions [i S/n, (i+1) S/n)) -> its
+    (B, H, S/n, F) of the whole sequence's attention.  The state is a
+    running sum, so the earlier shards enter only through their totals:
+
+        out_i = (num_local_i + phi(q_i) S_prev) / (den_local_i + phi(q_i) . z_prev + eps)
+
+    with S_prev, z_prev the sums of the ranks before this one of (S_tot,
+    z_tot) = (phi(k)^T v, sum phi(k)) over their shard, all-gathered over
+    the axis ((n, B, H, E, F) + (n, B, H, E)); the rest is local.  Every
+    rank of the axis calls it.  Differentiable: the gather's backward hands
+    each rank the sum over the ranks of its totals' cotangents."""
+    from ..parallel.tensor import gather_over
+    backend = backend or default_backend()
+    pq, pk = feature_map(q), feature_map(k)
+    out_local, den_local = core_with_den(pq, pk, v, eps, chunk, backend)
+    s_all = gather_over(torch.einsum("bhse,bhsf->bhef", pk, v), mesh, axis)
+    z_all = gather_over(pk.sum(dim=2), mesh, axis)
+    w = prefix_weights(s_all.shape[0], mesh.index(axis), q.dtype, q.device)
+    s_prev = torch.einsum("n,nbhef->bhef", w, s_all)
+    z_prev = torch.einsum("n,nbhe->bhe", w, z_all)
+    num = out_local * (den_local + eps)[..., None] + torch.einsum("bhse,bhef->bhsf", pq, s_prev)
+    den = den_local + torch.einsum("bhse,bhe->bhs", pq, z_prev)
+    return num / (den + eps)[..., None]
 
 
 def causal_linear_attention_bshe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

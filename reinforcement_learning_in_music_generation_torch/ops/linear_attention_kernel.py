@@ -39,7 +39,10 @@ Counts: ``launches_fwd`` / ``launches_bwd`` the wrapper's eager calls,
 ``cuda_launches`` the CUDA launches they made (1 a call at S <= 64, else
 2); a call made while a CUDA graph capture records counts nothing.
 ``kernel_runs`` reads the kernel's own count of the calls that ran on the
-card, graph replays included.
+card, graph replays included.  ``product_fwd`` / ``product_bwd`` run the
+same forward and backward outside autograd, for a caller with a backward
+of its own (the sequence-parallel attention, which adds den's cotangent),
+and count in ``launches_fwd`` / ``launches_bwd`` alike.
 """
 
 from __future__ import annotations
@@ -53,6 +56,23 @@ from . import _build
 from .linear_attention import DEFAULT_EPS, _DEF_CHUNK, _bwd_core, _fwd_bshe
 
 MAX_HEAD_WIDTH = 64          # csrc/causal_product.cuh cpk::MAX_E
+
+
+def _plain_fwd(phi_q, phi_k, v, eps: float, chunk: int):
+    """``_PlainProduct``'s forward arithmetic -> (out, den) in v's type."""
+    t = lambda x: x.transpose(1, 2).float()
+    out, den = _fwd_bshe(t(phi_q), t(phi_k), t(v), eps, chunk)
+    return out.transpose(1, 2).to(v.dtype), den.transpose(1, 2).to(v.dtype)
+
+
+def _plain_bwd(phi_q, phi_k, v, out, den, g, eps: float, chunk: int):
+    """``_PlainProduct``'s backward arithmetic -> (d phi_q, d phi_k, dv)."""
+    g = g.to(out.dtype)
+    dnum = g / (den + eps)[..., None]
+    dden = -(g * out).float().sum(-1).to(out.dtype) / (den + eps)
+    t = lambda x: x.transpose(1, 2).float()
+    grads = _bwd_core(t(phi_q), t(phi_k), t(v), t(dnum), t(dden), chunk)
+    return tuple(d.transpose(1, 2).to(x.dtype) for d, x in zip(grads, (phi_q, phi_k, v)))
 
 
 class _PlainProduct(torch.autograd.Function):
@@ -69,9 +89,7 @@ class _PlainProduct(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, phi_q, phi_k, v, eps: float, chunk: int):
-        t = lambda x: x.transpose(1, 2).float()
-        out, den = _fwd_bshe(t(phi_q), t(phi_k), t(v), eps, chunk)
-        out, den = out.transpose(1, 2).to(v.dtype), den.transpose(1, 2).to(v.dtype)
+        out, den = _plain_fwd(phi_q, phi_k, v, eps, chunk)
         ctx.save_for_backward(phi_q, phi_k, v, out, den)
         ctx.cfg = (eps, chunk)
         ctx.mark_non_differentiable(den)
@@ -79,15 +97,7 @@ class _PlainProduct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _g_den):
-        phi_q, phi_k, v, out, den = ctx.saved_tensors
-        eps, chunk = ctx.cfg
-        g = g.to(out.dtype)
-        dnum = g / (den + eps)[..., None]
-        dden = -(g * out).float().sum(-1).to(out.dtype) / (den + eps)
-        t = lambda x: x.transpose(1, 2).float()
-        grads = _bwd_core(t(phi_q), t(phi_k), t(v), t(dnum), t(dden), chunk)
-        return tuple(d.transpose(1, 2).to(x.dtype) for d, x in zip(grads, (phi_q, phi_k, v))) \
-            + (None, None)
+        return _plain_bwd(*ctx.saved_tensors, g, *ctx.cfg) + (None, None)
 
 
 def causal_product_plain(phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
@@ -269,3 +279,35 @@ def causal_product(phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
 causal_product.launches_fwd = 0
 causal_product.launches_bwd = 0
 causal_product.cuda_launches = 0
+
+
+def product_fwd(phi_q, phi_k, v, eps: float = DEFAULT_EPS,
+                chunk: int = _DEF_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``causal_product``'s forward outside autograd, for a caller with a
+    backward of its own (``ops/linear_attention.py _CoreWithDen``, which
+    needs den's cotangent): -> (out, den) in the inputs' type; the kernel on
+    CUDA tensors (counted in ``launches_fwd``), the twin's arithmetic on CPU
+    tensors."""
+    _check(phi_q, phi_k, v)
+    if phi_q.device.type == "cpu":
+        return _plain_fwd(phi_q, phi_k, v, eps, chunk)
+    if phi_q.device.type != "cuda":
+        raise ValueError(f"causal_product: no kernel for device {phi_q.device}")
+    out, den = forward_kernel(phi_q, phi_k, v, eps)
+    if not torch.cuda.is_current_stream_capturing():
+        causal_product.launches_fwd += 1
+    return out, den
+
+
+def product_bwd(phi_q, phi_k, v, out, den, g, eps: float = DEFAULT_EPS,
+                chunk: int = _DEF_CHUNK) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of ``product_fwd``'s (out, den) for out's cotangent
+    ``g`` -> (d phi_q, d phi_k, dv): the kernel on CUDA tensors (counted in
+    ``launches_bwd``), the twin's arithmetic on CPU tensors."""
+    if phi_q.device.type == "cpu":
+        return _plain_bwd(phi_q, phi_k, v, out, den, g, eps, chunk)
+    if phi_q.device.type != "cuda":
+        raise ValueError(f"causal_product: no kernel for device {phi_q.device}")
+    grads = backward_kernel(phi_q, phi_k, v, out, den, g, eps)
+    causal_product.launches_bwd += 1
+    return grads

@@ -1,26 +1,38 @@
-"""The (dp, tp) mesh: one process a rank over ``torch.distributed`` (the
-counterpart of the JAX package's ``parallel/mesh.py``).
+"""The mesh: one process a rank over ``torch.distributed`` (the counterpart
+of the JAX package's ``parallel/mesh.py`` and of ``make_pp_mesh`` in its
+``parallel/pipeline.py``).
 
-JAX runs its ('dp', 'tp') mesh as one program over the devices (GSPMD).  The
-port runs one process a rank.  A mesh of dp x tp ranks lays them out as JAX
-lays out its devices (``reshape(dp, tp)``, tp the minor axis): rank r sits
-at dp index r // tp and tp index r % tp.  The ranks of one dp index (a tp
-group) hold the same rows of each global batch, rows
+JAX runs its meshes as one program over the devices (GSPMD, shard_map).
+The port runs one process a rank.  A mesh has named axes in order, the
+minor axis last, and lays its ranks out as JAX lays out its devices
+(``reshape(*sizes)``, row major): on the (dp, tp) mesh rank r sits at dp
+index r // tp and tp index r % tp; on the (dp, pp, tp) pipeline mesh
+(``make_pp_mesh``) at dp index r // (pp tp), stage (r // tp) % pp and tp
+index r % tp; a mesh of one "sp" axis (``named_mesh({"sp": n})``) shards
+the sequence (``ops/linear_attention.py causal_linear_attention_sp``).  The
+ranks of one dp index hold the same rows of each global batch, rows
 [i b/dp, (i+1) b/dp) for dp index i (a batch whose leading size dp does not
 divide is kept whole on every rank, as JAX's ``shard_batch`` replicates
-it), and each holds its tp shard of the parameters that the Megatron rules
-split (``parallel/sharding.py``).  The callers add the collectives that
-GSPMD inserts: over the dp group the masked CE's denominator and the
-gradients (``ops/losses.py``, ``train/pretrain.py``), ZeRO-1's updates
-(``train/optim.py``) and the songs (``generate/sampler.py``); over the tp
-group the Megatron layer's (``parallel/tensor.py``) and the clip's norm.
+it), each tp rank its tp shard of the parameters that the Megatron rules
+split and each stage its slab of the layers (``parallel/sharding.py``).
+The callers add the collectives that GSPMD inserts: over the dp group the
+masked CE's denominator and the gradients (``ops/losses.py``,
+``train/pretrain.py``), ZeRO-1's updates (``train/optim.py``) and the songs
+(``generate/sampler.py``); over the tp group the Megatron layer's
+(``parallel/tensor.py``) and the clip's norm; over the pp group the
+activation hops, the replicated leaves' gradients and the clip's norm
+(``parallel/pipeline.py``).
 
 Backends: ``nccl`` where each rank has a card of its own (rank r on
 ``cuda:r``), ``gloo`` on the CPU.  NCCL refuses two ranks on one card (a
 duplicate GPU), so ``make_mesh`` raises where the ranks' devices share a card
 unless the caller passes ``backend="gloo"``; gloo then carries the CUDA
-tensors as they are (the card's PyTorch 2.11 runs every collective used here
-on them: ``chip_smoke.py`` phase 34).
+tensors of its collectives as they are (the card's PyTorch 2.11 runs every
+collective used here on them: ``chip_smoke.py`` phase 34), but not of its
+point-to-point calls: a ``send`` of a CUDA tensor hands the device pointer
+to the TCP transport and the sending process dies ("Bad address", probed
+on the card), so the pipeline's hop goes through host memory under gloo
+(``parallel/pipeline.py``).
 
 ``launch`` starts the ranks of one machine: a process each (start method
 ``spawn``), a ``file://`` rendezvous in a fresh temporary directory, a
@@ -32,6 +44,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import queue as queue_lib
 import shutil
@@ -53,13 +67,17 @@ _JOIN_S = 60.0          # a rank that has sent its result must exit within this
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A rank's view of the mesh: the axis sizes (``shape["dp"]``,
-    ``shape["tp"]``), this process's rank, the device it computes on, the
+    """A rank's view of the mesh: the axis sizes in mesh order, the minor
+    axis last (``shape``: {"dp": .., "tp": ..}, {"dp": .., "pp": .., "tp":
+    ..} or {"sp": ..}), this process's rank, the device it computes on, the
     process group's backend (the default group), and the subgroups of its
-    two axes: ``groups["dp"]`` the ranks of its tp index (its dp row),
-    ``groups["tp"]`` the ranks of its dp index (its tp column).  An axis
-    that spans the world has None (the default group) as its group; an axis
-    of size 1 needs none."""
+    axes: ``groups[axis]`` the ranks that share every other axis's index
+    with this one (for "dp" its dp row, for "tp" its tp column, for "pp" its
+    pipeline).  An axis that spans the world has None (the default group) as
+    its group; an axis of size 1 needs none.  The ranks are laid out row
+    major over the axes, as JAX's ``np.array(devices).reshape(*sizes)``: the
+    index of rank r on an axis is r // (the product of the sizes after it),
+    modulo its size."""
 
     shape: Dict[str, int]
     rank: int
@@ -69,69 +87,99 @@ class Mesh:
 
     @property
     def dp(self) -> int:
-        return self.shape["dp"]
+        return self.shape.get("dp", 1)
 
     @property
     def tp(self) -> int:
         return self.shape.get("tp", 1)
 
     @property
+    def pp(self) -> int:
+        return self.shape.get("pp", 1)
+
+    @property
     def dp_index(self) -> int:
-        return self.rank // self.tp
+        return self.index("dp")
 
     @property
     def tp_index(self) -> int:
-        return self.rank % self.tp
+        return self.index("tp")
+
+    @property
+    def pp_index(self) -> int:
+        return self.index("pp")
+
+    def _stride(self, axis: str) -> int:
+        names = list(self.shape)
+        return math.prod(self.shape[a] for a in names[names.index(axis) + 1:])
+
+    def index(self, axis: str) -> int:
+        """This rank's index on ``axis`` (0 on an axis the mesh lacks)."""
+        if axis not in self.shape:
+            return 0
+        return (self.rank // self._stride(axis)) % self.shape[axis]
+
+    def rank_at(self, axis: str, i: int) -> int:
+        """The global rank with index ``i`` on ``axis`` and this rank's index
+        on every other axis."""
+        return self.rank + (i - self.index(axis)) * self._stride(axis)
 
     def size(self, axis: str) -> int:
-        """The ranks of ``axis`` ("dp", "tp" or "world")."""
-        return self.dp * self.tp if axis == "world" else self.shape.get(axis, 1)
+        """The ranks of ``axis`` (one of the mesh's axes, or "world")."""
+        if axis == "world":
+            return math.prod(self.shape.values())
+        return self.shape.get(axis, 1)
 
     def group(self, axis: str):
         """The process group of ``axis`` (None: the default group)."""
         if axis == "world":
             return None
-        if axis not in ("dp", "tp"):
-            raise ValueError(f"axis {axis!r}: expected 'dp', 'tp' or 'world'")
+        if axis not in self.shape:
+            raise ValueError(f"axis {axis!r}: expected one of {tuple(self.shape)} or 'world'")
         return self.groups.get(axis)
 
 
-def _axis_groups(dp: int, tp: int, rank: int) -> Dict[str, Any]:
-    """Every dp row's and every tp column's group, made on every rank in the
-    same order (``dist.new_group`` is collective); this rank's two.  Only a
-    mesh with both axes above 1 needs them: otherwise the axis of size > 1
-    is the world."""
-    if dp == 1 or tp == 1:
-        return {}
+def _axis_groups(shape: Dict[str, int], rank: int) -> Dict[str, Any]:
+    """Every subgroup of every axis of more than one rank that does not span
+    the world, made on every rank in the same order (``dist.new_group`` is
+    collective: axes in mesh order, an axis's groups row major over the
+    other axes' indices); this rank's group of each."""
+    world = math.prod(shape.values())
+    names = list(shape)
+    strides = {a: math.prod(shape[b] for b in names[i + 1:]) for i, a in enumerate(names)}
     mine = {}
-    for t in range(tp):                         # dp rows: the ranks of tp index t
-        g = dist.new_group([d * tp + t for d in range(dp)])
-        if rank % tp == t:
-            mine["dp"] = g
-    for d in range(dp):                         # tp columns: the ranks of dp index d
-        g = dist.new_group([d * tp + t for t in range(tp)])
-        if rank // tp == d:
-            mine["tp"] = g
+    for axis in names:
+        if shape[axis] in (1, world):
+            continue
+        others = [a for a in names if a != axis]
+        for combo in itertools.product(*(range(shape[a]) for a in others)):
+            base = sum(i * strides[a] for a, i in zip(others, combo))
+            ranks = [base + i * strides[axis] for i in range(shape[axis])]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine[axis] = g
     return mine
 
 
-def make_mesh(dp: int = -1, tp: int = 1, devices: Optional[Sequence] = None,
-              backend: Optional[str] = None) -> Mesh:
-    """This rank's ``Mesh`` over the initialized process group, whose size
-    must be dp * tp (dp = -1: the world size / tp); rank r at dp index
-    r // tp, tp index r % tp.  ``devices``: one torch device a rank
+def named_mesh(shape: Dict[str, int], devices: Optional[Sequence] = None,
+               backend: Optional[str] = None) -> Mesh:
+    """This rank's ``Mesh`` of the named axes ``shape`` (in mesh order, the
+    minor axis last; their sizes' product the process group's size) over
+    the initialized process group.  ``devices``: one torch device a rank
     (default ``cuda:r`` under nccl, the CPU under gloo).  Ranks that share a
     card need ``backend="gloo"``, passed explicitly; ``backend`` must name
     the group's backend where given.  Every rank calls it (the axes'
     subgroups are made collectively)."""
     if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError("make_mesh needs an initialized torch.distributed process group "
+        raise RuntimeError("a mesh needs an initialized torch.distributed process group "
                            "(parallel.launch starts one a rank; under torchrun, "
                            "init_process_group)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    dp, tp = MeshConfig(dp, tp).axis_sizes(world)
-    if dp * tp != world:
-        raise ValueError(f"mesh {dp}x{tp} needs {dp * tp} ranks; the process group has {world}")
+    shape = {a: int(n) for a, n in shape.items()}
+    if math.prod(shape.values()) != world:
+        raise ValueError(f"mesh {'x'.join(map(str, shape.values()))} "
+                         f"({', '.join(shape)}) needs {math.prod(shape.values())} ranks; the "
+                         f"process group has {world}")
     group_backend = dist.get_backend()
     if backend is not None and backend != group_backend:
         raise ValueError(f"backend={backend!r}, but the process group runs {group_backend!r}")
@@ -152,8 +200,32 @@ def make_mesh(dp: int = -1, tp: int = 1, devices: Optional[Sequence] = None,
                              "a card")
     elif group_backend == "nccl":
         raise ValueError("an nccl process group needs CUDA devices")
-    return Mesh({"dp": dp, "tp": tp}, rank, devices[rank], group_backend,
-                _axis_groups(dp, tp, rank))
+    mesh = Mesh(shape, rank, devices[rank], group_backend, _axis_groups(shape, rank))
+    if group_backend == "nccl":
+        # the group's first NCCL call takes every rank, which a point-to-point
+        # pair of the pipeline's hop (batch_isend_irecv) is not
+        all_reduce_(mesh, [torch.zeros(1, device=mesh.device)], axis="world")
+    return mesh
+
+
+def make_mesh(dp: int = -1, tp: int = 1, devices: Optional[Sequence] = None,
+              backend: Optional[str] = None) -> Mesh:
+    """The (dp, tp) mesh (``named_mesh``; dp = -1: the world size / tp):
+    rank r at dp index r // tp, tp index r % tp."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh needs an initialized torch.distributed process group "
+                           "(parallel.launch starts one a rank; under torchrun, "
+                           "init_process_group)")
+    dp, tp = MeshConfig(dp, tp).axis_sizes(dist.get_world_size())
+    return named_mesh({"dp": dp, "tp": tp}, devices, backend)
+
+
+def make_pp_mesh(pp: int, dp: int = 1, tp: int = 1, devices: Optional[Sequence] = None,
+                 backend: Optional[str] = None) -> Mesh:
+    """The (dp, pp, tp) mesh of JAX's ``make_pp_mesh`` (tp the minor axis):
+    rank r at dp index r // (pp tp), stage (r // tp) % pp, tp index r % tp;
+    a stage's neighbours are tp ranks away."""
+    return named_mesh({"dp": dp, "pp": pp, "tp": tp}, devices, backend)
 
 
 def row_block(mesh: Mesh, n: int) -> Tuple[int, int]:

@@ -1,5 +1,6 @@
 """Parameter layout rules (the counterpart of the JAX package's
-``parallel/sharding.py``).
+``parallel/sharding.py`` and of ``pp_param_shardings`` / ``shard_params_pp``
+in its ``parallel/pipeline.py``).
 
 The Megatron rules map a parameter's key path to the mesh axis each of its
 dimensions splits over: column-parallel qkv, FFN-in, embeddings and input
@@ -11,10 +12,15 @@ it needs no process group.
 
 Each rank holds its tp shard of every leaf whose spec splits a dimension
 over "tp" (``shard_params``: rank 0's tree, then the rank's slice at its tp
-index), and the other leaves whole; ``gather_params`` puts a tree of shards
-back whole (checkpoints, tests).  The rules also serve ZeRO-1's slices
-(``zero1_specs``, ``train/optim.py zero1``): the "dp" axis they add is
-never a tp-split dimension, so a shard has its full length there.
+index), and the other leaves whole.  On a pipeline mesh (an axis "pp",
+``parallel/mesh.py make_pp_mesh``) every ``['layers']`` leaf keeps its
+stage's contiguous L/pp slab of the leading layer axis, then its tp slice;
+the embeddings, ``in_linear``, ``final_ln`` and the heads stay whole over
+pp, with their tp slices (JAX ``pp_param_shardings``).  ``gather_params``
+puts a tree of shards back whole (checkpoints, tests).  The rules also
+serve ZeRO-1's slices (``zero1_specs``, ``train/optim.py zero1``): the "dp"
+axis they add is never a tp-split dimension, so a shard has its full
+length there.
 """
 
 from __future__ import annotations
@@ -106,22 +112,35 @@ def tp_axis(spec: Spec):
     return spec.index("tp") if "tp" in spec else None
 
 
-def tp_axes(tree: Any) -> list:
-    """Each leaf's tp dimension (``tp_axis`` of its spec; None for a leaf
-    a tp mesh keeps whole), in leaf order."""
+def is_pp_slab(path: str) -> bool:
+    """A leaf a pipeline mesh slices over "pp" on its leading (layer) axis."""
+    return "['layers']" in path
+
+
+def layouts(mesh: Mesh, tree: Any) -> list:
+    """Each leaf's (tp dimension or None, slabbed over pp), in leaf order:
+    what the rank holds of it on ``mesh``."""
     out = []
-    _with_paths(lambda path, leaf: out.append(tp_axis(spec_for_path(path, leaf.ndim))), tree)
+
+    def one(path, leaf):
+        tp_dim = tp_axis(spec_for_path(path, leaf.ndim)) if mesh.tp > 1 else None
+        out.append((tp_dim, mesh.pp > 1 and is_pp_slab(path)))
+    _with_paths(one, tree)
     return out
 
 
 def shard_tree(mesh: Mesh, tree: Any) -> Any:
-    """This rank's tp shard of each leaf of a whole tree (no collective);
-    the tree itself where tp is 1."""
-    if mesh.tp == 1:
+    """This rank's shard of each leaf of a whole tree (no collective): its
+    stage's slab of the layers on a pipeline mesh, then its tp slice; the
+    tree itself where tp and pp are 1."""
+    if mesh.tp == 1 and mesh.pp == 1:
         return tree
 
     def cut(path, leaf):
-        axis = tp_axis(spec_for_path(path, leaf.ndim))
+        if mesh.pp > 1 and is_pp_slab(path):
+            k = leaf.shape[0] // mesh.pp
+            leaf = leaf.narrow(0, mesh.pp_index * k, k).contiguous()
+        axis = tp_axis(spec_for_path(path, leaf.ndim)) if mesh.tp > 1 else None
         if axis is None:
             return leaf
         k = leaf.shape[axis] // mesh.tp
@@ -132,36 +151,51 @@ def shard_tree(mesh: Mesh, tree: Any) -> Any:
 @torch.no_grad()
 def shard_params(mesh: Mesh, params: Any) -> Any:
     """Rank 0's parameters on every rank (a broadcast, in place), then this
-    rank's tp shard of each leaf the Megatron rules split (``shard_tree``);
-    returns the rank's tree (``params`` itself where tp is 1)."""
+    rank's shard of each leaf (``shard_tree``: its slab of the layers on a
+    pipeline mesh, its tp slice of the leaves the Megatron rules split);
+    returns the rank's tree (``params`` itself where tp and pp are 1)."""
     leaves = []
     _with_paths(lambda path, leaf: leaves.append(leaf), params)
     broadcast_(mesh, leaves, src=0, axis="world")
     return shard_tree(mesh, params)
 
 
-@torch.no_grad()
-def gather_params(mesh: Mesh, tree: Any) -> Any:
-    """A tree of this rank's tp shards (parameters, gradients, moments) put
-    back whole on every rank: one all-gather over the tp group of the
-    split leaves, flattened together a dtype.  Every rank of the tp group
-    calls it."""
-    if mesh.tp == 1:
-        return tree
-    leaves = []
-    _with_paths(lambda path, leaf: leaves.append(leaf), tree)
-    axes = tp_axes(tree)
+def _gather(mesh: Mesh, leaves: list, dims: list, axis: str) -> list:
+    """``leaves`` with each leaf whose entry of ``dims`` is a dimension put
+    back whole along it from the ranks of ``axis``: one all-gather a dtype of
+    those leaves flattened together (bf16 widened to f32 over gloo)."""
     whole = list(leaves)
     by_dtype: dict = {}
-    for i, a in enumerate(axes):
+    for i, a in enumerate(dims):
         if a is not None:
             by_dtype.setdefault(leaves[i].dtype, []).append(i)
-    for idx in by_dtype.values():
-        parts = all_gather(mesh, torch.cat([leaves[i].reshape(-1) for i in idx]), axis="tp")
+    for dtype, idx in by_dtype.items():
+        wide = dtype == torch.bfloat16 and mesh.backend == "gloo"
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        parts = all_gather(mesh, flat.float() if wide else flat, axis=axis)
         off = 0
         for i in idx:
             n = leaves[i].numel()
-            whole[i] = torch.cat([p[off:off + n].view_as(leaves[i]) for p in parts], axes[i])
+            whole[i] = torch.cat([p[off:off + n].view_as(leaves[i]).to(dtype) for p in parts],
+                                 dims[i])
             off += n
-    it = iter(whole)
+    return whole
+
+
+@torch.no_grad()
+def gather_params(mesh: Mesh, tree: Any) -> Any:
+    """A tree of this rank's shards (parameters, gradients, moments) put
+    back whole on every rank: one all-gather over the tp group of the split
+    leaves, then on a pipeline mesh one over the pp group of the layer
+    slabs, each flattened together a dtype.  Every rank calls it."""
+    if mesh.tp == 1 and mesh.pp == 1:
+        return tree
+    leaves = []
+    _with_paths(lambda path, leaf: leaves.append(leaf), tree)
+    lay = layouts(mesh, tree)
+    if mesh.tp > 1:
+        leaves = _gather(mesh, leaves, [t for t, _ in lay], "tp")
+    if mesh.pp > 1:
+        leaves = _gather(mesh, leaves, [0 if pp else None for _, pp in lay], "pp")
+    it = iter(leaves)
     return _with_paths(lambda path, leaf: next(it), tree)

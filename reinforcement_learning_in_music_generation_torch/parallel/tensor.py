@@ -18,6 +18,14 @@ and the rank's shard:
     all-gather) where a replicated tensor feeds a row-parallel product (the
     heads).
 
+One more pair serves the sequence-parallel attention
+(``ops/linear_attention.py causal_linear_attention_sp``) over any axis:
+
+  * ``gather_over`` (every rank's tensor, stacked in the axis's order;
+    backward each rank's slot of the cotangent summed over the ranks: the
+    transpose of JAX's ``all_gather``, a reduce-scatter, done as an
+    all-reduce and the rank's slot, which gloo carries).
+
 Each function's backward is its conjugate, itself an autograd function,
 so a second derivative through them (the AIRL gradient penalty's,
 ``rl/airl.py``) takes the conjugate's collective again.
@@ -42,9 +50,9 @@ def _tp(mesh) -> int:
     return 1 if mesh is None else mesh.tp
 
 
-def _all_reduce(mesh, x: torch.Tensor) -> torch.Tensor:
+def _all_reduce(mesh, x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
     y = x.float() if x.dtype == torch.bfloat16 else x.clone()
-    dist.all_reduce(y, group=mesh.group("tp"))
+    dist.all_reduce(y, group=mesh.group(axis))
     return y.to(x.dtype)
 
 
@@ -112,6 +120,47 @@ class _ScatterFields(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _GatherFields.apply(g, ctx.mesh, ctx.sizes), None, None
+
+
+class _GatherOver(torch.autograd.Function):
+    """Every rank's ``x`` of an axis, stacked -> (n, *x.shape); backward
+    the rank's slot of the cotangent summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        wide = x.dtype == torch.bfloat16 and mesh.backend == "gloo"
+        src = (x.float() if wide else x).contiguous()
+        parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
+        dist.all_gather(parts, src, group=mesh.group(axis))
+        return torch.stack(parts).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceScatterOver.apply(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceScatterOver(torch.autograd.Function):
+    """(n, ...) on every rank of an axis -> the sum over the ranks of their
+    slot of this rank's index; backward the cotangents gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce(mesh, x, axis)[mesh.index(axis)]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherOver.apply(g, ctx.mesh, ctx.axis), None, None
+
+
+def gather_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The ranks of ``axis``'s ``x`` (the same shape on each), stacked in
+    the order of their index -> (n, *x.shape); differentiable (the
+    transpose of JAX's ``all_gather``)."""
+    if mesh.size(axis) == 1:
+        return x[None]
+    return _GatherOver.apply(x, mesh, axis)
 
 
 def _offsets(sizes: Sequence[int]):

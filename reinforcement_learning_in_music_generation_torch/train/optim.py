@@ -15,9 +15,9 @@ Parameters, gradients and moments are nested dicts of tensors (the JAX
 parameter tree).  ``value_and_grad`` is ``jax.value_and_grad(has_aux=True)``
 on such a tree; ``apply_updates`` adds the updates in place.  ``zero1``
 wraps ``Adam`` so that each rank of a dp mesh keeps a slice of the moments.
-Under a tp mesh each rank holds its shards of the parameters, gradients and
-moments; Adam is elementwise, so only the clip's global norm needs the
-mesh (``Adam.clip``).
+Under a tp or pipeline mesh each rank holds its shards of the parameters,
+gradients and moments; Adam is elementwise, so only the clip's global norm
+needs the mesh (``Adam.clip``).
 """
 
 from __future__ import annotations
@@ -108,18 +108,28 @@ def step_lr(init_lr: float, step_size: int, gamma: float = 0.1) -> Schedule:
 def global_norm(grads: dict, mesh=None) -> torch.Tensor:
     """The l2 norm of the whole gradient.  Under a tp mesh the leaves the
     Megatron rules split are the rank's shards: their squared norms are
-    summed over the tp group (one all-reduce), the whole leaves' counted
-    once; every rank gets the norm optax computes on the global arrays."""
+    summed over the tp group, the whole leaves' counted once.  On a pipeline
+    mesh the layer leaves are the stage's slab: their squared norms are
+    summed over the pp group too, while the leaves every stage holds whole
+    (the embeddings, ``in_linear``, ``final_ln``, the heads), equal on the
+    stages, are counted once.  Every rank gets the norm optax computes on
+    the global arrays (one all-reduce an axis)."""
     sq = lambda g: torch.sum(g.float() * g.float())
     leaves = tree_leaves(grads)
-    if mesh is None or mesh.tp == 1:
+    if mesh is None or (mesh.tp == 1 and mesh.pp == 1):
         return torch.sqrt(sum(sq(g) for g in leaves))
     from ..parallel.mesh import all_reduce_
-    from ..parallel.sharding import tp_axes
-    axes = tp_axes(grads)
-    part = torch.stack([sq(g) for g, a in zip(leaves, axes) if a is not None]).sum()
-    all_reduce_(mesh, [part], axis="tp")
-    return torch.sqrt(part + sum(sq(g) for g, a in zip(leaves, axes) if a is None))
+    from ..parallel.sharding import layouts
+    zero = torch.zeros((), device=leaves[0].device)
+    # (split over tp, slabbed over pp) -> the rank's sum of squares
+    part = {(t, p): zero.clone() for t in (False, True) for p in (False, True)}
+    for g, (tp_dim, slab) in zip(leaves, layouts(mesh, grads)):
+        part[tp_dim is not None, slab] += sq(g)
+    over_tp = torch.stack([part[True, True], part[True, False]])
+    all_reduce_(mesh, [over_tp], axis="tp")
+    over_pp = torch.stack([over_tp[0], part[False, True]])
+    all_reduce_(mesh, [over_pp], axis="pp")
+    return torch.sqrt(over_pp.sum() + over_tp[1] + part[False, False])
 
 
 class AdamState(NamedTuple):

@@ -1,6 +1,7 @@
 """Pretraining: the counterpart of the JAX package's ``train/pretrain.py``
-(``agent_train_step``, ``agent_grad_step``, ``longformer_lm_step``,
-``longformer_grad_step``, ``apply_grads``, ``pretrain``).
+(``agent_train_step``, ``agent_grad_step``, ``agent_pp_train_step``,
+``agent_pp_grad_step``, ``longformer_lm_step``, ``longformer_grad_step``,
+``apply_grads``, ``pretrain``).
 
 Agent step: loss = mean of the six masked field CEs, Adam lr 1e-4 with
 global-norm clipping at 3 (dqn_policy/agent_pretrain.py:516,557-565).
@@ -24,10 +25,12 @@ shard's, a whole leaf's is already equal on the tp ranks, and the clip's
 norm sums the shards' over the tp group (``optim.global_norm``).  The
 Longformer LM step has no tensor-parallel layer and takes dp only.
 ``pretrain(mesh=...)`` adds ZeRO-1 (``PretrainConfig.zero1``,
-``optim.zero1``).  Not ported yet, raising ``NotImplementedError``: a mesh
-with a pp axis and the orbax checkpoint backend (ROADMAP Queue 1 items
-9(d), 9(e)).  The steps update ``params`` and the optimizer state in place
-and return them.
+``optim.zero1``).  On a pipeline mesh (a "pp" axis, ``parallel.make_pp_mesh``)
+the agent step runs through the GPipe schedule (``agent_pp_train_step``,
+``parallel/pipeline.py``) on the global batch.  Not ported yet, raising
+``NotImplementedError``: the orbax checkpoint backend (ROADMAP Queue 1 item
+9(e)).  The steps update ``params`` and the optimizer state in place and
+return them.
 """
 
 from __future__ import annotations
@@ -111,6 +114,26 @@ def agent_grad_step(params: dict, cfg: LinearTransformerConfig, x, y, mask,
     return _scaled(grads, scale), (loss, losses)
 
 
+def agent_pp_train_step(params: dict, opt_state: optim.AdamState, cfg: LinearTransformerConfig,
+                        tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator],
+                        mesh=None, n_microbatch: Optional[int] = None):
+    """``agent_train_step`` through the pipeline (JAX :95-104): the layer
+    slabs staged over the mesh's "pp" axis, the rows over "dp"; x, y, mask
+    the global batch, ``params`` and ``opt_state`` the rank's shards."""
+    from ..parallel.pipeline import pipeline_train_step
+    return pipeline_train_step(params, opt_state, cfg, tx, x, y, mask, generator, mesh,
+                               n_microbatch)
+
+
+def agent_pp_grad_step(params: dict, cfg: LinearTransformerConfig, x, y, mask,
+                       generator: Optional[torch.Generator], mesh=None,
+                       n_microbatch: Optional[int] = None, scale: float = 1.0):
+    """The accumulation unit on a pipeline mesh (JAX :107-116): gradients
+    and loss through the GPipe schedule, no optimizer."""
+    from ..parallel.pipeline import pipeline_grad_step
+    return pipeline_grad_step(params, cfg, x, y, mask, generator, mesh, n_microbatch, scale)
+
+
 def longformer_lm_step(params: dict, opt_state: optim.AdamState, cfg: WindowTransformerConfig,
                        tx: optim.Adam, x, y, mask, generator: Optional[torch.Generator],
                        dp_mesh=None):
@@ -185,20 +208,25 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
     same parameters (shards) and history.  ``pcfg.zero1`` slices Adam's
     moments over the dp ranks (``optim.zero1``; it needs dp > 1).  Only rank
     0 logs and writes checkpoints, of the whole tree (the ZeRO-1 moments
-    gathered over dp, the tp shards over tp), in the layout one process
-    writes; every rank reads ``resume_from``'s whole tree and keeps its
-    shards, so a run resumes at another tp.  Under tp the returned params
-    and state are the rank's shards (``parallel.gather_params`` puts them
-    back whole).  With ``save_on_interrupt`` the interrupt flag is
-    all-reduced (MAX) at every batch, so all ranks stop at the same one."""
-    if mesh is not None and "pp" in mesh.shape:
-        raise NotImplementedError("pretrain(mesh=...) with a pp axis: pipeline parallelism "
-                                  "is not ported yet (ROADMAP Queue 1 item 9(d))")
+    gathered over dp, the tp shards over tp, the layer slabs over pp), in
+    the layout one process writes; every rank reads ``resume_from``'s whole
+    tree and keeps its shards, so a run resumes at another tp or pp.  Under
+    tp or pp the returned params and state are the rank's shards
+    (``parallel.gather_params`` puts them back whole).  On a pipeline mesh
+    (JAX :249-256) every rank reads the global batch and the agent step
+    runs through ``agent_pp_train_step`` (gradient accumulation through
+    ``agent_pp_grad_step``), each rank's generator seeded by its dp index
+    and stage (``pcfg.seed + 7919 (dp_index pp + stage)``); ZeRO-1 and the
+    Longformer step raise ``ValueError`` there, as in JAX.  With
+    ``save_on_interrupt`` the interrupt flag is all-reduced (MAX) at every
+    batch, so all ranks stop at the same one."""
     if pcfg.ckpt_backend != "pickle":
         raise NotImplementedError(f"ckpt_backend={pcfg.ckpt_backend!r}: only the pickle "
                                   "format is ported (ROADMAP Queue 1 item 9(e))")
     dp = mesh.dp if mesh is not None else 1
     tp = mesh.tp if mesh is not None else 1
+    pp = mesh.pp if mesh is not None else 1
+    piped = mesh is not None and "pp" in mesh.shape
     rank = mesh.rank if mesh is not None else 0
     if tp > 1:
         if step_fn is not agent_train_step:
@@ -208,6 +236,12 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
     if pcfg.zero1 and dp <= 1:
         raise ValueError("PretrainConfig.zero1 needs a mesh with dp>1 (the optimizer state "
                          "shards over 'dp')")
+    if pcfg.zero1 and piped:
+        raise ValueError("zero1 on a pipeline mesh is not implemented (moments would need the "
+                         "layer-stack 'pp' sharding on top of 'dp'); use a ('dp','tp') mesh")
+    if piped and step_fn is not agent_train_step:
+        raise ValueError("a pipeline mesh only supports the LinearTransformer agent path "
+                         "(agent_train_step)")
     accum = max(1, pcfg.grad_accum)
     grad_step = _GRAD_STEPS.get(step_fn)
     if accum > 1 and grad_step is None:
@@ -223,8 +257,12 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
             raise ValueError(f"the mesh computes on {mesh.device}, params are on {device}")
         n_whole = lt.n_params(params)
         params = shard_params(mesh, params)
-        step_fn = functools.partial(step_fn, dp_mesh=mesh)
-        grad_step = functools.partial(grad_step, dp_mesh=mesh)
+        if piped:
+            step_fn = functools.partial(agent_pp_train_step, mesh=mesh)
+            grad_step = functools.partial(agent_pp_grad_step, mesh=mesh)
+        else:
+            step_fn = functools.partial(step_fn, dp_mesh=mesh)
+            grad_step = functools.partial(grad_step, dp_mesh=mesh)
     # schedules count OPTIMIZER steps; milestones are epochs
     num_batch_sched = max(1, len(train_x) // pcfg.batch_size // accum)
     lr = (optim.multistep_lr(pcfg.lr, tuple(int(m) * num_batch_sched
@@ -240,12 +278,12 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
             raise NotImplementedError(f"{resume_from} is a directory (an orbax checkpoint): "
                                       "only the pickle format is ported (ROADMAP Queue 1 "
                                       "item 9(e))")
-        whole = params if tp == 1 else gather_params(mesh, params)
+        whole = params if mesh is None else gather_params(mesh, params)
         ck = load_checkpoint(resume_from, params_template=whole,
                              opt_state_template=optim.AdamState(whole, whole, 0),
                              device=device)
         del whole
-        params = ck["params"] if tp == 1 else shard_tree(mesh, ck["params"])
+        params = ck["params"] if mesh is None else shard_tree(mesh, ck["params"])
         if ck["opt_state"] is not None:
             opt_state = local_opt_state(tx, ck["opt_state"], mesh)
         start_epoch = int(ck["extra"].get("epoch", -1)) + 1
@@ -258,11 +296,11 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
                           f"{n_whole if mesh is not None else lt.n_params(params):,d}")
 
     def save(name: str, extra: dict) -> str:
-        """Every rank calls it (ZeRO-1 gathers the moments, tp the shards);
-        rank 0 writes the whole tree."""
+        """Every rank calls it (ZeRO-1 gathers the moments, tp and pp the
+        shards); rank 0 writes the whole tree."""
         path = f"{pcfg.ckpt_dir}/{name}.ckpt"
         state = full_opt_state(tx, opt_state, mesh)
-        whole = params if tp == 1 else gather_params(mesh, params)
+        whole = params if mesh is None else gather_params(mesh, params)
         if rank == 0:
             save_checkpoint(path, whole, state, step=saver.global_step, extra=extra)
         return path
@@ -280,7 +318,8 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
         INTERRUPT.clear()
     num_batch = len(train_x) // pcfg.batch_size
     generator = torch.Generator(device=device)
-    generator.manual_seed(pcfg.seed + 7919 * (mesh.dp_index if mesh is not None else 0))
+    generator.manual_seed(pcfg.seed + 7919 * (0 if mesh is None
+                                              else mesh.dp_index * pp + mesh.pp_index))
     grads_acc, micro = None, 0
     steps_done = 0
     history = []
@@ -291,7 +330,8 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
         acc_losses = torch.zeros(len(cfg.vocab_sizes), device=device)
         for bidx, (bx, by, bm) in prefetch_batches(train_x, train_y, train_mask,
                                                    pcfg.batch_size, device,
-                                                   depth=pcfg.prefetch_depth, mesh=mesh):
+                                                   depth=pcfg.prefetch_depth,
+                                                   mesh=None if piped else mesh):
             saver.global_step_increment()
             if accum == 1:
                 params, opt_state, (loss, losses) = step_fn(params, opt_state, cfg, tx, bx, by,

@@ -76,13 +76,14 @@ def load_checkpoint(path: str, params_template: Any = None, opt_state_template: 
 
 def full_opt_state(tx, opt_state: Optional[AdamState], mesh=None) -> Optional[AdamState]:
     """The optimizer state to save: ZeRO-1's moments gathered over dp, and
-    under a tp ``mesh`` the moments' shards gathered over tp (collectives,
-    so every rank calls it); any other state as it is."""
+    under a tp ``mesh`` the moments' shards gathered over tp, and on a
+    pipeline mesh their layer slabs over pp (collectives, so every rank
+    calls it); any other state as it is."""
     if opt_state is None:
         return None
     if isinstance(tx, Zero1):
         opt_state = tx.full_state(opt_state)
-    if mesh is not None and mesh.tp > 1:
+    if mesh is not None and (mesh.tp > 1 or mesh.pp > 1):
         from ..parallel.sharding import gather_params
         opt_state = AdamState(gather_params(mesh, opt_state.mu), gather_params(mesh, opt_state.nu),
                               opt_state.count)
@@ -91,8 +92,9 @@ def full_opt_state(tx, opt_state: Optional[AdamState], mesh=None) -> Optional[Ad
 
 def local_opt_state(tx, opt_state: AdamState, mesh=None) -> AdamState:
     """A loaded (whole) optimizer state as ``tx`` keeps it on this rank:
-    under a tp ``mesh`` the moments' tp shards, then ZeRO-1's slices."""
-    if mesh is not None and mesh.tp > 1:
+    under a tp or pipeline ``mesh`` the moments' shards, then ZeRO-1's
+    slices."""
+    if mesh is not None and (mesh.tp > 1 or mesh.pp > 1):
         from ..parallel.sharding import shard_tree
         opt_state = AdamState(shard_tree(mesh, opt_state.mu), shard_tree(mesh, opt_state.nu),
                               opt_state.count)

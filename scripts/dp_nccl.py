@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Data and tensor parallelism over NCCL, one card a rank, at agent_config's
-width.  Needs a card a rank:
+"""Data, tensor, sequence and pipeline parallelism over NCCL, one card a
+rank, at agent_config's width.  Needs a card a rank:
 
     python3 scripts/dp_nccl.py            # dp: 2 ranks, and 4 where there are 4 cards
     python3 scripts/dp_nccl.py --tp       # tp: tp = 2, and tp = 4 and dp = 2 x tp = 2
                                           # where there are 4 cards
     python3 scripts/dp_nccl.py --rl       # the RL steps: tp = 2, and tp = 4 and
                                           # dp = 2 x tp = 2 where there are 4 cards
+    python3 scripts/dp_nccl.py --sp --pp  # sp = 2 (and 4), pp = 2 (and dp = 2 x pp = 2
+                                          # and cli pretrain --pp 2 --dp 2) where there
+                                          # are 4 cards
 
 dp: ``chip_smoke.py``'s phases 34-35 (``dp_rank``, gated by
 ``dp_gate_failures``) with rank r on card r, B=32 x S=512 global at 2 ranks
@@ -30,6 +33,15 @@ rollout song and update step, the DQN update with control (i), the
 discriminator step), each against one process; then ``cli dqn-train --tp
 2`` and ``cli ppo-train --dp 2 --tp 2`` (``RL_CLI``'s flags) on CUDA over
 NCCL (``chip_smoke.rl_cli_rank``: the ranks' trees and generator digested).
+
+sp: phase 42 (``sp_rank``, gated by ``sp_gate_failures``) with rank r on
+card r: q, k, v (32, 8, 512, 64) split over sp = 2, and over sp = 4 where
+there are 4 cards.  pp: phase 43 (``pp_rank``, gated by
+``pp_gate_failures``) under RLMG_FFN_BACKEND=pallas-tail: pp = 2 (with the
+control, the step under RLMG_FFN_BACKEND=pallas and the dropout steps) and dp = 2 x pp = 2 where there are 4 cards,
+B=32 x S=512, then phase 44's ``cli pretrain --pp 2 --dp 2`` over NCCL
+(``chip_smoke.pp_cli_run``).  The hop between stages takes NCCL's
+``batch_isend_irecv`` here (gloo's a host copy).
 
 Builds the kernels first (``ops/_build.py``).  Prints the cards' name and
 power limit beside the readings; exits non-zero where a gate fails.
@@ -98,6 +110,10 @@ def main() -> None:
     ap.add_argument("--tp", action="store_true", help="the tensor-parallel runs (else dp)")
     ap.add_argument("--rl", action="store_true",
                     help="the RL steps and commands on the mesh (else dp)")
+    ap.add_argument("--sp", action="store_true",
+                    help="the sequence-parallel attention (else dp)")
+    ap.add_argument("--pp", action="store_true",
+                    help="the pipeline step and cli pretrain --pp (else dp)")
     args = ap.parse_args()
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
@@ -115,6 +131,18 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t:.1f}s", flush=True)
     e2w, _ = tokenizer.drop_type(tokenizer.construct_cp_dict())
     cfg = C.agent_config(tuple(tokenizer.n_classes(e2w)))
+    if args.sp or args.pp:
+        if args.sp:
+            for n in (2, 4) if n_cards >= 4 else (2,):
+                chip_smoke.sp_run(smi_line, backend="nccl", n=n)
+        if args.pp:
+            meshes = [dict(phase="43n", dp=1, pp=2, control=True, g_route=True,
+                           dropout=("float32", "bfloat16"))]
+            if n_cards >= 4:
+                meshes += [dict(phase="43bn", dp=2, pp=2)]
+            chip_smoke.pp_run(cfg, smi_line, backend="nccl", meshes=meshes, cli=n_cards >= 4)
+        print("dp_nccl --sp/--pp: ok", flush=True)
+        return
     if args.rl:
         meshes = [dict(phase="39n", dp=1, tp=2, steps=("dqn", "disc", "disc_long", "rollout")),
                   dict(phase="40bn", dp=2, tp=1, ffn="pallas", steps=("rollout", "dqn", "ppo"))]

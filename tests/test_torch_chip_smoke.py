@@ -379,3 +379,49 @@ def test_rl_gates_refuse_a_blind_control_a_flip_off_a_tie_and_ranks_apart(
     fails = smoke.rl_gate_failures(_rl_readings(control_loss, margin, flip, digests, g_ran),
                                    {"n_layer": 12, "ffn": ffn})
     assert len(fails) == n_fails, fails
+
+
+def _sp_res(errors, controls, counts=((1, 1), (1, 1))):
+    return [{"rank": i, "counts": list(c), "runs": list(c), "errors": errors,
+             "controls": controls} for i, c in enumerate(counts)]
+
+
+def test_sp_gates_refuse_a_blind_control_and_a_rank_without_f(smoke):
+    """Phase 42's gates: they pass a result within SP_GATES with both
+    controls outside, and refuse a result above a gate, a control inside
+    them (a blind control) and a rank whose kernel F did not run."""
+    ok = {"out": 1e-7, "dq": 1e-6, "dk": 1e-6, "dv": 1e-6}
+    far = {"out": 0.5, "dq": 0.2, "dk": 0.5, "dv": 0.8}
+    ctl = {"inclusive_prefix": far, "no_reduce_scatter": dict(ok, dk=0.1, dv=0.2)}
+    spec = {"sp": 2}
+    assert smoke.sp_gate_failures(_sp_res(ok, ctl), spec) == []
+    assert smoke.sp_gate_failures(_sp_res(dict(ok, dk=2e-3), ctl), spec)
+    assert smoke.sp_gate_failures(_sp_res(ok, dict(ctl, no_reduce_scatter=ok)), spec)
+    assert smoke.sp_gate_failures(_sp_res(ok, ctl, ((1, 1), (0, 0))), spec)
+
+
+def test_pp_gates_refuse_a_blind_control_missing_launches_and_ranks_apart(smoke):
+    """Phase 43's gates: D (and, on G's route, G) (n_layer / pp) x m times
+    forward and backward on every stage, equal losses and replicated leaves
+    on the ranks, the step within STEP_GATES and the control outside them."""
+    good = {"loss": 1e-7, "grads": (1e-6, "/x"), "params": (1e-7, "/x"),
+            "params_leaf": (1e-7, "/x"), "updates": (1e-6, "/x"), "updates_seen": 1}
+    bad = dict(good, grads=(1.0, "/heads/pitch/w"))
+    spec = {"n_layer": 12, "pp": 2}
+
+    def res(counts=(24, 24), errors=good, control=bad, digests=("a", "a"), losses=(1.0, 1.0),
+            g_counts=(24, 24)):
+        want = [0, 0, *counts] + [0] * 6
+        g = {"counts": [0] * 8 + list(g_counts), "loss_ranks": [1.0, 1.0],
+             "digests": ["c", "c"], "errors": good}
+        r0 = {"rank": 0, "counts": want, "microbatches": 4, "loss_ranks": list(losses),
+              "digests": list(digests), "errors": errors, "control_errors": control,
+              "dropout": {"float32": [2.0, 2.0]}, "g": g}
+        return [r0, dict(r0, rank=1)]
+    assert smoke.pp_gate_failures(res(), spec) == []
+    assert smoke.pp_gate_failures(res(g_counts=(24, 0)), spec)
+    assert smoke.pp_gate_failures(res(counts=(0, 0)), spec)
+    assert smoke.pp_gate_failures(res(errors=bad), spec)
+    assert smoke.pp_gate_failures(res(control=good), spec)
+    assert smoke.pp_gate_failures(res(digests=("a", "b")), spec)
+    assert smoke.pp_gate_failures(res(losses=(1.0, float("nan"))), spec)

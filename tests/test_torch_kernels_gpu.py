@@ -1721,6 +1721,44 @@ def test_tp_f_route_step_on_two_ranks_of_one_card(dev, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_sp_f_route_on_two_ranks_of_one_card(dev, monkeypatch):
+    """chip_smoke.py phase 42 at a small size ((2, 4, 256, 64)): sp = 2, two
+    gloo ranks on the one card, each on its half of the sequence through
+    causal_linear_attention_sp(backend="pallas"): kernel F called and run
+    once forward and once backward on each rank, the gathered output and
+    gradients within phase 11's gates of one process's kernel-F call on the
+    whole sequence, both controls outside them (``chip_smoke.sp_gate_failures``)."""
+    import os
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    spec = {"sp": 2, "shape": (2, 4, 256, 64), "reps": 2}
+    res = pm.launch(chip_smoke.sp_rank, 2, (spec,), timeout_s=300)
+    assert chip_smoke.sp_gate_failures(res, spec) == []
+
+
+@pytest.mark.gpu
+def test_pp_d_route_step_on_two_ranks_of_one_card(dev, monkeypatch):
+    """chip_smoke.py phase 43 at a small size (d_model 128, 2 layers, 4
+    heads, B 4 x S 128): dp = 1 x pp = 2, two gloo ranks on the one card,
+    each on its layer, under RLMG_FFN_BACKEND=pallas-tail: kernel D's
+    wrapper launched once a microbatch forward and backward on each stage,
+    the step within the step gates of one process's on the same route, the
+    control outside them, the replicated leaves bit-equal on both ranks
+    (``chip_smoke.pp_gate_failures``)."""
+    import os
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    spec = {"cfg": dict(vocab_sizes=VOCAB, emb_sizes=(16,) * 6, d_model=128, n_layer=2,
+                        n_head=4, d_inner=256, max_len=512),
+            "n_layer": 2, "dp": 1, "pp": 2, "B": 4, "S": 128, "valid_tail": 20,
+            "control": True}
+    res = pm.launch(chip_smoke.pp_rank, 2, (spec,), timeout_s=300)
+    assert chip_smoke.pp_gate_failures(res, spec) == []
+
+
+@pytest.mark.gpu
 def test_rl_tp_update_on_two_ranks_of_one_card(dev, monkeypatch):
     """chip_smoke.py phase 39 at two layers (the flagship width; the
     discriminator at one): dp = 1 x tp = 2, two gloo ranks on the one card,

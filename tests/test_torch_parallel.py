@@ -403,14 +403,15 @@ def test_cli_generate_dp2_cpu(tmp_path, monkeypatch):
 
 
 def test_mesh_refusals(monkeypatch):
-    """make_mesh without a group raises, at any tp; the CLI's unported mesh
-    flag names its item (dp and tp are ported for every command that takes
-    them: tests/test_torch_tensor_parallel.py, tests/test_torch_rl_parallel.py);
+    """make_mesh without a group raises, at any tp; the CLI's unported
+    checkpoint backend names its item (dp, tp and pp are ported for every
+    command that takes them: tests/test_torch_tensor_parallel.py,
+    tests/test_torch_rl_parallel.py, tests/test_torch_pipeline_parallel.py);
     ZeRO-1 needs dp > 1, as in JAX."""
     for dp, tp in ((2, 2), (2, 1)):
         with pytest.raises(RuntimeError, match="process group"):
             pm.make_mesh(dp, tp)
-    for argv, item in ((["pretrain", "--pp", "2"], "9(d)"),):
+    for argv, item in ((["pretrain", "--pp", "2", "--ckpt-backend", "orbax"], "9(e)"),):
         with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
             tcli.main(argv + ["--device", "cpu"])
     params = tlt.init_params(TC.LinearTransformerConfig(**W.KW), device="cpu")

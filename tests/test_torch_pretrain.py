@@ -152,19 +152,21 @@ def test_unported_options_raise(monkeypatch, jparams, batch):
     torch.testing.assert_close(
         tlt.forward_hidden(tp, TC.LinearTransformerConfig(**KW, remat=True), _t(x)), plain,
         rtol=0, atol=0)
-    # data and tensor parallelism and ZeRO-1 are ported
-    # (tests/test_torch_parallel.py, tests/test_torch_tensor_parallel.py): a
-    # mesh with a pp axis and the orbax backend still raise, and ZeRO-1
-    # without a dp > 1 mesh raises JAX's ValueError
-    pp_mesh = Mesh({"dp": 1, "tp": 1, "pp": 2}, 0, torch.device("cpu"), "gloo")
-    for pcfg, kw in ((TC.PretrainConfig(ckpt_backend="orbax"), {}),
-                     (TC.PretrainConfig(), {"mesh": pp_mesh})):
-        with pytest.raises(NotImplementedError):
-            tpre.pretrain(tp, TCFG, x, y, m, pcfg, **kw)
+    # data, tensor and pipeline parallelism and ZeRO-1 are ported
+    # (tests/test_torch_parallel.py, tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_pipeline_parallel.py): the orbax backend still
+    # raises, ZeRO-1 without a dp > 1 mesh and ZeRO-1 on a mesh with a pp
+    # axis raise JAX's ValueErrors
+    pp_mesh = Mesh({"dp": 2, "pp": 2, "tp": 1}, 0, torch.device("cpu"), "gloo")
+    with pytest.raises(NotImplementedError):
+        tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(ckpt_backend="orbax"))
+    with pytest.raises(ValueError, match="pipeline mesh"):
+        tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(zero1=True), mesh=pp_mesh)
     with pytest.raises(ValueError, match="dp>1"):
         tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(zero1=True))
-    with pytest.raises(NotImplementedError, match="--pp"):
-        tcli.main(["pretrain", "--device", "cpu", "--synthetic", "--pp", "2"])
+    with pytest.raises(NotImplementedError, match="orbax"):
+        tcli.main(["pretrain", "--device", "cpu", "--synthetic", "--pp", "2",
+                   "--ckpt-backend", "orbax"])
 
 
 def test_losses_match_jax():
