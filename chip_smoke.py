@@ -2708,10 +2708,13 @@ def tp_rank(spec: dict) -> dict:
         held("control", "f", "float32", c_out)
         del c_out
     # times, on the F route at f32: the tp step, one process, dp at the same
-    # global batch (a warm step, then the mean of two)
+    # global batch (a warm step, then the mean of two); over NCCL only
+    # (scripts/dp_nccl.py --tp): ranks sharing one card over gloo share its
+    # SMs, so their times say nothing of scaling
     dp_rows = pm.shard_batch(dp_mesh, full)
     times = {}
-    for route, dtype in [s_ for s_ in steps if s_ == ("f", "float32")]:
+    timed_steps = [s_ for s_ in steps if s_ == ("f", "float32")]
+    for route, dtype in timed_steps if spec.get("backend", "gloo") == "nccl" else ():
         key = f"{route}_{dtype}"
         dist.barrier()
         times[f"tp_{key}"] = timed(route, dtype, mine, mine_p, mesh, n=2)
@@ -2721,19 +2724,20 @@ def tp_rank(spec: dict) -> dict:
         if rank == 0:
             times[f"single_{key}"] = timed(route, dtype, full, p0, None, n=2)
         dist.barrier()
-    act = torch.zeros((mine[0].shape[0], s_len, cfg.d_model), device=dev)
-    red = lambda: ptn.reduce_from_tp(act, mesh)
-    red()
-    sync()
-    dist.barrier()
-    t = time.perf_counter()
-    for _ in range(10):
+    if times:
+        act = torch.zeros((mine[0].shape[0], s_len, cfg.d_model), device=dev)
+        red = lambda: ptn.reduce_from_tp(act, mesh)
         red()
-    sync()
-    times["allreduce_activation_ms"] = (time.perf_counter() - t) / 10 * 1e3
-    times["activation_bytes"] = act.numel() * 4
+        sync()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(10):
+            red()
+        sync()
+        times["allreduce_activation_ms"] = (time.perf_counter() - t) / 10 * 1e3
+        times["activation_bytes"] = act.numel() * 4
+        del act
     out["times"] = times
-    del act
 
     # -- 38. generate_songs under tp: greedy against one process, stochastic
     if spec.get("songs"):
@@ -2886,15 +2890,15 @@ def tp_run(cfg, smi_line, *, backend: str = "gloo", meshes=None) -> dict:
                   f"{info.get('f_runs')}; collectives a step (calls, elements) "
                   f"{info.get('collectives')}", flush=True)
         tm = r0["times"]
-        share = "; ranks sharing one card share its SMs, so these times say nothing of " \
-            "scaling" if backend == "gloo" else ""
-        print(f"{tag}: ms a step {{tp, dp at the same global batch, one process}}: "
-              + "; ".join(f"{k[3:]} {tm[k]:.1f} / {tm['dp_' + k[3:]]:.1f} / "
-                          f"{tm.get('single_' + k[3:], float('nan')):.1f} (rank 0; tp on the "
-                          f"ranks {[round(r['times'][k], 1) for r in res]})"
-                          for k in tm if k.startswith("tp_"))
-              + f"; one all-reduce of an activation ({tm['activation_bytes'] / 2**20:.1f} MiB) "
-              f"over tp {tm['allreduce_activation_ms']:.2f} ms{share} ({smi_line})", flush=True)
+        if tm:
+            print(f"{tag}: ms a step {{tp, dp at the same global batch, one process}}: "
+                  + "; ".join(f"{k[3:]} {tm[k]:.1f} / {tm['dp_' + k[3:]]:.1f} / "
+                              f"{tm.get('single_' + k[3:], float('nan')):.1f} (rank 0; tp on "
+                              f"the ranks {[round(r['times'][k], 1) for r in res]})"
+                              for k in tm if k.startswith("tp_"))
+                  + f"; one all-reduce of an activation ({tm['activation_bytes'] / 2**20:.1f} "
+                  f"MiB) over tp {tm['allreduce_activation_ms']:.2f} ms ({smi_line})",
+                  flush=True)
         if "generate" in r0:
             g = r0["generate"]
             print(f"[tp] 38: generate_songs under tp={spec['tp']}, {len(g['greedy'])} greedy "
@@ -2934,21 +2938,30 @@ RL_STEP_GATES = {k: STEP_GATES[k] for k in ("loss", "grads")}
 # bias, the train-mode BatchNorm the first score layer's bias): both sides
 # hold rounding noise there, printed and left out of the step gates
 RL_ZERO_GRADS = ("/layers/wk/b", "/score/l1/b")
-RL_RUNS = "(F fwd, F bwd, E fwd, E bwd, G fwd, G bwd)"
+RL_RUNS = "(F fwd, F bwd, E fwd, E bwd, G fwd, G bwd, D fwd, D bwd)"
+# the split discriminator epoch (item 9(b3)): airl.disc_epoch(dp_rows=True)
+# at the discriminator's width on 4 minibatches of 100 x 50 states, each
+# split over dp; in 40b on kernel D's route (the Longformer's fused tail,
+# forced at the rank's 2500 rows; its "pallas" route is the composition, as
+# in JAX, so G runs in no discriminator layer)
+DISC_SPLIT = {"minibatches": 4, "rows": 100, "states": 50}
+DISC_SPLIT_D_ROUTE = {"RLMG_FFN_BACKEND": "pallas-tail"}
 
 
 def rl_runs(cuda: bool, reset: bool = False) -> list:
     """``RL_RUNS`` on this process: F's and G's forwards and F's backward as
-    the kernels count their runs on the card (graph replays included), E's
-    and G's backward as their wrappers count their launches (eager on these
-    paths); ``reset`` zeroes them after the read."""
+    the kernels count their runs on the card (graph replays included), E's,
+    G's backward and D's as their wrappers count their launches (eager on
+    these paths); ``reset`` zeroes them after the read."""
     from reinforcement_learning_in_music_generation_torch.ops import (
         ffn_block as tfb, linear_attention_kernel as tlk, window_attention_kernel as twk)
-    band, g = twk.window_attention_band, tfb.ffn_block
+    band, g, d = twk.window_attention_band, tfb.ffn_block, tfb.attn_tail_block
     out = [*(tlk.kernel_runs(reset) if cuda else (0, 0)), band.launches_fwd,
-           band.launches_bwd, tfb.ffn_kernel_runs(reset) if cuda else 0, g.launches_bwd]
+           band.launches_bwd, tfb.ffn_kernel_runs(reset) if cuda else 0, g.launches_bwd,
+           d.launches_fwd, d.launches_bwd]
     if reset:
         band.launches_fwd = band.launches_bwd = g.launches_bwd = 0
+        d.launches_fwd = d.launches_bwd = 0
     return out
 
 
@@ -2964,7 +2977,11 @@ def rl_rank(spec: dict) -> dict:
     (one AIRL disc_step on 100 x 50, the rows whole on every rank), "disc_long"
     (the same on 4 x 2048, where kernel E runs), "rollout" (one DQN rollout
     song, 50 episodes, eager under tp), "ppo" (one PPO rollout song of 30
-    episodes, then one update_policy_step on its transitions split over dp).
+    episodes, then one update_policy_step on its transitions split over dp),
+    "disc_split" (one disc_epoch with each minibatch split over dp,
+    ``DISC_SPLIT``; under ``spec["disc_route"]`` where given, and with
+    ``spec["disc_control"]`` the same epoch with each rank's own BatchNorm
+    statistics, the control).
     ``spec["ffn"] = "pallas"`` adds RLMG_FFN_BACKEND=pallas (kernel G, at
     tp = 1 only).  Each on the rank's rows and tp shards; rank 0 also runs it in one
     process and holds the mesh's readings against it (``step_errors``).
@@ -3140,6 +3157,9 @@ def rl_rank(spec: dict) -> dict:
         held("disc", disc_step(acfg.batch_size, s_q, 5))
     if "disc_long" in steps:
         held("disc_long", disc_step(4, 2048, 7))
+    if "disc_split" in steps:
+        out["steps"]["disc_split"] = disc_split(spec, mesh, wcfg, acfg, w0, mine, readings,
+                                                timed, vocab, dev)
     if "rollout" in steps:
         prm = mine(q0, mesh)
         song = (xs[0], ys[0], ms_[0])
@@ -3226,6 +3246,72 @@ def rl_rank(spec: dict) -> dict:
     return out
 
 
+def disc_split(spec, mesh, wcfg, acfg, w0, mine, readings, timed, vocab, dev) -> dict:
+    """Phase 40 / 40b's split discriminator epoch (``DISC_SPLIT``) on every
+    rank, then in one process on rank 0, under ``spec.get("disc_route")``:
+    the runs, ms, loss and digests of the mesh's epoch, its errors against
+    one process's (``step_errors``: the loss, and Adam's first moment after
+    the epoch in place of the gradients), and with ``spec["disc_control"]``
+    the control's errors (the score head's BatchNorm on each rank's rows)."""
+    import torch.distributed as dist
+    from reinforcement_learning_in_music_generation_torch.data import dataset
+    from reinforcement_learning_in_music_generation_torch.models import longformer as lf
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.rl import airl
+    n = DISC_SPLIT["minibatches"] * DISC_SPLIT["rows"]
+    s = DISC_SPLIT["states"]
+    e_, a_ = (torch.from_numpy(dataset.synthetic_cp_dataset(n, s, n_class=vocab,
+                                                            seed=11 + i)[0]).to(dev).int()
+              for i in range(2))
+    m_ = torch.ones((n, s), device=dev)
+    m_[::3, s - s // 5:] = 0.0
+
+    def fn(step_mesh):
+        prm = mine(w0, step_mesh)
+        tx = airl.make_optimizer(acfg)
+        st = airl.AIRLState(prm, lf.init_state(wcfg, device=dev), tx.init(prm))
+        st, m = airl.disc_epoch(st, wcfg, tx, e_, m_, a_, None, DISC_SPLIT["rows"], step_mesh,
+                                dp_rows=True)
+        return readings(float(m["global_loss"]), torch.stack(
+            [m[k] for k in ("expert_loss", "agent_loss", "ce_loss")]).cpu(), st.params,
+            st.opt_state, tx, step_mesh, RL_ZERO_GRADS)
+
+    keep = {k: os.environ.get(k) for k in ("RLMG_FFN_BACKEND", "RLMG_ATTN_BACKEND",
+                                           "RLMG_WINDOW_BACKEND")}
+    route = spec.get("disc_route")
+    if route is not None:
+        for k in keep:
+            os.environ.pop(k, None)
+        os.environ.update(route)
+    try:
+        got, ms, counted = timed(fn, mesh)
+        step = {"runs": counted, "ms": ms, "loss": got[0][0], "noise": got[1],
+                "digests": pm.all_gather_object(mesh, got[2], axis="world")}
+        ctl = None
+        if spec.get("disc_control"):
+            head = lf._score_head
+            lf._score_head = lambda p_, s_, h, train, dp_mesh=None: head(p_, s_, h, train)
+            try:
+                ctl = fn(mesh)
+            finally:
+                lf._score_head = head
+        dist.barrier()
+        if mesh.rank == 0:
+            one, ms1, _ = timed(fn, None)
+            step.update(ms_single=ms1, loss_single=one[0][0], noise_single=one[1],
+                        errors=step_errors(got[0], one[0]))
+            if ctl is not None:
+                step["control_errors"] = step_errors(ctl[0], one[0])
+                step["control_loss"] = ctl[0][0]
+            del one
+        del got, ctl
+        dist.barrier()
+    finally:
+        for k, v in keep.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+    return step
+
+
 def rl_gate_failures(res: list, spec: dict) -> list:
     """Phases 39-40's gates over every rank's ``rl_rank`` readings; the
     failures, each a line ([] when every gate holds)."""
@@ -3240,17 +3326,23 @@ def rl_gate_failures(res: list, spec: dict) -> list:
     # tokens the dense band; a PPO episode an actor and a critic forward, an
     # update two actor forwards and one critic forward, each with its
     # backward.  Under spec["ffn"] = "pallas" G runs wherever F does (the
-    # agent's, actor's and critic's layers), else nowhere
+    # agent's, actor's and critic's layers), else nowhere.  D runs only in
+    # the split discriminator epoch on spec["disc_route"]: each layer of its
+    # three forwards a minibatch and their backwards
     f = {"dqn": [3 * L, 2 * L], "control": [3 * L, 2 * L], "disc": [0, 0], "disc_long": [0, 0],
-         "rollout": [50 * L, 0], "ppo_rollout": [30 * 2 * L, 0], "ppo": [3 * L, 3 * L]}
+         "rollout": [50 * L, 0], "ppo_rollout": [30 * 2 * L, 0], "ppo": [3 * L, 3 * L],
+         "disc_split": [0, 0]}
     e = {k: [3 * Lw, 3 * Lw] if k == "disc_long" else [0, 0] for k in f}
-    want = {k: f[k] + e[k] + (f[k] if spec.get("ffn") == "pallas" else [0, 0]) for k in f}
+    nd = 3 * Lw * DISC_SPLIT["minibatches"] if spec.get("disc_route") else 0
+    d = {k: [nd, nd] if k == "disc_split" else [0, 0] for k in f}
+    want = {k: f[k] + e[k] + (f[k] if spec.get("ffn") == "pallas" else [0, 0]) + d[k]
+            for k in f}
     for name in r0:
         for r in res:
             if r["steps"][name]["runs"] != want[name]:
                 fails.append(f"rank {r['rank']} {name}: runs {RL_RUNS} "
                              f"{r['steps'][name]['runs']}, expected {want[name]}")
-    for name in ("dqn", "disc", "disc_long"):
+    for name in ("dqn", "disc", "disc_long", "disc_split"):
         if name in r0:
             bad = step_gate_failures(r0[name]["errors"], RL_STEP_GATES)
             if bad:
@@ -3262,6 +3354,10 @@ def rl_gate_failures(res: list, spec: dict) -> list:
                 fails.append(f"{name}: losses on the ranks {sorted(losses)}")
     if "control" in r0 and not step_gate_failures(r0["control"]["errors"], RL_STEP_GATES):
         fails.append("control (i), each rank's own MSE mean, passes the step gate")
+    if spec.get("disc_control") and not step_gate_failures(
+            r0["disc_split"]["control_errors"], RL_STEP_GATES):
+        fails.append("the split epoch's control, each rank's own BatchNorm statistics, passes "
+                     "the step gate")
     for name in ("rollout", "ppo_rollout"):
         for r in res if name in r0 else ():
             s = r["steps"][name]
@@ -3422,17 +3518,21 @@ def rl_run(cfg, smi_line, *, backend: str = "gloo", meshes=None, n_layer: int = 
     """Phases 39-41: the (dp, tp) meshes of ``rl_rank``, over gloo all on
     card 0 (39: dp = 1 x tp = 2, the DQN update, the discriminator step at
     100 x 50 and 4 x 2048, a DQN rollout song; 40: dp = 2 x tp = 2, the PPO
-    rollout song and update step, the DQN update with control (i) and the
-    discriminator step; 40b: dp = 2 x tp = 1 under RLMG_FFN_BACKEND=pallas
-    too, the graphed DQN and PPO rollouts, the DQN update and the PPO
-    step), or over nccl a card each (scripts/dp_nccl.py --rl); then (41, gloo only) the two RL commands on a mesh through the
+    rollout song and update step, the DQN update with control (i), the
+    discriminator step and the split discriminator epoch; 40b: dp = 2 x tp =
+    1 under RLMG_FFN_BACKEND=pallas too, the graphed DQN and PPO rollouts,
+    the DQN update, the PPO step, and the split epoch on kernel D's route
+    with its control), or over nccl a card each (scripts/dp_nccl.py --rl); then (41, gloo only) the two RL commands on a mesh through the
     CLI.  Prints the readings, fails on the gates, returns each phase's
     rank-0 readings and every rank's kernel runs."""
     from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
     if meshes is None:
         meshes = [dict(phase=39, dp=1, tp=2, steps=("dqn", "disc", "disc_long", "rollout")),
-                  dict(phase=40, dp=2, tp=2, steps=("ppo", "dqn", "control", "disc")),
-                  dict(phase="40b", dp=2, tp=1, ffn="pallas", steps=("rollout", "dqn", "ppo"))]
+                  dict(phase=40, dp=2, tp=2, steps=("ppo", "dqn", "control", "disc",
+                                                    "disc_split")),
+                  dict(phase="40b", dp=2, tp=1, ffn="pallas",
+                       steps=("rollout", "dqn", "ppo", "disc_split"),
+                       disc_route=DISC_SPLIT_D_ROUTE, disc_control=True)]
     cards = "all on card 0" if backend == "gloo" else "a card each"
     found = {}
     t_all = time.perf_counter()
@@ -3472,6 +3572,10 @@ def rl_run(cfg, smi_line, *, backend: str = "gloo", meshes=None, n_layer: int = 
                   + (f"; rows a rank {s['rows']}" if "rows" in s else "")
                   + (f"; leaves not bit-equal when one process repeats the step "
                      f"{s['repeat_differs']}" if "repeat_differs" in s else "")
+                  + (f"; control (each rank's own BatchNorm statistics): loss "
+                     f"{s['control_errors']['loss']:.2e}, gradients "
+                     f"{s['control_errors']['grads'][0]:.3e} ({s['control_errors']['grads'][1]})"
+                     if "control_errors" in s else "")
                   + ("; parameters bit-equal on the ranks" if "digests" in s and len(
                       set(s["digests"])) == 1 else ""), flush=True)
         fails = rl_gate_failures(res, spec)
@@ -3921,8 +4025,10 @@ def pp_run(cfg, smi_line, *, backend: str = "gloo", meshes=None, cli: bool = Tru
     ``pp_cli_run``.  Prints the readings, fails on the gates, returns each
     mesh's readings."""
     from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    # the step's times over NCCL only (ranks sharing one card over gloo share
+    # its SMs: their times say nothing of scaling)
     base = {"cfg": dict(vocab_sizes=cfg.vocab_sizes), "n_layer": cfg.n_layer, "B": 32,
-            "S": 512, "valid_tail": 100, "times": True}
+            "S": 512, "valid_tail": 100, "times": backend == "nccl"}
     if meshes is None:
         meshes = [dict(base, phase=43, dp=1, pp=2, control=True, g_route=True,
                        dropout=("float32", "bfloat16")),
@@ -3968,6 +4074,250 @@ def pp_run(cfg, smi_line, *, backend: str = "gloo", meshes=None, cli: bool = Tru
         found[44] = pp_cli_run(smi_line, device="cuda:0" if backend == "gloo" else None,
                                backend=backend)
     print(f"[time] phases 43-44: {time.perf_counter() - t_all:.1f}s ({smi_line})", flush=True)
+    return found
+
+
+# -- the sharded checkpoint: phase 45 -------------------------------------------
+# cli pretrain on a dp = 2 x tp = 2 mesh with ZeRO-1, kernel F on each rank's
+# heads (the agent's layers under tp take the composition, F its product)
+CKPT_CLI = ["pretrain", "--synthetic", "--synthetic-songs", "8", "--batch-size", "8",
+            "--seq-len", "512", "--layers", "4"]
+CKPT_ROUTE = {"RLMG_ATTN_BACKEND": "pallas"}
+
+
+def ckpt_rank_cli(argv: list, world: int, device=None) -> dict:
+    """One rank of ``cli pretrain --dp --tp`` under ``CKPT_ROUTE``: over
+    gloo every rank on ``device`` (phase 45), or with ``device`` None over
+    the process group's NCCL, rank r on card r (scripts/dp_nccl.py --ckpt);
+    the command's numbers with this rank's (F fwd, F bwd) wrapper launches
+    and the seconds of each checkpoint: the directory's save to return and
+    to commit on this rank, or the pickle's gather (every rank, from the
+    save's start to rank 0's write) and rank 0's write."""
+    import contextlib
+    from reinforcement_learning_in_music_generation_torch.apps import cli
+    from reinforcement_learning_in_music_generation_torch.ops import linear_attention_kernel as tlk
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.train import pretrain as tpre
+    os.environ.update(CKPT_ROUTE)
+    args = cli.build_parser().parse_args(argv)
+    # the CLI's rank mesh: (dp, pp, tp) with --pp > 1, else (dp, tp)
+    shape = ({"dp": args.dp, "pp": args.pp, "tp": args.tp} if args.pp > 1
+             else {"dp": args.dp, "tp": args.tp})
+    if device is None:
+        mesh = pm.named_mesh(shape)
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = pm.named_mesh(shape, devices=[dev] * world, backend="gloo")
+    f = tlk.causal_product
+    f.launches_fwd = f.launches_bwd = 0
+    names = ("save_checkpoint_orbax", "wait_for_checkpoints", "full_opt_state",
+             "save_checkpoint")
+    orig = {n: getattr(tpre, n) for n in names}
+    times = []
+
+    def save_orbax(*a, **kw):
+        t = time.perf_counter()
+        out = orig["save_checkpoint_orbax"](*a, **kw)
+        times.append({"return_s": time.perf_counter() - t, "t_save": t})
+        return out
+
+    def wait():
+        orig["wait_for_checkpoints"]()
+        if times and "t_save" in times[-1]:
+            times[-1]["wait_s"] = time.perf_counter() - times[-1].pop("t_save")
+
+    def full_state(*a, **kw):                # the pickle's save starts with the gathers
+        times.append({"t_gather": time.perf_counter()})
+        return orig["full_opt_state"](*a, **kw)
+
+    def write(*a, **kw):                     # rank 0's pickle write
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        t = time.perf_counter()
+        times[-1]["gather_s"] = t - times[-1].pop("t_gather")
+        out = orig["save_checkpoint"](*a, **kw)
+        times[-1]["write_s"] = time.perf_counter() - t
+        return out
+    for n, fn in zip(names, (save_orbax, wait, full_state, write)):
+        setattr(tpre, n, fn)
+    try:
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(sys.stdout if mesh.rank == 0 else null):
+            res = args.fn(args, mesh=mesh)
+    finally:
+        for n, fn in orig.items():
+            setattr(tpre, n, fn)
+    times = [{k: v for k, v in t_.items() if not k.startswith("t_")} for t_ in times]
+    return {**res, "rank": mesh.rank, "f_launches": [f.launches_fwd, f.launches_bwd],
+            "saves": times}
+
+
+class LiveSnapshot:
+    """Phase 45's control: a save that keeps the live tensors and reads them
+    only when its writer writes (the fault the snapshot guards against)."""
+
+    def __init__(self, pieces):
+        self.pieces = pieces
+
+    def numpy(self):
+        return torch.cat(self.pieces).cpu().numpy()
+
+
+def ckpt_files(path: str) -> dict:
+    """The directory's index read: its writers and, per writing rank, its
+    data file's bytes and shard count."""
+    with open(os.path.join(path, "index.json")) as f:
+        index = json.load(f)
+    per = {}
+    for sh in index["shards"]:
+        r = per.setdefault(sh["rank"], {"file": sh["file"], "bytes": 0, "shards": 0})
+        r["bytes"] += sh["nbytes"]
+        r["shards"] += 1
+    for r, v in per.items():
+        v["on_disk"] = os.path.getsize(os.path.join(path, v["file"]))
+    return {"mesh": index["mesh"], "writers": index["writers"], "per_rank": per,
+            "files": sorted(os.listdir(path))}
+
+
+def ckpt_run(cfg, smi_line, dev, device="cuda:0", backend="gloo") -> dict:
+    """Phase 45 (item 9(e)).  In this process at ``cfg``'s width: one
+    ``agent_train_step`` at B = 32 x S = 512 (kernels C and D), then the
+    pickle ``save_checkpoint`` (wall), ``save_checkpoint_orbax`` (to return,
+    then to ``wait_for_checkpoints``), both read back bit-equal; the
+    in-place control (the parameters and moments updated right after the
+    save returns; the read must be the tree before, and a saver that keeps
+    the live tensors, held until the update, must fail that check).  Then
+    ``cli pretrain --dp 2 --tp 2 --zero1 --ckpt-backend orbax`` (``CKPT_CLI``)
+    on gloo ranks sharing ``device`` (or NCCL a card a rank), F on each
+    rank's heads; its directory's files per rank; and ``cli pretrain`` in
+    this process at pp 1 resuming from that directory for a second
+    epoch."""
+    import threading
+    from reinforcement_learning_in_music_generation_torch import config as C
+    from reinforcement_learning_in_music_generation_torch.apps import cli
+    from reinforcement_learning_in_music_generation_torch.data import dataset
+    from reinforcement_learning_in_music_generation_torch.models import linear_transformer as lt
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    from reinforcement_learning_in_music_generation_torch.train import optim as topt
+    from reinforcement_learning_in_music_generation_torch.train import pretrain as tpre
+    from reinforcement_learning_in_music_generation_torch.utils import checkpoint as tck
+    t_all = time.perf_counter()
+    found, fails = {}, []
+    counters = train_counters()
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    prm = lt.init_params(cfg, seed=0, device=dev)
+    tx = topt.adam(1e-4, grad_clip=3.0)
+    state = tx.init(prm)
+    x, y, m = (torch.from_numpy(a).to(dev) for a in
+               dataset.synthetic_cp_dataset(32, 512, n_class=cfg.vocab_sizes, seed=0))
+    prm, state, (loss, _) = tpre.agent_train_step(prm, state, cfg, tx, x.long(), y.long(), m,
+                                                  None)
+    torch.cuda.synchronize()
+    found["step_counts"] = [getattr(fn, attr) for fn, attr in counters][:4]
+    if found["step_counts"] != [cfg.n_layer] * 4:
+        fails.append(f"the step's (C, D fwd/bwd) launches {found['step_counts']}")
+    n_bytes = sum(t.numel() * t.element_size() for t in topt.tree_leaves(prm)) * 3
+
+    def same(a, b) -> bool:
+        return all(torch.equal(u.to(v.device, v.dtype), v) for u, v in
+                   zip(topt.tree_leaves(a), topt.tree_leaves(b)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = lambda *p: os.path.join(tmp, *p)
+        t = time.perf_counter()
+        tck.save_checkpoint(d("a.ckpt"), prm, state, step=1, extra={"epoch": 0})
+        pickle_s = time.perf_counter() - t
+        t = time.perf_counter()
+        tck.save_checkpoint_orbax(d("a_dir.ckpt"), prm, state, step=1, extra={"epoch": 0})
+        return_s = time.perf_counter() - t
+        tck.wait_for_checkpoints()
+        wait_s = time.perf_counter() - t
+        a = tck.load_checkpoint(d("a.ckpt"), device=dev)
+        b = tck.load_checkpoint_orbax(d("a_dir.ckpt"), device=dev)
+        equal = (same(b["params"], a["params"]) and same(b["opt_state"].mu, a["opt_state"].mu)
+                 and same(b["opt_state"].nu, a["opt_state"].nu)
+                 and b["opt_state"].count == a["opt_state"].count == 1
+                 and same(b["params"], prm))
+        del a, b
+        if not equal:
+            fails.append("the directory and the pickle read back differently")
+        # the in-place control: updates right after the save returns; the
+        # held writer makes the live saver's fault certain to show
+        before = topt.tree_map(torch.clone, prm)
+        reads = {}
+        for name, snap in (("snapshot", tck._snapshot), ("live", LiveSnapshot)):
+            go = threading.Event()
+            writer, keep_snap = tck._writer, tck._snapshot
+            tck._writer = lambda *a_, w=writer: (go.wait(60), w(*a_))
+            tck._snapshot = snap
+            try:
+                tck.save_checkpoint_orbax(d(f"{name}.ckpt"), prm, state)
+                topt.tree_map(lambda t_: t_.add_(1.0), prm)
+                torch.cuda.synchronize()
+                go.set()
+                tck.wait_for_checkpoints()
+            finally:
+                tck._writer, tck._snapshot = writer, keep_snap
+            reads[name] = same(tck.load_checkpoint_orbax(d(f"{name}.ckpt"),
+                                                         device=dev)["params"], before)
+            topt.tree_map(lambda t_, b_: t_.copy_(b_), prm, before)
+        if reads != {"snapshot": True, "live": False}:
+            fails.append(f"the in-place control: the read equals the tree before the update "
+                         f"{reads} (expected the snapshot's True, the live saver's False)")
+        found.update(loss=float(loss), pickle_s=pickle_s, return_s=return_s, wait_s=wait_s,
+                     bytes=n_bytes, equal=equal, in_place=reads)
+        print(f"[ckpt] 45: agent_config ({lt.n_params(prm):,d} parameters, {n_bytes / 1e6:.1f} "
+              f"MB with Adam's moments) after one step (loss {float(loss):.6f}, launches (C, D "
+              f"fwd/bwd) {found['step_counts']}): pickle save_checkpoint {pickle_s:.3f} s; "
+              f"save_checkpoint_orbax returns in {return_s:.3f} s, committed after "
+              f"{wait_s:.3f} s; read back bit-equal to the pickle {equal}; in-place control "
+              f"(the read equals the tree before the update): snapshot {reads['snapshot']}, "
+              f"live saver {reads['live']} ({smi_line})", flush=True)
+        del before, prm, state
+        torch.cuda.empty_cache()
+        flags = ["--dp", "2", "--tp", "2", "--zero1", "--ckpt-backend", "orbax"]
+        t = time.perf_counter()
+        res = pm.launch(ckpt_rank_cli, 4, (CKPT_CLI + flags + [
+            "--device", device or "cuda", "--epochs", "1", "--exp-dir", d("e"),
+            "--ckpt-dir", d("c")], 4, device), backend=backend, timeout_s=600)
+        wall = time.perf_counter() - t
+        names = sorted(n for n in os.listdir(d("c")) if not n.endswith(".meta.json"))
+        files = ckpt_files(d("c", names[0])) if names else None
+        keep = {k: os.environ.get(k) for k in CKPT_ROUTE}
+        os.environ.update(CKPT_ROUTE)
+        try:
+            resumed = cli.main(CKPT_CLI + ["--device", device or "cuda", "--epochs", "2",
+                                           "--resume", d("c", names[0]), "--exp-dir", d("e1"),
+                                           "--ckpt-dir", d("c1")]) if names else None
+        finally:
+            for k, v in keep.items():
+                os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+        r0 = res[0]
+        found.update(cli_counts=[r["f_launches"] for r in res], cli_saves=[r["saves"] for r in res],
+                     cli_wall_s=wall, files=files, resumed=resumed and resumed["history"])
+        print(f"[ckpt] 45: cli pretrain {' '.join(flags)} over {backend} ({smi_line}): "
+              f"{wall:.1f}s with the ranks' start; {r0['steps']} step(s), history "
+              f"{r0['history']}; F launches (fwd, bwd) a rank {found['cli_counts']}; each "
+              f"rank's save (s to return, to commit) {found['cli_saves']}; checkpoints {names}; "
+              f"files per rank {files and files['per_rank']}, writers {files and files['writers']}"
+              f"; resumed at pp 1 in this process: history {resumed and resumed['history']}, "
+              f"steps {resumed and resumed['steps']}", flush=True)
+        if not (r0["steps"] == 1 and r0["history"] and all(math.isfinite(v)
+                                                           for v in r0["history"])):
+            fails.append(f"the mesh run: {r0['steps']} steps, history {r0['history']}")
+        if any(c[0] == 0 or c[1] == 0 for c in found["cli_counts"]):
+            fails.append(f"kernel F ran no time on a rank: {found['cli_counts']}")
+        if not files or files["writers"] != [0, 1, 2, 3] or any(
+                v["bytes"] != v["on_disk"] for v in files["per_rank"].values()):
+            fails.append(f"the directory's writers or files: {files}")
+        if not (resumed and resumed["steps"] == 1 and len(resumed["history"]) == 1
+                and math.isfinite(resumed["history"][0])):
+            fails.append(f"the resume at pp 1: {resumed}")
+    check(not fails, "ckpt, phase 45: " + "; ".join(fails))
+    print(f"[time] phase 45: {time.perf_counter() - t_all:.1f}s ({smi_line})", flush=True)
     return found
 
 
@@ -5443,11 +5793,18 @@ def main() -> None:
     lat_entries = latency_slice(cfg, params, dev, gen)      # phases 21-24
     aug_entries = aug_slice(cfg, params, dev, gen)          # phases 25-29
     serve = serving_slice(cfg, params, dev)                 # phases 31-33
+    t_grp = time.perf_counter()
     dp_run(cfg, smi_line)                                    # phases 34-35
+    print(f"[time] phases 34-35: {time.perf_counter() - t_grp:.1f}s ({smi_line})", flush=True)
+    t_grp = time.perf_counter()
     tp_found = tp_run(cfg, smi_line)                         # phases 36-38
+    print(f"[time] phases 36-38: {time.perf_counter() - t_grp:.1f}s ({smi_line})", flush=True)
     rl_found = rl_run(cfg, smi_line)                         # phases 39-41
+    t_grp = time.perf_counter()
     sp_found = sp_run(smi_line)                              # phase 42
+    print(f"[time] phase 42: {time.perf_counter() - t_grp:.1f}s ({smi_line})", flush=True)
     pp_found = pp_run(cfg, smi_line)                         # phases 43-44
+    ckpt_found = ckpt_run(cfg, smi_line, dev)                # phase 45
 
     def tp_f_launches(dtype):
         """F's (fwd, bwd) wrapper launches on each rank of the tp steps of
@@ -5456,9 +5813,10 @@ def main() -> None:
                 for ph, v in tp_found.items() if f"f_{dtype}" in v["res"][0]}
 
     def rl_launches(k):
-        """(fwd, bwd) runs of F (k = 0), E (k = 2) or G (k = 4) on each rank
-        of phases 39-41's steps, by phase and step (F and E on its rank's
-        n_head / tp heads; G at tp = 1, phase 40b)."""
+        """(fwd, bwd) runs of F (k = 0), E (k = 2), G (k = 4) or D (k = 6) on
+        each rank of phases 39-41's steps, by phase and step (F and E on its
+        rank's n_head / tp heads; G at tp = 1, phase 40b; D in 40b's split
+        discriminator epoch)."""
         return {f"phase{ph}": {name: [r[k:k + 2] for r in rs] for name, rs in v["runs"].items()}
                 for ph, v in rl_found.items()}
 
@@ -5858,6 +6216,7 @@ def main() -> None:
          "replaces": f"{tpu}/attention_block.py:346", "launches": sum(launches["C"]),
          "launches_fwd": launches["C"][0], "launches_bwd": launches["C"][1],
          "launches_bf16": sum(launches["C_bf16"]),
+         "launches_ckpt": {"phase45": ckpt_found["step_counts"][0:2]},
          "max_abs_err": c_err, "ms": c32["ms_fwd"] + c32["ms_bwd"],
          "plain_ms": c32["plain_ms_fwd"] + c32["plain_ms_bwd"],
          "bound_ms": c32["bound_ms_fwd"] + c32["bound_ms_bwd"],
@@ -5876,6 +6235,11 @@ def main() -> None:
          "library_ms": None, **{k: v for k, v in d32.items() if k != "bound_by"},
          "launches_bf16": sum(launches["D_bf16"]),
          "launches_discrim": sum(launches["D_discrim"]), "hmma": dg_mma["attn_tail"],
+         # phase 40b: D's (fwd, bwd) on each rank's rows of the split
+         # discriminator epoch; phase 45: C's and D's in the step before the
+         # timed saves
+         "launches_rl_mesh": {ph: v for ph, v in rl_launches(6).items() if ph == "phase40b"},
+         "launches_ckpt": {"phase45": ckpt_found["step_counts"][2:4]},
          # phase 43: D's (fwd, bwd) on each pipeline stage, (n_layer / pp) x m
          "launches_pp": {f"phase{ph}": [r["counts"][2:4] for r in v["res"]]
                          for ph, v in pp_found.items() if ph != 44},
@@ -5923,6 +6287,8 @@ def main() -> None:
          "launches_rl_mesh": rl_launches(0),
          # phase 42: F's own runs (fwd, bwd) on each sp rank's (32, 8, 256, 64)
          "launches_sp": {"phase42": [r["runs"] for r in sp_found["res"]]},
+         # phase 45: F's (fwd, bwd) on each rank of cli pretrain --dp 2 --tp 2
+         "launches_ckpt_cli": {"phase45": ckpt_found["cli_counts"]},
          "sp_ms": {"ranks": [r["ms"] for r in sp_found["res"]],
                    "single": sp_found["res"][0].get("ms_single")},
          "dqn_rollout_song": {k: {kk: vv for kk, vv in v.items() if "window" not in kk}

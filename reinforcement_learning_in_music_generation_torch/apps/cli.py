@@ -371,12 +371,12 @@ def cmd_pretrain(args, mesh=None) -> dict:
     each on its 1/N of every ``--batch-size`` batch; ``--tp M``: M ranks a
     dp index, each holding its 1/M of the Megatron-split weights; ``--pp
     P``: P pipeline stages (JAX :139-146), each holding 1/P of the layers.
-    The flags the ranks would refuse are refused here first: the orbax
-    backend (``NotImplementedError``), ZeRO-1 with ``--pp`` and a ``--pp``
-    that does not divide the layers (``ValueError``, JAX's)."""
-    if args.ckpt_backend != "pickle":
-        raise NotImplementedError(f"--ckpt-backend {args.ckpt_backend}: only the pickle format "
-                                  "is ported (ROADMAP Queue 1 item 9(e))")
+    ``--ckpt-backend orbax``: each rank writes its own shards of every
+    checkpoint to a directory in the background (``utils/checkpoint.py
+    save_checkpoint_orbax``); ``--resume`` takes such a directory or a
+    pickle.  The flags the ranks would refuse are refused here first:
+    ZeRO-1 with ``--pp`` and a ``--pp`` that does not divide the layers
+    (``ValueError``, JAX's)."""
     if args.pp > 1 and args.zero1:
         raise ValueError("zero1 on a pipeline mesh is not implemented (moments would need the "
                          "layer-stack 'pp' sharding on top of 'dp'); use a ('dp','tp') mesh")
@@ -905,7 +905,10 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--save-on-interrupt", action="store_true",
                    help="SIGTERM/SIGINT checkpoints to interrupt.ckpt and returns")
     d.add_argument("--ckpt-backend", choices=("pickle", "orbax"), default="pickle",
-                   help="orbax is not ported yet (raises, ROADMAP Queue 1 item 9(e))")
+                   help="orbax: the sharded asynchronous checkpoint (a directory a "
+                        "checkpoint, each rank writing its own shards in the background; "
+                        "the port's own format, not orbax's); pickle: one file, the whole "
+                        "tree, written by rank 0")
     d.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches per optimizer step")
     d.add_argument("--zero1", action="store_true",

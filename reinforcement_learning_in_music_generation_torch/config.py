@@ -166,7 +166,7 @@ class PretrainConfig:
     zero1: bool = False             # ZeRO-1: Adam's moments sliced over the mesh's dp
     prefetch_depth: int = 2         # host->device input look-ahead
     grad_accum: int = 1             # micro-batches per optimizer step
-    ckpt_backend: str = "pickle"    # "orbax" is not ported (raises, ROADMAP item 9(e))
+    ckpt_backend: str = "pickle"    # or "orbax": the port's sharded async directories
     save_on_interrupt: bool = False  # SIGTERM/SIGINT: checkpoint and return
 
 

@@ -41,6 +41,17 @@ both dropouts' inputs, are replicated: every tp rank draws the same masks
 from the same generator state.  The score head, its BatchNorm and the eval
 heads read the replicated h with their whole weights.  Under tp the fused
 tail does not run (``_ffn_backend``'s guard, with its warning).
+
+A batch split over dp (``rows`` = (j, m): the input is the j-th of m equal
+row blocks of the batch, a dp rank's rows; ``rl/airl.py``'s split
+discriminator epoch) draws the whole batch's dropout masks and keeps the
+rank's rows (``cm.dropout(rows=)``), so the draw is one process's; kernel
+D draws its masks by row from a seed, the rows restarting at 0 on every
+rank, so there the ranks add 7919 j to the seed (the agent's rule,
+``linear_transformer._dropout_seed``).  The score head's BatchNorm then
+normalises with the statistics of the whole batch (``parallel/tensor.py
+sum_over`` over the dp group, forward and backward), and ``token_ce`` is
+the rank's share of the global masked CE (``ops/losses.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ from ..config import WindowTransformerConfig
 from ..ops.ffn_block import attn_tail_block
 from ..ops.losses import fields_cross_entropy
 from ..ops.window_attention import window_attention, window_attention_bshe
-from ..parallel.tensor import copy_to_tp, gather_fields_from_tp, gather_from_tp
+from ..parallel.tensor import copy_to_tp, gather_fields_from_tp, gather_from_tp, sum_over
 from . import common as cm
 from .linear_transformer import _ffn_backend, _mesh_axes, _row_linear, check_tp, forward_output
 
@@ -113,7 +124,7 @@ def init_state(cfg: WindowTransformerConfig, device="cuda") -> dict:
 def _layer(cfg: WindowTransformerConfig, h: torch.Tensor, lp: dict,
            attention_mask: Optional[torch.Tensor], rel: Optional[torch.Tensor],
            generator: Optional[torch.Generator], deterministic: bool,
-           mesh=None) -> torch.Tensor:
+           mesh=None, rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     b, s, d = h.shape
     tp = _mesh_axes(mesh)[1]
     # an explicit RLMG_WINDOW_BACKEND=pallas request (kernel E, (B, H, S, D)
@@ -129,7 +140,10 @@ def _layer(cfg: WindowTransformerConfig, h: torch.Tensor, lp: dict,
         p = 0.0 if deterministic else cfg.dropout
         if p > 0.0:
             seed = torch.randint(0, 2 ** 30, (), generator=generator, device=generator.device,
-                                 dtype=torch.int32).to(h.device, non_blocking=True)
+                                 dtype=torch.int32)
+            if rows[0]:
+                seed = seed + 7919 * rows[0]
+            seed = seed.to(h.device, non_blocking=True)
         else:
             seed = 0
         out = attn_tail_block(h.reshape(b * s, d), att.reshape(b * s, d).contiguous(),
@@ -145,10 +159,12 @@ def _layer(cfg: WindowTransformerConfig, h: torch.Tensor, lp: dict,
                            heads(cm.linear(lp["wv"], hc)), attention_mask,
                            window=cfg.attention_window, rel_emb=rel)
     att = _row_linear(lp["wo"], att.transpose(1, 2).reshape(b, s, d // tp), mesh)
-    h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic))
+    h = cm.layernorm(lp["ln1"], h + cm.dropout(generator, att, cfg.dropout, deterministic,
+                                               rows=rows))
     y = torch.nn.functional.gelu(cm.linear(lp["ffn1"], copy_to_tp(h, mesh)), approximate="none")
     y = _row_linear(lp["ffn2"], y, mesh)
-    return cm.layernorm(lp["ln2"], h + cm.dropout(generator, y, cfg.dropout, deterministic))
+    return cm.layernorm(lp["ln2"], h + cm.dropout(generator, y, cfg.dropout, deterministic,
+                                                  rows=rows))
 
 
 def embed(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -165,19 +181,22 @@ def embed(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor, mesh=None
 
 def forward(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor,
             attention_mask: Optional[torch.Tensor] = None, *, deterministic: bool = True,
-            generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, mesh=None,
+            rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """x (B, S, n_fields) int -> sequence output (B, S, D)
     (AIRL_model.py:101-118: embeddings -> proj -> longformer); ``mesh``:
-    tp shards in, h replicated out."""
+    tp shards in, h replicated out; ``rows``: x is that row block of a
+    batch (the dropout masks the batch's)."""
     return forward_from_embeddings(params, cfg, embed(params, cfg, x, mesh), attention_mask,
-                                   deterministic=deterministic, generator=generator, mesh=mesh)
+                                   deterministic=deterministic, generator=generator, mesh=mesh,
+                                   rows=rows)
 
 
 def forward_from_embeddings(params: dict, cfg: WindowTransformerConfig, embs: torch.Tensor,
                             attention_mask: Optional[torch.Tensor] = None, *,
                             deterministic: bool = True,
                             generator: Optional[torch.Generator] = None,
-                            mesh=None) -> torch.Tensor:
+                            mesh=None, rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """The trunk on field-concat embeddings (B, S, sum(emb_sizes)), HF's
     ``inputs_embeds`` path; the AIRL gradient penalty differentiates
     through it.  Under tp ``embs`` is whole and ``proj`` runs
@@ -191,17 +210,27 @@ def forward_from_embeddings(params: dict, cfg: WindowTransformerConfig, embs: to
     layers = params["layers"]
     for l in range(cfg.n_layer):
         lp = {k: {kk: vv[l] for kk, vv in v.items()} for k, v in layers.items()}
-        h = _layer(cfg, h, lp, attention_mask, rel, generator, deterministic, mesh)
+        h = _layer(cfg, h, lp, attention_mask, rel, generator, deterministic, mesh, rows)
     return h
 
 
 # -- heads ----------------------------------------------------------------------
 
 def _batchnorm(p: dict, state: dict, x: torch.Tensor, train: bool, momentum: float = 0.1,
-               eps: float = 1e-5) -> Tuple[torch.Tensor, dict]:
+               eps: float = 1e-5, dp_mesh=None) -> Tuple[torch.Tensor, dict]:
     """BatchNorm1d over the batch; train mode normalises with the batch's
-    (biased) statistics and moves the running ones by ``momentum``."""
-    if train:
+    (biased) statistics and moves the running ones by ``momentum``.
+    ``dp_mesh``: x is this rank's 1/dp of the batch's rows, and the
+    statistics are the whole batch's (sums over the dp group, whose
+    backward sums the ranks' cotangents: ``sum_over``), equal on its
+    ranks."""
+    if train and dp_mesh is not None:
+        n = x.shape[0] * dp_mesh.dp
+        mu = sum_over(x.sum(dim=0), dp_mesh, "dp") / n
+        var = sum_over(((x - mu) ** 2).sum(dim=0), dp_mesh, "dp") / n
+        new_state = {"bn_mean": (1 - momentum) * state["bn_mean"] + momentum * mu,
+                     "bn_var": (1 - momentum) * state["bn_var"] + momentum * var}
+    elif train:
         mu = x.mean(dim=0)
         var = x.var(dim=0, correction=0)
         new_state = {"bn_mean": (1 - momentum) * state["bn_mean"] + momentum * mu,
@@ -212,25 +241,33 @@ def _batchnorm(p: dict, state: dict, x: torch.Tensor, train: bool, momentum: flo
     return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"], new_state
 
 
-def _score_head(params: dict, state: dict, h: torch.Tensor,
-                train: bool) -> Tuple[torch.Tensor, dict]:
+def _score_head(params: dict, state: dict, h: torch.Tensor, train: bool,
+                dp_mesh=None) -> Tuple[torch.Tensor, dict]:
     """score_classifier MLP (AIRL_model.py:91-99): mean-pool -> Linear ->
     BatchNorm -> tanh -> Linear -> tanh -> Linear -> sigmoid."""
     sc = params["score"]
-    y, new_state = _batchnorm(sc["bn"], state, cm.linear(sc["l1"], h.mean(dim=1)), train)
+    y, new_state = _batchnorm(sc["bn"], state, cm.linear(sc["l1"], h.mean(dim=1)), train,
+                              dp_mesh=dp_mesh)
     y = torch.tanh(cm.linear(sc["l2"], torch.tanh(y)))
     return torch.sigmoid(cm.linear_scalar(sc["l3"], y))[..., None], new_state
+
+
+def _split(mesh, rows: Tuple[int, int]):
+    """The dp mesh a batch split by ``rows`` is spread over, or None."""
+    return mesh if rows[1] > 1 else None
 
 
 def score_forward(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor,
                   attention_mask: Optional[torch.Tensor], state: dict, *, train: bool = False,
                   deterministic: bool = True, generator: Optional[torch.Generator] = None,
-                  mesh=None) -> Tuple[torch.Tensor, dict]:
+                  mesh=None, rows: Tuple[int, int] = (0, 1)) -> Tuple[torch.Tensor, dict]:
     """Realness score in (0, 1) (AIRL_model.py:101-122) -> (score (B, 1),
-    new BatchNorm state)."""
+    new BatchNorm state).  ``rows`` = (j, m), m > 1: x is the j-th of the
+    m = dp row blocks of a batch split over ``mesh``'s dp group, and the
+    BatchNorm's statistics are the whole batch's."""
     h = forward(params, cfg, x, attention_mask, deterministic=deterministic, generator=generator,
-                mesh=mesh)
-    return _score_head(params, state, h, train)
+                mesh=mesh, rows=rows)
+    return _score_head(params, state, h, train, _split(mesh, rows))
 
 
 def score_from_embeddings(params: dict, cfg: WindowTransformerConfig, embs: torch.Tensor,
@@ -249,23 +286,26 @@ def score_from_embeddings(params: dict, cfg: WindowTransformerConfig, embs: torc
 def token_logits(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor,
                  attention_mask: Optional[torch.Tensor] = None, *, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 mesh=None) -> Tuple[torch.Tensor, ...]:
+                 mesh=None, rows: Tuple[int, int] = (0, 1)) -> Tuple[torch.Tensor, ...]:
     """Per-field logits over the sequence (AIRL_model.py:131-153); under tp
     the heads row-parallel over d_model, the logits replicated."""
     h = forward(params, cfg, x, attention_mask, deterministic=deterministic, generator=generator,
-                mesh=mesh)
+                mesh=mesh, rows=rows)
     return forward_output(params, cfg, h, mesh)
 
 
 def token_ce(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor, target: torch.Tensor,
              mask: torch.Tensor, *, deterministic: bool = True,
-             generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None, mesh=None,
+             rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Mean masked CE over fields (AIRL_model.py:131-170), with the mask
     applied as intended (the reference's unmasked mean made it a no-op).
-    ``mesh``: the weights' tp shards; the rows are whole on every rank."""
+    ``mesh``: the weights' tp shards; the rows whole on every rank, or
+    with ``rows`` = (j, m), m > 1, the rank's block of the batch, and the
+    result its share of the global CE (summed over dp by the caller)."""
     logits = token_logits(params, cfg, x, mask, deterministic=deterministic, generator=generator,
-                          mesh=mesh)
-    return torch.mean(fields_cross_entropy(logits, target, mask))
+                          mesh=mesh, rows=rows)
+    return torch.mean(fields_cross_entropy(logits, target, mask, mesh=_split(mesh, rows)))
 
 
 def eval_score(params: dict, cfg: WindowTransformerConfig, x: torch.Tensor,

@@ -26,6 +26,17 @@ One more pair serves the sequence-parallel attention
     transpose of JAX's ``all_gather``, a reduce-scatter, done as an
     all-reduce and the rank's slot, which gloo carries).
 
+And one the AIRL discriminator's batch split over dp takes
+(``models/longformer.py``: its BatchNorm's statistics over the global
+minibatch):
+
+  * ``sum_over`` (all-reduce over any axis; backward all-reduce too: each
+    rank's loss reads every rank's share through the sum, so the cotangent
+    of a rank's share is the sum of the ranks' cotangents of the total).
+    ``reduce_from_tp``'s backward, the identity, is right only where the
+    loss and its cotangent are the same on every rank; here each rank holds
+    its own share of the loss.
+
 Each function's backward is its conjugate, itself an autograd function,
 so a second derivative through them (the AIRL gradient penalty's,
 ``rl/airl.py``) takes the conjugate's collective again.
@@ -152,6 +163,28 @@ class _ReduceScatterOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _GatherOver.apply(g, ctx.mesh, ctx.axis), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over the ranks of an axis, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SumOver.apply(g, ctx.mesh, ctx.axis), None, None
+
+
+def sum_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of the ranks of ``axis``'s ``x``, on every rank;
+    differentiable, each rank's cotangent summed over the ranks in the
+    backward."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    return _SumOver.apply(x, mesh, axis)
 
 
 def gather_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -10,13 +10,27 @@ return the new state.
 
 On a (dp, tp) mesh (``mesh``) the discriminator's parameters and Adam
 moments are the rank's tp shards and its layers run the Longformer's
-Megatron layer (``models/longformer.py``); the buffers and minibatches
-are whole on every dp rank, as the JAX CLI passes them, so its work is
-replicated over dp and split over tp: the means are each rank's own and
-the gradients are not summed over dp.  Every dp rank takes the same
-update, from the same generator state; the first rank of each dp group
-hands its gradients and BatchNorm statistics to the others
-(``disc_step``), so they end with the same parameters bit for bit.
+Megatron layer (``models/longformer.py``).  Two ways to spread the
+minibatches over dp:
+
+  * by default (the CLI's, as JAX's CLI passes whole buffers) every dp
+    rank runs each minibatch whole, so the work is replicated over dp and
+    split over tp: the means are each rank's own and the gradients are not
+    summed over dp.  Every dp rank takes the same update, from the same
+    generator state; the first rank of each dp group hands its gradients
+    and BatchNorm statistics to the others (``disc_step``), so they end
+    with the same parameters bit for bit;
+  * ``dp_rows=True`` (JAX's library configuration, its buffers split over
+    dp by ``shard_batch``): the callers still pass whole buffers and
+    minibatches, and rank r runs rows [i bs + r bs/dp, i bs + (r+1) bs/dp)
+    of minibatch i (``parallel/mesh.py row_block``), so global minibatch i
+    holds one process's rows.  The score head's BatchNorm statistics, the
+    BCE means and the token CE's mean are the global minibatch's, the
+    dropout masks its draw at the rank's rows, and the gradients and
+    losses are summed over dp (``optim.value_and_grad``): every rank holds
+    the same sums, so no broadcast.  A minibatch whose rows dp does not
+    divide runs whole on every rank, as by default.
+``calculate_reward`` and ``gradient_penalty`` take whole buffers in both.
 """
 
 from __future__ import annotations
@@ -28,7 +42,7 @@ import torch
 from ..config import AIRLConfig, WindowTransformerConfig
 from ..models import longformer as lf
 from ..ops.losses import binary_cross_entropy
-from ..parallel.mesh import broadcast_
+from ..parallel.mesh import broadcast_, row_block
 from ..train import optim
 
 
@@ -52,28 +66,41 @@ def init_state(mcfg: WindowTransformerConfig, cfg: AIRLConfig, *, seed: int = 0,
 
 def disc_step(state: AIRLState, mcfg: WindowTransformerConfig, tx: optim.Adam,
               expert_states, expert_masks, agent_states, generator: Optional[torch.Generator],
-              mesh=None) -> Tuple[AIRLState, dict]:
+              mesh=None, dp_rows: bool = False) -> Tuple[AIRLState, dict]:
     """One minibatch update (AIRL.py:142-182): global = BCE(D(expert) -> 1)
     + BCE(D(agent) -> 0) + CE_token(agent | expert), dropout from
     ``generator`` (None: no dropout).  The BatchNorm state threads from the
     expert pass into the agent pass and out, outside autograd.  Returns
     (state', {"expert_loss", "agent_loss", "ce_loss", "global_loss"} as 0-d
-    device tensors).  ``mesh``: the tp shards; the rows whole."""
-    kw = dict(train=True, deterministic=False, generator=generator, mesh=mesh)
+    device tensors, the minibatch's).  ``mesh``: the tp shards; the rows
+    whole, or with ``dp_rows`` the rank's block of the whole minibatch
+    given (the module's docstring)."""
+    rows = row_block(mesh, expert_states.shape[0]) if dp_rows and mesh is not None else (0, 1)
+    split = rows[1] > 1
+    if split:
+        n = expert_states.shape[0] // rows[1]
+        expert_states, expert_masks, agent_states = (
+            t[rows[0] * n:(rows[0] + 1) * n] for t in (expert_states, expert_masks, agent_states))
+    kw = dict(train=True, deterministic=False, generator=generator, mesh=mesh, rows=rows)
+    dp_mesh = mesh if split else None
+    bn2 = {}                    # the agent pass's BatchNorm statistics
 
     def loss_fn(p):
         exp_score, bn1 = lf.score_forward(p, mcfg, expert_states, expert_masks, state.bn_state,
                                           **kw)
         bn1 = {k: v.detach() for k, v in bn1.items()}
-        agent_score, bn2 = lf.score_forward(p, mcfg, agent_states, expert_masks, bn1, **kw)
-        exp_bce = binary_cross_entropy(exp_score, torch.ones_like(exp_score))
-        agent_bce = binary_cross_entropy(agent_score, torch.zeros_like(agent_score))
+        agent_score, bn_out = lf.score_forward(p, mcfg, agent_states, expert_masks, bn1, **kw)
+        bn2.update(bn_out)
+        exp_bce = binary_cross_entropy(exp_score, torch.ones_like(exp_score), dp_mesh)
+        agent_bce = binary_cross_entropy(agent_score, torch.zeros_like(agent_score), dp_mesh)
         ce = lf.token_ce(p, mcfg, agent_states, expert_states, expert_masks,
-                         deterministic=False, generator=generator, mesh=mesh)
-        return exp_bce + agent_bce + ce, (exp_bce, agent_bce, ce, bn2)
+                         deterministic=False, generator=generator, mesh=mesh, rows=rows)
+        return exp_bce + agent_bce + ce, (exp_bce, agent_bce, ce)
 
-    total, (exp_bce, agent_bce, ce, bn2), grads = optim.value_and_grad(loss_fn, state.params)
-    if mesh is not None and mesh.dp > 1:
+    # split: each rank's share of the losses, summed with the gradients over
+    # dp; the BatchNorm statistics are already the minibatch's on every rank
+    total, (exp_bce, agent_bce, ce), grads = optim.value_and_grad(loss_fn, state.params, dp_mesh)
+    if mesh is not None and mesh.dp > 1 and not split:
         # every dp rank computed this step on the same rows, but a card's
         # backward need not repeat its bits from process to process: the dp
         # group takes its first rank's gradients and BatchNorm statistics,
@@ -89,14 +116,16 @@ def disc_step(state: AIRLState, mcfg: WindowTransformerConfig, tx: optim.Adam,
 def disc_epoch(state: AIRLState, mcfg: WindowTransformerConfig, tx: optim.Adam,
                expert_states, expert_masks, agent_states,
                generator: Optional[torch.Generator], batch_size: int,
-               mesh=None) -> Tuple[AIRLState, dict]:
-    """One pass over the buffers in whole minibatches (AIRL.py:136-212 inner
-    loop); the metrics are the epoch's means (0-d device tensors)."""
+               mesh=None, dp_rows: bool = False) -> Tuple[AIRLState, dict]:
+    """One pass over the buffers in minibatches (AIRL.py:136-212 inner
+    loop); the metrics are the epoch's means (0-d device tensors).  The
+    buffers are whole; ``dp_rows``: each minibatch split over dp
+    (``disc_step``)."""
     hist: List[dict] = []
     for i in range(expert_states.shape[0] // batch_size):
         sl = slice(i * batch_size, (i + 1) * batch_size)
         state, m = disc_step(state, mcfg, tx, expert_states[sl], expert_masks[sl],
-                             agent_states[sl], generator, mesh)
+                             agent_states[sl], generator, mesh, dp_rows)
         hist.append(m)
     return state, {k: torch.stack([m[k] for m in hist]).mean() for k in hist[0]}
 
@@ -121,9 +150,11 @@ def calculate_reward(state: AIRLState, mcfg: WindowTransformerConfig, states, ma
 
 def update_disc(state: AIRLState, mcfg: WindowTransformerConfig, cfg: AIRLConfig,
                 tx: optim.Adam, agent_buffer: dict, expert_buffer: dict,
-                generator: Optional[torch.Generator], *, train: bool = True, mesh=None):
+                generator: Optional[torch.Generator], *, train: bool = True, mesh=None,
+                dp_rows: bool = False):
     """Full discriminator update and buffer re-scoring (AIRL.py:121-236):
-    ``cfg.epochs`` epochs when ``train``, then both buffers scored with the
+    ``cfg.epochs`` epochs when ``train`` (``dp_rows``: their minibatches
+    split over dp, ``disc_step``), then both buffers scored whole with the
     expert buffer's ``mask_state`` (it masks the agent states too).
     Returns (state, agent_rewards (N, 1), expert_rewards (N, 1), per-epoch
     metrics as floats)."""
@@ -132,7 +163,7 @@ def update_disc(state: AIRLState, mcfg: WindowTransformerConfig, cfg: AIRLConfig
         for _ in range(cfg.epochs):
             state, metrics = disc_epoch(state, mcfg, tx, expert_buffer["state"],
                                         expert_buffer["mask_state"], agent_buffer["state"],
-                                        generator, cfg.batch_size, mesh)
+                                        generator, cfg.batch_size, mesh, dp_rows)
             hist.append({k: float(v) for k, v in metrics.items()})
     agent_r = calculate_reward(state, mcfg, agent_buffer["state"], expert_buffer["mask_state"],
                                cfg.score_batch_size, mesh)

@@ -27,10 +27,10 @@ Longformer LM step has no tensor-parallel layer and takes dp only.
 ``pretrain(mesh=...)`` adds ZeRO-1 (``PretrainConfig.zero1``,
 ``optim.zero1``).  On a pipeline mesh (a "pp" axis, ``parallel.make_pp_mesh``)
 the agent step runs through the GPipe schedule (``agent_pp_train_step``,
-``parallel/pipeline.py``) on the global batch.  Not ported yet, raising
-``NotImplementedError``: the orbax checkpoint backend (ROADMAP Queue 1 item
-9(e)).  The steps update ``params`` and the optimizer state in place and
-return them.
+``parallel/pipeline.py``) on the global batch.  ``PretrainConfig.ckpt_backend
+= "orbax"`` writes the port's sharded, asynchronous checkpoint directories
+(``utils/checkpoint.py save_checkpoint_orbax``) in place of pickles.  The
+steps update ``params`` and the optimizer state in place and return them.
 """
 
 from __future__ import annotations
@@ -49,7 +49,9 @@ from ..models import longformer as lf
 from ..ops.losses import fields_cross_entropy
 from ..parallel.mesh import all_reduce_
 from ..parallel.sharding import gather_params, shard_params, shard_tree
-from ..utils.checkpoint import full_opt_state, load_checkpoint, local_opt_state, save_checkpoint
+from ..utils.checkpoint import (full_opt_state, load_checkpoint, load_checkpoint_orbax,
+                                local_opt_state, save_checkpoint, save_checkpoint_orbax,
+                                wait_for_checkpoints)
 from ..utils.saver import MetricsBus, QuietSaver, Saver, loss_bucket_filename
 from . import optim
 from .data_pipeline import prefetch_batches
@@ -207,10 +209,17 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
     steps make the loss and the gradients global, so every rank holds the
     same parameters (shards) and history.  ``pcfg.zero1`` slices Adam's
     moments over the dp ranks (``optim.zero1``; it needs dp > 1).  Only rank
-    0 logs and writes checkpoints, of the whole tree (the ZeRO-1 moments
-    gathered over dp, the tp shards over tp, the layer slabs over pp), in
-    the layout one process writes; every rank reads ``resume_from``'s whole
-    tree and keeps its shards, so a run resumes at another tp or pp.  Under
+    0 logs.  A pickle checkpoint (``pcfg.ckpt_backend`` "pickle") is the
+    whole tree (the ZeRO-1 moments gathered over dp, the tp shards over tp,
+    the layer slabs over pp), in the layout one process writes, by rank 0;
+    with "orbax" every rank writes its own shards to the checkpoint's
+    directory in the background (``save_checkpoint_orbax``, no gather), and
+    every return waits for the saves in flight, then holds a barrier, so
+    that no rank returns before every rank's shards are committed (JAX
+    :343-344, :385-386).  A ``resume_from`` directory is read by
+    ``load_checkpoint_orbax``, a file as a pickle (JAX :232-236); every
+    rank puts the whole tree together and keeps its shards, so a run
+    resumes at another dp, tp or pp.  Under
     tp or pp the returned params and state are the rank's shards
     (``parallel.gather_params`` puts them back whole).  On a pipeline mesh
     (JAX :249-256) every rank reads the global batch and the agent step
@@ -220,9 +229,9 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
     Longformer step raise ``ValueError`` there, as in JAX.  With
     ``save_on_interrupt`` the interrupt flag is all-reduced (MAX) at every
     batch, so all ranks stop at the same one."""
-    if pcfg.ckpt_backend != "pickle":
-        raise NotImplementedError(f"ckpt_backend={pcfg.ckpt_backend!r}: only the pickle "
-                                  "format is ported (ROADMAP Queue 1 item 9(e))")
+    if pcfg.ckpt_backend not in ("pickle", "orbax"):
+        raise ValueError(f"ckpt_backend={pcfg.ckpt_backend!r}: expected 'pickle' or 'orbax'")
+    sharded_ckpt = pcfg.ckpt_backend == "orbax"
     dp = mesh.dp if mesh is not None else 1
     tp = mesh.tp if mesh is not None else 1
     pp = mesh.pp if mesh is not None else 1
@@ -275,17 +284,22 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
     start_epoch = 0
     if resume_from is not None:
         if os.path.isdir(resume_from):
-            raise NotImplementedError(f"{resume_from} is a directory (an orbax checkpoint): "
-                                      "only the pickle format is ported (ROADMAP Queue 1 "
-                                      "item 9(e))")
-        whole = params if mesh is None else gather_params(mesh, params)
-        ck = load_checkpoint(resume_from, params_template=whole,
-                             opt_state_template=optim.AdamState(whole, whole, 0),
-                             device=device)
-        del whole
-        params = ck["params"] if mesh is None else shard_tree(mesh, ck["params"])
-        if ck["opt_state"] is not None:
-            opt_state = local_opt_state(tx, ck["opt_state"], mesh)
+            # a directory is the sharded backend, a file a pickle (JAX :232-236)
+            ck = load_checkpoint_orbax(resume_from, params_template=params,
+                                       opt_state_template=opt_state, device=device, mesh=mesh,
+                                       tx=tx)
+            params = ck["params"]
+            if ck["opt_state"] is not None:
+                opt_state = ck["opt_state"]
+        else:
+            whole = params if mesh is None else gather_params(mesh, params)
+            ck = load_checkpoint(resume_from, params_template=whole,
+                                 opt_state_template=optim.AdamState(whole, whole, 0),
+                                 device=device)
+            del whole
+            params = ck["params"] if mesh is None else shard_tree(mesh, ck["params"])
+            if ck["opt_state"] is not None:
+                opt_state = local_opt_state(tx, ck["opt_state"], mesh)
         start_epoch = int(ck["extra"].get("epoch", -1)) + 1
     if metrics is not None and metrics.saver is not None:
         saver = metrics.saver
@@ -296,14 +310,27 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
                           f"{n_whole if mesh is not None else lt.n_params(params):,d}")
 
     def save(name: str, extra: dict) -> str:
-        """Every rank calls it (ZeRO-1 gathers the moments, tp and pp the
-        shards); rank 0 writes the whole tree."""
+        """Every rank calls it.  Sharded: each rank's shards, written in the
+        background.  Pickle: ZeRO-1 gathers the moments, tp and pp the
+        shards, and rank 0 writes the whole tree."""
         path = f"{pcfg.ckpt_dir}/{name}.ckpt"
+        if sharded_ckpt:
+            return save_checkpoint_orbax(path, params, opt_state, step=saver.global_step,
+                                         extra=extra, mesh=mesh, tx=tx)
         state = full_opt_state(tx, opt_state, mesh)
         whole = params if mesh is None else gather_params(mesh, params)
         if rank == 0:
             save_checkpoint(path, whole, state, step=saver.global_step, extra=extra)
         return path
+
+    def done(*out):
+        """``out``, once this process's sharded saves have committed and,
+        on a mesh, every rank's have (a barrier on this thread)."""
+        if sharded_ckpt:
+            wait_for_checkpoints()
+            if mesh is not None:
+                all_reduce_(mesh, [torch.zeros(1, device=device)], axis="world")
+        return out
 
     def interrupted() -> bool:
         flag = INTERRUPT.is_set()
@@ -357,13 +384,14 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
                 if grads_acc is not None:
                     params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
                 path = save("interrupt", {"epoch": epoch - 1, "interrupted": True})
+                out = done(params, opt_state, history)
                 saver.add_summary_msg(f" > interrupted: checkpoint saved to {path}")
-                return params, opt_state, history
+                return out
             if max_steps is not None and steps_done >= max_steps:
                 # a pending partial window still applies (1/K-scaled)
                 if grads_acc is not None:
                     params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
-                return params, opt_state, history
+                return done(params, opt_state, history)
 
         epoch_loss = float(acc_loss) / max(num_batch, 1)
         history.append(epoch_loss)
@@ -377,8 +405,8 @@ def pretrain(params: dict, cfg, train_x, train_y, train_mask,
                 params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
                 grads_acc = None
             save("trainloss_final", {"epoch": epoch, "loss": epoch_loss})
-            return params, opt_state, history
+            return done(params, opt_state, history)
         save(bucket, {"epoch": epoch, "loss": epoch_loss})
     if grads_acc is not None:
         params, opt_state = apply_grads(params, opt_state, tx, grads_acc, mesh)
-    return params, opt_state, history
+    return done(params, opt_state, history)

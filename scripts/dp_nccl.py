@@ -10,6 +10,7 @@ rank, at agent_config's width.  Needs a card a rank:
     python3 scripts/dp_nccl.py --sp --pp  # sp = 2 (and 4), pp = 2 (and dp = 2 x pp = 2
                                           # and cli pretrain --pp 2 --dp 2) where there
                                           # are 4 cards
+    python3 scripts/dp_nccl.py --ckpt     # the sharded checkpoint on 4 cards
 
 dp: ``chip_smoke.py``'s phases 34-35 (``dp_rank``, gated by
 ``dp_gate_failures``) with rank r on card r, B=32 x S=512 global at 2 ranks
@@ -30,7 +31,8 @@ on card r: tp = 2 (the DQN update, the discriminator step at 100 x 50 and
 (the graphed DQN and PPO rollouts, the DQN update, the PPO step), tp = 4
 (the update and both discriminator steps), dp = 2 x tp = 2 (the PPO
 rollout song and update step, the DQN update with control (i), the
-discriminator step), each against one process; then ``cli dqn-train --tp
+discriminator step), dp = 4 (the split discriminator epoch on kernel D's
+route with its control), each against one process; then ``cli dqn-train --tp
 2`` and ``cli ppo-train --dp 2 --tp 2`` (``RL_CLI``'s flags) on CUDA over
 NCCL (``chip_smoke.rl_cli_rank``: the ranks' trees and generator digested).
 
@@ -42,6 +44,12 @@ control, the step under RLMG_FFN_BACKEND=pallas and the dropout steps) and dp = 
 B=32 x S=512, then phase 44's ``cli pretrain --pp 2 --dp 2`` over NCCL
 (``chip_smoke.pp_cli_run``).  The hop between stages takes NCCL's
 ``batch_isend_irecv`` here (gloo's a host copy).
+
+ckpt: phase 45's ``cli pretrain --dp 2 --tp 2 --zero1`` (``chip_smoke.CKPT_CLI``,
+kernel F on each rank's heads) over NCCL with ``--ckpt-backend orbax`` and
+with the pickle, each rank's seconds of the directory's save to return and
+to commit beside the pickle path's gather and rank 0's write at the same
+shape; then the directory resumed at ``--pp 2 --dp 2`` for a second epoch.
 
 Builds the kernels first (``ops/_build.py``).  Prints the cards' name and
 power limit beside the readings; exits non-zero where a gate fails.
@@ -105,6 +113,44 @@ def _cli_rl(tmp, smi_line, cmd, dp, tp):
         and all(len(set(d)) == 1 for d in res["digests"].values()), f"cli {cmd} {flags}: {res}")
 
 
+def _ckpt(tmp, smi_line):
+    """``cli pretrain --dp 2 --tp 2 --zero1`` on four NCCL ranks with each
+    checkpoint backend (``chip_smoke.ckpt_rank_cli``), then the directory
+    resumed at --pp 2 --dp 2."""
+    from reinforcement_learning_in_music_generation_torch.parallel import mesh as pm
+    found = {}
+    for backend in ("orbax", "pickle"):
+        out = os.path.join(tmp, backend)
+        argv = chip_smoke.CKPT_CLI + ["--dp", "2", "--tp", "2", "--zero1", "--ckpt-backend",
+                                      backend, "--epochs", "1", "--device", "cuda",
+                                      "--exp-dir", os.path.join(out, "e"),
+                                      "--ckpt-dir", os.path.join(out, "c")]
+        ranks = pm.launch(chip_smoke.ckpt_rank_cli, 4, (argv, 4), backend="nccl", timeout_s=900)
+        names = sorted(n for n in os.listdir(os.path.join(out, "c"))
+                       if not n.endswith(".meta.json"))
+        found[backend] = (ranks, os.path.join(out, "c", names[0]))
+        print(f"[nccl] ckpt: cli pretrain --dp 2 --tp 2 --zero1 --ckpt-backend {backend}: "
+              f"history {ranks[0]['history']}, F launches a rank "
+              f"{[r['f_launches'] for r in ranks]}; seconds of the save a rank "
+              f"{[r['saves'] for r in ranks]} ({smi_line})", flush=True)
+        chip_smoke.check(all(math.isfinite(v) for v in ranks[0]["history"])
+                         and all(min(r["f_launches"]) > 0 for r in ranks),
+                         f"ckpt {backend}: {[(r['history'], r['f_launches']) for r in ranks]}")
+    files = chip_smoke.ckpt_files(found["orbax"][1])
+    print(f"[nccl] ckpt: the directory's writers {files['writers']}, bytes a rank "
+          f"{ {r: v['bytes'] for r, v in files['per_rank'].items()} }", flush=True)
+    argv = chip_smoke.CKPT_CLI + ["--pp", "2", "--dp", "2", "--epochs", "2", "--device", "cuda",
+                                  "--resume", found["orbax"][1],
+                                  "--exp-dir", os.path.join(tmp, "r", "e"),
+                                  "--ckpt-dir", os.path.join(tmp, "r", "c")]
+    ranks = pm.launch(chip_smoke.ckpt_rank_cli, 4, (argv, 4), backend="nccl", timeout_s=900)
+    print(f"[nccl] ckpt: resumed at --pp 2 --dp 2: history {ranks[0]['history']}, steps "
+          f"{ranks[0]['steps']} ({smi_line})", flush=True)
+    chip_smoke.check(ranks[0]["steps"] == 1 and len(ranks[0]["history"]) == 1
+                     and math.isfinite(ranks[0]["history"][0]),
+                     f"ckpt: the resume at --pp 2 --dp 2: {ranks[0]}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tp", action="store_true", help="the tensor-parallel runs (else dp)")
@@ -114,6 +160,9 @@ def main() -> None:
                     help="the sequence-parallel attention (else dp)")
     ap.add_argument("--pp", action="store_true",
                     help="the pipeline step and cli pretrain --pp (else dp)")
+    ap.add_argument("--ckpt", action="store_true",
+                    help="the sharded checkpoint: cli pretrain --dp 2 --tp 2 --zero1 with "
+                         "each backend, the directory resumed at --pp 2 --dp 2 (4 cards)")
     args = ap.parse_args()
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
@@ -131,6 +180,13 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t:.1f}s", flush=True)
     e2w, _ = tokenizer.drop_type(tokenizer.construct_cp_dict())
     cfg = C.agent_config(tuple(tokenizer.n_classes(e2w)))
+    if args.ckpt:
+        if n_cards < 4:
+            chip_smoke.fail(f"{n_cards} CUDA card(s): --ckpt takes 4")
+        with tempfile.TemporaryDirectory() as tmp:
+            _ckpt(tmp, smi_line)
+        print("dp_nccl --ckpt: ok", flush=True)
+        return
     if args.sp or args.pp:
         if args.sp:
             for n in (2, 4) if n_cards >= 4 else (2,):
@@ -148,7 +204,9 @@ def main() -> None:
                   dict(phase="40bn", dp=2, tp=1, ffn="pallas", steps=("rollout", "dqn", "ppo"))]
         if n_cards >= 4:
             meshes += [dict(phase="39n4", dp=1, tp=4, steps=("dqn", "disc", "disc_long")),
-                       dict(phase="40n", dp=2, tp=2, steps=("ppo", "dqn", "control", "disc"))]
+                       dict(phase="40n", dp=2, tp=2, steps=("ppo", "dqn", "control", "disc")),
+                       dict(phase="40n4", dp=4, tp=1, steps=("disc_split",),
+                            disc_route=chip_smoke.DISC_SPLIT_D_ROUTE, disc_control=True)]
         chip_smoke.rl_run(cfg, smi_line, backend="nccl", meshes=meshes)
         with tempfile.TemporaryDirectory() as tmp:
             _cli_rl(tmp, smi_line, "dqn-train", 1, 2)

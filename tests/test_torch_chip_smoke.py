@@ -345,12 +345,12 @@ def _rl_readings(control_loss, margin, flip=True, digests=("a", "a"), g_ran=Fals
     within the gates, the control step with ``control_loss`` relative loss,
     a rollout whose actions part from one process's at one field where one
     process's top-2 margin is ``margin`` (or do not part); kernel G's runs
-    those of F (``g_ran``) or none."""
+    those of F (``g_ran``) or none; kernel D's none."""
     ok = {"loss": 1e-7, "grads": (1e-6, "/w"), "params": (1e-6, "/w"),
           "params_leaf": (1e-6, "/w"), "updates": (1e-6, "/w"), "updates_seen": 1}
     bad = dict(ok, loss=control_loss, grads=(control_loss, "/w"))
     apart = {"at": (3, 1, 2), "margins": (([1, 2], 1e-6), ([2, 1], margin))} if flip else None
-    runs = lambda f: f + [0, 0] + (f if g_ran else [0, 0])
+    runs = lambda f: f + [0, 0] + (f if g_ran else [0, 0]) + [0, 0]
     steps = {"dqn": {"runs": runs([36, 24]), "loss": 1.0, "errors": ok,
                      "digests": list(digests)},
              "control": {"runs": runs([36, 24]), "loss": 1.3, "errors": bad,
@@ -378,6 +378,30 @@ def test_rl_gates_refuse_a_blind_control_a_flip_off_a_tie_and_ranks_apart(
     and otherwise nowhere."""
     fails = smoke.rl_gate_failures(_rl_readings(control_loss, margin, flip, digests, g_ran),
                                    {"n_layer": 12, "ffn": ffn})
+    assert len(fails) == n_fails, fails
+
+
+@pytest.mark.parametrize("control_loss,d_runs,digests,n_fails", [
+    (0.28, 120, ("a", "a"), 0),       # D on every rank, the control outside the gates
+    (1e-7, 120, ("a", "a"), 1),       # a control inside the gates
+    (0.28, 0, ("a", "a"), 2),         # D not run, on each rank
+    (0.28, 120, ("a", "b"), 1)])      # the ranks' parameters apart
+def test_rl_gates_hold_the_split_disc_epoch(smoke, control_loss, d_runs, digests, n_fails):
+    """Phase 40b's split discriminator epoch (``disc_split``): within the
+    loss and gradient gates against one process, kernel D's launches
+    3 x (n_layer - 2) x minibatches on every rank on its route, the ranks'
+    parameters bit-equal without a broadcast, and the control (each rank's
+    own BatchNorm statistics) outside the gates."""
+    ok = {"loss": 1e-7, "grads": (1e-6, "/w"), "params": (1e-6, "/w"),
+          "params_leaf": (1e-6, "/w"), "updates": (1e-6, "/w"), "updates_seen": 1}
+    bad = dict(ok, loss=control_loss, grads=(control_loss, "/w"))
+    step = {"runs": [0] * 6 + [d_runs, d_runs], "loss": 1.0, "errors": ok,
+            "control_errors": bad, "digests": list(digests)}
+    res = [{"rank": r, "steps": {"disc_split": step}} for r in range(2)]
+    spec = {"n_layer": 12, "ffn": "pallas", "disc_route": smoke.DISC_SPLIT_D_ROUTE,
+            "disc_control": True}
+    assert 3 * 10 * smoke.DISC_SPLIT["minibatches"] == 120
+    fails = smoke.rl_gate_failures(res, spec)
     assert len(fails) == n_fails, fails
 
 

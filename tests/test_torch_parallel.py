@@ -402,18 +402,23 @@ def test_cli_generate_dp2_cpu(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path / "g")) == ["get_0.mid", "get_1.mid"]
 
 
-def test_mesh_refusals(monkeypatch):
-    """make_mesh without a group raises, at any tp; the CLI's unported
-    checkpoint backend names its item (dp, tp and pp are ported for every
-    command that takes them: tests/test_torch_tensor_parallel.py,
-    tests/test_torch_rl_parallel.py, tests/test_torch_pipeline_parallel.py);
+def test_mesh_refusals(monkeypatch, tmp_path):
+    """make_mesh without a group raises, at any tp; the CLI refuses to
+    resume from a JAX orbax directory, naming the port's format (dp, tp and
+    pp, and the sharded checkpoint, are ported for every command that takes
+    them: tests/test_torch_tensor_parallel.py, tests/test_torch_rl_parallel.py,
+    tests/test_torch_pipeline_parallel.py, tests/test_torch_checkpoint.py);
     ZeRO-1 needs dp > 1, as in JAX."""
     for dp, tp in ((2, 2), (2, 1)):
         with pytest.raises(RuntimeError, match="process group"):
             pm.make_mesh(dp, tp)
-    for argv, item in ((["pretrain", "--pp", "2", "--ckpt-backend", "orbax"], "9(e)"),):
-        with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
-            tcli.main(argv + ["--device", "cpu"])
+    jdir = str(tmp_path / "jax.ckpt")
+    jck.save_checkpoint_orbax(jdir, {"w": jnp.ones((2, 2))}, step=1, wait=True)
+    with pytest.raises(ValueError, match="not a checkpoint of this port"):
+        tcli.main(["pretrain", "--device", "cpu", "--synthetic", "--layers", "1",
+                   "--synthetic-songs", "2", "--batch-size", "2", "--seq-len", "16",
+                   "--ckpt-backend", "orbax", "--resume", jdir, "--exp-dir", str(tmp_path / "e"),
+                   "--ckpt-dir", str(tmp_path / "c")])
     params = tlt.init_params(TC.LinearTransformerConfig(**W.KW), device="cpu")
     x, y, m = jds.synthetic_cp_dataset(4, S, n_class=VOCAB)
     for mesh in (None, pm.Mesh({"dp": 1, "tp": 1}, 0, torch.device("cpu"), "gloo")):

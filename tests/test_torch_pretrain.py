@@ -152,21 +152,22 @@ def test_unported_options_raise(monkeypatch, jparams, batch):
     torch.testing.assert_close(
         tlt.forward_hidden(tp, TC.LinearTransformerConfig(**KW, remat=True), _t(x)), plain,
         rtol=0, atol=0)
-    # data, tensor and pipeline parallelism and ZeRO-1 are ported
-    # (tests/test_torch_parallel.py, tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_pipeline_parallel.py): the orbax backend still
-    # raises, ZeRO-1 without a dp > 1 mesh and ZeRO-1 on a mesh with a pp
-    # axis raise JAX's ValueErrors
+    # data, tensor and pipeline parallelism, ZeRO-1 and the sharded
+    # checkpoint are ported (tests/test_torch_parallel.py,
+    # tests/test_torch_tensor_parallel.py, tests/test_torch_pipeline_parallel.py,
+    # tests/test_torch_checkpoint.py): a checkpoint backend neither "pickle"
+    # nor "orbax" raises, ZeRO-1 without a dp > 1 mesh and ZeRO-1 on a mesh
+    # with a pp axis raise JAX's ValueErrors
     pp_mesh = Mesh({"dp": 2, "pp": 2, "tp": 1}, 0, torch.device("cpu"), "gloo")
-    with pytest.raises(NotImplementedError):
-        tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(ckpt_backend="orbax"))
+    with pytest.raises(ValueError, match="ckpt_backend='msgpack'"):
+        tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(ckpt_backend="msgpack"))
     with pytest.raises(ValueError, match="pipeline mesh"):
         tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(zero1=True), mesh=pp_mesh)
     with pytest.raises(ValueError, match="dp>1"):
         tpre.pretrain(tp, TCFG, x, y, m, TC.PretrainConfig(zero1=True))
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(SystemExit):
         tcli.main(["pretrain", "--device", "cpu", "--synthetic", "--pp", "2",
-                   "--ckpt-backend", "orbax"])
+                   "--ckpt-backend", "msgpack"])
 
 
 def test_losses_match_jax():

@@ -10,7 +10,9 @@ virtual CPU devices as one GSPMD program, as JAX's CLI does
 (``apps/cli.py:299-351``, ``:452-484``): the weights Megatron-sharded
 (``shard_params``), the DQN and PPO update batches split over dp
 (``shard_batch``: a batch dp does not divide stays whole), the AIRL
-buffers whole.  Configs: JAX tests/test_rl.py's TINY / TINY_W and its DQN
+buffers whole, and for the port's split discriminator epoch
+(``disc_epoch(dp_rows=True)``) split over dp, JAX's library
+configuration.  Configs: JAX tests/test_rl.py's TINY / TINY_W and its DQN
 config at dropout 0; inputs from JAX rollouts and numpy seeds.
 
 Tolerances: DQN losses rtol 1e-5, gathered gradients (10 x Adam's first
@@ -19,10 +21,22 @@ step's losses rtol 2e-4 (JAX's own, tests/test_rl.py:236-299), the
 rewards rtol 1e-4 / atol 1e-5, the gradient penalty rtol 1e-4; rollout
 actions equal.  At dropout 0.5 the dp ranks' dropout masks are one
 process's draw at their rows (hidden states rtol 1e-5 / atol 1e-6).
-Three controls, each a fault the gates must catch, fall outside them: (i) each rank's own MSE mean, summed over dp; (ii) the update
-batches drawn from a generator offset by the dp index; (iii) the
+The split discriminator epoch (``_split_failures``): losses rtol 2e-4,
+parameters within 2e-4 of their leaf's magnitude, Adam's first moment
+(two steps' gradients) within 1e-5 of its leaf's magnitude (JAX's and the
+port's arithmetic differ by up to 4.2e-6 there), the
+BatchNorm variance rtol 2e-4, and its mean after the first minibatch; the
+two leaves whose gradient is 0 in exact arithmetic (the key bias, the
+score's first bias under train-mode BatchNorm) hold rounding noise, which
+Adam's step amplifies, so their parameters (and the BatchNorm mean, which
+reads the second) are left out and their moments must stay below 1e-6 of
+the largest.  Five controls, each a fault the gates must catch, fall
+outside them: (i) each rank's own MSE mean, summed over dp; (ii) the
+update batches drawn from a generator offset by the dp index; (iii) the
 Longformer's fused tail chosen without the mesh under
-RLMG_FFN_BACKEND=pallas-tail at tp = 2.
+RLMG_FFN_BACKEND=pallas-tail at tp = 2; (iv) the split epoch's BatchNorm
+on each rank's own rows; (v) its statistics' all-reduce with an identity
+backward.
 """
 
 import os
@@ -226,6 +240,15 @@ def _jax_mesh(inputs, dp, tp):
                             AIRL_CFG.batch_size)
     out["airl"] = {k: float(v) for k, v in m.items()}
     out["reward"] = np.asarray(jairl.calculate_reward(st, TINY_W, agent, dmask, 4))
+    if dp > 1:
+        # JAX's library configuration: the buffers split over dp
+        p = shard(inputs["lw"])
+        st1, m = jairl.disc_epoch(jairl.AIRLState(p, inputs["bn"], rtx.init(p)), TINY_W, rtx,
+                                  *shard_batch(mesh, (expert, dmask, agent)),
+                                  jax.random.PRNGKey(3), AIRL_CFG.batch_size)
+        out["airl_split"] = {"metrics": {k: float(v) for k, v in m.items()},
+                             "params": _flat(st1.params), "mu": _flat(_jax_adam_mu(st1.opt_state)),
+                             "bn": {k: np.asarray(v) for k, v in st1.bn_state.items()}}
     # PPO: the update on the transitions split over dp
     atx, ctx = jppo.make_optimizers(PPO_CFG)
     actor, critic, reward = (shard(p) for p in inputs["ppo_params"])
@@ -257,6 +280,7 @@ def one(inputs):
                       "dqn": W.dqn_update(None, inputs["lt"], *inputs["batches"]["even"],
                                           cfg=W.TINY_DROP)}
     out["airl"] = W.airl_runs(None, inputs["lw"], inputs["bn"], *inputs["disc"], inputs["gp"])
+    out["airl_split"] = W.airl_split(None, inputs["lw"], inputs["bn"], *inputs["disc"])
     out["ppo"] = W.ppo_runs(None, inputs["ppo_params"], inputs["song"], *inputs["ppo_update"])
     expert, _, dmask = inputs["disc"]
     out["logits"] = [lg.detach().numpy() for lg in tlf.token_logits(
@@ -319,6 +343,90 @@ def test_disc_epoch_on_whole_buffers_matches_jax(launched, inputs, dp, tp):
             np.testing.assert_array_equal(r["airl"]["params"][k], v, err_msg=k)
         for k, v in ranks[0]["airl"]["bn"].items():
             np.testing.assert_array_equal(r["airl"]["bn"][k], v, err_msg=k)
+
+
+# leaves whose gradient is 0 in exact arithmetic: the softmax removes the
+# key bias, the train-mode BatchNorm the score's first bias
+ZERO_GRADS = ("/layers/wk/b", "/score/l1/b")
+
+
+def _split_failures(got, ref, first=None, ref_first=None):
+    """The split discriminator epoch's gates (the module's docstring): the
+    failures, each a line."""
+    fails = []
+    for k, v in ref["metrics"].items():
+        if not abs(got["metrics"][k] - v) <= 2e-4 * abs(v):
+            fails.append(f"loss {k}: {got['metrics'][k]} vs {v}")
+    for k, v in ref["params"].items():
+        if k not in ZERO_GRADS and not np.abs(got["params"][k] - v).max() <= 2e-4 * np.abs(v).max():
+            fails.append(f"parameters {k}")
+    top = max(float(np.abs(v).max()) for v in ref["mu"].values())
+    for k, v in ref["mu"].items():
+        if k in ZERO_GRADS:
+            if not np.abs(got["mu"][k]).max() <= 1e-6 * top:
+                fails.append(f"first moment {k}: {np.abs(got['mu'][k]).max():.3e} not noise")
+        elif not np.abs(got["mu"][k] - v).max() <= 1e-5 * np.abs(v).max():
+            fails.append(f"first moment {k}")
+    if not np.allclose(got["bn"]["bn_var"], ref["bn"]["bn_var"], rtol=2e-4, atol=0):
+        fails.append("BatchNorm variance")
+    if first is not None:
+        for k, v in ref_first["bn"].items():
+            if not np.allclose(first["bn"][k], v, rtol=2e-4, atol=1e-7):
+                fails.append(f"first minibatch's BatchNorm {k}")
+    return fails
+
+
+@pytest.mark.parametrize("dp,tp", DP_MESHES)
+def test_disc_epoch_split_over_dp_matches_one_process_and_jax(launched, inputs, one, dp, tp):
+    """disc_epoch(dp_rows=True): each minibatch of 4 split over dp, the
+    BatchNorm statistics, BCE and CE means global.  Its losses, parameters,
+    gradients and BatchNorm state hold one process's epoch and JAX's on
+    make_mesh(dp, tp) with the buffers split over dp (``_split_failures``),
+    also at dropout 0.5 (one process's masks at the rank's rows); every
+    rank ends with the same parameters and BatchNorm state, bit for bit,
+    without the broadcast of the default mode."""
+    solo, ref = one["airl_split"], _jax(inputs, dp, tp)["airl_split"]
+    ranks = _ranks(launched, dp, tp)
+    for r in ranks:
+        got = r["airl_split"]
+        assert _split_failures(got["split"], solo["split"], got["first"], solo["first"]) == []
+        assert _split_failures(got["split"], ref) == []
+        assert _split_failures(got["dropout"], solo["dropout"]) == []
+        assert abs(solo["dropout"]["metrics"]["global_loss"]
+                   - solo["split"]["metrics"]["global_loss"]) > 1e-3
+        for run in ("split", "dropout"):
+            for part in ("params", "bn"):
+                for k, v in ranks[0]["airl_split"][run][part].items():
+                    np.testing.assert_array_equal(got[run][part][k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("dp,tp", DP_MESHES)
+def test_disc_epoch_split_controls_fall_outside_the_gate(launched, one, dp, tp):
+    """Controls (iv), the BatchNorm on each rank's own rows, and (v), the
+    statistics' all-reduce with ``reduce_from_tp``'s identity backward,
+    fail the split epoch's gates: (iv) at the losses, (v) at the
+    gradients."""
+    solo = one["airl_split"]
+    for r in _ranks(launched, dp, tp):
+        own_bn = _split_failures(r["airl_split"]["own_bn"], solo["split"])
+        own_cot = _split_failures(r["airl_split"]["own_cotangent"], solo["split"])
+        assert any(f.startswith("loss") for f in own_bn), own_bn
+        assert any(f.startswith("first moment") for f in own_cot), own_cot
+
+
+@pytest.mark.parametrize("dp,tp", DP_MESHES)
+def test_disc_epoch_split_minibatch_dp_does_not_divide_runs_whole(launched, one, dp, tp):
+    """Minibatches of 3, which dp = 2 does not divide: the split mode runs
+    each whole on every rank, as the default mode does, bit for bit, and
+    its losses are one process's."""
+    for r in _ranks(launched, dp, tp):
+        got, default = r["airl_split"]["odd"], r["airl_split"]["odd_default"]
+        assert got["metrics"] == default["metrics"]
+        for part in ("params", "mu", "bn"):
+            for k, v in default[part].items():
+                np.testing.assert_array_equal(got[part][k], v, err_msg=k)
+        for k, v in one["airl_split"]["odd"]["metrics"].items():
+            np.testing.assert_allclose(got["metrics"][k], v, rtol=2e-4, err_msg=k)
 
 
 @pytest.mark.parametrize("dp,tp", MESHES)

@@ -450,12 +450,13 @@ def test_cli_generate_tp2_cpu(launched, work, tmp_path):
     assert sorted(os.listdir(os.path.join(work, "cli", "g"))) == ["get_0.mid", "get_1.mid"]
 
 
-def test_tp_refusals(monkeypatch):
+def test_tp_refusals(monkeypatch, tmp_path):
     """A tp that does not divide the heads, d_inner, d_model or an embedding
     raises ValueError before any collective (a mesh object with no group);
     the Longformer checks its own config the same way; the fused decode
     refuses tp; the CLI refuses a --pp that does not divide the layers;
-    --continuous refuses --tp; the orbax checkpoint raises (9(e))."""
+    --continuous refuses --tp; a directory that is not the port's sharded
+    checkpoint is refused before any leaf is cut for the mesh."""
     fake = pm.Mesh({"dp": 1, "tp": 3}, 0, torch.device("cpu"), "gloo")
     params = tlt.init_params(W.CFG, device="cpu")
     x, y, m = (torch.from_numpy(a) for a in jds.synthetic_cp_dataset(2, S, n_class=VOCAB))
@@ -482,6 +483,5 @@ def test_tp_refusals(monkeypatch):
         tcli.main(["pretrain", "--pp", "5", "--tp", "2", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--continuous"):
         tcli.main(["generate", "--continuous", "--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"9\(e\)"):
-        tpre.pretrain(params, W.CFG, x.numpy(), y.numpy(), m.numpy(),
-                      TC.PretrainConfig(ckpt_backend="orbax"))
+    with pytest.raises(ValueError, match="not a checkpoint of this port"):
+        tck.load_checkpoint_orbax(str(tmp_path), device="cpu", mesh=two)

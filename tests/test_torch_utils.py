@@ -1,5 +1,6 @@
 """The port's ``utils`` against the JAX package's, on the CPU: the exported
-names (JAX's, but the orbax functions), ``expio``'s files byte for byte,
+names (JAX's, the three orbax names among them: the port's sharded
+checkpoint, tests/test_torch_checkpoint.py), ``expio``'s files byte for byte,
 ``load_params_lenient`` on a JAX-written pickle checkpoint, the two
 plotting helpers, and ``profile_trace`` / ``summarize_trace`` on a CPU
 capture (``torch.profiler``: the host's operator rows)."""
@@ -21,7 +22,7 @@ ORBAX = {"load_checkpoint_orbax", "save_checkpoint_orbax", "wait_for_checkpoints
 
 
 def test_utils_exports_the_jax_names_but_orbax():
-    assert set(tu.__all__) == set(ju.__all__) - ORBAX
+    assert set(tu.__all__) == set(ju.__all__) and ORBAX <= set(tu.__all__)
     assert all(callable(getattr(tu, n)) for n in tu.__all__ if n != "expio")
 
 

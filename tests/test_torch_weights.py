@@ -190,17 +190,20 @@ def test_port_imports_no_jax():
     """No module of the port (nor the GPU smoke test, the NCCL script, nor
     the rank functions that tests/test_torch_parallel.py,
     tests/test_torch_tensor_parallel.py, tests/test_torch_rl_parallel.py,
-    tests/test_torch_sequence_parallel.py and
-    tests/test_torch_pipeline_parallel.py spawn) imports jax or the JAX
-    package, at the top or inside a function."""
+    tests/test_torch_sequence_parallel.py, tests/test_torch_pipeline_parallel.py
+    and tests/test_torch_checkpoint.py spawn) imports jax, the JAX package,
+    orbax or tensorstore (the card's machine has neither), at the top or
+    inside a function."""
     import re
     root = os.path.join(os.path.dirname(__file__), "..")
-    pat = re.compile(r"(import|from) +(jax|reinforcement_learning_in_music_generation_tpu)\b")
+    pat = re.compile(r"(import|from) +(jax|reinforcement_learning_in_music_generation_tpu|orbax"
+                     r"|tensorstore)\b")
     files = [os.path.join(root, "chip_smoke.py"),
              os.path.join(root, "tests", "torch_dp_workers.py"),
              os.path.join(root, "tests", "torch_tp_workers.py"),
              os.path.join(root, "tests", "torch_rl_workers.py"),
              os.path.join(root, "tests", "torch_pp_workers.py"),
+             os.path.join(root, "tests", "torch_ckpt_workers.py"),
              os.path.join(root, "scripts", "dp_nccl.py")]
     pkg = os.path.join(root, "reinforcement_learning_in_music_generation_torch")
     for d, _, names in os.walk(pkg):
@@ -210,7 +213,7 @@ def test_port_imports_no_jax():
     assert {"rl/ppo.py", "rl/dqn.py", "models/critic.py", "data/events.py",
             "ops/ffn_block.py", "ops/linear_attention_kernel.py",
             "parallel/mesh.py", "parallel/sharding.py", "parallel/tensor.py",
-            "parallel/pipeline.py"} <= rel
+            "parallel/pipeline.py", "utils/checkpoint.py"} <= rel
     for path in files:
         with open(path) as f:
             for i, line in enumerate(f, 1):

@@ -54,6 +54,7 @@ TINY = TC.LinearTransformerConfig(**LT_KW)
 TINY_DROP = TC.LinearTransformerConfig(**{**LT_KW, "dropout": 0.5})
 ACFG = TC.LinearTransformerConfig(**LT_KW, with_value_head=True)
 TINY_W = TC.WindowTransformerConfig(**W_KW)
+TW_DROP = TC.WindowTransformerConfig(**{**W_KW, "dropout": 0.5})
 DQN_CFG, AIRL_CFG = TC.DQNConfig(**DQN_KW), TC.AIRLConfig(**AIRL_KW)
 PPO_CFG = TC.PPOConfig(**PPO_KW)
 SEED = 3                # the CLI's generator: one stream on every rank
@@ -159,6 +160,61 @@ def airl_runs(mesh, jparams, bn, expert, agent, mask, gp_in):
     return out
 
 
+class _OwnCotangent(torch.autograd.Function):
+    """The control of the split BatchNorm's all-reduce: the sum over dp
+    forward, each rank's own cotangent backward (``reduce_from_tp``'s
+    pair)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        y = x.clone()
+        torch.distributed.all_reduce(y, group=mesh.group(axis))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def airl_split(mesh, jparams, bn, expert, agent, mask):
+    """disc_epoch with each minibatch of 4 split over dp (``dp_rows``): the
+    metrics, the gathered parameters and Adam's first moment (two steps'
+    gradients), the BatchNorm stats.  Also: the first minibatch alone
+    ("first": its BatchNorm stats read no step's update); the same at
+    dropout 0.5 from a
+    generator seeded alike on every rank; minibatches of 3, which dp = 2
+    does not divide, in the split mode and by default; and the two
+    controls, each rank's own BatchNorm statistics ("own_bn") and the
+    statistics' all-reduce with an identity backward ("own_cotangent").
+    Without a mesh: one process's epoch."""
+    def run(batch_size=AIRL_CFG.batch_size, dp_rows=True, cfg=TINY_W, generator=None, n=None):
+        tx = tairl.make_optimizer(AIRL_CFG)
+        p = _shards(mesh, jparams)
+        st = tairl.AIRLState(p, t(bn), tx.init(p))
+        st1, m = tairl.disc_epoch(st, cfg, tx, t(expert[:n]), t(mask[:n]), t(agent[:n]),
+                                  generator, batch_size, mesh, dp_rows)
+        return {"metrics": {k: float(v) for k, v in m.items()}, "params": whole(mesh, st1.params),
+                "mu": whole(mesh, st1.opt_state.mu),
+                "bn": {k: v.numpy() for k, v in st1.bn_state.items()}}
+
+    out = {"split": run(), "first": run(n=AIRL_CFG.batch_size), "odd": run(3),
+           "odd_default": run(3, dp_rows=False),
+           "dropout": run(cfg=TW_DROP, generator=torch.Generator().manual_seed(11))}
+    if mesh is not None:
+        keep_head, keep_sum = tlf._score_head, tlf.sum_over
+        tlf._score_head = lambda p_, s_, h, train, dp_mesh=None: keep_head(p_, s_, h, train)
+        try:
+            out["own_bn"] = run()
+        finally:
+            tlf._score_head = keep_head
+        tlf.sum_over = lambda x, mesh_, axis: _OwnCotangent.apply(x, mesh_, axis)
+        try:
+            out["own_cotangent"] = run()
+        finally:
+            tlf.sum_over = keep_sum
+    return out
+
+
 def ppo_runs(mesh, jparams3, song, agent, expert, adv, returns):
     """ppo.rollout_song from the JAX weights (actions, log-probs, values,
     rewards), then one update_policy_step on JAX's transitions with the
@@ -251,6 +307,7 @@ def run_mesh(mesh, inp):
                                             cfg=TINY_DROP)}
         out["control_i"] = dqn_update(mesh, inp["lt"], *inp["batches"]["even"],
                                       rank_local_mean=True)
+        out["airl_split"] = airl_split(mesh, inp["lw"], inp["bn"], *inp["disc"])
         out["sampled"] = {flag: sampled_update(mesh, inp["lt"], *inp["buffers"], flag)
                           for flag in (False, True)}
     if mesh.tp > 1:
