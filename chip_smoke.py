@@ -94,7 +94,10 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      within E_BF16_GATES (max|diff| within BF16_TOL of the magnitude,
      mean|diff| within a small share of mean|ref|), with a control that
      must end above the mean limits (the twin with P and dS rounded to bf16
-     before their products); the library yardstick
+     before their products); and exactly: the bf16 out and gradients equal,
+     bit for bit, E's f32 route on the widened operands (the stored bf16
+     out handed to its backward), rounded to bf16, where the same control
+     must differ (a dropped plane of an f32 operand); the library yardstick
      (scaled_dot_product_attention with the additive band mask) within
      1e-4 on the rows that see a kept key;
   8. holds kernel D at the Longformer's shape (14336 rows, d_model 512,
@@ -126,8 +129,10 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      out, den and the gradients within F_BF16_GATES (as E's), with two
      controls that must end above the mean limits (the chunked composition
      in bf16 arithmetic; for the gradients F's f32 route with den
-     unrounded), two bf16 backward runs bit-equal; float64 inputs and heads
-     of 72 refused;
+     unrounded), the bf16 out and den equal, bit for bit, F's f32 route on
+     the widened inputs, rounded, where a control (the twin with A and the
+     state rounded: a dropped plane of each) must differ; two bf16 backward
+     runs bit-equal; float64 inputs and heads of 72 refused;
  12. takes one full-width DQN update (agent_config, dropout 0, lr 1e-4,
      B=30 x S=50, the same weights and batches) on the default route (the
      plain composition) and under RLMG_ATTN_BACKEND=pallas (kernel F): mse
@@ -1124,6 +1129,101 @@ def band_bf16_readings(twk, q, k, v, mask, window, g):
                           "finite": bool(torch.isfinite(x.float()).all()),
                           "dtype": x.dtype == q.dtype}
     return readings, ok
+
+
+def bit_diffs(x, y) -> int:
+    """Elements of x whose bits differ from y's (y rounded to x's type
+    first; an element that is NaN on either side counts as differing)."""
+    y = y.to(x.dtype)
+    if x.shape != y.shape:
+        return x.numel()
+    it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    return int((x.contiguous().view(it) != y.contiguous().view(it)).sum())
+
+
+def exact_gate_failures(readings: dict) -> list:
+    """What the exact gate refuses in {tensor: {"kernel": differing
+    elements against the reference, "control": the control's}}: any
+    differing element of the kernel's, and a control with none (a gate
+    that would pass the control is blind)."""
+    bad = []
+    for name, r in readings.items():
+        if r["kernel"]:
+            bad.append(f"{name}: {r['kernel']} elements differ from the f32 route, rounded")
+        if not r["control"]:
+            bad.append(f"{name}: the dropped-plane control equals the f32 route, rounded")
+    return bad
+
+
+def product_rounded_control(pq, pk, v, eps, chunk):
+    """Kernel F's forward with a plane dropped from each f32 operand: the
+    twin's chunked arithmetic (``ops/linear_attention.py _fwd_bshe``) on
+    the inputs widened to f32, with the score tile A and the state (S, z)
+    rounded to the inputs' type before their products -> (out, den)
+    rounded to it.  At float32 every rounding is the identity and it is
+    the twin's function.  The control of phase 11's exact gate."""
+    dt = v.dtype
+    rnd = lambda x: x.to(dt).float()
+    q, k, vv = (x.transpose(1, 2).float() for x in (pq, pk, v))       # (B, S, H, E)
+    b, s0, h, e = q.shape
+    pad = (-s0) % chunk
+    q, k, vv = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, vv))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=q.dtype, device=q.device))
+    s_c = torch.zeros((b, h, e, vv.shape[-1]), dtype=q.dtype, device=q.device)
+    z_c = torch.zeros((b, h, e), dtype=q.dtype, device=q.device)
+    outs, dens = [], []
+    for j0 in range(0, q.shape[1], chunk):
+        qb, kb, vb = q[:, j0:j0 + chunk], k[:, j0:j0 + chunk], vv[:, j0:j0 + chunk]
+        a = rnd(torch.einsum("bihe,bjhe->bhij", qb, kb) * mask)
+        num = (torch.einsum("bhij,bjhf->bihf", a, vb)
+               + torch.einsum("bihe,bhef->bihf", qb, rnd(s_c)))
+        den = torch.einsum("bhij->bih", a) + torch.einsum("bihe,bhe->bih", qb, rnd(z_c))
+        outs.append(num / (den + eps)[..., None])
+        dens.append(den)
+        s_c = s_c + torch.einsum("bjhe,bjhf->bhef", kb, vb)
+        z_c = z_c + torch.einsum("bjhe->bhe", kb)
+    out, den = torch.cat(outs, 1)[:, :s0], torch.cat(dens, 1)[:, :s0]
+    return out.transpose(1, 2).to(dt), den.transpose(1, 2).to(dt)
+
+
+def product_exact_readings(fwd, pq, pk, v, eps, got, chunk):
+    """Phase 11's exact gate: kernel F's bf16 forward ``got`` = (out, den)
+    against F's f32 route ``fwd`` (forward_kernel's signature) on the
+    inputs widened, rounded to bf16, bit for bit; the control
+    (product_rounded_control) must differ -> {tensor: {"kernel",
+    "control"}} (differing elements)."""
+    with torch.no_grad():
+        o32, d32 = fwd(*(x.float() for x in (pq, pk, v)), eps)
+        ref = (o32.to(pq.dtype), d32.to(pq.dtype))
+        ctl = product_rounded_control(pq, pk, v, eps, chunk)
+    return {name: {"kernel": bit_diffs(x, r), "control": bit_diffs(c, r)}
+            for name, x, r, c in zip(("out", "den"), got, ref, ctl)}
+
+
+def band_f32_route(fwd, bwd, q, k, v, mask32, window, g):
+    """Kernel E's f32 route (forward_kernel / backward_kernel's signatures)
+    on bf16 q, k, v and dO widened to f32, its out rounded to bf16 and that
+    stored out, widened, handed to the backward as its out (bf16's D =
+    rowsum(dO * O) reads the rounded out) -> (out, dq, dk, dv) rounded to
+    the inputs' type."""
+    with torch.no_grad():
+        wide = [x.float() for x in (q, k, v)]
+        o32, stats = fwd(*wide, mask32, window)
+        out = o32.to(q.dtype)
+        grads = bwd(*wide, mask32, out.float(), stats, g.float(), window)
+    return (out, *(x.to(q.dtype) for x in grads))
+
+
+def band_exact_readings(twk, fwd, bwd, q, k, v, mask32, window, g, got):
+    """Phase 7's exact gate: kernel E's bf16 (out, dq, dk, dv) ``got``
+    against band_f32_route, bit for bit; the control
+    (band_rounded_control: P and dS rounded, a dropped plane of each) must
+    differ -> {tensor: {"kernel", "control"}} (differing elements)."""
+    ref = band_f32_route(fwd, bwd, q, k, v, mask32, window, g)
+    with torch.no_grad():
+        ctl = band_rounded_control(twk, q, k, v, mask32, window, g)
+    return {name: {"kernel": bit_diffs(x, r), "control": bit_diffs(c, r)}
+            for name, x, r, c in zip(("out", "dq", "dk", "dv"), got, ref, ctl)}
 
 
 def as_bf16(tensors):
@@ -5069,8 +5169,19 @@ def main() -> None:
     # E_BF16_GATES, the control (P and dS rounded before their products)
     # above the mean limits
     e16_in = as_bf16(band_inputs())
-    e_read16, e16_out = band_bf16_readings(twk, *e16_in[:3], dms, WIN,
-                                           e16_in[3] * dms[:, None, :, None].bfloat16())
+    g16 = e16_in[3] * dms[:, None, :, None].bfloat16()
+    e_read16, e16_out = band_bf16_readings(twk, *e16_in[:3], dms, WIN, g16)
+    # the exact gate: E's bf16 out and gradients equal, bit for bit, its
+    # f32 route on the widened operands (the stored bf16 out handed to the
+    # backward), rounded to bf16; the control (P and dS rounded, what a
+    # dropped plane of an f32 operand computes) must differ
+    e_exact = band_exact_readings(twk, twk.forward_kernel, twk.backward_kernel, *e16_in[:3], dms,
+                                  WIN, g16, e16_out)
+    print("[window_attn] bf16 against the f32 route rounded, differing elements: " + ", ".join(
+        f"{n} {r['kernel']} of {t.numel()} (control {r['control']})"
+        for (n, r), t in zip(e_exact.items(), e16_out)), flush=True)
+    for msg in exact_gate_failures(e_exact):
+        fail(f"window_attn bf16 exact gate {msg}")
     for name, r in e_read16.items():
         print(f"[window_attn] bf16 {name}: max / mean share {r['kernel'][0]:.3e} / "
               f"{r['kernel'][1]:.3e} (gate {E_BF16_GATES[name][0]:.3e} / "
@@ -5253,6 +5364,18 @@ def main() -> None:
                                       {"control": "the bf16 composition",
                                        "control_f32_route": "F's f32 route"}):
             fail(f"causal_product bf16 {tag} {msg}")
+        # the exact gate: F's bf16 out and den equal, bit for bit, its f32
+        # route on the widened inputs, rounded; the control (A and the
+        # state rounded: a dropped plane of each) must differ
+        with torch.no_grad():
+            got16 = tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps)
+        f_exact = product_exact_readings(tlk.forward_kernel, pq, pk, v_f, cfg.attn_eps, got16,
+                                         CHUNK)
+        print(f"[causal_product] bf16 {tag} against the f32 route rounded, differing elements: "
+              + ", ".join(f"{n} {r['kernel']} of {t.numel()} (control {r['control']})"
+                          for (n, r), t in zip(f_exact.items(), got16)), flush=True)
+        for msg in exact_gate_failures(f_exact):
+            fail(f"causal_product bf16 {tag} exact gate {msg}")
         out_f, den_f = tlk.forward_kernel(pq, pk, v_f, cfg.attn_eps)
         g1 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)
         g2 = tlk.backward_kernel(pq, pk, v_f, out_f, den_f, g_f, cfg.attn_eps)

@@ -1,6 +1,6 @@
 // Tensor-core pieces shared by the bf16 decode routes (decode_chunk_tc.cuh,
 // latency_decode.cu) and the training products (train_gemm_tc.cuh):
-// cp.async copies of 16 bytes into shared memory, TMA copies and the
+// cp.async copies of 16 (or 8) bytes into shared memory, TMA copies and the
 // mbarriers that count them, ldmatrix fragment loads, the m16n8k16 bf16
 // mma with f32 sums, and the programmatic-dependent-launch controls.  Plain C interface; no
 // PyTorch headers.
@@ -25,6 +25,13 @@ __device__ __forceinline__ void cp_async_bytes(void* smem, const void* gmem, int
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
                "r"(bytes));
 }
+// 8 bytes (cp.async.ca: a source aligned to 8 bytes, not 16); pred false
+// fills them with zeros.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool pred) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+  const int n = pred ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(addr), "l"(gmem), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -35,6 +42,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
   const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* smem) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* smem) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
@@ -105,6 +124,15 @@ __device__ __forceinline__ void st2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Whether a (B, H, S, E) view's bf16 rows can go by 16-byte copies (host
+// side, at launch): its base and every stride of a dimension longer than
+// one (t.sb, t.sh, t.ss, in elements) multiples of 8 elements.
+template <class View>
+inline bool copies16(const View& t, int B, int H, int S) {
+  return (uintptr_t)t.p % 16 == 0 && (B == 1 || t.sb % 8 == 0) && (H == 1 || t.sh % 8 == 0) &&
+         (S == 1 || t.ss % 8 == 0);
 }
 
 // c (16x8 f32) += a (16x16 bf16, row) b (16x8 bf16, col)

@@ -19,10 +19,12 @@ suffix (G, gz) for d phi(k), dv).  Every product runs on the tensor cores
 at f32 grade (three bf16 planes an operand, six products a product), and
 nothing is padded or copied; ``chunk`` is the plain twin's.  On bf16
 tensors (JAX's kernel takes any dtype, computes in f32 and returns out and
-den in the inputs' dtype) the tiles are widened to f32 as they are loaded,
-out and den are rounded on store, and the backward forms dnum and dd in
-bf16 arithmetic from the rounded out and den, as ``_bwd_pallas`` does
-outside its kernels; dq, dk, dv are rounded on store.
+den in the inputs' dtype) each tile is copied into one bf16 plane (a bf16
+value is its own hi plane) and a product takes one ``mma.sync`` where both
+operands are bf16, three where one is: the f32 route's bits on the
+widened tensors.  out and den are rounded on store, and the backward forms
+dnum and dd in bf16 arithmetic from the rounded out and den, as
+``_bwd_pallas`` does outside its kernels; dq, dk, dv are rounded on store.
 
 ``causal_product`` takes phi(q), phi(k), v (B, H, S, E) of one type,
 float32 or bfloat16, with a unit last stride and any other strides (the
@@ -31,9 +33,11 @@ copies, and out and the gradients come back in the inputs' layout), E a
 multiple of 4 and at most 64.
 Anything else raises, on every device.  On a CPU tensor it runs
 ``causal_product_plain``; on a CUDA tensor it launches the kernel; any
-other device raises.  The kernel loads 16 bytes at a time, so an input
-whose (batch, head, row) strides are not multiples of 4 or whose base is
-not 16-byte aligned (never the model's) goes in as a contiguous copy.
+other device raises.  The kernel copies four elements at a time or more
+(bf16 tiles go by 16-byte pieces where every stride is a multiple of 8, a
+choice the launch makes), so an input whose (batch, head, row) strides
+are not multiples of 4 or whose base is not 16-byte aligned (never the
+model's) goes in as a contiguous copy.
 
 Counts: ``launches_fwd`` / ``launches_bwd`` the wrapper's eager calls,
 ``cuda_launches`` the CUDA launches they made (1 a call at S <= 64, else

@@ -42,11 +42,13 @@ mask (None = keep all).  Anything else raises, on every device.  On a CPU tensor
 (counted in ``launches_fwd`` / ``launches_bwd``); any other device raises.
 
 bfloat16 (JAX's kernel takes any dtype, computes in f32 and stores out and
-the gradients in the inputs' dtype, lse in f32): the kernel widens each
-tile to f32 as it stages it (a bf16 value is exact in f32, its mid and lo
-planes zeros) and runs the f32 route unchanged, rounding out, dq, dk and
-dv on store; D = rowsum(dO * O) reads the stored, rounded out, as JAX's
-backward does.  The twin on bf16 tensors is ``_PlainBandBf16``.
+the gradients in the inputs' dtype, lse in f32): the kernel copies each
+tile into one bf16 plane (a bf16 value is exact in f32 and its own hi
+plane) and takes one ``mma.sync`` a product where both operands are bf16,
+three where one is (P and dS are f32): the f32 route's bits on the widened
+tensors.  out, dq, dk and dv are rounded on store; D = rowsum(dO * O)
+reads the stored, rounded out, as JAX's backward does.  The twin on bf16
+tensors is ``_PlainBandBf16``.
 """
 
 from __future__ import annotations

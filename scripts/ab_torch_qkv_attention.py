@@ -17,9 +17,12 @@ them, its parts alone: the projection (``project_kernel``) and the
 attention passes forward (``attention_kernel``) and backward
 (``backward_kernel``), as device time; and, as a yardstick for the
 projection, the same product on kernels D and G's ``mma.sync`` tile
-(``ffn_block.tile_product``, f32 out, no bias or phi).  It prints the
-card and one line per run and dtype, then the median of each number per
-checkout.
+(``ffn_block.tile_product``, f32 out, no bias or phi).  The first run of
+each checkout also keeps the attention passes' outputs (att, den and the
+backward's dqkv at both dtypes), and the two checkouts' are compared bit
+for bit: the count of differing elements of each.  It prints the card and
+one line per run and dtype, the comparison, then the median of each
+number per checkout.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 CHILD = r'''
 import json, sys, torch
@@ -60,7 +64,7 @@ def device(fn, reps):
         torch.cuda.synchronize()
     return sum(ev.self_device_time_total for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
-out = {}
+out, keep = {}, {}
 for dt in (torch.float32, torch.bfloat16):
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
@@ -75,6 +79,9 @@ for dt in (torch.float32, torch.bfloat16):
     r.update(host_bwd=events(bwd, 30), dev_bwd=device(bwd, 20))
     att, pqkv, den = tab.forward_kernel(h, w, b, B, H, EPS)
     r["dev_attn_bwd"] = device(lambda: tab.backward_kernel(pqkv, g, att, den, B, H, EPS), 20)
+    if sys.argv[2]:
+        keep[str(dt)[6:]] = [t.cpu() for t in (att, den,
+                                                tab.backward_kernel(pqkv, g, att, den, B, H, EPS))]
     if hasattr(tab, "project_kernel"):
         x = tab.project_kernel(h, w, b)[1]
         r["dev_proj"] = device(lambda: tab.project_kernel(h, w, b), 20)
@@ -82,6 +89,8 @@ for dt in (torch.float32, torch.bfloat16):
     # the same product (no bias, no phi) on kernels D and G's mma.sync tile
     r["dev_mma_sync_tile"] = device(lambda: tfb.tile_product(h, w), 20)
     out[str(dt)[6:]] = r
+if sys.argv[2]:
+    torch.save(keep, sys.argv[2])
 print("RESULT " + json.dumps(out))
 '''
 
@@ -89,14 +98,36 @@ KEYS = ("host_fwd", "host_bwd", "dev_fwd", "dev_bwd", "dev_proj", "dev_attn_fwd"
         "dev_mma_sync_tile")
 
 
-def run(checkout: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(checkout)],
+OUTPUTS = ("att", "den", "dqkv")
+
+
+def run(checkout: str, keep: str = "") -> dict:
+    proc = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(checkout), keep],
                           capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
             return json.loads(line[len("RESULT "):])
     raise RuntimeError(f"{checkout}: no result (rc {proc.returncode})\n{proc.stdout}\n"
                        f"{proc.stderr[-4000:]}")
+
+
+def bit_diffs(x, y) -> int:
+    """Elements whose bits differ (tensors of one shape and type)."""
+    import torch
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return x.numel()
+    it = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    return int((x.contiguous().view(it) != y.contiguous().view(it)).sum())
+
+
+def compare(path_a: str, path_b: str) -> None:
+    import torch
+    ka, kb = torch.load(path_a), torch.load(path_b)
+    for key in ka:
+        diffs = [bit_diffs(x, y) for x, y in zip(ka[key], kb[key])]
+        print(f"bits A vs B {key}: differing elements " + ", ".join(
+            f"{n} {c} of {x.numel()}" for n, c, x in zip(OUTPUTS, diffs, ka[key]))
+            + ("; bit-equal" if not any(diffs) else "; DIFFERENT"), flush=True)
 
 
 def main() -> None:
@@ -106,13 +137,19 @@ def main() -> None:
                          capture_output=True, text=True)
     print(f"card: {smi.stdout.strip()}", flush=True)
     runs = {a: [], b: []}
-    for _ in range(rounds):
-        for ck in (a, b, b, a):
-            res = run(ck)
-            runs[ck].append(res)
-            for dt, r in res.items():
-                print(f"{ck} {dt}: " + ", ".join(f"{k} {r[k]:.4f}" for k in KEYS if k in r),
-                      flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        kept = {}
+        for _ in range(rounds):
+            for ck in (a, b, b, a):
+                keep = "" if ck in kept else os.path.join(tmp, f"{len(kept)}.pt")
+                res = run(ck, keep)
+                if keep:
+                    kept[ck] = keep
+                runs[ck].append(res)
+                for dt, r in res.items():
+                    print(f"{ck} {dt}: " + ", ".join(f"{k} {r[k]:.4f}" for k in KEYS if k in r),
+                          flush=True)
+        compare(kept[a], kept[b])
     print("medians (ms a call):")
     for ck in (a, b):
         for dt in runs[ck][0]:

@@ -322,6 +322,82 @@ def test_band_rounded_control_is_the_twin_at_f32_and_off_it_at_bf16(smoke):
         assert r["control"][1] > smoke.E_BF16_GATES[name][1], name
 
 
+@pytest.mark.parametrize("kernel,control,refused", [
+    (0, 7, False),         # bit-equal, the control seen: passes
+    (1, 7, True),          # one element off the f32 route rounded
+    (0, 0, True),          # a control the gate would pass: blind
+])
+def test_exact_gate_refuses_a_flipped_bit_and_a_blind_control(smoke, kernel, control, refused):
+    """Phases 7 and 11's exact gate: no element of the kernel's differs from
+    the f32 route rounded, and the dropped-plane control differs, or the
+    gate reports it (one message a tensor)."""
+    names = ("out", "dq", "dk", "dv")
+    bad = smoke.exact_gate_failures({n: {"kernel": kernel, "control": control} for n in names})
+    assert len(bad) == (4 if refused else 0), bad
+
+
+def _band_route_twins(twk):
+    """Kernel E's f32 route in the twin's arithmetic on the CPU, with
+    forward_kernel / backward_kernel's signatures: the forward is
+    ``band_plain``; the backward takes the stored out as the kernel does
+    (autograd of ``band_plain`` with lse's cotangent moving dr onto it)."""
+    import torch
+
+    def fwd(q, k, v, mask, window):
+        return twk.band_plain(q, k, v, mask, window)[0], None
+
+    def bwd(q, k, v, mask, out, _stats, g, window):
+        ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            o32, lse = twk.band_plain(*ins, mask, window)
+            c = (g * (o32.detach() - out)).sum(-1)
+            return torch.autograd.grad((o32, lse), ins, (g, c))
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("which", ["F", "E"])
+def test_exact_gate_passes_the_rounded_f32_route_and_refuses_a_dropped_plane(smoke, which):
+    """Phases 7 and 11's exact gate on the twins (the wrappers run them on
+    the CPU): the bf16 route equals the f32 route on the widened inputs,
+    rounded, bit for bit (F: out and den; E: out and the gradients, the
+    stored out handed to the backward); the control, the same arithmetic
+    with a plane dropped from each f32 operand (F: A and the state; E: P
+    and dS), differs in every tensor, and is itself refused as a kernel's
+    result.  At f32 F's control is the twin's function, bit for bit."""
+    import torch
+
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        linear_attention as tla, linear_attention_kernel as tlk, window_attention_kernel as twk)
+    gen = torch.Generator().manual_seed(4)
+    if which == "F":
+        x = [torch.randn((2, 300, 2, 16), generator=gen).transpose(1, 2) for _ in range(3)]
+        pq, pk, v = tla.feature_map(x[0]), tla.feature_map(x[1]), x[2]
+        fwd = lambda q_, k_, v_, eps: tlk._plain_fwd(q_, k_, v_, eps, 128)
+        for a, b in zip(smoke.product_rounded_control(pq, pk, v, 1e-6, 128),
+                        fwd(pq, pk, v, 1e-6)):
+            assert smoke.bit_diffs(a, b) == 0
+        b16 = [t.bfloat16() for t in (pq, pk, v)]
+        got = tlk.causal_product(*b16, 1e-6)
+        readings = smoke.product_exact_readings(fwd, *b16, 1e-6, got, 128)
+        fault = smoke.product_rounded_control(*b16, 1e-6, 128)
+        refault = smoke.product_exact_readings(fwd, *b16, 1e-6, fault, 128)
+    else:
+        q, k, v, g = (torch.randn((2, 2, 300, 16), generator=gen).bfloat16() for _ in range(4))
+        mask = torch.ones((2, 300))
+        mask[0, 230:] = 0.0
+        g = (g.float() * mask[:, None, :, None]).bfloat16()
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = twk.window_attention_band(*ts, mask, 100)
+        got = (out.detach(), *torch.autograd.grad(out, ts, g))
+        fwd, bwd = _band_route_twins(twk)
+        readings = smoke.band_exact_readings(twk, fwd, bwd, q, k, v, mask, 100, g, got)
+        fault = smoke.band_rounded_control(twk, q, k, v, mask, 100, g)
+        refault = smoke.band_exact_readings(twk, fwd, bwd, q, k, v, mask, 100, g, fault)
+    assert not smoke.exact_gate_failures(readings), readings
+    assert all(r["kernel"] == 0 and r["control"] > 0 for r in readings.values()), readings
+    assert len(smoke.exact_gate_failures(refault)) == len(refault), refault
+
+
 @pytest.mark.parametrize("shape", [(32, 8, 512, 64), (1, 8, 50, 64)])
 def test_bf16_bounds_count_two_bytes_an_element(smoke, shape):
     """F's and E's bounds on bf16 tensors: the same operations, half the

@@ -789,6 +789,118 @@ def test_window_attention_bf16_kernel_holds_its_gates(dev, b, h, s, d, window, t
     assert all(torch.equal(x, y) for x, y in zip(g1, g2))
 
 
+def _padded(t, extra=4):
+    """t (B, H, S, D) as a view of rows padded by ``extra`` elements (row
+    stride D + extra: a multiple of 4, not of 8 where D is)."""
+    b, h, s, d = t.shape
+    full = torch.zeros((b, h, s, d + extra), dtype=t.dtype, device=t.device)
+    full[..., :d] = t
+    return full[..., :d]
+
+
+@pytest.mark.gpu
+def test_zero_plane_products_leave_an_f32_sum_bit_equal(dev):
+    """The premise of the bf16 routes of kernels E and F: on bf16-valued
+    operands, a sum taken with the six plane products (mma6: the zero mid
+    and lo planes included) equals, bit for bit, the one with only the
+    products of planes both operands hold (three or one: mma_pl); an
+    mma.sync of a zero operand leaves a nonzero f32 accumulator's bits.
+    Operands span 2^-20 .. 2^20 a row, so the tensor cores truncate what
+    they add.  The control: an f32 operand (nonzero mid and lo planes) read
+    as one plane differs."""
+    import ctypes
+
+    from reinforcement_learning_in_music_generation_torch.ops import _build
+    lib = _build.load("causal_product")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rlmg_causal_product_mma_probe.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.rlmg_causal_product_mma_probe.restype = i
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    n, k = 512, 64
+    scale = lambda *s: torch.exp2(torch.randint(-20, 21, s, generator=gen, device=dev).float())
+    a = torch.randn((n, 16, k), generator=gen, device=dev) * scale(n, 16, 1)
+    b = torch.randn((n, 8, k), generator=gen, device=dev) * scale(n, 8, 1)
+    c0 = torch.randn((n, 16, 8), generator=gen, device=dev) * scale(n, 16, 1)
+
+    def probe(x, y, pa, pb):
+        c = torch.empty_like(c0)
+        rc = lib.rlmg_causal_product_mma_probe(x.data_ptr(), y.data_ptr(), c0.data_ptr(),
+                                               c.data_ptr(), n, k, pa, pb,
+                                               torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        torch.cuda.synchronize()
+        return c.view(torch.int32)
+
+    ab, bb = a.bfloat16().float(), b.bfloat16().float()
+    assert torch.equal(probe(a, b, 0, 3), c0.view(torch.int32))
+    assert torch.equal(probe(a, bb, 3, 3), probe(a, bb, 3, 1))
+    assert torch.equal(probe(ab, b, 3, 3), probe(ab, b, 1, 3))
+    assert torch.equal(probe(ab, bb, 3, 3), probe(ab, bb, 1, 1))
+    assert (probe(a, b, 3, 3) != probe(a, b, 1, 3)).sum() > n * 64
+
+
+# (B, H, S, E, layout): head widths that are multiples of 4 but not of 8
+# (the 8-byte copies), 64 in the model's layout (16-byte copies) and in
+# padded rows (8-byte copies), one tile and several
+EXACT_PRODUCT_CASES = [(2, 3, 130, 20, "bhse"), (2, 2, 67, 36, "bshe"), (1, 8, 50, 64, "bshe"),
+                       (2, 8, 300, 64, "bshe"), (2, 2, 200, 64, "pad"), (3, 2, 40, 36, "pad")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,e,layout", EXACT_PRODUCT_CASES)
+def test_causal_product_bf16_equals_its_f32_route_rounded(dev, b, h, s, e, layout):
+    """Kernel F's bf16 forward (one plane a bf16 tile, one or three
+    products a product) equals, bit for bit, its f32 route on the widened
+    inputs, its out and den rounded to bf16 (chip_smoke phase 11's exact
+    gate); the control (A and the state rounded: a dropped plane of each)
+    differs in both.  Two bf16 backward runs bit-equal."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        linear_attention_kernel as tlk)
+    smoke = _smoke()
+    pq, pk, v, g = _product_inputs(dev, b, h, s, e, "bshe" if layout == "bshe" else "bhse")
+    pq, pk, v, g = (t.bfloat16() for t in (pq, pk, v, g))
+    pq, pk, v, g = (_padded(t) if layout == "pad" else t for t in (pq, pk, v, g))
+    got = tlk.forward_kernel(pq, pk, v, 1e-6)
+    readings = smoke.product_exact_readings(tlk.forward_kernel, pq, pk, v, 1e-6, got, 128)
+    print(f"[gate] causal_product bf16 exact {(b, h, s, e, layout)}: {readings}")
+    assert not smoke.exact_gate_failures(readings), readings
+    g1 = tlk.backward_kernel(pq, pk, v, *got, g, 1e-6)
+    g2 = tlk.backward_kernel(pq, pk, v, *got, g, 1e-6)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+EXACT_BAND_CASES = [(2, 2, 300, 20, 100, 40, "bshd"), (1, 3, 260, 36, 64, 100, "bhsd"),
+                    (2, 2, 200, 64, 50, 17, "bshd"), (1, 2, 330, 64, 300, 0, "pad"),
+                    (2, 2, 140, 36, 16, 70, "pad")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d,window,tail,layout", EXACT_BAND_CASES)
+def test_window_attention_bf16_equals_its_f32_route_rounded(dev, b, h, s, d, window, tail,
+                                                             layout):
+    """Kernel E's bf16 forward and backward (one plane a bf16 tile, one or
+    three products a product) equal, bit for bit, its f32 route on the
+    widened operands, rounded to bf16, the stored bf16 out handed to the
+    f32 backward (chip_smoke phase 7's exact gate), and the row statistics
+    equal the f32 route's; the control (P and dS rounded: a dropped plane
+    of each) differs in every tensor."""
+    from reinforcement_learning_in_music_generation_torch.ops import (
+        window_attention_kernel as twk)
+    smoke = _smoke()
+    q, k, v, mask, g = _band_inputs(dev, b, h, s, d, tail, "bshd" if layout == "bshd" else "bhsd")
+    q, k, v, g = (t.bfloat16() for t in (q, k, v, g))
+    q, k, v, g = (_padded(t) if layout == "pad" else t for t in (q, k, v, g))
+    out, stats = twk.forward_kernel(q, k, v, mask, window)
+    got = (out, *twk.backward_kernel(q, k, v, mask, out, stats, g, window))
+    readings = smoke.band_exact_readings(twk, twk.forward_kernel, twk.backward_kernel, q, k, v,
+                                         mask, window, g, got)
+    print(f"[gate] window_attention bf16 exact {(b, h, s, d, window, tail, layout)}: {readings}")
+    assert not smoke.exact_gate_failures(readings), readings
+    stats32 = twk.forward_kernel(q.float(), k.float(), v.float(), mask, window)[1]
+    assert smoke.bit_diffs(stats, stats32) == 0
+
+
 @pytest.mark.gpu
 def test_window_attention_kernel_is_deterministic(dev):
     """No atomics: two backward launches give bit-equal gradients."""
