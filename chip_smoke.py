@@ -232,22 +232,30 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      one head of 512 (5 songs, 8 bars, CP sampling, bf16, the default env)
      reaches v3 and never kernel A, every token in its vocabulary; tokens/s
      printed beside kernel A's at 8 heads;
- 27. v1 and v2 (the same source) through ``fused_decode_step`` at full
-     width, B=32, 16 tokens, f32: h and state within 1e-4 of their
-     magnitude against the plain twins, one wrapper call a layer;
+ 27. v1 (csrc/decode_aug.cu's passes) and v2 (A's token kernel a layer,
+     the tanh gelu) through ``fused_decode_step`` at full width, B=32, 16
+     tokens, f32: h and state within 1e-4 of their magnitude against the
+     plain twins, one wrapper call a layer; v2 one CUDA launch a call and
+     one a layer's packing, its kernel's runs one a call; v2's h gate
+     (rtol = atol = 1e-4) against the exact gelu at f32 and bf16 layers
+     (``control_gate_failures``: v2 within it, the same tokens with each
+     layer on v3's token kernel above it);
  28. v5 (csrc/latency_decode.cu): its main path, the parity (B=8, T=64,
      bf16 and f32 weights) and perf (B=256, T=128, bb 8, 16, 32) modes of
      scripts/profile_torch_decode_v5.py, launches the kernel, every token in
      range, the f32 greedy stream >= 99% equal to the per-step path's (the
      bf16 one is printed: that reference rounds its activations to bf16);
-     against its plain twin at B=8, bf16 weights, 64 one-token calls
-     each from the twin's state, greedy and CP sampling with one seed:
-     >= 99% of the tokens equal, and after the same 64 fed tokens the
-     states within 1e-3 of their magnitude; bb=16 at B=8 refused;
+     against its plain twin at B=8, bf16 and f32 weights, 64 one-token
+     calls each from the twin's state, greedy and CP sampling with one
+     seed: >= 99% of the tokens equal, and after the same 64 fed tokens the
+     states within 1e-3 of their magnitude; HMMA in both instantiations of
+     v5's kernel and of v2's token kernel (cuobjdump); bb=16 at B=8
+     refused;
  29. times v3 (B=5 at one head; B=5, 32, 128 at 8 heads), v1 and v2 (one
      layer, B=32) and v5 (B=8; B=256 at bb 8, 16, 32) beside their plain
      twins, kernel A (and v8) at the same B, the launches a token read from
-     the counters and the bound (operations at the bf16 peak for v5);
+     the counters and the bound (operations at the bf16 peak for v5, at
+     989/6 for v2's f32-grade products);
  30. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
      beside the library call (and its device time under the profiler);
@@ -685,6 +693,25 @@ def max_err(a, b) -> float:
 
 def magnitude(t) -> float:
     return max(1.0, t.float().abs().max().item())
+
+
+def gate_excess(x, ref, rtol: float, atol: float) -> float:
+    """max |x - ref| / (atol + rtol |ref|): at most 1 where
+    torch.testing.assert_close(x, ref, rtol=rtol, atol=atol) passes."""
+    x, ref = x.float(), ref.float()
+    return ((x - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+def control_gate_failures(tag: str, kernel: float, control: float) -> list:
+    """A gate's readings as multiples of it (``gate_excess``): the kernel
+    within the gate, and a control that computes something else (v2's layer
+    on the exact gelu) above it, else the gate is blind to that fault."""
+    fails = []
+    if not kernel <= 1.0:
+        fails.append(f"{tag}: the kernel at {kernel:.3g} of the gate")
+    if not control > 1.0:
+        fails.append(f"{tag}: the control at {control:.3g} of the gate: the gate is blind to it")
+    return fails
 
 
 def named_leaves(tree, prefix=""):
@@ -1606,7 +1633,7 @@ def latency_slice(cfg, params, dev, gen) -> list:
 
 def aug_slice(cfg, params, dev, gen) -> list:
     """Phases 25-29: v3 (csrc/decode_aug.cu) against its plain twin and on
-    its main path, odd-head ``generate_songs``; v1 and v2 (the same source)
+    its main path, odd-head ``generate_songs``; v1 and v2 (v3's source)
     through ``fused_decode_step``; v5 (csrc/latency_decode.cu) on its main
     path, ``scripts/profile_torch_decode_v5.py``'s parity and perf modes,
     and against its plain twin; then their times.  Returns the four entries
@@ -1742,7 +1769,12 @@ def aug_slice(cfg, params, dev, gen) -> list:
           f"{rates['A']:.1f}; v3's runs a token {v3_runs_per_token:g}", flush=True)
 
     # -- 27. v1 and v2 through fused_decode_step, B=32, 16 tokens, f32 --------
+    # v2 runs A's token kernel a layer (the tanh gelu): its layers are packed
+    # by one launch at their first call, then one launch a call
     layer_err, layer_launch = {}, {}
+    dk._V2_CACHE.clear()
+    dk.fused_layer_step_v2.packs = 0
+    dk.kernel_runs_v2(reset=True)
     for variant, fn, plain in (("v1", dk.fused_layer_step, dk.fused_layer_step_plain),
                                ("v2", dk.fused_layer_step_v2, dk.fused_layer_step_v2_plain)):
         b = 32
@@ -1768,6 +1800,49 @@ def aug_slice(cfg, params, dev, gen) -> list:
               f"CUDA launches {fn.cuda_launches}", flush=True)
         check(h_err <= 1e-4 and s_err <= 1e-4, f"{variant}: h {h_err}, state {s_err}")
         check(fn.launches == 16 * L, f"{variant}: {fn.launches} calls, expected {16 * L}")
+    v2_runs = dk.kernel_runs_v2()
+    v2 = dk.fused_layer_step_v2
+    print(f"[v2] {v2.packs} packings (one a layer), {v2.cuda_launches} CUDA launches for "
+          f"{v2.launches} calls, {v2_runs} token-kernel runs as the kernel counts them", flush=True)
+    check(v2.packs == L and v2.cuda_launches == v2.launches + v2.packs and v2_runs == v2.launches,
+          f"v2: {v2.cuda_launches} CUDA launches, {v2.packs} packings, {v2_runs} runs for "
+          f"{v2.launches} calls; expected one a call and one a layer's packing")
+    # the v2 gate (test_layer_kernels_match_plain's h gate, rtol = atol = 1e-4)
+    # against the exact gelu: the same five tokens with each layer on v3's
+    # token kernel (v2's layer with gelu_exact) must land above it
+    v2_gate = {}
+    for wname, prm in (("float32", params),
+                       ("bfloat16 layers", dict(params, layers={
+                           k: {kk: vv.to(bf16) for kk, vv in v.items()}
+                           for k, v in params["layers"].items()}))):
+        v3l = dk3.make_v3_params(prm, cfg, dtype=prm["layers"]["wq"]["w"].dtype)
+        toks = rand_tokens(5, 4)
+        kw = dict(n_head=H, eps=cfg.attn_eps)
+
+        def run(step):
+            s = dk.aug_state_init(cfg, 4, dev)
+            for t in range(5):
+                h = lt.embed_input(prm, cfg, toks[t], t, None)
+                for li in range(L):
+                    h = step(h, layer(li, prm), s[li], li)
+                h = cm.layernorm(prm["final_ln"], h)
+            return h
+        c0, p0 = v2.cuda_launches, v2.packs
+        hk = run(lambda h, lp, s, li: dk.fused_layer_step_v2(h, lp, s, **kw)[0])
+        launches = (v2.cuda_launches - c0, v2.packs - p0)
+        hp = run(lambda h, lp, s, li: dk.fused_layer_step_v2_plain(h, lp, s, **kw)[0])
+        hc = run(lambda h, lp, s, li: dk3.fused_stack_step(
+            {k: v[li:li + 1] for k, v in v3l.items()}, h.float().contiguous(), s[None],
+            **kw)[0].clone())
+        torch.cuda.synchronize()
+        k_ex, c_ex = gate_excess(hk, hp, 1e-4, 1e-4), gate_excess(hc, hp, 1e-4, 1e-4)
+        v2_gate[wname] = {"kernel": k_ex, "exact_gelu_control": c_ex}
+        print(f"[v2] {wname} weights, B=4, 5 tokens: h against the twin at {k_ex:.3g} of the "
+              f"1e-4 gate, the exact-gelu control at {c_ex:.3g}; CUDA launches and packings "
+              f"{launches} for {5 * L} calls", flush=True)
+        fails = control_gate_failures(f"v2 {wname}", k_ex, c_ex)
+        check(not fails, "; ".join(fails))
+        check(launches == (5 * L + L, L), f"v2 {wname}: launches and packings {launches}")
 
     # -- 28. v5: its main path, then against its plain twin -------------------
     spec = importlib.util.spec_from_file_location(
@@ -1795,36 +1870,60 @@ def aug_slice(cfg, params, dev, gen) -> list:
     check(all(r["stochastic_in_range"] for r in par.values())
           and all(r["in_range"] for r in prf["by_bb"].values()),
           "v5: a token outside its vocabulary")
-    v5p = dk5.make_v5_params(p16, cfg)
     pe = cm.sinusoidal_table(cfg.max_len, D, f32, dev)
     b = 8
     toks = rand_tokens(64, b)
     v5_err = 0.0
-    for greedy in (True, False):
-        kw = dict(n_head=H, max_tokens=1, greedy=greedy, eps=cfg.attn_eps, **modes[greedy])
-        st = lt.init_decode_state(cfg, b, device=dev)
-        s_own, z_own = dk5.pack_state(st.s, st.z)
-        sp, zp = dk5.pack_state(st.s, st.z)
-        agree = 0
-        for t in range(64):
-            s_tf, z_tf = sp.clone(), zp.clone()       # a call from the plain twin's state
-            ok = dk5.fused_decode_v5(v5p, toks[t], s_tf, z_tf, pe[t:t + 1], 17 + t, bb=8,
-                                     vocab_sizes=cfg.vocab_sizes, **kw)[0]
-            dk5.fused_decode_v5(v5p, toks[t], s_own, z_own, pe[t:t + 1], 17 + t, bb=8,
-                                vocab_sizes=cfg.vocab_sizes, **kw)
-            op = dk5.fused_decode_v5_plain(v5p, toks[t], sp, zp, pe[t:t + 1], 17 + t, **kw)[0]
-            agree += (ok == op).sum().item()
-            check(bool(((ok >= 0) & (ok < vocab)).all()), "v5: a token outside its vocabulary")
-        torch.cuda.synchronize()
-        frac = agree / (64 * b * FIELDS)
-        ds = max(max_err(s_own, sp) / magnitude(sp), max_err(z_own, zp) / magnitude(zp))
-        v5_err = max(v5_err, max_err(s_own, sp))
-        mode = "greedy" if greedy else "CP sampling, one seed"
-        print(f"[v5] B={b}, bf16 weights, f32 state, 64 tokens, {mode}: teacher-forced "
-              f"agreement with the plain twin {frac:.4%}; state after the same 64 fed tokens "
-              f"max|ds| / magnitude {ds:.3e}", flush=True)
-        check(frac >= 0.99, f"v5 {mode}: agreement {frac} < 99%")
-        check(ds <= 1e-3, f"v5 {mode}: state differs by {ds} of its magnitude")
+    for wdt in (bf16, f32):
+        v5p = dk5.make_v5_params(p16 if wdt == bf16 else params, cfg, dtype=wdt)
+        for greedy in (True, False):
+            kw = dict(n_head=H, max_tokens=1, greedy=greedy, eps=cfg.attn_eps, **modes[greedy])
+            st = lt.init_decode_state(cfg, b, device=dev)
+            s_own, z_own = dk5.pack_state(st.s, st.z)
+            sp, zp = dk5.pack_state(st.s, st.z)
+            agree = 0
+            for t in range(64):
+                s_tf, z_tf = sp.clone(), zp.clone()       # a call from the plain twin's state
+                ok = dk5.fused_decode_v5(v5p, toks[t], s_tf, z_tf, pe[t:t + 1], 17 + t, bb=8,
+                                         vocab_sizes=cfg.vocab_sizes, **kw)[0]
+                dk5.fused_decode_v5(v5p, toks[t], s_own, z_own, pe[t:t + 1], 17 + t, bb=8,
+                                    vocab_sizes=cfg.vocab_sizes, **kw)
+                op = dk5.fused_decode_v5_plain(v5p, toks[t], sp, zp, pe[t:t + 1], 17 + t, **kw)[0]
+                agree += (ok == op).sum().item()
+                check(bool(((ok >= 0) & (ok < vocab)).all()), "v5: a token outside its vocabulary")
+            torch.cuda.synchronize()
+            frac = agree / (64 * b * FIELDS)
+            ds = max(max_err(s_own, sp) / magnitude(sp), max_err(z_own, zp) / magnitude(zp))
+            v5_err = max(v5_err, max_err(s_own, sp))
+            mode = "greedy" if greedy else "CP sampling, one seed"
+            print(f"[v5] B={b}, {str(wdt)[6:]} weights, f32 state, 64 tokens, {mode}: "
+                  f"teacher-forced agreement with the plain twin {frac:.4%}; state after the "
+                  f"same 64 fed tokens max|ds| / magnitude {ds:.3e}", flush=True)
+            check(frac >= 0.99, f"v5 {str(wdt)[6:]} {mode}: agreement {frac} < 99%")
+            check(ds <= 1e-3, f"v5 {str(wdt)[6:]} {mode}: state differs by {ds} of its magnitude")
+    v5p = dk5.make_v5_params(p16, cfg)
+    # every product of v5 (and of v2's token kernel) on the tensor cores:
+    # HMMA in each instantiation's SASS
+    v5_hmma, v2_hmma = {}, {}
+    cuobj = cuobjdump_path()
+    if cuobj is not None:
+        from reinforcement_learning_in_music_generation_torch.ops import _build
+        for lib, marker, out in (("latency_decode", "decode_v5_kernel", v5_hmma),
+                                 ("decode_aug", "stack_tc_kernel", v2_hmma)):
+            sass = subprocess.run([cuobj, "-sass", str(_build._target(lib))],
+                                  capture_output=True, text=True).stdout
+            out.update({k: n for k, n in mma_counts(sass, marker).items()
+                        if lib == "latency_decode" or k.endswith("Lb1ELb1EEEvNS_11StackTcArgsE")})
+        print(f"[v5] HMMA in decode_v5_kernel's instantiations {v5_hmma}; in v2's token kernel "
+              f"(the tanh gelu's) {v2_hmma}", flush=True)
+        check(len(v5_hmma) == 2 and min(v5_hmma.values()) > 0,
+              f"v5: HMMA counts {v5_hmma}")
+        check(len(v2_hmma) == 2 and min(v2_hmma.values()) > 0, f"v2: HMMA counts {v2_hmma}")
+    else:
+        print("[v5] no cuobjdump: the HMMA count is not read", flush=True)
+    kw = dict(n_head=H, max_tokens=1, greedy=True, eps=cfg.attn_eps, **modes[True])
+    st = lt.init_decode_state(cfg, b, device=dev)
+    s_own, z_own = dk5.pack_state(st.s, st.z)
     try:
         dk5.fused_decode_v5(v5p, toks[0], s_own, z_own, pe, 0, bb=16,
                             vocab_sizes=cfg.vocab_sizes, **kw)
@@ -1878,11 +1977,13 @@ def aug_slice(cfg, params, dev, gen) -> list:
         pms = time_ms(lambda: plain(h32, lp, s1, n_head=H), 5)
         ops, nb = decode_token_work(b, 1, D, DI, w_bytes=4,
                                     state_bytes=aug_state_bytes(b, 1, D, H))
-        bd, by = bound(nb, ops)
+        # v2's products at f32 grade on the tensor cores (six bf16 products
+        # a product with f32 weights); v1's SIMT f32 FMAs
+        bd, by = bound(nb, ops, SPLIT_BF16_FLOPS if variant == "v2" else F32_FLOPS)
         tl[variant] = {"ms": ms, "plain_ms": pms, "kernel_a_ms_per_layer": a32,
                        "cuda_launches_per_call": per_call, "bound_ms": bd, "bound_by": by}
         print(f"[time] {variant} one layer, B={b}, f32 weights: {ms:.4f} ms a call "
-              f"({per_call:g} CUDA launches, the per-call weight layout included), plain "
+              f"({per_call:g} CUDA launches a call, the packing included), plain "
               f"{pms:.3f}, kernel A's layer stack / L {a32:.4f} (f32 state); bound {bd:.4f} "
               f"({by})", flush=True)
     t5 = {}
@@ -1942,17 +2043,21 @@ def aug_slice(cfg, params, dev, gen) -> list:
          "tokens_per_s_generate_songs": {"v3, one head": rates["v3"],
                                          f"kernel A, {H} heads": rates["A"]}},
     ]
-    for variant, line in (("v1", 91), ("v2", 186)):
+    for variant, line, source in (("v1", 91, "decode_aug.cu"), ("v2", 186, "decode_stack_tc.cuh")):
         r = tl[variant]
-        entries.append({
-            "name": f"decode_layer_{variant}", "route": "cuda", "source": f"{pkg}/csrc/decode_aug.cu",
+        entry = {
+            "name": f"decode_layer_{variant}", "route": "cuda", "source": f"{pkg}/csrc/{source}",
             "replaces": f"{tpu}/experimental/decode_kernel.py:{line}",
             "launches": layer_launch[variant][0],
             "cuda_launches_per_call": r["cuda_launches_per_call"],
             "max_abs_err": layer_err[variant], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "kernel_a_ms_per_layer": r["kernel_a_ms_per_layer"],
-            "unit": "ms per layer call of B=32 songs, f32 weights and state"})
+            "unit": "ms per layer call of B=32 songs, f32 weights and state"}
+        if variant == "v2":
+            entry.update(entry_point=f"{pkg}/csrc/decode_aug.cu", packings=L,
+                         token_kernel_runs=v2_runs, hmma=v2_hmma, gelu_gate=v2_gate)
+        entries.append(entry)
     head5 = t5[(256, 8)]
     entries.append({
         "name": "decode_v5", "route": "cuda", "source": f"{pkg}/csrc/latency_decode.cu",
@@ -1960,6 +2065,7 @@ def aug_slice(cfg, params, dev, gen) -> list:
         "launches_per_token": v5_launches / max(1, v5_positions), "max_abs_err": v5_err,
         "ms": head5["ms"], "plain_ms": head5["plain_ms"], "bound_ms": head5["bound_ms"],
         "bound_by": head5["bound_by"], "library_ms": None, "kernel_a_ms": head5["kernel_a_ms"],
+        "hmma": v5_hmma,
         "unit": "ms per token of B=256 songs, bb 8, bf16 weights, f32 state, 32-token calls",
         "by_shape": {f"B={b} bb={bb}": r for (b, bb), r in t5.items()},
         "profile_parity": par, "profile_perf": prf})
@@ -4552,8 +4658,10 @@ def main() -> None:
                           for k, n in mma_counts(sass.stdout, "stack_tc_kernel").items()})
     print(f"[decode_step] HMMA instructions in the token kernel's instantiations (A: "
           f"decode_step, v3: decode_aug): {stack_mma}", flush=True)
+    # bf16-weight instantiations: A's two (bf16 and f32 state), v3's and
+    # v2's (the tanh gelu's) in decode_aug
     stack_bf16 = {k: n for k, n in stack_mma.items() if "stack_tc_kernelI13__nv_bfloat16" in k}
-    check(len(stack_bf16) == 3 and all(n > 0 for n in stack_bf16.values()),
+    check(len(stack_bf16) == 4 and all(n > 0 for n in stack_bf16.values()),
           f"decode_step / v3: no tensor-core instructions in the bf16-weight kernels "
           f"{stack_bf16}")
 
@@ -6481,9 +6589,9 @@ def main() -> None:
                               for k, v in p_cmp.items()}},
     ] + lat_entries + aug_entries
     for e in kernels:                                        # v3's share of the SASS count
-        if e["name"] == "decode_step_v3":
+        if e["name"] == "decode_step_v3":                    # (v2's are the tanh gelu's)
             e["hmma"] = {k.split(":")[1][:60]: n for k, n in stack_mma.items()
-                         if k.startswith("decode_aug")}
+                         if k.startswith("decode_aug") and "Lb1ELb1E" not in k}
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -145,10 +145,8 @@ __device__ __forceinline__ int sample_logit(float x, const FieldArgs& fa, int b,
 
 // The token of field f for song b from h_b (D, before the final LN), by a
 // block of VF_PAD threads (thread v owns logit v); returned to every
-// thread.  hf: D floats of shared memory; red, redi: 32 each.  ROUND: the
-// head product's input rounded to the weights' type first (v5's and v6's
-// arithmetic; kernels A and B take it unrounded).
-template <typename TW, bool ROUND = false>
+// thread.  hf: D floats of shared memory; red, redi: 32 each.
+template <typename TW>
 __device__ __forceinline__ int heads_sample_row(const float* h_b, const float* __restrict__ fls,
                                                 const float* __restrict__ flb,
                                                 const TW* __restrict__ hw,
@@ -160,10 +158,7 @@ __device__ __forceinline__ int heads_sample_row(const float* h_b, const float* _
   for (int i = v; i < D; i += blockDim.x) hf[i] = __ldcg(h_b + i);
   __syncthreads();
   ln_row(hf, D, 1e-5f, red);
-  for (int i = v; i < D; i += blockDim.x) {
-    const float x = hf[i] * fls[i] + flb[i];
-    hf[i] = ROUND ? ld_round<TW>(x) : x;
-  }
+  for (int i = v; i < D; i += blockDim.x) hf[i] = hf[i] * fls[i] + flb[i];
   __syncthreads();
   const int ncol = NF * VF_PAD, col = f * VF_PAD + v;
   float acc = 0.f;

@@ -1,9 +1,11 @@
 // One decode token through every layer in one cooperative launch, its
 // products on the tensor cores at f32 grade: kernel A (decode_step.cu, the
 // counterpart of reinforcement_learning_in_music_generation_tpu/ops/
-// decode_kernel_v4.py fused_stack_step_v4) and v3 (decode_aug.cu, of
-// ops/decode_kernel_v3.py fused_stack_step) share it.  Plain C interface
-// through the sources; no PyTorch headers.
+// decode_kernel_v4.py fused_stack_step_v4), v3 (decode_aug.cu, of
+// ops/decode_kernel_v3.py fused_stack_step) and v2 (decode_aug.cu, of
+// ops/experimental/decode_kernel.py fused_layer_step_v2: one layer, the
+// tanh gelu, TANH below) share it.  Plain C interface through the sources;
+// no PyTorch headers.
 //
 // Arithmetic: the TPU kernels' own.  Activations stay f32; the weights, bf16
 // or f32, are cast up; every sum is f32; the state is accumulated in f32
@@ -35,7 +37,7 @@
 //       E of the augmented state for v3; else the state item did it), then
 //       items of att @ Wo with r1 = (hres + acc) + bo.
 //   F1  LN1 of r1 formed in shared memory (column group 0 writes h1); y =
-//       gelu_exact(h1 @ W1 + b1).
+//       gelu_exact(h1 @ W1 + b1) (v2: the tanh gelu).
 //   F2  r2 = h1 + (y @ W2 + b2).
 // After the last layer the blocks form h_out = LN2 of r2.
 // Within an item the 16 warps split the NT column tiles and K, and the
@@ -117,8 +119,10 @@ __device__ unsigned long long sk_marks[SK_MAX_L * SK_MARKS][SK_MAX_G];
 
 // Launches of the token kernel that ran to their end, counted by the
 // kernel: block 0's thread 0 adds 1 as a launch ends.  One counter a
-// library (decode_step: A, decode_aug: v3), read by stack_tc_runs.
+// library and gelu (decode_step: A; decode_aug: v3, and v2 on the tanh
+// gelu's), read by stack_tc_runs.
 __device__ unsigned long long sk_runs;
+__device__ unsigned long long sk_runs_tanh;
 
 enum { SK_Q = 0, SK_O = 1, SK_F1 = 2, SK_F2 = 3 };
 // vectors, each stacked over L: qkv bias (3D), Wo bias, LN1 scale / shift,
@@ -324,8 +328,9 @@ __device__ void sk_stage(const StackTcArgs& a, const SkProd& p, int rt, float* a
 constexpr int SK_EPI = SK_WARPS * 128 / SK_THREADS;   // outputs a thread, at most
 
 // One product phase.  red: SK_WARPS x 128 floats of shared memory; lnv: 2
-// pad32(D); wsm: SK_WARPS x SK_WSMEM bytes.
-template <typename TW, typename TV>
+// pad32(D); wsm: SK_WARPS x SK_WSMEM bytes.  TANH: FFN1's gelu is the tanh
+// approximation (v2) instead of gelu_exact (A, v3).
+template <typename TW, typename TV, bool TANH>
 __device__ void sk_product(const StackTcArgs& a, int ph, int l, float* as, float* red,
                            float* lnv, uint4* wsm) {
   constexpr int U = sizeof(TW) / 2;            // 16-byte pieces a lane a chunk
@@ -449,7 +454,7 @@ __device__ void sk_product(const StackTcArgs& a, int ph, int l, float* as, float
       } else if (ph == SK_O) {
         a.r1[mi * a.D + n] = (er[e] + v) + eb[e];
       } else if (ph == SK_F1) {
-        a.y[mi * a.DI + n] = gelu_exact(v + eb[e]);
+        a.y[mi * a.DI + n] = TANH ? gelu_tanh(v + eb[e]) : gelu_exact(v + eb[e]);
       } else {
         a.r2[mi * a.D + n] = er[e] + (v + eb[e]);
       }
@@ -592,7 +597,7 @@ __device__ void sk_z_update(const StackTcArgs& a, int l) {
 }
 
 
-template <typename TW, typename TV, typename TS, bool AUG>
+template <typename TW, typename TV, typename TS, bool AUG, bool TANH = false>
 __global__ void __launch_bounds__(SK_THREADS, 1) stack_tc_kernel(StackTcArgs a) {
   extern __shared__ __align__(16) float sk_smem[];
   cgs::grid_group grid = cgs::this_grid();
@@ -603,22 +608,22 @@ __global__ void __launch_bounds__(SK_THREADS, 1) stack_tc_kernel(StackTcArgs a) 
   float* lnv = red + SK_WARPS * 128;
   for (int l = 0; l < a.L; ++l) {
     SK_MARK(l, 0);
-    sk_product<TW, TV>(a, SK_Q, l, as, red, lnv, wsm);
+    sk_product<TW, TV, TANH>(a, SK_Q, l, as, red, lnv, wsm);
     SK_MARK(l, 1);
     sk_state<TS, AUG>(a, l, as);
     SK_MARK(l, 2);
     grid.sync();
     SK_MARK(l, 3);
     sk_z_update<TS, AUG>(a, l);
-    sk_product<TW, TV>(a, SK_O, l, as, red, lnv, wsm);
+    sk_product<TW, TV, TANH>(a, SK_O, l, as, red, lnv, wsm);
     SK_MARK(l, 4);
     grid.sync();
     SK_MARK(l, 5);
-    sk_product<TW, TV>(a, SK_F1, l, as, red, lnv, wsm);
+    sk_product<TW, TV, TANH>(a, SK_F1, l, as, red, lnv, wsm);
     SK_MARK(l, 6);
     grid.sync();
     SK_MARK(l, 7);
-    sk_product<TW, TV>(a, SK_F2, l, as, red, lnv, wsm);
+    sk_product<TW, TV, TANH>(a, SK_F2, l, as, red, lnv, wsm);
     SK_MARK(l, 8);
     grid.sync();
   }
@@ -646,7 +651,7 @@ __global__ void __launch_bounds__(SK_THREADS, 1) stack_tc_kernel(StackTcArgs a) 
   }
   if (blockIdx.x == 0) {                       // every wait of this launch is over
     for (int i = threadIdx.x; i < (a.B + SK_ROWS - 1) / SK_ROWS; i += SK_THREADS) a.cnt[i] = 0;
-    if (threadIdx.x == 0) atomicAdd(&sk_runs, 1ull);
+    if (threadIdx.x == 0) atomicAdd(TANH ? &sk_runs_tanh : &sk_runs, 1ull);
   }
 }
 
@@ -687,14 +692,17 @@ inline StackTcArgs stack_tc_args(const void* const* w, const void* const* v, voi
   return a;
 }
 
-// sk_runs since the last reset (waits for the card); reset zeroes it
-// after the read.  A negative value is minus a CUDA error code.
-inline long long stack_tc_runs(int reset) {
+// sk_runs (tanh: sk_runs_tanh) since the last reset (waits for the card);
+// reset zeroes it after the read.  A negative value is minus a CUDA error
+// code.
+inline long long stack_tc_runs(int reset, bool tanh = false) {
   unsigned long long n = 0;
-  cudaError_t e = cudaMemcpyFromSymbol(&n, sk_runs, sizeof n);
+  cudaError_t e = tanh ? cudaMemcpyFromSymbol(&n, sk_runs_tanh, sizeof n)
+                       : cudaMemcpyFromSymbol(&n, sk_runs, sizeof n);
   if (e == cudaSuccess && reset) {
     const unsigned long long zero = 0;
-    e = cudaMemcpyToSymbol(sk_runs, &zero, sizeof zero);
+    e = tanh ? cudaMemcpyToSymbol(sk_runs_tanh, &zero, sizeof zero)
+             : cudaMemcpyToSymbol(sk_runs, &zero, sizeof zero);
   }
   return e == cudaSuccess ? (long long)n : -(long long)e;
 }
@@ -719,9 +727,9 @@ inline bool stack_tc_shape_ok(int D, int H, int DI) {
 
 // One launch: a token through all L layers.  Fills a.nt, sets the launch
 // grid (one block an SM) and returns 0 or a CUDA error code.
-template <typename TW, typename TV, typename TS, bool AUG>
+template <typename TW, typename TV, typename TS, bool AUG, bool TANH = false>
 int stack_tc_launch(StackTcArgs a, cudaStream_t st) {
-  auto kern = stack_tc_kernel<TW, TV, TS, AUG>;
+  auto kern = stack_tc_kernel<TW, TV, TS, AUG, TANH>;
   const size_t smem = stack_tc_smem_bytes(a.D, a.DI);
   // the function's shared-memory limit and the residency check, once an
   // instantiation and size (the first call is an eager one; a capture then

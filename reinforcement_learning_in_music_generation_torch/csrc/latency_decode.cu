@@ -16,9 +16,10 @@
 // FFN2 and the heads: decode_kernel_v8.py :245 :269 :273 :276 :283, v7 :129
 // :154 :158 :161 :168, v5 :276 :329 :335 :338 :382); v8 and v7 also store
 // the folded embedding rows in the weights' type (make_resident_params
-// :137), v5 keeps them f32.  So do these kernels (ld_round); the biases,
-// phi, the state update, den, gelu, the residuals, the LayerNorms and the
-// sampling stay f32.  With f32 weights every rounding is a no-op.
+// :137), v5 keeps them f32.  So do these kernels (v8 and v7 by ld_round,
+// v5 by storing each product's input in bf16); the biases, phi, the state
+// update, den, gelu, the residuals, the LayerNorms and the sampling stay
+// f32.  With f32 weights every rounding is a no-op.
 //
 // v8 and v7 share one set of device functions (the lp_* phases below) and
 // differ only in how much of them one launch runs:
@@ -99,17 +100,29 @@
 // barriers and the latency of each phase's activation reads set the time
 // at B <= 16, not the bytes.
 //
-// v5 keeps its own SIMT phases (v5_* below): per token the embedding, per
-// layer the qkv product (64 x 64 tiles, partial sums), the state update and
-// Wo product per (song, head), LN1, the two FFN products, LN2, then the
-// heads and the sampling, separated by grid barriers, with the f32 state in
-// device memory in v5's layout, S (L, B, E, H E) and z (L, B, H E), read
-// and written every token (at B=256 it cannot stay on chip).  A product
-// item carries bb songs (8, 16 or 32, dividing B), the counterpart of the
-// TPU kernel's bb-song state blocks.  At B=256 the f32 state binds, 2 x 410
-// MB a token (0.27 ms at 3.35 TB/s); its 19.7 GFLOP a token are bf16
-// products (0.02 ms at the tensor cores' 989 TFLOP/s), here f32 FMAs
-// outside the tensor cores, which alone take 0.29 ms at 67 TFLOP/s.
+// v5 (v5_* below) runs every product on the tensor cores in its one
+// cooperative launch a call: per token the embedding rows, per layer the
+// qkv product, the state items, the Wo product, the LN1 rows, the two FFN
+// products and the LN2 rows (after the last layer the final LN), then the
+// heads product and the sampling, a grid barrier after each (7 L + 3 a
+// token).  Every product is one batch product of the whole batch's rows,
+// in items of (16, 32 or 64 songs, 64 columns) over the whole K, or over
+// 2 or 4 depth slices where the tiles alone would leave more than half of
+// the grid idle (the reading phase adds the slices in order), on
+// mma.sync.m16n8k16, its operands staged by cp.async through a ring of
+// stages; each product's input is formed once, by the phase before it,
+// and stored as bf16 planes (one with bf16 weights: JAX v5's cast, :276
+// :329 :335 :338 :382; three with f32 weights: f32 grade, the weights'
+// planes built once by make_v6_params).  The f32 state lives in device
+// memory in v5's layout, S (L, B, E, H E) and z (L, B, H E), read and
+// written once a token by 16-byte copies, an item (song, head) a warp
+// (at B=256 it cannot stay on chip).  At B=256 the f32 state binds, 2 x
+// 410 MB a token (0.25 ms at 3.35 TB/s); its 19.7 GFLOP a token of bf16
+// products take 0.02 ms at the tensor cores' 989 TFLOP/s.  What holds it
+// above that (scripts/profile_torch_v5_phases.py): the products' operand
+// traffic from L2 (each tile re-reads its rows and weight columns), the
+// row and state phases' dependent round trips, 87 grid barriers and the
+// sampling's 24-step bisection a (song, field).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -1396,221 +1409,555 @@ inline bool latency_shape_ok(int B, int D, int H, int DI, int NF) {
 }
 
 // =========================================================================
-// v5: its own SIMT phases
+// v5: every product on the tensor cores
 // =========================================================================
-
-constexpr int LT_TN = 64, LT_KC = 64;         // product item: 64 columns x 64 rows
-constexpr int LT_KQ = LT_KC / (LT_THREADS / LT_TN);   // rows per thread: 16
 
 // RLMG_V5_ABLATE (for attributing its time; the output is garbage):
 // ABLATE_STATE streams the state through and skips every other layer
-// phase, ABLATE_ATTN keeps the products and streams the state through
-// without its update and read (att = 0).
+// phase (the heads then read the embedding), ABLATE_ATTN keeps the
+// products and streams the state through without its update and read
+// (att = 0).
 enum { ABLATE_NONE = 0, ABLATE_STATE = 1, ABLATE_ATTN = 2 };
 
-struct LatArgs {
-  const void* w[N_WEIGHTS];      // stacked layer weights, one type (decode_layers.cuh order)
-  const float* m;                // folded embedding (sum V_f, D), f32
-  const float* bin;              // in_linear bias (D)
-  const float* pe;               // (T, D): the fed tokens' rows
-  const void* hw;                // padded heads (D, NF * VF_PAD), the weights' type
-  const float *hb, *fls, *flb;   // head bias (NF * VF_PAD), final LN (D)
+using bf16 = __nv_bfloat16;
+
+constexpr int V5_WARPS = LT_THREADS / 32;    // 8
+constexpr int V5_BN = 64;                    // columns a product tile
+constexpr int V5_BK = 64;                    // depths a stage
+constexpr int V5_STEPS = V5_BK / 16;         // mma depth steps a stage
+constexpr int V5_RS = V5_BK + 8;             // bf16 a staged input row (padded: ldmatrix banks)
+constexpr int V5_WS = V5_BN + 8;             // bf16 a staged weight row
+constexpr int V5_RED = 40;                   // floats a row of a warp's 16 x 32 sums
+constexpr int V5_MAX_BM = 64, V5_MAX_NS = 8, V5_MAX_KS = 4;
+constexpr int V5_MAX_D = 1024;               // a row in one warp's registers
+constexpr int V5_RV = V5_MAX_D / 128;        // float4 a lane holds of a row
+
+enum { V5_Q = 0, V5_O = 1, V5_F1 = 2, V5_F2 = 3, V5_H = 4, V5_NPROD = 5 };
+enum { V5_EMBED = 0, V5_LN1 = 1, V5_LN2 = 2, V5_FINAL = 3 };
+
+// bf16 planes an operand: bf16 weights, one (the JAX cast of the input to
+// the weights' type); f32 weights, three (hi, mid, lo: the f32 grade of a
+// cast that does nothing).
+template <typename TW>
+struct V5T {
+  static constexpr int PL = sizeof(TW) == 4 ? 3 : 1;
+};
+
+struct V5Args {
+  const void* w[N_WEIGHTS];     // stacked layer leaves, TW (decode_layers.cuh order); the
+                                // vectors are read from here
+  const bf16* wp[V5_NPROD];     // each product's weight, (K, N) row-major, as plane 0 of
+                                // its bf16 planes: Wqkv (L, D, 3D), Wo (L, D, D), W1 (L, D,
+                                // DI), W2 (L, DI, D), the padded heads (D, NF VF_PAD)
+  size_t wpl[V5_NPROD];         // elements from one weight plane to the next
+  const float* m;               // folded embedding (sum V_f, D), f32
+  const float* bin;             // in_linear bias (D)
+  const float* pe;              // (T, D): the fed tokens' rows
+  const float *hb, *fls, *flb;  // head bias (NF VF_PAD), final LN (D)
   FieldArgs fa;
-  const int* tok0;               // (B, NF)
-  int* tokens;                   // (T, B, NF)
-  float *s, *z;                  // (L, B, E, H E), (L, B, H E)
-  float *h, *h1;                 // (B, D) each
-  float *pqkv, *po, *p1, *p2;    // partial sums: (D/64, B, 3D), (H, B, D), (D/64, B, DI),
-                                 // (DI/64, B, D)
+  const int* tok0;              // (B, NF)
+  int* tokens;                  // (T, B, NF)
+  float *s, *z;                 // (L, B, E, H E), (L, B, H E)
+  float* part[V5_NPROD];        // the products' f32 sums, (ks, B, N) (FFN1: unused)
+  float *hres, *h1;             // f32 rows (B, D): the layer's input, LN1's output
+  bf16 *xq, *att, *x1, *y;      // the products' inputs as PL planes of B rows
   int L, B, D, H, DI, NF, T;
+  int bm, ns, nss, ncs;         // rows a product tile, stages, state warps (a slot each),
+                                // column splits a state item
+  int ks[V5_NPROD];             // depth slices a product (1: the whole K an item)
   unsigned int seed;
   int greedy;
   float eps;
   int ablate;
 };
 
-// Shared floats one block needs for the phases (the largest of them), when a
-// product item carries nb songs.
-inline size_t work_floats(int nb, int D, int H) {
-  const size_t gemm = 4 * (size_t)nb * LT_KC;                 // x chunk + 3 partial rows
-  const size_t attn = 5 * (size_t)(D / H) + ATT_THREADS + 1;   // q k v dq att, part, den
-  const size_t row = (size_t)D + 64;                           // x row, red, redi
-  size_t w = gemm > attn ? gemm : attn;
-  w = w > row ? w : row;
-  return (w + 3) / 4 * 4;
-}
-
-template <typename TW>
-struct LayerW {
-  const TW *qkv, *bqkv, *wo, *bo, *l1s, *l1b, *w1, *b1, *w2, *b2, *l2s, *l2b;
+// Byte offsets of a block's shared memory: the input stages, the state
+// warps' slots or the warps' product sums (region a, used in turn), the
+// weight stages, and the row phases' vectors (or the state phase's qkv
+// bias), the state warps' q, k, v and the sampling's reductions (misc).
+struct V5Smem {
+  size_t a, w, misc, total;
 };
 
+// Floats of a state slot: an item's E / ncs columns of S (E rows), the q,
+// k, v partial rows of each of the ksq slices (E each) and z (E).
+__host__ __device__ inline int v5_slot_floats(int E, int ksq, int ncs) {
+  return E * (E / ncs) + (3 * ksq + 1) * E;
+}
+
 template <typename TW>
-__device__ __forceinline__ LayerW<TW> layer_w(const LatArgs& a, int l) {
-  const size_t D = a.D, DI = a.DI, dd = (size_t)l * D * D, d = (size_t)l * D;
+__host__ __device__ inline V5Smem v5_smem(int bm, int ns, int nss, int D, int E, int ksq,
+                                          int ncs) {
+  constexpr int PL = V5T<TW>::PL;
+  size_t a = (size_t)ns * PL * bm * V5_RS * 2;
+  const size_t slots = (size_t)nss * v5_slot_floats(E, ksq, ncs) * 4;
+  const size_t red = (size_t)V5_WARPS * 16 * V5_RED * 4;
+  a = a > slots ? a : slots;
+  a = a > red ? a : red;
+  V5Smem s;
+  s.a = 0;
+  s.w = (a + 127) / 128 * 128;
+  s.misc = s.w + (size_t)ns * PL * V5_BK * V5_WS * 2;
+  s.total = s.misc + (size_t)(5 * D + 3 * V5_WARPS * E + 64) * 4;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+// v as PL bf16 planes `plane` elements apart: bf16(v), or hi, mid, lo
+// (each remainder exact in f32, so hi + mid + lo holds v's 24 bits).
+template <int PL>
+__device__ __forceinline__ void v5_put2(bf16* p, size_t plane, float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  *reinterpret_cast<__nv_bfloat162*>(p) = h;
+  if constexpr (PL == 3) {
+    const float2 fh = __bfloat1622float2(h);
+    a -= fh.x;
+    b -= fh.y;
+    const __nv_bfloat162 m = __floats2bfloat162_rn(a, b);
+    *reinterpret_cast<__nv_bfloat162*>(p + plane) = m;
+    const float2 fm = __bfloat1622float2(m);
+    *reinterpret_cast<__nv_bfloat162*>(p + 2 * plane) = __floats2bfloat162_rn(a - fm.x, b - fm.y);
+  }
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// LayerNorm of a row held by one warp (lane holds values 4 (lane + 32 u)
+// .. + 3 in v[u]): (x - mu) * rsqrt(var + 1e-5) * sc + sh, the TPU
+// kernels' _ln, in place.
+template <typename TV>
+__device__ __forceinline__ void v5_ln(float4* v, int D, const TV* sc, const TV* sh) {
+  const int lane = threadIdx.x & 31, d4 = D / 4;
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < V5_RV; ++u)
+    if (lane + 32 * u < d4) sum += (v[u].x + v[u].y) + (v[u].z + v[u].w);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float mu = sum / D;
+  float sq = 0.f;
+#pragma unroll
+  for (int u = 0; u < V5_RV; ++u) {
+    if (lane + 32 * u < d4) {
+      const float dx = v[u].x - mu, dy = v[u].y - mu, dz = v[u].z - mu, dw = v[u].w - mu;
+      sq += (dx * dx + dy * dy) + (dz * dz + dw * dw);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  const float inv = rsqrtf(sq / D + 1e-5f);
+#pragma unroll
+  for (int u = 0; u < V5_RV; ++u) {
+    const int k = 4 * (lane + 32 * u);
+    if (k < D) {
+      v[u].x = (v[u].x - mu) * inv * ld(sc + k) + ld(sh + k);
+      v[u].y = (v[u].y - mu) * inv * ld(sc + k + 1) + ld(sh + k + 1);
+      v[u].z = (v[u].z - mu) * inv * ld(sc + k + 2) + ld(sh + k + 2);
+      v[u].w = (v[u].w - mu) * inv * ld(sc + k + 3) + ld(sh + k + 3);
+    }
+  }
+}
+
+// Row m of a product's sums, its ks slices added in slice order, into the
+// lanes' registers (as v5_ln holds a row); every load is issued first.
+__device__ __forceinline__ void v5_sum_row(const float* part, int ks, size_t slice, int D,
+                                           float4* v) {
+  const int lane = threadIdx.x & 31, d4 = D / 4;
+  float4 p[V5_MAX_KS][V5_RV];
+#pragma unroll
+  for (int s = 0; s < V5_MAX_KS; ++s)
+#pragma unroll
+    for (int u = 0; u < V5_RV; ++u) {
+      const int i = lane + 32 * u;
+      p[s][u] = s < ks && i < d4 ? __ldcg((const float4*)(part + s * slice) + i)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+  for (int u = 0; u < V5_RV; ++u) {
+    v[u] = p[0][u];
+#pragma unroll
+    for (int s = 1; s < V5_MAX_KS; ++s)
+      if (s < ks) v[u] = add4(v[u], p[s][u]);
+  }
+}
+
+// The row phases, a warp a song; each forms a product's input once and
+// stores it as planes (and its f32 value where a later phase adds it):
+//   V5_EMBED  h = sum_f M[off_f + tok_f] + b_in + pe[t] (embed_row's sum):
+//             hres (the layer's residual) and xq (Q's input)
+//   V5_LN1    h1 = LN1((h + att Wo) + bo) (JAX's h_scr + ao + wob): h1
+//             (FFN2's residual) and x1 (FFN1's input)
+//   V5_LN2    x = LN2(h1 + (y W2 + b2)): hres and xq, the next layer's
+//   V5_FINAL  LN_f of that after the last layer: xq (the heads' input);
+//             under ABLATE_STATE LN_f(hres), the layers having been skipped
+// A product's sum (att Wo, y W2) is its ks slices added in order.  The
+// phase's bias and LayerNorm vectors reach shared memory by cp.async
+// first (misc: three in the weights' type at D sizeof(TW) bytes apart,
+// LN_f's two f32 ones from byte 12 D).
+template <int PL, typename TW>
+__device__ void v5_rows(const V5Args& a, int kind, int l, int t, unsigned char* sm,
+                        const V5Smem& L) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, D = a.D, d4 = D / 4;
+  if ((int)blockIdx.x * V5_WARPS >= a.B) return;           // no row on this block
   const TW* const* W = (const TW* const*)a.w;
-  return {W[W_QKV] + 3 * dd, W[B_QKV] + 3 * d, W[W_O] + dd,          W[B_O] + d,
-          W[LN1_S] + d,      W[LN1_B] + d,     W[W_F1] + l * D * DI, W[B_F1] + l * DI,
-          W[W_F2] + l * DI * D, W[B_F2] + d,   W[LN2_S] + d,         W[LN2_B] + d};
+  const size_t plane = (size_t)a.B * D, vbytes = (size_t)D * sizeof(TW);
+  unsigned char* vb = sm + L.misc;
+  const TW* vec = (const TW*)vb;                            // bias, scale, shift
+  const float* fls = (const float*)(vb + 12 * (size_t)D);
+  const float* flb = fls + D;
+  const bool skipped = kind != V5_LN1 && a.ablate == ABLATE_STATE;
+  if (kind != V5_EMBED) {
+    const bool ln1 = kind == V5_LN1;
+    const TW* src[3] = {W[ln1 ? B_O : B_F2] + (size_t)l * D, W[ln1 ? LN1_S : LN2_S] + (size_t)l * D,
+                        W[ln1 ? LN1_B : LN2_B] + (size_t)l * D};
+    const int pv = (int)(vbytes / 16);
+    if (!skipped)
+      for (int c = tid; c < 3 * pv; c += LT_THREADS)
+        cp_async16(vb + (c / pv) * vbytes + (c % pv) * 16,
+                   (const unsigned char*)src[c / pv] + (c % pv) * 16, true);
+    if (kind == V5_FINAL)
+      for (int c = tid; c < 2 * d4; c += LT_THREADS)
+        cp_async16(vb + 12 * (size_t)D + (c / d4) * 4 * (size_t)D + (c % d4) * 16,
+                   (c < d4 ? a.fls : a.flb) + (c % d4) * 4, true);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (int m = blockIdx.x * V5_WARPS + warp; m < a.B; m += gridDim.x * V5_WARPS) {
+    float4 v[V5_RV];
+    float* keep = a.hres;
+    bf16* out = a.xq;
+    const size_t row = (size_t)m * D;
+    if (kind == V5_EMBED) {
+      const int* tok = (t == 0 ? a.tok0 : a.tokens + (size_t)(t - 1) * a.B * a.NF) +
+                       (size_t)m * a.NF;
+#pragma unroll
+      for (int u = 0; u < V5_RV; ++u) v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int f = 0; f < a.NF; ++f) {
+        const float4* e = (const float4*)(a.m + (size_t)(a.fa.off[f] + __ldcg(tok + f)) * D);
+#pragma unroll
+        for (int u = 0; u < V5_RV; ++u)
+          if (lane + 32 * u < d4) v[u] = add4(v[u], e[lane + 32 * u]);
+      }
+      const float4* bin = (const float4*)a.bin;
+      const float4* pe = (const float4*)(a.pe + (size_t)t * D);
+#pragma unroll
+      for (int u = 0; u < V5_RV; ++u)
+        if (lane + 32 * u < d4) v[u] = add4(add4(v[u], bin[lane + 32 * u]), pe[lane + 32 * u]);
+    } else if (skipped) {
+#pragma unroll
+      for (int u = 0; u < V5_RV; ++u)
+        v[u] = lane + 32 * u < d4 ? __ldcg((const float4*)(a.hres + row) + lane + 32 * u)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      const bool ln1 = kind == V5_LN1;
+      const int ph = ln1 ? V5_O : V5_F2;
+      const float* res = (ln1 ? a.hres : a.h1) + row;
+      v5_sum_row(a.part[ph] + row, a.ks[ph], plane, D, v);
+#pragma unroll
+      for (int u = 0; u < V5_RV; ++u) {
+        const int i = lane + 32 * u;
+        if (i < d4) {
+          const float4 h = __ldcg((const float4*)res + i);
+          const int k = 4 * i;
+          const float4 b = make_float4(ld(vec + k), ld(vec + k + 1), ld(vec + k + 2),
+                                       ld(vec + k + 3));
+          v[u] = ln1 ? add4(add4(h, v[u]), b) : add4(h, add4(v[u], b));
+        }
+      }
+      v5_ln(v, D, vec + D, vec + 2 * D);
+      if (ln1) {
+        keep = a.h1;
+        out = a.x1;
+      }
+    }
+    if (kind == V5_FINAL) {
+      v5_ln(v, D, fls, flb);
+      keep = nullptr;
+    }
+#pragma unroll
+    for (int u = 0; u < V5_RV; ++u) {
+      const int i = lane + 32 * u;
+      if (i < d4) {
+        if (keep != nullptr) __stcg((float4*)(keep + row) + i, v[u]);
+        v5_put2<PL>(out + row + 4 * i, plane, v[u].x, v[u].y);
+        v5_put2<PL>(out + row + 4 * i + 2, plane, v[u].z, v[u].w);
+      }
+    }
+  }
 }
 
-// part[kc] (B, N) = x[:, 64 kc : 64 kc + 64] @ w[64 kc : 64 kc + 64, :] for
-// every 64-row slice kc, one (64 columns, 64 rows) tile of w per item and
-// MB songs.  x (B, K) is the sum of nsum slices of src (nsum, B, K), and
-// gelu_exact(. + xbias) when xbias is given, rounded to TW (v5 casts each
-// product's input to the weights' type).  Thread (c, kq) takes column c
-// over rows 16 kq .. 16 kq + 15 for every song of the item; the four
-// quarters are added in order.  A song's sums do not depend on MB.
-template <typename TW, int MB>
-__device__ void v5_gemm(const float* src, int nsum, const TW* __restrict__ xbias,
-                        const TW* __restrict__ w, float* part, int B, int K, int N, float* wk,
-                        int g, int G) {
-  const int n_nt = N / LT_TN, n_kc = K / LT_KC;
-  const int items = n_nt * n_kc * ((B + MB - 1) / MB);
-  float* xs = wk;                    // (MB, 64)
-  float* red = wk + MB * LT_KC;      // (3, MB, 64)
-  const int c = threadIdx.x % LT_TN, kq = threadIdx.x / LT_TN;
-  for (int it = g; it < items; it += G) {
-    const int nt = it % n_nt, kc = (it / n_nt) % n_kc, b0 = it / (n_nt * n_kc) * MB;
-    const int nb = min(MB, B - b0), n = nt * LT_TN + c, k0 = kc * LT_KC;
-    __syncthreads();               // the last item's xs and red are read
-    for (int i = threadIdx.x; i < nb * LT_KC; i += blockDim.x) {
-      const int b = b0 + i / LT_KC, k = k0 + i % LT_KC;
-      float v = 0.f;
-      for (int j = 0; j < nsum; ++j) v += __ldcg(src + ((size_t)j * B + b) * K + k);
-      xs[i] = ld_round<TW>(xbias ? gelu_exact(v + ld(xbias + k)) : v);
+// One product phase of layer l: sums = in @ W, in the (B, K) planes a row
+// phase or the state phase stored, W the product's planes.  Items: (row
+// tile of bm songs, 64 columns, depth slice) over K / ks depths, every
+// slice's f32 sum stored apart (part[ph]), so no sum is split where ks is
+// 1; FFN1 (never split) stores gelu_exact(sum + b1) as FFN2's input planes
+// instead.  The block's 8 warps take 16 rows x 32 columns each, 2 bm / 16
+// of them covering the tile and WK = 4 / (bm / 16) splitting each stage's
+// four depth steps of 16 (warp wk the steps congruent to wk mod WK), each
+// step in mma.sync.m16n8k16 (one product with one plane; six, summed
+// afresh and added in f32, with three); the block adds the WK sums in
+// order.  Operand tiles of 64 depths reach shared memory by cp.async
+// through ns stages, ns - 1 of them in flight while a stage multiplies;
+// rows past B are zeros.  A sum's order follows (B, K, N, the SM count)
+// alone.
+template <typename TW>
+__device__ void v5_product(const V5Args& a, int ph, int l, unsigned char* sm, const V5Smem& L) {
+  constexpr int PL = V5T<TW>::PL;
+  const int D = a.D, DI = a.DI, B = a.B, bm = a.bm, ns = a.ns, ks = a.ks[ph];
+  const int K = ph == V5_F2 ? DI : D;
+  const int N = ph == V5_Q ? 3 * D : ph == V5_F1 ? DI : ph == V5_H ? a.NF * VF_PAD : D;
+  const bf16* w = a.wp[ph] + (ph == V5_H ? 0 : (size_t)l * K * N);
+  const bf16* ain = ph == V5_O ? a.att : ph == V5_F1 ? a.x1 : ph == V5_F2 ? a.y : a.xq;
+  const size_t wpl = a.wpl[ph], apl = (size_t)B * K;
+  const int WM = bm >> 4, WK = 4 / WM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & (WM - 1), wn = (warp / WM) & 1, wk = warp / (2 * WM);
+  const int n_ct = N / V5_BN, items = (B + bm - 1) / bm * n_ct * ks, nk = K / V5_BK / ks;
+  const int a_stage = PL * bm * V5_RS, a_plane = bm * V5_RS, w_stage = PL * V5_BK * V5_WS;
+  bf16* as = (bf16*)(sm + L.a);
+  bf16* ws = (bf16*)(sm + L.w);
+  float* red = (float*)(sm + L.a);           // the warps' sums, over the input stages
+  // this thread's 16-byte pieces of a stage: weight rows pr and pr + 32 at
+  // column pc, input rows pr and pr + 32 (those below bm) at depth pc
+  const int pr = tid >> 3, pc = (tid & 7) * 8;
+  const TW* b1 = (const TW*)a.w[B_F1] + (size_t)l * DI;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int sl = it % ks, tile = it / ks, m0 = tile / n_ct * bm, n0 = tile % n_ct * V5_BN;
+    const int k0 = sl * nk * V5_BK;
+    const bf16* wsrc = w + (size_t)(k0 + pr) * N + n0 + pc;
+    const bool a0 = pr < bm && m0 + pr < B, a1 = pr + 32 < bm && m0 + pr + 32 < B;
+    const bf16* asrc0 = a0 ? ain + (size_t)(m0 + pr) * K + k0 + pc : ain;
+    const bf16* asrc1 = a1 ? ain + (size_t)(m0 + pr + 32) * K + k0 + pc : ain;
+    auto load = [&](int kc, int slot) {     // depths kc 64 .. of the slice into stage slot
+      bf16* wd = ws + slot * w_stage + pr * V5_WS + pc;
+      const bf16* src = wsrc + (size_t)kc * V5_BK * N;
+#pragma unroll
+      for (int pl = 0; pl < PL; ++pl) {
+        cp_async16(wd + pl * V5_BK * V5_WS, src + pl * wpl, true);
+        cp_async16(wd + pl * V5_BK * V5_WS + 32 * V5_WS, src + pl * wpl + 32 * (size_t)N, true);
+      }
+      bf16* ad = as + slot * a_stage + pr * V5_RS + pc;
+      if (pr < bm) {
+#pragma unroll
+        for (int pl = 0; pl < PL; ++pl)
+          cp_async16(ad + pl * a_plane, asrc0 + (a0 ? kc * V5_BK + pl * apl : 0), a0);
+      }
+      if (pr + 32 < bm) {
+#pragma unroll
+        for (int pl = 0; pl < PL; ++pl)
+          cp_async16(ad + pl * a_plane + 32 * V5_RS, asrc1 + (a1 ? kc * V5_BK + pl * apl : 0),
+                     a1);
+      }
+    };
+    int ls = 0, cs = 0;                      // the stage to load next, to multiply next
+    for (int kc = 0; kc < ns - 1; ++kc) {
+      if (kc < nk) load(kc, ls);
+      ls = ls + 1 == ns ? 0 : ls + 1;
+      cp_async_commit();
+    }
+    // FFN1's bias at this thread's epilogue columns (fixed within the item)
+    const int ec = (tid & 31) * 2;
+    const float eb0 = ph == V5_F1 ? ld(b1 + n0 + ec) : 0.f;
+    const float eb1 = ph == V5_F1 ? ld(b1 + n0 + ec + 1) : 0.f;
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait_n(ns - 2);
+      __syncthreads();                      // stage kt is in; stage kt - 1 is free
+      if (kt + ns - 1 < nk) load(kt + ns - 1, ls);
+      ls = ls + 1 == ns ? 0 : ls + 1;
+      cp_async_commit();
+      const bf16* asl = as + cs * a_stage + (wm * 16 + (lane & 15)) * V5_RS + (lane >> 4) * 8;
+      const bf16* wsl = ws + cs * w_stage + (lane & 15) * V5_WS + wn * 32 + (lane >> 4) * 8;
+      cs = cs + 1 == ns ? 0 : cs + 1;
+      for (int kk = wk; kk < V5_STEPS; kk += WK) {
+        uint32_t af[PL][4];
+#pragma unroll
+        for (int pl = 0; pl < PL; ++pl) ldmatrix_x4(af[pl], asl + pl * a_plane + kk * 16);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          uint32_t bq[PL][4];
+#pragma unroll
+          for (int pl = 0; pl < PL; ++pl)
+            ldmatrix_x4_trans(bq[pl], wsl + pl * V5_BK * V5_WS + kk * 16 * V5_WS + p * 16);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int o = 2 * half, j = 2 * p + half;
+            if constexpr (PL == 1) {
+              mma_bf16(acc[j], af[0], &bq[0][o]);
+            } else {
+              // planes 0, 1, 2 = hi, mid, lo: this depth's six products in
+              // a fresh sum, then one f32 add (the tensor cores truncate
+              // what they add to a running sum): kernel B's order
+              float c[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16(c, af[2], &bq[0][o]);
+              mma_bf16(c, af[0], &bq[2][o]);
+              mma_bf16(c, af[1], &bq[1][o]);
+              mma_bf16(c, af[1], &bq[0][o]);
+              mma_bf16(c, af[0], &bq[1][o]);
+              mma_bf16(c, af[0], &bq[0][o]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[j][q] += c[q];
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();                          // every warp is done with the stages
+    float* rw = red + warp * 16 * V5_RED;
+    const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      st2(rw + g * V5_RED + j * 8 + t2, acc[j][0], acc[j][1]);
+      st2(rw + (g + 8) * V5_RED + j * 8 + t2, acc[j][2], acc[j][3]);
     }
     __syncthreads();
-    float acc[MB];
-#pragma unroll
-    for (int b = 0; b < MB; ++b) acc[b] = 0.f;
-    const TW* wp = w + (size_t)(k0 + kq * LT_KQ) * N + n;
-    const float* xk = xs + kq * LT_KQ;
-#pragma unroll
-    for (int k = 0; k < LT_KQ; ++k) {
-      const float wv = ldg(wp + (size_t)k * N);
-#pragma unroll
-      for (int b = 0; b < MB; ++b)
-        if (b < nb) acc[b] = fmaf(xk[b * LT_KC + k], wv, acc[b]);
+    float* out = a.part[ph] + ((size_t)sl * B + m0) * N + n0;
+    for (int o = tid; o < bm * 32; o += LT_THREADS) {   // output pairs (r, ec), (r, ec + 1)
+      const int r = o >> 5;
+      if (m0 + r >= B) break;
+      const float* rq = red + ((r >> 4) + WM * (ec >> 5)) * 16 * V5_RED + (r & 15) * V5_RED +
+                        (ec & 31);
+      float v0 = 0.f, v1 = 0.f;
+      for (int q = 0; q < WK; ++q) {         // the depth split's sums, in order
+        v0 += rq[q * 2 * WM * 16 * V5_RED];
+        v1 += rq[q * 2 * WM * 16 * V5_RED + 1];
+      }
+      if (ph == V5_F1)
+        v5_put2<PL>(a.y + (size_t)(m0 + r) * DI + n0 + ec, (size_t)B * DI,
+                    gelu_exact(v0 + eb0), gelu_exact(v1 + eb1));
+      else
+        st2(out + (size_t)r * N + ec, v0, v1);
     }
-    if (kq > 0) {
-#pragma unroll
-      for (int b = 0; b < MB; ++b)
-        if (b < nb) red[((kq - 1) * MB + b) * LT_TN + c] = acc[b];
-    }
-    __syncthreads();
-    if (kq == 0) {
-#pragma unroll
-      for (int b = 0; b < MB; ++b)
-        if (b < nb)
-          part[((size_t)kc * B + b0 + b) * N + n] = ((acc[b] + red[b * LT_TN + c]) +
-                                                     red[(MB + b) * LT_TN + c]) +
-                                                    red[(2 * MB + b) * LT_TN + c];
-    }
+    __syncthreads();                         // the sums and the stages are free again
   }
 }
 
-// The state update and Wo product of one (song b, head hd) slice of layer
-// w; sp, zp its state, the rows of sp D values apart.  Honours a.ablate.
-template <typename TW>
-__device__ void v5_attn_wo(const LatArgs& a, const LayerW<TW>& w, int b, int hd, float* sp,
-                           float* zp, float* wk) {
-  const int D = a.D, E = D / a.H, nk = D / LT_KC, tid = threadIdx.x;
-  float* qs = wk;
-  float* ks = qs + E;
-  float* vs = ks + E;
-  float* dq = vs + E;
-  float* att = dq + E;
-  float* part = att + E;
-  float* den = part + ATT_THREADS;
+// The state phase of layer l: one item per (song b, head hd, column
+// split cs), the item's E x E / ncs block of S (rows D values apart) and z
+// (E) of v5's layout, taken by a warp: nss warps of each block take items
+// in turn, each with its slot of shared memory, so nss items a block are
+// in flight at once (ncs > 1 splits a head's columns where the batch
+// leaves the grid's warps without items).  The warp's lanes bring the
+// item's S columns, its q, k, v partial rows and z into the slot by
+// 16-byte cp.async; q = phi(sum + bq), k = phi(sum + bk), v = sum + bv
+// (the slices in order); S += k v^T is written back with 16-byte
+// streaming stores, and z += k by the item of the first columns; num =
+// q^T S (a lane 4 columns over the rows of its row group, the groups
+// added in a fixed butterfly), den = q.z + eps over the whole head
+// (attn_slice's order), att = num / den as O's input planes.  S and z are
+// read and written once.  Honours a.ablate.
+template <int PL, typename TW>
+__device__ void v5_state(const V5Args& a, int l, unsigned char* sm, const V5Smem& L) {
+  const int B = a.B, D = a.D, H = a.H, E = D / H, E4 = E / 4, ksq = a.ks[V5_Q], ncs = a.ncs;
+  const int CW = E / ncs, C4 = CW / 4;                   // an item's columns, its quads
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nw = a.nss;
+  const int lg = __ffs(E4) - 1, lc = __ffs(C4) - 1;      // E4, C4 are powers of two
+  const int n4 = E * C4, np = n4 + (3 * ksq + 1) * E4, slotf = v5_slot_floats(E, ksq, ncs);
+  const int rgw = C4 < 32 ? 32 / C4 : 1;                 // a warp's row groups
+  float* bias = (float*)(sm + L.misc);                   // the layer's qkv bias (3 D)
+  float* q = bias + 5 * D + warp * 3 * E;                // this warp's q, k, v
+  float* k = q + E;
+  float* v = k + E;
+  const bool upd = a.ablate != ABLATE_ATTN;
+  const TW* bq = (const TW*)a.w[B_QKV] + (size_t)l * 3 * D;
+  for (int i = tid; i < 3 * D; i += LT_THREADS) bias[i] = ld(bq + i);
   __syncthreads();
-  if (tid < E) {
-    const int cq = hd * E + tid;
-    float q = 0.f, k = 0.f, v = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float* p = a.pqkv + ((size_t)j * a.B + b) * 3 * D;
-      q += __ldcg(p + cq);
-      k += __ldcg(p + D + cq);
-      v += __ldcg(p + 2 * D + cq);
+  if (warp >= nw) return;
+  float* slot = (float*)(sm + L.a) + (size_t)warp * slotf;
+  const float* pq = a.part[V5_Q];
+  const int u = (lane & (C4 - 1)) * 4, r0 = lane >> lc;
+  for (int j = blockIdx.x * nw + warp; j < B * H * ncs; j += gridDim.x * nw) {
+    const int cs = j % ncs, b = j / ncs / H, hd = j / ncs % H, c0 = hd * E + cs * CW;
+    float* sp = a.s + (((size_t)l * B + b) * E) * D + c0;
+    float* zp = a.z + ((size_t)l * B + b) * D + hd * E;
+    for (int c = lane; c < np; c += 32) {
+      const float* src;
+      if (c < n4) {
+        src = sp + (size_t)(c >> lc) * D + (c & (C4 - 1)) * 4;
+      } else {
+        const int r = (c - n4) >> lg, uu = ((c - n4) & (E4 - 1)) * 4;   // 3 slice + part, or z
+        src = r < 3 * ksq ? pq + ((size_t)(r / 3) * B + b) * 3 * D + (r % 3) * D + hd * E + uu
+                          : zp + uu;
+      }
+      cp_async16(slot + 4 * c, src, true);
     }
-    qs[tid] = phi(q + ld(w.bqkv + cq));
-    ks[tid] = phi(k + ld(w.bqkv + D + cq));
-    vs[tid] = v + ld(w.bqkv + 2 * D + cq);
-  }
-  __syncthreads();
-  if (a.ablate == ABLATE_ATTN) {   // the state streamed through, no update or read
-    for (int i = tid; i < E * E; i += blockDim.x) {
-      float* p = sp + (size_t)(i / E) * D + i % E;
-      *p = *p;
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+    const float* qkv = slot + E * CW;
+    const float* zs = qkv + 3 * ksq * E;
+    for (int i = lane; i < E; i += 32) {
+      float sq = 0.f, sk = 0.f, sv = 0.f;
+      for (int s = 0; s < ksq; ++s) {
+        sq += qkv[3 * s * E + i];
+        sk += qkv[(3 * s + 1) * E + i];
+        sv += qkv[(3 * s + 2) * E + i];
+      }
+      q[i] = phi(sq + bias[hd * E + i]);
+      k[i] = phi(sk + bias[D + hd * E + i]);
+      v[i] = sv + bias[2 * D + hd * E + i];
     }
-    if (tid < E) {
-      zp[tid] = zp[tid];
-      att[tid] = 0.f;
+    __syncwarp();
+    float num[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r0 < E) {
+      const float* vu = v + cs * CW + u;
+      const float v0 = vu[0], v1 = vu[1], v2 = vu[2], v3 = vu[3];
+      for (int r = r0; r < E; r += rgw) {
+        float4 s4 = *(const float4*)(slot + r * CW + u);
+        if (upd) {
+          const float kr = k[r], qr = q[r];
+          s4.x = fmaf(kr, v0, s4.x);
+          s4.y = fmaf(kr, v1, s4.y);
+          s4.z = fmaf(kr, v2, s4.z);
+          s4.w = fmaf(kr, v3, s4.w);
+          num[0] = fmaf(qr, s4.x, num[0]);
+          num[1] = fmaf(qr, s4.y, num[1]);
+          num[2] = fmaf(qr, s4.z, num[2]);
+          num[3] = fmaf(qr, s4.w, num[3]);
+        }
+        __stcs((float4*)(sp + (size_t)r * D + u), s4);
+      }
     }
-  } else {
-    attn_slice<float>(qs, ks, vs, sp, zp, att, E, a.eps, part, dq, den, D);
+    for (int off = C4; off < 32; off <<= 1)             // the row groups of a column quad
+#pragma unroll
+      for (int c = 0; c < 4; ++c) num[c] += __shfl_xor_sync(0xffffffffu, num[c], off);
+    float d = 0.f;
+    for (int i = lane; i < E; i += 32) d += q[i] * (zs[i] + k[i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    const float den = d + a.eps;
+    if (lane < C4) {
+      bf16* o = a.att + (size_t)b * D + c0 + u;
+      v5_put2<PL>(o, (size_t)B * D, upd ? num[0] / den : 0.f, upd ? num[1] / den : 0.f);
+      v5_put2<PL>(o + 2, (size_t)B * D, upd ? num[2] / den : 0.f, upd ? num[3] / den : 0.f);
+    }
+    if (cs == 0)
+      for (int i = lane; i < E; i += 32) __stcs(zp + i, upd ? zs[i] + k[i] : zs[i]);
+    __syncwarp();                                        // the slot and q, k, v are free
   }
-  __syncthreads();
-  const TW* wo = w.wo + (size_t)hd * E * D;
-  float* out = a.po + ((size_t)hd * a.B + b) * D;
-  for (int n = tid; n < D; n += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < E; ++e) acc = fmaf(ld_round<TW>(att[e]), ldg(wo + (size_t)e * D + n), acc);
-    out[n] = acc;
-  }
-}
-
-// out[b] = LN(resid[b] + (sum of nsum partial rows + bias)) * scale + shift.
-template <typename TW>
-__device__ void v5_res_ln(const float* resid, const float* part, int nsum,
-                          const TW* __restrict__ bias, const TW* __restrict__ scale,
-                          const TW* __restrict__ shift, float* out, int B, int D, int b,
-                          float* wk) {
-  float* xr = wk;
-  float* red = wk + D;
-  __syncthreads();
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    float v = 0.f;
-    for (int j = 0; j < nsum; ++j) v += __ldcg(part + ((size_t)j * B + b) * D + i);
-    xr[i] = __ldcg(resid + (size_t)b * D + i) + (v + ld(bias + i));
-  }
-  __syncthreads();
-  ln_row(xr, D, 1e-5f, red);
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
-    out[(size_t)b * D + i] = xr[i] * ld(scale + i) + ld(shift + i);
-}
-
-// The phases of layer l with grid barriers between them; the caller
-// synchronises after the last.
-template <typename TW, int MB>
-__device__ void v5_layer(const LatArgs& a, int l, float* wk) {
-  cg::grid_group grid = cg::this_grid();
-  const int g = blockIdx.x, G = gridDim.x;
-  const int B = a.B, D = a.D, H = a.H, E = D / H, DI = a.DI, BH = B * H;
-  const LayerW<TW> w = layer_w<TW>(a, l);
-  v5_gemm<TW, MB>(a.h, 1, nullptr, w.qkv, a.pqkv, B, D, 3 * D, wk, g, G);
-  grid.sync();
-  for (int i = first_owned(l * BH, g, G); i < (l + 1) * BH; i += G) {
-    const int j = i - l * BH, b = j / H, hd = j % H;
-    v5_attn_wo<TW>(a, w, b, hd, a.s + (size_t)(l * B + b) * E * D + hd * E,
-                   a.z + (size_t)(l * B + b) * D + hd * E, wk);
-  }
-  grid.sync();
-  for (int b = g; b < B; b += G)
-    v5_res_ln<TW>(a.h, a.po, H, w.bo, w.l1s, w.l1b, a.h1, B, D, b, wk);
-  grid.sync();
-  v5_gemm<TW, MB>(a.h1, 1, nullptr, w.w1, a.p1, B, D, DI, wk, g, G);
-  grid.sync();
-  v5_gemm<TW, MB>(a.p1, D / LT_KC, w.b1, w.w2, a.p2, B, DI, D, wk, g, G);
-  grid.sync();
-  for (int b = g; b < B; b += G)
-    v5_res_ln<TW>(a.h1, a.p2, DI / LT_KC, w.b2, w.l2s, w.l2b, a.h, B, D, b, wk);
 }
 
 // ABLATE_STATE's layer: the state of layer l read and written back,
 // nothing else.
-__device__ void stream_state(const LatArgs& a, int l, int g, int G) {
+__device__ void stream_state(const V5Args& a, int l, int g, int G) {
   const size_t nz = (size_t)a.B * a.D, ns = nz * (a.D / a.H);
   float* s = a.s + l * ns;
   float* z = a.z + l * nz;
@@ -1619,52 +1966,212 @@ __device__ void stream_state(const LatArgs& a, int l, int g, int G) {
   for (size_t i = i0; i < nz; i += step) __stcg(z + i, __ldcg(z + i));
 }
 
+// Development timing (-DV5_PROFILE builds only, scripts/
+// profile_torch_v5_phases.py): block x's %globaltimer as each phase of the
+// call's last token starts and ends, row l < L the layer's (Q, S, O, LN1,
+// F1, F2, LN2: marks 2 p and 2 p + 1), row L the token's (embedding, final
+// LN, heads, sampling).
+#ifdef V5_PROFILE
+constexpr int V5_MARKS = 14, V5_PROF_L = 17, V5_PROF_G = 160;
+__device__ unsigned long long v5_marks[V5_PROF_L * V5_MARKS][V5_PROF_G];
+#define V5_MARK(t, l, m)                                                                 \
+  do {                                                                                   \
+    if ((t) == a.T - 1 && threadIdx.x == 0 && (l) < V5_PROF_L && blockIdx.x < V5_PROF_G) { \
+      unsigned long long t_;                                                             \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                             \
+      v5_marks[(l) * V5_MARKS + (m)][blockIdx.x] = t_;                                   \
+    }                                                                                    \
+  } while (0)
+#else
+#define V5_MARK(t, l, m) \
+  do {                   \
+  } while (0)
+#endif
+
 // v5: T tokens of B songs in one cooperative launch of one block per SM.
-template <typename TW, int MB>
+// A token: the embedding rows, per layer Q, the state, O, LN1, F1, F2 and
+// LN2 (after the last layer the final LN), the heads product and the
+// sampling, a grid barrier after each: 7 L + 3 a token.
+template <typename TW>
 __global__ void __launch_bounds__(LT_THREADS, 1)
-decode_v5_kernel(const __grid_constant__ LatArgs a) {
+decode_v5_kernel(const __grid_constant__ V5Args a) {
+  constexpr int PL = V5T<TW>::PL;
   cg::grid_group grid = cg::this_grid();
-  const int g = blockIdx.x, G = gridDim.x;
-  float* wk = (float*)lt_smem;
+  const V5Smem L = v5_smem<TW>(a.bm, a.ns, a.nss, a.D, a.D / a.H, a.ks[V5_Q], a.ncs);
+  float* red = (float*)(lt_smem + L.misc) + 5 * a.D + 3 * V5_WARPS * (a.D / a.H);
+  const int nc = a.NF * VF_PAD, ksh = a.ks[V5_H];
+  const size_t hslice = (size_t)a.B * nc;
   for (int t = 0; t < a.T; ++t) {
-    const int* tok = t == 0 ? a.tok0 : a.tokens + (size_t)(t - 1) * a.B * a.NF;
-    for (int b = g; b < a.B; b += G)
-      embed_row(tok + (size_t)b * a.NF, a.m, a.fa, a.bin, a.pe + (size_t)t * a.D,
-                a.h + (size_t)b * a.D, a.NF, a.D);
+    V5_MARK(t, a.L, 0);
+    v5_rows<PL, TW>(a, V5_EMBED, 0, t, lt_smem, L);
+    V5_MARK(t, a.L, 1);
     grid.sync();
     for (int l = 0; l < a.L; ++l) {
-      if (a.ablate == ABLATE_STATE)
-        stream_state(a, l, g, G);
-      else
-        v5_layer<TW, MB>(a, l, wk);
+      if (a.ablate == ABLATE_STATE) {
+        stream_state(a, l, blockIdx.x, gridDim.x);
+        grid.sync();
+        continue;
+      }
+      V5_MARK(t, l, 0);
+      v5_product<TW>(a, V5_Q, l, lt_smem, L);
+      V5_MARK(t, l, 1);
       grid.sync();
+      V5_MARK(t, l, 2);
+      v5_state<PL, TW>(a, l, lt_smem, L);
+      V5_MARK(t, l, 3);
+      grid.sync();
+      V5_MARK(t, l, 4);
+      v5_product<TW>(a, V5_O, l, lt_smem, L);
+      V5_MARK(t, l, 5);
+      grid.sync();
+      V5_MARK(t, l, 6);
+      v5_rows<PL, TW>(a, V5_LN1, l, t, lt_smem, L);
+      V5_MARK(t, l, 7);
+      grid.sync();
+      V5_MARK(t, l, 8);
+      v5_product<TW>(a, V5_F1, l, lt_smem, L);
+      V5_MARK(t, l, 9);
+      grid.sync();
+      V5_MARK(t, l, 10);
+      v5_product<TW>(a, V5_F2, l, lt_smem, L);
+      V5_MARK(t, l, 11);
+      grid.sync();
+      if (l + 1 < a.L) {
+        V5_MARK(t, l, 12);
+        v5_rows<PL, TW>(a, V5_LN2, l, t, lt_smem, L);
+        V5_MARK(t, l, 13);
+        grid.sync();
+      }
     }
-    for (int i = g; i < a.B * a.NF; i += G) {
-      const int b = i / a.NF, f = i % a.NF;
-      __syncthreads();
-      const int tok_bf = heads_sample_row<TW, true>(
-          a.h + (size_t)b * a.D, a.fls, a.flb, (const TW*)a.hw, a.hb, a.fa, b, f, a.NF, a.D, t,
-          a.seed, a.greedy, wk, wk + a.D, (int*)(wk + a.D + 32));
-      if (threadIdx.x == 0) a.tokens[((size_t)t * a.B + b) * a.NF + f] = tok_bf;
+    V5_MARK(t, a.L, 2);
+    v5_rows<PL, TW>(a, V5_FINAL, a.L - 1, t, lt_smem, L);
+    V5_MARK(t, a.L, 3);
+    grid.sync();
+    V5_MARK(t, a.L, 4);
+    v5_product<TW>(a, V5_H, 0, lt_smem, L);
+    V5_MARK(t, a.L, 5);
+    grid.sync();
+    V5_MARK(t, a.L, 6);
+    // sampling: the logit of (song b, field f, vocab index v) is the heads'
+    // sum (its slices in order) + the head bias, times 1 / temperature
+    for (int i = blockIdx.x; i < a.B * a.NF; i += gridDim.x) {
+      const int b = i / a.NF, f = i % a.NF, col = f * VF_PAD + threadIdx.x;
+      __syncthreads();                       // red is free
+      const float* lg = a.part[V5_H] + (size_t)b * nc + col;
+      float p[V5_MAX_KS];
+#pragma unroll
+      for (int s = 0; s < V5_MAX_KS; ++s) p[s] = s < ksh ? __ldcg(lg + s * hslice) : 0.f;
+      float acc = p[0];
+#pragma unroll
+      for (int s = 1; s < V5_MAX_KS; ++s)
+        if (s < ksh) acc += p[s];
+      const float x = (acc + a.hb[col]) * a.fa.tinv[f];
+      const int tok = sample_logit(x, a.fa, b, f, t, a.seed, a.greedy, red, (int*)(red + 32));
+      if (threadIdx.x == 0) a.tokens[((size_t)t * a.B + b) * a.NF + f] = tok;
     }
+    V5_MARK(t, a.L, 7);
     if (t + 1 < a.T) grid.sync();
   }
 }
 
-template <typename TW, int MB>
-int v5_run(LatArgs& a, int n_sm, cudaStream_t st) {
-  const size_t smem = work_floats(MB, a.D, a.H) * sizeof(float);
-  const auto kern = decode_v5_kernel<TW, MB>;
+// The launch's tiles, slices and stages for B songs on a grid of G blocks
+// with max_smem shared bytes a block: product tiles of 16, 32 or 64 rows
+// (following B, not bb) by 64 columns; a product's depths split in 2 or 4
+// slices where its tiles would leave more than half of the grid without an
+// item (never FFN1's: its gelu needs the whole sum), each slice at least
+// one stage; as many stages and state slots as fit.  Returns the shared
+// bytes, or 0 when none fits.
+template <typename TW>
+inline size_t v5_plan(int B, int D, int H, int DI, int NF, int G, int max_smem, V5Args* a) {
+  const int E = D / H;
+  const size_t cap = (size_t)max_smem;
+  const int N[V5_NPROD] = {3 * D, D, DI, D, NF * VF_PAD};
+  const int K[V5_NPROD] = {D, D, D, DI, D};
+  a->bm = B <= 16 ? 16 : B <= 32 ? 32 : V5_MAX_BM;
+  const int rt = (B + a->bm - 1) / a->bm;
+  for (int p = 0; p < V5_NPROD; ++p) {
+    const int items = rt * (N[p] / V5_BN);
+    a->ks[p] = 1;
+    while (p != V5_F1 && a->ks[p] < V5_MAX_KS && 2 * items * a->ks[p] <= G &&
+           (K[p] / V5_BK) % (2 * a->ks[p]) == 0)
+      a->ks[p] *= 2;
+  }
+  const int ksq = a->ks[V5_Q];
+  // a head's columns split in 2, 4, ... (at least 16 a split) while the
+  // state items would leave more than half of the grid's warps idle
+  a->ncs = 1;
+  while (a->ncs < E / 16 && 2 * B * H * a->ncs <= G * V5_WARPS) a->ncs *= 2;
+  const int cs = a->ncs;
+  while (a->bm > 16 && v5_smem<TW>(a->bm, 2, 1, D, E, ksq, cs).total > cap) a->bm /= 2;
+  if (v5_smem<TW>(a->bm, 2, 1, D, E, ksq, cs).total > cap) return 0;
+  // stages up to 4, then state warps up to 8, then stages up to V5_MAX_NS
+  a->ns = 2;
+  a->nss = 1;
+  while (a->ns < 4 && v5_smem<TW>(a->bm, a->ns + 1, 1, D, E, ksq, cs).total <= cap) ++a->ns;
+  while (a->nss < V5_WARPS && v5_smem<TW>(a->bm, a->ns, a->nss + 1, D, E, ksq, cs).total <= cap)
+    ++a->nss;
+  while (a->ns < V5_MAX_NS && v5_smem<TW>(a->bm, a->ns + 1, a->nss, D, E, ksq, cs).total <= cap)
+    ++a->ns;
+  return v5_smem<TW>(a->bm, a->ns, a->nss, D, E, ksq, cs).total;
+}
+
+inline bool v5_shape_ok(int B, int D, int H, int DI, int NF) {
+  const int E = H > 0 ? D / H : 0;
+  return B >= 1 && E * H == D && E >= 4 && E <= MAX_E && (E & (E - 1)) == 0 && D % 64 == 0 &&
+         DI % 64 == 0 && D <= V5_MAX_D && NF >= 1 && NF <= MAX_NF;
+}
+
+// f32 scratch of v5 (v5_carve): the sums of Q (3 D), O (D), F2 (D) and the
+// heads (NF VF_PAD) a song and slice; hres and h1; the PL planes of xq,
+// att, x1 (D) and y (DI).
+inline size_t v5_carve(float* base, const V5Args& plan, int B, int D, int DI, int NF, int PL,
+                       V5Args* a) {
+  const size_t bd = (size_t)B * D;
+  const size_t sizes[10] = {plan.ks[V5_Q] * 3 * bd, plan.ks[V5_O] * bd, plan.ks[V5_F2] * bd,
+                            (size_t)plan.ks[V5_H] * B * NF * VF_PAD, bd, bd,
+                            (PL * bd + 1) / 2, (PL * bd + 1) / 2, (PL * bd + 1) / 2,
+                            ((size_t)PL * B * DI + 1) / 2};
+  float* p[10];
+  size_t off = 0;
+  for (int i = 0; i < 10; ++i) {
+    p[i] = base ? base + off : nullptr;
+    off += (sizes[i] + 3) / 4 * 4;
+  }
+  if (a) {
+    a->part[V5_Q] = p[0];
+    a->part[V5_O] = p[1];
+    a->part[V5_F1] = nullptr;
+    a->part[V5_F2] = p[2];
+    a->part[V5_H] = p[3];
+    a->hres = p[4];
+    a->h1 = p[5];
+    a->xq = (bf16*)p[6];
+    a->att = (bf16*)p[7];
+    a->x1 = (bf16*)p[8];
+    a->y = (bf16*)p[9];
+  }
+  return off;
+}
+
+// The launch of a planned V5Args (v5_plan) with smem shared bytes a block.
+template <typename TW>
+int v5_run(const V5Args& a, int n_sm, size_t smem, cudaStream_t st) {
+  const auto kern = decode_v5_kernel<TW>;
   const int rc = cooperative_ok(kern, n_sm, smem, n_sm);
   if (rc) return rc;
   void* args[] = {(void*)&a};
   return (int)cudaLaunchCooperativeKernel((const void*)kern, n_sm, LT_THREADS, args, smem, st);
 }
 
-// f32 scratch floats v5 needs: h, h1 and the partial sums.
-inline size_t v5_scratch_floats(int B, int D, int H, int DI) {
-  const size_t b = B, d = D, di = DI, nk = D / LT_KC, nk2 = DI / LT_KC;
-  return 2 * b * d + nk * b * 3 * d + (size_t)H * b * d + nk * b * di + nk2 * b * d;
+// v5's plan on the current card into a (0 shared bytes: none fits, or a
+// CUDA error in *rc).
+inline size_t v5_plan_here(int B, int D, int H, int DI, int NF, int w_bf16, V5Args* a, int* n_sm,
+                           int* rc) {
+  int max_smem = 0;
+  *rc = card(n_sm, &max_smem);
+  if (*rc) return 0;
+  return w_bf16 ? v5_plan<__nv_bfloat16>(B, D, H, DI, NF, *n_sm, max_smem, a)
+                : v5_plan<float>(B, D, H, DI, NF, *n_sm, max_smem, a);
 }
 
 }  // namespace rlmg
@@ -1677,11 +2184,9 @@ void* lp_prof_buf = nullptr;
 void rlmg_lp_set_prof(void* p) { lp_prof_buf = p; }
 #endif
 
-// f32 scratch floats the latency kernels (v8, v7) and v5 need.
+// f32 scratch floats the latency kernels (v8, v7) need.
 long long rlmg_latency_scratch_floats(int B, int D, int H, int DI) {
-  const size_t lp = rlmg::lp_carve(nullptr, B, D, H, DI, nullptr);
-  const size_t v5 = rlmg::v5_scratch_floats(B, D, H, DI);
-  return (long long)(lp > v5 ? lp : v5);
+  return (long long)rlmg::lp_carve(nullptr, B, D, H, DI, nullptr);
 }
 
 // Dynamic shared bytes a block of the version's launch needs on a grid of
@@ -1779,33 +2284,78 @@ int rlmg_latency_decode(int version, const int* tok0, int* tokens, const float* 
                 : rlmg::latency_run<float, float>(version, a, n_sm, max_smem, st, info);
 }
 
+// v5's f32 scratch floats with bf16 (w_bf16) or f32 weights on the current
+// card (its plan's slices set the sums' room); -1 for a shape it does not
+// take.
+long long rlmg_v5_scratch_floats(int B, int D, int H, int DI, int NF, int w_bf16) {
+  if (!rlmg::v5_shape_ok(B, D, H, DI, NF)) return -1;
+  rlmg::V5Args a;
+  memset(&a, 0, sizeof a);
+  int n_sm = 0, rc = 0;
+  if (rlmg::v5_plan_here(B, D, H, DI, NF, w_bf16, &a, &n_sm, &rc) == 0) return -1;
+  return (long long)rlmg::v5_carve(nullptr, a, B, D, DI, NF, w_bf16 ? 1 : 3, nullptr);
+}
+
+// v5's launch plan on the current card: out[0] rows a product tile, out[1]
+// stages in flight, out[2] state warps, out[3..7] the depth slices of the
+// Q, O, F1, F2 and heads products, out[8] shared bytes a block, out[9] the
+// column splits of a state item.  Returns 0
+// or a CUDA error code (cudaErrorInvalidValue: a shape the kernel does not
+// take, or no plan fits a block's shared memory).
+int rlmg_v5_plan(int B, int D, int H, int DI, int NF, int w_bf16, int* out) {
+  if (!rlmg::v5_shape_ok(B, D, H, DI, NF)) return (int)cudaErrorInvalidValue;
+  rlmg::V5Args a;
+  memset(&a, 0, sizeof a);
+  int n_sm = 0, rc = 0;
+  const size_t smem = rlmg::v5_plan_here(B, D, H, DI, NF, w_bf16, &a, &n_sm, &rc);
+  if (rc) return rc;
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  out[0] = a.bm;
+  out[1] = a.ns;
+  out[2] = a.nss;
+  for (int p = 0; p < rlmg::V5_NPROD; ++p) out[3 + p] = a.ks[p];
+  out[8] = (int)smem;
+  out[9] = a.ncs;
+  return 0;
+}
+
 // Decode T tokens of B songs with the v5 kernel, one cooperative launch.
 // tok0 (B, NF) int32 is the first token fed; tokens (T, B, NF) int32
 // receives the T successors.  s (L, B, E, H E) and z (L, B, H E) f32 are
 // updated in place.  pe_rows (T, D) f32 are the fed tokens' positional
-// rows; the Philox position of token t is t.  bb (8, 16 or 32, dividing B)
-// is the number of songs a product item carries.  ablate: ABLATE_* (0 for
-// a real decode).  Other arguments as rlmg_latency_decode's.
+// rows; the Philox position of token t is t.  w: the 12 stacked layer
+// leaves (one type, w_bf16); wp: the five products' weights (Wqkv, Wo, W1,
+// W2 stacked over L, then the padded heads (D, NF VF_PAD)) as plane 0 of
+// their bf16 planes, wpl[i] elements from one plane to the next (bf16
+// weights: the leaves themselves, one plane; f32 weights: their three
+// planes, ops/decode_kernel_v6.py weight_planes).  bb (8, 16 or 32,
+// dividing B) names JAX's state block; the kernel's arithmetic does not
+// depend on it.  ablate: ABLATE_* (0 for a real decode).  scratch:
+// rlmg_v5_scratch_floats floats.  Other arguments as rlmg_latency_decode's.
 int rlmg_decode_v5(const int* tok0, int* tokens, const float* m, const float* bin,
-                   const float* pe_rows, const void* const* w, const void* hw, const float* hb,
-                   const float* fls, const float* flb, const int* off, const float* tinv,
-                   const float* topp, float* s, float* z, float* scratch, int T,
-                   unsigned int seed, int greedy, int L, int B, int D, int H, int DI, int NF,
-                   int bb, float eps, int w_bf16, int ablate, void* stream) {
-  if (!rlmg::stack_shape_ok(D, H) || D % rlmg::LT_KC || DI % rlmg::LT_KC || NF < 1 ||
-      NF > rlmg::MAX_NF || T < 1 || B < 1 || (bb != 8 && bb != 16 && bb != 32) || B % bb ||
-      ablate < 0 || ablate > 2)
+                   const float* pe_rows, const void* const* w, const void* const* wp,
+                   const long long* wpl, const float* hb, const float* fls, const float* flb,
+                   const int* off, const float* tinv, const float* topp, float* s, float* z,
+                   float* scratch, int T, unsigned int seed, int greedy, int L, int B, int D,
+                   int H, int DI, int NF, int bb, float eps, int w_bf16, int ablate,
+                   void* stream) {
+  if (!rlmg::v5_shape_ok(B, D, H, DI, NF) || T < 1 || L < 1 || (bb != 8 && bb != 16 && bb != 32) ||
+      B % bb || ablate < 0 || ablate > 2)
     return (int)cudaErrorInvalidValue;
-  int n_sm = 0, max_smem = 0;
-  const int rc = rlmg::card(&n_sm, &max_smem);
-  if (rc) return rc;
-  rlmg::LatArgs a;
+  rlmg::V5Args a;
   memset(&a, 0, sizeof a);
+  int n_sm = 0, rc = 0;
+  const size_t smem = rlmg::v5_plan_here(B, D, H, DI, NF, w_bf16, &a, &n_sm, &rc);
+  if (rc) return rc;
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < rlmg::N_WEIGHTS; ++i) a.w[i] = w[i];
+  for (int i = 0; i < rlmg::V5_NPROD; ++i) {
+    a.wp[i] = (const __nv_bfloat16*)wp[i];
+    a.wpl[i] = (size_t)wpl[i];
+  }
   a.m = m;
   a.bin = bin;
   a.pe = pe_rows;
-  a.hw = hw;
   a.hb = hb;
   a.fls = fls;
   a.flb = flb;
@@ -1814,13 +2364,7 @@ int rlmg_decode_v5(const int* tok0, int* tokens, const float* m, const float* bi
   a.tokens = tokens;
   a.s = s;
   a.z = z;
-  const size_t bd = (size_t)B * D, nk = D / rlmg::LT_KC;
-  a.h = scratch;
-  a.h1 = a.h + bd;
-  a.pqkv = a.h1 + bd;
-  a.po = a.pqkv + nk * 3 * bd;
-  a.p1 = a.po + (size_t)H * bd;
-  a.p2 = a.p1 + nk * B * (size_t)DI;
+  rlmg::v5_carve(scratch, a, B, D, DI, NF, w_bf16 ? 1 : 3, &a);
   a.L = L;
   a.B = B;
   a.D = D;
@@ -1833,16 +2377,20 @@ int rlmg_decode_v5(const int* tok0, int* tokens, const float* m, const float* bi
   a.eps = eps;
   a.ablate = ablate;
   cudaStream_t st = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
-  if (w_bf16) {
-    if (bb == 8) return rlmg::v5_run<bf, 8>(a, n_sm, st);
-    if (bb == 16) return rlmg::v5_run<bf, 16>(a, n_sm, st);
-    return rlmg::v5_run<bf, 32>(a, n_sm, st);
-  }
-  if (bb == 8) return rlmg::v5_run<float, 8>(a, n_sm, st);
-  if (bb == 16) return rlmg::v5_run<float, 16>(a, n_sm, st);
-  return rlmg::v5_run<float, 32>(a, n_sm, st);
+  return w_bf16 ? rlmg::v5_run<__nv_bfloat16>(a, n_sm, smem, st)
+                : rlmg::v5_run<float>(a, n_sm, smem, st);
 }
+
+#ifdef V5_PROFILE
+// v5's phase marks of the last launch (V5_PROF_L x V5_MARKS x V5_PROF_G
+// u64, see V5_MARK) into out, and cleared.
+int rlmg_v5_marks(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, rlmg::v5_marks, sizeof rlmg::v5_marks);
+  static unsigned long long zero[rlmg::V5_PROF_L * rlmg::V5_MARKS][rlmg::V5_PROF_G];
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(rlmg::v5_marks, zero, sizeof zero);
+  return (int)e;
+}
+#endif
 
 const char* rlmg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

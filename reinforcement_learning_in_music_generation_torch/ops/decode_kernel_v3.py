@@ -18,8 +18,9 @@ width), the Wo product with LN1 of (h + att Wo) + bo, the exact-erf gelu
 FFN and LN2; every product on the tensor cores at f32 grade (the f32
 activations in three bf16 planes), four grid barriers a layer.  The TPU
 kernel's grid over batch blocks (a VMEM budget) has no counterpart: every
-song runs at once.  The per-layer v1/v2 kernels of
-``ops/experimental/decode_kernel.py`` keep ``run_aug``'s passes.
+song runs at once.  v2 (``ops/experimental/decode_kernel.py``) runs the same
+token kernel for one layer with the tanh gelu; v1 keeps ``run_aug``'s
+passes.
 
 Bound on the H100: per token the weights are read once (75.5 MB in bf16 at
 the flagship width) and the f32 state read and written once (1.6 MB a song
@@ -106,10 +107,16 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("decode_aug")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rlmg_aug_scratch_floats.argtypes = [i] * 5
+        lib.rlmg_aug_scratch_floats.argtypes = [i] * 3
         lib.rlmg_aug_scratch_floats.restype = ctypes.c_longlong
-        lib.rlmg_decode_aug.argtypes = [p] * 5 + [i] * 5 + [f] + [i] * 3 + [p, ctypes.POINTER(i)]
+        lib.rlmg_decode_aug.argtypes = [p] * 5 + [i] * 5 + [f, i, p, ctypes.POINTER(i)]
         lib.rlmg_decode_aug.restype = i
+        lib.rlmg_v2_pack.argtypes = [p, i, p, p, p] + [i] * 5 + [p]
+        lib.rlmg_v2_pack.restype = i
+        lib.rlmg_v2_tc_step.argtypes = [p] * 7 + [i] * 4 + [f, i, p, ctypes.POINTER(i)]
+        lib.rlmg_v2_tc_step.restype = i
+        lib.rlmg_v2_tc_runs.argtypes = [i]
+        lib.rlmg_v2_tc_runs.restype = ctypes.c_longlong
         lib.rlmg_v3_tc_step.argtypes = [p] * 7 + [i] * 5 + [f, i, p, ctypes.POINTER(i)]
         lib.rlmg_v3_tc_step.restype = i
         lib.rlmg_v3_tc_shape_ok.argtypes = [i] * 3
@@ -173,14 +180,14 @@ def _check_v3_inputs(ws: Sequence[torch.Tensor], h0: torch.Tensor, s_aug: torch.
 
 
 def run_aug(ws: Sequence[torch.Tensor], h0: torch.Tensor, s_aug: torch.Tensor, *,
-            n_head: int, eps: float, head_major: bool, bias_last: bool,
-            name: str) -> Tuple[torch.Tensor, int]:
-    """One call of ``csrc/decode_aug.cu``'s per-layer passes (the v1 and v2
-    kernels, the tanh gelu) on CUDA tensors: the L layers of ``s_aug`` (L,
-    H, B, E, E + 1) f32, updated in place.  ws: the 12 weights in the kernel's order,
-    stacked over L (or one layer's, L = 1); the matrices one dtype (f32 or
-    bf16), the vectors f32.  Returns (h (B, D) f32, the number of CUDA
-    launches issued)."""
+            n_head: int, eps: float, name: str) -> Tuple[torch.Tensor, int]:
+    """One call of ``csrc/decode_aug.cu``'s per-layer passes (the v1 kernel:
+    the (D, 3D) [q | k | v] weight, LN1 of h + (att Wo + bo), the tanh gelu)
+    on CUDA tensors: the L layers of ``s_aug`` (L, H, B, E, E + 1) f32,
+    updated in place.  ws: the 12 weights in the kernel's order, stacked
+    over L (or one layer's, L = 1); the matrices one dtype (f32 or bf16),
+    the vectors f32.  Returns (h (B, D) f32, the number of CUDA launches
+    issued)."""
     b, d, L, di = _check_v3_inputs(ws, h0, s_aug, n_head, name)
     wdt = ws[0].dtype
     if d > 2048:
@@ -188,16 +195,15 @@ def run_aug(ws: Sequence[torch.Tensor], h0: torch.Tensor, s_aug: torch.Tensor, *
     lib = _lib()
     with torch.cuda.device(h0.device):
         h = h0.clone()                       # the kernel overwrites its input
-        scratch = torch.empty(lib.rlmg_aug_scratch_floats(b, d, n_head, di, int(head_major)),
-                              dtype=torch.float32, device=h0.device)
+        scratch = torch.empty(lib.rlmg_aug_scratch_floats(b, d, di), dtype=torch.float32,
+                              device=h0.device)
         done = torch.zeros(n_head * b, dtype=torch.int32, device=h0.device)
         ptrs = (ctypes.c_void_p * len(ws))(*[t.data_ptr() for t in ws])
         launched = ctypes.c_int()
         rc = lib.rlmg_decode_aug(
             h.data_ptr(), ptrs, s_aug.data_ptr(), scratch.data_ptr(), done.data_ptr(),
-            L, b, d, n_head, di, eps, int(wdt == torch.bfloat16), int(head_major),
-            int(bias_last), torch.cuda.current_stream().cuda_stream,
-            ctypes.byref(launched))
+            L, b, d, n_head, di, eps, int(wdt == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
     if rc:
         raise RuntimeError(f"{name} kernel: {lib.rlmg_error_string(rc).decode()}")
     return h, launched.value

@@ -10,27 +10,39 @@ reads the layer's (D, 3D) [q | k | v] weight and forms h + (att Wo + bo), v2
 reads head-major weights, qkv (H, D, 3E) and Wo (H, E, D), and forms
 (h + sum_h att_h Wo_h) + bo.
 
-Kernel: ``csrc/decode_aug.cu``, the v3 kernel's source
-(``ops/decode_kernel_v3.py``) run for one layer: 9 CUDA launches a call for
-v1, 2 H + 7 for v2.  ``fused_decode_step`` loops it over the layers (JAX
-:220-249), which only tests and ``chip_smoke.py`` call, as in the JAX
-package.
+Kernels (``csrc/decode_aug.cu``):
+  v2  kernel A's token kernel (``csrc/decode_stack_tc.cuh``) for one layer
+      with the tanh gelu, v3's layer: one cooperative launch a call, every
+      product on the tensor cores at f32 grade.  Its weights are the
+      layer's leaves packed by one launch of ``rlmg_v2_pack`` (the
+      head-major qkv columns and Wo in mma fragment order, the vectors f32),
+      kept in an LRU (``V2_CACHE_SIZE`` layers) while every leaf keeps its
+      storage and version; an in-place update repacks.  So a call issues one
+      CUDA launch once its layer is packed and two when it packs (one more
+      each way when h is not a contiguous float32 tensor).
+  v1  the per-layer passes (``decode_kernel_v3.run_aug``): 9 CUDA launches.
+``fused_decode_step`` loops a variant over the layers (JAX :220-249), which
+only tests and ``chip_smoke.py`` call, as in the JAX package.
 
-Each variant launches the kernel for CUDA tensors and runs its plain twin
+Each variant launches its kernel for CUDA tensors and runs its plain twin
 (``fused_layer_step_plain``, ``fused_layer_step_v2_plain``) for CPU
 tensors; any other device raises.  All of them update the state in place.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import collections
+import ctypes
+import weakref
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ...models import common as cm
 from ...models.linear_transformer import DecodeState, embed_input
+from .. import decode_kernel_v4 as dk4
 from ..decode_common import gelu_tanh, ln, phi
-from ..decode_kernel_v3 import aug_attention_plain, init_aug_state, run_aug
+from ..decode_kernel_v3 import _lib, aug_attention_plain, init_aug_state, run_aug
 from ..linear_attention import DEFAULT_EPS
 
 aug_state_init = init_aug_state          # the JAX module's name (:252)
@@ -117,18 +129,6 @@ def fused_layer_step_v2_plain(h: torch.Tensor, layer_params: dict, s_aug: torch.
     return ln(x + y, l2s, l2b).to(h.dtype), s_aug
 
 
-def _layer_call(variant: str, h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor,
-                n_head: int, eps: float, wrapper) -> Tuple[torch.Tensor, torch.Tensor]:
-    ws = (_v1_weights(layer_params) if variant == "v1"
-          else _v2_weights(layer_params, n_head))
-    out, n = run_aug(ws, h.float().contiguous(), s_aug[None], n_head=n_head, eps=eps,
-                     head_major=variant == "v2", bias_last=variant == "v2",
-                     name=f"fused_layer_step ({variant})")
-    wrapper.launches += 1
-    wrapper.cuda_launches += n
-    return out.to(h.dtype), s_aug
-
-
 def fused_layer_step(h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor, *,
                      n_head: int, eps: float = DEFAULT_EPS
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -141,21 +141,205 @@ def fused_layer_step(h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor, *
     ``fused_layer_step_plain``; any other device raises."""
     if h.device.type == "cpu":
         return fused_layer_step_plain(h, layer_params, s_aug, n_head=n_head, eps=eps)
-    return _layer_call("v1", h, layer_params, s_aug, n_head, eps, fused_layer_step)
+    out, n = run_aug(_v1_weights(layer_params), h.float().contiguous(), s_aug[None],
+                     n_head=n_head, eps=eps, name="fused_layer_step (v1)")
+    fused_layer_step.launches += 1
+    fused_layer_step.cuda_launches += n
+    return out.to(h.dtype), s_aug
+
+
+# -- v2: the layer's leaves packed for the token kernel ------------------------
+
+# One layer's leaves in the order of csrc/decode_aug.cu's V2_WQ..V2_L2B.
+V2_LEAVES = (("wq", "w"), ("wk", "w"), ("wv", "w"), ("wo", "w"), ("ffn1", "w"), ("ffn2", "w"),
+             ("wq", "b"), ("wk", "b"), ("wv", "b"), ("wo", "b"), ("ln1", "scale"),
+             ("ln1", "bias"), ("ffn1", "b"), ("ffn2", "b"), ("ln2", "scale"), ("ln2", "bias"))
+V2_CACHE_SIZE = 64
+
+
+def v2_leaves(layer_params: dict) -> List[torch.Tensor]:
+    """The layer's 16 leaves in the packing's order (``V2_LEAVES``)."""
+    return [layer_params[a][b] for a, b in V2_LEAVES]
+
+
+def _v2_kernel_dtype(leaves: List[torch.Tensor]) -> torch.dtype:
+    """The packed matrices' type: bf16 when all six matrices are bf16, else
+    f32 (a bf16 value is exact in f32 too)."""
+    return (torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in leaves[:6])
+            else torch.float32)
+
+
+def v2_pack_plain(layer_params: dict, n_head: int) -> Tuple[List[torch.Tensor],
+                                                            List[torch.Tensor]]:
+    """``rlmg_v2_pack``'s output in PyTorch: the head-major weights of
+    ``head_major_layer_params`` as the token kernel's four matrices (qkv (D,
+    3D) with columns [q_h k_h v_h] head by head, Wo (D, D), W1, W2) in
+    ``pack_fragments`` order, (1, N/8, Kp/32, 32, 8), in the kernel's type,
+    and its eight f32 vectors (qkv bias head-major, bo, LN1 scale and shift,
+    b1, b2, LN2 scale and shift), each (1, n)."""
+    wdt = _v2_kernel_dtype(v2_leaves(layer_params))
+    hm = head_major_layer_params(layer_params, n_head)
+    h, d, e3 = hm["qkvw"].shape
+    mats = [hm["qkvw"].permute(1, 0, 2).reshape(d, h * e3), hm["wow"].reshape(d, d),
+            layer_params["ffn1"]["w"], layer_params["ffn2"]["w"]]
+    vecs = [hm["qkvb"].reshape(-1)] + [layer_params[a][b] for a, b in V2_LEAVES[9:]]
+    return ([dk4.pack_fragments(m.to(wdt)[None]) for m in mats],
+            [v.to(torch.float32).reshape(1, -1) for v in vecs])
+
+
+def unpack_fragments(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """``pack_fragments``' inverse: (L, N/8, Kp/32, 32, 8) -> (L, K, N)."""
+    L, n8, c, _, _ = packed.shape
+    w = (packed.reshape(L, n8, c, 8, 4, 2, 2, 2).permute(0, 2, 5, 6, 4, 7, 1, 3)
+         .reshape(L, c * 32, n8 * 8))
+    return w[:, :k]
+
+
+class V2Packed(NamedTuple):
+    """One layer's operands of the token kernel at one batch: the four packed
+    matrices, the eight f32 vectors, the row tiles' counters, their
+    pointers for the C call, and d_inner."""
+    mats: Tuple[torch.Tensor, ...]
+    vecs: Tuple[torch.Tensor, ...]
+    cnt: torch.Tensor
+    wptr: ctypes.Array
+    vptr: ctypes.Array
+    di: int
+
+
+_V2_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def _root(t: torch.Tensor) -> torch.Tensor:
+    return t if t._base is None else t._base
+
+
+def cached_layer(leaves: List[torch.Tensor], key_extra, build):
+    """``build()``, kept in an LRU of ``V2_CACHE_SIZE`` entries while every
+    leaf keeps its storage (the tensor it views, its address, shape and
+    strides) and its version.  An entry holds weak references to the
+    leaves' base tensors: a layer indexed out of a stacked leaf afresh on
+    each call (``fused_decode_step``) finds it, an in-place update of a leaf
+    (its version moves) builds again, and the entry goes with the weights.
+    Returns (value, whether it was built)."""
+    roots = [_root(t) for t in leaves]
+    key = (tuple((id(r), t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+                 for r, t in zip(roots, leaves)), key_extra)
+    versions = tuple(t._version for t in leaves)
+    hit = _V2_CACHE.get(key)
+    if hit is not None and hit[1] == versions and all(w() is r for w, r in zip(hit[0], roots)):
+        _V2_CACHE.move_to_end(key)
+        return hit[2], False
+    _V2_CACHE.pop(key, None)
+    while len(_V2_CACHE) >= V2_CACHE_SIZE:
+        _V2_CACHE.popitem(last=False)
+    value, tag = build(), object()
+
+    def drop(_):
+        entry = _V2_CACHE.get(key)
+        if entry is not None and entry[3] is tag:
+            del _V2_CACHE[key]
+    _V2_CACHE[key] = ([weakref.ref(r, drop) for r in roots], versions, value, tag)
+    return value, True
+
+
+def _v2_pack(leaves: List[torch.Tensor], n_head: int, b: int, dev: torch.device) -> V2Packed:
+    """One launch of ``rlmg_v2_pack``: the layer's operands at batch b on
+    ``dev``, where every leaf must lie."""
+    d, di = leaves[0].shape[0], leaves[4].shape[-1]
+    shapes = [(d, d)] * 4 + [(d, di), (di, d)] + [(d,)] * 6 + [(di,)] + [(d,)] * 3
+    for (a, b_), t, shp in zip(V2_LEAVES, leaves, shapes):
+        if (tuple(t.shape) != shp or t.dtype not in (torch.float32, torch.bfloat16)
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"fused_layer_step_v2: {a}/{b_} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}: expected a contiguous float32 or bfloat16 {shp} on "
+                             f"{dev}")
+    wdt = _v2_kernel_dtype(leaves)
+    mats = tuple(torch.empty((1, n // 8, (k + 31) // 32, 32, 8), dtype=wdt, device=dev)
+                 for k, n in ((d, 3 * d), (d, d), (d, di), (di, d)))
+    vecs = tuple(torch.empty((1, n), dtype=torch.float32, device=dev)
+                 for n in (3 * d, d, d, d, di, d, d, d))
+    cnt = torch.empty((b + 15) // 16, dtype=torch.int32, device=dev)
+    lib = _lib()
+    src = (ctypes.c_void_p * len(leaves))(*[t.data_ptr() for t in leaves])
+    mask = sum(1 << i for i, t in enumerate(leaves) if t.dtype == torch.bfloat16)
+    wptr = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in mats])
+    vptr = (ctypes.c_void_p * 8)(*[t.data_ptr() for t in vecs])
+    with torch.cuda.device(dev):
+        rc = lib.rlmg_v2_pack(src, mask, wptr, vptr, cnt.data_ptr(), cnt.numel(), d, n_head,
+                              di, int(wdt == torch.bfloat16),
+                              torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"fused_layer_step_v2 packing: {lib.rlmg_error_string(rc).decode()}")
+    return V2Packed(mats, vecs, cnt, wptr, vptr, di)
+
+
+def kernel_runs_v2(reset: bool = False) -> int:
+    """Runs of v2's token kernel on the current card since the last reset,
+    as the kernel counts them; waits for the card."""
+    n = _lib().rlmg_v2_tc_runs(int(reset))
+    if n < 0:
+        raise RuntimeError(f"decode_aug: {_lib().rlmg_error_string(-n).decode()}")
+    return n
 
 
 def fused_layer_step_v2(h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor, *,
                         n_head: int, eps: float = DEFAULT_EPS
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """v2: ``fused_layer_step`` with head-major weights (built per call, as
-    the JAX function does).  CPU tensors take ``fused_layer_step_v2_plain``."""
+    """v2: ``fused_layer_step`` with head-major weights.  CUDA tensors go to
+    the token kernel (``launches`` counts the calls, ``cuda_launches`` every
+    CUDA launch a call issues, the packing and h's conversions included,
+    ``packs`` the packings); CPU tensors take ``fused_layer_step_v2_plain``;
+    any other device raises."""
     if h.device.type == "cpu":
         return fused_layer_step_v2_plain(h, layer_params, s_aug, n_head=n_head, eps=eps)
-    return _layer_call("v2", h, layer_params, s_aug, n_head, eps, fused_layer_step_v2)
+    name = "fused_layer_step_v2"
+    if h.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {h.device}")
+    if h.dim() != 2 or n_head < 1 or h.shape[1] % n_head:
+        raise ValueError(f"{name}: h {tuple(h.shape)} with {n_head} heads; expected (B, D), "
+                         "n_head dividing D")
+    b, d = h.shape
+    e = d // n_head
+    if (tuple(s_aug.shape) != (n_head, b, e, e + 1) or s_aug.dtype != torch.float32
+            or not s_aug.is_contiguous() or s_aug.device != h.device):
+        raise ValueError(f"{name}: state {tuple(s_aug.shape)} {s_aug.dtype}; expected a "
+                         f"contiguous float32 ({n_head}, {b}, {e}, {e + 1}) on {h.device}")
+    leaves = v2_leaves(layer_params)
+    lib = _lib()
+    dk4.check_shape(lib.rlmg_v3_tc_shape_ok, d, n_head, leaves[4].shape[-1], name)
+    work, packed = cached_layer(leaves, (n_head, b),
+                                lambda: _v2_pack(leaves, n_head, b, h.device))
+    launches = int(packed)
+    h32 = h
+    if h.dtype != torch.float32 or not h.is_contiguous() or h.data_ptr() % 16:
+        h32 = torch.empty((b, d), dtype=torch.float32, device=h.device)
+        h32.copy_(h)
+        launches += 1
+    with torch.cuda.device(h.device):
+        out = torch.empty((b, d), dtype=torch.float32, device=h.device)
+        scratch = torch.empty(lib.rlmg_v3_tc_scratch_floats(b, d, work.di), dtype=torch.float32,
+                              device=h.device)
+        launched = ctypes.c_int()
+        rc = lib.rlmg_v2_tc_step(
+            work.wptr, work.vptr, s_aug.data_ptr(), h32.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), work.cnt.data_ptr(), b, d, n_head, work.di, eps,
+            int(work.mats[0].dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(launched))
+    if rc:
+        raise RuntimeError(f"{name} kernel: {lib.rlmg_error_string(rc).decode()}")
+    launches += launched.value
+    if h.dtype != torch.float32:
+        out = out.to(h.dtype)
+        launches += 1
+    fused_layer_step_v2.launches += 1
+    fused_layer_step_v2.cuda_launches += launches
+    fused_layer_step_v2.packs += int(packed)
+    return out, s_aug
 
 
 fused_layer_step.launches = fused_layer_step.cuda_launches = 0
-fused_layer_step_v2.launches = fused_layer_step_v2.cuda_launches = 0
+fused_layer_step_v2.launches = fused_layer_step_v2.cuda_launches = fused_layer_step_v2.packs = 0
 
 
 def fused_decode_step(params: dict, cfg, token: torch.Tensor, state: DecodeState, *,

@@ -4,26 +4,35 @@ counterpart of the JAX package's ``ops/experimental/decode_kernel_v5.py``
 
 Kernel: ``csrc/latency_decode.cu`` (``decode_v5_kernel``), hand-written CUDA
 for ``sm_90a``: one cooperative launch of one block per SM decodes all T
-tokens, its own SIMT phases separated by grid barriers (embedding; per
-layer the qkv product in 64 x 64 tiles, the state update and Wo product
-per (song, head), LN1, the two FFN products, LN2; then the heads, nucleus
-and Gumbel-max), with the f32 state in device memory in v5's layout, S (L, B,
-E, H E) and z (L, B, H E), read and written every token.  ``bb`` (8, 16 or
-32, dividing B) is the number of songs a product item carries, the
-counterpart of the TPU kernel's bb-song state blocks; a ``bb`` that does
-not divide B raises ``ValueError``, as does a cooperative launch the card
-refuses (a RuntimeError then).
+tokens.  Per token the embedding rows, per layer the qkv product, the state
+items (one a (song, head): S and z read and written once, 16-byte copies),
+the Wo product, the LN1 rows, the two FFN products and the LN2 rows (the
+final LN after the last layer), then the heads product and the sampling,
+a grid barrier after each (7 L + 3 a token).  Every product (qkv, Wo, FFN1,
+FFN2, heads) is one batch product on ``mma.sync``: items of (16, 32 or 64
+songs, 64 columns) over the whole K, or over 2 or 4 depth slices where the
+tiles alone would leave most SMs idle (small batches; the reading phase
+adds the slices in order), their operand tiles staged by cp.async, each
+product's input stored once as bf16 planes by the phase that forms it.  The f32 state stays in device memory in v5's layout, S (L,
+B, E, H E) and z (L, B, H E).  ``bb`` (8, 16 or 32, dividing B) names the
+TPU kernel's state block and is checked as JAX checks it; the arithmetic
+does not depend on it (a ``bb`` that does not divide B raises
+``ValueError``, as does a shape the kernel does not take; a cooperative
+launch the card refuses raises RuntimeError).
 
 The weights are kernel B's and v8's (``make_v5_params`` is
 ``make_resident_params``: the folded embedding M kept f32, as the JAX
-function keeps ``memb``; the padded heads; the layer stack), and the
-sampling is theirs: a 24-step bisection nucleus and Gumbel-max with
-Philox4x32-10 bits at counter (t, field, vocab index, song), t the token's
-index in the call.  The TPU's ``prng_random_bits`` stream is not
-reproduced; JAX's v5 differs from its XLA sampler in the same way.  As
-JAX's v5, the kernel rounds each product's input activations to the
-weights' type (qkv, Wo, FFN1, FFN2, heads; JAX :276, :329, :335, :338,
-:382) and sums in f32; M stays f32.
+function keeps ``memb``; the padded heads; the layer stack; with f32
+weights on a card also the products' weights as three bf16 planes,
+``V6Params.planes``, built once there), and the sampling is theirs: a
+24-step bisection nucleus and Gumbel-max with Philox4x32-10 bits at counter
+(t, field, vocab index, song), t the token's index in the call.  The TPU's
+``prng_random_bits`` stream is not reproduced; JAX's v5 differs from its
+XLA sampler in the same way.  As JAX's v5, the kernel rounds each product's
+input activations to the weights' type (qkv, Wo, FFN1, FFN2, heads; JAX
+:276, :329, :335, :338, :382: one bf16 plane) and sums in f32; with f32
+weights the products run at f32 grade (both operands as three bf16 planes,
+six products a depth of 16); M stays f32.
 
 Plain twin: ``fused_decode_v5_plain``, kernel B's plain chunk in v6's
 arithmetic (``decode_kernel_v6.fused_decode_v6_plain``, the same five
@@ -47,15 +56,16 @@ from typing import Sequence, Tuple
 import torch
 
 from ..decode_kernel_v4 import _check_inputs, layer_weights
-from ..decode_kernel_v6 import (V6Params, _check_v6, _cuda_or_raise, _field_arrays,
-                                argmax_first, fused_decode_v6_plain, nucleus_keep)
+from ..decode_kernel_v6 import (PLANE_WEIGHTS, V6Params, _check_v6, _cuda_or_raise,
+                                _field_arrays, argmax_first, fused_decode_v6_plain,
+                                nucleus_keep)
 from ..linear_attention import DEFAULT_EPS
 from .decode_kernel_v8 import TILE, _lib, make_resident_params
 
 # The JAX names of the shared sampling pieces (JAX :80, :110).
 nucleus_keep_by_threshold = nucleus_keep
 __all__ = ["V5Params", "make_v5_params", "nucleus_keep_by_threshold", "argmax_first",
-           "pack_state", "unpack_state", "fused_decode_v5", "fused_decode_v5_plain"]
+           "pack_state", "unpack_state", "fused_decode_v5", "fused_decode_v5_plain", "plan"]
 
 BB_CHOICES = (8, 16, 32)
 _ABLATE = {"": 0, "state": 1, "attn": 2}
@@ -66,7 +76,9 @@ V5Params = V6Params
 
 def make_v5_params(params: dict, cfg, dtype: torch.dtype = torch.bfloat16) -> V5Params:
     """The weights of JAX ``make_v5_params`` (:165-190): ``make_resident_params``
-    with the layer and head matrices in ``dtype``; M stays f32."""
+    with the layer and head matrices in ``dtype``; M stays f32.  With f32
+    weights on a card it also holds the products' bf16 planes (``planes``),
+    which the kernel reads."""
     return make_resident_params(params, cfg, dtype=dtype)
 
 
@@ -114,6 +126,45 @@ def _ablate() -> int:
     return _ABLATE[name]
 
 
+PLAN_KEYS = ("rows", "stages", "state_warps", "slices_q", "slices_o", "slices_f1",
+             "slices_f2", "slices_heads", "smem_bytes", "state_column_splits")
+
+
+def plan(b: int, d: int, n_head: int, di: int, nf: int, bf16_weights: bool) -> dict:
+    """The kernel's launch plan for this shape on the current card
+    (``PLAN_KEYS``: rows of the product tiles, stages in flight, the warps
+    a block gives the state items, each product's depth slices, shared
+    bytes a block, the column splits of a state item); raises
+    ``ValueError`` for a shape the kernel does not take."""
+    lib = _lib()
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    rc = lib.rlmg_v5_plan(b, d, n_head, di, nf, int(bf16_weights), out)
+    if rc:
+        raise ValueError(f"fused_decode_v5: B={b}, d_model {d}, {n_head} heads, d_inner {di}, "
+                         f"{nf} fields: the kernel takes head widths 4-128 (powers of two), "
+                         f"d_model <= 1024 and d_model, d_inner multiples of {TILE} "
+                         f"({lib.rlmg_error_string(rc).decode()})")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def _product_weights(v5p: V5Params, ws) -> Tuple[list, list]:
+    """Plane 0 of each product's weight (Wqkv, Wo, W1, W2, heads) and the
+    elements between its planes: the bf16 leaves themselves, or the f32
+    weights' three planes (``V6Params.planes``)."""
+    mats = [ws[i] for i in PLANE_WEIGHTS] + [v5p.head_w]
+    if ws[0].dtype == torch.bfloat16:
+        return mats, [0] * len(mats)
+    if v5p.planes is None:
+        raise ValueError("fused_decode_v5: f32 weights need their bf16 planes "
+                         "(make_v5_params on the card builds them)")
+    for m, pl in zip(mats, v5p.planes):
+        if (pl.dtype != torch.bfloat16 or tuple(pl.shape) != (3,) + tuple(m.shape)
+                or not pl.is_contiguous() or pl.device != m.device):
+            raise ValueError(f"fused_decode_v5: weight planes {tuple(pl.shape)} {pl.dtype}; "
+                             f"expected contiguous bfloat16 (3, {tuple(m.shape)}) on {m.device}")
+    return list(v5p.planes), [m.numel() for m in mats]
+
+
 def fused_decode_v5(v5p: V5Params, tok0: torch.Tensor, s5: torch.Tensor, z5: torch.Tensor,
                     pe_rows: torch.Tensor, seed: int, *, n_head: int, max_tokens: int,
                     bb: int = 8, vocab_sizes: Sequence[int], temps: Sequence[float],
@@ -158,25 +209,25 @@ def fused_decode_v5(v5p: V5Params, tok0: torch.Tensor, s5: torch.Tensor, z5: tor
     L, b, d, H, di = _check_inputs(ws, h_like, s5.view(L, b, n_head, e, e),
                                    z5.view(L, b, n_head, e), n_head)
     _check_v6(v5p, h_like, nf)
-    if d % TILE or di % TILE:
-        raise ValueError(f"fused_decode_v5: d_model {d} and d_inner {di} must be multiples "
-                         f"of {TILE}")
+    bf16 = ws[0].dtype == torch.bfloat16
+    plan(b, d, H, di, nf, bf16)                      # raises for a shape it does not take
+    mats, strides = _product_weights(v5p, ws)
     tinv, topp, off = _field_arrays(nf, temps, topps, v5p.field_off)
     lib = _lib()
     with torch.cuda.device(tok0.device):
         tok0 = tok0.contiguous()
         tokens = torch.empty((max_tokens, b, nf), dtype=torch.int32, device=tok0.device)
-        scratch = torch.empty(lib.rlmg_latency_scratch_floats(b, d, H, di),
+        scratch = torch.empty(lib.rlmg_v5_scratch_floats(b, d, H, di, nf, int(bf16)),
                               dtype=torch.float32, device=tok0.device)
         ptrs = (ctypes.c_void_p * len(ws))(*[t.data_ptr() for t in ws])
+        wp = (ctypes.c_void_p * len(mats))(*[t.data_ptr() for t in mats])
+        wpl = (ctypes.c_longlong * len(strides))(*strides)
         rc = lib.rlmg_decode_v5(
             tok0.data_ptr(), tokens.data_ptr(), v5p.m.data_ptr(), v5p.b_in.data_ptr(),
-            pe_rows.data_ptr(), ptrs,
-            v5p.head_w.data_ptr(), v5p.head_b.data_ptr(), v5p.fls.data_ptr(),
+            pe_rows.data_ptr(), ptrs, wp, wpl, v5p.head_b.data_ptr(), v5p.fls.data_ptr(),
             v5p.flb.data_ptr(), off, tinv, topp, s5.data_ptr(), z5.data_ptr(),
             scratch.data_ptr(), max_tokens, seed & 0xFFFFFFFF, int(greedy), L, b, d, H, di, nf,
-            bb, eps, int(ws[0].dtype == torch.bfloat16), ablate,
-            torch.cuda.current_stream().cuda_stream)
+            bb, eps, int(bf16), ablate, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"decode_v5 kernel: {lib.rlmg_error_string(rc).decode()}")
     fused_decode_v5.launches += 1

@@ -52,7 +52,7 @@ from ..decode_kernel_v6 import (V6Params, _check_v6, _cuda_or_raise, _field_arra
 from ..linear_attention import DEFAULT_EPS
 
 MAX_BATCH = 16          # csrc/latency_decode.cu LT_MAX_B
-TILE = 64               # d_model, d_inner multiples of it (v5's 64 x 64 product tiles)
+TILE = 64               # d_model, d_inner multiples of it (v5's stages of 64 depths)
 MAX_D = 1024            # LP_MAX_D: v8 and v7 hold two rows of d_model a warp in registers
 
 # The resident layout of the JAX ResidentParams, batch-major: the folded
@@ -91,8 +91,12 @@ def _lib() -> ctypes.CDLL:
         lib.rlmg_latency_decode.argtypes = ([i] + [p] * 16 + [i, i, u, i, i, i, i, i, i, i, f,
                                                              i, i, p, p])
         lib.rlmg_latency_decode.restype = i
-        lib.rlmg_decode_v5.argtypes = [p] * 16 + [i, u] + [i] * 8 + [f, i, i, p]
+        lib.rlmg_decode_v5.argtypes = [p] * 17 + [i, u] + [i] * 8 + [f, i, i, p]
         lib.rlmg_decode_v5.restype = i
+        lib.rlmg_v5_scratch_floats.argtypes = [i] * 6
+        lib.rlmg_v5_scratch_floats.restype = ll
+        lib.rlmg_v5_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+        lib.rlmg_v5_plan.restype = i
         lib.rlmg_error_string.argtypes = [i]
         lib.rlmg_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -525,3 +525,33 @@ def test_pp_gates_refuse_a_blind_control_missing_launches_and_ranks_apart(smoke)
     assert smoke.pp_gate_failures(res(control=good), spec)
     assert smoke.pp_gate_failures(res(digests=("a", "b")), spec)
     assert smoke.pp_gate_failures(res(losses=(1.0, float("nan"))), spec)
+
+
+@pytest.mark.parametrize("kernel,control,refused", [
+    (0.003, 3.8, 0),                # v2 within the gate, the exact-gelu control above it
+    (1.2, 3.8, 1),                  # the fault: the kernel off the gate
+    (0.003, 0.9, 1),                # a blind control
+    (1.2, 0.9, 2),
+    (float("nan"), 3.8, 1),         # not a number is no pass
+])
+def test_gelu_control_gate_refuses_the_fault_and_a_blind_control(smoke, kernel, control,
+                                                                 refused):
+    """Phase 27's v2 gate: the kernel within test_layer_kernels_match_plain's
+    h gate and the exact-gelu control above it, or one message each."""
+    assert len(smoke.control_gate_failures("v2", kernel, control)) == refused
+
+
+def test_gate_excess_is_the_assert_close_measure(smoke):
+    """gate_excess is at most 1 exactly where torch.testing.assert_close
+    passes with the same rtol and atol."""
+    import torch
+    ref = torch.tensor([1.0, -2.0, 0.5, 0.0])
+    for delta, passes in ((1e-4, True), (2.5e-4, True), (4e-4, False)):
+        x = ref + torch.tensor([0.0, delta, 0.0, 0.0])
+        ex = smoke.gate_excess(x, ref, 1e-4, 1e-4)
+        try:
+            torch.testing.assert_close(x, ref, rtol=1e-4, atol=1e-4)
+            ok = True
+        except AssertionError:
+            ok = False
+        assert ok == passes and (ex <= 1.0) == passes, (delta, ex)

@@ -28,6 +28,7 @@ from reinforcement_learning_in_music_generation_torch import config as TC
 from reinforcement_learning_in_music_generation_torch import weights as tw
 from reinforcement_learning_in_music_generation_torch.models import common as tcm
 from reinforcement_learning_in_music_generation_torch.models import linear_transformer as tlt
+from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v4 as tdk4
 from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v6 as tdk6
 from reinforcement_learning_in_music_generation_torch.ops import sampling as tsmp
 from reinforcement_learning_in_music_generation_torch.ops.experimental import (
@@ -46,6 +47,7 @@ KW = dict(vocab_sizes=VOCAB, emb_sizes=(8,) * 6, d_model=32, n_head=2, n_layer=2
           dropout=0.0, max_len=128)
 CFG = C.LinearTransformerConfig(**KW, dtype="float32")
 TCFG = TC.LinearTransformerConfig(**KW)
+BF16 = torch.bfloat16
 GREEDY = dict(temps=(1.0,) * 6, topps=(float("inf"),) * 6, greedy=True)
 
 
@@ -104,6 +106,37 @@ def test_v5_params_equal_jax_folds_heads_and_layers(both):
                       (lay["ffn1"]["b"], jv.f1b), (lay["ffn2"]["b"], jv.f2b)):
         np.testing.assert_array_equal(ours.numpy(), np.asarray(ref)[:, 0])
     assert tdk5.make_v5_params(tp, TCFG).layers["qkv_w"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v5_operands_are_jax_make_v5_params_weights(both, dtype):
+    """The five products' weights the kernel reads (``_product_weights``:
+    Wqkv, Wo, W1, W2, the padded heads) are JAX ``make_v5_params``'s: with
+    bf16 weights the leaves themselves (one plane), with f32 weights their
+    three bf16 planes (``V6Params.planes``, built on the card; here by
+    ``weight_planes``), which add up to JAX's f32 weights exactly."""
+    jp, tp = both
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, BF16)
+    jv = dk5.make_v5_params(jp, CFG, dtype=jdt)
+    tv = tdk5.make_v5_params(tp, TCFG, dtype=tdt)
+    ws = tdk4.layer_weights(tv.layers)
+    if tdt == torch.float32:
+        mats = [ws[i] for i in tdk6.PLANE_WEIGHTS] + [tv.head_w]
+        tv = tv._replace(planes=tuple(tdk6.weight_planes(m) for m in mats))
+    planes, strides = tdk5._product_weights(tv, ws)
+    refs = (jv.qkvw, jv.wow, jv.f1w, jv.f2w, jv.whp)
+    for pl, stride, ref in zip(planes, strides, refs):
+        ref = np.asarray(ref.astype(jnp.float32))
+        if tdt == torch.float32:
+            assert pl.dtype == BF16 and stride == ref.size
+            np.testing.assert_array_equal(((pl[0].float() + pl[1].float()) + pl[2].float()).numpy(),
+                                          ref)
+        else:
+            assert pl.dtype == BF16 and stride == 0
+            np.testing.assert_array_equal(pl.float().numpy(), ref)
+    if tdt == torch.float32:       # f32 weights without their planes are refused
+        with pytest.raises(ValueError, match="planes"):
+            tdk5._product_weights(tv._replace(planes=None), ws)
 
 
 def test_embedding_fold_and_heads_match_the_model(both):

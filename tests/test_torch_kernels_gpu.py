@@ -1597,6 +1597,189 @@ def test_layer_kernels_match_plain(dev, d_model, n_head, variant):
     assert fn.launches == before + 5 * cfg.n_layer
 
 
+def _gate_excess(a, b, rtol, atol):
+    """max |a - b| / (atol + rtol |b|): at most 1 where assert_close(a, b,
+    rtol, atol) passes."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs() / (atol + rtol * b.abs())).max().item()
+
+
+def _bf16_layers(params):
+    """params with the layer leaves in bf16 and the rest (embedding,
+    in_linear, final LN) f32: bf16 weights under f32 activations, so the
+    layers' h stays f32 (with every leaf bf16, h itself would be bf16)."""
+    return dict(params, layers={k: {kk: vv.to(torch.bfloat16) for kk, vv in v.items()}
+                                for k, v in params["layers"].items()})
+
+
+def _layer_run(params, cfg, toks, step):
+    """fused_decode_step's loop over toks with ``step(h, layer, s, li)`` as
+    each layer: (the last token's h after the final LN, the state)."""
+    b = toks.shape[1]
+    s = tdk.aug_state_init(cfg, b, toks.device)
+    for t in range(toks.shape[0]):
+        h = tlt.embed_input(params, cfg, toks[t], t, None)
+        for li in range(cfg.n_layer):
+            lp = {k: {kk: vv[li] for kk, vv in v.items()} for k, v in params["layers"].items()}
+            h = step(h, lp, s[li], li)
+        h = tcm.layernorm(params["final_ln"], h)
+    return h, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,n_head", AUG_SHAPES)
+def test_v2_kernel_matches_plain_with_bf16_weights(dev, d_model, n_head):
+    """v2 on bf16 weights (JAX casts them up to f32: the token kernel's three
+    products of the f32 activation planes): h and the state against the
+    plain twin on the same bf16 weights, test_layer_kernels_match_plain's
+    gates."""
+    cfg, params, gen = _setup(dev, d_model, n_head, torch.float32)
+    params = _bf16_layers(params)
+    toks = torch.stack([_tokens(gen, dev, 4) for _ in range(5)])
+    kw = dict(n_head=n_head, eps=cfg.attn_eps)
+    hk, sk = _layer_run(params, cfg, toks,
+                        lambda h, lp, s, li: tdk.fused_layer_step_v2(h, lp, s, **kw)[0])
+    hp, sp = _layer_run(params, cfg, toks,
+                        lambda h, lp, s, li: tdk.fused_layer_step_v2_plain(h, lp, s, **kw)[0])
+    torch.testing.assert_close(hk.float(), hp.float(), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,n_head", AUG_SHAPES)
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_v2_gate_sees_the_exact_gelu(dev, d_model, n_head, wdt, capsys):
+    """A control for test_layer_kernels_match_plain's h gate (rtol 1e-4,
+    atol 1e-4): the same five tokens with each layer on the exact-erf gelu
+    (v3's token kernel on the layer, its one difference from v2) end
+    above the gate against v2's twin, while v2's kernel stays within it.
+    Prints both as multiples of the gate (1 = at the gate)."""
+    cfg, params, gen = _setup(dev, d_model, n_head, torch.float32)
+    if wdt == torch.bfloat16:
+        params = _bf16_layers(params)
+    toks = torch.stack([_tokens(gen, dev, 4) for _ in range(5)])
+    v3p = tdk3.make_v3_params(params, cfg, dtype=wdt)
+    kw = dict(n_head=n_head, eps=cfg.attn_eps)
+
+    def exact(h, lp, s, li):
+        one = {k: v[li:li + 1] for k, v in v3p.items()}
+        return tdk3.fused_stack_step(one, h.float().contiguous(), s[None], **kw)[0].clone()
+    hp, _ = _layer_run(params, cfg, toks,
+                       lambda h, lp, s, li: tdk.fused_layer_step_v2_plain(h, lp, s, **kw)[0])
+    hk, _ = _layer_run(params, cfg, toks,
+                       lambda h, lp, s, li: tdk.fused_layer_step_v2(h, lp, s, **kw)[0])
+    hc, _ = _layer_run(params, cfg, toks, exact)
+    kern, ctl = _gate_excess(hk, hp, 1e-4, 1e-4), _gate_excess(hc, hp, 1e-4, 1e-4)
+    with capsys.disabled():
+        print(f"[gate] v2 d_model {d_model}, {n_head} head(s), {str(wdt)[6:]} weights: h "
+              f"against the twin at {kern:.3g} of the gate, the exact-gelu control at "
+              f"{ctl:.3g}")
+    assert kern <= 1.0
+    assert ctl > 1.0, f"the h gate does not see the exact gelu ({ctl:.3g} of it)"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_v2_packing_kernel_equals_its_plain_version(dev, wdt):
+    """rlmg_v2_pack's operands, bit for bit, are v2_pack_plain's: the
+    head-major matrices in pack_fragments order in the kernel's type and the
+    f32 vectors; the row-tile counters zero."""
+    cfg, params, _ = _setup(dev, 48, 3, wdt)
+    lp = {k: {kk: vv[1] for kk, vv in v.items()} for k, v in params["layers"].items()}
+    work = tdk._v2_pack(tdk.v2_leaves(lp), 3, 20, lp["wq"]["w"].device)
+    mats, vecs = tdk.v2_pack_plain(lp, 3)
+    for got, want in zip(work.mats + work.vecs, mats + vecs):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert work.cnt.numel() == 2 and not work.cnt.any()
+
+
+@pytest.mark.gpu
+def test_v2_issues_one_launch_a_call_once_packed(dev):
+    """The first call on a layer packs it (two CUDA launches), the next
+    ones find it packed (one launch, as a profile of the call counts the
+    kernels), an in-place update of a leaf repacks, and a new batch too."""
+    cfg, params, gen = _setup(dev, 128, 2, torch.float32)
+    lp = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in params["layers"].items()}
+    fn = tdk.fused_layer_step_v2
+    h = tlt.embed_input(params, cfg, _tokens(gen, dev, 8), 0, None).float().contiguous()
+    s = tdk.aug_state_init(cfg, 8, dev)[0]
+
+    def call():
+        c0, p0 = fn.cuda_launches, fn.packs
+        fn(h, lp, s, n_head=2)
+        torch.cuda.synchronize()
+        return fn.cuda_launches - c0, fn.packs - p0
+    tdk._V2_CACHE.clear()
+    assert call() == (2, 1)
+    assert call() == (1, 0)
+    lp2 = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in params["layers"].items()}
+    c0 = fn.cuda_launches
+    fn(h, lp2, s, n_head=2)            # the same leaves indexed afresh: still packed
+    assert fn.cuda_launches - c0 == 1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        assert call() == (1, 0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    with torch.no_grad():
+        params["layers"]["ffn1"]["w"].mul_(1.0)
+    assert call() == (2, 1)
+    assert call() == (1, 0)
+    s4 = tdk.aug_state_init(cfg, 4, dev)[0]
+    c0, p0 = fn.cuda_launches, fn.packs
+    fn(h[:4].contiguous(), lp, s4, n_head=2)
+    assert (fn.cuda_launches - c0, fn.packs - p0) == (2, 1)
+
+
+@pytest.mark.gpu
+def test_v2_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    """v2 raises for a state of the wrong shape or type, leaves on another
+    device than h, and a device with no kernel."""
+    cfg, params, gen = _setup(dev, 48, 3, torch.float32)
+    lp = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in params["layers"].items()}
+    h = tlt.embed_input(params, cfg, _tokens(gen, dev, 4), 0, None).float()
+    s = tdk.aug_state_init(cfg, 4, dev)[0]
+    with pytest.raises(ValueError, match="state"):
+        tdk.fused_layer_step_v2(h, lp, s.double(), n_head=3)
+    with pytest.raises(ValueError, match="state"):
+        tdk.fused_layer_step_v2(h, lp, s[:, :2].contiguous(), n_head=3)
+    cpu = {k: {kk: vv.cpu() for kk, vv in v.items()} for k, v in lp.items()}
+    with pytest.raises(ValueError, match="expected a contiguous"):
+        tdk.fused_layer_step_v2(h, cpu, s, n_head=3)
+    with pytest.raises(ValueError, match="no kernel"):
+        tdk.fused_layer_step_v2(h.to("meta"), lp, s, n_head=3)
+
+
+@pytest.mark.gpu
+def test_a_and_v3_keep_the_exact_gelu(dev, monkeypatch):
+    """The gelu switch of the shared token kernel leaves A and v3 on
+    gelu_exact: at one shape each their h is within the 1e-4 gate (rtol,
+    atol) of their exact-gelu twins', at least ten times nearer to it than
+    to the same twins' with the tanh gelu, which end above the gate."""
+    from reinforcement_learning_in_music_generation_torch.ops import decode_common as tdc
+    b = 5
+    cfg, params, gen = _setup(dev, 128, 2, torch.float32)
+    h0 = tlt.embed_input(params, cfg, _tokens(gen, dev, b), 0, None).float()
+    dparams = tlt.make_decode_params(params, cfg)
+    st = [tdk4.init_state(cfg, b, torch.float32, dev) for _ in range(3)]
+    ha = tdk4.fused_stack_step(dparams, h0, st[0].s, st[0].z, n_head=2)[0].clone()
+    hp = tdk4.fused_stack_step_plain(dparams, h0, st[1].s, st[1].z, n_head=2)[0]
+    monkeypatch.setattr(tdk4, "gelu_exact", tdc.gelu_tanh)
+    ht = tdk4.fused_stack_step_plain(dparams, h0, st[2].s, st[2].z, n_head=2)[0]
+    monkeypatch.undo()
+    assert _gate_excess(ha, hp, 1e-4, 1e-4) <= 1.0 < _gate_excess(ht, hp, 1e-4, 1e-4)
+    assert 10 * _share(ha, hp) < _share(ha, ht)
+    cfg3, params3, gen3 = _setup(dev, 48, 3, torch.float32)
+    v3p = tdk3.make_v3_params(params3, cfg3, dtype=torch.float32)
+    h3 = tlt.embed_input(params3, cfg3, _tokens(gen3, dev, b), 0, None).float()
+    s3 = [tdk3.init_aug_state(cfg3, b, dev) for _ in range(3)]
+    hk = tdk3.fused_stack_step(v3p, h3, s3[0], n_head=3)[0].clone()
+    hp3 = tdk3.fused_stack_step_plain(v3p, h3, s3[1], n_head=3)[0]
+    monkeypatch.setattr(tdk3, "gelu_exact", tdc.gelu_tanh)
+    ht3 = tdk3.fused_stack_step_plain(v3p, h3, s3[2], n_head=3)[0]
+    assert _gate_excess(hk, hp3, 1e-4, 1e-4) <= 1.0 < _gate_excess(ht3, hp3, 1e-4, 1e-4)
+    assert 10 * _share(hk, hp3) < _share(hk, ht3)
+
+
 @pytest.mark.gpu
 def test_aug_wrappers_reject_what_the_kernel_does_not_take(dev):
     cfg, params, gen = _setup(dev, 48, 3, torch.float32)
@@ -1659,6 +1842,40 @@ def test_v5_kernel_matches_plain(dev, b):
         print(f"[gate] v5 B={b} greedy={greedy}: max|dS| / max|S| against the twin "
               f"{_share(sk, sp):.3e}, against v4's arithmetic {ctl:.3e}")
         assert ctl > 1e-4, f"the 1e-4 gate would pass v4's arithmetic ({ctl})"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 32])
+def test_v5_kernel_matches_plain_with_f32_weights(dev, b):
+    """f32 weights (the kernel's products at f32 grade: both operands as
+    three bf16 planes, the weights' planes from make_v5_params): as the bf16
+    case, teacher-forced one-token calls agree with the twin (v4's
+    arithmetic, every rounding a no-op) on >= 97% of the tokens, and after 8
+    fed tokens S and z lie within 1e-4 of their magnitude."""
+    cfg, params, gen = _setup(dev, 128, 2, torch.float32)
+    v5p = tdk5.make_v5_params(params, cfg, dtype=torch.float32)
+    assert v5p.planes is not None
+    pe = tcm.sinusoidal_table(cfg.max_len, cfg.d_model, torch.float32, dev)
+    for greedy, temps, topps in ((True, (1.0,) * 6, (float("inf"),) * 6),
+                                 (False, CP_TEMPS, CP_TOPPS)):
+        kw = dict(n_head=2, max_tokens=1, temps=temps, topps=topps, greedy=greedy,
+                  eps=cfg.attn_eps)
+        st = tlt.init_decode_state(cfg, b, device=dev)
+        sk, zk = tdk5.pack_state(st.s, st.z)
+        sp, zp = tdk5.pack_state(st.s, st.z)
+        agree = 0
+        for t in range(8):
+            tok = _tokens(gen, dev, b)
+            s_tf, z_tf = sp.clone(), zp.clone()
+            ok = tdk5.fused_decode_v5(v5p, tok, s_tf, z_tf, pe[t:t + 1], 3 + t, bb=8,
+                                      vocab_sizes=VOCAB, **kw)[0]
+            tdk5.fused_decode_v5(v5p, tok, sk, zk, pe[t:t + 1], 3 + t, bb=8, vocab_sizes=VOCAB,
+                                 **kw)
+            op = tdk5.fused_decode_v5_plain(v5p, tok, sp, zp, pe[t:t + 1], 3 + t, **kw)[0]
+            agree += int((ok == op).sum())
+        assert agree / (8 * b * 6) >= 0.97
+        _close(sk, sp, 1e-4, f"S at B={b}, f32 weights")
+        _close(zk, zp, 1e-4, f"z at B={b}, f32 weights")
 
 
 @pytest.mark.gpu
