@@ -232,14 +232,15 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      one head of 512 (5 songs, 8 bars, CP sampling, bf16, the default env)
      reaches v3 and never kernel A, every token in its vocabulary; tokens/s
      printed beside kernel A's at 8 heads;
- 27. v1 (csrc/decode_aug.cu's passes) and v2 (A's token kernel a layer,
-     the tanh gelu) through ``fused_decode_step`` at full width, B=32, 16
-     tokens, f32: h and state within 1e-4 of their magnitude against the
-     plain twins, one wrapper call a layer; v2 one CUDA launch a call and
-     one a layer's packing, its kernel's runs one a call; v2's h gate
-     (rtol = atol = 1e-4) against the exact gelu at f32 and bf16 layers
-     (``control_gate_failures``: v2 within it, the same tokens with each
-     layer on v3's token kernel above it);
+ 27. v1 and v2 (A's token kernel a layer, the tanh gelu; v1 with its LN1
+     order) through ``fused_decode_step`` at full width, B=32, 16 tokens,
+     f32: h and state within 1e-4 of their magnitude against the plain
+     twins, one wrapper call a layer, one CUDA launch a call and one a
+     layer's packing, the kernel's runs one a call, each variant's counted
+     apart; each variant's h gate (rtol = atol = 1e-4) against the exact
+     gelu at f32 and bf16 layers (``control_gate_failures``: the variant
+     within it, the same tokens with each layer on v3's token kernel above
+     it);
  28. v5 (csrc/latency_decode.cu): its main path, the parity (B=8, T=64,
      bf16 and f32 weights) and perf (B=256, T=128, bb 8, 16, 32) modes of
      scripts/profile_torch_decode_v5.py, launches the kernel, every token in
@@ -249,13 +250,14 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc.  It
      calls each from the twin's state, greedy and CP sampling with one
      seed: >= 99% of the tokens equal, and after the same 64 fed tokens the
      states within 1e-3 of their magnitude; HMMA in both instantiations of
-     v5's kernel and of v2's token kernel (cuobjdump); bb=16 at B=8
+     v5's kernel and of v1's and v2's token kernel (cuobjdump); bb=16 at B=8
      refused;
  29. times v3 (B=5 at one head; B=5, 32, 128 at 8 heads), v1 and v2 (one
-     layer, B=32) and v5 (B=8; B=256 at bb 8, 16, 32) beside their plain
-     twins, kernel A (and v8) at the same B, the launches a token read from
-     the counters and the bound (operations at the bf16 peak for v5, at
-     989/6 for v2's f32-grade products);
+     layer, B=32, through the wrapper and on the device) and v5 (B=8; B=256
+     at bb 8, 16, 32) beside their plain twins, kernel A (and v8) at the
+     same B, the launches a token read from the counters and the bound
+     (operations at the bf16 peak for v5, at 989/6 for v1's and v2's
+     f32-grade products);
  30. times each kernel and its plain version at the main paths' shapes
      (CUDA events) beside the least time the card could take, and kernel E
      beside the library call (and its device time under the profiler);
@@ -1769,19 +1771,24 @@ def aug_slice(cfg, params, dev, gen) -> list:
           f"{rates['A']:.1f}; v3's runs a token {v3_runs_per_token:g}", flush=True)
 
     # -- 27. v1 and v2 through fused_decode_step, B=32, 16 tokens, f32 --------
-    # v2 runs A's token kernel a layer (the tanh gelu): its layers are packed
-    # by one launch at their first call, then one launch a call
-    layer_err, layer_launch = {}, {}
-    dk._V2_CACHE.clear()
-    dk.fused_layer_step_v2.packs = 0
-    dk.kernel_runs_v2(reset=True)
-    for variant, fn, plain in (("v1", dk.fused_layer_step, dk.fused_layer_step_plain),
-                               ("v2", dk.fused_layer_step_v2, dk.fused_layer_step_v2_plain)):
+    # v1 and v2 run A's token kernel a layer (the tanh gelu; v1 with its LN1
+    # order, h + (att Wo + bo)): a variant's layers are packed by one launch
+    # at their first call (the two variants share the packed layers, so the
+    # cache is emptied before each), then one launch a call; the kernel
+    # counts each variant's runs apart
+    layer_err, layer_launch, layer_runs, layer_packs = {}, {}, {}, {}
+    runs_of = {"v1": dk.kernel_runs_v1, "v2": dk.kernel_runs_v2}
+    variants = (("v1", dk.fused_layer_step, dk.fused_layer_step_plain),
+                ("v2", dk.fused_layer_step_v2, dk.fused_layer_step_v2_plain))
+    for variant, fn, plain in variants:
         b = 32
         toks = rand_tokens(16, b)
         sk = lt.DecodeState(dk.aug_state_init(cfg, b, dev), None, 0)
         sp = dk.aug_state_init(cfg, b, dev)
-        fn.launches = fn.cuda_launches = 0
+        dk._V2_CACHE.clear()
+        for counter in runs_of.values():
+            counter(reset=True)
+        fn.launches = fn.cuda_launches = fn.packs = 0
         h_err, h_abs = 0.0, 0.0
         for t in range(16):
             hk, sk = dk.fused_decode_step(params, cfg, toks[t], sk, variant=variant)
@@ -1793,24 +1800,26 @@ def aug_slice(cfg, params, dev, gen) -> list:
             h_err = max(h_err, max_err(hk, hp) / magnitude(hp))
         torch.cuda.synchronize()
         s_err = max_err(sk.s, sp) / magnitude(sp)
+        runs = {v: counter() for v, counter in runs_of.items()}
         layer_err[variant] = h_abs
         layer_launch[variant] = (fn.launches, fn.cuda_launches)
+        layer_runs[variant], layer_packs[variant] = runs[variant], fn.packs
         print(f"[{variant}] fused_decode_step B={b}, 16 tokens, f32: max|dh| / magnitude "
               f"{h_err:.3e}, max|ds| / magnitude {s_err:.3e}; wrapper calls {fn.launches}, "
-              f"CUDA launches {fn.cuda_launches}", flush=True)
+              f"{fn.packs} packings (one a layer), {fn.cuda_launches} CUDA launches; "
+              f"token-kernel runs as the kernel counts them {runs}", flush=True)
         check(h_err <= 1e-4 and s_err <= 1e-4, f"{variant}: h {h_err}, state {s_err}")
         check(fn.launches == 16 * L, f"{variant}: {fn.launches} calls, expected {16 * L}")
-    v2_runs = dk.kernel_runs_v2()
-    v2 = dk.fused_layer_step_v2
-    print(f"[v2] {v2.packs} packings (one a layer), {v2.cuda_launches} CUDA launches for "
-          f"{v2.launches} calls, {v2_runs} token-kernel runs as the kernel counts them", flush=True)
-    check(v2.packs == L and v2.cuda_launches == v2.launches + v2.packs and v2_runs == v2.launches,
-          f"v2: {v2.cuda_launches} CUDA launches, {v2.packs} packings, {v2_runs} runs for "
-          f"{v2.launches} calls; expected one a call and one a layer's packing")
-    # the v2 gate (test_layer_kernels_match_plain's h gate, rtol = atol = 1e-4)
-    # against the exact gelu: the same five tokens with each layer on v3's
-    # token kernel (v2's layer with gelu_exact) must land above it
-    v2_gate = {}
+        other = "v2" if variant == "v1" else "v1"
+        check(fn.packs == L and fn.cuda_launches == fn.launches + fn.packs
+              and runs[variant] == fn.launches and runs[other] == 0,
+              f"{variant}: {fn.cuda_launches} CUDA launches, {fn.packs} packings, runs {runs} "
+              f"for {fn.launches} calls; expected one a call and one a layer's packing, the "
+              "runs counted apart")
+    # the layer gate (test_layer_kernels_match_plain's h gate, rtol = atol =
+    # 1e-4) against the exact gelu: the same five tokens with each layer on
+    # v3's token kernel (v2's layer with gelu_exact) must land above it
+    layer_gate = {"v1": {}, "v2": {}}
     for wname, prm in (("float32", params),
                        ("bfloat16 layers", dict(params, layers={
                            k: {kk: vv.to(bf16) for kk, vv in v.items()}
@@ -1827,22 +1836,25 @@ def aug_slice(cfg, params, dev, gen) -> list:
                     h = step(h, layer(li, prm), s[li], li)
                 h = cm.layernorm(prm["final_ln"], h)
             return h
-        c0, p0 = v2.cuda_launches, v2.packs
-        hk = run(lambda h, lp, s, li: dk.fused_layer_step_v2(h, lp, s, **kw)[0])
-        launches = (v2.cuda_launches - c0, v2.packs - p0)
-        hp = run(lambda h, lp, s, li: dk.fused_layer_step_v2_plain(h, lp, s, **kw)[0])
         hc = run(lambda h, lp, s, li: dk3.fused_stack_step(
             {k: v[li:li + 1] for k, v in v3l.items()}, h.float().contiguous(), s[None],
             **kw)[0].clone())
-        torch.cuda.synchronize()
-        k_ex, c_ex = gate_excess(hk, hp, 1e-4, 1e-4), gate_excess(hc, hp, 1e-4, 1e-4)
-        v2_gate[wname] = {"kernel": k_ex, "exact_gelu_control": c_ex}
-        print(f"[v2] {wname} weights, B=4, 5 tokens: h against the twin at {k_ex:.3g} of the "
-              f"1e-4 gate, the exact-gelu control at {c_ex:.3g}; CUDA launches and packings "
-              f"{launches} for {5 * L} calls", flush=True)
-        fails = control_gate_failures(f"v2 {wname}", k_ex, c_ex)
-        check(not fails, "; ".join(fails))
-        check(launches == (5 * L + L, L), f"v2 {wname}: launches and packings {launches}")
+        for variant, fn, plain in variants:
+            dk._V2_CACHE.clear()
+            c0, p0 = fn.cuda_launches, fn.packs
+            hk = run(lambda h, lp, s, li: fn(h, lp, s, **kw)[0])
+            launches = (fn.cuda_launches - c0, fn.packs - p0)
+            hp = run(lambda h, lp, s, li: plain(h, lp, s, **kw)[0])
+            torch.cuda.synchronize()
+            k_ex, c_ex = gate_excess(hk, hp, 1e-4, 1e-4), gate_excess(hc, hp, 1e-4, 1e-4)
+            layer_gate[variant][wname] = {"kernel": k_ex, "exact_gelu_control": c_ex}
+            print(f"[{variant}] {wname} weights, B=4, 5 tokens: h against the twin at "
+                  f"{k_ex:.3g} of the 1e-4 gate, the exact-gelu control at {c_ex:.3g}; CUDA "
+                  f"launches and packings {launches} for {5 * L} calls", flush=True)
+            fails = control_gate_failures(f"{variant} {wname}", k_ex, c_ex)
+            check(not fails, "; ".join(fails))
+            check(launches == (5 * L + L, L), f"{variant} {wname}: launches and packings "
+                                               f"{launches}")
 
     # -- 28. v5: its main path, then against its plain twin -------------------
     spec = importlib.util.spec_from_file_location(
@@ -1902,8 +1914,10 @@ def aug_slice(cfg, params, dev, gen) -> list:
             check(frac >= 0.99, f"v5 {str(wdt)[6:]} {mode}: agreement {frac} < 99%")
             check(ds <= 1e-3, f"v5 {str(wdt)[6:]} {mode}: state differs by {ds} of its magnitude")
     v5p = dk5.make_v5_params(p16, cfg)
-    # every product of v5 (and of v2's token kernel) on the tensor cores:
-    # HMMA in each instantiation's SASS
+    # every product of v5 (and of v1's and v2's token kernel) on the tensor
+    # cores: HMMA in each instantiation's SASS.  v1 and v2 launch the same
+    # two instantiations (the tanh gelu's, f32 and bf16 weights); v1 is a
+    # field of the launch's arguments, not an instantiation of its own.
     v5_hmma, v2_hmma = {}, {}
     cuobj = cuobjdump_path()
     if cuobj is not None:
@@ -1914,11 +1928,12 @@ def aug_slice(cfg, params, dev, gen) -> list:
                                   capture_output=True, text=True).stdout
             out.update({k: n for k, n in mma_counts(sass, marker).items()
                         if lib == "latency_decode" or k.endswith("Lb1ELb1EEEvNS_11StackTcArgsE")})
-        print(f"[v5] HMMA in decode_v5_kernel's instantiations {v5_hmma}; in v2's token kernel "
-              f"(the tanh gelu's) {v2_hmma}", flush=True)
+        print(f"[v5] HMMA in decode_v5_kernel's instantiations {v5_hmma}; in v1's and v2's "
+              f"token kernel (the tanh gelu's) {v2_hmma}", flush=True)
         check(len(v5_hmma) == 2 and min(v5_hmma.values()) > 0,
               f"v5: HMMA counts {v5_hmma}")
-        check(len(v2_hmma) == 2 and min(v2_hmma.values()) > 0, f"v2: HMMA counts {v2_hmma}")
+        check(len(v2_hmma) == 2 and min(v2_hmma.values()) > 0,
+              f"v1 / v2: HMMA counts {v2_hmma}")
     else:
         print("[v5] no cuobjdump: the HMMA count is not read", flush=True)
     kw = dict(n_head=H, max_tokens=1, greedy=True, eps=cfg.attn_eps, **modes[True])
@@ -1967,25 +1982,26 @@ def aug_slice(cfg, params, dev, gen) -> list:
     a32 = time_ms(lambda: dk4.fused_stack_step(None, h32, sa.s, sa.z, n_head=H, work=wa),
                   20) / L
     tl = {}
-    for variant, fn, plain in (("v1", dk.fused_layer_step, dk.fused_layer_step_plain),
-                               ("v2", dk.fused_layer_step_v2, dk.fused_layer_step_v2_plain)):
+    for variant, fn, plain in variants:
         s1 = dk.aug_state_init(cfg, b, dev)[0]
         lp = layer(0)
         n0 = fn.cuda_launches
         ms = time_ms(lambda: fn(h32, lp, s1, n_head=H), 20)
         per_call = (fn.cuda_launches - n0) / 21
+        dms = device_ms(lambda: fn(h32, lp, s1, n_head=H), 20)
         pms = time_ms(lambda: plain(h32, lp, s1, n_head=H), 5)
         ops, nb = decode_token_work(b, 1, D, DI, w_bytes=4,
                                     state_bytes=aug_state_bytes(b, 1, D, H))
-        # v2's products at f32 grade on the tensor cores (six bf16 products
-        # a product with f32 weights); v1's SIMT f32 FMAs
-        bd, by = bound(nb, ops, SPLIT_BF16_FLOPS if variant == "v2" else F32_FLOPS)
-        tl[variant] = {"ms": ms, "plain_ms": pms, "kernel_a_ms_per_layer": a32,
-                       "cuda_launches_per_call": per_call, "bound_ms": bd, "bound_by": by}
+        # the products at f32 grade on the tensor cores (six bf16 products a
+        # product with f32 weights)
+        bd, by = bound(nb, ops, SPLIT_BF16_FLOPS)
+        tl[variant] = {"ms": ms, "device_ms": dms, "plain_ms": pms,
+                       "kernel_a_ms_per_layer": a32, "cuda_launches_per_call": per_call,
+                       "bound_ms": bd, "bound_by": by}
         print(f"[time] {variant} one layer, B={b}, f32 weights: {ms:.4f} ms a call "
-              f"({per_call:g} CUDA launches a call, the packing included), plain "
-              f"{pms:.3f}, kernel A's layer stack / L {a32:.4f} (f32 state); bound {bd:.4f} "
-              f"({by})", flush=True)
+              f"({per_call:g} CUDA launches a call, the packing included), on the device "
+              f"{dms:.4f}, plain {pms:.3f}, kernel A's layer stack / L {a32:.4f} (f32 state); "
+              f"bound {bd:.4f} ({by})", flush=True)
     t5 = {}
     rp16 = dk8.make_resident_params(params, cfg, dtype=bf16)
     for b, T, bbs in ((8, 64, (8,)), (256, 32, (8, 16, 32))):
@@ -2043,21 +2059,21 @@ def aug_slice(cfg, params, dev, gen) -> list:
          "tokens_per_s_generate_songs": {"v3, one head": rates["v3"],
                                          f"kernel A, {H} heads": rates["A"]}},
     ]
-    for variant, line, source in (("v1", 91, "decode_aug.cu"), ("v2", 186, "decode_stack_tc.cuh")):
+    for variant, line in (("v1", 91), ("v2", 186)):
         r = tl[variant]
-        entry = {
-            "name": f"decode_layer_{variant}", "route": "cuda", "source": f"{pkg}/csrc/{source}",
+        entries.append({
+            "name": f"decode_layer_{variant}", "route": "cuda",
+            "source": f"{pkg}/csrc/decode_stack_tc.cuh",
+            "entry_point": f"{pkg}/csrc/decode_aug.cu",
             "replaces": f"{tpu}/experimental/decode_kernel.py:{line}",
             "launches": layer_launch[variant][0],
             "cuda_launches_per_call": r["cuda_launches_per_call"],
-            "max_abs_err": layer_err[variant], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "kernel_a_ms_per_layer": r["kernel_a_ms_per_layer"],
-            "unit": "ms per layer call of B=32 songs, f32 weights and state"}
-        if variant == "v2":
-            entry.update(entry_point=f"{pkg}/csrc/decode_aug.cu", packings=L,
-                         token_kernel_runs=v2_runs, hmma=v2_hmma, gelu_gate=v2_gate)
-        entries.append(entry)
+            "packings": layer_packs[variant], "token_kernel_runs": layer_runs[variant],
+            "max_abs_err": layer_err[variant], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "kernel_a_ms_per_layer": r["kernel_a_ms_per_layer"],
+            "hmma": v2_hmma, "gelu_gate": layer_gate[variant],
+            "unit": "ms per layer call of B=32 songs, f32 weights and state"})
     head5 = t5[(256, 8)]
     entries.append({
         "name": "decode_v5", "route": "cuda", "source": f"{pkg}/csrc/latency_decode.cu",

@@ -2,10 +2,10 @@
 // products on the tensor cores at f32 grade: kernel A (decode_step.cu, the
 // counterpart of reinforcement_learning_in_music_generation_tpu/ops/
 // decode_kernel_v4.py fused_stack_step_v4), v3 (decode_aug.cu, of
-// ops/decode_kernel_v3.py fused_stack_step) and v2 (decode_aug.cu, of
-// ops/experimental/decode_kernel.py fused_layer_step_v2: one layer, the
-// tanh gelu, TANH below) share it.  Plain C interface through the sources;
-// no PyTorch headers.
+// ops/decode_kernel_v3.py fused_stack_step), v2 and v1 (decode_aug.cu, of
+// ops/experimental/decode_kernel.py fused_layer_step_v2 and fused_layer_step:
+// one layer, the tanh gelu, TANH below; v1 also the v1 field) share it.
+// Plain C interface through the sources; no PyTorch headers.
 //
 // Arithmetic: the TPU kernels' own.  Activations stay f32; the weights, bf16
 // or f32, are cast up; every sum is f32; the state is accumulated in f32
@@ -20,7 +20,8 @@
 //     hi.mid, hi.hi), as train_gemm_tc.cuh forms them.
 // Each depth of 16 is summed afresh, in three independent sums added in
 // f32: the tensor cores truncate what they add to a running sum.  LN1
-// takes (h + att Wo) + bo, LN2 h1 + (y W2 + b2), the TPU kernels' orders.
+// takes (h + att Wo) + bo (v1: h + (att Wo + bo)), LN2 h1 + (y W2 + b2), the
+// TPU kernels' orders.
 //
 // A token is 4 L grid barriers (grid.sync), 4 a layer:
 //   Q   items: (16 songs, NT columns of 8) of x @ Wqkv + b, phi on q and k.
@@ -35,7 +36,7 @@
 //       release / acquire), not for the grid.
 //   O   where a head has several state items (E > 64), z += phi(k) (column
 //       E of the augmented state for v3; else the state item did it), then
-//       items of att @ Wo with r1 = (hres + acc) + bo.
+//       items of att @ Wo with r1 = (hres + acc) + bo (v1: hres + (acc + bo)).
 //   F1  LN1 of r1 formed in shared memory (column group 0 writes h1); y =
 //       gelu_exact(h1 @ W1 + b1) (v2: the tanh gelu).
 //   F2  r2 = h1 + (y @ W2 + b2).
@@ -119,10 +120,11 @@ __device__ unsigned long long sk_marks[SK_MAX_L * SK_MARKS][SK_MAX_G];
 
 // Launches of the token kernel that ran to their end, counted by the
 // kernel: block 0's thread 0 adds 1 as a launch ends.  One counter a
-// library and gelu (decode_step: A; decode_aug: v3, and v2 on the tanh
-// gelu's), read by stack_tc_runs.
-__device__ unsigned long long sk_runs;
-__device__ unsigned long long sk_runs_tanh;
+// library and route (decode_step: A; decode_aug: v3 on the exact gelu's, v2
+// and v1 on the tanh gelu's, told apart by the v1 field), read by
+// stack_tc_runs.
+enum { SK_RUNS_EXACT, SK_RUNS_V2, SK_RUNS_V1, SK_N_RUNS };
+__device__ unsigned long long sk_runs[SK_N_RUNS];
 
 enum { SK_Q = 0, SK_O = 1, SK_F1 = 2, SK_F2 = 3 };
 // vectors, each stacked over L: qkv bias (3D), Wo bias, LN1 scale / shift,
@@ -141,6 +143,7 @@ struct StackTcArgs {
   int L, B, D, H, DI;
   float eps;
   int head_major;            // qkv columns [q_h k_h v_h] by head (v3) or [q | k | v] (A)
+  int v1;                    // v1's layer: r1 = h + (att Wo + bo), runs in sk_runs[SK_RUNS_V1]
   int nt[4];                 // column tiles of 8 an item, by product
 };
 
@@ -452,7 +455,8 @@ __device__ void sk_product(const StackTcArgs& a, int ph, int l, float* as, float
         const bool is_qk = a.head_major ? (n % (3 * E)) < 2 * E : n < 2 * a.D;
         a.qkv[mi * 3 * a.D + n] = is_qk ? phi(v) : v;
       } else if (ph == SK_O) {
-        a.r1[mi * a.D + n] = (er[e] + v) + eb[e];
+        // v1's order only where it can run (TANH): A's and v3's code as before
+        a.r1[mi * a.D + n] = TANH && a.v1 ? er[e] + (v + eb[e]) : (er[e] + v) + eb[e];
       } else if (ph == SK_F1) {
         a.y[mi * a.DI + n] = TANH ? gelu_tanh(v + eb[e]) : gelu_exact(v + eb[e]);
       } else {
@@ -651,7 +655,8 @@ __global__ void __launch_bounds__(SK_THREADS, 1) stack_tc_kernel(StackTcArgs a) 
   }
   if (blockIdx.x == 0) {                       // every wait of this launch is over
     for (int i = threadIdx.x; i < (a.B + SK_ROWS - 1) / SK_ROWS; i += SK_THREADS) a.cnt[i] = 0;
-    if (threadIdx.x == 0) atomicAdd(TANH ? &sk_runs_tanh : &sk_runs, 1ull);
+    if (threadIdx.x == 0)
+      atomicAdd(&sk_runs[TANH ? (a.v1 ? SK_RUNS_V1 : SK_RUNS_V2) : SK_RUNS_EXACT], 1ull);
   }
 }
 
@@ -666,7 +671,7 @@ inline long long stack_tc_scratch_floats(int B, int D, int DI) {
 inline StackTcArgs stack_tc_args(const void* const* w, const void* const* v, void* s, void* z,
                                  const float* h_in, float* h_out, float* scratch,
                                  unsigned int* cnt, int L, int B, int D, int H, int DI,
-                                 float eps, int head_major) {
+                                 float eps, int head_major, int v1 = 0) {
   StackTcArgs a{};
   for (int i = 0; i < 4; ++i) a.w[i] = w[i];
   for (int i = 0; i < SV_N; ++i) a.v[i] = v[i];
@@ -689,20 +694,19 @@ inline StackTcArgs stack_tc_args(const void* const* w, const void* const* v, voi
   a.DI = DI;
   a.eps = eps;
   a.head_major = head_major;
+  a.v1 = v1;
   return a;
 }
 
-// sk_runs (tanh: sk_runs_tanh) since the last reset (waits for the card);
-// reset zeroes it after the read.  A negative value is minus a CUDA error
-// code.
-inline long long stack_tc_runs(int reset, bool tanh = false) {
+// sk_runs[which] since the last reset (waits for the card); reset zeroes
+// it after the read.  A negative value is minus a CUDA error code.
+inline long long stack_tc_runs(int reset, int which = SK_RUNS_EXACT) {
   unsigned long long n = 0;
-  cudaError_t e = tanh ? cudaMemcpyFromSymbol(&n, sk_runs_tanh, sizeof n)
-                       : cudaMemcpyFromSymbol(&n, sk_runs, sizeof n);
+  const size_t at = (size_t)which * sizeof n;
+  cudaError_t e = cudaMemcpyFromSymbol(&n, sk_runs, sizeof n, at);
   if (e == cudaSuccess && reset) {
     const unsigned long long zero = 0;
-    e = tanh ? cudaMemcpyToSymbol(sk_runs_tanh, &zero, sizeof zero)
-             : cudaMemcpyToSymbol(sk_runs, &zero, sizeof zero);
+    e = cudaMemcpyToSymbol(sk_runs, &zero, sizeof zero, at);
   }
   return e == cudaSuccess ? (long long)n : -(long long)e;
 }

@@ -10,19 +10,23 @@ reads the layer's (D, 3D) [q | k | v] weight and forms h + (att Wo + bo), v2
 reads head-major weights, qkv (H, D, 3E) and Wo (H, E, D), and forms
 (h + sum_h att_h Wo_h) + bo.
 
-Kernels (``csrc/decode_aug.cu``):
-  v2  kernel A's token kernel (``csrc/decode_stack_tc.cuh``) for one layer
-      with the tanh gelu, v3's layer: one cooperative launch a call, every
-      product on the tensor cores at f32 grade.  Its weights are the
-      layer's leaves packed by one launch of ``rlmg_v2_pack`` (the
-      head-major qkv columns and Wo in mma fragment order, the vectors f32),
-      kept in an LRU (``V2_CACHE_SIZE`` layers) while every leaf keeps its
-      storage and version; an in-place update repacks.  So a call issues one
-      CUDA launch once its layer is packed and two when it packs (one more
-      each way when h is not a contiguous float32 tensor).
-  v1  the per-layer passes (``decode_kernel_v3.run_aug``): 9 CUDA launches.
-``fused_decode_step`` loops a variant over the layers (JAX :220-249), which
-only tests and ``chip_smoke.py`` call, as in the JAX package.
+Kernel (``csrc/decode_aug.cu``, entries ``rlmg_v2_tc_step`` and
+``rlmg_v1_tc_step``): kernel A's token kernel (``csrc/decode_stack_tc.cuh``)
+for one layer with the tanh gelu, v3's layer: one cooperative launch a call,
+every product on the tensor cores at f32 grade.  v1 sets the kernel's v1
+field (LN1 of h + (att Wo + bo), its runs counted apart from v2's); that is
+the only difference, since v1's [q | k | v] columns, permuted head-major,
+are v2's qkv weight and its Wo is v2's row for row.  Both read the layer's
+leaves packed by one launch of ``rlmg_v2_pack`` (the head-major qkv columns
+and Wo in mma fragment order, the vectors f32), kept with the call's scratch
+in an LRU (``V2_CACHE_SIZE`` layers) while every leaf keeps its storage and
+version; an in-place update repacks.  So a call issues one CUDA launch once
+its layer is packed and two when it packs (one more each way when h is not
+a contiguous float32 tensor).  The kernel takes d_model a multiple of 8 and
+at most 1024, d_inner a multiple of 8 (``stack_tc_shape_ok``); a CUDA call
+it cannot take raises ``ValueError``.  ``fused_decode_step`` loops a variant
+over the layers (JAX :220-249), which only tests and ``chip_smoke.py`` call,
+as in the JAX package.
 
 Each variant launches its kernel for CUDA tensors and runs its plain twin
 (``fused_layer_step_plain``, ``fused_layer_step_v2_plain``) for CPU
@@ -42,7 +46,7 @@ from ...models import common as cm
 from ...models.linear_transformer import DecodeState, embed_input
 from .. import decode_kernel_v4 as dk4
 from ..decode_common import gelu_tanh, ln, phi
-from ..decode_kernel_v3 import _lib, aug_attention_plain, init_aug_state, run_aug
+from ..decode_kernel_v3 import _lib, aug_attention_plain, init_aug_state
 from ..linear_attention import DEFAULT_EPS
 
 aug_state_init = init_aug_state          # the JAX module's name (:252)
@@ -53,16 +57,16 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _tail_weights(lp: dict) -> list:
-    """The layer's weights after Wo in the kernel's order: matrices in their
-    dtype, vectors f32."""
+    """The layer's weights after Wo in the plain twins' order: matrices in
+    their dtype, vectors f32."""
     return [_f32(lp["wo"]["b"]), _f32(lp["ln1"]["scale"]), _f32(lp["ln1"]["bias"]),
             lp["ffn1"]["w"].contiguous(), _f32(lp["ffn1"]["b"]), lp["ffn2"]["w"].contiguous(),
             _f32(lp["ffn2"]["b"]), _f32(lp["ln2"]["scale"]), _f32(lp["ln2"]["bias"])]
 
 
 def _v1_weights(lp: dict) -> list:
-    """One layer's weights in the kernel's order, the (D, 3D) qkv layout
-    (JAX :101-102)."""
+    """One layer's weights in v1's twin's order, the (D, 3D) [q | k | v]
+    layout (JAX :101-102)."""
     qkv_w = torch.cat([lp["wq"]["w"], lp["wk"]["w"], lp["wv"]["w"]], dim=-1).contiguous()
     qkv_b = torch.cat([lp["wq"]["b"], lp["wk"]["b"], lp["wv"]["b"]], dim=-1)
     return [qkv_w, _f32(qkv_b), lp["wo"]["w"].contiguous()] + _tail_weights(lp)
@@ -136,19 +140,17 @@ def fused_layer_step(h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor, *
     layer's wq/wk/wv/wo/ln1/ln2/ffn1/ffn2 (unstacked); s_aug (H, B, E, E + 1)
     float32, UPDATED IN PLACE.  Returns (h' in h's dtype, s_aug).
 
-    CUDA tensors go to the kernel (``launches`` counts the calls,
-    ``cuda_launches`` their CUDA launches); CPU tensors to
-    ``fused_layer_step_plain``; any other device raises."""
+    CUDA tensors go to the token kernel as ``fused_layer_step_v2``'s do, with
+    the v1 field set (``launches`` counts the calls, ``cuda_launches`` every
+    CUDA launch a call issues, ``packs`` the packings; ``kernel_runs_v1``
+    the kernel's own count); CPU tensors to ``fused_layer_step_plain``; any
+    other device raises."""
     if h.device.type == "cpu":
         return fused_layer_step_plain(h, layer_params, s_aug, n_head=n_head, eps=eps)
-    out, n = run_aug(_v1_weights(layer_params), h.float().contiguous(), s_aug[None],
-                     n_head=n_head, eps=eps, name="fused_layer_step (v1)")
-    fused_layer_step.launches += 1
-    fused_layer_step.cuda_launches += n
-    return out.to(h.dtype), s_aug
+    return _layer_tc("v1", h, layer_params, s_aug, n_head, eps)
 
 
-# -- v2: the layer's leaves packed for the token kernel ------------------------
+# -- v1 and v2: the layer's leaves packed for the token kernel ----------------
 
 # One layer's leaves in the order of csrc/decode_aug.cu's V2_WQ..V2_L2B.
 V2_LEAVES = (("wq", "w"), ("wk", "w"), ("wv", "w"), ("wo", "w"), ("ffn1", "w"), ("ffn2", "w"),
@@ -197,11 +199,13 @@ def unpack_fragments(packed: torch.Tensor, k: int) -> torch.Tensor:
 
 class V2Packed(NamedTuple):
     """One layer's operands of the token kernel at one batch: the four packed
-    matrices, the eight f32 vectors, the row tiles' counters, their
-    pointers for the C call, and d_inner."""
+    matrices, the eight f32 vectors, the row tiles' counters, the launch's
+    f32 scratch (its intermediates, rewritten by every call), the pointers
+    for the C call, and d_inner."""
     mats: Tuple[torch.Tensor, ...]
     vecs: Tuple[torch.Tensor, ...]
     cnt: torch.Tensor
+    scratch: torch.Tensor
     wptr: ctypes.Array
     vptr: ctypes.Array
     di: int
@@ -243,15 +247,16 @@ def cached_layer(leaves: List[torch.Tensor], key_extra, build):
     return value, True
 
 
-def _v2_pack(leaves: List[torch.Tensor], n_head: int, b: int, dev: torch.device) -> V2Packed:
+def _v2_pack(leaves: List[torch.Tensor], n_head: int, b: int, dev: torch.device,
+             name: str = "fused_layer_step_v2") -> V2Packed:
     """One launch of ``rlmg_v2_pack``: the layer's operands at batch b on
-    ``dev``, where every leaf must lie."""
+    ``dev``, where every leaf must lie, and the launch's scratch."""
     d, di = leaves[0].shape[0], leaves[4].shape[-1]
     shapes = [(d, d)] * 4 + [(d, di), (di, d)] + [(d,)] * 6 + [(di,)] + [(d,)] * 3
     for (a, b_), t, shp in zip(V2_LEAVES, leaves, shapes):
         if (tuple(t.shape) != shp or t.dtype not in (torch.float32, torch.bfloat16)
                 or t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"fused_layer_step_v2: {a}/{b_} {tuple(t.shape)} {t.dtype} on "
+            raise ValueError(f"{name}: {a}/{b_} {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}: expected a contiguous float32 or bfloat16 {shp} on "
                              f"{dev}")
     wdt = _v2_kernel_dtype(leaves)
@@ -261,6 +266,8 @@ def _v2_pack(leaves: List[torch.Tensor], n_head: int, b: int, dev: torch.device)
                  for n in (3 * d, d, d, d, di, d, d, d))
     cnt = torch.empty((b + 15) // 16, dtype=torch.int32, device=dev)
     lib = _lib()
+    scratch = torch.empty(lib.rlmg_v3_tc_scratch_floats(b, d, di), dtype=torch.float32,
+                          device=dev)
     src = (ctypes.c_void_p * len(leaves))(*[t.data_ptr() for t in leaves])
     mask = sum(1 << i for i, t in enumerate(leaves) if t.dtype == torch.bfloat16)
     wptr = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in mats])
@@ -270,30 +277,36 @@ def _v2_pack(leaves: List[torch.Tensor], n_head: int, b: int, dev: torch.device)
                               di, int(wdt == torch.bfloat16),
                               torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"fused_layer_step_v2 packing: {lib.rlmg_error_string(rc).decode()}")
-    return V2Packed(mats, vecs, cnt, wptr, vptr, di)
+        raise RuntimeError(f"{name} packing: {lib.rlmg_error_string(rc).decode()}")
+    return V2Packed(mats, vecs, cnt, scratch, wptr, vptr, di)
 
 
-def kernel_runs_v2(reset: bool = False) -> int:
-    """Runs of v2's token kernel on the current card since the last reset,
-    as the kernel counts them; waits for the card."""
-    n = _lib().rlmg_v2_tc_runs(int(reset))
+def _kernel_runs(variant: str, reset: bool) -> int:
+    n = getattr(_lib(), f"rlmg_{variant}_tc_runs")(int(reset))
     if n < 0:
         raise RuntimeError(f"decode_aug: {_lib().rlmg_error_string(-n).decode()}")
     return n
 
 
-def fused_layer_step_v2(h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor, *,
-                        n_head: int, eps: float = DEFAULT_EPS
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """v2: ``fused_layer_step`` with head-major weights.  CUDA tensors go to
-    the token kernel (``launches`` counts the calls, ``cuda_launches`` every
-    CUDA launch a call issues, the packing and h's conversions included,
-    ``packs`` the packings); CPU tensors take ``fused_layer_step_v2_plain``;
-    any other device raises."""
-    if h.device.type == "cpu":
-        return fused_layer_step_v2_plain(h, layer_params, s_aug, n_head=n_head, eps=eps)
-    name = "fused_layer_step_v2"
+def kernel_runs_v2(reset: bool = False) -> int:
+    """Runs of v2's token kernel on the current card since the last reset,
+    as the kernel counts them (v1's apart); waits for the card."""
+    return _kernel_runs("v2", reset)
+
+
+def kernel_runs_v1(reset: bool = False) -> int:
+    """Runs of v1's token kernel on the current card since the last reset,
+    as the kernel counts them (v2's apart); waits for the card."""
+    return _kernel_runs("v1", reset)
+
+
+def _layer_tc(variant: str, h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor,
+              n_head: int, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA half of v1 and v2: the checks, the layer's packing (shared by
+    both variants through ``cached_layer``), one launch of the variant's
+    entry, and the wrapper's counters.  h_out is a fresh tensor each call."""
+    fn = fused_layer_step if variant == "v1" else fused_layer_step_v2
+    name = fn.__name__
     if h.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {h.device}")
     if h.dim() != 2 or n_head < 1 or h.shape[1] % n_head:
@@ -309,21 +322,19 @@ def fused_layer_step_v2(h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor
     lib = _lib()
     dk4.check_shape(lib.rlmg_v3_tc_shape_ok, d, n_head, leaves[4].shape[-1], name)
     work, packed = cached_layer(leaves, (n_head, b),
-                                lambda: _v2_pack(leaves, n_head, b, h.device))
+                                lambda: _v2_pack(leaves, n_head, b, h.device, name))
     launches = int(packed)
     h32 = h
     if h.dtype != torch.float32 or not h.is_contiguous() or h.data_ptr() % 16:
         h32 = torch.empty((b, d), dtype=torch.float32, device=h.device)
         h32.copy_(h)
         launches += 1
+    out = torch.empty((b, d), dtype=torch.float32, device=h.device)
+    launched = ctypes.c_int()
     with torch.cuda.device(h.device):
-        out = torch.empty((b, d), dtype=torch.float32, device=h.device)
-        scratch = torch.empty(lib.rlmg_v3_tc_scratch_floats(b, d, work.di), dtype=torch.float32,
-                              device=h.device)
-        launched = ctypes.c_int()
-        rc = lib.rlmg_v2_tc_step(
+        rc = getattr(lib, f"rlmg_{variant}_tc_step")(
             work.wptr, work.vptr, s_aug.data_ptr(), h32.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), work.cnt.data_ptr(), b, d, n_head, work.di, eps,
+            work.scratch.data_ptr(), work.cnt.data_ptr(), b, d, n_head, work.di, eps,
             int(work.mats[0].dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
             ctypes.byref(launched))
     if rc:
@@ -332,13 +343,26 @@ def fused_layer_step_v2(h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor
     if h.dtype != torch.float32:
         out = out.to(h.dtype)
         launches += 1
-    fused_layer_step_v2.launches += 1
-    fused_layer_step_v2.cuda_launches += launches
-    fused_layer_step_v2.packs += int(packed)
+    fn.launches += 1
+    fn.cuda_launches += launches
+    fn.packs += int(packed)
     return out, s_aug
 
 
-fused_layer_step.launches = fused_layer_step.cuda_launches = 0
+def fused_layer_step_v2(h: torch.Tensor, layer_params: dict, s_aug: torch.Tensor, *,
+                        n_head: int, eps: float = DEFAULT_EPS
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v2: ``fused_layer_step`` with head-major weights.  CUDA tensors go to
+    the token kernel (``launches`` counts the calls, ``cuda_launches`` every
+    CUDA launch a call issues, the packing and h's conversions included,
+    ``packs`` the packings); CPU tensors take ``fused_layer_step_v2_plain``;
+    any other device raises."""
+    if h.device.type == "cpu":
+        return fused_layer_step_v2_plain(h, layer_params, s_aug, n_head=n_head, eps=eps)
+    return _layer_tc("v2", h, layer_params, s_aug, n_head, eps)
+
+
+fused_layer_step.launches = fused_layer_step.cuda_launches = fused_layer_step.packs = 0
 fused_layer_step_v2.launches = fused_layer_step_v2.cuda_launches = fused_layer_step_v2.packs = 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Two checkouts' decode kernels held against each other on one card: the
-outputs of kernel A, v3, v8 and v7 bit for bit, and the ms of those and of
-v5 and v2, each checkout's run in turns A, B, B, A.
+outputs of kernel A, v3, v8, v7, v5 and v2 bit for bit, and the ms of those
+and of v1, each checkout's run in turns A, B, B, A.
 
     python3 scripts/ab_torch_decode_kernels.py <checkout A> <checkout B> [rounds]
     python3 scripts/ab_torch_decode_kernels.py --run <checkout> <out.pt>
@@ -14,11 +14,15 @@ from seed 1:
     at B=5, bf16 weights and state and f32 weights and state (h and the
     state); v3 at one head of 512, B=5, both weight types (h and the
     augmented state); v8 and v7 one 32-token call at B=5, CP sampling, bf16
-    weights and state (the tokens and the state);
+    weights and state (the tokens and the state); v5 one 16-token call at
+    B=8, CP sampling, bf16 weights (the tokens and the state); v2 four
+    layer calls at B=32, f32 weights (h and the augmented state);
   * ms (CUDA events over a run of calls after a warm one): A and v3 a
     token at B=5, v8 and v7 a token in 32-token calls at B=1, 5, 16, v5 a
     token at B=256 (32-token calls, bb 8, 16, 32) and B=8 (64-token
-    calls), bf16 weights; v2 a layer call at B=32, f32 weights.
+    calls), bf16 weights; v1 and v2 a layer call at B=32, f32 weights,
+    through the wrapper and on the device (the sum of the call's kernels'
+    mean times under torch.profiler).
 The comparison prints, for each output, whether the checkouts agree bit for
 bit (and the max |diff| where not), then each time's per-run values and
 medians.  It prints the card's name and power limit first and one JSON
@@ -79,6 +83,17 @@ def _run(checkout: str, out: str) -> None:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def device_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(ev.self_device_time_total / ev.count for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count) / 1e3
+
     kw = dict(vocab_sizes=cfg.vocab_sizes, greedy=False, eps=cfg.attn_eps,
               temps=tuple(s.temperature for s in smp.CP_SAMPLING),
               topps=tuple(s.top_p if s.top_p is not None else float("inf")
@@ -124,6 +139,11 @@ def _run(checkout: str, out: str) -> None:
                                            5) / 32
     v5p = dk5.make_v5_params(params, cfg)
     pe = cm.sinusoidal_table(cfg.max_len, cfg.d_model, f32, dev)
+    st = lt.init_decode_state(cfg, 8, device=dev)
+    s5, z5 = dk5.pack_state(st.s, st.z)
+    tk = dk5.fused_decode_v5(v5p, tokens(1, 8)[0], s5, z5, pe[:16], 3, n_head=cfg.n_head,
+                             max_tokens=16, bb=8, **kw)[0]
+    outs["v5 tokens"], outs["v5 s"], outs["v5 z"] = tk.cpu(), s5.cpu(), z5.cpu()
     for bt, T, bbs in ((256, 32, (8, 16, 32)), (8, 64, (8,))):
         st = lt.init_decode_state(cfg, bt, device=dev)
         s5, z5 = dk5.pack_state(st.s, st.z)
@@ -136,8 +156,14 @@ def _run(checkout: str, out: str) -> None:
     h32 = lt.embed_input(params, cfg, tokens(1, 32)[0], 0, None).float()
     lp = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in params["layers"].items()}
     s1 = dk.aug_state_init(cfg, 32, dev)[0]
-    ms["v2 one layer B=32"] = time_ms(lambda: dk.fused_layer_step_v2(
-        h32, lp, s1, n_head=cfg.n_head), 20)
+    h = h32
+    for _ in range(4):
+        h = dk.fused_layer_step_v2(h, lp, s1, n_head=cfg.n_head)[0]
+    outs["v2 h"], outs["v2 s"] = h.cpu(), s1.cpu()
+    for name, fn in (("v1", dk.fused_layer_step), ("v2", dk.fused_layer_step_v2)):
+        ms[f"{name} one layer B=32"] = time_ms(lambda: fn(h32, lp, s1, n_head=cfg.n_head), 20)
+        ms[f"{name} one layer B=32, device"] = device_ms(
+            lambda: fn(h32, lp, s1, n_head=cfg.n_head), 20)
     torch.cuda.synchronize()
     torch.save({"outputs": outs, "ms": ms}, out)
 

@@ -118,6 +118,86 @@ def test_v2_packed_operands_unpack_to_jax_head_major_weights(dtype):
             np.testing.assert_array_equal(v[0].numpy(), w)
 
 
+def _v1_head_major_columns(d: int, n_head: int) -> torch.Tensor:
+    """The packing's column map: head-major column h 3E + j E + e (j = 0, 1,
+    2 for q, k, v) is column j D + h E + e of v1's [q | k | v] weight."""
+    e = d // n_head
+    h, j, u = torch.meshgrid(torch.arange(n_head), torch.arange(3), torch.arange(e),
+                             indexing="ij")
+    return (j * d + h * e + u).reshape(-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_model,n_head", [(48, 3), (128, 2)])
+def test_v1_weights_pack_to_the_operands_the_kernel_reads(dtype, d_model, n_head):
+    """v1 reads v2's packed operands: its (D, 3D) [q | k | v] weight (the
+    JAX kernel's concatenation, :101-102), its columns taken through the
+    head-major column map, packs (``pack_fragments``) to ``v2_pack_plain``'s
+    qkv bit for bit; its bias through the same map is the packed bias; its
+    Wo, W1, W2 and the other vectors are v2's as they are."""
+    tcfg = TC.LinearTransformerConfig(**{**_kw(d_model, n_head), "d_inner": 2 * d_model})
+    params = tlt.init_params(tcfg, seed=4, device="cpu")
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    gen = torch.Generator().manual_seed(9)
+    for li in range(tcfg.n_layer):
+        lp = {k: {kk: (torch.randn(vv[li].shape, generator=gen) if kk == "b" else vv[li])
+                  .to(tdt) for kk, vv in v.items()} for k, v in params["layers"].items()}
+        qkv_w, qkv_b, wo_w = tdk._v1_weights(lp)[:3]
+        cols = _v1_head_major_columns(d_model, n_head)
+        assert sorted(cols.tolist()) == list(range(3 * d_model))
+        mats, vecs = tdk.v2_pack_plain(lp, n_head)
+        assert torch.equal(mats[0], tdk4.pack_fragments(qkv_w[:, cols][None]))
+        assert torch.equal(vecs[0][0], qkv_b[cols])
+        assert torch.equal(mats[1], tdk4.pack_fragments(wo_w[None]))
+        assert torch.equal(mats[2], tdk4.pack_fragments(lp["ffn1"]["w"][None]))
+        assert torch.equal(mats[3], tdk4.pack_fragments(lp["ffn2"]["w"][None]))
+        tail_vecs = [t for t in tdk._tail_weights(lp) if t.dim() == 1]
+        assert len(tail_vecs) == len(vecs) - 1
+        for got, want in zip(vecs[1:], tail_vecs):
+            assert torch.equal(got[0], want)
+
+
+def _ln1_inputs(monkeypatch, fn, h, lp, s, n_head):
+    """The LN1 input of one call of a plain twin (its first ``ln``) and the
+    attention it formed (``aug_attention_plain``'s (H, B, E) result)."""
+    seen, att = [], []
+    real_ln, real_att = tdk.ln, tdk.aug_attention_plain
+    with monkeypatch.context() as m:
+        m.setattr(tdk, "ln", lambda x, *a: seen.append(x.clone()) or real_ln(x, *a))
+        m.setattr(tdk, "aug_attention_plain", lambda *a: att.append(real_att(*a)) or att[-1])
+        fn(h, lp, s, n_head=n_head)
+    assert len(seen) == 2 and len(att) == 1
+    b, d = h.shape
+    return seen[0], att[0].transpose(0, 1).reshape(b, d)
+
+
+def test_v1_twin_sums_ln1_as_the_jax_kernel(monkeypatch):
+    """v1's LN1 input is h + (att Wo + bo), JAX v1's ``h + ao`` with ``ao =
+    att @ wow + wob`` (:76-78), bit for bit, on values where the other order
+    differs: Wo the identity (so att Wo is att exactly in both packages), h
+    near 1e3, bo near 1e-3.  v2's twin forms (h + att Wo) + bo there
+    (JAX ``_layer_kernel_v2``), which differs."""
+    d, n_head, b = 32, 2, 64
+    tcfg = TC.LinearTransformerConfig(**_kw(d, n_head))
+    params = tlt.init_params(tcfg, seed=6, device="cpu")
+    lp = {k: {kk: vv[0].clone() for kk, vv in v.items()} for k, v in params["layers"].items()}
+    rng = np.random.default_rng(13)
+    lp["wo"]["w"] = torch.eye(d)
+    lp["wo"]["b"] = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32) * 1e-3)
+    h = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32) * 1e3)
+    s = torch.from_numpy(rng.normal(size=(n_head, b, d // n_head, d // n_head + 1))
+                         .astype(np.float32))
+    x1, att1 = _ln1_inputs(monkeypatch, tdk.fused_layer_step_plain, h, lp, s.clone(), n_head)
+    ao = jnp.dot(jnp.asarray(att1.numpy()), jnp.asarray(lp["wo"]["w"].numpy()),
+                 preferred_element_type=jnp.float32) + jnp.asarray(lp["wo"]["b"].numpy())
+    np.testing.assert_array_equal(x1.numpy(), np.asarray(jnp.asarray(h.numpy()) + ao))
+    other = (h + att1) + lp["wo"]["b"]
+    assert (other != x1).any()                 # the orders can be told apart here
+    x2, att2 = _ln1_inputs(monkeypatch, tdk.fused_layer_step_v2_plain, h, lp, s.clone(), n_head)
+    assert torch.equal(x2, (h + att2) + lp["wo"]["b"])
+    assert not torch.equal(x2, h + (att2 + lp["wo"]["b"]))
+
+
 def test_unpack_fragments_inverts_pack_fragments():
     w = torch.randn(2, 40, 24, generator=torch.Generator().manual_seed(7))
     p = tdk4.pack_fragments(w)
@@ -159,13 +239,14 @@ def test_v2_pack_cache_repacks_after_an_in_place_update_and_not_otherwise():
 
 @pytest.mark.parametrize("d_model,n_head", [(48, 3), (128, 1), (128, 2)])
 @pytest.mark.parametrize("bf16_layers", [False, True])
-def test_exact_gelu_control_lands_above_the_layer_gate(d_model, n_head, bf16_layers):
-    """The control of the card's v2 gate, on the plain twins: five tokens
-    through the layers on the exact-erf gelu (v3's layer,
+@pytest.mark.parametrize("variant", ["v2", "v1"])
+def test_exact_gelu_control_lands_above_the_layer_gate(d_model, n_head, bf16_layers, variant):
+    """The control of the card's v1 and v2 gates, on the plain twins: five
+    tokens through the layers on the exact-erf gelu (v3's layer,
     ``decode_kernel_v3.fused_stack_step_plain`` a layer at a time) end above
     test_layer_kernels_match_plain's h gate (rtol 1e-4, atol 1e-4) against
-    v2's twin, at the card test's shapes and weights (f32, and bf16 layers
-    under f32 activations)."""
+    the variant's twin, at the card test's shapes and weights (f32, and bf16
+    layers under f32 activations)."""
     from reinforcement_learning_in_music_generation_torch.models import common as tcm
     from reinforcement_learning_in_music_generation_torch.ops import decode_kernel_v3 as tdk3
     vocab = (56, 135, 18, 87, 18, 25)
@@ -193,7 +274,8 @@ def test_exact_gelu_control_lands_above_the_layer_gate(d_model, n_head, bf16_lay
             h = tcm.layernorm(params["final_ln"], h)
         return h
 
-    hp = run(lambda h, lp, s, li: tdk.fused_layer_step_v2_plain(h, lp, s, **kw)[0])
+    plain = tdk.fused_layer_step_plain if variant == "v1" else tdk.fused_layer_step_v2_plain
+    hp = run(lambda h, lp, s, li: plain(h, lp, s, **kw)[0])
     hc = run(lambda h, lp, s, li: tdk3.fused_stack_step_plain(
         {k: v[li:li + 1] for k, v in v3p.items()}, h.float(), s[None], **kw)[0])
     excess = ((hc - hp).abs() / (1e-4 + 1e-4 * hp.abs())).max().item()

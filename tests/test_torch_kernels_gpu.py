@@ -1628,19 +1628,20 @@ def _layer_run(params, cfg, toks, step):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d_model,n_head", AUG_SHAPES)
-def test_v2_kernel_matches_plain_with_bf16_weights(dev, d_model, n_head):
-    """v2 on bf16 weights (JAX casts them up to f32: the token kernel's three
-    products of the f32 activation planes): h and the state against the
-    plain twin on the same bf16 weights, test_layer_kernels_match_plain's
-    gates."""
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_v2_kernel_matches_plain_with_bf16_weights(dev, d_model, n_head, variant):
+    """v1 and v2 on bf16 weights (JAX casts them up to f32: the token
+    kernel's three products of the f32 activation planes): h and the state
+    against the variant's plain twin on the same bf16 weights,
+    test_layer_kernels_match_plain's gates."""
     cfg, params, gen = _setup(dev, d_model, n_head, torch.float32)
     params = _bf16_layers(params)
     toks = torch.stack([_tokens(gen, dev, 4) for _ in range(5)])
     kw = dict(n_head=n_head, eps=cfg.attn_eps)
-    hk, sk = _layer_run(params, cfg, toks,
-                        lambda h, lp, s, li: tdk.fused_layer_step_v2(h, lp, s, **kw)[0])
-    hp, sp = _layer_run(params, cfg, toks,
-                        lambda h, lp, s, li: tdk.fused_layer_step_v2_plain(h, lp, s, **kw)[0])
+    fn = tdk.fused_layer_step if variant == "v1" else tdk.fused_layer_step_v2
+    plain = tdk.fused_layer_step_plain if variant == "v1" else tdk.fused_layer_step_v2_plain
+    hk, sk = _layer_run(params, cfg, toks, lambda h, lp, s, li: fn(h, lp, s, **kw)[0])
+    hp, sp = _layer_run(params, cfg, toks, lambda h, lp, s, li: plain(h, lp, s, **kw)[0])
     torch.testing.assert_close(hk.float(), hp.float(), rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-3)
 
@@ -1728,6 +1729,86 @@ def test_v2_issues_one_launch_a_call_once_packed(dev):
     c0, p0 = fn.cuda_launches, fn.packs
     fn(h[:4].contiguous(), lp, s4, n_head=2)
     assert (fn.cuda_launches - c0, fn.packs - p0) == (2, 1)
+
+
+@pytest.mark.gpu
+def test_v1_issues_one_launch_a_call_once_packed_and_counts_its_runs_apart(dev):
+    """v1 on the token kernel: the first call on a layer packs it (two CUDA
+    launches), the next ones find it packed (one launch, the only kernel a
+    profile of the call sees); the kernel counts v1's runs, one a call, and
+    none of them as v2's."""
+    cfg, params, gen = _setup(dev, 128, 2, torch.float32)
+    lp = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in params["layers"].items()}
+    fn = tdk.fused_layer_step
+    h = tlt.embed_input(params, cfg, _tokens(gen, dev, 8), 0, None).float().contiguous()
+    s = tdk.aug_state_init(cfg, 8, dev)[0]
+
+    def call():
+        c0, p0 = fn.cuda_launches, fn.packs
+        fn(h, lp, s, n_head=2)
+        torch.cuda.synchronize()
+        return fn.cuda_launches - c0, fn.packs - p0
+    tdk._V2_CACHE.clear()
+    tdk.kernel_runs_v1(reset=True)
+    tdk.kernel_runs_v2(reset=True)
+    n0 = fn.launches
+    assert call() == (2, 1)
+    assert call() == (1, 0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        assert call() == (1, 0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "stack_tc_kernel" in kernels[0].name, \
+        [e.name for e in kernels]
+    assert fn.launches - n0 == 3
+    assert tdk.kernel_runs_v1() == 3 and tdk.kernel_runs_v2() == 0
+    tdk.fused_layer_step_v2(h, lp, s, n_head=2)
+    assert tdk.kernel_runs_v1() == 3 and tdk.kernel_runs_v2() == 1
+
+
+@pytest.mark.gpu
+def test_v1_refuses_a_d_model_the_kernel_does_not_take(dev):
+    """d_model 1040 (a multiple of 8 above the token kernel's 1024): v1 on
+    CUDA tensors raises ValueError, as v2 does; nothing falls back."""
+    d, di, n_head = 1040, 2080, 8
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev) * 0.02
+    lp = {k: {"w": rnd(d, d), "b": rnd(d)} for k in ("wq", "wk", "wv", "wo")}
+    lp["ffn1"] = {"w": rnd(d, di), "b": rnd(di)}
+    lp["ffn2"] = {"w": rnd(di, d), "b": rnd(d)}
+    for k in ("ln1", "ln2"):
+        lp[k] = {"scale": torch.ones(d, device=dev), "bias": torch.zeros(d, device=dev)}
+    h = rnd(4, d)
+    e = d // n_head
+    s = torch.zeros(n_head, 4, e, e + 1, device=dev)
+    n0 = tdk.fused_layer_step.launches
+    for fn in (tdk.fused_layer_step, tdk.fused_layer_step_v2):
+        with pytest.raises(ValueError, match="1040"):
+            fn(h, lp, s, n_head=n_head)
+    assert tdk.fused_layer_step.launches == n0 and not s.any()
+
+
+@pytest.mark.gpu
+def test_v1_and_v2_kernels_part_where_the_ln1_orders_do(dev):
+    """The v1 field reaches the kernel: on one layer, one state and h, v1's
+    kernel (h + (att Wo + bo)) and v2's ((h + att Wo) + bo) give h that
+    differ, each within the 1e-4 gate of its own twin (the CPU test
+    test_v1_twin_sums_ln1_as_the_jax_kernel holds the order exactly)."""
+    cfg, params, gen = _setup(dev, 128, 2, torch.float32)
+    lp = {k: {kk: vv[0].clone() for kk, vv in v.items()} for k, v in params["layers"].items()}
+    lp["wo"]["b"] = torch.randn(128, generator=gen, device=dev) * 1e-3
+    h = 1e3 * tlt.embed_input(params, cfg, _tokens(gen, dev, 32), 0, None).float()
+    s0 = torch.randn(tuple(tdk.aug_state_init(cfg, 32, dev)[0].shape), generator=gen,
+                     device=dev)
+    out = {}
+    for name, fn in (("v1", tdk.fused_layer_step), ("v2", tdk.fused_layer_step_v2),
+                     ("v1p", tdk.fused_layer_step_plain),
+                     ("v2p", tdk.fused_layer_step_v2_plain)):
+        out[name] = fn(h, lp, s0.clone(), n_head=2)[0]
+    assert not torch.equal(out["v1"], out["v2"])
+    torch.testing.assert_close(out["v1"], out["v1p"], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out["v2"], out["v2p"], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
